@@ -1,0 +1,385 @@
+"""Drive the PyTorch/CUDA port (``dgl_tpu_torch``) on one GPU.
+
+Phases, each of which raises on failure (nothing is caught):
+
+1. device: a CUDA device must be present; prints the card's name and
+   power limit as ``nvidia-smi`` reports them;
+2. build: compiles ``dgl_tpu_torch/csrc/*.cu`` (one ``nvcc`` each, all at
+   once) and prints the build seconds and ptxas' resource report;
+3. every kernel against its plain PyTorch version on an asymmetric
+   graph with multi-edges (24,000 src x 16,300 dst, so both packings
+   reach bit plane 31), forward and backward of ``bit_spmm``;
+4. the slice at full width and size: 2-layer GCN 602 -> 16 -> 41 (norm
+   ``both``) trained for 10 Adam steps on the Reddit-statistics graph
+   (232,965 nodes, 114.6M edges plus self-loops) in the bitmask format,
+   then one more step under ``torch.profiler`` for the device time by
+   kernel;
+5. one step's loss and weight gradients through the kernels against the
+   gather + ``index_add_`` path, and K1 against its plain version at full
+   size;
+6. ``GraphConv(128, 128)`` forward and backward at full size (K2);
+7. yardsticks at full size: each kernel's time (median of 5), its plain
+   version's, one ``torch.sparse.mm`` on a CSR copy of A, and the bound;
+   then both kernels at F = 16, 32 and at the K1/K2 gate, F = 96.
+
+Prints the card line and a ``{"kernels": [...]}`` line before the last;
+the last line is ``{"ok": true, "device": {...}}``.
+
+Usage: python3 chip_smoke.py
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_NODES, N_EDGES, FEAT, HIDDEN, CLASSES = 232_965, 114_615_892, 602, 16, 41
+STEPS = 10
+RTOL, ATOL = 1e-4, 1e-3     # f32 sums in another order, and K1's atomics
+F32_PEAK = 67e12            # H100 SXM f32 outside the tensor cores
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def mem_rate(name: str) -> float:
+    """Published memory rate (bytes/s) of the card named ``name``."""
+    if "H200" in name:
+        return 4.8e12
+    if "H100" in name and "PCIe" in name:
+        return 2.0e12
+    if "H100" in name and "NVL" in name:
+        return 3.9e12
+    return 3.35e12
+
+
+def cuda_ms(fn, reps=5):
+    """Median device time of ``fn()`` over ``reps`` runs, CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def close(got, want, what, rtol=RTOL, atol=ATOL):
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m:
+                               f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+def phase_kernels_mid(bm):
+    """Phase 3: each kernel against its plain version, fwd and bwd."""
+    n_src, n_dst, e = 24_000, 16_300, 600_000
+    rng = np.random.default_rng(3)
+    row = rng.integers(0, n_src, e)
+    col = rng.integers(0, n_dst, e)
+    row[: 20_000] = row[20_000:40_000]          # multi-edges
+    col[: 20_000] = col[20_000:40_000]
+    row[:64], col[:64] = n_src - 1, n_dst - 1   # plane 31 on both sides
+    bf = bm.build_bit_format_device(row, col, n_src, n_dst,
+                                    assume_simple=False, device="cuda")
+    host = bm.pack_bits(row, col, n_src, n_dst)[0]
+    if not np.array_equal(bf.packed.cpu().numpy(), host):
+        raise AssertionError("device packing differs from the host packing")
+    if bf.rem_src.numel() == 0:
+        raise AssertionError("mid-size graph has no remainder")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for f in (16, 41, 96, 97, 128):
+        x = torch.randn(n_src, f, device="cuda", generator=gen,
+                        requires_grad=True)
+        dz = torch.randn(n_dst, f, device="cuda", generator=gen)
+        k1, k2 = bm.bit_matmul_t.launches, bm.bit_matmul.launches
+        out = bm.bit_spmm(bf, x)
+        out.backward(dz)
+        torch.cuda.synchronize()
+        if f <= bm.T_MAX_F:
+            ref = bm.bit_matmul_t_plain(bf.packed_rev, x.detach(), n_dst)
+            dref = bm.bit_matmul_t_plain(bf.packed, dz, n_src)
+            launched = bm.bit_matmul_t.launches - k1
+        else:
+            ref = bm.bit_matmul_plain(bf.packed, x.detach(), n_dst)
+            dref = bm.bit_matmul_plain(bf.packed_rev, dz, n_src)
+            launched = bm.bit_matmul.launches - k2
+        if launched != 2:
+            raise AssertionError(f"F={f}: {launched} kernel launches, not 2")
+        ref = bm.add_remainder(ref, x.detach(), bf.rem_src, bf.rem_dst,
+                               bf.rem_w)
+        dref = bm.add_remainder(dref, dz, bf.rem_dst, bf.rem_src, bf.rem_w)
+        e_fwd = close(out.detach(), ref, f"forward F={f}")
+        e_bwd = close(x.grad, dref, f"backward F={f}")
+        log(f"# mid-size F={f}: forward max|err| {e_fwd:.3g}, backward "
+            f"{e_bwd:.3g} ({'K1' if f <= bm.T_MAX_F else 'K2'})")
+
+
+def reddit_graph(dgt):
+    t0 = time.perf_counter()
+    src, dst = dgt.data.reddit_like_graph_sym(N_NODES, N_EDGES, seed=0)
+    log(f"# graph generated on the host in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    g = dgt.graph((src, dst), num_nodes=N_NODES, device="cuda")
+    g = dgt.add_self_loop(dgt.remove_self_loop(g))
+    g.unit().create_bitmask_format(symmetric=True, on_device=True,
+                                   assume_simple=True)
+    torch.cuda.synchronize()
+    log(f"# graph + bitmask format on the card in "
+        f"{time.perf_counter() - t0:.1f}s: {g.num_edges()} edges, "
+        f"{g.unit()._bits.nbytes} bytes of bits")
+    return g
+
+
+def reddit_inputs():
+    """Features with a weak community signal and the planted community
+    labels (as tools/train_full_reddit.py:36-46)."""
+    rng = np.random.default_rng(7)
+    y = (np.arange(N_NODES) * CLASSES // N_NODES).astype(np.int64)
+    sig = rng.normal(size=(CLASSES, FEAT)).astype(np.float32)
+    x = rng.normal(size=(N_NODES, FEAT)).astype(np.float32) + 0.25 * sig[y]
+    train = np.sort(rng.permutation(N_NODES)[: N_NODES // 10])
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+            torch.from_numpy(train).cuda())
+
+
+class GCN(torch.nn.Module):
+    def __init__(self, dgt, gen):
+        super().__init__()
+        self.conv1 = dgt.nn.GraphConv(FEAT, HIDDEN, activation=torch.relu,
+                                      generator=gen)
+        self.conv2 = dgt.nn.GraphConv(HIDDEN, CLASSES, generator=gen)
+
+    def forward(self, g, x):
+        return self.conv2(g, self.conv1(g, x))
+
+
+def loss_fn(model, g, x, y, train):
+    logits = model(g, x)
+    return torch.nn.functional.cross_entropy(logits[train], y[train])
+
+
+def phase_train(dgt, bm, g, x, y, train):
+    """Phase 4: 10 Adam steps of the 602 -> 16 -> 41 GCN."""
+    model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    bm.bit_matmul_t.launches = 0
+    bm.bit_matmul.launches = 0
+    losses, times = [], []
+    for step in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = loss_fn(model, g, x, y, train)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        log(f"# step {step}: loss {losses[-1]:.6f}, "
+            f"{times[-1] * 1e3:.2f} ms")
+    k1 = bm.bit_matmul_t.launches
+    step_s = statistics.median(times[1:])
+    log(f"# train: median step {step_s * 1e3:.3f} ms after one warm-up "
+        f"step, {g.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"K1 launches {k1}, K2 launches {bm.bit_matmul.launches}")
+    if k1 != 4 * STEPS:
+        raise AssertionError(f"K1 launched {k1} times, not {4 * STEPS}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses do not fall: {losses}")
+    return model, opt, k1
+
+
+def phase_profile(model, opt, g, x, y, train):
+    """One more Adam step under torch.profiler: device time by kernel and
+    the device's busy share of the step (the wall time includes the
+    profiler's own cost)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss_fn(model, g, x, y, train).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us == 0:
+        log("# profiled step: the profiler saw no device time (not measured)")
+        return
+    log(f"# profiled step: {wall_us / 1e3:.3f} ms wall, device busy "
+        f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}); by kernel:")
+    for e in rows[:8]:
+        log(f"#   {e.self_device_time_total / 1e3:9.3f} ms {e.count:3d}x "
+            f"{e.key[:100]}")
+
+
+def phase_check(model, g, x, y, train):
+    """Phase 5: one step through the kernels vs the gather path, and K1
+    against its plain version at full size."""
+    from dgl_tpu_torch.utils import config
+
+    def grads():
+        model.zero_grad()
+        loss = loss_fn(model, g, x, y, train)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    loss_k, grad_k = grads()
+    config.set_use_kernels(False)
+    try:
+        loss_g, grad_g = grads()
+    finally:
+        config.set_use_kernels(True)
+    if abs(loss_k - loss_g) > 1e-4 * abs(loss_g):
+        raise AssertionError(f"loss {loss_k} (kernels) vs {loss_g} (gather)")
+    for n in grad_k:
+        close(grad_k[n], grad_g[n], f"grad {n}", rtol=1e-3, atol=1e-5)
+    log(f"# kernels vs gather path: loss {loss_k:.8f} vs {loss_g:.8f}, "
+        f"{len(grad_k)} gradients agree")
+
+
+def phase_k2(dgt, bm, g):
+    """Phase 6: GraphConv(128, 128) forward and backward (K2)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    conv = dgt.nn.GraphConv(128, 128, generator=gen)
+    x = torch.randn(N_NODES, 128, device="cuda", generator=gen,
+                    requires_grad=True)
+    bm.bit_matmul.launches = 0
+    conv(g, x).square().mean().backward()
+    torch.cuda.synchronize()
+    k2 = bm.bit_matmul.launches
+    log(f"# GraphConv(128, 128) forward + backward: K2 launches {k2}")
+    if k2 == 0 or not torch.isfinite(x.grad).all():
+        raise AssertionError("GraphConv(128, 128) did not run through K2")
+    return k2
+
+
+def yardstick(g, bm, name, kernel, plain, packed, f, rate):
+    """Kernel vs plain version on one full-size call, and the timings."""
+    unit = g.unit()
+    bf = unit._bits
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    x = torch.randn(N_NODES, f, device="cuda", generator=gen)
+    got = kernel(packed, x, N_NODES)
+    want = plain(packed, x, N_NODES)
+    err = close(got, want, f"{name} full size F={f}")
+    ms = cuda_ms(lambda: kernel(packed, x, N_NODES))
+    plain_ms = cuda_ms(lambda: plain(packed, x, N_NODES), reps=3)
+    row, col = unit.coo()
+    a = torch.sparse_coo_tensor(torch.stack([col, row]),
+                                torch.ones_like(row, dtype=torch.float32),
+                                (N_NODES, N_NODES)).coalesce()
+    a = a.to_sparse_csr()
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(a, x))
+    close(torch.sparse.mm(a, x), want, f"torch.sparse.mm F={f}")
+    del a
+    nnz = unit.num_edges - int(bf.rem_w.sum())
+    nbytes = packed.numel() * 4 + x.numel() * 4 + N_NODES * f * 4
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = 2 * nnz * f / F32_PEAK * 1e3
+    bound = max(bytes_ms, ops_ms)
+    log(f"# {name} F={f}: {ms:.4f} ms (bound {bound:.4f} ms by "
+        f"{'bytes' if bytes_ms >= ops_ms else 'operations'}: {nbytes} B), "
+        f"plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, "
+        f"max|err| {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms}
+
+
+def gate_times(bm, bits):
+    """Both kernels at F = 16, 32 and at the gate F = T_MAX_F on the same
+    inputs: the route switches from K1 to K2 above T_MAX_F."""
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    for f in (HIDDEN, 32, bm.T_MAX_F):
+        x = torch.randn(N_NODES, f, device="cuda", generator=gen)
+        k1 = cuda_ms(lambda: bm.bit_matmul_t(bits.packed_rev, x, N_NODES))
+        k2 = cuda_ms(lambda: bm.bit_matmul(bits.packed, x, N_NODES))
+        log(f"# gate F={f}: K1 {k1:.4f} ms, K2 {k2:.4f} ms")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, ROOT)
+    import dgl_tpu_torch as dgt
+    from dgl_tpu_torch.ops.kernels import bitmm as bm, build
+
+    # phase 1: device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"# device: {kind}, {torch.cuda.device_count()} visible; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "ptxas info" in line and ("Used" in line or "spill" in line):
+                log(f"# {name}: {line.strip()}")
+
+    # phase 3: kernels vs plain versions, mid size
+    phase_kernels_mid(bm)
+
+    # phases 4-6: the slice at full size
+    g = reddit_graph(dgt)
+    x, y, train = reddit_inputs()
+    model, opt, k1_launches = phase_train(dgt, bm, g, x, y, train)
+    phase_profile(model, opt, g, x, y, train)
+    phase_check(model, g, x, y, train)
+    del model
+    k2_launches = phase_k2(dgt, bm, g)
+
+    # phase 7: yardsticks
+    rate = mem_rate(kind)
+    bits = g.unit()._bits
+    k1 = yardstick(g, bm, "K1 bit_matmul_t", bm.bit_matmul_t,
+                   bm.bit_matmul_t_plain, bits.packed_rev, HIDDEN, rate)
+    k2 = yardstick(g, bm, "K2 bit_matmul", bm.bit_matmul,
+                   bm.bit_matmul_plain, bits.packed, 128, rate)
+    gate_times(bm, bits)
+    kernels = [
+        {"name": "bit_matmul_t", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitmm.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitmm.py:297",
+         "launches": k1_launches, **k1},
+        {"name": "bit_matmul", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitmm.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitmm.py:370",
+         "launches": k2_launches, **k2},
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

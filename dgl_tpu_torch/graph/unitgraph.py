@@ -1,0 +1,183 @@
+"""Unit graph: one (bipartite) relation as lazily built sparse formats.
+
+Counterpart of ``dgl_tpu/graph/unitgraph.py`` (reference
+``src/graph/unit_graph.h:41``): COO is canonical (edge id ``i`` is position
+``i`` of ``(row, col)``), and CSR/CSC are built from it on first request,
+each with an ``eids`` permutation back to canonical order.  Every array is
+an int64 ``torch.Tensor`` on the graph's device, so no format build leaves
+the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+ALL_FORMATS = ("coo", "csr", "csc")
+
+
+def as_idtensor(x, device) -> torch.Tensor:
+    """int64 id tensor on ``device`` from a numpy array, list or tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
+
+
+@dataclasses.dataclass
+class CSR:
+    """Compressed sparse rows: ``indptr`` (n+1,), ``indices`` (nnz,), ``eids``
+    (nnz,) mapping position -> canonical (COO-order) edge id."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    eids: torch.Tensor
+
+
+def coo_to_csr(row, col, num_rows: int) -> CSR:
+    """COO -> CSR by stable sort on the row index."""
+    eids = torch.argsort(row, stable=True)
+    counts = torch.bincount(row, minlength=num_rows)
+    indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return CSR(indptr=indptr, indices=col[eids], eids=eids)
+
+
+class UnitGraph:
+    """One (srctype, etype, dsttype) relation.
+
+    ``formats`` restricts which representations may be materialized
+    (reference ``UnitGraph::formats_``, ``src/graph/unit_graph.cc:771``)."""
+
+    def __init__(self, num_src: int, num_dst: int, num_edges: int,
+                 coo: Optional[Tuple] = None, csr: Optional[CSR] = None,
+                 csc: Optional[CSR] = None,
+                 formats: Tuple[str, ...] = ALL_FORMATS):
+        self.num_src = int(num_src)
+        self.num_dst = int(num_dst)
+        self.num_edges = int(num_edges)
+        self._coo = coo
+        self._csr = csr
+        self._csc = csc
+        self._in_deg = None
+        self._out_deg = None
+        self._bits = None        # bit-packed full-dense format (BitFormat)
+        self.formats = tuple(formats)
+
+    @classmethod
+    def from_coo(cls, num_src, num_dst, row, col, formats=ALL_FORMATS,
+                 device="cuda"):
+        row = as_idtensor(row, device)
+        col = as_idtensor(col, device)
+        if row.shape != col.shape or row.ndim != 1:
+            raise ValueError("row and col must be 1-D and of equal length")
+        return cls(num_src, num_dst, row.shape[0], coo=(row, col),
+                   formats=formats)
+
+    @property
+    def device(self) -> torch.device:
+        for sp in (self._coo, self._csr, self._csc):
+            if sp is not None:
+                return (sp[0] if isinstance(sp, tuple) else sp.indices).device
+        raise ValueError("graph has no materialized format")
+
+    # -- format access (lazy, cached) --------------------------------------
+    def coo(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(row, col) in canonical edge order."""
+        if self._coo is None:
+            if "coo" not in self.formats:
+                raise ValueError("COO format is restricted on this graph")
+            if self._csr is not None:
+                sp, swap = self._csr, False
+            elif self._csc is not None:
+                sp, swap = self._csc, True
+            else:
+                raise ValueError("graph has no materialized format")
+            counts = sp.indptr[1:] - sp.indptr[:-1]
+            major = torch.repeat_interleave(
+                torch.arange(counts.shape[0], device=counts.device), counts)
+            inv = torch.empty_like(sp.eids)
+            inv[sp.eids] = torch.arange(self.num_edges, device=inv.device)
+            row, col = (sp.indices, major) if swap else (major, sp.indices)
+            self._coo = (row[inv], col[inv])
+        return self._coo
+
+    def csr(self) -> CSR:
+        """Out-CSR: rows = src nodes, indices = dst nodes."""
+        if self._csr is None:
+            if "csr" not in self.formats:
+                raise ValueError("CSR format is restricted on this graph")
+            row, col = self.coo()
+            self._csr = coo_to_csr(row, col, self.num_src)
+        return self._csr
+
+    def csc(self) -> CSR:
+        """In-CSR (CSC): rows = dst nodes, indices = src nodes."""
+        if self._csc is None:
+            if "csc" not in self.formats:
+                raise ValueError("CSC format is restricted on this graph")
+            row, col = self.coo()
+            self._csc = coo_to_csr(col, row, self.num_dst)
+        return self._csc
+
+    def create_bitmask_format(self, symmetric: bool = False,
+                              on_device: bool = False,
+                              assume_simple: bool = False) -> None:
+        """Build the bit-packed full-dense SpMM format (see
+        ``ops/kernels/bitmm.py``): the whole boolean adjacency at 1
+        bit/entry, N_src*N_dst/8 bytes on the graph's device.
+        ``symmetric=True`` (A == A^T) shares one packed matrix between the
+        forward and the backward.
+
+        ``on_device=True`` packs with a scatter-add on the graph's device
+        instead of on the host; ``assume_simple=True`` additionally skips
+        the host duplicate-edge scan (for graphs simple by construction).
+        """
+        from ..ops.kernels import bitmm
+        row, col = self.coo()
+        if on_device:
+            self._bits = bitmm.build_bit_format_device(
+                row, col, self.num_src, self.num_dst, symmetric=symmetric,
+                assume_simple=assume_simple, device=row.device)
+        else:
+            self._bits = bitmm.build_bit_format(
+                row.cpu().numpy(), col.cpu().numpy(), self.num_src,
+                self.num_dst, symmetric=symmetric, device=row.device)
+
+    def materialized_formats(self) -> Tuple[str, ...]:
+        return tuple(name for name, sp in (("coo", self._coo),
+                                           ("csr", self._csr),
+                                           ("csc", self._csc))
+                     if sp is not None)
+
+    # -- queries -----------------------------------------------------------
+    def in_degrees(self, v=None):
+        """In-degree per dst node, from a bincount over the COO (the same
+        numbers as the CSC indptr, without the CSC sort)."""
+        if self._in_deg is None:
+            if self._csc is not None:
+                self._in_deg = self._csc.indptr[1:] - self._csc.indptr[:-1]
+            else:
+                self._in_deg = torch.bincount(self.coo()[1],
+                                              minlength=self.num_dst)
+        return self._in_deg if v is None else self._in_deg[v]
+
+    def out_degrees(self, u=None):
+        if self._out_deg is None:
+            if self._csr is not None:
+                self._out_deg = self._csr.indptr[1:] - self._csr.indptr[:-1]
+            else:
+                self._out_deg = torch.bincount(self.coo()[0],
+                                               minlength=self.num_src)
+        return self._out_deg if u is None else self._out_deg[u]
+
+    def reverse(self) -> "UnitGraph":
+        """Swap src/dst.  CSR<->CSC swap; COO swaps row/col.  O(1)."""
+        coo = None if self._coo is None else (self._coo[1], self._coo[0])
+        return UnitGraph(self.num_dst, self.num_src, self.num_edges,
+                         coo=coo, csr=self._csc, csc=self._csr,
+                         formats=self.formats)
+
+    def __repr__(self):
+        return (f"UnitGraph(num_src={self.num_src}, num_dst={self.num_dst}, "
+                f"num_edges={self.num_edges}, formats={self.formats})")

@@ -20,10 +20,22 @@ Phases, each of which raises on failure (nothing is caught):
 6. ``GraphConv(128, 128)`` forward and backward at full size (K2);
 7. yardsticks at full size: each kernel's time (median of 5), its plain
    version's, one ``torch.sparse.mm`` on a CSR copy of A, and the bound;
-   then both kernels at F = 16, 32 and at the K1/K2 gate, F = 96.
+   then both kernels at F = 16, 32 and at the K1/K2 gate, F = 96;
+8. the GAT slice at mid size: K5 forward and backward
+   (``bitgat_attention_aggregate``) against their plain versions on the
+   phase-3 graph made simple, at (H, D) = (4, 32), (1, 41) and (8, 16),
+   with and without attention dropout 0.6; then a 2-layer GAT forward and
+   backward through the kernels against the edge chain;
+9. the GAT slice at full width and size: the 2-layer GAT 602 -> 4 x 32
+   -> elu -> 1 x 41 with attention dropout 0.6 trained for 10 Adam steps
+   on the phase-4 graph, then one more step under ``torch.profiler``;
+10. K5 yardsticks at full size, (H, D) = (4, 32) and (1, 41) with
+   dropout 0.6: each kernel against its plain version on all rows, its
+   time (median of 5), its plain version's and the bound.
 
-Prints the card line and a ``{"kernels": [...]}`` line before the last;
-the last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds.  Prints the card line and a
+``{"kernels": [...]}`` line before the last; the last line is
+``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py
 """
@@ -80,8 +92,8 @@ def close(got, want, what, rtol=RTOL, atol=ATOL):
     return float((got - want).abs().max())
 
 
-def phase_kernels_mid(bm):
-    """Phase 3: each kernel against its plain version, fwd and bwd."""
+def mid_graph():
+    """The asymmetric mid-size COO of phase 3, with multi-edges."""
     n_src, n_dst, e = 24_000, 16_300, 600_000
     rng = np.random.default_rng(3)
     row = rng.integers(0, n_src, e)
@@ -89,6 +101,12 @@ def phase_kernels_mid(bm):
     row[: 20_000] = row[20_000:40_000]          # multi-edges
     col[: 20_000] = col[20_000:40_000]
     row[:64], col[:64] = n_src - 1, n_dst - 1   # plane 31 on both sides
+    return row, col, n_src, n_dst
+
+
+def phase_kernels_mid(bm):
+    """Phase 3: each kernel against its plain version, fwd and bwd."""
+    row, col, n_src, n_dst = mid_graph()
     bf = bm.build_bit_format_device(row, col, n_src, n_dst,
                                     assume_simple=False, device="cuda")
     host = bm.pack_bits(row, col, n_src, n_dst)[0]
@@ -317,12 +335,226 @@ def gate_times(bm, bits):
         log(f"# gate F={f}: K1 {k1:.4f} ms, K2 {k2:.4f} ms")
 
 
+# -- the GAT slice ---------------------------------------------------------
+
+GAT_SHAPES = ((4, 32), (1, 41))   # the two layers: 4 x 32, then 1 x 41
+ATTN_DROP, SLOPE = 0.6, 0.2       # the reference recipe's dropout
+
+
+class GAT(torch.nn.Module):
+    """feat -> GATConv(4 heads x 32) -> elu -> GATConv(1 head x 41), as
+    tools/perf_gat_train_reddit.py:32-42."""
+
+    def __init__(self, dgt, gen, feat, attn_drop):
+        super().__init__()
+        (h1, d1), (h2, d2) = GAT_SHAPES
+        self.conv1 = dgt.nn.GATConv(feat, d1, h1, attn_drop=attn_drop,
+                                    generator=gen)
+        self.conv2 = dgt.nn.GATConv(h1 * d1, d2, h2, attn_drop=attn_drop,
+                                    generator=gen)
+
+    def forward(self, g, x):
+        h = torch.nn.functional.elu(self.conv1(g, x).flatten(1))
+        return self.conv2(g, h).flatten(1)
+
+
+def bitgat_reference(bg, bf, el, er, z, g, thresh, seed, num_dst):
+    """K5's plain versions chained as the autograd function chains the
+    kernels: (out, d_el, d_er, d_z) for inputs inside the clip."""
+    out, l = bg.bitgat_fwd_plain(bf.packed, el, er, z, num_dst, SLOPE,
+                                 thresh, seed)
+    linv, rho = bg.backward_scales(g, out, l, thresh)
+    return (out,) + bg.bitgat_bwd_plain(bf.packed_rev, el, er, z, g, linv,
+                                        rho, num_dst, SLOPE, thresh, seed)
+
+
+def phase_bitgat_mid(dgt, bm, bg):
+    """Phase 8: K5 against its plain versions at mid size, then a 2-layer
+    GAT through the kernels against the edge chain."""
+    from dgl_tpu_torch.utils import config
+    row, col, n_src, n_dst = mid_graph()
+    key = np.unique(col * n_src + row)
+    row, col = key % n_src, key // n_src
+    bf = bm.build_bit_format_device(row, col, n_src, n_dst, device="cuda")
+    if bf.rem_src.numel() or not ((bf.packed < 0).any()
+                                  and (bf.packed_rev < 0).any()):
+        raise AssertionError("mid-size graph is not simple or misses "
+                             "plane 31")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for heads, dim in GAT_SHAPES + ((8, 16),):
+        for drop in (0.0, ATTN_DROP):
+            thresh = bg.drop_thresh(drop)
+            seed = torch.tensor([-123_456_789 - heads], device="cuda")
+            el, er = (torch.randn(n, heads, device="cuda", generator=gen)
+                      for n in (n_src, n_dst))
+            z = torch.randn(n_src, heads, dim, device="cuda", generator=gen)
+            g = torch.randn(n_dst, heads, dim, device="cuda", generator=gen)
+            ins = [t.clone().requires_grad_() for t in (el, er, z)]
+            f0, b0 = bg.bitgat_fwd.launches, bg.bitgat_bwd.launches
+            out = bg.bitgat_attention_aggregate(bf, *ins, SLOPE, drop,
+                                                seed if thresh else None)
+            out.backward(g)
+            torch.cuda.synchronize()
+            if (bg.bitgat_fwd.launches - f0, bg.bitgat_bwd.launches - b0) \
+                    != (1, 1):
+                raise AssertionError("K5 did not launch once each way")
+            ref = bitgat_reference(bg, bf, el, er, z, g, thresh, seed, n_dst)
+            errs = [close(got, want, f"K5 mid {name} H={heads} D={dim} "
+                          f"drop={drop}")
+                    for name, got, want in zip(
+                        ("out", "d_el", "d_er", "d_z"),
+                        (out.detach(),) + tuple(t.grad for t in ins), ref)]
+            log(f"# K5 mid H={heads} D={dim} drop={drop}: max|err| out "
+                f"{errs[0]:.3g}, d_el {errs[1]:.3g}, d_er {errs[2]:.3g}, "
+                f"d_z {errs[3]:.3g}")
+
+    # a 2-layer GAT through the kernels against the edge chain
+    gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
+    gr.unit().create_bitmask_format(on_device=True)
+    feat = 64
+    x = torch.randn(n_src, feat, device="cuda", generator=gen)
+    y = torch.randint(0, CLASSES, (n_src,), device="cuda", generator=gen)
+    model = GAT(dgt, torch.Generator(device="cuda").manual_seed(9), feat,
+                attn_drop=0.0)
+    train = torch.arange(n_dst, device="cuda")
+
+    def step():
+        model.zero_grad()
+        logits = model(gr, x)
+        torch.nn.functional.cross_entropy(logits[train],
+                                          y[train]).backward()
+        return logits.detach(), {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}
+
+    f0, b0 = bg.bitgat_fwd.launches, bg.bitgat_bwd.launches
+    out_k, grad_k = step()
+    if (bg.bitgat_fwd.launches - f0, bg.bitgat_bwd.launches - b0) != (2, 2):
+        raise AssertionError("the GAT did not run through K5")
+    config.set_use_kernels(False)
+    try:
+        out_c, grad_c = step()
+    finally:
+        config.set_use_kernels(True)
+    err = close(out_k, out_c, "GAT kernels vs edge chain")
+    for n in grad_k:
+        close(grad_k[n], grad_c[n], f"GAT grad {n}", rtol=1e-3, atol=1e-5)
+    log(f"# GAT mid size, kernels vs edge chain: logits max|err| "
+        f"{err:.3g}, {len(grad_k)} gradients agree")
+
+
+def phase_gat_train(dgt, bg, g, x, y, train):
+    """Phase 9: 10 Adam steps of the 602 -> 4 x 32 -> 1 x 41 GAT with
+    attention dropout 0.6; K5's counts are set to 0 just before and read
+    just after."""
+    model = GAT(dgt, torch.Generator(device="cuda").manual_seed(0), FEAT,
+                attn_drop=ATTN_DROP)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    bg.bitgat_fwd.launches = 0
+    bg.bitgat_bwd.launches = 0
+    losses, times = [], []
+    for step in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = loss_fn(model, g, x, y, train)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        log(f"# GAT step {step}: loss {losses[-1]:.6f}, "
+            f"{times[-1] * 1e3:.2f} ms")
+    launches = (bg.bitgat_fwd.launches, bg.bitgat_bwd.launches)
+    step_s = statistics.median(times[1:])
+    log(f"# GAT train: median step {step_s * 1e3:.3f} ms after one warm-up "
+        f"step, {g.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"K5 launches {launches[0]} forward, {launches[1]} backward")
+    if launches != (2 * STEPS, 2 * STEPS):
+        raise AssertionError(f"K5 launched {launches}, not "
+                             f"({2 * STEPS}, {2 * STEPS})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"GAT losses do not fall: {losses}")
+    return model, opt, launches
+
+
+def bitgat_yardstick(bg, g, heads, dim, rate):
+    """K5 forward and backward against their plain versions on every row
+    of the full graph, with dropout as trained, and the timings."""
+    bf = g.unit()._bits
+    n = N_NODES
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
+    el, er = (torch.randn(n, heads, device="cuda", generator=gen)
+              for _ in range(2))
+    z, gr = (torch.randn(n, heads, dim, device="cuda", generator=gen)
+             for _ in range(2))
+    thresh, seed = bg.drop_thresh(ATTN_DROP), 20_240_611
+    out, l = bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE, thresh, seed)
+    want_out, want_l = bg.bitgat_fwd_plain(bf.packed, el, er, z, n, SLOPE,
+                                           thresh, seed)
+    err_f = close(out, want_out, f"K5 fwd H={heads} D={dim}")
+    err_l = close(l, want_l, f"K5 l H={heads} D={dim}")
+    linv, rho = bg.backward_scales(gr, want_out, want_l, thresh)
+    bwd_args = (el, er, z, gr, linv, rho, n, SLOPE, thresh, seed)
+    got = bg.bitgat_bwd(bf.packed_rev, *bwd_args)
+    want = bg.bitgat_bwd_plain(bf.packed_rev, *bwd_args)
+    err_b = max(close(a, b, f"K5 bwd {name} H={heads} D={dim}")
+                for name, a, b in zip(("d_el", "d_er", "d_z"), got, want))
+    del out, l, want_out, want_l, got, want
+    times = {
+        "fwd": cuda_ms(lambda: bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE,
+                                             thresh, seed)),
+        "fwd_plain": cuda_ms(lambda: bg.bitgat_fwd_plain(
+            bf.packed, el, er, z, n, SLOPE, thresh, seed), reps=1),
+        "bwd": cuda_ms(lambda: bg.bitgat_bwd(bf.packed_rev, *bwd_args)),
+        "bwd_plain": cuda_ms(lambda: bg.bitgat_bwd_plain(bf.packed_rev,
+                                                         *bwd_args), reps=1),
+    }
+    # bytes: each input read once and each output written once;
+    # operations (f32): per edge and head about 5 (forward) or 12
+    # (backward), per edge and feature column 2 (forward) or 4 (backward)
+    e = g.unit().num_edges
+    node, feat_b = n * heads * 4, n * heads * dim * 4
+    rows = {}
+    for name, nbytes, ops, err in (
+            # in: the bits of A, el, er, z; out: out, l
+            ("fwd", bf.packed.numel() * 4 + 3 * node + 2 * feat_b,
+             e * heads * (2 * dim + 5), err_f),
+            # in: the bits of A^T, el, er, linv, rho, z, g; out: del,
+            # der, dz
+            ("bwd", bf.packed_rev.numel() * 4 + 6 * node + 3 * feat_b,
+             e * heads * (4 * dim + 12), err_b)):
+        bytes_ms, ops_ms = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
+        rows[name] = {"max_abs_err": err, "ms": times[name],
+                      "plain_ms": times[f"{name}_plain"],
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+                      "library_ms": None}
+        log(f"# K5 {name} H={heads} D={dim} drop={ATTN_DROP}: "
+            f"{times[name]:.4f} ms (bound {rows[name]['bound_ms']:.4f} ms by "
+            f"{rows[name]['bound_by']}: {nbytes} B, {ops} ops), plain "
+            f"{times[f'{name}_plain']:.4f} ms, library none, max|err| "
+            f"{err:.3g}" + (f" (l {err_l:.3g})" if name == "fwd" else ""))
+    return rows
+
+
+def phase(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    torch.cuda.synchronize()
+    log(f"# phase {name}: {time.perf_counter() - t0:.1f}s")
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, ROOT)
     import dgl_tpu_torch as dgt
-    from dgl_tpu_torch.ops.kernels import bitmm as bm, build
+    from dgl_tpu_torch.ops.kernels import bitgat as bg, bitmm as bm, build
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -345,25 +577,39 @@ def main():
                 log(f"# {name}: {line.strip()}")
 
     # phase 3: kernels vs plain versions, mid size
-    phase_kernels_mid(bm)
+    phase("3 (K1, K2 mid size)", phase_kernels_mid, bm)
+    # phase 8 first among the slow ones: a fault in K5 shows before the
+    # full-size graph is generated
+    phase("8 (GAT mid size)", phase_bitgat_mid, dgt, bm, bg)
 
-    # phases 4-6: the slice at full size
-    g = reddit_graph(dgt)
+    # phases 4-6: the GCN slice at full size
+    g = phase("graph", reddit_graph, dgt)
     x, y, train = reddit_inputs()
-    model, opt, k1_launches = phase_train(dgt, bm, g, x, y, train)
-    phase_profile(model, opt, g, x, y, train)
-    phase_check(model, g, x, y, train)
-    del model
-    k2_launches = phase_k2(dgt, bm, g)
+    model, opt, k1_launches = phase("4 (GCN train)", phase_train, dgt, bm,
+                                    g, x, y, train)
+    phase("4 (GCN profile)", phase_profile, model, opt, g, x, y, train)
+    phase("5 (GCN check)", phase_check, model, g, x, y, train)
+    del model, opt
+    k2_launches = phase("6 (K2)", phase_k2, dgt, bm, g)
 
     # phase 7: yardsticks
     rate = mem_rate(kind)
     bits = g.unit()._bits
+    t0 = time.perf_counter()
     k1 = yardstick(g, bm, "K1 bit_matmul_t", bm.bit_matmul_t,
                    bm.bit_matmul_t_plain, bits.packed_rev, HIDDEN, rate)
     k2 = yardstick(g, bm, "K2 bit_matmul", bm.bit_matmul,
                    bm.bit_matmul_plain, bits.packed, 128, rate)
     gate_times(bm, bits)
+    log(f"# phase 7 (K1, K2 yardsticks): {time.perf_counter() - t0:.1f}s")
+
+    # phases 9-10: the GAT slice at full size
+    model, opt, k5_launches = phase("9 (GAT train)", phase_gat_train, dgt,
+                                    bg, g, x, y, train)
+    phase("9 (GAT profile)", phase_profile, model, opt, g, x, y, train)
+    del model, opt
+    k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, g,
+                h, d, rate) for h, d in GAT_SHAPES]
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -373,6 +619,15 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
          "replaces": "dgl_tpu/ops/pallas/bitmm.py:370",
          "launches": k2_launches, **k2},
+        # the first layer's shape, H x D = 4 x 32
+        {"name": "bitgat_fwd", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitgat.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitgat.py:245",
+         "launches": k5_launches[0], **k5[0]["fwd"]},
+        {"name": "bitgat_bwd", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitgat.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitgat.py:408",
+         "launches": k5_launches[1], **k5[0]["bwd"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@ PyTorch version beside it that the CPU runs.  Entry points take a
 ``device`` argument that defaults to ``"cuda"``; the CPU is used only
 when the caller passes it.
 
-This slice carries full-graph GCN training on the bitmask SpMM kernels.
+Slices so far: full-graph GCN training on the bitmask SpMM kernels, and
+full-graph GAT training on the bitmask attention kernels.
 """
 
 __version__ = "0.1.0"
@@ -16,7 +17,7 @@ from .graph import Graph, UnitGraph, graph
 from . import function
 from . import ops
 from . import core
-from .core import update_all
+from .core import apply_edges, update_all
 from .transforms import add_self_loop, remove_self_loop
 from . import nn
 from . import data

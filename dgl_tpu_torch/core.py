@@ -1,26 +1,62 @@
 """The message-passing engine: builtin message + reduce pairs fused into
-one g-SpMM call.
+one g-SpMM call, and builtin edge messages by g-SDDMM.
 
-Counterpart of ``dgl_tpu/core.py`` (``invoke_gspmm``, ``message_passing``,
-``update_all``; reference ``python/dgl/core.py:311, 372-425``).  This slice
-carries the builtin pairs; user-defined message and reduce functions come
-with a later slice.
+Counterpart of ``dgl_tpu/core.py`` (``invoke_gspmm``, ``invoke_gsddmm``,
+``message_passing``, ``update_all``, ``apply_edges``; reference
+``python/dgl/core.py:273, 311, 372-425``).  This slice carries the
+builtins; user-defined message, reduce and edge functions, and edge
+subsets, come with a later slice.
 """
 from __future__ import annotations
 
 from .function import BuiltinMessage, BuiltinReduce
-from .ops import gspmm
+from .ops import gsddmm, gspmm
+
+
+def _fetch(g, etid, target: str, field: str):
+    st, _, dt = g.canonical_etypes[etid]
+    if target == "u":
+        return g._node_frames[g.get_ntype_id(st)][field]
+    if target == "v":
+        return g._node_frames[g.get_ntype_id(dt)][field]
+    if target == "e":
+        return g._edge_frames[etid][field]
+    raise ValueError(target)
+
+
+def invoke_gsddmm(g, etid, mfunc: BuiltinMessage):
+    """Builtin messages as an edge tensor (reference ``core.py:273``)."""
+    unit = g._units[etid]
+    x = _fetch(g, etid, mfunc.lhs, mfunc.lhs_field)
+    if mfunc.rhs is None:
+        if mfunc.name == "copy_u":
+            return gsddmm(unit, "copy_lhs", x, None, "u", "v")
+        return gsddmm(unit, "copy_rhs", None, x, "u", "e")
+    y = _fetch(g, etid, mfunc.rhs, mfunc.rhs_field)
+    return gsddmm(unit, mfunc.binary_op, x, y, lhs_target=mfunc.lhs,
+                  rhs_target=mfunc.rhs)
 
 
 def invoke_gspmm(g, etid, mfunc: BuiltinMessage, rfunc: BuiltinReduce):
     """Fused message+reduce (reference ``core.py:311``)."""
     unit = g._units[etid]
-    st, _, _ = g.canonical_etypes[etid]
-    x = g._node_frames[g.get_ntype_id(st)][mfunc.lhs_field]
+    reduce_op = rfunc.name
+    x = _fetch(g, etid, mfunc.lhs, mfunc.lhs_field)
     if mfunc.rhs is None:
-        return gspmm(unit, mfunc.binary_op, rfunc.name, x, None)
-    y = g._edge_frames[etid][mfunc.rhs_field]
-    return gspmm(unit, mfunc.binary_op, rfunc.name, x, y)
+        if mfunc.name == "copy_u":
+            return gspmm(unit, "copy_lhs", reduce_op, x, None)
+        return gspmm(unit, "copy_rhs", reduce_op, None, x)
+    y = _fetch(g, etid, mfunc.rhs, mfunc.rhs_field)
+    op, pair = mfunc.binary_op, (mfunc.lhs, mfunc.rhs)
+    if pair == ("u", "e") and op != "dot":
+        return gspmm(unit, op, reduce_op, x, y)
+    if pair == ("e", "u") and op in ("add", "mul"):
+        return gspmm(unit, op, reduce_op, y, x)
+    # v targets, dot, and non-commutative e-u: materialize the message,
+    # then reduce it with copy_rhs (the reference's fallback)
+    msg = gsddmm(unit, op, x, y, lhs_target=mfunc.lhs,
+                 rhs_target=mfunc.rhs)
+    return gspmm(unit, "copy_rhs", reduce_op, None, msg)
 
 
 def message_passing(g, mfunc, rfunc, etid: int = 0):
@@ -46,3 +82,30 @@ def update_all(g, mfunc, rfunc, etype=None):
     """Functional variant: returns the reduced fields without mutating
     the graph."""
     return message_passing(g, mfunc, rfunc, g.get_etype_id(etype))
+
+
+def _edge_messages(g, func, edges, etype):
+    if not isinstance(func, BuiltinMessage):
+        raise NotImplementedError(
+            "dgl_tpu_torch carries builtin edge functions only; "
+            "user-defined functions come with a later slice")
+    if edges is not None:
+        raise NotImplementedError(
+            "dgl_tpu_torch: apply_edges over an edge subset comes with a "
+            "later slice")
+    etid = g.get_etype_id(etype)
+    return etid, invoke_gsddmm(g, etid, func)
+
+
+def apply_edges_inplace(g, func, edges=None, etype=None):
+    """``g.apply_edges`` (reference ``heterograph.py:4597``): stores the
+    builtin's messages under its output field in ``g.edata``."""
+    etid, out = _edge_messages(g, func, edges, etype)
+    g._edge_frames[etid][func.out_field] = out
+    return g
+
+
+def apply_edges(g, func, edges=None, etype=None):
+    """Functional apply_edges: returns the edge tensor (num_edges, ...)
+    without mutating the graph."""
+    return _edge_messages(g, func, edges, etype)[1]

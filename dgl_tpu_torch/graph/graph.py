@@ -160,6 +160,10 @@ class Graph:
         return core.update_all_inplace(self, message_func, reduce_func,
                                        etype=etype)
 
+    def apply_edges(self, func, edges=None, etype=None):
+        from .. import core
+        return core.apply_edges_inplace(self, func, edges=edges, etype=etype)
+
     def add_self_loop(self, etype=None):
         from ..transforms.functional import add_self_loop
         return add_self_loop(self, etype=etype)

@@ -1,0 +1,153 @@
+"""GATConv (graph attention) layer.
+
+Counterpart of ``dgl_tpu/nn/conv/gatconv.py:22-176`` (reference
+``python/dgl/nn/pytorch/conv/gatconv.py:14``): ``fc`` projects the
+features to H heads of D, el/er are the per-head dot products with
+``attn_l``/``attn_r``, the edge logits lrelu(el[src] + er[dst]) are
+softmax-normalized over each dst, dropped with ``attn_drop`` in training,
+and weight the aggregation of the projected src features.  ``bias`` and
+``attn_l``/``attn_r`` are (1, H, D) as in the JAX package; ``fc`` and
+``res_fc`` are ``nn.Linear`` without bias.
+
+Two routes, chosen as ``gatconv.py:91-109`` chooses them:
+
+* the bitmask kernels (``ops/kernels/bitgat.py``, K5) when the graph
+  carries a simple bit format, H * D <= 128, at most 8 heads under
+  attention dropout, enough edges, and no ``edge_weight`` or
+  ``get_attention``.  They clip el and er to +-20 each instead of
+  subtracting a per-dst max (the JAX package's numerics contract), and
+  draw the dropout mask from a hash of (src, dst, head, seed), with one
+  seed per forward drawn from the module's generator;
+* otherwise the edge chain: ``apply_edges(u_add_v)``, leaky_relu,
+  ``edge_softmax`` (max-subtracted), dropout from the module's generator,
+  ``edge_weight``, ``update_all(u_mul_e, sum)``.  It holds (E, H, D)
+  messages, so it does not fit at Reddit scale.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from ... import function as fn
+from ...core import apply_edges, update_all
+from ...ops import edge_softmax
+from ...ops.kernels import bitgat
+from ...utils import config, expand_as_pair, resolve_device
+
+
+def _dropout(x, p: float, generator: Optional[torch.Generator]):
+    """Inverted dropout whose mask comes from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
+
+
+class GATConv(nn.Module):
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 negative_slope: float = 0.2, residual: bool = False,
+                 activation: Optional[Callable] = None,
+                 allow_zero_in_degree: bool = False, bias: bool = True,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_feats = in_feats
+        self.out_feats = out_feats
+        self.num_heads = num_heads
+        self.feat_drop = feat_drop
+        self.attn_drop = attn_drop
+        self.negative_slope = negative_slope
+        self.activation = activation
+        self.allow_zero_in_degree = allow_zero_in_degree
+        self.generator = generator
+        dev = resolve_device(device)
+        hd = num_heads * out_feats
+        self.fc = nn.Linear(in_feats, hd, bias=False, device=dev)
+        self.attn_l = nn.Parameter(torch.empty(1, num_heads, out_feats,
+                                               device=dev))
+        self.attn_r = nn.Parameter(torch.empty(1, num_heads, out_feats,
+                                               device=dev))
+        self.res_fc = (nn.Linear(in_feats, hd, bias=False, device=dev)
+                       if residual else None)
+        self.bias = (nn.Parameter(torch.zeros(1, num_heads, out_feats,
+                                              device=dev))
+                     if bias else None)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        """Xavier-normal weights (gain of relu) and a zero bias, as the
+        reference's ``reset_parameters``."""
+        gain = nn.init.calculate_gain("relu")
+        for w in (self.fc.weight, self.attn_l, self.attn_r) + (
+                (self.res_fc.weight,) if self.res_fc is not None else ()):
+            nn.init.xavier_normal_(w, gain=gain, generator=self.generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def _use_bits(self, unit, train_drop, edge_weight, get_attention):
+        bits = unit._bits
+        heads, dim = self.num_heads, self.out_feats
+        return (config.use_kernels() and bits is not None
+                and bits.rem_src.shape[0] == 0
+                and heads * dim <= bitgat.MAX_HD
+                and not (train_drop and heads > 8)
+                and unit.num_edges >= config.get("kernel_spmm_min_edges")
+                and edge_weight is None and not get_attention)
+
+    def _seed(self, device):
+        """One int32 per forward from the module's generator."""
+        gen = self.generator
+        return torch.randint(-2**31, 2**31, (1,), generator=gen,
+                             device=gen.device if gen is not None else device)
+
+    def forward(self, graph, feat, edge_weight=None, get_attention=False):
+        heads, dim = self.num_heads, self.out_feats
+        feat_src, feat_dst = expand_as_pair(feat, graph)
+        if self.feat_drop > 0 and self.training:
+            feat_src = _dropout(feat_src, self.feat_drop, self.generator)
+            feat_dst = (feat_src if feat_dst is feat
+                        else _dropout(feat_dst, self.feat_drop,
+                                      self.generator))
+        ft_src = self.fc(feat_src).reshape(-1, heads, dim)
+        ft_dst = (ft_src if feat_dst is feat_src
+                  else self.fc(feat_dst).reshape(-1, heads, dim))
+        train_drop = self.attn_drop > 0 and self.training
+        unit = graph.unit()
+        a = None
+        if self._use_bits(unit, train_drop, edge_weight, get_attention):
+            el = (ft_src * self.attn_l).sum(-1)              # (N, H)
+            er = (ft_dst * self.attn_r).sum(-1)
+            rst = bitgat.bitgat_attention_aggregate(
+                unit._bits, el, er, ft_src, self.negative_slope,
+                attn_drop=self.attn_drop if train_drop else 0.0,
+                dropout_seed=(self._seed(ft_src.device) if train_drop
+                              else None)).to(ft_src.dtype)
+        else:
+            el = (ft_src * self.attn_l).sum(-1, keepdim=True)   # (N, H, 1)
+            er = (ft_dst * self.attn_r).sum(-1, keepdim=True)
+            with graph.local_scope():
+                graph.srcdata.update({"ft": ft_src, "el": el})
+                graph.dstdata.update({"er": er})
+                e = apply_edges(graph, fn.u_add_v("el", "er", "e"))
+                e = nn.functional.leaky_relu(e, self.negative_slope)
+                a = edge_softmax(graph, e)
+                if train_drop:
+                    a = _dropout(a, self.attn_drop, self.generator)
+                if edge_weight is not None:
+                    a = a * edge_weight.reshape(-1, 1, 1)
+                graph.edata["a"] = a
+                rst = update_all(graph, fn.u_mul_e("ft", "a", "m"),
+                                 fn.sum("m", "ft"))["ft"]
+        if self.res_fc is not None:
+            rst = rst + self.res_fc(feat_dst).reshape(-1, heads, dim)
+        if self.bias is not None:
+            rst = rst + self.bias
+        if self.activation is not None:
+            rst = self.activation(rst)
+        if get_attention:
+            return rst, a
+        return rst
+
+    def extra_repr(self):
+        return (f"in={self.in_feats}, out={self.out_feats}, "
+                f"heads={self.num_heads}")

@@ -6,12 +6,14 @@ PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
-atomics add in an order that changes from run to run."""
+atomics (and K5's, for the gradient of er) add in an order that changes
+from run to run."""
 import numpy as np
 import pytest
 import torch
 
 import dgl_tpu_torch as dgt
+import dgl_tpu_torch.ops.kernels.bitgat as tbg
 import dgl_tpu_torch.ops.kernels.bitmm as tbm
 from dgl_tpu_torch.utils import config
 
@@ -107,3 +109,88 @@ def test_graphconv_kernels_match_gather_path(card, fin, fout, monkeypatch):
     torch.testing.assert_close(out_k, out_g, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(dw_k, dw_g, rtol=1e-3, atol=1e-5)
     torch.testing.assert_close(dx_k, dx_g, rtol=1e-3, atol=1e-5)
+
+
+def _simple_coo():
+    """The COO above made simple: both packings still reach plane 31."""
+    row, col, n_src, n_dst = _coo()
+    key = np.unique(col * n_src + row)
+    return key % n_src, key // n_src, n_src, n_dst
+
+
+@pytest.mark.parametrize("heads,dim,drop", [
+    (4, 32, 0.0), (4, 32, 0.6), (1, 41, 0.0), (1, 41, 0.6), (8, 16, 0.6),
+    (3, 5, 0.0), (2, 64, 0.0)])
+def test_bitgat_kernels_match_plain(card, heads, dim, drop):
+    """K5 forward and backward through ``bitgat_attention_aggregate``
+    against the plain versions chained the same way."""
+    row, col, n_src, n_dst = _simple_coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    assert (bf.packed < 0).any() and (bf.packed_rev < 0).any()
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + dim)
+    el = torch.randn(n_src, heads, device=card, generator=gen)
+    er = torch.randn(n_dst, heads, device=card, generator=gen)
+    z = torch.randn(n_src, heads, dim, device=card, generator=gen)
+    g = torch.randn(n_dst, heads, dim, device=card, generator=gen)
+    thresh = tbg.drop_thresh(drop)
+    seed = torch.tensor([-7], device=card) if thresh else None
+    ins = [t.clone().requires_grad_() for t in (el, er, z)]
+    before = (tbg.bitgat_fwd.launches, tbg.bitgat_bwd.launches)
+    out = tbg.bitgat_attention_aggregate(bf, *ins, 0.2, drop, seed)
+    out.backward(g)
+    assert (tbg.bitgat_fwd.launches, tbg.bitgat_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref, l = tbg.bitgat_fwd_plain(bf.packed, el, er, z, n_dst, 0.2, thresh,
+                                  seed)
+    linv, rho = tbg.backward_scales(g, ref, l, thresh)
+    grads = tbg.bitgat_bwd_plain(bf.packed_rev, el, er, z, g, linv, rho,
+                                 n_dst, 0.2, thresh, seed)
+    torch.testing.assert_close(out.detach(), ref, rtol=RTOL, atol=ATOL)
+    for got, want in zip((t.grad for t in ins), grads):
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_bitgat_kernel_zero_in_degree(card):
+    """dst rows with no in-edge: exactly 0 and finite gradients."""
+    row, col, n_src, n_dst = _simple_coo()
+    keep = col < n_dst - 100
+    bf = tbm.build_bit_format_device(row[keep], col[keep], n_src, n_dst,
+                                     device=card)
+    z = torch.randn(n_src, 2, 8, device=card, requires_grad=True)
+    el = torch.randn(n_src, 2, device=card, requires_grad=True)
+    er = torch.randn(n_dst, 2, device=card, requires_grad=True)
+    out = tbg.bitgat_attention_aggregate(bf, el, er, z, 0.2, 0.6, 5)
+    out.sum().backward()
+    assert (out[n_dst - 100:] == 0).all()
+    assert all(torch.isfinite(t.grad).all() for t in (el, er, z))
+
+
+def test_gatconv_kernels_match_edge_chain(card, monkeypatch):
+    """A GATConv step through K5 equals the edge chain on the card."""
+    row, col, n, _ = _simple_coo()
+    g = dgt.graph((row, col), num_nodes=n)
+    g.unit().create_bitmask_format(on_device=True)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    conv = dgt.nn.GATConv(24, 32, 4, residual=True,
+                          generator=torch.Generator(device=card)
+                          .manual_seed(0))
+    x = torch.randn(n, 24, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1),
+                    requires_grad=True)
+
+    def step():
+        conv.zero_grad()
+        x.grad = None
+        out = conv(g, x)
+        out.square().mean().backward()
+        return [out.detach(), x.grad.clone()] + [
+            p.grad.clone() for p in conv.parameters()]
+
+    before = tbg.bitgat_fwd.launches
+    kern = step()
+    assert tbg.bitgat_fwd.launches == before + 1
+    monkeypatch.setitem(config._FLAGS, "use_kernels", False)
+    chain = step()
+    torch.testing.assert_close(kern[0], chain[0], rtol=RTOL, atol=ATOL)
+    for a, b in zip(kern[1:], chain[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

@@ -194,6 +194,19 @@ g = dgt.graph((rng.integers(0, 50, 400), rng.integers(0, 50, 400)),
 g.unit().create_bitmask_format(on_device=True)
 conv = dgt.nn.GraphConv(5, 3, device="cpu")
 conv(g, torch.randn(50, 5)).sum().backward()
+import dgl_tpu_torch.params, dgl_tpu_torch.ops.kernels.bitgat
+gs = dgt.graph((rng.integers(0, 50, 400), rng.integers(0, 50, 400)),
+               num_nodes=50, device="cpu")
+gs.unit().create_bitmask_format()
+bits_gat = dgt.nn.GATConv(5, 4, 2, device="cpu")
+bits_gat(gs, torch.randn(50, 5)).sum().backward()   # multi-edges: chain
+row, col = gs.unit().coo()
+key = torch.unique(col * 50 + row)
+gs = dgt.graph((key % 50, key // 50), num_nodes=50, device="cpu")
+gs.unit().create_bitmask_format()
+bits_gat(gs, torch.randn(50, 5)).sum().backward()   # simple: the kernels
+dgt.ops.edge_softmax(gs, dgt.ops.gsddmm(gs, "add", torch.randn(50, 2),
+                                        torch.randn(50, 2)))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))
@@ -213,6 +226,7 @@ def test_default_device_is_the_card():
     entries = [
         lambda: dgt.graph((row, col), num_nodes=n),
         lambda: dgt.nn.GraphConv(3, 4),
+        lambda: dgt.nn.GATConv(3, 4, 2),
         lambda: tbm.build_bit_format(row, col, n, n),
         lambda: tbm.build_bit_format_device(row, col, n, n),
     ]

@@ -25,13 +25,31 @@ Phases, each of which raises on failure (nothing is caught):
    (``bitgat_attention_aggregate``) against their plain versions on the
    phase-3 graph made simple, at (H, D) = (4, 32), (1, 41) and (8, 16),
    with and without attention dropout 0.6; then a 2-layer GAT forward and
-   backward through the kernels against the edge chain;
+   backward through the kernels against edgeflat's gather path;
 9. the GAT slice at full width and size: the 2-layer GAT 602 -> 4 x 32
    -> elu -> 1 x 41 with attention dropout 0.6 trained for 10 Adam steps
    on the phase-4 graph, then one more step under ``torch.profiler``;
 10. K5 yardsticks at full size, (H, D) = (4, 32) and (1, 41) with
    dropout 0.6: each kernel against its plain version on all rows, its
-   time (median of 5), its plain version's and the bound.
+   time (median of 5), its plain version's and the bound;
+11. the tiled slice at mid size: K3 (F = 16, 41, 128; no weights, edge
+   weights and slot weights; forward and backward) and K4's SpMM and
+   SDDMM ((H, Fh) = (4, 32), (1, 41), (8, 16)) against their plain
+   versions on the phase-3 multigraph in the tiled format, built on the
+   card and equal to the host builder's;
+12. the tiled format at full size: a second graph over the phase-4 COO,
+   forward and reverse formats built on the card (no bitmask);
+13. route 1: the phase-4 GCN for 10 Adam steps on the tiled format (K3),
+   a profiled step, and one step against the gather path;
+14. route 3: the same GCN with ``norm="none"`` and edge weights from
+   ``EdgeWeightNorm("both")`` of ones, cached in slot order: its logits
+   against route 1's; then the weights as a tensor that needs a gradient,
+   one step against the gather path;
+15. route 2: the phase-9 GAT with attention dropout 0.6 for 10 Adam steps
+   on the tiled format (edgeflat, K4), and a profiled step;
+16. K3 and K4 yardsticks at full size: each kernel against its plain
+   version, its time (median of 5), its plain version's, one PyTorch call
+   computing the same function where there is one, and the bound.
 
 Each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
@@ -243,7 +261,7 @@ def phase_profile(model, opt, g, x, y, train):
         return
     log(f"# profiled step: {wall_us / 1e3:.3f} ms wall, device busy "
         f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}); by kernel:")
-    for e in rows[:8]:
+    for e in rows[:12]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms {e.count:3d}x "
             f"{e.key[:100]}")
 
@@ -370,7 +388,8 @@ def bitgat_reference(bg, bf, el, er, z, g, thresh, seed, num_dst):
 
 def phase_bitgat_mid(dgt, bm, bg):
     """Phase 8: K5 against its plain versions at mid size, then a 2-layer
-    GAT through the kernels against the edge chain."""
+    GAT through the kernels against edgeflat's gather path (what
+    ``use_kernels(False)`` gives on a graph of this size)."""
     from dgl_tpu_torch.utils import config
     row, col, n_src, n_dst = mid_graph()
     key = np.unique(col * n_src + row)
@@ -408,7 +427,7 @@ def phase_bitgat_mid(dgt, bm, bg):
                 f"{errs[0]:.3g}, d_el {errs[1]:.3g}, d_er {errs[2]:.3g}, "
                 f"d_z {errs[3]:.3g}")
 
-    # a 2-layer GAT through the kernels against the edge chain
+    # a 2-layer GAT through the kernels against edgeflat's gather path
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.unit().create_bitmask_format(on_device=True)
     feat = 64
@@ -435,11 +454,11 @@ def phase_bitgat_mid(dgt, bm, bg):
         out_c, grad_c = step()
     finally:
         config.set_use_kernels(True)
-    err = close(out_k, out_c, "GAT kernels vs edge chain")
+    err = close(out_k, out_c, "GAT kernels vs edgeflat gather path")
     for n in grad_k:
         close(grad_k[n], grad_c[n], f"GAT grad {n}", rtol=1e-3, atol=1e-5)
-    log(f"# GAT mid size, kernels vs edge chain: logits max|err| "
-        f"{err:.3g}, {len(grad_k)} gradients agree")
+    log(f"# GAT mid size, kernels vs edgeflat (gather path): logits "
+        f"max|err| {err:.3g}, {len(grad_k)} gradients agree")
 
 
 def phase_gat_train(dgt, bg, g, x, y, train):
@@ -540,6 +559,340 @@ def bitgat_yardstick(bg, g, heads, dim, rate):
     return rows
 
 
+# -- the tiled slice ---------------------------------------------------------
+
+TILED_MH_SHAPES = GAT_SHAPES + ((8, 16),)
+
+
+def phase_tiled_mid(tts, tsp, ef):
+    """Phase 11: K3 and K4 against their plain versions at mid size."""
+    row, col, n_src, n_dst = mid_graph()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda")
+    rev = tts.build_tiled_format_device(col, row, n_dst, n_src,
+                                        device="cuda")
+    host = tts.build_tiled_format(row, col, n_src, n_dst, device="cpu")
+    for name in ("src_local", "dst_local", "eid", "valid", "src_tile",
+                 "dst_tile", "dst_ptr"):
+        if not torch.equal(getattr(fwd, name).cpu(), getattr(host, name)):
+            raise AssertionError(f"device-built {name} differs from host")
+    rt, ct = (torch.as_tensor(a, device="cuda") for a in (row, col))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ew = torch.rand(len(row), device="cuda", generator=gen) + 0.5
+    w_f, w_r = tts.slot_edge_weights(fwd, ew), tts.slot_edge_weights(rev, ew)
+    for f in (16, 41, 128):
+        for kind in ("none", "edge", "slot"):
+            x = torch.randn(n_src, f, device="cuda", generator=gen,
+                            requires_grad=True)
+            w = ew.clone().requires_grad_()
+            dz = torch.randn(n_dst, f, device="cuda", generator=gen)
+            k3 = tts.tiled_spmm.launches
+            if kind == "none":
+                out = tsp.spmm_tiled_copy(fwd, rev, x)
+            elif kind == "edge":
+                out = tsp.spmm_tiled_mul(fwd, rev, rt, ct, x, w)
+            else:
+                out = tsp.spmm_tiled_static(fwd, rev, w_f, w_r, x)
+            out.backward(dz)
+            torch.cuda.synchronize()
+            if tts.tiled_spmm.launches - k3 != 2:
+                raise AssertionError(f"K3 F={f} {kind}: not 2 launches")
+            wf, wr = (None, None) if kind == "none" else (w_f, w_r)
+            e_f = close(out.detach(), tts.tiled_spmm_plain(fwd, x.detach(),
+                                                           wf),
+                        f"K3 mid forward F={f} {kind}")
+            e_b = close(x.grad, tts.tiled_spmm_plain(rev, dz, wr),
+                        f"K3 mid backward F={f} {kind}")
+            msg = ""
+            if kind == "edge":
+                e_w = close(w.grad, (x.detach()[rt] * dz[ct]).sum(-1),
+                            f"K3 mid dEw F={f}")
+                msg = f", dEw {e_w:.3g}"
+            log(f"# K3 mid F={f} weights={kind}: max|err| forward "
+                f"{e_f:.3g}, backward {e_b:.3g}{msg}")
+    for heads, fh in TILED_MH_SHAPES:
+        x = torch.randn(n_src, heads, fh, device="cuda", generator=gen)
+        z = torch.randn(n_dst, heads, fh, device="cuda", generator=gen)
+        w = torch.rand(len(row) * heads, device="cuda", generator=gen)
+        w_slot = ef._w_slot_from_flat(fwd, w, heads)
+        k4 = (tts.tiled_spmm_multihead.launches,
+              tts.tiled_sddmm_dot_multihead.launches)
+        out = tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh)
+        e = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+        torch.cuda.synchronize()
+        if (tts.tiled_spmm_multihead.launches - k4[0],
+                tts.tiled_sddmm_dot_multihead.launches - k4[1]) != (1, 1):
+            raise AssertionError("K4 did not launch once each")
+        e_s = close(out, tts.tiled_spmm_multihead_plain(fwd, x, w_slot),
+                    f"K4 SpMM mid H={heads} Fh={fh}")
+        e_d = close(e, tts.tiled_sddmm_dot_multihead_plain(fwd, x, z),
+                    f"K4 SDDMM mid H={heads} Fh={fh}")
+        log(f"# K4 mid H={heads} Fh={fh}: max|err| SpMM {e_s:.3g}, SDDMM "
+            f"{e_d:.3g}")
+
+
+def tiled_graph(dgt, g):
+    """Phase 12: a second graph over g's COO with the tiled format (auto
+    cap), forward and reverse built on the card, and no bitmask."""
+    gt = dgt.graph(g.unit().coo(), num_nodes=N_NODES, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt.create_tiled_format()
+    torch.cuda.synchronize()
+    fwd, rev = gt.unit().tiled_format()
+    slots = fwd.num_buckets * fwd.cap
+    log(f"# tiled format (forward and reverse) built on the card in "
+        f"{time.perf_counter() - t0:.3f}s: tile {fwd.tile}, cap {fwd.cap}, "
+        f"{fwd.num_buckets} and {rev.num_buckets} buckets, {slots} slots "
+        f"per direction, fill {gt.num_edges() / slots:.4f}, "
+        f"{fwd.nbytes} + {rev.nbytes} bytes, covered_mask "
+        f"{'none' if fwd.covered_mask is None else 'set'}")
+    return gt
+
+
+class WeightedGCN(torch.nn.Module):
+    """The GCN with ``norm="none"`` and the aggregation weighted by
+    ``edge_weight`` (an edata field's name or a tensor)."""
+
+    def __init__(self, dgt, gen):
+        super().__init__()
+        self.conv1 = dgt.nn.GraphConv(FEAT, HIDDEN, norm="none",
+                                      activation=torch.relu, generator=gen)
+        self.conv2 = dgt.nn.GraphConv(HIDDEN, CLASSES, norm="none",
+                                      generator=gen)
+        self.edge_weight = None
+
+    def forward(self, g, x):
+        ew = self.edge_weight
+        return self.conv2(g, self.conv1(g, x, edge_weight=ew),
+                          edge_weight=ew)
+
+
+def phase_tiled_gcn(dgt, tts, gt, x, y, train):
+    """Phase 13 (route 1): 10 Adam steps of the GCN through K3; K3's
+    count is set to 0 just before and read just after."""
+    model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    tts.tiled_spmm.launches = 0
+    losses, times = [], []
+    for step in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = loss_fn(model, gt, x, y, train)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        log(f"# tiled GCN step {step}: loss {losses[-1]:.6f}, "
+            f"{times[-1] * 1e3:.2f} ms")
+    k3 = tts.tiled_spmm.launches
+    step_s = statistics.median(times[1:])
+    log(f"# tiled GCN train: median step {step_s * 1e3:.3f} ms after one "
+        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"K3 launches {k3}")
+    if k3 != 4 * STEPS:
+        raise AssertionError(f"K3 launched {k3} times, not {4 * STEPS}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"tiled GCN losses do not fall: {losses}")
+    return model, opt, k3
+
+
+def phase_weighted_gcn(dgt, tts, gt, x, y, train):
+    """Phase 14 (route 3): static slot weights against route 1's logits,
+    then learnable weights against the gather path."""
+    from dgl_tpu_torch.utils import config
+    e = gt.num_edges()
+    gt.edata["w"] = dgt.nn.EdgeWeightNorm("both")(
+        gt, torch.ones(e, device="cuda"))
+    gt.cache_edge_weights("w")
+    plain = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    model = WeightedGCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    model.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        want = plain(gt, x)
+        model.edge_weight = "w"
+        k3 = tts.tiled_spmm.launches
+        got = model(gt, x)
+        torch.cuda.synchronize()
+        static_launches = tts.tiled_spmm.launches - k3
+    err = close(got, want, "static weighted logits vs route 1")
+    log(f"# weighted GCN, static slot weights: logits max|err| {err:.3g} "
+        f"against route 1, K3 launches {static_launches}")
+    if static_launches != 2:
+        raise AssertionError("the static route did not run through K3")
+
+    w = gt.edata["w"].detach()
+
+    def step():
+        model.zero_grad()
+        model.edge_weight = w.clone().requires_grad_()
+        loss = loss_fn(model, gt, x, y, train)
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in model.parameters()] + [
+            model.edge_weight.grad]
+
+    k3 = tts.tiled_spmm.launches
+    loss_k, grad_k = step()
+    torch.cuda.synchronize()
+    learn_launches = tts.tiled_spmm.launches - k3
+    config.set_use_kernels(False)
+    try:
+        loss_g, grad_g = step()
+    finally:
+        config.set_use_kernels(True)
+    if abs(loss_k - loss_g) > 1e-4 * abs(loss_g):
+        raise AssertionError(f"loss {loss_k} (K3) vs {loss_g} (gather)")
+    for i, (a, b) in enumerate(zip(grad_k, grad_g)):
+        close(a, b, f"weighted GCN grad {i}", rtol=1e-3, atol=1e-5)
+    log(f"# weighted GCN, learnable weights: loss {loss_k:.8f} vs gather "
+        f"path {loss_g:.8f}, {len(grad_k)} gradients agree (dEw included), "
+        f"K3 launches {learn_launches}")
+    if learn_launches != 4:
+        raise AssertionError("the learnable route did not run through K3")
+    del gt.edata["w"]
+    gt.unit().uncache_edge_weights("w")
+    return static_launches + learn_launches
+
+
+def phase_tiled_gat(dgt, tts, gt, x, y, train):
+    """Phase 15 (route 2): 10 Adam steps of the GAT with attention dropout
+    0.6 on the tiled format; K4's counts are set to 0 just before and read
+    just after."""
+    model = GAT(dgt, torch.Generator(device="cuda").manual_seed(0), FEAT,
+                attn_drop=ATTN_DROP)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    tts.tiled_spmm_multihead.launches = 0
+    tts.tiled_sddmm_dot_multihead.launches = 0
+    losses, times = [], []
+    for step in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = loss_fn(model, gt, x, y, train)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        log(f"# tiled GAT step {step}: loss {losses[-1]:.6f}, "
+            f"{times[-1] * 1e3:.2f} ms")
+    launches = (tts.tiled_spmm_multihead.launches,
+                tts.tiled_sddmm_dot_multihead.launches)
+    step_s = statistics.median(times[1:])
+    log(f"# tiled GAT train: median step {step_s * 1e3:.3f} ms after one "
+        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"K4 launches {launches[0]} SpMM, {launches[1]} SDDMM")
+    if launches != (4 * STEPS, 2 * STEPS):
+        raise AssertionError(f"K4 launched {launches}, not "
+                             f"({4 * STEPS}, {2 * STEPS})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"tiled GAT losses do not fall: {losses}")
+    return model, opt, launches
+
+
+def bound(nbytes, ops, rate):
+    """(bound ms, what bounds it) for ``nbytes`` moved and ``ops`` f32
+    operations."""
+    bytes_ms, ops_ms = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def csr_of(gt, values=None):
+    """A (dst, src) CSR copy of the graph for the library yardsticks."""
+    row, col = gt.unit().coo()
+    if values is None:
+        values = torch.ones_like(row, dtype=torch.float32)
+    return torch.sparse_coo_tensor(torch.stack([col, row]), values,
+                                   (N_NODES, N_NODES)).coalesce() \
+        .to_sparse_csr()
+
+
+def tiled_yardsticks(ef, tts, gt, rate):
+    """Phase 16: K3 at F = 16 and K4 at (4, 32) and (1, 41) at full size,
+    each against its plain version, with the timings."""
+    fwd, _ = gt.unit().tiled_format()
+    e = gt.num_edges()
+    slots = fwd.num_buckets * fwd.cap
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = {}
+
+    x = torch.randn(N_NODES, HIDDEN, device="cuda", generator=gen)
+    want = tts.tiled_spmm_plain(fwd, x)
+    err = close(tts.tiled_spmm(fwd, x), want, "K3 full size F=16")
+    a = csr_of(gt)
+    close(torch.sparse.mm(a, x), want, "torch.sparse.mm F=16")
+    nbytes = slots * 12 + 2 * x.numel() * 4
+    b, by = bound(nbytes, 2 * e * HIDDEN, rate)
+    rows["k3"] = {"max_abs_err": err,
+                  "ms": cuda_ms(lambda: tts.tiled_spmm(fwd, x)),
+                  "plain_ms": cuda_ms(lambda: tts.tiled_spmm_plain(fwd, x),
+                                      reps=1),
+                  "bound_ms": b, "bound_by": by,
+                  "library_ms": cuda_ms(lambda: torch.sparse.mm(a, x))}
+    log(f"# K3 F={HIDDEN}: {rows['k3']['ms']:.4f} ms (bound {b:.4f} ms by "
+        f"{by}: {nbytes} B), plain {rows['k3']['plain_ms']:.4f} ms, "
+        f"torch.sparse.mm {rows['k3']['library_ms']:.4f} ms, max|err| "
+        f"{err:.3g}")
+    del want
+
+    for heads, fh in GAT_SHAPES:
+        x = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
+        z = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
+        w = torch.rand(e * heads, device="cuda", generator=gen)
+        w_slot = ef._w_slot_from_flat(fwd, w, heads)
+        feat_b = N_NODES * heads * fh * 4
+        ops = 2 * e * heads * fh
+        lib_s = lib_d = None
+        if heads == 1:   # one PyTorch call computes each function at H = 1
+            aw = csr_of(gt, w)
+            lib_s = cuda_ms(lambda: torch.sparse.mm(aw, x[:, 0]))
+            close(torch.sparse.mm(aw, x[:, 0]),
+                  tts.tiled_spmm_multihead(fwd, x, w_slot, 1, fh)[:, 0],
+                  "torch.sparse.mm weighted H=1")
+            del aw
+            lib_d = cuda_ms(lambda: torch.sparse.sampled_addmm(
+                a, z[:, 0], x[:, 0].T, beta=0.0))
+            got = torch.sparse.sampled_addmm(a, z[:, 0], x[:, 0].T,
+                                             beta=0.0).values().sum()
+            want_sum = tts.tiled_sddmm_dot_multihead(fwd, x, z, 1, fh).sum()
+            close(got, want_sum, "torch.sparse.sampled_addmm H=1 sum",
+                  rtol=1e-3, atol=1e-1)
+        why = ("one call at H = 1" if heads == 1 else
+               "none: no single PyTorch call computes a per-head weighted "
+               "sparse product or per-head sampled dot")
+        for name, kernel, plain, nbytes, lib in (
+                ("spmm_mh",
+                 lambda: tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh),
+                 lambda: tts.tiled_spmm_multihead_plain(fwd, x, w_slot),
+                 slots * (12 + 4 * heads) + 2 * feat_b, lib_s),
+                ("sddmm_mh",
+                 lambda: tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh),
+                 lambda: tts.tiled_sddmm_dot_multihead_plain(fwd, x, z),
+                 slots * (12 + 4 * heads) + 2 * feat_b, lib_d)):
+            err = close(kernel(), plain(), f"K4 {name} full size H={heads} "
+                        f"Fh={fh}")
+            b, by = bound(nbytes, ops, rate)
+            rows[f"{name}_{heads}"] = {
+                "max_abs_err": err, "ms": cuda_ms(kernel),
+                "plain_ms": cuda_ms(plain, reps=1), "bound_ms": b,
+                "bound_by": by, "library_ms": lib}
+            r = rows[f"{name}_{heads}"]
+            log(f"# K4 {name} H={heads} Fh={fh}: {r['ms']:.4f} ms (bound "
+                f"{b:.4f} ms by {by}: {nbytes} B, {ops} ops), plain "
+                f"{r['plain_ms']:.4f} ms, library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'} ({why}), "
+                f"max|err| {err:.3g}")
+        del x, z, w, w_slot
+    return rows
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -554,7 +907,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, ROOT)
     import dgl_tpu_torch as dgt
+    from dgl_tpu_torch.ops import edgeflat as ef
     from dgl_tpu_torch.ops.kernels import bitgat as bg, bitmm as bm, build
+    from dgl_tpu_torch.ops.kernels import spmm as tsp, tiled_spmm as tts
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -581,6 +936,7 @@ def main():
     # phase 8 first among the slow ones: a fault in K5 shows before the
     # full-size graph is generated
     phase("8 (GAT mid size)", phase_bitgat_mid, dgt, bm, bg)
+    phase("11 (K3, K4 mid size)", phase_tiled_mid, tts, tsp, ef)
 
     # phases 4-6: the GCN slice at full size
     g = phase("graph", reddit_graph, dgt)
@@ -610,6 +966,24 @@ def main():
     del model, opt
     k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, g,
                 h, d, rate) for h, d in GAT_SHAPES]
+
+    # phases 12-16: the tiled slice at full size
+    gt = phase("12 (tiled format)", tiled_graph, dgt, g)
+    model, opt, k3_launches = phase("13 (route 1: tiled GCN train)",
+                                    phase_tiled_gcn, dgt, tts, gt, x, y,
+                                    train)
+    phase("13 (route 1 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("13 (route 1 check)", phase_check, model, gt, x, y, train)
+    del model, opt
+    phase("14 (route 3: weighted GCN)", phase_weighted_gcn, dgt, tts, gt, x,
+          y, train)
+    model, opt, k4_launches = phase("15 (route 2: tiled GAT train)",
+                                    phase_tiled_gat, dgt, tts, gt, x, y,
+                                    train)
+    phase("15 (route 2 profile)", phase_profile, model, opt, gt, x, y, train)
+    del model, opt
+    tiled = phase("16 (K3, K4 yardsticks)", tiled_yardsticks, ef, tts, gt,
+                  rate)
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -628,6 +1002,19 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitgat.cu",
          "replaces": "dgl_tpu/ops/pallas/bitgat.py:408",
          "launches": k5_launches[1], **k5[0]["bwd"]},
+        {"name": "tiled_spmm", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
+         "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:302",
+         "launches": k3_launches, **tiled["k3"]},
+        # the first GAT layer's shape, H x Fh = 4 x 32
+        {"name": "tiled_spmm_multihead", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
+         "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:455",
+         "launches": k4_launches[0], **tiled["spmm_mh_4"]},
+        {"name": "tiled_sddmm_dot_multihead", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
+         "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:521",
+         "launches": k4_launches[1], **tiled["sddmm_mh_4"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ PyTorch version beside it that the CPU runs.  Entry points take a
 ``device`` argument that defaults to ``"cuda"``; the CPU is used only
 when the caller passes it.
 
-Slices so far: full-graph GCN training on the bitmask SpMM kernels, and
-full-graph GAT training on the bitmask attention kernels.
+Slices so far: full-graph GCN training on the bitmask SpMM kernels,
+full-graph GAT training on the bitmask attention kernels, and both on the
+tiled format's SpMM and SDDMM kernels (GAT through ``ops.edgeflat``).
 """
 
 __version__ = "0.1.0"

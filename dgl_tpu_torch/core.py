@@ -1,16 +1,17 @@
 """The message-passing engine: builtin message + reduce pairs fused into
 one g-SpMM call, and builtin edge messages by g-SDDMM.
 
-Counterpart of ``dgl_tpu/core.py`` (``invoke_gspmm``, ``invoke_gsddmm``,
-``message_passing``, ``update_all``, ``apply_edges``; reference
-``python/dgl/core.py:273, 311, 372-425``).  This slice carries the
-builtins; user-defined message, reduce and edge functions, and edge
-subsets, come with a later slice.
+Counterpart of ``dgl_tpu/core.py`` (``invoke_gspmm`` with its
+static-weight route, ``invoke_gsddmm``, ``message_passing``,
+``update_all``, ``apply_edges``; reference ``python/dgl/core.py:273, 311,
+372-425``).  This slice carries the builtins; user-defined message,
+reduce and edge functions, and edge subsets, come with a later slice.
 """
 from __future__ import annotations
 
 from .function import BuiltinMessage, BuiltinReduce
 from .ops import gsddmm, gspmm
+from .ops.kernels import dispatch
 
 
 def _fetch(g, etid, target: str, field: str):
@@ -48,6 +49,17 @@ def invoke_gspmm(g, etid, mfunc: BuiltinMessage, rfunc: BuiltinReduce):
         return gspmm(unit, "copy_rhs", reduce_op, None, x)
     y = _fetch(g, etid, mfunc.rhs, mfunc.rhs_field)
     op, pair = mfunc.binary_op, (mfunc.lhs, mfunc.rhs)
+    if (pair == ("u", "e") and op in ("mul", "div")
+            and reduce_op in ("sum", "mean") and unit._slot_weights):
+        # static weights cached in slot order under the field's name
+        # (UnitGraph.cache_edge_weights), while edata still holds them
+        out = dispatch.try_spmm_static(unit, op, x, mfunc.rhs_field,
+                                       current_w=y)
+        if out is not None:
+            if reduce_op == "mean":
+                deg = unit.in_degrees().clamp(min=1).to(out.dtype)
+                out = out / deg.reshape((-1,) + (1,) * (out.ndim - 1))
+            return out
     if pair == ("u", "e") and op != "dot":
         return gspmm(unit, op, reduce_op, x, y)
     if pair == ("e", "u") and op in ("add", "mul"):

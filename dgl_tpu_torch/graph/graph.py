@@ -154,6 +154,24 @@ class Graph:
             self._node_frames = saved_n
             self._edge_frames = saved_e
 
+    # -- kernel formats ------------------------------------------------------
+    def create_tiled_format(self, tile=None, cap=None):
+        """Build the tile-bucketed SpMM format (and its reverse) of every
+        relation (``UnitGraph.tiled_format``)."""
+        for u in self._units:
+            u.tiled_format(tile, cap)
+        return self
+
+    def cache_edge_weights(self, field: str, etype=None):
+        """Put the static per-edge weights ``edata[field]`` in the tiled
+        format's slot order, so a weighted SpMM skips its gather into slot
+        order (``UnitGraph.cache_edge_weights``).  Call again after
+        replacing the field; no gradient flows to cached weights."""
+        etid = self.get_etype_id(etype)
+        self._units[etid].cache_edge_weights(
+            field, self._edge_frames[etid][field])
+        return self
+
     # -- message passing and transforms -------------------------------------
     def update_all(self, message_func, reduce_func, etype=None):
         from .. import core

@@ -43,6 +43,20 @@ def coo_to_csr(row, col, num_rows: int) -> CSR:
     return CSR(indptr=indptr, indices=col[eids], eids=eids)
 
 
+def _auto_cap(num_edges: int, tiles2: int, default: int,
+              bucket_budget: int = 120_000) -> int:
+    """Slot capacity of the tiled format, exactly as the JAX package picks
+    it (``dgl_tpu/graph/unitgraph.py:125-139``), since the cap changes the
+    format's arrays: double ``default`` up to 2048 while the estimated
+    bucket count exceeds ``bucket_budget`` (a TPU scalar-prefetch limit of
+    the JAX kernels, kept here for parity)."""
+    c = default
+    while c < 2048 and num_edges // c + min(tiles2, num_edges) > \
+            bucket_budget:
+        c *= 2
+    return c
+
+
 class UnitGraph:
     """One (srctype, etype, dsttype) relation.
 
@@ -62,6 +76,11 @@ class UnitGraph:
         self._in_deg = None
         self._out_deg = None
         self._bits = None        # bit-packed full-dense format (BitFormat)
+        self._tiled = None       # tile-bucketed format (TiledFormat)
+        self._tiled_rev = None   # and the reverse graph's
+        # {field: (w_slot_fwd, w_slot_rev, source tensor)}: static edge
+        # weights in slot order (see cache_edge_weights)
+        self._slot_weights = {}
         self.formats = tuple(formats)
 
     @classmethod
@@ -143,6 +162,42 @@ class UnitGraph:
             self._bits = bitmm.build_bit_format(
                 row.cpu().numpy(), col.cpu().numpy(), self.num_src,
                 self.num_dst, symmetric=symmetric, device=row.device)
+
+    def tiled_format(self, tile: int = None, cap: int = None):
+        """Build (once) and return the tile-bucketed format and its
+        reverse (``ops/kernels/tiled_spmm.py``), sorted and scattered on
+        the graph's device; ``cap=None`` picks :func:`_auto_cap`."""
+        from ..ops.kernels import tiled_spmm as ts
+        if self._tiled is None:
+            row, col = self.coo()
+            t = tile or ts.DEFAULT_TILE
+            if cap is None:
+                tiles2 = (-(-self.num_src // t)) * (-(-self.num_dst // t))
+                cap = _auto_cap(self.num_edges, tiles2, ts.DEFAULT_CAP)
+            build = ts.build_tiled_format_device
+            self._tiled = build(row, col, self.num_src, self.num_dst, t,
+                                cap, device=row.device).with_src_first()
+            self._tiled_rev = build(col, row, self.num_dst, self.num_src, t,
+                                    cap, device=row.device).with_src_first()
+        return self._tiled, self._tiled_rev
+
+    def cache_edge_weights(self, field: str, edge_weights) -> None:
+        """Put static per-edge scalar weights in the tiled format's slot
+        order, forward and reverse, once.
+
+        ``update_all(fn.u_mul_e('h', field), fn.sum(...))`` then reads the
+        cached slots instead of gathering the weights into slot order at
+        every call (``core.invoke_gspmm``), while ``edata[field]`` is still
+        ``edge_weights``.  No gradient flows to cached weights."""
+        from ..ops.kernels.tiled_spmm import slot_edge_weights
+        tf_fwd, tf_rev = self.tiled_format()
+        ew = torch.as_tensor(edge_weights).reshape(-1).detach()
+        self._slot_weights[field] = (slot_edge_weights(tf_fwd, ew),
+                                     slot_edge_weights(tf_rev, ew),
+                                     edge_weights)
+
+    def uncache_edge_weights(self, field: str) -> None:
+        self._slot_weights.pop(field, None)
 
     def materialized_formats(self) -> Tuple[str, ...]:
         return tuple(name for name, sp in (("coo", self._coo),

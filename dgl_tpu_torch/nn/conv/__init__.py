@@ -1,3 +1,3 @@
 """Graph convolution layers (counterpart of ``dgl_tpu/nn/conv``)."""
 from .gatconv import GATConv
-from .graphconv import GraphConv
+from .graphconv import EdgeWeightNorm, GraphConv

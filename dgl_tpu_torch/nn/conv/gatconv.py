@@ -9,19 +9,28 @@ and weight the aggregation of the projected src features.  ``bias`` and
 ``attn_l``/``attn_r`` are (1, H, D) as in the JAX package; ``fc`` and
 ``res_fc`` are ``nn.Linear`` without bias.
 
-Two routes, chosen as ``gatconv.py:91-109`` chooses them:
+Routes, chosen as ``gatconv.py:89-148`` chooses them.  With at least
+``kernel_spmm_min_edges`` edges and no ``edge_weight`` or
+``get_attention`` (the flat routes):
 
 * the bitmask kernels (``ops/kernels/bitgat.py``, K5) when the graph
-  carries a simple bit format, H * D <= 128, at most 8 heads under
-  attention dropout, enough edges, and no ``edge_weight`` or
-  ``get_attention``.  They clip el and er to +-20 each instead of
+  carries a simple bit format, H * D <= 128 and at most 8 heads under
+  attention dropout.  They clip el and er to +-20 each instead of
   subtracting a per-dst max (the JAX package's numerics contract), and
   draw the dropout mask from a hash of (src, dst, head, seed), with one
   seed per forward drawn from the module's generator;
-* otherwise the edge chain: ``apply_edges(u_add_v)``, leaky_relu,
-  ``edge_softmax`` (max-subtracted), dropout from the module's generator,
-  ``edge_weight``, ``update_all(u_mul_e, sum)``.  It holds (E, H, D)
-  messages, so it does not fit at Reddit scale.
+* otherwise edgeflat (``ops/edgeflat.py``): ``sddmm_flat(add)``,
+  leaky_relu, ``edge_softmax_flat`` (max-subtracted), dropout from the
+  module's generator, ``spmm_mul_flat`` (K4 on a tiled graph, else one
+  gather-path SpMM per head).  Per edge it holds (E, H) scalars, never
+  (E, H, D) messages.  Where the JAX package takes its slot-space kernels
+  (K6, ``gatconv.py:110-136``: a tiled graph without attention dropout),
+  the port takes edgeflat until K6 is ported; the two agree while the
+  logits stay within K6's clip of +-40.
+
+Otherwise the edge chain: ``apply_edges(u_add_v)``, leaky_relu,
+``edge_softmax``, dropout, ``edge_weight``, ``update_all(u_mul_e, sum)``.
+It holds (E, H, D) messages, so it does not fit at Reddit scale.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from torch import nn
 from ... import function as fn
 from ...core import apply_edges, update_all
 from ...ops import edge_softmax
+from ...ops.edgeflat import edge_softmax_flat, sddmm_flat, spmm_mul_flat
 from ...ops.kernels import bitgat
 from ...utils import config, expand_as_pair, resolve_device
 
@@ -84,15 +94,13 @@ class GATConv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def _use_bits(self, unit, train_drop, edge_weight, get_attention):
+    def _use_bits(self, unit, train_drop):
         bits = unit._bits
         heads, dim = self.num_heads, self.out_feats
         return (config.use_kernels() and bits is not None
                 and bits.rem_src.shape[0] == 0
                 and heads * dim <= bitgat.MAX_HD
-                and not (train_drop and heads > 8)
-                and unit.num_edges >= config.get("kernel_spmm_min_edges")
-                and edge_weight is None and not get_attention)
+                and not (train_drop and heads > 8))
 
     def _seed(self, device):
         """One int32 per forward from the module's generator."""
@@ -114,14 +122,24 @@ class GATConv(nn.Module):
         train_drop = self.attn_drop > 0 and self.training
         unit = graph.unit()
         a = None
-        if self._use_bits(unit, train_drop, edge_weight, get_attention):
+        use_flat = (unit.num_edges >= config.get("kernel_spmm_min_edges")
+                    and edge_weight is None and not get_attention)
+        if use_flat:
             el = (ft_src * self.attn_l).sum(-1)              # (N, H)
             er = (ft_dst * self.attn_r).sum(-1)
-            rst = bitgat.bitgat_attention_aggregate(
-                unit._bits, el, er, ft_src, self.negative_slope,
-                attn_drop=self.attn_drop if train_drop else 0.0,
-                dropout_seed=(self._seed(ft_src.device) if train_drop
-                              else None)).to(ft_src.dtype)
+            if self._use_bits(unit, train_drop):
+                rst = bitgat.bitgat_attention_aggregate(
+                    unit._bits, el, er, ft_src, self.negative_slope,
+                    attn_drop=self.attn_drop if train_drop else 0.0,
+                    dropout_seed=(self._seed(ft_src.device) if train_drop
+                                  else None)).to(ft_src.dtype)
+            else:
+                e = nn.functional.leaky_relu(
+                    sddmm_flat(unit, "add", el, er), self.negative_slope)
+                a_flat = edge_softmax_flat(unit, e, heads)
+                if train_drop:
+                    a_flat = _dropout(a_flat, self.attn_drop, self.generator)
+                rst = spmm_mul_flat(unit, ft_src, a_flat, heads)
         else:
             el = (ft_src * self.attn_l).sum(-1, keepdim=True)   # (N, H, 1)
             er = (ft_dst * self.attn_r).sum(-1, keepdim=True)

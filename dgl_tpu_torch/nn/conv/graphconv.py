@@ -6,7 +6,12 @@ right, left}``; ``both`` scales by out-deg^-1/2 before and in-deg^-1/2
 after the aggregation, with degrees clamped at 1; the weight is applied
 before the SpMM when ``in_feats > out_feats`` and after it otherwise, so
 the SpMM runs on the narrow side.  ``weight`` is (in, out) and ``bias``
-(out,), the layout of DGL's PyTorch GraphConv.
+(out,), the layout of DGL's PyTorch GraphConv.  ``edge_weight`` is a
+tensor of one scalar per edge, or the name of an edata field, which takes
+the static slot-weight route when ``Graph.cache_edge_weights`` cached it.
+
+``EdgeWeightNorm`` (``graphconv.py:109-132``) normalizes scalar edge
+weights by weighted degrees.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from torch import nn
 
 from ... import function as fn
 from ...core import update_all
+from ...ops import gspmm
 from ...utils import expand_as_pair, resolve_device
 
 
@@ -65,7 +71,10 @@ class GraphConv(nn.Module):
 
         with graph.local_scope():
             msg_fn = fn.copy_u("h", "m")
-            if edge_weight is not None:
+            if isinstance(edge_weight, str):
+                # the field's name: the static route when it is cached
+                msg_fn = fn.u_mul_e("h", edge_weight, "m")
+            elif edge_weight is not None:
                 graph.edata["_edge_weight"] = edge_weight
                 msg_fn = fn.u_mul_e("h", "_edge_weight", "m")
             if self.in_feats > self.out_feats:
@@ -90,3 +99,32 @@ class GraphConv(nn.Module):
     def extra_repr(self):
         return (f"in={self.in_feats}, out={self.out_feats}, "
                 f"normalization={self.norm}")
+
+
+class EdgeWeightNorm(nn.Module):
+    """Normalize scalar edge weights by weighted degrees (reference
+    ``graphconv.py EdgeWeightNorm``): ``both`` gives w_uv / sqrt(deg_u
+    deg_v), ``right`` w_uv / deg_v, with the degrees summed over the
+    weights and clamped at 1e-12 after adding ``eps``."""
+
+    def __init__(self, norm: str = "both", eps: float = 0.0):
+        super().__init__()
+        if norm not in ("both", "right"):
+            raise ValueError(f"invalid norm {norm!r}")
+        self.norm = norm
+        self.eps = eps
+
+    def forward(self, graph, edge_weight):
+        unit = graph.unit()
+        row, col = unit.coo()
+        wdeg_in = gspmm(unit, "copy_rhs", "sum", None, edge_weight)
+        if self.norm == "both":
+            wdeg_out = gspmm(unit.reverse(), "copy_rhs", "sum", None,
+                             edge_weight)
+            norm_src = (wdeg_out + self.eps).clamp(min=1e-12).rsqrt()
+            norm_dst = (wdeg_in + self.eps).clamp(min=1e-12).rsqrt()
+            return edge_weight * norm_src[row] * norm_dst[col]
+        return edge_weight / (wdeg_in[col] + self.eps).clamp(min=1e-12)
+
+    def extra_repr(self):
+        return f"norm={self.norm}, eps={self.eps}"

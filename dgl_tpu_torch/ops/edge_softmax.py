@@ -10,16 +10,20 @@ dst (``norm_by='dst'``) or src; no CSC sort is needed.  The backward is
 the reference's memory-light rule ``out*dZ - out * sum(out*dZ)``
 (``backend/pytorch/sparse.py:739-748``) in a ``torch.autograd.Function``
 that saves only ``out``, as the JAX package's ``custom_vjp`` does.
+Per-edge reads of node values go through ``utils.gather_rows``, which
+gathers narrow rows one column at a time (far faster on the card).
 """
 from __future__ import annotations
 
 import torch
 
 from ..graph.unitgraph import UnitGraph
+from ..utils import gather_rows
 
 
 def _segment_sum(v, ids, num):
     return v.new_zeros((num,) + v.shape[1:]).index_add_(0, ids, v)
+
 
 
 class _EdgeSoftmax(torch.autograd.Function):
@@ -30,8 +34,9 @@ class _EdgeSoftmax(torch.autograd.Function):
         smax = score.new_full((num,) + score.shape[1:], -torch.inf)
         smax = smax.scatter_reduce(0, idx, score, "amax", include_self=True)
         smax = torch.where(torch.isfinite(smax), smax, 0.0)
-        ex = torch.exp(score - smax[ids])
-        out = ex / _segment_sum(ex, ids, num).clamp(min=1e-38)[ids]
+        ex = torch.exp(score - gather_rows(smax, ids))
+        den = _segment_sum(ex, ids, num).clamp(min=1e-38)
+        out = ex / gather_rows(den, ids)
         ctx.save_for_backward(out, ids)
         ctx.num = num
         return out
@@ -40,7 +45,8 @@ class _EdgeSoftmax(torch.autograd.Function):
     def backward(ctx, dz):
         out, ids = ctx.saved_tensors
         sds = out * dz
-        return sds - out * _segment_sum(sds, ids, ctx.num)[ids], None, None
+        return (sds - out * gather_rows(_segment_sum(sds, ids, ctx.num), ids),
+                None, None)
 
 
 def edge_softmax_unit(unit: UnitGraph, score, norm_by: str = "dst"):

@@ -30,8 +30,27 @@ def try_spmm(unit, op, u_data, e_data):
     """Result of a kernel SpMM-sum, or None to take the gather path."""
     if not config.use_kernels():
         return None
-    # copy_lhs with 2-D node features is the one pair a kernel serves
-    if op != "copy_lhs" or u_data is None or u_data.ndim != 2:
+    # 2-D node features, copied or times one scalar per edge
+    if u_data is None or u_data.ndim != 2:
+        return None
+    if op == "copy_lhs":
+        pass
+    elif op in ("mul", "div") and e_data is not None and (
+            e_data.ndim == 1 or (e_data.ndim == 2 and e_data.shape[1] == 1)):
+        pass
+    else:
         return None
     from . import spmm
     return spmm.spmm_sum(unit, op, u_data, e_data)
+
+
+def try_spmm_static(unit, op, u_data, field, current_w=None):
+    """Static-weight SpMM from the slot weights cached under ``field``
+    (``UnitGraph.cache_edge_weights``), or None to take the general path;
+    ``current_w`` is the live edata value, checked against the cached
+    one."""
+    if not config.use_kernels():
+        return None
+    from . import spmm
+    return spmm.spmm_sum_static(unit, op, u_data, field,
+                                current_w=current_w)

@@ -6,8 +6,8 @@ PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
-atomics (and K5's, for the gradient of er) add in an order that changes
-from run to run."""
+atomics (K5's, for the gradient of er, and K3's and K4's shared-memory
+adds) add in an order that changes from run to run."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +15,9 @@ import torch
 import dgl_tpu_torch as dgt
 import dgl_tpu_torch.ops.kernels.bitgat as tbg
 import dgl_tpu_torch.ops.kernels.bitmm as tbm
+import dgl_tpu_torch.ops.kernels.spmm as tsp
+import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
+from dgl_tpu_torch.ops import edgeflat
 from dgl_tpu_torch.utils import config
 
 pytestmark = pytest.mark.cuda
@@ -194,3 +197,150 @@ def test_gatconv_kernels_match_edge_chain(card, monkeypatch):
     torch.testing.assert_close(kern[0], chain[0], rtol=RTOL, atol=ATOL)
     for a, b in zip(kern[1:], chain[1:]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+def _tiled(card, tile=256, cap=128):
+    """The multigraph above in the tiled format (uneven tiles, an empty
+    dst tile), built on the card; the same arrays as the host builder."""
+    row, col, n_src, n_dst = _coo()
+    keep = (col < 2048) | (col >= 2304)         # dst tile 8 has no edge
+    row, col = row[keep], col[keep]
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst, tile, cap,
+                                        device=card)
+    rev = tts.build_tiled_format_device(col, row, n_dst, n_src, tile, cap,
+                                        device=card)
+    host = tts.build_tiled_format(row, col, n_src, n_dst, tile, cap,
+                                  device="cpu")
+    for name in ("src_local", "dst_local", "eid", "valid", "src_tile",
+                 "dst_tile", "dst_ptr", "covered_mask"):
+        torch.testing.assert_close(getattr(fwd, name).cpu(),
+                                   getattr(host, name), rtol=0, atol=0)
+    assert fwd.covered_mask is not None
+    return fwd, rev, torch.as_tensor(row, device=card), \
+        torch.as_tensor(col, device=card)
+
+
+@pytest.mark.parametrize("f", [16, 41, 128])
+@pytest.mark.parametrize("weights", ["none", "edge", "slot"])
+def test_tiled_spmm_kernel_matches_plain(card, f, weights):
+    """K3 forward and backward (the three autograd functions) against the
+    plain version on the same formats."""
+    fwd, rev, row, col = _tiled(card)
+    gen = torch.Generator(device=card).manual_seed(f)
+    x = torch.randn(fwd.num_src, f, device=card, generator=gen,
+                    requires_grad=True)
+    ew = torch.rand(row.shape[0], device=card, generator=gen) + 0.5
+    ew.requires_grad_(weights == "edge")
+    dz = torch.randn(fwd.num_dst, f, device=card, generator=gen)
+    before = tts.tiled_spmm.launches
+    if weights == "none":
+        out = tsp.spmm_tiled_copy(fwd, rev, x)
+        w_f = w_r = None
+    elif weights == "edge":
+        out = tsp.spmm_tiled_mul(fwd, rev, row, col, x, ew)
+        w_f = tts.slot_edge_weights(fwd, ew.detach())
+        w_r = tts.slot_edge_weights(rev, ew.detach())
+    else:
+        w_f = tts.slot_edge_weights(fwd, ew.detach())
+        w_r = tts.slot_edge_weights(rev, ew.detach())
+        out = tsp.spmm_tiled_static(fwd, rev, w_f, w_r, x)
+    out.backward(dz)
+    torch.cuda.synchronize()
+    assert tts.tiled_spmm.launches == before + 2
+    torch.testing.assert_close(out.detach(),
+                               tts.tiled_spmm_plain(fwd, x.detach(), w_f),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(x.grad, tts.tiled_spmm_plain(rev, dz, w_r),
+                               rtol=RTOL, atol=ATOL)
+    if weights == "edge":
+        want = (x.detach()[row] * dz[col]).sum(-1)
+        torch.testing.assert_close(ew.grad, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,fh", [(4, 32), (1, 41), (8, 16), (3, 5)])
+def test_tiled_multihead_kernels_match_plain(card, heads, fh):
+    """K4's SpMM and SDDMM against their plain versions; the SDDMM writes
+    0 at every padded slot."""
+    fwd, rev, row, col = _tiled(card)
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + fh)
+    x = torch.randn(fwd.num_src, heads, fh, device=card, generator=gen)
+    z = torch.randn(fwd.num_dst, heads, fh, device=card, generator=gen)
+    w = torch.rand(row.shape[0] * heads, device=card, generator=gen)
+    w_slot = edgeflat._w_slot_from_flat(fwd, w, heads)
+    before = (tts.tiled_spmm_multihead.launches,
+              tts.tiled_sddmm_dot_multihead.launches)
+    out = tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh)
+    e = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+    torch.cuda.synchronize()
+    assert (tts.tiled_spmm_multihead.launches,
+            tts.tiled_sddmm_dot_multihead.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        out, tts.tiled_spmm_multihead_plain(fwd, x, w_slot), rtol=RTOL,
+        atol=ATOL)
+    torch.testing.assert_close(
+        e, tts.tiled_sddmm_dot_multihead_plain(fwd, x, z), rtol=RTOL,
+        atol=ATOL)
+    pad = fwd.valid.reshape(fwd.num_buckets, 1, fwd.cap) == 0
+    assert (e.masked_select(pad) == 0).all()
+
+
+def test_spmm_mul_flat_kernels_match_gather(card, monkeypatch):
+    """spmm_mul_flat and its gradients through K4 against the per-head
+    gather path on the card."""
+    fwd, rev, row, col = _tiled(card)
+    g = dgt.graph((row, col), num_nodes=max(fwd.num_src, fwd.num_dst))
+    unit = g.unit()
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(unit.num_src, 4, 8, device=card, generator=gen)
+    w = torch.rand(unit.num_edges * 4, device=card, generator=gen)
+    dz = torch.randn(unit.num_dst, 4, 8, device=card, generator=gen)
+
+    def run():
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = edgeflat.spmm_mul_flat(unit, xs, ws, 4)
+        out.backward(dz)
+        return out.detach(), xs.grad, ws.grad
+
+    want = run()
+    unit.tiled_format(256, 128)
+    before = tts.tiled_spmm_multihead.launches
+    got = run()
+    assert tts.tiled_spmm_multihead.launches == before + 2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_graphconv_tiled_matches_gather_path(card, monkeypatch):
+    """GraphConv steps through K3, plain and with a learnable edge weight,
+    equal the gather path on the card."""
+    row, col, n, _ = _coo(n_src=8100, n_dst=8100)
+    g = dgt.add_self_loop(dgt.graph((row, col), num_nodes=n))
+    g.create_tiled_format(tile=1024)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    conv = dgt.nn.GraphConv(30, 8, generator=torch.Generator(device=card)
+                            .manual_seed(0))
+    x = torch.randn(n, 30, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    ew = torch.rand(g.num_edges(), device=card) + 0.5
+
+    def step(weighted):
+        conv.zero_grad()
+        xs = x.clone().requires_grad_()
+        ws = ew.clone().requires_grad_()
+        out = conv(g, xs, edge_weight=ws if weighted else None)
+        out.square().mean().backward()
+        return [out.detach(), conv.weight.grad.clone(), xs.grad] + (
+            [ws.grad] if weighted else [])
+
+    for weighted in (False, True):
+        before = tts.tiled_spmm.launches
+        kern = step(weighted)
+        assert tts.tiled_spmm.launches == before + 2
+        monkeypatch.setitem(config._FLAGS, "use_kernels", False)
+        ref = step(weighted)
+        monkeypatch.setitem(config._FLAGS, "use_kernels", True)
+        torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=ATOL)
+        for a, b in zip(kern[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

@@ -207,6 +207,17 @@ gs.unit().create_bitmask_format()
 bits_gat(gs, torch.randn(50, 5)).sum().backward()   # simple: the kernels
 dgt.ops.edge_softmax(gs, dgt.ops.gsddmm(gs, "add", torch.randn(50, 2),
                                         torch.randn(50, 2)))
+import dgl_tpu_torch.ops.edgeflat, dgl_tpu_torch.ops.kernels.tiled_spmm
+gt = dgt.graph((rng.integers(0, 50, 400), rng.integers(0, 50, 400)),
+               num_nodes=50, device="cpu")
+gt.create_tiled_format(tile=128, cap=128)
+gt.edata["w"] = dgt.nn.EdgeWeightNorm()(gt, torch.ones(400))
+gt.cache_edge_weights("w")
+dgt.nn.GraphConv(5, 3, norm="none", device="cpu")(
+    gt, torch.randn(50, 5), edge_weight="w").sum().backward()   # K3 static
+conv(gt, torch.randn(50, 5), edge_weight=torch.rand(400)).sum().backward()
+dgt.nn.GATConv(5, 4, 2, attn_drop=0.5, device="cpu")(
+    gt, torch.randn(50, 5)).sum().backward()                    # K4
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))

@@ -48,8 +48,10 @@ Phases, each of which raises on failure (nothing is caught):
 15. route 2: the phase-9 GAT with attention dropout 0.6 for 10 Adam steps
    on the tiled format (edgeflat, K4), and a profiled step;
 16. K3 and K4 yardsticks at full size: each kernel against its plain
-   version, its time (median of 5), its plain version's, one PyTorch call
-   computing the same function where there is one, and the bound.
+   version and against one PyTorch call computing the same function
+   (``torch.sparse.mm`` on a CSR copy, block-diagonal over the heads for
+   K4's SpMM; a batched ``torch.sparse.sampled_addmm`` for K4's SDDMM),
+   the three times (median of 5) and the bound.
 
 Each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
@@ -804,29 +806,64 @@ def bound(nbytes, ops, rate):
                                    else "operations")
 
 
-def csr_of(gt, values=None):
-    """A (dst, src) CSR copy of the graph for the library yardsticks."""
+def csr_pattern(gt):
+    """The graph's (dst, src) CSR pattern for the library yardsticks:
+    (crow (N+1,) int64, src (E,) int32, order (E,)), where order[k] is the
+    canonical edge at CSR position k."""
     row, col = gt.unit().coo()
-    if values is None:
-        values = torch.ones_like(row, dtype=torch.float32)
-    return torch.sparse_coo_tensor(torch.stack([col, row]), values,
-                                   (N_NODES, N_NODES)).coalesce() \
-        .to_sparse_csr()
+    order = torch.argsort(col * N_NODES + row)
+    crow = torch.zeros(N_NODES + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(col, minlength=N_NODES), 0)
+    return crow, row[order].to(torch.int32), order
+
+
+def block_csr(pattern, heads, w=None):
+    """The (H N, H N) block-diagonal CSR whose block h holds head h's
+    weights w.view(E, H)[:, h] (ones when None), int32 indices: one
+    ``torch.sparse.mm`` of it with head-major x (H N, F) gives every
+    head's weighted sum."""
+    crow, src, order = pattern
+    e = src.shape[0]
+    crows = torch.cat([crow[:-1] + h * e for h in range(heads)]
+                      + [crow[-1:] + (heads - 1) * e]).to(torch.int32)
+    cols = torch.cat([src + h * N_NODES for h in range(heads)])
+    vals = (torch.ones(heads * e, device="cuda") if w is None else
+            torch.cat([torch.index_select(w.view(e, heads)[:, h], 0, order)
+                       for h in range(heads)]))
+    return torch.sparse_csr_tensor(crows, cols, vals,
+                                   (heads * N_NODES, heads * N_NODES),
+                                   check_invariants=False)
+
+
+def batched_csr(pattern, heads):
+    """The (H, N, N) batched CSR of H copies of the pattern, int32
+    indices: the input of a batched ``torch.sparse.sampled_addmm``."""
+    crow, src, _ = pattern
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32).expand(heads, -1).contiguous(),
+        src.expand(heads, -1).contiguous(),
+        torch.ones(heads, src.shape[0], device="cuda"),
+        (heads, N_NODES, N_NODES), check_invariants=False)
 
 
 def tiled_yardsticks(ef, tts, gt, rate):
     """Phase 16: K3 at F = 16 and K4 at (4, 32) and (1, 41) at full size,
-    each against its plain version, with the timings."""
+    each against its plain version and its library call, with the
+    timings.  The library calls: ``torch.sparse.mm`` on a CSR copy for K3
+    and, block-diagonal over the heads on head-major x, for K4's SpMM;
+    ``torch.sparse.sampled_addmm`` on an (H, N, N) batched CSR for K4's
+    SDDMM."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     slots = fwd.num_buckets * fwd.cap
     gen = torch.Generator(device="cuda").manual_seed(16)
+    pattern = csr_pattern(gt)
     rows = {}
 
     x = torch.randn(N_NODES, HIDDEN, device="cuda", generator=gen)
     want = tts.tiled_spmm_plain(fwd, x)
     err = close(tts.tiled_spmm(fwd, x), want, "K3 full size F=16")
-    a = csr_of(gt)
+    a = block_csr(pattern, 1)
     close(torch.sparse.mm(a, x), want, "torch.sparse.mm F=16")
     nbytes = slots * 12 + 2 * x.numel() * 4
     b, by = bound(nbytes, 2 * e * HIDDEN, rate)
@@ -840,8 +877,9 @@ def tiled_yardsticks(ef, tts, gt, rate):
         f"{by}: {nbytes} B), plain {rows['k3']['plain_ms']:.4f} ms, "
         f"torch.sparse.mm {rows['k3']['library_ms']:.4f} ms, max|err| "
         f"{err:.3g}")
-    del want
+    del want, a
 
+    pos = fwd.edge_slot().long()[pattern[2]]   # slot of CSR position k
     for heads, fh in GAT_SHAPES:
         x = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
         z = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
@@ -849,24 +887,25 @@ def tiled_yardsticks(ef, tts, gt, rate):
         w_slot = ef._w_slot_from_flat(fwd, w, heads)
         feat_b = N_NODES * heads * fh * 4
         ops = 2 * e * heads * fh
-        lib_s = lib_d = None
-        if heads == 1:   # one PyTorch call computes each function at H = 1
-            aw = csr_of(gt, w)
-            lib_s = cuda_ms(lambda: torch.sparse.mm(aw, x[:, 0]))
-            close(torch.sparse.mm(aw, x[:, 0]),
-                  tts.tiled_spmm_multihead(fwd, x, w_slot, 1, fh)[:, 0],
-                  "torch.sparse.mm weighted H=1")
-            del aw
-            lib_d = cuda_ms(lambda: torch.sparse.sampled_addmm(
-                a, z[:, 0], x[:, 0].T, beta=0.0))
-            got = torch.sparse.sampled_addmm(a, z[:, 0], x[:, 0].T,
-                                             beta=0.0).values().sum()
-            want_sum = tts.tiled_sddmm_dot_multihead(fwd, x, z, 1, fh).sum()
-            close(got, want_sum, "torch.sparse.sampled_addmm H=1 sum",
-                  rtol=1e-3, atol=1e-1)
-        why = ("one call at H = 1" if heads == 1 else
-               "none: no single PyTorch call computes a per-head weighted "
-               "sparse product or per-head sampled dot")
+        # the library calls take head-major operands, laid out beforehand
+        xh = x.permute(1, 0, 2).contiguous()
+        zh = z.permute(1, 0, 2).contiguous()
+        aw = block_csr(pattern, heads, w)
+        lib_s = cuda_ms(lambda: torch.sparse.mm(aw, xh.view(-1, fh)))
+        close(torch.sparse.mm(aw, xh.view(-1, fh)).view(heads, N_NODES, fh),
+              tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh)
+              .permute(1, 0, 2), f"torch.sparse.mm block-diagonal H={heads}")
+        del aw
+        ab = batched_csr(pattern, heads)
+        lib_d = cuda_ms(lambda: torch.sparse.sampled_addmm(
+            ab, zh, xh.transpose(1, 2), beta=0.0))
+        got = torch.sparse.sampled_addmm(ab, zh, xh.transpose(1, 2),
+                                         beta=0.0).values()
+        e_slot = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+        close(got, torch.stack([e_slot[:, h].reshape(-1)[pos]
+                                for h in range(heads)]),
+              f"torch.sparse.sampled_addmm batched H={heads}")
+        del ab, got, e_slot, xh, zh
         for name, kernel, plain, nbytes, lib in (
                 ("spmm_mh",
                  lambda: tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh),
@@ -886,9 +925,9 @@ def tiled_yardsticks(ef, tts, gt, rate):
             r = rows[f"{name}_{heads}"]
             log(f"# K4 {name} H={heads} Fh={fh}: {r['ms']:.4f} ms (bound "
                 f"{b:.4f} ms by {by}: {nbytes} B, {ops} ops), plain "
-                f"{r['plain_ms']:.4f} ms, library "
-                f"{'none' if lib is None else f'{lib:.4f} ms'} ({why}), "
-                f"max|err| {err:.3g}")
+                f"{r['plain_ms']:.4f} ms, library ("
+                f"{'torch.sparse.mm' if name == 'spmm_mh' else 'sampled_addmm'}"
+                f") {lib:.4f} ms, max|err| {err:.3g}")
         del x, z, w, w_slot
     return rows
 

@@ -78,8 +78,8 @@ class UnitGraph:
         self._bits = None        # bit-packed full-dense format (BitFormat)
         self._tiled = None       # tile-bucketed format (TiledFormat)
         self._tiled_rev = None   # and the reverse graph's
-        # {field: (w_slot_fwd, w_slot_rev, source tensor)}: static edge
-        # weights in slot order (see cache_edge_weights)
+        # {field: (w_slot_fwd, w_slot_rev, source tensor, its _version)}:
+        # static edge weights in slot order (see cache_edge_weights)
         self._slot_weights = {}
         self.formats = tuple(formats)
 
@@ -176,9 +176,9 @@ class UnitGraph:
                 cap = _auto_cap(self.num_edges, tiles2, ts.DEFAULT_CAP)
             build = ts.build_tiled_format_device
             self._tiled = build(row, col, self.num_src, self.num_dst, t,
-                                cap, device=row.device).with_src_first()
+                                cap, device=row.device)
             self._tiled_rev = build(col, row, self.num_dst, self.num_src, t,
-                                    cap, device=row.device).with_src_first()
+                                    cap, device=row.device)
         return self._tiled, self._tiled_rev
 
     def cache_edge_weights(self, field: str, edge_weights) -> None:
@@ -188,13 +188,15 @@ class UnitGraph:
         ``update_all(fn.u_mul_e('h', field), fn.sum(...))`` then reads the
         cached slots instead of gathering the weights into slot order at
         every call (``core.invoke_gspmm``), while ``edata[field]`` is still
-        ``edge_weights``.  No gradient flows to cached weights."""
+        ``edge_weights`` and not edited in place since (its ``_version``).
+        No gradient flows to cached weights."""
         from ..ops.kernels.tiled_spmm import slot_edge_weights
         tf_fwd, tf_rev = self.tiled_format()
         ew = torch.as_tensor(edge_weights).reshape(-1).detach()
         self._slot_weights[field] = (slot_edge_weights(tf_fwd, ew),
                                      slot_edge_weights(tf_rev, ew),
-                                     edge_weights)
+                                     edge_weights,
+                                     getattr(edge_weights, "_version", None))
 
     def uncache_edge_weights(self, field: str) -> None:
         self._slot_weights.pop(field, None)

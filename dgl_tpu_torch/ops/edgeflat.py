@@ -121,13 +121,11 @@ def spmm_mul_flat(unit: UnitGraph, x, w_flat, H: int):
     """Attention aggregation: out[d, h] = sum_e w[e, h] * x[src_e, h].
 
     ``x`` (N, H, F); ``w_flat`` (E*H,).  One K4 SpMM for all heads when
-    the graph carries a tiled format (built here only with
-    ``kernel_auto_build_tiled``), else one gather-path g-SpMM per head.
-    Returns (num_dst, H, F)."""
+    the graph carries a tiled format (``create_tiled_format``), else one
+    gather-path g-SpMM per head.  Returns (num_dst, H, F)."""
     e = unit.num_edges
     if config.use_kernels() and e >= config.get("kernel_spmm_min_edges"):
-        tf_fwd, tf_rev = kspmm.get_tiled_formats(
-            unit, build_if_missing=config.get("kernel_auto_build_tiled"))
+        tf_fwd, tf_rev = kspmm.get_tiled_formats(unit)
         if tf_fwd is not None:
             return _SpmmMultihead.apply(x, w_flat, tf_fwd, tf_rev, int(H),
                                         int(x.shape[-1]))

@@ -19,20 +19,17 @@ import torch
 from . import tiled_spmm as ts
 from ...utils import config
 
-SDDMM_DIRECT_MAX = 1 << 21   # edges above this take the chunked SDDMM-dot
-SDDMM_CHUNK = 1 << 20        # edges per chunk of the chunked SDDMM-dot
+SDDMM_CHUNK = 1 << 20        # edges per chunk of the SDDMM-dot
 
 
-def get_tiled_formats(unit, build_if_missing=True):
-    """(forward, reverse) tiled formats of a unit graph, cached on it;
-    (None, None) when there are none and ``build_if_missing`` is False.
-    A missing pair is built with the default tile and cap, as the JAX
-    package builds it."""
+def get_tiled_formats(unit):
+    """(forward, reverse) tiled formats of a unit graph, or (None, None)
+    when ``create_tiled_format`` was not called: the port never builds
+    the format on its own (the JAX package's ``pallas_auto_build_tiled``
+    has no counterpart)."""
     if unit._tiled is not None and unit._tiled_rev is not None:
         return unit._tiled, unit._tiled_rev
-    if not build_if_missing:
-        return None, None
-    return unit.tiled_format(ts.DEFAULT_TILE, ts.DEFAULT_CAP)
+    return None, None
 
 
 class _SpmmTiledCopy(torch.autograd.Function):
@@ -51,20 +48,14 @@ class _SpmmTiledCopy(torch.autograd.Function):
 
 
 def _sddmm_dot(x, dz, row, col):
-    """dEw[e] = <x[src_e], dZ[dst_e]>; above SDDMM_DIRECT_MAX edges in
-    SDDMM_CHUNK-edge chunks, so no (E, F) gather is held at once (6 GB
-    at Reddit scale)."""
-    def dot(r, c):
-        return (torch.index_select(x, 0, r).float()
-                * torch.index_select(dz, 0, c).float()).sum(-1)
-
-    e = row.shape[0]
-    if e <= SDDMM_DIRECT_MAX:
-        return dot(row, col)
-    out = torch.empty(e, dtype=torch.float32, device=x.device)
-    for e0 in range(0, e, SDDMM_CHUNK):
-        out[e0:e0 + SDDMM_CHUNK] = dot(row[e0:e0 + SDDMM_CHUNK],
-                                       col[e0:e0 + SDDMM_CHUNK])
+    """dEw[e] = <x[src_e], dZ[dst_e]> in SDDMM_CHUNK-edge chunks, so no
+    (E, F) gather is held at once (6 GB at Reddit scale)."""
+    out = torch.empty(row.shape[0], dtype=torch.float32, device=x.device)
+    for e0 in range(0, row.shape[0], SDDMM_CHUNK):
+        r, c = row[e0:e0 + SDDMM_CHUNK], col[e0:e0 + SDDMM_CHUNK]
+        out[e0:e0 + SDDMM_CHUNK] = (torch.index_select(x, 0, r).float()
+                                    * torch.index_select(dz, 0, c).float()
+                                    ).sum(-1)
     return out
 
 
@@ -128,9 +119,10 @@ def spmm_sum_static(unit, op, u_data, field, current_w=None):
     None if ineligible.
 
     ``current_w`` is the live ``edata[field]`` at dispatch: the cached
-    weights serve only while it is the very tensor that was cached, so a
-    field replaced since (or a weight that needs a gradient, which is a
-    new tensor) takes the general path instead of stale weights."""
+    weights serve only while it is the very tensor that was cached, at the
+    version counter it had then.  A field replaced since (or a weight that
+    needs a gradient, which is a new tensor) or edited in place takes the
+    general path instead of stale weights."""
     if u_data is None or u_data.ndim != 2:
         return None
     if unit.num_edges < config.get("kernel_spmm_min_edges"):
@@ -138,10 +130,11 @@ def spmm_sum_static(unit, op, u_data, field, current_w=None):
     cached = unit._slot_weights.get(field)
     if cached is None:
         return None
-    wsf, wsr, ref = cached
-    if current_w is not None and current_w is not ref:
+    wsf, wsr, ref, version = cached
+    if current_w is not None and (current_w is not ref
+                                  or current_w._version != version):
         return None
-    tf_fwd, tf_rev = get_tiled_formats(unit, build_if_missing=False)
+    tf_fwd, tf_rev = get_tiled_formats(unit)
     if tf_fwd is None:
         return None
     if op == "div":
@@ -159,8 +152,7 @@ def spmm_sum(unit, op, u_data, e_data):
     if op == "copy_lhs" and unit._bits is not None:
         from .bitmm import bit_spmm
         return bit_spmm(unit._bits, u_data)
-    tf_fwd, tf_rev = get_tiled_formats(
-        unit, build_if_missing=config.get("kernel_auto_build_tiled"))
+    tf_fwd, tf_rev = get_tiled_formats(unit)
     if tf_fwd is None:
         return None
     if op == "copy_lhs":

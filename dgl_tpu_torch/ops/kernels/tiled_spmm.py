@@ -70,11 +70,9 @@ class TiledFormat:
     num_dst: int
     tile: int
     cap: int
-    # (B,) int32 bucket order by src tile (stable), as the JAX format's
+    # (B,) int32 bucket order by src tile (stable), as the JAX format's;
+    # set only by with_src_first, which no kernel of the port needs yet
     src_order: Optional[torch.Tensor] = None
-    # (num_dst_tiles * tile,) f32 row mask, 0 on dst tiles with no bucket;
-    # None when every tile has one
-    covered_mask: Optional[torch.Tensor] = None
     # (num_dst_tiles + 1,) int32: dst tile t owns buckets
     # [dst_ptr[t], dst_ptr[t + 1])
     dst_ptr: Optional[torch.Tensor] = None
@@ -104,6 +102,17 @@ class TiledFormat:
         return self.valid.device
 
     @property
+    def covered_mask(self) -> Optional[torch.Tensor]:
+        """(num_dst_tiles * tile,) f32 row mask, 0 on dst tiles with no
+        bucket; None when every tile has one.  The JAX format's mask,
+        computed on demand: the kernels write zeros on such tiles
+        themselves."""
+        covered = self.dst_ptr[1:] > self.dst_ptr[:-1]
+        if bool(covered.all()):
+            return None
+        return covered.repeat_interleave(self.tile).to(torch.float32)
+
+    @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
             self.src_local, self.dst_local, self.eid, self.valid,
@@ -121,17 +130,12 @@ class TiledFormat:
 
 
 def _finish(tf: TiledFormat) -> TiledFormat:
-    """Attach ``dst_ptr`` and ``covered_mask`` (from ``dst_tile``)."""
+    """Attach ``dst_ptr`` (from ``dst_tile``)."""
     n_dt = tf.num_dst_tiles
     counts = torch.bincount(tf.dst_tile.long(), minlength=n_dt)[:n_dt]
     dst_ptr = torch.zeros(n_dt + 1, dtype=torch.int64, device=tf.device)
     dst_ptr[1:] = torch.cumsum(counts, 0)
-    covered = counts > 0
-    mask = None
-    if not bool(covered.all()):
-        mask = covered.repeat_interleave(tf.tile).to(torch.float32)
-    return dataclasses.replace(tf, dst_ptr=dst_ptr.to(torch.int32),
-                               covered_mask=mask)
+    return dataclasses.replace(tf, dst_ptr=dst_ptr.to(torch.int32))
 
 
 def _check_cap(cap: int):

@@ -14,10 +14,6 @@ _FLAGS = {
     # counterpart of ``pallas_spmm_min_edges``)
     "kernel_spmm_min_edges": int(
         os.environ.get("DGL_TPU_TORCH_KERNEL_SPMM_MIN_EDGES", "65536")),
-    # build the tiled format at the first SpMM that could use it (the
-    # counterpart of ``pallas_auto_build_tiled``)
-    "kernel_auto_build_tiled": os.environ.get(
-        "DGL_TPU_TORCH_KERNEL_AUTO_TILED", "0") != "0",
 }
 
 

@@ -140,7 +140,9 @@ def test_unit_tiled_format_matches():
     ut = dgt.graph((row, col), num_nodes=n_src, device="cpu").unit()
     ft, rt = ut.tiled_format(tile=256)
     assert ft.cap == fj.cap and rt.cap == rj.cap
+    assert ft.src_order is None            # until a kernel reads it
     for a, b in ((ft, fj), (rt, rj)):
+        a = a.with_src_first()
         for name in FIELDS:
             np.testing.assert_array_equal(getattr(a, name).numpy(),
                                           np.asarray(getattr(b, name)))
@@ -148,20 +150,23 @@ def test_unit_tiled_format_matches():
 
 
 def test_auto_build_tiled(monkeypatch):
-    """With ``kernel_auto_build_tiled`` the first weighted SpMM builds the
-    tiled format with the default tile and cap (the JAX package's
-    ``pallas_auto_build_tiled``); without it the gather path runs."""
+    """The port never builds the tiled format on its own (the JAX
+    package's ``pallas_auto_build_tiled`` has no counterpart): a weighted
+    SpMM takes the gather path until ``create_tiled_format``, then K3's
+    route with the default tile, and both agree."""
     row, col, n = _gcn_graphs(19)
     monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
     g = dgt.graph((row, col), num_nodes=n, device="cpu")
     h, w = torch.randn(n, 3), torch.rand(len(row))
-    want = dgt.ops.gspmm(g, "mul", "sum", h, w)
-    assert g.unit()._tiled is None
-    monkeypatch.setitem(config._FLAGS, "kernel_auto_build_tiled", True)
-    got = dgt.ops.gspmm(g, "mul", "sum", h, w)
+    with mock.patch.object(tsp, "spmm_tiled_mul",
+                           wraps=tsp.spmm_tiled_mul) as spy:
+        want = dgt.ops.gspmm(g, "mul", "sum", h, w)
+        assert g.unit()._tiled is None and spy.call_count == 0
+        g.create_tiled_format()
+        got = dgt.ops.gspmm(g, "mul", "sum", h, w)
+        assert spy.call_count == 1
     fwd, rev = g.unit()._tiled, g.unit()._tiled_rev
-    assert fwd.cap == tts.DEFAULT_CAP and fwd.tile == tts.DEFAULT_TILE
-    assert rev.num_src == fwd.num_dst
+    assert fwd.tile == tts.DEFAULT_TILE and rev.num_src == fwd.num_dst
     torch.testing.assert_close(got, want, **SUMS)
 
 
@@ -255,13 +260,13 @@ def test_autograd_functions_match_jax_vjps(route, interpret):
 
 
 def test_sddmm_dot_chunked(monkeypatch):
-    """dEw in chunks equals dEw in one gather."""
+    """dEw in chunks (the last one short) equals dEw in one gather."""
     rng = np.random.default_rng(7)
     x, dz = torch.randn(50, 3), torch.randn(40, 3)
     row = torch.from_numpy(rng.integers(0, 50, 1000))
     col = torch.from_numpy(rng.integers(0, 40, 1000))
-    whole = tsp._sddmm_dot(x, dz, row, col)
-    monkeypatch.setattr(tsp, "SDDMM_DIRECT_MAX", 100)
+    whole = (x[row] * dz[col]).sum(-1)
+    torch.testing.assert_close(tsp._sddmm_dot(x, dz, row, col), whole)
     monkeypatch.setattr(tsp, "SDDMM_CHUNK", 128)
     torch.testing.assert_close(tsp._sddmm_dot(x, dz, row, col), whole)
 
@@ -376,8 +381,9 @@ def test_weight_norm_on_ones_is_both_norm(monkeypatch):
                                        ("mul", "mean")])
 def test_static_route_and_staleness_guard(op, reduce, monkeypatch):
     """update_all(u_{mul,div}_e) takes the cached slot weights while edata
-    still holds the cached tensor, and the general route once the field is
-    replaced; both give the gather path's answer."""
+    still holds the cached tensor, unedited, and the general route once
+    the field is replaced or edited in place; all give the gather path's
+    answer."""
     row, col, n = _gcn_graphs(14)
     monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
     rng = np.random.default_rng(15)
@@ -407,9 +413,20 @@ def test_static_route_and_staleness_guard(op, reduce, monkeypatch):
                                    reference(w2), **SUMS)
         assert spy.call_count == 1
         g.edata["w"] = w1
+        g.edata["w"].mul_(2.0)             # edited in place: stale too
+        torch.testing.assert_close(dgt.update_all(g, mfunc, rfunc)["o"],
+                                   reference(w1), **SUMS)
+        g.edata["w"][:5] = 0.5
+        torch.testing.assert_close(dgt.update_all(g, mfunc, rfunc)["o"],
+                                   reference(w1), **SUMS)
+        assert spy.call_count == 1
+        g.cache_edge_weights("w")          # cached again: served again
+        torch.testing.assert_close(dgt.update_all(g, mfunc, rfunc)["o"],
+                                   reference(w1), **SUMS)
+        assert spy.call_count == 2
         g.unit().uncache_edge_weights("w")
         dgt.update_all(g, mfunc, rfunc)
-        assert spy.call_count == 1
+        assert spy.call_count == 2
 
 
 def test_gcn_training_slice_on_tiled_matches(monkeypatch):

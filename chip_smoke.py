@@ -46,12 +46,31 @@ Phases, each of which raises on failure (nothing is caught):
    against route 1's; then the weights as a tensor that needs a gradient,
    one step against the gather path;
 15. route 2: the phase-9 GAT with attention dropout 0.6 for 10 Adam steps
-   on the tiled format (edgeflat, K4), and a profiled step;
+   on the tiled format (edgeflat, K4), and a profiled step; then the same
+   model in eval mode, one forward on K6 (the validation pass);
 16. K3 and K4 yardsticks at full size: each kernel against its plain
    version and against one PyTorch call computing the same function
    (``torch.sparse.mm`` on a CSR copy, block-diagonal over the heads for
    K4's SpMM; a batched ``torch.sparse.sampled_addmm`` for K4's SDDMM),
-   the three times (median of 5) and the bound.
+   the three times (median of 5) and the bound;
+17. the slot-space slice at mid size: each K6 kernel (scores with and
+   without a per-slot bias, the slot reduce on both sides, ds, the
+   src-side aggregation) against its plain version on the phase-3
+   multigraph in the tiled format at (H, Fh) = (4, 32), (1, 41), (8, 16);
+   ``GATConv`` on K6 against edgeflat's gather path and ``DotGatConv`` on
+   K8 against its gather path, forward and backward;
+18. route 4: the phase-9 GAT without attention dropout for 10 Adam steps
+   on the tiled format, both layers on K6 forward and backward, a
+   profiled step, and one step's loss and gradients against the same
+   model computed through edgeflat's functions;
+19. ``DotGatConv(64, 32, 4)`` forward and backward of (out^2).mean() for
+   3 steps on the tiled graph (K8: K4's SDDMM and SpMM, K6's kernels);
+20. K6 yardsticks at full size, (H, Fh) = (4, 32) and (1, 41): each
+   kernel against its plain version, its time (median of 5), its plain
+   version's, the bound and, where one PyTorch call computes the same
+   function, that call's time (``index_add_`` for the slot reduce, a
+   block-diagonal ``torch.sparse.mm`` on the transposed pattern for the
+   src-side aggregation).
 
 Each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
@@ -806,11 +825,14 @@ def bound(nbytes, ops, rate):
                                    else "operations")
 
 
-def csr_pattern(gt):
-    """The graph's (dst, src) CSR pattern for the library yardsticks:
-    (crow (N+1,) int64, src (E,) int32, order (E,)), where order[k] is the
-    canonical edge at CSR position k."""
+def csr_pattern(gt, by="dst"):
+    """The graph's (dst, src) CSR pattern for the library yardsticks, or
+    with ``by="src"`` the transposed (src, dst) one: (crow (N+1,) int64,
+    cols (E,) int32, order (E,)), where order[k] is the canonical edge at
+    CSR position k."""
     row, col = gt.unit().coo()
+    if by == "src":
+        row, col = col, row
     order = torch.argsort(col * N_NODES + row)
     crow = torch.zeros(N_NODES + 1, dtype=torch.int64, device="cuda")
     crow[1:] = torch.cumsum(torch.bincount(col, minlength=N_NODES), 0)
@@ -932,6 +954,372 @@ def tiled_yardsticks(ef, tts, gt, rate):
     return rows
 
 
+# -- the slot-space slice -----------------------------------------------------
+
+def k6_kernel_checks(tgf, fwd, heads, fh, gen, tag):
+    """Each K6 kernel against its plain version on ``fwd``: (name,
+    max|err|) pairs; each wrapper launches once (the reduce twice)."""
+    n_src, n_dst = fwd.num_src, fwd.num_dst
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    el, er = randn(n_src, heads), randn(n_dst, heads)
+    zn, rp = randn(n_dst, heads, fh), randn(n_dst, heads)
+    x = randn(n_src, heads, fh)
+    ee = randn(fwd.num_buckets, heads, fwd.cap) * fwd.valid.view(
+        fwd.num_buckets, 1, fwd.cap)
+    counters = (tgf.gat_scores, tgf.slot_reduce, tgf.gat_ds,
+                tgf.src_aggregate)
+    before = [k.launches for k in counters]
+    errs = []
+    for bias in (None, ee):
+        p, g = tgf.gat_scores(fwd, el, er, SLOPE, bias)
+        want = tgf.gat_scores_plain(fwd, el, er, SLOPE, bias)
+        suffix = "" if bias is None else "+ee"
+        errs += [(f"p{suffix}", close(p, want[0], f"{tag} p{suffix}")),
+                 (f"g{suffix}", close(g, want[1], f"{tag} g{suffix}"))]
+    for side in ("dst", "src"):
+        errs.append((f"reduce {side}",
+                     close(tgf.slot_reduce(fwd, g, side),
+                           tgf.slot_reduce_plain(fwd, g, side),
+                           f"{tag} slot reduce {side}")))
+    errs.append(("ds", close(tgf.gat_ds(fwd, x, zn, rp, g),
+                             tgf.gat_ds_plain(fwd, x, zn, rp, g),
+                             f"{tag} ds")))
+    errs.append(("src agg", close(tgf.src_aggregate(fwd, zn, p),
+                                  tgf.src_aggregate_plain(fwd, zn, p),
+                                  f"{tag} src_aggregate")))
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(counters, before)]
+    if launched != [2, 2, 1, 1]:
+        raise AssertionError(f"{tag}: K6 launches {launched}, not "
+                             "[2, 2, 1, 1]")
+    return errs
+
+
+def phase_gat_fused_mid(dgt, tts, tgf):
+    """Phase 17: the K6 kernels against their plain versions at mid size;
+    GATConv on K6 against edgeflat's gather path and DotGatConv on K8
+    against its gather path (``use_kernels(False)``)."""
+    from dgl_tpu_torch.utils import config
+    row, col, n_src, n_dst = mid_graph()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda").with_src_first()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for heads, fh in TILED_MH_SHAPES:
+        errs = k6_kernel_checks(tgf, fwd, heads, fh, gen,
+                                f"K6 mid H={heads} Fh={fh}")
+        log(f"# K6 mid H={heads} Fh={fh}: max|err| " + ", ".join(
+            f"{name} {err:.3g}" for name, err in errs))
+
+    gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
+    gr.create_tiled_format()
+    feat = 64
+    x = torch.randn(n_src, feat, device="cuda", generator=gen)
+    mseed = torch.Generator(device="cuda").manual_seed(18)
+    for conv, counter in (
+            (dgt.nn.GATConv(feat, 32, 4, residual=True, generator=mseed),
+             tgf.gat_scores),
+            (dgt.nn.DotGatConv(feat, 32, 4, generator=mseed),
+             tts.tiled_sddmm_dot_multihead)):
+        name = type(conv).__name__
+
+        def step():
+            conv.zero_grad()
+            xs = x.clone().requires_grad_()
+            out = conv(gr, xs)
+            out.square().mean().backward()
+            return [out.detach(), xs.grad] + [p.grad.clone()
+                                              for p in conv.parameters()]
+
+        before = counter.launches
+        kern = step()
+        torch.cuda.synchronize()
+        if counter.launches - before != 1:
+            raise AssertionError(f"{name} did not run through its kernels")
+        config.set_use_kernels(False)
+        try:
+            ref = step()
+        finally:
+            config.set_use_kernels(True)
+        err = close(kern[0], ref[0], f"{name} kernels vs gather path")
+        for i, (a, b) in enumerate(zip(kern[1:], ref[1:])):
+            close(a, b, f"{name} grad {i}", rtol=1e-3, atol=1e-5)
+        log(f"# {name} mid size, {'K6' if counter is tgf.gat_scores else 'K8'}"
+            f" vs gather path: out max|err| {err:.3g}, {len(kern) - 1} "
+            f"gradients agree")
+
+
+K6_COUNTERS = ("gat_scores", "slot_reduce", "gat_ds", "src_aggregate")
+
+
+def reset_counts(tts, tgf):
+    for name in K6_COUNTERS:
+        getattr(tgf, name).launches = 0
+    tts.tiled_spmm_multihead.launches = 0
+    tts.tiled_sddmm_dot_multihead.launches = 0
+
+
+def read_counts(tts, tgf):
+    counts = {name: getattr(tgf, name).launches for name in K6_COUNTERS}
+    counts["k4_spmm"] = tts.tiled_spmm_multihead.launches
+    counts["k4_sddmm"] = tts.tiled_sddmm_dot_multihead.launches
+    return counts
+
+
+def phase_route4(dgt, tts, tgf, gt, x, y, train):
+    """Phase 18 (route 4): 10 Adam steps of the GAT without attention
+    dropout on the tiled format; K6's and K4's counts are set to 0 just
+    before and read just after."""
+    model = GAT(dgt, torch.Generator(device="cuda").manual_seed(0), FEAT,
+                attn_drop=0.0)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    losses, times = [], []
+    for step in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = loss_fn(model, gt, x, y, train)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        log(f"# route 4 step {step}: loss {losses[-1]:.6f}, "
+            f"{times[-1] * 1e3:.2f} ms")
+    counts = read_counts(tts, tgf)
+    step_s = statistics.median(times[1:])
+    log(f"# route 4 train: median step {step_s * 1e3:.3f} ms after one "
+        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"launches {counts}")
+    # per step and layer: scores, den; K4's SpMM for the numerator; ds,
+    # der, del and dx; K4's SDDMM never
+    want = {"gat_scores": 2, "slot_reduce": 6, "gat_ds": 2,
+            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0}
+    if counts != {k: v * STEPS for k, v in want.items()}:
+        raise AssertionError(f"route 4 launches {counts}, not {want} a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"route 4 losses do not fall: {losses}")
+    return model, opt, counts
+
+
+def gat_edgeflat(ef, conv, g, h):
+    """One GATConv layer (no residual, attention dropout off) through
+    edgeflat's functions, on the layer's own weights."""
+    unit = g.unit()
+    heads, dim = conv.num_heads, conv.out_feats
+    ft = conv.fc(h).reshape(-1, heads, dim)
+    el = (ft * conv.attn_l).sum(-1)
+    er = (ft * conv.attn_r).sum(-1)
+    e = torch.nn.functional.leaky_relu(ef.sddmm_flat(unit, "add", el, er),
+                                       conv.negative_slope)
+    rst = ef.spmm_mul_flat(unit, ft, ef.edge_softmax_flat(unit, e, heads),
+                           heads)
+    return rst + conv.bias
+
+
+def phase_route4_check(ef, model, gt, x, y, train):
+    """One step of route 4's model on K6 against the same weights through
+    edgeflat's functions: loss and every gradient."""
+
+    def grads(forward):
+        model.zero_grad()
+        logits = forward()
+        loss = torch.nn.functional.cross_entropy(logits[train], y[train])
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    loss_k, grad_k = grads(lambda: model(gt, x))
+
+    def edgeflat_forward():
+        h = torch.nn.functional.elu(
+            gat_edgeflat(ef, model.conv1, gt, x).flatten(1))
+        return gat_edgeflat(ef, model.conv2, gt, h).flatten(1)
+
+    loss_e, grad_e = grads(edgeflat_forward)
+    if abs(loss_k - loss_e) > 1e-4 * abs(loss_e):
+        raise AssertionError(f"loss {loss_k} (K6) vs {loss_e} (edgeflat)")
+    for n in grad_k:
+        close(grad_k[n], grad_e[n], f"route 4 grad {n}", rtol=1e-3,
+              atol=1e-5)
+    log(f"# route 4, K6 vs edgeflat at full size: loss {loss_k:.8f} vs "
+        f"{loss_e:.8f}, {len(grad_k)} gradients agree")
+
+
+def phase_gat_eval(tts, tgf, model, gt, x, y):
+    """The phase-15 GAT (attention dropout 0.6) in eval mode: one forward,
+    the validation pass, on K6; counts set to 0 just before."""
+    model.eval()
+    reset_counts(tts, tgf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model(gt, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(tts, tgf)
+    if logits.shape != (N_NODES, CLASSES) or not torch.isfinite(
+            logits).all():
+        raise AssertionError("eval logits are not finite of shape "
+                             f"{(N_NODES, CLASSES)}")
+    acc = float((logits.argmax(1) == y).float().mean())
+    log(f"# eval forward of the dropout-0.6 GAT on K6: {ms:.3f} ms, "
+        f"accuracy on all nodes {acc:.4f}, launches {counts}")
+    if counts != {"gat_scores": 2, "slot_reduce": 2, "gat_ds": 0,
+                  "src_aggregate": 0, "k4_spmm": 2, "k4_sddmm": 0}:
+        raise AssertionError(f"the eval forward did not run on K6: {counts}")
+
+
+DOTGAT_STEPS = 3
+
+
+def phase_dotgat(dgt, tts, tgf, gt):
+    """Phase 19: DotGatConv(64, 32, 4) forward and backward of
+    (out^2).mean() for 3 steps, as tools/perf_gat_full_reddit.py:88-107;
+    counts set to 0 just before and read just after."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    conv = dgt.nn.DotGatConv(64, 32, 4, generator=gen)
+    xs = [torch.randn(N_NODES, 64, device="cuda", generator=gen)
+          for _ in range(DOTGAT_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    times = []
+    for xi in xs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv.zero_grad()
+        loss = conv(gt, xi).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(loss.item()):
+            raise AssertionError("DotGat loss is not finite")
+    counts = read_counts(tts, tgf)
+    log(f"# DotGatConv(64, 32, 4) forward + backward: "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"launches {counts}")
+    # per step: K4's SDDMM (scores), den, K4's SpMM (numerator, dq), ds,
+    # the src-side aggregation (dk, dx)
+    want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
+            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 1}
+    if counts != {k: v * DOTGAT_STEPS for k, v in want.items()}:
+        raise AssertionError(f"DotGat launches {counts}, not {want} a step")
+    if not all(torch.isfinite(p.grad).all() for p in conv.parameters()):
+        raise AssertionError("DotGat gradients are not finite")
+    return counts
+
+
+def slot_ids(fwd, side):
+    """(B * C,) int64 global dst (or src) id of every slot; padded slots
+    name row 0 of their tile."""
+    tiles = fwd.dst_tile if side == "dst" else fwd.src_tile
+    local = fwd.dst_local if side == "dst" else fwd.src_local
+    return (tiles.long()[:, None] * fwd.tile
+            + local.view(fwd.num_buckets, fwd.cap)).reshape(-1)
+
+
+def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
+    """Phase 20: each K6 kernel at full size against its plain version,
+    with the timings, the bound and the library call where there is
+    one."""
+    fwd, _ = gt.unit().tiled_format()
+    e = gt.num_edges()
+    b, cap = fwd.num_buckets, fwd.cap
+    slots = b * cap
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + fh)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    # logits of a trained layer's size (p within a few units), so that
+    # the library call, which sums in another order, agrees at RTOL/ATOL
+    el, er = 0.25 * randn(N_NODES, heads), 0.25 * randn(N_NODES, heads)
+    x, zn = randn(N_NODES, heads, fh), randn(N_NODES, heads, fh)
+    rp = randn(N_NODES, heads)
+    p, g = tgf.gat_scores(fwd, el, er, SLOPE)
+    node, feat_b = N_NODES * heads * 4, N_NODES * heads * fh * 4
+    slot_h = slots * heads * 4
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, ops, lib=None, lib_name=None):
+        got = kernel()
+        want = plain()
+        err = max(close(a, w, f"K6 {name} full size H={heads} Fh={fh}")
+                  for a, w in zip(got if isinstance(got, tuple) else (got,),
+                                  want if isinstance(want, tuple)
+                                  else (want,)))
+        del got, want
+        bnd, by = bound(nbytes, ops, rate)
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel),
+             "plain_ms": cuda_ms(plain, reps=1), "bound_ms": bnd,
+             "bound_by": by, "library_ms": lib}
+        rows[name] = r
+        log(f"# K6 {name} H={heads} Fh={fh}: {r['ms']:.4f} ms (bound "
+            f"{bnd:.4f} ms by {by}: {nbytes} B, {ops} ops), plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            + (f"({lib_name}) {lib:.4f} ms" if lib is not None else "none")
+            + f", max|err| {err:.3g}")
+
+    # scores: in the slot arrays (12 B a slot), el, er; out p, g
+    row("scores", lambda: tgf.gat_scores(fwd, el, er, SLOPE),
+        lambda: tgf.gat_scores_plain(fwd, el, er, SLOPE),
+        slots * 12 + 2 * node + 2 * slot_h, 8 * e * heads)
+
+    # the slot reduce: one index_add_ of head-major slot values at the
+    # slots' global ids computes each side
+    for side in ("dst", "src"):
+        ids = slot_ids(fwd, side)
+        vals_h = p.permute(1, 0, 2).reshape(heads, -1).contiguous()
+
+        def lib_call():
+            return torch.zeros(heads, N_NODES, device="cuda").index_add_(
+                1, ids, vals_h)
+
+        close(lib_call().t(), tgf.slot_reduce(fwd, p, side),
+              f"index_add_ {side} H={heads}")
+        lib = cuda_ms(lib_call)
+        del vals_h, ids
+        # in: local, valid (8 B a slot), the values; out: one row per node
+        row(f"reduce_{side}", lambda: tgf.slot_reduce(fwd, p, side),
+            lambda: tgf.slot_reduce_plain(fwd, p, side),
+            slots * 8 + slot_h + node + (b * 4 if side == "src" else 0),
+            e * heads, lib, "index_add_")
+
+    # ds: in the slot arrays, g, x, zn, rp; out ds
+    row("ds", lambda: tgf.gat_ds(fwd, x, zn, rp, g),
+        lambda: tgf.gat_ds_plain(fwd, x, zn, rp, g),
+        slots * 12 + 2 * slot_h + 2 * feat_b + node,
+        e * heads * (2 * fh + 2))
+    del g
+
+    # the src-side aggregation: one torch.sparse.mm of the block-diagonal
+    # (H N, H N) CSR over the transposed pattern, weighted by p, with
+    # head-major zn
+    pattern = csr_pattern(gt, by="src")
+    slot = fwd.edge_slot().long()
+    p_edge = p.permute(0, 2, 1).reshape(slots, heads)[slot].reshape(-1)
+    del slot
+    aw = block_csr(pattern, heads, p_edge)
+    del p_edge, pattern
+    zh = zn.permute(1, 0, 2).contiguous().view(-1, fh)
+    close(torch.sparse.mm(aw, zh).view(heads, N_NODES, fh).permute(1, 0, 2),
+          tgf.src_aggregate(fwd, zn, p),
+          f"torch.sparse.mm block-diagonal transposed H={heads}")
+    lib = cuda_ms(lambda: torch.sparse.mm(aw, zh))
+    del aw, zh
+    row("src_agg", lambda: tgf.src_aggregate(fwd, zn, p),
+        lambda: tgf.src_aggregate_plain(fwd, zn, p),
+        slots * 12 + slot_h + b * 4 + 2 * feat_b, 2 * e * heads * fh, lib,
+        "torch.sparse.mm")
+    return rows
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -949,6 +1337,7 @@ def main():
     from dgl_tpu_torch.ops import edgeflat as ef
     from dgl_tpu_torch.ops.kernels import bitgat as bg, bitmm as bm, build
     from dgl_tpu_torch.ops.kernels import spmm as tsp, tiled_spmm as tts
+    from dgl_tpu_torch.ops.kernels import gat_fused as tgf
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -976,6 +1365,7 @@ def main():
     # full-size graph is generated
     phase("8 (GAT mid size)", phase_bitgat_mid, dgt, bm, bg)
     phase("11 (K3, K4 mid size)", phase_tiled_mid, tts, tsp, ef)
+    phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf)
 
     # phases 4-6: the GCN slice at full size
     g = phase("graph", reddit_graph, dgt)
@@ -1020,9 +1410,23 @@ def main():
                                     phase_tiled_gat, dgt, tts, gt, x, y,
                                     train)
     phase("15 (route 2 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("15 (eval forward on K6)", phase_gat_eval, tts, tgf, model, gt, x,
+          y)
     del model, opt
     tiled = phase("16 (K3, K4 yardsticks)", tiled_yardsticks, ef, tts, gt,
                   rate)
+
+    # phases 18-20: the slot-space slice at full size
+    model, opt, k6_launches = phase("18 (route 4: GAT on K6 train)",
+                                    phase_route4, dgt, tts, tgf, gt, x, y,
+                                    train)
+    phase("18 (route 4 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("18 (route 4 check)", phase_route4_check, ef, model, gt, x, y,
+          train)
+    del model, opt
+    phase("19 (DotGat on K8)", phase_dotgat, dgt, tts, tgf, gt)
+    k6 = [phase(f"20 (K6 yardsticks H={h} Fh={d})", k6_yardsticks, tgf, tts,
+                gt, h, d, rate) for h, d in GAT_SHAPES]
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -1054,6 +1458,24 @@ def main():
          "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
          "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:521",
          "launches": k4_launches[1], **tiled["sddmm_mh_4"]},
+        # K6 at the first GAT layer's shape, H x Fh = 4 x 32; launches
+        # from route 4
+        {"name": "gat_scores", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:300",
+         "launches": k6_launches["gat_scores"], **k6[0]["scores"]},
+        {"name": "slot_reduce", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:314, :387, :407, :533",
+         "launches": k6_launches["slot_reduce"], **k6[0]["reduce_dst"]},
+        {"name": "gat_ds", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:368, :597",
+         "launches": k6_launches["gat_ds"], **k6[0]["ds"]},
+        {"name": "src_aggregate", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:428, :636",
+         "launches": k6_launches["src_aggregate"], **k6[0]["src_agg"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

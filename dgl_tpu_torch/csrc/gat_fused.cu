@@ -1,0 +1,533 @@
+// Slot-space GAT and DotGat attention on Hopper (K6, K8) over the tiled
+// format.
+//
+// Format (csrc/tiled_spmm.cu, dgl_tpu_torch/ops/kernels/tiled_spmm.py):
+// edges bucketed by (dst tile, src tile) pairs of `tile` nodes, `cap`
+// slots per bucket; for flat slot s = b * cap + c, src_local[s] /
+// dst_local[s] are ids within tiles src_tile[b] / dst_tile[b], and
+// valid[s] is 1 for a real edge.  Padded slots alias row 0 of their tiles;
+// every kernel here skips or zeroes a slot whose valid is 0.  dst tile t
+// owns the buckets [dst_ptr[t], dst_ptr[t + 1]); src tile t owns the
+// buckets src_order[src_ptr[t] .. src_ptr[t + 1]).  Slot tensors are
+// (B, H, C) f32: slot (b, c) of head h is element (b * H + h) * cap + c.
+//
+// The functions of dgl_tpu/ops/pallas/gat_fused.py (gat_fused.py:10-21):
+//   raw = el[src, h] + er[dst, h] (+ ee[b, h, c]),
+//   p = exp(clip(lrelu(raw), +-40)) * valid,  g = p * (raw >= 0 ? 1 : slope)
+//   den[d, h] = sum p,  out = (sum p x[src]) / max(den, 1e-20)
+//   ds = (<x[src, h, :], zn[dst, h, :]> - rp[dst, h]) * g
+//   der = sum_dst ds,  del = sum_src ds,  dx[src] = sum p zn[dst]
+// There is no max subtraction: the clip at +-40 is the numerics contract.
+// DotGat (K8) takes p = exp(clip(<k[src], q[dst]> / sqrt(D), +-40)) from
+// K4's SDDMM and uses g = p.
+//
+// Four kernels serve the eleven K6 and K8 call sites; each is behind a
+// plain C function that launches on the caller's stream, allocates nothing
+// and returns cudaGetLastError():
+//
+// gat_scores_kernel<kBias>  replaces gat_fused.py gat_forward's first
+//     pallas_call (:300, bodies _scores_kernel :59 and, with kBias,
+//     _scores_bias_kernel :81).  One thread per slot, grid-stride: it
+//     gathers the (H,) rows el[src] and er[dst] and writes p and g for
+//     every head, coalesced along c.
+// slot_reduce_kernel<kSrc>  replaces _den_kernel :103 (gat_forward :314,
+//     dot_gat_forward :533), _der_kernel :167 (gat_backward :387) and,
+//     with kSrc, _del_kernel :183 (gat_backward :407).  One block per dst
+//     tile (or src tile, walking src_order) and split of its buckets; the
+//     tile's (tile, H) sums live in shared memory, the block reads each
+//     bucket's H * cap values coalesced and adds them at
+//     [local][h].  With one split the block writes its rows once (zeros on
+//     a tile with no bucket); with several, the caller zeroes `out` and
+//     the blocks add their rows with global atomics.
+// gat_ds_kernel<L>  replaces _ds_kernel :146 (gat_backward :368,
+//     _dot_gat_bwd :597).  K4's SDDMM walk (csrc/tiled_spmm.cu
+//     tiled_sddmm_mh_kernel): one warp per 32-slot chunk, L lanes per
+//     head, xor-shuffle sums, 4 slots in flight; the epilogue subtracts
+//     rp[dst, h] and multiplies by g, and padded slots get 0.
+// src_agg_kernel<G>  replaces _dx_kernel :202 (gat_backward :428, and
+//     _dot_gat_bwd's _dx_call :623 for dk and dx).  K4's SpMM walk with
+//     the sides swapped: one block per (src tile, chunk of G columns,
+//     split of the tile's buckets in src_order); the tile's rows for the
+//     chunk in shared memory, (tile, G) f32, 128 KB at tile 1024 and
+//     G = 32; G lanes per slot gather z[dst] columns, scale them by the
+//     slot's weight of the column's head and add them at [src_local].
+// _agg_kernel :120 (gat_forward :328, dot_gat_forward :547, and dq in
+// _dot_gat_bwd :614) computes exactly tiled_spmm_multihead's function, so
+// the port serves it with K4's SpMM kernel (csrc/tiled_spmm.cu), and K8's
+// scores with K4's SDDMM.
+//
+// The TPU kernels contract one-hot matrices of each bucket on the matrix
+// unit, carry an output tile from grid step to grid step and iterate in
+// src_order so that src-side outputs are visited consecutively.  None of
+// that carries over: here the work per slot is a gather and an add, and a
+// block owns a tile's rows.  Sums are f32; the TPU kernels cast their
+// operands to bf16.
+//
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each kernel streams
+// the slot arrays (12 B a slot for src_local, dst_local and valid, 8 for
+// the reduce) and 4 B a slot and head of each (B, H, C) operand or
+// result; the node rows it gathers (el, er, x, zn, z) are mostly L2 hits,
+// since a bucket reads one src tile and one dst tile.  The f32 arithmetic
+// is at most 2 operations per slot, head and column, far below the rate,
+// so every kernel is bound by bytes.  chip_smoke.py prints each bound at
+// the Reddit graph's shapes.  Indices are int32: the wrappers check that
+// every flat size fits.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kClip = 40.f;     // gat_fused.py CLIP
+constexpr int kScoresThreads = 256;
+constexpr int kReduceThreads = 512;
+constexpr int kDsWarps = 8;       // warps per ds block
+constexpr int kDsUnroll = 4;      // ds slots in flight per warp
+constexpr int kDsCols = 4;        // ds columns a lane loads per slot at once
+constexpr int kAggWarps = 16;     // warps per src_agg block
+
+template <bool kBias>
+__global__ void __launch_bounds__(kScoresThreads)
+gat_scores_kernel(const int* __restrict__ src_local,
+                  const int* __restrict__ dst_local,
+                  const float* __restrict__ valid,
+                  const int* __restrict__ src_tile,
+                  const int* __restrict__ dst_tile, int num_slots, int tile,
+                  int cap, const float* __restrict__ el,
+                  const float* __restrict__ er, const float* __restrict__ ee,
+                  int heads, float slope, float* __restrict__ p,
+                  float* __restrict__ g) {
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < num_slots;
+       s += gridDim.x * blockDim.x) {
+    const int b = s / cap;
+    const int o = b * heads * cap + (s - b * cap);  // (b, 0, c) of (B, H, C)
+    const float v = valid[s];
+    if (v == 0.f) {
+      for (int h = 0; h < heads; ++h) {
+        p[o + h * cap] = 0.f;
+        g[o + h * cap] = 0.f;
+      }
+      continue;
+    }
+    const float* elr = el + (src_tile[b] * tile + src_local[s]) * heads;
+    const float* err = er + (dst_tile[b] * tile + dst_local[s]) * heads;
+    for (int h = 0; h < heads; ++h) {
+      float raw = __ldg(elr + h) + __ldg(err + h);
+      if (kBias) raw += ee[o + h * cap];
+      const bool pos = raw >= 0.f;
+      const float lrelu = pos ? raw : slope * raw;
+      const float pv = expf(fminf(fmaxf(lrelu, -kClip), kClip)) * v;
+      p[o + h * cap] = pv;
+      g[o + h * cap] = pv * (pos ? 1.f : slope);
+    }
+  }
+}
+
+template <bool kSrc>
+__global__ void __launch_bounds__(kReduceThreads)
+slot_reduce_kernel(const int* __restrict__ local,
+                   const float* __restrict__ valid,
+                   const float* __restrict__ vals,
+                   const int* __restrict__ order,
+                   const int* __restrict__ ptr, int tile, int cap, int heads,
+                   float* __restrict__ out, int num_rows, int splits) {
+  extern __shared__ float acc[];  // [tile][heads]
+  const int t = blockIdx.x;
+  const int n_acc = tile * heads;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const int k_lo = ptr[t];
+  const int nb = ptr[t + 1] - k_lo;
+  const int k0 = k_lo + static_cast<int>(
+      static_cast<long long>(nb) * blockIdx.y / splits);
+  const int k1 = k_lo + static_cast<int>(
+      static_cast<long long>(nb) * (blockIdx.y + 1) / splits);
+  const int per_bucket = heads * cap;
+  for (int k = k0; k < k1; ++k) {
+    const int b = kSrc ? order[k] : k;
+    const int* lb = local + b * cap;
+    const float* vb = valid + b * cap;
+    const float* xb = vals + b * per_bucket;
+    for (int j = threadIdx.x; j < per_bucket; j += blockDim.x) {
+      const int h = j / cap;
+      const int c = j - h * cap;
+      if (vb[c] != 0.f) atomicAdd(acc + lb[c] * heads + h, xb[j]);
+    }
+  }
+  __syncthreads();
+
+  const int r0 = t * tile;
+  const int n_out = min(tile, num_rows - r0) * heads;
+  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+    if (splits == 1) {
+      out[r0 * heads + i] = acc[i];
+    } else if (acc[i] != 0.f) {
+      atomicAdd(out + r0 * heads + i, acc[i]);
+    }
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(kDsWarps * 32)
+gat_ds_kernel(const int* __restrict__ src_local,
+              const int* __restrict__ dst_local,
+              const float* __restrict__ valid,
+              const int* __restrict__ src_tile,
+              const int* __restrict__ dst_tile, int num_buckets, int tile,
+              int cap, const float* __restrict__ x,
+              const float* __restrict__ zn, const float* __restrict__ rp,
+              const float* __restrict__ g, int heads, int fh,
+              float* __restrict__ ds) {
+  constexpr int kHeadsPerPass = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const int hl = lane / L;  // head of this lane within a pass
+  const int fl = lane % L;  // first column of this lane within its head
+  const int hf = heads * fh;
+  const int per_bucket = cap / 32;
+  const int n_chunks = num_buckets * per_bucket;
+  for (int k = blockIdx.x * kDsWarps + (threadIdx.x >> 5); k < n_chunks;
+       k += gridDim.x * kDsWarps) {
+    const int b = k / per_bucket;
+    const int c0 = (k % per_bucket) * 32;  // the chunk's first slot in b
+    const int s0 = b * cap + c0;
+    const float v = valid[s0 + lane];
+    const int sl = src_local[s0 + lane];
+    const int dl = dst_local[s0 + lane];
+    const int d0 = dst_tile[b] * tile;    // the dst tile's first row
+    const float* xt = x + src_tile[b] * tile * hf;
+    const float* zt = zn + d0 * hf;
+    const int ob = b * heads * cap + c0;  // ds[b, h, c0 + j] = ds[ob+h*cap+j]
+    if (__ballot_sync(kFull, v != 0.f) == 0u) {  // a padded tail: all 0
+      for (int h = 0; h < heads; ++h) ds[ob + h * cap + lane] = 0.f;
+      continue;
+    }
+    for (int j0 = 0; j0 < 32; j0 += kDsUnroll) {
+      const float* xr[kDsUnroll];
+      const float* zr[kDsUnroll];
+      int dr[kDsUnroll];
+      bool live[kDsUnroll];
+#pragma unroll
+      for (int u = 0; u < kDsUnroll; ++u) {
+        live[u] = __shfl_sync(kFull, v, j0 + u) != 0.f;  // warp-uniform
+        const int dlj = __shfl_sync(kFull, dl, j0 + u);
+        dr[u] = d0 + dlj;
+        xr[u] = xt + __shfl_sync(kFull, sl, j0 + u) * hf;
+        zr[u] = zt + dlj * hf;
+      }
+      for (int h0 = 0; h0 < heads; h0 += kHeadsPerPass) {
+        const int h = h0 + hl;
+        const int c_end = h < heads ? (h + 1) * fh : 0;  // this head's end
+        float s[kDsUnroll];
+#pragma unroll
+        for (int u = 0; u < kDsUnroll; ++u) s[u] = 0.f;
+        for (int cb = h * fh + fl; cb < c_end; cb += L * kDsCols) {
+          float xv[kDsUnroll][kDsCols];
+          float zv[kDsUnroll][kDsCols];
+#pragma unroll
+          for (int u = 0; u < kDsUnroll; ++u) {
+#pragma unroll
+            for (int i = 0; i < kDsCols; ++i) {
+              const int c = cb + i * L;
+              const bool ok = live[u] && c < c_end;
+              xv[u][i] = ok ? __ldg(xr[u] + c) : 0.f;
+              zv[u][i] = ok ? __ldg(zr[u] + c) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kDsUnroll; ++u) {
+#pragma unroll
+            for (int i = 0; i < kDsCols; ++i) s[u] += xv[u][i] * zv[u][i];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kDsUnroll; ++u) {
+#pragma unroll
+          for (int o = L / 2; o > 0; o >>= 1) {
+            s[u] += __shfl_xor_sync(kFull, s[u], o);
+          }
+          if (fl == 0 && h < heads) {
+            const int e = ob + h * cap + j0 + u;
+            ds[e] = live[u] ? (s[u] - __ldg(rp + dr[u] * heads + h)) * g[e]
+                            : 0.f;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kAggWarps * 32)
+src_agg_kernel(const int* __restrict__ src_local,
+               const int* __restrict__ dst_local,
+               const float* __restrict__ valid, const float* __restrict__ w,
+               int heads, int head_cols, const int* __restrict__ dst_tile,
+               const int* __restrict__ src_order,
+               const int* __restrict__ src_ptr, int tile, int cap,
+               const float* __restrict__ z, int f, float* __restrict__ out,
+               int num_src, int splits) {
+  extern __shared__ float acc[];  // [tile][G]
+  constexpr int kSlots = 32 / G;  // slots a warp serves per step
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane / G;
+  const int gcol = lane % G;
+  const int t = blockIdx.x;
+  const int col = blockIdx.y * G + gcol;
+  const bool col_ok = col < f;
+  for (int i = threadIdx.x; i < tile * G; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const int k_lo = src_ptr[t];
+  const int nb = src_ptr[t + 1] - k_lo;
+  const int k0 = k_lo + static_cast<int>(
+      static_cast<long long>(nb) * blockIdx.z / splits);
+  const int k1 = k_lo + static_cast<int>(
+      static_cast<long long>(nb) * (blockIdx.z + 1) / splits);
+  const int per_bucket = cap / 32;
+  const int n_chunks = (k1 - k0) * per_bucket;
+  // the head of this lane's column, as an offset in a bucket's w rows
+  const int w_head = col_ok ? (col / head_cols) * cap : 0;
+
+  for (int k = warp; k < n_chunks; k += kAggWarps) {
+    const int b = src_order[k0 + k / per_bucket];
+    const int c0 = (k % per_bucket) * 32;
+    const int s0 = b * cap + c0;
+    const float v = valid[s0 + lane];
+    if (__ballot_sync(kFull, v != 0.f) == 0u) continue;  // padded tail
+    const int sl = src_local[s0 + lane];
+    const int dl = dst_local[s0 + lane];
+    const float* zt = z + dst_tile[b] * tile * f + col;
+    const float* wb = w + b * heads * cap + w_head + c0;
+    float xv[G];
+    int sv[G];
+    unsigned on = 0u;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int j = i * kSlots + sub;  // the chunk's slot at step i
+      const int dlj = __shfl_sync(kFull, dl, j);
+      sv[i] = __shfl_sync(kFull, sl, j);
+      const bool live = __shfl_sync(kFull, v, j) != 0.f && col_ok;
+      const float wj = live ? __ldg(wb + j) : 0.f;
+      xv[i] = live ? __ldg(zt + dlj * f) * wj : 0.f;
+      on |= static_cast<unsigned>(live) << i;
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (on & (1u << i)) atomicAdd(acc + sv[i] * G + gcol, xv[i]);
+    }
+  }
+  __syncthreads();
+
+  const int r0 = t * tile;
+  for (int i = threadIdx.x; i < tile * G; i += blockDim.x) {
+    const int row = r0 + i / G;
+    const int c = blockIdx.y * G + i % G;
+    if (row >= num_src || c >= f) continue;
+    if (splits == 1) {
+      out[row * f + c] = acc[i];
+    } else if (acc[i] != 0.f) {
+      atomicAdd(out + row * f + c, acc[i]);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int L>
+cudaError_t launch_ds(const void* src_local, const void* dst_local,
+                      const void* valid, const void* src_tile,
+                      const void* dst_tile, int64_t num_buckets, int64_t tile,
+                      int64_t cap, const void* x, const void* zn,
+                      const void* rp, const void* g, int64_t heads,
+                      int64_t fh, void* ds, int64_t blocks,
+                      cudaStream_t stream) {
+  gat_ds_kernel<L><<<static_cast<unsigned>(blocks), kDsWarps * 32, 0,
+                     stream>>>(
+      static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
+      static_cast<const float*>(valid), static_cast<const int*>(src_tile),
+      static_cast<const int*>(dst_tile), static_cast<int>(num_buckets),
+      static_cast<int>(tile), static_cast<int>(cap),
+      static_cast<const float*>(x), static_cast<const float*>(zn),
+      static_cast<const float*>(rp), static_cast<const float*>(g),
+      static_cast<int>(heads), static_cast<int>(fh),
+      static_cast<float*>(ds));
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_src_agg(const void* src_local, const void* dst_local,
+                           const void* valid, const void* w, int64_t heads,
+                           int64_t head_cols, const void* dst_tile,
+                           const void* src_order, const void* src_ptr,
+                           int64_t num_src_tiles, int64_t tile, int64_t cap,
+                           const void* z, int64_t f, void* out,
+                           int64_t num_src, int64_t splits,
+                           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * tile * G;
+  const cudaError_t err = allow_smem(src_agg_kernel<G>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(num_src_tiles),
+                  static_cast<unsigned>((f + G - 1) / G),
+                  static_cast<unsigned>(splits));
+  src_agg_kernel<G><<<grid, kAggWarps * 32, smem, stream>>>(
+      static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
+      static_cast<const float*>(valid), static_cast<const float*>(w),
+      static_cast<int>(heads), static_cast<int>(head_cols),
+      static_cast<const int*>(dst_tile), static_cast<const int*>(src_order),
+      static_cast<const int*>(src_ptr), static_cast<int>(tile),
+      static_cast<int>(cap), static_cast<const float*>(z),
+      static_cast<int>(f), static_cast<float*>(out),
+      static_cast<int>(num_src), static_cast<int>(splits));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// p and g (num_slots / cap, heads, cap) from el (num_src, heads) and er
+// (num_dst, heads); ee (the same shape as p) is added to raw when it is
+// not null.  Every element of p and g is written.  Grid: `blocks` blocks
+// of 256 threads, grid-stride over slots.
+int dgl_gat_scores(const void* src_local, const void* dst_local,
+                   const void* valid, const void* src_tile,
+                   const void* dst_tile, int64_t num_slots, int64_t tile,
+                   int64_t cap, const void* el, const void* er,
+                   const void* ee, int64_t heads, double slope, void* p,
+                   void* g, int64_t blocks, int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (ee != nullptr) {
+    gat_scores_kernel<true><<<grid, kScoresThreads, 0, s>>>(
+        static_cast<const int*>(src_local),
+        static_cast<const int*>(dst_local), static_cast<const float*>(valid),
+        static_cast<const int*>(src_tile), static_cast<const int*>(dst_tile),
+        static_cast<int>(num_slots), static_cast<int>(tile),
+        static_cast<int>(cap), static_cast<const float*>(el),
+        static_cast<const float*>(er), static_cast<const float*>(ee),
+        static_cast<int>(heads), static_cast<float>(slope),
+        static_cast<float*>(p), static_cast<float*>(g));
+  } else {
+    gat_scores_kernel<false><<<grid, kScoresThreads, 0, s>>>(
+        static_cast<const int*>(src_local),
+        static_cast<const int*>(dst_local), static_cast<const float*>(valid),
+        static_cast<const int*>(src_tile), static_cast<const int*>(dst_tile),
+        static_cast<int>(num_slots), static_cast<int>(tile),
+        static_cast<int>(cap), static_cast<const float*>(el),
+        static_cast<const float*>(er), nullptr, static_cast<int>(heads),
+        static_cast<float>(slope), static_cast<float*>(p),
+        static_cast<float*>(g));
+  }
+  return cudaGetLastError();
+}
+
+// out (num_rows, heads): the sum of vals (B, heads, cap) over the valid
+// slots of each dst row (src_side = 0: local is dst_local, ptr is dst_ptr,
+// order is unused) or src row (src_side = 1: local is src_local, order is
+// src_order, ptr is src_ptr).  With splits > 1, out must be zeroed by the
+// caller.  Grid: (num_tiles, splits), tile * heads floats of shared
+// memory.
+int dgl_slot_reduce(const void* local, const void* valid, const void* vals,
+                    const void* order, const void* ptr, int64_t num_tiles,
+                    int64_t tile, int64_t cap, int64_t heads, void* out,
+                    int64_t num_rows, int64_t splits, int64_t src_side,
+                    int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * tile * heads;
+  const dim3 grid(static_cast<unsigned>(num_tiles),
+                  static_cast<unsigned>(splits));
+#define DGL_REDUCE_LAUNCH(SRC_)                                              \
+  err = allow_smem(slot_reduce_kernel<SRC_>, smem);                          \
+  if (err != cudaSuccess) return err;                                        \
+  slot_reduce_kernel<SRC_><<<grid, kReduceThreads, smem, s>>>(               \
+      static_cast<const int*>(local), static_cast<const float*>(valid),      \
+      static_cast<const float*>(vals), static_cast<const int*>(order),       \
+      static_cast<const int*>(ptr), static_cast<int>(tile),                  \
+      static_cast<int>(cap), static_cast<int>(heads),                        \
+      static_cast<float*>(out), static_cast<int>(num_rows),                  \
+      static_cast<int>(splits));
+  if (src_side != 0) {
+    DGL_REDUCE_LAUNCH(true)
+  } else {
+    DGL_REDUCE_LAUNCH(false)
+  }
+#undef DGL_REDUCE_LAUNCH
+  return cudaGetLastError();
+}
+
+// ds (num_buckets, heads, cap), every element written, from x (num_src,
+// heads, fh), zn (num_dst, heads, fh), rp (num_dst, heads) and g (the
+// shape of ds).  lanes is L, the lanes per head (32 over heads rounded up
+// to a power of two, at least 1).  Grid: `blocks` blocks of 8 warps,
+// grid-stride over 32-slot chunks.
+int dgl_gat_ds(const void* src_local, const void* dst_local,
+               const void* valid, const void* src_tile, const void* dst_tile,
+               int64_t num_buckets, int64_t tile, int64_t cap, const void* x,
+               const void* zn, const void* rp, const void* g, int64_t heads,
+               int64_t fh, void* ds, int64_t lanes, int64_t blocks,
+               int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_DS_CASE(L_)                                                      \
+  case L_:                                                                   \
+    return launch_ds<L_>(src_local, dst_local, valid, src_tile, dst_tile,    \
+                         num_buckets, tile, cap, x, zn, rp, g, heads, fh,    \
+                         ds, blocks, s);
+  switch (lanes) {
+    DGL_DS_CASE(1)
+    DGL_DS_CASE(2)
+    DGL_DS_CASE(4)
+    DGL_DS_CASE(8)
+    DGL_DS_CASE(16)
+    DGL_DS_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_DS_CASE
+}
+
+// out (num_src, f): out[s, j] = sum over the valid slots with src s of
+// w[b, j / head_cols, c] * z[dst, j], z (num_dst, f) and w (B, heads,
+// cap).  group (8, 16 or 32) is G; with splits > 1, out must be zeroed by
+// the caller.  Grid: (num_src_tiles, ceil(f / G), splits).
+int dgl_src_agg(const void* src_local, const void* dst_local,
+                const void* valid, const void* w, int64_t heads,
+                int64_t head_cols, const void* dst_tile,
+                const void* src_order, const void* src_ptr,
+                int64_t num_src_tiles, int64_t tile, int64_t cap,
+                const void* z, int64_t f, void* out, int64_t num_src,
+                int64_t group, int64_t splits, int64_t device,
+                void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_AGG_CASE(G_)                                                     \
+  case G_:                                                                   \
+    return launch_src_agg<G_>(src_local, dst_local, valid, w, heads,         \
+                              head_cols, dst_tile, src_order, src_ptr,       \
+                              num_src_tiles, tile, cap, z, f, out, num_src,  \
+                              splits, s);
+  switch (group) {
+    DGL_AGG_CASE(8)
+    DGL_AGG_CASE(16)
+    DGL_AGG_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_AGG_CASE
+}
+
+}  // extern "C"

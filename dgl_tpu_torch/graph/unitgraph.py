@@ -166,7 +166,9 @@ class UnitGraph:
     def tiled_format(self, tile: int = None, cap: int = None):
         """Build (once) and return the tile-bucketed format and its
         reverse (``ops/kernels/tiled_spmm.py``), sorted and scattered on
-        the graph's device; ``cap=None`` picks :func:`_auto_cap`."""
+        the graph's device, each with its src-major bucket order
+        (``with_src_first``, as the JAX unit's); ``cap=None`` picks
+        :func:`_auto_cap`."""
         from ..ops.kernels import tiled_spmm as ts
         if self._tiled is None:
             row, col = self.coo()
@@ -176,9 +178,9 @@ class UnitGraph:
                 cap = _auto_cap(self.num_edges, tiles2, ts.DEFAULT_CAP)
             build = ts.build_tiled_format_device
             self._tiled = build(row, col, self.num_src, self.num_dst, t,
-                                cap, device=row.device)
+                                cap, device=row.device).with_src_first()
             self._tiled_rev = build(col, row, self.num_dst, self.num_src, t,
-                                    cap, device=row.device)
+                                    cap, device=row.device).with_src_first()
         return self._tiled, self._tiled_rev
 
     def cache_edge_weights(self, field: str, edge_weights) -> None:

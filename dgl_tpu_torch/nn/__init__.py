@@ -1,3 +1,3 @@
 """Neural network modules, ``torch.nn.Module``s (counterpart of
 ``dgl_tpu/nn``)."""
-from .conv import EdgeWeightNorm, GATConv, GraphConv
+from .conv import DotGatConv, EdgeWeightNorm, GATConv, GraphConv

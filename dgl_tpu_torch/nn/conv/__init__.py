@@ -1,3 +1,3 @@
 """Graph convolution layers (counterpart of ``dgl_tpu/nn/conv``)."""
-from .gatconv import GATConv
+from .gatconv import DotGatConv, GATConv
 from .graphconv import EdgeWeightNorm, GraphConv

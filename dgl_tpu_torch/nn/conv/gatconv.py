@@ -1,6 +1,6 @@
-"""GATConv (graph attention) layer.
+"""GATConv (graph attention) and DotGatConv layers.
 
-Counterpart of ``dgl_tpu/nn/conv/gatconv.py:22-176`` (reference
+GATConv: counterpart of ``dgl_tpu/nn/conv/gatconv.py:22-176`` (reference
 ``python/dgl/nn/pytorch/conv/gatconv.py:14``): ``fc`` projects the
 features to H heads of D, el/er are the per-head dot products with
 ``attn_l``/``attn_r``, the edge logits lrelu(el[src] + er[dst]) are
@@ -19,21 +19,34 @@ Routes, chosen as ``gatconv.py:89-148`` chooses them.  With at least
   subtracting a per-dst max (the JAX package's numerics contract), and
   draw the dropout mask from a hash of (src, dst, head, seed), with one
   seed per forward drawn from the module's generator;
+* the slot-space kernels (``ops/kernels/gat_fused.py``, K6) when the
+  graph carries a tiled format (``create_tiled_format``) and no attention
+  dropout is active (eval mode, or ``attn_drop=0``), exactly under
+  ``gatconv.py:106-136``'s gates.  They clip the logits to +-40 instead
+  of subtracting a per-dst max; the attention never leaves slot space;
 * otherwise edgeflat (``ops/edgeflat.py``): ``sddmm_flat(add)``,
   leaky_relu, ``edge_softmax_flat`` (max-subtracted), dropout from the
   module's generator, ``spmm_mul_flat`` (K4 on a tiled graph, else one
   gather-path SpMM per head).  Per edge it holds (E, H) scalars, never
-  (E, H, D) messages.  Where the JAX package takes its slot-space kernels
-  (K6, ``gatconv.py:110-136``: a tiled graph without attention dropout),
-  the port takes edgeflat until K6 is ported; the two agree while the
-  logits stay within K6's clip of +-40.
+  (E, H, D) messages.
 
 Otherwise the edge chain: ``apply_edges(u_add_v)``, leaky_relu,
 ``edge_softmax``, dropout, ``edge_weight``, ``update_all(u_mul_e, sum)``.
 It holds (E, H, D) messages, so it does not fit at Reddit scale.
+
+DotGatConv: counterpart of ``dgl_tpu/nn/conv/gatconv.py:253-301``
+(reference ``python/dgl/nn/pytorch/conv/dotgatconv.py``), dot-product
+attention softmax(<ft_src[u], ft_dst[v]> / sqrt(D)) weighting ft_src.  At
+``kernel_spmm_min_edges`` edges and more on a tiled graph it takes the
+slot-space route (K8: K4's SDDMM, then K6's kernels); otherwise the
+gather path.  Where the JAX package takes its bit-masked kernel K7 (a
+simple bit format, H * D <= 128 and D >= 64, ``gatconv.py:280-285``),
+K7 is not ported yet: the port takes K8 on a tiled graph, else the gather
+path.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -44,6 +57,8 @@ from ...core import apply_edges, update_all
 from ...ops import edge_softmax
 from ...ops.edgeflat import edge_softmax_flat, sddmm_flat, spmm_mul_flat
 from ...ops.kernels import bitgat
+from ...ops.kernels import gat_fused
+from ...ops.kernels.spmm import get_tiled_formats
 from ...utils import config, expand_as_pair, resolve_device
 
 
@@ -127,12 +142,20 @@ class GATConv(nn.Module):
         if use_flat:
             el = (ft_src * self.attn_l).sum(-1)              # (N, H)
             er = (ft_dst * self.attn_r).sum(-1)
-            if self._use_bits(unit, train_drop):
+            use_bits = self._use_bits(unit, train_drop)
+            # K6 takes no attention dropout (the bitmask kernels do)
+            tf = (None if use_bits or train_drop or not config.use_kernels()
+                  else get_tiled_formats(unit)[0])
+            if use_bits:
                 rst = bitgat.bitgat_attention_aggregate(
                     unit._bits, el, er, ft_src, self.negative_slope,
                     attn_drop=self.attn_drop if train_drop else 0.0,
                     dropout_seed=(self._seed(ft_src.device) if train_drop
                                   else None)).to(ft_src.dtype)
+            elif tf is not None:
+                rst = gat_fused.gat_attention_aggregate(
+                    tf, el, er, ft_src, heads, dim,
+                    self.negative_slope).to(ft_src.dtype)
             else:
                 e = nn.functional.leaky_relu(
                     sddmm_flat(unit, "add", el, er), self.negative_slope)
@@ -165,6 +188,57 @@ class GATConv(nn.Module):
         if get_attention:
             return rst, a
         return rst
+
+    def extra_repr(self):
+        return (f"in={self.in_feats}, out={self.out_feats}, "
+                f"heads={self.num_heads}")
+
+
+class DotGatConv(nn.Module):
+    """Dot-product attention conv: ``fc_src``/``fc_dst`` (no bias) project
+    to H heads of D, and out[v] = sum_u softmax_u(<ft_src[u], ft_dst[v]> /
+    sqrt(D)) ft_src[u], (N_dst, H, D)."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_feats = in_feats
+        self.out_feats = out_feats
+        self.num_heads = num_heads
+        self.generator = generator
+        dev = resolve_device(device)
+        hd = num_heads * out_feats
+        self.fc_src = nn.Linear(in_feats, hd, bias=False, device=dev)
+        self.fc_dst = nn.Linear(in_feats, hd, bias=False, device=dev)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        """Xavier-normal weights with the gain of relu, as the reference's
+        ``reset_parameters``."""
+        gain = nn.init.calculate_gain("relu")
+        for w in (self.fc_src.weight, self.fc_dst.weight):
+            nn.init.xavier_normal_(w, gain=gain, generator=self.generator)
+
+    def forward(self, graph, feat):
+        heads, dim = self.num_heads, self.out_feats
+        feat_src, feat_dst = expand_as_pair(feat, graph)
+        ft_src = self.fc_src(feat_src).reshape(-1, heads, dim)
+        ft_dst = self.fc_dst(feat_dst).reshape(-1, heads, dim)
+        unit = graph.unit()
+        if (config.use_kernels()
+                and unit.num_edges >= config.get("kernel_spmm_min_edges")):
+            tf = get_tiled_formats(unit)[0]
+            if tf is not None:
+                return gat_fused.dot_gat_attention_aggregate(
+                    tf, ft_dst, ft_src, ft_src, heads, dim, dim) \
+                    .to(ft_src.dtype)
+        with graph.local_scope():
+            graph.srcdata["ft"] = ft_src
+            graph.dstdata["ft_dst"] = ft_dst
+            e = apply_edges(graph, fn.u_dot_v("ft", "ft_dst", "a"))
+            graph.edata["sa"] = edge_softmax(graph, e / math.sqrt(dim))
+            return update_all(graph, fn.u_mul_e("ft", "sa", "m"),
+                              fn.sum("m", "agg_u"))["agg_u"]
 
     def extra_repr(self):
         return (f"in={self.in_feats}, out={self.out_feats}, "

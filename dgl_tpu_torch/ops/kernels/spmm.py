@@ -26,7 +26,8 @@ def get_tiled_formats(unit):
     """(forward, reverse) tiled formats of a unit graph, or (None, None)
     when ``create_tiled_format`` was not called: the port never builds
     the format on its own (the JAX package's ``pallas_auto_build_tiled``
-    has no counterpart)."""
+    has no counterpart).  Both carry ``src_order`` and ``src_ptr``
+    (``UnitGraph.tiled_format``), so no step sorts buckets."""
     if unit._tiled is not None and unit._tiled_rev is not None:
         return unit._tiled, unit._tiled_rev
     return None, None

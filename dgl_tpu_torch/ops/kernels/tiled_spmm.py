@@ -14,7 +14,11 @@ The slot arrays keep the JAX package's (B, cap // 128, 128) layout, so
 ``cap`` is a multiple of 128, and the builders here emit the JAX
 builder's arrays exactly.  ``dst_tile`` never decreases, so the buckets of
 one dst tile are contiguous: ``dst_ptr`` (num_dst_tiles + 1,) holds their
-ranges, computed once per format for the CUDA kernels.  Padded slots have
+ranges, computed once per format for the CUDA kernels.  The src-side
+passes of the slot-space GAT kernels (``gat_fused.py``) walk the buckets
+of one src tile: ``with_src_first`` adds ``src_order``, the buckets
+sorted by src tile (stable, the JAX format's), and ``src_ptr``
+(num_src_tiles + 1,), each src tile's range in it.  Padded slots have
 ``src_local = dst_local = 0`` and so alias row 0 of their tile: every
 kernel and every plain version masks them by ``valid``.
 
@@ -71,19 +75,27 @@ class TiledFormat:
     tile: int
     cap: int
     # (B,) int32 bucket order by src tile (stable), as the JAX format's;
-    # set only by with_src_first, which no kernel of the port needs yet
+    # set by with_src_first, with src_ptr, for the src-side passes of
+    # gat_fused.py (UnitGraph.tiled_format sets both at build)
     src_order: Optional[torch.Tensor] = None
     # (num_dst_tiles + 1,) int32: dst tile t owns buckets
     # [dst_ptr[t], dst_ptr[t + 1])
     dst_ptr: Optional[torch.Tensor] = None
+    # (num_src_tiles + 1,) int32: src tile t owns buckets
+    # src_order[src_ptr[t]:src_ptr[t + 1]]
+    src_ptr: Optional[torch.Tensor] = None
     # (num_edges,) int32 slot of each canonical edge, built at first use
     _edge_slot: Optional[torch.Tensor] = None
 
     def with_src_first(self) -> "TiledFormat":
+        """This format with ``src_order`` and ``src_ptr``, computed on its
+        device (once: a format that has them is returned as it is)."""
         if self.src_order is not None:
             return self
         order = torch.argsort(self.src_tile, stable=True).to(torch.int32)
-        return dataclasses.replace(self, src_order=order)
+        return dataclasses.replace(self, src_order=order,
+                                   src_ptr=_tile_ptr(self.src_tile,
+                                                     self.num_src_tiles))
 
     @property
     def num_buckets(self) -> int:
@@ -129,13 +141,18 @@ class TiledFormat:
         return self._edge_slot
 
 
+def _tile_ptr(tiles: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(n_tiles + 1,) int32 offsets of each tile's run in ``tiles`` sorted."""
+    counts = torch.bincount(tiles.long(), minlength=n_tiles)[:n_tiles]
+    ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=tiles.device)
+    ptr[1:] = torch.cumsum(counts, 0)
+    return ptr.to(torch.int32)
+
+
 def _finish(tf: TiledFormat) -> TiledFormat:
     """Attach ``dst_ptr`` (from ``dst_tile``)."""
-    n_dt = tf.num_dst_tiles
-    counts = torch.bincount(tf.dst_tile.long(), minlength=n_dt)[:n_dt]
-    dst_ptr = torch.zeros(n_dt + 1, dtype=torch.int64, device=tf.device)
-    dst_ptr[1:] = torch.cumsum(counts, 0)
-    return dataclasses.replace(tf, dst_ptr=dst_ptr.to(torch.int32))
+    return dataclasses.replace(tf, dst_ptr=_tile_ptr(tf.dst_tile,
+                                                     tf.num_dst_tiles))
 
 
 def _check_cap(cap: int):
@@ -400,6 +417,26 @@ def _group(f: int, tile: int) -> int:
     return g
 
 
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(tf: TiledFormat, n_tiles: int, blocks_per_tile: int,
+            per_sm: int, device) -> int:
+    """Splits of each tile's buckets over blocks: about two waves of the
+    ``per_sm`` blocks that fit an SM at once, each split keeping about 4
+    buckets or more of its tile."""
+    want = -(-2 * _sms(device) * per_sm // max(n_tiles * blocks_per_tile,
+                                               1))
+    return max(1, min(want, tf.num_buckets // max(4 * n_tiles, 1), 65535))
+
+
+def _group_per_sm(g: int, tile: int) -> int:
+    """Blocks of a (tile, g) shared-memory accumulator that fit an SM at
+    once, with the registers of 512 threads at g = 32."""
+    return max(1, min(2 if g <= 16 else 1, _SMEM_PER_BLOCK // (tile * g * 4)))
+
+
 def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w, w_bucket_stride: int,
                  w_head_stride: int, head_cols: int, wrapper):
     """out (num_dst, F) f32 from one launch of csrc ``tiled_spmm_kernel``
@@ -412,14 +449,7 @@ def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w, w_bucket_stride: int,
     g = _group(f, tf.tile)
     n_dt = tf.num_dst_tiles
     n_chunks = -(-f // g)
-    # blocks that fit an SM at once (the (tile, g) accumulator, and the
-    # registers of 512 threads at g = 32), about two waves of them, and
-    # each split keeps about 4 buckets or more of its dst tile
-    per_sm = max(1, min(2 if g <= 16 else 1,
-                        _SMEM_PER_BLOCK // (tf.tile * g * 4)))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    want = -(-2 * sms * per_sm // max(n_dt * n_chunks, 1))
-    splits = max(1, min(want, b // max(4 * n_dt, 1), 65535))
+    splits = _splits(tf, n_dt, n_chunks, _group_per_sm(g, tf.tile), x.device)
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc(tf.num_dst, f, dtype=torch.float32, device=x.device)
     if n_dt == 0 or f == 0:
@@ -513,9 +543,8 @@ def tiled_sddmm_dot_multihead(tf: TiledFormat, x3: torch.Tensor,
         return out.zero_()
     x = x3.float().contiguous()
     z = z3.float().contiguous()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = b * tf.cap // 32
-    blocks = max(1, min(-(-chunks // _SDDMM_WARPS), 16 * sms))
+    blocks = max(1, min(-(-chunks // _SDDMM_WARPS), 16 * _sms(x.device)))
     _launch("dgl_tiled_sddmm_mh", tf.src_local.data_ptr(),
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
             tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile,

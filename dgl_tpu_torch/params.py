@@ -3,9 +3,10 @@
 
 Flax ``GraphConv`` (``dgl_tpu/nn/conv/graphconv.py``) stores ``weight`` as
 (in, out) and ``bias`` as (out,), the layout of DGL's PyTorch GraphConv,
-so the arrays cross unchanged.  Flax ``GATConv``'s Dense kernels are
-(in, out), the transpose of ``nn.Linear.weight``.  The input is any
-mapping of arrays that numpy can read; nothing of JAX is imported here.
+so the arrays cross unchanged.  Flax ``GATConv``'s and ``DotGatConv``'s
+Dense kernels are (in, out), the transpose of ``nn.Linear.weight``.  The
+input is any mapping of arrays that numpy can read; nothing of JAX is
+imported here.
 """
 from __future__ import annotations
 
@@ -47,3 +48,12 @@ def gatconv_state_dict(flax_params: Mapping):
             sd[f"{name}.weight"] = _f32(flax_params[name]["kernel"]).T \
                 .contiguous()
     return sd
+
+
+def dotgatconv_state_dict(flax_params: Mapping):
+    """``state_dict`` for :class:`dgl_tpu_torch.nn.DotGatConv` from one
+    flax DotGatConv's params: ``fc_src.kernel`` and ``fc_dst.kernel``
+    (in, H*D) become ``fc_src.weight`` and ``fc_dst.weight`` (H*D, in)."""
+    flax_params = _unwrap(flax_params)
+    return {f"{name}.weight": _f32(flax_params[name]["kernel"]).T
+            .contiguous() for name in ("fc_src", "fc_dst")}

@@ -6,8 +6,8 @@ PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
-atomics (K5's, for the gradient of er, and K3's and K4's shared-memory
-adds) add in an order that changes from run to run."""
+atomics (K5's, for the gradient of er, and K3's, K4's and K6's
+shared-memory adds) add in an order that changes from run to run."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +15,7 @@ import torch
 import dgl_tpu_torch as dgt
 import dgl_tpu_torch.ops.kernels.bitgat as tbg
 import dgl_tpu_torch.ops.kernels.bitmm as tbm
+import dgl_tpu_torch.ops.kernels.gat_fused as tgf
 import dgl_tpu_torch.ops.kernels.spmm as tsp
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 from dgl_tpu_torch.ops import edgeflat
@@ -340,6 +341,142 @@ def test_graphconv_tiled_matches_gather_path(card, monkeypatch):
         assert tts.tiled_spmm.launches == before + 2
         monkeypatch.setitem(config._FLAGS, "use_kernels", False)
         ref = step(weighted)
+        monkeypatch.setitem(config._FLAGS, "use_kernels", True)
+        torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=ATOL)
+        for a, b in zip(kern[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+def _k6_plain(fwd, el, er, x, dz, ee=None):
+    """K6 forward and backward chained from the plain versions, as the
+    autograd function chains the kernels: (out, del, der, dx, ds)."""
+    heads, fh = x.shape[1], x.shape[2]
+    p, g = tgf.gat_scores_plain(fwd, el, er, 0.2, ee)
+    den = tgf.slot_reduce_plain(fwd, p, "dst").clamp_(min=tgf.DEN_EPS)
+    out = tts.tiled_spmm_multihead_plain(fwd, x, p) / den.unsqueeze(-1)
+    zn, rp = tgf._scales(out, dz, den)
+    ds = tgf.gat_ds_plain(fwd, x, zn, rp, g)
+    return (out, tgf.slot_reduce_plain(fwd, ds, "src"),
+            tgf.slot_reduce_plain(fwd, ds, "dst"),
+            tgf.src_aggregate_plain(fwd, zn, p), ds)
+
+
+@pytest.mark.parametrize("heads,fh", [(4, 32), (1, 41), (8, 16), (3, 5)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gat_fused_kernels_match_plain(card, heads, fh, bias):
+    """Each K6 kernel against its plain version (both sides of the slot
+    reduce), then the forward and backward of ``egat_attention_aggregate``
+    / ``gat_attention_aggregate`` against the plain chain; rows of the dst
+    tile without a bucket are 0."""
+    fwd, _, row, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + fh)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=card, generator=gen)
+
+    el, er = randn(fwd.num_src, heads), randn(fwd.num_dst, heads)
+    x, dz = randn(fwd.num_src, heads, fh), randn(fwd.num_dst, heads, fh)
+    zn, rp = randn(fwd.num_dst, heads, fh), randn(fwd.num_dst, heads)
+    ee = (edgeflat._w_slot_from_flat(fwd, randn(row.shape[0] * heads), heads)
+          if bias else None)
+    before = [k.launches for k in (tgf.gat_scores, tgf.slot_reduce,
+                                   tgf.gat_ds, tgf.src_aggregate)]
+    p, g = tgf.gat_scores(fwd, el, er, 0.2, ee)
+    got = [p, g, tgf.slot_reduce(fwd, p, "dst"),
+           tgf.slot_reduce(fwd, g, "src"), tgf.gat_ds(fwd, x, zn, rp, g),
+           tgf.src_aggregate(fwd, zn, p)]
+    torch.cuda.synchronize()
+    assert [k.launches for k in (tgf.gat_scores, tgf.slot_reduce,
+                                 tgf.gat_ds, tgf.src_aggregate)] == [
+        before[0] + 1, before[1] + 2, before[2] + 1, before[3] + 1]
+    want = list(tgf.gat_scores_plain(fwd, el, er, 0.2, ee)) + [
+        tgf.slot_reduce_plain(fwd, p, "dst"),
+        tgf.slot_reduce_plain(fwd, g, "src"),
+        tgf.gat_ds_plain(fwd, x, zn, rp, g),
+        tgf.src_aggregate_plain(fwd, zn, p)]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+    ins = [t.clone().requires_grad_() for t in (el, er, x)]
+    if bias:
+        ee_in = ee.clone().requires_grad_()
+        out = tgf.egat_attention_aggregate(fwd, ins[0], ins[1], ee_in, ins[2],
+                                           heads, fh, 0.2)
+    else:
+        out = tgf.gat_attention_aggregate(fwd, *ins, heads, fh, 0.2)
+    out.backward(dz)
+    ref = _k6_plain(fwd, el, er, x, dz, ee)
+    torch.testing.assert_close(out.detach(), ref[0], rtol=RTOL, atol=ATOL)
+    for a, b in zip([t.grad for t in ins], ref[1:4]):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    if bias:
+        torch.testing.assert_close(ee_in.grad, ref[4], rtol=RTOL, atol=ATOL)
+    assert fwd.covered_mask is not None
+    assert (out.detach()[fwd.covered_mask[:fwd.num_dst] == 0] == 0).all()
+
+
+@pytest.mark.parametrize("heads,d", [(4, 32), (1, 41), (8, 16)])
+def test_dot_gat_kernels_match_plain(card, heads, d):
+    """K8 forward and backward (K4's SDDMM and SpMM, K6's kernels)
+    against the same chain of plain versions."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    gen = torch.Generator(device=card).manual_seed(heads * 10 + d)
+    q = torch.randn(fwd.num_dst, heads, d, device=card, generator=gen)
+    k, x = (torch.randn(fwd.num_src, heads, d, device=card, generator=gen)
+            for _ in range(2))
+    dz = torch.randn(fwd.num_dst, heads, d, device=card, generator=gen)
+    ins = [t.clone().requires_grad_() for t in (q, k, x)]
+    before = tts.tiled_sddmm_dot_multihead.launches
+    out = tgf.dot_gat_attention_aggregate(fwd, *ins, heads, d, d)
+    out.backward(dz)
+    assert tts.tiled_sddmm_dot_multihead.launches == before + 1
+    scale = d ** -0.5
+    p = tts.tiled_sddmm_dot_multihead_plain(fwd, k, q) * scale
+    p = torch.exp(p.clamp(-tgf.CLIP, tgf.CLIP)) * fwd.valid.view(
+        fwd.num_buckets, 1, fwd.cap)
+    den = tgf.slot_reduce_plain(fwd, p, "dst").clamp_(min=tgf.DEN_EPS)
+    ref = tts.tiled_spmm_multihead_plain(fwd, x, p) / den.unsqueeze(-1)
+    zn, rp = tgf._scales(ref, dz, den)
+    ds = tgf.gat_ds_plain(fwd, x, zn, rp, p) * scale
+    want = (tts.tiled_spmm_multihead_plain(fwd, k, ds),
+            tgf.src_aggregate_plain(fwd, q, ds),
+            tgf.src_aggregate_plain(fwd, zn, p))
+    torch.testing.assert_close(out.detach(), ref, rtol=RTOL, atol=ATOL)
+    for a, b in zip([t.grad for t in ins], want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_attention_convs_kernels_match_gather(card, monkeypatch):
+    """A GATConv step on K6 (no attention dropout) equals edgeflat's gather
+    path, and a DotGatConv step on K8 equals its gather path, on the
+    card."""
+    row, col, n, _ = _coo(n_src=8100, n_dst=8100)
+    g = dgt.graph((row, col), num_nodes=n)
+    g.create_tiled_format(tile=1024)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    x = torch.randn(n, 24, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    gen = torch.Generator(device=card).manual_seed(0)
+    for conv, counter in (
+            (dgt.nn.GATConv(24, 32, 4, residual=True, generator=gen),
+             tgf.gat_scores),
+            (dgt.nn.DotGatConv(24, 32, 4, generator=gen),
+             tts.tiled_sddmm_dot_multihead)):
+        def step():
+            conv.zero_grad()
+            xs = x.clone().requires_grad_()
+            out = conv(g, xs)
+            out.square().mean().backward()
+            return [out.detach(), xs.grad] + [
+                p.grad.clone() for p in conv.parameters()]
+
+        before = counter.launches
+        kern = step()
+        assert counter.launches == before + 1
+        monkeypatch.setitem(config._FLAGS, "use_kernels", False)
+        ref = step()
         monkeypatch.setitem(config._FLAGS, "use_kernels", True)
         torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=ATOL)
         for a, b in zip(kern[1:], ref[1:]):

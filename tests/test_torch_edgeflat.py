@@ -24,6 +24,7 @@ import dgl_tpu.ops.edgeflat as jef
 import dgl_tpu.ops.pallas.tiled_spmm as jts
 import dgl_tpu_torch as dgt
 import dgl_tpu_torch.ops.edgeflat as tef
+import dgl_tpu_torch.ops.kernels.gat_fused as tgf
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 from dgl_tpu.utils import config as jconfig
 from dgl_tpu_torch.utils import config
@@ -273,9 +274,11 @@ def test_gatconv_edgeflat_matches_jax(heads, dout, residual, bias,
 
 def test_gatconv_tiled_dropout_matches_untiled(monkeypatch):
     """In training with attention dropout 0.6, GATConv on a tiled graph
-    (K4's plain versions) equals the same module and generator seed on the
-    same graph without the tiled format (the per-head gather path): the
-    dropout masks are the same draws."""
+    (edgeflat on K4's plain versions) equals the same module and generator
+    seed on the same graph without the tiled format (the per-head gather
+    path): the dropout masks are the same draws.  In eval mode the tiled
+    graph takes the slot-space route (K6's plain versions), which equals
+    the gather path while the logits stay inside its clip."""
     row, col, n = _coo(14, n=90, e=900)
     monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
     x = torch.randn(n, 6, generator=torch.Generator().manual_seed(0))
@@ -290,10 +293,13 @@ def test_gatconv_tiled_dropout_matches_untiled(monkeypatch):
             g.create_tiled_format(tile=256, cap=128)
         xs = x.clone().requires_grad_()
         with mock.patch.object(tts, "tiled_spmm_multihead",
-                               wraps=tts.tiled_spmm_multihead) as spy:
+                               wraps=tts.tiled_spmm_multihead) as spy, \
+                mock.patch.object(tgf, "gat_ds", wraps=tgf.gat_ds) as k6:
             out = conv(g, xs)
             out.square().sum().backward()
-        assert spy.call_count == (2 if tiled else 0)
+        # K6 takes K4's SpMM for its numerator, and its own kernels back
+        assert (spy.call_count, k6.call_count) == (
+            ((2, 0) if train else (1, 1)) if tiled else (0, 0))
         return [out.detach(), xs.grad] + [p.grad for p in conv.parameters()]
 
     tiled, plain = run(True), run(False)
@@ -308,8 +314,9 @@ def test_gatconv_tiled_dropout_matches_untiled(monkeypatch):
 
 def test_gat_training_slice_on_tiled_matches(monkeypatch):
     """2-layer GAT (feat -> 2 heads x 4 -> elu -> 1 head x classes),
-    attn_drop 0, 3 Adam steps: the port on the edgeflat route over a tiled
-    format (K4's plain versions) against the JAX package on its edgeflat
+    attn_drop 0, 3 Adam steps: the port over a tiled format, which takes
+    the slot-space route without attention dropout (K6's plain versions,
+    as the JAX package on a TPU), against the JAX package on its edgeflat
     route without one (its gather fallback)."""
     rng = np.random.default_rng(15)
     n, e, feat, classes = 150, 1400, 10, 5
@@ -350,8 +357,7 @@ def test_gat_training_slice_on_tiled_matches(monkeypatch):
                              lr=lr)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     losses_t = []
-    with mock.patch.object(tts, "tiled_sddmm_dot_multihead",
-                           wraps=tts.tiled_sddmm_dot_multihead) as spy:
+    with mock.patch.object(tgf, "gat_scores", wraps=tgf.gat_scores) as spy:
         for _ in range(steps):
             opt_t.zero_grad()
             h = torch.nn.functional.elu(t1(gt, xt).reshape(n, -1))

@@ -216,8 +216,13 @@ gt.cache_edge_weights("w")
 dgt.nn.GraphConv(5, 3, norm="none", device="cpu")(
     gt, torch.randn(50, 5), edge_weight="w").sum().backward()   # K3 static
 conv(gt, torch.randn(50, 5), edge_weight=torch.rand(400)).sum().backward()
-dgt.nn.GATConv(5, 4, 2, attn_drop=0.5, device="cpu")(
-    gt, torch.randn(50, 5)).sum().backward()                    # K4
+gat = dgt.nn.GATConv(5, 4, 2, attn_drop=0.5, device="cpu")
+gat(gt, torch.randn(50, 5)).sum().backward()                    # K4
+import dgl_tpu_torch.ops.kernels.gat_fused
+gat.eval()
+gat(gt, torch.randn(50, 5)).sum().backward()                    # K6
+dgt.nn.DotGatConv(5, 4, 2, device="cpu")(
+    gt, torch.randn(50, 5)).sum().backward()                    # K8
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))
@@ -238,6 +243,7 @@ def test_default_device_is_the_card():
         lambda: dgt.graph((row, col), num_nodes=n),
         lambda: dgt.nn.GraphConv(3, 4),
         lambda: dgt.nn.GATConv(3, 4, 2),
+        lambda: dgt.nn.DotGatConv(3, 4, 2),
         lambda: tbm.build_bit_format(row, col, n, n),
         lambda: tbm.build_bit_format_device(row, col, n, n),
     ]

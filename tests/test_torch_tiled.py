@@ -140,9 +140,12 @@ def test_unit_tiled_format_matches():
     ut = dgt.graph((row, col), num_nodes=n_src, device="cpu").unit()
     ft, rt = ut.tiled_format(tile=256)
     assert ft.cap == fj.cap and rt.cap == rj.cap
-    assert ft.src_order is None            # until a kernel reads it
     for a, b in ((ft, fj), (rt, rj)):
-        a = a.with_src_first()
+        assert a.with_src_first() is a     # src_order and src_ptr built
+        ptr, order = a.src_ptr.numpy(), a.src_order.numpy()
+        for tile in range(a.num_src_tiles):   # a src tile's buckets
+            assert (a.src_tile.numpy()[order[ptr[tile]:ptr[tile + 1]]]
+                    == tile).all()
         for name in FIELDS:
             np.testing.assert_array_equal(getattr(a, name).numpy(),
                                           np.asarray(getattr(b, name)))

@@ -71,6 +71,26 @@ Phases, each of which raises on failure (nothing is caught):
    function, that call's time (``index_add_`` for the slot reduce, a
    block-diagonal ``torch.sparse.mm`` on the transposed pattern for the
    src-side aggregation).
+21. the vector-attention slice at mid size: each K9 / K11 v2 kernel
+   (scores, slot gradient, node gradient on both sides) against its plain
+   version on the phase-3 multigraph in the tiled format at (H, D) = (8,
+   8), (1, 41), (4, 32), without and with the edge term (16 features and
+   the bias row); the 2-layer GATv2 of phase 22 through K9 against its
+   edge chain, forward and backward;
+22. route 5: the GATv2 recipe of examples/gatv2.py:22-31 (602 -> 8 x 8 ->
+   elu -> 1 x 41, AdamW lr 5e-3, weight decay 5e-4) for 10 steps on the
+   tiled format, both layers on K9, a profiled step, and one step's loss
+   and gradients against the same step built from the plain versions;
+23. EGATConv(64, 16, 32, 32, 4) at the JAX package's EGAT scale
+   (tools/perf_egat128.py:27-80: 23M uniform random edges over the Reddit
+   node count, compute_edge_feats=False, (out^2).mean(), Adam 1e-3) for 4
+   steps on K11 v2, and one step against its flat route;
+24. K9 yardsticks on the phase-12 format at (8, 8) and (1, 41) (run
+   before phase 23, which frees the Reddit graphs), and K11 v2's on the
+   phase-23 format at (4, 32) with 16 edge features and the bias row
+   (inputs exact in f32, as phase 21's): each kernel against
+   its plain version, its time (median of 5), its plain version's and the
+   bound; no PyTorch call computes any of them.
 
 Each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
@@ -225,13 +245,9 @@ def loss_fn(model, g, x, y, train):
     return torch.nn.functional.cross_entropy(logits[train], y[train])
 
 
-def phase_train(dgt, bm, g, x, y, train):
-    """Phase 4: 10 Adam steps of the 602 -> 16 -> 41 GCN."""
-    model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
-    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
-    torch.cuda.reset_peak_memory_stats()
-    bm.bit_matmul_t.launches = 0
-    bm.bit_matmul.launches = 0
+def train_loop(name, model, opt, g, x, y, train):
+    """STEPS optimizer steps of ``loss_fn``: (losses, median step s after
+    one warm-up step)."""
     losses, times = [], []
     for step in range(STEPS):
         torch.cuda.synchronize()
@@ -243,10 +259,20 @@ def phase_train(dgt, bm, g, x, y, train):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
-        log(f"# step {step}: loss {losses[-1]:.6f}, "
-            f"{times[-1] * 1e3:.2f} ms")
+        log(f"# {name + ' ' if name else ''}step {step}: loss "
+            f"{losses[-1]:.6f}, {times[-1] * 1e3:.2f} ms")
+    return losses, statistics.median(times[1:])
+
+
+def phase_train(dgt, bm, g, x, y, train):
+    """Phase 4: 10 Adam steps of the 602 -> 16 -> 41 GCN."""
+    model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    bm.bit_matmul_t.launches = 0
+    bm.bit_matmul.launches = 0
+    losses, step_s = train_loop("", model, opt, g, x, y, train)
     k1 = bm.bit_matmul_t.launches
-    step_s = statistics.median(times[1:])
     log(f"# train: median step {step_s * 1e3:.3f} ms after one warm-up "
         f"step, {g.num_edges() / step_s:.6g} train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
@@ -492,21 +518,8 @@ def phase_gat_train(dgt, bg, g, x, y, train):
     torch.cuda.reset_peak_memory_stats()
     bg.bitgat_fwd.launches = 0
     bg.bitgat_bwd.launches = 0
-    losses, times = [], []
-    for step in range(STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss = loss_fn(model, g, x, y, train)
-        loss.backward()
-        opt.step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-        log(f"# GAT step {step}: loss {losses[-1]:.6f}, "
-            f"{times[-1] * 1e3:.2f} ms")
+    losses, step_s = train_loop("GAT", model, opt, g, x, y, train)
     launches = (bg.bitgat_fwd.launches, bg.bitgat_bwd.launches)
-    step_s = statistics.median(times[1:])
     log(f"# GAT train: median step {step_s * 1e3:.3f} ms after one warm-up "
         f"step, {g.num_edges() / step_s:.6g} train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
@@ -696,21 +709,8 @@ def phase_tiled_gcn(dgt, tts, gt, x, y, train):
     opt = torch.optim.Adam(model.parameters(), lr=5e-3)
     torch.cuda.reset_peak_memory_stats()
     tts.tiled_spmm.launches = 0
-    losses, times = [], []
-    for step in range(STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss = loss_fn(model, gt, x, y, train)
-        loss.backward()
-        opt.step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-        log(f"# tiled GCN step {step}: loss {losses[-1]:.6f}, "
-            f"{times[-1] * 1e3:.2f} ms")
+    losses, step_s = train_loop("tiled GCN", model, opt, gt, x, y, train)
     k3 = tts.tiled_spmm.launches
-    step_s = statistics.median(times[1:])
     log(f"# tiled GCN train: median step {step_s * 1e3:.3f} ms after one "
         f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
@@ -789,22 +789,9 @@ def phase_tiled_gat(dgt, tts, gt, x, y, train):
     torch.cuda.reset_peak_memory_stats()
     tts.tiled_spmm_multihead.launches = 0
     tts.tiled_sddmm_dot_multihead.launches = 0
-    losses, times = [], []
-    for step in range(STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss = loss_fn(model, gt, x, y, train)
-        loss.backward()
-        opt.step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-        log(f"# tiled GAT step {step}: loss {losses[-1]:.6f}, "
-            f"{times[-1] * 1e3:.2f} ms")
+    losses, step_s = train_loop("tiled GAT", model, opt, gt, x, y, train)
     launches = (tts.tiled_spmm_multihead.launches,
                 tts.tiled_sddmm_dot_multihead.launches)
-    step_s = statistics.median(times[1:])
     log(f"# tiled GAT train: median step {step_s * 1e3:.3f} ms after one "
         f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
@@ -1052,17 +1039,20 @@ def phase_gat_fused_mid(dgt, tts, tgf):
 
 
 K6_COUNTERS = ("gat_scores", "slot_reduce", "gat_ds", "src_aggregate")
+K9_COUNTERS = ("vattn_scores", "vattn_slot_grad", "vattn_node_grad")
+NO_K9 = {name: 0 for name in K9_COUNTERS}
 
 
 def reset_counts(tts, tgf):
-    for name in K6_COUNTERS:
+    for name in K6_COUNTERS + K9_COUNTERS:
         getattr(tgf, name).launches = 0
     tts.tiled_spmm_multihead.launches = 0
     tts.tiled_sddmm_dot_multihead.launches = 0
 
 
 def read_counts(tts, tgf):
-    counts = {name: getattr(tgf, name).launches for name in K6_COUNTERS}
+    counts = {name: getattr(tgf, name).launches
+              for name in K6_COUNTERS + K9_COUNTERS}
     counts["k4_spmm"] = tts.tiled_spmm_multihead.launches
     counts["k4_sddmm"] = tts.tiled_sddmm_dot_multihead.launches
     return counts
@@ -1077,21 +1067,8 @@ def phase_route4(dgt, tts, tgf, gt, x, y, train):
     opt = torch.optim.Adam(model.parameters(), lr=5e-3)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(tts, tgf)
-    losses, times = [], []
-    for step in range(STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss = loss_fn(model, gt, x, y, train)
-        loss.backward()
-        opt.step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-        log(f"# route 4 step {step}: loss {losses[-1]:.6f}, "
-            f"{times[-1] * 1e3:.2f} ms")
+    losses, step_s = train_loop("route 4", model, opt, gt, x, y, train)
     counts = read_counts(tts, tgf)
-    step_s = statistics.median(times[1:])
     log(f"# route 4 train: median step {step_s * 1e3:.3f} ms after one "
         f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
@@ -1099,7 +1076,8 @@ def phase_route4(dgt, tts, tgf, gt, x, y, train):
     # per step and layer: scores, den; K4's SpMM for the numerator; ds,
     # der, del and dx; K4's SDDMM never
     want = {"gat_scores": 2, "slot_reduce": 6, "gat_ds": 2,
-            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0}
+            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
+            **NO_K9}
     if counts != {k: v * STEPS for k, v in want.items()}:
         raise AssertionError(f"route 4 launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1171,7 +1149,8 @@ def phase_gat_eval(tts, tgf, model, gt, x, y):
     log(f"# eval forward of the dropout-0.6 GAT on K6: {ms:.3f} ms, "
         f"accuracy on all nodes {acc:.4f}, launches {counts}")
     if counts != {"gat_scores": 2, "slot_reduce": 2, "gat_ds": 0,
-                  "src_aggregate": 0, "k4_spmm": 2, "k4_sddmm": 0}:
+                  "src_aggregate": 0, "k4_spmm": 2, "k4_sddmm": 0,
+                  **NO_K9}:
         raise AssertionError(f"the eval forward did not run on K6: {counts}")
 
 
@@ -1207,7 +1186,7 @@ def phase_dotgat(dgt, tts, tgf, gt):
     # per step: K4's SDDMM (scores), den, K4's SpMM (numerator, dq), ds,
     # the src-side aggregation (dk, dx)
     want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
-            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 1}
+            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 1, **NO_K9}
     if counts != {k: v * DOTGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"DotGat launches {counts}, not {want} a step")
     if not all(torch.isfinite(p.grad).all() for p in conv.parameters()):
@@ -1320,6 +1299,395 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
     return rows
 
 
+# -- the vector-attention slice (GATv2, EGATConv) -----------------------------
+
+GATV2_SHAPES = ((8, 8), (1, CLASSES))   # examples/gatv2.py:22-28
+VATTN_SHAPES = ((8, 8), (1, 41), (4, 32))
+EGAT_SLOPE = 0.01
+# tools/perf_egat128.py:27-80: 23M uniform random edges over the Reddit
+# node count, EGATConv(64, 16, 32, 32, 4) without edge outputs
+EGAT_E, EGAT_FIN, EGAT_FE, EGAT_H, EGAT_D = 23_000_000, 64, 16, 4, 32
+EGAT_STEPS = 4
+
+
+class GATv2(torch.nn.Module):
+    """feat -> GATv2Conv(8 heads x 8) -> elu -> GATv2Conv(1 head x 41), as
+    examples/gatv2.py:22-28 (attn_drop 0, its default)."""
+
+    def __init__(self, dgt, gen, feat):
+        super().__init__()
+        (h1, d1), (h2, d2) = GATV2_SHAPES
+        self.conv1 = dgt.nn.GATv2Conv(feat, d1, h1, generator=gen)
+        self.conv2 = dgt.nn.GATv2Conv(h1 * d1, d2, h2, generator=gen)
+
+    def forward(self, g, x):
+        h = torch.nn.functional.elu(self.conv1(g, x).flatten(1))
+        return self.conv2(g, h).flatten(1)
+
+
+def vattn_inputs(tf, heads, dim, fe, gen):
+    """U, V, attn, ds and, with fe > 0, slot edge features and wf with the
+    bias row, on the format ``tf``.  U, V, attn and wf are multiples of
+    1/16 and the edge features are in {-1, 0, 1}, so raw = U + V + FE is
+    exact in f32 in any order: the kernels and the plain versions then
+    agree on the side of lrelu's kink, which at EGAT's slope of 0.01
+    changes dW a hundredfold."""
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    def exact(*shape, top=8):
+        return torch.randint(-top, top + 1, shape, device="cuda",
+                             generator=gen).float() / 16
+
+    b, cap = tf.num_buckets, tf.cap
+    U = exact(tf.num_src, heads, dim, top=16)
+    V = exact(tf.num_dst, heads, dim, top=16)
+    attn = exact(heads, dim)
+    ds = randn(b, heads, cap) * tf.valid.view(b, 1, cap)
+    ef = wf = None
+    if fe:
+        ef = torch.randint(-1, 2, (b, cap, fe), device="cuda",
+                           generator=gen).float() * tf.valid.view(b, cap, 1)
+        wf = exact(fe + 1, heads * dim)
+    return U, V, attn, ds, ef, wf
+
+
+def close_sum(got, want, what):
+    """``close`` for sums over every edge (da, dWf): atol scaled by the
+    largest magnitude, since they grow with the edge count."""
+    return close(got, want, what,
+                 atol=ATOL * max(1.0, float(want.abs().max())))
+
+
+def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
+    """Each K9 / K11 v2 kernel against its plain version on ``tf``, with
+    the edge term when fe > 0: (name, max|err|) pairs."""
+    U, V, attn, ds, ef, wf = vattn_inputs(tf, heads, dim, fe, gen)
+    slope = EGAT_SLOPE if fe else SLOPE
+    counters = [getattr(tgf, name) for name in K9_COUNTERS]
+    before = [k.launches for k in counters]
+    errs = [("p", close(tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
+                        tgf.vattn_scores_plain(tf, U, V, attn, slope, ef,
+                                               wf), f"{tag} p"))]
+    got = tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf)
+    want = tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf)
+    for name, a, w in zip(("da", "d_ef", "dwf"), got, want):
+        if a is not None:
+            check = close if name == "d_ef" else close_sum
+            errs.append((name, check(a, w, f"{tag} {name}")))
+    for side, name in (("dst", "dV"), ("src", "dU")):
+        errs.append((name, close(
+            tgf.vattn_node_grad(tf, U, V, attn, ds, slope, side, ef, wf),
+            tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope, side, ef,
+                                      wf), f"{tag} {name}")))
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(counters, before)]
+    if launched != [1, 1, 2]:
+        raise AssertionError(f"{tag}: K9 launches {launched}, not [1, 1, 2]")
+    return errs
+
+
+def phase_gatv2_mid(dgt, tts, tgf):
+    """Phase 21: each K9 / K11 v2 kernel against its plain version at mid
+    size, without and with the edge term (16 features and the bias row);
+    then the 2-layer GATv2 through K9 against its edge chain
+    (``use_kernels(False)``)."""
+    from dgl_tpu_torch.utils import config
+    row, col, n_src, n_dst = mid_graph()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda").with_src_first()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for heads, dim in VATTN_SHAPES:
+        for fe in (0, EGAT_FE):
+            tag = f"K9 mid H={heads} D={dim}" + (f" Fe={fe}+1" if fe else "")
+            errs = vattn_kernel_checks(tgf, fwd, heads, dim, fe, gen, tag)
+            log(f"# {tag}: max|err| " + ", ".join(
+                f"{name} {err:.3g}" for name, err in errs))
+
+    gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
+    gr.create_tiled_format()
+    feat = 64
+    x = torch.randn(n_src, feat, device="cuda", generator=gen)
+    y = torch.randint(0, CLASSES, (n_src,), device="cuda", generator=gen)
+    model = GATv2(dgt, torch.Generator(device="cuda").manual_seed(22), feat)
+    train = torch.arange(n_dst, device="cuda")
+
+    def step():
+        model.zero_grad()
+        logits = model(gr, x)
+        torch.nn.functional.cross_entropy(logits[train],
+                                          y[train]).backward()
+        return logits.detach(), {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}
+
+    before = tgf.vattn_scores.launches
+    out_k, grad_k = step()
+    torch.cuda.synchronize()
+    if tgf.vattn_scores.launches - before != 2:
+        raise AssertionError("the GATv2 did not run through K9")
+    config.set_use_kernels(False)
+    try:
+        out_c, grad_c = step()
+    finally:
+        config.set_use_kernels(True)
+    err = close(out_k, out_c, "GATv2 K9 vs edge chain")
+    for n in grad_k:
+        close(grad_k[n], grad_c[n], f"GATv2 grad {n}", rtol=1e-3, atol=1e-5)
+    log(f"# GATv2 mid size, K9 vs edge chain: logits max|err| {err:.3g}, "
+        f"{len(grad_k)} gradients agree")
+
+
+def phase_route5(dgt, tts, tgf, gt, x, y, train):
+    """Phase 22 (route 5): the GATv2 recipe for 10 AdamW steps (lr 5e-3,
+    weight decay 5e-4, as examples/gatv2.py:31) on the tiled format, both
+    layers on K9; the counts are set to 0 just before and read just
+    after."""
+    model = GATv2(dgt, torch.Generator(device="cuda").manual_seed(0), FEAT)
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-3, weight_decay=5e-4)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    losses, step_s = train_loop("route 5", model, opt, gt, x, y, train)
+    counts = read_counts(tts, tgf)
+    log(f"# route 5 train: median step {step_s * 1e3:.3f} ms after one "
+        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, launches {counts}")
+    # per step and layer: scores, den, K4's SpMM for the numerator; ds,
+    # the slot gradient (da), the node gradient on both sides, dx
+    want = {"gat_scores": 0, "slot_reduce": 2, "gat_ds": 2,
+            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
+            "vattn_scores": 2, "vattn_slot_grad": 2, "vattn_node_grad": 4}
+    if counts != {k: v * STEPS for k, v in want.items()}:
+        raise AssertionError(f"route 5 launches {counts}, not {want} a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"route 5 losses do not fall: {losses}")
+    return model, opt, counts
+
+
+class PlainVectorAttention(torch.autograd.Function):
+    """K9's attention built from the plain versions alone, for values x =
+    U as GATv2Conv passes them: the twin of the port's autograd function."""
+
+    @staticmethod
+    def forward(ctx, U3, V3, attn, tf, slope):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        from dgl_tpu_torch.ops.kernels import tiled_spmm as tts
+        p = tgf.vattn_scores_plain(tf, U3, V3, attn, slope)
+        den = tgf.slot_reduce_plain(tf, p, "dst").clamp_(min=tgf.DEN_EPS)
+        out = tts.tiled_spmm_multihead_plain(tf, U3, p) / den.unsqueeze(-1)
+        ctx.save_for_backward(U3, V3, attn, p, den, out)
+        ctx.tf, ctx.slope = tf, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        U3, V3, attn, p, den, out = ctx.saved_tensors
+        tf, slope = ctx.tf, ctx.slope
+        zn, rp = tgf._scales(out, dz, den)
+        ds = tgf.gat_ds_plain(tf, U3, zn, rp, p)
+        da = tgf.vattn_slot_grad_plain(tf, U3, V3, attn, ds, slope)[0]
+        dV = tgf.vattn_node_grad_plain(tf, U3, V3, attn, ds, slope, "dst")
+        dU = tgf.vattn_node_grad_plain(tf, U3, V3, attn, ds, slope, "src")
+        del ds
+        return dU + tgf.src_aggregate_plain(tf, zn, p), dV, da, None, None
+
+
+def gatv2_plain_layer(conv, tf, h):
+    """One GATv2Conv layer (no residual) through the plain versions, on
+    the layer's own weights."""
+    heads, dim = conv.num_heads, conv.out_feats
+    ft_src = conv.fc_src(h).reshape(-1, heads, dim)
+    ft_dst = conv.fc_dst(h).reshape(-1, heads, dim)
+    return PlainVectorAttention.apply(ft_src, ft_dst, conv.attn[0], tf,
+                                      conv.negative_slope)
+
+
+def phase_route5_check(model, gt, x, y, train):
+    """One step of route 5's model on K9 against the same step built from
+    the plain versions: loss and every gradient."""
+    tf = gt.unit().tiled_format()[0]
+
+    def grads(forward):
+        model.zero_grad()
+        logits = forward()
+        loss = torch.nn.functional.cross_entropy(logits[train], y[train])
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    loss_k, grad_k = grads(lambda: model(gt, x))
+
+    def plain_forward():
+        h = torch.nn.functional.elu(
+            gatv2_plain_layer(model.conv1, tf, x).flatten(1))
+        return gatv2_plain_layer(model.conv2, tf, h).flatten(1)
+
+    loss_p, grad_p = grads(plain_forward)
+    if abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError(f"loss {loss_k} (K9) vs {loss_p} (plain)")
+    for n in grad_k:
+        close(grad_k[n], grad_p[n], f"route 5 grad {n}", rtol=1e-3,
+              atol=1e-5)
+    log(f"# route 5, K9 vs its plain versions at full size: loss "
+        f"{loss_k:.8f} vs {loss_p:.8f}, {len(grad_k)} gradients agree")
+
+
+def egat_graph(dgt):
+    """Phase 23's graph (tools/perf_egat128.py:28-36): 23M uniform random
+    edges from seed 0 over the Reddit node count, its tiled format, node
+    features (N, 64) and edge features (E, 16) made on the card, and the
+    edge features in slot order."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    row = rng.integers(0, N_NODES, EGAT_E)
+    col = rng.integers(0, N_NODES, EGAT_E)
+    g = dgt.graph((row, col), num_nodes=N_NODES, device="cuda")
+    g.create_tiled_format()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(N_NODES, EGAT_FIN, device="cuda", generator=gen)
+    ef = torch.randn(EGAT_E, EGAT_FE, device="cuda", generator=gen)
+    ef_slot = dgt.nn.EGATConv.slot_edge_feats(g, ef)
+    torch.cuda.synchronize()
+    tf = g.unit().tiled_format()[0]
+    log(f"# EGAT graph, tiled format and slot edge features in "
+        f"{time.perf_counter() - t0:.1f}s: {g.num_edges()} edges, tile "
+        f"{tf.tile}, cap {tf.cap}, {tf.num_buckets} buckets, fill "
+        f"{g.num_edges() / (tf.num_buckets * tf.cap):.4f}")
+    return g, x, ef, ef_slot
+
+
+def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
+    """Phase 23: EGATConv(64, 16, 32, 32, 4) with compute_edge_feats=False,
+    loss (out^2).mean(), Adam 1e-3 (tools/perf_egat128.py:45-80), on K11
+    v2; the counts are set to 0 just before and read just after."""
+    conv = dgt.nn.EGATConv(EGAT_FIN, EGAT_FE, EGAT_D, EGAT_D, EGAT_H,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(24))
+    opt = torch.optim.Adam(conv.parameters(), lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    times, losses = [], []
+    for step in range(EGAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        h, _ = conv(g, x, ef, compute_edge_feats=False, efeats_slot=ef_slot)
+        loss = h.square().mean()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_counts(tts, tgf)
+    step_s = statistics.median(times[1:])
+    log(f"# EGATConv(64, 16, 32, 32, 4) on K11 v2: steps "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median after one "
+        f"warm-up step {step_s * 1e3:.3f} ms, "
+        f"{g.num_edges() / step_s:.6g} train-edges/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes, loss {losses[0]:.6f} "
+        f"-> {losses[-1]:.6f}, launches {counts}")
+    want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
+            "src_aggregate": 1, "k4_spmm": 1, "k4_sddmm": 0,
+            "vattn_scores": 1, "vattn_slot_grad": 1, "vattn_node_grad": 2}
+    if counts != {k: v * EGAT_STEPS for k, v in want.items()}:
+        raise AssertionError(f"EGAT launches {counts}, not {want} a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"EGAT losses are not finite: {losses}")
+    return conv, counts
+
+
+def phase_egat_check(conv, g, x, ef, ef_slot):
+    """One EGATConv step on K11 v2 against the same weights through the
+    flat route (chunked logits, edgeflat): loss and every gradient."""
+
+    def grads(**kw):
+        conv.zero_grad()
+        h, _ = conv(g, x, ef, compute_edge_feats=False, **kw)
+        loss = h.square().mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in conv.named_parameters()}
+
+    loss_k, grad_k = grads(efeats_slot=ef_slot)
+    loss_f, grad_f = grads()
+    if abs(loss_k - loss_f) > 1e-4 * abs(loss_f):
+        raise AssertionError(f"loss {loss_k} (K11 v2) vs {loss_f} (flat)")
+    for n in grad_k:
+        close(grad_k[n], grad_f[n], f"EGAT grad {n}", rtol=1e-3, atol=1e-5)
+    log(f"# EGATConv, K11 v2 vs the flat route at 23M edges: loss "
+        f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
+
+
+def vattn_yardsticks(tgf, tf, e, heads, dim, fe, rate):
+    """Phase 24: each K9 / K11 v2 kernel at full size against its plain
+    version, with the timings and the bound; no single PyTorch call
+    computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
+    per slot, then lrelu, the dot with attn or the scaling by ds)."""
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
+    U, V, attn, ds, ef, wf = vattn_inputs(tf, heads, dim, fe, gen)
+    slope = EGAT_SLOPE if fe else SLOPE
+    b, cap = tf.num_buckets, tf.cap
+    slots, hd = b * cap, heads * dim
+    rows = fe + 1 if fe else 0
+    node_b = N_NODES * hd * 4
+    slot_h = slots * heads * 4
+    edge_b = slots * fe * 4 + rows * hd * 4      # ef in slot order, wf
+    fe_ops = 2 * rows * hd                       # FE per edge
+    tag = f"H={heads} D={dim}" + (f" Fe={fe}+1" if fe else "")
+    out = {}
+
+    def row(name, kernel, plain, nbytes, ops, check=close):
+        got, want = kernel(), plain()
+        pairs = [(a, w) for a, w in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)) if a is not None]
+        err = max(check(a, w, f"K9 {name} full size {tag}")
+                  for a, w in pairs)
+        del got, want, pairs
+        bnd, by = bound(nbytes, ops, rate)
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel),
+             "plain_ms": cuda_ms(plain, reps=1), "bound_ms": bnd,
+             "bound_by": by, "library_ms": None}
+        out[name] = r
+        log(f"# K9 {name} {tag}: {r['ms']:.4f} ms (bound {bnd:.4f} ms by "
+            f"{by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
+            f"library none, max|err| {err:.3g}")
+
+    # scores: in the slot arrays (12 B a slot), U, V, attn (and the edge
+    # term); out p.  Per edge and column: raw, lrelu, the dot (5 ops);
+    # per edge and head the clip and exp
+    row("scores", lambda: tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
+        lambda: tgf.vattn_scores_plain(tf, U, V, attn, slope, ef, wf),
+        slots * 12 + 2 * node_b + hd * 4 + edge_b + slot_h,
+        e * (5 * hd + fe_ops + 4 * heads))
+    # the slot gradient as the main path calls it (no d(ef)): in the slot
+    # arrays, ds, U, V, attn (and the edge term); out da (and dWf).  Per
+    # edge and column: raw, lrelu, da (5 ops), with the edge term dW and
+    # dWf (3 + 2 rows)
+    row("slot_grad",
+        lambda: tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
+                                    need_def=False),
+        lambda: tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf,
+                                          need_def=False),
+        slots * 12 + slot_h + 2 * node_b + 2 * hd * 4 + 2 * edge_b,
+        e * hd * (5 + (fe_ops // hd + 3 + 2 * rows if fe else 0)),
+        check=close_sum)
+    # the node gradient on each side: in the slot arrays (and src_order),
+    # ds, U, V, attn (and the edge term); out one row per node.  Per edge
+    # and column: raw, dW, the add (5 ops)
+    for side in ("dst", "src"):
+        row(f"node_grad_{side}",
+            lambda: tgf.vattn_node_grad(tf, U, V, attn, ds, slope, side, ef,
+                                        wf),
+            lambda: tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope,
+                                              side, ef, wf),
+            slots * 12 + (b * 4 if side == "src" else 0) + slot_h
+            + 3 * node_b + hd * 4 + edge_b, e * (5 * hd + fe_ops))
+    return out
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1366,6 +1734,7 @@ def main():
     phase("8 (GAT mid size)", phase_bitgat_mid, dgt, bm, bg)
     phase("11 (K3, K4 mid size)", phase_tiled_mid, tts, tsp, ef)
     phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf)
+    phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
 
     # phases 4-6: the GCN slice at full size
     g = phase("graph", reddit_graph, dgt)
@@ -1427,6 +1796,29 @@ def main():
     phase("19 (DotGat on K8)", phase_dotgat, dgt, tts, tgf, gt)
     k6 = [phase(f"20 (K6 yardsticks H={h} Fh={d})", k6_yardsticks, tgf, tts,
                 gt, h, d, rate) for h, d in GAT_SHAPES]
+
+    # phases 22-24: the vector-attention slice at full size
+    model, opt, k9_launches = phase("22 (route 5: GATv2 on K9 train)",
+                                    phase_route5, dgt, tts, tgf, gt, x, y,
+                                    train)
+    phase("22 (route 5 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("22 (route 5 check)", phase_route5_check, model, gt, x, y, train)
+    del model, opt
+    tf_gt = gt.unit().tiled_format()[0]
+    k9 = [phase(f"24 (K9 yardsticks H={h} D={d})", vattn_yardsticks, tgf,
+                tf_gt, gt.num_edges(), h, d, 0, rate)
+          for h, d in VATTN_SHAPES[:2]]
+    del g, gt, tf_gt, bits, x, y, train
+    ge, xe, efe, ef_slot = phase("23 (EGAT graph)", egat_graph, dgt)
+    conv, k11_launches = phase("23 (EGATConv on K11 v2)", phase_egat, dgt,
+                               tts, tgf, ge, xe, efe, ef_slot)
+    phase("23 (EGATConv check)", phase_egat_check, conv, ge, xe, efe,
+          ef_slot)
+    del conv
+    del xe, efe, ef_slot
+    k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf,
+                ge.unit().tiled_format()[0], ge.num_edges(), EGAT_H, EGAT_D,
+                EGAT_FE, rate)
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -1476,6 +1868,35 @@ def main():
          "source": "dgl_tpu_torch/csrc/gat_fused.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:428, :636",
          "launches": k6_launches["src_aggregate"], **k6[0]["src_agg"]},
+        # K9 at the first GATv2 layer's shape, H x D = 8 x 8, launches from
+        # route 5; K11 v2 at EGAT's (4, 32) with 16 edge features and the
+        # bias row, launches from phase 23
+        {"name": "vattn_scores", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:783",
+         "launches": k9_launches["vattn_scores"], **k9[0]["scores"]},
+        {"name": "vattn_slot_grad", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878",
+         "launches": k9_launches["vattn_slot_grad"], **k9[0]["slot_grad"]},
+        {"name": "vattn_node_grad", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878, :903",
+         "launches": k9_launches["vattn_node_grad"],
+         **k9[0]["node_grad_dst"]},
+        {"name": "vattn_scores_edge", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2075",
+         "launches": k11_launches["vattn_scores"], **k11["scores"]},
+        {"name": "vattn_slot_grad_edge", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2167",
+         "launches": k11_launches["vattn_slot_grad"], **k11["slot_grad"]},
+        {"name": "vattn_node_grad_edge", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2167, :2196",
+         "launches": k11_launches["vattn_node_grad"],
+         **k11["node_grad_dst"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,3 +1,3 @@
 """Graph convolution layers (counterpart of ``dgl_tpu/nn/conv``)."""
-from .gatconv import DotGatConv, GATConv
+from .gatconv import DotGatConv, EGATConv, GATConv, GATv2Conv
 from .graphconv import EdgeWeightNorm, GraphConv

@@ -1,4 +1,4 @@
-"""GATConv (graph attention) and DotGatConv layers.
+"""GATConv (graph attention), GATv2Conv, EGATConv and DotGatConv layers.
 
 GATConv: counterpart of ``dgl_tpu/nn/conv/gatconv.py:22-176`` (reference
 ``python/dgl/nn/pytorch/conv/gatconv.py:14``): ``fc`` projects the
@@ -43,6 +43,8 @@ gather path.  Where the JAX package takes its bit-masked kernel K7 (a
 simple bit format, H * D <= 128 and D >= 64, ``gatconv.py:280-285``),
 K7 is not ported yet: the port takes K8 on a tiled graph, else the gather
 path.
+
+GATv2Conv (K9) and EGATConv (K11 v2): see their classes.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ... import function as fn
@@ -59,7 +62,7 @@ from ...ops.edgeflat import edge_softmax_flat, sddmm_flat, spmm_mul_flat
 from ...ops.kernels import bitgat
 from ...ops.kernels import gat_fused
 from ...ops.kernels.spmm import get_tiled_formats
-from ...utils import config, expand_as_pair, resolve_device
+from ...utils import config, expand_as_pair, gather_rows, resolve_device
 
 
 def _dropout(x, p: float, generator: Optional[torch.Generator]):
@@ -192,6 +195,280 @@ class GATConv(nn.Module):
     def extra_repr(self):
         return (f"in={self.in_feats}, out={self.out_feats}, "
                 f"heads={self.num_heads}")
+
+
+def _kernel_tiles(unit, get_attention: bool, train_drop: bool = False):
+    """The forward tiled format when a slot-space attention kernel may take
+    the layer (enough edges, kernels on, no attention asked back, no
+    attention dropout active), else None."""
+    if (get_attention or train_drop or not config.use_kernels()
+            or unit.num_edges < config.get("kernel_spmm_min_edges")):
+        return None
+    return get_tiled_formats(unit)[0]
+
+
+class GATv2Conv(nn.Module):
+    """GATv2 (``dgl_tpu/nn/conv/gatconv.py:179-250``, reference
+    ``python/dgl/nn/pytorch/conv/gatv2conv.py``): the logits are attn .
+    lrelu(fc_src(h)[u] + fc_dst(h)[v]) per head, the 'dynamic attention'
+    fix of GAT.  ``fc_src``/``fc_dst`` are ``nn.Linear`` with ``bias``
+    (one module under ``share_weights``), ``attn`` is (1, H, D), and
+    ``res_fc`` has no bias, as in the JAX package.
+
+    Routes, under ``gatconv.py:214-242``'s gates: the slot-space kernels
+    K9 (``ops/kernels/gat_fused.py`` ``gatv2_attention_aggregate``) at
+    ``kernel_spmm_min_edges`` edges and more on a graph with a tiled
+    format, without ``get_attention`` and with no attention dropout
+    active; they clip the logits to +-40 instead of subtracting a per-dst
+    max.  Otherwise the edge chain: ``apply_edges(u_add_v)`` with (E, H, D)
+    messages, leaky_relu, the dot with ``attn``, ``edge_softmax``, dropout
+    from the module's generator and ``update_all(u_mul_e, sum)``."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 negative_slope: float = 0.2, residual: bool = False,
+                 activation: Optional[Callable] = None,
+                 allow_zero_in_degree: bool = False, bias: bool = True,
+                 share_weights: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_feats = in_feats
+        self.out_feats = out_feats
+        self.num_heads = num_heads
+        self.feat_drop = feat_drop
+        self.attn_drop = attn_drop
+        self.negative_slope = negative_slope
+        self.activation = activation
+        self.allow_zero_in_degree = allow_zero_in_degree
+        self.share_weights = share_weights
+        self.generator = generator
+        dev = resolve_device(device)
+        hd = num_heads * out_feats
+        self.fc_src = nn.Linear(in_feats, hd, bias=bias, device=dev)
+        self.fc_dst = (self.fc_src if share_weights else
+                       nn.Linear(in_feats, hd, bias=bias, device=dev))
+        self.attn = nn.Parameter(torch.empty(1, num_heads, out_feats,
+                                             device=dev))
+        self.res_fc = (nn.Linear(in_feats, hd, bias=False, device=dev)
+                       if residual else None)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        """Xavier-normal weights (gain of relu) and zero biases, as the
+        reference's ``reset_parameters``."""
+        gain = nn.init.calculate_gain("relu")
+        for lin in [self.fc_src] + ([] if self.share_weights
+                                    else [self.fc_dst]):
+            nn.init.xavier_normal_(lin.weight, gain=gain,
+                                   generator=self.generator)
+            if lin.bias is not None:
+                nn.init.zeros_(lin.bias)
+        nn.init.xavier_normal_(self.attn, gain=gain, generator=self.generator)
+        if self.res_fc is not None:
+            nn.init.xavier_normal_(self.res_fc.weight, gain=gain,
+                                   generator=self.generator)
+
+    def forward(self, graph, feat, get_attention=False):
+        heads, dim = self.num_heads, self.out_feats
+        feat_src, feat_dst = expand_as_pair(feat, graph)
+        if self.feat_drop > 0 and self.training:
+            feat_src = _dropout(feat_src, self.feat_drop, self.generator)
+            feat_dst = (feat_src if feat_dst is feat
+                        else _dropout(feat_dst, self.feat_drop,
+                                      self.generator))
+        ft_src = self.fc_src(feat_src).reshape(-1, heads, dim)
+        ft_dst = (ft_src if self.share_weights and feat_dst is feat_src
+                  else self.fc_dst(feat_dst).reshape(-1, heads, dim))
+        train_drop = self.attn_drop > 0 and self.training
+        tf = _kernel_tiles(graph.unit(), get_attention, train_drop)
+        a = None
+        if tf is not None:
+            rst = gat_fused.gatv2_attention_aggregate(
+                tf, ft_src, ft_dst, ft_src, self.attn[0], heads, dim, dim,
+                self.negative_slope).to(ft_src.dtype)
+        else:
+            with graph.local_scope():
+                graph.srcdata.update({"el": ft_src, "ft": ft_src})
+                graph.dstdata.update({"er": ft_dst})
+                e = apply_edges(graph, fn.u_add_v("el", "er", "e"))
+                e = nn.functional.leaky_relu(e, self.negative_slope)
+                e = (e * self.attn).sum(-1, keepdim=True)       # (E, H, 1)
+                a = edge_softmax(graph, e)
+                if train_drop:
+                    a = _dropout(a, self.attn_drop, self.generator)
+                graph.edata["a"] = a
+                rst = update_all(graph, fn.u_mul_e("ft", "a", "m"),
+                                 fn.sum("m", "ft"))["ft"]
+        if self.res_fc is not None:
+            rst = rst + self.res_fc(feat_dst).reshape(-1, heads, dim)
+        if self.activation is not None:
+            rst = self.activation(rst)
+        if get_attention:
+            return rst, a
+        return rst
+
+    def extra_repr(self):
+        return (f"in={self.in_feats}, out={self.out_feats}, "
+                f"heads={self.num_heads}, share_weights={self.share_weights}")
+
+
+EGAT_SLOPE = 0.01   # EGATConv's leaky_relu slope (flax's default)
+EGAT_CHUNK = 1 << 19  # edges per chunk of the flat route's logits
+
+
+def _egat_logits_chunked(f_ni, f_nj, efeats, w_fij, bias, attn, row, col,
+                         heads: int, de: int, chunk: int = EGAT_CHUNK):
+    """The attention logits, flat (E * H,), without the (E, H * De) edge
+    tensor (``gatconv.py:304-332``): fixed edge chunks, each recomputed in
+    the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``), so
+    the saved tensors stay chunk-sized."""
+
+    def body(r, c, ef):
+        f = gather_rows(f_ni, r) + gather_rows(f_nj, c) + ef @ w_fij.t()
+        if bias is not None:
+            f = f + bias
+        f = nn.functional.leaky_relu(f, EGAT_SLOPE)
+        return (f.reshape(-1, heads, de) * attn).sum(-1)
+
+    out = [torch.utils.checkpoint.checkpoint(
+        body, row[e0:e0 + chunk], col[e0:e0 + chunk],
+        efeats[e0:e0 + chunk], use_reentrant=False)
+        for e0 in range(0, row.shape[0], chunk)]
+    if not out:
+        return f_ni.new_zeros(0)
+    return torch.cat(out).reshape(-1)
+
+
+class EGATConv(nn.Module):
+    """GAT with edge features (``dgl_tpu/nn/conv/gatconv.py:335-468``,
+    reference ``python/dgl/nn/pytorch/conv/egatconv.py``): the logits are
+    attn . lrelu(f_ni[u] + f_nj[v] + fc_fij(e) + bias) per head, slope
+    0.01; returns the new node features (N_dst, H, Dn) and edge features
+    lrelu(...) (E, H, De).  ``fc_node_src``, ``fc_ni``, ``fc_fij`` and
+    ``fc_nj`` are ``nn.Linear`` without bias, ``bias`` is (H * De,) and
+    ``attn`` (1, H, De), as in the JAX package.
+
+    Routes, under ``gatconv.py:389-449``'s gates:
+
+    * the slot-space kernels K11 v2 (``ops/kernels/gat_fused.py``
+      ``egatconv_attention_aggregate_v2``) at ``kernel_spmm_min_edges``
+      edges and more on a graph with a tiled format, given ``efeats_slot``
+      (:meth:`slot_edge_feats`), without ``get_attention`` and with
+      ``compute_edge_feats=False``; the edge transform runs in the kernels
+      (the bias as the last row of its matrix) and nothing (E, H * De)
+      -sized exists.  Returns ``(h, None)``.  The JAX package also needs a
+      TPU there; the port takes this route on CUDA and CPU tensors alike;
+    * the flat route at ``kernel_spmm_min_edges`` edges and more without
+      ``get_attention``: chunked logits, ``edge_softmax_flat`` and
+      ``spmm_mul_flat``; the edge features only with
+      ``compute_edge_feats``, else None;
+    * otherwise the edge chain."""
+
+    def __init__(self, in_node_feats: int, in_edge_feats: int,
+                 out_node_feats: int, out_edge_feats: int, num_heads: int,
+                 bias: bool = True, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_node_feats = in_node_feats
+        self.in_edge_feats = in_edge_feats
+        self.out_node_feats = out_node_feats
+        self.out_edge_feats = out_edge_feats
+        self.num_heads = num_heads
+        self.generator = generator
+        dev = resolve_device(device)
+        hn, he = num_heads * out_node_feats, num_heads * out_edge_feats
+        self.fc_node_src = nn.Linear(in_node_feats, hn, bias=False,
+                                     device=dev)
+        self.fc_ni = nn.Linear(in_node_feats, he, bias=False, device=dev)
+        self.fc_fij = nn.Linear(in_edge_feats, he, bias=False, device=dev)
+        self.fc_nj = nn.Linear(in_node_feats, he, bias=False, device=dev)
+        self.attn = nn.Parameter(torch.empty(1, num_heads, out_edge_feats,
+                                             device=dev))
+        self.bias = (nn.Parameter(torch.zeros(he, device=dev)) if bias
+                     else None)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        """Xavier-normal weights (gain of relu) and a zero bias, as the
+        reference's ``reset_parameters``."""
+        gain = nn.init.calculate_gain("relu")
+        for w in (self.fc_node_src.weight, self.fc_ni.weight,
+                  self.fc_fij.weight, self.fc_nj.weight, self.attn):
+            nn.init.xavier_normal_(w, gain=gain, generator=self.generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    @staticmethod
+    def slot_edge_feats(graph, efeats):
+        """Canonical (E, Fe) edge features in the slot order of the graph's
+        tiled format (built if missing), for ``efeats_slot=``; once, at
+        set-up."""
+        return gat_fused.slot_edge_tensor(graph.unit().tiled_format()[0],
+                                          efeats)
+
+    def forward(self, graph, nfeats, efeats, get_attention=False,
+                compute_edge_feats=True, efeats_slot=None):
+        heads = self.num_heads
+        dn, de = self.out_node_feats, self.out_edge_feats
+        feat_src, feat_dst = expand_as_pair(nfeats, graph)
+        f_ni = self.fc_ni(feat_src)
+        f_nj = self.fc_nj(feat_dst)
+        unit = graph.unit()
+        tf = (None if efeats_slot is None or compute_edge_feats
+              else _kernel_tiles(unit, get_attention))
+        if tf is not None:
+            wf = self.fc_fij.weight.t()
+            if self.bias is not None:
+                wf = torch.cat([wf, self.bias.unsqueeze(0)])
+            x3 = self.fc_node_src(feat_src).reshape(-1, heads, dn)
+            h = gat_fused.egatconv_attention_aggregate_v2(
+                tf, f_ni.reshape(-1, heads, de), f_nj.reshape(-1, heads, de),
+                efeats_slot, wf, self.attn[0], x3, heads, de, dn,
+                EGAT_SLOPE).to(x3.dtype)
+            return h, None
+
+        if unit.num_edges >= config.get("kernel_spmm_min_edges") and \
+                not get_attention:
+            row, col = unit.coo()
+            logits = _egat_logits_chunked(f_ni, f_nj, efeats,
+                                          self.fc_fij.weight, self.bias,
+                                          self.attn, row, col, heads, de)
+            a_flat = edge_softmax_flat(unit, logits, heads)
+            x3 = self.fc_node_src(feat_src).reshape(-1, heads, dn)
+            h = spmm_mul_flat(unit, x3, a_flat, heads)
+            f_out = None
+            if compute_edge_feats:
+                f_tmp = (gather_rows(f_ni, row) + gather_rows(f_nj, col)
+                         + self.fc_fij(efeats))
+                if self.bias is not None:
+                    f_tmp = f_tmp + self.bias
+                f_out = nn.functional.leaky_relu(
+                    f_tmp, EGAT_SLOPE).reshape(-1, heads, de)
+            return h, f_out
+
+        with graph.local_scope():
+            graph.srcdata["f_ni"] = f_ni
+            graph.dstdata["f_nj"] = f_nj
+            f_out = apply_edges(graph, fn.u_add_v("f_ni", "f_nj", "f_tmp"))
+            f_out = f_out + self.fc_fij(efeats)
+            if self.bias is not None:
+                f_out = f_out + self.bias
+            f_out = nn.functional.leaky_relu(f_out, EGAT_SLOPE)
+            f_out = f_out.reshape(-1, heads, de)
+            a = edge_softmax(graph, (f_out * self.attn).sum(-1, keepdim=True))
+            graph.srcdata["h_out"] = self.fc_node_src(feat_src).reshape(
+                -1, heads, dn)
+            graph.edata["a"] = a
+            h = update_all(graph, fn.u_mul_e("h_out", "a", "m"),
+                           fn.sum("m", "h_out"))["h_out"]
+        if get_attention:
+            return h, f_out, a
+        return h, f_out
+
+    def extra_repr(self):
+        return (f"in_node={self.in_node_feats}, in_edge={self.in_edge_feats}, "
+                f"out_node={self.out_node_feats}, "
+                f"out_edge={self.out_edge_feats}, heads={self.num_heads}")
 
 
 class DotGatConv(nn.Module):

@@ -1,9 +1,11 @@
-"""Slot-space GAT and DotGat attention over the tiled format (K6, K8).
+"""Slot-space GAT, DotGat, GATv2 and EGATConv attention over the tiled
+format (K6, K8, K9, K11 v2).
 
-Counterpart of ``dgl_tpu/ops/pallas/gat_fused.py:1-659``.  Attention never
-exists in canonical edge order: scores, weights and gradients live in the
-tiled format's (B, H, C) slot space, and the softmax folds into a divide
-per dst node.  For every slot of an edge src -> dst and head h:
+Counterpart of ``dgl_tpu/ops/pallas/gat_fused.py:1-945, 1037-1054,
+1946-2267``.  Attention never exists in canonical edge order: scores,
+weights and gradients live in the tiled format's (B, H, C) slot space,
+and the softmax folds into a divide per dst node.  For every slot of an
+edge src -> dst and head h:
 
     raw = el[src, h] + er[dst, h] (+ ee_slot[b, h, c])
     p   = exp(clip(lrelu(raw), +-40)),   g = p * (raw >= 0 ? 1 : slope)
@@ -40,6 +42,31 @@ dq go through K4's SpMM, and K8's scores through K4's SDDMM.  ``zn``,
 computes them outside its kernels.  The kernels take f32 and sum in f32,
 where the TPU kernels cast their operands to bf16.
 
+GATv2 (K9, ``gatv2_forward`` :761) and EGATConv v2 (K11 v2,
+``egatc2_forward`` :2053) score with a vector: for every valid slot, head
+h and column c = h * D + d,
+
+    raw = U[src] + V[dst] (+ FE),  FE = ef_slot[b, c] . Wf (+ bias)
+    p   = exp(clip(sum_d attn[h, d] * lrelu(raw)[h, d], +-40))
+
+and take ds with g = p.  Three more kernels (``csrc/gatv2.cu``), each
+with an edge-term variant, serve both:
+
+* :func:`vattn_scores` (``_gatv2_scores_kernel``,
+  ``_egatc2_scores_kernel``): p;
+* :func:`vattn_slot_grad` (the da, d(ef) and dWf parts of
+  ``_gatv2_dv_da_kernel``, ``_egatc2_dv_da_kernel``): with dW = ds[h] *
+  attn * lrelu'(raw), da = sum ds[h] lrelu(raw), d(ef) = Wf dW per slot
+  and dWf = sum ef (x) dW (the bias's gradient is its row);
+* :func:`vattn_node_grad` (the dV part of those, ``_gatv2_du_kernel``,
+  ``_egatc2_du_kernel``): dV[dst] = sum dW, dU[src] = sum dW.
+
+The edge features stay (B, C, Fe) in slot order (:func:`slot_edge_tensor`)
+and Wf is (Fe, H * D), or (Fe + 1, H * D) with the bias as its last row;
+FE is computed per slot and never stored.  The JAX package's transposed
+(B, Fe_pad, C) bf16 layout, its lane padding and the head-block-diagonal
+``Ra`` exist for the TPU and have no counterpart.
+
 The public functions keep the JAX layouts (el/er (N, H), x (N, H, Fh),
 slot tensors (B, H, C)) without the TPU's lane padding; ``den`` is
 (num_dst, H), not the TPU's head-major (H, N) node blocks.  Unlike the JAX
@@ -75,12 +102,26 @@ _SIGNATURES = {
     "dgl_src_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I,
                     _P, _I, _I, _I, _I, _P],
 }
+_VATTN_SIGNATURES = {
+    "dgl_vattn_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, ctypes.c_double, _P, _I, _I,
+                         _P],
+    "dgl_vattn_slot_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_double, _P, _P, _P, _I, _I, _P],
+    "dgl_vattn_node_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            ctypes.c_double, _P, _I, _I, _I, _I, _I, _P],
+}
 _SCORES_THREADS = 256       # csrc/gat_fused.cu kScoresThreads
 _DS_WARPS = 8               # csrc/gat_fused.cu kDsWarps
+_VATTN_WARPS = 8            # csrc/gatv2.cu kWarps
+MAX_FE_ROWS = 32            # edge-feature rows, bias included, of the kernels
 
 
-def _launch(fn: str, *args):
-    lib = build.load("gat_fused", _SIGNATURES)
+def _launch(fn: str, *args, source: str = "gat_fused"):
+    lib = build.load(source, _VATTN_SIGNATURES if source == "gatv2"
+                     else _SIGNATURES)
     err = getattr(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
@@ -166,6 +207,89 @@ def src_aggregate_plain(tf: ts.TiledFormat, z3, w_slot):
     for b, c, src, dst in ts._slot_chunks(tf):
         out.index_add_(0, src, z3[dst].float()
                        * w_slot[b, :, c].float().unsqueeze(-1))
+    return out
+
+
+def _vattn_raw(U3, V3, src, dst, ef_rows=None, wf=None):
+    """raw (n, H, D) f32 of n slots: U3[src] + V3[dst] (+ the edge term
+    ef_rows (n, Fe) . wf[:Fe] + the bias row wf[Fe] when wf has one)."""
+    raw = U3[src].float() + V3[dst].float()
+    if ef_rows is not None:
+        fe = ef_rows.shape[1]
+        term = ef_rows.float() @ wf[:fe].float()
+        if wf.shape[0] > fe:
+            term = term + wf[fe].float()
+        raw = raw + term.view(raw.shape)
+    return raw
+
+
+def vattn_scores_plain(tf: ts.TiledFormat, U3, V3, attn, slope: float,
+                       ef_slot=None, wf=None):
+    """The vector scores' function: p (B, H, C) f32, exp(clip(sum_d
+    attn[h, d] lrelu(raw)[h, d], +-40)) at valid slots and 0 at padded
+    ones; ``ef_slot`` (B, C, Fe) and ``wf`` give the edge term."""
+    heads = U3.shape[1]
+    p = torch.zeros(_slot_shape(tf, heads), dtype=torch.float32,
+                    device=U3.device)
+    a = attn.float()
+    for b, c, src, dst in ts._slot_chunks(tf):
+        raw = _vattn_raw(U3, V3, src, dst,
+                         None if ef_slot is None else ef_slot[b, c], wf)
+        e = (torch.nn.functional.leaky_relu(raw, slope) * a).sum(-1)
+        p[b, :, c] = torch.exp(torch.clamp(e, -CLIP, CLIP))
+    return p
+
+
+def _vattn_dw(raw, ds_rows, a, slope):
+    """dW (n, H, D) = ds[h] * attn[h, d] * lrelu'(raw)."""
+    return ds_rows.unsqueeze(-1) * a * torch.where(raw >= 0, 1.0, slope)
+
+
+def vattn_slot_grad_plain(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
+                          ef_slot=None, wf=None, need_def: bool = True):
+    """The slot gradient's function: (da (H, D), d_ef (B, C, Fe) or None,
+    dwf like ``wf`` or None), all f32.  da = sum ds[h] lrelu(raw); with the
+    edge term d_ef[slot] = wf[:Fe] dW (0 at padded slots; only with
+    ``need_def``) and dwf = sum over the slots of [ef, 1] (x) dW."""
+    a = attn.float()
+    da = torch.zeros(a.shape, dtype=torch.float32, device=U3.device)
+    d_ef = dwf = None
+    if ef_slot is not None:
+        fe = ef_slot.shape[2]
+        dwf = torch.zeros(wf.shape, dtype=torch.float32, device=U3.device)
+        if need_def:
+            d_ef = torch.zeros(ef_slot.shape, dtype=torch.float32,
+                               device=U3.device)
+    for b, c, src, dst in ts._slot_chunks(tf):
+        ef_rows = None if ef_slot is None else ef_slot[b, c].float()
+        raw = _vattn_raw(U3, V3, src, dst, ef_rows, wf)
+        ds_rows = ds[b, :, c].float()
+        da += (ds_rows.unsqueeze(-1)
+               * torch.nn.functional.leaky_relu(raw, slope)).sum(0)
+        if ef_rows is None:
+            continue
+        dw = _vattn_dw(raw, ds_rows, a, slope).flatten(1)
+        dwf[:fe] += ef_rows.t() @ dw
+        if wf.shape[0] > fe:
+            dwf[fe] += dw.sum(0)
+        if need_def:
+            d_ef[b, c] = dw @ wf[:fe].float().t()
+    return da, d_ef, dwf
+
+
+def vattn_node_grad_plain(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
+                          side: str = "dst", ef_slot=None, wf=None):
+    """The node gradient's function: (num_rows, H, D) f32, the sum of dW
+    over the valid slots of each dst node (dV) or src node (dU)."""
+    rows = tf.num_dst if side == "dst" else tf.num_src
+    out = torch.zeros((rows,) + tuple(U3.shape[1:]), dtype=torch.float32,
+                      device=U3.device)
+    a = attn.float()
+    for b, c, src, dst in ts._slot_chunks(tf):
+        raw = _vattn_raw(U3, V3, src, dst,
+                         None if ef_slot is None else ef_slot[b, c], wf)
+        out.index_add_(0, dst if side == "dst" else src,
+                       _vattn_dw(raw, ds[b, :, c].float(), a, slope))
     return out
 
 
@@ -324,6 +448,188 @@ def src_aggregate(tf: ts.TiledFormat, z3, w_slot):
 src_aggregate.launches = 0
 
 
+def _check_vattn(tf: ts.TiledFormat, U3, V3, attn, ef_slot, wf):
+    """(H, D, Fe, Fe rows of wf): the shapes of a vector-attention call;
+    Fe = rows = 0 without the edge term."""
+    ts._check_operand(tf, U3, tf.num_src, 3, "U3")
+    ts._check_operand(tf, V3, tf.num_dst, 3, "V3")
+    heads, dim = U3.shape[1], U3.shape[2]
+    if tuple(V3.shape[1:]) != (heads, dim) or tuple(attn.shape) != (heads,
+                                                                     dim):
+        raise ValueError(f"U3 {tuple(U3.shape)}, V3 {tuple(V3.shape)} and "
+                         f"attn {tuple(attn.shape)} do not match")
+    if (ef_slot is None) != (wf is None):
+        raise ValueError("the edge term needs both ef_slot and wf")
+    if ef_slot is None:
+        return heads, dim, 0, 0
+    fe = ef_slot.shape[-1]
+    if tuple(ef_slot.shape) != (tf.num_buckets, tf.cap, fe):
+        raise ValueError(f"ef_slot has shape {tuple(ef_slot.shape)}; the "
+                         f"format needs ({tf.num_buckets}, {tf.cap}, Fe)")
+    if wf.ndim != 2 or wf.shape[1] != heads * dim or wf.shape[0] not in (
+            fe, fe + 1):
+        raise ValueError(f"wf has shape {tuple(wf.shape)}; it needs ({fe} "
+                         f"or {fe + 1}, {heads * dim})")
+    return heads, dim, fe, wf.shape[0]
+
+
+def _fe_cap(rows: int) -> int:
+    """The kernels' register width for ``rows`` edge-feature rows."""
+    if rows > MAX_FE_ROWS:
+        raise ValueError(f"{rows} edge-feature rows (bias included); the "
+                         f"kernels take at most {MAX_FE_ROWS}")
+    return 8 if rows <= 8 else 16 if rows <= 16 else 32
+
+
+def _check_vattn_sizes(tf: ts.TiledFormat, heads, dim, fe, smem_floats):
+    hd = heads * dim
+    ts._check_int32(tf.num_buckets * max(heads, 1) * tf.cap,
+                    tf.num_src_tiles * tf.tile * hd,
+                    tf.num_dst_tiles * tf.tile * hd,
+                    tf.num_buckets * tf.cap * max(fe, 1))
+    if smem_floats * 4 > ts._SMEM_PER_BLOCK:
+        raise ValueError(f"{heads} heads x {dim} with {fe} edge features "
+                         "do not fit the kernel's shared memory")
+
+
+def vattn_scores(tf: ts.TiledFormat, U3, V3, attn, slope: float,
+                 ef_slot=None, wf=None):
+    """K9 / K11 v2 scores: p (B, H, C) f32 from U3 (num_src, H, D), V3
+    (num_dst, H, D) and attn (H, D); ``ef_slot`` (B, C, Fe) and ``wf``
+    (Fe or Fe + 1, H * D) add the edge term."""
+    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
+    edge = () if ef_slot is None else (ef_slot, wf)
+    if not on_cuda(U3, V3, attn, tf.valid, *edge):
+        return vattn_scores_plain(tf, U3, V3, attn, slope, ef_slot, wf)
+    hd = heads * dim
+    if edge:
+        _fe_cap(rows)
+    _check_vattn_sizes(tf, heads, dim, fe,
+                       hd + rows * hd + _VATTN_WARPS * 32 * rows)
+    b, cap = tf.num_buckets, tf.cap
+    p = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
+                    device=U3.device)
+    if heads == 0:
+        return p
+    u, v, a = _f32(U3), _f32(V3), _f32(attn)
+    ef_c, wf_c = (None, None) if not edge else (_f32(ef_slot), _f32(wf))
+    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
+                        16 * ts._sms(u.device)))
+    _launch("dgl_vattn_scores", tf.src_local.data_ptr(),
+            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
+            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
+            u.data_ptr(), v.data_ptr(), a.data_ptr(),
+            0 if ef_c is None else ef_c.data_ptr(),
+            0 if wf_c is None else wf_c.data_ptr(), fe, rows, heads, dim,
+            ts._lanes_per_head(heads), float(slope), p.data_ptr(), blocks,
+            u.device.index, ts._stream(u.device), source="gatv2")
+    vattn_scores.launches += 1
+    return p
+
+
+vattn_scores.launches = 0
+
+
+def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
+                    ef_slot=None, wf=None, need_def: bool = True):
+    """K9 / K11 v2 slot gradient: (da (H, D), d_ef (B, C, Fe) or None,
+    dwf (rows of wf, H * D) or None), f32, from ds (B, H, C).  ``d_ef`` is
+    computed only with the edge term and ``need_def``."""
+    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
+    _check_slots(tf, ds, heads, "ds")
+    edge = () if ef_slot is None else (ef_slot, wf)
+    if not on_cuda(U3, V3, attn, ds, tf.valid, *edge):
+        return vattn_slot_grad_plain(tf, U3, V3, attn, ds, slope, ef_slot,
+                                     wf, need_def)
+    hd = heads * dim
+    fe_cap = _fe_cap(rows) if edge else 0
+    _check_vattn_sizes(tf, heads, dim, fe,
+                       2 * hd + 2 * rows * hd + _VATTN_WARPS * 32 * rows)
+    dev = U3.device
+    da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
+    dwf = (torch.zeros(rows, hd, dtype=torch.float32, device=dev) if edge
+           else None)
+    d_ef = (torch.empty(ef_slot.shape, dtype=torch.float32, device=dev)
+            if edge and need_def else None)
+    if hd == 0:
+        return da, None if d_ef is None else d_ef.zero_(), dwf
+    lanes = ts._lanes_per_head(heads)
+    # columns of its head a lane keeps in registers at once: da and, with
+    # the edge term, fe_cap rows of dWf each (and fe_cap d(ef) partial sums
+    # a slot)
+    cols, max_cols = 1, 2 if fe_cap == 32 and d_ef is not None else 4
+    while cols < min(-(-dim // lanes), max_cols):
+        cols *= 2
+    u, v, a, g = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
+    ef_c, wf_c = (None, None) if not edge else (_f32(ef_slot), _f32(wf))
+    b, cap = tf.num_buckets, tf.cap
+    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
+                        4 * ts._sms(dev)))
+    _launch("dgl_vattn_slot_grad", tf.src_local.data_ptr(),
+            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
+            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
+            u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(),
+            0 if ef_c is None else ef_c.data_ptr(),
+            0 if wf_c is None else wf_c.data_ptr(), fe, rows, heads, dim,
+            lanes, cols, fe_cap, float(slope), da.data_ptr(),
+            0 if d_ef is None else d_ef.data_ptr(),
+            0 if dwf is None else dwf.data_ptr(), blocks, dev.index,
+            ts._stream(dev), source="gatv2")
+    vattn_slot_grad.launches += 1
+    return da, d_ef, dwf
+
+
+vattn_slot_grad.launches = 0
+
+
+def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
+                    side: str = "dst", ef_slot=None, wf=None):
+    """K9 / K11 v2 node gradient: (num_rows, H, D) f32, the sum of dW over
+    the valid slots of each dst node (``side="dst"``: dV) or src node
+    (``side="src"``: dU, walking ``src_order``)."""
+    if side not in ("dst", "src"):
+        raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
+    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
+    _check_slots(tf, ds, heads, "ds")
+    src = side == "src"
+    if src:
+        _require_src_first(tf)
+    edge = () if ef_slot is None else (ef_slot, wf)
+    if not on_cuda(U3, V3, attn, ds, tf.valid, *edge):
+        return vattn_node_grad_plain(tf, U3, V3, attn, ds, slope, side,
+                                     ef_slot, wf)
+    hd = heads * dim
+    fe_cap = _fe_cap(rows) if edge else 0
+    _check_vattn_sizes(tf, heads, dim, fe, 0)
+    n_rows = tf.num_src if src else tf.num_dst
+    n_t = tf.num_src_tiles if src else tf.num_dst_tiles
+    dev = U3.device
+    g = ts._group(hd, tf.tile)
+    splits = ts._splits(tf, n_t, -(-hd // g), ts._group_per_sm(g, tf.tile),
+                        dev)
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc(n_rows, heads, dim, dtype=torch.float32, device=dev)
+    if n_t == 0 or hd == 0:
+        return out.zero_()
+    u, v, a, d = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
+    ef_c, wf_c = (None, None) if not edge else (_f32(ef_slot), _f32(wf))
+    _launch("dgl_vattn_node_grad", tf.src_local.data_ptr(),
+            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
+            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
+            tf.src_order.data_ptr() if src else 0,
+            (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
+            tf.cap, u.data_ptr(), v.data_ptr(), a.data_ptr(), d.data_ptr(),
+            0 if ef_c is None else ef_c.data_ptr(),
+            0 if wf_c is None else wf_c.data_ptr(), fe, rows - fe, fe_cap,
+            heads, dim, float(slope), out.data_ptr(), n_rows, g, splits,
+            int(src), dev.index, ts._stream(dev), source="gatv2")
+    vattn_node_grad.launches += 1
+    return out
+
+
+vattn_node_grad.launches = 0
+
+
 # -- forward and backward -----------------------------------------------------
 
 def gat_forward(tf: ts.TiledFormat, el2, er2, x3, H: int, Fh: int,
@@ -383,6 +689,35 @@ def dot_gat_backward(tf: ts.TiledFormat, q3, k3, x3, p_slot, den, out, dZ,
     return dq, dk, dx
 
 
+def vattn_forward(tf: ts.TiledFormat, U3, V3, x3, attn, H: int, Fh: int,
+                  slope: float, ef_slot=None, wf=None):
+    """GATv2 / EGATConv v2 forward (``gatv2_forward`` :761,
+    ``egatc2_forward`` :2053): (out (num_dst, H, Fh), p_slot, den
+    (num_dst, H)), ``den`` clamped at 1e-20."""
+    p = vattn_scores(tf, U3, V3, attn, slope, ef_slot, wf)
+    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
+    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    return num / den.unsqueeze(-1), p, den
+
+
+def vattn_backward(tf: ts.TiledFormat, U3, V3, x3, attn, p_slot, den, out,
+                   dZ, slope: float, ef_slot=None, wf=None,
+                   need_def: bool = True):
+    """GATv2 / EGATConv v2 backward (``_gatv2_bwd`` :836,
+    ``egatc2_backward`` :2118): (dU, dV, dx, da, d_ef, dwf), with ds =
+    (<x[src], zn[dst]> - rp[dst]) * p; ``d_ef`` and ``dwf`` are None
+    without the edge term.  ``tf`` needs ``src_order``."""
+    zn, rp = _scales(out, dZ, den)
+    ds = gat_ds(tf, x3, zn, rp, p_slot)
+    da, d_ef, dwf = vattn_slot_grad(tf, U3, V3, attn, ds, slope, ef_slot,
+                                    wf, need_def)
+    dV = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst", ef_slot, wf)
+    dU = vattn_node_grad(tf, U3, V3, attn, ds, slope, "src", ef_slot, wf)
+    del ds
+    dx = src_aggregate(tf, zn, p_slot)
+    return dU, dV, dx, da, d_ef, dwf
+
+
 # -- the differentiable ops ---------------------------------------------------
 
 class _GatAttention(torch.autograd.Function):
@@ -429,6 +764,82 @@ class _DotGatAttention(torch.autograd.Function):
                                       ctx.H, ctx.D, ctx.Fh)
         return (dq.to(q3.dtype), dk.to(k3.dtype), dx.to(x3.dtype), None,
                 None, None, None)
+
+
+class _VectorAttention(torch.autograd.Function):
+    """GATv2 and EGATConv v2: forward by the vector scores, the slot reduce
+    and K4's SpMM; backward by ds (g = p), the slot gradient, the node
+    gradient on both sides and the src-side aggregation.  p is saved, and
+    raw is recomputed in every backward pass."""
+
+    @staticmethod
+    def forward(ctx, U3, V3, ef_slot, wf, attn, x3, tf, H, Fh, slope):
+        out, p, den = vattn_forward(tf, U3, V3, x3, attn, H, Fh, slope,
+                                    ef_slot, wf)
+        ctx.save_for_backward(U3, V3, ef_slot, wf, attn, x3, p, den, out)
+        ctx.tf, ctx.slope = tf, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        U3, V3, ef_slot, wf, attn, x3, p, den, out = ctx.saved_tensors
+        # at Reddit scale d(ef) is as large as the edge features: only
+        # when someone wants it
+        dU, dV, dx, da, d_ef, dwf = vattn_backward(
+            ctx.tf, U3, V3, x3, attn, p, den, out, dz, ctx.slope, ef_slot,
+            wf, need_def=ctx.needs_input_grad[2])
+        return (dU.to(U3.dtype), dV.to(V3.dtype),
+                None if d_ef is None else d_ef.to(ef_slot.dtype),
+                None if dwf is None else dwf.to(wf.dtype), da.to(attn.dtype),
+                dx.to(x3.dtype), None, None, None, None)
+
+
+def _check_dims(what, t, heads, dim):
+    if t.ndim != 3 or tuple(t.shape[1:]) != (heads, dim):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, not (N, {heads},"
+                         f" {dim})")
+
+
+def gatv2_attention_aggregate(tf: ts.TiledFormat, U3, V3, x3, attn, H: int,
+                              D: int, Fh: int, negative_slope: float):
+    """Fused GATv2 attention + aggregation (``gat_fused.py:943``): e =
+    attn . lrelu(U3[src] + V3[dst]) per head, softmax over each dst under
+    the +-40 clip, out[dst] = sum a x3[src].  ``tf``: the forward tiled
+    format with ``src_order``; ``U3`` (N_src, H, D), ``V3`` (N_dst, H, D),
+    ``x3`` (N_src, H, Fh), ``attn`` (H, D).  Returns (N_dst, H, Fh) f32,
+    differentiable in U3, V3, x3 and attn."""
+    _require_src_first(tf)
+    _check_dims("U3", U3, H, D)
+    return _VectorAttention.apply(U3, V3, None, None, attn, x3, tf, int(H),
+                                  int(Fh), float(negative_slope))
+
+
+def egatconv_attention_aggregate_v2(tf: ts.TiledFormat, fni3, fnj3, ef_slot,
+                                    wf, attn, x3, H: int, De: int, Fh: int,
+                                    negative_slope: float):
+    """Fused EGATConv attention + aggregation with the edge transform in
+    the kernels (``gat_fused.py:2259``): e = attn . lrelu(fni3[src] +
+    fnj3[dst] + ef_slot . wf), the bias riding as wf's last row when wf has
+    Fe + 1 rows.  ``ef_slot`` (B, C, Fe) slot-order edge features
+    (:func:`slot_edge_tensor`), ``wf`` (Fe or Fe + 1, H * De), ``attn``
+    (H, De), ``x3`` (N_src, H, Fh).  Differentiable in fni3, fnj3, ef_slot,
+    wf, attn and x3; nothing (B, C, H * De)-sized is stored."""
+    _require_src_first(tf)
+    _check_dims("fni3", fni3, H, De)
+    return _VectorAttention.apply(fni3, fnj3, ef_slot, wf, attn, x3, tf,
+                                  int(H), int(Fh), float(negative_slope))
+
+
+def slot_edge_tensor(tf: ts.TiledFormat, efeat) -> torch.Tensor:
+    """Canonical (E, Fe) edge features in the (B, C, Fe) slot order of
+    ``tf``, 0 at padded slots (``gat_fused.py:1037``): one gather on the
+    format's device, to be done once at set-up."""
+    ef = torch.as_tensor(efeat).to(tf.device)
+    ef = ef.reshape(ef.shape[0], -1)
+    if ef.shape[0] == 0:           # no edge: every slot is padding
+        return ef.new_zeros(tf.num_buckets, tf.cap, ef.shape[1])
+    rows = torch.index_select(ef, 0, tf.eid.clamp(min=0))
+    return (rows * tf.valid.view(-1, 1)).view(tf.num_buckets, tf.cap, -1)
 
 
 def gat_attention_aggregate(tf: ts.TiledFormat, el2, er2, x3, H: int,

@@ -3,8 +3,9 @@
 
 Flax ``GraphConv`` (``dgl_tpu/nn/conv/graphconv.py``) stores ``weight`` as
 (in, out) and ``bias`` as (out,), the layout of DGL's PyTorch GraphConv,
-so the arrays cross unchanged.  Flax ``GATConv``'s and ``DotGatConv``'s
-Dense kernels are (in, out), the transpose of ``nn.Linear.weight``.  The
+so the arrays cross unchanged.  Flax ``GATConv``'s, ``DotGatConv``'s,
+``GATv2Conv``'s and ``EGATConv``'s Dense kernels are (in, out), the
+transpose of ``nn.Linear.weight``.  The
 input is any mapping of arrays that numpy can read; nothing of JAX is
 imported here.
 """
@@ -57,3 +58,42 @@ def dotgatconv_state_dict(flax_params: Mapping):
     flax_params = _unwrap(flax_params)
     return {f"{name}.weight": _f32(flax_params[name]["kernel"]).T
             .contiguous() for name in ("fc_src", "fc_dst")}
+
+
+def _dense(params: Mapping, name: str):
+    """``{name}.weight`` (out, in) and, where flax has one, ``{name}.bias``
+    from one flax Dense's params."""
+    sd = {f"{name}.weight": _f32(params["kernel"]).T.contiguous()}
+    if "bias" in params:
+        sd[f"{name}.bias"] = _f32(params["bias"])
+    return sd
+
+
+def gatv2conv_state_dict(flax_params: Mapping):
+    """``state_dict`` for :class:`dgl_tpu_torch.nn.GATv2Conv` from one
+    flax GATv2Conv's params: ``fc_src``/``fc_dst`` (kernel (in, H*D), bias
+    (H*D,)) become ``nn.Linear`` weights and biases, ``res_fc`` likewise
+    without bias; ``attn`` (1, H, D) crosses as it is.  Under
+    ``share_weights`` flax has no ``fc_dst``, and the port's ``fc_dst`` is
+    its ``fc_src``: both names get ``fc_src``'s arrays."""
+    flax_params = _unwrap(flax_params)
+    sd = {"attn": _f32(flax_params["attn"])}
+    sd.update(_dense(flax_params["fc_src"], "fc_src"))
+    sd.update(_dense(flax_params.get("fc_dst", flax_params["fc_src"]),
+                     "fc_dst"))
+    if "res_fc" in flax_params:
+        sd.update(_dense(flax_params["res_fc"], "res_fc"))
+    return sd
+
+
+def egatconv_state_dict(flax_params: Mapping):
+    """``state_dict`` for :class:`dgl_tpu_torch.nn.EGATConv` from one flax
+    EGATConv's params: the kernels of ``fc_node_src``, ``fc_ni``,
+    ``fc_fij`` and ``fc_nj`` become ``nn.Linear`` weights; ``attn`` (1, H,
+    De) and ``bias`` (H*De,) cross as they are."""
+    flax_params = _unwrap(flax_params)
+    sd = {name: _f32(flax_params[name])
+          for name in ("attn", "bias") if name in flax_params}
+    for name in ("fc_node_src", "fc_ni", "fc_fij", "fc_nj"):
+        sd.update(_dense(flax_params[name], name))
+    return sd

@@ -481,3 +481,155 @@ def test_attention_convs_kernels_match_gather(card, monkeypatch):
         torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=ATOL)
         for a, b in zip(kern[1:], ref[1:]):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+def _vattn_inputs(card, fwd, heads, dim, fe, bias, seed):
+    """U, V, attn, ds and, with fe > 0, slot edge features and wf (the
+    bias row last with ``bias``) on the format ``fwd``.  U, V, attn and wf
+    are multiples of 1/16 and the edge features in {-1, 0, 1}, so raw is
+    exact in f32 in any order and the kernels and the plain versions take
+    the same side of lrelu's kink."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def exact(*shape, top=8):
+        return torch.randint(-top, top + 1, shape, device=card,
+                             generator=gen).float() / 16
+
+    b, cap = fwd.num_buckets, fwd.cap
+    U = exact(fwd.num_src, heads, dim, top=16)
+    V = exact(fwd.num_dst, heads, dim, top=16)
+    attn = exact(heads, dim)
+    ds = torch.randn(b, heads, cap, device=card, generator=gen) * \
+        fwd.valid.view(b, 1, cap)
+    ef = wf = None
+    if fe:
+        ef = torch.randint(-1, 2, (b, cap, fe), device=card,
+                           generator=gen).float() * fwd.valid.view(b, cap, 1)
+        wf = exact(fe + int(bias), heads * dim)
+    return U, V, attn, ds, ef, wf
+
+
+VATTN_EDGES = [(0, False), (5, False), (12, True), (16, True)]
+
+
+@pytest.mark.parametrize("heads,dim", [(8, 8), (1, 41), (4, 32), (3, 5)])
+@pytest.mark.parametrize("fe,bias", VATTN_EDGES)
+def test_vattn_kernels_match_plain(card, heads, dim, fe, bias):
+    """Each K9 / K11 v2 kernel (scores, slot gradient, node gradient on
+    both sides) against its plain version, without and with the edge term
+    (Fe = 5, and Fe = 12 and 16 plus the bias row); then the forward and
+    backward of the autograd function against the plain chain."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    slope = 0.01 if fe else 0.2
+    U, V, attn, ds, ef, wf = _vattn_inputs(card, fwd, heads, dim, fe, bias,
+                                           heads * 100 + dim + fe)
+    counters = (tgf.vattn_scores, tgf.vattn_slot_grad, tgf.vattn_node_grad)
+    before = [k.launches for k in counters]
+    got = [tgf.vattn_scores(fwd, U, V, attn, slope, ef, wf)]
+    got += [a for a in tgf.vattn_slot_grad(fwd, U, V, attn, ds, slope, ef,
+                                           wf) if a is not None]
+    got += [tgf.vattn_node_grad(fwd, U, V, attn, ds, slope, side, ef, wf)
+            for side in ("dst", "src")]
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 2]
+    want = [tgf.vattn_scores_plain(fwd, U, V, attn, slope, ef, wf)]
+    want += [a for a in tgf.vattn_slot_grad_plain(fwd, U, V, attn, ds, slope,
+                                                  ef, wf) if a is not None]
+    want += [tgf.vattn_node_grad_plain(fwd, U, V, attn, ds, slope, side, ef,
+                                       wf) for side in ("dst", "src")]
+    assert len(got) == len(want) == (6 if fe else 4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    pad = fwd.valid.reshape(fwd.num_buckets, 1, fwd.cap) == 0
+    assert (got[0].masked_select(pad) == 0).all()
+    if fe:
+        assert (got[2].masked_select(pad.transpose(1, 2)) == 0).all()
+
+    x = torch.randn_like(U)
+    dz = torch.randn(fwd.num_dst, heads, dim, device=card)
+    ins = [t.clone().requires_grad_() for t in (U, V, attn, x)]
+    edge = [t.clone().requires_grad_() for t in (ef, wf)] if fe else []
+    if fe:
+        out = tgf.egatconv_attention_aggregate_v2(
+            fwd, ins[0], ins[1], edge[0], edge[1], ins[2], ins[3], heads,
+            dim, dim, slope)
+    else:
+        out = tgf.gatv2_attention_aggregate(fwd, ins[0], ins[1], ins[3],
+                                            ins[2], heads, dim, dim, slope)
+    out.backward(dz)
+    p = tgf.vattn_scores_plain(fwd, U, V, attn, slope, ef, wf)
+    den = tgf.slot_reduce_plain(fwd, p, "dst").clamp_(min=tgf.DEN_EPS)
+    ref = tts.tiled_spmm_multihead_plain(fwd, x, p) / den.unsqueeze(-1)
+    zn, rp = tgf._scales(ref, dz, den)
+    g = tgf.gat_ds_plain(fwd, x, zn, rp, p)
+    da, d_ef, dwf = tgf.vattn_slot_grad_plain(fwd, U, V, attn, g, slope, ef,
+                                              wf)
+    grads = [tgf.vattn_node_grad_plain(fwd, U, V, attn, g, slope, "src", ef,
+                                       wf),
+             tgf.vattn_node_grad_plain(fwd, U, V, attn, g, slope, "dst", ef,
+                                       wf),
+             da, tgf.src_aggregate_plain(fwd, zn, p)]
+    torch.testing.assert_close(out.detach(), ref, rtol=RTOL, atol=ATOL)
+    for a, b in zip([t.grad for t in ins + edge], grads + [d_ef, dwf]):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_vattn_wrappers_never_take_plain_on_cuda(card, monkeypatch):
+    """On CUDA tensors each wrapper launches its kernel: a plain version
+    that is reached raises."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    for name in ("vattn_scores_plain", "vattn_slot_grad_plain",
+                 "vattn_node_grad_plain"):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(tgf, name, refuse)
+    for fe, bias in VATTN_EDGES[:2]:
+        U, V, attn, ds, ef, wf = _vattn_inputs(card, fwd, 4, 8, fe, bias, 7)
+        before = tgf.vattn_scores.launches
+        tgf.vattn_scores(fwd, U, V, attn, 0.2, ef, wf)
+        tgf.vattn_slot_grad(fwd, U, V, attn, ds, 0.2, ef, wf)
+        tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.2, "src", ef, wf)
+        torch.cuda.synchronize()
+        assert tgf.vattn_scores.launches == before + 1
+
+
+def test_vector_attention_convs_kernels_match_reference(card, monkeypatch):
+    """A GATv2Conv step on K9 equals its edge chain, and an EGATConv step
+    on K11 v2 (the fused route) equals its flat route, on the card."""
+    row, col, n, _ = _coo(n_src=8100, n_dst=8100)
+    g = dgt.graph((row, col), num_nodes=n)
+    g.create_tiled_format(tile=1024)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    x = torch.randn(n, 24, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    ef = torch.randn(len(row), 16, device=card,
+                     generator=torch.Generator(device=card).manual_seed(2))
+    ef_slot = dgt.nn.EGATConv.slot_edge_feats(g, ef)
+    gen = torch.Generator(device=card).manual_seed(0)
+    gatv2 = dgt.nn.GATv2Conv(24, 8, 8, residual=True, generator=gen)
+    egat = dgt.nn.EGATConv(24, 16, 32, 32, 4, generator=gen)
+
+    def step(conv, **kw):
+        conv.zero_grad()
+        xs = x.clone().requires_grad_()
+        out = conv(g, xs, **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        out.square().mean().backward()
+        return [out.detach(), xs.grad] + [
+            p.grad.clone() for p in conv.parameters()]
+
+    before = tgf.vattn_scores.launches
+    kern = step(gatv2)
+    monkeypatch.setitem(config._FLAGS, "use_kernels", False)
+    ref = step(gatv2)
+    monkeypatch.setitem(config._FLAGS, "use_kernels", True)
+    kern_e = step(egat, efeats=ef, compute_edge_feats=False,
+                  efeats_slot=ef_slot)
+    ref_e = step(egat, efeats=ef, compute_edge_feats=False)
+    assert tgf.vattn_scores.launches == before + 2
+    for k, r in ((kern, ref), (kern_e, ref_e)):
+        torch.testing.assert_close(k[0], r[0], rtol=RTOL, atol=ATOL)
+        for a, b in zip(k[1:], r[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

@@ -12,8 +12,8 @@ Phases, each of which raises on failure (nothing is caught):
 4. the slice at full width and size: 2-layer GCN 602 -> 16 -> 41 (norm
    ``both``) trained for 10 Adam steps on the Reddit-statistics graph
    (232,965 nodes, 114.6M edges plus self-loops) in the bitmask format,
-   then one more step under ``torch.profiler`` for the device time by
-   kernel;
+   then one warm-up step and one recorded step under ``torch.profiler``
+   for the device time by kernel (every profiled step below is taken so);
 5. one step's loss and weight gradients through the kernels against the
    gather + ``index_add_`` path, and K1 against its plain version at full
    size;
@@ -61,8 +61,9 @@ Phases, each of which raises on failure (nothing is caught):
    K8 against its gather path, forward and backward;
 18. route 4: the phase-9 GAT without attention dropout for 10 Adam steps
    on the tiled format, both layers on K6 forward and backward, a
-   profiled step, and one step's loss and gradients against the same
-   model computed through edgeflat's functions;
+   profiled step whose trace is held to the launch counters, and one
+   step's loss and gradients against the same model computed through
+   edgeflat's functions;
 19. ``DotGatConv(64, 32, 4)`` forward and backward of (out^2).mean() for
    3 steps on the tiled graph (K8: K4's SDDMM and SpMM, K6's kernels);
 20. K6 yardsticks at full size, (H, Fh) = (4, 32) and (1, 41): each
@@ -79,8 +80,10 @@ Phases, each of which raises on failure (nothing is caught):
    edge chain, forward and backward;
 22. route 5: the GATv2 recipe of examples/gatv2.py:22-31 (602 -> 8 x 8 ->
    elu -> 1 x 41, AdamW lr 5e-3, weight decay 5e-4) for 10 steps on the
-   tiled format, both layers on K9, a profiled step, and one step's loss
-   and gradients against the same step built from the plain versions;
+   tiled format, both layers on K9, a profiled step whose trace is held
+   to the launch counters (and one without the warm-up step, which shows
+   what the profiler drops then), and one step's loss and gradients
+   against the same step built from the plain versions;
 23. EGATConv(64, 16, 32, 32, 4) at the JAX package's EGAT scale
    (tools/perf_egat128.py:27-80: 23M uniform random edges over the Reddit
    node count, compute_edge_feats=False, (out^2).mean(), Adam 1e-3) for 4
@@ -284,23 +287,50 @@ def phase_train(dgt, bm, g, x, y, train):
     return model, opt, k1
 
 
-def phase_profile(model, opt, g, x, y, train):
-    """One more Adam step under torch.profiler: device time by kernel and
-    the device's busy share of the step (the wall time includes the
-    profiler's own cost)."""
+# each slot-space wrapper's launch counter and the CUDA kernel it launches,
+# once a call
+TRACED_KERNELS = {
+    "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
+    "gat_ds": "gat_ds_kernel", "src_aggregate": "src_agg_kernel",
+    "vattn_scores": "vattn_scores_kernel",
+    "vattn_slot_grad": "vattn_slot_grad_kernel",
+    "vattn_node_grad": "vattn_node_grad_kernel",
+    "k4_spmm": "tiled_spmm_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel"}
+
+
+def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1):
+    """Adam steps under torch.profiler, ``warmup`` of them before the one
+    that its schedule records: device time by kernel and the device's busy
+    share of the recorded step (the wall time includes the profiler's own
+    cost).  With ``counts`` (a function that reads the slot-space
+    wrappers' launch counters), each wrapper's launches in the recorded
+    step are held against its kernel's entries in the trace; where they
+    differ, the busy share misses those launches, and the traced kernels
+    are listed in order."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss_fn(model, g, x, y, train).backward()
-        opt.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=1,
+                                   repeat=1)) as prof:
+        for recorded in (False,) * warmup + (True,):
+            if recorded:
+                before = counts() if counts else None
+                t0 = time.perf_counter()
+            opt.zero_grad()
+            loss_fn(model, g, x, y, train).backward()
+            opt.step()
+            torch.cuda.synchronize()
+            if recorded:
+                wall_us = (time.perf_counter() - t0) * 1e6
+                after = counts() if counts else None
+            prof.step()
+    # the device's kernels and copies, without the ranges that annotate
+    # them on the device (the profiler's step, the optimizer's step)
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us == 0:
@@ -311,6 +341,24 @@ def phase_profile(model, opt, g, x, y, train):
     for e in rows[:12]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms {e.count:3d}x "
             f"{e.key[:100]}")
+    if counts is None:
+        return
+    seen = {name: sum(e.count for e in rows
+                      if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key)
+            for name, kernel in TRACED_KERNELS.items()}
+    launched = {name: after[name] - before[name] for name in TRACED_KERNELS}
+    log(f"# profiled step: launches by counter {launched}, in the trace "
+        f"{seen}")
+    if seen != launched:
+        order = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and any(f"::{k}" in e.name
+                               for k in TRACED_KERNELS.values()))
+        log("# profiled step: the trace misses launches (the busy share "
+            "above misses their time); its slot-space kernels in order: "
+            + "; ".join(
+            f"{n[n.find('::') + 2:][:50]} {d:.0f}us" for _, n, d in order))
 
 
 def phase_check(model, g, x, y, train):
@@ -812,6 +860,14 @@ def bound(nbytes, ops, rate):
                                    else "operations")
 
 
+def walk_bytes(slots, e):
+    """The tiled format's slot arrays that a walk of its ``e`` edges must
+    read: ``valid`` for each of the ``slots`` slots, the src and dst locals
+    only for the edges (a padded slot's indices are not needed).  Per-slot
+    inputs are likewise counted over the edges, outputs over every slot."""
+    return slots * 4 + e * 8
+
+
 def csr_pattern(gt, by="dst"):
     """The graph's (dst, src) CSR pattern for the library yardsticks, or
     with ``by="src"`` the transposed (src, dst) one: (crow (N+1,) int64,
@@ -874,7 +930,7 @@ def tiled_yardsticks(ef, tts, gt, rate):
     err = close(tts.tiled_spmm(fwd, x), want, "K3 full size F=16")
     a = block_csr(pattern, 1)
     close(torch.sparse.mm(a, x), want, "torch.sparse.mm F=16")
-    nbytes = slots * 12 + 2 * x.numel() * 4
+    nbytes = walk_bytes(slots, e) + 2 * x.numel() * 4
     b, by = bound(nbytes, 2 * e * HIDDEN, rate)
     rows["k3"] = {"max_abs_err": err,
                   "ms": cuda_ms(lambda: tts.tiled_spmm(fwd, x)),
@@ -919,11 +975,12 @@ def tiled_yardsticks(ef, tts, gt, rate):
                 ("spmm_mh",
                  lambda: tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh),
                  lambda: tts.tiled_spmm_multihead_plain(fwd, x, w_slot),
-                 slots * (12 + 4 * heads) + 2 * feat_b, lib_s),
+                 walk_bytes(slots, e) + e * 4 * heads + 2 * feat_b, lib_s),
                 ("sddmm_mh",
                  lambda: tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh),
                  lambda: tts.tiled_sddmm_dot_multihead_plain(fwd, x, z),
-                 slots * (12 + 4 * heads) + 2 * feat_b, lib_d)):
+                 walk_bytes(slots, e) + slots * 4 * heads + 2 * feat_b,
+                 lib_d)):
             err = close(kernel(), plain(), f"K4 {name} full size H={heads} "
                         f"Fh={fh}")
             b, by = bound(nbytes, ops, rate)
@@ -1223,7 +1280,8 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
     rp = randn(N_NODES, heads)
     p, g = tgf.gat_scores(fwd, el, er, SLOPE)
     node, feat_b = N_NODES * heads * 4, N_NODES * heads * fh * 4
-    slot_h = slots * heads * 4
+    slot_h, edge_h = slots * heads * 4, e * heads * 4
+    walk = walk_bytes(slots, e)
     rows = {}
 
     def row(name, kernel, plain, nbytes, ops, lib=None, lib_name=None):
@@ -1245,10 +1303,10 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
             + (f"({lib_name}) {lib:.4f} ms" if lib is not None else "none")
             + f", max|err| {err:.3g}")
 
-    # scores: in the slot arrays (12 B a slot), el, er; out p, g
+    # scores: in the slot arrays, el, er; out p, g at every slot
     row("scores", lambda: tgf.gat_scores(fwd, el, er, SLOPE),
         lambda: tgf.gat_scores_plain(fwd, el, er, SLOPE),
-        slots * 12 + 2 * node + 2 * slot_h, 8 * e * heads)
+        walk + 2 * node + 2 * slot_h, 8 * e * heads)
 
     # the slot reduce: one index_add_ of head-major slot values at the
     # slots' global ids computes each side
@@ -1264,16 +1322,18 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
               f"index_add_ {side} H={heads}")
         lib = cuda_ms(lib_call)
         del vals_h, ids
-        # in: local, valid (8 B a slot), the values; out: one row per node
+        # in: valid at every slot, one side's local and the values at the
+        # edges; out: one row per node
         row(f"reduce_{side}", lambda: tgf.slot_reduce(fwd, p, side),
             lambda: tgf.slot_reduce_plain(fwd, p, side),
-            slots * 8 + slot_h + node + (b * 4 if side == "src" else 0),
+            slots * 4 + e * 4 + edge_h + node
+            + (b * 4 if side == "src" else 0),
             e * heads, lib, "index_add_")
 
-    # ds: in the slot arrays, g, x, zn, rp; out ds
+    # ds: in the slot arrays, g, x, zn, rp; out ds at every slot
     row("ds", lambda: tgf.gat_ds(fwd, x, zn, rp, g),
         lambda: tgf.gat_ds_plain(fwd, x, zn, rp, g),
-        slots * 12 + 2 * slot_h + 2 * feat_b + node,
+        walk + edge_h + slot_h + 2 * feat_b + node,
         e * heads * (2 * fh + 2))
     del g
 
@@ -1294,7 +1354,7 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
     del aw, zh
     row("src_agg", lambda: tgf.src_aggregate(fwd, zn, p),
         lambda: tgf.src_aggregate_plain(fwd, zn, p),
-        slots * 12 + slot_h + b * 4 + 2 * feat_b, 2 * e * heads * fh, lib,
+        walk + edge_h + b * 4 + 2 * feat_b, 2 * e * heads * fh, lib,
         "torch.sparse.mm")
     return rows
 
@@ -1632,8 +1692,9 @@ def vattn_yardsticks(tgf, tf, e, heads, dim, fe, rate):
     slots, hd = b * cap, heads * dim
     rows = fe + 1 if fe else 0
     node_b = N_NODES * hd * 4
-    slot_h = slots * heads * 4
-    edge_b = slots * fe * 4 + rows * hd * 4      # ef in slot order, wf
+    slot_h, edge_h = slots * heads * 4, e * heads * 4
+    walk = walk_bytes(slots, e)
+    edge_b = e * fe * 4 + rows * hd * 4          # ef at the edges, wf
     fe_ops = 2 * rows * hd                       # FE per edge
     tag = f"H={heads} D={dim}" + (f" Fe={fe}+1" if fe else "")
     out = {}
@@ -1655,12 +1716,12 @@ def vattn_yardsticks(tgf, tf, e, heads, dim, fe, rate):
             f"{by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
             f"library none, max|err| {err:.3g}")
 
-    # scores: in the slot arrays (12 B a slot), U, V, attn (and the edge
-    # term); out p.  Per edge and column: raw, lrelu, the dot (5 ops);
-    # per edge and head the clip and exp
+    # scores: in the slot arrays, U, V, attn (and the edge term); out p at
+    # every slot.  Per edge and column: raw, lrelu, the dot (5 ops); per
+    # edge and head the clip and exp
     row("scores", lambda: tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
         lambda: tgf.vattn_scores_plain(tf, U, V, attn, slope, ef, wf),
-        slots * 12 + 2 * node_b + hd * 4 + edge_b + slot_h,
+        walk + 2 * node_b + hd * 4 + edge_b + slot_h,
         e * (5 * hd + fe_ops + 4 * heads))
     # the slot gradient as the main path calls it (no d(ef)): in the slot
     # arrays, ds, U, V, attn (and the edge term); out da (and dWf).  Per
@@ -1671,7 +1732,7 @@ def vattn_yardsticks(tgf, tf, e, heads, dim, fe, rate):
                                     need_def=False),
         lambda: tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf,
                                           need_def=False),
-        slots * 12 + slot_h + 2 * node_b + 2 * hd * 4 + 2 * edge_b,
+        walk + edge_h + 2 * node_b + 2 * hd * 4 + edge_b + rows * hd * 4,
         e * hd * (5 + (fe_ops // hd + 3 + 2 * rows if fe else 0)),
         check=close_sum)
     # the node gradient on each side: in the slot arrays (and src_order),
@@ -1683,7 +1744,7 @@ def vattn_yardsticks(tgf, tf, e, heads, dim, fe, rate):
                                         wf),
             lambda: tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope,
                                               side, ef, wf),
-            slots * 12 + (b * 4 if side == "src" else 0) + slot_h
+            walk + (b * 4 if side == "src" else 0) + edge_h
             + 3 * node_b + hd * 4 + edge_b, e * (5 * hd + fe_ops))
     return out
 
@@ -1789,7 +1850,8 @@ def main():
     model, opt, k6_launches = phase("18 (route 4: GAT on K6 train)",
                                     phase_route4, dgt, tts, tgf, gt, x, y,
                                     train)
-    phase("18 (route 4 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("18 (route 4 profile)", phase_profile, model, opt, gt, x, y, train,
+          lambda: read_counts(tts, tgf))
     phase("18 (route 4 check)", phase_route4_check, ef, model, gt, x, y,
           train)
     del model, opt
@@ -1801,7 +1863,10 @@ def main():
     model, opt, k9_launches = phase("22 (route 5: GATv2 on K9 train)",
                                     phase_route5, dgt, tts, tgf, gt, x, y,
                                     train)
-    phase("22 (route 5 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("22 (route 5 profile, no warm-up)", phase_profile, model, opt, gt,
+          x, y, train, lambda: read_counts(tts, tgf), 0)
+    phase("22 (route 5 profile)", phase_profile, model, opt, gt, x, y, train,
+          lambda: read_counts(tts, tgf))
     phase("22 (route 5 check)", phase_route5_check, model, gt, x, y, train)
     del model, opt
     tf_gt = gt.unit().tiled_format()[0]

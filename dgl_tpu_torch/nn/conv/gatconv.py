@@ -339,6 +339,25 @@ def _egat_logits_chunked(f_ni, f_nj, efeats, w_fij, bias, attn, row, col,
     return torch.cat(out).reshape(-1)
 
 
+def _check_slot_edge_feats(tf, unit, efeats, efeats_slot, fe: int):
+    """Raise unless ``efeats_slot`` is (B, C, fe) in ``tf``'s slot order,
+    ``efeats`` (when given) has one row per edge, and a gradient that
+    ``efeats`` asks for can reach it through ``efeats_slot``."""
+    want = (tf.num_buckets, tf.cap, fe)
+    if tuple(efeats_slot.shape) != want:
+        raise ValueError(f"efeats_slot has shape {tuple(efeats_slot.shape)}"
+                         f", the graph's slot order {want}: build it with "
+                         "EGATConv.slot_edge_feats(graph, efeats)")
+    if efeats is None:
+        return
+    if efeats.shape[0] != unit.num_edges:
+        raise ValueError(f"efeats has {efeats.shape[0]} rows for "
+                         f"{unit.num_edges} edges")
+    if efeats.requires_grad and not efeats_slot.requires_grad:
+        raise ValueError("efeats needs a gradient that efeats_slot does not "
+                         "carry: build efeats_slot from efeats in the step")
+
+
 class EGATConv(nn.Module):
     """GAT with edge features (``dgl_tpu/nn/conv/gatconv.py:335-468``,
     reference ``python/dgl/nn/pytorch/conv/egatconv.py``): the logits are
@@ -356,8 +375,12 @@ class EGATConv(nn.Module):
       (:meth:`slot_edge_feats`), without ``get_attention`` and with
       ``compute_edge_feats=False``; the edge transform runs in the kernels
       (the bias as the last row of its matrix) and nothing (E, H * De)
-      -sized exists.  Returns ``(h, None)``.  The JAX package also needs a
-      TPU there; the port takes this route on CUDA and CPU tensors alike;
+      -sized exists.  Returns ``(h, None)``.  This route reads the edge
+      features only through ``efeats_slot``: ``efeats`` is checked against
+      it, and a gradient reaches ``efeats`` only through an
+      ``efeats_slot`` built from it in the step.  The JAX package also
+      needs a TPU there; the port takes this route on CUDA and CPU tensors
+      alike;
     * the flat route at ``kernel_spmm_min_edges`` edges and more without
       ``get_attention``: chunked logits, ``edge_softmax_flat`` and
       ``spmm_mul_flat``; the edge features only with
@@ -417,6 +440,8 @@ class EGATConv(nn.Module):
         tf = (None if efeats_slot is None or compute_edge_feats
               else _kernel_tiles(unit, get_attention))
         if tf is not None:
+            _check_slot_edge_feats(tf, unit, efeats, efeats_slot,
+                                   self.in_edge_feats)
             wf = self.fc_fij.weight.t()
             if self.bias is not None:
                 wf = torch.cat([wf, self.bias.unsqueeze(0)])

@@ -830,16 +830,8 @@ def egatconv_attention_aggregate_v2(tf: ts.TiledFormat, fni3, fnj3, ef_slot,
                                   int(H), int(Fh), float(negative_slope))
 
 
-def slot_edge_tensor(tf: ts.TiledFormat, efeat) -> torch.Tensor:
-    """Canonical (E, Fe) edge features in the (B, C, Fe) slot order of
-    ``tf``, 0 at padded slots (``gat_fused.py:1037``): one gather on the
-    format's device, to be done once at set-up."""
-    ef = torch.as_tensor(efeat).to(tf.device)
-    ef = ef.reshape(ef.shape[0], -1)
-    if ef.shape[0] == 0:           # no edge: every slot is padding
-        return ef.new_zeros(tf.num_buckets, tf.cap, ef.shape[1])
-    rows = torch.index_select(ef, 0, tf.eid.clamp(min=0))
-    return (rows * tf.valid.view(-1, 1)).view(tf.num_buckets, tf.cap, -1)
+# (E, Fe) edge features in slot order, beside the kernels that read them
+slot_edge_tensor = ts.slot_edge_tensor
 
 
 def gat_attention_aggregate(tf: ts.TiledFormat, el2, er2, x3, H: int,

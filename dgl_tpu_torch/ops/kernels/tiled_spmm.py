@@ -297,11 +297,20 @@ def slot_edge_weights(tf: TiledFormat, edge_weights) -> torch.Tensor:
     """Canonical-order (E,) edge weights in the (B, C//128, 128) slot
     layout of ``tf``, 0 at padded slots.  For weights that stay fixed
     across steps, ``UnitGraph.cache_edge_weights`` computes this once."""
-    ew = torch.as_tensor(edge_weights).reshape(-1).to(torch.float32)
-    if ew.numel() == 0:            # no edge: every slot is padding
-        return torch.zeros_like(tf.valid)
-    w = torch.index_select(ew, 0, tf.eid.clamp(min=0))
-    return w.view(tf.valid.shape) * tf.valid
+    ew = torch.as_tensor(edge_weights).reshape(-1, 1).to(torch.float32)
+    return slot_edge_tensor(tf, ew).view(tf.valid.shape)
+
+
+def slot_edge_tensor(tf: TiledFormat, efeat) -> torch.Tensor:
+    """Canonical (E, F) edge features in the (B, C, F) slot order of
+    ``tf``, 0 at padded slots (``gat_fused.py:1037``): one gather on the
+    format's device, to be done once at set-up."""
+    ef = torch.as_tensor(efeat).to(tf.device)
+    ef = ef.reshape(ef.shape[0], -1)
+    if ef.shape[0] == 0:           # no edge: every slot is padding
+        return ef.new_zeros(tf.num_buckets, tf.cap, ef.shape[1])
+    rows = torch.index_select(ef, 0, tf.eid.clamp(min=0))
+    return (rows * tf.valid.view(-1, 1)).view(tf.num_buckets, tf.cap, -1)
 
 
 # -- the plain PyTorch versions ---------------------------------------------

@@ -624,7 +624,7 @@ def test_egatconv_fused_route_matches_jax(jax_k9, min_edges_1):
     ef_slot = dgt.nn.EGATConv.slot_edge_feats(g, torch.from_numpy(ins["ef"]))
     with mock.patch.object(tgf, "egatconv_attention_aggregate_v2",
                            wraps=tgf.egatconv_attention_aggregate_v2) as spy:
-        h, f = conv(g, torch.from_numpy(X), torch.zeros(1, FE),
+        h, f = conv(g, torch.from_numpy(X), torch.from_numpy(ins["ef"]),
                     compute_edge_feats=False, efeats_slot=ef_slot)
         h.backward(torch.from_numpy(ins["dz"]))
     assert spy.call_count == 1 and f is None
@@ -787,3 +787,40 @@ def test_egatconv_route(case, min_edges_1):
     assert {k: s.call_count for k, s in active.items()} == {
         k: int(k == route) for k in spies}
     assert (out[1] is None) == (case in ("fused", "no_slot_feats", "untiled"))
+
+
+@pytest.mark.parametrize("case", ["feature_width", "edge_count",
+                                  "stale_slot_grad", "slot_from_efeats"])
+def test_egatconv_fused_route_checks_slot_feats(case, min_edges_1):
+    """The fused route reads the edge features only through
+    ``efeats_slot``: it refuses one of another width, ``efeats`` without
+    one row per edge, and an ``efeats`` that asks for a gradient the slot
+    tensor cannot carry; a slot tensor built from ``efeats`` in the step
+    carries that gradient to it, as the flat route does."""
+    row, col, n, ef = _egat_graph(51)
+    g = dgt.graph((row, col), num_nodes=n, device="cpu")
+    g.create_tiled_format(tile=128, cap=128)
+    conv = dgt.nn.EGATConv(5, FE, 3, 4, 2, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.randn(n, 5, generator=torch.Generator().manual_seed(1))
+    eft = torch.from_numpy(ef)
+    if case == "slot_from_efeats":
+        eft.requires_grad_()
+        h, _ = conv(g, x, eft, compute_edge_feats=False,
+                    efeats_slot=dgt.nn.EGATConv.slot_edge_feats(g, eft))
+        h.square().sum().backward()
+        got = eft.grad.clone()
+        eft.grad = None
+        h, _ = conv(g, x, eft, compute_edge_feats=False)    # the flat route
+        h.square().sum().backward()
+        np.testing.assert_allclose(got.numpy(), eft.grad.numpy(), **SUMS)
+        return
+    slot = dgt.nn.EGATConv.slot_edge_feats(g, eft)
+    if case == "feature_width":
+        slot = slot[..., :-1]
+    elif case == "edge_count":
+        eft = eft[:-1]
+    else:
+        eft = eft.clone().requires_grad_()
+    with pytest.raises(ValueError):
+        conv(g, x, eft, compute_edge_feats=False, efeats_slot=slot)

@@ -93,7 +93,23 @@ Phases, each of which raises on failure (nothing is caught):
    phase-23 format at (4, 32) with 16 edge features and the bias row
    (inputs exact in f32, as phase 21's): each kernel against
    its plain version, its time (median of 5), its plain version's and the
-   bound; no PyTorch call computes any of them.
+   bound; no PyTorch call computes any of them.  Then route 5's other
+   launches at its (8, 8) layer: K6's yardsticks and K4's SpMM, as phases
+   16 and 20 time them at (1, 41);
+25. the EdgeGAT slice at mid size: each K10 v2 kernel (the edge scores,
+   the slot-feature reduce, the edge ds without and with d(ef)) against
+   its plain version on the phase-21 multigraph at (H, Fh) = (4, 32), (1,
+   41), (8, 8), with 16 and 5 edge features, inputs exact in f32; then
+   ``EdgeGATConv(64, 16, 32, 4)`` through K10 v2 against its edge chain,
+   forward and backward;
+26. ``EdgeGATConv(64, 16, 32, 4)`` (tools/perf_egat128.py:81-82,
+   (out^2).mean(), Adam 1e-3) for 4 steps on K10 v2 on phase 23's graph,
+   before it is freed, the launch counters held to their count a step,
+   and one step against its flat route;
+27. K10 v2 yardsticks on the phase-23 format at (4, 32) with 16 edge
+   features: each kernel against its plain version, its time (median of
+   5), its plain version's, the bound and, for the slot-feature reduce,
+   one ``torch.sparse.mm`` of the (H N, slots) CSR holding p.
 
 Each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
@@ -1139,11 +1155,13 @@ def phase_gat_fused_mid(dgt, tts, tgf):
 
 K6_COUNTERS = ("gat_scores", "slot_reduce", "gat_ds", "src_aggregate")
 K9_COUNTERS = ("vattn_scores", "vattn_slot_grad", "vattn_node_grad")
+K10_COUNTERS = ("edgegat_scores", "slot_feat_reduce", "edgegat_ds")
 NO_K9 = {name: 0 for name in K9_COUNTERS}
+NO_K10 = {name: 0 for name in K10_COUNTERS}
 
 
 def reset_counts(tts, tgf):
-    for name in K6_COUNTERS + K9_COUNTERS:
+    for name in K6_COUNTERS + K9_COUNTERS + K10_COUNTERS:
         getattr(tgf, name).launches = 0
     tts.tiled_spmm_multihead.launches = 0
     tts.tiled_sddmm_dot_multihead.launches = 0
@@ -1151,7 +1169,7 @@ def reset_counts(tts, tgf):
 
 def read_counts(tts, tgf):
     counts = {name: getattr(tgf, name).launches
-              for name in K6_COUNTERS + K9_COUNTERS}
+              for name in K6_COUNTERS + K9_COUNTERS + K10_COUNTERS}
     counts["k4_spmm"] = tts.tiled_spmm_multihead.launches
     counts["k4_sddmm"] = tts.tiled_sddmm_dot_multihead.launches
     return counts
@@ -1176,7 +1194,7 @@ def phase_route4(dgt, tts, tgf, gt, x, y, train):
     # der, del and dx; K4's SDDMM never
     want = {"gat_scores": 2, "slot_reduce": 6, "gat_ds": 2,
             "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
-            **NO_K9}
+            **NO_K9, **NO_K10}
     if counts != {k: v * STEPS for k, v in want.items()}:
         raise AssertionError(f"route 4 launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1249,7 +1267,7 @@ def phase_gat_eval(tts, tgf, model, gt, x, y):
         f"accuracy on all nodes {acc:.4f}, launches {counts}")
     if counts != {"gat_scores": 2, "slot_reduce": 2, "gat_ds": 0,
                   "src_aggregate": 0, "k4_spmm": 2, "k4_sddmm": 0,
-                  **NO_K9}:
+                  **NO_K9, **NO_K10}:
         raise AssertionError(f"the eval forward did not run on K6: {counts}")
 
 
@@ -1285,7 +1303,8 @@ def phase_dotgat(dgt, tts, tgf, gt):
     # per step: K4's SDDMM (scores), den, K4's SpMM (numerator, dq), ds,
     # the src-side aggregation (dk, dx)
     want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
-            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 1, **NO_K9}
+            "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 1, **NO_K9,
+            **NO_K10}
     if counts != {k: v * DOTGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"DotGat launches {counts}, not {want} a step")
     if not all(torch.isfinite(p.grad).all() for p in conv.parameters()):
@@ -1302,10 +1321,12 @@ def slot_ids(fwd, side):
             + local.view(fwd.num_buckets, fwd.cap)).reshape(-1)
 
 
-def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
+def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
+                  sides=("dst", "src")):
     """Phase 20: each K6 kernel at full size against its plain version,
     with the timings, the bound and the library call where there is
-    one."""
+    one.  ``scores`` and ``sides`` leave out the rows a caller does not
+    launch (route 5 launches neither the scores nor the src side)."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     b, cap = fwd.num_buckets, fwd.cap
@@ -1351,13 +1372,14 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate):
             + f", max|err| {err:.3g}")
 
     # scores: in the slot arrays, el, er; out p, g at every slot
-    row("scores", lambda: tgf.gat_scores(fwd, el, er, SLOPE),
-        lambda: tgf.gat_scores_plain(fwd, el, er, SLOPE),
-        walk + 2 * node + 2 * slot_h, 8 * e * heads)
+    if scores:
+        row("scores", lambda: tgf.gat_scores(fwd, el, er, SLOPE),
+            lambda: tgf.gat_scores_plain(fwd, el, er, SLOPE),
+            walk + 2 * node + 2 * slot_h, 8 * e * heads)
 
     # the slot reduce: one index_add_ of head-major slot values at the
     # slots' global ids computes each side
-    for side in ("dst", "src"):
+    for side in sides:
         ids = slot_ids(fwd, side)
         vals_h = p.permute(1, 0, 2).reshape(heads, -1).contiguous()
 
@@ -1562,7 +1584,8 @@ def phase_route5(dgt, tts, tgf, gt, x, y, train):
     # the slot gradient (da), the node gradient on both sides, dx
     want = {"gat_scores": 0, "slot_reduce": 2, "gat_ds": 2,
             "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
-            "vattn_scores": 2, "vattn_slot_grad": 2, "vattn_node_grad": 4}
+            "vattn_scores": 2, "vattn_slot_grad": 2, "vattn_node_grad": 4,
+            **NO_K10}
     if counts != {k: v * STEPS for k, v in want.items()}:
         raise AssertionError(f"route 5 launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1695,7 +1718,8 @@ def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
         f"-> {losses[-1]:.6f}, launches {counts}")
     want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
             "src_aggregate": 1, "k4_spmm": 1, "k4_sddmm": 0,
-            "vattn_scores": 1, "vattn_slot_grad": 1, "vattn_node_grad": 2}
+            "vattn_scores": 1, "vattn_slot_grad": 1, "vattn_node_grad": 2,
+            **NO_K10}
     if counts != {k: v * EGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"EGAT launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)):
@@ -1800,6 +1824,326 @@ def vattn_yardsticks(tgf, g, heads, dim, fe, rate):
     return out
 
 
+# -- the EdgeGAT slice (EdgeGATConv on K10 v2) --------------------------------
+
+EDGEGAT_SHAPES = ((4, 32), (1, 41), (8, 8))
+EDGEGAT_FES = (EGAT_FE, 5)
+# tools/perf_egat128.py:81-82: EdgeGATConv(64, 16, 32, 4), (out^2).mean(),
+# Adam 1e-3, on phase 23's graph
+EDGEGAT_STEPS = 4
+
+
+def edgegat_inputs(tf, heads, fh, fe, gen):
+    """el, er, slot edge features, We, attn_e and M = We . attn_e on
+    ``tf``.  el and er are multiples of 1/16 in [-1, 1], We and attn_e in
+    [-1/4, 1/4] and the edge features in {-1, 0, 1}: M is a multiple of
+    1/256 and the logit el + er + ef . M is exact in f32 in any order, so
+    the kernel and the plain version take the same side of lrelu's
+    kink."""
+    b, cap = tf.num_buckets, tf.cap
+    el = grid(gen, tf.num_src, heads, step=1 / 16, top=1)
+    er = grid(gen, tf.num_dst, heads, step=1 / 16, top=1)
+    ef = torch.randint(-1, 2, (b, cap, fe), device="cuda",
+                       generator=gen).float() * tf.valid.view(b, cap, 1)
+    We = grid(gen, fe, heads * fh, step=1 / 16, top=0.25)
+    attn = grid(gen, heads, fh, step=1 / 16, top=0.25)
+    m = torch.einsum("fhd,hd->fh", We.view(fe, heads, fh), attn)
+    return el, er, ef, We, attn, m
+
+
+def edgegat_kernel_checks(tgf, tf, heads, fh, fe, gen, tag):
+    """Each K10 v2 kernel against its plain version on ``tf``: the edge
+    scores, the slot-feature reduce with nonnegative and with signed
+    weights on a grid of 1/16 (its sums exact in any order), and the edge
+    ds without and with d(ef): (name, max|err|) pairs."""
+    el, er, ef, We, attn, m = edgegat_inputs(tf, heads, fh, fe, gen)
+    b, cap = tf.num_buckets, tf.cap
+    counters = [getattr(tgf, name) for name in K10_COUNTERS]
+    before = [k.launches for k in counters]
+    p, g = tgf.edgegat_scores(tf, el, er, ef, m, SLOPE)
+    want = tgf.edgegat_scores_plain(tf, el, er, ef, m, SLOPE)
+    errs = [("p", close(p, want[0], f"{tag} p")),
+            ("g", close(g, want[1], f"{tag} g"))]
+    valid = tf.valid.view(b, 1, cap)
+    for name, low in (("S", 0.0), ("S_ds", None)):
+        w = grid(gen, b, heads, cap, step=1 / 16, top=1, low=low) * valid
+        errs.append((name, close(tgf.slot_feat_reduce(tf, w, ef),
+                                 tgf.slot_feat_reduce_plain(tf, w, ef),
+                                 f"{tag} {name}")))
+    x = torch.randn(tf.num_src, heads, fh, device="cuda", generator=gen)
+    zn = torch.randn(tf.num_dst, heads, fh, device="cuda", generator=gen)
+    zp = torch.randn(tf.num_dst, heads, fe, device="cuda", generator=gen)
+    rp = torch.randn(tf.num_dst, heads, device="cuda", generator=gen)
+    for extra in ((), (p, m)):
+        got = tgf.edgegat_ds(tf, x, zn, rp, g, ef, zp, *extra)
+        want = tgf.edgegat_ds_plain(tf, x, zn, rp, g, ef, zp, *extra)
+        errs.append(("ds" + ("+d_ef" if extra else ""),
+                     close(got[0], want[0], f"{tag} ds")))
+        if extra:
+            errs.append(("d_ef", close(got[1], want[1], f"{tag} d_ef")))
+    torch.cuda.synchronize()
+    launched = [k.launches - b0 for k, b0 in zip(counters, before)]
+    if launched != [1, 2, 2]:
+        raise AssertionError(f"{tag}: K10 v2 launches {launched}, not "
+                             "[1, 2, 2]")
+    return errs
+
+
+def phase_edgegat_mid(dgt, tts, tgf):
+    """Phase 25: each K10 v2 kernel against its plain version at mid size
+    on the phase-21 multigraph, at (H, Fh) = (4, 32), (1, 41), (8, 8) and
+    Fe = 16 and 5; then EdgeGATConv(64, 16, 32, 4) through K10 v2 against
+    its edge chain (``kernel_spmm_min_edges`` above the edge count),
+    forward and backward."""
+    from dgl_tpu_torch.utils import config
+    row, col, n_src, n_dst = mid_graph()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda").with_src_first()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for heads, fh in EDGEGAT_SHAPES:
+        for fe in EDGEGAT_FES:
+            tag = f"K10 v2 mid H={heads} Fh={fh} Fe={fe}"
+            errs = edgegat_kernel_checks(tgf, fwd, heads, fh, fe, gen, tag)
+            log(f"# {tag}: max|err| " + ", ".join(
+                f"{name} {err:.3g}" for name, err in errs))
+
+    gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
+    gr.create_tiled_format()
+    x = torch.randn(n_src, EGAT_FIN, device="cuda", generator=gen)
+    efc = torch.randn(len(row), EGAT_FE, device="cuda", generator=gen)
+    ef_slot = dgt.nn.EdgeGATConv.slot_edge_feats(gr, efc)
+    conv = dgt.nn.EdgeGATConv(EGAT_FIN, EGAT_FE, EGAT_D, EGAT_H,
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(26))
+
+    def step(**kw):
+        conv.zero_grad()
+        xs = x.clone().requires_grad_()
+        out = conv(gr, xs, efc, **kw)
+        out.square().mean().backward()
+        return out.detach(), {"x": xs.grad, **{
+            n: p.grad.clone() for n, p in conv.named_parameters()
+            if p.grad is not None}}
+
+    before = tgf.edgegat_scores.launches
+    out_k, grad_k = step(efeats_slot=ef_slot)
+    torch.cuda.synchronize()
+    if tgf.edgegat_scores.launches - before != 1:
+        raise AssertionError("the EdgeGATConv did not run through K10 v2")
+    saved = config.get("kernel_spmm_min_edges")
+    config.set("kernel_spmm_min_edges", len(row) + 1)
+    try:
+        out_c, grad_c = step()
+    finally:
+        config.set("kernel_spmm_min_edges", saved)
+    err = close(out_k, out_c, "EdgeGATConv K10 v2 vs edge chain")
+    if set(grad_k) != set(grad_c):
+        raise AssertionError(f"gradients {sorted(grad_k)} vs "
+                             f"{sorted(grad_c)}")
+    for n in grad_k:
+        close(grad_k[n], grad_c[n], f"EdgeGATConv grad {n}", rtol=1e-3,
+              atol=1e-5)
+    log(f"# EdgeGATConv mid size, K10 v2 vs edge chain: out max|err| "
+        f"{err:.3g}, {len(grad_k)} gradients agree")
+
+
+def phase_edgegat(dgt, tts, tgf, g, x, ef, ef_slot):
+    """Phase 26: EdgeGATConv(64, 16, 32, 4), loss (out^2).mean(), Adam
+    1e-3 (tools/perf_egat128.py:81-82), for 4 steps on K10 v2 on phase
+    23's graph; the counts are set to 0 just before and read just
+    after."""
+    conv = dgt.nn.EdgeGATConv(EGAT_FIN, EGAT_FE, EGAT_D, EGAT_H,
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(27))
+    opt = torch.optim.Adam(conv.parameters(), lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    times, losses = [], []
+    for _ in range(EDGEGAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = conv(g, x, ef, efeats_slot=ef_slot).square().mean()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_counts(tts, tgf)
+    step_s = statistics.median(times[1:])
+    log(f"# EdgeGATConv(64, 16, 32, 4) on K10 v2: steps "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median after one "
+        f"warm-up step {step_s * 1e3:.3f} ms, "
+        f"{g.num_edges() / step_s:.6g} train-edges/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes, loss "
+        f"{', '.join(f'{v:.6f}' for v in losses)}, launches {counts}")
+    # per step: the edge scores, den, K4's SpMM and S for the forward; the
+    # edge ds, der, del, Q and dx for the backward
+    want = {"gat_scores": 0, "slot_reduce": 3, "gat_ds": 0,
+            "src_aggregate": 1, "k4_spmm": 1, "k4_sddmm": 0, **NO_K9,
+            "edgegat_scores": 1, "slot_feat_reduce": 2, "edgegat_ds": 1}
+    if counts != {k: v * EDGEGAT_STEPS for k, v in want.items()}:
+        raise AssertionError(f"EdgeGAT launches {counts}, not {want} a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"EdgeGAT losses are not finite: {losses}")
+    return conv, counts
+
+
+def phase_edgegat_check(conv, g, x, ef, ef_slot):
+    """One EdgeGATConv step on K10 v2 against the same weights through the
+    flat route (chunked logits, edgeflat): loss and every gradient."""
+
+    def grads(**kw):
+        conv.zero_grad()
+        out = conv(g, x, ef, **kw)
+        if out.shape != (N_NODES, EGAT_H, EGAT_D) or not torch.isfinite(
+                out).all():
+            raise AssertionError("EdgeGATConv output is not finite of shape "
+                                 f"{(N_NODES, EGAT_H, EGAT_D)}")
+        loss = out.square().mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in conv.named_parameters()
+                             if p.grad is not None}
+
+    loss_k, grad_k = grads(efeats_slot=ef_slot)
+    loss_f, grad_f = grads()
+    if abs(loss_k - loss_f) > 1e-4 * abs(loss_f):
+        raise AssertionError(f"loss {loss_k} (K10 v2) vs {loss_f} (flat)")
+    if set(grad_k) != set(grad_f):
+        raise AssertionError(f"gradients {sorted(grad_k)} vs {sorted(grad_f)}")
+    for n in grad_k:
+        close(grad_k[n], grad_f[n], f"EdgeGAT grad {n}", rtol=1e-3,
+              atol=1e-5)
+    log(f"# EdgeGATConv, K10 v2 vs the flat route at 23M edges: loss "
+        f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
+
+
+def edgegat_yardsticks(tgf, g, heads, fh, fe, rate):
+    """Phase 27: each K10 v2 kernel at full size on ``g`` against its
+    plain version, with the timings and the bound; the slot-feature reduce
+    also against one ``torch.sparse.mm`` of the (H N, slots) CSR that
+    holds p at row h N + dst of each edge's slot, times the slot features
+    viewed (slots, Fe).  p is rounded to a grid of 1/16 so that its sums
+    over a node's edges are exact in any order (``exact_sums``)."""
+    tf, e = g.unit().tiled_format()[0], g.num_edges()
+    b, cap = tf.num_buckets, tf.cap
+    slots = b * cap
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + fh)
+    el, er, ef, We, attn, m = edgegat_inputs(tf, heads, fh, fe, gen)
+    p, g_slot = tgf.edgegat_scores(tf, el, er, ef, m, SLOPE)
+    p = (p * 16).round() / 16
+    exact_sums(max_degree(g) * float(p.max()), 1 / 16, f"K10 v2 H={heads}")
+    x = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
+    zn = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
+    zp = torch.randn(N_NODES, heads, fe, device="cuda", generator=gen)
+    rp = torch.randn(N_NODES, heads, device="cuda", generator=gen)
+    node = N_NODES * heads * 4
+    slot_h, edge_h = slots * heads * 4, e * heads * 4
+    edge_f = e * fe * 4                       # ef read at the edges
+    walk = walk_bytes(slots, e)
+    tag = f"H={heads} Fh={fh} Fe={fe}"
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, ops, lib=None):
+        got, want = kernel(), plain()
+        err = max(close(a, w, f"K10 v2 {name} full size {tag}")
+                  for a, w in zip(got if isinstance(got, tuple) else (got,),
+                                  want if isinstance(want, tuple)
+                                  else (want,)) if a is not None)
+        del got, want
+        bnd, by = bound(nbytes, ops, rate)
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel),
+             "plain_ms": cuda_ms(plain, reps=1), "bound_ms": bnd,
+             "bound_by": by, "library_ms": lib}
+        rows[name] = r
+        log(f"# K10 v2 {name} {tag}: {r['ms']:.4f} ms (bound {bnd:.4f} ms "
+            f"by {by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms,"
+            f" library " + (f"(torch.sparse.mm) {lib:.4f} ms"
+                            if lib is not None else "none")
+            + f", max|err| {err:.3g}")
+
+    # scores: in the slot arrays, el, er, ef at the edges, M; out p, g at
+    # every slot.  Per edge and head: ef . M (2 Fe), then raw, lrelu, the
+    # clip, exp and g (8)
+    row("scores", lambda: tgf.edgegat_scores(tf, el, er, ef, m, SLOPE),
+        lambda: tgf.edgegat_scores_plain(tf, el, er, ef, m, SLOPE),
+        walk + 2 * node + edge_f + m.numel() * 4 + 2 * slot_h,
+        e * heads * (2 * fe + 8))
+
+    # the slot-feature reduce: one torch.sparse.mm of the (H N, slots) CSR
+    # of p at the edges' slots, ordered by dst within each head's block
+    ids = slot_ids(tf, "dst")
+    live = torch.nonzero(tf.valid.reshape(-1) > 0).reshape(-1)
+    order = live[torch.argsort(ids[live], stable=True)]
+    crow = torch.zeros(N_NODES + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(ids[order], minlength=N_NODES), 0)
+    p_hs = p.permute(1, 0, 2).reshape(heads, slots)
+    a = torch.sparse_csr_tensor(
+        torch.cat([crow[:-1] + h * e for h in range(heads)]
+                  + [crow[-1:] + (heads - 1) * e]).to(torch.int32),
+        order.to(torch.int32).repeat(heads),
+        torch.cat([p_hs[h, order] for h in range(heads)]),
+        (heads * N_NODES, slots), check_invariants=False)
+    del ids, live, order, crow, p_hs
+    ef2 = ef.view(slots, fe)
+    close(torch.sparse.mm(a, ef2).view(heads, N_NODES, fe).permute(1, 0, 2),
+          tgf.slot_feat_reduce(tf, p, ef), f"torch.sparse.mm H={heads}")
+    lib = cuda_ms(lambda: torch.sparse.mm(a, ef2))
+    del a
+    # in: valid at every slot, dst_local, w and ef at the edges; out one
+    # (H, Fe) row per node.  2 ops per edge, head and feature
+    row("slot_feat_reduce", lambda: tgf.slot_feat_reduce(tf, p, ef),
+        lambda: tgf.slot_feat_reduce_plain(tf, p, ef),
+        slots * 4 + e * 4 + edge_h + edge_f + node * fe,
+        2 * e * heads * fe, lib)
+
+    # ds as the main path calls it (no d(ef)): in the slot arrays, g, x,
+    # zn, rp, Zp, ef at the edges; out ds at every slot.  Per edge and
+    # head: the two dots (2 Fh + 2 Fe) and the epilogue (2)
+    row("ds", lambda: tgf.edgegat_ds(tf, x, zn, rp, g_slot, ef, zp),
+        lambda: tgf.edgegat_ds_plain(tf, x, zn, rp, g_slot, ef, zp),
+        walk + edge_h + 2 * node * fh + node + node * fe + edge_f + slot_h,
+        e * heads * (2 * fh + 2 * fe + 2))
+    return rows
+
+
+def k4_spmm_yardstick(ef, tts, gt, heads, fh, rate):
+    """K4's SpMM at full size at (``heads``, ``fh``) against its plain
+    version and the block-diagonal ``torch.sparse.mm``, as phase 16 times
+    it: the row of route 5's numerator at (8, 8)."""
+    fwd, _ = gt.unit().tiled_format()
+    e = gt.num_edges()
+    slots = fwd.num_buckets * fwd.cap
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + fh + 1)
+    exact_sums(max_degree(gt), 1 / 256, "K4 SpMM full size")
+    x = grid(gen, N_NODES, heads, fh, step=1 / 16, top=1)
+    w = grid(gen, e * heads, step=1 / 16, top=1, low=0)
+    w_slot = ef._w_slot_from_flat(fwd, w, heads)
+    xh = x.permute(1, 0, 2).contiguous().view(-1, fh)
+    aw = block_csr(csr_pattern(gt), heads, w)
+    got = tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh)
+    close(torch.sparse.mm(aw, xh).view(heads, N_NODES, fh).permute(1, 0, 2),
+          got, f"torch.sparse.mm block-diagonal H={heads}")
+    lib = cuda_ms(lambda: torch.sparse.mm(aw, xh))
+    del aw, xh
+    err = close(got, tts.tiled_spmm_multihead_plain(fwd, x, w_slot),
+                f"K4 spmm_mh full size H={heads} Fh={fh}")
+    nbytes = walk_bytes(slots, e) + e * 4 * heads + 2 * x.numel() * 4
+    ops = 2 * e * heads * fh
+    bnd, by = bound(nbytes, ops, rate)
+    r = {"max_abs_err": err,
+         "ms": cuda_ms(lambda: tts.tiled_spmm_multihead(fwd, x, w_slot,
+                                                        heads, fh)),
+         "plain_ms": cuda_ms(lambda: tts.tiled_spmm_multihead_plain(
+             fwd, x, w_slot), reps=1),
+         "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+    log(f"# K4 spmm_mh H={heads} Fh={fh}: {r['ms']:.4f} ms (bound {bnd:.4f} "
+        f"ms by {by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
+        f"library (torch.sparse.mm) {lib:.4f} ms, max|err| {err:.3g}")
+    return r
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1847,6 +2191,7 @@ def main():
     phase("11 (K3, K4 mid size)", phase_tiled_mid, tts, tsp, ef)
     phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf)
     phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
+    phase("25 (K10 v2 mid size)", phase_edgegat_mid, dgt, tts, tgf)
 
     # phases 4-6: the GCN slice at full size
     g = phase("graph", reddit_graph, dgt)
@@ -1923,16 +2268,29 @@ def main():
     k9 = [phase(f"24 (K9 yardsticks H={h} D={d})", vattn_yardsticks, tgf,
                 gt, h, d, 0, rate)
           for h, d in VATTN_SHAPES[:2]]
+    # the K6 and K4 launches of route 5's (8, 8) layer; its (1, 41) layer's
+    # are phases 16 and 20's.  (B, 8, C) slot tensors take 6 GB each
+    torch.cuda.empty_cache()
+    phase("24 (K6 yardsticks H=8 Fh=8)", k6_yardsticks, tgf, tts, gt, 8, 8,
+          rate, False, ("dst",))
+    phase("24 (K4 SpMM yardstick H=8 Fh=8)", k4_spmm_yardstick, ef, tts, gt,
+          8, 8, rate)
     del g, gt, bits, x, y, train
     ge, xe, efe, ef_slot = phase("23 (EGAT graph)", egat_graph, dgt)
     conv, k11_launches = phase("23 (EGATConv on K11 v2)", phase_egat, dgt,
                                tts, tgf, ge, xe, efe, ef_slot)
     phase("23 (EGATConv check)", phase_egat_check, conv, ge, xe, efe,
           ef_slot)
+    conv, k10_launches = phase("26 (EdgeGATConv on K10 v2)", phase_edgegat,
+                               dgt, tts, tgf, ge, xe, efe, ef_slot)
+    phase("26 (EdgeGATConv check)", phase_edgegat_check, conv, ge, xe, efe,
+          ef_slot)
     del conv
     del xe, efe, ef_slot
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, ge, EGAT_H,
                 EGAT_D, EGAT_FE, rate)
+    k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
+                EGAT_H, EGAT_D, EGAT_FE, rate)
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -2011,6 +2369,21 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2167, :2196",
          "launches": k11_launches["vattn_node_grad"],
          **k11["node_grad_dst"]},
+        # K10 v2 at EdgeGATConv(64, 16, 32, 4)'s (4, 32) with 16 edge
+        # features, launches from phase 26
+        {"name": "edgegat_scores", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1723",
+         "launches": k10_launches["edgegat_scores"], **k10["scores"]},
+        {"name": "slot_feat_reduce", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1750, :1785, :1850",
+         "launches": k10_launches["slot_feat_reduce"],
+         **k10["slot_feat_reduce"]},
+        {"name": "edgegat_ds", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1785, :1850",
+         "launches": k10_launches["edgegat_ds"], **k10["ds"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

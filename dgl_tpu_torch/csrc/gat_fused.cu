@@ -1,5 +1,5 @@
-// Slot-space GAT and DotGat attention on Hopper (K6, K8) over the tiled
-// format.
+// Slot-space GAT, DotGat and EdgeGAT attention on Hopper (K6, K8, K10 v2)
+// over the tiled format.
 //
 // Format (csrc/tiled_spmm.cu, dgl_tpu_torch/ops/kernels/tiled_spmm.py):
 // edges bucketed by (dst tile, src tile) pairs of `tile` nodes, `cap`
@@ -21,57 +21,87 @@
 // DotGat (K8) takes p = exp(clip(<k[src], q[dst]> / sqrt(D), +-40)) from
 // K4's SDDMM and uses g = p.
 //
-// Four kernels serve the eleven K6 and K8 call sites; each is behind a
-// plain C function that launches on the caller's stream, allocates nothing
-// and returns cudaGetLastError():
+// EdgeGAT v2 (K10 v2, gat_fused.py:1536-1901) adds an edge message fe =
+// ef[s, :] . We_h to every slot, inside its logit (ee = <attn_e[h], fe>)
+// and its message (out = sum p (x[src] + fe) / den).  The port never forms
+// fe: with M = We contracted with attn_e per head, an (Fe, H) matrix, ee =
+// ef[s, :] . M[:, h]; with S[v, h, :] = sum p ef over v's slots, sum p fe
+// = S . We_h; with Zp[v, h, :] = We_h . zn[v, h], ds gains ef[s, :] .
+// Zp[dst, h]; and d(ef)[s, :] = sum_h p Zp[dst, h] + ds M[:, h].  M, S .
+// We, Zp and dWe are node-sized products outside the kernels.
 //
-// gat_scores_kernel<kBias>  replaces gat_fused.py gat_forward's first
-//     pallas_call (:300, bodies _scores_kernel :59 and, with kBias,
-//     _scores_bias_kernel :81).  One thread per slot, grid-stride: it
-//     gathers the (H,) rows el[src] and er[dst] and writes p and g for
-//     every head, coalesced along c.
+// Four kernels serve the eleven K6 and K8 call sites and, with their edge
+// variants, K10 v2's; each is behind a plain C function that launches on
+// the caller's stream, allocates nothing and returns cudaGetLastError():
+//
+// gat_scores_kernel<kBias, kEdge>  replaces gat_fused.py gat_forward's
+//     first pallas_call (:300, bodies _scores_kernel :59 and, with kBias,
+//     _scores_bias_kernel :81) and, with kEdge, edgegat_v2_forward's
+//     (:1723, body _eg2_scores_kernel :1558).  One thread per slot,
+//     grid-stride: it gathers the (H,) rows el[src] and er[dst] and writes
+//     p and g for every head, coalesced along c.  With kEdge the block
+//     holds M in shared memory and a thread adds ef[s, :] . M[:, h], its
+//     slot's Fe-wide row read once per head (L1 hits after the first).
 // slot_reduce_kernel<kSrc>  replaces _den_kernel :103 (gat_forward :314,
-//     dot_gat_forward :533), _der_kernel :167 (gat_backward :387) and,
-//     with kSrc, _del_kernel :183 (gat_backward :407).  One block per dst
-//     tile (or src tile, walking src_order) and split of its buckets; the
-//     tile's (tile, H) sums live in shared memory, the block reads each
-//     bucket's H * cap values coalesced and adds them at
-//     [local][h].  With one split the block writes its rows once (zeros on
-//     a tile with no bucket); with several, the caller zeroes `out` and
-//     the blocks add their rows with global atomics.
-// gat_ds_kernel<L>  replaces _ds_kernel :146 (gat_backward :368,
-//     _dot_gat_bwd :597).  K4's SDDMM walk (csrc/tiled_spmm.cu
+//     dot_gat_forward :533, edgegat_v2_forward :1737), _der_kernel :167
+//     (gat_backward :387, edgegat_v2_backward :1805) and, with kSrc,
+//     _del_kernel :183 (gat_backward :407, edgegat_v2_backward :1824).  One
+//     block per dst tile (or src tile, walking src_order) and split of its
+//     buckets; the tile's (tile, hg) sums of a group of hg heads live in
+//     shared memory, the block reads each bucket's hg * cap values
+//     coalesced and adds them at [local][h].  Heads beyond what the 227 KB
+//     of a block holds take further launches, each with its head offset.
+//     With one split the block writes its rows once (zeros on a tile with
+//     no bucket); with several, the caller zeroes `out` and the blocks add
+//     their rows with global atomics.
+// gat_ds_kernel<L, kEdge, kDef>  replaces _ds_kernel :146 (gat_backward
+//     :368, _dot_gat_bwd :597) and, with kEdge, _eg2_ds_kernel :1605
+//     (edgegat_v2_backward :1785).  K4's SDDMM walk (csrc/tiled_spmm.cu
 //     tiled_sddmm_mh_kernel): one warp per 32-slot chunk, L lanes per
 //     head, xor-shuffle sums, 4 slots in flight; the epilogue subtracts
-//     rp[dst, h] and multiplies by g, and padded slots get 0.
-// src_agg_kernel<G>  replaces _dx_kernel :202 (gat_backward :428, and
-//     _dot_gat_bwd's _dx_call :623 for dk and dx).  K4's SpMM walk with
-//     the sides swapped: one block per (src tile, chunk of G columns,
-//     split of the tile's buckets in src_order); the tile's rows for the
-//     chunk in shared memory, (tile, G) f32, 128 KB at tile 1024 and
-//     G = 32; G lanes per slot gather z[dst] columns, scale them by the
-//     slot's weight of the column's head and add them at [src_local].
+//     rp[dst, h] and multiplies by g, and padded slots get 0.  With kEdge
+//     the L lanes of a head also stride the Fe columns of ef[s] . Zp[dst,
+//     h]; with kDef the warp then writes its chunk's d(ef), the 32 x Fe
+//     values one per lane and step, coalesced (the d(ef) part of
+//     _eg2_dx_def_kernel :1639, :1850).
+// src_agg_kernel<G, kEdge>  replaces _dx_kernel :202 (gat_backward :428,
+//     _dot_gat_bwd's _dx_call :623 for dk and dx, and the dx part of
+//     _eg2_dx_def_kernel :1639).  K4's SpMM walk with the sides swapped:
+//     one block per (src tile, chunk of G columns, split of the tile's
+//     buckets in src_order); the tile's rows for the chunk in shared
+//     memory, (tile, G) f32, 128 KB at tile 1024 and G = 32; G lanes per
+//     slot gather z[dst] columns, scale them by the slot's weight of the
+//     column's head and add them at [src_local].  With kEdge it is K10
+//     v2's slot-feature reduce, S[v, h, f] = sum w[b, h, c] ef[s, f] over
+//     dst v's slots (w = p in the forward, ds in the backward, where the
+//     sum over v gives dWe's and d(attn_e)'s Q): the walk by dst_ptr, the
+//     H * Fe columns in chunks of G, the operand the slot's own row, the
+//     sums at [dst_local].  It replaces the edge-message term of
+//     _eg2_agg_kernel :1582 and the dWe and d(attn_e) sums of
+//     _eg2_ds_kernel and _eg2_dx_def_kernel.
 // _agg_kernel :120 (gat_forward :328, dot_gat_forward :547, and dq in
-// _dot_gat_bwd :614) computes exactly tiled_spmm_multihead's function, so
-// the port serves it with K4's SpMM kernel (csrc/tiled_spmm.cu), and K8's
-// scores with K4's SDDMM.
+// _dot_gat_bwd :614) and the node part of _eg2_agg_kernel compute exactly
+// tiled_spmm_multihead's function, so the port serves them with K4's SpMM
+// kernel (csrc/tiled_spmm.cu), and K8's scores with K4's SDDMM.
 //
 // The TPU kernels contract one-hot matrices of each bucket on the matrix
 // unit, carry an output tile from grid step to grid step and iterate in
-// src_order so that src-side outputs are visited consecutively.  None of
-// that carries over: here the work per slot is a gather and an add, and a
-// block owns a tile's rows.  Sums are f32; the TPU kernels cast their
-// operands to bf16.
+// src_order so that src-side outputs are visited consecutively; K10 v2's
+// form fe per bucket on the matrix unit from a transposed bf16 copy of the
+// edge features.  None of that carries over: here the work per slot is a
+// gather and an add, and a block owns a tile's rows.  Sums are f32; the
+// TPU kernels cast their operands to bf16.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each kernel streams
 // the slot arrays (12 B a slot for src_local, dst_local and valid, 8 for
 // the reduce) and 4 B a slot and head of each (B, H, C) operand or
-// result; the node rows it gathers (el, er, x, zn, z) are mostly L2 hits,
-// since a bucket reads one src tile and one dst tile.  The f32 arithmetic
-// is at most 2 operations per slot, head and column, far below the rate,
-// so every kernel is bound by bytes.  chip_smoke.py prints each bound at
-// the Reddit graph's shapes.  Indices are int32: the wrappers check that
-// every flat size fits.
+// result, and K10 v2's 4 B a slot and edge feature; the node rows it
+// gathers (el, er, x, zn, z, Zp) are mostly L2 hits, since a bucket reads
+// one src tile and one dst tile.  The f32 arithmetic is at most 2
+// operations per slot, head and column (or edge feature), far below the
+// rate, so every kernel is bound by bytes.  chip_smoke.py prints each
+// bound at the main path's shapes.  Indices are int32: the wrappers check
+// that every flat size fits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,7 +117,7 @@ constexpr int kDsUnroll = 4;      // ds slots in flight per warp
 constexpr int kDsCols = 4;        // ds columns a lane loads per slot at once
 constexpr int kAggWarps = 16;     // warps per src_agg block
 
-template <bool kBias>
+template <bool kBias, bool kEdge>
 __global__ void __launch_bounds__(kScoresThreads)
 gat_scores_kernel(const int* __restrict__ src_local,
                   const int* __restrict__ dst_local,
@@ -96,8 +126,14 @@ gat_scores_kernel(const int* __restrict__ src_local,
                   const int* __restrict__ dst_tile, int num_slots, int tile,
                   int cap, const float* __restrict__ el,
                   const float* __restrict__ er, const float* __restrict__ ee,
-                  int heads, float slope, float* __restrict__ p,
+                  const float* __restrict__ ef, const float* __restrict__ m,
+                  int fe, int heads, float slope, float* __restrict__ p,
                   float* __restrict__ g) {
+  extern __shared__ float m_s[];  // kEdge: M, [fe][heads]
+  if (kEdge) {
+    for (int i = threadIdx.x; i < fe * heads; i += blockDim.x) m_s[i] = m[i];
+    __syncthreads();
+  }
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < num_slots;
        s += gridDim.x * blockDim.x) {
     const int b = s / cap;
@@ -112,9 +148,15 @@ gat_scores_kernel(const int* __restrict__ src_local,
     }
     const float* elr = el + (src_tile[b] * tile + src_local[s]) * heads;
     const float* err = er + (dst_tile[b] * tile + dst_local[s]) * heads;
+    const float* efr = kEdge ? ef + s * fe : nullptr;  // the slot's features
     for (int h = 0; h < heads; ++h) {
       float raw = __ldg(elr + h) + __ldg(err + h);
       if (kBias) raw += ee[o + h * cap];
+      if (kEdge) {
+        float t = 0.f;
+        for (int f = 0; f < fe; ++f) t += __ldg(efr + f) * m_s[f * heads + h];
+        raw += t;
+      }
       const bool pos = raw >= 0.f;
       const float lrelu = pos ? raw : slope * raw;
       const float pv = expf(fminf(fmaxf(lrelu, -kClip), kClip)) * v;
@@ -131,10 +173,11 @@ slot_reduce_kernel(const int* __restrict__ local,
                    const float* __restrict__ vals,
                    const int* __restrict__ order,
                    const int* __restrict__ ptr, int tile, int cap, int heads,
-                   float* __restrict__ out, int num_rows, int splits) {
-  extern __shared__ float acc[];  // [tile][heads]
+                   int h0, int hg, float* __restrict__ out, int num_rows,
+                   int splits) {
+  extern __shared__ float acc[];  // [tile][hg]: heads h0 .. h0 + hg - 1
   const int t = blockIdx.x;
-  const int n_acc = tile * heads;
+  const int n_acc = tile * hg;
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
 
@@ -144,32 +187,33 @@ slot_reduce_kernel(const int* __restrict__ local,
       static_cast<long long>(nb) * blockIdx.y / splits);
   const int k1 = k_lo + static_cast<int>(
       static_cast<long long>(nb) * (blockIdx.y + 1) / splits);
-  const int per_bucket = heads * cap;
+  const int per_bucket = hg * cap;  // the group's heads, contiguous
   for (int k = k0; k < k1; ++k) {
     const int b = kSrc ? order[k] : k;
     const int* lb = local + b * cap;
     const float* vb = valid + b * cap;
-    const float* xb = vals + b * per_bucket;
+    const float* xb = vals + (b * heads + h0) * cap;
     for (int j = threadIdx.x; j < per_bucket; j += blockDim.x) {
       const int h = j / cap;
       const int c = j - h * cap;
-      if (vb[c] != 0.f) atomicAdd(acc + lb[c] * heads + h, xb[j]);
+      if (vb[c] != 0.f) atomicAdd(acc + lb[c] * hg + h, xb[j]);
     }
   }
   __syncthreads();
 
   const int r0 = t * tile;
-  const int n_out = min(tile, num_rows - r0) * heads;
+  const int n_out = min(tile, num_rows - r0) * hg;
   for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+    const int o = (r0 + i / hg) * heads + h0 + i % hg;
     if (splits == 1) {
-      out[r0 * heads + i] = acc[i];
+      out[o] = acc[i];
     } else if (acc[i] != 0.f) {
-      atomicAdd(out + r0 * heads + i, acc[i]);
+      atomicAdd(out + o, acc[i]);
     }
   }
 }
 
-template <int L>
+template <int L, bool kEdge, bool kDef>
 __global__ void __launch_bounds__(kDsWarps * 32)
 gat_ds_kernel(const int* __restrict__ src_local,
               const int* __restrict__ dst_local,
@@ -179,7 +223,10 @@ gat_ds_kernel(const int* __restrict__ src_local,
               int cap, const float* __restrict__ x,
               const float* __restrict__ zn, const float* __restrict__ rp,
               const float* __restrict__ g, int heads, int fh,
-              float* __restrict__ ds) {
+              const float* __restrict__ ef, const float* __restrict__ zp,
+              int fe, const float* __restrict__ p,
+              const float* __restrict__ m, float* __restrict__ d_ef,
+              float* ds) {
   constexpr int kHeadsPerPass = 32 / L;
   const int lane = threadIdx.x & 31;
   const int hl = lane / L;  // head of this lane within a pass
@@ -201,11 +248,16 @@ gat_ds_kernel(const int* __restrict__ src_local,
     const int ob = b * heads * cap + c0;  // ds[b, h, c0 + j] = ds[ob+h*cap+j]
     if (__ballot_sync(kFull, v != 0.f) == 0u) {  // a padded tail: all 0
       for (int h = 0; h < heads; ++h) ds[ob + h * cap + lane] = 0.f;
+      if (kDef) {
+        for (int i = lane; i < 32 * fe; i += 32) d_ef[s0 * fe + i] = 0.f;
+      }
       continue;
     }
     for (int j0 = 0; j0 < 32; j0 += kDsUnroll) {
       const float* xr[kDsUnroll];
       const float* zr[kDsUnroll];
+      const float* er[kDsUnroll];  // kEdge: the slot's features
+      const float* pr[kDsUnroll];  // kEdge: Zp[dst]
       int dr[kDsUnroll];
       bool live[kDsUnroll];
 #pragma unroll
@@ -215,6 +267,8 @@ gat_ds_kernel(const int* __restrict__ src_local,
         dr[u] = d0 + dlj;
         xr[u] = xt + __shfl_sync(kFull, sl, j0 + u) * hf;
         zr[u] = zt + dlj * hf;
+        er[u] = kEdge ? ef + (s0 + j0 + u) * fe : nullptr;
+        pr[u] = kEdge ? zp + dr[u] * heads * fe : nullptr;
       }
       for (int h0 = 0; h0 < heads; h0 += kHeadsPerPass) {
         const int h = h0 + hl;
@@ -241,6 +295,17 @@ gat_ds_kernel(const int* __restrict__ src_local,
             for (int i = 0; i < kDsCols; ++i) s[u] += xv[u][i] * zv[u][i];
           }
         }
+        if (kEdge) {  // + ef[s, :] . Zp[dst, h, :], Fe strided by L
+          const int f_end = h < heads ? fe : 0;
+          for (int f = fl; f < f_end; f += L) {
+#pragma unroll
+            for (int u = 0; u < kDsUnroll; ++u) {
+              if (live[u]) {
+                s[u] += __ldg(er[u] + f) * __ldg(pr[u] + h * fe + f);
+              }
+            }
+          }
+        }
 #pragma unroll
         for (int u = 0; u < kDsUnroll; ++u) {
 #pragma unroll
@@ -255,19 +320,43 @@ gat_ds_kernel(const int* __restrict__ src_local,
         }
       }
     }
+    if (kDef) {
+      // d(ef)[s, f] = sum_h p[h] Zp[dst, h, f] + ds[h] M[f, h] for the
+      // chunk's 32 x fe values, one per lane and step; the warp's ds
+      // stores above are visible after the barrier
+      __syncwarp();
+      for (int i = lane; i < 32 * fe; i += 32) {
+        const int j = i / fe;
+        const int f = i - j * fe;
+        const int dlj = __shfl_sync(kFull, dl, j);
+        float acc = 0.f;
+        if (__shfl_sync(kFull, v, j) != 0.f) {
+          const float* zq = zp + (d0 + dlj) * heads * fe + f;
+          for (int h = 0; h < heads; ++h) {
+            const int e = ob + h * cap + j;
+            acc += __ldg(p + e) * __ldg(zq + h * fe) +
+                   ds[e] * __ldg(m + f * heads + h);
+          }
+        }
+        d_ef[s0 * fe + i] = acc;
+      }
+    }
   }
 }
 
-template <int G>
+template <int G, bool kEdge>
 __global__ void __launch_bounds__(kAggWarps * 32)
 src_agg_kernel(const int* __restrict__ src_local,
                const int* __restrict__ dst_local,
                const float* __restrict__ valid, const float* __restrict__ w,
                int heads, int head_cols, const int* __restrict__ dst_tile,
-               const int* __restrict__ src_order,
-               const int* __restrict__ src_ptr, int tile, int cap,
-               const float* __restrict__ z, int f, float* __restrict__ out,
-               int num_src, int splits) {
+               const int* __restrict__ order, const int* __restrict__ ptr,
+               int tile, int cap, const float* __restrict__ z, int f,
+               float* __restrict__ out, int num_rows, int splits) {
+  // kEdge: the slot-feature reduce.  The walk is by dst tile (ptr is
+  // dst_ptr, order unused), z is ef (B * C, head_cols) in slot order, the
+  // f = heads * head_cols columns are (head, feature) pairs, and the sums
+  // go to the slot's dst row.
   extern __shared__ float acc[];  // [tile][G]
   constexpr int kSlots = 32 / G;  // slots a warp serves per step
   const int lane = threadIdx.x & 31;
@@ -280,26 +369,31 @@ src_agg_kernel(const int* __restrict__ src_local,
   for (int i = threadIdx.x; i < tile * G; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
 
-  const int k_lo = src_ptr[t];
-  const int nb = src_ptr[t + 1] - k_lo;
+  const int k_lo = ptr[t];
+  const int nb = ptr[t + 1] - k_lo;
   const int k0 = k_lo + static_cast<int>(
       static_cast<long long>(nb) * blockIdx.z / splits);
   const int k1 = k_lo + static_cast<int>(
       static_cast<long long>(nb) * (blockIdx.z + 1) / splits);
   const int per_bucket = cap / 32;
   const int n_chunks = (k1 - k0) * per_bucket;
-  // the head of this lane's column, as an offset in a bucket's w rows
-  const int w_head = col_ok ? (col / head_cols) * cap : 0;
+  // the head of this lane's column, as an offset in a bucket's w rows,
+  // and (kEdge) the feature it reads of each slot's row
+  const int col_head = col_ok ? col / head_cols : 0;
+  const int w_head = col_head * cap;
+  const int e_col = col - col_head * head_cols;
 
   for (int k = warp; k < n_chunks; k += kAggWarps) {
-    const int b = src_order[k0 + k / per_bucket];
+    const int b = kEdge ? k0 + k / per_bucket : order[k0 + k / per_bucket];
     const int c0 = (k % per_bucket) * 32;
     const int s0 = b * cap + c0;
     const float v = valid[s0 + lane];
     if (__ballot_sync(kFull, v != 0.f) == 0u) continue;  // padded tail
-    const int sl = src_local[s0 + lane];
-    const int dl = dst_local[s0 + lane];
-    const float* zt = z + dst_tile[b] * tile * f + col;
+    // the row each slot adds at, and (not kEdge) the z row it reads
+    const int rl = kEdge ? dst_local[s0 + lane] : src_local[s0 + lane];
+    const int dl = kEdge ? 0 : dst_local[s0 + lane];
+    const float* zt = kEdge ? z + s0 * head_cols + e_col
+                            : z + dst_tile[b] * tile * f + col;
     const float* wb = w + b * heads * cap + w_head + c0;
     float xv[G];
     int sv[G];
@@ -308,10 +402,11 @@ src_agg_kernel(const int* __restrict__ src_local,
     for (int i = 0; i < G; ++i) {
       const int j = i * kSlots + sub;  // the chunk's slot at step i
       const int dlj = __shfl_sync(kFull, dl, j);
-      sv[i] = __shfl_sync(kFull, sl, j);
+      sv[i] = __shfl_sync(kFull, rl, j);
       const bool live = __shfl_sync(kFull, v, j) != 0.f && col_ok;
       const float wj = live ? __ldg(wb + j) : 0.f;
-      xv[i] = live ? __ldg(zt + dlj * f) * wj : 0.f;
+      const float* zr = zt + (kEdge ? j * head_cols : dlj * f);
+      xv[i] = live ? __ldg(zr) * wj : 0.f;
       on |= static_cast<unsigned>(live) << i;
     }
 #pragma unroll
@@ -325,7 +420,7 @@ src_agg_kernel(const int* __restrict__ src_local,
   for (int i = threadIdx.x; i < tile * G; i += blockDim.x) {
     const int row = r0 + i / G;
     const int c = blockIdx.y * G + i % G;
-    if (row >= num_src || c >= f) continue;
+    if (row >= num_rows || c >= f) continue;
     if (splits == 1) {
       out[row * f + c] = acc[i];
     } else if (acc[i] != 0.f) {
@@ -341,16 +436,45 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int L>
+template <bool kBias, bool kEdge>
+cudaError_t launch_scores(const void* src_local, const void* dst_local,
+                          const void* valid, const void* src_tile,
+                          const void* dst_tile, int64_t num_slots,
+                          int64_t tile, int64_t cap, const void* el,
+                          const void* er, const void* ee, const void* ef,
+                          const void* m, int64_t fe, int64_t heads,
+                          double slope, void* p, void* g, int64_t blocks,
+                          cudaStream_t stream) {
+  const size_t smem = kEdge ? sizeof(float) * fe * heads : 0;
+  if (kEdge) {
+    const cudaError_t err = allow_smem(gat_scores_kernel<kBias, kEdge>, smem);
+    if (err != cudaSuccess) return err;
+  }
+  gat_scores_kernel<kBias, kEdge><<<static_cast<unsigned>(blocks),
+                                    kScoresThreads, smem, stream>>>(
+      static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
+      static_cast<const float*>(valid), static_cast<const int*>(src_tile),
+      static_cast<const int*>(dst_tile), static_cast<int>(num_slots),
+      static_cast<int>(tile), static_cast<int>(cap),
+      static_cast<const float*>(el), static_cast<const float*>(er),
+      static_cast<const float*>(ee), static_cast<const float*>(ef),
+      static_cast<const float*>(m), static_cast<int>(fe),
+      static_cast<int>(heads), static_cast<float>(slope),
+      static_cast<float*>(p), static_cast<float*>(g));
+  return cudaGetLastError();
+}
+
+template <int L, bool kEdge, bool kDef>
 cudaError_t launch_ds(const void* src_local, const void* dst_local,
                       const void* valid, const void* src_tile,
                       const void* dst_tile, int64_t num_buckets, int64_t tile,
                       int64_t cap, const void* x, const void* zn,
                       const void* rp, const void* g, int64_t heads,
-                      int64_t fh, void* ds, int64_t blocks,
-                      cudaStream_t stream) {
-  gat_ds_kernel<L><<<static_cast<unsigned>(blocks), kDsWarps * 32, 0,
-                     stream>>>(
+                      int64_t fh, const void* ef, const void* zp, int64_t fe,
+                      const void* p, const void* m, void* d_ef, void* ds,
+                      int64_t blocks, cudaStream_t stream) {
+  gat_ds_kernel<L, kEdge, kDef><<<static_cast<unsigned>(blocks),
+                                  kDsWarps * 32, 0, stream>>>(
       static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
       static_cast<const float*>(valid), static_cast<const int*>(src_tile),
       static_cast<const int*>(dst_tile), static_cast<int>(num_buckets),
@@ -358,35 +482,90 @@ cudaError_t launch_ds(const void* src_local, const void* dst_local,
       static_cast<const float*>(x), static_cast<const float*>(zn),
       static_cast<const float*>(rp), static_cast<const float*>(g),
       static_cast<int>(heads), static_cast<int>(fh),
+      static_cast<const float*>(ef), static_cast<const float*>(zp),
+      static_cast<int>(fe), static_cast<const float*>(p),
+      static_cast<const float*>(m), static_cast<float*>(d_ef),
       static_cast<float*>(ds));
   return cudaGetLastError();
 }
 
-template <int G>
+template <int L>
+cudaError_t launch_ds_mode(int mode, const void* src_local,
+                           const void* dst_local, const void* valid,
+                           const void* src_tile, const void* dst_tile,
+                           int64_t num_buckets, int64_t tile, int64_t cap,
+                           const void* x, const void* zn, const void* rp,
+                           const void* g, int64_t heads, int64_t fh,
+                           const void* ef, const void* zp, int64_t fe,
+                           const void* p, const void* m, void* d_ef,
+                           void* ds, int64_t blocks, cudaStream_t stream) {
+#define DGL_DS_ARGS                                                          \
+  src_local, dst_local, valid, src_tile, dst_tile, num_buckets, tile, cap,   \
+      x, zn, rp, g, heads, fh, ef, zp, fe, p, m, d_ef, ds, blocks, stream
+  switch (mode) {
+    case 0:
+      return launch_ds<L, false, false>(DGL_DS_ARGS);
+    case 1:
+      return launch_ds<L, true, false>(DGL_DS_ARGS);
+    case 2:
+      return launch_ds<L, true, true>(DGL_DS_ARGS);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_DS_ARGS
+}
+
+template <int G, bool kEdge>
 cudaError_t launch_src_agg(const void* src_local, const void* dst_local,
                            const void* valid, const void* w, int64_t heads,
                            int64_t head_cols, const void* dst_tile,
-                           const void* src_order, const void* src_ptr,
-                           int64_t num_src_tiles, int64_t tile, int64_t cap,
+                           const void* order, const void* ptr,
+                           int64_t num_tiles, int64_t tile, int64_t cap,
                            const void* z, int64_t f, void* out,
-                           int64_t num_src, int64_t splits,
+                           int64_t num_rows, int64_t splits,
                            cudaStream_t stream) {
   const size_t smem = sizeof(float) * tile * G;
-  const cudaError_t err = allow_smem(src_agg_kernel<G>, smem);
+  const cudaError_t err = allow_smem(src_agg_kernel<G, kEdge>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(num_src_tiles),
+  const dim3 grid(static_cast<unsigned>(num_tiles),
                   static_cast<unsigned>((f + G - 1) / G),
                   static_cast<unsigned>(splits));
-  src_agg_kernel<G><<<grid, kAggWarps * 32, smem, stream>>>(
+  src_agg_kernel<G, kEdge><<<grid, kAggWarps * 32, smem, stream>>>(
       static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
       static_cast<const float*>(valid), static_cast<const float*>(w),
       static_cast<int>(heads), static_cast<int>(head_cols),
-      static_cast<const int*>(dst_tile), static_cast<const int*>(src_order),
-      static_cast<const int*>(src_ptr), static_cast<int>(tile),
+      static_cast<const int*>(dst_tile), static_cast<const int*>(order),
+      static_cast<const int*>(ptr), static_cast<int>(tile),
       static_cast<int>(cap), static_cast<const float*>(z),
       static_cast<int>(f), static_cast<float*>(out),
-      static_cast<int>(num_src), static_cast<int>(splits));
+      static_cast<int>(num_rows), static_cast<int>(splits));
   return cudaGetLastError();
+}
+
+template <bool kEdge>
+cudaError_t launch_src_agg_group(int64_t group, const void* src_local,
+                                 const void* dst_local, const void* valid,
+                                 const void* w, int64_t heads,
+                                 int64_t head_cols, const void* dst_tile,
+                                 const void* order, const void* ptr,
+                                 int64_t num_tiles, int64_t tile, int64_t cap,
+                                 const void* z, int64_t f, void* out,
+                                 int64_t num_rows, int64_t splits,
+                                 cudaStream_t stream) {
+#define DGL_AGG_CASE(G_)                                                     \
+  case G_:                                                                   \
+    return launch_src_agg<G_, kEdge>(src_local, dst_local, valid, w, heads,  \
+                                     head_cols, dst_tile, order, ptr,        \
+                                     num_tiles, tile, cap, z, f, out,        \
+                                     num_rows, splits, stream);
+  switch (group) {
+    DGL_AGG_CASE(8)
+    DGL_AGG_CASE(16)
+    DGL_AGG_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_AGG_CASE
 }
 
 }  // namespace
@@ -395,57 +574,47 @@ extern "C" {
 
 // p and g (num_slots / cap, heads, cap) from el (num_src, heads) and er
 // (num_dst, heads); ee (the same shape as p) is added to raw when it is
-// not null.  Every element of p and g is written.  Grid: `blocks` blocks
-// of 256 threads, grid-stride over slots.
+// not null, or with ef (num_slots, fe) and m (fe, heads) not null, ef[s, :]
+// . m[:, h] (M in shared memory: fe * heads floats).  Every element of p
+// and g is written.  Grid: `blocks` blocks of 256 threads, grid-stride
+// over slots.
 int dgl_gat_scores(const void* src_local, const void* dst_local,
                    const void* valid, const void* src_tile,
                    const void* dst_tile, int64_t num_slots, int64_t tile,
                    int64_t cap, const void* el, const void* er,
-                   const void* ee, int64_t heads, double slope, void* p,
-                   void* g, int64_t blocks, int64_t device, void* stream) {
+                   const void* ee, const void* ef, const void* m, int64_t fe,
+                   int64_t heads, double slope, void* p, void* g,
+                   int64_t blocks, int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (ee != nullptr) {
-    gat_scores_kernel<true><<<grid, kScoresThreads, 0, s>>>(
-        static_cast<const int*>(src_local),
-        static_cast<const int*>(dst_local), static_cast<const float*>(valid),
-        static_cast<const int*>(src_tile), static_cast<const int*>(dst_tile),
-        static_cast<int>(num_slots), static_cast<int>(tile),
-        static_cast<int>(cap), static_cast<const float*>(el),
-        static_cast<const float*>(er), static_cast<const float*>(ee),
-        static_cast<int>(heads), static_cast<float>(slope),
-        static_cast<float*>(p), static_cast<float*>(g));
-  } else {
-    gat_scores_kernel<false><<<grid, kScoresThreads, 0, s>>>(
-        static_cast<const int*>(src_local),
-        static_cast<const int*>(dst_local), static_cast<const float*>(valid),
-        static_cast<const int*>(src_tile), static_cast<const int*>(dst_tile),
-        static_cast<int>(num_slots), static_cast<int>(tile),
-        static_cast<int>(cap), static_cast<const float*>(el),
-        static_cast<const float*>(er), nullptr, static_cast<int>(heads),
-        static_cast<float>(slope), static_cast<float*>(p),
-        static_cast<float*>(g));
+#define DGL_SCORES_ARGS                                                      \
+  src_local, dst_local, valid, src_tile, dst_tile, num_slots, tile, cap, el, \
+      er, ee, ef, m, fe, heads, slope, p, g, blocks, s
+  if (ef != nullptr) {
+    if (ee != nullptr) return cudaErrorInvalidValue;
+    return launch_scores<false, true>(DGL_SCORES_ARGS);
   }
-  return cudaGetLastError();
+  if (ee != nullptr) return launch_scores<true, false>(DGL_SCORES_ARGS);
+  return launch_scores<false, false>(DGL_SCORES_ARGS);
+#undef DGL_SCORES_ARGS
 }
 
-// out (num_rows, heads): the sum of vals (B, heads, cap) over the valid
-// slots of each dst row (src_side = 0: local is dst_local, ptr is dst_ptr,
-// order is unused) or src row (src_side = 1: local is src_local, order is
-// src_order, ptr is src_ptr).  With splits > 1, out must be zeroed by the
-// caller.  Grid: (num_tiles, splits), tile * heads floats of shared
-// memory.
+// out (num_rows, heads), columns h0 .. h0 + hg - 1: the sum of vals (B,
+// heads, cap) over the valid slots of each dst row (src_side = 0: local is
+// dst_local, ptr is dst_ptr, order is unused) or src row (src_side = 1:
+// local is src_local, order is src_order, ptr is src_ptr).  With splits >
+// 1, out must be zeroed by the caller.  Grid: (num_tiles, splits), tile *
+// hg floats of shared memory.
 int dgl_slot_reduce(const void* local, const void* valid, const void* vals,
                     const void* order, const void* ptr, int64_t num_tiles,
-                    int64_t tile, int64_t cap, int64_t heads, void* out,
-                    int64_t num_rows, int64_t splits, int64_t src_side,
-                    int64_t device, void* stream) {
+                    int64_t tile, int64_t cap, int64_t heads, int64_t h0,
+                    int64_t hg, void* out, int64_t num_rows, int64_t splits,
+                    int64_t src_side, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * tile * heads;
+  const size_t smem = sizeof(float) * tile * hg;
   const dim3 grid(static_cast<unsigned>(num_tiles),
                   static_cast<unsigned>(splits));
 #define DGL_REDUCE_LAUNCH(SRC_)                                              \
@@ -455,9 +624,9 @@ int dgl_slot_reduce(const void* local, const void* valid, const void* vals,
       static_cast<const int*>(local), static_cast<const float*>(valid),      \
       static_cast<const float*>(vals), static_cast<const int*>(order),       \
       static_cast<const int*>(ptr), static_cast<int>(tile),                  \
-      static_cast<int>(cap), static_cast<int>(heads),                        \
-      static_cast<float*>(out), static_cast<int>(num_rows),                  \
-      static_cast<int>(splits));
+      static_cast<int>(cap), static_cast<int>(heads), static_cast<int>(h0),  \
+      static_cast<int>(hg), static_cast<float*>(out),                        \
+      static_cast<int>(num_rows), static_cast<int>(splits));
   if (src_side != 0) {
     DGL_REDUCE_LAUNCH(true)
   } else {
@@ -469,23 +638,29 @@ int dgl_slot_reduce(const void* local, const void* valid, const void* vals,
 
 // ds (num_buckets, heads, cap), every element written, from x (num_src,
 // heads, fh), zn (num_dst, heads, fh), rp (num_dst, heads) and g (the
-// shape of ds).  lanes is L, the lanes per head (32 over heads rounded up
-// to a power of two, at least 1).  Grid: `blocks` blocks of 8 warps,
-// grid-stride over 32-slot chunks.
+// shape of ds).  With ef (B * cap, fe) and zp (num_dst, heads, fe) not
+// null, ds adds ef[s, :] . zp[dst, h, :] inside the bracket; with p (the
+// shape of ds), m (fe, heads) and d_ef (B * cap, fe) also not null, d_ef
+// is written too, 0 at padded slots.  lanes is L, the lanes per head (32
+// over heads rounded up to a power of two, at least 1).  Grid: `blocks`
+// blocks of 8 warps, grid-stride over 32-slot chunks.
 int dgl_gat_ds(const void* src_local, const void* dst_local,
                const void* valid, const void* src_tile, const void* dst_tile,
                int64_t num_buckets, int64_t tile, int64_t cap, const void* x,
                const void* zn, const void* rp, const void* g, int64_t heads,
-               int64_t fh, void* ds, int64_t lanes, int64_t blocks,
-               int64_t device, void* stream) {
+               int64_t fh, const void* ef, const void* zp, int64_t fe,
+               const void* p, const void* m, void* d_ef, void* ds,
+               int64_t lanes, int64_t blocks, int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = ef == nullptr ? 0 : d_ef == nullptr ? 1 : 2;
 #define DGL_DS_CASE(L_)                                                      \
   case L_:                                                                   \
-    return launch_ds<L_>(src_local, dst_local, valid, src_tile, dst_tile,    \
-                         num_buckets, tile, cap, x, zn, rp, g, heads, fh,    \
-                         ds, blocks, s);
+    return launch_ds_mode<L_>(mode, src_local, dst_local, valid, src_tile,   \
+                              dst_tile, num_buckets, tile, cap, x, zn, rp,   \
+                              g, heads, fh, ef, zp, fe, p, m, d_ef, ds,      \
+                              blocks, s);
   switch (lanes) {
     DGL_DS_CASE(1)
     DGL_DS_CASE(2)
@@ -513,21 +688,29 @@ int dgl_src_agg(const void* src_local, const void* dst_local,
                 void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DGL_AGG_CASE(G_)                                                     \
-  case G_:                                                                   \
-    return launch_src_agg<G_>(src_local, dst_local, valid, w, heads,         \
-                              head_cols, dst_tile, src_order, src_ptr,       \
-                              num_src_tiles, tile, cap, z, f, out, num_src,  \
-                              splits, s);
-  switch (group) {
-    DGL_AGG_CASE(8)
-    DGL_AGG_CASE(16)
-    DGL_AGG_CASE(32)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DGL_AGG_CASE
+  return launch_src_agg_group<false>(
+      group, src_local, dst_local, valid, w, heads, head_cols, dst_tile,
+      src_order, src_ptr, num_src_tiles, tile, cap, z, f, out, num_src,
+      splits, static_cast<cudaStream_t>(stream));
+}
+
+// out (num_dst, heads, fe): out[v, h, k] = sum over the valid slots s with
+// dst v of w[b, h, c] * ef[s, k], ef (B * cap, fe) and w (B, heads, cap).
+// group (8, 16 or 32) is G over the heads * fe columns; with splits > 1,
+// out must be zeroed by the caller.  Grid: (num_dst_tiles, ceil(heads * fe
+// / G), splits).
+int dgl_slot_feat_reduce(const void* dst_local, const void* valid,
+                         const void* w, int64_t heads, int64_t fe,
+                         const void* dst_ptr, int64_t num_dst_tiles,
+                         int64_t tile, int64_t cap, const void* ef,
+                         void* out, int64_t num_dst, int64_t group,
+                         int64_t splits, int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  return launch_src_agg_group<true>(
+      group, nullptr, dst_local, valid, w, heads, fe, nullptr, nullptr,
+      dst_ptr, num_dst_tiles, tile, cap, ef, heads * fe, out, num_dst,
+      splits, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -317,7 +317,7 @@ EGAT_CHUNK = 1 << 19  # edges per chunk of the flat route's logits
 
 
 def _egat_logits_chunked(f_ni, f_nj, efeats, w_fij, bias, attn, row, col,
-                         heads: int, de: int, chunk: int = EGAT_CHUNK):
+                         heads: int, de: int, chunk: int):
     """The attention logits, flat (E * H,), without the (E, H * De) edge
     tensor (``gatconv.py:304-332``): fixed edge chunks, each recomputed in
     the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``), so
@@ -375,10 +375,13 @@ class EGATConv(nn.Module):
       (:meth:`slot_edge_feats`), without ``get_attention`` and with
       ``compute_edge_feats=False``; the edge transform runs in the kernels
       (the bias as the last row of its matrix) and nothing (E, H * De)
-      -sized exists.  Returns ``(h, None)``.  This route reads the edge
-      features only through ``efeats_slot``: ``efeats`` is checked against
-      it, and a gradient reaches ``efeats`` only through an
-      ``efeats_slot`` built from it in the step.  The JAX package also
+      -sized exists.  The kernels take at most ``MAX_FE_ROWS`` edge rows,
+      the bias row counted; above that the flat route takes the layer,
+      where the JAX package pads the rows and stays fused.  Returns ``(h,
+      None)``.  This route reads the edge features only through
+      ``efeats_slot``: ``efeats`` is checked against it, and a gradient
+      reaches ``efeats`` only through an ``efeats_slot`` built from it in
+      the step.  The JAX package also
       needs a TPU there; the port takes this route on CUDA and CPU tensors
       alike;
     * the flat route at ``kernel_spmm_min_edges`` edges and more without
@@ -437,7 +440,9 @@ class EGATConv(nn.Module):
         f_ni = self.fc_ni(feat_src)
         f_nj = self.fc_nj(feat_dst)
         unit = graph.unit()
+        rows = self.in_edge_feats + (self.bias is not None)
         tf = (None if efeats_slot is None or compute_edge_feats
+              or not gat_fused.fe_rows_fit(rows)
               else _kernel_tiles(unit, get_attention))
         if tf is not None:
             _check_slot_edge_feats(tf, unit, efeats, efeats_slot,
@@ -457,7 +462,8 @@ class EGATConv(nn.Module):
             row, col = unit.coo()
             logits = _egat_logits_chunked(f_ni, f_nj, efeats,
                                           self.fc_fij.weight, self.bias,
-                                          self.attn, row, col, heads, de)
+                                          self.attn, row, col, heads, de,
+                                          EGAT_CHUNK)
             a_flat = edge_softmax_flat(unit, logits, heads)
             x3 = self.fc_node_src(feat_src).reshape(-1, heads, dn)
             h = spmm_mul_flat(unit, x3, a_flat, heads)

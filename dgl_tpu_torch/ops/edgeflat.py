@@ -15,11 +15,15 @@ package's flat (E*H,) contract, edge-major and head-minor:
 * ``edge_softmax_flat`` per-(dst, head) softmax over the incoming edges;
 * ``spmm_mul_flat``     attention-weighted aggregation: one multihead
   tiled SpMM (K4) for all heads when the graph carries a tiled format,
-  else one gather-path g-SpMM per head.
+  else one gather-path g-SpMM per head;
+* ``edge_term_sum_flat`` the attention-weighted sum of a linear edge
+  message, (ef_e We) per head, over each dst's in-edges, in fixed edge
+  chunks (``dgl_tpu/nn/conv/extra.py:150-166``).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..graph.unitgraph import UnitGraph
 from ..utils import config, gather_rows
@@ -133,3 +137,28 @@ def spmm_mul_flat(unit: UnitGraph, x, w_flat, H: int):
     return torch.stack([gspmm_unit(unit, "mul", "sum", x[:, h, :],
                                    w2[:, h].unsqueeze(1))
                         for h in range(H)], dim=1)
+
+
+def edge_term_sum_flat(unit: UnitGraph, edge_feat, We, a_flat, H: int,
+                       D: int, chunk: int):
+    """out[d, h] = sum_e a[e, h] * (edge_feat[e] @ We)[h] over the in-edges
+    of d, (num_dst, H, D).  ``edge_feat`` (E, Fe) in canonical order, ``We``
+    (Fe, H * D), ``a_flat`` (E*H,).  The (E, H, D) messages exist ``chunk``
+    edges at a time, each recomputed in the backward
+    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``),
+    so the saved tensors stay chunk-sized."""
+    col = unit.coo()[1]
+    e, num_dst = col.shape[0], unit.num_dst
+    a2 = a_flat.reshape(e, H)
+
+    def term(c, ef, a):
+        fe = (ef @ We).reshape(-1, H, D)
+        return fe.new_zeros(num_dst, H, D).index_add_(0, c,
+                                                      fe * a.unsqueeze(-1))
+
+    out = We.new_zeros(num_dst, H, D)
+    for e0 in range(0, e, chunk):
+        out = out + torch.utils.checkpoint.checkpoint(
+            term, col[e0:e0 + chunk], edge_feat[e0:e0 + chunk],
+            a2[e0:e0 + chunk], use_reentrant=False)
+    return out

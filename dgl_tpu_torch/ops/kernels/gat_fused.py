@@ -1,10 +1,10 @@
-"""Slot-space GAT, DotGat, GATv2 and EGATConv attention over the tiled
-format (K6, K8, K9, K11 v2).
+"""Slot-space GAT, DotGat, EdgeGAT, GATv2 and EGATConv attention over the
+tiled format (K6, K8, K10 v2, K9, K11 v2).
 
 Counterpart of ``dgl_tpu/ops/pallas/gat_fused.py:1-945, 1037-1054,
-1946-2267``.  Attention never exists in canonical edge order: scores,
-weights and gradients live in the tiled format's (B, H, C) slot space,
-and the softmax folds into a divide per dst node.  For every slot of an
+1536-1901, 1946-2267``.  Attention never exists in canonical edge order:
+scores, weights and gradients live in the tiled format's (B, H, C) slot
+space, and the softmax folds into a divide per dst node.  For every slot of an
 edge src -> dst and head h:
 
     raw = el[src, h] + er[dst, h] (+ ee_slot[b, h, c])
@@ -30,7 +30,8 @@ beside it that computes the same function, slot chunk by slot chunk:
 
 * :func:`gat_scores` (``_scores_kernel``, ``_scores_bias_kernel``): p, g;
 * :func:`slot_reduce` (``_den_kernel``, ``_der_kernel``, ``_del_kernel``):
-  the sum of a (B, H, C) slot tensor per dst node or per src node;
+  the sum of a (B, H, C) slot tensor per dst node or per src node, in
+  groups of heads that fit a block's shared memory, one launch a group;
 * :func:`gat_ds` (``_ds_kernel``): ds;
 * :func:`src_aggregate` (``_dx_kernel``): out[src, h] = sum w[b, h, c]
   z[dst, h] with (B, H, C) weights, for dx and K8's dk.
@@ -61,11 +62,29 @@ with an edge-term variant, serve both:
 * :func:`vattn_node_grad` (the dV part of those, ``_gatv2_du_kernel``,
   ``_egatc2_du_kernel``): dV[dst] = sum dW, dU[src] = sum dW.
 
+EdgeGAT v2 (K10 v2, ``edgegat_v2_forward`` :1703) adds an edge message fe
+= ef[slot] . We_h to every slot, in its logit (ee = <attn_e[h], fe>) and
+its message (out = sum p (x[src] + fe) / den).  fe is never formed: with M
+= We contracted with attn_e per head (Fe, H), S[v] = sum p ef per dst, Zp
+= We_h . zn[v, h] per dst and Q = sum ds ef over every slot,
+
+    ee = ef . M[:, h],  sum p fe = S . We_h,  ds += ef . Zp[dst, h]
+    dWe_h = S_h^T zn_h + Q_h (x) attn_e[h],  d(attn_e)[h] = Q_h . We_h
+    d(ef) = sum_h p Zp[dst, h] + ds M[:, h]
+
+M, S . We, Zp and dWe are node-sized products outside the kernels.  Three
+edge variants of the K6 kernels serve it: :func:`edgegat_scores` (p, g),
+:func:`slot_feat_reduce` (S with w = p, and with w = ds for Q: the
+src-side aggregation's walk by dst tile over the H * Fe columns) and
+:func:`edgegat_ds` (ds and, when autograd asks for it, d(ef)); den, der,
+del, the node numerator and dx are K6's reduce, K4's SpMM and K6's dx.
+
 The edge features stay (B, C, Fe) in slot order (:func:`slot_edge_tensor`)
 and Wf is (Fe, H * D), or (Fe + 1, H * D) with the bias as its last row;
 FE is computed per slot and never stored.  The JAX package's transposed
-(B, Fe_pad, C) bf16 layout, its lane padding and the head-block-diagonal
-``Ra`` exist for the TPU and have no counterpart.
+(B, Fe_pad, C) bf16 layout (``slot_edge_tensor_t``), its lane padding
+(``pad_We_heads``) and the head-block-diagonal ``Ra`` exist for the TPU
+and have no counterpart.
 
 The public functions keep the JAX layouts (el/er (N, H), x (N, H, Fh),
 slot tensors (B, H, C)) without the TPU's lane padding; ``den`` is
@@ -93,14 +112,16 @@ DEN_EPS = 1e-20      # denominator clamp
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    "dgl_gat_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
-                       ctypes.c_double, _P, _P, _I, _I, _P],
-    "dgl_slot_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
-                        _I, _P],
+    "dgl_gat_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _I, _I, ctypes.c_double, _P, _P, _I, _I, _P],
+    "dgl_slot_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                        _I, _I, _I, _P],
     "dgl_gat_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
-                   _P, _I, _I, _I, _P],
+                   _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "dgl_src_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I,
                     _P, _I, _I, _I, _I, _P],
+    "dgl_slot_feat_reduce": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I,
+                             _I, _I, _I, _P],
 }
 _VATTN_SIGNATURES = {
     "dgl_vattn_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -156,24 +177,40 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 # -- the plain PyTorch versions ---------------------------------------------
 
-def gat_scores_plain(tf: ts.TiledFormat, el, er, slope: float,
-                     ee_slot=None):
-    """The scores' function: (p, g), each (B, H, C) f32, 0 at padded
-    slots."""
+def _scores_plain(tf: ts.TiledFormat, el, er, slope: float, term=None):
+    """(p, g), each (B, H, C) f32, 0 at padded slots, of raw = el[src] +
+    er[dst] (+ term(b, c), an (n, H) edge term of the chunk's slots)."""
     heads = el.shape[1]
     p = torch.zeros(_slot_shape(tf, heads), dtype=torch.float32,
                     device=el.device)
     g = torch.zeros_like(p)
     for b, c, src, dst in ts._slot_chunks(tf):
         raw = el[src].float() + er[dst].float()
-        if ee_slot is not None:
-            raw = raw + ee_slot[b, :, c].float()
+        if term is not None:
+            raw = raw + term(b, c)
         pos = raw >= 0
         pv = torch.exp(torch.clamp(torch.where(pos, raw, slope * raw),
                                    -CLIP, CLIP))
         p[b, :, c] = pv
         g[b, :, c] = pv * torch.where(pos, 1.0, slope)
     return p, g
+
+
+def gat_scores_plain(tf: ts.TiledFormat, el, er, slope: float,
+                     ee_slot=None):
+    """The scores' function: (p, g), each (B, H, C) f32, 0 at padded
+    slots."""
+    return _scores_plain(tf, el, er, slope, None if ee_slot is None else
+                         lambda b, c: ee_slot[b, :, c].float())
+
+
+def edgegat_scores_plain(tf: ts.TiledFormat, el, er, ef_slot, m,
+                         slope: float):
+    """K10 v2 scores' function: :func:`gat_scores_plain` with the edge
+    logit ee = ef_slot[b, c] . m[:, h] added to raw; ``ef_slot`` (B, C,
+    Fe), ``m`` (Fe, H)."""
+    return _scores_plain(tf, el, er, slope,
+                         lambda b, c: ef_slot[b, c].float() @ m.float())
 
 
 def slot_reduce_plain(tf: ts.TiledFormat, vals, side: str = "dst"):
@@ -208,6 +245,40 @@ def src_aggregate_plain(tf: ts.TiledFormat, z3, w_slot):
         out.index_add_(0, src, z3[dst].float()
                        * w_slot[b, :, c].float().unsqueeze(-1))
     return out
+
+
+def slot_feat_reduce_plain(tf: ts.TiledFormat, w_slot, ef_slot):
+    """K10 v2 slot-feature reduce's function: (num_dst, H, Fe) f32,
+    out[v, h, :] = sum over the valid slots with dst v of w_slot[b, h, c] *
+    ef_slot[b, c, :]."""
+    out = torch.zeros(tf.num_dst, w_slot.shape[1], ef_slot.shape[2],
+                      dtype=torch.float32, device=w_slot.device)
+    for b, c, src, dst in ts._slot_chunks(tf):
+        out.index_add_(0, dst, w_slot[b, :, c].float().unsqueeze(-1)
+                       * ef_slot[b, c].float().unsqueeze(1))
+    return out
+
+
+def edgegat_ds_plain(tf: ts.TiledFormat, x3, zn, rp, g, ef_slot, zp, p=None,
+                     m=None):
+    """K10 v2 ds's function: (ds (B, H, C), d_ef (B, C, Fe) or None), f32.
+    ds = (<x3[src, h], zn[dst, h]> + ef_slot[b, c] . zp[dst, h] -
+    rp[dst, h]) * g; with ``p`` (B, H, C) and ``m`` (Fe, H), d_ef[b, c] =
+    sum_h p zp[dst, h] + ds m[:, h].  Both 0 at padded slots."""
+    ds = torch.zeros(_slot_shape(tf, x3.shape[1]), dtype=torch.float32,
+                     device=x3.device)
+    d_ef = (None if p is None else
+            torch.zeros(ef_slot.shape, dtype=torch.float32, device=x3.device))
+    for b, c, src, dst in ts._slot_chunks(tf):
+        zp_rows = zp[dst].float()
+        dot = ((x3[src].float() * zn[dst].float()).sum(-1)
+               + (ef_slot[b, c].float().unsqueeze(1) * zp_rows).sum(-1))
+        ds_rows = (dot - rp[dst].float()) * g[b, :, c].float()
+        ds[b, :, c] = ds_rows
+        if p is not None:
+            d_ef[b, c] = ((p[b, :, c].float().unsqueeze(-1) * zp_rows).sum(1)
+                          + ds_rows @ m.float().t())
+    return ds, d_ef
 
 
 def _vattn_raw(U3, V3, src, dst, ef_rows=None, wf=None):
@@ -324,7 +395,7 @@ def gat_scores(tf: ts.TiledFormat, el, er, slope: float, ee_slot=None):
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
             tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), slots, tf.tile,
             cap, el.data_ptr(), er.data_ptr(),
-            0 if ee is None else ee.data_ptr(), heads, float(slope),
+            0 if ee is None else ee.data_ptr(), 0, 0, 0, heads, float(slope),
             p.data_ptr(), g.data_ptr(), blocks, el.device.index,
             ts._stream(el.device))
     gat_scores.launches += 1
@@ -337,7 +408,9 @@ gat_scores.launches = 0
 def slot_reduce(tf: ts.TiledFormat, vals, side: str = "dst"):
     """K6 slot reduce: (num_rows, H) f32, the sum of ``vals`` (B, H, C)
     over the valid slots of each dst node (``side="dst"``: den, der) or
-    src node (``side="src"``: del, walking ``src_order``)."""
+    src node (``side="src"``: del, walking ``src_order``).  Any head count:
+    a block keeps a (tile, group) accumulator of as many heads as its
+    shared memory holds, and each group of heads is one launch."""
     if side not in ("dst", "src"):
         raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
     heads = vals.shape[1] if vals.ndim == 3 else -1
@@ -350,23 +423,28 @@ def slot_reduce(tf: ts.TiledFormat, vals, side: str = "dst"):
     rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
     ts._check_int32(tf.num_buckets * heads * tf.cap, n_t * tf.tile * heads)
-    if tf.tile * heads * 4 > ts._SMEM_PER_BLOCK:
-        raise ValueError(f"tile {tf.tile} x {heads} heads is too large for "
-                         "the slot reduce's shared-memory accumulator")
+    # heads whose (tile, group) f32 sums fit a block's shared memory; more
+    # heads take one launch per group
+    group = min(heads, ts._SMEM_PER_BLOCK // (4 * tf.tile))
+    if group == 0 and heads:
+        raise ValueError(f"tile {tf.tile} is too large for the slot "
+                         "reduce's shared-memory accumulator")
     splits = ts._splits(tf, n_t, 1, 2, vals.device)
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc(rows, heads, dtype=torch.float32, device=vals.device)
     if n_t == 0 or heads == 0:
         return out.zero_()
     vals = _f32(vals)
-    _launch("dgl_slot_reduce",
-            (tf.src_local if src else tf.dst_local).data_ptr(),
-            tf.valid.data_ptr(), vals.data_ptr(),
-            tf.src_order.data_ptr() if src else 0,
-            (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
-            tf.cap, heads, out.data_ptr(), rows, splits, int(src),
-            vals.device.index, ts._stream(vals.device))
-    slot_reduce.launches += 1
+    for h0 in range(0, heads, group):
+        _launch("dgl_slot_reduce",
+                (tf.src_local if src else tf.dst_local).data_ptr(),
+                tf.valid.data_ptr(), vals.data_ptr(),
+                tf.src_order.data_ptr() if src else 0,
+                (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
+                tf.cap, heads, h0, min(group, heads - h0), out.data_ptr(),
+                rows, splits, int(src), vals.device.index,
+                ts._stream(vals.device))
+        slot_reduce.launches += 1
     return out
 
 
@@ -401,9 +479,9 @@ def gat_ds(tf: ts.TiledFormat, x3, zn, rp, g):
     _launch("dgl_gat_ds", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
             tf.valid.data_ptr(), tf.src_tile.data_ptr(),
             tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
-            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh,
-            ds.data_ptr(), ts._lanes_per_head(heads), blocks, x.device.index,
-            ts._stream(x.device))
+            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh, 0, 0, 0, 0,
+            0, 0, ds.data_ptr(), ts._lanes_per_head(heads), blocks,
+            x.device.index, ts._stream(x.device))
     gat_ds.launches += 1
     return ds
 
@@ -448,6 +526,161 @@ def src_aggregate(tf: ts.TiledFormat, z3, w_slot):
 src_aggregate.launches = 0
 
 
+def _check_edge(tf: ts.TiledFormat, ef_slot) -> int:
+    """Fe of ``ef_slot``, which must be (B, C, Fe) in ``tf``'s slot
+    order."""
+    fe = ef_slot.shape[-1] if ef_slot.ndim == 3 else -1
+    if tuple(ef_slot.shape) != (tf.num_buckets, tf.cap, fe):
+        raise ValueError(f"ef_slot has shape {tuple(ef_slot.shape)}; the "
+                         f"format needs ({tf.num_buckets}, {tf.cap}, Fe)")
+    return fe
+
+
+def edgegat_fits(heads: int, fe: int) -> bool:
+    """True when K10 v2's scores kernel holds M, (Fe, H) f32, in a block's
+    shared memory; the EdgeGATConv gate checks it."""
+    return fe * heads * 4 <= ts._SMEM_PER_BLOCK
+
+
+def edgegat_scores(tf: ts.TiledFormat, el, er, ef_slot, m, slope: float):
+    """K10 v2 scores: (p, g), each (B, H, C) f32, from el (num_src, H), er
+    (num_dst, H) and the edge logit ef_slot[b, c] . m[:, h], ``ef_slot``
+    (B, C, Fe) in slot order and ``m`` (Fe, H)."""
+    heads = el.shape[1]
+    _check_nodes(el, tf.num_src, heads, "el")
+    _check_nodes(er, tf.num_dst, heads, "er")
+    fe = _check_edge(tf, ef_slot)
+    if tuple(m.shape) != (fe, heads):
+        raise ValueError(f"m has shape {tuple(m.shape)}, not ({fe}, {heads})")
+    if not on_cuda(el, er, ef_slot, m, tf.valid):
+        return edgegat_scores_plain(tf, el, er, ef_slot, m, slope)
+    if not edgegat_fits(heads, fe):
+        raise ValueError(f"M of {fe} x {heads} does not fit the scores "
+                         "kernel's shared memory")
+    b, cap = tf.num_buckets, tf.cap
+    ts._check_int32(b * heads * cap, tf.num_src_tiles * tf.tile * heads,
+                    tf.num_dst_tiles * tf.tile * heads, b * cap * max(fe, 1))
+    p = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
+                    device=el.device)
+    g = torch.empty_like(p)
+    if heads == 0:
+        return p, g
+    el, er, ef, mm = _f32(el), _f32(er), _f32(ef_slot), _f32(m)
+    slots = b * cap
+    blocks = max(1, min(-(-slots // _SCORES_THREADS),
+                        32 * ts._sms(el.device)))
+    _launch("dgl_gat_scores", tf.src_local.data_ptr(),
+            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
+            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), slots, tf.tile,
+            cap, el.data_ptr(), er.data_ptr(), 0, ef.data_ptr(),
+            mm.data_ptr(), fe, heads, float(slope), p.data_ptr(),
+            g.data_ptr(), blocks, el.device.index, ts._stream(el.device))
+    edgegat_scores.launches += 1
+    return p, g
+
+
+edgegat_scores.launches = 0
+
+
+def slot_feat_reduce(tf: ts.TiledFormat, w_slot, ef_slot):
+    """K10 v2 slot-feature reduce: (num_dst, H, Fe) f32, out[v, h, :] = sum
+    over the valid slots with dst v of w_slot[b, h, c] * ef_slot[b, c, :];
+    ``w_slot`` (B, H, C), ``ef_slot`` (B, C, Fe).  The H * Fe columns are
+    walked in chunks that fit a block's shared memory, as the src-side
+    aggregation walks its columns."""
+    heads = w_slot.shape[1] if w_slot.ndim == 3 else -1
+    _check_slots(tf, w_slot, heads, "w_slot")
+    fe = _check_edge(tf, ef_slot)
+    if not on_cuda(w_slot, ef_slot, tf.valid):
+        return slot_feat_reduce_plain(tf, w_slot, ef_slot)
+    f = heads * fe
+    b, n_dt = tf.num_buckets, tf.num_dst_tiles
+    ts._check_int32(b * heads * tf.cap, b * tf.cap * max(fe, 1),
+                    n_dt * tf.tile * f)
+    g = ts._group(f, tf.tile)
+    splits = ts._splits(tf, n_dt, -(-f // g), ts._group_per_sm(g, tf.tile),
+                        w_slot.device)
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc(tf.num_dst, heads, fe, dtype=torch.float32,
+                device=w_slot.device)
+    if n_dt == 0 or f == 0:
+        return out.zero_()
+    w, ef = _f32(w_slot), _f32(ef_slot)
+    _launch("dgl_slot_feat_reduce", tf.dst_local.data_ptr(),
+            tf.valid.data_ptr(), w.data_ptr(), heads, fe,
+            tf.dst_ptr.data_ptr(), n_dt, tf.tile, tf.cap, ef.data_ptr(),
+            out.data_ptr(), tf.num_dst, g, splits, w.device.index,
+            ts._stream(w.device))
+    slot_feat_reduce.launches += 1
+    return out
+
+
+slot_feat_reduce.launches = 0
+
+
+def edgegat_ds(tf: ts.TiledFormat, x3, zn, rp, g, ef_slot, zp, p=None,
+               m=None):
+    """K10 v2 ds: (ds (B, H, C), d_ef (B, C, Fe) or None), f32.  ds =
+    (<x3[src, h], zn[dst, h]> + ef_slot[b, c] . zp[dst, h] - rp[dst, h])
+    * g at valid slots, 0 at padded ones; with ``p`` (B, H, C) and ``m``
+    (Fe, H), also d_ef[b, c] = sum_h p zp[dst, h] + ds m[:, h] (0 at padded
+    slots).  ``zp`` (num_dst, H, Fe)."""
+    heads, fh = x3.shape[1], x3.shape[2]
+    ts._check_operand(tf, x3, tf.num_src, 3, "x3")
+    ts._check_operand(tf, zn, tf.num_dst, 3, "zn")
+    if tuple(zn.shape[1:]) != (heads, fh):
+        raise ValueError(f"zn {tuple(zn.shape)} does not match x3 "
+                         f"{tuple(x3.shape)}")
+    _check_nodes(rp, tf.num_dst, heads, "rp")
+    _check_slots(tf, g, heads, "g")
+    fe = _check_edge(tf, ef_slot)
+    if tuple(zp.shape) != (tf.num_dst, heads, fe):
+        raise ValueError(f"zp has shape {tuple(zp.shape)}, not "
+                         f"({tf.num_dst}, {heads}, {fe})")
+    if (p is None) != (m is None):
+        raise ValueError("d(ef) needs both p and m")
+    extra = ()
+    if p is not None:
+        _check_slots(tf, p, heads, "p")
+        if tuple(m.shape) != (fe, heads):
+            raise ValueError(f"m has shape {tuple(m.shape)}, not ({fe}, "
+                             f"{heads})")
+        extra = (p, m)
+    if not on_cuda(x3, zn, rp, g, ef_slot, zp, tf.valid, *extra):
+        return edgegat_ds_plain(tf, x3, zn, rp, g, ef_slot, zp, p, m)
+    b = tf.num_buckets
+    hf = heads * fh
+    ts._check_int32(b * heads * tf.cap, tf.num_src_tiles * tf.tile * hf,
+                    tf.num_dst_tiles * tf.tile * hf,
+                    tf.num_dst_tiles * tf.tile * heads * fe,
+                    b * tf.cap * max(fe, 1))
+    dev = x3.device
+    ds = torch.empty(_slot_shape(tf, heads), dtype=torch.float32, device=dev)
+    d_ef = (None if p is None else
+            torch.empty(ef_slot.shape, dtype=torch.float32, device=dev))
+    if heads == 0:
+        return ds, None if d_ef is None else d_ef.zero_()
+    x, z, r, gg = _f32(x3), _f32(zn), _f32(rp), _f32(g)
+    ef, zq = _f32(ef_slot), _f32(zp)
+    pp, mm = (None, None) if p is None else (_f32(p), _f32(m))
+    chunks = b * tf.cap // 32
+    blocks = max(1, min(-(-chunks // _DS_WARPS), 16 * ts._sms(dev)))
+    _launch("dgl_gat_ds", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
+            tf.valid.data_ptr(), tf.src_tile.data_ptr(),
+            tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
+            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh,
+            ef.data_ptr(), zq.data_ptr(), fe,
+            0 if pp is None else pp.data_ptr(),
+            0 if mm is None else mm.data_ptr(),
+            0 if d_ef is None else d_ef.data_ptr(), ds.data_ptr(),
+            ts._lanes_per_head(heads), blocks, dev.index, ts._stream(dev))
+    edgegat_ds.launches += 1
+    return ds, d_ef
+
+
+edgegat_ds.launches = 0
+
+
 def _check_vattn(tf: ts.TiledFormat, U3, V3, attn, ef_slot, wf):
     """(H, D, Fe, Fe rows of wf): the shapes of a vector-attention call;
     Fe = rows = 0 without the edge term."""
@@ -462,10 +695,7 @@ def _check_vattn(tf: ts.TiledFormat, U3, V3, attn, ef_slot, wf):
         raise ValueError("the edge term needs both ef_slot and wf")
     if ef_slot is None:
         return heads, dim, 0, 0
-    fe = ef_slot.shape[-1]
-    if tuple(ef_slot.shape) != (tf.num_buckets, tf.cap, fe):
-        raise ValueError(f"ef_slot has shape {tuple(ef_slot.shape)}; the "
-                         f"format needs ({tf.num_buckets}, {tf.cap}, Fe)")
+    fe = _check_edge(tf, ef_slot)
     if wf.ndim != 2 or wf.shape[1] != heads * dim or wf.shape[0] not in (
             fe, fe + 1):
         raise ValueError(f"wf has shape {tuple(wf.shape)}; it needs ({fe} "
@@ -473,9 +703,15 @@ def _check_vattn(tf: ts.TiledFormat, U3, V3, attn, ef_slot, wf):
     return heads, dim, fe, wf.shape[0]
 
 
+def fe_rows_fit(rows: int) -> bool:
+    """True when the K11 v2 kernels take ``rows`` edge-feature rows (the
+    bias row included); the EGATConv gate checks it."""
+    return rows <= MAX_FE_ROWS
+
+
 def _fe_cap(rows: int) -> int:
     """The kernels' register width for ``rows`` edge-feature rows."""
-    if rows > MAX_FE_ROWS:
+    if not fe_rows_fit(rows):
         raise ValueError(f"{rows} edge-feature rows (bias included); the "
                          f"kernels take at most {MAX_FE_ROWS}")
     return 8 if rows <= 8 else 16 if rows <= 16 else 32
@@ -718,6 +954,58 @@ def vattn_backward(tf: ts.TiledFormat, U3, V3, x3, attn, p_slot, den, out,
     return dU, dV, dx, da, d_ef, dwf
 
 
+def _edge_mats(We, attn_e, H: int, Fh: int):
+    """(We viewed (Fe, H, Fh) f32, M (Fe, H) = We contracted with attn_e
+    per head): the edge logit is ef . M[:, h]."""
+    w3 = We.float().reshape(We.shape[0], H, Fh)
+    return w3, torch.einsum("fhd,hd->fh", w3, attn_e.float())
+
+
+def edgegat_forward(tf: ts.TiledFormat, el2, er2, ef_slot, We, attn_e, x3,
+                    H: int, Fh: int, slope: float):
+    """EdgeGAT v2 forward (``edgegat_v2_forward`` :1703): (out (num_dst, H,
+    Fh), p_slot, g_slot, den (num_dst, H), S (num_dst, H, Fe)), ``den``
+    clamped at 1e-20.  The edge message fe = ef . We_h of each slot is
+    never formed: its logit is ef . M and its share of the numerator S .
+    We_h, with S = sum p ef per dst."""
+    w3, m = _edge_mats(We, attn_e, H, Fh)
+    p, g = edgegat_scores(tf, el2, er2, ef_slot, m, slope)
+    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
+    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    s = slot_feat_reduce(tf, p, ef_slot)
+    num = num + torch.einsum("vhf,fhd->vhd", s, w3)
+    return num / den.unsqueeze(-1), p, g, den, s
+
+
+def edgegat_backward(tf: ts.TiledFormat, ef_slot, We, attn_e, x3, p_slot,
+                     g_slot, den, s, out, dZ, H: int, Fh: int,
+                     need_def: bool = True):
+    """EdgeGAT v2 backward (``edgegat_v2_backward`` :1764): (del (num_src,
+    H), der (num_dst, H), dx (num_src, H, Fh), d_ef (B, C, Fe) or None, dWe
+    (Fe, H * Fh), d_attn_e (H, Fh)).  With Zp = We_h . zn per dst and Q =
+    sum ds ef over every slot: ds gains ef . Zp[dst], dWe_h = S_h^T zn_h +
+    Q_h (x) attn_e[h], d(attn_e)[h] = Q_h . We_h, and d_ef = sum_h p
+    Zp[dst, h] + ds M[:, h] (only with ``need_def``).  ``tf`` needs
+    ``src_order``."""
+    zn, rp = _scales(out, dZ, den)
+    w3, m = _edge_mats(We, attn_e, H, Fh)
+    zp = torch.einsum("vhd,fhd->vhf", zn, w3)
+    ds, d_ef = edgegat_ds(tf, x3, zn, rp, g_slot, ef_slot, zp,
+                          p_slot if need_def else None,
+                          m if need_def else None)
+    del zp
+    der = slot_reduce(tf, ds, "dst")
+    dl = slot_reduce(tf, ds, "src")
+    q = slot_feat_reduce(tf, ds, ef_slot).sum(0)            # (H, Fe)
+    del ds
+    dx = src_aggregate(tf, zn, p_slot)
+    a = attn_e.float()
+    dwe = (torch.einsum("vhf,vhd->fhd", s, zn)
+           + torch.einsum("hf,hd->fhd", q, a))
+    d_attn = torch.einsum("hf,fhd->hd", q, w3)
+    return dl, der, dx, d_ef, dwe.reshape(We.shape[0], H * Fh), d_attn
+
+
 # -- the differentiable ops ---------------------------------------------------
 
 class _GatAttention(torch.autograd.Function):
@@ -794,6 +1082,35 @@ class _VectorAttention(torch.autograd.Function):
                 dx.to(x3.dtype), None, None, None, None)
 
 
+class _EdgeGatAttention(torch.autograd.Function):
+    """EdgeGAT v2: forward by the edge scores, the slot reduce, K4's SpMM
+    and the slot-feature reduce; backward by the edge ds, two slot reduces,
+    the slot-feature reduce and the src-side aggregation.  p, g and S are
+    saved."""
+
+    @staticmethod
+    def forward(ctx, el2, er2, ef_slot, We, attn_e, x3, tf, H, Fh, slope):
+        out, p, g, den, s = edgegat_forward(tf, el2, er2, ef_slot, We,
+                                            attn_e, x3, H, Fh, slope)
+        ctx.save_for_backward(ef_slot, We, attn_e, x3, p, g, den, s, out)
+        ctx.tf, ctx.H, ctx.Fh = tf, H, Fh
+        ctx.dtypes = (el2.dtype, er2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        ef_slot, We, attn_e, x3, p, g, den, s, out = ctx.saved_tensors
+        # d(ef) is as large as the edge features: only when someone wants it
+        dl, dr, dx, d_ef, dwe, d_attn = edgegat_backward(
+            ctx.tf, ef_slot, We, attn_e, x3, p, g, den, s, out, dz, ctx.H,
+            ctx.Fh, need_def=ctx.needs_input_grad[2])
+        el_t, er_t = ctx.dtypes
+        return (dl.to(el_t), dr.to(er_t),
+                None if d_ef is None else d_ef.to(ef_slot.dtype),
+                dwe.to(We.dtype), d_attn.to(attn_e.dtype), dx.to(x3.dtype),
+                None, None, None, None)
+
+
 def _check_dims(what, t, heads, dim):
     if t.ndim != 3 or tuple(t.shape[1:]) != (heads, dim):
         raise ValueError(f"{what} has shape {tuple(t.shape)}, not (N, {heads},"
@@ -828,6 +1145,30 @@ def egatconv_attention_aggregate_v2(tf: ts.TiledFormat, fni3, fnj3, ef_slot,
     _check_dims("fni3", fni3, H, De)
     return _VectorAttention.apply(fni3, fnj3, ef_slot, wf, attn, x3, tf,
                                   int(H), int(Fh), float(negative_slope))
+
+
+def edgegat_attention_aggregate_v2(tf: ts.TiledFormat, el2, er2, ef_slot, We,
+                                   attn_e, x3, H: int, Fh: int,
+                                   negative_slope: float):
+    """Fused EdgeGATConv attention + aggregation with the edge transform
+    folded into the kernels (``gat_fused.py:1901``): per slot of an edge
+    u -> v and head h, fe = ef_slot[b, c] . We_h, raw = el2[u] + er2[v] +
+    <attn_e[h], fe>, p = exp(clip(lrelu(raw), +-40)) and out[v] = sum p
+    (x3[u] + fe) / max(sum p, 1e-20).  ``tf``: the forward tiled format
+    with ``src_order``; ``ef_slot`` (B, C, Fe) slot-order edge features
+    (:func:`slot_edge_tensor`), ``We`` (Fe, H * Fh), ``attn_e`` (H, Fh),
+    ``x3`` (N_src, H, Fh).  Returns (N_dst, H, Fh) f32, differentiable in
+    el2, er2, ef_slot, We, attn_e and x3; nothing (B, C, H * Fh)-sized is
+    formed."""
+    _require_src_first(tf)
+    _check_dims("x3", x3, H, Fh)
+    fe = _check_edge(tf, ef_slot)
+    if tuple(We.shape) != (fe, H * Fh) or tuple(attn_e.shape) != (H, Fh):
+        raise ValueError(f"We {tuple(We.shape)} or attn_e "
+                         f"{tuple(attn_e.shape)} do not match Fe={fe}, "
+                         f"H={H}, Fh={Fh}")
+    return _EdgeGatAttention.apply(el2, er2, ef_slot, We, attn_e, x3, tf,
+                                   int(H), int(Fh), float(negative_slope))
 
 
 # (E, Fe) edge features in slot order, beside the kernels that read them

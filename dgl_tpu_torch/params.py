@@ -4,8 +4,8 @@
 Flax ``GraphConv`` (``dgl_tpu/nn/conv/graphconv.py``) stores ``weight`` as
 (in, out) and ``bias`` as (out,), the layout of DGL's PyTorch GraphConv,
 so the arrays cross unchanged.  Flax ``GATConv``'s, ``DotGatConv``'s,
-``GATv2Conv``'s and ``EGATConv``'s Dense kernels are (in, out), the
-transpose of ``nn.Linear.weight``.  The
+``GATv2Conv``'s, ``EGATConv``'s and ``EdgeGATConv``'s Dense kernels are
+(in, out), the transpose of ``nn.Linear.weight``.  The
 input is any mapping of arrays that numpy can read; nothing of JAX is
 imported here.
 """
@@ -96,4 +96,24 @@ def egatconv_state_dict(flax_params: Mapping):
           for name in ("attn", "bias") if name in flax_params}
     for name in ("fc_node_src", "fc_ni", "fc_fij", "fc_nj"):
         sd.update(_dense(flax_params[name], name))
+    return sd
+
+
+def edgegatconv_state_dict(flax_params: Mapping):
+    """``state_dict`` for :class:`dgl_tpu_torch.nn.EdgeGATConv` from one
+    flax EdgeGATConv's params: the kernels of ``fc``, ``fc_dst``,
+    ``fc_edge`` and ``res_fc`` become ``nn.Linear`` weights; ``attn_l``,
+    ``attn_r``, ``attn_edge`` and ``bias`` (1, H, D) cross as they are.
+    Flax makes ``fc_dst`` only when the module is called on a (src, dst)
+    feature pair; without it the port's ``fc_dst``, which a single feature
+    tensor never reaches, gets ``fc``'s arrays."""
+    flax_params = _unwrap(flax_params)
+    sd = {name: _f32(flax_params[name])
+          for name in ("attn_l", "attn_r", "attn_edge", "bias")
+          if name in flax_params}
+    sd.update(_dense(flax_params["fc"], "fc"))
+    sd.update(_dense(flax_params.get("fc_dst", flax_params["fc"]), "fc_dst"))
+    sd.update(_dense(flax_params["fc_edge"], "fc_edge"))
+    if "res_fc" in flax_params:
+        sd.update(_dense(flax_params["res_fc"], "res_fc"))
     return sd

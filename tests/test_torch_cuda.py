@@ -633,3 +633,182 @@ def test_vector_attention_convs_kernels_match_reference(card, monkeypatch):
         torch.testing.assert_close(k[0], r[0], rtol=RTOL, atol=ATOL)
         for a, b in zip(k[1:], r[1:]):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+def _edgegat_inputs(card, fwd, heads, fh, fe, seed):
+    """el, er, ef_slot, We, attn_e, M and x on ``fwd``.  el, er, We and
+    attn_e are multiples of 1/16 and the edge features in {-1, 0, 1}, so the
+    logit el + er + ef . M is exact in f32 in any order and the kernels and
+    the plain versions take the same side of lrelu's kink."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def exact(*shape, top=8):
+        return torch.randint(-top, top + 1, shape, device=card,
+                             generator=gen).float() / 16
+
+    b, cap = fwd.num_buckets, fwd.cap
+    el, er = exact(fwd.num_src, heads, top=16), exact(fwd.num_dst, heads,
+                                                       top=16)
+    ef = torch.randint(-1, 2, (b, cap, fe), device=card,
+                       generator=gen).float() * fwd.valid.view(b, cap, 1)
+    We, attn = exact(fe, heads * fh), exact(heads, fh)
+    m = torch.einsum("fhd,hd->fh", We.view(fe, heads, fh), attn)
+    x = torch.randn(fwd.num_src, heads, fh, device=card, generator=gen)
+    return el, er, ef, We, attn, m, x
+
+
+@pytest.mark.parametrize("heads,fh", [(4, 32), (1, 41), (8, 8), (3, 5)])
+@pytest.mark.parametrize("fe", [16, 5])
+def test_edgegat_kernels_match_plain(card, heads, fh, fe):
+    """Each K10 v2 kernel (the edge scores, the slot-feature reduce with p
+    and with ds, the edge ds with and without d(ef)) against its plain
+    version; then the forward and backward of the autograd function
+    against the plain chain."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    el, er, ef, We, attn, m, x = _edgegat_inputs(card, fwd, heads, fh, fe,
+                                                 heads * 100 + fh + fe)
+    counters = (tgf.edgegat_scores, tgf.slot_feat_reduce, tgf.edgegat_ds)
+    before = [k.launches for k in counters]
+    p, g = tgf.edgegat_scores(fwd, el, er, ef, m, 0.2)
+    s = tgf.slot_feat_reduce(fwd, p, ef)
+    zn = torch.randn(fwd.num_dst, heads, fh, device=card)
+    rp = torch.randn(fwd.num_dst, heads, device=card)
+    zp = torch.randn(fwd.num_dst, heads, fe, device=card)
+    ds, no_def = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp)
+    ds2, d_ef = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp, p, m)
+    q = tgf.slot_feat_reduce(fwd, ds, ef)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 2, 2]
+    assert no_def is None
+    want_p, want_g = tgf.edgegat_scores_plain(fwd, el, er, ef, m, 0.2)
+    want_ds, want_def = tgf.edgegat_ds_plain(fwd, x, zn, rp, g, ef, zp, p, m)
+    for a, b in ((p, want_p), (g, want_g),
+                 (s, tgf.slot_feat_reduce_plain(fwd, p, ef)),
+                 (ds, want_ds), (ds2, want_ds), (d_ef, want_def),
+                 (q, tgf.slot_feat_reduce_plain(fwd, ds, ef))):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    pad = fwd.valid.reshape(fwd.num_buckets, fwd.cap, 1) == 0
+    assert (d_ef.masked_select(pad) == 0).all()
+
+    dz = torch.randn(fwd.num_dst, heads, fh, device=card)
+    ins = [t.clone().requires_grad_() for t in (el, er, ef, We, attn, x)]
+    out = tgf.edgegat_attention_aggregate_v2(fwd, *ins, heads, fh, 0.2)
+    out.backward(dz)
+    # the same chain on the plain versions
+    w3 = We.view(fe, heads, fh)
+    den = tgf.slot_reduce_plain(fwd, want_p, "dst").clamp_(min=tgf.DEN_EPS)
+    s_p = tgf.slot_feat_reduce_plain(fwd, want_p, ef)
+    ref = (tts.tiled_spmm_multihead_plain(fwd, x, want_p)
+           + torch.einsum("vhf,fhd->vhd", s_p, w3)) / den.unsqueeze(-1)
+    zn, rp = tgf._scales(ref, dz, den)
+    zp = torch.einsum("vhd,fhd->vhf", zn, w3)
+    dsp, defp = tgf.edgegat_ds_plain(fwd, x, zn, rp, want_g, ef, zp, want_p,
+                                     m)
+    qp = tgf.slot_feat_reduce_plain(fwd, dsp, ef).sum(0)
+    grads = [tgf.slot_reduce_plain(fwd, dsp, "src"),
+             tgf.slot_reduce_plain(fwd, dsp, "dst"), defp,
+             (torch.einsum("vhf,vhd->fhd", s_p, zn)
+              + torch.einsum("hf,hd->fhd", qp, attn)).reshape(fe, -1),
+             torch.einsum("hf,fhd->hd", qp, w3),
+             tgf.src_aggregate_plain(fwd, zn, want_p)]
+    torch.testing.assert_close(out.detach(), ref, rtol=RTOL, atol=ATOL)
+    for t, b in zip(ins, grads):
+        # dWe and d(attn_e) sum over every edge: atol of their magnitude
+        torch.testing.assert_close(t.grad, b, rtol=RTOL,
+                                   atol=ATOL * max(1.0, float(b.abs().max())))
+
+
+def test_edgegat_wrappers_never_take_plain_on_cuda(card, monkeypatch):
+    """On CUDA tensors each K10 v2 wrapper launches its kernel: a plain
+    version that is reached raises."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    for name in ("edgegat_scores_plain", "slot_feat_reduce_plain",
+                 "edgegat_ds_plain"):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(tgf, name, refuse)
+    el, er, ef, We, attn, m, x = _edgegat_inputs(card, fwd, 4, 8, 16, 7)
+    out = tgf.edgegat_attention_aggregate_v2(
+        fwd, el.requires_grad_(), er, ef.requires_grad_(), We, attn, x, 4, 8,
+        0.2)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert ef.grad is not None and el.grad is not None
+
+
+def test_slot_reduce_any_head_count(card):
+    """The slot reduce at 64 heads and tile 1024, whose (tile, H) f32 sums
+    exceed a block's shared memory, walks the heads in groups, one launch
+    each, and equals its plain version on both sides."""
+    row, col, n_src, n_dst = _coo()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst, 1024, 128,
+                                        device=card).with_src_first()
+    assert 1024 * 64 * 4 > tts._SMEM_PER_BLOCK
+    vals = torch.randn(fwd.num_buckets, 64, fwd.cap, device=card) * \
+        fwd.valid.view(fwd.num_buckets, 1, fwd.cap)
+    for side in ("dst", "src"):
+        before = tgf.slot_reduce.launches
+        got = tgf.slot_reduce(fwd, vals, side)
+        torch.cuda.synchronize()
+        assert tgf.slot_reduce.launches - before == 2
+        torch.testing.assert_close(got, tgf.slot_reduce_plain(fwd, vals, side),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_egatconv_above_the_edge_row_cap(card, monkeypatch):
+    """EGATConv with 32 edge features and the bias row (33 rows, above
+    MAX_FE_ROWS) and ``efeats_slot`` does not raise: it takes the flat
+    route, and equals it (whose atomics add in no fixed order)."""
+    row, col, n, _ = _coo(n_src=8100, n_dst=8100)
+    g = dgt.graph((row, col), num_nodes=n)
+    g.create_tiled_format(tile=1024)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(n, 24, device=card, generator=gen)
+    ef = torch.randn(len(row), 32, device=card, generator=gen)
+    conv = dgt.nn.EGATConv(24, 32, 16, 16, 4, bias=True, generator=gen)
+    before = tgf.vattn_scores.launches
+    res = []
+    for kw in ({"efeats_slot": dgt.nn.EGATConv.slot_edge_feats(g, ef)}, {}):
+        conv.zero_grad()
+        h, _ = conv(g, x, ef, compute_edge_feats=False, **kw)
+        h.square().mean().backward()
+        res.append([h.detach()] + [p.grad.clone() for p in conv.parameters()])
+    torch.cuda.synchronize()
+    assert tgf.vattn_scores.launches == before
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=RTOL, atol=ATOL)
+    for a, b in zip(res[0][1:], res[1][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+def test_edgegatconv_kernels_match_flat_route(card, monkeypatch):
+    """An EdgeGATConv step on K10 v2 (the fused route) equals its flat
+    route on the card, output and every gradient."""
+    row, col, n, _ = _coo(n_src=8100, n_dst=8100)
+    g = dgt.graph((row, col), num_nodes=n)
+    g.create_tiled_format(tile=1024)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(n, 24, device=card, generator=gen)
+    ef = torch.randn(len(row), 16, device=card, generator=gen)
+    conv = dgt.nn.EdgeGATConv(24, 16, 32, 4, generator=gen)
+
+    def step(**kw):
+        conv.zero_grad()
+        xs = x.clone().requires_grad_()
+        out = conv(g, xs, ef, **kw)
+        out.square().mean().backward()
+        return [out.detach(), xs.grad] + [
+            p.grad.clone() for p in conv.parameters() if p.grad is not None]
+
+    before = tgf.edgegat_scores.launches
+    kern = step(efeats_slot=dgt.nn.EdgeGATConv.slot_edge_feats(g, ef))
+    ref = step()
+    torch.cuda.synchronize()
+    assert tgf.edgegat_scores.launches == before + 1
+    assert len(kern) == len(ref)
+    torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=ATOL)
+    for a, b in zip(kern[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

@@ -824,3 +824,30 @@ def test_egatconv_fused_route_checks_slot_feats(case, min_edges_1):
         eft = eft.clone().requires_grad_()
     with pytest.raises(ValueError):
         conv(g, x, eft, compute_edge_feats=False, efeats_slot=slot)
+
+
+@pytest.mark.parametrize("fe,bias,rows", [(31, False, 31), (31, True, 32),
+                                          (32, True, 33)])
+def test_egatconv_fused_route_edge_row_cap(fe, bias, rows, min_edges_1):
+    """The K11 v2 kernels take at most MAX_FE_ROWS edge rows, the bias row
+    counted: the gate routes a layer with more to the flat route, which
+    computes the same function (the JAX package pads the rows and stays
+    fused).  The plain versions have no cap, so the CPU shows the route
+    taken, not the fault."""
+    assert tgf.MAX_FE_ROWS == 32
+    assert tgf.fe_rows_fit(rows) == (rows <= 32)
+    row, col, n = _square(52)
+    g = dgt.graph((row, col), num_nodes=n, device="cpu")
+    g.create_tiled_format(tile=128, cap=128)
+    ef = torch.randn(len(row), fe, generator=torch.Generator().manual_seed(1))
+    conv = dgt.nn.EGATConv(5, fe, 3, 4, 2, bias=bias, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    with mock.patch.object(tgf, "egatconv_attention_aggregate_v2",
+                           wraps=tgf.egatconv_attention_aggregate_v2) as k11, \
+            mock.patch("dgl_tpu_torch.nn.conv.gatconv.edge_softmax_flat",
+                       wraps=dgt.ops.edgeflat.edge_softmax_flat) as flat:
+        h, _ = conv(g, torch.randn(n, 5), ef, compute_edge_feats=False,
+                    efeats_slot=dgt.nn.EGATConv.slot_edge_feats(g, ef))
+        h.square().sum().backward()
+    assert (k11.call_count, flat.call_count) == ((1, 0) if rows <= 32
+                                                 else (0, 1))

@@ -223,6 +223,11 @@ gat.eval()
 gat(gt, torch.randn(50, 5)).sum().backward()                    # K6
 dgt.nn.DotGatConv(5, 4, 2, device="cpu")(
     gt, torch.randn(50, 5)).sum().backward()                    # K8
+ef = torch.randn(400, 3)
+dgt.nn.EdgeGATConv(5, 3, 4, 2, device="cpu")(
+    gt, torch.randn(50, 5), ef,
+    efeats_slot=dgt.nn.EdgeGATConv.slot_edge_feats(gt, ef)).sum().backward()
+import dgl_tpu_torch.nn.softmax                                 # K10 v2
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))

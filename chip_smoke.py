@@ -109,9 +109,30 @@ Phases, each of which raises on failure (nothing is caught):
 27. K10 v2 yardsticks on the phase-23 format at (4, 32) with 16 edge
    features: each kernel against its plain version, its time (median of
    5), its plain version's, the bound and, for the slot-feature reduce,
-   one ``torch.sparse.mm`` of the (H N, slots) CSR holding p.
+   one ``torch.sparse.mm`` of the (H N, slots) CSR holding p; then the
+   EdgeGAT step's other launches at (4, 32) on that format, as phases 16
+   and 20 time them: K6's reduce on both sides and src-side aggregation
+   (dx), K4's SpMM;
+28. the DotGat-on-K7 slice at mid size, on the phase-8 graph: each K7
+   kernel (forward, dz, dq) through ``bitdot_attention_aggregate``
+   against its plain version at (H, D) = (2, 64), (1, 128), (4, 32), (3,
+   8), and at (2, 64) with scores past +-40, one launch each way; l at
+   zero scores equal to the in-degree exactly; each kernel's time at each
+   shape; then ``DotGatConv(64, 64, 2)`` on K7 against its gather path,
+   forward and backward, and the same layer at D = 32, which must not
+   launch K7;
+29. ``DotGatConv(64, 64, 2)`` on the phase-4 bitmask graph
+   (tools/perf_bitdot_full.py:52-90: x (N, 64) from a seeded generator,
+   loss (out^2).mean(), Adam 1e-3), one warm-up and 5 timed steps on K7
+   with every launch counter held to one launch of each K7 kernel a step
+   and no other, a profiled step held to the counters, and one step's
+   loss and weight gradients against the same step built from the plain
+   versions;
+30. K7 yardsticks on the phase-4 graph at (2, 64) and (1, 128): each
+   kernel against its plain version on every row, its time (median of 5),
+   its plain version's and the bound; no PyTorch call computes it.
 
-Each phase prints its seconds.  Prints the card line and a
+Phases 28-30 run after phases 25 and 10; each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -341,26 +362,29 @@ def phase_train(dgt, bm, g, x, y, train):
     return model, opt, k1
 
 
-# each slot-space wrapper's launch counter and the CUDA kernel it launches,
-# once a call
+# each slot-space or K7 wrapper's launch counter and the CUDA kernel it
+# launches, once a call
 TRACED_KERNELS = {
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": "gat_ds_kernel", "src_aggregate": "src_agg_kernel",
     "vattn_scores": "vattn_scores_kernel",
     "vattn_slot_grad": "vattn_slot_grad_kernel",
     "vattn_node_grad": "vattn_node_grad_kernel",
-    "k4_spmm": "tiled_spmm_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel"}
+    "k4_spmm": "tiled_spmm_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel",
+    "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
+    "bitdot_bwd_dq": "bitdot_dq_kernel"}
 
 
-def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1):
-    """Adam steps under torch.profiler, ``warmup`` of them before the one
-    that its schedule records: device time by kernel and the device's busy
-    share of the recorded step (the wall time includes the profiler's own
-    cost).  With ``counts`` (a function that reads the slot-space
-    wrappers' launch counters), each wrapper's launches in the recorded
-    step are held against its kernel's entries in the trace; where they
-    differ, the busy share misses those launches, and the traced kernels
-    are listed in order."""
+def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
+                  loss=loss_fn):
+    """Optimizer steps of ``loss`` under torch.profiler, ``warmup`` of them
+    before the one that its schedule records: device time by kernel and
+    the device's busy share of the recorded step (the wall time includes
+    the profiler's own cost).  With ``counts`` (a function that reads
+    wrappers' launch counters), each wrapper of ``TRACED_KERNELS`` that it
+    reads has its launches in the recorded step held against its kernel's
+    entries in the trace; where they differ, the busy share misses those
+    launches, and the traced kernels are listed in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -372,7 +396,7 @@ def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1):
                 before = counts() if counts else None
                 t0 = time.perf_counter()
             opt.zero_grad()
-            loss_fn(model, g, x, y, train).backward()
+            loss(model, g, x, y, train).backward()
             opt.step()
             torch.cuda.synchronize()
             if recorded:
@@ -397,10 +421,12 @@ def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1):
             f"{e.key[:100]}")
     if counts is None:
         return
+    traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
+              if name in after}
     seen = {name: sum(e.count for e in rows
                       if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key)
-            for name, kernel in TRACED_KERNELS.items()}
-    launched = {name: after[name] - before[name] for name in TRACED_KERNELS}
+            for name, kernel in traced.items()}
+    launched = {name: after[name] - before[name] for name in traced}
     log(f"# profiled step: launches by counter {launched}, in the trace "
         f"{seen}")
     if seen != launched:
@@ -408,7 +434,7 @@ def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1):
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA
                        and any(f"::{k}" in e.name
-                               for k in TRACED_KERNELS.values()))
+                               for k in traced.values()))
         log("# profiled step: the trace misses launches (the busy share "
             "above misses their time); its slot-space kernels in order: "
             + "; ".join(
@@ -1322,11 +1348,12 @@ def slot_ids(fwd, side):
 
 
 def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
-                  sides=("dst", "src")):
+                  sides=("dst", "src"), ds=True):
     """Phase 20: each K6 kernel at full size against its plain version,
     with the timings, the bound and the library call where there is
-    one.  ``scores`` and ``sides`` leave out the rows a caller does not
-    launch (route 5 launches neither the scores nor the src side)."""
+    one.  ``scores``, ``sides`` and ``ds`` leave out the rows a caller
+    does not launch (route 5 launches neither the scores nor the src side,
+    EdgeGAT neither the scores nor K6's ds)."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     b, cap = fwd.num_buckets, fwd.cap
@@ -1400,10 +1427,11 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
             e * heads, lib, "index_add_")
 
     # ds: in the slot arrays, g, x, zn, rp; out ds at every slot
-    row("ds", lambda: tgf.gat_ds(fwd, x, zn, rp, g),
-        lambda: tgf.gat_ds_plain(fwd, x, zn, rp, g),
-        walk + edge_h + slot_h + 2 * feat_b + node,
-        e * heads * (2 * fh + 2))
+    if ds:
+        row("ds", lambda: tgf.gat_ds(fwd, x, zn, rp, g),
+            lambda: tgf.gat_ds_plain(fwd, x, zn, rp, g),
+            walk + edge_h + slot_h + 2 * feat_b + node,
+            e * heads * (2 * fh + 2))
     del g
 
     # the src-side aggregation: one torch.sparse.mm of the block-diagonal
@@ -2144,6 +2172,322 @@ def k4_spmm_yardstick(ef, tts, gt, heads, fh, rate):
     return r
 
 
+# -- the DotGat-on-K7 slice (DotGatConv's bitmask route) ---------------------
+
+BITDOT_SHAPES = ((2, 64), (1, 128), (4, 32), (3, 8))
+DOTGAT_FIN, DOTGAT_D, DOTGAT_H = 64, 64, 2    # tools/perf_bitdot_full.py:52-58
+DOTGAT_K7_STEPS = 6                            # one warm-up step, 5 timed
+K7_COUNTERS = ("bitdot_fwd", "bitdot_bwd_dz", "bitdot_bwd_dq")
+
+
+def bitdot_inputs(gen, n_src, n_dst, heads, dim, top=1.0, saturate=False):
+    """q and z on a grid of 1/16 in [-top, top], g normal.  At D = 64 (isd
+    = 1/8) the scores are exact in f32, so a kernel and its plain version
+    clip the same edges.  ``saturate`` makes z positive and sets every
+    eighth row of q to +c or -c, with c such that about half of those
+    rows' scores lie past +40 or -40 (as tests/test_torch_bitdot.py)."""
+    q = grid(gen, n_dst, heads, dim, step=1 / 16, top=top)
+    z = grid(gen, n_src, heads, dim, step=1 / 16, top=top)
+    if saturate:
+        z = z.abs() + 1 / 16
+        c = round(40 / (0.5625 * dim ** 0.5) * 16) / 16
+        q[::16], q[8::16] = c, -c
+    g = torch.randn(n_dst, heads, dim, device="cuda", generator=gen)
+    return q, z, g
+
+
+def bitdot_plain_bwd(bf, q, z, g, out, l):
+    """(dq, dz) from K7's plain versions, linv and rho formed as
+    ``_BitDot`` forms them from the forward's out and l."""
+    from dgl_tpu_torch.ops.kernels import bitdot as bd, bitgat as bg
+    isd = 1 / q.shape[2] ** 0.5
+    linv, rho = bg.backward_scales(g, out, l, None)
+    return (bd.bitdot_bwd_dq_plain(bf.packed, q, z, g, linv, rho, isd),
+            bd.bitdot_bwd_dz_plain(bf.packed_rev, q, z, g, linv, rho, isd))
+
+
+def phase_bitdot_mid(dgt, bm, bg, bd):
+    """Phase 28: each K7 kernel against its plain version on the phase-8
+    graph (simple, bipartite, plane 31 on both sides) at (H, D) = (2, 64),
+    (1, 128), (4, 32), (3, 8) and with scores past +-40 at (2, 64); l
+    exactly at zero scores; the kernels' times at each shape; then
+    DotGatConv(64, 64, 2) on K7 against its gather path, and the same layer
+    at D = 32, which must not launch K7."""
+    from dgl_tpu_torch.utils import config
+    row, col, n_src, n_dst = mid_graph()
+    key = np.unique(col * n_src + row)
+    row, col = key % n_src, key // n_src
+    bf = bm.build_bit_format_device(row, col, n_src, n_dst, device="cuda")
+    if bf.rem_src.numel() or not ((bf.packed < 0).any()
+                                  and (bf.packed_rev < 0).any()):
+        raise AssertionError("mid-size graph is not simple or misses "
+                             "plane 31")
+    counters = [getattr(bd, name) for name in K7_COUNTERS]
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    src_t = torch.from_numpy(row).cuda()
+    dst_t = torch.from_numpy(col).cuda()
+    for heads, dim, saturate in [s + (False,) for s in BITDOT_SHAPES] + [
+            (2, 64, True)]:
+        tag = f"H={heads} D={dim}" + (" saturated" if saturate else "")
+        q, z, g = bitdot_inputs(gen, n_src, n_dst, heads, dim,
+                                saturate=saturate)
+        isd = 1 / dim ** 0.5
+        if saturate:
+            e = (z[src_t] * q[dst_t]).sum(-1) * isd
+            frac = float((e.abs() >= 40).float().mean())
+            if frac < 0.01:
+                raise AssertionError(f"K7 mid {tag}: {frac:.4f} saturated")
+        ins = [t.clone().requires_grad_() for t in (q, z)]
+        before = [c.launches for c in counters]
+        out = bd.bitdot_attention_aggregate(bf, *ins)
+        out.backward(g)
+        torch.cuda.synchronize()
+        if [c.launches - b for c, b in zip(counters, before)] != [1, 1, 1]:
+            raise AssertionError(f"K7 mid {tag}: not one launch each way")
+        l = bd.bitdot_fwd(bf.packed, q, z, isd)[1]
+        want = bd.bitdot_fwd_plain(bf.packed, q, z, isd)
+        want += bitdot_plain_bwd(bf, q, z, g, *want)
+        errs = [close(got, w, f"K7 mid {name} {tag}")
+                for name, got, w in zip(
+                    ("out", "l", "dq", "dz"),
+                    (out.detach(), l, ins[0].grad, ins[1].grad), want)]
+        msg = (f"# K7 mid {tag}: max|err| out {errs[0]:.3g}, l "
+               f"{errs[1]:.3g}, dq {errs[2]:.3g}, dz {errs[3]:.3g}")
+        if saturate:
+            msg += f"; {frac:.1%} of the scores past +-40"
+        else:
+            linv, rho = bg.backward_scales(g, want[0], want[1], None)
+            times = [cuda_ms(lambda: bd.bitdot_fwd(bf.packed, q, z, isd)),
+                     cuda_ms(lambda: bd.bitdot_bwd_dz(bf.packed_rev, q, z,
+                                                      g, linv, rho, isd)),
+                     cuda_ms(lambda: bd.bitdot_bwd_dq(bf.packed, q, z, g,
+                                                      linv, rho, isd))]
+            msg += ("; fwd {:.4f} ms, dz {:.4f} ms, dq {:.4f} ms ({} edges)"
+                    .format(*times, len(row)))
+        log(msg)
+    # all scores 0: every p is 1 and l is each dst's in-degree, a sum that
+    # is exact in any order
+    l = bd.bitdot_fwd(bf.packed, torch.zeros_like(q), z, 0.125)[1]
+    deg = torch.bincount(dst_t, minlength=n_dst).float()
+    if not torch.equal(l, deg.unsqueeze(1).expand_as(l)):
+        raise AssertionError("K7 mid: l at zero scores is not the in-degree")
+
+    gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
+    gr.unit().create_bitmask_format(on_device=True)
+    x = torch.randn(n_src, DOTGAT_FIN, device="cuda", generator=gen)
+    mseed = torch.Generator(device="cuda").manual_seed(29)
+    for dim, heads, launches in ((DOTGAT_D, DOTGAT_H, 1), (32, DOTGAT_H, 0)):
+        conv = dgt.nn.DotGatConv(DOTGAT_FIN, dim, heads, generator=mseed)
+
+        def step():
+            conv.zero_grad()
+            xs = x.clone().requires_grad_()
+            out = conv(gr, xs)
+            out.square().mean().backward()
+            return [out.detach(), xs.grad] + [p.grad.clone()
+                                              for p in conv.parameters()]
+
+        before = [c.launches for c in counters]
+        kern = step()
+        torch.cuda.synchronize()
+        got = [c.launches - b for c, b in zip(counters, before)]
+        if got != [launches] * 3:
+            raise AssertionError(f"DotGatConv(64, {dim}, {heads}): K7 "
+                                 f"launches {got}, not {launches} each")
+        if not launches:
+            log(f"# DotGatConv(64, {dim}, {heads}) mid size: no K7 launch "
+                f"(D < 64)")
+            continue
+        config.set_use_kernels(False)
+        try:
+            ref = step()
+        finally:
+            config.set_use_kernels(True)
+        err = close(kern[0], ref[0], "DotGatConv K7 vs gather path")
+        for i, (a, b) in enumerate(zip(kern[1:], ref[1:])):
+            close(a, b, f"DotGatConv K7 grad {i}", rtol=1e-3, atol=1e-5)
+        log(f"# DotGatConv(64, {dim}, {heads}) mid size, K7 vs gather "
+            f"path: out max|err| {err:.3g}, {len(kern) - 1} gradients agree")
+
+
+def all_counts(bm, bg, bd, tts, tgf):
+    """Every wrapper's launch counter of the port's kernels."""
+    counts = read_counts(tts, tgf)
+    for mod, names in ((bm, ("bit_matmul_t", "bit_matmul")),
+                       (bg, ("bitgat_fwd", "bitgat_bwd")),
+                       (bd, K7_COUNTERS)):
+        counts.update({name: getattr(mod, name).launches for name in names})
+    return counts
+
+
+def dotgat_loss(model, g, x, y=None, train=None):
+    """(out^2).mean() of one DotGatConv (tools/perf_bitdot_full.py:81)."""
+    return model(g, x).square().mean()
+
+
+def phase_dotgat_k7(dgt, bm, bg, bd, tts, tgf, g):
+    """Phase 29: DotGatConv(64, 64, 2) with loss (out^2).mean() and Adam
+    1e-3 on the phase-4 bitmask graph, K7 forward and backward: one
+    warm-up step and 5 timed steps, every counter set to 0 just before and
+    read just after; then a profiled step held to the counters."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    conv = dgt.nn.DotGatConv(DOTGAT_FIN, DOTGAT_D, DOTGAT_H, generator=gen)
+    x = torch.randn(N_NODES, DOTGAT_FIN, device="cuda", generator=gen)
+    opt = torch.optim.Adam(conv.parameters(), lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    for mod in (bm.bit_matmul_t, bm.bit_matmul, bg.bitgat_fwd,
+                bg.bitgat_bwd) + tuple(getattr(bd, n) for n in K7_COUNTERS):
+        mod.launches = 0
+    times, losses = [], []
+    for _ in range(DOTGAT_K7_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = dotgat_loss(conv, g, x)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = all_counts(bm, bg, bd, tts, tgf)
+    step_s = statistics.median(times[1:])
+    log(f"# DotGatConv(64, 64, 2) on K7: steps "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median after one "
+        f"warm-up step {step_s * 1e3:.3f} ms, "
+        f"{g.num_edges() / step_s:.6g} train-edges/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes, loss "
+        f"{', '.join(f'{v:.6f}' for v in losses)}, launches a step "
+        f"{ {k: v / DOTGAT_K7_STEPS for k, v in counts.items()} }")
+    want = {name: 0 for name in counts}
+    want.update({name: DOTGAT_K7_STEPS for name in K7_COUNTERS})
+    if counts != want:
+        raise AssertionError(f"DotGat K7 launches {counts}, not one of each "
+                             f"K7 kernel a step and no other")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"DotGat losses do not fall: {losses}")
+    phase_profile(conv, opt, g, x, None, None,
+                  lambda: all_counts(bm, bg, bd, tts, tgf), loss=dotgat_loss)
+    return conv, x, counts
+
+
+class PlainBitDot(torch.autograd.Function):
+    """K7's attention built from the plain versions alone: the twin of the
+    port's ``_BitDot``."""
+
+    @staticmethod
+    def forward(ctx, q, z, bf):
+        from dgl_tpu_torch.ops.kernels import bitdot as bd
+        out, l = bd.bitdot_fwd_plain(bf.packed, q, z, 1 / q.shape[2] ** 0.5)
+        ctx.save_for_backward(q, z, out, l)
+        ctx.bf = bf
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return bitdot_plain_bwd(ctx.bf, *ctx.saved_tensors[:2], g,
+                                *ctx.saved_tensors[2:]) + (None,)
+
+
+def phase_dotgat_k7_check(conv, g, x):
+    """One step of phase 29's layer on K7 against the same step built from
+    the plain versions: loss and both weight gradients."""
+    heads, dim = conv.num_heads, conv.out_feats
+
+    def grads(forward):
+        conv.zero_grad()
+        out = forward()
+        if out.shape != (N_NODES, heads, dim) or not torch.isfinite(
+                out).all():
+            raise AssertionError("DotGatConv output is not finite of shape "
+                                 f"{(N_NODES, heads, dim)}")
+        loss = out.square().mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in conv.named_parameters()}
+
+    loss_k, grad_k = grads(lambda: conv(g, x))
+    loss_p, grad_p = grads(lambda: PlainBitDot.apply(
+        conv.fc_dst(x).reshape(-1, heads, dim),
+        conv.fc_src(x).reshape(-1, heads, dim), g.unit()._bits))
+    if abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError(f"loss {loss_k} (K7) vs {loss_p} (plain)")
+    for n in grad_k:
+        close(grad_k[n], grad_p[n], f"DotGat K7 grad {n}", rtol=1e-3,
+              atol=1e-5)
+    log(f"# DotGatConv, K7 vs its plain versions at full size: loss "
+        f"{loss_k:.8f} vs {loss_p:.8f}, {len(grad_k)} gradients agree")
+
+
+def timed_once(fn):
+    """(fn(), its device ms) from one call between CUDA events: the plain
+    versions take seconds at full size, so their yardstick is the call
+    that also gives the reference."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def bitdot_yardsticks(bd, bg, g, heads, dim, rate):
+    """Phase 30: each K7 kernel at full size on the phase-4 graph against
+    its plain version on every row, with its time (median of 5), its plain
+    version's (the one call that gives the reference), the bound and no
+    library time: no PyTorch call computes masked-softmax attention on a
+    graph.  q and z are of a trained layer's size, on a grid of 1/16 in
+    [-2, 2] (scores about 1.3 wide, inside the clip), g normal.  No sum
+    here is exact (exp(e) lies on no grid), so each check takes the
+    standard tolerance and ``close``'s half-tolerance log."""
+    bf, e = g.unit()._bits, g.num_edges()
+    n, isd = N_NODES, 1 / dim ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
+    q, z, gr = bitdot_inputs(gen, n, n, heads, dim, top=2.0)
+    node, feat_b = n * heads * 4, n * heads * dim * 4
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, ops):
+        got = kernel()
+        want, plain_ms = timed_once(plain)
+        err = max(close(a, w, f"K7 {name} full size H={heads} D={dim}")
+                  for a, w in zip(got if isinstance(got, tuple) else (got,),
+                                  want if isinstance(want, tuple)
+                                  else (want,)))
+        bnd, by = bound(nbytes, ops, rate)
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel), "plain_ms": plain_ms,
+             "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        rows[name] = r
+        log(f"# K7 {name} H={heads} D={dim}: {r['ms']:.4f} ms (bound "
+            f"{bnd:.4f} ms by {by}: {nbytes} B, {ops} ops), plain "
+            f"{plain_ms:.4f} ms, library none, max|err| {err:.3g}")
+        return want
+
+    # forward: in the bits of A, q, z; out out, l.  Per edge and head the
+    # score (2 D), clip and exp (3), l (1) and the sum p z (2 D)
+    out, l = row("fwd", lambda: bd.bitdot_fwd(bf.packed, q, z, isd),
+                 lambda: bd.bitdot_fwd_plain(bf.packed, q, z, isd),
+                 bf.packed.numel() * 4 + 3 * feat_b + node,
+                 e * heads * (4 * dim + 5))
+    linv, rho = bg.backward_scales(gr, out, l, None)
+    del out, l
+    args = (q, z, gr, linv, rho, isd)
+    # dz: in the bits of A^T, q, z, g, linv, rho; out dz.  Per edge and
+    # head the two dots (4 D), p, alpha, de, the clip mask and draw (12),
+    # draw q + alpha g (4 D)
+    row("dz", lambda: bd.bitdot_bwd_dz(bf.packed_rev, *args),
+        lambda: bd.bitdot_bwd_dz_plain(bf.packed_rev, *args),
+        bf.packed_rev.numel() * 4 + 4 * feat_b + 2 * node,
+        e * heads * (8 * dim + 12))
+    # dq: the same inputs over the bits of A; the sum draw z (2 D)
+    row("dq", lambda: bd.bitdot_bwd_dq(bf.packed, *args),
+        lambda: bd.bitdot_bwd_dq_plain(bf.packed, *args),
+        bf.packed.numel() * 4 + 4 * feat_b + 2 * node,
+        e * heads * (6 * dim + 12))
+    return rows
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2159,7 +2503,8 @@ def main():
     sys.path.insert(0, ROOT)
     import dgl_tpu_torch as dgt
     from dgl_tpu_torch.ops import edgeflat as ef
-    from dgl_tpu_torch.ops.kernels import bitgat as bg, bitmm as bm, build
+    from dgl_tpu_torch.ops.kernels import bitdot as bd, bitgat as bg
+    from dgl_tpu_torch.ops.kernels import bitmm as bm, build
     from dgl_tpu_torch.ops.kernels import spmm as tsp, tiled_spmm as tts
     from dgl_tpu_torch.ops.kernels import gat_fused as tgf
 
@@ -2192,6 +2537,7 @@ def main():
     phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf)
     phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
     phase("25 (K10 v2 mid size)", phase_edgegat_mid, dgt, tts, tgf)
+    phase("28 (K7 mid size)", phase_bitdot_mid, dgt, bm, bg, bd)
 
     # phases 4-6: the GCN slice at full size
     g = phase("graph", reddit_graph, dgt)
@@ -2221,6 +2567,15 @@ def main():
     del model, opt
     k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, g,
                 h, d, rate) for h, d in GAT_SHAPES]
+
+    # phases 29-30: DotGatConv on K7, on the bitmask graph before the tiled
+    # one is built
+    conv, xd, k7_launches = phase("29 (DotGat on K7)", phase_dotgat_k7, dgt,
+                                  bm, bg, bd, tts, tgf, g)
+    phase("29 (DotGat on K7 check)", phase_dotgat_k7_check, conv, g, xd)
+    del conv, xd
+    k7 = [phase(f"30 (K7 yardsticks H={h} D={d})", bitdot_yardsticks, bd,
+                bg, g, h, d, rate) for h, d in BITDOT_SHAPES[:2]]
 
     # phases 12-16: the tiled slice at full size
     gt = phase("12 (tiled format)", tiled_graph, dgt, g)
@@ -2291,6 +2646,12 @@ def main():
                 EGAT_D, EGAT_FE, rate)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
+    # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
+    # dx, K4's SpMM for the numerator
+    phase("27 (K6 yardsticks H=4 Fh=32, EGAT graph)", k6_yardsticks, tgf,
+          tts, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), False)
+    phase("27 (K4 SpMM yardstick H=4 Fh=32, EGAT graph)", k4_spmm_yardstick,
+          ef, tts, ge, EGAT_H, EGAT_D, rate)
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -2384,6 +2745,19 @@ def main():
          "source": "dgl_tpu_torch/csrc/gat_fused.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1785, :1850",
          "launches": k10_launches["edgegat_ds"], **k10["ds"]},
+        # K7 at DotGatConv(64, 64, 2)'s (2, 64), launches from phase 29
+        {"name": "bitdot_fwd", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitdot.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitdot.py:156",
+         "launches": k7_launches["bitdot_fwd"], **k7[0]["fwd"]},
+        {"name": "bitdot_bwd_dz", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitdot.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitdot.py:272",
+         "launches": k7_launches["bitdot_bwd_dz"], **k7[0]["dz"]},
+        {"name": "bitdot_bwd_dq", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitdot.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitdot.py:368",
+         "launches": k7_launches["bitdot_bwd_dq"], **k7[0]["dq"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

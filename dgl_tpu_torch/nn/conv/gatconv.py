@@ -36,13 +36,14 @@ It holds (E, H, D) messages, so it does not fit at Reddit scale.
 
 DotGatConv: counterpart of ``dgl_tpu/nn/conv/gatconv.py:253-301``
 (reference ``python/dgl/nn/pytorch/conv/dotgatconv.py``), dot-product
-attention softmax(<ft_src[u], ft_dst[v]> / sqrt(D)) weighting ft_src.  At
-``kernel_spmm_min_edges`` edges and more on a tiled graph it takes the
-slot-space route (K8: K4's SDDMM, then K6's kernels); otherwise the
-gather path.  Where the JAX package takes its bit-masked kernel K7 (a
-simple bit format, H * D <= 128 and D >= 64, ``gatconv.py:280-285``),
-K7 is not ported yet: the port takes K8 on a tiled graph, else the gather
-path.
+attention softmax(<ft_src[u], ft_dst[v]> / sqrt(D)) weighting ft_src.
+Routes, in the order of ``gatconv.py:276-299``, at ``kernel_spmm_min_edges``
+edges and more: the bit-masked kernels (``ops/kernels/bitdot.py``, K7)
+when the graph carries a simple bit format, H * D <= 128 and D >= 64; the
+slot-space route (K8: K4's SDDMM, then K6's kernels) on a tiled graph;
+otherwise the gather path.  K7 and K8 clip the scores at +-40, and K7's
+gradient is 0 at saturated scores, so the routes agree while every score
+lies inside the clip.
 
 GATv2Conv (K9) and EGATConv (K11 v2): see their classes.
 """
@@ -59,6 +60,7 @@ from ... import function as fn
 from ...core import apply_edges, update_all
 from ...ops import edge_softmax
 from ...ops.edgeflat import edge_softmax_flat, sddmm_flat, spmm_mul_flat
+from ...ops.kernels import bitdot
 from ...ops.kernels import bitgat
 from ...ops.kernels import gat_fused
 from ...ops.kernels.spmm import get_tiled_formats
@@ -502,6 +504,11 @@ class EGATConv(nn.Module):
                 f"out_edge={self.out_edge_feats}, heads={self.num_heads}")
 
 
+# DotGatConv takes K7 from this head width up, the JAX package's gate
+# (gatconv.py:281-282), set by the TPU's matrix unit
+DOT_BITS_MIN_D = 64
+
+
 class DotGatConv(nn.Module):
     """Dot-product attention conv: ``fc_src``/``fc_dst`` (no bias) project
     to H heads of D, and out[v] = sum_u softmax_u(<ft_src[u], ft_dst[v]> /
@@ -535,6 +542,12 @@ class DotGatConv(nn.Module):
         unit = graph.unit()
         if (config.use_kernels()
                 and unit.num_edges >= config.get("kernel_spmm_min_edges")):
+            bits = unit._bits
+            if (bits is not None and bits.rem_src.shape[0] == 0
+                    and heads * dim <= bitdot.MAX_HD
+                    and dim >= DOT_BITS_MIN_D):
+                return bitdot.bitdot_attention_aggregate(
+                    bits, ft_dst, ft_src).to(ft_src.dtype)
             tf = get_tiled_formats(unit)[0]
             if tf is not None:
                 return gat_fused.dot_gat_attention_aggregate(

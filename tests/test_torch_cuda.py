@@ -8,11 +8,14 @@ PyTorch:
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
 atomics (K5's, for the gradient of er, and K3's, K4's and K6's
 shared-memory adds) add in an order that changes from run to run."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import dgl_tpu_torch as dgt
+import dgl_tpu_torch.ops.kernels.bitdot as tbd
 import dgl_tpu_torch.ops.kernels.bitgat as tbg
 import dgl_tpu_torch.ops.kernels.bitmm as tbm
 import dgl_tpu_torch.ops.kernels.gat_fused as tgf
@@ -811,4 +814,121 @@ def test_edgegatconv_kernels_match_flat_route(card, monkeypatch):
     assert len(kern) == len(ref)
     torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=ATOL)
     for a, b in zip(kern[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+# -- K7: bit-masked dot-product attention ----------------------------------
+
+def _bitdot_inputs(card, n_src, n_dst, heads, dim, seed, saturate=False):
+    """q, z on a grid of 1/16 in [-1, 1] (the scores are exact in f32 at D
+    = 64, so kernel and plain version clip the same edges) and g normal.
+    ``saturate``, as in tests/test_torch_bitdot.py: z positive and every
+    eighth row of q at +c or -c, with about half of its scores past
+    +-40."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randint(-16, 17, (n_dst, heads, dim), device=card,
+                      generator=gen) / 16
+    z = torch.randint(-16, 17, (n_src, heads, dim), device=card,
+                      generator=gen) / 16
+    if saturate:
+        z = z.abs() + 1 / 16
+        c = round(40 / (0.5625 * math.sqrt(dim)) * 16) / 16
+        q[::16], q[8::16] = c, -c
+    g = torch.randn(n_dst, heads, dim, device=card, generator=gen)
+    return q, z, g
+
+
+@pytest.mark.parametrize("heads,dim,saturate", [
+    (2, 64, False), (1, 128, False), (4, 32, False), (3, 8, False),
+    (2, 64, True)])
+def test_bitdot_kernels_match_plain(card, heads, dim, saturate):
+    """K7's three kernels through ``bitdot_attention_aggregate`` against
+    the plain versions chained the same way, on a bipartite graph whose
+    packings reach plane 31; with ``saturate``, scores past +-40."""
+    row, col, n_src, n_dst = _simple_coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    q, z, g = _bitdot_inputs(card, n_src, n_dst, heads, dim, heads + dim,
+                             saturate)
+    isd = 1 / math.sqrt(dim)
+    if saturate:
+        e = (z[torch.from_numpy(row).to(card)]
+             * q[torch.from_numpy(col).to(card)]).sum(-1) * isd
+        assert (e.abs() >= 40).float().mean() > 0.01
+    ins = [t.clone().requires_grad_() for t in (q, z)]
+    counters = (tbd.bitdot_fwd, tbd.bitdot_bwd_dz, tbd.bitdot_bwd_dq)
+    before = [c.launches for c in counters]
+    out = tbd.bitdot_attention_aggregate(bf, *ins)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    ref, l_ref = tbd.bitdot_fwd_plain(bf.packed, q, z, isd)
+    linv, rho = tbg.backward_scales(g, ref, l_ref, None)
+    dz = tbd.bitdot_bwd_dz_plain(bf.packed_rev, q, z, g, linv, rho, isd)
+    dq = tbd.bitdot_bwd_dq_plain(bf.packed, q, z, g, linv, rho, isd)
+    torch.testing.assert_close(out.detach(), ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(tbd.bitdot_fwd(bf.packed, q, z, isd)[1],
+                               l_ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(ins[0].grad, dq, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(ins[1].grad, dz, rtol=RTOL, atol=ATOL)
+
+
+def test_bitdot_kernels_take_hd_up_to_128(card):
+    """H * D = 129 raises in every wrapper before a launch."""
+    row, col, n_src, n_dst = _simple_coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    q, z, g = _bitdot_inputs(card, n_src, n_dst, 3, 43, 1)
+    s = torch.zeros(n_dst, 3, device=card)
+    before = tbd.bitdot_fwd.launches
+    with pytest.raises(ValueError, match="H \\* D"):
+        tbd.bitdot_fwd(bf.packed, q, z, 0.1)
+    with pytest.raises(ValueError, match="H \\* D"):
+        tbd.bitdot_bwd_dz(bf.packed_rev, q, z, g, s, s, 0.1)
+    with pytest.raises(ValueError, match="H \\* D"):
+        tbd.bitdot_bwd_dq(bf.packed, q, z, g, s, s, 0.1)
+    assert tbd.bitdot_fwd.launches == before
+
+
+def test_bitdot_wrappers_never_take_plain_on_cuda(card, monkeypatch):
+    """On CUDA tensors each K7 wrapper launches its kernel: a plain version
+    that is reached raises."""
+    for name in ("bitdot_fwd_plain", "bitdot_bwd_dz_plain",
+                 "bitdot_bwd_dq_plain"):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(tbd, name, refuse)
+    row, col, n_src, n_dst = _simple_coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    q, z, g = _bitdot_inputs(card, n_src, n_dst, 2, 64, 2)
+    q.requires_grad_()
+    z.requires_grad_()
+    tbd.bitdot_attention_aggregate(bf, q, z).backward(g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(q.grad).all() and torch.isfinite(z.grad).all()
+
+
+def test_dotgatconv_k7_matches_gather_path(card, monkeypatch):
+    """A DotGatConv(24, 64, 2) step on K7 equals its gather path on the
+    card (scores inside the clip)."""
+    row, col, n, _ = _simple_coo()
+    g = dgt.graph((row, col), num_nodes=n)
+    g.unit().create_bitmask_format(on_device=True)
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    conv = dgt.nn.DotGatConv(24, 64, 2, generator=torch.Generator(
+        device=card).manual_seed(0))
+    x = torch.randn(n, 24, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+
+    def step():
+        conv.zero_grad()
+        out = conv(g, x)
+        out.square().mean().backward()
+        return [out.detach()] + [p.grad.clone() for p in conv.parameters()]
+
+    before = tbd.bitdot_fwd.launches
+    kern = step()
+    assert tbd.bitdot_fwd.launches == before + 1
+    monkeypatch.setitem(config._FLAGS, "use_kernels", False)
+    chain = step()
+    torch.testing.assert_close(kern[0], chain[0], rtol=RTOL, atol=ATOL)
+    for a, b in zip(kern[1:], chain[1:]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

@@ -38,6 +38,7 @@ import dgl_tpu.ops.pallas.gat_fused as jgf
 import dgl_tpu.ops.pallas.tiled_spmm as jts
 import dgl_tpu_torch as dgt
 import dgl_tpu_torch.ops.edgeflat as tef
+import dgl_tpu_torch.ops.kernels.bitdot as tbd
 import dgl_tpu_torch.ops.kernels.gat_fused as tgf
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 from dgl_tpu import nn as jnn
@@ -583,6 +584,8 @@ def test_gat_training_on_k6_matches_jax(min_edges_1):
 def _routes(conv, g, x):
     """{route: calls} of one forward and backward of ``conv``."""
     spies = {
+        "k7": mock.patch.object(tbd, "bitdot_attention_aggregate",
+                                wraps=tbd.bitdot_attention_aggregate),
         "k6": mock.patch.object(tgf, "gat_attention_aggregate",
                                 wraps=tgf.gat_attention_aggregate),
         "k8": mock.patch.object(tgf, "dot_gat_attention_aggregate",
@@ -632,9 +635,9 @@ def test_gatconv_route(case, min_edges_1, monkeypatch):
 @pytest.mark.parametrize("bits,tiled", [(True, True), (True, False),
                                         (False, True), (False, False)])
 def test_dotgatconv_route(bits, tiled, min_edges_1):
-    """DotGatConv takes K8 on a tiled graph and the gather path without
-    one; with a simple bit format at D >= 64, where the JAX package takes
-    K7 (not ported), the port does the same (ROADMAP Queue 3)."""
+    """DotGatConv takes K7 on a simple bit format at D >= 64 and H * D <=
+    128, as the JAX package does, whether or not the graph is also tiled;
+    otherwise K8 on a tiled graph and the gather path without one."""
     rng = np.random.default_rng(21)
     n = 200
     key = np.unique(rng.integers(0, n * n, 1500))
@@ -646,6 +649,7 @@ def test_dotgatconv_route(bits, tiled, min_edges_1):
     conv = dgt.nn.DotGatConv(6, 64, 2, device="cpu",
                              generator=torch.Generator().manual_seed(1))
     calls = _routes(conv, g, torch.randn(n, 6))
-    assert calls["k8"] == int(tiled)
-    assert calls["gather"] == int(not tiled)
-    assert calls["k4"] == 2 * int(tiled)          # num and dq
+    assert calls["k7"] == int(bits)
+    assert calls["k8"] == int(tiled and not bits)
+    assert calls["gather"] == int(not tiled and not bits)
+    assert calls["k4"] == 2 * int(tiled and not bits)   # num and dq

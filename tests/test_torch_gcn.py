@@ -205,6 +205,9 @@ key = torch.unique(col * 50 + row)
 gs = dgt.graph((key % 50, key // 50), num_nodes=50, device="cpu")
 gs.unit().create_bitmask_format()
 bits_gat(gs, torch.randn(50, 5)).sum().backward()   # simple: the kernels
+import dgl_tpu_torch.ops.kernels.bitdot
+dgt.nn.DotGatConv(5, 64, 2, device="cpu")(
+    gs, torch.randn(50, 5)).sum().backward()                    # K7
 dgt.ops.edge_softmax(gs, dgt.ops.gsddmm(gs, "add", torch.randn(50, 2),
                                         torch.randn(50, 2)))
 import dgl_tpu_torch.ops.edgeflat, dgl_tpu_torch.ops.kernels.tiled_spmm

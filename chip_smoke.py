@@ -38,7 +38,8 @@ Phases, each of which raises on failure (nothing is caught):
    versions on the phase-3 multigraph in the tiled format, built on the
    card and equal to the host builder's;
 12. the tiled format at full size: a second graph over the phase-4 COO,
-   forward and reverse formats built on the card (no bitmask);
+   whose format ``auto_format`` picks by the JAX package's rules (it must
+   be the tiled one), forward and reverse built on the card (no bitmask);
 13. route 1: the phase-4 GCN for 10 Adam steps on the tiled format (K3),
    a profiled step, and one step against the gather path;
 14. route 3: the same GCN with ``norm="none"`` and edge weights from
@@ -130,9 +131,28 @@ Phases, each of which raises on failure (nothing is caught):
    versions;
 30. K7 yardsticks on the phase-4 graph at (2, 64) and (1, 128): each
    kernel against its plain version on every row, its time (median of 5),
-   its plain version's and the bound; no PyTorch call computes it.
+   its plain version's and the bound; no PyTorch call computes it;
+31. the hybrid slice at mid size: K12 in both orientations against its
+   plain version (F = 1, 16, 41, 128; exact on a grid; an all-zero
+   block); ``update_all(copy_u, sum)`` on the hybrid format against the
+   gather path, forward and gradient, not symmetric, symmetric, multires,
+   with a weighted bf16 block and with an empty remainder; auto_format on
+   the three graphs of tests/test_pallas.py against the JAX package's
+   choices;
+32. bench.py's symmetric hybrid format (k_dense 32,768, min_degree 96,
+   tile 1024, cap 512) on a third graph over the phase-4 COO, its sizes
+   held to those measured on the host; the phase-4 GCN for 10 Adam steps
+   on it (K12 rows and columns and K3 on the remainder, 4 launches each a
+   step), a profiled step held to the counters, and one step against
+   route 1's tiled step;
+33. K12 yardsticks on the phase-32 block at F = 16: each orientation
+   exactly equal to its plain version on a grid, its time (median of 5),
+   its plain version's, the bound and ``torch.matmul`` of the block in
+   bf16.
 
-Phases 28-30 run after phases 25 and 10; each phase prints its seconds.  Prints the card line and a
+Phases 28-30 run after phases 25 and 10, phase 31 after phase 28, phases
+32-33 after phase 24, with the bitmask freed; each phase prints its
+seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -153,6 +173,7 @@ N_NODES, N_EDGES, FEAT, HIDDEN, CLASSES = 232_965, 114_615_892, 602, 16, 41
 STEPS = 10
 RTOL, ATOL = 1e-4, 1e-3     # f32 sums in another order, and K1's atomics
 F32_PEAK = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_PEAK = 989e12          # H100 SXM bf16 on the tensor cores, dense
 
 
 def log(msg):
@@ -208,8 +229,9 @@ def grid(gen, *shape, step, top, low=None):
     """Random multiples of ``step`` in [``low``, ``top``] (``low`` = -top
     by default) on the card.  The full-size checks take such inputs: the
     plain versions and the library calls sum with atomics, in an order
-    that changes from run to run, and at the Reddit graph's degree of up
-    to 21,656 the order alone moved an output by more than ATOL.  On a
+    that changes from run to run, and at the Reddit graph's hubs (degree
+    up to 10,674 with self-loops) the order alone moved an output by more
+    than ATOL.  On a
     grid the sums are exact in any order (see ``exact_sums``)."""
     low = -top if low is None else low
     return torch.randint(round(low / step), round(top / step) + 1, shape,
@@ -362,8 +384,9 @@ def phase_train(dgt, bm, g, x, y, train):
     return model, opt, k1
 
 
-# each slot-space or K7 wrapper's launch counter and the CUDA kernel it
-# launches, once a call
+# each slot-space, K7, K12 or K3 wrapper's launch counter and the CUDA
+# kernel it launches, once a call (K3's and K4's SpMM share a kernel: no
+# step reads both counters)
 TRACED_KERNELS = {
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": "gat_ds_kernel", "src_aggregate": "src_agg_kernel",
@@ -372,7 +395,9 @@ TRACED_KERNELS = {
     "vattn_node_grad": "vattn_node_grad_kernel",
     "k4_spmm": "tiled_spmm_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel",
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
-    "bitdot_bwd_dq": "bitdot_dq_kernel"}
+    "bitdot_bwd_dq": "bitdot_dq_kernel",
+    "int8_matmul_rows": "int8_rows_kernel",
+    "int8_matmul_cols": "int8_cols_kernel", "k3_spmm": "tiled_spmm_kernel"}
 
 
 def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
@@ -795,13 +820,27 @@ def phase_tiled_mid(tts, tsp, ef):
 
 
 def tiled_graph(dgt, g):
-    """Phase 12: a second graph over g's COO with the tiled format (auto
-    cap), forward and reverse built on the card, and no bitmask."""
+    """Phase 12: a second graph over g's COO whose format ``auto_format``
+    picks by the JAX package's rules: the tiled format (auto cap), forward
+    and reverse built on the card, and no bitmask.  With symmetric=None
+    and over 50M edges no symmetry check runs, so the bitmask counts
+    twice, over the 12 GiB budget, and the top 8,192 rows carry under 30%
+    of the edges."""
     gt = dgt.graph(g.unit().coo(), num_nodes=N_NODES, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gt.create_tiled_format()
+    choice = gt.unit()._auto_format_choice()
+    families = gt.auto_format()
     torch.cuda.synchronize()
+    log(f"# auto_format: {families}, deciding on a bitmask of "
+        f"{choice['bits_bytes']} bytes (symmetric {choice['symmetric']}) "
+        f"against a {12 << 30}-byte budget and the top 8,192 rows' "
+        f"{choice['top_edges']} of {choice['edges']} edges "
+        f"({choice['top_edges'] / choice['edges']:.4f}, the hybrid takes "
+        f"0.3 or more)")
+    if families != {gt.canonical_etypes[0]: "tiled"} or \
+            choice["family"] != "tiled":
+        raise AssertionError(f"auto_format picked {families}, not tiled")
     fwd, rev = gt.unit().tiled_format()
     slots = fwd.num_buckets * fwd.cap
     log(f"# tiled format (forward and reverse) built on the card in "
@@ -933,10 +972,10 @@ def phase_tiled_gat(dgt, tts, gt, x, y, train):
     return model, opt, launches
 
 
-def bound(nbytes, ops, rate):
-    """(bound ms, what bounds it) for ``nbytes`` moved and ``ops`` f32
-    operations."""
-    bytes_ms, ops_ms = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
+def bound(nbytes, ops, rate, peak=F32_PEAK):
+    """(bound ms, what bounds it) for ``nbytes`` moved and ``ops``
+    operations at ``peak`` per second (f32 by default)."""
+    bytes_ms, ops_ms = nbytes / rate * 1e3, ops / peak * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -2488,6 +2527,340 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate):
     return rows
 
 
+# -- the hybrid slice (K12) ---------------------------------------------------
+
+K12_FS = (1, 16, 41, 128)
+# bench.py's hybrid settings (bench.py:91-97: k_dense 32768, min_degree
+# 96, symmetric; tile 1024, cap 512), and what they give on the phase-4
+# graph (seed 0, 114,848,857 edges with self-loops), measured on the host
+HYBRID_K, HYBRID_MIN_DEGREE = 32_768, 96
+HYBRID_WANT = {"k": 32_768, "dense_edges": 57_834_296,
+               "hub_src_edges": 32_008_552, "remainder_edges": 25_006_009,
+               "block_bytes": 7_637_827_584}
+# auto_format on the three graphs of tests/test_pallas.py:1067-1097: what
+# the JAX package returns there
+AUTO_FORMAT_WANT = ("bitmask", "hybrid", "tiled")
+
+
+def k12_counts(i8, tts):
+    """The hybrid route's launch counters: K12 both ways and K3."""
+    return {"int8_matmul_rows": i8.int8_matmul_rows.launches,
+            "int8_matmul_cols": i8.int8_matmul_cols.launches,
+            "k3_spmm": tts.tiled_spmm.launches}
+
+
+def reset_k12_counts(i8, tts):
+    for fn in (i8.int8_matmul_rows, i8.int8_matmul_cols, tts.tiled_spmm):
+        fn.launches = 0
+
+
+def close_f32_sums(got, want, mag, terms, what):
+    """Raise unless |got - want| <= 2 terms 2^-24 mag at every element:
+    two f32 sums of ``terms`` products taken in two orders, each within
+    terms 2^-24 of ``mag``, the sum of the products' magnitudes.  The
+    K12 checks on normal inputs take this bound: their sums of up to
+    23,900 products of counts up to 127 cancel to near 0, where RTOL and
+    ATOL do not hold.  Returns max|got - want|."""
+    err = (got - want).abs()
+    if (err > 2 * terms * 2.0 ** -24 * mag).any():
+        raise AssertionError(f"{what}: past the f32 rounding of two sums")
+    return float(err.max())
+
+
+def hub_graph(kind, n=23_900, seed=31):
+    """A mid-size COO on 23,900 nodes (N_pad = 23,936, a multiple of no
+    K12 block size): 600,000 edges, 240,000 of them into the 300 hubs
+    0..299, 20,000 multi-edges.  ``kind``: "sym" adds every edge's
+    reverse; "multires" adds 30,000 edges in one 256 x 256 tile pair;
+    "star" keeps only edges between a hub and a non-hub, both ways."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, n, 600_000)
+    col = np.r_[rng.integers(0, n, 360_000), rng.integers(0, 300, 240_000)]
+    row[:20_000], col[:20_000] = row[20_000:40_000], col[20_000:40_000]
+    if kind == "multires":
+        row = np.r_[row, rng.integers(4096, 4352, 30_000)]
+        col = np.r_[col, rng.integers(8192, 8448, 30_000)]
+    if kind == "star":
+        row, col = rng.integers(300, n, 300_000), rng.integers(0, 300,
+                                                               300_000)
+    if kind in ("sym", "star"):
+        row, col = np.r_[row, col], np.r_[col, row]
+    return row, col, n
+
+
+def auto_format_graphs():
+    """The three graphs of tests/test_pallas.py:1067-1097, with the
+    keyword arguments that test passes."""
+    rng = np.random.default_rng(7)
+    n, e = 2000, 1_200_000
+    r0, c0 = rng.integers(0, n, e // 2), rng.integers(0, n, e // 2)
+    hub = rng.integers(0, 64, e)
+    src = rng.integers(0, 30000, e)
+    return [((np.r_[r0, c0], np.r_[c0, r0]), n, {}),
+            ((src, hub), 30000, {"hbm_budget_bytes": 1 << 20}),
+            ((rng.integers(0, 5000, 20000), rng.integers(0, 5000, 20000)),
+             None, {})]
+
+
+def phase_hybrid_mid(dgt, i8, tts):
+    """Phase 31: K12 against its plain version in both orientations at
+    mid size (k = 1003, N = 23,900, N_pad = 23,936; F = 1, 16, 41, 128;
+    counts up to 127 at a hub row's density; exact on a grid of 2^-12,
+    which bf16 does not hold, within the f32 rounding of two sums on
+    normal inputs; an all-zero block), each one's time; then
+    ``update_all(copy_u, sum)`` on the hybrid format, forward and
+    gradient, against the gather path on the ``hub_graph`` cases (not
+    symmetric, symmetric, multires ((256, 512), (1024, 256)), a weighted
+    bf16 block, an empty remainder), with the launches each takes; then
+    auto_format on the JAX test's three graphs."""
+    from dgl_tpu_torch.utils import config
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    k, n = 1003, 23_900
+    n_pad = -(-n // 128) * 128
+    a = torch.randint(0, 128, (k, n_pad), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    # about 7,600 counted edges a row, within the Reddit hubs' degrees
+    # (96 to 10,674)
+    a *= torch.rand(k, n_pad, device="cuda", generator=gen) < 0.005
+    a[:, n:] = 0
+    zero = torch.zeros_like(a)
+    # products of the counts and inputs on a grid of 2^-12 in [-1/4, 1/4]
+    counted = max(int(a.sum(dim, dtype=torch.int64).max()) for dim in (0, 1))
+    exact_sums(counted / 4, 2 ** -12, "K12 mid size")
+    for f in K12_FS:
+        for name, kernel, plain, rows in (
+                ("rows", i8.int8_matmul_rows, i8.int8_matmul_rows_plain, n),
+                ("cols", i8.int8_matmul_cols, i8.int8_matmul_cols_plain, k)):
+            x = grid(gen, rows, f, step=2 ** -12, top=0.25)
+            if torch.equal(x.to(torch.bfloat16).float(), x):
+                raise AssertionError(f"K12 {name} F={f}: the inputs are "
+                                     "exact in bf16")
+            xn = torch.randn(rows, f, device="cuda", generator=gen)
+            before = kernel.launches
+            got = kernel(a, x)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                raise AssertionError(f"K12 {name} F={f} did not launch")
+            if not torch.equal(got, plain(a, x)):
+                raise AssertionError(f"K12 {name} mid F={f}: not exact on "
+                                     "a grid")
+            err = close_f32_sums(kernel(a, xn), plain(a, xn),
+                                 plain(a, xn.abs()), rows,
+                                 f"K12 {name} mid F={f}")
+            if kernel(zero, xn).any():
+                raise AssertionError(f"K12 {name} F={f}: a zero block gave "
+                                     "a nonzero product")
+            log(f"# K12 {name} mid F={f}: exact on the grid, normal inputs "
+                f"max|err| {err:.3g}, {cuda_ms(lambda: kernel(a, xn)):.4f} "
+                f"ms")
+    del a, zero
+
+    for kind in ("asym", "sym", "multires", "weighted", "star"):
+        row, col, n = hub_graph(kind)
+        kw = dict(k_dense=512, min_degree=256,
+                  symmetric=kind in ("sym", "star"))
+        hub = col < 300
+        w = None
+        if kind == "multires":
+            kw["multires"] = ((256, 512), (1024, 256))
+        if kind == "weighted":
+            w = grid(gen, len(row), step=1 / 4, top=2, low=0.25)
+            kw["weights"] = w.cpu().numpy()
+        g = dgt.graph((row, col), num_nodes=n, device="cuda")
+        t0 = time.perf_counter()
+        g.unit().create_hybrid_format(**kw)
+        build_s = time.perf_counter() - t0
+        hf = g.unit()._hybrid
+        levels = len(hf.tf_fwd) if isinstance(hf.tf_fwd, tuple) else 1
+        if hf.k != 300 or levels != {"multires": 2, "star": 0}.get(kind, 1):
+            raise AssertionError(f"hybrid {kind}: k {hf.k}, {levels} levels")
+        x = grid(gen, n, HIDDEN, step=1 / 8, top=1)
+        dz = grid(gen, n, HIDDEN, step=1 / 8, top=1)
+
+        def run(op, ew):
+            xg = x.clone().requires_grad_()
+            out = dgt.ops.gspmm(g, op, "sum", xg, ew)
+            out.backward(dz)
+            return out.detach(), xg.grad
+
+        before = k12_counts(i8, tts)
+        out, dx = run("copy_lhs", None)
+        torch.cuda.synchronize()
+        launched = {name: v - before[name]
+                    for name, v in k12_counts(i8, tts).items()}
+        config.set_use_kernels(False)
+        try:
+            # the weights reach the hub rows only (the JAX package's
+            # builder): the remainder's edges count 1
+            ew = None if w is None else torch.where(
+                torch.from_numpy(hub).cuda(), w, 1.0)
+            ref, dref = run("copy_lhs" if w is None else "mul", ew)
+        finally:
+            config.set_use_kernels(True)
+        e_f = close(out, ref, f"hybrid {kind} forward")
+        e_b = close(dx, dref, f"hybrid {kind} gradient")
+        want_k12 = 0 if kind == "weighted" else 2 if kw["symmetric"] else 1
+        if (launched["int8_matmul_rows"], launched["int8_matmul_cols"]) != (
+                want_k12, want_k12):
+            raise AssertionError(f"hybrid {kind}: launches {launched}")
+        log(f"# hybrid {kind} mid size (built in {build_s:.2f}s, block "
+            f"{hf.a_dense.dtype}, {levels} level(s)): forward max|err| "
+            f"{e_f:.3g}, gradient {e_b:.3g}, launches {launched}")
+        del g, hf
+
+    for i, ((row, col), n, kw) in enumerate(auto_format_graphs()):
+        g = dgt.graph((row, col), num_nodes=n, device="cuda")
+        got = g.auto_format(**kw)
+        if got != {g.canonical_etypes[0]: AUTO_FORMAT_WANT[i]}:
+            raise AssertionError(f"auto_format on graph {i}: {got}, the JAX "
+                                 f"package's {AUTO_FORMAT_WANT[i]}")
+        log(f"# auto_format on tests/test_pallas.py's graph {i}: {got}")
+        del g
+
+
+def hybrid_graph(dgt, hyb, gt):
+    """Phase 32: a third graph over the phase-4 COO with bench.py's
+    symmetric hybrid format, built on the host and moved to the card; its
+    sizes held against those measured on the host."""
+    gh = dgt.graph(gt.unit().coo(), num_nodes=N_NODES, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gh.unit().create_hybrid_format(k_dense=HYBRID_K,
+                                   min_degree=HYBRID_MIN_DEGREE,
+                                   symmetric=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hf = gh.unit()._hybrid
+    levels = hyb._levels(hf.tf_fwd)
+    got = {"k": hf.k,
+           # the block's counts, summed 1,024 rows at a time
+           "dense_edges": sum(int(hf.a_dense[r:r + 1024].sum(
+               dtype=torch.int64)) for r in range(0, hf.k, 1024)),
+           "remainder_edges": sum(int((tf.eid >= 0).sum()) for tf in levels),
+           "block_bytes": hf.a_dense.numel() * hf.a_dense.element_size()}
+    got["hub_src_edges"] = (gh.num_edges() - got["dense_edges"]
+                            - got["remainder_edges"])
+    fwd = levels[0]
+    log(f"# hybrid format (k_dense {HYBRID_K}, min_degree "
+        f"{HYBRID_MIN_DEGREE}, symmetric) built in {build_s:.1f}s: {got}, "
+        f"block {tuple(hf.a_dense.shape)} {hf.a_dense.dtype}, remainder "
+        f"tile {fwd.tile}, cap {fwd.cap}, {fwd.num_buckets} buckets, "
+        f"{fwd.nbytes} bytes")
+    if got != HYBRID_WANT or hf.a_dense.dtype != torch.int8:
+        raise AssertionError(f"hybrid sizes {got}, not {HYBRID_WANT}")
+    return gh
+
+
+def phase_hybrid_gcn(dgt, i8, tts, gh, x, y, train):
+    """Phase 32: 10 Adam steps of the GCN on the hybrid format; the K12 and
+    K3 counts are set to 0 just before and read just after."""
+    model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_k12_counts(i8, tts)
+    losses, step_s = train_loop("hybrid GCN", model, opt, gh, x, y, train)
+    counts = k12_counts(i8, tts)
+    log(f"# hybrid GCN train: median step {step_s * 1e3:.3f} ms after one "
+        f"warm-up step, {gh.num_edges() / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"launches {counts}")
+    # per step: two SpMMs forward and two backward, each K3 on the
+    # remainder, K12 on the hub rows and K12 on the hub columns
+    if counts != {name: 4 * STEPS for name in counts}:
+        raise AssertionError(f"hybrid GCN launches {counts}, not 4 each a "
+                             "step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"hybrid GCN losses do not fall: {losses}")
+    return model, opt, counts
+
+
+def phase_hybrid_check(model, gh, gt, x, y, train):
+    """Phase 32: one step of the model on the hybrid format against the
+    same step on route 1's tiled format (K3 alone), same COO."""
+    def grads(g):
+        model.zero_grad()
+        loss = loss_fn(model, g, x, y, train)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    loss_h, grad_h = grads(gh)
+    loss_t, grad_t = grads(gt)
+    if abs(loss_h - loss_t) > 1e-4 * abs(loss_t):
+        raise AssertionError(f"loss {loss_h} (hybrid) vs {loss_t} (tiled)")
+    for n in grad_h:
+        close(grad_h[n], grad_t[n], f"hybrid grad {n}", rtol=1e-3, atol=1e-5)
+    log(f"# hybrid vs route 1's tiled step: loss {loss_h:.8f} vs "
+        f"{loss_t:.8f}, {len(grad_h)} gradients agree")
+
+
+def hybrid_yardsticks(i8, gh, rate):
+    """Phase 33: K12 in both orientations at full size (k = 32,768, N_pad =
+    233,088, F = 16), exactly equal to its plain version on inputs on a
+    grid of 2^-12 in [-1/4, 1/4] (values of up to 11 significant bits,
+    which bf16 does not hold: a kernel that rounded x or z to bf16 would
+    fail), its time (median of 5), its plain version's (the one call that
+    gives the reference), the bound and the library time: ``torch.matmul``
+    of the block widened once to bf16 (not timed) with x or z in bf16,
+    XLA's product off the TPU.
+
+    The bound is the card's, not this kernel design's: the int8 block is
+    exact in bf16, and x split into three bf16 parts gives the products at
+    f32 accuracy on the tensor cores, 3 * 2 k N_pad F operations at the
+    bf16 rate.  At F = 16 that is 0.74 ms, under the 2.28 ms stream of the
+    block, so the bytes bound it."""
+    a = gh.unit()._hybrid.a_dense
+    k, n_pad = a.shape
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    # a row sums at most max_degree counted edges, each times |x| <= 1/4
+    deg = max_degree(gh)
+    log(f"# the graph's largest degree: {deg}")
+    exact_sums(deg / 4, 2 ** -12, "K12 full size")
+    ab = a.to(torch.bfloat16)
+    rows = {}
+    for name, kernel, plain, n_in in (
+            ("rows", i8.int8_matmul_rows, i8.int8_matmul_rows_plain,
+             N_NODES),
+            ("cols", i8.int8_matmul_cols, i8.int8_matmul_cols_plain, k)):
+        x = grid(gen, n_in, HIDDEN, step=2 ** -12, top=0.25)
+        if torch.equal(x.to(torch.bfloat16).float(), x):
+            raise AssertionError(f"K12 {name}: the inputs are exact in bf16")
+        got = kernel(a, x)
+        want, plain_ms = timed_once(lambda: plain(a, x))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K12 {name} full size is not exact")
+        err = close(got, want, f"K12 {name} full size")
+        xb = x.to(torch.bfloat16)
+        lib = (lambda: torch.matmul(ab[:, :n_in], xb)) if name == "rows" \
+            else (lambda: torch.matmul(ab.T, xb))
+        # the library's sums come back in bf16, rounded (in cuBLAS's split
+        # of a sum of up to 233,088 terms, maybe more than once): held to
+        # 2^-6 of the sum of the terms' magnitudes, with its worst share
+        # of that logged
+        lib_err = (lib().float() - want).abs() / plain(a, x.abs()).clamp(
+            min=1)
+        if float(lib_err.max()) > 2 ** -6:
+            raise AssertionError(f"torch.matmul bf16 {name}: off by "
+                                 f"{float(lib_err.max()):.3g} of the sum of "
+                                 "magnitudes")
+        nbytes = a.numel() + x.numel() * 4 + want.numel() * 4
+        ops = 3 * 2 * k * n_pad * HIDDEN
+        bnd, by = bound(nbytes, ops, rate, peak=BF16_PEAK)
+        r = {"max_abs_err": err, "ms": cuda_ms(lambda: kernel(a, x)),
+             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+             "library_ms": cuda_ms(lib)}
+        rows[name] = r
+        log(f"# K12 {name} F={HIDDEN}: {r['ms']:.4f} ms (bound {bnd:.4f} ms "
+            f"by {by}: {nbytes} B, {ops} bf16 ops), plain "
+            f"{plain_ms:.4f} ms, library (torch.matmul, bf16) "
+            f"{r['library_ms']:.4f} ms (its error up to "
+            f"{float(lib_err.max()):.3g} of the sum of magnitudes), "
+            f"max|err| {err:.3g}")
+        del want, got, lib_err
+    del ab
+    return rows
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2507,6 +2880,7 @@ def main():
     from dgl_tpu_torch.ops.kernels import bitmm as bm, build
     from dgl_tpu_torch.ops.kernels import spmm as tsp, tiled_spmm as tts
     from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+    from dgl_tpu_torch.ops.kernels import hybrid as hyb, int8mm as i8
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2538,6 +2912,8 @@ def main():
     phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
     phase("25 (K10 v2 mid size)", phase_edgegat_mid, dgt, tts, tgf)
     phase("28 (K7 mid size)", phase_bitdot_mid, dgt, bm, bg, bd)
+    phase("31 (K12 and the hybrid format, mid size)", phase_hybrid_mid, dgt,
+          i8, tts)
 
     # phases 4-6: the GCN slice at full size
     g = phase("graph", reddit_graph, dgt)
@@ -2630,7 +3006,24 @@ def main():
           rate, False, ("dst",))
     phase("24 (K4 SpMM yardstick H=8 Fh=8)", k4_spmm_yardstick, ef, tts, gt,
           8, 8, rate)
-    del g, gt, bits, x, y, train
+
+    # phases 32-33: the hybrid slice at full size, a third graph over the
+    # COO; the bitmask goes first (the block takes 7.6 GB, the library
+    # yardstick's bf16 copy 15.3 GB)
+    del g, bits
+    torch.cuda.empty_cache()
+    gh = phase("32 (hybrid format)", hybrid_graph, dgt, hyb, gt)
+    model, opt, k12_launches = phase("32 (hybrid GCN train)",
+                                     phase_hybrid_gcn, dgt, i8, tts, gh, x,
+                                     y, train)
+    phase("32 (hybrid GCN profile)", phase_profile, model, opt, gh, x, y,
+          train, lambda: k12_counts(i8, tts))
+    phase("32 (hybrid GCN check)", phase_hybrid_check, model, gh, gt, x, y,
+          train)
+    del model, opt
+    k12 = phase("33 (K12 yardsticks)", hybrid_yardsticks, i8, gh, rate)
+    del gh, gt, x, y, train
+    torch.cuda.empty_cache()
     ge, xe, efe, ef_slot = phase("23 (EGAT graph)", egat_graph, dgt)
     conv, k11_launches = phase("23 (EGATConv on K11 v2)", phase_egat, dgt,
                                tts, tgf, ge, xe, efe, ef_slot)
@@ -2758,6 +3151,15 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:368",
          "launches": k7_launches["bitdot_bwd_dq"], **k7[0]["dq"]},
+        # K12 at F = 16 on the Reddit hub block, launches from phase 32
+        {"name": "int8_matmul_rows", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/int8mm.cu",
+         "replaces": "dgl_tpu/ops/pallas/int8mm.py:79",
+         "launches": k12_launches["int8_matmul_rows"], **k12["rows"]},
+        {"name": "int8_matmul_cols", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/int8mm.cu",
+         "replaces": "dgl_tpu/ops/pallas/int8mm.py:79",
+         "launches": k12_launches["int8_matmul_cols"], **k12["cols"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

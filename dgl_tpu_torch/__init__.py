@@ -8,8 +8,10 @@ PyTorch version beside it that the CPU runs.  Entry points take a
 when the caller passes it.
 
 Slices so far: full-graph GCN training on the bitmask SpMM kernels,
-full-graph GAT training on the bitmask attention kernels, and both on the
-tiled format's SpMM and SDDMM kernels (GAT through ``ops.edgeflat``).
+full-graph GAT training on the bitmask attention kernels, both on the
+tiled format's SpMM and SDDMM kernels (GAT through ``ops.edgeflat``), the
+slot-space and bit-masked attention layers, and the GCN on the hybrid
+format's int8 hub-block kernels, with ``auto_format`` choosing a format.
 """
 
 __version__ = "0.1.0"

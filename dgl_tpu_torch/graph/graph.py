@@ -9,6 +9,7 @@ type and one edge type.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -161,6 +162,32 @@ class Graph:
         for u in self._units:
             u.tiled_format(tile, cap)
         return self
+
+    def create_hybrid_format(self, k_dense: int = 8192,
+                             min_degree: int = 256, etype=None):
+        """Build the hybrid SpMM format of one relation: hub dst rows
+        dense (K12), the rest tiled (``UnitGraph.create_hybrid_format``)."""
+        self._units[self.get_etype_id(etype)].create_hybrid_format(
+            k_dense=k_dense, min_degree=min_degree)
+        return self
+
+    def auto_format(self, hbm_budget_bytes: int = 12 << 30,
+                    symmetric: bool = None, cache_path: str = None):
+        """Pick and build a kernel SpMM format for every relation
+        (``UnitGraph.auto_format``); returns {canonical etype: family}.
+        With several relations each gets its own cache file,
+        ``<root>.rel<i><ext>``: a builder returns an existing cache as it
+        is, so a shared path would hand one relation another's."""
+        out = {}
+        for i, (et, u) in enumerate(zip(self.canonical_etypes,
+                                        self._units)):
+            cp = cache_path
+            if cp is not None and len(self._units) > 1:
+                root, ext = os.path.splitext(cp)
+                cp = f"{root}.rel{i}{ext}"
+            out[et] = u.auto_format(hbm_budget_bytes=hbm_budget_bytes,
+                                    symmetric=symmetric, cache_path=cp)
+        return out
 
     def cache_edge_weights(self, field: str, etype=None):
         """Put the static per-edge weights ``edata[field]`` in the tiled

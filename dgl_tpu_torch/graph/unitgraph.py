@@ -78,6 +78,7 @@ class UnitGraph:
         self._bits = None        # bit-packed full-dense format (BitFormat)
         self._tiled = None       # tile-bucketed format (TiledFormat)
         self._tiled_rev = None   # and the reverse graph's
+        self._hybrid = None      # hub block + tiled remainder (HybridFormat)
         # {field: (w_slot_fwd, w_slot_rev, source tensor, its _version)}:
         # static edge weights in slot order (see cache_edge_weights)
         self._slot_weights = {}
@@ -202,6 +203,93 @@ class UnitGraph:
 
     def uncache_edge_weights(self, field: str) -> None:
         self._slot_weights.pop(field, None)
+
+    def create_hybrid_format(self, k_dense: int = 8192,
+                             min_degree: int = 256, weights=None,
+                             tile: int = None, cap: int = None,
+                             cache_path: str = None, multires: tuple = None,
+                             fill_min: float = 0.7,
+                             symmetric: bool = False) -> None:
+        """Build the degree-stratified hybrid SpMM format on the graph's
+        device (``ops/kernels/hybrid.py``): the hub dst rows as a dense
+        (k, N_pad) int8 block for K12, the rest tiled for K3.  The defaults
+        are the JAX package's (``DEFAULT_TILE``/``DEFAULT_CAP``, not the
+        auto cap).  ``cache_path``: an npz disk cache in the JAX package's
+        layout (the caller ties its name to the graph and the
+        parameters)."""
+        from ..ops.kernels import hybrid
+        from ..ops.kernels import tiled_spmm as ts
+        row, col = self.coo()
+        if isinstance(weights, torch.Tensor):
+            weights = weights.detach().cpu().numpy()
+        self._hybrid = hybrid.build_hybrid_format(
+            row.cpu().numpy(), col.cpu().numpy(), self.num_src, self.num_dst,
+            k_dense=k_dense, min_degree=min_degree, weights=weights,
+            tile=tile or ts.DEFAULT_TILE, cap=cap or ts.DEFAULT_CAP,
+            cache_path=cache_path, multires=multires, fill_min=fill_min,
+            symmetric=symmetric, device=row.device)
+
+    def _auto_format_choice(self, hbm_budget_bytes: int = 12 << 30,
+                            symmetric: bool = None) -> dict:
+        """What :meth:`auto_format` decides, and the numbers it decides on:
+        ``family``, ``bits_bytes`` (the bitmask's bytes, doubled when it is
+        not symmetric), ``symmetric``, ``density``, ``edges`` and
+        ``top_edges`` (the edges into the 8,192 highest in-degree rows;
+        None when the bitmask is taken).  Computed on the graph's
+        device."""
+        row, col = self.coo()
+        e = row.shape[0]
+        bits_bytes = (-(-max(self.num_dst, 1) // 1024) * 1024 *
+                      (-(-max(self.num_src, 1) // 8192) * 8192) // 8)
+        if symmetric is None:
+            symmetric = False
+            if self.num_src == self.num_dst and e <= 50_000_000:
+                fwd = torch.sort(col * self.num_src + row).values
+                rev = torch.sort(row * self.num_src + col).values
+                symmetric = bool(torch.equal(fwd, rev))
+        if not symmetric:
+            bits_bytes *= 2
+        density = e / max(self.num_src * self.num_dst, 1)
+        out = dict(bits_bytes=bits_bytes, symmetric=symmetric,
+                   density=density, edges=e, top_edges=None)
+        if (bits_bytes <= hbm_budget_bytes and e >= 1_000_000
+                and density >= 1e-4):
+            return dict(out, family="bitmask")
+        # a heavy tail: the 8,192 highest in-degree rows carry >= 30%
+        top = 0
+        if self.num_dst > 8192:
+            deg = torch.bincount(col, minlength=self.num_dst)
+            top = int(torch.topk(deg, 8192).values.sum())
+        hybrid = e >= 1_000_000 and top >= 0.3 * e
+        return dict(out, top_edges=top,
+                    family="hybrid" if hybrid else "tiled")
+
+    def auto_format(self, hbm_budget_bytes: int = 12 << 30,
+                    symmetric: bool = None, cache_path: str = None) -> str:
+        """Pick and build a kernel SpMM format by the JAX package's rules
+        (``dgl_tpu/graph/unitgraph.py:408-459``), unchanged, and return
+        the family's name:
+
+        * ``"bitmask"`` when the 1-bit adjacency (doubled unless symmetric)
+          fits ``hbm_budget_bytes``, with at least 1M edges at a density
+          of at least 1e-4;
+        * ``"hybrid"`` (:meth:`create_hybrid_format`'s defaults) when the
+          8,192 highest in-degree rows carry at least 30% of at least 1M
+          edges;
+        * ``"tiled"`` (:meth:`tiled_format`, the auto cap) otherwise.
+
+        ``symmetric=None`` checks A == A^T exactly on square graphs of up
+        to 50M edges and takes False above.  ``cache_path`` serves the
+        hybrid format only: the port's bitmask has no disk cache."""
+        choice = self._auto_format_choice(hbm_budget_bytes, symmetric)
+        if choice["family"] == "bitmask":
+            self.create_bitmask_format(symmetric=choice["symmetric"])
+        elif choice["family"] == "hybrid":
+            self.create_hybrid_format(symmetric=choice["symmetric"],
+                                      cache_path=cache_path)
+        else:
+            self.tiled_format()
+        return choice["family"]
 
     def materialized_formats(self) -> Tuple[str, ...]:
         return tuple(name for name, sp in (("coo", self._coo),

@@ -1,11 +1,13 @@
 """Kernel SpMM-sum entries used by the dispatcher, with their gradients.
 
-Counterpart of ``dgl_tpu/ops/pallas/spmm.py``.  ``spmm_sum`` takes the
-bitmask (K1/K2) for ``copy_lhs`` when the graph has a bit format, else the
-tiled format (K3) for ``copy_lhs``, ``mul`` and ``div`` by a scalar per
-edge; ``spmm_sum_static`` serves weights cached in slot order
-(``UnitGraph.cache_edge_weights``).  The hybrid branch comes with a later
-slice.  Each returns None to decline, and the gather path then runs.
+Counterpart of ``dgl_tpu/ops/pallas/spmm.py``.  ``spmm_sum`` takes, in
+the JAX package's order, the bitmask (K1/K2) for ``copy_lhs`` when the
+graph has a bit format, else the hybrid format (K12 with K3) for
+``copy_lhs`` when it has one, else the tiled format (K3) for ``copy_lhs``,
+``mul`` and ``div`` by a scalar per edge; ``spmm_sum_static`` serves
+weights cached in slot order (``UnitGraph.cache_edge_weights``).  Each
+returns None to decline, and the gather path then runs: so ``mul`` and
+``div`` on a graph with no tiled format take it.
 
 Gradients follow the SpMM/SDDMM duality (reference
 ``backend/pytorch/sparse.py:195-249``): dX of a sum-SpMM is the same SpMM
@@ -153,6 +155,9 @@ def spmm_sum(unit, op, u_data, e_data):
     if op == "copy_lhs" and unit._bits is not None:
         from .bitmm import bit_spmm
         return bit_spmm(unit._bits, u_data)
+    if op == "copy_lhs" and unit._hybrid is not None:
+        from .hybrid import hybrid_spmm
+        return hybrid_spmm(unit._hybrid, u_data)
     tf_fwd, tf_rev = get_tiled_formats(unit)
     if tf_fwd is None:
         return None

@@ -188,12 +188,14 @@ def tiled_from_host(h: dict, device="cuda") -> TiledFormat:
 
 def build_tiled_format(row, col, num_src: int, num_dst: int,
                        tile: int = DEFAULT_TILE, cap: int = DEFAULT_CAP,
-                       device="cuda") -> TiledFormat:
+                       device="cuda", host_out: dict = None) -> TiledFormat:
     """Bucket edges by (dst_tile, src_tile) on the host (numpy) and move
     the format to ``device``; buckets split at ``cap``.
 
     A stable sort by key ``dst_tile * num_src_tiles + src_tile`` orders
-    the edges; a bucket starts at every ``cap``-th edge of a pair's run."""
+    the edges; a bucket starts at every ``cap``-th edge of a pair's run.
+    ``host_out``, when given, receives the host arrays as the JAX builder
+    gives them (slot arrays (B, cap)), for a disk cache."""
     _check_cap(cap)
     row = np.asarray(row).astype(np.int64)
     col = np.asarray(col).astype(np.int64)
@@ -228,10 +230,14 @@ def build_tiled_format(row, col, num_src: int, num_dst: int,
         # every edge of a bucket has the bucket's key: read its first one
         src_tile[:] = r[first] // tile
         dst_tile[:] = c[first] // tile
-    return tiled_from_host(dict(
-        src_local=src_local, dst_local=dst_local, eid=eid, valid=valid,
-        src_tile=src_tile, dst_tile=dst_tile, num_src=num_src,
-        num_dst=num_dst, tile=tile, cap=cap), device)
+    h = dict(src_local=src_local.reshape(nb, cap),
+             dst_local=dst_local.reshape(nb, cap), eid=eid.reshape(nb, cap),
+             valid=valid.reshape(nb, cap), src_tile=src_tile,
+             dst_tile=dst_tile, num_src=int(num_src), num_dst=int(num_dst),
+             tile=int(tile), cap=int(cap))
+    if host_out is not None:
+        host_out.update(h)
+    return tiled_from_host(h, device)
 
 
 def build_tiled_format_device(row, col, num_src: int, num_dst: int,

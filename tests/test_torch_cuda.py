@@ -19,6 +19,7 @@ import dgl_tpu_torch.ops.kernels.bitdot as tbd
 import dgl_tpu_torch.ops.kernels.bitgat as tbg
 import dgl_tpu_torch.ops.kernels.bitmm as tbm
 import dgl_tpu_torch.ops.kernels.gat_fused as tgf
+import dgl_tpu_torch.ops.kernels.int8mm as tgi8
 import dgl_tpu_torch.ops.kernels.spmm as tsp
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 from dgl_tpu_torch.ops import edgeflat
@@ -932,3 +933,154 @@ def test_dotgatconv_k7_matches_gather_path(card, monkeypatch):
     torch.testing.assert_close(kern[0], chain[0], rtol=RTOL, atol=ATOL)
     for a, b in zip(kern[1:], chain[1:]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+# -- K12, the hybrid format's int8 hub block -----------------------------------
+
+def _int8_block(card, k, n_pad, n, density=0.3, seed=0):
+    """A (k, n_pad) int8 block of counts 0..127 at ``density`` over its
+    first ``n`` columns, 0 past them."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    a = torch.randint(0, 128, (k, n_pad), dtype=torch.int8, device=card,
+                      generator=gen)
+    keep = torch.rand(k, n_pad, device=card, generator=gen) < density
+    a *= keep
+    a[:, n:] = 0
+    return a
+
+
+@pytest.mark.parametrize("contract_rows", [False, True])
+@pytest.mark.parametrize("f", [1, 16, 41, 128])
+def test_int8_kernels_match_plain(card, f, contract_rows):
+    """K12 in both orientations at shapes on no block boundary (k = 1003,
+    N = 5000, N_pad = 5008) against its plain version: exactly with
+    inputs on a grid of 2^-12 in [-1/4, 1/4] (every sum is exact in f32;
+    the values carry up to 10 significant bits, which bf16 does not hold,
+    so a kernel that rounded its input to bf16 would fail), and with
+    normal inputs within the f32 rounding of two sums of up to 5,000
+    products of counts up to 127 (RTOL/ATOL do not hold there: sums of
+    |terms| near 10^4 cancel to near 0)."""
+    k, n, n_pad = 1003, 5000, 5008
+    # about 9,500 counted edges a row: the grid's sums stay under
+    # 2^24 * 2^-12
+    a = _int8_block(card, k, n_pad, n, density=0.03, seed=f)
+    counted = max(int(a.sum(dim, dtype=torch.int64).max()) for dim in (0, 1))
+    assert counted / 4 < 2 ** 12
+    gen = torch.Generator(device=card).manual_seed(100 + f)
+    rows = k if contract_rows else n
+    grid = torch.randint(-1024, 1025, (rows, f), device=card,
+                         generator=gen).float() * 2.0 ** -12
+    assert not torch.equal(grid.to(torch.bfloat16).float(), grid)
+    normal = torch.randn(rows, f, device=card, generator=gen)
+    kernel = tgi8.int8_matmul_cols if contract_rows else \
+        tgi8.int8_matmul_rows
+    plain = tgi8.int8_matmul_cols_plain if contract_rows else \
+        tgi8.int8_matmul_rows_plain
+    before = kernel.launches
+    got = kernel(a, grid)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == ((n_pad, f) if contract_rows else (k, f))
+    assert torch.equal(got, plain(a, grid))
+    # two f32 sums of `terms` products, in two orders: each is within
+    # terms * 2^-24 of the sum of the products' magnitudes
+    err = (kernel(a, normal) - plain(a, normal)).abs()
+    terms = k if contract_rows else n
+    assert (err <= 2 * terms * 2.0 ** -24 * plain(a, normal.abs())).all()
+    zero = torch.zeros_like(a)
+    assert not kernel(zero, normal).any()
+
+
+def test_int8_kernels_64bit_offsets(card):
+    """A block of k * N_pad = 2,160,000,000 bytes, past 2^31: rows and
+    columns whose offsets need 64 bits match the plain version."""
+    k, n_pad = 4500, 480_000
+    assert k * n_pad > 2 ** 31
+    a = torch.zeros(k, n_pad, dtype=torch.int8, device=card)
+    gen = torch.Generator(device=card).manual_seed(7)
+    a[-300:] = torch.randint(0, 4, (300, n_pad), dtype=torch.int8,
+                             device=card, generator=gen)
+    a[:, -1000:] = 5
+    x = torch.randint(-8, 9, (n_pad, 16), device=card,
+                      generator=gen).float() / 8
+    z = torch.randint(-8, 9, (k, 16), device=card,
+                      generator=gen).float() / 8
+    rows = tgi8.int8_matmul_rows(a, x)
+    assert rows[-300:].abs().sum() > 0
+    assert torch.equal(rows, tgi8.int8_matmul_rows_plain(a, x))
+    assert torch.equal(tgi8.int8_matmul_cols(a, z),
+                       tgi8.int8_matmul_cols_plain(a, z))
+
+
+def _hub_coo(n=6000, seed=41):
+    """A square COO with 40 hub dst nodes and multi-edges."""
+    rng = np.random.default_rng(seed)
+    row = np.r_[rng.integers(0, n, 40_000), rng.integers(0, n, 30_000)]
+    col = np.r_[rng.integers(0, n, 40_000), rng.integers(0, 40, 30_000)]
+    row[:300], col[:300] = row[300:600], col[300:600]
+    return row, col, n
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_hybrid_spmm_matches_gather(card, symmetric, monkeypatch):
+    """``update_all(copy_u, sum)`` on the hybrid format (K12 rows and
+    columns, K3 on the remainder) against the gather path, forward and
+    backward, with the launches each takes."""
+    row, col, n = _hub_coo()
+    if symmetric:
+        row, col = np.r_[row, col], np.r_[col, row]
+    g = dgt.graph((row, col), num_nodes=n)
+    g.unit().create_hybrid_format(k_dense=64, min_degree=100,
+                                  symmetric=symmetric)
+    hf = g.unit()._hybrid
+    assert hf.a_dense.dtype == torch.int8 and hf.k == 40
+    monkeypatch.setitem(config._FLAGS, "kernel_spmm_min_edges", 1)
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(n, 16, device=card, generator=gen)
+    dz = torch.randn(n, 16, device=card, generator=gen)
+
+    def run():
+        xg = x.clone().requires_grad_()
+        out = dgt.ops.gspmm(g, "copy_lhs", "sum", xg, None)
+        out.backward(dz)
+        return out.detach(), xg.grad
+
+    counts = (tgi8.int8_matmul_rows.launches,
+              tgi8.int8_matmul_cols.launches, tts.tiled_spmm.launches)
+    out, dx = run()
+    torch.cuda.synchronize()
+    launched = (tgi8.int8_matmul_rows.launches - counts[0],
+                tgi8.int8_matmul_cols.launches - counts[1],
+                tts.tiled_spmm.launches - counts[2])
+    assert launched == ((2, 2, 2) if symmetric else (1, 1, 2))
+    monkeypatch.setitem(config._FLAGS, "use_kernels", False)
+    out_g, dx_g = run()
+    torch.testing.assert_close(out, out_g, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(dx, dx_g, rtol=RTOL, atol=ATOL)
+
+
+def test_int8_wrappers_raise_and_never_take_plain(card, monkeypatch):
+    """On CUDA tensors the K12 wrappers launch their kernels (a plain
+    version that is reached raises), and a wrong dtype, shape or layout
+    raises before any launch."""
+    for name in ("int8_matmul_rows_plain", "int8_matmul_cols_plain"):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(tgi8, name, refuse)
+    a = _int8_block(card, 70, 256, 250)
+    x = torch.randn(250, 16, device=card)
+    z = torch.randn(70, 16, device=card)
+    assert torch.isfinite(tgi8.int8_matmul_rows(a, x)).all()
+    assert torch.isfinite(tgi8.int8_matmul_cols(a, z)).all()
+    before = (tgi8.int8_matmul_rows.launches, tgi8.int8_matmul_cols.launches)
+    for bad in (lambda: tgi8.int8_matmul_rows(a.float(), x),
+                lambda: tgi8.int8_matmul_rows(a, x.half()),
+                lambda: tgi8.int8_matmul_rows(a, x.t().contiguous().t()),
+                lambda: tgi8.int8_matmul_rows(a[:, :200], x[:200]),
+                lambda: tgi8.int8_matmul_rows(a, x.cpu()),
+                lambda: tgi8.int8_matmul_cols(a, z.double()),
+                lambda: tgi8.int8_matmul_cols(a, z[:69])):
+        with pytest.raises(ValueError):
+            bad()
+    assert before == (tgi8.int8_matmul_rows.launches,
+                      tgi8.int8_matmul_cols.launches)

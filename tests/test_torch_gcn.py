@@ -231,6 +231,11 @@ dgt.nn.EdgeGATConv(5, 3, 4, 2, device="cpu")(
     gt, torch.randn(50, 5), ef,
     efeats_slot=dgt.nn.EdgeGATConv.slot_edge_feats(gt, ef)).sum().backward()
 import dgl_tpu_torch.nn.softmax                                 # K10 v2
+gh = dgt.graph((rng.integers(0, 50, 400), rng.integers(0, 5, 400)),
+               num_nodes=50, device="cpu")
+gh.unit().create_hybrid_format(k_dense=8, min_degree=20, tile=128, cap=128)
+conv(gh, torch.randn(50, 5)).sum().backward()                   # K12
+assert gh.auto_format() == {gh.canonical_etypes[0]: "tiled"}
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))

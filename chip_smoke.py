@@ -150,9 +150,34 @@ Phases, each of which raises on failure (nothing is caught):
    its plain version's, the bound and ``torch.matmul`` of the block in
    bf16.
 
+34. the mesh-sharded slice at mid size, on the phase-8 simple graph on
+   24,000 nodes with 64 edges more into its last dst (every build's
+   shards reach bit plane 31): the sharded format built on the card for
+   1, 2 and 4 parts, each equal to the host builder's arrays; on every
+   shard K1, K5's forward over the A^T packing (``bitgat_fwd_t``) and K13
+   (``bit_shard_gat_bwd``) against their plain versions at (H, D) = (4,
+   32), (1, 41), (8, 16) and (2, 16); on a world-size-1 NCCL group
+   ``bit_sharded_spmm`` and ``bit_sharded_gat``, forward and gradients,
+   against the single-card ``bit_spmm`` and ``bitgat_attention_aggregate``;
+   a 4-shard emulation in this process (cat and sum in place of the
+   collectives) against the world-size-1 result; ``dryrun_multichip(1)``;
+35. the sharded slice at full size: the Reddit graph's symmetric one-part
+   sharded format built on the card (its bytes and set bits held to the
+   graph's), the phase-4 GCN for 10 Adam steps on ``bit_sharded_spmm``
+   (4 K1 launches a step; one step against phase 4's bitmask step) and
+   the route-4 GAT recipe (attention dropout 0, weights through
+   ``params.gatconv_state_dict``) for 10 Adam steps on
+   ``bit_sharded_gat`` (one ``bitgat_fwd_t`` and one K13 launch a layer
+   and step, no other K5 launch), a profiled step held to the counters,
+   and one step against the same step built from the plain versions;
+36. ``bitgat_fwd_t`` and K13 yardsticks on the one-part shard and on
+   shard 0 of a 4-part build at (4, 32) and (1, 41): each against its
+   plain version on every row, its time (median of 5), its plain
+   version's and the bound.
+
 Phases 28-30 run after phases 25 and 10, phase 31 after phase 28, phases
-32-33 after phase 24, with the bitmask freed; each phase prints its
-seconds.  Prints the card line and a
+32-33 after phase 24, with the bitmask freed, phases 34-36 after phase
+33, with the hybrid block freed; each phase prints its seconds.  Prints the card line and a
 ``{"kernels": [...]}`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -160,9 +185,11 @@ Usage: python3 chip_smoke.py
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -345,15 +372,16 @@ def loss_fn(model, g, x, y, train):
     return torch.nn.functional.cross_entropy(logits[train], y[train])
 
 
-def train_loop(name, model, opt, g, x, y, train):
-    """STEPS optimizer steps of ``loss_fn``: (losses, median step s after
+def train_loop(name, model, opt, g, x, y, train, loss=loss_fn):
+    """STEPS optimizer steps of ``loss``: (losses, median step s after
     one warm-up step)."""
+    loss_of = loss
     losses, times = [], []
     for step in range(STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad()
-        loss = loss_fn(model, g, x, y, train)
+        loss = loss_of(model, g, x, y, train)
         loss.backward()
         opt.step()
         torch.cuda.synchronize()
@@ -384,9 +412,9 @@ def phase_train(dgt, bm, g, x, y, train):
     return model, opt, k1
 
 
-# each slot-space, K7, K12 or K3 wrapper's launch counter and the CUDA
-# kernel it launches, once a call (K3's and K4's SpMM share a kernel: no
-# step reads both counters)
+# each slot-space, K7, K12, K3 or sharded-GAT wrapper's launch counter and
+# the CUDA kernel it launches, once a call (K3's and K4's SpMM share a
+# kernel, K13 and K5's backward another: no step reads both counters)
 TRACED_KERNELS = {
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": "gat_ds_kernel", "src_aggregate": "src_agg_kernel",
@@ -397,7 +425,9 @@ TRACED_KERNELS = {
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
     "int8_matmul_rows": "int8_rows_kernel",
-    "int8_matmul_cols": "int8_cols_kernel", "k3_spmm": "tiled_spmm_kernel"}
+    "int8_matmul_cols": "int8_cols_kernel", "k3_spmm": "tiled_spmm_kernel",
+    "bitgat_fwd_t": "bitgat_fwd_t_kernel",
+    "bit_shard_gat_bwd": "bitgat_bwd_kernel"}
 
 
 def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
@@ -2861,6 +2891,506 @@ def hybrid_yardsticks(i8, gh, rate):
     return rows
 
 
+# -- the mesh-sharded slice (bitspmd, bitgat_spmd) ---------------------------
+
+SHARD_SHAPES = GAT_SHAPES + ((8, 16), (2, 16))
+SHARD_PARTS = (1, 2, 4)
+SHARD_FIELDS = ("shards", "shards_rev", "rem_src_g", "rem_dst_l", "rem_w",
+                "brem_src_g", "brem_dst_l", "brem_w")
+# the Reddit graph's one-part symmetric format: kp = 233,472 rows of W =
+# 7,296 words, and its set bits, one per edge with self-loops
+REDDIT_SHARD_BYTES = 6_813_646_848
+REDDIT_EDGES = 114_848_857
+
+
+def popcount(words):
+    """Set bits of an int32 tensor, counted 2^26 words at a time."""
+    flat, total = words.reshape(-1), 0
+    for i in range(0, flat.numel(), 1 << 26):
+        v = flat[i:i + (1 << 26)].to(torch.int64) & 0xFFFFFFFF
+        v = v - ((v >> 1) & 0x55555555)
+        v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+        v = (v + (v >> 4)) & 0x0F0F0F0F
+        total += int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+    return total
+
+
+def shard_mid_graph():
+    """Phase 34's simple COO on 24,000 nodes: the phase-8 graph and 64
+    edges more into its last 192 dst, so that the shards of every build
+    reach bit plane 31 (dst 23,808 and up at one part; device 0's last
+    32nd at two and four)."""
+    row, col, n, _ = mid_graph()
+    rng = np.random.default_rng(34)
+    row = np.r_[row, rng.integers(0, n, 64)]
+    col = np.r_[col, n - 1 - rng.integers(0, 192, 64)]
+    key = np.unique(col * n + row)
+    return key % n, key // n, n
+
+
+def emulate_spmm(bm, fmt, x, rev=False):
+    """``bit_sharded_spmm``'s forward (or, with ``rev``, its backward) over
+    every shard of ``fmt`` in this process, the all-gather replaced by
+    the padded ``x`` itself: (P npp, F)."""
+    names = ("shards_rev", "brem_src_g", "brem_dst_l", "brem_w") if rev \
+        else ("shards", "rem_src_g", "rem_dst_l", "rem_w")
+    shards, rsg, rdl, rw = (getattr(fmt, n) for n in names)
+    outs = []
+    for p in range(fmt.num_parts):
+        out = bm.bit_matmul_t(shards[p], x[:fmt.kp], fmt.npp)
+        real = rdl[p] < fmt.npp
+        outs.append(bm.add_remainder(out, x, rsg[p][real].long(),
+                                     rdl[p][real].long(), rw[p][real]))
+    return torch.cat(outs)
+
+
+def emulate_gat(bg, tgs, fmt, el, er, z, g):
+    """``bit_sharded_gat``'s forward and backward over every shard of
+    ``fmt`` in this process, the collectives replaced by slices, cat and
+    sum: (out, d_el, d_er, d_z), all (P npp, ...), for inputs inside the
+    clip."""
+    kp, npp, parts = fmt.kp, fmt.npp, fmt.num_parts
+    rows = lambda t, p: t[p * npp:(p + 1) * npp]  # noqa: E731
+    fwd = [bg.bitgat_fwd_t(fmt.shards[p], el[:kp], rows(er, p), z[:kp], npp,
+                           SLOPE) for p in range(parts)]
+    out = torch.cat([o for o, _ in fwd])
+    linv, rho = bg.backward_scales(g, out, torch.cat([l for _, l in fwd]),
+                                   None)
+    d_el, d_z, d_er = torch.zeros_like(el), torch.zeros_like(z), []
+    for p in range(parts):
+        a, b, c = tgs.bit_shard_gat_bwd(
+            fmt.shards[p], el[:kp], rows(er, p), z[:kp], rows(g, p),
+            rows(linv, p), rows(rho, p), npp, SLOPE)
+        d_el[:kp] += a
+        d_z[:kp] += c
+        d_er.append(b)
+    return out, d_el, torch.cat(d_er), d_z
+
+
+def phase_sharded_mid(bm, bg, tbs, tgs, group):
+    """Phase 34: the sharded format and its kernels at mid size, the ops on
+    the world-size-1 NCCL ``group`` against the single-card routes, a
+    4-shard emulation against them, and ``dryrun_multichip(1)``."""
+    from dgl_tpu_torch.parallel import dryrun_multichip
+    row, col, n = shard_mid_graph()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    fmts, errs = {}, {"K1": 0.0, "bitgat_fwd_t": 0.0, "K13": 0.0}
+    for parts in SHARD_PARTS:
+        fmt = tbs.build_bit_sharded_format_device(row, col, n, parts,
+                                                  device="cuda")
+        host = tbs.build_bit_sharded_format(row, col, n, parts, device="cpu")
+        for name in SHARD_FIELDS:
+            if not torch.equal(getattr(fmt, name).cpu(), getattr(host, name)):
+                raise AssertionError(f"{parts} parts: the device builder's "
+                                     f"{name} differs from the host's")
+        if not ((fmt.shards < 0).any() and (fmt.shards_rev < 0).any()):
+            raise AssertionError(f"{parts} parts: no shard reaches plane 31")
+        fmts[parts] = fmt
+        kp, npp = fmt.kp, fmt.npp
+        for p in range(parts):
+            shard = fmt.shards[p]
+            for f in (HIDDEN, CLASSES):
+                x = torch.randn(kp, f, device="cuda", generator=gen)
+                errs["K1"] = max(errs["K1"], close(
+                    bm.bit_matmul_t(shard, x, npp),
+                    bm.bit_matmul_t_plain(shard, x, npp),
+                    f"K1 shard {p}/{parts} F={f}"))
+            for heads, dim in SHARD_SHAPES:
+                tag = f"shard {p}/{parts} H={heads} D={dim}"
+                el = torch.randn(kp, heads, device="cuda", generator=gen)
+                er = torch.randn(npp, heads, device="cuda", generator=gen)
+                z = torch.randn(kp, heads, dim, device="cuda", generator=gen)
+                g = torch.randn(npp, heads, dim, device="cuda", generator=gen)
+                f0 = bg.bitgat_fwd_t.launches
+                b0 = tgs.bit_shard_gat_bwd.launches
+                out, l = bg.bitgat_fwd_t(shard, el, er, z, npp, SLOPE)
+                w_out, w_l = bg.bitgat_fwd_t_plain(shard, el, er, z, npp,
+                                                   SLOPE)
+                errs["bitgat_fwd_t"] = max(
+                    errs["bitgat_fwd_t"], close(out, w_out, f"fwd_t {tag}"),
+                    close(l, w_l, f"fwd_t l {tag}"))
+                linv, rho = bg.backward_scales(g, w_out, w_l, None)
+                args = (shard, el, er, z, g, linv, rho, npp, SLOPE)
+                got = tgs.bit_shard_gat_bwd(*args)
+                want = tgs.bit_shard_gat_bwd_plain(*args)
+                errs["K13"] = max([errs["K13"]] + [
+                    close(a, b, f"K13 {name} {tag}") for name, a, b in
+                    zip(("d_el", "d_er", "d_z"), got, want)])
+                if (bg.bitgat_fwd_t.launches - f0,
+                        tgs.bit_shard_gat_bwd.launches - b0) != (1, 1):
+                    raise AssertionError(f"{tag}: the kernels did not "
+                                         "launch once each")
+        log(f"# {parts}-part format built on the card, equal to the host "
+            f"builder's: kp {kp}, npp {npp}, W {npp // 32}, "
+            f"{fmt.bytes_per_device} bytes a device")
+    log(f"# shard kernels vs plain versions: max|err| {errs}")
+
+    # world size 1 against the single-card routes on the same graph
+    fmt1 = fmts[1]
+    bf = bm.build_bit_format_device(row, col, n, n, device="cuda")
+    pad = lambda t: tbs.pad_nodes(fmt1, t)  # noqa: E731
+    res = {}
+    for f in (HIDDEN, CLASSES):
+        x = torch.randn(n, f, device="cuda", generator=gen)
+        dz = torch.randn(n, f, device="cuda", generator=gen)
+        xs, xp = x.clone().requires_grad_(), pad(x).requires_grad_()
+        want = bm.bit_spmm(bf, xs)
+        want.backward(dz)
+        k1 = bm.bit_matmul_t.launches
+        out = tbs.bit_sharded_spmm(fmt1, xp, group)
+        out.backward(pad(dz))
+        if bm.bit_matmul_t.launches - k1 != 2:
+            raise AssertionError("bit_sharded_spmm did not run on K1")
+        e1 = close(out[:n].detach(), want.detach(), f"bit_sharded_spmm F={f}")
+        e2 = close(xp.grad[:n], xs.grad, f"bit_sharded_spmm grad F={f}")
+        res[f] = (out.detach(), xp.grad)
+        log(f"# world size 1, bit_sharded_spmm F={f} vs bit_spmm: max|err| "
+            f"{e1:.3g}, gradient {e2:.3g}")
+        # four shards emulated in this process against world size 1
+        fmt4 = fmts[4]
+        o4 = emulate_spmm(bm, fmt4, tbs.pad_nodes(fmt4, x))
+        d4 = emulate_spmm(bm, fmt4, tbs.pad_nodes(fmt4, dz), rev=True)
+        close(o4[:n], res[f][0][:n], f"4-shard emulation F={f}")
+        close(d4[:n], res[f][1][:n], f"4-shard emulation grad F={f}")
+    for heads, dim in GAT_SHAPES:
+        el, er = (torch.randn(n, heads, device="cuda", generator=gen)
+                  for _ in range(2))
+        z, g = (torch.randn(n, heads, dim, device="cuda", generator=gen)
+                for _ in range(2))
+        ins_s = [t.clone().requires_grad_() for t in (el, er, z)]
+        want = bg.bitgat_attention_aggregate(bf, *ins_s, SLOPE)
+        want.backward(g)
+        ins_p = [pad(t).requires_grad_() for t in (el, er, z)]
+        f0, b0 = bg.bitgat_fwd_t.launches, tgs.bit_shard_gat_bwd.launches
+        out = tgs.bit_sharded_gat(fmt1, *ins_p, group, SLOPE)
+        out.backward(pad(g))
+        if (bg.bitgat_fwd_t.launches - f0,
+                tgs.bit_shard_gat_bwd.launches - b0) != (1, 1):
+            raise AssertionError("bit_sharded_gat did not run on its kernels")
+        e = [close(out[:n].detach(), want.detach(),
+                   f"bit_sharded_gat H={heads}")] + [
+            close(tp.grad[:n], ts.grad, f"bit_sharded_gat {name} H={heads}")
+            for name, tp, ts in zip(("d_el", "d_er", "d_z"), ins_p, ins_s)]
+        fmt4 = fmts[4]
+        em = emulate_gat(bg, tgs, fmt4, *(tbs.pad_nodes(fmt4, t)
+                                         for t in (el, er, z, g)))
+        for name, a, b in zip(("out", "d_el", "d_er", "d_z"), em,
+                              (out.detach(),) + tuple(t.grad for t in ins_p)):
+            close(a[:n], b[:n], f"4-shard emulation {name} H={heads}")
+        log(f"# world size 1, bit_sharded_gat H={heads} D={dim} vs "
+            f"bitgat_attention_aggregate: max|err| out {e[0]:.3g}, d_el "
+            f"{e[1]:.3g}, d_er {e[2]:.3g}, d_z {e[3]:.3g}; the 4-shard "
+            "emulation agrees")
+    del fmts, fmt1, bf
+    dryrun_multichip(1, device="cuda")
+
+
+class ShardedGCN(torch.nn.Module):
+    """The phase-4 GCN on the sharded format: ``GraphConv``'s norm "both"
+    (degrees clamped at 1; the graph is symmetric, so in- and out-degrees
+    agree) and the weight on the narrow side of each SpMM."""
+
+    def __init__(self, gcn, group, deg):
+        super().__init__()
+        self.gcn, self.group = gcn, group
+        self.norm = deg.clamp(min=1).pow(-0.5)[:, None]
+
+    def forward(self, fmt, x):
+        from dgl_tpu_torch.parallel import bit_sharded_spmm
+        c1, c2, norm = self.gcn.conv1, self.gcn.conv2, self.norm
+        h = torch.relu(bit_sharded_spmm(fmt, (x * norm) @ c1.weight,
+                                        self.group) * norm + c1.bias)
+        return (bit_sharded_spmm(fmt, h * norm, self.group) @ c2.weight) \
+            * norm + c2.bias
+
+
+def gcn_reference_step(dgt, g, x, y, train):
+    """Phase 4's first step on the bitmask, recorded for phase 35: the loss
+    and gradients of the seed-0 GCN, on the host."""
+    model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    loss = loss_fn(model, g, x, y, train)
+    loss.backward()
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def sharded_gat_convs(dgt, params):
+    """The route-4 recipe's two ``GATConv`` layers (602 -> 4 x 32, 128 ->
+    1 x 41, attention dropout 0), their weights drawn in the flax layout
+    from a seed, as xavier-normal with the relu gain, and loaded through
+    ``params.gatconv_state_dict``."""
+    rng = np.random.default_rng(35)
+    gain = np.sqrt(2.0)
+    convs = []
+    for fin, (h, d) in zip((FEAT, GAT_SHAPES[0][0] * GAT_SHAPES[0][1]),
+                           GAT_SHAPES):
+        attn = lambda: rng.normal(  # noqa: E731
+            scale=gain * np.sqrt(2.0 / (h * d + d)), size=(1, h, d))
+        flax = {"fc": {"kernel": rng.normal(
+            scale=gain * np.sqrt(2.0 / (fin + h * d)), size=(fin, h * d))},
+            "attn_l": attn(), "attn_r": attn(), "bias": np.zeros((1, h, d))}
+        conv = dgt.nn.GATConv(fin, d, h, attn_drop=0.0, device="cuda")
+        conv.load_state_dict(params.gatconv_state_dict(flax))
+        convs.append(conv)
+    return convs
+
+
+class ShardedGAT(torch.nn.Module):
+    """The route-4 GAT on the sharded format: each ``GATConv``'s
+    projections (fc, attn_l, attn_r, bias) around ``gat``, which is
+    ``bit_sharded_gat`` or its plain twin."""
+
+    def __init__(self, convs, gat):
+        super().__init__()
+        self.conv1, self.conv2 = convs
+        self.gat = gat
+
+    def layer(self, conv, fmt, h):
+        ft = conv.fc(h).reshape(-1, conv.num_heads, conv.out_feats)
+        el = (ft * conv.attn_l).sum(-1)
+        er = (ft * conv.attn_r).sum(-1)
+        return self.gat(fmt, el, er, ft) + conv.bias
+
+    def forward(self, fmt, x):
+        h = torch.nn.functional.elu(self.layer(self.conv1, fmt, x).flatten(1))
+        return self.layer(self.conv2, fmt, h).flatten(1)
+
+
+class PlainShardedGAT(torch.autograd.Function):
+    """``bit_sharded_gat`` built from the plain versions alone, with the
+    same collectives: the twin of the port's ``_BitShardedGAT``."""
+
+    @staticmethod
+    def forward(ctx, el, er, z, fmt, group):
+        from dgl_tpu_torch.ops.kernels import bitgat as bg
+        from dgl_tpu_torch.parallel import comm
+        clip = 20.0
+        elc, erc = el.clamp(-clip, clip), er.clamp(-clip, clip)
+        elg = comm.all_gather_rows(elc, group)[:fmt.kp]
+        zg = comm.all_gather_rows(z, group)[:fmt.kp]
+        out, l = bg.bitgat_fwd_t_plain(fmt.shards[0], elg, erc, zg, fmt.npp,
+                                       SLOPE)
+        ctx.save_for_backward(el, er, elg, erc, zg, out, l)
+        ctx.fmt, ctx.group = fmt, group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from dgl_tpu_torch.ops.kernels import bitgat as bg
+        from dgl_tpu_torch.parallel import bitgat_spmd as tgs, comm
+        el, er, elg, erc, zg, out, l = ctx.saved_tensors
+        fmt, group, clip = ctx.fmt, ctx.group, 20.0
+        linv, rho = bg.backward_scales(g, out, l, None)
+        d_el, d_er, dz = tgs.bit_shard_gat_bwd_plain(
+            fmt.shards[0], elg, erc, zg, g, linv, rho, fmt.npp, SLOPE)
+
+        def scatter(part):
+            full = part.new_zeros((fmt.num_parts * fmt.npp,)
+                                  + tuple(part.shape[1:]))
+            full[:fmt.kp] = part
+            return comm.reduce_scatter_rows(full, group)
+        d_el = torch.where((el > -clip) & (el < clip), scatter(d_el), 0.0)
+        d_er = torch.where((er > -clip) & (er < clip), d_er, 0.0)
+        return d_el, d_er, scatter(dz), None, None
+
+
+def sharded_graph(tbs, gt):
+    """Phase 35: the Reddit graph's symmetric one-part sharded format,
+    scattered on the card from the phase-4 COO (simple by construction);
+    its bytes and set bits held to the graph's."""
+    row, col = gt.unit().coo()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fmt = tbs.build_bit_sharded_format_device(
+        row, col, N_NODES, 1, symmetric=True, assume_simple=True,
+        device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bits = popcount(fmt.shards)
+    log(f"# one-part sharded format on the card in {build_s:.1f}s: kp "
+        f"{fmt.kp}, npp {fmt.npp}, W {fmt.npp // 32}, "
+        f"{fmt.bytes_per_device} bytes a device, {bits} set bits")
+    if fmt.bytes_per_device != REDDIT_SHARD_BYTES or bits != REDDIT_EDGES \
+            or fmt.has_remainder:
+        raise AssertionError(f"sharded format of {fmt.bytes_per_device} B "
+                             f"and {bits} bits, not {REDDIT_SHARD_BYTES} "
+                             f"and {REDDIT_EDGES}")
+    deg = tbs.sharded_in_degrees(fmt, row, col, device="cuda")
+    return fmt, deg
+
+
+def sharded_counts(bm, bg, tgs):
+    return {"bit_matmul_t": bm.bit_matmul_t.launches,
+            "bit_matmul": bm.bit_matmul.launches,
+            "bitgat_fwd": bg.bitgat_fwd.launches,
+            "bitgat_bwd": bg.bitgat_bwd.launches,
+            "bitgat_fwd_t": bg.bitgat_fwd_t.launches,
+            "bit_shard_gat_bwd": tgs.bit_shard_gat_bwd.launches}
+
+
+def reset_sharded_counts(bm, bg, tgs):
+    for fn in (bm.bit_matmul_t, bm.bit_matmul, bg.bitgat_fwd, bg.bitgat_bwd,
+               bg.bitgat_fwd_t, tgs.bit_shard_gat_bwd):
+        fn.launches = 0
+
+
+def step_grads(model, fmt, x, y, train, params=None):
+    """(loss, {name: gradient}) of one step of ``loss_fn``."""
+    model.zero_grad()
+    loss = loss_fn(model, fmt, x, y, train)
+    loss.backward()
+    named = (params or model).named_parameters()
+    return loss.item(), {n: p.grad.clone() for n, p in named}
+
+
+def hold_step(what, got, want):
+    loss_g, grad_g = got
+    loss_w, grad_w = want
+    if abs(loss_g - loss_w) > 1e-4 * abs(loss_w):
+        raise AssertionError(f"{what}: loss {loss_g} vs {loss_w}")
+    for n in grad_w:
+        close(grad_g[n].to(grad_w[n].device), grad_w[n], f"{what}: grad {n}",
+              rtol=1e-3, atol=1e-5)
+    log(f"# {what}: loss {loss_g:.8f} vs {loss_w:.8f}, {len(grad_w)} "
+        "gradients agree")
+
+
+def phase_sharded_gcn(dgt, bm, bg, tgs, group, fmt, deg, x, y, train, ref,
+                      card):
+    """Phase 35: the phase-4 GCN on ``bit_sharded_spmm``: one step of the
+    seed-0 model against phase 4's bitmask step, then 10 Adam steps with
+    the counts set to 0 just before and read just after."""
+    gcn = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
+    model = ShardedGCN(gcn, group, deg)
+    hold_step("sharded GCN step vs phase 4's bitmask step",
+              step_grads(model, fmt, x, y, train, gcn), ref)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_sharded_counts(bm, bg, tgs)
+    losses, step_s = train_loop("sharded GCN", model, opt, fmt, x, y, train)
+    counts = sharded_counts(bm, bg, tgs)
+    log(f"# sharded GCN train ({card}): median step {step_s * 1e3:.3f} ms "
+        f"after one warm-up step, {REDDIT_EDGES / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"launches {counts}")
+    want = {name: 0 for name in counts}
+    want["bit_matmul_t"] = 4 * STEPS
+    if counts != want:
+        raise AssertionError(f"sharded GCN launches {counts}, not 4 K1 a "
+                             "step and no other")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"sharded GCN losses do not fall: {losses}")
+
+
+def phase_sharded_gat(dgt, params, bm, bg, tgs, group, fmt, x, y, train,
+                      card):
+    """Phase 35: the route-4 GAT recipe on ``bit_sharded_gat`` for 10 Adam
+    steps, the counts set to 0 just before and read just after; then a
+    profiled step held to the counters and one step against the same step
+    built from the plain versions."""
+    from dgl_tpu_torch.parallel import bit_sharded_gat
+    model = ShardedGAT(sharded_gat_convs(dgt, params),
+                       lambda f, el, er, z: bit_sharded_gat(f, el, er, z,
+                                                            group, SLOPE))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_sharded_counts(bm, bg, tgs)
+    losses, step_s = train_loop("sharded GAT", model, opt, fmt, x, y, train)
+    counts = sharded_counts(bm, bg, tgs)
+    log(f"# sharded GAT train ({card}): median step {step_s * 1e3:.3f} ms "
+        f"after one warm-up step, {REDDIT_EDGES / step_s:.6g} train-edges/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
+        f"launches {counts}")
+    want = {name: 0 for name in counts}
+    want.update(bitgat_fwd_t=2 * STEPS, bit_shard_gat_bwd=2 * STEPS)
+    if counts != want:
+        raise AssertionError(f"sharded GAT launches {counts}, not one "
+                             "bitgat_fwd_t and one K13 a layer and step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"sharded GAT losses do not fall: {losses}")
+    phase_profile(model, opt, fmt, x, y, train,
+                  lambda: sharded_counts(bm, bg, tgs))
+    got = step_grads(model, fmt, x, y, train)
+    model.gat = lambda f, el, er, z: PlainShardedGAT.apply(el, er, z, f,
+                                                           group)
+    hold_step("sharded GAT step, kernels vs plain versions", got,
+              step_grads(model, fmt, x, y, train))
+    return counts
+
+
+def shard_yardsticks(bg, tgs, shard, npp, bits, tag, heads, dim, rate):
+    """Phase 36: ``bitgat_fwd_t`` and K13 on one full-size shard (rows =
+    every src, bit columns = the npp dst of one device) against their
+    plain versions on every row, with their times (median of 5), the
+    plain versions' (the one call that gives the reference), the bound
+    and no library time: no PyTorch call computes masked-softmax
+    attention on a graph.  Inputs normal, as K5's yardsticks: exp lies on
+    no grid, so the checks keep the standard tolerance."""
+    kp = shard.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim + npp)
+    el = torch.randn(kp, heads, device="cuda", generator=gen)
+    er = torch.randn(npp, heads, device="cuda", generator=gen)
+    z = torch.randn(kp, heads, dim, device="cuda", generator=gen)
+    g = torch.randn(npp, heads, dim, device="cuda", generator=gen)
+    src_node, src_feat = kp * heads * 4, kp * heads * dim * 4
+    dst_node, dst_feat = npp * heads * 4, npp * heads * dim * 4
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, ops):
+        got = kernel()
+        want, plain_ms = timed_once(plain)
+        err = max(close(a, w, f"{name} {tag} H={heads} D={dim}")
+                  for a, w in zip(got, want))
+        bnd, by = bound(nbytes, ops, rate)
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel), "plain_ms": plain_ms,
+             "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        rows[name] = r
+        log(f"# {name} {tag} H={heads} D={dim}: {r['ms']:.4f} ms (bound "
+            f"{bnd:.4f} ms by {by}: {nbytes} B, {ops} ops), plain "
+            f"{plain_ms:.4f} ms, library none, max|err| {err:.3g}")
+        return want
+
+    # forward: in the shard, el, z (every src), er (the device's dst); out
+    # out, l.  Per edge and head the score and exp (5), l and p z (2 D)
+    out, l = row("bitgat_fwd_t",
+                 lambda: bg.bitgat_fwd_t(shard, el, er, z, npp, SLOPE),
+                 lambda: bg.bitgat_fwd_t_plain(shard, el, er, z, npp, SLOPE),
+                 shard.numel() * 4 + src_node + src_feat + 2 * dst_node
+                 + dst_feat, bits * heads * (2 * dim + 5))
+    linv, rho = bg.backward_scales(g, out, l, None)
+    del out, l
+    args = (shard, el, er, z, g, linv, rho, npp, SLOPE)
+    # K13: in the shard, el, z, er, linv, rho, g; out del, dz (every
+    # src), der.  Per edge and head the dot, alpha, de and draw (4 D + 12)
+    row("bit_shard_gat_bwd", lambda: tgs.bit_shard_gat_bwd(*args),
+        lambda: tgs.bit_shard_gat_bwd_plain(*args),
+        shard.numel() * 4 + 2 * src_node + 2 * src_feat + 4 * dst_node
+        + dst_feat, bits * heads * (4 * dim + 12))
+    return rows
+
+
+def phase_shard_yardsticks(bg, tgs, tbs, fmt, gt, rate):
+    """Phase 36: the yardsticks on the one-part shard and on shard 0 of a
+    4-part build, at (4, 32) and (1, 41)."""
+    shard1 = fmt.shards[0]
+    out = {f"1 part {h}x{d}": shard_yardsticks(
+        bg, tgs, shard1, fmt.npp, REDDIT_EDGES, "1 part", h, d, rate)
+        for h, d in GAT_SHAPES}
+    row, col = gt.unit().coo()
+    fmt4 = tbs.build_bit_sharded_format_device(
+        row, col, N_NODES, 4, symmetric=True, assume_simple=True,
+        device="cuda")
+    shard0, npp4 = fmt4.shards[0].clone(), fmt4.npp
+    del fmt4
+    torch.cuda.empty_cache()
+    bits = popcount(shard0)
+    log(f"# shard 0 of the 4-part format: kp {shard0.shape[0]}, npp {npp4}, "
+        f"W {shard0.shape[1]}, {shard0.numel() * 4} bytes, {bits} set bits")
+    out.update({f"shard 0 of 4 {h}x{d}": shard_yardsticks(
+        bg, tgs, shard0, npp4, bits, "shard 0 of 4", h, d, rate)
+        for h, d in GAT_SHAPES})
+    return out
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2881,6 +3411,9 @@ def main():
     from dgl_tpu_torch.ops.kernels import spmm as tsp, tiled_spmm as tts
     from dgl_tpu_torch.ops.kernels import gat_fused as tgf
     from dgl_tpu_torch.ops.kernels import hybrid as hyb, int8mm as i8
+    from dgl_tpu_torch import params
+    from dgl_tpu_torch.parallel import bitgat_spmd as tgs
+    from dgl_tpu_torch.parallel import bitspmd as tbs, comm
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2922,6 +3455,8 @@ def main():
                                     g, x, y, train)
     phase("4 (GCN profile)", phase_profile, model, opt, g, x, y, train)
     phase("5 (GCN check)", phase_check, model, g, x, y, train)
+    gcn_ref = phase("4 (GCN reference step for phase 35)",
+                    gcn_reference_step, dgt, g, x, y, train)
     del model, opt
     k2_launches = phase("6 (K2)", phase_k2, dgt, bm, g)
 
@@ -3022,7 +3557,27 @@ def main():
           train)
     del model, opt
     k12 = phase("33 (K12 yardsticks)", hybrid_yardsticks, i8, gh, rate)
-    del gh, gt, x, y, train
+    del gh
+    torch.cuda.empty_cache()
+
+    # phases 34-36: the mesh-sharded slice on a world-size-1 NCCL group,
+    # with the hybrid block freed
+    rendezvous = tempfile.mkdtemp()
+    group = comm.init_group(1, 0, "cuda", os.path.join(rendezvous, "file"))
+    phase("34 (sharded format and kernels, mid size)", phase_sharded_mid, bm,
+          bg, tbs, tgs, group)
+    fmt, deg = phase("35 (sharded format)", sharded_graph, tbs, gt)
+    xs = tbs.pad_nodes(fmt, x)
+    phase("35 (sharded GCN)", phase_sharded_gcn, dgt, bm, bg, tgs, group, fmt,
+          deg, xs, y, train, gcn_ref, card)
+    shard_launches = phase("35 (sharded GAT)", phase_sharded_gat, dgt, params,
+                           bm, bg, tgs, group, fmt, xs, y, train, card)
+    del xs, deg
+    shard = phase("36 (sharded-GAT yardsticks)", phase_shard_yardsticks, bg,
+                  tgs, tbs, fmt, gt, rate)
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(rendezvous, ignore_errors=True)
+    del fmt, gt, x, y, train
     torch.cuda.empty_cache()
     ge, xe, efe, ef_slot = phase("23 (EGAT graph)", egat_graph, dgt)
     conv, k11_launches = phase("23 (EGATConv on K11 v2)", phase_egat, dgt,
@@ -3160,6 +3715,18 @@ def main():
          "source": "dgl_tpu_torch/csrc/int8mm.cu",
          "replaces": "dgl_tpu/ops/pallas/int8mm.py:79",
          "launches": k12_launches["int8_matmul_cols"], **k12["cols"]},
+        # the src-major forward and K13 at the first GAT layer's (4, 32) on
+        # the Reddit graph's one-part shard, launches from phase 35
+        {"name": "bitgat_fwd_t", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitgat.cu",
+         "replaces": "dgl_tpu/ops/pallas/bitgat.py:245",
+         "launches": shard_launches["bitgat_fwd_t"],
+         **shard["1 part 4x32"]["bitgat_fwd_t"]},
+        {"name": "bit_shard_gat_bwd", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitgat.cu",
+         "replaces": "dgl_tpu/parallel/bitgat_spmd.py:135",
+         "launches": shard_launches["bit_shard_gat_bwd"],
+         **shard["1 part 4x32"]["bit_shard_gat_bwd"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,6 +44,35 @@
 //     a dst-major second pass over packed for der without atomics, and
 //     one coalesced atomic per bit with a float4 node row.
 //
+// bitgat_fwd_t_kernel  replaces _fwd_call in its own orientation, over
+//     the bits of A^T (rows = src, bit columns = dst), without dropout:
+//     the mesh-sharded GAT (dgl_tpu/parallel/bitgat_spmd.py:193-205) runs
+//     the forward on a device's column shard of the A^T packing, which
+//     bitgat_fwd_kernel cannot walk.  Scatter form, src-major as the
+//     backward: one warp per src row streams the row's words (one per
+//     lane, 8 in flight) and keeps z[s] and el[s] in registers, a lane
+//     the four columns 4 lane .. 4 lane + 3 of the flattened (H, D) row.
+//     Per set bit d each lane reads er[d] of its columns' heads, forms p
+//     and adds p z[s] into row d of a sum buffer with one 16-byte
+//     red.global.add.v4.f32 (the buffer's rows are padded to a multiple
+//     of 4 floats, so that every row is 16-byte aligned); the lane that
+//     starts a head adds p into l[d].  The adds are native reductions in
+//     L2, in an order that changes from run to run.
+//     bitgat_fwd_t_finish_kernel then writes out = sum / max(l, 1e-20).
+//     A first version took 4.9x as long on the H100 (189.5 against
+//     38.6 ms at (4, 32) on the Reddit graph's one-part shard,
+//     chip_smoke.py; PERF.md, the sharded GAT): K1's slab walk with the
+//     slab's sums in shared memory, whose float atomicAdd compiles to
+//     compare-and-swap loops (ATOMS.CAST.SPIN), 128 a set bit.  An owner
+//     warp for each of a slab's dst nodes, its sums in registers and
+//     every warp scanning every row, was slower still.
+//
+// The backward of the mesh-sharded GAT (JAX _bwd_src_call, K13) is
+// bitgat_bwd_kernel<C, false> launched on the shard: rows = kp src rows
+// of the gathered el and z, k32 = the shard's W words, num_dst = the
+// device's npp dst nodes; every offset it forms from a row and k32 is
+// 64-bit, and it takes no square packing.
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each kernel must
 // stream the whole bitmask, K_pad * n32 * 4 bytes (6,933,184,512 B at
 // Reddit scale: 2.07 ms), plus z, out, g and the node vectors once (about
@@ -302,6 +331,97 @@ bitgat_bwd_kernel(const uint32_t* __restrict__ packed_rev, int64_t k32,
   }
 }
 
+__device__ __forceinline__ void red_add_v4(float* a, float x, float y,
+                                           float z, float w) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(a),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+// bitgat_fwd_t's sums: acc (zeroed, rows of ostride floats, ostride a
+// multiple of 4) += p z[s], l (zeroed) += p for every set bit.
+__global__ void __launch_bounds__(kWarps * 32)
+bitgat_fwd_t_kernel(const uint32_t* __restrict__ packed_t, int64_t n32,
+                    int64_t num_src, int64_t num_dst,
+                    const float* __restrict__ el, const float* __restrict__ er,
+                    const float* __restrict__ z, int heads, int dim,
+                    float slope, int ostride, float* __restrict__ acc,
+                    float* __restrict__ l) {
+  const int lane = threadIdx.x & 31;
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (s >= num_src) return;  // warp-uniform
+  const int hd = heads * dim;
+  const bool lane_adds = 4 * lane < hd;
+  float zv[4], elv[4];
+  int head[4];
+  bool valid[4], first[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int f = 4 * lane + k;
+    valid[k] = f < hd;
+    head[k] = valid[k] ? f / dim : 0;
+    first[k] = valid[k] && f % dim == 0;
+    zv[k] = valid[k] ? __ldg(z + s * hd + f) : 0.f;
+    elv[k] = valid[k] ? __ldg(el + s * heads + head[k]) : 0.f;
+  }
+
+  const uint32_t* prow = packed_t + s * n32;
+  for (int64_t j0 = 0; j0 < n32; j0 += 32 * kUnroll) {
+    uint32_t word[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = j0 + u * 32 + lane;
+      word[u] = j < n32 ? __ldg(prow + j) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      unsigned live = __ballot_sync(kFull, word[u] != 0u);
+      while (live) {  // warp-uniform
+        const int src_lane = __ffs(live) - 1;
+        live &= live - 1;
+        uint32_t bits = __shfl_sync(kFull, word[u], src_lane);
+        const int64_t j = j0 + u * 32 + src_lane;
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          bits &= bits - 1;
+          const int64_t d = static_cast<int64_t>(b) * n32 + j;
+          if (d >= num_dst) continue;  // warp-uniform; padding bits are 0
+          float p[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            p[k] = valid[k]
+                       ? lrelu_exp(elv[k] + __ldg(er + d * heads + head[k]),
+                                   slope)
+                       : 0.f;
+          if (lane_adds)
+            red_add_v4(acc + d * ostride + 4 * lane, p[0] * zv[0],
+                       p[1] * zv[1], p[2] * zv[2], p[3] * zv[3]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (first[k]) atomicAdd(l + d * heads + head[k], p[k]);
+        }
+      }
+    }
+  }
+}
+
+// out[d, f] = acc[d, f] / max(l[d, f / dim], 1e-20) for the num_dst x hd
+// outputs, acc's rows ostride floats apart.
+__global__ void bitgat_fwd_t_finish_kernel(const float* __restrict__ acc,
+                                           const float* __restrict__ l,
+                                           float* __restrict__ out,
+                                           int64_t n, int hd, int dim,
+                                           int ostride) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const int64_t d = i / hd;
+  const int f = static_cast<int>(i - d * hd);
+  out[i] = __ldg(acc + d * ostride + f) /
+           fmaxf(__ldg(l + i / dim), 1e-20f);
+}
+
 dim3 rows_grid(int64_t rows) {
   return dim3(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
 }
@@ -339,6 +459,28 @@ cudaError_t launch_bwd(const void* packed_rev, int64_t k32, int64_t num_src,
       static_cast<uint32_t>(thresh), static_cast<const int64_t*>(seed),
       static_cast<float*>(dz), static_cast<float*>(del),
       static_cast<float*>(der));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_t(const void* packed_t, int64_t n32, int64_t num_src,
+                         int64_t num_dst, const void* el, const void* er,
+                         const void* z, int64_t heads, int64_t dim,
+                         float slope, int64_t ostride, void* acc, void* out,
+                         void* l, cudaStream_t stream) {
+  bitgat_fwd_t_kernel<<<rows_grid(num_src), kWarps * 32, 0, stream>>>(
+      static_cast<const uint32_t*>(packed_t), n32, num_src, num_dst,
+      static_cast<const float*>(el), static_cast<const float*>(er),
+      static_cast<const float*>(z), static_cast<int>(heads),
+      static_cast<int>(dim), slope, static_cast<int>(ostride),
+      static_cast<float*>(acc), static_cast<float*>(l));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t n = num_dst * heads * dim;
+  bitgat_fwd_t_finish_kernel<<<static_cast<unsigned>((n + 255) / 256), 256,
+                               0, stream>>>(
+      static_cast<const float*>(acc), static_cast<const float*>(l),
+      static_cast<float*>(out), n, static_cast<int>(heads * dim),
+      static_cast<int>(dim), static_cast<int>(ostride));
   return cudaGetLastError();
 }
 
@@ -398,6 +540,28 @@ int dgl_bitgat_bwd(const void* packed_rev, int64_t k32, int64_t num_src,
     default: return cudaErrorInvalidValue;
   }
 #undef DGL_BWD
+}
+
+// Forward over the bits of A^T: out (num_dst, H, D) f32, every element
+// written, and l (num_dst, H) f32, zeroed by the caller, from packed_t
+// (>= num_src rows, n32 words; bit b of word j <-> dst b * n32 + j), el
+// (num_src, H), er (num_dst, H) and z (num_src, H, D) f32, H D <= 128,
+// without dropout; acc is a zeroed (num_dst, ostride) f32 sum buffer,
+// ostride >= H D a multiple of 4 (16-byte aligned rows).  Grid:
+// ceil(num_src / 8) blocks of 8 warps, then a divide pass.
+int dgl_bitgat_fwd_t(const void* packed_t, int64_t n32, int64_t num_src,
+                     int64_t num_dst, const void* el, const void* er,
+                     const void* z, int64_t heads, int64_t dim, float slope,
+                     int64_t ostride, void* acc, void* out, void* l,
+                     int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (heads * dim > 128 || ostride < heads * dim || ostride % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(acc) % 16 != 0)
+    return cudaErrorInvalidValue;
+  return launch_fwd_t(packed_t, n32, num_src, num_dst, el, er, z, heads, dim,
+                      slope, ostride, acc, out, l,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -23,11 +23,15 @@ wrapping arithmetic:
     x0 = (s * C1) ^ seed ^ (d * C2)
     keep(s, d, h) = ((x0 * M_h) >> 17) < thresh           (unsigned)
 
-Two kernels (``csrc/bitgat.cu``), each with a plain PyTorch version
+Three kernels (``csrc/bitgat.cu``), each with a plain PyTorch version
 beside it that computes the same function from the same inputs:
 
 * :func:`bitgat_fwd` (``_fwd_call``): out and l from ``packed`` (rows =
   dst);
+* :func:`bitgat_fwd_t` (``_fwd_call`` in its own, src-major orientation):
+  out and l from ``packed_t`` (rows = src), without dropout; the
+  mesh-sharded GAT (``parallel/bitgat_spmd.py``) runs it on a device's
+  column shard of the A^T packing;
 * :func:`bitgat_bwd` (``_bwd_call``): the gradients of el, er and z from
   ``packed_rev`` (rows = src), given g = dL/dout,
   linv = 1 / (max(l, 1e-20) kp) and rho = kp * sum_c g * out.
@@ -156,6 +160,20 @@ def bitgat_fwd_plain(packed, el, er, z, num_dst: int, slope: float,
     return num / den.unsqueeze(-1), l
 
 
+def bitgat_fwd_t_plain(packed_t, el, er, z, num_dst: int, slope: float):
+    """``bitgat_fwd_t``'s function from ``packed_t`` (rows = src): out
+    (num_dst, H, D) and l (num_dst, H), both f32, without dropout."""
+    heads, dim = z.shape[1], z.shape[2]
+    el, er, z = el.float(), er.float(), z.float()
+    l = el.new_zeros(num_dst, heads)
+    num = el.new_zeros(num_dst, heads, dim)
+    for src, dst in bit_edges(packed_t, z.shape[0]):
+        p = _lrelu_exp(el[src] + er[dst], slope)
+        l.index_add_(0, dst, p)
+        num.index_add_(0, dst, p.unsqueeze(-1) * z[src])
+    return num / l.clamp(min=DEN_EPS).unsqueeze(-1), l
+
+
 def bitgat_bwd_plain(packed_rev, el, er, z, g, linv, rho, num_dst: int,
                      slope: float, thresh=None, seed=0):
     """K5 backward's function from ``packed_rev`` (rows = src): (del
@@ -196,6 +214,8 @@ _SIGNATURES = {
                        _P, _I, _P],
     "dgl_bitgat_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P,
                        _P, _P, _P, _I, _P],
+    "dgl_bitgat_fwd_t": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P,
+                         _P, _P, _I, _P],
 }
 
 
@@ -265,20 +285,50 @@ def bitgat_fwd(packed, el, er, z, num_dst: int, slope: float, thresh=None,
 bitgat_fwd.launches = 0
 
 
-def bitgat_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
-               slope: float, thresh=None, seed=0):
-    """K5 backward: (del (N_src, H), der (num_dst, H), dz (N_src, H, D))
-    f32 from ``packed_rev``, the bits of A^T (rows = src)."""
+def bitgat_fwd_t(packed_t, el, er, z, num_dst: int, slope: float):
+    """K5's forward over the A^T packing: (out (num_dst, H, D), l
+    (num_dst, H)) f32 from ``packed_t``, the bits of A^T (rows = the rows
+    of el and z, bit columns = dst), without dropout."""
     num_src = z.shape[0]
-    _check(packed_rev, el, er, z, num_src, num_dst, num_dst)
+    _check(packed_t, el, er, z, num_src, num_dst, num_dst)
+    if not on_cuda(packed_t, el, er, z):
+        return bitgat_fwd_t_plain(packed_t, el, er, z, num_dst, slope)
+    heads, dim = z.shape[1], z.shape[2]
+    out = torch.zeros(num_dst, heads, dim, dtype=torch.float32,
+                      device=z.device)
+    l = torch.zeros(num_dst, heads, dtype=torch.float32, device=z.device)
+    if num_dst == 0 or num_src == 0 or heads * dim == 0:
+        return out, l
+    el, er, z = _f32(el), _f32(er), _f32(z)
+    packed_t = packed_t.contiguous()
+    # the kernel's sums: rows padded to 4 floats, for 16-byte adds
+    ostride = -(-heads * dim // 4) * 4
+    acc = torch.zeros(num_dst, ostride, dtype=torch.float32, device=z.device)
+    _launch("dgl_bitgat_fwd_t", packed_t.data_ptr(), packed_t.shape[1],
+            num_src, num_dst, el.data_ptr(), er.data_ptr(), z.data_ptr(),
+            heads, dim, slope, ostride, acc.data_ptr(), out.data_ptr(),
+            l.data_ptr(), z.device.index,
+            torch.cuda.current_stream(z.device).cuda_stream)
+    bitgat_fwd_t.launches += 1
+    return out, l
+
+
+bitgat_fwd_t.launches = 0
+
+
+def check_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int):
+    """The backward's operands agree with each other and the packing."""
+    _check(packed_rev, el, er, z, z.shape[0], num_dst, num_dst)
     if g.shape != (num_dst,) + z.shape[1:] or linv.shape != er.shape \
             or rho.shape != er.shape:
         raise ValueError(f"g {tuple(g.shape)}, linv {tuple(linv.shape)} or "
                          f"rho {tuple(rho.shape)} do not match er and z")
-    if not on_cuda(packed_rev, el, er, z, g, linv, rho):
-        return bitgat_bwd_plain(packed_rev, el, er, z, g, linv, rho, num_dst,
-                                slope, thresh, seed)
-    heads, dim = z.shape[1], z.shape[2]
+
+
+def launch_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
+               slope: float, thresh=None, seed=0):
+    """Launch K5's backward kernel on CUDA operands: (del, der, dz)."""
+    num_src, heads, dim = z.shape
     d_el = torch.zeros(num_src, heads, dtype=torch.float32, device=z.device)
     d_er = torch.zeros(num_dst, heads, dtype=torch.float32, device=z.device)
     dz = torch.zeros(num_src, heads, dim, dtype=torch.float32,
@@ -295,8 +345,22 @@ def bitgat_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
             g.data_ptr(), heads, dim, slope, thresh or 0, seed_t.data_ptr(),
             dz.data_ptr(), d_el.data_ptr(), d_er.data_ptr(), z.device.index,
             torch.cuda.current_stream(z.device).cuda_stream)
-    bitgat_bwd.launches += 1
     return d_el, d_er, dz
+
+
+def bitgat_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
+               slope: float, thresh=None, seed=0):
+    """K5 backward: (del (N_src, H), der (num_dst, H), dz (N_src, H, D))
+    f32 from ``packed_rev``, the bits of A^T (rows = src)."""
+    check_bwd(packed_rev, el, er, z, g, linv, rho, num_dst)
+    if not on_cuda(packed_rev, el, er, z, g, linv, rho):
+        return bitgat_bwd_plain(packed_rev, el, er, z, g, linv, rho, num_dst,
+                                slope, thresh, seed)
+    out = launch_bwd(packed_rev, el, er, z, g, linv, rho, num_dst, slope,
+                     thresh, seed)
+    if z.shape[0] and z.shape[1] * z.shape[2]:
+        bitgat_bwd.launches += 1
+    return out
 
 
 bitgat_bwd.launches = 0

@@ -23,6 +23,9 @@ import dgl_tpu_torch.ops.kernels.int8mm as tgi8
 import dgl_tpu_torch.ops.kernels.spmm as tsp
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 from dgl_tpu_torch.ops import edgeflat
+from dgl_tpu_torch.parallel import bitgat_spmd as tgs
+from dgl_tpu_torch.parallel import bitspmd as tbs
+from dgl_tpu_torch.parallel import comm
 from dgl_tpu_torch.utils import config
 
 pytestmark = pytest.mark.cuda
@@ -1084,3 +1087,126 @@ def test_int8_wrappers_raise_and_never_take_plain(card, monkeypatch):
             bad()
     assert before == (tgi8.int8_matmul_rows.launches,
                       tgi8.int8_matmul_cols.launches)
+
+
+# -- the mesh-sharded slice: K5's src-major forward, K13, the format --------
+
+SHARD_FIELDS = ("shards", "shards_rev", "rem_src_g", "rem_dst_l", "rem_w",
+                "brem_src_g", "brem_dst_l", "brem_w")
+
+
+def _shard_graph():
+    """``_coo``'s edges made simple on 8,100 nodes: at two parts device
+    0's shard reaches bit plane 31 (dst 3,968 to 4,095)."""
+    row, col, n, _ = _coo()
+    key = np.unique(col * n + row)
+    return key % n, key // n, n
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_sharded_device_builder_matches_host(card, parts):
+    row, col, n, _ = _coo()
+    got = tbs.build_bit_sharded_format_device(row, col, n, parts,
+                                              device=card)
+    want = tbs.build_bit_sharded_format(row, col, n, parts, device="cpu")
+    assert got.has_remainder
+    for name in SHARD_FIELDS:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+
+
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 16), (3, 8)])
+def test_shard_gat_kernels_match_plain(card, heads, dim):
+    """``bitgat_fwd_t`` and K13 on each shard of a two-part build against
+    their plain versions; each launches once."""
+    row, col, n = _shard_graph()
+    fmt = tbs.build_bit_sharded_format_device(row, col, n, 2, device=card)
+    assert (fmt.shards[0] < 0).any()
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + dim)
+    kp, npp = fmt.kp, fmt.npp
+    for shard in fmt.shards:
+        el = torch.randn(kp, heads, device=card, generator=gen)
+        er = torch.randn(npp, heads, device=card, generator=gen)
+        z = torch.randn(kp, heads, dim, device=card, generator=gen)
+        g = torch.randn(npp, heads, dim, device=card, generator=gen)
+        f0, b0 = tbg.bitgat_fwd_t.launches, tgs.bit_shard_gat_bwd.launches
+        out, l = tbg.bitgat_fwd_t(shard, el, er, z, npp, 0.2)
+        w_out, w_l = tbg.bitgat_fwd_t_plain(shard, el, er, z, npp, 0.2)
+        torch.testing.assert_close(out, w_out, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(l, w_l, rtol=RTOL, atol=ATOL)
+        linv, rho = tbg.backward_scales(g, w_out, w_l, None)
+        args = (shard, el, er, z, g, linv, rho, npp, 0.2)
+        for a, b in zip(tgs.bit_shard_gat_bwd(*args),
+                        tgs.bit_shard_gat_bwd_plain(*args)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        assert (tbg.bitgat_fwd_t.launches - f0,
+                tgs.bit_shard_gat_bwd.launches - b0) == (1, 1)
+
+
+def test_shard_gat_wrappers_never_take_plain_on_cuda(card, monkeypatch):
+    for mod, name in ((tbg, "bitgat_fwd_t_plain"),
+                      (tgs, "bit_shard_gat_bwd_plain")):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(mod, name, refuse)
+    row, col, n = _shard_graph()
+    fmt = tbs.build_bit_sharded_format_device(row, col, n, 1, device=card)
+    npp = fmt.npp
+    el, er = torch.randn(npp, 2, device=card), torch.randn(npp, 2, device=card)
+    z = torch.randn(npp, 2, 16, device=card)
+    out, l = tbg.bitgat_fwd_t(fmt.shards[0], el, er, z, npp, 0.2)
+    linv, rho = tbg.backward_scales(z, out, l, None)
+    grads = tgs.bit_shard_gat_bwd(fmt.shards[0], el, er, z, z, linv, rho,
+                                  npp, 0.2)
+    assert all(torch.isfinite(t).all() for t in (out, l) + grads)
+
+
+@pytest.fixture
+def nccl_group(card, tmp_path):
+    """A world-size-1 NCCL group in this process."""
+    group = comm.init_group(1, 0, card, str(tmp_path / "rendezvous"))
+    yield group
+    torch.distributed.destroy_process_group()
+
+
+def test_sharded_ops_world_size_one(card, nccl_group):
+    """``bit_sharded_spmm`` and ``bit_sharded_gat`` on a world-size-1 NCCL
+    group against ``bit_spmm`` and ``bitgat_attention_aggregate``."""
+    row, col, n = _shard_graph()
+    fmt = tbs.build_bit_sharded_format_device(row, col, n, 1, device=card)
+    bf = tbm.build_bit_format_device(row, col, n, n, device=card)
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(n, 16, device=card, generator=gen)
+    xp = tbs.pad_nodes(fmt, x).requires_grad_()
+    out = tbs.bit_sharded_spmm(fmt, xp, nccl_group)
+    out.square().sum().backward()
+    xs = x.clone().requires_grad_()
+    want = tbm.bit_spmm(bf, xs)
+    want.square().sum().backward()
+    torch.testing.assert_close(out[:n], want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(xp.grad[:n], xs.grad, rtol=RTOL, atol=ATOL)
+    el, er = (torch.randn(n, 4, device=card, generator=gen)
+              for _ in range(2))
+    z, w = (torch.randn(n, 4, 32, device=card, generator=gen)
+            for _ in range(2))
+    ins_p = [tbs.pad_nodes(fmt, t).requires_grad_() for t in (el, er, z)]
+    out = tgs.bit_sharded_gat(fmt, *ins_p, nccl_group)
+    (out * tbs.pad_nodes(fmt, w)).sum().backward()
+    ins_s = [t.clone().requires_grad_() for t in (el, er, z)]
+    want = tbg.bitgat_attention_aggregate(bf, *ins_s)
+    (want * w).sum().backward()
+    torch.testing.assert_close(out[:n], want, rtol=RTOL, atol=ATOL)
+    for a, b in zip(ins_p, ins_s):
+        torch.testing.assert_close(a.grad[:n], b.grad, rtol=RTOL, atol=ATOL)
+
+
+def test_gloo_refuses_cuda_tensors(card, tmp_path):
+    """The card's tensors never go through gloo."""
+    comm.init_group(1, 0, "cpu", str(tmp_path / "rendezvous"))
+    try:
+        with pytest.raises(ValueError, match="gloo"):
+            comm.all_gather_rows(torch.zeros(4, 2, device=card))
+        with pytest.raises(ValueError, match="gloo"):
+            comm.reduce_scatter_rows(torch.zeros(4, 2, device=card))
+    finally:
+        torch.distributed.destroy_process_group()

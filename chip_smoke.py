@@ -173,13 +173,45 @@ Phases, each of which raises on failure (nothing is caught):
 36. ``bitgat_fwd_t`` and K13 yardsticks on the one-part shard and on
    shard 0 of a 4-part build at (4, 32) and (1, 41): each against its
    plain version on every row, its time (median of 5), its plain
-   version's and the bound.
+   version's and the bound;
+37. the stored-edge-term slice at mid size: each K11 v1 kernel (the
+   scores and the slot gradient over a stored FE, the slot vector sum on
+   both sides) and each K10 v1 kernel (the numerator with a stored
+   message, its ds, dx with dfe) against its plain version on the
+   phase-21 multigraph at (H, D) = (4, 32), (1, 41), (8, 8), the stored
+   slot tensors in f32 and in bf16, inputs on dyadic grids; then both v1
+   functions against their v2 counterparts on the same leaves, values and
+   gradients;
+38. EGATConv(64, 16, 32, 32, 4)'s widths on K11 v1 on phase 23's graph:
+   FE = ef_slot Wf with Wf (16, 128) stored per slot ((B, C, 128) f32),
+   (out^2).mean(), Adam 1e-3, one warm-up and 4 timed steps with every
+   launch counter held to its count a step, a profiled step held to the
+   counters, one step's loss and gradients against the same step through
+   the plain versions, and the loss against
+   ``egatconv_attention_aggregate_v2`` on the same leaves;
+39. EdgeGATConv(64, 16, 32, 4)'s widths on K10 v1 the same way: fe_slot =
+   ef_slot We and ee_slot = <fe_slot, attn_e> per head stored per slot,
+   against ``edgegat_attention_aggregate_v2``;
+40. K11 v1 and K10 v1 yardsticks on the phase-23 format at (4, 32), f32:
+   each kernel against its plain version on grid inputs (exact sums), its
+   time (median of 5), its plain version's, the bound and, for the slot
+   vector sum, one ``index_add_``;
+41. K1's slab-width sweep (``dgl_tpu_torch/tools/perf_bitmm_variants.py``,
+   the JAX package's P1): KP = N = 110,592, F = 16, random bits, 8, 16 and
+   32 words, each width exactly equal to the plain version;
+42. the probe of ``bitgat_fwd_t`` at full bit density
+   (``dgl_tpu_torch/tools/perf_bitgat_probe.py``, P2): s_pad = k_pad =
+   110,592, H = 4, D = 32, random bits, one warm-up and two timed
+   launches, and the block of 1,024 src rows against the plain version.
 
 Phases 28-30 run after phases 25 and 10, phase 31 after phase 28, phases
 32-33 after phase 24, with the bitmask freed, phases 34-36 after phase
-33, with the hybrid block freed; each phase prints its seconds.  Prints the card line and a
-``{"kernels": [...]}`` line before the last; the last line is
-``{"ok": true, "device": {...}}``.
+33, with the hybrid block freed, phase 37 after phase 25, phases 38-40
+after phase 27 and phases 41-42 last, with the EGAT graph freed; each
+phase prints its seconds.  Prints the card line and a ``{"kernels":
+[...]}`` line before the last; the last line is ``{"ok": true, "device":
+{...}}``.  The script finds ``dgl_tpu_torch`` from its own directory or
+the working directory (``package_root``).
 
 Usage: python3 chip_smoke.py
 """
@@ -195,7 +227,30 @@ import time
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+PACKAGE = "dgl_tpu_torch"
+
+
+def package_root(script=__file__, cwd=None):
+    """The first directory that holds ``dgl_tpu_torch/__init__.py``,
+    searching from the script's own directory up through its parents, then
+    from the working directory up through its parents: a copy of this file
+    outside the checkout still finds the package it drives.  Raises when
+    none holds it."""
+    starts = (os.path.dirname(os.path.abspath(script)),
+              os.path.abspath(os.getcwd() if cwd is None else cwd))
+    for start in starts:
+        d = start
+        while True:
+            if os.path.isfile(os.path.join(d, PACKAGE, "__init__.py")):
+                return d
+            parent = os.path.dirname(d)
+            if parent == d:
+                break
+            d = parent
+    raise SystemExit(f"chip_smoke: no {PACKAGE}/__init__.py in {starts[0]}, "
+                     f"{starts[1]} or any of their parents")
+
+
 N_NODES, N_EDGES, FEAT, HIDDEN, CLASSES = 232_965, 114_615_892, 602, 16, 41
 STEPS = 10
 RTOL, ATOL = 1e-4, 1e-3     # f32 sums in another order, and K1's atomics
@@ -234,18 +289,23 @@ def cuda_ms(fn, reps=5):
 
 
 def close(got, want, what, rtol=RTOL, atol=ATOL):
-    """assert_close, and max|got - want|.  A check that used more than half
-    of its tolerance at some element (|err| over atol + rtol |want|) is
-    logged: a later run may cross it."""
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m:
-                               f"{what}: {m}")
+    """assert_close, and max|got - want|, 2^26 elements at a time (bounded
+    temporaries: a (B, C, 128) slot tensor at 23M edges is 13.6 GB).  A
+    check that used more than half of its tolerance at some element (|err|
+    over atol + rtol |want|) is logged: a later run may cross it."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)} differ")
     g, w = got.reshape(-1), want.reshape(-1)
     err = used = 0.0
-    for i in range(0, g.numel(), 1 << 26):     # bounded temporaries
-        d = (g[i:i + (1 << 26)] - w[i:i + (1 << 26)]).abs()
+    for i in range(0, g.numel(), 1 << 26):
+        gc, wc = g[i:i + (1 << 26)], w[i:i + (1 << 26)]
+        torch.testing.assert_close(gc, wc, rtol=rtol, atol=atol,
+                                   msg=lambda m, i=i: f"{what} (elements "
+                                   f"from {i}): {m}")
+        d = (gc - wc).abs()
         err = max(err, float(d.max()))
-        used = max(used, float((d / (w[i:i + (1 << 26)].abs() * rtol
-                                     + atol)).max()))
+        used = max(used, float((d / (wc.abs() * rtol + atol)).max()))
     if used > 0.5:
         log(f"# near the tolerance: {what}, max|err| {err:.3g}, "
             f"{used:.0%} of the allowed error at its worst element")
@@ -412,10 +472,12 @@ def phase_train(dgt, bm, g, x, y, train):
     return model, opt, k1
 
 
-# each slot-space, K7, K12, K3 or sharded-GAT wrapper's launch counter and
-# the CUDA kernel it launches, once a call (K3's and K4's SpMM share a
-# kernel, K13 and K5's backward another: no step reads both counters)
+# each wrapper's launch counter and the CUDA kernel it launches, once a
+# call (K3's and K4's SpMM share a kernel, K13 and K5's backward another:
+# the counts of wrappers that share one are held together)
 TRACED_KERNELS = {
+    "bit_matmul_t": "bit_matmul_t_kernel",
+    "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_kernel",
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": "gat_ds_kernel", "src_aggregate": "src_agg_kernel",
     "vattn_scores": "vattn_scores_kernel",
@@ -427,19 +489,26 @@ TRACED_KERNELS = {
     "int8_matmul_rows": "int8_rows_kernel",
     "int8_matmul_cols": "int8_cols_kernel", "k3_spmm": "tiled_spmm_kernel",
     "bitgat_fwd_t": "bitgat_fwd_t_kernel",
-    "bit_shard_gat_bwd": "bitgat_bwd_kernel"}
+    "bit_shard_gat_bwd": "bitgat_bwd_kernel",
+    "egatc_scores": "vattn_scores_kernel",
+    "egatc_slot_grad": "vattn_slot_grad_kernel",
+    "slot_vec_reduce": "src_agg_kernel", "fe_aggregate": "src_agg_kernel",
+    "fe_ds": "gat_ds_kernel", "dx_dfe": "src_agg_kernel",
+    "edgegat_scores": "gat_scores_kernel",
+    "slot_feat_reduce": "src_agg_kernel", "edgegat_ds": "gat_ds_kernel"}
 
 
-def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
+def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
                   loss=loss_fn):
     """Optimizer steps of ``loss`` under torch.profiler, ``warmup`` of them
     before the one that its schedule records: device time by kernel and
     the device's busy share of the recorded step (the wall time includes
-    the profiler's own cost).  With ``counts`` (a function that reads
-    wrappers' launch counters), each wrapper of ``TRACED_KERNELS`` that it
-    reads has its launches in the recorded step held against its kernel's
-    entries in the trace; where they differ, the busy share misses those
-    launches, and the traced kernels are listed in order."""
+    the profiler's own cost).  ``counts`` is a function that reads the
+    step's wrappers' launch counters: each wrapper of ``TRACED_KERNELS``
+    that it reads has its launches in the recorded step held against its
+    kernel's entries in the trace.  Where they differ, the trace misses
+    launches, the busy share is not measured, and the traced kernels are
+    listed in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -448,7 +517,7 @@ def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
                                    repeat=1)) as prof:
         for recorded in (False,) * warmup + (True,):
             if recorded:
-                before = counts() if counts else None
+                before = counts()
                 t0 = time.perf_counter()
             opt.zero_grad()
             loss(model, g, x, y, train).backward()
@@ -456,7 +525,7 @@ def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
             torch.cuda.synchronize()
             if recorded:
                 wall_us = (time.perf_counter() - t0) * 1e6
-                after = counts() if counts else None
+                after = counts()
             prof.step()
     # the device's kernels and copies, without the ranges that annotate
     # them on the device (the profiler's step, the optimizer's step)
@@ -466,33 +535,35 @@ def phase_profile(model, opt, g, x, y, train, counts=None, warmup=1,
                    and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
+    traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
+              if name in after}
+    launched = {}
+    for name, kernel in traced.items():
+        launched[kernel] = launched.get(kernel, 0) + after[name] - before[name]
+    seen = {kernel: sum(e.count for e in rows
+                        if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key)
+            for kernel in launched}
+    log(f"# profiled step: launches by counter {launched}, in the trace "
+        f"{seen}")
     if busy_us == 0:
         log("# profiled step: the profiler saw no device time (not measured)")
         return
-    log(f"# profiled step: {wall_us / 1e3:.3f} ms wall, device busy "
-        f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%}); by kernel:")
+    busy = (f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})"
+            if seen == launched else "not measured (the trace misses "
+            f"launches; it shows {busy_us / 1e3:.3f} ms)")
+    log(f"# profiled step: {wall_us / 1e3:.3f} ms wall, device busy {busy}; "
+        "by kernel:")
     for e in rows[:12]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms {e.count:3d}x "
             f"{e.key[:100]}")
-    if counts is None:
-        return
-    traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
-              if name in after}
-    seen = {name: sum(e.count for e in rows
-                      if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key)
-            for name, kernel in traced.items()}
-    launched = {name: after[name] - before[name] for name in traced}
-    log(f"# profiled step: launches by counter {launched}, in the trace "
-        f"{seen}")
     if seen != launched:
         order = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA
                        and any(f"::{k}" in e.name
                                for k in traced.values()))
-        log("# profiled step: the trace misses launches (the busy share "
-            "above misses their time); its slot-space kernels in order: "
-            + "; ".join(
+        log("# profiled step: the trace misses launches; its counted kernels "
+            "in order: " + "; ".join(
             f"{n[n.find('::') + 2:][:50]} {d:.0f}us" for _, n, d in order))
 
 
@@ -1251,20 +1322,24 @@ def phase_gat_fused_mid(dgt, tts, tgf):
 K6_COUNTERS = ("gat_scores", "slot_reduce", "gat_ds", "src_aggregate")
 K9_COUNTERS = ("vattn_scores", "vattn_slot_grad", "vattn_node_grad")
 K10_COUNTERS = ("edgegat_scores", "slot_feat_reduce", "edgegat_ds")
+# K11 v1's three kernels, then K10 v1's
+V1_COUNTERS = ("egatc_scores", "egatc_slot_grad", "slot_vec_reduce",
+               "fe_aggregate", "fe_ds", "dx_dfe")
 NO_K9 = {name: 0 for name in K9_COUNTERS}
 NO_K10 = {name: 0 for name in K10_COUNTERS}
+NO_V1 = {name: 0 for name in V1_COUNTERS}
+SLOT_COUNTERS = K6_COUNTERS + K9_COUNTERS + K10_COUNTERS + V1_COUNTERS
 
 
 def reset_counts(tts, tgf):
-    for name in K6_COUNTERS + K9_COUNTERS + K10_COUNTERS:
+    for name in SLOT_COUNTERS:
         getattr(tgf, name).launches = 0
     tts.tiled_spmm_multihead.launches = 0
     tts.tiled_sddmm_dot_multihead.launches = 0
 
 
 def read_counts(tts, tgf):
-    counts = {name: getattr(tgf, name).launches
-              for name in K6_COUNTERS + K9_COUNTERS + K10_COUNTERS}
+    counts = {name: getattr(tgf, name).launches for name in SLOT_COUNTERS}
     counts["k4_spmm"] = tts.tiled_spmm_multihead.launches
     counts["k4_sddmm"] = tts.tiled_sddmm_dot_multihead.launches
     return counts
@@ -1289,7 +1364,7 @@ def phase_route4(dgt, tts, tgf, gt, x, y, train):
     # der, del and dx; K4's SDDMM never
     want = {"gat_scores": 2, "slot_reduce": 6, "gat_ds": 2,
             "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
-            **NO_K9, **NO_K10}
+            **NO_K9, **NO_K10, **NO_V1}
     if counts != {k: v * STEPS for k, v in want.items()}:
         raise AssertionError(f"route 4 launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1362,7 +1437,7 @@ def phase_gat_eval(tts, tgf, model, gt, x, y):
         f"accuracy on all nodes {acc:.4f}, launches {counts}")
     if counts != {"gat_scores": 2, "slot_reduce": 2, "gat_ds": 0,
                   "src_aggregate": 0, "k4_spmm": 2, "k4_sddmm": 0,
-                  **NO_K9, **NO_K10}:
+                  **NO_K9, **NO_K10, **NO_V1}:
         raise AssertionError(f"the eval forward did not run on K6: {counts}")
 
 
@@ -1399,7 +1474,7 @@ def phase_dotgat(dgt, tts, tgf, gt):
     # the src-side aggregation (dk, dx)
     want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
             "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 1, **NO_K9,
-            **NO_K10}
+            **NO_K10, **NO_V1}
     if counts != {k: v * DOTGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"DotGat launches {counts}, not {want} a step")
     if not all(torch.isfinite(p.grad).all() for p in conv.parameters()):
@@ -1682,7 +1757,7 @@ def phase_route5(dgt, tts, tgf, gt, x, y, train):
     want = {"gat_scores": 0, "slot_reduce": 2, "gat_ds": 2,
             "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
             "vattn_scores": 2, "vattn_slot_grad": 2, "vattn_node_grad": 4,
-            **NO_K10}
+            **NO_K10, **NO_V1}
     if counts != {k: v * STEPS for k, v in want.items()}:
         raise AssertionError(f"route 5 launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1816,7 +1891,7 @@ def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
     want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
             "src_aggregate": 1, "k4_spmm": 1, "k4_sddmm": 0,
             "vattn_scores": 1, "vattn_slot_grad": 1, "vattn_node_grad": 2,
-            **NO_K10}
+            **NO_K10, **NO_V1}
     if counts != {k: v * EGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"EGAT launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)):
@@ -2078,7 +2153,8 @@ def phase_edgegat(dgt, tts, tgf, g, x, ef, ef_slot):
     # edge ds, der, del, Q and dx for the backward
     want = {"gat_scores": 0, "slot_reduce": 3, "gat_ds": 0,
             "src_aggregate": 1, "k4_spmm": 1, "k4_sddmm": 0, **NO_K9,
-            "edgegat_scores": 1, "slot_feat_reduce": 2, "edgegat_ds": 1}
+            "edgegat_scores": 1, "slot_feat_reduce": 2, "edgegat_ds": 1,
+            **NO_V1}
     if counts != {k: v * EDGEGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"EdgeGAT launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)):
@@ -2239,6 +2315,603 @@ def k4_spmm_yardstick(ef, tts, gt, heads, fh, rate):
         f"ms by {by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
         f"library (torch.sparse.mm) {lib:.4f} ms, max|err| {err:.3g}")
     return r
+
+
+# -- the stored-edge-term slice (EGATConv v1 on K11 v1, EdgeGATConv v1, K10 v1)
+
+V1_SHAPES = ((4, 32), (1, 41), (8, 8))
+V1_DTYPES = (torch.float32, torch.bfloat16)
+# tools/perf_egat128.py:27-82: EGATConv(64, 16, 32, 32, 4) and
+# EdgeGATConv(64, 16, 32, 4) on phase 23's graph, (out^2).mean(), Adam
+# 1e-3; one warm-up step and 4 timed steps
+V1_STEPS = 5
+# a slope on a dyadic grid for the kernel checks: dW = ds attn lrelu'(raw)
+# then lies on a grid, and its sums over a node's slots are exact
+EXACT_SLOPE = 0.25
+K11V1_STEP = {"egatc_scores": 1, "slot_reduce": 1, "k4_spmm": 1, "gat_ds": 1,
+              "egatc_slot_grad": 1, "slot_vec_reduce": 2, "src_aggregate": 1}
+K10V1_STEP = {"gat_scores": 1, "slot_reduce": 3, "fe_aggregate": 1,
+              "fe_ds": 1, "dx_dfe": 1}
+
+
+def slot_rows(tf, gen, width, step, top, dtype=torch.float32):
+    """A (B, C, width) slot tensor on a grid, 0 at padded slots."""
+    b, cap = tf.num_buckets, tf.cap
+    return (grid(gen, b, cap, width, step=step, top=top)
+            * tf.valid.view(b, cap, 1)).to(dtype)
+
+
+def slot_heads(tf, gen, heads, step, top, low=None):
+    """A (B, H, C) slot tensor on a grid, 0 at padded slots."""
+    b, cap = tf.num_buckets, tf.cap
+    return (grid(gen, b, heads, cap, step=step, top=top, low=low)
+            * tf.valid.view(b, 1, cap))
+
+
+def egatc_inputs(tf, heads, dim, gen, dtype):
+    """K11 v1's U, V (multiples of 1/16 in [-1, 1]), attn and the stored FE
+    in ``dtype`` (of 1/16 in [-1/2, 1/2], exact in bf16) and ds (of 1/8 in
+    [-1, 1]): raw = U + V + FE is exact in f32, and with EXACT_SLOPE every
+    dW is a multiple of 1/512 of at most 1/2."""
+    U = grid(gen, tf.num_src, heads, dim, step=1 / 16, top=1)
+    V = grid(gen, tf.num_dst, heads, dim, step=1 / 16, top=1)
+    attn = grid(gen, heads, dim, step=1 / 16, top=0.5)
+    fe = slot_rows(tf, gen, heads * dim, 1 / 16, 0.5, dtype)
+    ds = slot_heads(tf, gen, heads, 1 / 8, 1)
+    return U, V, attn, fe, ds
+
+
+def egatc_kernel_checks(tgf, tf, heads, dim, dtype, gen, tag):
+    """Each K11 v1 kernel against its plain version on ``tf`` with the
+    stored FE in ``dtype``: (name, max|err|) pairs."""
+    U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, dtype)
+    counters = [getattr(tgf, name) for name in V1_COUNTERS[:3]]
+    before = [k.launches for k in counters]
+    errs = [("p", close(tgf.egatc_scores(tf, U, V, attn, fe, EXACT_SLOPE),
+                        tgf.egatc_scores_plain(tf, U, V, attn, fe,
+                                               EXACT_SLOPE), f"{tag} p"))]
+    da, dfe = tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)
+    want = tgf.egatc_slot_grad_plain(tf, U, V, attn, fe, ds, EXACT_SLOPE)
+    if dfe.dtype != dtype:
+        raise AssertionError(f"{tag}: dFE is {dfe.dtype}, not {dtype}")
+    errs += [("da", close_sum(da, want[0], f"{tag} da")),
+             ("dFE", close(dfe.float(), want[1].float(), f"{tag} dFE"))]
+    for side, name in (("dst", "dFNJ"), ("src", "dFNI")):
+        errs.append((name, close(tgf.slot_vec_reduce(tf, dfe, side),
+                                 tgf.slot_vec_reduce_plain(tf, dfe, side),
+                                 f"{tag} {name}")))
+    torch.cuda.synchronize()
+    launched = [k.launches - b0 for k, b0 in zip(counters, before)]
+    if launched != [1, 1, 2]:
+        raise AssertionError(f"{tag}: K11 v1 launches {launched}, not "
+                             "[1, 1, 2]")
+    return errs
+
+
+def edgegat_v1_inputs(tf, heads, fh, gen, dtype):
+    """K10 v1's x and zn (multiples of 1/16 in [-1, 1]), the stored fe in
+    ``dtype`` (the same grid), p (of 1/16 in [0, 4]), g and rp (normal):
+    every per-slot product and every sum of them over a node's slots is
+    exact in f32."""
+    x = grid(gen, tf.num_src, heads, fh, step=1 / 16, top=1)
+    zn = grid(gen, tf.num_dst, heads, fh, step=1 / 16, top=1)
+    fe = slot_rows(tf, gen, heads * fh, 1 / 16, 1, dtype)
+    p = slot_heads(tf, gen, heads, 1 / 16, 4, low=0)
+    g = torch.randn(p.shape, device="cuda", generator=gen) * (p != 0)
+    rp = torch.randn(tf.num_dst, heads, device="cuda", generator=gen)
+    return x, zn, fe, p, g, rp
+
+
+def edgegat_v1_kernel_checks(tgf, tf, heads, fh, dtype, gen, tag):
+    """Each K10 v1 kernel against its plain version on ``tf`` with the
+    stored fe in ``dtype``: (name, max|err|) pairs."""
+    x, zn, fe, p, g, rp = edgegat_v1_inputs(tf, heads, fh, gen, dtype)
+    counters = [getattr(tgf, name) for name in V1_COUNTERS[3:]]
+    before = [k.launches for k in counters]
+    errs = [("num", close(tgf.fe_aggregate(tf, x, fe, p),
+                          tgf.fe_aggregate_plain(tf, x, fe, p),
+                          f"{tag} num")),
+            ("ds", close(tgf.fe_ds(tf, x, fe, zn, rp, g),
+                         tgf.fe_ds_plain(tf, x, fe, zn, rp, g),
+                         f"{tag} ds"))]
+    dx, dfe = tgf.dx_dfe(tf, zn, p, dtype)
+    want = tgf.dx_dfe_plain(tf, zn, p, dtype)
+    if dfe.dtype != dtype:
+        raise AssertionError(f"{tag}: dfe is {dfe.dtype}, not {dtype}")
+    errs += [("dx", close(dx, want[0], f"{tag} dx")),
+             ("dfe", close(dfe.float(), want[1].float(), f"{tag} dfe"))]
+    torch.cuda.synchronize()
+    launched = [k.launches - b0 for k, b0 in zip(counters, before)]
+    if launched != [1, 1, 1]:
+        raise AssertionError(f"{tag}: K10 v1 launches {launched}, not "
+                             "[1, 1, 1]")
+    return errs
+
+
+def v1_against_v2(tgf, tf, n_src, n_dst, gen, tag):
+    """At (4, 32) with 16 edge features: each v1 function through its
+    kernels on the slot tensors formed from the v2 function's leaves
+    (FE = ef_slot Wf; fe = ef_slot We and ee = <fe, attn_e>) against the v2
+    function on those leaves, the value and every leaf's gradient."""
+    heads, dim, fe_in = EGAT_H, EGAT_D, EGAT_FE
+    b, cap = tf.num_buckets, tf.cap
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)
+                ).requires_grad_()
+
+    ef_slot = slot_rows(tf, gen, fe_in, 1 / 16, 1).requires_grad_()
+    u, v, x = (randn(n, heads, dim, scale=s) for n, s in (
+        (n_src, 0.5), (n_dst, 0.5), (n_src, 1.0)))
+    wf, attn = randn(fe_in, heads * dim, scale=0.1), randn(heads, dim)
+    dz = torch.randn(n_dst, heads, dim, device="cuda", generator=gen)
+    leaves = (u, v, ef_slot, wf, attn, x)
+
+    def run(v1):
+        for a in leaves:
+            a.grad = None
+        if v1:
+            out = tgf.egatconv_attention_aggregate(
+                tf, u, v, ef_slot @ wf, attn, x, heads, dim, dim, EGAT_SLOPE)
+        else:
+            out = tgf.egatconv_attention_aggregate_v2(
+                tf, u, v, ef_slot, wf, attn, x, heads, dim, dim, EGAT_SLOPE)
+        out.backward(dz)
+        return [out.detach()] + [a.grad.clone() for a in leaves]
+
+    errs = [close(a, w, f"{tag} EGAT v1 vs v2 {i}", atol=ATOL * max(
+        1.0, float(w.abs().max()))) for i, (a, w) in enumerate(
+        zip(run(True), run(False)))]
+    el, er = randn(n_src, heads), randn(n_dst, heads)
+    leaves = (el, er, ef_slot, wf, attn, x)
+
+    def run_e(v1):
+        for a in leaves:
+            a.grad = None
+        if v1:
+            fe = ef_slot @ wf
+            ee = (fe.view(b, cap, heads, dim) * attn).sum(-1)
+            out = tgf.edgegat_attention_aggregate(
+                tf, el, er, ee.transpose(1, 2).contiguous(), fe, x, heads,
+                dim, SLOPE)
+        else:
+            out = tgf.edgegat_attention_aggregate_v2(
+                tf, el, er, ef_slot, wf, attn, x, heads, dim, SLOPE)
+        out.backward(dz)
+        return [out.detach()] + [a.grad.clone() for a in leaves]
+
+    errs += [close(a, w, f"{tag} EdgeGAT v1 vs v2 {i}", atol=ATOL * max(
+        1.0, float(w.abs().max()))) for i, (a, w) in enumerate(
+        zip(run_e(True), run_e(False)))]
+    return max(errs)
+
+
+def phase_v1_mid(dgt, tts, tgf):
+    """Phase 37: each K11 v1 and K10 v1 kernel against its plain version on
+    the phase-21 multigraph at (H, D) = (4, 32), (1, 41), (8, 8), with the
+    stored slot tensors in f32 and in bf16; then both v1 functions against
+    their v2 counterparts on the same leaves."""
+    row, col, n_src, n_dst = mid_graph()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda").with_src_first()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    for heads, dim in V1_SHAPES:
+        for dtype in V1_DTYPES:
+            for name, checks in (("K11 v1", egatc_kernel_checks),
+                                 ("K10 v1", edgegat_v1_kernel_checks)):
+                tag = (f"{name} mid H={heads} D={dim} "
+                       f"{str(dtype).split('.')[-1]}")
+                errs = checks(tgf, fwd, heads, dim, dtype, gen, tag)
+                log(f"# {tag}: max|err| " + ", ".join(
+                    f"{n} {e:.3g}" for n, e in errs))
+    err = v1_against_v2(tgf, fwd, n_src, n_dst, gen, "mid")
+    log(f"# v1 vs v2 mid size (4, 32), Fe = 16: values and every gradient "
+        f"agree, max|err| {err:.3g}")
+
+
+class EgatV1(torch.nn.Module):
+    """EGATConv(64, 16, 32, 32, 4)'s widths on K11 v1 (compute_edge_feats
+    False, tools/perf_egat128.py:45-80): fni, fnj and the node values from
+    three (64, 128) projections of x, the stored edge term FE = ef_slot Wf
+    with Wf (16, 128) (a plain matmul), attn (4, 32)."""
+
+    def __init__(self, gen):
+        super().__init__()
+        hd = EGAT_H * EGAT_D
+
+        def param(*shape):
+            return torch.nn.Parameter(torch.randn(
+                *shape, device="cuda", generator=gen) * shape[0] ** -0.5)
+
+        self.w_ni, self.w_nj = param(EGAT_FIN, hd), param(EGAT_FIN, hd)
+        self.w_node = param(EGAT_FIN, hd)
+        self.wf, self.attn = param(EGAT_FE, hd), param(EGAT_H, EGAT_D)
+
+    def nodes(self, x):
+        shape = (x.shape[0], EGAT_H, EGAT_D)
+        return tuple((x @ w).view(shape)
+                     for w in (self.w_ni, self.w_nj, self.w_node))
+
+    def forward(self, tf, x, ef_slot, attention=None):
+        """(N, 4, 32) through K11 v1, or through ``attention`` on the same
+        tensors (the plain versions' twin)."""
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        fni, fnj, h = self.nodes(x)
+        fe = ef_slot @ self.wf
+        if attention is not None:
+            return attention(fni, fnj, fe, self.attn, h, tf, EGAT_SLOPE)
+        return tgf.egatconv_attention_aggregate(
+            tf, fni, fnj, fe, self.attn, h, EGAT_H, EGAT_D, EGAT_D,
+            EGAT_SLOPE)
+
+    def v2(self, tf, x, ef_slot):
+        """The same leaves through ``egatconv_attention_aggregate_v2``."""
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        fni, fnj, h = self.nodes(x)
+        return tgf.egatconv_attention_aggregate_v2(
+            tf, fni, fnj, ef_slot, self.wf, self.attn, h, EGAT_H, EGAT_D,
+            EGAT_D, EGAT_SLOPE)
+
+
+class PlainEgatc(torch.autograd.Function):
+    """K11 v1's attention built from the plain versions alone: the twin of
+    the port's autograd function."""
+
+    @staticmethod
+    def forward(ctx, fni, fnj, fe, attn, x, tf, slope):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        from dgl_tpu_torch.ops.kernels import tiled_spmm as tts
+        p = tgf.egatc_scores_plain(tf, fni, fnj, attn, fe, slope)
+        den = tgf.slot_reduce_plain(tf, p, "dst").clamp_(min=tgf.DEN_EPS)
+        out = tts.tiled_spmm_multihead_plain(tf, x, p) / den.unsqueeze(-1)
+        ctx.save_for_backward(fni, fnj, fe, attn, x, p, den, out)
+        ctx.tf, ctx.slope = tf, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        fni, fnj, fe, attn, x, p, den, out = ctx.saved_tensors
+        tf = ctx.tf
+        zn, rp = tgf._scales(out, dz, den)
+        ds = tgf.gat_ds_plain(tf, x, zn, rp, p)
+        da, dfe = tgf.egatc_slot_grad_plain(tf, fni, fnj, attn, fe, ds,
+                                            ctx.slope)
+        del ds
+        du = tgf.slot_vec_reduce_plain(tf, dfe, "src").view(fni.shape)
+        dv = tgf.slot_vec_reduce_plain(tf, dfe, "dst").view(fnj.shape)
+        return (du, dv, dfe, da, tgf.src_aggregate_plain(tf, zn, p), None,
+                None)
+
+
+class EdgeGatV1(torch.nn.Module):
+    """EdgeGATConv(64, 16, 32, 4)'s widths on K10 v1
+    (tools/perf_egat128.py:81-82): the node values x3 = x W with W (64,
+    128), el and er their dots with attn_l and attn_r, the stored message
+    fe_slot = ef_slot We with We (16, 128) and the stored logit ee_slot =
+    <fe_slot, attn_e> per head, (B, H, C), formed as ef_slot M with M = We
+    contracted with attn_e (the same function without a second
+    (B, C, 128) tensor)."""
+
+    def __init__(self, gen):
+        super().__init__()
+        hd = EGAT_H * EGAT_D
+
+        def param(*shape):
+            return torch.nn.Parameter(torch.randn(
+                *shape, device="cuda", generator=gen) * shape[-1] ** -0.5)
+
+        self.w, self.we = param(EGAT_FIN, hd), param(EGAT_FE, hd)
+        self.attn_l, self.attn_r = param(EGAT_H, EGAT_D), param(EGAT_H,
+                                                                 EGAT_D)
+        self.attn_e = param(EGAT_H, EGAT_D)
+
+    def nodes(self, x):
+        h = (x @ self.w).view(x.shape[0], EGAT_H, EGAT_D)
+        return h, (h * self.attn_l).sum(-1), (h * self.attn_r).sum(-1)
+
+    def slots(self, ef_slot):
+        """(ee_slot (B, H, C), fe_slot (B, C, H * D))."""
+        m = torch.einsum("fhd,hd->fh", self.we.view(EGAT_FE, EGAT_H, EGAT_D),
+                         self.attn_e)
+        return (ef_slot @ m).transpose(1, 2).contiguous(), ef_slot @ self.we
+
+    def forward(self, tf, x, ef_slot, attention=None):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        h, el, er = self.nodes(x)
+        ee, fe = self.slots(ef_slot)
+        if attention is not None:
+            return attention(el, er, ee, fe, h, tf, SLOPE)
+        return tgf.edgegat_attention_aggregate(tf, el, er, ee, fe, h, EGAT_H,
+                                               EGAT_D, SLOPE)
+
+    def v2(self, tf, x, ef_slot):
+        """The same leaves through ``edgegat_attention_aggregate_v2``."""
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        h, el, er = self.nodes(x)
+        return tgf.edgegat_attention_aggregate_v2(
+            tf, el, er, ef_slot, self.we, self.attn_e, h, EGAT_H, EGAT_D,
+            SLOPE)
+
+
+class PlainEdgeGatV1(torch.autograd.Function):
+    """K10 v1's attention built from the plain versions alone."""
+
+    @staticmethod
+    def forward(ctx, el, er, ee, fe, x, tf, slope):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        p, g = tgf.gat_scores_plain(tf, el, er, slope, ee)
+        den = tgf.slot_reduce_plain(tf, p, "dst").clamp_(min=tgf.DEN_EPS)
+        out = tgf.fe_aggregate_plain(tf, x, fe, p) / den.unsqueeze(-1)
+        ctx.save_for_backward(x, fe, p, g, den, out)
+        ctx.tf = tf
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+        x, fe, p, g, den, out = ctx.saved_tensors
+        tf = ctx.tf
+        zn, rp = tgf._scales(out, dz, den)
+        ds = tgf.fe_ds_plain(tf, x, fe, zn, rp, g)
+        dx, dfe = tgf.dx_dfe_plain(tf, zn, p, fe.dtype)
+        return (tgf.slot_reduce_plain(tf, ds, "src"),
+                tgf.slot_reduce_plain(tf, ds, "dst"), ds, dfe, dx, None,
+                None)
+
+
+def v1_loss(model, tf, x, ef_slot, train=None):
+    return model(tf, x, ef_slot).square().mean()
+
+
+def phase_v1_train(tgf, tts, model, tf, x, ef_slot, e, name, want, plain):
+    """Phases 38 and 39: one warm-up and 4 timed Adam steps (lr 1e-3) of
+    (out^2).mean() with the counts set to 0 just before and read just
+    after, each wrapper's launches held to ``want`` a step; a profiled step
+    held to the counters; one step's loss and gradients against the same
+    step through ``plain`` (the plain versions); the loss against the v2
+    function on the same leaves."""
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tts, tgf)
+    times, losses = [], []
+    for _ in range(V1_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = v1_loss(model, tf, x, ef_slot)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_counts(tts, tgf)
+    step_s = statistics.median(times[1:])
+    log(f"# {name}: steps {', '.join(f'{t * 1e3:.2f}' for t in times)} ms, "
+        f"median after one warm-up step {step_s * 1e3:.3f} ms, "
+        f"{e / step_s:.6g} train-edges/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes, loss "
+        f"{', '.join(f'{v:.6f}' for v in losses)}, launches {counts}")
+    full = {k: want.get(k, 0) * V1_STEPS for k in counts}
+    if counts != full:
+        raise AssertionError(f"{name} launches {counts}, not {want} a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} losses are not finite: {losses}")
+    phase_profile(model, opt, tf, x, ef_slot, None,
+                  lambda: read_counts(tts, tgf), loss=v1_loss)
+
+    def grads(forward):
+        model.zero_grad()
+        out = forward()
+        if out.shape != (N_NODES, EGAT_H, EGAT_D) or not torch.isfinite(
+                out).all():
+            raise AssertionError(f"{name}: the output is not finite of shape "
+                                 f"{(N_NODES, EGAT_H, EGAT_D)}")
+        loss = out.square().mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    loss_k, grad_k = grads(lambda: model(tf, x, ef_slot))
+    loss_p, grad_p = grads(lambda: model(tf, x, ef_slot, plain.apply))
+    if abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError(f"{name}: loss {loss_k} (kernels) vs {loss_p} "
+                             "(plain)")
+    for n in grad_k:
+        close(grad_k[n], grad_p[n], f"{name} grad {n}", rtol=1e-3, atol=1e-5)
+    del grad_p
+    with torch.no_grad():
+        loss_2 = model.v2(tf, x, ef_slot).square().mean().item()
+    if abs(loss_k - loss_2) > 1e-4 * abs(loss_2):
+        raise AssertionError(f"{name}: loss {loss_k} (v1) vs {loss_2} (v2)")
+    log(f"# {name} at 23M edges: loss {loss_k:.8f} (kernels), {loss_p:.8f} "
+        f"(plain versions), {loss_2:.8f} (v2 on the same leaves); "
+        f"{len(grad_k)} gradients agree with the plain versions'")
+    return {k: v for k, v in counts.items() if k in want}
+
+
+def phase_egatc_v1(tgf, tts, g, x, ef_slot):
+    """Phase 38: EGATConv(64, 16, 32, 32, 4)'s widths on K11 v1."""
+    tf = g.unit().tiled_format()[0]
+    model = EgatV1(torch.Generator(device="cuda").manual_seed(38))
+    fe_b = tf.num_buckets * tf.cap * EGAT_H * EGAT_D * 4
+    log(f"# K11 v1 slot tensors: FE and dFE (B, C, 128) f32, {fe_b} bytes "
+        f"each; ef_slot {ef_slot.numel() * ef_slot.element_size()} bytes")
+    return phase_v1_train(tgf, tts, model, tf, x, ef_slot, g.num_edges(),
+                          "EGATConv(64, 16, 32, 32, 4) on K11 v1",
+                          K11V1_STEP, PlainEgatc)
+
+
+def phase_edgegat_v1(tgf, tts, g, x, ef_slot):
+    """Phase 39: EdgeGATConv(64, 16, 32, 4)'s widths on K10 v1."""
+    tf = g.unit().tiled_format()[0]
+    model = EdgeGatV1(torch.Generator(device="cuda").manual_seed(39))
+    slots = tf.num_buckets * tf.cap
+    log(f"# K10 v1 slot tensors: fe_slot and dfe (B, C, 128) f32, "
+        f"{slots * EGAT_H * EGAT_D * 4} bytes each; ee_slot and ds (B, 4, "
+        f"C) f32, {slots * EGAT_H * 4} bytes each")
+    return phase_v1_train(tgf, tts, model, tf, x, ef_slot, g.num_edges(),
+                          "EdgeGATConv(64, 16, 32, 4) on K10 v1",
+                          K10V1_STEP, PlainEdgeGatV1)
+
+
+def v1_yardsticks(tgf, g, rate):
+    """Phase 40: each K11 v1 and K10 v1 kernel at full size on the EGAT
+    graph at (4, 32), f32 slot tensors, against its plain version on the
+    inputs of the mid-size checks (exact sums on their grids, held by
+    ``exact_sums``), with its time (median of 5), its plain version's, the
+    bound and, for the slot vector sum, one ``index_add_`` of the slot rows
+    at the slots' node ids."""
+    tf, e = g.unit().tiled_format()[0], g.num_edges()
+    heads, dim = EGAT_H, EGAT_D
+    b, cap = tf.num_buckets, tf.cap
+    slots, hd = b * cap, heads * dim
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    deg = max_degree(g)
+    exact_sums(deg * 0.5, 1 / 512, "K11 v1 dFE sums")
+    exact_sums(deg * 4 * 2, 1 / 256, "K10 v1 sums")
+    walk = walk_bytes(slots, e)
+    node_h, node_f = N_NODES * heads * 4, N_NODES * hd * 4
+    slot_h, edge_h = slots * heads * 4, e * heads * 4
+    slot_f, edge_f = slots * hd * 4, e * hd * 4
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, ops, lib=None, lib_name=None):
+        got, want = kernel(), plain()
+        pairs = [(a, w) for a, w in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,))]
+        err = max((close_sum if a.shape == (heads, dim) else close)(
+            a.float(), w.float(), f"{name} full size") for a, w in pairs)
+        del got, want, pairs
+        bnd, by = bound(nbytes, ops, rate)
+        r = {"max_abs_err": err, "ms": cuda_ms(kernel),
+             "plain_ms": cuda_ms(plain, reps=1), "bound_ms": bnd,
+             "bound_by": by, "library_ms": lib}
+        rows[name] = r
+        log(f"# {name} H={heads} D={dim}: {r['ms']:.4f} ms (bound {bnd:.4f} "
+            f"ms by {by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} "
+            f"ms, library " + (f"({lib_name}) {lib:.4f} ms" if lib is not None
+                               else "none") + f", max|err| {err:.3g}")
+
+    U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, torch.float32)
+    # K11 v1 scores: in the slot arrays, U, V, attn, FE at the edges; out p
+    # at every slot.  Per edge and column raw (2), lrelu and the dot (3);
+    # per edge and head the clip and exp
+    row("egatc_scores",
+        lambda: tgf.egatc_scores(tf, U, V, attn, fe, EXACT_SLOPE),
+        lambda: tgf.egatc_scores_plain(tf, U, V, attn, fe, EXACT_SLOPE),
+        walk + 2 * node_f + hd * 4 + edge_f + slot_h,
+        e * (5 * hd + 4 * heads))
+    # the slot gradient: in the slot arrays, ds, U, V, attn, FE at the
+    # edges; out da and dFE at every slot.  Per edge and column raw (2),
+    # lrelu and da (3), dW (2)
+    row("egatc_slot_grad",
+        lambda: tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE),
+        lambda: tgf.egatc_slot_grad_plain(tf, U, V, attn, fe, ds,
+                                          EXACT_SLOPE),
+        walk + edge_h + 2 * node_f + 2 * hd * 4 + edge_f + slot_f,
+        7 * e * hd)
+    dfe = tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)[1]
+    del U, V, attn, fe, ds
+    # the slot vector sum by dst: one index_add_ of the (B C, 128) rows at
+    # the slots' dst ids (padded slots hold 0)
+    ids = slot_ids(tf, "dst")
+    flat = dfe.view(slots, hd)
+
+    def lib_call():
+        return torch.zeros(N_NODES, hd, device="cuda").index_add_(0, ids,
+                                                                  flat)
+
+    close(lib_call(), tgf.slot_vec_reduce(tf, dfe, "dst"), "index_add_ dFE")
+    lib = cuda_ms(lib_call)
+    del ids, flat
+    # in: valid at every slot, dst_local and dFE at the edges; out one row
+    # per node; an add per edge and column
+    row("slot_vec_reduce", lambda: tgf.slot_vec_reduce(tf, dfe, "dst"),
+        lambda: tgf.slot_vec_reduce_plain(tf, dfe, "dst"),
+        slots * 4 + e * 4 + edge_f + node_f, e * hd, lib, "index_add_")
+    row("slot_vec_reduce_src", lambda: tgf.slot_vec_reduce(tf, dfe, "src"),
+        lambda: tgf.slot_vec_reduce_plain(tf, dfe, "src"),
+        slots * 4 + e * 4 + b * 4 + edge_f + node_f, e * hd)
+    del dfe
+    x, zn, fe, p, g_slot, rp = edgegat_v1_inputs(tf, heads, dim, gen,
+                                                 torch.float32)
+    # K10 v1 numerator: in the slot arrays, p at the edges, x, fe at the
+    # edges; out one row per node.  Per edge and column the add and the
+    # product's add (3)
+    row("fe_aggregate", lambda: tgf.fe_aggregate(tf, x, fe, p),
+        lambda: tgf.fe_aggregate_plain(tf, x, fe, p),
+        walk + edge_h + node_f + edge_f + node_f, 3 * e * hd)
+    # ds: in the slot arrays, g at the edges, x, zn, rp, fe at the edges;
+    # out ds at every slot.  Per edge and column the add and the dot (3),
+    # per edge and head the epilogue (2)
+    row("fe_ds", lambda: tgf.fe_ds(tf, x, fe, zn, rp, g_slot),
+        lambda: tgf.fe_ds_plain(tf, x, fe, zn, rp, g_slot),
+        walk + edge_h + 2 * node_f + node_h + edge_f + slot_h,
+        e * (3 * hd + 2 * heads))
+    # dx with dfe: in the slot arrays and src_order, p at the edges, zn;
+    # out dx (one row per node) and dfe at every slot.  Per edge and
+    # column the product and the add (2)
+    row("dx_dfe", lambda: tgf.dx_dfe(tf, zn, p),
+        lambda: tgf.dx_dfe_plain(tf, zn, p),
+        walk + b * 4 + edge_h + node_f + node_f + slot_f, 2 * e * hd)
+    return rows
+
+
+def phase_bitmm_sweep(bm, tp1, rate):
+    """Phase 41: K1's slab-width sweep (P1's counterpart,
+    ``dgl_tpu_torch.tools.perf_bitmm_variants``) at the JAX sweep's size,
+    its launches counted from 0, each width exactly equal to the plain
+    version; the bound of the default width's work."""
+    bm.bit_matmul_t.launches = 0
+    res = tp1.sweep(reps=3)
+    torch.cuda.synchronize()
+    launches = bm.bit_matmul_t.launches
+    w = bm._slab_words(tp1.F)
+    bnd, by = bound(res["nbytes"], 2 * res["bits"] * tp1.F, rate)
+    log(f"# K1 slab sweep KP = N = {tp1.KP}, F = {tp1.F}, {res['bits']} set "
+        "bits: " + ", ".join(f"{k} words {v:.4f} ms"
+                             for k, v in res["ms"].items())
+        + f"; plain {res['plain_ms']:.4f} ms; bound {bnd:.4f} ms by {by} "
+        f"({res['nbytes']} B); {launches} K1 launches; every width exact")
+    return {"launches": launches, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"][w], "plain_ms": res["plain_ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": None,
+            "slab_ms": {str(k): v for k, v in res["ms"].items()}}
+
+
+def phase_bitgat_probe(bg, tp2, rate):
+    """Phase 42: the probe of K5's src-major forward at full bit density
+    (P2's counterpart, ``dgl_tpu_torch.tools.perf_bitgat_probe``): its
+    launches counted from 0, the probe's time a launch, and the block of
+    1,024 src rows held to the plain version, with its time, the plain
+    version's and the bound."""
+    bg.bitgat_fwd_t.launches = 0
+    tp2.tiny_check()
+    res = tp2.probe()
+    torch.cuda.synchronize()
+    launches = bg.bitgat_fwd_t.launches
+    blk = res["block"]
+    bnd, by = bound(blk["nbytes"], blk["bits"] * tp2.H * (2 * tp2.D + 5),
+                    rate)
+    # the probe: its bits, el and z in, er in, out and l out
+    full_bnd, full_by = bound(
+        tp2.S_PAD * tp2.K_PAD // 8 + (tp2.S_PAD * tp2.H * (1 + tp2.D)
+                                      + tp2.K_PAD * tp2.H * (2 + tp2.D)) * 4,
+        res["bits"] * tp2.H * (2 * tp2.D + 5), rate)
+    log(f"# bitgat_fwd_t probe s_pad = k_pad = {tp2.S_PAD}, H = {tp2.H}, "
+        f"D = {tp2.D}, {res['bits']} set bits: launches "
+        + ", ".join(f"{t:.3f}" for t in res["launch_ms"])
+        + f" ms (bound {full_bnd:.4f} ms by {full_by}); block of "
+        f"{tp2.BLOCK_ROWS} src rows ({blk['bits']} bits): {blk['ms']:.4f} ms "
+        f"(bound {bnd:.4f} ms by {by}), plain {blk['plain_ms']:.4f} ms, "
+        f"max|err| {blk['max_abs_err']:.3g}; {launches} launches")
+    return {"launches": launches, "max_abs_err": blk["max_abs_err"],
+            "ms": blk["ms"], "plain_ms": blk["plain_ms"], "bound_ms": bnd,
+            "bound_by": by, "library_ms": None,
+            "probe_ms": statistics.median(res["launch_ms"]),
+            "probe_bound_ms": full_bnd}
 
 
 # -- the DotGat-on-K7 slice (DotGatConv's bitmask route) ---------------------
@@ -3403,7 +4076,7 @@ def phase(name, fn, *args):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, package_root())
     import dgl_tpu_torch as dgt
     from dgl_tpu_torch.ops import edgeflat as ef
     from dgl_tpu_torch.ops.kernels import bitdot as bd, bitgat as bg
@@ -3414,6 +4087,8 @@ def main():
     from dgl_tpu_torch import params
     from dgl_tpu_torch.parallel import bitgat_spmd as tgs
     from dgl_tpu_torch.parallel import bitspmd as tbs, comm
+    from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
+    from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3444,6 +4119,7 @@ def main():
     phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf)
     phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
     phase("25 (K10 v2 mid size)", phase_edgegat_mid, dgt, tts, tgf)
+    phase("37 (K10 v1, K11 v1 mid size)", phase_v1_mid, dgt, tts, tgf)
     phase("28 (K7 mid size)", phase_bitdot_mid, dgt, bm, bg, bd)
     phase("31 (K12 and the hybrid format, mid size)", phase_hybrid_mid, dgt,
           i8, tts)
@@ -3453,7 +4129,8 @@ def main():
     x, y, train = reddit_inputs()
     model, opt, k1_launches = phase("4 (GCN train)", phase_train, dgt, bm,
                                     g, x, y, train)
-    phase("4 (GCN profile)", phase_profile, model, opt, g, x, y, train)
+    phase("4 (GCN profile)", phase_profile, model, opt, g, x, y, train,
+          lambda: {"bit_matmul_t": bm.bit_matmul_t.launches})
     phase("5 (GCN check)", phase_check, model, g, x, y, train)
     gcn_ref = phase("4 (GCN reference step for phase 35)",
                     gcn_reference_step, dgt, g, x, y, train)
@@ -3474,7 +4151,9 @@ def main():
     # phases 9-10: the GAT slice at full size
     model, opt, k5_launches = phase("9 (GAT train)", phase_gat_train, dgt,
                                     bg, g, x, y, train)
-    phase("9 (GAT profile)", phase_profile, model, opt, g, x, y, train)
+    phase("9 (GAT profile)", phase_profile, model, opt, g, x, y, train,
+          lambda: {"bitgat_fwd": bg.bitgat_fwd.launches,
+                   "bitgat_bwd": bg.bitgat_bwd.launches})
     del model, opt
     k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, g,
                 h, d, rate) for h, d in GAT_SHAPES]
@@ -3493,7 +4172,8 @@ def main():
     model, opt, k3_launches = phase("13 (route 1: tiled GCN train)",
                                     phase_tiled_gcn, dgt, tts, gt, x, y,
                                     train)
-    phase("13 (route 1 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("13 (route 1 profile)", phase_profile, model, opt, gt, x, y, train,
+          lambda: {"k3_spmm": tts.tiled_spmm.launches})
     phase("13 (route 1 check)", phase_check, model, gt, x, y, train)
     del model, opt
     phase("14 (route 3: weighted GCN)", phase_weighted_gcn, dgt, tts, gt, x,
@@ -3501,7 +4181,9 @@ def main():
     model, opt, k4_launches = phase("15 (route 2: tiled GAT train)",
                                     phase_tiled_gat, dgt, tts, gt, x, y,
                                     train)
-    phase("15 (route 2 profile)", phase_profile, model, opt, gt, x, y, train)
+    phase("15 (route 2 profile)", phase_profile, model, opt, gt, x, y, train,
+          lambda: {"k4_spmm": tts.tiled_spmm_multihead.launches,
+                   "k4_sddmm": tts.tiled_sddmm_dot_multihead.launches})
     phase("15 (eval forward on K6)", phase_gat_eval, tts, tgf, model, gt, x,
           y)
     del model, opt
@@ -3588,8 +4270,7 @@ def main():
                                dgt, tts, tgf, ge, xe, efe, ef_slot)
     phase("26 (EdgeGATConv check)", phase_edgegat_check, conv, ge, xe, efe,
           ef_slot)
-    del conv
-    del xe, efe, ef_slot
+    del conv, efe
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, ge, EGAT_H,
                 EGAT_D, EGAT_FE, rate)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
@@ -3600,6 +4281,25 @@ def main():
           tts, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), False)
     phase("27 (K4 SpMM yardstick H=4 Fh=32, EGAT graph)", k4_spmm_yardstick,
           ef, tts, ge, EGAT_H, EGAT_D, rate)
+
+    # phases 38-40: the stored-edge-term slice on the EGAT graph, its
+    # (B, C, 128) f32 slot tensors 13.6 GB each at 23M edges
+    torch.cuda.empty_cache()
+    k11v1_launches = phase("38 (EGATConv v1 on K11 v1)", phase_egatc_v1, tgf,
+                           tts, ge, xe, ef_slot)
+    torch.cuda.empty_cache()
+    k10v1_launches = phase("39 (EdgeGATConv v1 on K10 v1)", phase_edgegat_v1,
+                           tgf, tts, ge, xe, ef_slot)
+    del xe, ef_slot
+    torch.cuda.empty_cache()
+    v1 = phase("40 (K11 v1, K10 v1 yardsticks)", v1_yardsticks, tgf, ge, rate)
+    del ge
+    torch.cuda.empty_cache()
+
+    # phases 41-42: the port's tools at the JAX tools' sizes
+    p1 = phase("41 (K1 slab sweep, P1)", phase_bitmm_sweep, bm, tp1, rate)
+    p2 = phase("42 (bitgat_fwd_t probe, P2)", phase_bitgat_probe, bg, tp2,
+               rate)
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
@@ -3727,6 +4427,44 @@ def main():
          "replaces": "dgl_tpu/parallel/bitgat_spmd.py:135",
          "launches": shard_launches["bit_shard_gat_bwd"],
          **shard["1 part 4x32"]["bit_shard_gat_bwd"]},
+        # K11 v1 and K10 v1 at (4, 32) on the EGAT graph, launches from
+        # phases 38 and 39 (the slot vector sum's row is its dst side)
+        {"name": "egatc_scores", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1093",
+         "launches": k11v1_launches["egatc_scores"], **v1["egatc_scores"]},
+        {"name": "egatc_slot_grad", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1193",
+         "launches": k11v1_launches["egatc_slot_grad"],
+         **v1["egatc_slot_grad"]},
+        {"name": "slot_vec_reduce", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1193, :1215",
+         "launches": k11v1_launches["slot_vec_reduce"],
+         **v1["slot_vec_reduce"]},
+        {"name": "fe_aggregate", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1393",
+         "launches": k10v1_launches["fe_aggregate"], **v1["fe_aggregate"]},
+        {"name": "fe_ds", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1432",
+         "launches": k10v1_launches["fe_ds"], **v1["fe_ds"]},
+        {"name": "dx_dfe", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1491",
+         "launches": k10v1_launches["dx_dfe"], **v1["dx_dfe"]},
+        # P1: K1 at its default slab width on the sweep's work (every width
+        # in slab_ms); P2: bitgat_fwd_t on the probe's block of 1,024 src
+        # rows (the whole probe's launch in probe_ms); launches from phases
+        # 41 and 42
+        {"name": "bit_matmul_t_slab_sweep", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitmm.cu",
+         "replaces": "tools/perf_bitmm_variants.py:148", **p1},
+        {"name": "bitgat_fwd_t_probe", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/bitgat.cu",
+         "replaces": "tools/perf_bitgat_probe.py:78", **p2},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,19 @@
 //     slot recompute raw and dW for their column and add dW at the slot's
 //     row; nothing (B, C, H * D)-sized is stored.
 //
+// EGATConv v1 (K11 v1, gat_fused.py:946-1261) stores its edge term FE per
+// slot, (B * C, H * D) of type T (float or __nv_bfloat16), instead of
+// forming it from ef and wf (kStore, read and written at 64-bit offsets:
+// at 23M edges and H * D = 128 the tensor has 3.4e9 elements):
+// vattn_scores_kernel<false, T, true>  replaces _egatc_scores_kernel
+//     (:959, egatc_forward :1093): raw adds FE[s, c].
+// vattn_slot_grad_kernel<kCols, 0, false, T, true>  replaces the da and
+//     dFE parts of _egatc_dv_da_dfe_kernel (:979, _egatc_bwd :1193): it
+//     also writes dW per slot and column as dFE, in T, every slot of every
+//     bucket (0 at padded ones).  dFNJ and dFNI, the sums of dFE per dst
+//     and src (the dv term of :979 and _dw_src_kernel :1020), are
+//     csrc/gat_fused.cu's slot vector sums.
+//
 // The TPU kernels contract one-hot matrices on the matrix unit, embed attn
 // in a head-block-diagonal matrix Ra and lane-pad each head; here a lane
 // reads attn and its columns directly.  Sums are f32; the TPU kernels cast
@@ -79,10 +92,28 @@
 // shapes.  Indices are int32: the wrappers check that every flat size
 // fits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// A stored slot tensor's element as f32, and back (csrc/gat_fused.cu has
+// the same pair)
+__device__ __forceinline__ float ld_slot(const float* t, long long i) {
+  return __ldg(t + i);
+}
+__device__ __forceinline__ float ld_slot(const __nv_bfloat16* t,
+                                         long long i) {
+  return __bfloat162float(__ldg(t + i));
+}
+__device__ __forceinline__ void st_slot(float* t, long long i, float v) {
+  t[i] = v;
+}
+__device__ __forceinline__ void st_slot(__nv_bfloat16* t, long long i,
+                                        float v) {
+  t[i] = __float2bfloat16(v);
+}
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kClip = 40.f;     // gat_fused.py CLIP
@@ -130,7 +161,7 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[F], int lane) {
   return r;
 }
 
-template <bool kEdge>
+template <bool kEdge, typename T = float, bool kStore = false>
 __global__ void __launch_bounds__(kWarps * 32)
 vattn_scores_kernel(const int* __restrict__ src_local,
                     const int* __restrict__ dst_local,
@@ -143,7 +174,7 @@ vattn_scores_kernel(const int* __restrict__ src_local,
                     const float* __restrict__ ef,
                     const float* __restrict__ wf, int fe, int fe_rows,
                     int heads, int dim, int lanes, float slope,
-                    float* __restrict__ p) {
+                    const T* __restrict__ fe_s, float* __restrict__ p) {
   extern __shared__ float smem[];
   const int hd = heads * dim;
   const int lane = threadIdx.x & 31;
@@ -207,6 +238,10 @@ vattn_scores_kernel(const int* __restrict__ src_local,
               const float* e = ef_s + (j0 + q) * fe_rows;
               for (int r = 0; r < fe_rows; ++r) raw += e[r] * wf_s[r * hd + c];
             }
+            if (kStore) {
+              raw += ld_slot(fe_s,
+                             static_cast<long long>(s0 + j0 + q) * hd + c);
+            }
             s[q] += a * lrelu(raw, slope);
           }
         }
@@ -226,7 +261,8 @@ vattn_scores_kernel(const int* __restrict__ src_local,
   }
 }
 
-template <int kCols, int kFe, bool kDef>
+template <int kCols, int kFe, bool kDef, typename T = float,
+          bool kStore = false>
 __global__ void __launch_bounds__(kWarps * 32)
 vattn_slot_grad_kernel(const int* __restrict__ src_local,
                        const int* __restrict__ dst_local,
@@ -241,7 +277,8 @@ vattn_slot_grad_kernel(const int* __restrict__ src_local,
                        const float* __restrict__ wf, int fe, int fe_rows,
                        int heads, int dim, int lanes, float slope,
                        float* __restrict__ da, float* __restrict__ def,
-                       float* __restrict__ dwf) {
+                       float* __restrict__ dwf, const T* __restrict__ fe_s,
+                       T* __restrict__ dfe_s) {
   constexpr bool kEdge = kFe > 0;
   constexpr int kF = kEdge ? kFe : 1;
   constexpr int kP = kDef ? kFe : 1;  // d(ef) partial sums of a slot
@@ -300,6 +337,17 @@ vattn_slot_grad_kernel(const int* __restrict__ src_local,
               def[static_cast<long long>(s0) * fe + i] = 0.f;
             }
           }
+          if (kStore) {
+            for (int j = 0; j < 32; ++j) {
+#pragma unroll
+              for (int i = 0; i < kCols; ++i) {
+                if (ok[i]) {
+                  st_slot(dfe_s, static_cast<long long>(s0 + j) * hd + col[i],
+                          0.f);
+                }
+              }
+            }
+          }
           continue;
         }
         const int sl = src_local[s0 + lane];
@@ -322,6 +370,7 @@ vattn_slot_grad_kernel(const int* __restrict__ src_local,
             for (int i = 0; i < kCols; ++i) {
               if (!ok[i]) continue;
               const int c = col[i];
+              const long long fo = static_cast<long long>(s0 + j) * hd + c;
               float raw = __ldg(ur + c) + __ldg(vr + c);
               if (kEdge) {
 #pragma unroll
@@ -329,8 +378,12 @@ vattn_slot_grad_kernel(const int* __restrict__ src_local,
                   if (r < fe_rows) raw += e[r] * wf_s[r * hd + c];
                 }
               }
+              if (kStore) raw += ld_slot(fe_s, fo);
               const bool pos = raw >= 0.f;
               acc_a[i] += dsh * (pos ? raw : slope * raw);
+              if (kStore) {
+                st_slot(dfe_s, fo, dsh * attn_s[c] * (pos ? 1.f : slope));
+              }
               if (kEdge) {
                 const float dw = dsh * attn_s[c] * (pos ? 1.f : slope);
 #pragma unroll
@@ -340,6 +393,15 @@ vattn_slot_grad_kernel(const int* __restrict__ src_local,
                     if (kDef) part[kDef ? r : 0] += wf_s[r * hd + c] * dw;
                   }
                 }
+              }
+            }
+          }
+          if (kStore && !live) {
+#pragma unroll
+            for (int i = 0; i < kCols; ++i) {
+              if (ok[i]) {
+                st_slot(dfe_s, static_cast<long long>(s0 + j) * hd + col[i],
+                        0.f);
               }
             }
           }
@@ -499,23 +561,26 @@ struct Operands {
   float slope;
 };
 
-template <int kCols, int kFe, bool kDef>
+template <int kCols, int kFe, bool kDef, typename T = float,
+          bool kStore = false>
 cudaError_t launch_slot_grad(Slots sl, int num_buckets, int tile, int cap,
                              Operands op, const float* ds, int lanes,
-                             float* da, float* def, float* dwf, int blocks,
+                             float* da, float* def, float* dwf,
+                             const void* fe_s, void* dfe_s, int blocks,
                              cudaStream_t stream) {
   const int hd = op.heads * op.dim;
   const int rows = kFe > 0 ? op.fe_rows : 0;
   const size_t smem =
       sizeof(float) * (2 * hd + 2 * rows * hd + kWarps * 32 * rows);
   const cudaError_t err =
-      allow_smem(vattn_slot_grad_kernel<kCols, kFe, kDef>, smem);
+      allow_smem(vattn_slot_grad_kernel<kCols, kFe, kDef, T, kStore>, smem);
   if (err != cudaSuccess) return err;
-  vattn_slot_grad_kernel<kCols, kFe, kDef><<<blocks, kWarps * 32, smem,
-                                             stream>>>(
+  vattn_slot_grad_kernel<kCols, kFe, kDef, T, kStore><<<blocks, kWarps * 32,
+                                                        smem, stream>>>(
       sl.src_local, sl.dst_local, sl.valid, sl.src_tile, sl.dst_tile,
       num_buckets, tile, cap, op.u, op.v, op.attn, ds, op.ef, op.wf, op.fe,
-      op.fe_rows, op.heads, op.dim, lanes, op.slope, da, def, dwf);
+      op.fe_rows, op.heads, op.dim, lanes, op.slope, da, def, dwf,
+      static_cast<const T*>(fe_s), static_cast<T*>(dfe_s));
   return cudaGetLastError();
 }
 
@@ -623,30 +688,35 @@ extern "C" {
 // p (num_buckets, heads, cap), every element written, from u (num_src,
 // heads * dim), v (num_dst, heads * dim) and attn (heads * dim); with ef
 // not null, the edge term from ef (num_buckets * cap, fe) and wf (fe_rows,
-// heads * dim).  lanes: 32 over the heads rounded up to a power of two, at
-// least 1.  Grid: `blocks` blocks of 8 warps, grid-stride over 32-slot
-// chunks.
+// heads * dim); with fe_s not null (and ef null), the stored term fe_s
+// (num_buckets * cap, heads * dim), f32 (store 1) or bf16 (store 2).
+// lanes: 32 over the heads rounded up to a power of two, at least 1.
+// Grid: `blocks` blocks of 8 warps, grid-stride over 32-slot chunks.
 int dgl_vattn_scores(const void* src_local, const void* dst_local,
                      const void* valid, const void* src_tile,
                      const void* dst_tile, int64_t num_buckets, int64_t tile,
                      int64_t cap, const void* u, const void* v,
                      const void* attn, const void* ef, const void* wf,
                      int64_t fe, int64_t fe_rows, int64_t heads, int64_t dim,
-                     int64_t lanes, double slope, void* p, int64_t blocks,
-                     int64_t device, void* stream) {
+                     int64_t lanes, double slope, const void* fe_s,
+                     int64_t store, void* p, int64_t blocks, int64_t device,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Slots sl = slots(src_local, dst_local, valid, src_tile, dst_tile);
   const int hd = static_cast<int>(heads * dim);
   const bool edge = ef != nullptr;
+  if (fe_s != nullptr && (edge || (store != 1 && store != 2))) {
+    return cudaErrorInvalidValue;
+  }
   const int rows = edge ? static_cast<int>(fe_rows) : 0;
   const size_t smem = sizeof(float) * (hd + rows * hd + kWarps * 32 * rows);
-#define DGL_SCORES_LAUNCH(EDGE_)                                             \
-  err = allow_smem(vattn_scores_kernel<EDGE_>, smem);                        \
+#define DGL_SCORES_LAUNCH(EDGE_, T_, STORE_)                                 \
+  err = allow_smem(vattn_scores_kernel<EDGE_, T_, STORE_>, smem);            \
   if (err != cudaSuccess) return err;                                        \
-  vattn_scores_kernel<EDGE_><<<static_cast<unsigned>(blocks), kWarps * 32,   \
-                               smem, s>>>(                                   \
+  vattn_scores_kernel<EDGE_, T_, STORE_><<<static_cast<unsigned>(blocks),    \
+                                           kWarps * 32, smem, s>>>(          \
       sl.src_local, sl.dst_local, sl.valid, sl.src_tile, sl.dst_tile,        \
       static_cast<int>(num_buckets), static_cast<int>(tile),                 \
       static_cast<int>(cap), static_cast<const float*>(u),                   \
@@ -654,11 +724,16 @@ int dgl_vattn_scores(const void* src_local, const void* dst_local,
       static_cast<const float*>(ef), static_cast<const float*>(wf),          \
       static_cast<int>(fe), rows, static_cast<int>(heads),                   \
       static_cast<int>(dim), static_cast<int>(lanes),                        \
-      static_cast<float>(slope), static_cast<float*>(p));
+      static_cast<float>(slope), static_cast<const T_*>(fe_s),               \
+      static_cast<float*>(p));
   if (edge) {
-    DGL_SCORES_LAUNCH(true)
+    DGL_SCORES_LAUNCH(true, float, false)
+  } else if (fe_s == nullptr) {
+    DGL_SCORES_LAUNCH(false, float, false)
+  } else if (store == 1) {
+    DGL_SCORES_LAUNCH(false, float, true)
   } else {
-    DGL_SCORES_LAUNCH(false)
+    DGL_SCORES_LAUNCH(false, __nv_bfloat16, true)
   }
 #undef DGL_SCORES_LAUNCH
   return cudaGetLastError();
@@ -670,6 +745,9 @@ int dgl_vattn_scores(const void* src_local, const void* dst_local,
 // written.  da and dwf must be zeroed by the caller.  cols (1, 2 or 4;
 // at most 2 with fe_cap 32 and def): the columns of its head a lane keeps
 // at once; fe_cap (0 without the edge term, else 8, 16 or 32 >= fe_rows).
+// With fe_s and dfe_s not null (and ef and def null), the stored term
+// fe_s (num_buckets * cap, heads * dim) is read and dW written to dfe_s at
+// every slot (0 at padded ones), both f32 (store 1) or bf16 (store 2).
 // Grid: `blocks` blocks of 8 warps.
 int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
                         const void* valid, const void* src_tile,
@@ -680,6 +758,7 @@ int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
                         int64_t fe_rows, int64_t heads, int64_t dim,
                         int64_t lanes, int64_t cols, int64_t fe_cap,
                         double slope, void* da, void* def, void* dwf,
+                        const void* fe_s, void* dfe_s, int64_t store,
                         int64_t blocks, int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
@@ -688,14 +767,32 @@ int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
   const Operands op = operands(u, v, attn, ef, wf, fe, fe_rows, heads, dim,
                                slope);
   const bool with_def = def != nullptr;
+#define DGL_GRAD_ARGS                                                        \
+  sl, static_cast<int>(num_buckets), static_cast<int>(tile),                 \
+      static_cast<int>(cap), op, static_cast<const float*>(ds),              \
+      static_cast<int>(lanes), static_cast<float*>(da),                      \
+      static_cast<float*>(def), static_cast<float*>(dwf), fe_s, dfe_s,       \
+      static_cast<int>(blocks), s
+  if (fe_s != nullptr || dfe_s != nullptr) {
+    if (fe_s == nullptr || dfe_s == nullptr || ef != nullptr || with_def) {
+      return cudaErrorInvalidValue;
+    }
+#define DGL_STORE_CASE(COLS_, T_, STORE_)                                    \
+    if (cols == COLS_ && store == STORE_) {                                  \
+      return launch_slot_grad<COLS_, 0, false, T_, true>(DGL_GRAD_ARGS);     \
+    }
+    DGL_STORE_CASE(1, float, 1)
+    DGL_STORE_CASE(2, float, 1)
+    DGL_STORE_CASE(4, float, 1)
+    DGL_STORE_CASE(1, __nv_bfloat16, 2)
+    DGL_STORE_CASE(2, __nv_bfloat16, 2)
+    DGL_STORE_CASE(4, __nv_bfloat16, 2)
+#undef DGL_STORE_CASE
+    return cudaErrorInvalidValue;
+  }
 #define DGL_GRAD_CASE(COLS_, FE_, DEF_)                                      \
   if (cols == COLS_ && fe_cap == FE_ && with_def == DEF_) {                  \
-    return launch_slot_grad<COLS_, FE_, DEF_>(                               \
-        sl, static_cast<int>(num_buckets), static_cast<int>(tile),           \
-        static_cast<int>(cap), op, static_cast<const float*>(ds),            \
-        static_cast<int>(lanes), static_cast<float*>(da),                    \
-        static_cast<float*>(def), static_cast<float*>(dwf),                  \
-        static_cast<int>(blocks), s);                                        \
+    return launch_slot_grad<COLS_, FE_, DEF_>(DGL_GRAD_ARGS);                \
   }
   DGL_GRAD_CASE(1, 0, false)
   DGL_GRAD_CASE(2, 0, false)
@@ -718,6 +815,7 @@ int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
   DGL_GRAD_CASE(1, 32, true)
   DGL_GRAD_CASE(2, 32, true)
 #undef DGL_GRAD_CASE
+#undef DGL_GRAD_ARGS
   return cudaErrorInvalidValue;
 }
 

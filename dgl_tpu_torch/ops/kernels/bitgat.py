@@ -421,6 +421,9 @@ def bitgat_attention_aggregate(bf: BitFormat, el, er, z,
     if thresh is not None and dropout_seed is None:
         raise ValueError("attn_drop > 0 requires dropout_seed")
     seed = dropout_seed if thresh is not None else 0
-    el = torch.clamp(el, -CLIP, CLIP)   # the +-40 raw-logit contract; the
-    er = torch.clamp(er, -CLIP, CLIP)   # clamp's gradient zeroes saturation
+    # the +-40 raw-logit contract.  As jnp.clip's, the gradient is 0 past
+    # a bound and 1/2 at it (minimum and maximum split a tie); torch.clamp
+    # would pass all of it there
+    el, er = (torch.minimum(torch.maximum(t, t.new_tensor(-CLIP)),
+                            t.new_tensor(CLIP)) for t in (el, er))
     return _BitGAT.apply(el, er, z, bf, float(negative_slope), thresh, seed)

@@ -268,12 +268,17 @@ def _launch(fn: str, *args):
 
 
 def bit_matmul_t(packed_t: torch.Tensor, x: torch.Tensor,
-                 num_dst: int) -> torch.Tensor:
+                 num_dst: int, slab_words=None) -> torch.Tensor:
     """K1: A @ x (num_dst, F) f32 from ``packed_t``, the bits of A^T
-    (rows = the rows of x), for F <= 96."""
+    (rows = the rows of x), for F <= 96.  ``slab_words``: the words of
+    ``packed_t`` a block owns, 1 to 32 (``_slab_words(F)`` by default; the
+    slab-width sweep, ``dgl_tpu_torch.tools.perf_bitmm_variants``, sets
+    it)."""
     _check(packed_t, x, num_dst, packed_t.shape[0], packed_t.shape[1] * 32)
     if x.shape[1] > T_MAX_F:
         raise ValueError(f"bit_matmul_t takes F <= {T_MAX_F}")
+    if slab_words is not None and not 1 <= slab_words <= 32:
+        raise ValueError(f"slab_words must lie in 1..32, got {slab_words}")
     if not on_cuda(packed_t, x):
         return bit_matmul_t_plain(packed_t, x, num_dst)
     rows, f = x.shape
@@ -283,7 +288,7 @@ def bit_matmul_t(packed_t: torch.Tensor, x: torch.Tensor,
         return out
     x = x.float().contiguous()
     packed_t = packed_t.contiguous()
-    w = _slab_words(f)
+    w = _slab_words(f) if slab_words is None else int(slab_words)
     slabs = -(-n32 // w)
     blocks_per_sm = max(1, _SMEM_PER_SM // (32 * w * f * 4 + 1024))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count

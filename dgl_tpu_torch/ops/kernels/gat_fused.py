@@ -1,11 +1,10 @@
 """Slot-space GAT, DotGat, EdgeGAT, GATv2 and EGATConv attention over the
-tiled format (K6, K8, K10 v2, K9, K11 v2).
+tiled format (K6, K8, K10 v1 and v2, K9, K11 v1 and v2).
 
-Counterpart of ``dgl_tpu/ops/pallas/gat_fused.py:1-945, 1037-1054,
-1536-1901, 1946-2267``.  Attention never exists in canonical edge order:
-scores, weights and gradients live in the tiled format's (B, H, C) slot
-space, and the softmax folds into a divide per dst node.  For every slot of an
-edge src -> dst and head h:
+Counterpart of ``dgl_tpu/ops/pallas/gat_fused.py`` (all of it).  Attention
+never exists in canonical edge order: scores, weights and gradients live in
+the tiled format's (B, H, C) slot space, and the softmax folds into a
+divide per dst node.  For every slot of an edge src -> dst and head h:
 
     raw = el[src, h] + er[dst, h] (+ ee_slot[b, h, c])
     p   = exp(clip(lrelu(raw), +-40)),   g = p * (raw >= 0 ? 1 : slope)
@@ -79,12 +78,28 @@ src-side aggregation's walk by dst tile over the H * Fe columns) and
 :func:`edgegat_ds` (ds and, when autograd asks for it, d(ef)); den, der,
 del, the node numerator and dx are K6's reduce, K4's SpMM and K6's dx.
 
+The v1 functions of EGATConv (K11 v1, ``egatconv_attention_aggregate``
+:1253) and EdgeGAT (K10 v1, ``edgegat_attention_aggregate`` :1524) take
+their edge terms stored per slot: FE (B, C, H * De) inside K11 v1's raw,
+and K10 v1's logit ee_slot (B, H, C) and message fe (B, C, H * Fh), so
+out = sum p (x[src] + fe) / den.  The stored tensors are f32 or bf16,
+read and written by the kernels in their dtype at 64-bit offsets and
+summed in f32; their gradients come back in their dtype.  Six more
+kernels serve them: :func:`egatc_scores` (p) and :func:`egatc_slot_grad`
+(da and dFE = dW per slot), stored-term variants of K9's in
+``csrc/gatv2.cu``; :func:`slot_vec_reduce` (dFE summed per dst node for
+dFNJ and per src node for dFNI), :func:`fe_aggregate` (K10 v1's
+numerator), :func:`fe_ds` (its ds) and :func:`dx_dfe` (dx, writing dfe =
+p zn[dst] per slot on the way), modes and variants of K6's kernels in
+``csrc/gat_fused.cu``.  K10 v1's scores, den, der and del are K6's.
+
 The edge features stay (B, C, Fe) in slot order (:func:`slot_edge_tensor`)
 and Wf is (Fe, H * D), or (Fe + 1, H * D) with the bias as its last row;
 FE is computed per slot and never stored.  The JAX package's transposed
 (B, Fe_pad, C) bf16 layout (``slot_edge_tensor_t``), its lane padding
-(``pad_We_heads``) and the head-block-diagonal ``Ra`` exist for the TPU
-and have no counterpart.
+(``pad_We_heads``, ``_lane_pad``, which also pads the v1 functions' slot
+tensors) and the head-block-diagonal ``Ra`` exist for the TPU and have
+no counterpart.
 
 The public functions keep the JAX layouts (el/er (N, H), x (N, H, Fh),
 slot tensors (B, H, C)) without the TPU's lane padding; ``den`` is
@@ -117,19 +132,22 @@ _SIGNATURES = {
     "dgl_slot_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                         _I, _I, _I, _P],
     "dgl_gat_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
-                   _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+                   _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "dgl_src_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I,
                     _P, _I, _I, _I, _I, _P],
     "dgl_slot_feat_reduce": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I,
                              _I, _I, _I, _P],
+    "dgl_slot_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                     _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 _VATTN_SIGNATURES = {
     "dgl_vattn_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, ctypes.c_double, _P, _I, _I,
-                         _P],
+                         _I, _I, _I, _I, _I, ctypes.c_double, _P, _I, _P, _I,
+                         _I, _P],
     "dgl_vattn_slot_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_double, _P, _P, _P, _I, _I, _P],
+                            ctypes.c_double, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P],
     "dgl_vattn_node_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             ctypes.c_double, _P, _I, _I, _I, _I, _I, _P],
@@ -224,15 +242,22 @@ def slot_reduce_plain(tf: ts.TiledFormat, vals, side: str = "dst"):
     return out
 
 
-def gat_ds_plain(tf: ts.TiledFormat, x3, zn, rp, g):
-    """ds's function: (B, H, C) f32, (<x3[src, h], zn[dst, h]> -
-    rp[dst, h]) * g at valid slots and 0 at padded ones."""
+def _ds_plain(tf: ts.TiledFormat, x3, zn, rp, g, fe_slot=None):
     ds = torch.zeros(_slot_shape(tf, x3.shape[1]), dtype=torch.float32,
                      device=x3.device)
     for b, c, src, dst in ts._slot_chunks(tf):
-        dot = (x3[src].float() * zn[dst].float()).sum(-1)
+        msg = x3[src].float()
+        if fe_slot is not None:
+            msg = msg + fe_slot[b, c].float().view(msg.shape)
+        dot = (msg * zn[dst].float()).sum(-1)
         ds[b, :, c] = (dot - rp[dst].float()) * g[b, :, c].float()
     return ds
+
+
+def gat_ds_plain(tf: ts.TiledFormat, x3, zn, rp, g):
+    """ds's function: (B, H, C) f32, (<x3[src, h], zn[dst, h]> -
+    rp[dst, h]) * g at valid slots and 0 at padded ones."""
+    return _ds_plain(tf, x3, zn, rp, g)
 
 
 def src_aggregate_plain(tf: ts.TiledFormat, z3, w_slot):
@@ -281,10 +306,13 @@ def edgegat_ds_plain(tf: ts.TiledFormat, x3, zn, rp, g, ef_slot, zp, p=None,
     return ds, d_ef
 
 
-def _vattn_raw(U3, V3, src, dst, ef_rows=None, wf=None):
+def _vattn_raw(U3, V3, src, dst, ef_rows=None, wf=None, fe_rows=None):
     """raw (n, H, D) f32 of n slots: U3[src] + V3[dst] (+ the edge term
-    ef_rows (n, Fe) . wf[:Fe] + the bias row wf[Fe] when wf has one)."""
+    ef_rows (n, Fe) . wf[:Fe] + the bias row wf[Fe] when wf has one, or the
+    stored term fe_rows (n, H * D))."""
     raw = U3[src].float() + V3[dst].float()
+    if fe_rows is not None:
+        raw = raw + fe_rows.float().view(raw.shape)
     if ef_rows is not None:
         fe = ef_rows.shape[1]
         term = ef_rows.float() @ wf[:fe].float()
@@ -362,6 +390,83 @@ def vattn_node_grad_plain(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
         out.index_add_(0, dst if side == "dst" else src,
                        _vattn_dw(raw, ds[b, :, c].float(), a, slope))
     return out
+
+
+
+def egatc_scores_plain(tf: ts.TiledFormat, U3, V3, attn, fe_slot,
+                       slope: float):
+    """K11 v1 scores' function: p (B, H, C) f32, exp(clip(sum_d attn[h, d]
+    lrelu(U3[src] + V3[dst] + fe_slot[b, c])[h, d], +-40)) at valid slots
+    and 0 at padded ones; ``fe_slot`` (B, C, H * D)."""
+    p = torch.zeros(_slot_shape(tf, U3.shape[1]), dtype=torch.float32,
+                    device=U3.device)
+    a = attn.float()
+    for b, c, src, dst in ts._slot_chunks(tf):
+        raw = _vattn_raw(U3, V3, src, dst, fe_rows=fe_slot[b, c])
+        e = (torch.nn.functional.leaky_relu(raw, slope) * a).sum(-1)
+        p[b, :, c] = torch.exp(torch.clamp(e, -CLIP, CLIP))
+    return p
+
+
+def egatc_slot_grad_plain(tf: ts.TiledFormat, U3, V3, attn, fe_slot, ds,
+                          slope: float):
+    """K11 v1 slot gradient's function: (da (H, D) f32, dfe like
+    ``fe_slot``): da = sum ds[h] lrelu(raw) and dfe[b, c] = dW = ds[h] *
+    attn * lrelu'(raw) at valid slots, 0 at padded ones."""
+    a = attn.float()
+    da = torch.zeros(a.shape, dtype=torch.float32, device=U3.device)
+    dfe = torch.zeros_like(fe_slot)
+    for b, c, src, dst in ts._slot_chunks(tf):
+        raw = _vattn_raw(U3, V3, src, dst, fe_rows=fe_slot[b, c])
+        ds_rows = ds[b, :, c].float()
+        da += (ds_rows.unsqueeze(-1)
+               * torch.nn.functional.leaky_relu(raw, slope)).sum(0)
+        dfe[b, c] = _vattn_dw(raw, ds_rows, a, slope).flatten(1).to(
+            dfe.dtype)
+    return da, dfe
+
+
+def slot_vec_reduce_plain(tf: ts.TiledFormat, t_slot, side: str = "dst"):
+    """The slot vector sum's function: (num_rows, F) f32, the sum of the
+    rows of ``t_slot`` (B, C, F) over the valid slots of each dst (or src)
+    node."""
+    rows = tf.num_dst if side == "dst" else tf.num_src
+    out = torch.zeros(rows, t_slot.shape[2], dtype=torch.float32,
+                      device=t_slot.device)
+    for b, c, src, dst in ts._slot_chunks(tf):
+        out.index_add_(0, dst if side == "dst" else src, t_slot[b, c].float())
+    return out
+
+
+def fe_aggregate_plain(tf: ts.TiledFormat, x3, fe_slot, p):
+    """K10 v1 numerator's function: (num_dst, H, Fh) f32, the sum over the
+    valid slots with dst v of p[b, h, c] * (x3[src, h] + fe_slot[b, c, h])
+    with ``fe_slot`` (B, C, H * Fh)."""
+    out = torch.zeros((tf.num_dst,) + tuple(x3.shape[1:]),
+                      dtype=torch.float32, device=x3.device)
+    for b, c, src, dst in ts._slot_chunks(tf):
+        msg = x3[src].float() + fe_slot[b, c].float().view(-1, *x3.shape[1:])
+        out.index_add_(0, dst, p[b, :, c].float().unsqueeze(-1) * msg)
+    return out
+
+
+def fe_ds_plain(tf: ts.TiledFormat, x3, fe_slot, zn, rp, g):
+    """K10 v1 ds's function: (B, H, C) f32, (<x3[src, h] + fe_slot[b, c,
+    h], zn[dst, h]> - rp[dst, h]) * g at valid slots, 0 at padded ones."""
+    return _ds_plain(tf, x3, zn, rp, g, fe_slot)
+
+
+def dx_dfe_plain(tf: ts.TiledFormat, zn, p, dtype=torch.float32):
+    """K10 v1 dx's function: (dx (num_src, H, Fh) f32, dfe (B, C, H * Fh)
+    of ``dtype``), dx[src] = sum p zn[dst] and dfe[b, c] = p[b, :, c] *
+    zn[dst] at valid slots, 0 at padded ones."""
+    heads, fh = zn.shape[1], zn.shape[2]
+    dfe = torch.zeros(tf.num_buckets, tf.cap, heads * fh, dtype=dtype,
+                      device=zn.device)
+    for b, c, src, dst in ts._slot_chunks(tf):
+        dfe[b, c] = (zn[dst].float() * p[b, :, c].float().unsqueeze(-1)
+                     ).flatten(1).to(dtype)
+    return src_aggregate_plain(tf, zn, p), dfe
 
 
 # -- the kernel wrappers ------------------------------------------------------
@@ -480,7 +585,7 @@ def gat_ds(tf: ts.TiledFormat, x3, zn, rp, g):
             tf.valid.data_ptr(), tf.src_tile.data_ptr(),
             tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
             z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh, 0, 0, 0, 0,
-            0, 0, ds.data_ptr(), ts._lanes_per_head(heads), blocks,
+            0, 0, 0, 0, ds.data_ptr(), ts._lanes_per_head(heads), blocks,
             x.device.index, ts._stream(x.device))
     gat_ds.launches += 1
     return ds
@@ -672,7 +777,7 @@ def edgegat_ds(tf: ts.TiledFormat, x3, zn, rp, g, ef_slot, zp, p=None,
             ef.data_ptr(), zq.data_ptr(), fe,
             0 if pp is None else pp.data_ptr(),
             0 if mm is None else mm.data_ptr(),
-            0 if d_ef is None else d_ef.data_ptr(), ds.data_ptr(),
+            0 if d_ef is None else d_ef.data_ptr(), 0, 0, ds.data_ptr(),
             ts._lanes_per_head(heads), blocks, dev.index, ts._stream(dev))
     edgegat_ds.launches += 1
     return ds, d_ef
@@ -757,8 +862,8 @@ def vattn_scores(tf: ts.TiledFormat, U3, V3, attn, slope: float,
             u.data_ptr(), v.data_ptr(), a.data_ptr(),
             0 if ef_c is None else ef_c.data_ptr(),
             0 if wf_c is None else wf_c.data_ptr(), fe, rows, heads, dim,
-            ts._lanes_per_head(heads), float(slope), p.data_ptr(), blocks,
-            u.device.index, ts._stream(u.device), source="gatv2")
+            ts._lanes_per_head(heads), float(slope), 0, 0, p.data_ptr(),
+            blocks, u.device.index, ts._stream(u.device), source="gatv2")
     vattn_scores.launches += 1
     return p
 
@@ -809,7 +914,7 @@ def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
             0 if wf_c is None else wf_c.data_ptr(), fe, rows, heads, dim,
             lanes, cols, fe_cap, float(slope), da.data_ptr(),
             0 if d_ef is None else d_ef.data_ptr(),
-            0 if dwf is None else dwf.data_ptr(), blocks, dev.index,
+            0 if dwf is None else dwf.data_ptr(), 0, 0, 0, blocks, dev.index,
             ts._stream(dev), source="gatv2")
     vattn_slot_grad.launches += 1
     return da, d_ef, dwf
@@ -864,6 +969,231 @@ def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
 
 
 vattn_node_grad.launches = 0
+
+
+# what csrc/gat_fused.cu's dgl_slot_agg sums (its AggMode)
+_AGG_FE, _AGG_DX_DFE, _AGG_VEC_DST, _AGG_VEC_SRC = 2, 3, 4, 5
+_STORE_CODES = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def _check_stored(tf: ts.TiledFormat, t, width: int, what: str):
+    """``t`` as the kernels read a stored slot tensor: (B, C, width), f32
+    or bf16, contiguous."""
+    if tuple(t.shape) != (tf.num_buckets, tf.cap, width):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}; the format "
+                         f"needs ({tf.num_buckets}, {tf.cap}, {width})")
+    if t.dtype not in _STORE_CODES:
+        raise ValueError(f"{what} is {t.dtype}; the kernels take float32 "
+                         "and bfloat16")
+    return t.contiguous()
+
+
+def _slot_agg(tf: ts.TiledFormat, mode: int, t, heads: int, head_cols: int,
+              w=None, z=None):
+    """Launch the src-side aggregation's walk in ``mode`` over the stored
+    slot tensor ``t`` (B, C, heads * head_cols): (rows, heads * head_cols)
+    f32, rows the src nodes (by src tile) or the dst nodes (by dst tile)."""
+    src = mode in (_AGG_DX_DFE, _AGG_VEC_SRC)
+    if src:
+        _require_src_first(tf)
+    f = heads * head_cols
+    rows = tf.num_src if src else tf.num_dst
+    n_t = tf.num_src_tiles if src else tf.num_dst_tiles
+    ts._check_int32(tf.num_buckets * heads * tf.cap,
+                    tf.num_src_tiles * tf.tile * f,
+                    tf.num_dst_tiles * tf.tile * f)
+    dev = t.device
+    g = ts._group(f, tf.tile)
+    splits = ts._splits(tf, n_t, -(-f // g), ts._group_per_sm(g, tf.tile),
+                        dev)
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc(rows, f, dtype=torch.float32, device=dev)
+    if n_t == 0 or f == 0:
+        if mode == _AGG_DX_DFE:
+            t.zero_()
+        return out.zero_()
+    _launch("dgl_slot_agg", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
+            tf.valid.data_ptr(), 0 if w is None else w.data_ptr(), heads,
+            head_cols, tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
+            tf.src_order.data_ptr() if src else 0,
+            (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
+            tf.cap, 0 if z is None else z.data_ptr(), t.data_ptr(),
+            _STORE_CODES[t.dtype], f, out.data_ptr(), rows, g, splits, mode,
+            dev.index, ts._stream(dev))
+    return out
+
+
+def egatc_scores(tf: ts.TiledFormat, U3, V3, attn, fe_slot, slope: float):
+    """K11 v1 scores: p (B, H, C) f32 from U3 (num_src, H, D), V3 (num_dst,
+    H, D), attn (H, D) and the stored edge term ``fe_slot`` (B, C, H * D),
+    f32 or bf16."""
+    heads, dim, _, _ = _check_vattn(tf, U3, V3, attn, None, None)
+    fe_s = _check_stored(tf, fe_slot, heads * dim, "fe_slot")
+    if not on_cuda(U3, V3, attn, fe_slot, tf.valid):
+        return egatc_scores_plain(tf, U3, V3, attn, fe_slot, slope)
+    _check_vattn_sizes(tf, heads, dim, 0, heads * dim)
+    b, cap = tf.num_buckets, tf.cap
+    p = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
+                    device=U3.device)
+    if heads == 0:
+        return p
+    u, v, a = _f32(U3), _f32(V3), _f32(attn)
+    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
+                        16 * ts._sms(u.device)))
+    _launch("dgl_vattn_scores", tf.src_local.data_ptr(),
+            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
+            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
+            u.data_ptr(), v.data_ptr(), a.data_ptr(), 0, 0, 0, 0, heads, dim,
+            ts._lanes_per_head(heads), float(slope), fe_s.data_ptr(),
+            _STORE_CODES[fe_s.dtype], p.data_ptr(), blocks, u.device.index,
+            ts._stream(u.device), source="gatv2")
+    egatc_scores.launches += 1
+    return p
+
+
+egatc_scores.launches = 0
+
+
+def egatc_slot_grad(tf: ts.TiledFormat, U3, V3, attn, fe_slot, ds,
+                    slope: float):
+    """K11 v1 slot gradient: (da (H, D) f32, dfe (B, C, H * D) in
+    ``fe_slot``'s dtype), dfe = dW = ds[h] * attn * lrelu'(raw) per slot
+    (0 at padded ones), from ds (B, H, C)."""
+    heads, dim, _, _ = _check_vattn(tf, U3, V3, attn, None, None)
+    fe_s = _check_stored(tf, fe_slot, heads * dim, "fe_slot")
+    _check_slots(tf, ds, heads, "ds")
+    if not on_cuda(U3, V3, attn, fe_slot, ds, tf.valid):
+        return egatc_slot_grad_plain(tf, U3, V3, attn, fe_slot, ds, slope)
+    hd = heads * dim
+    _check_vattn_sizes(tf, heads, dim, 0, 2 * hd)
+    dev = U3.device
+    da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
+    dfe = torch.empty_like(fe_s)
+    if hd == 0:
+        return da, dfe
+    lanes = ts._lanes_per_head(heads)
+    cols = 1      # columns of its head a lane keeps in registers at once
+    while cols < min(-(-dim // lanes), 4):
+        cols *= 2
+    u, v, a, g = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
+    b, cap = tf.num_buckets, tf.cap
+    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
+                        4 * ts._sms(dev)))
+    _launch("dgl_vattn_slot_grad", tf.src_local.data_ptr(),
+            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
+            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
+            u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(), 0, 0, 0,
+            0, heads, dim, lanes, cols, 0, float(slope), da.data_ptr(), 0, 0,
+            fe_s.data_ptr(), dfe.data_ptr(), _STORE_CODES[fe_s.dtype], blocks,
+            dev.index, ts._stream(dev), source="gatv2")
+    egatc_slot_grad.launches += 1
+    return da, dfe
+
+
+egatc_slot_grad.launches = 0
+
+
+def slot_vec_reduce(tf: ts.TiledFormat, t_slot, side: str = "dst"):
+    """K11 v1 slot vector sum: (num_rows, F) f32, the sum of the rows of
+    ``t_slot`` (B, C, F), f32 or bf16, over the valid slots of each dst
+    node (``side="dst"``: dFNJ) or src node (``side="src"``: dFNI, walking
+    ``src_order``)."""
+    if side not in ("dst", "src"):
+        raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
+    width = t_slot.shape[-1] if t_slot.ndim == 3 else -1
+    t = _check_stored(tf, t_slot, width, "t_slot")
+    if side == "src":
+        _require_src_first(tf)
+    if not on_cuda(t_slot, tf.valid):
+        return slot_vec_reduce_plain(tf, t_slot, side)
+    out = _slot_agg(tf, _AGG_VEC_SRC if side == "src" else _AGG_VEC_DST, t,
+                    1, width)
+    slot_vec_reduce.launches += 1
+    return out
+
+
+slot_vec_reduce.launches = 0
+
+
+def fe_aggregate(tf: ts.TiledFormat, x3, fe_slot, p):
+    """K10 v1 numerator: (num_dst, H, Fh) f32, out[v, h] = sum over the
+    valid slots with dst v of p[b, h, c] * (x3[src, h] + fe_slot[b, c, h]);
+    ``x3`` (num_src, H, Fh), ``fe_slot`` (B, C, H * Fh), f32 or bf16, and
+    ``p`` (B, H, C)."""
+    ts._check_operand(tf, x3, tf.num_src, 3, "x3")
+    heads, fh = x3.shape[1], x3.shape[2]
+    fe_s = _check_stored(tf, fe_slot, heads * fh, "fe_slot")
+    _check_slots(tf, p, heads, "p")
+    if not on_cuda(x3, fe_slot, p, tf.valid):
+        return fe_aggregate_plain(tf, x3, fe_slot, p)
+    out = _slot_agg(tf, _AGG_FE, fe_s, heads, fh, _f32(p), _f32(x3))
+    fe_aggregate.launches += 1
+    return out.view(tf.num_dst, heads, fh)
+
+
+fe_aggregate.launches = 0
+
+
+def fe_ds(tf: ts.TiledFormat, x3, fe_slot, zn, rp, g):
+    """K10 v1 ds: (B, H, C) f32, (<x3[src, h] + fe_slot[b, c, h], zn[dst,
+    h]> - rp[dst, h]) * g at valid slots and 0 at padded ones; ``fe_slot``
+    (B, C, H * Fh), f32 or bf16."""
+    heads, fh = x3.shape[1], x3.shape[2]
+    ts._check_operand(tf, x3, tf.num_src, 3, "x3")
+    ts._check_operand(tf, zn, tf.num_dst, 3, "zn")
+    if tuple(zn.shape[1:]) != (heads, fh):
+        raise ValueError(f"zn {tuple(zn.shape)} does not match x3 "
+                         f"{tuple(x3.shape)}")
+    _check_nodes(rp, tf.num_dst, heads, "rp")
+    _check_slots(tf, g, heads, "g")
+    fe_s = _check_stored(tf, fe_slot, heads * fh, "fe_slot")
+    if not on_cuda(x3, fe_slot, zn, rp, g, tf.valid):
+        return fe_ds_plain(tf, x3, fe_slot, zn, rp, g)
+    b = tf.num_buckets
+    hf = heads * fh
+    ts._check_int32(b * heads * tf.cap, tf.num_src_tiles * tf.tile * hf,
+                    tf.num_dst_tiles * tf.tile * hf)
+    ds = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
+                     device=x3.device)
+    if hf == 0:
+        return ds.zero_()
+    x, z, r, gg = _f32(x3), _f32(zn), _f32(rp), _f32(g)
+    blocks = max(1, min(-(-(b * tf.cap // 32) // _DS_WARPS),
+                        16 * ts._sms(x.device)))
+    _launch("dgl_gat_ds", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
+            tf.valid.data_ptr(), tf.src_tile.data_ptr(),
+            tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
+            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh, 0, 0, 0, 0,
+            0, 0, fe_s.data_ptr(), _STORE_CODES[fe_s.dtype], ds.data_ptr(),
+            ts._lanes_per_head(heads), blocks, x.device.index,
+            ts._stream(x.device))
+    fe_ds.launches += 1
+    return ds
+
+
+fe_ds.launches = 0
+
+
+def dx_dfe(tf: ts.TiledFormat, zn, p, dtype=torch.float32):
+    """K10 v1 dx: (dx (num_src, H, Fh) f32, dfe (B, C, H * Fh) of
+    ``dtype``, f32 or bf16): dx[src] = sum p zn[dst] and, on the same
+    walk, dfe[b, c] = p[b, :, c] * zn[dst] (0 at padded slots)."""
+    _require_src_first(tf)
+    ts._check_operand(tf, zn, tf.num_dst, 3, "zn")
+    heads, fh = zn.shape[1], zn.shape[2]
+    _check_slots(tf, p, heads, "p")
+    if dtype not in _STORE_CODES:
+        raise ValueError(f"dfe can be float32 or bfloat16, not {dtype}")
+    if not on_cuda(zn, p, tf.valid):
+        return dx_dfe_plain(tf, zn, p, dtype)
+    dfe = torch.empty(tf.num_buckets, tf.cap, heads * fh, dtype=dtype,
+                      device=zn.device)
+    dx = _slot_agg(tf, _AGG_DX_DFE, dfe, heads, fh, _f32(p), _f32(zn))
+    dx_dfe.launches += 1
+    return dx.view(tf.num_src, heads, fh), dfe
+
+
+dx_dfe.launches = 0
 
 
 # -- forward and backward -----------------------------------------------------
@@ -961,8 +1291,8 @@ def _edge_mats(We, attn_e, H: int, Fh: int):
     return w3, torch.einsum("fhd,hd->fh", w3, attn_e.float())
 
 
-def edgegat_forward(tf: ts.TiledFormat, el2, er2, ef_slot, We, attn_e, x3,
-                    H: int, Fh: int, slope: float):
+def edgegat_v2_forward(tf: ts.TiledFormat, el2, er2, ef_slot, We, attn_e,
+                       x3, H: int, Fh: int, slope: float):
     """EdgeGAT v2 forward (``edgegat_v2_forward`` :1703): (out (num_dst, H,
     Fh), p_slot, g_slot, den (num_dst, H), S (num_dst, H, Fe)), ``den``
     clamped at 1e-20.  The edge message fe = ef . We_h of each slot is
@@ -977,9 +1307,9 @@ def edgegat_forward(tf: ts.TiledFormat, el2, er2, ef_slot, We, attn_e, x3,
     return num / den.unsqueeze(-1), p, g, den, s
 
 
-def edgegat_backward(tf: ts.TiledFormat, ef_slot, We, attn_e, x3, p_slot,
-                     g_slot, den, s, out, dZ, H: int, Fh: int,
-                     need_def: bool = True):
+def edgegat_v2_backward(tf: ts.TiledFormat, ef_slot, We, attn_e, x3, p_slot,
+                        g_slot, den, s, out, dZ, H: int, Fh: int,
+                        need_def: bool = True):
     """EdgeGAT v2 backward (``edgegat_v2_backward`` :1764): (del (num_src,
     H), der (num_dst, H), dx (num_src, H, Fh), d_ef (B, C, Fe) or None, dWe
     (Fe, H * Fh), d_attn_e (H, Fh)).  With Zp = We_h . zn per dst and Q =
@@ -1004,6 +1334,63 @@ def edgegat_backward(tf: ts.TiledFormat, ef_slot, We, attn_e, x3, p_slot,
            + torch.einsum("hf,hd->fhd", q, a))
     d_attn = torch.einsum("hf,fhd->hd", q, w3)
     return dl, der, dx, d_ef, dwe.reshape(We.shape[0], H * Fh), d_attn
+
+
+
+def egatc_forward(tf: ts.TiledFormat, fni3, fnj3, fe_slot, attn, x3, H: int,
+                  De: int, Fh: int, slope: float):
+    """EGATConv v1 forward (``egatc_forward`` :1069): (out (num_dst, H,
+    Fh), p_slot, den (num_dst, H)), ``den`` clamped at 1e-20; the edge
+    term is the stored ``fe_slot`` (B, C, H * De)."""
+    p = egatc_scores(tf, fni3, fnj3, attn, fe_slot, slope)
+    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
+    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    return num / den.unsqueeze(-1), p, den
+
+
+def egatc_backward(tf: ts.TiledFormat, fni3, fnj3, fe_slot, attn, x3, p_slot,
+                   den, out, dZ, slope: float):
+    """EGATConv v1 backward (``_egatc_bwd`` :1147): (dFNI (num_src, H, De),
+    dFNJ (num_dst, H, De), dFE (B, C, H * De) in ``fe_slot``'s dtype, dattn
+    (H, De), dx (num_src, H, Fh)), with ds = (<x[src], zn[dst]> - rp[dst])
+    * p and dFE = dW per slot; dFNJ and dFNI are dFE's sums per dst and per
+    src node.  ``tf`` needs ``src_order``."""
+    zn, rp = _scales(out, dZ, den)
+    ds = gat_ds(tf, x3, zn, rp, p_slot)
+    da, dfe = egatc_slot_grad(tf, fni3, fnj3, attn, fe_slot, ds, slope)
+    del ds
+    heads, dim = fni3.shape[1], fni3.shape[2]
+    dv = slot_vec_reduce(tf, dfe, "dst").view(tf.num_dst, heads, dim)
+    du = slot_vec_reduce(tf, dfe, "src").view(tf.num_src, heads, dim)
+    dx = src_aggregate(tf, zn, p_slot)
+    return du, dv, dfe, da, dx
+
+
+def edgegat_forward(tf: ts.TiledFormat, el2, er2, ee_slot, fe_slot, x3,
+                    H: int, Fh: int, slope: float):
+    """EdgeGAT v1 forward (``edgegat_forward`` :1345): (out (num_dst, H,
+    Fh), p_slot, g_slot, den (num_dst, H)), ``den`` clamped at 1e-20; raw =
+    el2[src] + er2[dst] + ee_slot, and each slot's message is x3[src] plus
+    its stored ``fe_slot`` (B, C, H * Fh) row."""
+    p, g = gat_scores(tf, el2, er2, slope, ee_slot)
+    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
+    num = fe_aggregate(tf, x3, fe_slot, p)
+    return num / den.unsqueeze(-1), p, g, den
+
+
+def edgegat_backward(tf: ts.TiledFormat, x3, fe_slot, p_slot, g_slot, den,
+                     out, dZ, H: int, Fh: int):
+    """EdgeGAT v1 backward (``edgegat_backward`` :1408): (del (num_src, H),
+    der (num_dst, H), ds_slot (B, H, C) = dee, dfe (B, C, H * Fh) in
+    ``fe_slot``'s dtype, dx (num_src, H, Fh)), with ds = (<x[src] + fe,
+    zn[dst]> - rp[dst]) * g and dfe = p zn[dst] per slot.  ``tf`` needs
+    ``src_order``."""
+    zn, rp = _scales(out, dZ, den)
+    ds = fe_ds(tf, x3, fe_slot, zn, rp, g_slot)
+    der = slot_reduce(tf, ds, "dst")
+    dl = slot_reduce(tf, ds, "src")
+    dx, dfe = dx_dfe(tf, zn, p_slot, fe_slot.dtype)
+    return dl, der, ds, dfe, dx
 
 
 # -- the differentiable ops ---------------------------------------------------
@@ -1090,8 +1477,8 @@ class _EdgeGatAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, el2, er2, ef_slot, We, attn_e, x3, tf, H, Fh, slope):
-        out, p, g, den, s = edgegat_forward(tf, el2, er2, ef_slot, We,
-                                            attn_e, x3, H, Fh, slope)
+        out, p, g, den, s = edgegat_v2_forward(tf, el2, er2, ef_slot, We,
+                                               attn_e, x3, H, Fh, slope)
         ctx.save_for_backward(ef_slot, We, attn_e, x3, p, g, den, s, out)
         ctx.tf, ctx.H, ctx.Fh = tf, H, Fh
         ctx.dtypes = (el2.dtype, er2.dtype)
@@ -1101,13 +1488,62 @@ class _EdgeGatAttention(torch.autograd.Function):
     def backward(ctx, dz):
         ef_slot, We, attn_e, x3, p, g, den, s, out = ctx.saved_tensors
         # d(ef) is as large as the edge features: only when someone wants it
-        dl, dr, dx, d_ef, dwe, d_attn = edgegat_backward(
+        dl, dr, dx, d_ef, dwe, d_attn = edgegat_v2_backward(
             ctx.tf, ef_slot, We, attn_e, x3, p, g, den, s, out, dz, ctx.H,
             ctx.Fh, need_def=ctx.needs_input_grad[2])
         el_t, er_t = ctx.dtypes
         return (dl.to(el_t), dr.to(er_t),
                 None if d_ef is None else d_ef.to(ef_slot.dtype),
                 dwe.to(We.dtype), d_attn.to(attn_e.dtype), dx.to(x3.dtype),
+                None, None, None, None)
+
+
+
+class _EgatcAttention(torch.autograd.Function):
+    """EGATConv v1: forward by the stored-term scores, the slot reduce and
+    K4's SpMM; backward by ds (g = p), the stored-term slot gradient (da
+    and dFE), dFE's sums per dst and src node and the src-side
+    aggregation.  p is saved."""
+
+    @staticmethod
+    def forward(ctx, fni3, fnj3, fe_slot, attn, x3, tf, H, De, Fh, slope):
+        out, p, den = egatc_forward(tf, fni3, fnj3, fe_slot, attn, x3, H, De,
+                                    Fh, slope)
+        ctx.save_for_backward(fni3, fnj3, fe_slot, attn, x3, p, den, out)
+        ctx.tf, ctx.slope = tf, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        fni3, fnj3, fe_slot, attn, x3, p, den, out = ctx.saved_tensors
+        du, dv, dfe, da, dx = egatc_backward(ctx.tf, fni3, fnj3, fe_slot,
+                                             attn, x3, p, den, out, dz,
+                                             ctx.slope)
+        return (du.to(fni3.dtype), dv.to(fnj3.dtype), dfe, da.to(attn.dtype),
+                dx.to(x3.dtype), None, None, None, None, None)
+
+
+class _EdgeGatV1Attention(torch.autograd.Function):
+    """EdgeGAT v1: forward by K6's scores with the slot bias, the slot
+    reduce and the stored-message numerator; backward by the stored-message
+    ds, two slot reduces and dx with dfe.  p and g are saved."""
+
+    @staticmethod
+    def forward(ctx, el2, er2, ee_slot, fe_slot, x3, tf, H, Fh, slope):
+        out, p, g, den = edgegat_forward(tf, el2, er2, ee_slot, fe_slot, x3,
+                                         H, Fh, slope)
+        ctx.save_for_backward(x3, fe_slot, p, g, den, out)
+        ctx.tf, ctx.H, ctx.Fh = tf, H, Fh
+        ctx.dtypes = (el2.dtype, er2.dtype, ee_slot.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        x3, fe_slot, p, g, den, out = ctx.saved_tensors
+        dl, dr, ds, dfe, dx = edgegat_backward(ctx.tf, x3, fe_slot, p, g, den,
+                                               out, dz, ctx.H, ctx.Fh)
+        el_t, er_t, ee_t = ctx.dtypes
+        return (dl.to(el_t), dr.to(er_t), ds.to(ee_t), dfe, dx.to(x3.dtype),
                 None, None, None, None)
 
 
@@ -1171,8 +1607,50 @@ def edgegat_attention_aggregate_v2(tf: ts.TiledFormat, el2, er2, ef_slot, We,
                                    int(H), int(Fh), float(negative_slope))
 
 
+
+def egatconv_attention_aggregate(tf: ts.TiledFormat, fni3, fnj3, fe_slot,
+                                 attn, x3, H: int, De: int, Fh: int,
+                                 negative_slope: float):
+    """Fused EGATConv attention + aggregation with the edge term stored per
+    slot (``gat_fused.py:1253``): e = attn . lrelu(fni3[src] + fnj3[dst] +
+    fe_slot[b, c]) per head, softmax over each dst under the +-40 clip,
+    out[dst] = sum a x3[src] / max(sum a, 1e-20).  ``tf``: the forward
+    tiled format with ``src_order``; ``fni3`` (N_src, H, De), ``fnj3``
+    (N_dst, H, De), ``fe_slot`` (B, C, H * De) f32 or bf16 in slot order
+    (:func:`slot_edge_tensor`; no lane padding), ``attn`` (H, De), ``x3``
+    (N_src, H, Fh).  Returns (N_dst, H, Fh) f32, differentiable in fni3,
+    fnj3, fe_slot (its gradient in its dtype, 0 at padded slots), attn and
+    x3."""
+    _require_src_first(tf)
+    _check_dims("fni3", fni3, H, De)
+    _check_dims("x3", x3, H, Fh)
+    _check_stored(tf, fe_slot, H * De, "fe_slot")
+    return _EgatcAttention.apply(fni3, fnj3, fe_slot, attn, x3, tf, int(H),
+                                 int(De), int(Fh), float(negative_slope))
+
+
+def edgegat_attention_aggregate(tf: ts.TiledFormat, el2, er2, ee_slot,
+                                fe_slot, x3, H: int, Fh: int,
+                                negative_slope: float):
+    """Fused EdgeGATConv attention + aggregation with the edge terms stored
+    per slot (``gat_fused.py:1524``): raw = el2[src] + er2[dst] +
+    ee_slot[b, h, c], p = exp(clip(lrelu(raw), +-40)) and out[dst] = sum p
+    (x3[src] + fe_slot[b, c, h]) / max(sum p, 1e-20).  ``tf``: the forward
+    tiled format with ``src_order``; ``ee_slot`` (B, H, C), ``fe_slot`` (B,
+    C, H * Fh) f32 or bf16 in slot order (no lane padding), ``x3`` (N_src,
+    H, Fh).  Returns (N_dst, H, Fh) f32, differentiable in el2, er2, ee_slot
+    (its gradient is ds), fe_slot (its gradient in its dtype) and x3."""
+    _require_src_first(tf)
+    _check_dims("x3", x3, H, Fh)
+    _check_slots(tf, ee_slot, H, "ee_slot")
+    _check_stored(tf, fe_slot, H * Fh, "fe_slot")
+    return _EdgeGatV1Attention.apply(el2, er2, ee_slot, fe_slot, x3, tf,
+                                     int(H), int(Fh), float(negative_slope))
+
+
 # (E, Fe) edge features in slot order, beside the kernels that read them
 slot_edge_tensor = ts.slot_edge_tensor
+unslot_edge_tensor = ts.unslot_edge_tensor
 
 
 def gat_attention_aggregate(tf: ts.TiledFormat, el2, er2, x3, H: int,

@@ -319,6 +319,20 @@ def slot_edge_tensor(tf: TiledFormat, efeat) -> torch.Tensor:
     return (rows * tf.valid.view(-1, 1)).view(tf.num_buckets, tf.cap, -1)
 
 
+
+def unslot_edge_tensor(tf: TiledFormat, slot_tensor) -> torch.Tensor:
+    """The inverse of :func:`slot_edge_tensor`: a (B, C, F) slot tensor
+    back in canonical (E, F) edge order, E the largest edge id plus one
+    (``gat_fused.py:1057``)."""
+    flat = slot_tensor.reshape(tf.num_buckets * tf.cap, -1)
+    live = torch.nonzero(tf.eid >= 0).reshape(-1)
+    eid = tf.eid[live].long()
+    n = int(eid.max()) + 1 if eid.numel() else 0
+    out = flat.new_zeros(n, flat.shape[1])
+    out[eid] = flat[live]
+    return out
+
+
 # -- the plain PyTorch versions ---------------------------------------------
 
 def _slot_chunks(tf: TiledFormat):

@@ -57,9 +57,15 @@ def _inputs(seed, n_src, n_dst, heads, dim):
     return el, er, z, w
 
 
-def _both(row, col, n_src, n_dst, heads, dim, drop, seed, slope=0.2):
-    """(out, d_el, d_er, d_z) of the loss sum(out * w) on both sides."""
+def _both(row, col, n_src, n_dst, heads, dim, drop, seed, slope=0.2,
+          bound=False):
+    """(out, d_el, d_er, d_z) of the loss sum(out * w) on both sides; with
+    ``bound``, some el and er lie exactly on the +-20 clip and some past
+    it."""
     el, er, z, w = _inputs(heads * 100 + dim, n_src, n_dst, heads, dim)
+    if bound:
+        el[::7], el[3::7], el[5::11] = 20.0, -20.0, 25.0
+        er[::5], er[2::5], er[4::13] = -20.0, 20.0, -30.0
     bj = jbm.build_bit_format(row, col, n_src, n_dst)
     bt = tbm.build_bit_format(row, col, n_src, n_dst, device="cpu")
 
@@ -165,6 +171,18 @@ def test_bitgat_plane31_matches_jax(interpret):
     assert (bt.packed < 0).any() and (bt.packed_rev < 0).any()
     got, want = _both(row, col, n_src, n_dst, 2, 8, 0.6, seed=31)
     _assert_close(got, want)
+
+
+def test_bitgat_clip_bound_matches_jax(interpret):
+    """el and er exactly on the +-20 clip: its gradient there is 1/2, as
+    jnp.clip's is (torch.clamp's would be 1, twice JAX's d_el), and 0 past
+    the bound."""
+    rng = np.random.default_rng(5)
+    row, col = _simple_graph(rng, 64, 64, 700)
+    got, want = _both(row, col, 64, 64, 2, 8, 0.0, seed=0, bound=True)
+    _assert_close(got, want)
+    assert np.abs(got[1][::7]).max() > 1e-3      # the bound's gradient
+    np.testing.assert_array_equal(got[1][5::11], 0.0)
 
 
 def test_bitgat_guards():

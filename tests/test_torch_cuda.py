@@ -1210,3 +1210,180 @@ def test_gloo_refuses_cuda_tensors(card, tmp_path):
             comm.reduce_scatter_rows(torch.zeros(4, 2, device=card))
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _grid(card, gen, *shape, step, top, low=None):
+    low = -top if low is None else low
+    return torch.randint(round(low / step), round(top / step) + 1, shape,
+                         device=card, generator=gen).float() * step
+
+
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 8), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v1_kernels_match_plain(card, heads, dim, dtype):
+    """Each K11 v1 kernel (the scores and the slot gradient over a stored
+    FE, the slot vector sum on both sides) and each K10 v1 kernel (the
+    numerator with a stored message, its ds, dx with dfe) against its plain
+    version, the stored slot tensors in ``dtype``.  Inputs lie on dyadic
+    grids, so every per-slot value and every sum over a node's slots is
+    exact in any order; da sums over every slot (atol of its magnitude)."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    b, cap = fwd.num_buckets, fwd.cap
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + dim)
+    valid_r, valid_h = fwd.valid.view(b, cap, 1), fwd.valid.view(b, 1, cap)
+    U = _grid(card, gen, fwd.num_src, heads, dim, step=1 / 16, top=1)
+    V = _grid(card, gen, fwd.num_dst, heads, dim, step=1 / 16, top=1)
+    attn = _grid(card, gen, heads, dim, step=1 / 16, top=0.5)
+    fe = (_grid(card, gen, b, cap, heads * dim, step=1 / 16, top=0.5)
+          * valid_r).to(dtype)
+    ds = _grid(card, gen, b, heads, cap, step=1 / 8, top=1) * valid_h
+    p = _grid(card, gen, b, heads, cap, step=1 / 16, top=4, low=0) * valid_h
+    zn = _grid(card, gen, fwd.num_dst, heads, dim, step=1 / 16, top=1)
+    g = torch.randn(b, heads, cap, device=card, generator=gen) * valid_h
+    rp = torch.randn(fwd.num_dst, heads, device=card, generator=gen)
+    counters = [getattr(tgf, n) for n in (
+        "egatc_scores", "egatc_slot_grad", "slot_vec_reduce", "fe_aggregate",
+        "fe_ds", "dx_dfe")]
+    before = [k.launches for k in counters]
+    da, dfe = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.25)
+    want_da, want_dfe = tgf.egatc_slot_grad_plain(fwd, U, V, attn, fe, ds,
+                                                  0.25)
+    assert dfe.dtype == dtype
+    dx, dfe2 = tgf.dx_dfe(fwd, zn, p, dtype)
+    want_dx, want_dfe2 = tgf.dx_dfe_plain(fwd, zn, p, dtype)
+    pairs = [
+        (tgf.egatc_scores(fwd, U, V, attn, fe, 0.25),
+         tgf.egatc_scores_plain(fwd, U, V, attn, fe, 0.25)),
+        (dfe.float(), want_dfe.float()),
+        (tgf.slot_vec_reduce(fwd, dfe, "dst"),
+         tgf.slot_vec_reduce_plain(fwd, dfe, "dst")),
+        (tgf.slot_vec_reduce(fwd, dfe, "src"),
+         tgf.slot_vec_reduce_plain(fwd, dfe, "src")),
+        (tgf.fe_aggregate(fwd, U, fe, p), tgf.fe_aggregate_plain(fwd, U, fe,
+                                                                 p)),
+        (tgf.fe_ds(fwd, U, fe, zn, rp, g),
+         tgf.fe_ds_plain(fwd, U, fe, zn, rp, g)),
+        (dx, want_dx), (dfe2.float(), want_dfe2.float())]
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(counters, before)] == [
+        1, 1, 2, 1, 1, 1]
+    for i, (a, w) in enumerate(pairs):
+        torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m, i=i: f"pair {i}: {m}")
+    torch.testing.assert_close(
+        da, want_da, rtol=RTOL,
+        atol=ATOL * max(1.0, float(want_da.abs().max())))
+    for t in (dfe, dfe2):
+        assert (t.masked_select(valid_r == 0) == 0).all()
+
+
+def test_v1_attention_matches_v2(card):
+    """Both v1 functions through their kernels against the v2 functions on
+    the same leaves, (4, 32) with 16 edge features: values and every leaf's
+    gradient (sums in another order: rtol 1e-4, atol 1e-3 of each result's
+    magnitude)."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    b, cap, heads, dim, fe_in = fwd.num_buckets, fwd.cap, 4, 32, 16
+    gen = torch.Generator(device=card).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=card, generator=gen)
+                ).requires_grad_()
+
+    ef = (torch.randn(b, cap, fe_in, device=card, generator=gen)
+          * fwd.valid.view(b, cap, 1)).requires_grad_()
+    u, v, x = (randn(n, heads, dim, scale=s) for n, s in (
+        (fwd.num_src, 0.5), (fwd.num_dst, 0.5), (fwd.num_src, 1.0)))
+    el, er = randn(fwd.num_src, heads), randn(fwd.num_dst, heads)
+    wf, attn = randn(fe_in, heads * dim, scale=0.1), randn(heads, dim)
+    dz = torch.randn(fwd.num_dst, heads, dim, device=card, generator=gen)
+
+    def run(fn, leaves):
+        for t in leaves:
+            t.grad = None
+        fn().backward(dz)
+        return [t.grad.clone() for t in leaves]
+
+    def egatc_v1():
+        return tgf.egatconv_attention_aggregate(fwd, u, v, ef @ wf, attn, x,
+                                                heads, dim, dim, 0.01)
+
+    def egatc_v2():
+        return tgf.egatconv_attention_aggregate_v2(fwd, u, v, ef, wf, attn,
+                                                   x, heads, dim, dim, 0.01)
+
+    def edgegat_v1():
+        fe = ef @ wf
+        ee = (fe.view(b, cap, heads, dim) * attn).sum(-1)
+        return tgf.edgegat_attention_aggregate(
+            fwd, el, er, ee.transpose(1, 2).contiguous(), fe, x, heads, dim,
+            0.2)
+
+    def edgegat_v2():
+        return tgf.edgegat_attention_aggregate_v2(fwd, el, er, ef, wf, attn,
+                                                  x, heads, dim, 0.2)
+
+    for v1, v2, leaves in ((egatc_v1, egatc_v2, (u, v, ef, wf, attn, x)),
+                           (edgegat_v1, edgegat_v2,
+                            (el, er, ef, wf, attn, x))):
+        torch.testing.assert_close(v1().detach(), v2().detach(), rtol=RTOL,
+                                   atol=ATOL)
+        for a, w in zip(run(v1, leaves), run(v2, leaves)):
+            torch.testing.assert_close(
+                a, w, rtol=RTOL, atol=ATOL * max(1.0, float(w.abs().max())))
+
+
+def test_v1_wrappers_never_take_plain_on_cuda(card, monkeypatch):
+    """On CUDA tensors each K11 v1 and K10 v1 wrapper launches its kernel:
+    a plain version that is reached raises."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    for name in ("egatc_scores_plain", "egatc_slot_grad_plain",
+                 "slot_vec_reduce_plain", "fe_aggregate_plain",
+                 "fe_ds_plain", "dx_dfe_plain"):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(tgf, name, refuse)
+    b, cap, heads, dim = fwd.num_buckets, fwd.cap, 2, 8
+    gen = torch.Generator(device=card).manual_seed(12)
+    u = torch.randn(fwd.num_src, heads, dim, device=card, generator=gen)
+    v = torch.randn(fwd.num_dst, heads, dim, device=card, generator=gen)
+    fe = torch.randn(b, cap, heads * dim, device=card, dtype=torch.bfloat16,
+                     generator=gen).requires_grad_()
+    ee = torch.randn(b, heads, cap, device=card, generator=gen)
+    attn = torch.randn(heads, dim, device=card, generator=gen)
+    el = torch.randn(fwd.num_src, heads, device=card, generator=gen)
+    er = torch.randn(fwd.num_dst, heads, device=card, generator=gen)
+    out = (tgf.egatconv_attention_aggregate(fwd, u, v, fe, attn, u, heads,
+                                            dim, dim, 0.2).sum()
+           + tgf.edgegat_attention_aggregate(fwd, el, er, ee, fe, u, heads,
+                                             dim, 0.2).sum())
+    out.backward()
+    torch.cuda.synchronize()
+    assert fe.grad is not None and fe.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("w", [8, 16, 32])
+def test_bit_matmul_t_slab_widths(card, w):
+    """K1 at each slab width of the sweep equals its plain version exactly
+    on grid inputs."""
+    row, col, n_src, n_dst = _coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    gen = torch.Generator(device=card).manual_seed(w)
+    x = _grid(card, gen, n_src, 16, step=1 / 16, top=1)
+    got = tbm.bit_matmul_t(bf.packed_rev, x, n_dst, slab_words=w)
+    torch.testing.assert_close(
+        got, tbm.bit_matmul_t_plain(bf.packed_rev, x, n_dst), rtol=0, atol=0)
+
+
+def test_tools_tiny_checks_on_card(card):
+    """The tools' tiny checks through the kernels: K1 on random words and
+    ``bitgat_fwd_t`` on P2's tiny inputs, against their dense oracles."""
+    from dgl_tpu_torch.tools import perf_bitgat_probe, perf_bitmm_variants
+    before = (tbm.bit_matmul_t.launches, tbg.bitgat_fwd_t.launches)
+    assert perf_bitmm_variants.tiny_check(card)[1] < 1e-3
+    assert perf_bitgat_probe.tiny_check(card)[1] < 1e-4
+    assert (tbm.bit_matmul_t.launches - before[0],
+            tbg.bitgat_fwd_t.launches - before[1]) == (1, 1)

@@ -131,14 +131,14 @@ def test_plain_versions_match_oracle(heads, fh, saturate):
     el, er, ef, We, attn, x, dz = (torch.from_numpy(a) for a in ins)
     ef_slot = tgf.slot_edge_tensor(t, ef)
     tol = dict(rtol=1e-4, atol=1e-5) if saturate else ORACLE
-    out, p, g, den, s = tgf.edgegat_forward(t, el, er, ef_slot, We, attn, x,
-                                            heads, fh, SLOPE)
+    out, p, g, den, s = tgf.edgegat_v2_forward(t, el, er, ef_slot, We, attn,
+                                               x, heads, fh, SLOPE)
     valid = t.valid.reshape(t.num_buckets, 1, t.cap) > 0
     assert (p.masked_select(~valid) == 0).all()
     np.testing.assert_allclose(_edge_heads(t, p), want[1], **tol)
     np.testing.assert_allclose(out.numpy(), want[0], **tol)
-    got = tgf.edgegat_backward(t, ef_slot, We, attn, x, p, g, den, s, out,
-                               dz, heads, fh)
+    got = tgf.edgegat_v2_backward(t, ef_slot, We, attn, x, p, g, den, s,
+                                  out, dz, heads, fh)
     names = ("del", "der", "dx", "d_ef", "dWe", "d_attn")
     for name, a, ref in zip(names, got, want[2:]):
         a = a.numpy()
@@ -161,12 +161,12 @@ def test_backward_skips_def_when_not_needed():
     el, er, ef, We, attn, x, dz = (torch.from_numpy(a)
                                    for a in _inputs(64, 2, 4))
     ef_slot = tgf.slot_edge_tensor(t, ef)
-    out, p, g, den, s = tgf.edgegat_forward(t, el, er, ef_slot, We, attn, x,
-                                            2, 4, SLOPE)
-    full = tgf.edgegat_backward(t, ef_slot, We, attn, x, p, g, den, s, out,
-                                dz, 2, 4)
-    part = tgf.edgegat_backward(t, ef_slot, We, attn, x, p, g, den, s, out,
-                                dz, 2, 4, need_def=False)
+    out, p, g, den, s = tgf.edgegat_v2_forward(t, el, er, ef_slot, We, attn,
+                                               x, 2, 4, SLOPE)
+    full = tgf.edgegat_v2_backward(t, ef_slot, We, attn, x, p, g, den, s,
+                                   out, dz, 2, 4)
+    part = tgf.edgegat_v2_backward(t, ef_slot, We, attn, x, p, g, den, s,
+                                   out, dz, 2, 4, need_def=False)
     assert part[3] is None and full[3] is not None
     for a, b in zip(part[:3] + part[4:], full[:3] + full[4:]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -236,6 +236,19 @@ gh = dgt.graph((rng.integers(0, 50, 400), rng.integers(0, 5, 400)),
 gh.unit().create_hybrid_format(k_dense=8, min_degree=20, tile=128, cap=128)
 conv(gh, torch.randn(50, 5)).sum().backward()                   # K12
 assert gh.auto_format() == {gh.canonical_etypes[0]: "tiled"}
+tgf = dgl_tpu_torch.ops.kernels.gat_fused
+tf = gt.unit().tiled_format()[0]
+fe = tgf.slot_edge_tensor(tf, torch.randn(400, 8)).requires_grad_()
+tgf.egatconv_attention_aggregate(
+    tf, torch.randn(50, 2, 4), torch.randn(50, 2, 4), fe, torch.randn(2, 4),
+    torch.randn(50, 2, 4), 2, 4, 4, 0.2).sum().backward()       # K11 v1
+tgf.edgegat_attention_aggregate(
+    tf, torch.randn(50, 2), torch.randn(50, 2),
+    tgf.slot_edge_tensor(tf, torch.randn(400, 2)).permute(0, 2, 1), fe,
+    torch.randn(50, 2, 4), 2, 4, 0.2).sum().backward()           # K10 v1
+from dgl_tpu_torch.tools import perf_bitgat_probe, perf_bitmm_variants
+perf_bitgat_probe.tiny_check("cpu")                              # P2
+perf_bitmm_variants.tiny_check("cpu")                            # P1
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))

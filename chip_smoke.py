@@ -36,10 +36,15 @@ Phases, each of which raises on failure (nothing is caught):
    weights and slot weights; forward and backward) and K4's SpMM and
    SDDMM ((H, Fh) = (4, 32), (1, 41), (8, 16)) against their plain
    versions on the phase-3 multigraph in the tiled format, built on the
-   card and equal to the host builder's;
+   card and equal to the host builder's; then K4's SpMM (the row walk by
+   dst) equal to its plain version on dyadic inputs at (4, 32), (1, 41),
+   (8, 8) and (2, 64) on that graph with a dst hub and a src hub of
+   degree 12,000 added, a dst tile with no bucket and rows with no slot;
 12. the tiled format at full size: a second graph over the phase-4 COO,
    whose format ``auto_format`` picks by the JAX package's rules (it must
-   be the tiled one), forward and reverse built on the card (no bitmask);
+   be the tiled one), forward and reverse built on the card (no bitmask),
+   and the row walk's views (the forward's by dst and by src, the
+   reverse's by dst), their build time and bytes;
 13. route 1: the phase-4 GCN for 10 Adam steps on the tiled format (K3),
    a profiled step, and one step against the gather path;
 14. route 3: the same GCN with ``norm="none"`` and edge weights from
@@ -53,13 +58,15 @@ Phases, each of which raises on failure (nothing is caught):
    version and against one PyTorch call computing the same function
    (``torch.sparse.mm`` on a CSR copy, block-diagonal over the heads for
    K4's SpMM; a batched ``torch.sparse.sampled_addmm`` for K4's SDDMM),
-   the three times (median of 5) and the bound;
+   the three times (median of 5) and the bound; for K4's SpMM (the row
+   walk) also the rate of its gathers;
 17. the slot-space slice at mid size: each K6 kernel (scores with and
    without a per-slot bias, the slot reduce on both sides, ds, the
    src-side aggregation) against its plain version on the phase-3
    multigraph in the tiled format at (H, Fh) = (4, 32), (1, 41), (8, 16);
-   ``GATConv`` on K6 against edgeflat's gather path and ``DotGatConv`` on
-   K8 against its gather path, forward and backward;
+   the src-side aggregation (the row walk by src) as phase 11 holds K4's
+   SpMM; ``GATConv`` on K6 against edgeflat's gather path and
+   ``DotGatConv`` on K8 against its gather path, forward and backward;
 18. route 4: the phase-9 GAT without attention dropout for 10 Adam steps
    on the tiled format, both layers on K6 forward and backward, a
    profiled step whose trace is held to the launch counters, and one
@@ -113,7 +120,8 @@ Phases, each of which raises on failure (nothing is caught):
    one ``torch.sparse.mm`` of the (H N, slots) CSR holding p; then the
    EdgeGAT step's other launches at (4, 32) on that format, as phases 16
    and 20 time them: K6's reduce on both sides and src-side aggregation
-   (dx), K4's SpMM;
+   (dx), K4's SpMM; and the v1 functions' K6 launches there, the scores
+   with the slot bias (K10 v1) and ds (K11 v1);
 28. the DotGat-on-K7 slice at mid size, on the phase-8 graph: each K7
    kernel (forward, dz, dq) through ``bitdot_attention_aggregate``
    against its plain version at (H, D) = (2, 64), (1, 128), (4, 32), (3,
@@ -473,17 +481,18 @@ def phase_train(dgt, bm, g, x, y, train):
 
 
 # each wrapper's launch counter and the CUDA kernel it launches, once a
-# call (K3's and K4's SpMM share a kernel, K13 and K5's backward another:
-# the counts of wrappers that share one are held together)
+# call (K4's SpMM and the src-side aggregation share the row walk, K13 and
+# K5's backward another kernel: the counts of wrappers that share one are
+# held together)
 TRACED_KERNELS = {
     "bit_matmul_t": "bit_matmul_t_kernel",
     "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_kernel",
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
-    "gat_ds": "gat_ds_kernel", "src_aggregate": "src_agg_kernel",
+    "gat_ds": "gat_ds_kernel", "src_aggregate": "row_agg_kernel",
     "vattn_scores": "vattn_scores_kernel",
     "vattn_slot_grad": "vattn_slot_grad_kernel",
     "vattn_node_grad": "vattn_node_grad_kernel",
-    "k4_spmm": "tiled_spmm_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel",
+    "k4_spmm": "row_agg_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel",
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
     "int8_matmul_rows": "int8_rows_kernel",
@@ -918,6 +927,59 @@ def phase_tiled_mid(tts, tsp, ef):
                     f"K4 SDDMM mid H={heads} Fh={fh}")
         log(f"# K4 mid H={heads} Fh={fh}: max|err| SpMM {e_s:.3g}, SDDMM "
             f"{e_d:.3g}")
+    row_walk_mid(tts, None, ef, "dst")
+
+
+ROW_WALK_SHAPES = ((4, 32), (1, 41), (8, 8), (2, 64))
+ROW_WALK_HUB = 12_000
+
+
+def row_walk_mid(tts, tgf, ef, side):
+    """The row walk by ``side`` (dst: K4's SpMM, src: the src-side
+    aggregation) against its plain version at ROW_WALK_SHAPES on the
+    phase-3 graph with a dst hub and a src hub of degree 12,000 added, no
+    edge into dst tile 3 nor out of 50 src rows: x (or z) and w on dyadic
+    grids, on which the plain version's atomics sum exactly, so the two
+    must be equal."""
+    row, col, n_src, n_dst = mid_graph()
+    # dst tile 3 and src rows 20,000-20,049 have no edge
+    keep = ((col < 3072) | (col >= 4096)) & ((row < 20_000) | (row >= 20_050))
+    hub = np.arange(ROW_WALK_HUB)
+    row = np.r_[row[keep], np.full(ROW_WALK_HUB, 11), hub % n_src]
+    col = np.r_[col[keep], hub % 3072, np.full(ROW_WALK_HUB, 7)]
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda").with_src_first()
+    view = fwd.row_view(side)
+    deg = view.ptr[1:] - view.ptr[:-1]
+    if int(deg.max()) < 10_000 or int(deg.min()) != 0:
+        raise AssertionError(f"row walk mid {side}: degrees {int(deg.min())}"
+                             f"..{int(deg.max())}, not 0..over 10,000")
+    n_nbr = n_src if side == "dst" else n_dst
+    exact_sums(int(deg.max()), 1 / 256, f"row walk mid {side}")
+    gen = torch.Generator(device="cuda").manual_seed(110)
+    wrapper = tts.tiled_spmm_multihead if side == "dst" else tgf.src_aggregate
+    for heads, fh in ROW_WALK_SHAPES:
+        y = grid(gen, n_nbr, heads, fh, step=1 / 16, top=1)
+        w = ef._w_slot_from_flat(fwd, grid(gen, len(row) * heads,
+                                           step=1 / 16, top=1, low=0), heads)
+        before = wrapper.launches
+        if side == "dst":
+            got = tts.tiled_spmm_multihead(fwd, y, w, heads, fh)
+            want = tts.tiled_spmm_multihead_plain(fwd, y, w)
+        else:
+            got = tgf.src_aggregate(fwd, y, w)
+            want = tgf.src_aggregate_plain(fwd, y, w)
+        torch.cuda.synchronize()
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"row walk mid {side}: not 1 launch")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"row walk mid {side} H={heads} Fh={fh}: max|err| "
+                f"{float((got - want).abs().max()):.3g}, not 0")
+        if side == "dst" and not (got[3072:4096] == 0).all():
+            raise AssertionError("row walk mid: dst tile 3 is not 0")
+        log(f"# row walk mid by {side} H={heads} Fh={fh}: equal to the "
+            f"plain version (degrees 0..{int(deg.max())})")
 
 
 def tiled_graph(dgt, g):
@@ -950,6 +1012,14 @@ def tiled_graph(dgt, g):
         f"per direction, fill {gt.num_edges() / slots:.4f}, "
         f"{fwd.nbytes} + {rev.nbytes} bytes, covered_mask "
         f"{'none' if fwd.covered_mask is None else 'set'}")
+    # the row walk's views: the forward's by dst (K4's SpMM) and by src
+    # (the src-side aggregation), the reverse's by dst (edgeflat's dx)
+    t0 = time.perf_counter()
+    views = (fwd.row_view("dst"), fwd.row_view("src"), rev.row_view("dst"))
+    torch.cuda.synchronize()
+    log(f"# row views built on the card in {time.perf_counter() - t0:.3f}s: "
+        + ", ".join(f"{v.nbytes}" for v in views) + " bytes (forward by "
+        "dst and by src, reverse by dst)")
     return gt
 
 
@@ -1081,6 +1151,27 @@ def bound(nbytes, ops, rate, peak=F32_PEAK):
                                    else "operations")
 
 
+def log_gathers(name, e, f, ms, rate):
+    """Log the rate at which the row walk ``name`` gathered its e rows of
+    f f32 columns in ``ms``: above the memory rate, L2 served part of
+    them."""
+    tb_s = e * f * 4 / ms / 1e9
+    log(f"# {name}: gathers {e * f * 4} B of rows, {tb_s:.3f} TB/s at its "
+        f"time ({'above' if tb_s * 1e12 > rate else 'below'} the memory "
+        f"rate, {rate / 1e12:.2f} TB/s)")
+
+
+def row_walk_bytes(tf, side, heads, f):
+    """The bytes the row walk by ``side`` must move: its row view (slot
+    and nbr, 8 B an edge; ptr and order, 8 B a row), the weights at the
+    edges (4H B an edge), y read once and out written once (f f32 columns
+    a node)."""
+    view = tf.row_view(side)
+    n_nbr = tf.num_src if side == "dst" else tf.num_dst
+    return (view.nbytes + view.slot.numel() * 4 * heads
+            + (view.rows + n_nbr) * f * 4)
+
+
 def walk_bytes(slots, e):
     """The tiled format's slot arrays that a walk of its ``e`` edges must
     read: ``valid`` for each of the ``slots`` slots, the src and dst locals
@@ -1199,7 +1290,7 @@ def tiled_yardsticks(ef, tts, gt, rate):
                 ("spmm_mh",
                  lambda: tts.tiled_spmm_multihead(fwd, x, w_slot, heads, fh),
                  lambda: tts.tiled_spmm_multihead_plain(fwd, x, w_slot),
-                 walk_bytes(slots, e) + e * 4 * heads + 2 * feat_b, lib_s),
+                 row_walk_bytes(fwd, "dst", heads, heads * fh), lib_s),
                 ("sddmm_mh",
                  lambda: tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh),
                  lambda: tts.tiled_sddmm_dot_multihead_plain(fwd, x, z),
@@ -1218,6 +1309,9 @@ def tiled_yardsticks(ef, tts, gt, rate):
                 f"{r['plain_ms']:.4f} ms, library ("
                 f"{'torch.sparse.mm' if name == 'spmm_mh' else 'sampled_addmm'}"
                 f") {lib:.4f} ms, max|err| {err:.3g}")
+            if name == "spmm_mh":
+                log_gathers(f"K4 spmm_mh H={heads} Fh={fh}", e, heads * fh,
+                            r["ms"], rate)
         del x, z, w, w_slot
     return rows
 
@@ -1266,7 +1360,7 @@ def k6_kernel_checks(tgf, fwd, heads, fh, gen, tag):
     return errs
 
 
-def phase_gat_fused_mid(dgt, tts, tgf):
+def phase_gat_fused_mid(dgt, tts, tgf, ef):
     """Phase 17: the K6 kernels against their plain versions at mid size;
     GATConv on K6 against edgeflat's gather path and DotGatConv on K8
     against its gather path (``use_kernels(False)``)."""
@@ -1280,6 +1374,7 @@ def phase_gat_fused_mid(dgt, tts, tgf):
                                 f"K6 mid H={heads} Fh={fh}")
         log(f"# K6 mid H={heads} Fh={fh}: max|err| " + ", ".join(
             f"{name} {err:.3g}" for name, err in errs))
+    row_walk_mid(tts, tgf, ef, "src")
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.create_tiled_format()
@@ -1492,12 +1587,12 @@ def slot_ids(fwd, side):
 
 
 def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
-                  sides=("dst", "src"), ds=True):
+                  sides=("dst", "src"), ds=True, bias=False):
     """Phase 20: each K6 kernel at full size against its plain version,
     with the timings, the bound and the library call where there is
     one.  ``scores``, ``sides`` and ``ds`` leave out the rows a caller
-    does not launch (route 5 launches neither the scores nor the src side,
-    EdgeGAT neither the scores nor K6's ds)."""
+    does not launch (route 5 launches neither the scores nor the src side);
+    ``bias`` adds the scores with a per-slot bias (K10 v1's)."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     b, cap = fwd.num_buckets, fwd.cap
@@ -1547,6 +1642,13 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
         row("scores", lambda: tgf.gat_scores(fwd, el, er, SLOPE),
             lambda: tgf.gat_scores_plain(fwd, el, er, SLOPE),
             walk + 2 * node + 2 * slot_h, 8 * e * heads)
+    # with the bias: in also ee at the edges
+    if bias:
+        ee = 0.25 * randn(b, heads, cap) * fwd.valid.view(b, 1, cap)
+        row("scores_bias", lambda: tgf.gat_scores(fwd, el, er, SLOPE, ee),
+            lambda: tgf.gat_scores_plain(fwd, el, er, SLOPE, ee),
+            walk + 2 * node + edge_h + 2 * slot_h, 9 * e * heads)
+        del ee
 
     # the slot reduce: one index_add_ of head-major slot values at the
     # slots' global ids computes each side
@@ -1595,8 +1697,10 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
     del aw, zh
     row("src_agg", lambda: tgf.src_aggregate(fwd, zq, p),
         lambda: tgf.src_aggregate_plain(fwd, zq, p),
-        walk + edge_h + b * 4 + 2 * feat_b, 2 * e * heads * fh, lib,
-        "torch.sparse.mm")
+        row_walk_bytes(fwd, "src", heads, heads * fh), 2 * e * heads * fh,
+        lib, "torch.sparse.mm")
+    log_gathers(f"K6 src_agg H={heads} Fh={fh}", e, heads * fh,
+                rows["src_agg"]["ms"], rate)
     return rows
 
 
@@ -2287,7 +2391,6 @@ def k4_spmm_yardstick(ef, tts, gt, heads, fh, rate):
     it: the row of route 5's numerator at (8, 8)."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
-    slots = fwd.num_buckets * fwd.cap
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + fh + 1)
     exact_sums(max_degree(gt), 1 / 256, "K4 SpMM full size")
     x = grid(gen, N_NODES, heads, fh, step=1 / 16, top=1)
@@ -2302,7 +2405,7 @@ def k4_spmm_yardstick(ef, tts, gt, heads, fh, rate):
     del aw, xh
     err = close(got, tts.tiled_spmm_multihead_plain(fwd, x, w_slot),
                 f"K4 spmm_mh full size H={heads} Fh={fh}")
-    nbytes = walk_bytes(slots, e) + e * 4 * heads + 2 * x.numel() * 4
+    nbytes = row_walk_bytes(fwd, "dst", heads, heads * fh)
     ops = 2 * e * heads * fh
     bnd, by = bound(nbytes, ops, rate)
     r = {"max_abs_err": err,
@@ -2314,6 +2417,8 @@ def k4_spmm_yardstick(ef, tts, gt, heads, fh, rate):
     log(f"# K4 spmm_mh H={heads} Fh={fh}: {r['ms']:.4f} ms (bound {bnd:.4f} "
         f"ms by {by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
         f"library (torch.sparse.mm) {lib:.4f} ms, max|err| {err:.3g}")
+    log_gathers(f"K4 spmm_mh H={heads} Fh={fh}", e, heads * fh, r["ms"],
+                rate)
     return r
 
 
@@ -4116,7 +4221,7 @@ def main():
     # full-size graph is generated
     phase("8 (GAT mid size)", phase_bitgat_mid, dgt, bm, bg)
     phase("11 (K3, K4 mid size)", phase_tiled_mid, tts, tsp, ef)
-    phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf)
+    phase("17 (K6, K8 mid size)", phase_gat_fused_mid, dgt, tts, tgf, ef)
     phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
     phase("25 (K10 v2 mid size)", phase_edgegat_mid, dgt, tts, tgf)
     phase("37 (K10 v1, K11 v1 mid size)", phase_v1_mid, dgt, tts, tgf)
@@ -4276,9 +4381,10 @@ def main():
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
-    # dx, K4's SpMM for the numerator
+    # dx, K4's SpMM for the numerator; the v1 functions' K6 scores with the
+    # slot bias (K10 v1) and ds (K11 v1)
     phase("27 (K6 yardsticks H=4 Fh=32, EGAT graph)", k6_yardsticks, tgf,
-          tts, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), False)
+          tts, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), True, True)
     phase("27 (K4 SpMM yardstick H=4 Fh=32, EGAT graph)", k4_spmm_yardstick,
           ef, tts, ge, EGAT_H, EGAT_D, rate)
 
@@ -4324,7 +4430,7 @@ def main():
          "launches": k3_launches, **tiled["k3"]},
         # the first GAT layer's shape, H x Fh = 4 x 32
         {"name": "tiled_spmm_multihead", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:455",
          "launches": k4_launches[0], **tiled["spmm_mh_4"]},
         {"name": "tiled_sddmm_dot_multihead", "route": "cuda",
@@ -4346,7 +4452,7 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:368, :597",
          "launches": k6_launches["gat_ds"], **k6[0]["ds"]},
         {"name": "src_aggregate", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:428, :636",
          "launches": k6_launches["src_aggregate"], **k6[0]["src_agg"]},
         # K9 at the first GATv2 layer's shape, H x D = 8 x 8, launches from

@@ -30,7 +30,8 @@
 // Zp[dst, h]; and d(ef)[s, :] = sum_h p Zp[dst, h] + ds M[:, h].  M, S .
 // We, Zp and dWe are node-sized products outside the kernels.
 //
-// Four kernels serve the eleven K6 and K8 call sites and, with their edge
+// Four kernels serve the eleven K6 and K8 call sites (with the row walk
+// of csrc/row_agg.cu for K6's dx and K4's SpMM) and, with their edge
 // variants, K10 v2's; each is behind a plain C function that launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError():
 //
@@ -64,15 +65,14 @@
 //     h]; with kDef the warp then writes its chunk's d(ef), the 32 x Fe
 //     values one per lane and step, coalesced (the d(ef) part of
 //     _eg2_dx_def_kernel :1639, :1850).
-// src_agg_kernel<G, kAggDx>  replaces _dx_kernel :202 (gat_backward :428,
-//     _dot_gat_bwd's _dx_call :623 for dk and dx, and the dx part of
-//     _eg2_dx_def_kernel :1639).  K4's SpMM walk with the sides swapped:
-//     one block per (src tile, chunk of G columns, split of the tile's
-//     buckets in src_order); the tile's rows for the chunk in shared
-//     memory, (tile, G) f32, 128 KB at tile 1024 and G = 32; G lanes per
-//     slot gather z[dst] columns, scale them by the slot's weight of the
-//     column's head and add them at [src_local].  With kAggFeat it is K10
-//     v2's slot-feature reduce, S[v, h, f] = sum w[b, h, c] ef[s, f] over
+// src_agg_kernel<G, kMode>, a tiled walk: one block per (tile, chunk of
+//     G columns, split of the tile's buckets, in src_order for a walk by
+//     src tile); the tile's rows for the chunk in shared memory, (tile,
+//     G) f32, 128 KB at tile 1024 and G = 32; G lanes per slot gather a
+//     row's columns, scale them by the slot's weight of the column's head
+//     and add them at the slot's local row.  K6's dx (_dx_kernel :202) is
+//     the row walk of csrc/row_agg.cu.  With kAggFeat it is K10 v2's
+//     slot-feature reduce, S[v, h, f] = sum w[b, h, c] ef[s, f] over
 //     dst v's slots (w = p in the forward, ds in the backward, where the
 //     sum over v gives dWe's and d(attn_e)'s Q): the walk by dst_ptr, the
 //     H * Fe columns in chunks of G, the operand the slot's own row, the
@@ -101,7 +101,8 @@
 // _agg_kernel :120 (gat_forward :328, dot_gat_forward :547, and dq in
 // _dot_gat_bwd :614) and the node part of _eg2_agg_kernel compute exactly
 // tiled_spmm_multihead's function, so the port serves them with K4's SpMM
-// kernel (csrc/tiled_spmm.cu), and K8's scores with K4's SDDMM.
+// (csrc/row_agg.cu), and K8's scores with K4's SDDMM
+// (csrc/tiled_spmm.cu).
 //
 // The TPU kernels contract one-hot matrices of each bucket on the matrix
 // unit, carry an output tile from grid step to grid step and iterate in
@@ -150,7 +151,6 @@ __device__ __forceinline__ void st_slot(__nv_bfloat16* t, long long i,
 // What src_agg_kernel adds at a slot's row for column j of head h = j /
 // head_cols (w is a (B, H, C) slot tensor, t a (B * C, F) one of type T)
 enum AggMode : int {
-  kAggDx = 0,      // by src tile: w[h] * z[dst, j]               (dx, dk)
   kAggFeat = 1,    // by dst tile: w[h] * ef[s, j % head_cols]    (S, Q)
   kAggFe = 2,      // by dst tile: w[h] * (x[src, j] + t[s, j])   (K10 v1 num)
   kAggDxDfe = 3,   // by src tile: w[h] * z[dst, j], also t[s, j] = that
@@ -410,17 +410,15 @@ src_agg_kernel(const int* __restrict__ src_local,
                const int* __restrict__ order, const int* __restrict__ ptr,
                int tile, int cap, const float* __restrict__ z, T* t, int f,
                float* __restrict__ out, int num_rows, int splits) {
-  // The walk is by src tile through order (kAggDx, kAggDxDfe, kAggVecSrc)
-  // or by dst tile (ptr is dst_ptr, order unused); the f columns are
-  // head_cols a head.  z is the node operand (z[dst] for kAggDx and
-  // kAggDxDfe, x[src] for kAggFe), or for kAggFeat ef (B * C, head_cols)
-  // in slot order, whose column j % head_cols every head reads; t is the
-  // stored (B * C, f) slot tensor, read or (kAggDxDfe) written.
-  constexpr bool kSrcWalk =
-      kMode == kAggDx || kMode == kAggDxDfe || kMode == kAggVecSrc;
+  // The walk is by src tile through order (kAggDxDfe, kAggVecSrc) or by
+  // dst tile (ptr is dst_ptr, order unused); the f columns are head_cols a
+  // head.  z is the node operand (z[dst] for kAggDxDfe, x[src] for
+  // kAggFe), or for kAggFeat ef (B * C, head_cols) in slot order, whose
+  // column j % head_cols every head reads; t is the stored (B * C, f) slot
+  // tensor, read or (kAggDxDfe) written.
+  constexpr bool kSrcWalk = kMode == kAggDxDfe || kMode == kAggVecSrc;
   constexpr bool kWeighted = kMode <= kAggDxDfe;
-  constexpr bool kNodeRow = kMode == kAggDx || kMode == kAggFe ||
-                            kMode == kAggDxDfe;
+  constexpr bool kNodeRow = kMode == kAggFe || kMode == kAggDxDfe;
   constexpr bool kReadsT =
       kMode == kAggFe || kMode == kAggVecDst || kMode == kAggVecSrc;
   extern __shared__ float acc[];  // [tile][G]
@@ -789,36 +787,6 @@ int dgl_gat_ds(const void* src_local, const void* dst_local,
       return cudaErrorInvalidValue;
   }
 #undef DGL_DS_CASE
-}
-
-// out (num_src, f): out[s, j] = sum over the valid slots with src s of
-// w[b, j / head_cols, c] * z[dst, j], z (num_dst, f) and w (B, heads,
-// cap).  group (8, 16 or 32) is G; with splits > 1, out must be zeroed by
-// the caller.  Grid: (num_src_tiles, ceil(f / G), splits).
-int dgl_src_agg(const void* src_local, const void* dst_local,
-                const void* valid, const void* w, int64_t heads,
-                int64_t head_cols, const void* dst_tile,
-                const void* src_order, const void* src_ptr,
-                int64_t num_src_tiles, int64_t tile, int64_t cap,
-                const void* z, int64_t f, void* out, int64_t num_src,
-                int64_t group, int64_t splits, int64_t device,
-                void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const AggArgs a{static_cast<const int*>(src_local),
-                  static_cast<const int*>(dst_local),
-                  static_cast<const float*>(valid),
-                  static_cast<const float*>(w), static_cast<int>(heads),
-                  static_cast<int>(head_cols), nullptr,
-                  static_cast<const int*>(dst_tile),
-                  static_cast<const int*>(src_order),
-                  static_cast<const int*>(src_ptr),
-                  static_cast<int>(num_src_tiles), static_cast<int>(tile),
-                  static_cast<int>(cap), static_cast<const float*>(z),
-                  nullptr, static_cast<int>(f), static_cast<float*>(out),
-                  static_cast<int>(num_src), static_cast<int>(splits)};
-  return launch_src_agg_group<kAggDx, float>(
-      group, a, static_cast<cudaStream_t>(stream));
 }
 
 // out (num_dst, heads, fe): out[v, h, k] = sum over the valid slots s with

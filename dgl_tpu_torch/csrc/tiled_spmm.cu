@@ -9,20 +9,17 @@
 // tiles: every kernel here skips a slot whose valid is 0.  dst_tile never
 // decreases, so dst tile t owns the buckets [dst_ptr[t], dst_ptr[t + 1]).
 //
-// Three functions, behind two plain C entry points that launch on the
+// Two functions, behind two plain C entry points that launch on the
 // caller's stream, allocate nothing and return cudaGetLastError():
 //
-// K3  tiled_spmm_kernel<G, kCopy=true/false, kMH=false>  replaces
+// K3  tiled_spmm_kernel<G, kCopy=true/false>  replaces
 //     dgl_tpu/ops/pallas/tiled_spmm.py tiled_spmm -> _spmm_one_call
 //     (body _spmm_kernel).  out[d] = sum over slots of w * x[src].
-// K4  tiled_spmm_kernel<G, false, kMH=true>  replaces tiled_spmm_multihead
-//     (body _spmm_mh_kernel): the same walk over the H * Fh columns of x
-//     viewed as (N, H * Fh), with the weight of column j at slot (b, c)
-//     read from w_slot[b, j / Fh, c].
 // K4  tiled_sddmm_mh_kernel<L>  replaces tiled_sddmm_dot_multihead (body
 //     _sddmm_mh_kernel): e[b, h, c] = <x[src, h, :], z[dst, h, :]>, and 0
 //     at padded slots, where the TPU kernel writes the product of row 0
 //     of each tile.
+// K4's SpMM (tiled_spmm_multihead) is the row walk of csrc/row_agg.cu.
 //
 // The TPU kernels build one-hot matrices of each bucket and contract them
 // on the matrix unit, bucket after bucket, carrying the output tile in
@@ -49,11 +46,11 @@
 // its columns of each before it adds any; a chunk of padding only writes
 // zeros.
 //
-// Bound on an H100 SXM (3.35 TB/s): all three stream the slot arrays
-// (12 B a slot for K3: src_local, dst_local, valid; K4 adds 4 B a slot and
-// head of w or of e) and gather x rows (and z rows) that mostly hit L2,
-// since a bucket reads one src tile; the f32 arithmetic (2 operations per
-// slot and column) is far below the card's 67 TFLOP/s.  chip_smoke.py
+// Bound on an H100 SXM (3.35 TB/s): both stream the slot arrays (12 B a
+// slot for K3: src_local, dst_local, valid; K4 adds 4 B a slot and head
+// of e) and gather x rows (and z rows) that mostly hit L2, since a bucket
+// reads one src tile; the f32 arithmetic (2 operations per slot and
+// column) is far below the card's 67 TFLOP/s.  chip_smoke.py
 // prints each bound at the Reddit graph's shapes.  Indices are int32: the
 // wrappers check that every flat size fits.
 
@@ -68,13 +65,12 @@ constexpr int kSddmmWarps = 8;   // warps per SDDMM block
 constexpr int kSddmmUnroll = 4;  // SDDMM slots in flight per warp
 constexpr int kSddmmCols = 4;    // SDDMM columns a lane loads per slot at once
 
-template <int G, bool kCopy, bool kMH>
+template <int G, bool kCopy>
 __global__ void __launch_bounds__(kSpmmWarps * 32)
 tiled_spmm_kernel(const int* __restrict__ src_local,
                   const int* __restrict__ dst_local,
                   const float* __restrict__ valid,
-                  const float* __restrict__ w, int w_bucket_stride,
-                  int w_head_stride, int head_cols,
+                  const float* __restrict__ w,
                   const int* __restrict__ src_tile,
                   const int* __restrict__ dst_ptr, int tile, int cap,
                   const float* __restrict__ x, int f,
@@ -99,8 +95,6 @@ tiled_spmm_kernel(const int* __restrict__ src_local,
       static_cast<long long>(nb) * (blockIdx.z + 1) / splits);
   const int per_bucket = cap / 32;
   const int n_chunks = (b1 - b0) * per_bucket;
-  // K4: the head of this lane's column, and its offset in w_slot
-  const int w_head = kMH && col_ok ? (col / head_cols) * w_head_stride : 0;
 
   for (int k = warp; k < n_chunks; k += kSpmmWarps) {
     const int b = b0 + k / per_bucket;
@@ -110,11 +104,8 @@ tiled_spmm_kernel(const int* __restrict__ src_local,
     const int sl = src_local[s0 + lane];
     const int dl = dst_local[s0 + lane];
     float wl = 1.f;
-    if (!kCopy && !kMH) wl = v != 0.f ? w[b * w_bucket_stride + s0 - b * cap
-                                          + lane] : 0.f;
+    if (!kCopy) wl = v != 0.f ? w[s0 + lane] : 0.f;
     const float* xt = x + src_tile[b] * tile * f + col;
-    const float* wb =
-        kMH ? w + b * w_bucket_stride + w_head + s0 - b * cap : nullptr;
     float xv[G];
     int dv[G];
     unsigned on = 0u;
@@ -125,8 +116,7 @@ tiled_spmm_kernel(const int* __restrict__ src_local,
       dv[i] = __shfl_sync(kFull, dl, j);
       const bool live = __shfl_sync(kFull, v, j) != 0.f && col_ok;
       float wj = 1.f;
-      if (!kCopy && !kMH) wj = __shfl_sync(kFull, wl, j);
-      if (kMH) wj = live ? __ldg(wb + j) : 0.f;
+      if (!kCopy) wj = __shfl_sync(kFull, wl, j);
       xv[i] = live ? __ldg(xt + slj * f) * wj : 0.f;
       on |= static_cast<unsigned>(live) << i;
     }
@@ -232,60 +222,47 @@ tiled_sddmm_mh_kernel(const int* __restrict__ src_local,
   }
 }
 
-template <int G, bool kCopy, bool kMH>
+template <int G, bool kCopy>
 cudaError_t launch_spmm(const void* src_local, const void* dst_local,
                         const void* valid, const void* w,
-                        int64_t w_bucket_stride, int64_t w_head_stride,
-                        int64_t head_cols, const void* src_tile,
-                        const void* dst_ptr, int64_t num_dst_tiles,
-                        int64_t tile, int64_t cap, const void* x, int64_t f,
-                        void* out, int64_t num_dst, int64_t splits,
-                        cudaStream_t stream) {
+                        const void* src_tile, const void* dst_ptr,
+                        int64_t num_dst_tiles, int64_t tile, int64_t cap,
+                        const void* x, int64_t f, void* out, int64_t num_dst,
+                        int64_t splits, cudaStream_t stream) {
   const size_t smem = sizeof(float) * tile * G;
   cudaError_t err = cudaFuncSetAttribute(
-      tiled_spmm_kernel<G, kCopy, kMH>,
+      tiled_spmm_kernel<G, kCopy>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(num_dst_tiles),
                   static_cast<unsigned>((f + G - 1) / G),
                   static_cast<unsigned>(splits));
-  tiled_spmm_kernel<G, kCopy, kMH><<<grid, kSpmmWarps * 32, smem, stream>>>(
+  tiled_spmm_kernel<G, kCopy><<<grid, kSpmmWarps * 32, smem, stream>>>(
       static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
       static_cast<const float*>(valid), static_cast<const float*>(w),
-      static_cast<int>(w_bucket_stride), static_cast<int>(w_head_stride),
-      static_cast<int>(head_cols), static_cast<const int*>(src_tile),
-      static_cast<const int*>(dst_ptr), static_cast<int>(tile),
-      static_cast<int>(cap), static_cast<const float*>(x),
-      static_cast<int>(f), static_cast<float*>(out),
-      static_cast<int>(num_dst), static_cast<int>(splits));
+      static_cast<const int*>(src_tile), static_cast<const int*>(dst_ptr),
+      static_cast<int>(tile), static_cast<int>(cap),
+      static_cast<const float*>(x), static_cast<int>(f),
+      static_cast<float*>(out), static_cast<int>(num_dst),
+      static_cast<int>(splits));
   return cudaGetLastError();
 }
 
 template <int G>
 cudaError_t spmm_by_kind(const void* src_local, const void* dst_local,
                          const void* valid, const void* w,
-                         int64_t w_bucket_stride, int64_t w_head_stride,
-                         int64_t head_cols, const void* src_tile,
-                         const void* dst_ptr, int64_t num_dst_tiles,
-                         int64_t tile, int64_t cap, const void* x, int64_t f,
-                         void* out, int64_t num_dst, int64_t splits,
-                         bool multihead, cudaStream_t stream) {
-  if (multihead) {
-    return launch_spmm<G, false, true>(
-        src_local, dst_local, valid, w, w_bucket_stride, w_head_stride,
-        head_cols, src_tile, dst_ptr, num_dst_tiles, tile, cap, x, f, out,
-        num_dst, splits, stream);
-  }
+                         const void* src_tile, const void* dst_ptr,
+                         int64_t num_dst_tiles, int64_t tile, int64_t cap,
+                         const void* x, int64_t f, void* out, int64_t num_dst,
+                         int64_t splits, cudaStream_t stream) {
   if (w == nullptr) {
-    return launch_spmm<G, true, false>(
-        src_local, dst_local, valid, w, w_bucket_stride, w_head_stride,
-        head_cols, src_tile, dst_ptr, num_dst_tiles, tile, cap, x, f, out,
-        num_dst, splits, stream);
+    return launch_spmm<G, true>(src_local, dst_local, valid, w, src_tile,
+                                dst_ptr, num_dst_tiles, tile, cap, x, f, out,
+                                num_dst, splits, stream);
   }
-  return launch_spmm<G, false, false>(
-      src_local, dst_local, valid, w, w_bucket_stride, w_head_stride,
-      head_cols, src_tile, dst_ptr, num_dst_tiles, tile, cap, x, f, out,
-      num_dst, splits, stream);
+  return launch_spmm<G, false>(src_local, dst_local, valid, w, src_tile,
+                               dst_ptr, num_dst_tiles, tile, cap, x, f, out,
+                               num_dst, splits, stream);
 }
 
 template <int L>
@@ -311,42 +288,32 @@ cudaError_t launch_sddmm(const void* src_local, const void* dst_local,
 
 extern "C" {
 
-// K3 (multihead = 0) or K4 SpMM (multihead = 1): out (num_dst, f) from x
-// (num_src, f).  w is null for a plain sum; otherwise the weight of
-// column j at slot (b, c) is w[b * w_bucket_stride + (j / head_cols) *
-// w_head_stride + c].  group (8, 16 or 32) is G; with splits > 1, out must
-// be zeroed by the caller.  Grid: (num_dst_tiles, ceil(f / G), splits).
+// K3: out (num_dst, f) from x (num_src, f).  w is null for a plain sum;
+// otherwise the weight of slot s = b * cap + c is w[s].  group (8, 16 or
+// 32) is G; with splits > 1, out must be zeroed by the caller.  Grid:
+// (num_dst_tiles, ceil(f / G), splits).
 int dgl_tiled_spmm(const void* src_local, const void* dst_local,
-                   const void* valid, const void* w, int64_t w_bucket_stride,
-                   int64_t w_head_stride, int64_t head_cols,
-                   const void* src_tile, const void* dst_ptr,
-                   int64_t num_dst_tiles, int64_t tile, int64_t cap,
-                   const void* x, int64_t f, void* out, int64_t num_dst,
-                   int64_t group, int64_t splits, int64_t multihead,
+                   const void* valid, const void* w, const void* src_tile,
+                   const void* dst_ptr, int64_t num_dst_tiles, int64_t tile,
+                   int64_t cap, const void* x, int64_t f, void* out,
+                   int64_t num_dst, int64_t group, int64_t splits,
                    int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mh = multihead != 0;
+#define DGL_SPMM_CASE(G_)                                                   \
+  case G_:                                                                  \
+    return spmm_by_kind<G_>(src_local, dst_local, valid, w, src_tile,       \
+                            dst_ptr, num_dst_tiles, tile, cap, x, f, out,   \
+                            num_dst, splits, s);
   switch (group) {
-    case 8:
-      return spmm_by_kind<8>(src_local, dst_local, valid, w, w_bucket_stride,
-                             w_head_stride, head_cols, src_tile, dst_ptr,
-                             num_dst_tiles, tile, cap, x, f, out, num_dst,
-                             splits, mh, s);
-    case 16:
-      return spmm_by_kind<16>(src_local, dst_local, valid, w,
-                              w_bucket_stride, w_head_stride, head_cols,
-                              src_tile, dst_ptr, num_dst_tiles, tile, cap, x,
-                              f, out, num_dst, splits, mh, s);
-    case 32:
-      return spmm_by_kind<32>(src_local, dst_local, valid, w,
-                              w_bucket_stride, w_head_stride, head_cols,
-                              src_tile, dst_ptr, num_dst_tiles, tile, cap, x,
-                              f, out, num_dst, splits, mh, s);
+    DGL_SPMM_CASE(8)
+    DGL_SPMM_CASE(16)
+    DGL_SPMM_CASE(32)
     default:
       return cudaErrorInvalidValue;
   }
+#undef DGL_SPMM_CASE
 }
 
 // K4 SDDMM: out (num_buckets, heads, cap), every element written, from x

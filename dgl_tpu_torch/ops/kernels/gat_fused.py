@@ -24,8 +24,8 @@ DotGat (K8, ``dot_gat_forward`` :515) takes p = exp(clip(<k[src],
 q[dst]> / sqrt(D), +-40)) from K4's SDDMM and g = p; dq and dk are the
 dst- and src-side aggregations of ds / sqrt(D).
 
-Four kernels (``csrc/gat_fused.cu``), each with a plain PyTorch version
-beside it that computes the same function, slot chunk by slot chunk:
+Four kernels, each with a plain PyTorch version beside it that computes
+the same function, slot chunk by slot chunk:
 
 * :func:`gat_scores` (``_scores_kernel``, ``_scores_bias_kernel``): p, g;
 * :func:`slot_reduce` (``_den_kernel``, ``_der_kernel``, ``_del_kernel``):
@@ -33,14 +33,17 @@ beside it that computes the same function, slot chunk by slot chunk:
   groups of heads that fit a block's shared memory, one launch a group;
 * :func:`gat_ds` (``_ds_kernel``): ds;
 * :func:`src_aggregate` (``_dx_kernel``): out[src, h] = sum w[b, h, c]
-  z[dst, h] with (B, H, C) weights, for dx and K8's dk.
+  z[dst, h] with (B, H, C) weights, for dx and K8's dk: the row walk of
+  ``csrc/row_agg.cu`` by src (``tiled_spmm.row_aggregate``); the other
+  three are in ``csrc/gat_fused.cu``.
 
 The dst-side weighted aggregation ``_agg_kernel`` computes exactly
 ``tiled_spmm_multihead``'s function, so the forward's numerator and K8's
-dq go through K4's SpMM, and K8's scores through K4's SDDMM.  ``zn``,
-``rp`` and the clamp of ``den`` stay plain PyTorch, as the JAX package
-computes them outside its kernels.  The kernels take f32 and sum in f32,
-where the TPU kernels cast their operands to bf16.
+dq go through K4's SpMM (the same row walk by dst), and K8's scores
+through K4's SDDMM.  ``zn``, ``rp`` and the clamp of ``den`` stay plain
+PyTorch, as the JAX package computes them outside its kernels.  The
+kernels take f32 and sum in f32, where the TPU kernels cast their
+operands to bf16.
 
 GATv2 (K9, ``gatv2_forward`` :761) and EGATConv v2 (K11 v2,
 ``egatc2_forward`` :2053) score with a vector: for every valid slot, head
@@ -74,7 +77,7 @@ its message (out = sum p (x[src] + fe) / den).  fe is never formed: with M
 M, S . We, Zp and dWe are node-sized products outside the kernels.  Three
 edge variants of the K6 kernels serve it: :func:`edgegat_scores` (p, g),
 :func:`slot_feat_reduce` (S with w = p, and with w = ds for Q: the
-src-side aggregation's walk by dst tile over the H * Fe columns) and
+tiled walk of ``src_agg_kernel`` by dst tile over the H * Fe columns) and
 :func:`edgegat_ds` (ds and, when autograd asks for it, d(ef)); den, der,
 del, the node numerator and dx are K6's reduce, K4's SpMM and K6's dx.
 
@@ -133,8 +136,6 @@ _SIGNATURES = {
                         _I, _I, _I, _P],
     "dgl_gat_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                    _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
-    "dgl_src_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I,
-                    _P, _I, _I, _I, _I, _P],
     "dgl_slot_feat_reduce": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I,
                              _I, _I, _I, _P],
     "dgl_slot_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
@@ -596,36 +597,16 @@ gat_ds.launches = 0
 
 def src_aggregate(tf: ts.TiledFormat, z3, w_slot):
     """K6 src-side aggregation: (num_src, H, F) f32, out[s, h, :] = sum
-    over the valid slots with src s of w_slot[b, h, c] * z3[dst, h, :].
+    over the valid slots with src s of w_slot[b, h, c] * z3[dst, h, :], the
+    row walk by src on CUDA tensors (``tiled_spmm.row_aggregate``).
     ``z3`` (num_dst, H, F), ``w_slot`` (B, H, C)."""
     _require_src_first(tf)
     ts._check_operand(tf, z3, tf.num_dst, 3, "z3")
-    heads, fh = z3.shape[1], z3.shape[2]
+    heads = z3.shape[1]
     _check_slots(tf, w_slot, heads, "w_slot")
     if not on_cuda(z3, w_slot, tf.valid):
         return src_aggregate_plain(tf, z3, w_slot)
-    f = heads * fh
-    b = tf.num_buckets
-    ts._check_int32(b * heads * tf.cap, tf.num_src_tiles * tf.tile * f,
-                    tf.num_dst_tiles * tf.tile * f)
-    g = ts._group(f, tf.tile)
-    n_st = tf.num_src_tiles
-    n_chunks = -(-f // g)
-    splits = ts._splits(tf, n_st, n_chunks, ts._group_per_sm(g, tf.tile),
-                        z3.device)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc(tf.num_src, heads, fh, dtype=torch.float32, device=z3.device)
-    if n_st == 0 or f == 0:
-        return out.zero_()
-    z, w = _f32(z3), _f32(w_slot)
-    _launch("dgl_src_agg", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
-            tf.valid.data_ptr(), w.data_ptr(), heads, fh,
-            tf.dst_tile.data_ptr(), tf.src_order.data_ptr(),
-            tf.src_ptr.data_ptr(), n_st, tf.tile, tf.cap, z.data_ptr(), f,
-            out.data_ptr(), tf.num_src, g, splits, z.device.index,
-            ts._stream(z.device))
-    src_aggregate.launches += 1
-    return out
+    return ts.row_aggregate(tf, "src", z3, w_slot, src_aggregate)
 
 
 src_aggregate.launches = 0
@@ -691,8 +672,8 @@ def slot_feat_reduce(tf: ts.TiledFormat, w_slot, ef_slot):
     """K10 v2 slot-feature reduce: (num_dst, H, Fe) f32, out[v, h, :] = sum
     over the valid slots with dst v of w_slot[b, h, c] * ef_slot[b, c, :];
     ``w_slot`` (B, H, C), ``ef_slot`` (B, C, Fe).  The H * Fe columns are
-    walked in chunks that fit a block's shared memory, as the src-side
-    aggregation walks its columns."""
+    walked in chunks that fit a block's shared memory (``src_agg_kernel``'s
+    tiled walk)."""
     heads = w_slot.shape[1] if w_slot.ndim == 3 else -1
     _check_slots(tf, w_slot, heads, "w_slot")
     fe = _check_edge(tf, ef_slot)
@@ -990,7 +971,7 @@ def _check_stored(tf: ts.TiledFormat, t, width: int, what: str):
 
 def _slot_agg(tf: ts.TiledFormat, mode: int, t, heads: int, head_cols: int,
               w=None, z=None):
-    """Launch the src-side aggregation's walk in ``mode`` over the stored
+    """Launch ``src_agg_kernel``'s tiled walk in ``mode`` over the stored
     slot tensor ``t`` (B, C, heads * head_cols): (rows, heads * head_cols)
     f32, rows the src nodes (by src tile) or the dst nodes (by dst tile)."""
     src = mode in (_AGG_DX_DFE, _AGG_VEC_SRC)

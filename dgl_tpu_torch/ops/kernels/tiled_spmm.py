@@ -26,15 +26,28 @@ The JAX format's ``chunk_ranges`` is not carried: it splits the buckets
 across several ``pallas_call``s for the TPU's 1 MiB scalar-prefetch
 limit, and a CUDA grid takes every bucket in one launch.
 
-Three kernels (``csrc/tiled_spmm.cu``), each with a plain PyTorch version
-beside it that computes the same function:
+Three kernels, each with a plain PyTorch version beside it that computes
+the same function:
 
-* :func:`tiled_spmm` (K3, ``_spmm_one_call``): out[d] = sum w_e x[src_e];
-* :func:`tiled_spmm_multihead` (K4): out[d, h, :] = sum w[e, h]
-  x[src_e, h, :] with (B, H, C) slot weights;
-* :func:`tiled_sddmm_dot_multihead` (K4): e[b, h, c] =
-  <x[src, h, :], z[dst, h, :]> for every slot, 0 at padded slots (the
-  TPU kernel leaves whatever its one-hot products give there).
+* :func:`tiled_spmm` (K3, ``_spmm_one_call``; ``csrc/tiled_spmm.cu``):
+  out[d] = sum w_e x[src_e];
+* :func:`tiled_spmm_multihead` (K4; ``csrc/row_agg.cu``): out[d, h, :] =
+  sum w[e, h] x[src_e, h, :] with (B, H, C) slot weights, a walk of the
+  format's row view by dst (below), which ``gat_fused.src_aggregate``
+  takes by src;
+* :func:`tiled_sddmm_dot_multihead` (K4; ``csrc/tiled_spmm.cu``):
+  e[b, h, c] = <x[src, h, :], z[dst, h, :]> for every slot, 0 at padded
+  slots (the TPU kernel leaves whatever its one-hot products give there).
+
+The row view (:class:`RowView`, ``TiledFormat.row_view``) lists the valid
+slots of one side's rows: per row, ascending slot id, the flat slot and
+the global id of the node at the other end, with each row's range and the
+order in which the walk claims the rows (hubs first, then by id).  It is
+built on the format's device at first use and cached: 8 B an edge and 8 B
+a row a side (about 0.92 GB a side at Reddit's 115M edges).  Carrying the
+neighbour's id doubles it but saves the row walk a dependent 4-byte read
+of ``src_local`` or ``dst_local`` at a random slot, which costs a 32-byte
+sector.
 
 The kernels take f32 and sum in f32, where the TPU kernels take bf16
 operands.  A wrapper launches its kernel on CUDA tensors and raises if the
@@ -62,6 +75,30 @@ _INT32_MAX = 2**31 - 1
 
 
 @dataclasses.dataclass
+class RowView:
+    """The valid slots of a TiledFormat grouped by the rows of one side
+    (dst or src), all int32 on the format's device: row r owns entries
+    [ptr[r], ptr[r + 1]) of ``slot`` (the flat slot b * cap + c,
+    ascending within a row) and ``nbr`` (the global id of the node at the
+    slot's other end); ``order`` is the order in which the row walk claims
+    the rows: the hub rows by degree, largest first, then the rest by id
+    (``_build_row_view``)."""
+    ptr: torch.Tensor      # (rows + 1,)
+    slot: torch.Tensor     # (E,)
+    nbr: torch.Tensor      # (E,)
+    order: torch.Tensor    # (rows,)
+
+    @property
+    def rows(self) -> int:
+        return self.order.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.ptr, self.slot, self.nbr, self.order))
+
+
+@dataclasses.dataclass
 class TiledFormat:
     """Tile-bucketed edge format; every tensor lies on one device."""
     src_local: torch.Tensor    # (B, C//128, 128) int32
@@ -86,6 +123,9 @@ class TiledFormat:
     src_ptr: Optional[torch.Tensor] = None
     # (num_edges,) int32 slot of each canonical edge, built at first use
     _edge_slot: Optional[torch.Tensor] = None
+    # the row views by dst and by src, each built at first use
+    _rows_dst: Optional[RowView] = None
+    _rows_src: Optional[RowView] = None
 
     def with_src_first(self) -> "TiledFormat":
         """This format with ``src_order`` and ``src_ptr``, computed on its
@@ -139,6 +179,51 @@ class TiledFormat:
             inv[self.eid[slots].long()] = slots.to(torch.int32)
             self._edge_slot = inv
         return self._edge_slot
+
+    def row_view(self, side: str = "dst") -> RowView:
+        """The :class:`RowView` of ``side`` ("dst" or "src"), built on the
+        format's device at first use and cached."""
+        if side not in ("dst", "src"):
+            raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
+        name = f"_rows_{side}"
+        if getattr(self, name) is None:
+            setattr(self, name, _build_row_view(self, side))
+        return getattr(self, name)
+
+
+HUB_DEGREE = 4   # rows above this many times the mean degree go first
+
+
+def _build_row_view(tf: TiledFormat, side: str,
+                    hub_degree: float = HUB_DEGREE) -> RowView:
+    """The row view of ``side``: a stable sort of the valid slots (in slot
+    order) by their row's global id.  The claim order lists the hub rows,
+    of more than ``hub_degree`` times the mean degree, by degree, largest
+    first, so that none starts late and holds up the end of a launch; then
+    the other rows by id, so that the rows walked at once share buckets
+    (and their weights' sectors) and neighbours in L2.  ``hub_degree`` 0
+    claims every row with a slot by degree, ``inf`` every row by id."""
+    flat = torch.nonzero(tf.valid.reshape(-1) > 0).reshape(-1).to(
+        torch.int32)
+    b = flat.div(tf.cap, rounding_mode="floor")
+    src = (tf.src_tile[b] * tf.tile
+           + tf.src_local.reshape(-1)[flat]).to(torch.int32)
+    dst = (tf.dst_tile[b] * tf.tile
+           + tf.dst_local.reshape(-1)[flat]).to(torch.int32)
+    del b
+    row, nbr, n = ((dst, src, tf.num_dst) if side == "dst"
+                   else (src, dst, tf.num_src))
+    row, perm = torch.sort(row, stable=True)
+    counts = torch.bincount(row, minlength=n)
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=flat.device)
+    ptr[1:] = torch.cumsum(counts, 0)
+    hub = counts * n > hub_degree * row.shape[0]
+    hubs = torch.nonzero(hub).reshape(-1)
+    hubs = hubs[torch.sort(counts[hubs], descending=True, stable=True)
+                .indices]
+    order = torch.cat([hubs, torch.nonzero(~hub).reshape(-1)])
+    return RowView(ptr=ptr.to(torch.int32), slot=flat[perm],
+                   nbr=nbr[perm], order=order.to(torch.int32))
 
 
 def _tile_ptr(tiles: torch.Tensor, n_tiles: int) -> torch.Tensor:
@@ -395,18 +480,22 @@ def tiled_sddmm_dot_multihead_plain(tf: TiledFormat, x3: torch.Tensor,
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    "dgl_tiled_spmm": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P,
-                       _I, _P, _I, _I, _I, _I, _I, _P],
-    "dgl_tiled_sddmm_mh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-                           _P, _I, _I, _I, _P],
+    "tiled_spmm": {
+        "dgl_tiled_spmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+                           _I, _I, _I, _I, _P],
+        "dgl_tiled_sddmm_mh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
+                               _I, _P, _I, _I, _I, _P]},
+    "row_agg": {
+        "dgl_row_agg": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                        _I, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 _SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
 _SPMM_WARPS = 16            # csrc/tiled_spmm.cu kSpmmWarps
 _SDDMM_WARPS = 8            # csrc/tiled_spmm.cu kSddmmWarps
 
 
-def _launch(fn: str, *args):
-    lib = build.load("tiled_spmm", _SIGNATURES)
+def _launch(fn: str, *args, source: str = "tiled_spmm"):
+    lib = build.load(source, _SIGNATURES[source])
     err = getattr(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
@@ -466,15 +555,13 @@ def _group_per_sm(g: int, tile: int) -> int:
     return max(1, min(2 if g <= 16 else 1, _SMEM_PER_BLOCK // (tile * g * 4)))
 
 
-def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w, w_bucket_stride: int,
-                 w_head_stride: int, head_cols: int, wrapper):
-    """out (num_dst, F) f32 from one launch of csrc ``tiled_spmm_kernel``
-    over x viewed as (num_src, F); counts the launch on ``wrapper``."""
+def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w):
+    """K3's out (num_dst, F) f32 from one launch of csrc
+    ``tiled_spmm_kernel`` over x (num_src, F), weighted by the slot weights
+    ``w`` (None for a plain sum)."""
     f = x.shape[1]
-    b = tf.num_buckets
-    _check_int32(b * tf.cap, tf.num_src_tiles * tf.tile * f,
-                 tf.num_dst_tiles * tf.tile * f,
-                 b * max(w_bucket_stride, tf.cap))
+    _check_int32(tf.num_buckets * tf.cap, tf.num_src_tiles * tf.tile * f,
+                 tf.num_dst_tiles * tf.tile * f)
     g = _group(f, tf.tile)
     n_dt = tf.num_dst_tiles
     n_chunks = -(-f // g)
@@ -485,12 +572,97 @@ def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w, w_bucket_stride: int,
         return out
     _launch("dgl_tiled_spmm", tf.src_local.data_ptr(),
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            0 if w is None else w.data_ptr(), w_bucket_stride,
-            w_head_stride, head_cols, tf.src_tile.data_ptr(),
+            0 if w is None else w.data_ptr(), tf.src_tile.data_ptr(),
             tf.dst_ptr.data_ptr(), n_dt, tf.tile, tf.cap, x.data_ptr(), f,
-            out.data_ptr(), tf.num_dst, g, splits,
-            int(wrapper is tiled_spmm_multihead), x.device.index,
+            out.data_ptr(), tf.num_dst, g, splits, x.device.index,
             _stream(x.device))
+    tiled_spmm.launches += 1
+    return out
+
+
+def _row_layout(f: int, head_cols: int, y: torch.Tensor):
+    """(vec, cpl, lpr, n_chunks) of the row walk over F = ``f`` columns of
+    ``head_cols`` a head: floats a load (4 where a head's width and y's
+    address allow 16-byte loads, else 2 or 1), vectors a lane, lanes a row
+    (the F / vec vectors rounded up to a power of two, at most 32) and
+    the column chunks, each walking the row once (one up to 32 * 8
+    vectors)."""
+    vec = 4
+    while vec > 1 and (head_cols % vec or y.data_ptr() % (4 * vec)):
+        vec //= 2
+    nv = f // vec
+    lpr = 1
+    while lpr < min(nv, 32):
+        lpr *= 2
+    cpl = 1
+    while cpl < 8 and lpr * cpl < nv:
+        cpl *= 2
+    return vec, cpl, lpr, -(-nv // (lpr * cpl))
+
+
+def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
+             out: torch.Tensor, fn=None):
+    """One launch of csrc ``row_agg_kernel`` over the rows of
+    ``view.order``: out[r, h] = sum over row r's entries k of w[b, h, c] *
+    y[nbr[k], h], slot[k] = b * cap + c, in slot order, 0 at a row with no
+    entry.  CUDA tensors, f32: ``y`` (neighbours, H, D) contiguous, ``w``
+    (B, H, cap) in any strides, read in place; ``out`` (rows, H, D)
+    contiguous.  ``fn``: the C function to launch, by default
+    ``dgl_row_agg`` of ``csrc/row_agg.cu``.  Counts nothing."""
+    heads, hc = y.shape[1], y.shape[2]
+    f = heads * hc
+    _check_int32(y.numel(), out.numel(),
+                 sum((n - 1) * st for n, st in zip(w.shape, w.stride())))
+    vec, cpl, lpr, n_chunks = _row_layout(f, hc, y)
+    # the claim counter passes rows * n_chunks by at most a lane an SM
+    _check_int32(view.rows * n_chunks + 2048 * _sms(y.device))
+    counter = torch.zeros(1, dtype=torch.int32, device=y.device)
+    args = (view.ptr.data_ptr(), view.slot.data_ptr(), view.nbr.data_ptr(),
+            view.order.data_ptr(), view.rows, w.data_ptr(), cap,
+            *w.stride(), heads, hc, y.data_ptr(), f, out.data_ptr(),
+            counter.data_ptr(), vec, cpl, lpr, n_chunks, y.device.index,
+            _stream(y.device))
+    if fn is None:
+        _launch("dgl_row_agg", *args, source="row_agg")
+    elif fn(*args) != 0:
+        raise RuntimeError("dgl_row_agg failed to launch")
+
+
+def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
+                  w_slot: torch.Tensor, wrapper) -> torch.Tensor:
+    """:func:`row_walk` over every row of ``side`` (dst: the dst nodes,
+    neighbours the srcs; src: the reverse) on CUDA tensors: (rows, H, D)
+    f32, out[r, h] = sum over the valid slots of row r of w_slot[b, h, c]
+    * y3[nbr, h].  ``y3`` (neighbours, H, D), ``w_slot`` (B, H, C); counts
+    the launch on ``wrapper``.
+
+    A head width that is not a multiple of 4 is padded to one (y copied
+    into zeroed rows, out sliced), so that the walk takes 16-byte loads,
+    where the pad adds at most an eighth to the row: at (1, 41) the
+    scalar loads of 164-byte rows held the walk back
+    (``dgl_tpu_torch/tools/perf_row_walk.py``)."""
+    heads, hc = y3.shape[1], y3.shape[2]
+    rows = tf.num_dst if side == "dst" else tf.num_src
+    out = torch.empty(rows, heads, hc, dtype=torch.float32,
+                      device=y3.device)
+    if heads * hc == 0 or rows == 0:
+        return out.zero_()
+    # slot-major weights (a copy unless already so laid out): a slot's H
+    # weights then share a sector; read in the (B, H, C) layout they lie
+    # in H sectors, and at H > 1 the walk took longer than the copy and the
+    # walk on it together (dgl_tpu_torch/tools/perf_row_walk.py)
+    w = w_slot.float().transpose(1, 2).contiguous().transpose(1, 2)
+    hp = -(-hc // 4) * 4
+    if hp == hc or (hp - hc) * 8 > hc:
+        row_walk(tf.row_view(side), tf.cap, y3.float().contiguous(), w, out)
+    else:
+        y = torch.zeros(y3.shape[0], heads, hp, dtype=torch.float32,
+                        device=y3.device)
+        y[..., :hc] = y3
+        wide = torch.empty(rows, heads, hp, dtype=torch.float32,
+                           device=y3.device)
+        row_walk(tf.row_view(side), tf.cap, y, w, wide)
+        out.copy_(wide[..., :hc])
     wrapper.launches += 1
     return out
 
@@ -513,7 +685,7 @@ def tiled_spmm(tf: TiledFormat, x: torch.Tensor, edge_weights=None,
         return tiled_spmm_plain(tf, x, w)
     x = x.float().contiguous()
     w = None if w is None else w.float().contiguous()
-    return _spmm_launch(tf, x, w, tf.cap, 0, 1, tiled_spmm)
+    return _spmm_launch(tf, x, w)
 
 
 tiled_spmm.launches = 0
@@ -521,7 +693,8 @@ tiled_spmm.launches = 0
 
 def tiled_spmm_multihead(tf: TiledFormat, x3: torch.Tensor,
                          w_slot: torch.Tensor, H: int, Fh: int):
-    """K4 SpMM: out[d, h, f] = sum_e w[e, h] x3[src_e, h, f].
+    """K4 SpMM: out[d, h, f] = sum_e w[e, h] x3[src_e, h, f], the row walk
+    by dst on CUDA tensors (:func:`row_aggregate`).
 
     ``x3``: (num_src, H, Fh); ``w_slot``: (B, H, C) per-slot weights.
     Returns (num_dst, H, Fh) f32."""
@@ -533,11 +706,7 @@ def tiled_spmm_multihead(tf: TiledFormat, x3: torch.Tensor,
                          f"Fh={Fh} and the format")
     if not on_cuda(x3, w_slot, tf.valid):
         return tiled_spmm_multihead_plain(tf, x3, w_slot)
-    x = x3.float().contiguous().view(tf.num_src, H * Fh)
-    w = w_slot.float().contiguous()
-    out = _spmm_launch(tf, x, w, H * tf.cap, tf.cap, Fh,
-                       tiled_spmm_multihead)
-    return out.view(tf.num_dst, H, Fh)
+    return row_aggregate(tf, "dst", x3, w_slot, tiled_spmm_multihead)
 
 
 tiled_spmm_multihead.launches = 0

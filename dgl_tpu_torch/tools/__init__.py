@@ -2,7 +2,8 @@
 (:mod:`.perf_bitmm_variants`) and the probe of K5's src-major forward at
 full bit density (:mod:`.perf_bitgat_probe`), the counterparts of the JAX
 package's ``tools/perf_bitmm_variants.py`` and
-``tools/perf_bitgat_probe.py``.  Each runs as ``python -m
+``tools/perf_bitgat_probe.py``; and the probe of the row walk's design
+choices on the Reddit-statistics graph (:mod:`.perf_row_walk`).  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
 import statistics
 

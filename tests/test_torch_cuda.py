@@ -6,8 +6,10 @@ PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
-atomics (K5's, for the gradient of er, and K3's, K4's and K6's
-shared-memory adds) add in an order that changes from run to run."""
+atomics (K5's, for the gradient of er, and K3's and K6's reduce's
+shared-memory adds) add in an order that changes from run to run.  The
+row walk (K4's SpMM, K6's dx) sums each row in slot order; its checks
+take dyadic inputs and ask for equality."""
 import math
 
 import numpy as np
@@ -263,6 +265,108 @@ def test_tiled_spmm_kernel_matches_plain(card, f, weights):
     if weights == "edge":
         want = (x.detach()[row] * dz[col]).sum(-1)
         torch.testing.assert_close(ew.grad, want, rtol=RTOL, atol=ATOL)
+
+
+ROW_WALK_SHAPES = [(4, 32), (1, 41), (8, 8), (2, 64)]
+
+
+def _row_walk_case(card, heads, fh, seed):
+    """A format with a dst hub and a src hub of degree 12,000, rows with no
+    slot on both sides and a dst tile with no bucket; x (or z) and w on
+    dyadic grids, on which every f32 sum is exact in any order (degree
+    12,000 times 1 at a step of 2^-8 stays under 2^24)."""
+    row, col, n_src, n_dst = _coo()
+    # dst tile 8 and src rows 4,000-4,049 have no edge
+    keep = ((col < 2048) | (col >= 2304)) & ((row < 4000) | (row >= 4050))
+    row = np.r_[row[keep], np.full(12_000, 17), np.arange(12_000) % 4000]
+    col = np.r_[col[keep], np.arange(12_000) % 2048, np.full(12_000, 5)]
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst, 256, 128,
+                                        device=card).with_src_first()
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def grid(*shape, low):
+        return torch.randint(low, 17, shape, device=card,
+                             generator=gen).float() / 16
+
+    y = {"dst": grid(n_src, heads, fh, low=-16),
+         "src": grid(n_dst, heads, fh, low=-16)}
+    w = edgeflat._w_slot_from_flat(fwd, grid(len(row) * heads, low=0), heads)
+    return fwd, y, w
+
+
+@pytest.mark.parametrize("heads,fh", ROW_WALK_SHAPES)
+def test_row_walk_matches_plain(card, heads, fh):
+    """The row walk (K4's SpMM by dst, K6's dx by src) equals the plain
+    versions exactly, hub rows, rows with no slot and the dst tile with no
+    bucket included."""
+    fwd, y, w = _row_walk_case(card, heads, fh, heads * 100 + fh)
+    for side in ("dst", "src"):
+        v = fwd.row_view(side)
+        deg = (v.ptr[1:] - v.ptr[:-1])
+        assert int(deg.max()) >= 12_000 and int(deg.min()) == 0
+    before = (tts.tiled_spmm_multihead.launches, tgf.src_aggregate.launches)
+    num = tts.tiled_spmm_multihead(fwd, y["dst"], w, heads, fh)
+    dx = tgf.src_aggregate(fwd, y["src"], w)
+    torch.cuda.synchronize()
+    assert (tts.tiled_spmm_multihead.launches,
+            tgf.src_aggregate.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(num, tts.tiled_spmm_multihead_plain(fwd, y["dst"], w))
+    assert torch.equal(dx, tgf.src_aggregate_plain(fwd, y["src"], w))
+    assert (num[2048:2304] == 0).all()
+
+
+def test_row_walk_is_deterministic(card):
+    """No row is split, so two launches on inputs off any grid give the
+    same bits at every row."""
+    fwd, _, w = _row_walk_case(card, 4, 32, 1)
+    gen = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(fwd.num_src, 4, 32, device=card, generator=gen)
+    z = torch.randn(fwd.num_dst, 4, 32, device=card, generator=gen)
+    w = w * torch.rand(w.shape, device=card, generator=gen)
+    runs = [(tts.tiled_spmm_multihead(fwd, x, w, 4, 32),
+             tgf.src_aggregate(fwd, z, w)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("heads,fh", ROW_WALK_SHAPES)
+def test_row_walk_reads_weights_through_strides(card, heads, fh):
+    """The kernel reads the (B, H, C) weights through their strides: in
+    place, as a (B, H, C) view of slot-major memory (what the wrappers
+    hand it) and as a view of a wider tensor, it gives the plain
+    version's bits."""
+    fwd, y, w = _row_walk_case(card, heads, fh, heads * 100 + fh + 7)
+    slot_major = torch.empty(w.shape[0], w.shape[2], w.shape[1],
+                             device=card).transpose(1, 2)
+    slot_major.copy_(w)
+    wide = torch.zeros(w.shape[0], w.shape[1] + 1, w.shape[2] * 2,
+                       device=card)[:, 1:, ::2]
+    wide.copy_(w)
+    assert len({w.stride(), slot_major.stride(), wide.stride()}) == 3
+    want = {"dst": tts.tiled_spmm_multihead_plain(fwd, y["dst"], w),
+            "src": tgf.src_aggregate_plain(fwd, y["src"], w)}
+    for side in ("dst", "src"):
+        for wv in (w, slot_major, wide):
+            out = torch.empty_like(want[side])
+            tts.row_walk(fwd.row_view(side), fwd.cap, y[side], wv, out)
+            assert torch.equal(out, want[side])
+
+
+def test_row_walk_wrappers_never_take_plain_on_cuda(card, monkeypatch):
+    """On CUDA tensors K4's SpMM and the src-side aggregation launch the
+    row walk: a plain version that is reached raises."""
+    fwd, y, w = _row_walk_case(card, 1, 41, 3)
+    for module, name in ((tts, "tiled_spmm_multihead_plain"),
+                         (tgf, "src_aggregate_plain")):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(module, name, refuse)
+    before = (tts.tiled_spmm_multihead.launches, tgf.src_aggregate.launches)
+    tts.tiled_spmm_multihead(fwd, y["dst"], w, 1, 41)
+    tgf.src_aggregate(fwd, y["src"], w)
+    torch.cuda.synchronize()
+    assert (tts.tiled_spmm_multihead.launches,
+            tgf.src_aggregate.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("heads,fh", [(4, 32), (1, 41), (8, 16), (3, 5)])

@@ -13,10 +13,14 @@ package's on the CPU, and ``chip_smoke.py``'s search for the package.
   keeps each plane scaled by its bit's value (the scale "folded outside",
   undone here), x is f32 on both sides, rtol 1e-5 / atol 1e-4.
 
+* ``perf_row_walk``'s tiny check (the claim orders it compares and the
+  edits of its source variants), which has no JAX counterpart.
+
 No file of the JAX package's ``tools/`` changes: the tests load them by
 path and patch their module globals.
 """
 import importlib.util
+import math
 import os
 import shutil
 import subprocess
@@ -29,6 +33,7 @@ import pytest
 
 from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
 from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
+from dgl_tpu_torch.tools import perf_row_walk as trw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -137,3 +142,15 @@ def test_chip_smoke_finds_the_package_from_a_copy(tmp_path, monkeypatch):
         assert res.returncode != 0
         assert "no dgl_tpu_torch/__init__.py" in res.stderr or \
             "no CUDA device" in res.stderr
+
+
+def test_row_walk_probe_tiny():
+    """The row-walk probe's CPU check: the claim orders it compares (the
+    hub row first by degree, row 0 first by id) and its source variants'
+    edits, each found once in ``csrc/row_agg.cu``."""
+    firsts = trw.tiny_check()
+    assert firsts[0][0] == 7 and firsts[math.inf] == [0, 1]
+    with open(trw.build.sources()["row_agg"]) as f:
+        source = f.read()
+    for name in trw.VARIANTS:
+        assert trw.variant_source(name) != source

@@ -8,7 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
    once) and prints the build seconds and ptxas' resource report;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
-   reach bit plane 31), forward and backward of ``bit_spmm``;
+   reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
+   41, 96 (K1) and 97, 128, 160, 256 (K2);
 4. the slice at full width and size: 2-layer GCN 602 -> 16 -> 41 (norm
    ``both``) trained for 10 Adam steps on the Reddit-statistics graph
    (232,965 nodes, 114.6M edges plus self-loops) in the bitmask format,
@@ -20,7 +21,7 @@ Phases, each of which raises on failure (nothing is caught):
 6. ``GraphConv(128, 128)`` forward and backward at full size (K2);
 7. yardsticks at full size: each kernel's time (median of 5), its plain
    version's, one ``torch.sparse.mm`` on a CSR copy of A, and the bound;
-   then both kernels at F = 16, 32 and at the K1/K2 gate, F = 96;
+   then both kernels at F = 16, 32, 64 and at the K1/K2 gate, F = 96;
 8. the GAT slice at mid size: K5 forward and backward
    (``bitgat_attention_aggregate``) against their plain versions on the
    phase-3 graph made simple, at (H, D) = (4, 32), (1, 41) and (8, 16),
@@ -37,14 +38,18 @@ Phases, each of which raises on failure (nothing is caught):
    SDDMM ((H, Fh) = (4, 32), (1, 41), (8, 16)) against their plain
    versions on the phase-3 multigraph in the tiled format, built on the
    card and equal to the host builder's; then K4's SpMM (the row walk by
-   dst) equal to its plain version on dyadic inputs at (4, 32), (1, 41),
-   (8, 8) and (2, 64) on that graph with a dst hub and a src hub of
-   degree 12,000 added, a dst tile with no bucket and rows with no slot;
+   dst) and SDDMM (the dot-product walk by dst) equal to their plain
+   versions on dyadic inputs at (4, 32), (1, 41), (8, 8) and (2, 64) on
+   that graph with a dst hub and a src hub of degree 12,000 added, a dst
+   tile with no bucket and rows with no slot, the SDDMM 0 at every padded
+   slot, and the SDDMM also at (8, 256), (3, 300) and (1, 2048), rows
+   wider than one launch of its walk holds;
 12. the tiled format at full size: a second graph over the phase-4 COO,
    whose format ``auto_format`` picks by the JAX package's rules (it must
    be the tiled one), forward and reverse built on the card (no bitmask),
    and the row walk's views (the forward's by dst and by src, the
-   reverse's by dst), their build time and bytes;
+   reverse's by dst) and the forward dst view's slot -> entry map (K4's
+   SDDMM), their build time and bytes;
 13. route 1: the phase-4 GCN for 10 Adam steps on the tiled format (K3),
    a profiled step, and one step against the gather path;
 14. route 3: the same GCN with ``norm="none"`` and edge weights from
@@ -58,8 +63,9 @@ Phases, each of which raises on failure (nothing is caught):
    version and against one PyTorch call computing the same function
    (``torch.sparse.mm`` on a CSR copy, block-diagonal over the heads for
    K4's SpMM; a batched ``torch.sparse.sampled_addmm`` for K4's SDDMM),
-   the three times (median of 5) and the bound; for K4's SpMM (the row
-   walk) also the rate of its gathers;
+   the three times (median of 5) and the bound (for the SDDMM also the
+   bucket walk's, in brackets); for both walks of K4 also the rate of
+   their gathers;
 17. the slot-space slice at mid size: each K6 kernel (scores with and
    without a per-slot bias, the slot reduce on both sides, ds, the
    src-side aggregation) against its plain version on the phase-3
@@ -210,16 +216,25 @@ Phases, each of which raises on failure (nothing is caught):
 42. the probe of ``bitgat_fwd_t`` at full bit density
    (``dgl_tpu_torch/tools/perf_bitgat_probe.py``, P2): s_pad = k_pad =
    110,592, H = 4, D = 32, random bits, one warm-up and two timed
-   launches, and the block of 1,024 src rows against the plain version.
+   launches, and the block of 1,024 src rows against the plain version;
+43. the probe of K4's SDDMM walk (``dgl_tpu_torch/tools/
+   perf_sddmm_walk.py``) on the phase-12 format at (4, 32) and (1, 41):
+   the write layouts (an entry-major scratch gathered through the view's
+   slot -> entry map, the wrapper's; a slot-major scratch and a transpose;
+   direct stores and a zero pass, these two walks edits of the wrapper's
+   source; the bucket-order walk with 16-byte loads), the zeroing (a
+   memset first against the pass), each pass and walk alone, the hub rows
+   alone against the rest, and four edits of the walk's source, every
+   output held bit for bit to the wrapper's.
 
 Phases 28-30 run after phases 25 and 10, phase 31 after phase 28, phases
 32-33 after phase 24, with the bitmask freed, phases 34-36 after phase
 33, with the hybrid block freed, phase 37 after phase 25, phases 38-40
-after phase 27 and phases 41-42 last, with the EGAT graph freed; each
-phase prints its seconds.  Prints the card line and a ``{"kernels":
-[...]}`` line before the last; the last line is ``{"ok": true, "device":
-{...}}``.  The script finds ``dgl_tpu_torch`` from its own directory or
-the working directory (``package_root``).
+after phase 27, phase 43 after phase 16 and phases 41-42 last, with the
+EGAT graph freed; each phase prints its seconds.  Prints the card line
+and a ``{"kernels": [...]}`` line before the last; the last line is
+``{"ok": true, "device": {...}}``.  The script finds ``dgl_tpu_torch``
+from its own directory or the working directory (``package_root``).
 
 Usage: python3 chip_smoke.py
 """
@@ -369,7 +384,7 @@ def phase_kernels_mid(bm):
     if bf.rem_src.numel() == 0:
         raise AssertionError("mid-size graph has no remainder")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for f in (16, 41, 96, 97, 128):
+    for f in (16, 41, 96, 97, 128, 160, 256):
         x = torch.randn(n_src, f, device="cuda", generator=gen,
                         requires_grad=True)
         dz = torch.randn(n_dst, f, device="cuda", generator=gen)
@@ -481,9 +496,11 @@ def phase_train(dgt, bm, g, x, y, train):
 
 
 # each wrapper's launch counter and the CUDA kernel it launches, once a
-# call (K4's SpMM and the src-side aggregation share the row walk, K13 and
-# K5's backward another kernel: the counts of wrappers that share one are
-# held together)
+# call, or the kernels it launches, each once a call (K4's SDDMM: the walk
+# and its finishing pass, at the main path's widths, which one launch of
+# the walk holds); K4's SpMM and the src-side aggregation share the row
+# walk, K13 and K5's backward another kernel: the counts of wrappers that
+# share one are held together
 TRACED_KERNELS = {
     "bit_matmul_t": "bit_matmul_t_kernel",
     "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_kernel",
@@ -492,7 +509,7 @@ TRACED_KERNELS = {
     "vattn_scores": "vattn_scores_kernel",
     "vattn_slot_grad": "vattn_slot_grad_kernel",
     "vattn_node_grad": "vattn_node_grad_kernel",
-    "k4_spmm": "row_agg_kernel", "k4_sddmm": "tiled_sddmm_mh_kernel",
+    "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
     "int8_matmul_rows": "int8_rows_kernel",
@@ -547,8 +564,10 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
     traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
               if name in after}
     launched = {}
-    for name, kernel in traced.items():
-        launched[kernel] = launched.get(kernel, 0) + after[name] - before[name]
+    for name, kernels in traced.items():
+        for kernel in (kernels,) if isinstance(kernels, str) else kernels:
+            launched[kernel] = (launched.get(kernel, 0) + after[name]
+                                - before[name])
     seen = {kernel: sum(e.count for e in rows
                         if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key)
             for kernel in launched}
@@ -569,8 +588,7 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
         order = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA
-                       and any(f"::{k}" in e.name
-                               for k in traced.values()))
+                       and any(f"::{k}" in e.name for k in launched))
         log("# profiled step: the trace misses launches; its counted kernels "
             "in order: " + "; ".join(
             f"{n[n.find('::') + 2:][:50]} {d:.0f}us" for _, n, d in order))
@@ -654,10 +672,10 @@ def yardstick(g, bm, name, kernel, plain, packed, f, rate):
 
 
 def gate_times(bm, bits):
-    """Both kernels at F = 16, 32 and at the gate F = T_MAX_F on the same
-    inputs: the route switches from K1 to K2 above T_MAX_F."""
+    """Both kernels at F = 16, 32, 64 and at the gate F = T_MAX_F on the
+    same inputs: the route switches from K1 to K2 above T_MAX_F."""
     gen = torch.Generator(device="cuda").manual_seed(96)
-    for f in (HIDDEN, 32, bm.T_MAX_F):
+    for f in (HIDDEN, 32, 64, bm.T_MAX_F):
         x = torch.randn(N_NODES, f, device="cuda", generator=gen)
         k1 = cuda_ms(lambda: bm.bit_matmul_t(bits.packed_rev, x, N_NODES))
         k2 = cuda_ms(lambda: bm.bit_matmul(bits.packed, x, N_NODES))
@@ -978,8 +996,47 @@ def row_walk_mid(tts, tgf, ef, side):
                 f"{float((got - want).abs().max()):.3g}, not 0")
         if side == "dst" and not (got[3072:4096] == 0).all():
             raise AssertionError("row walk mid: dst tile 3 is not 0")
+        msg = ""
+        if side == "dst":
+            # K4's SDDMM walks the same view: dots of grid values are exact
+            sddmm_walk_mid(tts, fwd, y, gen, heads, fh)
+            msg = "; K4's SDDMM walk equal too, 0 at every padded slot"
         log(f"# row walk mid by {side} H={heads} Fh={fh}: equal to the "
-            f"plain version (degrees 0..{int(deg.max())})")
+            f"plain version (degrees 0..{int(deg.max())}){msg}")
+    if side == "dst":
+        for heads, fh in SDDMM_WIDE_SHAPES:
+            y = grid(gen, n_nbr, heads, fh, step=1 / 16, top=1)
+            launches = sddmm_walk_mid(tts, fwd, y, gen, heads, fh)
+            log(f"# K4's SDDMM walk mid H={heads} Fh={fh}: {launches} "
+                "launches of the walk, equal to the plain version, 0 at "
+                "every padded slot")
+
+
+# rows wider than one launch of the SDDMM walk holds (1,024 columns): two
+# groups of 4 heads, groups of 2 and 1 heads, two column chunks of a head
+SDDMM_WIDE_SHAPES = ((8, 256), (3, 300), (1, 2048))
+
+
+def sddmm_walk_mid(tts, fwd, x, gen, heads, fh):
+    """K4's SDDMM on ``fwd`` against its plain version, x (num_src, H, Fh)
+    and a z drawn here on the dyadic grid (every dot exact): equal, one
+    launch counted, 0 at every padded slot.  Returns the walk's launches
+    (``tts._sddmm_plan``)."""
+    z = grid(gen, fwd.num_dst, heads, fh, step=1 / 16, top=1)
+    before = tts.tiled_sddmm_dot_multihead.launches
+    e_got = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+    e_want = tts.tiled_sddmm_dot_multihead_plain(fwd, x, z)
+    torch.cuda.synchronize()
+    if tts.tiled_sddmm_dot_multihead.launches != before + 1:
+        raise AssertionError("SDDMM walk mid: not 1 launch")
+    if not torch.equal(e_got, e_want):
+        raise AssertionError(
+            f"SDDMM walk mid H={heads} Fh={fh}: max|err| "
+            f"{float((e_got - e_want).abs().max()):.3g}, not 0")
+    pad = fwd.valid.reshape(fwd.num_buckets, 1, fwd.cap) == 0
+    if not (e_got.masked_select(pad) == 0).all():
+        raise AssertionError("SDDMM walk mid: a padded slot is not 0")
+    return len(tts._sddmm_plan(heads, -(-fh // 4))[0])
 
 
 def tiled_graph(dgt, g):
@@ -1020,6 +1077,13 @@ def tiled_graph(dgt, g):
     log(f"# row views built on the card in {time.perf_counter() - t0:.3f}s: "
         + ", ".join(f"{v.nbytes}" for v in views) + " bytes (forward by "
         "dst and by src, reverse by dst)")
+    # K4's SDDMM gathers its output through the forward dst view's slot ->
+    # entry map
+    t0 = time.perf_counter()
+    entries = views[0].entries(slots)
+    torch.cuda.synchronize()
+    log(f"# the forward dst view's slot -> entry map built on the card in "
+        f"{time.perf_counter() - t0:.3f}s: {entries.numel() * 4} bytes")
     return gt
 
 
@@ -1151,14 +1215,18 @@ def bound(nbytes, ops, rate, peak=F32_PEAK):
                                    else "operations")
 
 
-def log_gathers(name, e, f, ms, rate):
+def log_gathers(name, e, f, ms, rate, padded=None):
     """Log the rate at which the row walk ``name`` gathered its e rows of
     f f32 columns in ``ms``: above the memory rate, L2 served part of
-    them."""
+    them.  ``padded``: the columns the walk loads where it pads f (44 for
+    41), whose rate is logged beside."""
     tb_s = e * f * 4 / ms / 1e9
+    pad = ("" if padded in (None, f) else f"; at the {padded} padded "
+           f"columns it loads {e * padded * 4} B, "
+           f"{e * padded * 4 / ms / 1e9:.3f} TB/s")
     log(f"# {name}: gathers {e * f * 4} B of rows, {tb_s:.3f} TB/s at its "
         f"time ({'above' if tb_s * 1e12 > rate else 'below'} the memory "
-        f"rate, {rate / 1e12:.2f} TB/s)")
+        f"rate, {rate / 1e12:.2f} TB/s){pad}")
 
 
 def row_walk_bytes(tf, side, heads, f):
@@ -1170,6 +1238,15 @@ def row_walk_bytes(tf, side, heads, f):
     n_nbr = tf.num_src if side == "dst" else tf.num_dst
     return (view.nbytes + view.slot.numel() * 4 * heads
             + (view.rows + n_nbr) * f * 4)
+
+
+def sddmm_walk_bytes(tf, heads, fh):
+    """The bytes K4's SDDMM walk by dst must move: its row view, x and z
+    read once (fh f32 columns a head) and e written at every slot (4H B a
+    slot)."""
+    return (tf.row_view("dst").nbytes
+            + (tf.num_src + tf.num_dst) * heads * fh * 4
+            + tf.num_buckets * tf.cap * 4 * heads)
 
 
 def walk_bytes(slots, e):
@@ -1294,8 +1371,7 @@ def tiled_yardsticks(ef, tts, gt, rate):
                 ("sddmm_mh",
                  lambda: tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh),
                  lambda: tts.tiled_sddmm_dot_multihead_plain(fwd, x, z),
-                 walk_bytes(slots, e) + slots * 4 * heads + 2 * feat_b,
-                 lib_d)):
+                 sddmm_walk_bytes(fwd, heads, fh), lib_d)):
             err = close(kernel(), plain(), f"K4 {name} full size H={heads} "
                         f"Fh={fh}")
             b, by = bound(nbytes, ops, rate)
@@ -1304,14 +1380,18 @@ def tiled_yardsticks(ef, tts, gt, rate):
                 "plain_ms": cuda_ms(plain, reps=1), "bound_ms": b,
                 "bound_by": by, "library_ms": lib}
             r = rows[f"{name}_{heads}"]
+            # the bucket walk's bound before the row walk, in brackets
+            old = bound(walk_bytes(slots, e) + slots * 4 * heads + 2 * feat_b,
+                        ops, rate)[0] if name == "sddmm_mh" else None
             log(f"# K4 {name} H={heads} Fh={fh}: {r['ms']:.4f} ms (bound "
-                f"{b:.4f} ms by {by}: {nbytes} B, {ops} ops), plain "
-                f"{r['plain_ms']:.4f} ms, library ("
+                f"{b:.4f} ms by {by}: {nbytes} B, {ops} ops"
+                + ("" if old is None else f"; [{old:.4f}] by the slot "
+                   "arrays") + f"), plain {r['plain_ms']:.4f} ms, library ("
                 f"{'torch.sparse.mm' if name == 'spmm_mh' else 'sampled_addmm'}"
                 f") {lib:.4f} ms, max|err| {err:.3g}")
-            if name == "spmm_mh":
-                log_gathers(f"K4 spmm_mh H={heads} Fh={fh}", e, heads * fh,
-                            r["ms"], rate)
+            # the walks gather x rows, 16-byte vectors: (1, 41) at 44 columns
+            log_gathers(f"K4 {name} H={heads} Fh={fh}", e, heads * fh,
+                        r["ms"], rate, heads * -(-fh // 4) * 4)
         del x, z, w, w_slot
     return rows
 
@@ -4169,6 +4249,14 @@ def phase_shard_yardsticks(bg, tgs, tbs, fmt, gt, rate):
     return out
 
 
+def phase_sddmm_probe(tsw, gt, rate):
+    """Phase 43: the SDDMM walk's write layouts, zeroing and hub rows side
+    by side on the phase-12 format (``dgl_tpu_torch/tools/
+    perf_sddmm_walk.py``), each layout held bit for bit to the wrapper's."""
+    fwd, _ = gt.unit().tiled_format()
+    return tsw.probe(fwd, rate, log)
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4194,6 +4282,7 @@ def main():
     from dgl_tpu_torch.parallel import bitspmd as tbs, comm
     from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
     from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
+    from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4294,6 +4383,8 @@ def main():
     del model, opt
     tiled = phase("16 (K3, K4 yardsticks)", tiled_yardsticks, ef, tts, gt,
                   rate)
+    phase("43 (K4 SDDMM write layouts, probe)", phase_sddmm_probe, tsw, gt,
+          rate)
 
     # phases 18-20: the slot-space slice at full size
     model, opt, k6_launches = phase("18 (route 4: GAT on K6 train)",
@@ -4413,7 +4504,7 @@ def main():
          "launches": k1_launches, **k1},
         {"name": "bit_matmul", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
-         "replaces": "dgl_tpu/ops/pallas/bitmm.py:370",
+         "replaces": "dgl_tpu/ops/pallas/bitmm.py:371",
          "launches": k2_launches, **k2},
         # the first layer's shape, H x D = 4 x 32
         {"name": "bitgat_fwd", "route": "cuda",
@@ -4434,7 +4525,7 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:455",
          "launches": k4_launches[0], **tiled["spmm_mh_4"]},
         {"name": "tiled_sddmm_dot_multihead", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:521",
          "launches": k4_launches[1], **tiled["sddmm_mh_4"]},
         # K6 at the first GAT layer's shape, H x Fh = 4 x 32; launches

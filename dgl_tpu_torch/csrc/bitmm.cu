@@ -23,12 +23,18 @@
 //     column).  At the end the slab is added into out with atomicAdd,
 //     so chunks of rows may run in parallel.
 //
-// K2  bit_matmul_kernel  replaces dgl_tpu/ops/pallas/bitmm.py
-//     _bit_matmul (body _bit_kernel), the route for F > 96.  Input:
+// K2  bit_matmul_kernel<VEC, CPL>  replaces dgl_tpu/ops/pallas/bitmm.py
+//     _bit_matmul :371 (body _bit_kernel), the route for F > 96.  Input:
 //     packed, the bits of A (rows = dst), and x (num_src, F) f32.
 //     Gather form: one warp per dst row reads the row's words coalesced
-//     (one per lane); for each set bit the warp adds x[src, c0:c0+128]
-//     into registers (4 columns per lane) and writes its columns once.
+//     (8 a lane a step, the next step's requested before this one's
+//     work), turns their set bits into a list of src ids in shared memory
+//     (a warp prefix sum of popcounts gives each lane its offset), then
+//     gathers the listed rows U at a time, every load issued before any
+//     add, with VEC-float loads (16 bytes where F allows; CPL vectors a
+//     lane, up to 512 columns a warp) into registers, and writes its
+//     columns once.  The port's first K2 loaded a row after each set bit
+//     in turn, so each of a row's ~490 bits waited one L2 round trip.
 //
 // Bound on an H100 SXM (3.35 TB/s): both kernels must stream the whole
 // bitmask, K_pad * n32 * 4 bytes; the arithmetic (nnz * F adds) is far
@@ -36,8 +42,8 @@
 // graph (6,933,184,512 bytes of bits: 2.08 ms for K1 at F = 16, 2.14 ms
 // for K2 at F = 128, H100 80GB HBM3 at 700 W).  Design
 // against that bound: bit words are read once, coalesced, with 8 rows
-// (K1, plus the next step's 8 prefetched) or 8 words (K2) in flight per
-// lane.  At Reddit density (0.21%) a
+// (K1) or 8 words (K2) in flight per lane, plus the next step's 8
+// prefetched.  At Reddit density (0.21%) a
 // word holds ~0.07 set bits, so the work per bit (K1: one shared-memory
 // atomic per feature column; K2: a gather of the source row from L2 or
 // memory) is the other cost; neither kernel uses the tensor cores,
@@ -52,8 +58,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;        // warps per block (both kernels)
-constexpr int kUnroll = 8;       // loads each lane keeps in flight
-constexpr int kColsPerLane = 4;  // K2: 128-column tile per warp
+constexpr int kUnroll = 8;       // K1: rows a lane loads a step
+constexpr int kStepWords = 8;    // K2: words a lane loads a step
+constexpr int kBitList = 256;    // K2: src ids a warp lists at once
 
 // K1 with kCols = ceil(f / 32) feature columns per lane (1..3).  Each warp
 // step takes kUnroll rows: their words were loaded during the previous
@@ -141,54 +148,181 @@ bit_matmul_t_kernel(const uint32_t* __restrict__ packed_t, int64_t n32,
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static T zero() { return 0.f; }
+  __device__ static void add(float* a, T v) { a[0] += v; }
+  __device__ static void store(float* p, const float* a) { p[0] = a[0]; }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  __device__ static T zero() { return make_float2(0.f, 0.f); }
+  __device__ static void add(float* a, T v) {
+    a[0] += v.x;
+    a[1] += v.y;
+  }
+  __device__ static void store(float* p, const float* a) {
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+  }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static void add(float* a, T v) {
+    a[0] += v.x;
+    a[1] += v.y;
+    a[2] += v.z;
+    a[3] += v.w;
+  }
+  __device__ static void store(float* p, const float* a) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+
+// K2 with VEC floats a load and CPL column vectors a lane: the warp's
+// columns are vectors [blockIdx.y * 32 * CPL, (blockIdx.y + 1) * 32 * CPL)
+// of the row.  A step takes the 32 * kStepWords words of the row that the
+// lanes loaded in the step before (the next step's are requested first),
+// lists the src ids of their set bits in the warp's shared buffer (each
+// lane at its offset from a warp prefix sum of popcounts), then gathers
+// the listed rows U at a time: U rows' loads are issued before any add.
+// The walk waits on memory, not on issue: at most 64 registers a thread
+// (4 blocks an SM) keep more warps in flight.
+template <int VEC, int CPL>
+__global__ void __launch_bounds__(kWarps * 32, 4)
 bit_matmul_kernel(const uint32_t* __restrict__ packed, int64_t n32,
                   const float* __restrict__ x, int64_t num_src, int f,
                   float* __restrict__ out, int64_t num_dst) {
+  using V = typename Vec<VEC>::T;
+  constexpr int U = VEC * CPL <= 4 ? 8 : VEC * CPL <= 8 ? 4 : 2;
+  __shared__ int lists[kWarps][kBitList];
   const int lane = threadIdx.x & 31;
-  const int64_t d =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (d >= num_dst) return;  // warp-uniform
-  const int c0 = blockIdx.y * 32 * kColsPerLane;
-  float acc[kColsPerLane];
+  const int warp = threadIdx.x >> 5;
+  const int64_t d = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (d >= num_dst) return;  // warp-uniform; no block-wide barrier below
+  int* list = lists[warp];
+  const int nv = f / VEC;
+  int cv[CPL];
+  bool ok[CPL];
+  float acc[CPL][VEC];
 #pragma unroll
-  for (int c = 0; c < kColsPerLane; ++c) acc[c] = 0.f;
+  for (int q = 0; q < CPL; ++q) {
+    cv[q] = (static_cast<int>(blockIdx.y) * CPL + q) * 32 + lane;
+    ok[q] = cv[q] < nv;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+  }
 
   const uint32_t* prow = packed + d * n32;
-  for (int64_t j0 = 0; j0 < n32; j0 += 32 * kUnroll) {
-    uint32_t word[kUnroll];
+  uint32_t next[kStepWords];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t j = j0 + u * 32 + lane;
-      word[u] = j < n32 ? __ldg(prow + j) : 0u;
+  for (int u = 0; u < kStepWords; ++u) {
+    const int64_t j = u * 32 + lane;
+    next[u] = j < n32 ? __ldg(prow + j) : 0u;
+  }
+  for (int64_t j0 = 0; j0 < n32; j0 += 32 * kStepWords) {
+    uint32_t word[kStepWords];
+    int c = 0;  // this lane's set bits in the step
+#pragma unroll
+    for (int u = 0; u < kStepWords; ++u) {
+      word[u] = next[u];
+      c += __popc(word[u]);
+      const int64_t j = j0 + 32 * kStepWords + u * 32 + lane;
+      next[u] = j < n32 ? __ldg(prow + j) : 0u;
     }
+    int incl = c;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      unsigned live = __ballot_sync(kFull, word[u] != 0u);
-      while (live) {
-        const int l = __ffs(live) - 1;
-        live &= live - 1;
-        uint32_t bits = __shfl_sync(kFull, word[u], l);
-        const int64_t j = j0 + u * 32 + l;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    const int first = incl - c;  // this lane's offset in the step's list
+    // a row denser than kBitList bits a step is listed in pieces
+    for (int p0 = 0; p0 < total; p0 += kBitList) {
+      const int lim = p0 + kBitList;
+      int idx = first;
+#pragma unroll
+      for (int u = 0; u < kStepWords; ++u) {
+        uint32_t bits = word[u];
+        const int pc = __popc(bits);
+        if (idx + pc <= p0 || idx >= lim) {  // none of this word's bits
+          idx += pc;
+          continue;
+        }
+        const int64_t j = j0 + u * 32 + lane;
         while (bits) {
-          const int b = __ffs(bits) - 1;
-          bits &= bits - 1;
-          const int64_t s = static_cast<int64_t>(b) * n32 + j;
-          if (s >= num_src) continue;  // warp-uniform; padding bits are 0
-          const float* xr = x + s * f;
-#pragma unroll
-          for (int c = 0; c < kColsPerLane; ++c) {
-            const int col = c0 + lane + 32 * c;
-            if (col < f) acc[c] += __ldg(xr + col);
+          const int b = __ffs(static_cast<int>(bits)) - 1;
+          bits &= bits - 1u;
+          if (idx >= p0 && idx < lim) {
+            const int64_t s = static_cast<int64_t>(b) * n32 + j;
+            list[idx - p0] = s < num_src ? static_cast<int>(s) : -1;
           }
+          ++idx;
         }
       }
+      __syncwarp();
+      const int n = min(kBitList, total - p0);
+      for (int i0 = 0; i0 < n; i0 += U) {
+        V xv[U][CPL];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int s = i0 + u < n ? list[i0 + u] : -1;
+          const V* xr = reinterpret_cast<const V*>(
+              x + static_cast<int64_t>(s < 0 ? 0 : s) * f);
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            xv[u][q] = s >= 0 && ok[q] ? __ldg(xr + cv[q]) : Vec<VEC>::zero();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) Vec<VEC>::add(acc[q], xv[u][q]);
+        }
+      }
+      __syncwarp();
     }
   }
 #pragma unroll
-  for (int c = 0; c < kColsPerLane; ++c) {
-    const int col = c0 + lane + 32 * c;
-    if (col < f) out[d * f + col] = acc[c];
+  for (int q = 0; q < CPL; ++q) {
+    if (ok[q]) Vec<VEC>::store(out + d * f + cv[q] * VEC, acc[q]);
+  }
+}
+
+template <int VEC, int CPL>
+cudaError_t launch_k2(const void* packed, int64_t n32, const void* x,
+                      int64_t num_src, int64_t f, void* out, int64_t num_dst,
+                      cudaStream_t stream) {
+  const int64_t per_block = 32 * CPL;  // column vectors a warp
+  const dim3 grid(static_cast<unsigned>((num_dst + kWarps - 1) / kWarps),
+                  static_cast<unsigned>((f / VEC + per_block - 1) /
+                                        per_block));
+  bit_matmul_kernel<VEC, CPL><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const uint32_t*>(packed), n32,
+      static_cast<const float*>(x), num_src, static_cast<int>(f),
+      static_cast<float*>(out), num_dst);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t k2_by_cpl(int64_t cpl, const void* packed, int64_t n32,
+                      const void* x, int64_t num_src, int64_t f, void* out,
+                      int64_t num_dst, cudaStream_t s) {
+  switch (cpl) {
+    case 1:
+      return launch_k2<VEC, 1>(packed, n32, x, num_src, f, out, num_dst, s);
+    case 2:
+      return launch_k2<VEC, 2>(packed, n32, x, num_src, f, out, num_dst, s);
+    case 4:
+      return launch_k2<VEC, 4>(packed, n32, x, num_src, f, out, num_dst, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -241,22 +375,28 @@ int dgl_bit_matmul_t(const void* packed_t, int64_t n32, const void* x,
 }
 
 // K2: out (num_dst, f) = A @ x from packed (>= num_dst rows, n32) words;
-// every element of out is written.  Grid: (ceil(num_dst / 8),
-// ceil(f / 128)) blocks of 8 warps.
+// every element of out is written.  vec (1, 2 or 4) floats a load,
+// dividing f, with x and out aligned to it; cpl (1, 2 or 4) vectors a
+// lane.  Grid: (ceil(num_dst / 8), ceil(f / vec / (32 * cpl))) blocks of
+// 8 warps, a warp a dst row.
 int dgl_bit_matmul(const void* packed, int64_t n32, const void* x,
                    int64_t num_src, int64_t f, void* out, int64_t num_dst,
-                   int64_t device, void* stream) {
-  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+                   int64_t vec, int64_t cpl, int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  const int tile = 32 * kColsPerLane;
-  const dim3 grid(static_cast<unsigned>((num_dst + kWarps - 1) / kWarps),
-                  static_cast<unsigned>((f + tile - 1) / tile));
-  bit_matmul_kernel<<<grid, kWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), n32,
-      static_cast<const float*>(x), num_src, static_cast<int>(f),
-      static_cast<float*>(out), num_dst);
-  return cudaGetLastError();
+  if (vec < 1 || f % vec != 0 || num_src > INT32_MAX)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 1:
+      return k2_by_cpl<1>(cpl, packed, n32, x, num_src, f, out, num_dst, s);
+    case 2:
+      return k2_by_cpl<2>(cpl, packed, n32, x, num_src, f, out, num_dst, s);
+    case 4:
+      return k2_by_cpl<4>(cpl, packed, n32, x, num_src, f, out, num_dst, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

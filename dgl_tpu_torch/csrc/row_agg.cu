@@ -5,6 +5,11 @@
 //   out[r, h, :] = sum over the valid slots s of row r of
 //                  w[b(s), h, c(s)] * y[nbr(s), h, :]
 //
+// and its dot-product sibling, K4's SDDMM by dst rows:
+//
+//   e[b(s), h, c(s)] = <x[nbr(s), h, :], z[r, h, :]> at each valid slot s
+//                      of row r, 0 at every padded slot
+//
 // row_agg_kernel<VEC, CPL> replaces two TPU kernels of the JAX package:
 // - K4's SpMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_spmm_multihead
 //   :455 (body _spmm_mh_kernel :423), and with it
@@ -17,6 +22,10 @@
 //   (gat_backward :428, _dot_gat_bwd's _dx_call :623/:636, _gatv2_bwd's
 //   dx :925, _egatc_bwd's dx :1236, and the dx part of
 //   _eg2_dx_def_kernel :1639).
+// row_sddmm_kernel<CPL> (with slot_finish_kernel) replaces
+// K4's SDDMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_sddmm_dot_multihead
+// :521 (body _sddmm_mh_kernel :494): edgeflat's dW (_SpmmMultihead) and
+// dot_gat_forward's scores :520 (dgl_tpu/ops/pallas/gat_fused.py).
 //
 // The row view (dgl_tpu_torch/ops/kernels/tiled_spmm.py RowView), one per
 // side of a format: ptr (rows + 1,), and for the E valid slots grouped by
@@ -67,6 +76,36 @@
 // bucket; at (4, 32) on Reddit y is 233k x 512 B = 119 MB, more than the
 // 50 MB L2, so gathers that miss L2 may set the time (at (1, 41) and
 // (8, 8) y fits).  Indices are int32: the wrapper checks every flat size.
+//
+// SDDMM design.  The port's first SDDMM kernel walked the buckets, a warp
+// a 32-slot chunk, and gathered both x[src] and z[dst] for every slot
+// with scalar loads.  The walk by dst keeps the row's z[r] in registers
+// (its lanes' 16-byte vectors, the head width padded to a multiple of 4
+// floats by the wrapper: zeros leave every dot as it is), so only x[nbr]
+// is gathered, U slots in flight a lane.  A head's lph lanes reduce the
+// U slots of a round together in a butterfly (below), which leaves each
+// lane some of the slots, so that U slots cost U - 1 shuffles and one
+// store instruction rather than U log2(lph) shuffles and U stores.  No
+// row is split and each dot is summed in one lane order: the same bits
+// from run to run.  The risk is the writes: a row's slots lie in many
+// buckets, in canonical edge order within each, so a slot's H outputs
+// land in H sectors of a (B, H, C) tensor far larger than L2: direct
+// stores there took twice the walk's time at (4, 32), and one 16-byte
+// store a slot into a (B, C, H) scratch still cost more than the gathers
+// (dgl_tpu_torch/tools/perf_sddmm_walk.py sets the layouts side by side).
+// So the walk writes at the slot's entry in the view (an (E, H) scratch),
+// where the butterfly's one store instruction a round fills whole
+// sectors, with st.global.cs (evict first: the walk reads x again, not
+// its outputs); then slot_finish_kernel gathers the scratch into (B, H,
+// C) through the view's slot -> entry map (4 B a slot, built once a
+// format) and writes the padded slots' zeros (about 39% of Reddit's
+// slots).  A row of more than 1,024 floats takes several launches, each
+// a group of heads (into its columns of the scratch) or a chunk of a
+// head's columns (into a scratch part of its own; the pass adds the
+// parts in order), so any width runs and every dot is summed in one
+// order.  The probe builds the other layouts from this source with edits.
+// Bound: the view, x and z read once, e written at every slot (4H B a
+// slot); chip_smoke.py prints it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,6 +173,15 @@ __device__ __forceinline__ void store_vec(float* p, const float* a,
                                           Vec<4>) {
   *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
 }
+
+template <int N>
+struct Log2 {
+  static constexpr int value = 1 + Log2<N / 2>::value;
+};
+template <>
+struct Log2<1> {
+  static constexpr int value = 0;
+};
 
 // slots in flight a lane: 8, fewer where a lane keeps many columns
 template <int VEC, int CPL>
@@ -253,6 +301,231 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
   }
 }
 
+// The dot-product row walk (K4's SDDMM).  A group of lpr lanes owns row r
+// (a dst node) and keeps z[r] of the launch's heads and columns in
+// registers; for U slots of the row at a time it gathers x[nbr] (16-byte
+// loads, the head width a multiple of 4 floats), forms each head's dot
+// with an xor-shuffle reduction over that head's lph lanes and writes it
+// for entry k of the view at out[k * ostride + h]; slot_finish_kernel
+// turns that scratch into (B, H, C).
+//
+// A launch walks `heads` heads of `hv` vectors each: x, z and out come
+// offset to the launch's first head and column, a row of x and z is f
+// floats and its heads hstride vectors apart.  A row wider than the
+// registers hold (cpl <= 8: 1,024 floats) takes several launches, each a
+// group of heads or a chunk of a head's columns (the wrapper's plan).
+//
+// Lane layout: lane li of the group holds head hl + k * (lpr / lph) and
+// vector fl + j * lph of that head (hl = li / lph, fl = li % lph) for
+// q = k * cph + j < CPL; cph is a power of two, so that the tree that sums
+// a head's cph vectors in the lane stays within the head.
+//
+// Reduction: a lane first sums its cph vectors of a head, then a head's
+// lph lanes reduce the U slots of a round together in a butterfly that
+// halves the values a lane holds at each step: at offset o a lane keeps
+// the upper half of its slots if bit o of fl is set, the lower half
+// otherwise, and adds its partner's half of the same slots.  U slots cost
+// U - 1 shuffles (and log2(lph / U) more where lph > U) where a
+// reduction a slot costs U log2(lph), and at the end the lanes hold
+// different slots, so one store instruction writes up to U slots.  Each
+// output is stored by one lane (`writer`), at an entry of the group's own
+// row: no two lanes store to one address.
+template <int CPL>
+__global__ void __launch_bounds__(kWarps * 32)
+row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
+                 const int* __restrict__ order, int rows,
+                 const float* __restrict__ x, const float* __restrict__ z,
+                 int f, int hstride, int heads, int hv, int lph, int cph,
+                 int lpr, float* __restrict__ out, int ostride,
+                 int* __restrict__ counter) {
+  constexpr int U = Unroll<4, CPL>::value;
+  constexpr int kLogU = Log2<U>::value;
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lpr;
+  const int grp = lane / lpr;
+  const int li = lane - grp * lpr;
+  const unsigned gmask =
+      lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
+  const int hl = li / lph;
+  const int fl = li - hl * lph;
+  const int hpp = lpr / lph;   // heads a pass
+  int vq[CPL];    // this lane's vectors within a row, and their heads
+  int hq[CPL];
+  bool ok[CPL];
+  bool first[CPL];   // q is its head's first vector in the lane
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int k = q / cph;
+    const int v = fl + (q - k * cph) * lph;
+    hq[q] = hl + k * hpp;
+    ok[q] = hq[q] < heads && v < hv;
+    vq[q] = ok[q] ? hq[q] * hstride + v : 0;
+    first[q] = q == k * cph;
+  }
+  // the butterfly: `steps` halving steps leave a lane m of the U slots,
+  // from slot `bu` on; `rest` lanes then share each slot, and the first
+  // of them writes it
+  const int lg_lph = __ffs(lph) - 1;
+  const int steps = min(kLogU, lg_lph);
+  const int m = U >> steps;
+  const int rest = lph >> steps;
+  int bu = 0;
+  for (int t = 0; t < steps; ++t) {
+    if ((fl >> (lg_lph - 1 - t)) & 1) bu += U >> (t + 1);
+  }
+  const bool writer = (fl & (rest - 1)) == 0;
+
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, groups);
+    base = __shfl_sync(kFull, base, 0);
+    if (base >= rows) break;
+    const int item = base + grp;
+    const bool has = item < rows;
+    const int r = has ? order[item] : 0;
+
+    float4 zq[CPL];
+    const float4* zr = reinterpret_cast<const float4*>(z + r * f);
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      zq[q] = has && ok[q] ? __ldg(zr + vq[q]) : zero_vec<float4>();
+    }
+    const int p0 = has ? ptr[r] : 0;
+    const int p1 = has ? ptr[r + 1] : p0;  // no slot past the last row
+    for (int pb = p0; pb < p1; pb += lpr) {  // uniform in the group
+      const int n = min(lpr, p1 - pb);
+      int my_nbr = 0, my_out = 0;  // this lane's slot: neighbour, out offset
+      if (li < n) {
+        my_nbr = nbr[pb + li];
+        my_out = (pb + li) * ostride;
+      }
+      for (int u0 = 0; u0 < n; u0 += U) {
+        float4 xv[U][CPL];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int nb = __shfl_sync(gmask, my_nbr, u0 + u, lpr);
+          const bool live = u0 + u < n;
+          const float4* xr = reinterpret_cast<const float4*>(x + nb * f);
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            xv[u][q] = live && ok[q] ? __ldg(xr + vq[q]) : zero_vec<float4>();
+          }
+        }
+        float d[CPL][U];   // this lane's partial dots, vector q, slot u
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            d[q][u] = xv[u][q].x * zq[q].x;
+            d[q][u] = fmaf(xv[u][q].y, zq[q].y, d[q][u]);
+            d[q][u] = fmaf(xv[u][q].z, zq[q].z, d[q][u]);
+            d[q][u] = fmaf(xv[u][q].w, zq[q].w, d[q][u]);
+          }
+        }
+        // a head's cph vectors (q = k * cph ..) summed into its first
+#pragma unroll
+        for (int sp = 1; sp < CPL; sp *= 2) {
+          if (sp >= cph) break;
+#pragma unroll
+          for (int q = 0; q + sp < CPL; q += 2 * sp) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) d[q][u] += d[q + sp][u];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          if (!first[q]) continue;  // uniform in the group
+          int o = lph >> 1;
+#pragma unroll
+          for (int half = U / 2; half >= 1; half /= 2) {
+            if (o == 0) break;
+            const bool up = (fl & o) != 0;
+#pragma unroll
+            for (int i = 0; i < half; ++i) {
+              const float send = up ? d[q][i] : d[q][i + half];
+              const float keep = up ? d[q][i + half] : d[q][i];
+              d[q][i] = keep + __shfl_xor_sync(gmask, send, o, lpr);
+            }
+            o >>= 1;
+          }
+          for (; o > 0; o >>= 1) {
+            d[q][0] += __shfl_xor_sync(gmask, d[q][0], o, lpr);
+          }
+#pragma unroll
+          for (int i = 0; i < U; ++i) {
+            if (i >= m) break;  // uniform in the group
+            const int u = u0 + bu + i;
+            const int ob = __shfl_sync(gmask, my_out, u, lpr);
+            if (writer && u < n && hq[q] < heads) {
+              __stcs(out + ob + hq[q], d[q][i]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// out (B, heads, cap) from the walk's scratch, a thread a slot s = b * cap
+// + c: out[b, h, c] = the sum over the parts p, in order, of sm[p *
+// part_stride + entry[s] * heads + h] (entry: the view's slot -> entry
+// map), 0 where entry is -1 (a padded slot).
+__global__ void __launch_bounds__(256)
+slot_finish_kernel(const float* __restrict__ sm,
+                   const int* __restrict__ entry, long long slots,
+                   int heads, int parts, long long part_stride, int cap,
+                   float* __restrict__ out) {
+  for (long long s = blockIdx.x * 256LL + threadIdx.x; s < slots;
+       s += static_cast<long long>(gridDim.x) * 256) {
+    const long long b = s / cap;
+    float* o = out + b * heads * cap + (s - b * cap);
+    const int k = entry[s];
+    const float* p = sm + static_cast<long long>(k) * heads;
+    for (int h = 0; h < heads; ++h) {
+      float v = 0.f;
+      if (k >= 0) {
+        v = p[h];
+        for (int j = 1; j < parts; ++j) v += p[j * part_stride + h];
+      }
+      o[h * cap] = v;
+    }
+  }
+}
+
+// Blocks of persistent warps: as many as fit the card at once, no more
+// than `warps_needed` warps.
+template <typename K>
+cudaError_t persistent_blocks(K kernel, long long warps_needed, int device,
+                              unsigned* blocks) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kWarps * 32, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *blocks = static_cast<unsigned>(std::max(1LL, std::min(
+      static_cast<long long>(sms) * std::max(per_sm, 1),
+      (warps_needed + kWarps - 1) / kWarps)));
+  return cudaSuccess;
+}
+
+template <int CPL>
+cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
+                             int rows, const float* x, const float* z, int f,
+                             int hstride, int heads, int hv, int lph, int cph,
+                             int lpr, float* out, int ostride, int* counter,
+                             int device, cudaStream_t stream) {
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_blocks(
+      row_sddmm_kernel<CPL>, (static_cast<long long>(rows) * lpr + 31) / 32,
+      device, &blocks);
+  if (err != cudaSuccess) return err;
+  row_sddmm_kernel<CPL><<<blocks, kWarps * 32, 0, stream>>>(
+      ptr, nbr, order, rows, x, z, f, hstride, heads, hv, lph, cph, lpr, out,
+      ostride, counter);
+  return cudaGetLastError();
+}
+
 template <int VEC, int CPL>
 cudaError_t launch_row_agg(const int* ptr, const int* slot, const int* nbr,
                            const int* order, int rows, const float* w,
@@ -260,23 +533,15 @@ cudaError_t launch_row_agg(const int* ptr, const int* slot, const int* nbr,
                            int head_cols, const float* y, int f, int lpr,
                            int n_chunks, float* out, int* counter, int device,
                            cudaStream_t stream) {
-  int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, row_agg_kernel<VEC, CPL>, kWarps * 32, 0);
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_blocks(
+      row_agg_kernel<VEC, CPL>,
+      (static_cast<long long>(rows) * n_chunks * lpr + 31) / 32, device,
+      &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  // persistent warps: as many as fit the card at once, no more than the
-  // work needs
-  const long long groups_needed = static_cast<long long>(rows) * n_chunks;
-  const long long warps_needed = (groups_needed * lpr + 31) / 32;
-  const long long blocks = std::max(1LL, std::min(
-      static_cast<long long>(sms) * std::max(per_sm, 1),
-      (warps_needed + kWarps - 1) / kWarps));
-  row_agg_kernel<VEC, CPL><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                             stream>>>(ptr, slot, nbr, order, rows, w, cap,
-                                       w_bs, w_hs, w_cs, heads, head_cols, y,
-                                       f, lpr, n_chunks, out, counter);
+  row_agg_kernel<VEC, CPL><<<blocks, kWarps * 32, 0, stream>>>(
+      ptr, slot, nbr, order, rows, w, cap, w_bs, w_hs, w_cs, heads, head_cols,
+      y, f, lpr, n_chunks, out, counter);
   return cudaGetLastError();
 }
 
@@ -350,6 +615,71 @@ int dgl_row_agg(const void* ptr, const void* slot, const void* nbr,
       return cudaErrorInvalidValue;
   }
 #undef DGL_ROW_AGG_ARGS
+}
+
+// K4's SDDMM by dst rows, one launch of the wrapper's plan: for every
+// entry k of row r, <x[nbr[k], h, :hv * 4], z[r, h, :hv * 4]> at out[k *
+// ostride + h], h < heads; x (num_nbr rows) and z (rows) f32, 16-byte
+// aligned, rows f floats apart, heads hstride * 4 floats apart, hv <=
+// hstride.  lph lanes a head (a power of two), cph vectors a lane and
+// head (a power of two), lpr lanes a row (a power of two, a multiple of lph, up to 32), cpl
+// (1, 2, 4 or 8) at least cph * ceil(heads / (lpr / lph)).  counter is
+// one int, zeroed by the caller.
+int dgl_row_sddmm(const void* ptr, const void* nbr, const void* order,
+                  int64_t rows, const void* x, const void* z, int64_t f,
+                  int64_t hstride, int64_t heads, int64_t hv, int64_t lph,
+                  int64_t cph, int64_t lpr, void* out, int64_t ostride,
+                  void* counter, int64_t cpl, int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lph < 1 ||
+      lpr % lph != 0 || (lph & (lph - 1)) != 0 || cph < 1 ||
+      (cph & (cph - 1)) != 0 || hv < 1 ||
+      hv > hstride || heads < 1 || (heads - 1) * hstride * 4 + hv * 4 > f ||
+      ostride < heads || cpl < cph * ((heads + lpr / lph - 1) / (lpr / lph)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_ROW_SDDMM_CASE(C_)                                              \
+  case C_:                                                                  \
+    return launch_row_sddmm<C_>(                                            \
+        static_cast<const int*>(ptr), static_cast<const int*>(nbr),         \
+        static_cast<const int*>(order), static_cast<int>(rows),             \
+        static_cast<const float*>(x), static_cast<const float*>(z),         \
+        static_cast<int>(f), static_cast<int>(hstride),                     \
+        static_cast<int>(heads), static_cast<int>(hv),                      \
+        static_cast<int>(lph), static_cast<int>(cph),                       \
+        static_cast<int>(lpr), static_cast<float*>(out),                    \
+        static_cast<int>(ostride), static_cast<int*>(counter),              \
+        static_cast<int>(device), s);
+  switch (cpl) {
+    DGL_ROW_SDDMM_CASE(1)
+    DGL_ROW_SDDMM_CASE(2)
+    DGL_ROW_SDDMM_CASE(4)
+    DGL_ROW_SDDMM_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_ROW_SDDMM_CASE
+}
+
+// out (slots / cap, heads, cap) from the walk's scratch sm (parts of
+// part_stride floats, each entry-major: entry k, head h at k * heads +
+// h): at slot s the sum over the parts, in order, at entry[s], and 0
+// where entry is -1.  entry (slots,) int32.
+int dgl_slot_finish(const void* sm, const void* entry, int64_t slots,
+                    int64_t heads, int64_t parts, int64_t part_stride,
+                    int64_t cap, void* out, int64_t blocks, int64_t device,
+                    void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (cap < 1 || heads < 1 || parts < 1 || blocks < 1 || !sm || !entry)
+    return cudaErrorInvalidValue;
+  slot_finish_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sm), static_cast<const int*>(entry), slots,
+      static_cast<int>(heads), static_cast<int>(parts), part_stride,
+      static_cast<int>(cap), static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Tile-bucketed SpMM and SDDMM on Hopper over the tiled format.
+// Tile-bucketed SpMM (K3) on Hopper over the tiled format.
 //
 // Format (dgl_tpu_torch/ops/kernels/tiled_spmm.py, the JAX package's
 // dgl_tpu/ops/pallas/tiled_spmm.py:49-88): edges bucketed by (dst tile,
@@ -9,19 +9,16 @@
 // tiles: every kernel here skips a slot whose valid is 0.  dst_tile never
 // decreases, so dst tile t owns the buckets [dst_ptr[t], dst_ptr[t + 1]).
 //
-// Two functions, behind two plain C entry points that launch on the
-// caller's stream, allocate nothing and return cudaGetLastError():
+// K3, behind a plain C entry point that launches on the caller's stream,
+// allocates nothing and returns cudaGetLastError():
 //
 // K3  tiled_spmm_kernel<G, kCopy=true/false>  replaces
 //     dgl_tpu/ops/pallas/tiled_spmm.py tiled_spmm -> _spmm_one_call
 //     (body _spmm_kernel).  out[d] = sum over slots of w * x[src].
-// K4  tiled_sddmm_mh_kernel<L>  replaces tiled_sddmm_dot_multihead (body
-//     _sddmm_mh_kernel): e[b, h, c] = <x[src, h, :], z[dst, h, :]>, and 0
-//     at padded slots, where the TPU kernel writes the product of row 0
-//     of each tile.
-// K4's SpMM (tiled_spmm_multihead) is the row walk of csrc/row_agg.cu.
+// K4's SpMM (tiled_spmm_multihead) and SDDMM (tiled_sddmm_dot_multihead)
+// are the row walks of csrc/row_agg.cu.
 //
-// The TPU kernels build one-hot matrices of each bucket and contract them
+// The TPU kernel builds one-hot matrices of each bucket and contracts them
 // on the matrix unit, bucket after bucket, carrying the output tile in
 // VMEM from one grid step to the next.  None of that carries over: here
 // the work per slot is a gather and an add.
@@ -39,20 +36,12 @@
 // (zeroed by the caller) with global atomics instead.  A tile with no
 // bucket writes zeros, the JAX format's covered_mask.
 //
-// SDDMM design.  One warp per 32-slot chunk, grid-stride.  L lanes share
-// one head (L = 32 / heads rounded up to a power of two), each lane takes
-// every L-th column of that head, and the L partial dots are summed with
-// xor shuffles.  4 slots are in flight together, and a lane loads 4 of
-// its columns of each before it adds any; a chunk of padding only writes
-// zeros.
-//
-// Bound on an H100 SXM (3.35 TB/s): both stream the slot arrays (12 B a
-// slot for K3: src_local, dst_local, valid; K4 adds 4 B a slot and head
-// of e) and gather x rows (and z rows) that mostly hit L2, since a bucket
-// reads one src tile; the f32 arithmetic (2 operations per slot and
-// column) is far below the card's 67 TFLOP/s.  chip_smoke.py
-// prints each bound at the Reddit graph's shapes.  Indices are int32: the
-// wrappers check that every flat size fits.
+// Bound on an H100 SXM (3.35 TB/s): it streams the slot arrays (12 B a
+// slot: src_local, dst_local, valid) and gathers x rows that mostly hit
+// L2, since a bucket reads one src tile; the f32 arithmetic (2 operations
+// per slot and column) is far below the card's 67 TFLOP/s.  chip_smoke.py
+// prints the bound at the Reddit graph's shapes.  Indices are int32: the
+// wrapper checks that every flat size fits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,9 +50,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSpmmWarps = 16;   // warps per SpMM block
-constexpr int kSddmmWarps = 8;   // warps per SDDMM block
-constexpr int kSddmmUnroll = 4;  // SDDMM slots in flight per warp
-constexpr int kSddmmCols = 4;    // SDDMM columns a lane loads per slot at once
 
 template <int G, bool kCopy>
 __global__ void __launch_bounds__(kSpmmWarps * 32)
@@ -140,88 +126,6 @@ tiled_spmm_kernel(const int* __restrict__ src_local,
   }
 }
 
-template <int L>
-__global__ void __launch_bounds__(kSddmmWarps * 32)
-tiled_sddmm_mh_kernel(const int* __restrict__ src_local,
-                      const int* __restrict__ dst_local,
-                      const float* __restrict__ valid,
-                      const int* __restrict__ src_tile,
-                      const int* __restrict__ dst_tile, int num_buckets,
-                      int tile, int cap, const float* __restrict__ x,
-                      const float* __restrict__ z, int heads, int fh,
-                      float* __restrict__ out) {
-  constexpr int kHeadsPerPass = 32 / L;
-  const int lane = threadIdx.x & 31;
-  const int hl = lane / L;  // head of this lane within a pass
-  const int fl = lane % L;  // first column of this lane within its head
-  const int hf = heads * fh;
-  const int per_bucket = cap / 32;
-  const int n_chunks = num_buckets * per_bucket;
-  for (int k = blockIdx.x * kSddmmWarps + (threadIdx.x >> 5); k < n_chunks;
-       k += gridDim.x * kSddmmWarps) {
-    const int b = k / per_bucket;
-    const int c0 = (k % per_bucket) * 32;  // the chunk's first slot in b
-    const int s0 = b * cap + c0;
-    const float v = valid[s0 + lane];
-    const int sl = src_local[s0 + lane];
-    const int dl = dst_local[s0 + lane];
-    const float* xt = x + src_tile[b] * tile * hf;
-    const float* zt = z + dst_tile[b] * tile * hf;
-    float* ob = out + b * heads * cap + c0;  // e[b, h, c0 + j] = ob[h*cap+j]
-    if (__ballot_sync(kFull, v != 0.f) == 0u) {  // a padded tail: all 0
-      for (int h = 0; h < heads; ++h) ob[h * cap + lane] = 0.f;
-      continue;
-    }
-    for (int j0 = 0; j0 < 32; j0 += kSddmmUnroll) {
-      const float* xr[kSddmmUnroll];
-      const float* zr[kSddmmUnroll];
-      bool live[kSddmmUnroll];
-#pragma unroll
-      for (int u = 0; u < kSddmmUnroll; ++u) {
-        live[u] = __shfl_sync(kFull, v, j0 + u) != 0.f;  // warp-uniform
-        xr[u] = xt + __shfl_sync(kFull, sl, j0 + u) * hf;
-        zr[u] = zt + __shfl_sync(kFull, dl, j0 + u) * hf;
-      }
-      for (int h0 = 0; h0 < heads; h0 += kHeadsPerPass) {
-        const int h = h0 + hl;
-        const int c_end = h < heads ? (h + 1) * fh : 0;  // this head's end
-        float s[kSddmmUnroll];
-#pragma unroll
-        for (int u = 0; u < kSddmmUnroll; ++u) s[u] = 0.f;
-        // kSddmmCols columns of every slot are loaded before any is added,
-        // so a lane has 2 * kSddmmUnroll * kSddmmCols loads in flight
-        for (int cb = h * fh + fl; cb < c_end; cb += L * kSddmmCols) {
-          float xv[kSddmmUnroll][kSddmmCols];
-          float zv[kSddmmUnroll][kSddmmCols];
-#pragma unroll
-          for (int u = 0; u < kSddmmUnroll; ++u) {
-#pragma unroll
-            for (int i = 0; i < kSddmmCols; ++i) {
-              const int c = cb + i * L;
-              const bool ok = live[u] && c < c_end;
-              xv[u][i] = ok ? __ldg(xr[u] + c) : 0.f;
-              zv[u][i] = ok ? __ldg(zr[u] + c) : 0.f;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kSddmmUnroll; ++u) {
-#pragma unroll
-            for (int i = 0; i < kSddmmCols; ++i) s[u] += xv[u][i] * zv[u][i];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kSddmmUnroll; ++u) {
-#pragma unroll
-          for (int o = L / 2; o > 0; o >>= 1) {
-            s[u] += __shfl_xor_sync(kFull, s[u], o);
-          }
-          if (fl == 0 && h < heads) ob[h * cap + j0 + u] = s[u];
-        }
-      }
-    }
-  }
-}
-
 template <int G, bool kCopy>
 cudaError_t launch_spmm(const void* src_local, const void* dst_local,
                         const void* valid, const void* w,
@@ -265,25 +169,6 @@ cudaError_t spmm_by_kind(const void* src_local, const void* dst_local,
                                num_dst, splits, stream);
 }
 
-template <int L>
-cudaError_t launch_sddmm(const void* src_local, const void* dst_local,
-                         const void* valid, const void* src_tile,
-                         const void* dst_tile, int64_t num_buckets,
-                         int64_t tile, int64_t cap, const void* x,
-                         const void* z, int64_t heads, int64_t fh, void* out,
-                         int64_t blocks, cudaStream_t stream) {
-  tiled_sddmm_mh_kernel<L><<<static_cast<unsigned>(blocks),
-                             kSddmmWarps * 32, 0, stream>>>(
-      static_cast<const int*>(src_local), static_cast<const int*>(dst_local),
-      static_cast<const float*>(valid), static_cast<const int*>(src_tile),
-      static_cast<const int*>(dst_tile), static_cast<int>(num_buckets),
-      static_cast<int>(tile), static_cast<int>(cap),
-      static_cast<const float*>(x), static_cast<const float*>(z),
-      static_cast<int>(heads), static_cast<int>(fh),
-      static_cast<float*>(out));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -314,38 +199,6 @@ int dgl_tiled_spmm(const void* src_local, const void* dst_local,
       return cudaErrorInvalidValue;
   }
 #undef DGL_SPMM_CASE
-}
-
-// K4 SDDMM: out (num_buckets, heads, cap), every element written, from x
-// (num_src, heads, fh) and z (num_dst, heads, fh).  lanes is L, the lanes
-// per head (32 over heads rounded up to a power of two, at least 1).
-// Grid: `blocks` blocks of 8 warps, grid-stride over 32-slot chunks.
-int dgl_tiled_sddmm_mh(const void* src_local, const void* dst_local,
-                       const void* valid, const void* src_tile,
-                       const void* dst_tile, int64_t num_buckets,
-                       int64_t tile, int64_t cap, const void* x,
-                       const void* z, int64_t heads, int64_t fh, void* out,
-                       int64_t lanes, int64_t blocks, int64_t device,
-                       void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DGL_SDDMM_CASE(L_)                                                  \
-  case L_:                                                                  \
-    return launch_sddmm<L_>(src_local, dst_local, valid, src_tile,          \
-                            dst_tile, num_buckets, tile, cap, x, z, heads,  \
-                            fh, out, blocks, s);
-  switch (lanes) {
-    DGL_SDDMM_CASE(1)
-    DGL_SDDMM_CASE(2)
-    DGL_SDDMM_CASE(4)
-    DGL_SDDMM_CASE(8)
-    DGL_SDDMM_CASE(16)
-    DGL_SDDMM_CASE(32)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DGL_SDDMM_CASE
 }
 
 }  // extern "C"

@@ -233,7 +233,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
     "dgl_bit_matmul_t": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
-    "dgl_bit_matmul": [_P, _I, _P, _I, _I, _P, _I, _I, _P],
+    "dgl_bit_matmul": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P],
 }
 # shared memory a block may use on Hopper
 _SMEM_PER_SM = 232_448
@@ -258,6 +258,21 @@ def _slab_words(f: int) -> int:
     row, a narrower one leaves room for more blocks on an SM; of the
     widths 2-32 these ran fastest on an H100 at Reddit scale."""
     return 16 if f <= 32 else 8
+
+
+def _k2_layout(f: int, x: torch.Tensor):
+    """(vec, cpl) of K2 over F = ``f`` columns: floats a load (4, 2 or 1,
+    the widest that divides F and x's alignment) and column vectors a
+    lane (the row's vectors over 32 lanes rounded up to a power of two, at
+    most 4: up to 512 columns a warp; a wider row takes more column
+    blocks, each re-reading the row's bits)."""
+    vec = 4
+    while vec > 1 and (f % vec or x.data_ptr() % (4 * vec)):
+        vec //= 2
+    cpl = 1
+    while cpl < 4 and 32 * cpl * vec < f:
+        cpl *= 2
+    return vec, cpl
 
 
 def _launch(fn: str, *args):
@@ -320,8 +335,9 @@ def bit_matmul(packed: torch.Tensor, x: torch.Tensor,
     out = torch.empty(num_dst, f, dtype=torch.float32, device=x.device)
     x = x.float().contiguous()
     packed = packed.contiguous()
+    vec, cpl = _k2_layout(f, x)
     _launch("dgl_bit_matmul", packed.data_ptr(), packed.shape[1],
-            x.data_ptr(), num_src, f, out.data_ptr(), num_dst,
+            x.data_ptr(), num_src, f, out.data_ptr(), num_dst, vec, cpl,
             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     bit_matmul.launches += 1
     return out

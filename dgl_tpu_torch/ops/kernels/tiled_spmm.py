@@ -35,16 +35,20 @@ the same function:
   sum w[e, h] x[src_e, h, :] with (B, H, C) slot weights, a walk of the
   format's row view by dst (below), which ``gat_fused.src_aggregate``
   takes by src;
-* :func:`tiled_sddmm_dot_multihead` (K4; ``csrc/tiled_spmm.cu``):
+* :func:`tiled_sddmm_dot_multihead` (K4; ``csrc/row_agg.cu``):
   e[b, h, c] = <x[src, h, :], z[dst, h, :]> for every slot, 0 at padded
-  slots (the TPU kernel leaves whatever its one-hot products give there).
+  slots (the TPU kernel leaves whatever its one-hot products give there),
+  a walk of the row view by dst that keeps z[dst] in registers and
+  gathers x[src] (:func:`sddmm_walk`).
 
 The row view (:class:`RowView`, ``TiledFormat.row_view``) lists the valid
 slots of one side's rows: per row, ascending slot id, the flat slot and
 the global id of the node at the other end, with each row's range and the
 order in which the walk claims the rows (hubs first, then by id).  It is
 built on the format's device at first use and cached: 8 B an edge and 8 B
-a row a side (about 0.92 GB a side at Reddit's 115M edges).  Carrying the
+a row a side (about 0.92 GB a side at Reddit's 115M edges); K4's SDDMM
+adds the dst view's slot -> entry map (:meth:`RowView.entries`, 4 B a
+slot, 0.75 GB at Reddit's 187M slots).  Carrying the
 neighbour's id doubles it but saves the row walk a dependent 4-byte read
 of ``src_local`` or ``dst_local`` at a random slot, which costs a 32-byte
 sector.
@@ -87,10 +91,24 @@ class RowView:
     slot: torch.Tensor     # (E,)
     nbr: torch.Tensor      # (E,)
     order: torch.Tensor    # (rows,)
+    # (slots,) int32 entry of each slot, -1 where none, built at first use
+    _entries: Optional[torch.Tensor] = None
 
     @property
     def rows(self) -> int:
         return self.order.shape[0]
+
+    def entries(self, slots: int) -> torch.Tensor:
+        """(slots,) int32: the entry k of each flat slot in this view
+        (slot[k] = s), -1 at a slot the view does not list; built on the
+        view's device at first use and cached (4 B a slot)."""
+        if self._entries is None:
+            e = torch.full((slots,), -1, dtype=torch.int32,
+                           device=self.slot.device)
+            e[self.slot.long()] = torch.arange(
+                self.slot.numel(), dtype=torch.int32, device=e.device)
+            self._entries = e
+        return self._entries
 
     @property
     def nbytes(self) -> int:
@@ -482,16 +500,16 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "tiled_spmm": {
         "dgl_tiled_spmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
-                           _I, _I, _I, _I, _P],
-        "dgl_tiled_sddmm_mh": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-                               _I, _P, _I, _I, _I, _P]},
+                           _I, _I, _I, _I, _P]},
     "row_agg": {
         "dgl_row_agg": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
-                        _I, _P, _P, _I, _I, _I, _I, _I, _P]},
+                        _I, _P, _P, _I, _I, _I, _I, _I, _P],
+        "dgl_row_sddmm": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P, _I, _P, _I, _I, _P],
+        "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]},
 }
 _SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
 _SPMM_WARPS = 16            # csrc/tiled_spmm.cu kSpmmWarps
-_SDDMM_WARPS = 8            # csrc/tiled_spmm.cu kSddmmWarps
 
 
 def _launch(fn: str, *args, source: str = "tiled_spmm"):
@@ -713,19 +731,147 @@ tiled_spmm_multihead.launches = 0
 
 
 def _lanes_per_head(heads: int) -> int:
-    """Lanes of a warp that share one head's dot product: 32 over the
-    heads rounded up to a power of two, at least 1."""
+    """Lanes of a warp that share one head's dot product in the slot-space
+    kernels of ``gat_fused.py``: 32 over the heads rounded up to a power of
+    two, at least 1."""
+    return 32 // _pow2(min(heads, 32))
+
+
+def _pow2(n: int) -> int:
+    """The least power of two at or above ``n`` (1 for n <= 1)."""
     p = 1
-    while p < min(heads, 32):
+    while p < n:
         p *= 2
-    return 32 // p
+    return p
+
+
+def _sddmm_cpl(heads: int, hv: int):
+    """(lph, cph, lpr, cpl) of the dot-product walk over ``heads`` heads of
+    ``hv`` 4-float vectors each: lanes a head (hv rounded up to a power of
+    two, at most 32), vectors a lane and head (a power of two: the lane
+    sums a head's vectors in a tree of pairs, which must not reach into
+    the next head's), lanes a row (lph times the heads rounded up to a
+    power of two, at most 32) and vectors a lane (a power of two)."""
+    lph = _pow2(min(hv, 32))
+    cph = _pow2(-(-hv // lph))
+    lpr = min(32, lph * _pow2(heads))
+    return lph, cph, lpr, _pow2(cph * -(-heads // (lpr // lph)))
+
+
+def _sddmm_layout(heads: int, hv: int):
+    """:func:`_sddmm_cpl` for one launch of the walk, which keeps at most 8
+    vectors a lane: up to 1,024 columns a row (:func:`_sddmm_plan` splits
+    wider rows)."""
+    layout = _sddmm_cpl(heads, hv)
+    if layout[3] > 8:
+        raise ValueError(f"{heads} heads of {4 * hv} columns are more than "
+                         "the SDDMM walk keeps in a row's registers (1,024)")
+    return layout
+
+
+_SDDMM_CHUNK = 256     # a head's vectors one launch takes (cph <= 8)
+
+
+def _sddmm_plan(heads: int, hv: int):
+    """(launches, parts): the walk's launches over rows of ``heads`` heads
+    of ``hv`` 4-float vectors, each (h0, nh, v0, nv, part): heads h0 ..
+    h0 + nh - 1, vectors v0 .. v0 + nv - 1 of each, written into scratch
+    part ``part``.  A head's vectors come in ``parts`` chunks of up to 256
+    (1,024 columns), each chunk a part of its own; the heads in the fewest
+    equal groups that one launch holds (8 vectors a lane).  One launch
+    where the row fits."""
+    parts = max(1, -(-hv // _SDDMM_CHUNK))
+    cw = -(-hv // parts)
+    g = heads
+    while g > 1 and _sddmm_cpl(g, cw)[3] > 8:
+        g -= 1
+    g = -(-heads // -(-heads // g))          # the groups made equal
+    return [(h0, min(g, heads - h0), v0, min(cw, hv - v0), part)
+            for part, v0 in enumerate(range(0, hv, cw))
+            for h0 in range(0, heads, g)], parts
+
+
+def _vec4_rows(t: torch.Tensor, hp: int) -> torch.Tensor:
+    """``t`` (n, H, D) as f32 (n, H, hp) rows, hp >= D a multiple of 4,
+    contiguous and 16-byte aligned, zero past D (a copy unless ``t`` is
+    so already): the walk's 16-byte loads; the pad leaves every dot as it
+    is."""
+    if (t.shape[2] == hp and t.dtype == torch.float32 and t.is_contiguous()
+            and t.data_ptr() % 16 == 0):
+        return t
+    alloc = torch.empty if t.shape[2] == hp else torch.zeros
+    out = alloc(t.shape[0], t.shape[1], hp, dtype=torch.float32,
+                device=t.device)
+    out[..., :t.shape[2]] = t
+    return out
+
+
+def _sddmm_args(view: RowView, nbr: torch.Tensor, x: torch.Tensor,
+                z: torch.Tensor, out: torch.Tensor, ostride: int,
+                counter: torch.Tensor, launch):
+    """The arguments of ``dgl_row_sddmm`` (``csrc/row_agg.cu``) for one
+    launch (h0, nh, v0, nv, part) of :func:`_sddmm_plan` over the rows of
+    ``view.order``, neighbours ``nbr``: it writes entry k's dot of head h0
+    + h at out[k * ostride + h0 + h] (``out`` a scratch part).  ``x``
+    (neighbours, H, hp) and ``z`` (rows, H, hp) f32, contiguous, 16-byte
+    aligned, hp a multiple of 4 (:func:`_vec4_rows`); ``counter`` one
+    zeroed int32."""
+    h0, nh, v0, nv, _ = launch
+    hp = x.shape[2]
+    lph, cph, lpr, cpl = _sddmm_layout(nh, nv)
+    off = 4 * (h0 * hp + 4 * v0)                   # bytes to the first float
+    return (view.ptr.data_ptr(), nbr.data_ptr(), view.order.data_ptr(),
+            view.rows, x.data_ptr() + off, z.data_ptr() + off,
+            x.shape[1] * hp, hp // 4, nh, nv, lph, cph, lpr,
+            out.data_ptr() + 4 * h0, ostride, counter.data_ptr(), cpl,
+            x.device.index, _stream(x.device))
+
+
+def sddmm_walk(view: RowView, num_buckets: int, cap: int, x: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """K4's SDDMM by the dot-product walk on CUDA tensors: (num_buckets, H,
+    cap) f32, e[b, h, c] = <x[nbr[k], h], z[r, h]> at the entry k of row r
+    with slot[k] = b * cap + c, 0 at every slot the view does not list.
+    The launches of :func:`_sddmm_plan` write each entry's dots into an
+    (E, H) scratch a part, at the entry, where a round's stores fill whole
+    sectors; then csrc ``slot_finish_kernel`` gathers the parts into (B,
+    H, C) through ``view.entries``, adds them in order and writes the
+    zeros.  ``x``, ``z`` as :func:`_sddmm_args` takes them.  Counts
+    nothing."""
+    heads, hp = x.shape[1], x.shape[2]
+    if hp % 4 or z.shape[1:] != x.shape[1:]:
+        raise ValueError(f"x {tuple(x.shape)} and z {tuple(z.shape)} need "
+                         "one (H, hp) with hp a multiple of 4")
+    out = torch.empty(num_buckets, heads, cap, dtype=torch.float32,
+                      device=x.device)
+    e = view.slot.numel()
+    if out.numel() == 0 or hp == 0 or e == 0:   # no dot: every slot is 0
+        return out.zero_()
+    plan, parts = _sddmm_plan(heads, hp // 4)
+    _check_int32(x.numel(), z.numel(), e * heads,
+                 view.rows + 2048 * _sms(x.device))
+    sm = torch.empty(parts, e * heads, dtype=torch.float32, device=x.device)
+    counters = torch.zeros(len(plan), dtype=torch.int32, device=x.device)
+    for i, launch in enumerate(plan):
+        _launch("dgl_row_sddmm", *_sddmm_args(
+            view, view.nbr, x, z, sm[launch[4]], heads, counters[i], launch),
+            source="row_agg")
+    slots = num_buckets * cap
+    _launch("dgl_slot_finish", sm.data_ptr(), view.entries(slots).data_ptr(),
+            slots, heads, parts, e * heads, cap, out.data_ptr(),
+            max(1, min(-(-slots // 256), 32 * _sms(x.device))),
+            x.device.index, _stream(x.device), source="row_agg")
+    return out
 
 
 def tiled_sddmm_dot_multihead(tf: TiledFormat, x3: torch.Tensor,
                               z3: torch.Tensor, H: int, Fh: int):
     """K4 SDDMM: e[b, h, c] = <x3[src, h, :], z3[dst, h, :]> for every
     slot, 0 at padded slots.  ``x3`` (num_src, H, Fh), ``z3``
-    (num_dst, H, Fh).  Returns (B, H, C) f32 in slot order."""
+    (num_dst, H, Fh).  Returns (B, H, C) f32 in slot order: on CUDA
+    tensors the walk by dst (:func:`sddmm_walk`), with x3 and z3 padded to
+    a multiple of 4 columns where Fh is not one; any H * Fh (a row wider
+    than one launch holds takes several)."""
     _check_operand(tf, x3, tf.num_src, 3, "x3")
     _check_operand(tf, z3, tf.num_dst, 3, "z3")
     if tuple(x3.shape[1:]) != (H, Fh) or tuple(z3.shape[1:]) != (H, Fh):
@@ -733,21 +879,9 @@ def tiled_sddmm_dot_multihead(tf: TiledFormat, x3: torch.Tensor,
                          f"not match H={H}, Fh={Fh}")
     if not on_cuda(x3, z3, tf.valid):
         return tiled_sddmm_dot_multihead_plain(tf, x3, z3)
-    b = tf.num_buckets
-    _check_int32(b * H * tf.cap, tf.num_src_tiles * tf.tile * H * Fh,
-                 tf.num_dst_tiles * tf.tile * H * Fh)
-    out = torch.empty(b, H, tf.cap, dtype=torch.float32, device=x3.device)
-    if H * Fh == 0:
-        return out.zero_()
-    x = x3.float().contiguous()
-    z = z3.float().contiguous()
-    chunks = b * tf.cap // 32
-    blocks = max(1, min(-(-chunks // _SDDMM_WARPS), 16 * _sms(x.device)))
-    _launch("dgl_tiled_sddmm_mh", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile,
-            tf.cap, x.data_ptr(), z.data_ptr(), H, Fh, out.data_ptr(),
-            _lanes_per_head(H), blocks, x.device.index, _stream(x.device))
+    hp = -(-Fh // 4) * 4
+    out = sddmm_walk(tf.row_view("dst"), tf.num_buckets, tf.cap,
+                     _vec4_rows(x3, hp), _vec4_rows(z3, hp))
     tiled_sddmm_dot_multihead.launches += 1
     return out
 

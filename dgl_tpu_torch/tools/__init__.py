@@ -2,12 +2,20 @@
 (:mod:`.perf_bitmm_variants`) and the probe of K5's src-major forward at
 full bit density (:mod:`.perf_bitgat_probe`), the counterparts of the JAX
 package's ``tools/perf_bitmm_variants.py`` and
-``tools/perf_bitgat_probe.py``; and the probe of the row walk's design
-choices on the Reddit-statistics graph (:mod:`.perf_row_walk`).  Each runs as ``python -m
-dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
+``tools/perf_bitgat_probe.py``; and the probes of the row walk's design
+choices (:mod:`.perf_row_walk`) and of the SDDMM walk's write layouts
+(:mod:`.perf_sddmm_walk`) on the Reddit-statistics graph.  Each runs as
+``python -m dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at
+import."""
+import ctypes
+import hashlib
+import os
 import statistics
+import subprocess
 
 import torch
+
+from ..ops.kernels import build
 
 
 def cuda_ms(fn, reps=5):
@@ -47,3 +55,49 @@ def popcount(words: torch.Tensor) -> int:
         v = (v + (v >> 4)) & 0x0F0F0F0F
         total += int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
     return total
+
+
+def edited_source(source: str, edits, name: str) -> str:
+    """``csrc/<source>.cu`` with each (old, new) edit applied; raises if an
+    old text is not found exactly once.  ``name`` names the variant in the
+    error."""
+    with open(build.sources()[source]) as f:
+        src = f.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"variant {name}: {old!r} occurs "
+                             f"{src.count(old)} times in {source}.cu")
+        src = src.replace(old, new)
+    return src
+
+
+def build_edited(source: str, sources: dict, signatures: dict) -> dict:
+    """{name: {fn: the C function fn of that CUDA source}} for each source
+    in ``sources`` ({name: text}) and each fn of ``signatures`` ({fn:
+    argtypes}), built all at once with the package's ``nvcc`` flags into
+    its build directory, each file named after ``source``, the name and a
+    hash of the text."""
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        digest = hashlib.sha256(src.encode()).hexdigest()[:16]
+        cu = os.path.join(build.BUILD_DIR, f"{source}_{name}-{digest}.cu")
+        lib = cu[:-3] + ".so"
+        with open(cu, "w") as f:
+            f.write(src)
+        procs[name] = (subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
+        dll = ctypes.CDLL(lib)
+        fns[name] = {}
+        for fn, argtypes in signatures.items():
+            f = getattr(dll, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            fns[name][fn] = f
+    return fns

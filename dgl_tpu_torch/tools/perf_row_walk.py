@@ -25,11 +25,8 @@ CPU check of the claim orders and of the variants' edits).
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -37,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from . import cuda_ms
+from . import build_edited, cuda_ms, edited_source
 from .. import add_self_loop, graph, remove_self_loop
 from ..data import reddit_like_graph_sym
 from ..ops.kernels import build
@@ -77,43 +74,16 @@ VARIANTS = {
 
 
 def variant_source(name: str) -> str:
-    """``csrc/row_agg.cu`` with the edits of VARIANTS[name]; raises if an
-    edit's text is not found exactly once."""
-    with open(build.sources()["row_agg"]) as f:
-        src = f.read()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} occurs "
-                             f"{src.count(old)} times in row_agg.cu")
-        src = src.replace(old, new)
-    return src
+    """``csrc/row_agg.cu`` with the edits of VARIANTS[name]."""
+    return edited_source("row_agg", VARIANTS[name], name)
 
 
 def build_variants():
     """{name: the ``dgl_row_agg`` C function of each variant}, built all at
     once into the package's build directory."""
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in VARIANTS:
-        src = variant_source(name)
-        digest = hashlib.sha256(src.encode()).hexdigest()[:16]
-        cu = os.path.join(build.BUILD_DIR, f"row_agg_{name}-{digest}.cu")
-        lib = cu[:-3] + ".so"
-        with open(cu, "w") as f:
-            f.write(src)
-        procs[name] = (subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
-    for name, (proc, lib) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
-        fn = ctypes.CDLL(lib).dgl_row_agg
-        fn.argtypes = tts._SIGNATURES["row_agg"]["dgl_row_agg"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    sig = {"dgl_row_agg": tts._SIGNATURES["row_agg"]["dgl_row_agg"]}
+    return {name: fns["dgl_row_agg"] for name, fns in build_edited(
+        "row_agg", {n: variant_source(n) for n in VARIANTS}, sig).items()}
 
 
 def tiny_check():

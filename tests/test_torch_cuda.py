@@ -8,8 +8,9 @@ PyTorch:
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
 atomics (K5's, for the gradient of er, and K3's and K6's reduce's
 shared-memory adds) add in an order that changes from run to run.  The
-row walk (K4's SpMM, K6's dx) sums each row in slot order; its checks
-take dyadic inputs and ask for equality."""
+row walk (K4's SpMM, K6's dx) sums each row in slot order, the SDDMM walk
+forms each dot in one lane order and K2 sums a row's bits in one list
+order; their checks take dyadic inputs and ask for equality."""
 import math
 
 import numpy as np
@@ -367,6 +368,134 @@ def test_row_walk_wrappers_never_take_plain_on_cuda(card, monkeypatch):
     torch.cuda.synchronize()
     assert (tts.tiled_spmm_multihead.launches,
             tgf.src_aggregate.launches) == (before[0] + 1, before[1] + 1)
+
+
+# the main path's widths, and rows wider than one launch of the walk
+# holds (two groups of 4 heads; groups of 2 and 1; two column chunks)
+SDDMM_SHAPES = [(4, 32), (1, 41), (8, 8), (2, 64), (8, 256), (3, 300),
+                (1, 2048)]
+
+
+@pytest.mark.parametrize("heads,fh", SDDMM_SHAPES)
+def test_sddmm_walk_matches_plain(card, heads, fh):
+    """K4's SDDMM, the dot-product walk by dst, equals its plain version
+    exactly on dyadic inputs (each dot at most 2,048 products of multiples
+    of 1/16, exact in f32), the dst hub of degree 12,000, rows with no
+    slot and the dst tile with no bucket included, every padded slot 0."""
+    fwd, y, _ = _row_walk_case(card, heads, fh, heads * 100 + fh + 11)
+    x, z = y["dst"], y["src"]         # (num_src, H, Fh), (num_dst, H, Fh)
+    deg = fwd.row_view("dst").ptr.diff()
+    assert int(deg.max()) >= 12_000 and int(deg.min()) == 0
+    before = tts.tiled_sddmm_dot_multihead.launches
+    e = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+    torch.cuda.synchronize()
+    assert tts.tiled_sddmm_dot_multihead.launches == before + 1
+    want = tts.tiled_sddmm_dot_multihead_plain(fwd, x, z)
+    assert torch.equal(e, want)
+    pad = fwd.valid.reshape(fwd.num_buckets, 1, fwd.cap) == 0
+    assert pad.any() and (e.masked_select(pad) == 0).all()
+
+
+@pytest.mark.parametrize("heads,fh", [(4, 32), (1, 2048)])
+def test_sddmm_walk_is_deterministic(card, heads, fh):
+    """No row is split, each dot is reduced in one lane order and the
+    column chunks' parts are added in one order, so two calls on inputs
+    off any grid give the same bits."""
+    fwd, _, _ = _row_walk_case(card, heads, fh, 5)
+    gen = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn(fwd.num_src, heads, fh, device=card, generator=gen)
+    z = torch.randn(fwd.num_dst, heads, fh, device=card, generator=gen)
+    a = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+    b = tts.tiled_sddmm_dot_multihead(fwd, x, z, heads, fh)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a, tts.tiled_sddmm_dot_multihead_plain(fwd, x, z), rtol=RTOL,
+        atol=ATOL * fh / 32)
+
+
+def test_sddmm_probe_layouts_on_card(card):
+    """The SDDMM probe's write layouts (its edits of ``csrc/row_agg.cu``,
+    the bucket-order walk and the passes of ``tools/sddmm_probe.cu``)
+    give the plain version's bits, and its CPU check holds."""
+    from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
+    assert tsw.tiny_check() == tsw.LAYOUTS
+    walks, own = tsw.build_probe()
+    for heads, fh in ((4, 32), (1, 41)):
+        fwd, y, _ = _row_walk_case(card, heads, fh, 9)
+        hp = -(-fh // 4) * 4
+        calls = tsw.layout_calls(fwd, tts._vec4_rows(y["dst"], hp),
+                                 tts._vec4_rows(y["src"], hp), walks, own)
+        want = tts.tiled_sddmm_dot_multihead_plain(fwd, y["dst"], y["src"])
+        for layout in (*tsw.LAYOUTS, "direct_memset"):
+            assert torch.equal(calls[layout](), want), layout
+
+
+def test_sddmm_and_k2_never_take_plain_on_cuda(card, monkeypatch):
+    """On CUDA tensors K4's SDDMM and K2 launch their kernels: a plain
+    version that is reached raises."""
+    fwd, y, _ = _row_walk_case(card, 1, 41, 3)
+    bf, x = _k2_case(card, 128)
+    for module, name in ((tts, "tiled_sddmm_dot_multihead_plain"),
+                         (tbm, "bit_matmul_plain")):
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} reached with CUDA tensors")
+        monkeypatch.setattr(module, name, refuse)
+    before = (tts.tiled_sddmm_dot_multihead.launches, tbm.bit_matmul.launches)
+    tts.tiled_sddmm_dot_multihead(fwd, y["dst"], y["src"], 1, 41)
+    tbm.bit_matmul(bf.packed, x, bf.num_dst)
+    torch.cuda.synchronize()
+    assert (tts.tiled_sddmm_dot_multihead.launches,
+            tbm.bit_matmul.launches) == (before[0] + 1, before[1] + 1)
+
+
+K2_HUB, K2_EMPTY = 5, 7
+
+
+def _k2_case(card, f):
+    """The bits of a 16,000-src x 4,000-dst graph (n32 = 512, two steps a
+    row; srcs in bit plane 31), a dst hub with an edge from each of 12,500
+    srcs and a dst with no edge; x on a grid of 1/16 in [-1, 1], on which
+    every f32 sum of the hub's 12,500 rows is exact."""
+    rng = np.random.default_rng(f)
+    n_src, n_dst = 16_000, 4_000
+    row = np.r_[rng.integers(0, n_src, 80_000), np.arange(12_500),
+                rng.integers(31 * 512, n_src, 500)]
+    col = np.r_[rng.integers(0, n_dst, 80_000), np.full(12_500, K2_HUB),
+                rng.integers(0, n_dst, 500)]
+    keep = col != K2_EMPTY
+    bf = tbm.build_bit_format_device(row[keep], col[keep], n_src, n_dst,
+                                     device=card)
+    gen = torch.Generator(device=card).manual_seed(f)
+    x = torch.randint(-16, 17, (n_src, f), device=card,
+                      generator=gen).float() / 16
+    return bf, x
+
+
+@pytest.mark.parametrize("f", [97, 128, 256])
+def test_k2_matches_plain(card, f):
+    """K2, the bit-list walk, equals its plain version exactly: the hub
+    row of 12,500 bits, the row with none (0) and bit 31 included."""
+    bf, x = _k2_case(card, f)
+    assert (bf.packed < 0).any()
+    before = tbm.bit_matmul.launches
+    got = tbm.bit_matmul(bf.packed, x, bf.num_dst)
+    torch.cuda.synchronize()
+    assert tbm.bit_matmul.launches == before + 1
+    assert torch.equal(got, tbm.bit_matmul_plain(bf.packed, x, bf.num_dst))
+    assert (got[K2_EMPTY] == 0).all() and (got[K2_HUB] != 0).any()
+
+
+def test_k2_is_deterministic(card):
+    """A row's bits are summed by one warp in one list order: two launches
+    on inputs off any grid give the same bits."""
+    bf, _ = _k2_case(card, 160)
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(bf.num_src, 160, device=card, generator=gen)
+    a = tbm.bit_matmul(bf.packed, x, bf.num_dst)
+    assert torch.equal(a, tbm.bit_matmul(bf.packed, x, bf.num_dst))
+    torch.testing.assert_close(
+        a, tbm.bit_matmul_plain(bf.packed, x, bf.num_dst), rtol=RTOL,
+        atol=ATOL)
 
 
 @pytest.mark.parametrize("heads,fh", [(4, 32), (1, 41), (8, 16), (3, 5)])

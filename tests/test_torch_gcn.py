@@ -247,10 +247,11 @@ tgf.edgegat_attention_aggregate(
     tgf.slot_edge_tensor(tf, torch.randn(400, 2)).permute(0, 2, 1), fe,
     torch.randn(50, 2, 4), 2, 4, 0.2).sum().backward()           # K10 v1
 from dgl_tpu_torch.tools import (perf_bitgat_probe, perf_bitmm_variants,
-                                  perf_row_walk)
+                                  perf_row_walk, perf_sddmm_walk)
 perf_bitgat_probe.tiny_check("cpu")                              # P2
 perf_bitmm_variants.tiny_check("cpu")                            # P1
 perf_row_walk.tiny_check()
+perf_sddmm_walk.tiny_check()
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "dgl_tpu"))

@@ -14,7 +14,10 @@ package's on the CPU, and ``chip_smoke.py``'s search for the package.
   undone here), x is f32 on both sides, rtol 1e-5 / atol 1e-4.
 
 * ``perf_row_walk``'s tiny check (the claim orders it compares and the
-  edits of its source variants), which has no JAX counterpart.
+  edits of its source variants), which has no JAX counterpart;
+* ``perf_sddmm_walk``'s tiny check (the index arithmetic of the SDDMM's
+  four write layouts against its plain version, exactly on a dyadic
+  grid, and the hub rows split from the rest), no JAX counterpart either.
 
 No file of the JAX package's ``tools/`` changes: the tests load them by
 path and patch their module globals.
@@ -34,6 +37,7 @@ import pytest
 from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
 from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
 from dgl_tpu_torch.tools import perf_row_walk as trw
+from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -154,3 +158,12 @@ def test_row_walk_probe_tiny():
         source = f.read()
     for name in trw.VARIANTS:
         assert trw.variant_source(name) != source
+
+
+def test_sddmm_walk_probe_tiny():
+    """The SDDMM probe's CPU check: each write layout's rendering equals
+    the plain version, and the hub rows and the rest are every row once."""
+    assert tsw.tiny_check() == ("entry", "direct", "slot_major", "bucket")
+    assert os.path.exists(tsw.PROBE_SOURCE)
+    sources = tsw.edited_sources()
+    assert set(sources) == set(tsw.LAYOUT_EDITS) | set(tsw.VARIANTS)

@@ -21,7 +21,8 @@ Phases, each of which raises on failure (nothing is caught):
 6. ``GraphConv(128, 128)`` forward and backward at full size (K2);
 7. yardsticks at full size: each kernel's time (median of 5), its plain
    version's, one ``torch.sparse.mm`` on a CSR copy of A, and the bound;
-   then both kernels at F = 16, 32, 64 and at the K1/K2 gate, F = 96;
+   the spread of set bits over the word columns of K1's slabs; then both
+   kernels at F = 16, 32, 64 and at the K1/K2 gate, F = 96;
 8. the GAT slice at mid size: K5 forward and backward
    (``bitgat_attention_aggregate``) against their plain versions on the
    phase-3 graph made simple, at (H, D) = (4, 32), (1, 41) and (8, 16),
@@ -498,7 +499,8 @@ def phase_train(dgt, bm, g, x, y, train):
 # each wrapper's launch counter and the CUDA kernel it launches, once a
 # call, or the kernels it launches, each once a call (K4's SDDMM: the walk
 # and its finishing pass, at the main path's widths, which one launch of
-# the walk holds); K4's SpMM and the src-side aggregation share the row
+# the walk holds; K12's columns: the split of z and the tensor-core
+# product); K4's SpMM and the src-side aggregation share the row
 # walk, K13 and K5's backward another kernel: the counts of wrappers that
 # share one are held together
 TRACED_KERNELS = {
@@ -513,7 +515,8 @@ TRACED_KERNELS = {
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
     "int8_matmul_rows": "int8_rows_kernel",
-    "int8_matmul_cols": "int8_cols_kernel", "k3_spmm": "tiled_spmm_kernel",
+    "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
+    "k3_spmm": "tiled_spmm_kernel",
     "bitgat_fwd_t": "bitgat_fwd_t_kernel",
     "bit_shard_gat_bwd": "bitgat_bwd_kernel",
     "egatc_scores": "vattn_scores_kernel",
@@ -669,6 +672,24 @@ def yardstick(g, bm, name, kernel, plain, packed, f, rate):
             "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms}
+
+
+def slab_balance(bm, packed):
+    """The set bits of each word column of ``packed``, and for each of K1's
+    slabs the largest column's against the slab's mean: the load of the
+    busiest of its warps, had each column's dst nodes one owner in the
+    block (K1 gives its bits none: reductions in L2).  Logged."""
+    n32 = packed.shape[1]
+    cols = torch.zeros(n32, dtype=torch.int64, device=packed.device)
+    step = max(1, (1 << 26) // n32)
+    for r in range(0, packed.shape[0], step):
+        cols += popcounts(packed[r:r + step]).sum(0)
+    w = bm.T_SLAB_WORDS
+    slabs = cols[:n32 // w * w].view(-1, w).float()
+    ratio = slabs.max(1).values / slabs.mean(1).clamp(min=1)
+    log(f"# K1's slabs of {w} words: the busiest word column's set bits "
+        f"{float(ratio.mean()):.3f}x its slab's mean on average, "
+        f"{float(ratio.max()):.3f}x at most")
 
 
 def gate_times(bm, bits):
@@ -3053,7 +3074,7 @@ def phase_bitmm_sweep(bm, tp1, rate):
     res = tp1.sweep(reps=3)
     torch.cuda.synchronize()
     launches = bm.bit_matmul_t.launches
-    w = bm._slab_words(tp1.F)
+    w = bm.T_SLAB_WORDS
     bnd, by = bound(res["nbytes"], 2 * res["bits"] * tp1.F, rate)
     log(f"# K1 slab sweep KP = N = {tp1.KP}, F = {tp1.F}, {res['bits']} set "
         "bits: " + ", ".join(f"{k} words {v:.4f} ms"
@@ -3417,7 +3438,7 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate):
 
 # -- the hybrid slice (K12) ---------------------------------------------------
 
-K12_FS = (1, 16, 41, 128)
+K12_FS = (1, 8, 16, 41, 128)
 # bench.py's hybrid settings (bench.py:91-97: k_dense 32768, min_degree
 # 96, symmetric; tile 1024, cap 512), and what they give on the phase-4
 # graph (seed 0, 114,848,857 edges with self-loops), measured on the host
@@ -3492,7 +3513,7 @@ def auto_format_graphs():
 
 def phase_hybrid_mid(dgt, i8, tts):
     """Phase 31: K12 against its plain version in both orientations at
-    mid size (k = 1003, N = 23,900, N_pad = 23,936; F = 1, 16, 41, 128;
+    mid size (k = 1003, N = 23,900, N_pad = 23,936; F = 1, 8, 16, 41, 128;
     counts up to 127 at a hub row's density; exact on a grid of 2^-12,
     which bf16 does not hold, within the f32 rounding of two sums on
     normal inputs; an all-zero block), each one's time; then
@@ -3761,15 +3782,20 @@ REDDIT_SHARD_BYTES = 6_813_646_848
 REDDIT_EDGES = 114_848_857
 
 
+def popcounts(words):
+    """The set bits of each word of an int32 tensor, as int64."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def popcount(words):
     """Set bits of an int32 tensor, counted 2^26 words at a time."""
     flat, total = words.reshape(-1), 0
     for i in range(0, flat.numel(), 1 << 26):
-        v = flat[i:i + (1 << 26)].to(torch.int64) & 0xFFFFFFFF
-        v = v - ((v >> 1) & 0x55555555)
-        v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-        v = (v + (v >> 4)) & 0x0F0F0F0F
-        total += int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+        total += int(popcounts(flat[i:i + (1 << 26)]).sum())
     return total
 
 
@@ -4339,6 +4365,7 @@ def main():
                    bm.bit_matmul_t_plain, bits.packed_rev, HIDDEN, rate)
     k2 = yardstick(g, bm, "K2 bit_matmul", bm.bit_matmul,
                    bm.bit_matmul_plain, bits.packed, 128, rate)
+    slab_balance(bm, bits.packed_rev)
     gate_times(bm, bits)
     log(f"# phase 7 (K1, K2 yardsticks): {time.perf_counter() - t0:.1f}s")
 
@@ -4500,7 +4527,7 @@ def main():
     kernels = [
         {"name": "bit_matmul_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
-         "replaces": "dgl_tpu/ops/pallas/bitmm.py:297",
+         "replaces": "dgl_tpu/ops/pallas/bitmm.py:298",
          "launches": k1_launches, **k1},
         {"name": "bit_matmul", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",

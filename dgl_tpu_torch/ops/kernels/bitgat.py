@@ -139,7 +139,11 @@ def bit_edges(packed: torch.Tensor, num_rows: int):
 
 
 def _lrelu_exp(raw, slope):
-    return torch.exp(torch.maximum(raw, slope * raw))
+    """exp(lrelu(raw)) in f32, the exponential taken in f64: the first f32
+    ``torch.exp`` of a CPU process with several threads sometimes returns
+    one thread's share of the elements off by up to 1.5e-4 of their value
+    (torch 2.13), and the f64 path does not."""
+    return torch.exp(torch.maximum(raw, slope * raw).double()).to(raw.dtype)
 
 
 def bitgat_fwd_plain(packed, el, er, z, num_dst: int, slope: float,

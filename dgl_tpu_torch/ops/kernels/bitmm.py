@@ -22,7 +22,10 @@ Two kernels (``csrc/bitmm.cu``), each with a plain PyTorch version beside
 it that computes the same function:
 
 * :func:`bit_matmul_t` (K1, for F <= 96) computes A @ x from the bits of
-  A^T, the route of ``_bit_matmul_t``;
+  A^T, the route of ``_bit_matmul_t``: persistent blocks stream slabs of
+  its words by TMA, list their set bits and add the listed x rows into
+  out by reductions in L2 (:func:`k1_plan` is how the blocks share the
+  words);
 * :func:`bit_matmul` (K2, for F > 96) computes A @ x from the bits of A,
   the route of ``_bit_matmul``.
 
@@ -51,6 +54,11 @@ K_ALIGN = 1024     # dst padding: K_pad is a multiple of this
 T_MAX_F = 96       # route F <= this through K1 (bit_matmul_t)
 REM_CHUNK = 1_048_576   # COO-remainder rows gathered per step
 PLAIN_ROWS = 1024  # rows a plain version unpacks at a time
+SLAB_WORDS = (8, 16, 32)   # K1's slab widths, in words of packed_t
+# K1's default: a TMA box reads 128-byte runs of each row (narrower slabs
+# read shorter runs and stream slower; perf_bitmm_variants sweeps them)
+T_SLAB_WORDS = 32
+T_TILE_ROWS = 128  # K1: rows of packed_t in a stage (a TMA box)
 
 
 @dataclasses.dataclass
@@ -235,8 +243,6 @@ _SIGNATURES = {
     "dgl_bit_matmul_t": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
     "dgl_bit_matmul": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P],
 }
-# shared memory a block may use on Hopper
-_SMEM_PER_SM = 232_448
 
 
 def _check(packed: torch.Tensor, x: torch.Tensor, num_dst: int,
@@ -251,13 +257,34 @@ def _check(packed: torch.Tensor, x: torch.Tensor, num_dst: int,
                          f"{tuple(packed.shape)}")
 
 
-def _slab_words(f: int) -> int:
-    """Words of ``packed_t`` a K1 block owns: its slab is 32 * w dst
-    nodes x f columns of f32 in shared memory (32 KB at F = 16, 64 KB
-    at F = 32, 96 KB at F = 96).  A wider slab reads longer runs of each
-    row, a narrower one leaves room for more blocks on an SM; of the
-    widths 2-32 these ran fastest on an H100 at Reddit scale."""
-    return 16 if f <= 32 else 8
+def _k1_vec(f: int, x: torch.Tensor, out: torch.Tensor) -> int:
+    """Floats K1 reads of x and adds into out at a time: 4, 2 or 1, the
+    widest that divides F and both tensors' alignment."""
+    vec = 4
+    while vec > 1 and (f % vec or x.data_ptr() % (4 * vec)
+                       or out.data_ptr() % (4 * vec)):
+        vec //= 2
+    return vec
+
+
+def k1_plan(rows: int, n32: int, w: int, blocks: int):
+    """K1's work, one list a block: (slab, first row, end row) segments.
+    The (slab, row) units, slab-major (a slab is w words of every row),
+    are cut into ``blocks`` equal runs (block c takes units
+    c T / blocks .. (c + 1) T / blocks - 1); each segment is walked in
+    tiles of ``T_TILE_ROWS`` rows.  ``bit_matmul_t_kernel`` computes the
+    same runs."""
+    total = -(-n32 // w) * rows
+    plan = []
+    for c in range(blocks):
+        u, hi, segs = c * total // blocks, (c + 1) * total // blocks, []
+        while u < hi:
+            slab, r0 = divmod(u, rows)
+            r1 = min(rows, r0 + hi - u)
+            segs.append((slab, r0, r1))
+            u += r1 - r0
+        plan.append(segs)
+    return plan
 
 
 def _k2_layout(f: int, x: torch.Tensor):
@@ -285,35 +312,37 @@ def _launch(fn: str, *args):
 def bit_matmul_t(packed_t: torch.Tensor, x: torch.Tensor,
                  num_dst: int, slab_words=None) -> torch.Tensor:
     """K1: A @ x (num_dst, F) f32 from ``packed_t``, the bits of A^T
-    (rows = the rows of x), for F <= 96.  ``slab_words``: the words of
-    ``packed_t`` a block owns, 1 to 32 (``_slab_words(F)`` by default; the
-    slab-width sweep, ``dgl_tpu_torch.tools.perf_bitmm_variants``, sets
-    it)."""
+    (rows = the rows of x), for F <= 96.  ``slab_words``: the words of each
+    row a block's slab spans, 8, 16 or 32 (``T_SLAB_WORDS`` by default;
+    the slab-width sweep, ``dgl_tpu_torch.tools.perf_bitmm_variants``,
+    sets it).  On the card the rows must be a multiple of 4 words (TMA
+    reads them 16-byte aligned): every bitmask of the port is (N_pad a
+    multiple of 8,192, shards of 4,096 dst nodes)."""
     _check(packed_t, x, num_dst, packed_t.shape[0], packed_t.shape[1] * 32)
-    if x.shape[1] > T_MAX_F:
+    f = x.shape[1]
+    if f > T_MAX_F:
         raise ValueError(f"bit_matmul_t takes F <= {T_MAX_F}")
-    if slab_words is not None and not 1 <= slab_words <= 32:
-        raise ValueError(f"slab_words must lie in 1..32, got {slab_words}")
+    w = T_SLAB_WORDS if slab_words is None else slab_words
+    if w not in SLAB_WORDS:
+        raise ValueError(f"slab_words must be one of {SLAB_WORDS}, got {w}")
     if not on_cuda(packed_t, x):
         return bit_matmul_t_plain(packed_t, x, num_dst)
-    rows, f = x.shape
+    rows = x.shape[0]
     n32 = packed_t.shape[1]
     out = torch.zeros(num_dst, f, dtype=torch.float32, device=x.device)
     if rows == 0 or f == 0 or num_dst == 0:
         return out
+    if n32 % 4:
+        raise ValueError(f"packed_t's rows of {n32} words are not a "
+                         "multiple of 4")
     x = x.float().contiguous()
     packed_t = packed_t.contiguous()
-    w = _slab_words(f) if slab_words is None else int(slab_words)
-    slabs = -(-n32 // w)
-    blocks_per_sm = max(1, _SMEM_PER_SM // (32 * w * f * 4 + 1024))
+    if packed_t.data_ptr() % 16:
+        raise ValueError("packed_t's storage is not 16-byte aligned")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # about two waves of blocks; each chunk's slab is flushed with atomics
-    chunks = max(1, min(-(-2 * sms * blocks_per_sm // slabs),
-                        -(-rows // 512)))
-    rows_per_chunk = -(-rows // chunks)
-    chunks = -(-rows // rows_per_chunk)
+    blocks = min(sms, -(-n32 // w) * rows)
     _launch("dgl_bit_matmul_t", packed_t.data_ptr(), n32, x.data_ptr(),
-            rows, f, out.data_ptr(), num_dst, w, rows_per_chunk, chunks,
+            rows, f, out.data_ptr(), num_dst, w, _k1_vec(f, x, out), blocks,
             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     bit_matmul_t.launches += 1
     return out

@@ -4,9 +4,9 @@ Each ``dgl_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which
 ``ctypes`` loads; no PyTorch header is compiled, so a build takes seconds.
 Libraries land in ``dgl_tpu_torch/_build/`` under a name that carries a
-hash of the source and the flags, so an edited source is rebuilt at its
-next use.  All sources are compiled together, one ``nvcc`` each.  Nothing
-here runs at import time.
+hash of the source, the headers of ``csrc/`` (``*.cuh``) and the flags,
+so an edited source or header is rebuilt at its next use.  All sources are
+compiled together, one ``nvcc`` each.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I",
+              CSRC_DIR)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -49,8 +50,11 @@ def sources() -> Dict[str, str]:
 
 
 def library_path(name: str) -> str:
-    with open(sources()[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [sources()[name],
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

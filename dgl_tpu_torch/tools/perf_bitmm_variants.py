@@ -9,12 +9,14 @@ Counterpart of the JAX package's ``tools/perf_bitmm_variants.py`` (P1:
 
 that differ in how a bit plane is unpacked into the matrix unit's operand
 and in the output's layout.  Neither exists on the card: K1
-(``csrc/bitmm.cu`` ``bit_matmul_t_kernel``) walks the set bits with
-``__ffs`` and adds x's rows into a block's slab in shared memory.  Its
-free axis is the slab's width, ``w`` words of the packing (32 w dst nodes,
-``bitmm._slab_words``), so this sweep times K1 at 8, 16 and 32 words on
-the JAX sweep's work: KP = N = 110,592, F = 16, uniformly random bits (half
-of them set) made on the device.  x is on a grid of 1/16 in [-1, 1], so
+(``csrc/bitmm.cu`` ``bit_matmul_t_kernel``) streams slabs of ``w`` words of
+every row by TMA, lists their set bits and adds the listed x rows into
+out by reductions in L2.  Its free axis is the slab's width, ``w`` words
+of the packing (32 w dst nodes, 4 w bytes of each row a TMA box reads,
+``bitmm.T_SLAB_WORDS`` by default), so this sweep times K1 at 8, 16 and
+32 words on the JAX sweep's work: KP = N = 110,592, F = 16, uniformly
+random bits (half of them set: each warp's list fills and is drained many
+times a tile) made on the device.  x is on a grid of 1/16 in [-1, 1], so
 every width's sums, and the plain version's, are exact in f32 in any order
 and are held equal to the plain version's on the full output.
 

@@ -912,9 +912,11 @@ def test_edgegat_kernels_match_plain(card, heads, fh, fe):
     before = [k.launches for k in counters]
     p, g = tgf.edgegat_scores(fwd, el, er, ef, m, 0.2)
     s = tgf.slot_feat_reduce(fwd, p, ef)
-    zn = torch.randn(fwd.num_dst, heads, fh, device=card)
-    rp = torch.randn(fwd.num_dst, heads, device=card)
-    zp = torch.randn(fwd.num_dst, heads, fe, device=card)
+    gen = torch.Generator(device=card).manual_seed(heads * 1000 + fh * 10
+                                                   + fe)
+    zn = torch.randn(fwd.num_dst, heads, fh, device=card, generator=gen)
+    rp = torch.randn(fwd.num_dst, heads, device=card, generator=gen)
+    zp = torch.randn(fwd.num_dst, heads, fe, device=card, generator=gen)
     ds, no_def = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp)
     ds2, d_ef = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp, p, m)
     q = tgf.slot_feat_reduce(fwd, ds, ef)
@@ -925,13 +927,28 @@ def test_edgegat_kernels_match_plain(card, heads, fh, fe):
     want_ds, want_def = tgf.edgegat_ds_plain(fwd, x, zn, rp, g, ef, zp, p, m)
     for a, b in ((p, want_p), (g, want_g),
                  (s, tgf.slot_feat_reduce_plain(fwd, p, ef)),
-                 (ds, want_ds), (ds2, want_ds), (d_ef, want_def),
                  (q, tgf.slot_feat_reduce_plain(fwd, ds, ef))):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    # ds is a dot of fh + fe products and rp, times g; d(ef) sums 2 H
+    # products over the heads.  Their terms are large at (4, 32, 16) (p and
+    # g up to e^clip) and cancel to units at some slots, where two f32
+    # orders of the same sums differ by more than ATOL: each is held to
+    # twice the f32 rounding of its terms' magnitudes where that exceeds
+    # the standard tolerance
+    mag_ds, mag_def = tgf.edgegat_ds_plain(
+        fwd, x.abs(), zn.abs(), -rp.abs(), g.abs(), ef.abs(), zp.abs(),
+        p.abs(), m.abs())
+    bound_ds = 2 * (fh + fe + 2) * 2.0 ** -24 * mag_ds
+    bound_def = (2 * (2 * heads + 1) * 2.0 ** -24 * mag_def
+                 + torch.einsum("bhc,fh->bcf", bound_ds, m.abs()))
+    for a, b, bound in ((ds, want_ds, bound_ds), (ds2, want_ds, bound_ds),
+                        (d_ef, want_def, bound_def)):
+        assert ((a - b).abs()
+                <= torch.maximum(ATOL + RTOL * b.abs(), bound)).all()
     pad = fwd.valid.reshape(fwd.num_buckets, fwd.cap, 1) == 0
     assert (d_ef.masked_select(pad) == 0).all()
 
-    dz = torch.randn(fwd.num_dst, heads, fh, device=card)
+    dz = torch.randn(fwd.num_dst, heads, fh, device=card, generator=gen)
     ins = [t.clone().requires_grad_() for t in (el, er, ef, We, attn, x)]
     out = tgf.edgegat_attention_aggregate_v2(fwd, *ins, heads, fh, 0.2)
     out.backward(dz)
@@ -1225,6 +1242,33 @@ def test_int8_kernels_match_plain(card, f, contract_rows):
     assert (err <= 2 * terms * 2.0 ** -24 * plain(a, normal.abs())).all()
     zero = torch.zeros_like(a)
     assert not kernel(zero, normal).any()
+
+
+@pytest.mark.parametrize("f", [1, 8, 16, 41, 128])
+@pytest.mark.parametrize("k,n_pad", [(1003, 5008), (77, 23_936)])
+def test_int8_cols_tensor_cores_exact_and_repeatable(card, f, k, n_pad):
+    """The column kernel (bf16 mma.sync over three parts of z) at ragged
+    k (not a multiple of its 32-row stage) and N_pad (not of its 512-row
+    pass), on int8 values over -128..127: exactly the plain version on a
+    grid of 2^-12 in [-1/4, 1/4] (values bf16 does not hold; every sum
+    exact in f32, as the assert on the block's column sums shows), and two
+    calls give the same bits on normal inputs."""
+    gen = torch.Generator(device=card).manual_seed(f * 1000 + k)
+    a = torch.randint(-128, 128, (k, n_pad), dtype=torch.int8, device=card,
+                      generator=gen)
+    a *= torch.rand(k, n_pad, device=card, generator=gen) < 0.05
+    assert (a == -128).any() and (a == 127).any()
+    assert int(a.abs().sum(0, dtype=torch.int64).max()) / 4 < 2 ** 12
+    z = torch.randint(-1024, 1025, (k, f), device=card,
+                      generator=gen).float() * 2.0 ** -12
+    before = tgi8.int8_matmul_cols.launches
+    got = tgi8.int8_matmul_cols(a, z)
+    torch.cuda.synchronize()
+    assert tgi8.int8_matmul_cols.launches == before + 1
+    assert torch.equal(got, tgi8.int8_matmul_cols_plain(a, z))
+    normal = torch.randn(k, f, device=card, generator=gen)
+    assert torch.equal(tgi8.int8_matmul_cols(a, normal),
+                       tgi8.int8_matmul_cols(a, normal))
 
 
 def test_int8_kernels_64bit_offsets(card):
@@ -1609,6 +1653,50 @@ def test_bit_matmul_t_slab_widths(card, w):
     got = tbm.bit_matmul_t(bf.packed_rev, x, n_dst, slab_words=w)
     torch.testing.assert_close(
         got, tbm.bit_matmul_t_plain(bf.packed_rev, x, n_dst), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f", [1, 16, 41, 96])
+@pytest.mark.parametrize("density", [3, 1])
+def test_k1_walk_matches_plain(card, f, density):
+    """K1's walk on random words (2^-3 of the bits set, or half of them:
+    lists drained in pieces), plane 31 set, rows ragged against its
+    128-row tiles and fewer than the packing's, words ragged against a
+    32-word slab (36 a row), num_dst short of 32 n32: exactly the plain
+    version on a grid of 1/16, at every slab width; one launch each."""
+    gen = torch.Generator(device=card).manual_seed(f * 10 + density)
+    rows, n32 = 777, 36
+    packed = torch.randint(-2 ** 31, 2 ** 31, (rows + 9, n32),
+                           dtype=torch.int32, device=card, generator=gen)
+    for _ in range(density - 1):
+        packed &= torch.randint(-2 ** 31, 2 ** 31, (rows + 9, n32),
+                                dtype=torch.int32, device=card,
+                                generator=gen)
+    packed[:3] |= -2 ** 31
+    x = _grid(card, gen, rows, f, step=1 / 16, top=1)
+    num_dst = 32 * n32 - 7
+    want = tbm.bit_matmul_t_plain(packed, x, num_dst)
+    for w in tbm.SLAB_WORDS:
+        before = tbm.bit_matmul_t.launches
+        got = tbm.bit_matmul_t(packed, x, num_dst, slab_words=w)
+        torch.cuda.synchronize()
+        assert tbm.bit_matmul_t.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f", [16, 96])
+def test_k1_walk_on_a_four_part_shard(card, f):
+    """K1 on each shard of a 4-part sharded build (the sharded GCN's
+    launches: rows = all nodes, 128 words a shard's row) equals its plain
+    version exactly on a grid."""
+    row, col, n = _shard_graph()
+    fmt = tbs.build_bit_sharded_format_device(row, col, n, 4, device=card)
+    gen = torch.Generator(device=card).manual_seed(f)
+    x = _grid(card, gen, fmt.kp, f, step=1 / 16, top=1)
+    for p in range(4):
+        shard = fmt.shards[p]
+        got = tbm.bit_matmul_t(shard, x, fmt.npp)
+        torch.testing.assert_close(
+            got, tbm.bit_matmul_t_plain(shard, x, fmt.npp), rtol=0, atol=0)
 
 
 def test_tools_tiny_checks_on_card(card):

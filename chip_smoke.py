@@ -33,7 +33,11 @@ Phases, each of which raises on failure (nothing is caught):
    on the phase-4 graph, then one more step under ``torch.profiler``;
 10. K5 yardsticks at full size, (H, D) = (4, 32) and (1, 41) with
    dropout 0.6: each kernel against its plain version on all rows, its
-   time (median of 5), its plain version's and the bound;
+   time (median of 5), its plain version's and the bound; the backward
+   (the listed walk) also without dropout, its registers and resident
+   warps, and beside it (``dgl_tpu_torch/tools/perf_bwd_walks.py``) the
+   warp walk it replaced, two edits of it (der by scalar reductions, 80
+   registers a thread) and the walk at other lanes an entry;
 11. the tiled slice at mid size: K3 (F = 16, 41, 128; no weights, edge
    weights and slot weights; forward and backward) and K4's SpMM and
    SDDMM ((H, Fh) = (4, 32), (1, 41), (8, 16)) against their plain
@@ -108,7 +112,10 @@ Phases, each of which raises on failure (nothing is caught):
    phase-23 format at (4, 32) with 16 edge features and the bias row
    (inputs exact in f32, as phase 21's): each kernel against
    its plain version, its time (median of 5), its plain version's and the
-   bound; no PyTorch call computes any of them.  Then route 5's other
+   bound; no PyTorch call computes any of them.  K9's node gradient (the
+   row walk, on ds made slot-major) must equal its plain version bit for
+   bit, with the tiled walk it replaced (``perf_bwd_walks``) timed beside
+   it.  Then route 5's other
    launches at its (8, 8) layer: K6's yardsticks and K4's SpMM, as phases
    16 and 20 time them at (1, 41);
 25. the EdgeGAT slice at mid size: each K10 v2 kernel (the edge scores,
@@ -188,7 +195,8 @@ Phases, each of which raises on failure (nothing is caught):
 36. ``bitgat_fwd_t`` and K13 yardsticks on the one-part shard and on
    shard 0 of a 4-part build at (4, 32) and (1, 41): each against its
    plain version on every row, its time (median of 5), its plain
-   version's and the bound;
+   version's and the bound, and the warp walk that K13's listed walk
+   replaced (``perf_bwd_walks``) timed beside it;
 37. the stored-edge-term slice at mid size: each K11 v1 kernel (the
    scores and the slot gradient over a stored FE, the slot vector sum on
    both sides) and each K10 v1 kernel (the numerator with a stored
@@ -501,16 +509,17 @@ def phase_train(dgt, bm, g, x, y, train):
 # and its finishing pass, at the main path's widths, which one launch of
 # the walk holds; K12's columns: the split of z and the tensor-core
 # product); K4's SpMM and the src-side aggregation share the row
-# walk, K13 and K5's backward another kernel: the counts of wrappers that
-# share one are held together
+# walk (and K9's node gradient, the walk in its node-gradient form), K13
+# and K5's backward another kernel: the counts of wrappers that share one
+# are held together
 TRACED_KERNELS = {
     "bit_matmul_t": "bit_matmul_t_kernel",
-    "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_kernel",
+    "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_list_kernel",
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": "gat_ds_kernel", "src_aggregate": "row_agg_kernel",
     "vattn_scores": "vattn_scores_kernel",
     "vattn_slot_grad": "vattn_slot_grad_kernel",
-    "vattn_node_grad": "vattn_node_grad_kernel",
+    "vattn_node_grad": "row_agg_kernel",
     "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
@@ -518,7 +527,7 @@ TRACED_KERNELS = {
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
     "k3_spmm": "tiled_spmm_kernel",
     "bitgat_fwd_t": "bitgat_fwd_t_kernel",
-    "bit_shard_gat_bwd": "bitgat_bwd_kernel",
+    "bit_shard_gat_bwd": "bitgat_bwd_list_kernel",
     "egatc_scores": "vattn_scores_kernel",
     "egatc_slot_grad": "vattn_slot_grad_kernel",
     "slot_vec_reduce": "src_agg_kernel", "fe_aggregate": "src_agg_kernel",
@@ -835,9 +844,13 @@ def phase_gat_train(dgt, bg, g, x, y, train):
     return model, opt, launches
 
 
-def bitgat_yardstick(bg, g, heads, dim, rate):
+def bitgat_yardstick(bg, tbw, g, heads, dim, rate):
     """K5 forward and backward against their plain versions on every row
-    of the full graph, with dropout as trained, and the timings."""
+    of the full graph, with dropout as trained (the backward without it
+    too), and the timings: the backward's listed walk beside the warp walk
+    it replaced, its edits and other lanes an entry, in this call
+    (``dgl_tpu_torch/tools/perf_bwd_walks.py``, each held to the listed
+    walk)."""
     bf = g.unit()._bits
     n = N_NODES
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
@@ -851,22 +864,51 @@ def bitgat_yardstick(bg, g, heads, dim, rate):
                                            thresh, seed)
     err_f = close(out, want_out, f"K5 fwd H={heads} D={dim}")
     err_l = close(l, want_l, f"K5 l H={heads} D={dim}")
+    order = bg.bwd_claim_order(bf)
+    for drop in (False, True):
+        regs, warps = bg.bwd_kernel_attrs(heads, dim, drop)
+        dp, lpe, cpl = bg.bwd_layout(heads, dim)
+        log(f"# K5 bwd listed walk H={heads} D={dim} drop={drop}: {regs} "
+            f"registers a thread, {warps} resident warps an SM; {dp} columns "
+            f"a head, {lpe} lanes an entry, {cpl} vectors a lane")
+    # without dropout first: a check, and the two walks' times
+    linv0, rho0 = bg.backward_scales(gr, *bg.bitgat_fwd_plain(
+        bf.packed, el, er, z, n, SLOPE), None)
+    args0 = (el, er, z, gr, linv0, rho0, n, SLOPE)
+    want0 = bg.bitgat_bwd_plain(bf.packed_rev, *args0)
+    err0 = max(close(a, b, f"K5 bwd {name} H={heads} D={dim} no dropout")
+               for name, a, b in zip(("d_el", "d_er", "d_z"),
+                                     bg.bitgat_bwd(bf.packed_rev, *args0,
+                                                   order=order), want0))
+    del want0
+    nodrop = tbw.k5_side_by_side(bf.packed_rev, order, args0 + (None, 0),
+                                 close, f"K5 bwd H={heads} D={dim} no "
+                                 "dropout", lanes=False)
+    log(f"# K5 bwd H={heads} D={dim} no dropout: " + side_by_side(nodrop)
+        + f"; listed walk max|err| {err0:.3g} against the plain version")
+    del linv0, rho0, args0
     linv, rho = bg.backward_scales(gr, want_out, want_l, thresh)
     bwd_args = (el, er, z, gr, linv, rho, n, SLOPE, thresh, seed)
-    got = bg.bitgat_bwd(bf.packed_rev, *bwd_args)
     want = bg.bitgat_bwd_plain(bf.packed_rev, *bwd_args)
     err_b = max(close(a, b, f"K5 bwd {name} H={heads} D={dim}")
-                for name, a, b in zip(("d_el", "d_er", "d_z"), got, want))
-    del out, l, want_out, want_l, got, want
+                for name, a, b in zip(("d_el", "d_er", "d_z"),
+                                      bg.bitgat_bwd(bf.packed_rev, *bwd_args,
+                                                    order=order), want))
+    del out, l, want_out, want_l, want
     times = {
         "fwd": cuda_ms(lambda: bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE,
                                              thresh, seed)),
         "fwd_plain": cuda_ms(lambda: bg.bitgat_fwd_plain(
             bf.packed, el, er, z, n, SLOPE, thresh, seed), reps=1),
-        "bwd": cuda_ms(lambda: bg.bitgat_bwd(bf.packed_rev, *bwd_args)),
+        "bwd": cuda_ms(lambda: bg.bitgat_bwd(bf.packed_rev, *bwd_args,
+                                             order=order)),
         "bwd_plain": cuda_ms(lambda: bg.bitgat_bwd_plain(bf.packed_rev,
                                                          *bwd_args), reps=1),
     }
+    side = tbw.k5_side_by_side(bf.packed_rev, order, bwd_args, close,
+                               f"K5 bwd H={heads} D={dim}")
+    log(f"# K5 bwd H={heads} D={dim} drop={ATTN_DROP}: "
+        + side_by_side(side))
     # bytes: each input read once and each output written once;
     # operations (f32): per edge and head about 5 (forward) or 12
     # (backward), per edge and feature column 2 (forward) or 4 (backward)
@@ -888,12 +930,24 @@ def bitgat_yardstick(bg, g, heads, dim, rate):
                       "bound_by": ("bytes" if bytes_ms >= ops_ms
                                    else "operations"),
                       "library_ms": None}
+        old = (f", the warp walk {side['warp']:.4f} ms" if name == "bwd"
+               else "")
         log(f"# K5 {name} H={heads} D={dim} drop={ATTN_DROP}: "
             f"{times[name]:.4f} ms (bound {rows[name]['bound_ms']:.4f} ms by "
             f"{rows[name]['bound_by']}: {nbytes} B, {ops} ops), plain "
             f"{times[f'{name}_plain']:.4f} ms, library none, max|err| "
-            f"{err:.3g}" + (f" (l {err_l:.3g})" if name == "fwd" else ""))
+            f"{err:.3g}" + (f" (l {err_l:.3g})" if name == "fwd" else "")
+            + old)
+    rows["bwd"].update(kernel="bitgat_bwd_list_kernel", old_ms=side["warp"])
     return rows
+
+
+def side_by_side(ms):
+    """A log line's text for ``perf_bwd_walks.k5_side_by_side``'s
+    readings."""
+    return (", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()
+                      if k != "max_abs_err")
+            + f" (max|err| {ms['max_abs_err']:.3g} against the listed walk)")
 
 
 # -- the tiled slice ---------------------------------------------------------
@@ -1857,6 +1911,15 @@ def vattn_inputs(tf, heads, dim, fe, gen):
     return U, V, attn, ds, ef, wf
 
 
+def equal(got, want, what):
+    """Raise unless ``got`` equals ``want`` bit for bit; its max|err|
+    (0)."""
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: not equal, max|err| "
+                             f"{float((got - want).abs().max()):.3g}")
+    return 0.0
+
+
 def close_sum(got, want, what):
     """``close`` for sums over every edge (da, dWf): atol scaled by the
     largest magnitude, since they grow with the edge count."""
@@ -2126,7 +2189,7 @@ def phase_egat_check(conv, g, x, ef, ef_slot):
         f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
 
 
-def vattn_yardsticks(tgf, g, heads, dim, fe, rate):
+def vattn_yardsticks(tgf, tbw, g, heads, dim, fe, rate):
     """Phase 24: each K9 / K11 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; no single PyTorch call
     computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
@@ -2187,17 +2250,46 @@ def vattn_yardsticks(tgf, g, heads, dim, fe, rate):
         walk + edge_h + 2 * node_b + 2 * hd * 4 + edge_b + rows * hd * 4,
         e * hd * (5 + (fe_ops // hd + 3 + 2 * rows if fe else 0)),
         check=close_sum)
-    # the node gradient on each side: in the slot arrays (and src_order),
-    # ds, U, V, attn (and the edge term); out one row per node.  Per edge
-    # and column: raw, dW, the add (5 ops)
+    if fe:
+        # K11 v2's node gradient on each side, the tiled walk: in the slot
+        # arrays (and src_order), ds, U, V, attn, the edge term; out one
+        # row per node.  Per edge and column: raw, dW, the add (5 ops)
+        for side in ("dst", "src"):
+            row(f"node_grad_{side}",
+                lambda: tgf.vattn_node_grad(tf, U, V, attn, ds, slope, side,
+                                            ef, wf),
+                lambda: tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope,
+                                                  side, ef, wf),
+                walk + (b * 4 if side == "src" else 0) + edge_h
+                + 3 * node_b + hd * 4 + edge_b, e * (5 * hd + fe_ops))
+        return out
+    # K9's node gradient on each side, the row walk on ds made slot-major
+    # once, as vattn_backward hands it: in the row view, 4H B an edge of
+    # ds, the neighbours' rows and the row's own once, attn; out one row per
+    # node.  Per edge and column: raw, the select, the add (4 ops).  On the
+    # dyadic grid every order of the sums gives the same bits, so the walk
+    # must equal its plain version exactly.  The tiled walk it replaced
+    # (dgl_tpu_torch/tools/perf_bwd_walks.py) is timed beside it and held
+    # to it
+    ds_sm = ds.transpose(1, 2).contiguous().transpose(1, 2)
     for side in ("dst", "src"):
+        n_rows = tf.num_dst if side == "dst" else tf.num_src
         row(f"node_grad_{side}",
-            lambda: tgf.vattn_node_grad(tf, U, V, attn, ds, slope, side, ef,
-                                        wf),
+            lambda: tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope, side),
             lambda: tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope,
-                                              side, ef, wf),
-            walk + (b * 4 if side == "src" else 0) + edge_h
-            + 3 * node_b + hd * 4 + edge_b, e * (5 * hd + fe_ops))
+                                              side),
+            row_walk_bytes(tf, side, heads, hd) + n_rows * hd * 4 + hd * 4,
+            e * 4 * hd, check=equal)
+        new = tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope, side)
+        err = close(tbw.tiled_node_grad(tf, U, V, attn, ds, slope, side),
+                    new, f"K9 node_grad_{side} (tiled walk) {tag}")
+        del new
+        old = cuda_ms(lambda: tbw.tiled_node_grad(tf, U, V, attn, ds, slope,
+                                                  side))
+        out[f"node_grad_{side}"].update(kernel="row_agg_kernel", old_ms=old)
+        log(f"# K9 node_grad_{side} {tag}: the tiled walk {old:.4f} ms, "
+            f"max|err| {err:.3g} against the row walk")
+    del ds_sm
     return out
 
 
@@ -4201,7 +4293,8 @@ def phase_sharded_gat(dgt, params, bm, bg, tgs, group, fmt, x, y, train,
     return counts
 
 
-def shard_yardsticks(bg, tgs, shard, npp, bits, tag, heads, dim, rate):
+def shard_yardsticks(bg, tbw, tgs, shard, npp, bits, tag, heads, dim,
+                     rate):
     """Phase 36: ``bitgat_fwd_t`` and K13 on one full-size shard (rows =
     every src, bit columns = the npp dst of one device) against their
     plain versions on every row, with their times (median of 5), the
@@ -4243,21 +4336,32 @@ def shard_yardsticks(bg, tgs, shard, npp, bits, tag, heads, dim, rate):
     linv, rho = bg.backward_scales(g, out, l, None)
     del out, l
     args = (shard, el, er, z, g, linv, rho, npp, SLOPE)
+    order = bg.claim_order(shard, kp)
     # K13: in the shard, el, z, er, linv, rho, g; out del, dz (every
     # src), der.  Per edge and head the dot, alpha, de and draw (4 D + 12)
-    row("bit_shard_gat_bwd", lambda: tgs.bit_shard_gat_bwd(*args),
-        lambda: tgs.bit_shard_gat_bwd_plain(*args),
-        shard.numel() * 4 + 2 * src_node + 2 * src_feat + 4 * dst_node
-        + dst_feat, bits * heads * (4 * dim + 12))
+    want = row("bit_shard_gat_bwd",
+               lambda: tgs.bit_shard_gat_bwd(*args, order=order),
+               lambda: tgs.bit_shard_gat_bwd_plain(*args),
+               shard.numel() * 4 + 2 * src_node + 2 * src_feat + 4 * dst_node
+               + dst_feat, bits * heads * (4 * dim + 12))
+    # the warp walk that K13's listed walk replaced, beside it in this call
+    # (dgl_tpu_torch/tools/perf_bwd_walks.py)
+    err = max(close(a, w, f"K13 (warp walk) {tag} H={heads} D={dim}")
+              for a, w in zip(tbw.warp_walk(*args), want))
+    old = cuda_ms(lambda: tbw.warp_walk(*args))
+    rows["bit_shard_gat_bwd"].update(kernel="bitgat_bwd_list_kernel",
+                                     old_ms=old)
+    log(f"# bit_shard_gat_bwd {tag} H={heads} D={dim}: the warp walk "
+        f"{old:.4f} ms, max|err| {err:.3g}")
     return rows
 
 
-def phase_shard_yardsticks(bg, tgs, tbs, fmt, gt, rate):
+def phase_shard_yardsticks(bg, tbw, tgs, tbs, fmt, gt, rate):
     """Phase 36: the yardsticks on the one-part shard and on shard 0 of a
     4-part build, at (4, 32) and (1, 41)."""
     shard1 = fmt.shards[0]
     out = {f"1 part {h}x{d}": shard_yardsticks(
-        bg, tgs, shard1, fmt.npp, REDDIT_EDGES, "1 part", h, d, rate)
+        bg, tbw, tgs, shard1, fmt.npp, REDDIT_EDGES, "1 part", h, d, rate)
         for h, d in GAT_SHAPES}
     row, col = gt.unit().coo()
     fmt4 = tbs.build_bit_sharded_format_device(
@@ -4270,7 +4374,7 @@ def phase_shard_yardsticks(bg, tgs, tbs, fmt, gt, rate):
     log(f"# shard 0 of the 4-part format: kp {shard0.shape[0]}, npp {npp4}, "
         f"W {shard0.shape[1]}, {shard0.numel() * 4} bytes, {bits} set bits")
     out.update({f"shard 0 of 4 {h}x{d}": shard_yardsticks(
-        bg, tgs, shard0, npp4, bits, "shard 0 of 4", h, d, rate)
+        bg, tbw, tgs, shard0, npp4, bits, "shard 0 of 4", h, d, rate)
         for h, d in GAT_SHAPES})
     return out
 
@@ -4308,6 +4412,7 @@ def main():
     from dgl_tpu_torch.parallel import bitspmd as tbs, comm
     from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
     from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
+    from dgl_tpu_torch.tools import perf_bwd_walks as tbw
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
     # phase 1: device
@@ -4376,8 +4481,8 @@ def main():
           lambda: {"bitgat_fwd": bg.bitgat_fwd.launches,
                    "bitgat_bwd": bg.bitgat_bwd.launches})
     del model, opt
-    k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, g,
-                h, d, rate) for h, d in GAT_SHAPES]
+    k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, tbw,
+                g, h, d, rate) for h, d in GAT_SHAPES]
 
     # phases 29-30: DotGatConv on K7, on the bitmask graph before the tiled
     # one is built
@@ -4437,7 +4542,7 @@ def main():
     phase("22 (route 5 check)", phase_route5_check, model, gt, x, y, train)
     del model, opt
     k9 = [phase(f"24 (K9 yardsticks H={h} D={d})", vattn_yardsticks, tgf,
-                gt, h, d, 0, rate)
+                tbw, gt, h, d, 0, rate)
           for h, d in VATTN_SHAPES[:2]]
     # the K6 and K4 launches of route 5's (8, 8) layer; its (1, 41) layer's
     # are phases 16 and 20's.  (B, 8, C) slot tensors take 6 GB each
@@ -4479,7 +4584,7 @@ def main():
                            bm, bg, tgs, group, fmt, xs, y, train, card)
     del xs, deg
     shard = phase("36 (sharded-GAT yardsticks)", phase_shard_yardsticks, bg,
-                  tgs, tbs, fmt, gt, rate)
+                  tbw, tgs, tbs, fmt, gt, rate)
     torch.distributed.destroy_process_group()
     shutil.rmtree(rendezvous, ignore_errors=True)
     del fmt, gt, x, y, train
@@ -4494,8 +4599,8 @@ def main():
     phase("26 (EdgeGATConv check)", phase_edgegat_check, conv, ge, xe, efe,
           ef_slot)
     del conv, efe
-    k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, ge, EGAT_H,
-                EGAT_D, EGAT_FE, rate)
+    k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tbw, ge,
+                EGAT_H, EGAT_D, EGAT_FE, rate)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
@@ -4575,7 +4680,10 @@ def main():
          "launches": k6_launches["src_aggregate"], **k6[0]["src_agg"]},
         # K9 at the first GATv2 layer's shape, H x D = 8 x 8, launches from
         # route 5; K11 v2 at EGAT's (4, 32) with 16 edge features and the
-        # bias row, launches from phase 23
+        # bias row, launches from phase 23.  The redesigned rows (K5's
+        # backward and K13: the listed walk; K9's node gradient: the row
+        # walk) name their kernel and give the retired one's time in this
+        # run as old_ms
         {"name": "vattn_scores", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:783",
@@ -4585,7 +4693,7 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878",
          "launches": k9_launches["vattn_slot_grad"], **k9[0]["slot_grad"]},
         {"name": "vattn_node_grad", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878, :903",
          "launches": k9_launches["vattn_node_grad"],
          **k9[0]["node_grad_dst"]},

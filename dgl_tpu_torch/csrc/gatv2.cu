@@ -26,7 +26,8 @@
 // den, numerator, ds and dx are K6's and K4's kernels (csrc/gat_fused.cu,
 // csrc/tiled_spmm.cu).
 //
-// Three kernels serve K9's and K11 v2's six pallas_calls; each is behind a
+// Three kernels serve K9's and K11 v2's six pallas_calls (K9's node
+// gradient now the row walk of csrc/row_agg.cu); each is behind a
 // plain C function that launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError():
 //
@@ -53,16 +54,21 @@
 //     lane k.  At the end the block adds its
 //     lanes' sums in shared memory and then into da and dwf with global
 //     atomics.
-// vattn_node_grad_kernel<G, kSrc, kFe>  replaces the dv part of
-//     _gatv2_dv_da_kernel and _egatc2_dv_da_kernel and, with kSrc,
-//     _gatv2_du_kernel (:731, _gatv2_bwd :903) and _egatc2_du_kernel
-//     (:2024, egatc2_backward :2196).  K6's src-side aggregation walk
-//     (src_agg_kernel): one block per (dst or src tile, chunk of G
-//     columns, split of the tile's buckets); the tile's (tile, G) sums in
-//     shared memory, 128 KB at tile 1024 and G = 32, since a (1024, H * D)
-//     tile does not fit the 227 KB of an SM at H * D = 64.  G lanes per
-//     slot recompute raw and dW for their column and add dW at the slot's
-//     row; nothing (B, C, H * D)-sized is stored.
+// vattn_node_grad_kernel<G, kSrc, kFe>  replaces, with kFe > 0, the dv
+//     part of _egatc2_dv_da_kernel and, with kSrc, _egatc2_du_kernel
+//     (:2024, egatc2_backward :2196): K11 v2's node gradient.  K6's
+//     src-side aggregation walk (src_agg_kernel): one block per (dst or
+//     src tile, chunk of G columns, split of the tile's buckets); the
+//     tile's (tile, G) sums in shared memory, 128 KB at tile 1024 and G =
+//     32, since a (1024, H * D) tile does not fit the 227 KB of an SM at
+//     H * D = 64.  G lanes per slot recompute raw and dW for their column
+//     and add dW at the slot's row with a float shared atomicAdd (a
+//     compare-and-swap loop on this card); nothing (B, C, H * D)-sized is
+//     stored.  K9's node gradient (the dv part of _gatv2_dv_da_kernel,
+//     _gatv2_du_kernel :731) left it for the row walk (csrc/row_agg.cu
+//     row_agg_kernel<VEC, CPL, true>); dgl_tpu_torch/tools/
+//     perf_bwd_walks.py builds the kFe = 0 instances it ran on to time
+//     the two side by side.
 //
 // EGATConv v1 (K11 v1, gat_fused.py:946-1261) stores its edge term FE per
 // slot, (B * C, H * D) of type T (float or __nv_bfloat16), instead of
@@ -612,10 +618,6 @@ cudaError_t node_grad_fe(int fe_cap, Slots sl, const int* order,
                          float* out, int num_rows, int splits,
                          cudaStream_t stream) {
   switch (fe_cap) {
-    case 0:
-      return launch_node_grad<G, kSrc, 0>(sl, order, ptr, num_tiles, tile,
-                                          cap, op, ds, has_bias, out,
-                                          num_rows, splits, stream);
     case 8:
       return launch_node_grad<G, kSrc, 8>(sl, order, ptr, num_tiles, tile,
                                           cap, op, ds, has_bias, out,
@@ -821,9 +823,10 @@ int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
 
 // out (num_rows, heads * dim): the sum of dW over the valid slots of each
 // dst row (src_side = 0: ptr is dst_ptr, order unused) or src row
-// (src_side = 1: order is src_order, ptr is src_ptr).  ef null: no edge
-// term; else ef (num_buckets * cap, fe), wf (fe + has_bias, heads * dim),
-// fe_cap 8, 16 or 32 >= fe.  group (8, 16 or 32) is G; with splits > 1,
+// (src_side = 1: order is src_order, ptr is src_ptr), with the edge term
+// from ef (num_buckets * cap, fe) and wf (fe + has_bias, heads * dim),
+// fe_cap 8, 16 or 32 >= fe (K11 v2; K9's node gradient, with no edge
+// term, is csrc/row_agg.cu's).  group (8, 16 or 32) is G; with splits > 1,
 // out must be zeroed by the caller.  Grid: (num_tiles, ceil(heads * dim /
 // G), splits).
 int dgl_vattn_node_grad(const void* src_local, const void* dst_local,

@@ -10,7 +10,14 @@
 //   e[b(s), h, c(s)] = <x[nbr(s), h, :], z[r, h, :]> at each valid slot s
 //                      of row r, 0 at every padded slot
 //
-// row_agg_kernel<VEC, CPL> replaces two TPU kernels of the JAX package:
+// and, in its node-gradient form (kGrad), K9's node gradient:
+//
+//   out[r, h, :] = attn[h, :] * sum over the valid slots s of row r of
+//                  ds[b(s), h, c(s)] * (own[r, h, :] + y[nbr(s), h, :] >= 0
+//                                       ? 1 : slope)
+//
+// row_agg_kernel<VEC, CPL, false> replaces two TPU kernels of the JAX
+// package:
 // - K4's SpMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_spmm_multihead
 //   :455 (body _spmm_mh_kernel :423), and with it
 //   gat_fused.py _agg_kernel :120, the same function: the rows are the dst
@@ -22,6 +29,20 @@
 //   (gat_backward :428, _dot_gat_bwd's _dx_call :623/:636, _gatv2_bwd's
 //   dx :925, _egatc_bwd's dx :1236, and the dx part of
 //   _eg2_dx_def_kernel :1639).
+// row_agg_kernel<VEC, CPL, true> replaces the dv part of gat_fused.py
+// _gatv2_dv_da_kernel :689 (rows = dst, own = V, y = U) and
+// _gatv2_du_kernel :731 (rows = src, own = U, y = V), K9's node gradient
+// (_gatv2_bwd :878, :903).  The same walk: the row's own operand stays in
+// registers beside its sums, the neighbour's row is gathered (16-byte
+// loads, 41 columns padded to 44), each slot's weight is its ds, and attn
+// scales the sums once at the end; no atomics and no split row, so each
+// sum is taken in slot order, the same bits every run.  The tiled walk it
+// replaced (csrc/gatv2.cu vattn_node_grad_kernel, still K11 v2's) added
+// every slot's dW into shared memory with a float atomicAdd, a
+// compare-and-swap loop on this card, and walked every slot once per
+// column chunk.  Bound: the view, 4H B an edge of ds (its slot-major copy,
+// made once a backward for both sides), the rows' own operand and the
+// neighbours' once, out once.
 // row_sddmm_kernel<CPL> (with slot_finish_kernel) replaces
 // K4's SDDMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_sddmm_dot_multihead
 // :521 (body _sddmm_mh_kernel :494): edgeflat's dW (_SpmmMultihead) and
@@ -110,7 +131,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "persistent.cuh"
 
 namespace {
 
@@ -190,14 +211,35 @@ struct Unroll {
   static constexpr int value = kCols <= 4 ? 8 : kCols <= 8 ? 4 : 2;
 };
 
-template <int VEC, int CPL>
+// K9's node gradient (kGrad): acc += w * (own[r] + y[nbr] >= 0 ? 1 :
+// slope) per column, scaled by attn once at the end.
+__device__ __forceinline__ void grad_into(float* acc, float w, float o,
+                                          float v, float slope) {
+  acc[0] = fmaf(w, o + v >= 0.f ? 1.f : slope, acc[0]);
+}
+__device__ __forceinline__ void grad_into(float* acc, float w, float2 o,
+                                          float2 v, float slope) {
+  grad_into(acc, w, o.x, v.x, slope);
+  grad_into(acc + 1, w, o.y, v.y, slope);
+}
+__device__ __forceinline__ void grad_into(float* acc, float w, float4 o,
+                                          float4 v, float slope) {
+  grad_into(acc, w, o.x, v.x, slope);
+  grad_into(acc + 1, w, o.y, v.y, slope);
+  grad_into(acc + 2, w, o.z, v.z, slope);
+  grad_into(acc + 3, w, o.w, v.w, slope);
+}
+
+template <int VEC, int CPL, bool kGrad>
 __global__ void __launch_bounds__(kWarps * 32)
 row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
                const int* __restrict__ nbr, const int* __restrict__ order,
                int rows, const float* __restrict__ w, int cap, int w_bs,
                int w_hs, int w_cs, int heads, int head_cols,
                const float* __restrict__ y, int f, int lpr, int n_chunks,
-               float* __restrict__ out, int* __restrict__ counter) {
+               float* __restrict__ out, int* __restrict__ counter,
+               const float* __restrict__ own,
+               const float* __restrict__ attn, float slope) {
   using V = typename Vec<VEC>::T;
   constexpr int U = Unroll<VEC, CPL>::value;
   const int lane = threadIdx.x & 31;
@@ -229,10 +271,14 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
       hq[q] = ok[q] ? cv[q] * VEC / head_cols : 0;
     }
     float acc[CPL][VEC];
+    V oq[CPL];  // kGrad: the row's own operand
 #pragma unroll
     for (int q = 0; q < CPL; ++q) {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+      oq[q] = kGrad && ok[q]
+                  ? __ldg(reinterpret_cast<const V*>(own + r * f) + cv[q])
+                  : zero_vec<V>();
     }
 
     const int p0 = has ? ptr[r] : 0;
@@ -290,13 +336,25 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
 #pragma unroll
         for (int u = 0; u < U; ++u) {
 #pragma unroll
-          for (int q = 0; q < CPL; ++q) fma_into(acc[q], wq[u][q], xv[u][q]);
+          for (int q = 0; q < CPL; ++q) {
+            if constexpr (kGrad) {
+              grad_into(acc[q], wq[u][q], oq[q], xv[u][q], slope);
+            } else {
+              fma_into(acc[q], wq[u][q], xv[u][q]);
+            }
+          }
         }
       }
     }
 #pragma unroll
     for (int q = 0; q < CPL; ++q) {
-      if (ok[q]) store_vec(out + r * f + cv[q] * VEC, acc[q], Vec<VEC>());
+      if (!ok[q]) continue;
+      if constexpr (kGrad) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc[q][i] *= __ldg(attn + cv[q] * VEC + i);
+      }
+      store_vec(out + r * f + cv[q] * VEC, acc[q], Vec<VEC>());
     }
   }
 }
@@ -492,33 +550,17 @@ slot_finish_kernel(const float* __restrict__ sm,
   }
 }
 
-// Blocks of persistent warps: as many as fit the card at once, no more
-// than `warps_needed` warps.
-template <typename K>
-cudaError_t persistent_blocks(K kernel, long long warps_needed, int device,
-                              unsigned* blocks) {
-  int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kWarps * 32, 0);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  *blocks = static_cast<unsigned>(std::max(1LL, std::min(
-      static_cast<long long>(sms) * std::max(per_sm, 1),
-      (warps_needed + kWarps - 1) / kWarps)));
-  return cudaSuccess;
-}
-
 template <int CPL>
 cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
                              int rows, const float* x, const float* z, int f,
                              int hstride, int heads, int hv, int lph, int cph,
                              int lpr, float* out, int ostride, int* counter,
-                             int device, cudaStream_t stream) {
+                             cudaStream_t stream) {
   unsigned blocks = 0;
   const cudaError_t err = persistent_blocks(
-      row_sddmm_kernel<CPL>, (static_cast<long long>(rows) * lpr + 31) / 32,
-      device, &blocks);
+      row_sddmm_kernel<CPL>, kWarps * 32,
+      ((static_cast<long long>(rows) * lpr + 31) / 32 + kWarps - 1) / kWarps,
+      &blocks);
   if (err != cudaSuccess) return err;
   row_sddmm_kernel<CPL><<<blocks, kWarps * 32, 0, stream>>>(
       ptr, nbr, order, rows, x, z, f, hstride, heads, hv, lph, cph, lpr, out,
@@ -526,38 +568,43 @@ cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
   return cudaGetLastError();
 }
 
-template <int VEC, int CPL>
-cudaError_t launch_row_agg(const int* ptr, const int* slot, const int* nbr,
-                           const int* order, int rows, const float* w,
-                           int cap, int w_bs, int w_hs, int w_cs, int heads,
-                           int head_cols, const float* y, int f, int lpr,
-                           int n_chunks, float* out, int* counter, int device,
-                           cudaStream_t stream) {
+// The row walk's operands beside the view; own and attn only for K9's node
+// gradient
+struct RowAggArgs {
+  const int *ptr, *slot, *nbr, *order;
+  int rows;
+  const float* w;
+  int cap, w_bs, w_hs, w_cs, heads, head_cols;
+  const float* y;
+  int f, lpr, n_chunks;
+  float* out;
+  int* counter;
+  const float *own, *attn;
+  float slope;
+};
+
+template <int VEC, int CPL, bool kGrad>
+cudaError_t launch_row_agg(const RowAggArgs& a, cudaStream_t stream) {
   unsigned blocks = 0;
   const cudaError_t err = persistent_blocks(
-      row_agg_kernel<VEC, CPL>,
-      (static_cast<long long>(rows) * n_chunks * lpr + 31) / 32, device,
+      row_agg_kernel<VEC, CPL, kGrad>, kWarps * 32,
+      ((static_cast<long long>(a.rows) * a.n_chunks * a.lpr + 31) / 32 +
+       kWarps - 1) / kWarps,
       &blocks);
   if (err != cudaSuccess) return err;
-  row_agg_kernel<VEC, CPL><<<blocks, kWarps * 32, 0, stream>>>(
-      ptr, slot, nbr, order, rows, w, cap, w_bs, w_hs, w_cs, heads, head_cols,
-      y, f, lpr, n_chunks, out, counter);
+  row_agg_kernel<VEC, CPL, kGrad><<<blocks, kWarps * 32, 0, stream>>>(
+      a.ptr, a.slot, a.nbr, a.order, a.rows, a.w, a.cap, a.w_bs, a.w_hs,
+      a.w_cs, a.heads, a.head_cols, a.y, a.f, a.lpr, a.n_chunks, a.out,
+      a.counter, a.own, a.attn, a.slope);
   return cudaGetLastError();
 }
 
-template <int VEC>
-cudaError_t row_agg_by_cpl(int64_t cpl, const int* ptr, const int* slot,
-                           const int* nbr, const int* order, int rows,
-                           const float* w, int cap, int w_bs, int w_hs,
-                           int w_cs, int heads, int head_cols,
-                           const float* y, int f, int lpr, int n_chunks,
-                           float* out, int* counter, int device,
+template <int VEC, bool kGrad>
+cudaError_t row_agg_by_cpl(int64_t cpl, const RowAggArgs& a,
                            cudaStream_t s) {
-#define DGL_ROW_AGG_CASE(C_)                                                 \
-  case C_:                                                                   \
-    return launch_row_agg<VEC, C_>(ptr, slot, nbr, order, rows, w, cap,      \
-                                   w_bs, w_hs, w_cs, heads, head_cols, y, f, \
-                                   lpr, n_chunks, out, counter, device, s);
+#define DGL_ROW_AGG_CASE(C_) \
+  case C_:                   \
+    return launch_row_agg<VEC, C_, kGrad>(a, s);
   switch (cpl) {
     DGL_ROW_AGG_CASE(1)
     DGL_ROW_AGG_CASE(2)
@@ -567,6 +614,59 @@ cudaError_t row_agg_by_cpl(int64_t cpl, const int* ptr, const int* slot,
       return cudaErrorInvalidValue;
   }
 #undef DGL_ROW_AGG_CASE
+}
+
+// dgl_row_agg and dgl_row_node_grad (own and attn not null: kGrad).
+cudaError_t row_walk_launch(const void* ptr, const void* slot,
+                            const void* nbr, const void* order, int64_t rows,
+                            const void* w, int64_t cap, int64_t w_bs,
+                            int64_t w_hs, int64_t w_cs, int64_t heads,
+                            int64_t head_cols, const void* y, int64_t f,
+                            void* out, void* counter, int64_t vec,
+                            int64_t cpl, int64_t lpr, int64_t n_chunks,
+                            const void* own, const void* attn, float slope,
+                            int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 ||
+      head_cols % vec != 0 || cap < 1)
+    return cudaErrorInvalidValue;
+  const RowAggArgs a{static_cast<const int*>(ptr),
+                     static_cast<const int*>(slot),
+                     static_cast<const int*>(nbr),
+                     static_cast<const int*>(order),
+                     static_cast<int>(rows),
+                     static_cast<const float*>(w),
+                     static_cast<int>(cap),
+                     static_cast<int>(w_bs),
+                     static_cast<int>(w_hs),
+                     static_cast<int>(w_cs),
+                     static_cast<int>(heads),
+                     static_cast<int>(head_cols),
+                     static_cast<const float*>(y),
+                     static_cast<int>(f),
+                     static_cast<int>(lpr),
+                     static_cast<int>(n_chunks),
+                     static_cast<float*>(out),
+                     static_cast<int*>(counter),
+                     static_cast<const float*>(own),
+                     static_cast<const float*>(attn),
+                     slope};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool grad = own != nullptr;
+  switch (vec) {
+    case 1:
+      return grad ? row_agg_by_cpl<1, true>(cpl, a, s)
+                  : row_agg_by_cpl<1, false>(cpl, a, s);
+    case 2:
+      return grad ? row_agg_by_cpl<2, true>(cpl, a, s)
+                  : row_agg_by_cpl<2, false>(cpl, a, s);
+    case 4:
+      return grad ? row_agg_by_cpl<4, true>(cpl, a, s)
+                  : row_agg_by_cpl<4, false>(cpl, a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -587,34 +687,28 @@ int dgl_row_agg(const void* ptr, const void* slot, const void* nbr,
                 int64_t f, void* out, void* counter, int64_t vec,
                 int64_t cpl, int64_t lpr, int64_t n_chunks, int64_t device,
                 void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 ||
-      head_cols % vec != 0 || cap < 1)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DGL_ROW_AGG_ARGS                                                    \
-  cpl, static_cast<const int*>(ptr), static_cast<const int*>(slot),         \
-      static_cast<const int*>(nbr), static_cast<const int*>(order),         \
-      static_cast<int>(rows), static_cast<const float*>(w),                 \
-      static_cast<int>(cap), static_cast<int>(w_bs),                        \
-      static_cast<int>(w_hs), static_cast<int>(w_cs),                       \
-      static_cast<int>(heads), static_cast<int>(head_cols),                 \
-      static_cast<const float*>(y),                                         \
-      static_cast<int>(f), static_cast<int>(lpr),                           \
-      static_cast<int>(n_chunks), static_cast<float*>(out),                 \
-      static_cast<int*>(counter), static_cast<int>(device), s
-  switch (vec) {
-    case 1:
-      return row_agg_by_cpl<1>(DGL_ROW_AGG_ARGS);
-    case 2:
-      return row_agg_by_cpl<2>(DGL_ROW_AGG_ARGS);
-    case 4:
-      return row_agg_by_cpl<4>(DGL_ROW_AGG_ARGS);
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DGL_ROW_AGG_ARGS
+  return row_walk_launch(ptr, slot, nbr, order, rows, w, cap, w_bs, w_hs,
+                         w_cs, heads, head_cols, y, f, out, counter, vec, cpl,
+                         lpr, n_chunks, nullptr, nullptr, 0.f, device,
+                         stream);
+}
+
+// K9's node gradient by the same walk: out (rows, f), every element
+// written, out[r, j] = attn[j] * sum over the slots k of row r of w[...]
+// * (own[r, j] + y[nbr[k], j] >= 0 ? 1 : slope), in slot order; own
+// (rows, f) and attn (f,) f32; the rest as dgl_row_agg's.
+int dgl_row_node_grad(const void* ptr, const void* slot, const void* nbr,
+                      const void* order, int64_t rows, const void* w,
+                      int64_t cap, int64_t w_bs, int64_t w_hs, int64_t w_cs,
+                      int64_t heads, int64_t head_cols, const void* y,
+                      int64_t f, void* out, void* counter, int64_t vec,
+                      int64_t cpl, int64_t lpr, int64_t n_chunks,
+                      const void* own, const void* attn, float slope,
+                      int64_t device, void* stream) {
+  if (own == nullptr || attn == nullptr) return cudaErrorInvalidValue;
+  return row_walk_launch(ptr, slot, nbr, order, rows, w, cap, w_bs, w_hs,
+                         w_cs, heads, head_cols, y, f, out, counter, vec, cpl,
+                         lpr, n_chunks, own, attn, slope, device, stream);
 }
 
 // K4's SDDMM by dst rows, one launch of the wrapper's plan: for every
@@ -649,8 +743,7 @@ int dgl_row_sddmm(const void* ptr, const void* nbr, const void* order,
         static_cast<int>(heads), static_cast<int>(hv),                      \
         static_cast<int>(lph), static_cast<int>(cph),                       \
         static_cast<int>(lpr), static_cast<float*>(out),                    \
-        static_cast<int>(ostride), static_cast<int*>(counter),              \
-        static_cast<int>(device), s);
+        static_cast<int>(ostride), static_cast<int*>(counter), s);
   switch (cpl) {
     DGL_ROW_SDDMM_CASE(1)
     DGL_ROW_SDDMM_CASE(2)

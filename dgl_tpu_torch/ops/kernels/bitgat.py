@@ -34,7 +34,11 @@ beside it that computes the same function from the same inputs:
   column shard of the A^T packing;
 * :func:`bitgat_bwd` (``_bwd_call``): the gradients of el, er and z from
   ``packed_rev`` (rows = src), given g = dL/dout,
-  linv = 1 / (max(l, 1e-20) kp) and rho = kp * sum_c g * out.
+  linv = 1 / (max(l, 1e-20) kp) and rho = kp * sum_c g * out: the listed
+  walk (``bitgat_bwd_list_kernel``), whose persistent warps claim the src
+  rows in :func:`claim_order` (hub rows first), list each row's set bits
+  and work through them with a group of lanes an entry
+  (:func:`bwd_layout`).
 
 The plain versions list the set bits of a block of rows as edges and
 compute the formulas above on them with gathers and ``index_add_``.  A
@@ -51,11 +55,15 @@ import torch
 from . import build
 from .bitmm import BitFormat
 from .dispatch import on_cuda
+from .tiled_spmm import hub_first_order
 
 CLIP = 20.0           # per-operand logit clip
 DEN_EPS = 1e-20       # denominator clamp
 MAX_HD = 128          # H * D: 4 columns per lane of one warp
 PLAIN_WORDS = 1 << 23  # bit words a plain version lists at a time
+COUNT_WORDS = 1 << 24  # bit words counted at a time for a claim order
+MAX_LIST_CPL = 4       # the listed walk's 16-byte vectors a lane
+_WARPS = 8             # csrc/bitgat.cu kWarps: warps a block
 
 _DROP_RES = 1 << 15
 _M32 = 0xFFFFFFFF
@@ -216,10 +224,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dgl_bitgat_fwd": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P,
                        _P, _I, _P],
-    "dgl_bitgat_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P,
-                       _P, _P, _P, _I, _P],
     "dgl_bitgat_fwd_t": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P,
                          _P, _P, _I, _P],
+    "dgl_bitgat_bwd_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _F, _I, _P, _P, _P, _P, _P, _I, _P],
+    "dgl_bitgat_bwd_list_attrs": [_I, _I, _I, _I, _P],
 }
 
 
@@ -329,39 +338,163 @@ def check_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int):
                          f"rho {tuple(rho.shape)} do not match er and z")
 
 
-def launch_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
-               slope: float, thresh=None, seed=0):
-    """Launch K5's backward kernel on CUDA operands: (del, der, dz)."""
-    num_src, heads, dim = z.shape
-    d_el = torch.zeros(num_src, heads, dtype=torch.float32, device=z.device)
-    d_er = torch.zeros(num_dst, heads, dtype=torch.float32, device=z.device)
-    dz = torch.zeros(num_src, heads, dim, dtype=torch.float32,
-                     device=z.device)
-    if num_src == 0 or heads * dim == 0:
-        return d_el, d_er, dz
+def row_counts(packed: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows,) int64: the set bits of each of ``packed``'s first ``rows``
+    rows, counted on its device COUNT_WORDS words at a time."""
+    n32 = packed.shape[1]
+    out = torch.empty(rows, dtype=torch.int64, device=packed.device)
+    step = max(1, COUNT_WORDS // max(n32, 1))
+    for r0 in range(0, rows, step):
+        # a popcount of each int32 word in halves, nibbles and bytes; the
+        # arithmetic shifts are masked, so they act as unsigned ones
+        v = packed[r0:min(r0 + step, rows)]
+        v = v - ((v >> 1) & 0x55555555)
+        v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+        v = (v + (v >> 4)) & 0x0F0F0F0F
+        v = v + (v >> 8)
+        v = (v + (v >> 16)) & 0x3F
+        out[r0:r0 + v.shape[0]] = v.sum(1)
+    return out
+
+
+def claim_order(packed: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows,) int32: the order in which the listed walk's warps claim the
+    first ``rows`` rows of ``packed``: the hub rows (over
+    ``tiled_spmm.HUB_DEGREE`` times the mean count of set bits) by count,
+    largest first, so that none starts late and holds up the end of the
+    launch; then the other rows by id."""
+    return hub_first_order(row_counts(packed, rows))
+
+
+def bwd_claim_order(bf: BitFormat) -> torch.Tensor:
+    """:func:`claim_order` of ``bf.packed_rev``'s src rows, built at first
+    use and kept on ``bf``."""
+    if bf._bwd_order is None:
+        bf._bwd_order = claim_order(bf.packed_rev, bf.num_src)
+    return bf._bwd_order
+
+
+def bwd_layout(heads: int, dim: int):
+    """(dp, lpe, cpl): the listed walk's padded head width, lanes an entry
+    and 16-byte vectors a lane.  A head's columns are padded to dp, a
+    multiple of 4 (a power of two times 4 when H > 1, so that a head's
+    vectors fill aligned blocks of lanes); lpe is the smallest power of
+    two that leaves a lane at most MAX_LIST_CPL of the row's H dp / 4
+    vectors with one head, at most 2 with several (at least a head's
+    vectors, and 4 where 32 lanes hold more).  With several heads a lane
+    keeps a scalar chain for each of its vectors, and 4 vectors a lane
+    spill registers (``dgl_tpu_torch/tools/perf_bwd_walks.py`` times the
+    walk at other lanes an entry)."""
+    if heads == 1:
+        dp = -(-dim // 4) * 4
+    else:
+        vph = 1
+        while 4 * vph < dim:
+            vph *= 2
+        dp = 4 * vph
+    nv = heads * dp // 4
+    want = MAX_LIST_CPL if heads == 1 else 2
+    lpe = 1
+    while lpe < 32 and -(-nv // lpe) > want:
+        lpe *= 2
+    if heads > 1:
+        lpe = max(lpe, dp // 4)
+    return dp, lpe, -(-nv // lpe)
+
+
+def _pad_heads(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """(N, H, D) as (N, H, dp) f32 contiguous, each head zero-padded."""
+    if t.shape[2] == dp:
+        return _f32(t)
+    out = t.new_zeros(t.shape[:2] + (dp,), dtype=torch.float32)
+    out[..., :t.shape[2]] = t
+    return out
+
+
+def bwd_kernel_attrs(heads: int, dim: int, drop: bool, device=None):
+    """(registers a thread, resident warps an SM) of the listed walk's
+    instance for ``heads`` x ``dim`` with or without dropout, from
+    ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    _, _, cpl = bwd_layout(heads, dim)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 2)()
+    lib = build.load("bitgat", _SIGNATURES)
+    err = lib.dgl_bitgat_bwd_list_attrs(cpl, int(heads == 1), int(drop),
+                                        device.index or 0,
+                                        ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_bitgat_bwd_list_attrs: CUDA error {err}")
+    return out[0], out[1] * _WARPS
+
+
+def bwd_list_args(packed_rev, el, er, z, g, linv, rho, num_dst: int,
+                  slope: float, thresh, seed, order, layout):
+    """(the arguments of ``dgl_bitgat_bwd_list`` up to the device, (del,
+    der, dz), the tensors the arguments point into, to be kept alive until
+    the launch) for the listed walk on CUDA operands at ``layout`` (dp,
+    lpe, cpl); dz is (N_src, H, dp), each head's padding included."""
+    num_src, heads, _ = z.shape
+    dev = z.device
+    if num_dst >= 2**31 or num_src >= 2**31:
+        raise ValueError("the listed walk takes fewer than 2^31 nodes")
+    if order.shape != (num_src,) or order.dtype != torch.int32:
+        raise ValueError(f"order must be ({num_src},) int32")
+    dp, lpe, cpl = layout
     # one (num_dst, 3, H) row per dst: er, linv and rho share a cache line
     nvec = torch.stack([er.float(), linv.float(), rho.float()], 1)
-    el, z, g = _f32(el), _f32(z), _f32(g)
+    el = _f32(el)
     packed_rev = packed_rev.contiguous()
-    seed_t = _seed_ptr(seed, z.device)
-    _launch("dgl_bitgat_bwd", packed_rev.data_ptr(), packed_rev.shape[1],
-            num_src, num_dst, el.data_ptr(), nvec.data_ptr(), z.data_ptr(),
-            g.data_ptr(), heads, dim, slope, thresh or 0, seed_t.data_ptr(),
-            dz.data_ptr(), d_el.data_ptr(), d_er.data_ptr(), z.device.index,
-            torch.cuda.current_stream(z.device).cuda_stream)
-    return d_el, d_er, dz
+    zp, gp = _pad_heads(z, dp), _pad_heads(g, dp)
+    d_el = torch.empty(num_src, heads, dtype=torch.float32, device=dev)
+    d_er = torch.zeros(num_dst, heads, dtype=torch.float32, device=dev)
+    dz = torch.empty(num_src, heads, dp, dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed_t = _seed_ptr(seed, dev)
+    keep = (packed_rev, order, el, nvec, zp, gp, seed_t, counter)
+    args = (packed_rev.data_ptr(), packed_rev.shape[1], order.data_ptr(),
+            num_src, num_dst, el.data_ptr(), nvec.data_ptr(), zp.data_ptr(),
+            gp.data_ptr(), heads, dp, lpe, cpl, slope, thresh or 0,
+            seed_t.data_ptr(), dz.data_ptr(), d_el.data_ptr(),
+            d_er.data_ptr(), counter.data_ptr())
+    return args, (d_el, d_er, dz), keep
+
+
+def launch_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
+               slope: float, thresh=None, seed=0, order=None):
+    """Launch K5's backward kernel, the listed walk, on CUDA operands:
+    (del, der, dz).  ``order``: the rows' claim order (:func:`claim_order`
+    of the packing's first num_src rows, built here when None)."""
+    num_src, heads, dim = z.shape
+    dev = z.device
+    if num_src == 0 or heads * dim == 0:
+        return (torch.zeros(num_src, heads, dtype=torch.float32, device=dev),
+                torch.zeros(num_dst, heads, dtype=torch.float32, device=dev),
+                torch.zeros(num_src, heads, dim, dtype=torch.float32,
+                            device=dev))
+    if order is None:
+        order = claim_order(packed_rev, num_src)
+    args, (d_el, d_er, dz), keep = bwd_list_args(
+        packed_rev, el, er, z, g, linv, rho, num_dst, slope, thresh, seed,
+        order, bwd_layout(heads, dim))
+    _launch("dgl_bitgat_bwd_list", *args, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    del keep
+    return d_el, d_er, (dz if dz.shape[2] == dim
+                        else dz[..., :dim].contiguous())
 
 
 def bitgat_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
-               slope: float, thresh=None, seed=0):
+               slope: float, thresh=None, seed=0, order=None):
     """K5 backward: (del (N_src, H), der (num_dst, H), dz (N_src, H, D))
-    f32 from ``packed_rev``, the bits of A^T (rows = src)."""
+    f32 from ``packed_rev``, the bits of A^T (rows = src).  ``order``: the
+    rows' claim order (:func:`bwd_claim_order` of the format; built anew
+    for each call when None)."""
     check_bwd(packed_rev, el, er, z, g, linv, rho, num_dst)
     if not on_cuda(packed_rev, el, er, z, g, linv, rho):
         return bitgat_bwd_plain(packed_rev, el, er, z, g, linv, rho, num_dst,
                                 slope, thresh, seed)
     out = launch_bwd(packed_rev, el, er, z, g, linv, rho, num_dst, slope,
-                     thresh, seed)
+                     thresh, seed, order)
     if z.shape[0] and z.shape[1] * z.shape[2]:
         bitgat_bwd.launches += 1
     return out
@@ -390,9 +523,11 @@ class _BitGAT(torch.autograd.Function):
         g = g.float()
         linv, rho = backward_scales(g, out, l, ctx.thresh)
         bf = ctx.bf
+        # the plain version on the CPU needs no claim order
+        order = bwd_claim_order(bf) if g.is_cuda else None
         d_el, d_er, dz = bitgat_bwd(bf.packed_rev, el, er, z, g, linv, rho,
                                     bf.num_dst, ctx.slope, ctx.thresh,
-                                    ctx.seed)
+                                    ctx.seed, order)
         return (d_el.to(el.dtype), d_er.to(er.dtype), dz.to(z.dtype), None,
                 None, None, None)
 

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -73,6 +74,9 @@ class BitFormat:
     num_src: int
     num_dst: int
     symmetric: bool = False
+    # (num_src,) int32 order in which K5's backward claims the rows of
+    # packed_rev, built at first use (bitgat.bwd_claim_order)
+    _bwd_order: Optional[torch.Tensor] = None
 
     @property
     def nbytes(self) -> int:

@@ -906,22 +906,46 @@ vattn_slot_grad.launches = 0
 
 def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
                     side: str = "dst", ef_slot=None, wf=None):
-    """K9 / K11 v2 node gradient: (num_rows, H, D) f32, the sum of dW over
-    the valid slots of each dst node (``side="dst"``: dV) or src node
-    (``side="src"``: dU, walking ``src_order``)."""
+    """K9 / K11 v2 node gradient: (num_rows, H, D) f32, the sum of dW
+    over the valid slots of each dst node (``side="dst"``: dV) or src node
+    (``side="src"``: dU).  K9 (no edge term) is the row walk of the side's
+    row view (``row_agg_kernel`` in its node-gradient form: the row's own
+    U or V and attn in registers, the neighbour's row gathered, each sum in
+    slot order); ``ds`` is best handed slot-major (a (B, H, C) view of a
+    (B, C, H) tensor), else it is copied so.  K11 v2 (``ef_slot`` and
+    ``wf``) keeps the tiled walk (:func:`node_grad_tiled`)."""
     if side not in ("dst", "src"):
         raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
-    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
-    _check_slots(tf, ds, heads, "ds")
-    src = side == "src"
-    if src:
-        _require_src_first(tf)
+    _check_vattn(tf, U3, V3, attn, ef_slot, wf)
+    _check_slots(tf, ds, U3.shape[1], "ds")
     edge = () if ef_slot is None else (ef_slot, wf)
     if not on_cuda(U3, V3, attn, ds, tf.valid, *edge):
         return vattn_node_grad_plain(tf, U3, V3, attn, ds, slope, side,
                                      ef_slot, wf)
+    if not edge:   # counted by row_aggregate
+        own, nbr = (V3, U3) if side == "dst" else (U3, V3)
+        return ts.row_aggregate(tf, side, nbr, ds, vattn_node_grad,
+                                grad=(own, attn, float(slope)))
+    out = node_grad_tiled(tf, U3, V3, attn, ds, slope, side, ef_slot, wf)
+    vattn_node_grad.launches += 1
+    return out
+
+
+def node_grad_tiled(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
+                    side: str = "dst", ef_slot=None, wf=None):
+    """K11 v2's node gradient on CUDA tensors: the tiled walk
+    (``gatv2.cu`` ``vattn_node_grad_kernel``, a block per (tile, column
+    chunk, split), the tile's sums in shared memory), with the edge term
+    ``ef_slot`` and ``wf``.  Counts nothing."""
+    if ef_slot is None:
+        raise ValueError("the tiled node-gradient walk takes the edge term; "
+                         "K9's node gradient is the row walk")
+    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
+    src = side == "src"
+    if src:
+        _require_src_first(tf)
     hd = heads * dim
-    fe_cap = _fe_cap(rows) if edge else 0
+    fe_cap = _fe_cap(rows)
     _check_vattn_sizes(tf, heads, dim, fe, 0)
     n_rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
@@ -934,18 +958,16 @@ def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
     if n_t == 0 or hd == 0:
         return out.zero_()
     u, v, a, d = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
-    ef_c, wf_c = (None, None) if not edge else (_f32(ef_slot), _f32(wf))
+    ef_c, wf_c = _f32(ef_slot), _f32(wf)
     _launch("dgl_vattn_node_grad", tf.src_local.data_ptr(),
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
             tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
             tf.src_order.data_ptr() if src else 0,
             (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
             tf.cap, u.data_ptr(), v.data_ptr(), a.data_ptr(), d.data_ptr(),
-            0 if ef_c is None else ef_c.data_ptr(),
-            0 if wf_c is None else wf_c.data_ptr(), fe, rows - fe, fe_cap,
+            ef_c.data_ptr(), wf_c.data_ptr(), fe, rows - fe, fe_cap,
             heads, dim, float(slope), out.data_ptr(), n_rows, g, splits,
             int(src), dev.index, ts._stream(dev), source="gatv2")
-    vattn_node_grad.launches += 1
     return out
 
 
@@ -1258,6 +1280,11 @@ def vattn_backward(tf: ts.TiledFormat, U3, V3, x3, attn, p_slot, den, out,
     ds = gat_ds(tf, x3, zn, rp, p_slot)
     da, d_ef, dwf = vattn_slot_grad(tf, U3, V3, attn, ds, slope, ef_slot,
                                     wf, need_def)
+    if ef_slot is None and ds.is_cuda:
+        # one slot-major copy for both row walks (a slot's H values in one
+        # sector); the (B, H, C) tensor is freed once the copy is made, so
+        # both are alive during the copy (one slot tensor more at the peak)
+        ds = ds.transpose(1, 2).contiguous().transpose(1, 2)
     dV = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst", ef_slot, wf)
     dU = vattn_node_grad(tf, U3, V3, attn, ds, slope, "src", ef_slot, wf)
     del ds

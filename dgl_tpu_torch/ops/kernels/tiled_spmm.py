@@ -235,13 +235,22 @@ def _build_row_view(tf: TiledFormat, side: str,
     counts = torch.bincount(row, minlength=n)
     ptr = torch.zeros(n + 1, dtype=torch.int64, device=flat.device)
     ptr[1:] = torch.cumsum(counts, 0)
-    hub = counts * n > hub_degree * row.shape[0]
+    return RowView(ptr=ptr.to(torch.int32), slot=flat[perm],
+                   nbr=nbr[perm], order=hub_first_order(counts, hub_degree))
+
+
+def hub_first_order(counts: torch.Tensor,
+                    hub_degree: float = HUB_DEGREE) -> torch.Tensor:
+    """(rows,) int32: the order in which a row walk claims rows of
+    ``counts`` entries: the hub rows, of more than ``hub_degree`` times the
+    mean count, by count, largest first, then the other rows by id."""
+    n = counts.shape[0]
+    hub = counts * n > hub_degree * counts.sum()
     hubs = torch.nonzero(hub).reshape(-1)
     hubs = hubs[torch.sort(counts[hubs], descending=True, stable=True)
                 .indices]
-    order = torch.cat([hubs, torch.nonzero(~hub).reshape(-1)])
-    return RowView(ptr=ptr.to(torch.int32), slot=flat[perm],
-                   nbr=nbr[perm], order=order.to(torch.int32))
+    return torch.cat([hubs, torch.nonzero(~hub).reshape(-1)]).to(
+        torch.int32)
 
 
 def _tile_ptr(tiles: torch.Tensor, n_tiles: int) -> torch.Tensor:
@@ -504,6 +513,9 @@ _SIGNATURES = {
     "row_agg": {
         "dgl_row_agg": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                         _I, _P, _P, _I, _I, _I, _I, _I, _P],
+        "dgl_row_node_grad": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                              ctypes.c_float, _I, _P],
         "dgl_row_sddmm": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P, _I, _P, _I, _I, _P],
         "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]},
@@ -598,15 +610,16 @@ def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w):
     return out
 
 
-def _row_layout(f: int, head_cols: int, y: torch.Tensor):
+def _row_layout(f: int, head_cols: int, *rows: torch.Tensor):
     """(vec, cpl, lpr, n_chunks) of the row walk over F = ``f`` columns of
-    ``head_cols`` a head: floats a load (4 where a head's width and y's
-    address allow 16-byte loads, else 2 or 1), vectors a lane, lanes a row
-    (the F / vec vectors rounded up to a power of two, at most 32) and
-    the column chunks, each walking the row once (one up to 32 * 8
-    vectors)."""
+    ``head_cols`` a head: floats a load (4 where a head's width and the
+    addresses of the tensors whose ``rows`` it loads allow 16-byte loads,
+    else 2 or 1), vectors a lane, lanes a row (the F / vec vectors rounded
+    up to a power of two, at most 32) and the column chunks, each walking
+    the row once (one up to 32 * 8 vectors)."""
     vec = 4
-    while vec > 1 and (head_cols % vec or y.data_ptr() % (4 * vec)):
+    while vec > 1 and (head_cols % vec or any(t.data_ptr() % (4 * vec)
+                                              for t in rows)):
         vec //= 2
     nv = f // vec
     lpr = 1
@@ -619,19 +632,24 @@ def _row_layout(f: int, head_cols: int, y: torch.Tensor):
 
 
 def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
-             out: torch.Tensor, fn=None):
+             out: torch.Tensor, fn=None, grad=None):
     """One launch of csrc ``row_agg_kernel`` over the rows of
     ``view.order``: out[r, h] = sum over row r's entries k of w[b, h, c] *
     y[nbr[k], h], slot[k] = b * cap + c, in slot order, 0 at a row with no
     entry.  CUDA tensors, f32: ``y`` (neighbours, H, D) contiguous, ``w``
     (B, H, cap) in any strides, read in place; ``out`` (rows, H, D)
     contiguous.  ``fn``: the C function to launch, by default
-    ``dgl_row_agg`` of ``csrc/row_agg.cu``.  Counts nothing."""
+    ``dgl_row_agg`` of ``csrc/row_agg.cu``.  ``grad`` = (own (rows, H, D)
+    contiguous, attn (H, D) contiguous, slope): K9's node gradient instead
+    (``dgl_row_node_grad``), out[r, h, d] = attn[h, d] * the sum of w[b,
+    h, c] * (own[r, h, d] + y[nbr[k], h, d] >= 0 ? 1 : slope).  Counts
+    nothing."""
     heads, hc = y.shape[1], y.shape[2]
     f = heads * hc
     _check_int32(y.numel(), out.numel(),
                  sum((n - 1) * st for n, st in zip(w.shape, w.stride())))
-    vec, cpl, lpr, n_chunks = _row_layout(f, hc, y)
+    vec, cpl, lpr, n_chunks = _row_layout(f, hc, y,
+                                          *(() if grad is None else grad[:1]))
     # the claim counter passes rows * n_chunks by at most a lane an SM
     _check_int32(view.rows * n_chunks + 2048 * _sms(y.device))
     counter = torch.zeros(1, dtype=torch.int32, device=y.device)
@@ -640,19 +658,24 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
             *w.stride(), heads, hc, y.data_ptr(), f, out.data_ptr(),
             counter.data_ptr(), vec, cpl, lpr, n_chunks, y.device.index,
             _stream(y.device))
-    if fn is None:
+    if grad is not None:
+        own, attn, slope = grad
+        _launch("dgl_row_node_grad", *args[:-2], own.data_ptr(),
+                attn.data_ptr(), slope, *args[-2:], source="row_agg")
+    elif fn is None:
         _launch("dgl_row_agg", *args, source="row_agg")
     elif fn(*args) != 0:
         raise RuntimeError("dgl_row_agg failed to launch")
 
 
 def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
-                  w_slot: torch.Tensor, wrapper) -> torch.Tensor:
+                  w_slot: torch.Tensor, wrapper, grad=None) -> torch.Tensor:
     """:func:`row_walk` over every row of ``side`` (dst: the dst nodes,
     neighbours the srcs; src: the reverse) on CUDA tensors: (rows, H, D)
     f32, out[r, h] = sum over the valid slots of row r of w_slot[b, h, c]
     * y3[nbr, h].  ``y3`` (neighbours, H, D), ``w_slot`` (B, H, C); counts
-    the launch on ``wrapper``.
+    the launch on ``wrapper``.  ``grad`` = (own3 (rows, H, D), attn (H,
+    D), slope): K9's node gradient instead (:func:`row_walk`).
 
     A head width that is not a multiple of 4 is padded to one (y copied
     into zeroed rows, out sliced), so that the walk takes 16-byte loads,
@@ -672,14 +695,24 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     w = w_slot.float().transpose(1, 2).contiguous().transpose(1, 2)
     hp = -(-hc // 4) * 4
     if hp == hc or (hp - hc) * 8 > hc:
-        row_walk(tf.row_view(side), tf.cap, y3.float().contiguous(), w, out)
-    else:
-        y = torch.zeros(y3.shape[0], heads, hp, dtype=torch.float32,
-                        device=y3.device)
-        y[..., :hc] = y3
-        wide = torch.empty(rows, heads, hp, dtype=torch.float32,
-                           device=y3.device)
-        row_walk(tf.row_view(side), tf.cap, y, w, wide)
+        hp = hc
+
+    def padded(t):   # (n, H, hc) as (n, H, hp) f32, contiguous
+        if hp == hc:
+            return t.float().contiguous()
+        p = torch.zeros(t.shape[0], heads, hp, dtype=torch.float32,
+                        device=t.device)
+        p[..., :hc] = t
+        return p
+
+    if grad is not None:
+        own, attn, slope = grad
+        grad = (padded(own), padded(attn.reshape(1, heads, hc)), slope)
+    wide = out if hp == hc else torch.empty(rows, heads, hp,
+                                            dtype=torch.float32,
+                                            device=y3.device)
+    row_walk(tf.row_view(side), tf.cap, padded(y3), w, wide, grad=grad)
+    if wide is not out:
         out.copy_(wide[..., :hc])
     wrapper.launches += 1
     return out

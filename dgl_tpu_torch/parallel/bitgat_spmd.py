@@ -8,10 +8,11 @@ is entirely local; only the src-side operands and gradients cross ranks.
   forward:  all-gather el (P npp, H) and z (P npp, H, D), then K5's
             forward over the A^T packing (``bitgat_fwd_t``) on the
             rank's shard: out and l of the npp local dst;
-  backward: all-gather el and z again, then K13 (:func:`bit_shard_gat_bwd`)
-            on the same shard: dz and del as full-length partials,
-            zero-padded from kp to P npp rows and reduce-scattered to
-            their owners; der is local.
+  backward: all-gather el and z again, then K13 (:func:`bit_shard_gat_bwd`,
+            the listed walk, its rows claimed hubs first) on the same
+            shard: dz and del as full-length partials, zero-padded from
+            kp to P npp rows and reduce-scattered to their owners; der
+            is local.
 
 One shard set serves both passes, symmetric or not: the column shard of
 the A^T packing holds every in-edge of the local dst range.  K13 is K5's
@@ -69,22 +70,37 @@ def bit_shard_gat_bwd_plain(shard, elg, er_l, zg, g_l, linv_l, rho_l,
 
 
 def bit_shard_gat_bwd(shard, elg, er_l, zg, g_l, linv_l, rho_l, npp: int,
-                      slope: float):
+                      slope: float, order=None):
     """K13: (del (kp, H), der (npp, H), dz (kp, H, D)) f32 on one shard,
-    by K5's backward kernel without dropout; its plain version for CPU
-    tensors."""
+    by K5's backward kernel (the listed walk) without dropout; its plain
+    version for CPU tensors.  ``order``: the claim order of the shard's kp
+    rows (:func:`shard_claim_order`; built anew for each call when
+    None)."""
     bitgat.check_bwd(shard, elg, er_l, zg, g_l, linv_l, rho_l, npp)
     if not on_cuda(shard, elg, er_l, zg, g_l, linv_l, rho_l):
         return bit_shard_gat_bwd_plain(shard, elg, er_l, zg, g_l, linv_l,
                                        rho_l, npp, slope)
     out = bitgat.launch_bwd(shard, elg, er_l, zg, g_l, linv_l, rho_l, npp,
-                            slope)
+                            slope, order=order)
     if zg.shape[0] and zg.shape[1] * zg.shape[2]:
         bit_shard_gat_bwd.launches += 1
     return out
 
 
 bit_shard_gat_bwd.launches = 0
+
+
+def shard_claim_order(fmt: BitShardedFormat, shard) -> torch.Tensor:
+    """K13's claim order of ``shard``'s kp rows (``bitgat.claim_order``:
+    hub rows first), built at first use and kept on ``fmt``, by the
+    shard's device, address and shape (``shard`` is one of ``fmt``'s, which
+    keeps it alive)."""
+    if fmt._claim_orders is None:
+        fmt._claim_orders = {}
+    key = (str(shard.device), shard.data_ptr(), tuple(shard.shape))
+    if key not in fmt._claim_orders:
+        fmt._claim_orders[key] = bitgat.claim_order(shard, fmt.kp)
+    return fmt._claim_orders[key]
 
 
 def _gathered(fmt, el_l, z_l, group):
@@ -123,8 +139,9 @@ class _BitShardedGAT(torch.autograd.Function):
         linv = 1.0 / l.clamp(min=DEN_EPS)
         shard = local_view(fmt, fmt.shards, group)
         elg, zg = _gathered(fmt, elc, z_l, group)
+        order = shard_claim_order(fmt, shard) if g.is_cuda else None
         d_el, d_er, dz = bit_shard_gat_bwd(shard, elg, erc, zg, g, linv, rho,
-                                           fmt.npp, ctx.slope)
+                                           fmt.npp, ctx.slope, order)
         dz = _scatter_src(fmt, dz, group)
         d_el = _scatter_src(fmt, d_el, group)
         # the clip's VJP: zero where the input is not strictly inside

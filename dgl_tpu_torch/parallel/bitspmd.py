@@ -30,6 +30,7 @@ them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,6 +70,10 @@ class BitShardedFormat:
     kp: int           # padded contraction rows (>= num_nodes, 1024-multiple)
     symmetric: bool = False
     has_remainder: bool = True
+    # K13's claim orders of this format's shards' rows, by the shard's
+    # device, address and shape, built at first use
+    # (bitgat_spmd.shard_claim_order); a rank's view keeps its own
+    _claim_orders: Optional[dict] = None
 
     @property
     def bytes_per_device(self) -> int:
@@ -249,7 +254,8 @@ def shard_format(fmt: BitShardedFormat, rank: int,
         shards_rev=sh if fmt.symmetric else part(fmt.shards_rev),
         rem_src_g=part(fmt.rem_src_g), rem_dst_l=part(fmt.rem_dst_l),
         rem_w=part(fmt.rem_w), brem_src_g=part(fmt.brem_src_g),
-        brem_dst_l=part(fmt.brem_dst_l), brem_w=part(fmt.brem_w))
+        brem_dst_l=part(fmt.brem_dst_l), brem_w=part(fmt.brem_w),
+        _claim_orders=None)
 
 
 def pad_nodes(fmt: BitShardedFormat, x: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,11 @@ PyTorch:
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
 atomics (K5's, for the gradient of er, and K3's and K6's reduce's
 shared-memory adds) add in an order that changes from run to run.  The
-row walk (K4's SpMM, K6's dx) sums each row in slot order, the SDDMM walk
-forms each dot in one lane order and K2 sums a row's bits in one list
-order; their checks take dyadic inputs and ask for equality."""
+row walk (K4's SpMM, K6's dx, K9's node gradient) sums each row in slot
+order, the SDDMM walk forms each dot in one lane order and K2 sums a row's
+bits in one list order; their checks take dyadic inputs and ask for
+equality.  K5's listed walk sums dz and del in registers in one order
+(der in L2 in none)."""
 import math
 
 import numpy as np
@@ -29,6 +31,7 @@ from dgl_tpu_torch.ops import edgeflat
 from dgl_tpu_torch.parallel import bitgat_spmd as tgs
 from dgl_tpu_torch.parallel import bitspmd as tbs
 from dgl_tpu_torch.parallel import comm
+from dgl_tpu_torch.tools import perf_bwd_walks as tbw
 from dgl_tpu_torch.utils import config
 
 pytestmark = pytest.mark.cuda
@@ -177,6 +180,78 @@ def test_bitgat_kernel_zero_in_degree(card):
     out.sum().backward()
     assert (out[n_dst - 100:] == 0).all()
     assert all(torch.isfinite(t.grad).all() for t in (el, er, z))
+
+
+def _listed_graph():
+    """Simple edges on 8,100 src and 16,300 dst nodes: the rows of the A^T
+    packing hold 512 words (two steps of the listed walk) and reach bit
+    plane 31; src 7 is a hub of 5,000 out-edges (a list fills in each of
+    its steps), src 100-199 have none."""
+    rng = np.random.default_rng(29)
+    n_src, n_dst = 8100, 16_300
+    src = rng.integers(0, n_src, 80_000)
+    src[(src >= 100) & (src < 200)] = 5
+    dst = rng.integers(0, n_dst, 80_000)
+    src[:5000], dst[:5000] = 7, rng.permutation(n_dst)[:5000]
+    dst[5000:5100] = rng.integers(15_872, n_dst, 100)
+    key = np.unique(dst * n_src + src)
+    return key % n_src, key // n_src, n_src, n_dst
+
+
+def _listed_case(card, heads, dim, drop):
+    """K5 backward's operands on ``_listed_graph`` with linv and rho from
+    the plain forward: (bf, args of launch_bwd after the packing)."""
+    row, col, n_src, n_dst = _listed_graph()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    assert (bf.packed_rev < 0).any() and bf.packed_rev.shape[1] == 512
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + dim)
+    el = torch.randn(n_src, heads, device=card, generator=gen)
+    er = torch.randn(n_dst, heads, device=card, generator=gen)
+    z = torch.randn(n_src, heads, dim, device=card, generator=gen)
+    g = torch.randn(n_dst, heads, dim, device=card, generator=gen)
+    thresh = tbg.drop_thresh(drop)
+    seed = torch.tensor([-99], device=card)
+    out, l = tbg.bitgat_fwd_plain(bf.packed, el, er, z, n_dst, 0.2, thresh,
+                                  seed)
+    linv, rho = tbg.backward_scales(g, out, l, thresh)
+    return bf, (el, er, z, g, linv, rho, n_dst, 0.2, thresh, seed)
+
+
+@pytest.mark.parametrize("heads,dim,drop,lanes", [
+    (4, 32, 0.0, None), (4, 32, 0.6, None), (4, 32, 0.0, 8),
+    (4, 32, 0.6, 32), (1, 41, 0.0, None), (1, 41, 0.6, None),
+    (8, 16, 0.6, None), (2, 64, 0.0, None), (3, 5, 0.0, None),
+    (1, 8, 0.6, None), (16, 8, 0.0, None), (1, 128, 0.6, 16)])
+def test_bwd_listed_walk_matches_plain(card, heads, dim, drop, lanes):
+    """K5's backward as the listed walk, at the layouts of ``bwd_layout``
+    (der by vectors at H = 2, 4 and 8, by scalars elsewhere) and, launched
+    by ``tools/perf_bwd_walks.py``, at other lanes an entry, against the
+    plain version; a hub row and rows of two steps."""
+    bf, args = _listed_case(card, heads, dim, drop)
+    want = tbg.bitgat_bwd_plain(bf.packed_rev, *args)
+    order = tbg.bwd_claim_order(bf)
+    got = (tbg.launch_bwd(bf.packed_rev, *args, order=order) if lanes is None
+           else tbw.listed_walk(bf.packed_rev, *args, order=order,
+                                lanes=lanes))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def test_bwd_listed_walk_is_deterministic(card):
+    """dz and del are summed in registers in one order: the same bits from
+    run to run (der meets in L2 in no fixed order)."""
+    bf, args = _listed_case(card, 4, 32, 0.6)
+    a = tbg.bitgat_bwd(bf.packed_rev, *args, order=tbg.bwd_claim_order(bf))
+    b = tbg.bitgat_bwd(bf.packed_rev, *args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    torch.testing.assert_close(a[1], b[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 16)])
+def test_bwd_listed_walk_kernel_attrs(card, heads, dim):
+    for drop in (False, True):
+        regs, warps = tbg.bwd_kernel_attrs(heads, dim, drop)
+        assert 0 < regs <= 128 and warps >= 16
 
 
 def test_gatconv_kernels_match_edge_chain(card, monkeypatch):
@@ -813,6 +888,36 @@ def test_vattn_kernels_match_plain(card, heads, dim, fe, bias):
     torch.testing.assert_close(out.detach(), ref, rtol=RTOL, atol=ATOL)
     for a, b in zip([t.grad for t in ins + edge], grads + [d_ef, dwf]):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,dim", [(8, 8), (1, 41), (4, 32), (3, 5),
+                                       (2, 6)])
+def test_node_grad_row_walk_matches_plain_exactly(card, heads, dim):
+    """K9's node gradient as the row walk, on both sides, from a slot-major
+    ds (as vattn_backward hands it) and from a (B, H, C) one, equal to the
+    plain version bit for bit: U, V and attn on a grid of 1/16, ds of 1/8
+    and a slope of 1/4 keep every sum exact."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    gen = torch.Generator(device=card).manual_seed(heads * 10 + dim)
+
+    def grid(*shape, top):
+        return torch.randint(-top, top + 1, shape, device=card,
+                             generator=gen).float()
+
+    b, cap = fwd.num_buckets, fwd.cap
+    U = grid(fwd.num_src, heads, dim, top=16) / 16
+    V = grid(fwd.num_dst, heads, dim, top=16) / 16
+    attn = grid(heads, dim, top=8) / 16
+    ds = grid(b, heads, cap, top=8) / 8 * fwd.valid.view(b, 1, cap)
+    sm = ds.transpose(1, 2).contiguous().transpose(1, 2)
+    for side in ("dst", "src"):
+        want = tgf.vattn_node_grad_plain(fwd, U, V, attn, ds, 0.25, side)
+        before = tgf.vattn_node_grad.launches
+        for d in (sm, ds):
+            assert torch.equal(
+                tgf.vattn_node_grad(fwd, U, V, attn, d, 0.25, side), want)
+        assert tgf.vattn_node_grad.launches == before + 2
 
 
 def test_vattn_wrappers_never_take_plain_on_cuda(card, monkeypatch):

@@ -5,7 +5,9 @@ Phases, each of which raises on failure (nothing is caught):
 1. device: a CUDA device must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles ``dgl_tpu_torch/csrc/*.cu`` (one ``nvcc`` each, all at
-   once) and prints the build seconds and ptxas' resource report;
+   once) and prints the build seconds and ptxas' resource report; the
+   probe of the kernels that K6's ds and K9's da replaced
+   (``dgl_tpu_torch/tools/perf_ds_fold.py``) builds beside it;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
    reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
@@ -84,13 +86,17 @@ Phases, each of which raises on failure (nothing is caught):
    step's loss and gradients against the same model computed through
    edgeflat's functions;
 19. ``DotGatConv(64, 32, 4)`` forward and backward of (out^2).mean() for
-   3 steps on the tiled graph (K8: K4's SDDMM and SpMM, K6's kernels);
+   3 steps on the tiled graph (K8: K4's SDDMM and SpMM, K6's kernels),
+   then a profiled step held to the counters;
 20. K6 yardsticks at full size, (H, Fh) = (4, 32) and (1, 41): each
    kernel against its plain version, its time (median of 5), its plain
    version's, the bound and, where one PyTorch call computes the same
    function, that call's time (``index_add_`` for the slot reduce, a
    block-diagonal ``torch.sparse.mm`` on the transposed pattern for the
-   src-side aggregation).
+   src-side aggregation).  ds (the dot-product walk with its epilogue in
+   the finishing pass) on dyadic inputs, equal to its plain version bit
+   for bit in both layouts, with the bucket walk it replaced
+   (``dgl_tpu_torch/tools/perf_ds_fold.py``) timed beside it.
 21. the vector-attention slice at mid size: each K9 / K11 v2 kernel
    (scores, slot gradient, node gradient on both sides) against its plain
    version on the phase-3 multigraph in the tiled format at (H, D) = (8,
@@ -101,7 +107,8 @@ Phases, each of which raises on failure (nothing is caught):
    elu -> 1 x 41, AdamW lr 5e-3, weight decay 5e-4) for 10 steps on the
    tiled format, both layers on K9, a profiled step whose trace is held
    to the launch counters (and one without the warm-up step, which shows
-   what the profiler drops then), and one step's loss and gradients
+   what the profiler drops then), no slot-gradient launch (da is folded
+   into the node gradient by dst), and one step's loss and gradients
    against the same step built from the plain versions;
 23. EGATConv(64, 16, 32, 32, 4) at the JAX package's EGAT scale
    (tools/perf_egat128.py:27-80: 23M uniform random edges over the Reddit
@@ -113,9 +120,12 @@ Phases, each of which raises on failure (nothing is caught):
    (inputs exact in f32, as phase 21's): each kernel against
    its plain version, its time (median of 5), its plain version's and the
    bound; no PyTorch call computes any of them.  K9's node gradient (the
-   row walk, on ds made slot-major) must equal its plain version bit for
-   bit, with the tiled walk it replaced (``perf_bwd_walks``) timed beside
-   it.  Then route 5's other
+   row walk, on ds slot-major) must equal its plain version bit for bit,
+   with the tiled walk it replaced (``perf_bwd_walks``) timed beside it;
+   the walk by dst with da folded in gives the same dV bit for bit and da
+   within ``close_sum``'s tolerance, timed beside the walk without da and
+   the tiled slot-gradient walk the fold replaced (``perf_ds_fold``),
+   with both instances' registers.  Then route 5's other
    launches at its (8, 8) layer: K6's yardsticks and K4's SpMM, as phases
    16 and 20 time them at (1, 41);
 25. the EdgeGAT slice at mid size: each K10 v2 kernel (the edge scores,
@@ -255,6 +265,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -507,19 +518,22 @@ def phase_train(dgt, bm, g, x, y, train):
 # each wrapper's launch counter and the CUDA kernel it launches, once a
 # call, or the kernels it launches, each once a call (K4's SDDMM: the walk
 # and its finishing pass, at the main path's widths, which one launch of
-# the walk holds; K12's columns: the split of z and the tensor-core
-# product); K4's SpMM and the src-side aggregation share the row
-# walk (and K9's node gradient, the walk in its node-gradient form), K13
+# the walk holds, and K6's ds, the same walk and its ds pass; K12's
+# columns: the split of z and the tensor-core product); K4's SpMM and the
+# src-side aggregation share the row walk (and K9's node gradient, the
+# walk in its node-gradient form, with da folded in by dst), K13
 # and K5's backward another kernel: the counts of wrappers that share one
 # are held together
 TRACED_KERNELS = {
     "bit_matmul_t": "bit_matmul_t_kernel",
     "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_list_kernel",
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
-    "gat_ds": "gat_ds_kernel", "src_aggregate": "row_agg_kernel",
+    "gat_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
+    "src_aggregate": "row_agg_kernel",
     "vattn_scores": "vattn_scores_kernel",
     "vattn_slot_grad": "vattn_slot_grad_kernel",
     "vattn_node_grad": "row_agg_kernel",
+    "vattn_node_grad_da": "row_agg_kernel",
     "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
@@ -537,7 +551,7 @@ TRACED_KERNELS = {
 
 
 def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
-                  loss=loss_fn):
+                  loss=loss_fn, card=None):
     """Optimizer steps of ``loss`` under torch.profiler, ``warmup`` of them
     before the one that its schedule records: device time by kernel and
     the device's busy share of the recorded step (the wall time includes
@@ -546,7 +560,8 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
     that it reads has its launches in the recorded step held against its
     kernel's entries in the trace.  Where they differ, the trace misses
     launches, the busy share is not measured, and the traced kernels are
-    listed in order."""
+    listed in order.  ``card``: the card's name and power limit, printed
+    beside the step's numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -591,8 +606,9 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
     busy = (f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})"
             if seen == launched else "not measured (the trace misses "
             f"launches; it shows {busy_us / 1e3:.3f} ms)")
-    log(f"# profiled step: {wall_us / 1e3:.3f} ms wall, device busy {busy}; "
-        "by kernel:")
+    on = "" if card is None else f" on {card}"
+    log(f"# profiled step{on}: {wall_us / 1e3:.3f} ms wall, device busy "
+        f"{busy}; by kernel:")
     for e in rows[:12]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms {e.count:3d}x "
             f"{e.key[:100]}")
@@ -1501,17 +1517,20 @@ def k6_kernel_checks(tgf, fwd, heads, fh, gen, tag):
                      close(tgf.slot_reduce(fwd, g, side),
                            tgf.slot_reduce_plain(fwd, g, side),
                            f"{tag} slot reduce {side}")))
-    errs.append(("ds", close(tgf.gat_ds(fwd, x, zn, rp, g),
-                             tgf.gat_ds_plain(fwd, x, zn, rp, g),
-                             f"{tag} ds")))
+    want = tgf.gat_ds_plain(fwd, x, zn, rp, g)
+    for slot_major in (False, True):
+        errs.append((f"ds{' slot-major' * slot_major}", close(
+            tgf.gat_ds(fwd, x, zn, rp, g, slot_major), want,
+            f"{tag} ds{' slot-major' * slot_major}")))
+    del want
     errs.append(("src agg", close(tgf.src_aggregate(fwd, zn, p),
                                   tgf.src_aggregate_plain(fwd, zn, p),
                                   f"{tag} src_aggregate")))
     torch.cuda.synchronize()
     launched = [k.launches - b for k, b in zip(counters, before)]
-    if launched != [2, 2, 1, 1]:
+    if launched != [2, 2, 2, 1]:
         raise AssertionError(f"{tag}: K6 launches {launched}, not "
-                             "[2, 2, 1, 1]")
+                             "[2, 2, 2, 1]")
     return errs
 
 
@@ -1570,7 +1589,8 @@ def phase_gat_fused_mid(dgt, tts, tgf, ef):
 
 
 K6_COUNTERS = ("gat_scores", "slot_reduce", "gat_ds", "src_aggregate")
-K9_COUNTERS = ("vattn_scores", "vattn_slot_grad", "vattn_node_grad")
+K9_COUNTERS = ("vattn_scores", "vattn_slot_grad", "vattn_node_grad",
+               "vattn_node_grad_da")
 K10_COUNTERS = ("edgegat_scores", "slot_feat_reduce", "edgegat_ds")
 # K11 v1's three kernels, then K10 v1's
 V1_COUNTERS = ("egatc_scores", "egatc_slot_grad", "slot_vec_reduce",
@@ -1595,7 +1615,7 @@ def read_counts(tts, tgf):
     return counts
 
 
-def phase_route4(dgt, tts, tgf, gt, x, y, train):
+def phase_route4(dgt, tts, tgf, gt, x, y, train, card):
     """Phase 18 (route 4): 10 Adam steps of the GAT without attention
     dropout on the tiled format; K6's and K4's counts are set to 0 just
     before and read just after."""
@@ -1606,8 +1626,9 @@ def phase_route4(dgt, tts, tgf, gt, x, y, train):
     reset_counts(tts, tgf)
     losses, step_s = train_loop("route 4", model, opt, gt, x, y, train)
     counts = read_counts(tts, tgf)
-    log(f"# route 4 train: median step {step_s * 1e3:.3f} ms after one "
-        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+    log(f"# route 4 train on {card}: median step {step_s * 1e3:.3f} ms "
+        f"after one warm-up step, {gt.num_edges() / step_s:.6g} "
+        "train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
         f"launches {counts}")
     # per step and layer: scores, den; K4's SpMM for the numerator; ds,
@@ -1694,10 +1715,11 @@ def phase_gat_eval(tts, tgf, model, gt, x, y):
 DOTGAT_STEPS = 3
 
 
-def phase_dotgat(dgt, tts, tgf, gt):
+def phase_dotgat(dgt, tts, tgf, gt, card):
     """Phase 19: DotGatConv(64, 32, 4) forward and backward of
     (out^2).mean() for 3 steps, as tools/perf_gat_full_reddit.py:88-107;
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after; then a profiled step
+    (a zero-rate SGD step after the backward) held to the counters."""
     gen = torch.Generator(device="cuda").manual_seed(19)
     conv = dgt.nn.DotGatConv(64, 32, 4, generator=gen)
     xs = [torch.randn(N_NODES, 64, device="cuda", generator=gen)
@@ -1716,7 +1738,7 @@ def phase_dotgat(dgt, tts, tgf, gt):
         if not np.isfinite(loss.item()):
             raise AssertionError("DotGat loss is not finite")
     counts = read_counts(tts, tgf)
-    log(f"# DotGatConv(64, 32, 4) forward + backward: "
+    log(f"# DotGatConv(64, 32, 4) forward + backward on {card}: "
         f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
         f"launches {counts}")
@@ -1729,6 +1751,9 @@ def phase_dotgat(dgt, tts, tgf, gt):
         raise AssertionError(f"DotGat launches {counts}, not {want} a step")
     if not all(torch.isfinite(p.grad).all() for p in conv.parameters()):
         raise AssertionError("DotGat gradients are not finite")
+    phase_profile(conv, torch.optim.SGD(conv.parameters(), lr=0.0), gt,
+                  xs[-1], None, None, lambda: read_counts(tts, tgf),
+                  loss=dotgat_loss, card=card)
     return counts
 
 
@@ -1741,13 +1766,15 @@ def slot_ids(fwd, side):
             + local.view(fwd.num_buckets, fwd.cap)).reshape(-1)
 
 
-def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
+def k6_yardsticks(tgf, tts, tdf, gt, heads, fh, rate, scores=True,
                   sides=("dst", "src"), ds=True, bias=False):
     """Phase 20: each K6 kernel at full size against its plain version,
     with the timings, the bound and the library call where there is
     one.  ``scores``, ``sides`` and ``ds`` leave out the rows a caller
     does not launch (route 5 launches neither the scores nor the src side);
-    ``bias`` adds the scores with a per-slot bias (K10 v1's)."""
+    ``bias`` adds the scores with a per-slot bias (K10 v1's).  ds's row
+    also times the slot-major layout and the bucket walk it replaced
+    (``tdf``, ``dgl_tpu_torch/tools/perf_ds_fold.py``)."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     b, cap = fwd.num_buckets, fwd.cap
@@ -1773,10 +1800,11 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
     walk = walk_bytes(slots, e)
     rows = {}
 
-    def row(name, kernel, plain, nbytes, ops, lib=None, lib_name=None):
+    def row(name, kernel, plain, nbytes, ops, lib=None, lib_name=None,
+            check=close):
         got = kernel()
         want = plain()
-        err = max(close(a, w, f"K6 {name} full size H={heads} Fh={fh}")
+        err = max(check(a, w, f"K6 {name} full size H={heads} Fh={fh}")
                   for a, w in zip(got if isinstance(got, tuple) else (got,),
                                   want if isinstance(want, tuple)
                                   else (want,)))
@@ -1827,13 +1855,38 @@ def k6_yardsticks(tgf, tts, gt, heads, fh, rate, scores=True,
             + (b * 4 if side == "src" else 0),
             e * heads, lib, "index_add_")
 
-    # ds: in the slot arrays, g, x, zn, rp; out ds at every slot
-    if ds:
-        row("ds", lambda: tgf.gat_ds(fwd, x, zn, rp, g),
-            lambda: tgf.gat_ds_plain(fwd, x, zn, rp, g),
-            walk + edge_h + slot_h + 2 * feat_b + node,
-            e * heads * (2 * fh + 2))
+    # ds: the dot-product walk by dst, its epilogue in the finishing pass,
+    # on dyadic inputs (x, zn, rp and g multiples of 1/16 in [-1, 1]):
+    # every dot and product is exact in f32, so the walk must equal its
+    # plain version bit for bit, in both layouts.  In: the dst view, x
+    # and zn once, rp once, g at the edges; out ds at every slot.  The
+    # bucket walk it replaced (perf_ds_fold) is timed beside it
     del g
+    if ds:
+        xq, znq = (grid(gen, N_NODES, heads, fh, step=1 / 16, top=1)
+                   for _ in range(2))
+        rpq = grid(gen, N_NODES, heads, step=1 / 16, top=1)
+        gq = grid(gen, b, heads, cap, step=1 / 16, top=1) * fwd.valid.view(
+            b, 1, cap)
+        exact_sums(fh + 1, 1 / 4096, f"K6 ds H={heads} Fh={fh}")
+        row("ds", lambda: tgf.gat_ds(fwd, xq, znq, rpq, gq),
+            lambda: tgf.gat_ds_plain(fwd, xq, znq, rpq, gq),
+            sddmm_walk_bytes(fwd, heads, fh) + node + edge_h,
+            e * heads * (2 * fh + 2), check=equal)
+        want = tgf.gat_ds(fwd, xq, znq, rpq, gq)
+        tag = f"K6 ds H={heads} Fh={fh}"
+        err = equal(tgf.gat_ds(fwd, xq, znq, rpq, gq, True), want,
+                    f"{tag} slot-major")
+        err = max(err, equal(tdf.bucket_ds(fwd, xq, znq, rpq, gq), want,
+                             f"{tag} (the bucket walk)"))
+        del want
+        sm_ms = cuda_ms(lambda: tgf.gat_ds(fwd, xq, znq, rpq, gq, True))
+        old = cuda_ms(lambda: tdf.bucket_ds(fwd, xq, znq, rpq, gq))
+        rows["ds"].update(kernel="row_sddmm_kernel + ds_finish_kernel",
+                          slot_major_ms=sm_ms, old_ms=old)
+        log(f"# {tag}: slot-major {sm_ms:.4f} ms; the bucket walk it "
+            f"replaced {old:.4f} ms, max|err| {err:.3g}")
+        del xq, znq, rpq, gq
 
     # the src-side aggregation: one torch.sparse.mm of the block-diagonal
     # (H N, H N) CSR over the transposed pattern, weighted by p, with
@@ -1929,7 +1982,8 @@ def close_sum(got, want, what):
 
 def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
     """Each K9 / K11 v2 kernel against its plain version on ``tf``, with
-    the edge term when fe > 0: (name, max|err|) pairs."""
+    the edge term when fe > 0: (name, max|err|) pairs.  K9's da comes from
+    the node-gradient walk by dst with da folded in, its dV beside it."""
     U, V, attn, ds, ef, wf = vattn_inputs(tf, heads, dim, fe, gen)
     slope = EGAT_SLOPE if fe else SLOPE
     counters = [getattr(tgf, name) for name in K9_COUNTERS]
@@ -1937,21 +1991,31 @@ def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
     errs = [("p", close(tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
                         tgf.vattn_scores_plain(tf, U, V, attn, slope, ef,
                                                wf), f"{tag} p"))]
-    got = tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf)
     want = tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf)
+    want_v = tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope, "dst", ef,
+                                       wf)
+    if fe:
+        got = tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf)
+        got_v = tgf.vattn_node_grad(tf, U, V, attn, ds, slope, "dst", ef, wf)
+    else:
+        got_v, da = tgf.vattn_node_grad(tf, U, V, attn, ds, slope, "dst",
+                                        with_da=True)
+        got = (da, None, None)
     for name, a, w in zip(("da", "d_ef", "dwf"), got, want):
         if a is not None:
             check = close if name == "d_ef" else close_sum
             errs.append((name, check(a, w, f"{tag} {name}")))
-    for side, name in (("dst", "dV"), ("src", "dU")):
-        errs.append((name, close(
-            tgf.vattn_node_grad(tf, U, V, attn, ds, slope, side, ef, wf),
-            tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope, side, ef,
-                                      wf), f"{tag} {name}")))
+    errs.append(("dV", close(got_v, want_v, f"{tag} dV")))
+    errs.append(("dU", close(
+        tgf.vattn_node_grad(tf, U, V, attn, ds, slope, "src", ef, wf),
+        tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope, "src", ef, wf),
+        f"{tag} dU")))
     torch.cuda.synchronize()
     launched = [k.launches - b for k, b in zip(counters, before)]
-    if launched != [1, 1, 2]:
-        raise AssertionError(f"{tag}: K9 launches {launched}, not [1, 1, 2]")
+    # scores, slot gradient, node gradient, node gradient with da
+    expect = [1, 1, 2, 0] if fe else [1, 0, 1, 1]
+    if launched != expect:
+        raise AssertionError(f"{tag}: K9 launches {launched}, not {expect}")
     return errs
 
 
@@ -2005,7 +2069,7 @@ def phase_gatv2_mid(dgt, tts, tgf):
         f"{len(grad_k)} gradients agree")
 
 
-def phase_route5(dgt, tts, tgf, gt, x, y, train):
+def phase_route5(dgt, tts, tgf, gt, x, y, train, card):
     """Phase 22 (route 5): the GATv2 recipe for 10 AdamW steps (lr 5e-3,
     weight decay 5e-4, as examples/gatv2.py:31) on the tiled format, both
     layers on K9; the counts are set to 0 just before and read just
@@ -2016,16 +2080,18 @@ def phase_route5(dgt, tts, tgf, gt, x, y, train):
     reset_counts(tts, tgf)
     losses, step_s = train_loop("route 5", model, opt, gt, x, y, train)
     counts = read_counts(tts, tgf)
-    log(f"# route 5 train: median step {step_s * 1e3:.3f} ms after one "
-        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+    log(f"# route 5 train on {card}: median step {step_s * 1e3:.3f} ms "
+        f"after one warm-up step, {gt.num_edges() / step_s:.6g} "
+        "train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
         f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, launches {counts}")
     # per step and layer: scores, den, K4's SpMM for the numerator; ds,
-    # the slot gradient (da), the node gradient on both sides, dx
+    # the node gradient by dst with da folded in and by src, dx; no slot
+    # gradient
     want = {"gat_scores": 0, "slot_reduce": 2, "gat_ds": 2,
             "src_aggregate": 2, "k4_spmm": 2, "k4_sddmm": 0,
-            "vattn_scores": 2, "vattn_slot_grad": 2, "vattn_node_grad": 4,
-            **NO_K10, **NO_V1}
+            "vattn_scores": 2, "vattn_slot_grad": 0, "vattn_node_grad": 2,
+            "vattn_node_grad_da": 2, **NO_K10, **NO_V1}
     if counts != {k: v * STEPS for k, v in want.items()}:
         raise AssertionError(f"route 5 launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2159,6 +2225,7 @@ def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
     want = {"gat_scores": 0, "slot_reduce": 1, "gat_ds": 1,
             "src_aggregate": 1, "k4_spmm": 1, "k4_sddmm": 0,
             "vattn_scores": 1, "vattn_slot_grad": 1, "vattn_node_grad": 2,
+            "vattn_node_grad_da": 0,
             **NO_K10, **NO_V1}
     if counts != {k: v * EGAT_STEPS for k, v in want.items()}:
         raise AssertionError(f"EGAT launches {counts}, not {want} a step")
@@ -2189,7 +2256,7 @@ def phase_egat_check(conv, g, x, ef, ef_slot):
         f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
 
 
-def vattn_yardsticks(tgf, tbw, g, heads, dim, fe, rate):
+def vattn_yardsticks(tgf, tts, tbw, tdf, g, heads, dim, fe, rate):
     """Phase 24: each K9 / K11 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; no single PyTorch call
     computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
@@ -2238,19 +2305,18 @@ def vattn_yardsticks(tgf, tbw, g, heads, dim, fe, rate):
         lambda: tgf.vattn_scores_plain(tf, U, V, attn, slope, ef, wf),
         walk + 2 * node_b + hd * 4 + edge_b + slot_h,
         e * (5 * hd + fe_ops + 4 * heads))
-    # the slot gradient as the main path calls it (no d(ef)): in the slot
-    # arrays, ds, U, V, attn (and the edge term); out da (and dWf).  Per
-    # edge and column: raw, lrelu, da (5 ops), with the edge term dW and
-    # dWf (3 + 2 rows)
-    row("slot_grad",
-        lambda: tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
-                                    need_def=False),
-        lambda: tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf,
-                                          need_def=False),
-        walk + edge_h + 2 * node_b + 2 * hd * 4 + edge_b + rows * hd * 4,
-        e * hd * (5 + (fe_ops // hd + 3 + 2 * rows if fe else 0)),
-        check=close_sum)
     if fe:
+        # K11 v2's slot gradient as the main path calls it (no d(ef)): in
+        # the slot arrays, ds, U, V, attn, the edge term; out da and dWf.
+        # Per edge and column: raw, lrelu, da (5 ops), dW and dWf (3 + 2
+        # rows)
+        row("slot_grad",
+            lambda: tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
+                                        need_def=False),
+            lambda: tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef,
+                                              wf, need_def=False),
+            walk + edge_h + 2 * node_b + 2 * hd * 4 + edge_b + rows * hd * 4,
+            e * hd * (5 + fe_ops // hd + 3 + 2 * rows), check=close_sum)
         # K11 v2's node gradient on each side, the tiled walk: in the slot
         # arrays (and src_order), ds, U, V, attn, the edge term; out one
         # row per node.  Per edge and column: raw, dW, the add (5 ops)
@@ -2289,6 +2355,50 @@ def vattn_yardsticks(tgf, tbw, g, heads, dim, fe, rate):
         out[f"node_grad_{side}"].update(kernel="row_agg_kernel", old_ms=old)
         log(f"# K9 node_grad_{side} {tag}: the tiled walk {old:.4f} ms, "
             f"max|err| {err:.3g} against the row walk")
+    # K9's dV and da from the walk by dst with da folded in, as
+    # vattn_backward calls it: dV equal to the plain version bit for bit,
+    # da (met in L2 in no fixed order) within close_sum's tolerance.  In:
+    # the dst view, 4H B an edge of ds, U gathered and V once, attn; out
+    # dV and da.  Per edge and column: raw, the select and the add (4 ops)
+    # and lrelu and da's FMA (3).  Beside it: the walk without da (the
+    # node_grad_dst row) and the tiled slot-gradient walk the fold
+    # replaced (perf_ds_fold), and both instances' registers
+    hp = -(-dim // 4) * 4
+    if (hp - dim) * 8 > dim:
+        hp = dim
+    vec, cpl, _, _ = tts._row_layout(heads * hp, hp, max_cpl=tts.FOLD_CPL)
+    regs = {fold: tts.node_grad_kernel_attrs(vec, cpl, fold)
+            for fold in (True, False)}
+    log(f"# K9 node_grad_da {tag}: row_agg_kernel<{vec}, {cpl}, true, "
+        f"true> {regs[True][0]} registers a thread, {regs[True][1]} B local "
+        f"memory; without da <{vec}, {cpl}, true, false> {regs[False][0]} "
+        f"registers, {regs[False][1]} B local memory")
+    if regs[True][1] != 0:
+        raise AssertionError(f"K9 node_grad_da {tag}: the fold spills "
+                             f"({regs[True][1]} B of local memory a thread)")
+
+    def fold_check(a, w, what):
+        return equal(a, w, what) if a.dim() == 3 else close_sum(a, w, what)
+
+    row("node_grad_da",
+        lambda: tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope, "dst",
+                                    with_da=True),
+        lambda: (tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope, "dst"),
+                 tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope)[0]),
+        row_walk_bytes(tf, "dst", heads, hd) + tf.num_dst * hd * 4
+        + 2 * hd * 4, e * 7 * hd, check=fold_check)
+    da = tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope, "dst",
+                             with_da=True)[1]
+    err = close_sum(tdf.tiled_da(tf, U, V, attn, ds, slope), da,
+                    f"K9 da (the tiled walk) {tag}")
+    old = cuda_ms(lambda: tdf.tiled_da(tf, U, V, attn, ds, slope))
+    out["node_grad_da"].update(
+        kernel=f"row_agg_kernel<{vec}, {cpl}, true, true>", old_ms=old,
+        unfolded_ms=out["node_grad_dst"]["ms"], registers=regs[True][0],
+        registers_unfolded=regs[False][0])
+    log(f"# K9 node_grad_da {tag}: the walk without da "
+        f"{out['node_grad_dst']['ms']:.4f} ms, the tiled slot-gradient walk "
+        f"it replaced {old:.4f} ms, max|err| {err:.3g} against the fold")
     del ds_sm
     return out
 
@@ -4413,6 +4523,7 @@ def main():
     from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
     from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
     from dgl_tpu_torch.tools import perf_bwd_walks as tbw
+    from dgl_tpu_torch.tools import perf_ds_fold as tdf
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
     # phase 1: device
@@ -4424,10 +4535,13 @@ def main():
         text=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     log(f"# device: {kind}, {torch.cuda.device_count()} visible; torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
+        f"{torch.__version__}, CUDA {torch.version.cuda}; card {card}")
 
-    # phase 2: build
+    # phase 2: build, the ds and da probe's two retired kernels beside it
+    # (waited for in phases 20 and 24)
     t0 = time.perf_counter()
+    probe_build = ThreadPoolExecutor(1)
+    probe_built = probe_build.submit(tdf.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -4521,34 +4635,39 @@ def main():
     # phases 18-20: the slot-space slice at full size
     model, opt, k6_launches = phase("18 (route 4: GAT on K6 train)",
                                     phase_route4, dgt, tts, tgf, gt, x, y,
-                                    train)
+                                    train, card)
     phase("18 (route 4 profile)", phase_profile, model, opt, gt, x, y, train,
-          lambda: read_counts(tts, tgf))
+          lambda: read_counts(tts, tgf), 1, loss_fn, card)
     phase("18 (route 4 check)", phase_route4_check, ef, model, gt, x, y,
           train)
     del model, opt
-    phase("19 (DotGat on K8)", phase_dotgat, dgt, tts, tgf, gt)
+    phase("19 (DotGat on K8)", phase_dotgat, dgt, tts, tgf, gt, card)
+    t0 = time.perf_counter()
+    probe_built.result()
+    probe_build.shutdown()
+    log("# the ds and da probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
     k6 = [phase(f"20 (K6 yardsticks H={h} Fh={d})", k6_yardsticks, tgf, tts,
-                gt, h, d, rate) for h, d in GAT_SHAPES]
+                tdf, gt, h, d, rate) for h, d in GAT_SHAPES]
 
     # phases 22-24: the vector-attention slice at full size
     model, opt, k9_launches = phase("22 (route 5: GATv2 on K9 train)",
                                     phase_route5, dgt, tts, tgf, gt, x, y,
-                                    train)
+                                    train, card)
     phase("22 (route 5 profile, no warm-up)", phase_profile, model, opt, gt,
-          x, y, train, lambda: read_counts(tts, tgf), 0)
+          x, y, train, lambda: read_counts(tts, tgf), 0, loss_fn, card)
     phase("22 (route 5 profile)", phase_profile, model, opt, gt, x, y, train,
-          lambda: read_counts(tts, tgf))
+          lambda: read_counts(tts, tgf), 1, loss_fn, card)
     phase("22 (route 5 check)", phase_route5_check, model, gt, x, y, train)
     del model, opt
     k9 = [phase(f"24 (K9 yardsticks H={h} D={d})", vattn_yardsticks, tgf,
-                tbw, gt, h, d, 0, rate)
+                tts, tbw, tdf, gt, h, d, 0, rate)
           for h, d in VATTN_SHAPES[:2]]
     # the K6 and K4 launches of route 5's (8, 8) layer; its (1, 41) layer's
     # are phases 16 and 20's.  (B, 8, C) slot tensors take 6 GB each
     torch.cuda.empty_cache()
-    phase("24 (K6 yardsticks H=8 Fh=8)", k6_yardsticks, tgf, tts, gt, 8, 8,
-          rate, False, ("dst",))
+    phase("24 (K6 yardsticks H=8 Fh=8)", k6_yardsticks, tgf, tts, tdf, gt, 8,
+          8, rate, False, ("dst",))
     phase("24 (K4 SpMM yardstick H=8 Fh=8)", k4_spmm_yardstick, ef, tts, gt,
           8, 8, rate)
 
@@ -4599,15 +4718,16 @@ def main():
     phase("26 (EdgeGATConv check)", phase_edgegat_check, conv, ge, xe, efe,
           ef_slot)
     del conv, efe
-    k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tbw, ge,
-                EGAT_H, EGAT_D, EGAT_FE, rate)
+    k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tts, tbw,
+                tdf, ge, EGAT_H, EGAT_D, EGAT_FE, rate)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
     # dx, K4's SpMM for the numerator; the v1 functions' K6 scores with the
     # slot bias (K10 v1) and ds (K11 v1)
     phase("27 (K6 yardsticks H=4 Fh=32, EGAT graph)", k6_yardsticks, tgf,
-          tts, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), True, True)
+          tts, tdf, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), True,
+          True)
     phase("27 (K4 SpMM yardstick H=4 Fh=32, EGAT graph)", k4_spmm_yardstick,
           ef, tts, ge, EGAT_H, EGAT_D, rate)
 
@@ -4671,7 +4791,7 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:314, :387, :407, :533",
          "launches": k6_launches["slot_reduce"], **k6[0]["reduce_dst"]},
         {"name": "gat_ds", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:368, :597",
          "launches": k6_launches["gat_ds"], **k6[0]["ds"]},
         {"name": "src_aggregate", "route": "cuda",
@@ -4682,16 +4802,18 @@ def main():
         # route 5; K11 v2 at EGAT's (4, 32) with 16 edge features and the
         # bias row, launches from phase 23.  The redesigned rows (K5's
         # backward and K13: the listed walk; K9's node gradient: the row
-        # walk) name their kernel and give the retired one's time in this
-        # run as old_ms
+        # walk; K6's ds: the dot-product walk; K9's da: folded into the
+        # node-gradient walk by dst) name their kernel and give the retired
+        # one's time in this run as old_ms
         {"name": "vattn_scores", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:783",
          "launches": k9_launches["vattn_scores"], **k9[0]["scores"]},
-        {"name": "vattn_slot_grad", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
-         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878",
-         "launches": k9_launches["vattn_slot_grad"], **k9[0]["slot_grad"]},
+        {"name": "vattn_node_grad_da", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
+         "replaces": "dgl_tpu/ops/pallas/gat_fused.py:689, :878",
+         "launches": k9_launches["vattn_node_grad_da"],
+         **k9[0]["node_grad_da"]},
         {"name": "vattn_node_grad", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878, :903",

@@ -30,8 +30,8 @@
 // Zp[dst, h]; and d(ef)[s, :] = sum_h p Zp[dst, h] + ds M[:, h].  M, S .
 // We, Zp and dWe are node-sized products outside the kernels.
 //
-// Four kernels serve the eleven K6 and K8 call sites (with the row walk
-// of csrc/row_agg.cu for K6's dx and K4's SpMM) and, with their edge
+// Four kernels serve the K6 and K8 call sites (with the row walks of
+// csrc/row_agg.cu for K6's ds and dx and K4's SpMM) and, with their edge
 // variants, K10 v2's; each is behind a plain C function that launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError():
 //
@@ -55,16 +55,19 @@
 //     With one split the block writes its rows once (zeros on a tile with
 //     no bucket); with several, the caller zeroes `out` and the blocks add
 //     their rows with global atomics.
-// gat_ds_kernel<L, kEdge, kDef>  replaces _ds_kernel :146 (gat_backward
-//     :368, _dot_gat_bwd :597) and, with kEdge, _eg2_ds_kernel :1605
-//     (edgegat_v2_backward :1785).  K4's SDDMM walk (csrc/tiled_spmm.cu
-//     tiled_sddmm_mh_kernel): one warp per 32-slot chunk, L lanes per
-//     head, xor-shuffle sums, 4 slots in flight; the epilogue subtracts
-//     rp[dst, h] and multiplies by g, and padded slots get 0.  With kEdge
-//     the L lanes of a head also stride the Fe columns of ef[s] . Zp[dst,
-//     h]; with kDef the warp then writes its chunk's d(ef), the 32 x Fe
-//     values one per lane and step, coalesced (the d(ef) part of
-//     _eg2_dx_def_kernel :1639, :1850).
+// gat_ds_kernel<L, true, kDef>  replaces _eg2_ds_kernel :1605
+//     (edgegat_v2_backward :1785), K10 v2's ds.  One warp per 32-slot
+//     chunk, L lanes per head, xor-shuffle sums, 4 slots in flight; the
+//     epilogue subtracts rp[dst, h] and multiplies by g, and padded slots
+//     get 0.  The L lanes of a head also stride the Fe columns of ef[s] .
+//     Zp[dst, h]; with kDef the warp then writes its chunk's d(ef), the 32
+//     x Fe values one per lane and step, coalesced (the d(ef) part of
+//     _eg2_dx_def_kernel :1639, :1850).  K6's ds (_ds_kernel :146, the
+//     kernel without the edge term) is the dot-product row walk of
+//     csrc/row_agg.cu with its epilogue in the finishing pass; this
+//     kernel's instance for it left the package (its mode 0 below), and
+//     dgl_tpu_torch/tools/perf_ds_fold.py builds it again to time the two
+//     side by side.
 // src_agg_kernel<G, kMode>, a tiled walk: one block per (tile, chunk of
 //     G columns, split of the tile's buckets, in src_order for a walk by
 //     src tile); the tile's rows for the chunk in shared memory, (tile,
@@ -574,8 +577,9 @@ cudaError_t launch_ds(const void* src_local, const void* dst_local,
   return cudaGetLastError();
 }
 
-// mode: 0 K6's ds, 1 with K10 v2's edge term, 2 with its d(ef) too, 3 and
-// 4 with K10 v1's stored f32 or bf16 fe
+// mode: 1 K10 v2's ds with its edge term, 2 with its d(ef) too, 3 and 4
+// with K10 v1's stored f32 or bf16 fe; K6's ds without either (mode 0) is
+// csrc/row_agg.cu's
 template <int L>
 cudaError_t launch_ds_mode(int mode, const void* src_local,
                            const void* dst_local, const void* valid,
@@ -592,8 +596,6 @@ cudaError_t launch_ds_mode(int mode, const void* src_local,
       x, zn, rp, g, heads, fh, ef, zp, fe, p, m, d_ef, fe_s, ds, blocks,     \
       stream
   switch (mode) {
-    case 0:
-      return launch_ds<L, false, false, float, false>(DGL_DS_ARGS);
     case 1:
       return launch_ds<L, true, false, float, false>(DGL_DS_ARGS);
     case 2:
@@ -744,8 +746,9 @@ int dgl_slot_reduce(const void* local, const void* valid, const void* vals,
 
 // ds (num_buckets, heads, cap), every element written, from x (num_src,
 // heads, fh), zn (num_dst, heads, fh), rp (num_dst, heads) and g (the
-// shape of ds).  With ef (B * cap, fe) and zp (num_dst, heads, fe) not
-// null, ds adds ef[s, :] . zp[dst, h, :] inside the bracket; with p (the
+// shape of ds), with an edge term: with ef (B * cap, fe) and zp
+// (num_dst, heads, fe) not null, ds adds ef[s, :] . zp[dst, h, :] inside
+// the bracket (without ef and fe_s the call is refused); with p (the
 // shape of ds), m (fe, heads) and d_ef (B * cap, fe) also not null, d_ef
 // is written too, 0 at padded slots.  With fe_s (B * cap, heads * fh) not
 // null (and ef null), fe_s[s] is added to x[src] in the dot, read as f32

@@ -42,13 +42,17 @@
 //     its own head's columns.  With kEdge the block holds wf in shared
 //     memory and each warp its chunk's 32 edge-feature rows, so fe is
 //     computed per slot and column and never stored.
-// vattn_slot_grad_kernel<kCols, kFe, kDef>  replaces the da part of
-//     _gatv2_dv_da_kernel (:689, _gatv2_bwd :878) and, with kFe > 0, the
-//     da, d(ef) and dWf parts of _egatc2_dv_da_kernel (:1975,
-//     egatc2_backward :2167).  The same walk, but each lane owns a fixed
-//     set of kCols columns of its head (a group; a wide head takes several
-//     groups, each a walk of the block's chunks), so da and dWf sum in
-//     registers; d(ef) of a slot (with kDef, when autograd asks for it)
+// vattn_slot_grad_kernel<kCols, kFe, kDef>, kFe > 0, replaces the da,
+//     d(ef) and dWf parts of _egatc2_dv_da_kernel (:1975, egatc2_backward
+//     :2167).  K9's da (the da part of _gatv2_dv_da_kernel :689,
+//     _gatv2_bwd :878), which its kFe = 0 instances summed, is folded into
+//     K9's node-gradient walk by dst (csrc/row_agg.cu row_agg_kernel<VEC,
+//     CPL, true, true>); dgl_tpu_torch/tools/perf_ds_fold.py builds those
+//     instances again to time the two side by side.  The same walk, but
+//     each lane owns a fixed set of kCols columns of its head (a group; a
+//     wide head takes several groups, each a walk of the block's chunks),
+//     so da and dWf sum in registers; d(ef) of a slot (with kDef, when
+//     autograd asks for it)
 //     is a sum over all columns, taken by a reduce-scatter across the warp
 //     (kFe - 1 + log2(32 / kFe) shuffles) that leaves row k's total in
 //     lane k.  At the end the block adds its
@@ -746,8 +750,10 @@ int dgl_vattn_scores(const void* src_local, const void* dst_local,
 // not null, def (num_buckets * cap, fe) = sum_c wf[k, c] dW, every element
 // written.  da and dwf must be zeroed by the caller.  cols (1, 2 or 4;
 // at most 2 with fe_cap 32 and def): the columns of its head a lane keeps
-// at once; fe_cap (0 without the edge term, else 8, 16 or 32 >= fe_rows).
-// With fe_s and dfe_s not null (and ef and def null), the stored term
+// at once; fe_cap (8, 16 or 32 >= fe_rows) with the edge term, which the
+// call needs unless it takes a stored term (K9's da, with neither, is
+// csrc/row_agg.cu's).  With fe_s and dfe_s not null (and ef and def
+// null), the stored term
 // fe_s (num_buckets * cap, heads * dim) is read and dW written to dfe_s at
 // every slot (0 at padded ones), both f32 (store 1) or bf16 (store 2).
 // Grid: `blocks` blocks of 8 warps.
@@ -796,9 +802,6 @@ int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
   if (cols == COLS_ && fe_cap == FE_ && with_def == DEF_) {                  \
     return launch_slot_grad<COLS_, FE_, DEF_>(DGL_GRAD_ARGS);                \
   }
-  DGL_GRAD_CASE(1, 0, false)
-  DGL_GRAD_CASE(2, 0, false)
-  DGL_GRAD_CASE(4, 0, false)
   DGL_GRAD_CASE(1, 8, false)
   DGL_GRAD_CASE(2, 8, false)
   DGL_GRAD_CASE(4, 8, false)

@@ -16,7 +16,7 @@
 //                  ds[b(s), h, c(s)] * (own[r, h, :] + y[nbr(s), h, :] >= 0
 //                                       ? 1 : slope)
 //
-// row_agg_kernel<VEC, CPL, false> replaces two TPU kernels of the JAX
+// row_agg_kernel<VEC, CPL, false, false> replaces two TPU kernels of the JAX
 // package:
 // - K4's SpMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_spmm_multihead
 //   :455 (body _spmm_mh_kernel :423), and with it
@@ -29,7 +29,7 @@
 //   (gat_backward :428, _dot_gat_bwd's _dx_call :623/:636, _gatv2_bwd's
 //   dx :925, _egatc_bwd's dx :1236, and the dx part of
 //   _eg2_dx_def_kernel :1639).
-// row_agg_kernel<VEC, CPL, true> replaces the dv part of gat_fused.py
+// row_agg_kernel<VEC, CPL, true, false> replaces the dv part of gat_fused.py
 // _gatv2_dv_da_kernel :689 (rows = dst, own = V, y = U) and
 // _gatv2_du_kernel :731 (rows = src, own = U, y = V), K9's node gradient
 // (_gatv2_bwd :878, :903).  The same walk: the row's own operand stays in
@@ -40,13 +40,50 @@
 // replaced (csrc/gatv2.cu vattn_node_grad_kernel, still K11 v2's) added
 // every slot's dW into shared memory with a float atomicAdd, a
 // compare-and-swap loop on this card, and walked every slot once per
-// column chunk.  Bound: the view, 4H B an edge of ds (its slot-major copy,
-// made once a backward for both sides), the rows' own operand and the
-// neighbours' once, out once.
+// column chunk.  Bound: the view, 4H B an edge of ds (slot-major, as K6's
+// ds writes it for both sides), the rows' own operand and the neighbours'
+// once, out once.
+// row_agg_kernel<VEC, CPL, true, true>, the walk by dst with da folded
+// in, replaces _gatv2_dv_da_kernel :689 whole, dv and da together, as
+// the JAX kernel computes them:
+//
+//   da[c] = sum over the valid slots s of ds[b(s), h, c(s)] *
+//           lrelu(own[r, c] + y[nbr(s), c]),  c in head h
+//
+// one FMA and a select a slot and column on values the walk holds.  A
+// lane's da sums carry across the rows its group claims while its
+// columns stay; where a row is walked in column chunks (n_chunks > 1,
+// and then a group is the whole warp) a new chunk flushes them.  At the
+// end the warp's groups combine theirs by shuffles in a fixed order and
+// the first group's lanes add them into da in L2 (red.global.add, 16
+// bytes at a time where VEC is 4): under 100 reductions a warp at the
+// main path's widths.  da therefore meets in no fixed order; dv's sums
+// are the unfolded walk's, bit for bit.  The kernel it replaced
+// (csrc/gatv2.cu vattn_slot_grad_kernel<C, 0, false>, a warp a 32-slot
+// chunk of the buckets, both node rows of every slot gathered with
+// scalar loads, da met in shared-memory atomics) is built by
+// dgl_tpu_torch/tools/perf_ds_fold.py to be timed beside it.
 // row_sddmm_kernel<CPL> (with slot_finish_kernel) replaces
 // K4's SDDMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_sddmm_dot_multihead
 // :521 (body _sddmm_mh_kernel :494): edgeflat's dW (_SpmmMultihead) and
 // dot_gat_forward's scores :520 (dgl_tpu/ops/pallas/gat_fused.py).
+// row_sddmm_kernel<CPL> with ds_finish_kernel replaces K6's ds,
+// dgl_tpu/ops/pallas/gat_fused.py _ds_kernel :146 (gat_backward :368,
+// _dot_gat_bwd :597, _gatv2_bwd :859, _egatc_bwd :1170, egatc2_backward):
+//
+//   ds[b, h, c] = (<x[src], zn[dst]>_h - rp[dst, h]) * g[b, h, c]
+//
+// at valid slots, 0 at padded ones.  The dot is K4's SDDMM by dst rows
+// (x = x, z = zn) into the entry-major scratch; the finishing pass, a
+// thread a slot in slot order, adds the scratch's parts in order, then
+// subtracts rp[dst] once and multiplies by g, read coalesced, and
+// writes (B, H, C) or the slot-major layout ((B, C, H): a slot's H values
+// in one sector) that the row walks read, so that no caller copies ds.
+// The kernel it replaced (csrc/gat_fused.cu gat_ds_kernel's mode 0, a
+// warp a 32-slot chunk gathering x[src] and zn[dst] with scalar loads) is
+// built by dgl_tpu_torch/tools/perf_ds_fold.py to be timed beside it.
+// Bound: the view, x and zn once, rp once, g at the edges (4H B an
+// edge), ds at every slot (4H B a slot).
 //
 // The row view (dgl_tpu_torch/ops/kernels/tiled_spmm.py RowView), one per
 // side of a format: ptr (rows + 1,), and for the E valid slots grouped by
@@ -230,7 +267,53 @@ __device__ __forceinline__ void grad_into(float* acc, float w, float4 o,
   grad_into(acc + 3, w, o.w, v.w, slope);
 }
 
-template <int VEC, int CPL, bool kGrad>
+// K9's da (kDa): acc += w * lrelu(own[r] + y[nbr]) per column
+__device__ __forceinline__ void lrelu_into(float* acc, float w, float o,
+                                           float v, float slope) {
+  const float t = o + v;
+  acc[0] = fmaf(w, t >= 0.f ? t : slope * t, acc[0]);
+}
+__device__ __forceinline__ void lrelu_into(float* acc, float w, float2 o,
+                                           float2 v, float slope) {
+  lrelu_into(acc, w, o.x, v.x, slope);
+  lrelu_into(acc + 1, w, o.y, v.y, slope);
+}
+__device__ __forceinline__ void lrelu_into(float* acc, float w, float4 o,
+                                           float4 v, float slope) {
+  lrelu_into(acc, w, o.x, v.x, slope);
+  lrelu_into(acc + 1, w, o.y, v.y, slope);
+  lrelu_into(acc + 2, w, o.z, v.z, slope);
+  lrelu_into(acc + 3, w, o.w, v.w, slope);
+}
+
+__device__ __forceinline__ void red_add(float* a, const float* v, Vec<1>) {
+  atomicAdd(a, v[0]);
+}
+__device__ __forceinline__ void red_add(float* a, const float* v, Vec<2>) {
+  atomicAdd(a, v[0]);
+  atomicAdd(a + 1, v[1]);
+}
+__device__ __forceinline__ void red_add(float* a, const float* v, Vec<4>) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(a),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// a lane's da sums of column chunk `chunk` added into da in L2, and zeroed
+template <int VEC, int CPL>
+__device__ __forceinline__ void flush_da(float* da, float (&sums)[CPL][VEC],
+                                         int chunk, int lpr, int li,
+                                         int nv) {
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int cv = (chunk * CPL + q) * lpr + li;
+    if (cv < nv) red_add(da + cv * VEC, sums[q], Vec<VEC>());
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sums[q][i] = 0.f;
+  }
+}
+
+template <int VEC, int CPL, bool kGrad, bool kDa>
 __global__ void __launch_bounds__(kWarps * 32)
 row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
                const int* __restrict__ nbr, const int* __restrict__ order,
@@ -239,7 +322,8 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
                const float* __restrict__ y, int f, int lpr, int n_chunks,
                float* __restrict__ out, int* __restrict__ counter,
                const float* __restrict__ own,
-               const float* __restrict__ attn, float slope) {
+               const float* __restrict__ attn, float slope,
+               float* __restrict__ da) {
   using V = typename Vec<VEC>::T;
   constexpr int U = Unroll<VEC, CPL>::value;
   const int lane = threadIdx.x & 31;
@@ -250,6 +334,16 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
       lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
   const int nv = f / VEC;  // column vectors a row
   const int n_items = rows * n_chunks;
+  static_assert(kGrad || !kDa, "da is folded into the node gradient");
+  // kDa: this lane's da sums over the rows its group claims, of the
+  // columns of chunk da_chunk
+  float da_sums[CPL][VEC];
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) da_sums[q][i] = 0.f;
+  }
+  int da_chunk = 0;
 
   for (;;) {
     int base = 0;
@@ -260,6 +354,13 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
     const bool has = item < n_items;
     const int r = has ? order[item / n_chunks] : 0;
     const int chunk = has ? item - (item / n_chunks) * n_chunks : 0;
+    // a new column chunk flushes the sums: only where n_chunks > 1, and
+    // then lpr is 32 (the wrapper's layout, checked by the C function),
+    // one group a warp, so the test is uniform in the warp
+    if (kDa && chunk != da_chunk) {
+      flush_da<VEC, CPL>(da, da_sums, da_chunk, lpr, li, nv);
+      da_chunk = chunk;
+    }
 
     int cv[CPL];    // this lane's column vectors
     bool ok[CPL];
@@ -339,6 +440,9 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
           for (int q = 0; q < CPL; ++q) {
             if constexpr (kGrad) {
               grad_into(acc[q], wq[u][q], oq[q], xv[u][q], slope);
+              if constexpr (kDa) {
+                lrelu_into(da_sums[q], wq[u][q], oq[q], xv[u][q], slope);
+              }
             } else {
               fma_into(acc[q], wq[u][q], xv[u][q]);
             }
@@ -356,6 +460,20 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
       }
       store_vec(out + r * f + cv[q] * VEC, acc[q], Vec<VEC>());
     }
+  }
+  if constexpr (kDa) {
+    // the groups' sums of one column combined by a butterfly over the
+    // group bits, in the same order in every lane (a no-op at lpr 32);
+    // the first group's lanes add them into da
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        for (int o = lpr; o < 32; o *= 2)
+          da_sums[q][i] += __shfl_xor_sync(kFull, da_sums[q][i], o);
+      }
+    }
+    if (grp == 0) flush_da<VEC, CPL>(da, da_sums, da_chunk, lpr, li, nv);
   }
 }
 
@@ -550,6 +668,67 @@ slot_finish_kernel(const float* __restrict__ sm,
   }
 }
 
+// K6's ds from the walk's scratch, a thread a slot s = b * cap + c, its
+// heads VEC at a time (VEC = 4 where H is a multiple of 4: the scratch,
+// rp and a slot-major out in 16-byte vectors): ds[b, h, c] = ((the sum
+// over the parts, in order, of the scratch at entry[s]) - rp[dst(s), h])
+// * g[b, h, c] * scale, dst(s) = dst_tile[b] * tile + dst_local[s]; 0
+// where entry is -1 (a padded slot: neither rp nor g is read).  Written
+// at out[(b * H + h) * cap + c], or at out[s * H + h] (kSlotMajor).
+template <int VEC, bool kSlotMajor>
+__global__ void __launch_bounds__(256)
+ds_finish_kernel(const float* __restrict__ sm,
+                 const int* __restrict__ entry,
+                 const int* __restrict__ dst_local,
+                 const int* __restrict__ dst_tile, int tile,
+                 long long slots, int heads, int parts,
+                 long long part_stride, int cap,
+                 const float* __restrict__ rp, const float* __restrict__ g,
+                 float scale, float* __restrict__ out) {
+  using V = typename Vec<VEC>::T;
+  for (long long s = blockIdx.x * 256LL + threadIdx.x; s < slots;
+       s += static_cast<long long>(gridDim.x) * 256) {
+    const long long b = s / cap;
+    const long long at = b * heads * cap + (s - b * cap);  // (b, 0, c)
+    const int k = entry[s];
+    const long long dst =
+        k >= 0 ? static_cast<long long>(dst_tile[b]) * tile + dst_local[s]
+               : 0;
+    const float* p = sm + static_cast<long long>(k) * heads;
+    for (int h0 = 0; h0 < heads; h0 += VEC) {
+      float v[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+      if (k >= 0) {
+        V t = *reinterpret_cast<const V*>(p + h0);
+        const float* tv = reinterpret_cast<const float*>(&t);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) v[i] = tv[i];
+        for (int j = 1; j < parts; ++j) {
+          t = *reinterpret_cast<const V*>(p + j * part_stride + h0);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[i] += tv[i];
+        }
+        const V r = __ldg(reinterpret_cast<const V*>(rp + dst * heads + h0));
+        const float* rv = reinterpret_cast<const float*>(&r);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          v[i] = (v[i] - rv[i]) *
+                 __ldg(g + at + (h0 + i) * static_cast<long long>(cap));
+          v[i] *= scale;
+        }
+      }
+      if constexpr (kSlotMajor) {
+        store_vec(out + s * heads + h0, v, Vec<VEC>());
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          out[at + (h0 + i) * static_cast<long long>(cap)] = v[i];
+      }
+    }
+  }
+}
+
 template <int CPL>
 cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
                              int rows, const float* x, const float* z, int f,
@@ -569,7 +748,7 @@ cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
 }
 
 // The row walk's operands beside the view; own and attn only for K9's node
-// gradient
+// gradient, da only for its dst side with da folded in
 struct RowAggArgs {
   const int *ptr, *slot, *nbr, *order;
   int rows;
@@ -581,42 +760,56 @@ struct RowAggArgs {
   int* counter;
   const float *own, *attn;
   float slope;
+  float* da;
 };
 
-template <int VEC, int CPL, bool kGrad>
+template <int VEC, int CPL, bool kGrad, bool kDa>
 cudaError_t launch_row_agg(const RowAggArgs& a, cudaStream_t stream) {
   unsigned blocks = 0;
   const cudaError_t err = persistent_blocks(
-      row_agg_kernel<VEC, CPL, kGrad>, kWarps * 32,
+      row_agg_kernel<VEC, CPL, kGrad, kDa>, kWarps * 32,
       ((static_cast<long long>(a.rows) * a.n_chunks * a.lpr + 31) / 32 +
        kWarps - 1) / kWarps,
       &blocks);
   if (err != cudaSuccess) return err;
-  row_agg_kernel<VEC, CPL, kGrad><<<blocks, kWarps * 32, 0, stream>>>(
+  row_agg_kernel<VEC, CPL, kGrad, kDa><<<blocks, kWarps * 32, 0, stream>>>(
       a.ptr, a.slot, a.nbr, a.order, a.rows, a.w, a.cap, a.w_bs, a.w_hs,
       a.w_cs, a.heads, a.head_cols, a.y, a.f, a.lpr, a.n_chunks, a.out,
-      a.counter, a.own, a.attn, a.slope);
+      a.counter, a.own, a.attn, a.slope, a.da);
   return cudaGetLastError();
 }
 
-template <int VEC, bool kGrad>
+// the fold (kDa) keeps at most 4 vectors a lane, so that its da sums
+// beside dv's spill nothing
+template <int VEC, bool kGrad, bool kDa>
 cudaError_t row_agg_by_cpl(int64_t cpl, const RowAggArgs& a,
                            cudaStream_t s) {
 #define DGL_ROW_AGG_CASE(C_) \
   case C_:                   \
-    return launch_row_agg<VEC, C_, kGrad>(a, s);
+    return launch_row_agg<VEC, C_, kGrad, kDa>(a, s);
   switch (cpl) {
     DGL_ROW_AGG_CASE(1)
     DGL_ROW_AGG_CASE(2)
     DGL_ROW_AGG_CASE(4)
-    DGL_ROW_AGG_CASE(8)
+    case 8:
+      if constexpr (!kDa) return launch_row_agg<VEC, 8, kGrad, false>(a, s);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
 #undef DGL_ROW_AGG_CASE
 }
 
-// dgl_row_agg and dgl_row_node_grad (own and attn not null: kGrad).
+template <int VEC>
+cudaError_t row_agg_by_mode(int64_t cpl, const RowAggArgs& a,
+                            cudaStream_t s) {
+  if (a.da != nullptr) return row_agg_by_cpl<VEC, true, true>(cpl, a, s);
+  if (a.own != nullptr) return row_agg_by_cpl<VEC, true, false>(cpl, a, s);
+  return row_agg_by_cpl<VEC, false, false>(cpl, a, s);
+}
+
+// dgl_row_agg and dgl_row_node_grad (own and attn not null: kGrad; da not
+// null as well: kDa).
 cudaError_t row_walk_launch(const void* ptr, const void* slot,
                             const void* nbr, const void* order, int64_t rows,
                             const void* w, int64_t cap, int64_t w_bs,
@@ -625,11 +818,12 @@ cudaError_t row_walk_launch(const void* ptr, const void* slot,
                             void* out, void* counter, int64_t vec,
                             int64_t cpl, int64_t lpr, int64_t n_chunks,
                             const void* own, const void* attn, float slope,
-                            int64_t device, void* stream) {
+                            void* da, int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 ||
-      head_cols % vec != 0 || cap < 1)
+      head_cols % vec != 0 || cap < 1 ||
+      (da != nullptr && n_chunks > 1 && lpr != 32))
     return cudaErrorInvalidValue;
   const RowAggArgs a{static_cast<const int*>(ptr),
                      static_cast<const int*>(slot),
@@ -651,22 +845,48 @@ cudaError_t row_walk_launch(const void* ptr, const void* slot,
                      static_cast<int*>(counter),
                      static_cast<const float*>(own),
                      static_cast<const float*>(attn),
-                     slope};
+                     slope,
+                     static_cast<float*>(da)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool grad = own != nullptr;
   switch (vec) {
     case 1:
-      return grad ? row_agg_by_cpl<1, true>(cpl, a, s)
-                  : row_agg_by_cpl<1, false>(cpl, a, s);
+      return row_agg_by_mode<1>(cpl, a, s);
     case 2:
-      return grad ? row_agg_by_cpl<2, true>(cpl, a, s)
-                  : row_agg_by_cpl<2, false>(cpl, a, s);
+      return row_agg_by_mode<2>(cpl, a, s);
     case 4:
-      return grad ? row_agg_by_cpl<4, true>(cpl, a, s)
-                  : row_agg_by_cpl<4, false>(cpl, a, s);
+      return row_agg_by_mode<4>(cpl, a, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <int VEC, int CPL, bool kDa>
+cudaError_t node_grad_attrs(int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, row_agg_kernel<VEC, CPL, true, kDa>);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
+template <int VEC, bool kSlotMajor>
+cudaError_t launch_ds_finish(const void* sm, const void* entry,
+                             const void* dst_local, const void* dst_tile,
+                             int64_t tile, int64_t slots, int64_t heads,
+                             int64_t parts, int64_t part_stride, int64_t cap,
+                             const void* rp, const void* g, float scale,
+                             void* out, int64_t blocks, cudaStream_t stream) {
+  ds_finish_kernel<VEC, kSlotMajor><<<static_cast<unsigned>(blocks), 256, 0,
+                                      stream>>>(
+      static_cast<const float*>(sm), static_cast<const int*>(entry),
+      static_cast<const int*>(dst_local), static_cast<const int*>(dst_tile),
+      static_cast<int>(tile), slots, static_cast<int>(heads),
+      static_cast<int>(parts), part_stride, static_cast<int>(cap),
+      static_cast<const float*>(rp), static_cast<const float*>(g), scale,
+      static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -689,14 +909,19 @@ int dgl_row_agg(const void* ptr, const void* slot, const void* nbr,
                 void* stream) {
   return row_walk_launch(ptr, slot, nbr, order, rows, w, cap, w_bs, w_hs,
                          w_cs, heads, head_cols, y, f, out, counter, vec, cpl,
-                         lpr, n_chunks, nullptr, nullptr, 0.f, device,
-                         stream);
+                         lpr, n_chunks, nullptr, nullptr, 0.f, nullptr,
+                         device, stream);
 }
 
 // K9's node gradient by the same walk: out (rows, f), every element
 // written, out[r, j] = attn[j] * sum over the slots k of row r of w[...]
 // * (own[r, j] + y[nbr[k], j] >= 0 ? 1 : slope), in slot order; own
-// (rows, f) and attn (f,) f32; the rest as dgl_row_agg's.
+// (rows, f) and attn (f,) f32; the rest as dgl_row_agg's.  With da (f,)
+// f32 not null (the walk by dst: own = V, y = U), also da[j] += the sum
+// over every row's slots of w[...] * lrelu(own[r, j] + y[nbr[k], j]),
+// added in L2 in no fixed order (da zeroed by the caller, 16-byte
+// aligned where vec is 4); then cpl is at most 4, and lpr is 32 where
+// n_chunks > 1.
 int dgl_row_node_grad(const void* ptr, const void* slot, const void* nbr,
                       const void* order, int64_t rows, const void* w,
                       int64_t cap, int64_t w_bs, int64_t w_hs, int64_t w_cs,
@@ -704,11 +929,36 @@ int dgl_row_node_grad(const void* ptr, const void* slot, const void* nbr,
                       int64_t f, void* out, void* counter, int64_t vec,
                       int64_t cpl, int64_t lpr, int64_t n_chunks,
                       const void* own, const void* attn, float slope,
-                      int64_t device, void* stream) {
+                      void* da, int64_t device, void* stream) {
   if (own == nullptr || attn == nullptr) return cudaErrorInvalidValue;
   return row_walk_launch(ptr, slot, nbr, order, rows, w, cap, w_bs, w_hs,
                          w_cs, heads, head_cols, y, f, out, counter, vec, cpl,
-                         lpr, n_chunks, own, attn, slope, device, stream);
+                         lpr, n_chunks, own, attn, slope, da, device, stream);
+}
+
+// registers a thread and local-memory bytes (the stack frame and spills)
+// a thread of the node-gradient walk's instance at vec and cpl, with da
+// folded in (fold 1) or not: regs_local, two ints.
+int dgl_row_node_grad_attrs(int64_t vec, int64_t cpl, int64_t fold,
+                            int64_t device, void* regs_local) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  int* o = static_cast<int*>(regs_local);
+#define DGL_ATTRS_CASE(V_, C_)                                      \
+  if (vec == V_ && cpl == C_)                                       \
+    return fold ? node_grad_attrs<V_, C_, true>(o, o + 1)           \
+                : node_grad_attrs<V_, C_, false>(o, o + 1);
+  DGL_ATTRS_CASE(1, 1)
+  DGL_ATTRS_CASE(1, 2)
+  DGL_ATTRS_CASE(1, 4)
+  DGL_ATTRS_CASE(2, 1)
+  DGL_ATTRS_CASE(2, 2)
+  DGL_ATTRS_CASE(2, 4)
+  DGL_ATTRS_CASE(4, 1)
+  DGL_ATTRS_CASE(4, 2)
+  DGL_ATTRS_CASE(4, 4)
+#undef DGL_ATTRS_CASE
+  return cudaErrorInvalidValue;
 }
 
 // K4's SDDMM by dst rows, one launch of the wrapper's plan: for every
@@ -773,6 +1023,41 @@ int dgl_slot_finish(const void* sm, const void* entry, int64_t slots,
       static_cast<int>(heads), static_cast<int>(parts), part_stride,
       static_cast<int>(cap), static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+// K6's ds from the walk's scratch sm (parts of part_stride floats, each
+// entry-major as dgl_slot_finish takes it): ds (slots / cap, heads, cap),
+// or its slot-major layout (slot_major 1: slot s, head h at s * heads +
+// h), every element written: at slot s ((the sum over the parts, in
+// order, at entry[s]) - rp[dst, h]) * g[b, h, c] * scale with dst =
+// dst_tile[s / cap] * tile + dst_local[s], 0 where entry is -1.  rp
+// (num_dst, heads) and g (slots / cap, heads, cap) f32.  vec 4 (heads a
+// multiple of 4; sm, rp and out 16-byte aligned) or 1.  entry, dst_local
+// (slots,) and dst_tile (slots / cap,) int32.
+int dgl_ds_finish(const void* sm, const void* entry, const void* dst_local,
+                  const void* dst_tile, int64_t tile, int64_t slots,
+                  int64_t heads, int64_t parts, int64_t part_stride,
+                  int64_t cap, const void* rp, const void* g, double scale,
+                  void* out, int64_t slot_major, int64_t vec, int64_t blocks,
+                  int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (cap < 1 || heads < 1 || parts < 1 || blocks < 1 || !sm || !entry ||
+      (vec != 1 && vec != 4) || heads % vec != 0 || part_stride % vec != 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_DS_FINISH(V_, SM_)                                             \
+  return launch_ds_finish<V_, SM_>(sm, entry, dst_local, dst_tile, tile,  \
+                                   slots, heads, parts, part_stride, cap, \
+                                   rp, g, static_cast<float>(scale), out, \
+                                   blocks, s);
+  if (vec == 4) {
+    if (slot_major) DGL_DS_FINISH(4, true)
+    DGL_DS_FINISH(4, false)
+  }
+  if (slot_major) DGL_DS_FINISH(1, true)
+  DGL_DS_FINISH(1, false)
+#undef DGL_DS_FINISH
 }
 
 }  // extern "C"

@@ -31,11 +31,14 @@ the same function, slot chunk by slot chunk:
 * :func:`slot_reduce` (``_den_kernel``, ``_der_kernel``, ``_del_kernel``):
   the sum of a (B, H, C) slot tensor per dst node or per src node, in
   groups of heads that fit a block's shared memory, one launch a group;
-* :func:`gat_ds` (``_ds_kernel``): ds;
+* :func:`gat_ds` (``_ds_kernel``): ds, K4's SDDMM walk by dst of
+  ``csrc/row_agg.cu`` (x and zn) with its epilogue (- rp, * g) in the
+  finishing pass, which writes (B, H, C) or, for the row walks that read
+  it (K8's, K9's), the slot-major layout;
 * :func:`src_aggregate` (``_dx_kernel``): out[src, h] = sum w[b, h, c]
   z[dst, h] with (B, H, C) weights, for dx and K8's dk: the row walk of
-  ``csrc/row_agg.cu`` by src (``tiled_spmm.row_aggregate``); the other
-  three are in ``csrc/gat_fused.cu``.
+  ``csrc/row_agg.cu`` by src (``tiled_spmm.row_aggregate``); the scores
+  and the reduce are in ``csrc/gat_fused.cu``.
 
 The dst-side weighted aggregation ``_agg_kernel`` computes exactly
 ``tiled_spmm_multihead``'s function, so the forward's numerator and K8's
@@ -63,6 +66,11 @@ with an edge-term variant, serve both:
   and dWf = sum ef (x) dW (the bias's gradient is its row);
 * :func:`vattn_node_grad` (the dV part of those, ``_gatv2_du_kernel``,
   ``_egatc2_du_kernel``): dV[dst] = sum dW, dU[src] = sum dW.
+
+K9's node gradient is the row walk of ``csrc/row_agg.cu``, and its da is
+folded into the walk by dst (:func:`vattn_node_grad_da`, dV and da
+together, as ``_gatv2_dv_da_kernel`` computes them); ``gatv2.cu``'s
+slot-gradient and node-gradient walks serve K11 v2.
 
 EdgeGAT v2 (K10 v2, ``edgegat_v2_forward`` :1703) adds an edge message fe
 = ef[slot] . We_h to every slot, in its logit (ee = <attn_e[h], fe>) and
@@ -557,10 +565,21 @@ def slot_reduce(tf: ts.TiledFormat, vals, side: str = "dst"):
 slot_reduce.launches = 0
 
 
-def gat_ds(tf: ts.TiledFormat, x3, zn, rp, g):
+def gat_ds(tf: ts.TiledFormat, x3, zn, rp, g, slot_major: bool = False,
+           scale: float = 1.0):
     """K6 ds: (B, H, C) f32, (<x3[src, h], zn[dst, h]> - rp[dst, h]) * g
-    at valid slots and 0 at padded ones.  ``x3`` (num_src, H, Fh), ``zn``
-    (num_dst, H, Fh), ``rp`` (num_dst, H), ``g`` (B, H, C)."""
+    at valid slots and 0 at padded ones, times ``scale`` (K8's 1 /
+    sqrt(D), applied after the product).  ``x3`` (num_src, H, Fh), ``zn``
+    (num_dst, H, Fh), ``rp`` (num_dst, H), ``g`` (B, H, C).
+
+    On CUDA tensors the dot-product walk by dst (``tiled_spmm.sddmm_dots``,
+    K4's SDDMM with z = zn) writes the entry-major scratch, and csrc
+    ``ds_finish_kernel`` adds its parts, subtracts rp[dst] once, multiplies
+    by g and scale and writes every slot; the scratch (E H floats a part)
+    lives only in this call.  ``slot_major``: ds laid out (B, C, H) and
+    returned as a (B, H, C) view of it (strides (C H, 1, H)), a slot's H
+    values in one sector, as the row walks read their weights
+    (``tiled_spmm.row_aggregate`` takes it as it is)."""
     heads, fh = x3.shape[1], x3.shape[2]
     ts._check_operand(tf, x3, tf.num_src, 3, "x3")
     ts._check_operand(tf, zn, tf.num_dst, 3, "zn")
@@ -569,25 +588,35 @@ def gat_ds(tf: ts.TiledFormat, x3, zn, rp, g):
                          f"{tuple(x3.shape)}")
     _check_nodes(rp, tf.num_dst, heads, "rp")
     _check_slots(tf, g, heads, "g")
+    b, cap = tf.num_buckets, tf.cap
+    shape = (b, cap, heads) if slot_major else (b, heads, cap)
     if not on_cuda(x3, zn, rp, g, tf.valid):
-        return gat_ds_plain(tf, x3, zn, rp, g)
-    b = tf.num_buckets
-    hf = heads * fh
-    ts._check_int32(b * heads * tf.cap, tf.num_src_tiles * tf.tile * hf,
-                    tf.num_dst_tiles * tf.tile * hf)
-    ds = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
-                     device=x3.device)
-    if heads * fh == 0:
-        return ds.zero_()
-    x, z, r, gg = _f32(x3), _f32(zn), _f32(rp), _f32(g)
-    chunks = b * tf.cap // 32
-    blocks = max(1, min(-(-chunks // _DS_WARPS), 16 * ts._sms(x.device)))
-    _launch("dgl_gat_ds", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
-            tf.valid.data_ptr(), tf.src_tile.data_ptr(),
-            tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
-            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh, 0, 0, 0, 0,
-            0, 0, 0, 0, ds.data_ptr(), ts._lanes_per_head(heads), blocks,
-            x.device.index, ts._stream(x.device))
+        ds = gat_ds_plain(tf, x3, zn, rp, g)
+        if scale != 1.0:
+            ds.mul_(scale)
+        if slot_major:
+            ds = ds.transpose(1, 2).contiguous().transpose(1, 2)
+        return ds
+    slots = b * cap
+    ts._check_int32(slots * heads, tf.num_dst * heads)
+    out = torch.empty(shape, dtype=torch.float32, device=x3.device)
+    ds = out.transpose(1, 2) if slot_major else out
+    view = tf.row_view("dst")
+    if slots == 0 or heads == 0 or view.slot.numel() == 0:
+        return ds.zero_()       # no slot is valid
+    hp = -(-fh // 4) * 4
+    sm, parts = ts.sddmm_dots(view, ts._vec4_rows(x3, hp),
+                              ts._vec4_rows(zn, hp))
+    r, gg = _f32(rp), _f32(g)
+    vec = 4 if heads % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (sm, r, out)) else 1
+    ts._launch("dgl_ds_finish", sm.data_ptr(),
+               view.entries(slots).data_ptr(),
+               tf.dst_local.data_ptr(), tf.dst_tile.data_ptr(), tf.tile,
+               slots, heads, parts, sm.shape[1], cap, r.data_ptr(),
+               gg.data_ptr(), float(scale), out.data_ptr(), int(slot_major),
+               vec, ts.finish_blocks(slots, x3.device), x3.device.index,
+               ts._stream(x3.device), source="row_agg")
     gat_ds.launches += 1
     return ds
 
@@ -856,34 +885,39 @@ def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
                     ef_slot=None, wf=None, need_def: bool = True):
     """K9 / K11 v2 slot gradient: (da (H, D), d_ef (B, C, Fe) or None,
     dwf (rows of wf, H * D) or None), f32, from ds (B, H, C).  ``d_ef`` is
-    computed only with the edge term and ``need_def``."""
+    computed only with the edge term and ``need_def``.  On CUDA tensors
+    K11 v2's (the edge term) is ``gatv2.cu``'s tiled walk; K9's da is
+    folded into its node-gradient walk by dst (:func:`vattn_node_grad_da`),
+    which this call launches."""
     heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
     _check_slots(tf, ds, heads, "ds")
     edge = () if ef_slot is None else (ef_slot, wf)
     if not on_cuda(U3, V3, attn, ds, tf.valid, *edge):
         return vattn_slot_grad_plain(tf, U3, V3, attn, ds, slope, ef_slot,
                                      wf, need_def)
+    if not edge:
+        # K9's da is folded into its node-gradient walk by dst (counted on
+        # vattn_node_grad_da, whose dV this call drops)
+        return vattn_node_grad_da(tf, U3, V3, attn, ds, slope)[1], None, None
     hd = heads * dim
-    fe_cap = _fe_cap(rows) if edge else 0
+    fe_cap = _fe_cap(rows)
     _check_vattn_sizes(tf, heads, dim, fe,
                        2 * hd + 2 * rows * hd + _VATTN_WARPS * 32 * rows)
     dev = U3.device
     da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
-    dwf = (torch.zeros(rows, hd, dtype=torch.float32, device=dev) if edge
-           else None)
+    dwf = torch.zeros(rows, hd, dtype=torch.float32, device=dev)
     d_ef = (torch.empty(ef_slot.shape, dtype=torch.float32, device=dev)
-            if edge and need_def else None)
+            if need_def else None)
     if hd == 0:
         return da, None if d_ef is None else d_ef.zero_(), dwf
     lanes = ts._lanes_per_head(heads)
-    # columns of its head a lane keeps in registers at once: da and, with
-    # the edge term, fe_cap rows of dWf each (and fe_cap d(ef) partial sums
-    # a slot)
+    # columns of its head a lane keeps in registers at once: da and
+    # fe_cap rows of dWf each (and fe_cap d(ef) partial sums a slot)
     cols, max_cols = 1, 2 if fe_cap == 32 and d_ef is not None else 4
     while cols < min(-(-dim // lanes), max_cols):
         cols *= 2
     u, v, a, g = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
-    ef_c, wf_c = (None, None) if not edge else (_f32(ef_slot), _f32(wf))
+    ef_c, wf_c = _f32(ef_slot), _f32(wf)
     b, cap = tf.num_buckets, tf.cap
     blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
                         4 * ts._sms(dev)))
@@ -891,12 +925,10 @@ def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
             tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
             u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(),
-            0 if ef_c is None else ef_c.data_ptr(),
-            0 if wf_c is None else wf_c.data_ptr(), fe, rows, heads, dim,
-            lanes, cols, fe_cap, float(slope), da.data_ptr(),
-            0 if d_ef is None else d_ef.data_ptr(),
-            0 if dwf is None else dwf.data_ptr(), 0, 0, 0, blocks, dev.index,
-            ts._stream(dev), source="gatv2")
+            ef_c.data_ptr(), wf_c.data_ptr(), fe, rows, heads, dim, lanes,
+            cols, fe_cap, float(slope), da.data_ptr(),
+            0 if d_ef is None else d_ef.data_ptr(), dwf.data_ptr(), 0, 0, 0,
+            blocks, dev.index, ts._stream(dev), source="gatv2")
     vattn_slot_grad.launches += 1
     return da, d_ef, dwf
 
@@ -905,17 +937,25 @@ vattn_slot_grad.launches = 0
 
 
 def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
-                    side: str = "dst", ef_slot=None, wf=None):
+                    side: str = "dst", ef_slot=None, wf=None,
+                    with_da: bool = False):
     """K9 / K11 v2 node gradient: (num_rows, H, D) f32, the sum of dW
     over the valid slots of each dst node (``side="dst"``: dV) or src node
     (``side="src"``: dU).  K9 (no edge term) is the row walk of the side's
     row view (``row_agg_kernel`` in its node-gradient form: the row's own
     U or V and attn in registers, the neighbour's row gathered, each sum in
     slot order); ``ds`` is best handed slot-major (a (B, H, C) view of a
-    (B, C, H) tensor), else it is copied so.  K11 v2 (``ef_slot`` and
-    ``wf``) keeps the tiled walk (:func:`node_grad_tiled`)."""
+    (B, C, H) tensor, as ``gat_ds(..., slot_major=True)`` writes it), else
+    it is copied so.  K11 v2 (``ef_slot`` and ``wf``) keeps the tiled walk
+    (:func:`node_grad_tiled`).  ``with_da`` (K9, ``side="dst"``): (dV,
+    da) from one walk, :func:`vattn_node_grad_da`."""
     if side not in ("dst", "src"):
         raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
+    if with_da:
+        if side != "dst" or ef_slot is not None:
+            raise ValueError("da is folded into K9's node gradient by dst "
+                             "only (side='dst', no edge term)")
+        return vattn_node_grad_da(tf, U3, V3, attn, ds, slope)
     _check_vattn(tf, U3, V3, attn, ef_slot, wf)
     _check_slots(tf, ds, U3.shape[1], "ds")
     edge = () if ef_slot is None else (ef_slot, wf)
@@ -929,6 +969,26 @@ def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
     out = node_grad_tiled(tf, U3, V3, attn, ds, slope, side, ef_slot, wf)
     vattn_node_grad.launches += 1
     return out
+
+
+def vattn_node_grad_da(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float):
+    """K9's dV and da together, as the JAX kernel computes them
+    (``_gatv2_dv_da_kernel`` :689): (dV (num_dst, H, D), da (H, D)) f32,
+    dV as ``vattn_node_grad(..., "dst")`` and da[h, d] = the sum over
+    every valid slot of ds[b, h, c] * lrelu(U3[src] + V3[dst])[h, d].  On
+    CUDA tensors one walk by dst rows (``row_agg_kernel`` with da folded
+    in: dV's sums as the walk without it, bit for bit; da's met in L2 in
+    no fixed order); ``ds`` as :func:`vattn_node_grad` takes it."""
+    _check_vattn(tf, U3, V3, attn, None, None)
+    _check_slots(tf, ds, U3.shape[1], "ds")
+    if not on_cuda(U3, V3, attn, ds, tf.valid):
+        return (vattn_node_grad_plain(tf, U3, V3, attn, ds, slope, "dst"),
+                vattn_slot_grad_plain(tf, U3, V3, attn, ds, slope)[0])
+    return ts.row_aggregate(tf, "dst", U3, ds, vattn_node_grad_da,
+                            grad=(V3, attn, float(slope)), with_da=True)
+
+
+vattn_node_grad_da.launches = 0
 
 
 def node_grad_tiled(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
@@ -1250,7 +1310,9 @@ def dot_gat_backward(tf: ts.TiledFormat, q3, k3, x3, p_slot, den, out, dZ,
     Fh)): ds = (<x[src], zn[dst]> - rp[dst]) * p, then dq[dst] = sum ds k
     / sqrt(D), dk[src] = sum ds q / sqrt(D), dx[src] = sum p zn."""
     zn, rp = _scales(out, dZ, den)
-    ds = gat_ds(tf, x3, zn, rp, p_slot).mul_(1.0 / math.sqrt(D))
+    # slot-major, as the two row walks read it
+    ds = gat_ds(tf, x3, zn, rp, p_slot, slot_major=True,
+                scale=1.0 / math.sqrt(D))
     dq = ts.tiled_spmm_multihead(tf, k3, ds, H, D)
     dk = src_aggregate(tf, q3, ds)
     del ds
@@ -1277,15 +1339,19 @@ def vattn_backward(tf: ts.TiledFormat, U3, V3, x3, attn, p_slot, den, out,
     (<x[src], zn[dst]> - rp[dst]) * p; ``d_ef`` and ``dwf`` are None
     without the edge term.  ``tf`` needs ``src_order``."""
     zn, rp = _scales(out, dZ, den)
-    ds = gat_ds(tf, x3, zn, rp, p_slot)
-    da, d_ef, dwf = vattn_slot_grad(tf, U3, V3, attn, ds, slope, ef_slot,
-                                    wf, need_def)
-    if ef_slot is None and ds.is_cuda:
-        # one slot-major copy for both row walks (a slot's H values in one
-        # sector); the (B, H, C) tensor is freed once the copy is made, so
-        # both are alive during the copy (one slot tensor more at the peak)
-        ds = ds.transpose(1, 2).contiguous().transpose(1, 2)
-    dV = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst", ef_slot, wf)
+    if ef_slot is None:
+        # K9: ds slot-major, as both row walks read it, and da folded into
+        # the walk by dst
+        ds = gat_ds(tf, x3, zn, rp, p_slot, slot_major=True)
+        dV, da = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst",
+                                 with_da=True)
+        d_ef = dwf = None
+    else:
+        ds = gat_ds(tf, x3, zn, rp, p_slot)
+        da, d_ef, dwf = vattn_slot_grad(tf, U3, V3, attn, ds, slope,
+                                        ef_slot, wf, need_def)
+        dV = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst", ef_slot,
+                             wf)
     dU = vattn_node_grad(tf, U3, V3, attn, ds, slope, "src", ef_slot, wf)
     del ds
     dx = src_aggregate(tf, zn, p_slot)

@@ -515,10 +515,13 @@ _SIGNATURES = {
                         _I, _P, _P, _I, _I, _I, _I, _I, _P],
         "dgl_row_node_grad": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
-                              ctypes.c_float, _I, _P],
+                              ctypes.c_float, _P, _I, _P],
+        "dgl_row_node_grad_attrs": [_I, _I, _I, _I, _P],
         "dgl_row_sddmm": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P, _I, _P, _I, _I, _P],
-        "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]},
+        "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+        "dgl_ds_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                          ctypes.c_double, _P, _I, _I, _I, _I, _P]},
 }
 _SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
 _SPMM_WARPS = 16            # csrc/tiled_spmm.cu kSpmmWarps
@@ -610,13 +613,17 @@ def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w):
     return out
 
 
-def _row_layout(f: int, head_cols: int, *rows: torch.Tensor):
+FOLD_CPL = 4   # vectors a lane of the node-gradient walk with da folded in
+
+
+def _row_layout(f: int, head_cols: int, *rows: torch.Tensor, max_cpl=8):
     """(vec, cpl, lpr, n_chunks) of the row walk over F = ``f`` columns of
     ``head_cols`` a head: floats a load (4 where a head's width and the
     addresses of the tensors whose ``rows`` it loads allow 16-byte loads,
     else 2 or 1), vectors a lane, lanes a row (the F / vec vectors rounded
     up to a power of two, at most 32) and the column chunks, each walking
-    the row once (one up to 32 * 8 vectors)."""
+    the row once (one up to 32 * ``max_cpl`` vectors; the walk with da
+    folded in keeps at most FOLD_CPL)."""
     vec = 4
     while vec > 1 and (head_cols % vec or any(t.data_ptr() % (4 * vec)
                                               for t in rows)):
@@ -626,7 +633,7 @@ def _row_layout(f: int, head_cols: int, *rows: torch.Tensor):
     while lpr < min(nv, 32):
         lpr *= 2
     cpl = 1
-    while cpl < 8 and lpr * cpl < nv:
+    while cpl < max_cpl and lpr * cpl < nv:
         cpl *= 2
     return vec, cpl, lpr, -(-nv // (lpr * cpl))
 
@@ -642,14 +649,18 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
     ``dgl_row_agg`` of ``csrc/row_agg.cu``.  ``grad`` = (own (rows, H, D)
     contiguous, attn (H, D) contiguous, slope): K9's node gradient instead
     (``dgl_row_node_grad``), out[r, h, d] = attn[h, d] * the sum of w[b,
-    h, c] * (own[r, h, d] + y[nbr[k], h, d] >= 0 ? 1 : slope).  Counts
-    nothing."""
+    h, c] * (own[r, h, d] + y[nbr[k], h, d] >= 0 ? 1 : slope); with a
+    fourth, da (H * D,) zeroed, its da folded in too: da[h * D + d] += the
+    sum over every row's entries of w[b, h, c] * lrelu(own[r, h, d] +
+    y[nbr[k], h, d]).  Counts nothing."""
     heads, hc = y.shape[1], y.shape[2]
     f = heads * hc
     _check_int32(y.numel(), out.numel(),
                  sum((n - 1) * st for n, st in zip(w.shape, w.stride())))
-    vec, cpl, lpr, n_chunks = _row_layout(f, hc, y,
-                                          *(() if grad is None else grad[:1]))
+    fold = grad is not None and len(grad) > 3
+    vec, cpl, lpr, n_chunks = _row_layout(
+        f, hc, y, *(() if grad is None else grad[:1] + grad[3:]),
+        max_cpl=FOLD_CPL if fold else 8)
     # the claim counter passes rows * n_chunks by at most a lane an SM
     _check_int32(view.rows * n_chunks + 2048 * _sms(y.device))
     counter = torch.zeros(1, dtype=torch.int32, device=y.device)
@@ -659,23 +670,40 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
             counter.data_ptr(), vec, cpl, lpr, n_chunks, y.device.index,
             _stream(y.device))
     if grad is not None:
-        own, attn, slope = grad
+        own, attn, slope = grad[:3]
         _launch("dgl_row_node_grad", *args[:-2], own.data_ptr(),
-                attn.data_ptr(), slope, *args[-2:], source="row_agg")
+                attn.data_ptr(), slope, grad[3].data_ptr() if fold else None,
+                *args[-2:], source="row_agg")
     elif fn is None:
         _launch("dgl_row_agg", *args, source="row_agg")
     elif fn(*args) != 0:
         raise RuntimeError("dgl_row_agg failed to launch")
 
 
+def node_grad_kernel_attrs(vec: int, cpl: int, fold: bool, device=None):
+    """(registers a thread, local-memory bytes a thread) of the
+    node-gradient walk's instance ``row_agg_kernel<vec, cpl, true, fold>``
+    (``fold``: da folded in), from ``cudaFuncGetAttributes``: local bytes
+    above 0 are a stack frame or spills."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 2)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_node_grad_attrs(vec, cpl, int(fold), device.index or 0,
+                                      ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_node_grad_attrs: CUDA error {err}")
+    return out[0], out[1]
+
+
 def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
-                  w_slot: torch.Tensor, wrapper, grad=None) -> torch.Tensor:
+                  w_slot: torch.Tensor, wrapper, grad=None, with_da=False):
     """:func:`row_walk` over every row of ``side`` (dst: the dst nodes,
     neighbours the srcs; src: the reverse) on CUDA tensors: (rows, H, D)
     f32, out[r, h] = sum over the valid slots of row r of w_slot[b, h, c]
     * y3[nbr, h].  ``y3`` (neighbours, H, D), ``w_slot`` (B, H, C); counts
     the launch on ``wrapper``.  ``grad`` = (own3 (rows, H, D), attn (H,
-    D), slope): K9's node gradient instead (:func:`row_walk`).
+    D), slope): K9's node gradient instead (:func:`row_walk`); with
+    ``with_da`` its da folded in, and (out, da (H, D)) returned.
 
     A head width that is not a multiple of 4 is padded to one (y copied
     into zeroed rows, out sliced), so that the walk takes 16-byte loads,
@@ -687,6 +715,9 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     out = torch.empty(rows, heads, hc, dtype=torch.float32,
                       device=y3.device)
     if heads * hc == 0 or rows == 0:
+        if with_da:
+            return out.zero_(), torch.zeros(heads, hc, dtype=torch.float32,
+                                            device=y3.device)
         return out.zero_()
     # slot-major weights (a copy unless already so laid out): a slot's H
     # weights then share a sector; read in the (B, H, C) layout they lie
@@ -705,9 +736,14 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
         p[..., :hc] = t
         return p
 
+    da = None
     if grad is not None:
         own, attn, slope = grad
         grad = (padded(own), padded(attn.reshape(1, heads, hc)), slope)
+        if with_da:
+            da = torch.zeros(heads * hp, dtype=torch.float32,
+                             device=y3.device)
+            grad += (da,)
     wide = out if hp == hc else torch.empty(rows, heads, hp,
                                             dtype=torch.float32,
                                             device=y3.device)
@@ -715,6 +751,8 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     if wide is not out:
         out.copy_(wide[..., :hc])
     wrapper.launches += 1
+    if with_da:
+        return out, da.view(heads, hp)[:, :hc].contiguous()
     return out
 
 
@@ -860,40 +898,62 @@ def _sddmm_args(view: RowView, nbr: torch.Tensor, x: torch.Tensor,
             x.device.index, _stream(x.device))
 
 
-def sddmm_walk(view: RowView, num_buckets: int, cap: int, x: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
-    """K4's SDDMM by the dot-product walk on CUDA tensors: (num_buckets, H,
-    cap) f32, e[b, h, c] = <x[nbr[k], h], z[r, h]> at the entry k of row r
-    with slot[k] = b * cap + c, 0 at every slot the view does not list.
-    The launches of :func:`_sddmm_plan` write each entry's dots into an
-    (E, H) scratch a part, at the entry, where a round's stores fill whole
-    sectors; then csrc ``slot_finish_kernel`` gathers the parts into (B,
-    H, C) through ``view.entries``, adds them in order and writes the
-    zeros.  ``x``, ``z`` as :func:`_sddmm_args` takes them.  Counts
-    nothing."""
+def sddmm_dots(view: RowView, x: torch.Tensor, z: torch.Tensor):
+    """(sm, parts): the launches of :func:`_sddmm_plan` over the rows of
+    ``view`` on CUDA tensors, each entry's dots written into an (E, H)
+    scratch a part, at the entry (sm[part, k * H + h] = the part's share
+    of <x[nbr[k], h], z[r, h]>), where a round's stores fill whole
+    sectors; ``sm`` (parts, E * H) f32, zeros where hp is 0.  ``x``, ``z``
+    as :func:`_sddmm_args` takes them.  Counts nothing."""
     heads, hp = x.shape[1], x.shape[2]
     if hp % 4 or z.shape[1:] != x.shape[1:]:
         raise ValueError(f"x {tuple(x.shape)} and z {tuple(z.shape)} need "
                          "one (H, hp) with hp a multiple of 4")
-    out = torch.empty(num_buckets, heads, cap, dtype=torch.float32,
-                      device=x.device)
     e = view.slot.numel()
-    if out.numel() == 0 or hp == 0 or e == 0:   # no dot: every slot is 0
-        return out.zero_()
+    if hp == 0 or heads == 0:
+        return torch.zeros(1, e * heads, dtype=torch.float32,
+                           device=x.device), 1
     plan, parts = _sddmm_plan(heads, hp // 4)
     _check_int32(x.numel(), z.numel(), e * heads,
                  view.rows + 2048 * _sms(x.device))
     sm = torch.empty(parts, e * heads, dtype=torch.float32, device=x.device)
+    if e == 0:
+        return sm, parts
     counters = torch.zeros(len(plan), dtype=torch.int32, device=x.device)
     for i, launch in enumerate(plan):
         _launch("dgl_row_sddmm", *_sddmm_args(
             view, view.nbr, x, z, sm[launch[4]], heads, counters[i], launch),
             source="row_agg")
+    return sm, parts
+
+
+def finish_blocks(slots: int, device) -> int:
+    """Blocks of 256 threads of a finishing pass over ``slots`` slots, a
+    thread a slot, grid-stride: at most 32 an SM."""
+    return max(1, min(-(-slots // 256), 32 * _sms(device)))
+
+
+def sddmm_walk(view: RowView, num_buckets: int, cap: int, x: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """K4's SDDMM by the dot-product walk on CUDA tensors: (num_buckets, H,
+    cap) f32, e[b, h, c] = <x[nbr[k], h], z[r, h]> at the entry k of row r
+    with slot[k] = b * cap + c, 0 at every slot the view does not list.
+    :func:`sddmm_dots` writes the entry-major scratch; then csrc
+    ``slot_finish_kernel`` gathers its parts into (B, H, C) through
+    ``view.entries``, adds them in order and writes the zeros.  Counts
+    nothing."""
+    heads = x.shape[1]
+    out = torch.empty(num_buckets, heads, cap, dtype=torch.float32,
+                      device=x.device)
+    e = view.slot.numel()
+    if out.numel() == 0 or x.shape[2] == 0 or e == 0:   # every slot is 0
+        return out.zero_()
+    sm, parts = sddmm_dots(view, x, z)
     slots = num_buckets * cap
     _launch("dgl_slot_finish", sm.data_ptr(), view.entries(slots).data_ptr(),
             slots, heads, parts, e * heads, cap, out.data_ptr(),
-            max(1, min(-(-slots // 256), 32 * _sms(x.device))),
-            x.device.index, _stream(x.device), source="row_agg")
+            finish_blocks(slots, x.device), x.device.index,
+            _stream(x.device), source="row_agg")
     return out
 
 

@@ -6,8 +6,10 @@ package's ``tools/perf_bitmm_variants.py`` and
 choices (:mod:`.perf_row_walk`) and of the SDDMM walk's write layouts
 (:mod:`.perf_sddmm_walk`) on the Reddit-statistics graph; and the probe
 that times K5's backward and K9's node gradient beside the kernels they
-replaced and edits of their own (:mod:`.perf_bwd_walks`, called from
-``chip_smoke.py``'s yardsticks).  Each runs as ``python -m
+replaced and edits of their own (:mod:`.perf_bwd_walks`), and the one
+that times K6's ds and K9's da beside the kernels they replaced
+(:mod:`.perf_ds_fold`), both called from ``chip_smoke.py``'s
+yardsticks.  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
 import ctypes
 import hashlib

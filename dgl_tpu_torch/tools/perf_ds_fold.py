@@ -1,0 +1,155 @@
+"""Probe of the two kernels that K6's ds and K9's slot gradient left, each
+timed beside the design that replaced it, in one run on the card:
+
+* K6's ds (``gat_ds``): the dot-product walk by dst with its epilogue in
+  the finishing pass (``csrc/row_agg.cu`` ``row_sddmm_kernel``,
+  ``ds_finish_kernel``) beside the bucket walk it replaced, ``gat_ds_kernel``
+  of ``csrc/gat_fused.cu`` without an edge term (its mode 0, instantiated
+  again by the edit ``BUCKET_DS``): a warp a 32-slot chunk of a bucket,
+  x[src] and zn[dst] gathered with scalar loads, the epilogue per slot;
+* K9's da (``vattn_slot_grad`` without the edge term): the node-gradient
+  walk by dst with da folded in (``row_agg_kernel<VEC, CPL, true, true>``)
+  beside the tiled walk it replaced, ``vattn_slot_grad_kernel<C, 0,
+  false>`` of ``csrc/gatv2.cu`` (instantiated again by the edit
+  ``TILED_DA``): a warp a 32-slot chunk, both node rows of every slot
+  gathered with scalar loads, da met in shared-memory atomics.
+
+Both edited sources are built with the package's ``nvcc`` flags into its
+build directory (``tools.build_edited``), side by side, at the first call
+of :func:`build_probe`, which ``chip_smoke.py`` starts beside the
+package's build.  Each retired kernel's output is held to the package
+kernel's by the caller's check (``chip_smoke.py``'s yardsticks, phases
+20, 24 and 27).  The probe is not a main path: nothing here counts
+launches.
+
+Usage: ``python -m dgl_tpu_torch.tools.perf_ds_fold tiny`` (the CPU
+check: every edit applies once).
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from . import build_edited, edited_source
+from ..ops.kernels import gat_fused as tgf
+from ..ops.kernels import tiled_spmm as tts
+
+# csrc/gat_fused.cu with gat_ds_kernel's instance without an edge term
+# (mode 0) back in its switch
+BUCKET_DS = [("  switch (mode) {\n    case 1:\n"
+              "      return launch_ds<L, true, false, float, false>",
+              "  switch (mode) {\n    case 0:\n"
+              "      return launch_ds<L, false, false, float, false>"
+              "(DGL_DS_ARGS);\n    case 1:\n"
+              "      return launch_ds<L, true, false, float, false>")]
+# csrc/gatv2.cu with vattn_slot_grad_kernel's instances without an edge
+# term (K9's da) back in its dispatch
+TILED_DA = [("  DGL_GRAD_CASE(1, 8, false)\n",
+             "  DGL_GRAD_CASE(1, 0, false)\n"
+             "  DGL_GRAD_CASE(2, 0, false)\n"
+             "  DGL_GRAD_CASE(4, 0, false)\n"
+             "  DGL_GRAD_CASE(1, 8, false)\n")]
+
+_BUILT = {}
+_LOCK = threading.Lock()
+
+
+def edited_sources():
+    """(``csrc/gat_fused.cu`` with BUCKET_DS, ``csrc/gatv2.cu`` with
+    TILED_DA)."""
+    return (edited_source("gat_fused", BUCKET_DS, "bucket_ds"),
+            edited_source("gatv2", TILED_DA, "tiled_da"))
+
+
+def build_probe():
+    """{"bucket_ds": the edited ``gat_fused.cu``'s ``dgl_gat_ds``,
+    "tiled_da": the edited ``gatv2.cu``'s ``dgl_vattn_slot_grad``}, the two
+    built side by side at the first call (a caller in another thread waits
+    for it)."""
+    with _LOCK:
+        if _BUILT:
+            return _BUILT
+        ds_src, da_src = edited_sources()
+        with ThreadPoolExecutor(2) as pool:
+            ds = pool.submit(build_edited, "gat_fused", {"bucket_ds": ds_src},
+                             {"dgl_gat_ds": tgf._SIGNATURES["dgl_gat_ds"]})
+            da = pool.submit(build_edited, "gatv2", {"tiled_da": da_src},
+                             {"dgl_vattn_slot_grad":
+                              tgf._VATTN_SIGNATURES["dgl_vattn_slot_grad"]})
+            _BUILT["bucket_ds"] = ds.result()["bucket_ds"]["dgl_gat_ds"]
+            _BUILT["tiled_da"] = (
+                da.result()["tiled_da"]["dgl_vattn_slot_grad"])
+        return _BUILT
+
+
+def _check(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err}")
+
+
+def bucket_ds(tf, x3, zn, rp, g):
+    """K6's ds (B, H, C) by the bucket walk that the dot-product walk
+    replaced, on CUDA operands."""
+    heads, fh = x3.shape[1:]
+    b = tf.num_buckets
+    dev = x3.device
+    ds = torch.empty(b, heads, tf.cap, dtype=torch.float32, device=dev)
+    x, z, r, gg = (t.float().contiguous() for t in (x3, zn, rp, g))
+    blocks = max(1, min(-(-(b * tf.cap // 32) // tgf._DS_WARPS),
+                        16 * tts._sms(dev)))
+    _check(build_probe()["bucket_ds"](
+        tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
+        tf.valid.data_ptr(), tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
+        b, tf.tile, tf.cap, x.data_ptr(), z.data_ptr(), r.data_ptr(),
+        gg.data_ptr(), heads, fh, 0, 0, 0, 0, 0, 0, 0, 0, ds.data_ptr(),
+        tts._lanes_per_head(heads), blocks, dev.index, tts._stream(dev)),
+        "the bucket ds walk")
+    return ds
+
+
+def tiled_da(tf, U3, V3, attn, ds, slope: float):
+    """K9's da (H, D) by the tiled walk that the fold replaced, on CUDA
+    operands; ``ds`` (B, H, C)."""
+    heads, dim = U3.shape[1:]
+    dev = U3.device
+    lanes = tts._lanes_per_head(heads)
+    cols = 1
+    while cols < min(-(-dim // lanes), 4):
+        cols *= 2
+    da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
+    u, v, a, d = (t.float().contiguous() for t in (U3, V3, attn, ds))
+    b, cap = tf.num_buckets, tf.cap
+    blocks = max(1, min(-(-(b * cap // 32) // tgf._VATTN_WARPS),
+                        4 * tts._sms(dev)))
+    _check(build_probe()["tiled_da"](
+        tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
+        tf.valid.data_ptr(), tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
+        b, tf.tile, cap, u.data_ptr(), v.data_ptr(), a.data_ptr(),
+        d.data_ptr(), 0, 0, 0, 0, heads, dim, lanes, cols, 0, float(slope),
+        da.data_ptr(), 0, 0, 0, 0, 0, blocks, dev.index, tts._stream(dev)),
+        "the tiled da walk")
+    return da
+
+
+def tiny_check():
+    """On the CPU: both edits apply once to their sources.  Returns the
+    probe's variants' names."""
+    ds_src, da_src = edited_sources()
+    if "case 0:" not in ds_src or "DGL_GRAD_CASE(4, 0, false)" not in da_src:
+        raise AssertionError("an edit did not restore its instance")
+    return ["bucket_ds", "tiled_da"]
+
+
+def main():
+    if sys.argv[1:] != ["tiny"]:
+        raise SystemExit("usage: python -m dgl_tpu_torch.tools.perf_ds_fold "
+                         "tiny (on the card, chip_smoke.py's yardsticks run "
+                         "the probe on their graphs)")
+    print(f"tiny check: {tiny_check()} apply")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,10 +9,12 @@ Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
 atomics (K5's, for the gradient of er, and K3's and K6's reduce's
 shared-memory adds) add in an order that changes from run to run.  The
 row walk (K4's SpMM, K6's dx, K9's node gradient) sums each row in slot
-order, the SDDMM walk forms each dot in one lane order and K2 sums a row's
-bits in one list order; their checks take dyadic inputs and ask for
-equality.  K5's listed walk sums dz and del in registers in one order
-(der in L2 in none)."""
+order, the SDDMM walk (K4's SDDMM, K6's ds) forms each dot in one lane
+order and K2 sums a row's bits in one list order; their checks take
+dyadic inputs and ask for equality.  K5's listed walk sums dz and del in
+registers in one order (der in L2 in none); K9's da, folded into the
+node-gradient walk by dst, meets in L2 in no order (atol 1e-3 times its
+largest magnitude, as ``chip_smoke.close_sum``)."""
 import math
 
 import numpy as np
@@ -839,7 +841,8 @@ def test_vattn_kernels_match_plain(card, heads, dim, fe, bias):
     slope = 0.01 if fe else 0.2
     U, V, attn, ds, ef, wf = _vattn_inputs(card, fwd, heads, dim, fe, bias,
                                            heads * 100 + dim + fe)
-    counters = (tgf.vattn_scores, tgf.vattn_slot_grad, tgf.vattn_node_grad)
+    counters = (tgf.vattn_scores, tgf.vattn_slot_grad, tgf.vattn_node_grad,
+                tgf.vattn_node_grad_da)
     before = [k.launches for k in counters]
     got = [tgf.vattn_scores(fwd, U, V, attn, slope, ef, wf)]
     got += [a for a in tgf.vattn_slot_grad(fwd, U, V, attn, ds, slope, ef,
@@ -847,7 +850,10 @@ def test_vattn_kernels_match_plain(card, heads, dim, fe, bias):
     got += [tgf.vattn_node_grad(fwd, U, V, attn, ds, slope, side, ef, wf)
             for side in ("dst", "src")]
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 2]
+    # without the edge term the slot gradient is K9's da, folded into the
+    # node-gradient walk by dst
+    assert [k.launches - b for k, b in zip(counters, before)] == (
+        [1, 1, 2, 0] if fe else [1, 0, 2, 1])
     want = [tgf.vattn_scores_plain(fwd, U, V, attn, slope, ef, wf)]
     want += [a for a in tgf.vattn_slot_grad_plain(fwd, U, V, attn, ds, slope,
                                                   ef, wf) if a is not None]
@@ -1813,3 +1819,157 @@ def test_tools_tiny_checks_on_card(card):
     assert perf_bitgat_probe.tiny_check(card)[1] < 1e-4
     assert (tbm.bit_matmul_t.launches - before[0],
             tbg.bitgat_fwd_t.launches - before[1]) == (1, 1)
+
+
+# -- K6's ds on the dot-product walk, K9's da folded into its node gradient --
+
+@pytest.mark.parametrize("heads,fh", [(4, 32), (1, 41), (8, 8), (1, 2048),
+                                      (8, 256)])
+def test_ds_walk_matches_plain_exactly(card, heads, fh):
+    """K6's ds through the dot-product walk by dst and its finishing pass,
+    equal to its plain version bit for bit in both layouts, on dyadic
+    inputs (x, zn, rp and g multiples of 1/16 in [-1, 1]: every dot and
+    product is exact in f32), at the main path's widths and on rows over
+    1,024 columns (several launches of the walk, the parts added in
+    order); 0 at padded slots, the slot-major result a (B, H, C) view of
+    a (B, C, H) tensor, a scale applied after the product; one count a
+    call."""
+    fwd, _, _, _ = _tiled(card)
+    gen = torch.Generator(device=card).manual_seed(heads * 1000 + fh)
+    b, cap = fwd.num_buckets, fwd.cap
+    x = _grid(card, gen, fwd.num_src, heads, fh, step=1 / 16, top=1)
+    zn = _grid(card, gen, fwd.num_dst, heads, fh, step=1 / 16, top=1)
+    rp = _grid(card, gen, fwd.num_dst, heads, step=1 / 16, top=1)
+    g = _grid(card, gen, b, heads, cap, step=1 / 16, top=1) * \
+        fwd.valid.view(b, 1, cap)
+    want = tgf.gat_ds_plain(fwd, x, zn, rp, g)
+    before = tgf.gat_ds.launches
+    got = tgf.gat_ds(fwd, x, zn, rp, g)
+    sm = tgf.gat_ds(fwd, x, zn, rp, g, slot_major=True)
+    scaled = tgf.gat_ds(fwd, x, zn, rp, g, True, 0.125)
+    torch.cuda.synchronize()
+    assert tgf.gat_ds.launches == before + 3
+    assert got.is_contiguous() and torch.equal(got, want)
+    assert sm.stride() == (cap * heads, 1, heads) and torch.equal(sm, want)
+    assert torch.equal(scaled, want * 0.125)
+    pad = fwd.valid.reshape(b, 1, cap) == 0
+    assert (sm.masked_select(pad) == 0).all() and pad.any()
+
+
+def _fold_inputs(card, fwd, heads, dim, seed):
+    """U, V, attn on a grid of 1/16 and ds of 1/8 (0 at padded slots),
+    slot-major as gat_ds writes it: with a slope of 1/4 every sum of the
+    node gradient and of da is exact."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, cap = fwd.num_buckets, fwd.cap
+    U = _grid(card, gen, fwd.num_src, heads, dim, step=1 / 16, top=1)
+    V = _grid(card, gen, fwd.num_dst, heads, dim, step=1 / 16, top=1)
+    attn = _grid(card, gen, heads, dim, step=1 / 16, top=0.5)
+    ds = _grid(card, gen, b, heads, cap, step=1 / 8, top=1) * \
+        fwd.valid.view(b, 1, cap)
+    return U, V, attn, ds.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.parametrize("heads,dim", [(8, 8), (1, 41), (4, 32), (3, 5),
+                                       (1, 600), (4, 160)])
+def test_node_grad_da_fold_matches_plain(card, heads, dim):
+    """K9's dV and da from the node-gradient walk by dst with da folded
+    in: dV the walk without da's, bit for bit, and the plain version's; da
+    within ``chip_smoke.close_sum``'s tolerance of the plain slot gradient
+    (atol 1e-3 times its largest magnitude: its sums meet in L2 in no
+    fixed order), at the main path's widths, a head width that takes
+    scalar loads (5) and rows walked in two column chunks ((1, 600), (4,
+    160)), where the lanes flush their sums at each chunk; the fold
+    spills nothing."""
+    fwd, _, _, _ = _tiled(card)
+    U, V, attn, ds = _fold_inputs(card, fwd, heads, dim, heads * 10 + dim)
+    before = (tgf.vattn_node_grad.launches, tgf.vattn_node_grad_da.launches)
+    dv, da = tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.25, "dst",
+                                 with_da=True)
+    alone = tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.25, "dst")
+    torch.cuda.synchronize()
+    assert (tgf.vattn_node_grad.launches - before[0],
+            tgf.vattn_node_grad_da.launches - before[1]) == (1, 1)
+    assert torch.equal(dv, alone)
+    assert torch.equal(dv, tgf.vattn_node_grad_plain(fwd, U, V, attn, ds,
+                                                     0.25, "dst"))
+    want = tgf.vattn_slot_grad_plain(fwd, U, V, attn, ds, 0.25)[0]
+    tol = dict(rtol=RTOL, atol=ATOL * max(1.0, float(want.abs().max())))
+    torch.testing.assert_close(da, want, **tol)
+    # the slot gradient without the edge term launches the same fold
+    torch.testing.assert_close(
+        tgf.vattn_slot_grad(fwd, U, V, attn, ds, 0.25)[0], want, **tol)
+    hp = -(-dim // 4) * 4
+    hp = dim if (hp - dim) * 8 > dim else hp
+    vec, cpl, _, chunks = tts._row_layout(heads * hp, hp,
+                                          max_cpl=tts.FOLD_CPL)
+    assert chunks == (2 if (heads, dim) in ((1, 600), (4, 160)) else 1)
+    assert tts.node_grad_kernel_attrs(vec, cpl, True)[1] == 0
+
+
+def test_route5_backward_folds_da_and_copies_no_ds(card, monkeypatch):
+    """GATv2's backward on K9: no slot-gradient launch (da comes from the
+    walk by dst), ds handed to both node-gradient walks slot-major as
+    gat_ds wrote it (no copy), one ds, and every gradient against the
+    plain chain."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    heads, dim, slope = 8, 8, 0.2
+    U, V, attn, _, _, _ = _vattn_inputs(card, fwd, heads, dim, 0, False, 5)
+    x = torch.randn_like(U)
+    dz = torch.randn(fwd.num_dst, heads, dim, device=card)
+    seen = []
+    walk = tts.row_aggregate
+
+    def spy(tf, side, y3, w_slot, wrapper, *args, **kwargs):
+        if wrapper in (tgf.vattn_node_grad, tgf.vattn_node_grad_da):
+            seen.append(w_slot.transpose(1, 2).is_contiguous())
+        return walk(tf, side, y3, w_slot, wrapper, *args, **kwargs)
+
+    monkeypatch.setattr(tts, "row_aggregate", spy)
+    names = ("gat_ds", "vattn_slot_grad", "vattn_node_grad",
+             "vattn_node_grad_da")
+    before = [getattr(tgf, n).launches for n in names]
+    ins = [t.clone().requires_grad_() for t in (U, V, attn, x)]
+    out = tgf.gatv2_attention_aggregate(fwd, ins[0], ins[1], ins[3], ins[2],
+                                        heads, dim, dim, slope)
+    out.backward(dz)
+    torch.cuda.synchronize()
+    assert [getattr(tgf, n).launches - b
+            for n, b in zip(names, before)] == [1, 0, 1, 1]
+    assert seen == [True, True]
+    p = tgf.vattn_scores_plain(fwd, U, V, attn, slope)
+    den = tgf.slot_reduce_plain(fwd, p, "dst").clamp_(min=tgf.DEN_EPS)
+    ref = tts.tiled_spmm_multihead_plain(fwd, x, p) / den.unsqueeze(-1)
+    zn, rp = tgf._scales(ref, dz, den)
+    g = tgf.gat_ds_plain(fwd, x, zn, rp, p)
+    want = [tgf.vattn_node_grad_plain(fwd, U, V, attn, g, slope, "src"),
+            tgf.vattn_node_grad_plain(fwd, U, V, attn, g, slope, "dst"),
+            tgf.vattn_slot_grad_plain(fwd, U, V, attn, g, slope)[0],
+            tgf.src_aggregate_plain(fwd, zn, p)]
+    for a, w in zip([t.grad for t in ins], want):
+        torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL)
+
+
+def test_ds_fold_probe_builds_the_retired_kernels(card):
+    """``tools/perf_ds_fold.py`` builds the two retired kernels from edits
+    of the package's sources: the bucket ds walk equals the dot-product
+    walk on dyadic inputs, and the tiled da walk the fold within
+    close_sum's tolerance."""
+    from dgl_tpu_torch.tools import perf_ds_fold as tdf
+    fwd, _, _, _ = _tiled(card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    b, cap = fwd.num_buckets, fwd.cap
+    x = _grid(card, gen, fwd.num_src, 4, 32, step=1 / 16, top=1)
+    zn = _grid(card, gen, fwd.num_dst, 4, 32, step=1 / 16, top=1)
+    rp = _grid(card, gen, fwd.num_dst, 4, step=1 / 16, top=1)
+    g = _grid(card, gen, b, 4, cap, step=1 / 16, top=1) * \
+        fwd.valid.view(b, 1, cap)
+    assert torch.equal(tdf.bucket_ds(fwd, x, zn, rp, g),
+                       tgf.gat_ds(fwd, x, zn, rp, g))
+    U, V, attn, ds = _fold_inputs(card, fwd, 8, 8, 4)
+    da = tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.25, "dst",
+                             with_da=True)[1]
+    torch.testing.assert_close(
+        tdf.tiled_da(fwd, U, V, attn, ds, 0.25), da, rtol=RTOL,
+        atol=ATOL * max(1.0, float(da.abs().max())))

@@ -697,8 +697,9 @@ def test_gatv2_training_on_k9_matches_jax(min_edges_1):
                              lr=lr)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     losses_t = []
-    with mock.patch.object(tgf, "vattn_slot_grad",
-                           wraps=tgf.vattn_slot_grad) as spy:
+    # the slot-space route: K9's dV and da come from one walk by dst
+    with mock.patch.object(tgf, "vattn_node_grad_da",
+                           wraps=tgf.vattn_node_grad_da) as spy:
         for _ in range(steps):
             opt_t.zero_grad()
             h = torch.nn.functional.elu(t1(gt, xt).reshape(n, -1))

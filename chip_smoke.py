@@ -7,7 +7,9 @@ Phases, each of which raises on failure (nothing is caught):
 2. build: compiles ``dgl_tpu_torch/csrc/*.cu`` (one ``nvcc`` each, all at
    once) and prints the build seconds and ptxas' resource report; the
    probe of the kernels that K6's ds and K9's da replaced
-   (``dgl_tpu_torch/tools/perf_ds_fold.py``) builds beside it;
+   (``dgl_tpu_torch/tools/perf_ds_fold.py``) and the probe of the kernels
+   that K5's forward walk replaced (``dgl_tpu_torch/tools/
+   perf_fwd_walks.py``, with an edit of the walk) build beside it;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
    reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
@@ -25,8 +27,9 @@ Phases, each of which raises on failure (nothing is caught):
    version's, one ``torch.sparse.mm`` on a CSR copy of A, and the bound;
    the spread of set bits over the word columns of K1's slabs; then both
    kernels at F = 16, 32, 64 and at the K1/K2 gate, F = 96;
-8. the GAT slice at mid size: K5 forward and backward
-   (``bitgat_attention_aggregate``) against their plain versions on the
+8. the GAT slice at mid size: K5 forward and backward (the listed walks
+   by dst and by src, ``bitgat_attention_aggregate``) against their plain
+   versions on the
    phase-3 graph made simple, at (H, D) = (4, 32), (1, 41) and (8, 16),
    with and without attention dropout 0.6; then a 2-layer GAT forward and
    backward through the kernels against edgeflat's gather path;
@@ -35,11 +38,15 @@ Phases, each of which raises on failure (nothing is caught):
    on the phase-4 graph, then one more step under ``torch.profiler``;
 10. K5 yardsticks at full size, (H, D) = (4, 32) and (1, 41) with
    dropout 0.6: each kernel against its plain version on all rows, its
-   time (median of 5), its plain version's and the bound; the backward
-   (the listed walk) also without dropout, its registers and resident
-   warps, and beside it (``dgl_tpu_torch/tools/perf_bwd_walks.py``) the
-   warp walk it replaced, two edits of it (der by scalar reductions, 80
-   registers a thread) and the walk at other lanes an entry;
+   time (median of 5), its plain version's and the bound; both walks'
+   registers and resident warps; the forward (the listed walk by dst) run
+   twice to the same bits, and beside it (``dgl_tpu_torch/tools/
+   perf_fwd_walks.py``) the warp walk it replaced and an edit of it (twice
+   the entries in flight); the backward (the listed walk by src) also
+   without dropout, and beside it (``dgl_tpu_torch/tools/
+   perf_bwd_walks.py``) the warp walk it replaced, two edits of it (der
+   by scalar reductions, 80 registers a thread) and the walk at other
+   lanes an entry;
 11. the tiled slice at mid size: K3 (F = 16, 41, 128; no weights, edge
    weights and slot weights; forward and backward) and K4's SpMM and
    SDDMM ((H, Fh) = (4, 32), (1, 41), (8, 16)) against their plain
@@ -185,8 +192,11 @@ Phases, each of which raises on failure (nothing is caught):
 34. the mesh-sharded slice at mid size, on the phase-8 simple graph on
    24,000 nodes with 64 edges more into its last dst (every build's
    shards reach bit plane 31): the sharded format built on the card for
-   1, 2 and 4 parts, each equal to the host builder's arrays; on every
-   shard K1, K5's forward over the A^T packing (``bitgat_fwd_t``) and K13
+   1, 2 and 4 parts, each equal to the host builder's arrays, and each
+   shard's dst-major view for the forward (``bitgat_spmd.shard_fwd_view``)
+   equal to the bit transpose of the host's shard; on every shard K1, K5's
+   forward over the A^T packing (``bitgat_fwd_t``, the walk by dst on the
+   view) and K13
    (``bit_shard_gat_bwd``) against their plain versions at (H, D) = (4,
    32), (1, 41), (8, 16) and (2, 16); on a world-size-1 NCCL group
    ``bit_sharded_spmm`` and ``bit_sharded_gat``, forward and gradients,
@@ -200,13 +210,16 @@ Phases, each of which raises on failure (nothing is caught):
    the route-4 GAT recipe (attention dropout 0, weights through
    ``params.gatconv_state_dict``) for 10 Adam steps on
    ``bit_sharded_gat`` (one ``bitgat_fwd_t`` and one K13 launch a layer
-   and step, no other K5 launch), a profiled step held to the counters,
-   and one step against the same step built from the plain versions;
+   and step, no other K5 launch; the forward's view is the shard itself,
+   no copy), a profiled step held to the counters, and one step against
+   the same step built from the plain versions;
 36. ``bitgat_fwd_t`` and K13 yardsticks on the one-part shard and on
-   shard 0 of a 4-part build at (4, 32) and (1, 41): each against its
+   shard 0 of a 4-part build at (4, 32) and (1, 41), the latter's forward
+   view built on the card (its seconds and bytes): each against its
    plain version on every row, its time (median of 5), its plain
-   version's and the bound, and the warp walk that K13's listed walk
-   replaced (``perf_bwd_walks``) timed beside it;
+   version's and the bound, and the kernels they replaced timed beside
+   them: the scatter walk over the shard (``perf_fwd_walks``) and the
+   warp walk of K13 (``perf_bwd_walks``);
 37. the stored-edge-term slice at mid size: each K11 v1 kernel (the
    scores and the slot gradient over a stored FE, the slot vector sum on
    both sides) and each K10 v1 kernel (the numerator with a stored
@@ -232,10 +245,12 @@ Phases, each of which raises on failure (nothing is caught):
 41. K1's slab-width sweep (``dgl_tpu_torch/tools/perf_bitmm_variants.py``,
    the JAX package's P1): KP = N = 110,592, F = 16, random bits, 8, 16 and
    32 words, each width exactly equal to the plain version;
-42. the probe of ``bitgat_fwd_t`` at full bit density
-   (``dgl_tpu_torch/tools/perf_bitgat_probe.py``, P2): s_pad = k_pad =
-   110,592, H = 4, D = 32, random bits, one warm-up and two timed
-   launches, and the block of 1,024 src rows against the plain version;
+42. the probe of K5's forward at full bit density
+   (``dgl_tpu_torch/tools/perf_bitgat_probe.py``, P2): the tiny check
+   through ``bitgat_fwd_t``, then s_pad = k_pad = 110,592, H = 4, D = 32,
+   random bits read as the dst-major packing, one warm-up and two timed
+   launches of ``bitgat_fwd``, and the block of 1,024 dst rows against the
+   plain version;
 43. the probe of K4's SDDMM walk (``dgl_tpu_torch/tools/
    perf_sddmm_walk.py``) on the phase-12 format at (4, 32) and (1, 41):
    the write layouts (an entry-major scratch gathered through the view's
@@ -522,11 +537,13 @@ def phase_train(dgt, bm, g, x, y, train):
 # columns: the split of z and the tensor-core product); K4's SpMM and the
 # src-side aggregation share the row walk (and K9's node gradient, the
 # walk in its node-gradient form, with da folded in by dst), K13
-# and K5's backward another kernel: the counts of wrappers that share one
-# are held together
+# and K5's backward another kernel, K5's two forwards (over the bits of A,
+# and of A^T through the shard's view) a third: the counts of wrappers that
+# share one are held together
 TRACED_KERNELS = {
     "bit_matmul_t": "bit_matmul_t_kernel",
-    "bitgat_fwd": "bitgat_fwd_kernel", "bitgat_bwd": "bitgat_bwd_list_kernel",
+    "bitgat_fwd": "bitgat_fwd_list_kernel",
+    "bitgat_bwd": "bitgat_bwd_list_kernel",
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
     "src_aggregate": "row_agg_kernel",
@@ -540,7 +557,7 @@ TRACED_KERNELS = {
     "int8_matmul_rows": "int8_rows_kernel",
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
     "k3_spmm": "tiled_spmm_kernel",
-    "bitgat_fwd_t": "bitgat_fwd_t_kernel",
+    "bitgat_fwd_t": "bitgat_fwd_list_kernel",
     "bit_shard_gat_bwd": "bitgat_bwd_list_kernel",
     "egatc_scores": "vattn_scores_kernel",
     "egatc_slot_grad": "vattn_slot_grad_kernel",
@@ -860,13 +877,14 @@ def phase_gat_train(dgt, bg, g, x, y, train):
     return model, opt, launches
 
 
-def bitgat_yardstick(bg, tbw, g, heads, dim, rate):
+def bitgat_yardstick(bg, tbw, tfw, g, heads, dim, rate):
     """K5 forward and backward against their plain versions on every row
     of the full graph, with dropout as trained (the backward without it
-    too), and the timings: the backward's listed walk beside the warp walk
-    it replaced, its edits and other lanes an entry, in this call
-    (``dgl_tpu_torch/tools/perf_bwd_walks.py``, each held to the listed
-    walk)."""
+    too), and the timings: each listed walk beside the warp walk it
+    replaced and edits of its own, in this call
+    (``dgl_tpu_torch/tools/perf_fwd_walks.py`` for the forward,
+    ``perf_bwd_walks.py`` for the backward, each variant held to the
+    package's walk)."""
     bf = g.unit()._bits
     n = N_NODES
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
@@ -875,18 +893,33 @@ def bitgat_yardstick(bg, tbw, g, heads, dim, rate):
     z, gr = (torch.randn(n, heads, dim, device="cuda", generator=gen)
              for _ in range(2))
     thresh, seed = bg.drop_thresh(ATTN_DROP), 20_240_611
-    out, l = bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE, thresh, seed)
+    order_f = bg.fwd_claim_order(bf)
+    out, l = bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE, thresh, seed,
+                           order_f)
     want_out, want_l = bg.bitgat_fwd_plain(bf.packed, el, er, z, n, SLOPE,
                                            thresh, seed)
     err_f = close(out, want_out, f"K5 fwd H={heads} D={dim}")
     err_l = close(l, want_l, f"K5 l H={heads} D={dim}")
+    # the same bits from run to run: one order of sums a row
+    again = bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE, thresh, seed,
+                          order_f)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], l)):
+        raise AssertionError(f"K5 fwd H={heads} D={dim}: two runs differ")
+    del out, l, again
     order = bg.bwd_claim_order(bf)
-    for drop in (False, True):
-        regs, warps = bg.bwd_kernel_attrs(heads, dim, drop)
-        dp, lpe, cpl = bg.bwd_layout(heads, dim)
-        log(f"# K5 bwd listed walk H={heads} D={dim} drop={drop}: {regs} "
-            f"registers a thread, {warps} resident warps an SM; {dp} columns "
-            f"a head, {lpe} lanes an entry, {cpl} vectors a lane")
+    dp, lpe, cpl = bg.list_layout(heads, dim)
+    for walk in ("fwd", "bwd"):
+        for drop in (False, True):
+            regs, warps = bg.list_kernel_attrs(walk, heads, dim, drop)
+            log(f"# K5 {walk} listed walk H={heads} D={dim} drop={drop}: "
+                f"{regs} registers a thread, {warps} resident warps an SM; "
+                f"{dp} columns a head, {lpe} lanes an entry, {cpl} vectors "
+                "a lane")
+    side_f = tfw.fwd_side_by_side(bf.packed, order_f,
+                                  (el, er, z, n, SLOPE, thresh, seed), close,
+                                  f"K5 fwd H={heads} D={dim}")
+    log(f"# K5 fwd H={heads} D={dim} drop={ATTN_DROP}: "
+        + side_by_side(side_f))
     # without dropout first: a check, and the two walks' times
     linv0, rho0 = bg.backward_scales(gr, *bg.bitgat_fwd_plain(
         bf.packed, el, er, z, n, SLOPE), None)
@@ -910,10 +943,10 @@ def bitgat_yardstick(bg, tbw, g, heads, dim, rate):
                 for name, a, b in zip(("d_el", "d_er", "d_z"),
                                       bg.bitgat_bwd(bf.packed_rev, *bwd_args,
                                                     order=order), want))
-    del out, l, want_out, want_l, want
+    del want_out, want_l, want
     times = {
         "fwd": cuda_ms(lambda: bg.bitgat_fwd(bf.packed, el, er, z, n, SLOPE,
-                                             thresh, seed)),
+                                             thresh, seed, order_f)),
         "fwd_plain": cuda_ms(lambda: bg.bitgat_fwd_plain(
             bf.packed, el, er, z, n, SLOPE, thresh, seed), reps=1),
         "bwd": cuda_ms(lambda: bg.bitgat_bwd(bf.packed_rev, *bwd_args,
@@ -946,21 +979,22 @@ def bitgat_yardstick(bg, tbw, g, heads, dim, rate):
                       "bound_by": ("bytes" if bytes_ms >= ops_ms
                                    else "operations"),
                       "library_ms": None}
-        old = (f", the warp walk {side['warp']:.4f} ms" if name == "bwd"
-               else "")
+        walks = side_f if name == "fwd" else side
+        old = f", the warp walk {walks['warp']:.4f} ms"
         log(f"# K5 {name} H={heads} D={dim} drop={ATTN_DROP}: "
             f"{times[name]:.4f} ms (bound {rows[name]['bound_ms']:.4f} ms by "
             f"{rows[name]['bound_by']}: {nbytes} B, {ops} ops), plain "
             f"{times[f'{name}_plain']:.4f} ms, library none, max|err| "
             f"{err:.3g}" + (f" (l {err_l:.3g})" if name == "fwd" else "")
             + old)
+    rows["fwd"].update(kernel="bitgat_fwd_list_kernel", old_ms=side_f["warp"])
     rows["bwd"].update(kernel="bitgat_bwd_list_kernel", old_ms=side["warp"])
     return rows
 
 
 def side_by_side(ms):
-    """A log line's text for ``perf_bwd_walks.k5_side_by_side``'s
-    readings."""
+    """A log line's text for the side-by-side readings of
+    ``perf_bwd_walks`` and ``perf_fwd_walks``."""
     return (", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()
                       if k != "max_abs_err")
             + f" (max|err| {ms['max_abs_err']:.3g} against the listed walk)")
@@ -3290,16 +3324,18 @@ def phase_bitmm_sweep(bm, tp1, rate):
 
 
 def phase_bitgat_probe(bg, tp2, rate):
-    """Phase 42: the probe of K5's src-major forward at full bit density
-    (P2's counterpart, ``dgl_tpu_torch.tools.perf_bitgat_probe``): its
-    launches counted from 0, the probe's time a launch, and the block of
-    1,024 src rows held to the plain version, with its time, the plain
-    version's and the bound."""
+    """Phase 42: the probe of K5's forward at full bit density (P2's
+    counterpart, ``dgl_tpu_torch.tools.perf_bitgat_probe``): its launches
+    counted from 0 (``bitgat_fwd_t``'s in the tiny check, ``bitgat_fwd``'s
+    at full size, both the walk by dst), the probe's time a launch, and
+    the block of 1,024 dst rows held to the plain version, with its time,
+    the plain version's and the bound."""
     bg.bitgat_fwd_t.launches = 0
+    bg.bitgat_fwd.launches = 0
     tp2.tiny_check()
     res = tp2.probe()
     torch.cuda.synchronize()
-    launches = bg.bitgat_fwd_t.launches
+    launches = bg.bitgat_fwd_t.launches + bg.bitgat_fwd.launches
     blk = res["block"]
     bnd, by = bound(blk["nbytes"], blk["bits"] * tp2.H * (2 * tp2.D + 5),
                     rate)
@@ -3308,11 +3344,11 @@ def phase_bitgat_probe(bg, tp2, rate):
         tp2.S_PAD * tp2.K_PAD // 8 + (tp2.S_PAD * tp2.H * (1 + tp2.D)
                                       + tp2.K_PAD * tp2.H * (2 + tp2.D)) * 4,
         res["bits"] * tp2.H * (2 * tp2.D + 5), rate)
-    log(f"# bitgat_fwd_t probe s_pad = k_pad = {tp2.S_PAD}, H = {tp2.H}, "
+    log(f"# bitgat_fwd probe s_pad = k_pad = {tp2.S_PAD}, H = {tp2.H}, "
         f"D = {tp2.D}, {res['bits']} set bits: launches "
         + ", ".join(f"{t:.3f}" for t in res["launch_ms"])
         + f" ms (bound {full_bnd:.4f} ms by {full_by}); block of "
-        f"{tp2.BLOCK_ROWS} src rows ({blk['bits']} bits): {blk['ms']:.4f} ms "
+        f"{tp2.BLOCK_ROWS} dst rows ({blk['bits']} bits): {blk['ms']:.4f} ms "
         f"(bound {bnd:.4f} ms by {by}), plain {blk['plain_ms']:.4f} ms, "
         f"max|err| {blk['max_abs_err']:.3g}; {launches} launches")
     return {"launches": launches, "max_abs_err": blk["max_abs_err"],
@@ -4075,6 +4111,13 @@ def phase_sharded_mid(bm, bg, tbs, tgs, group):
         kp, npp = fmt.kp, fmt.npp
         for p in range(parts):
             shard = fmt.shards[p]
+            # the forward's dst-major view, built on the card, equals the
+            # bit transpose of the host builder's shard built on the host
+            view = tgs.shard_fwd_view(fmt, shard)[0]
+            if not torch.equal(view.cpu(), bg.transpose_bits(
+                    host.shards[p], kp, npp)):
+                raise AssertionError(f"{parts} parts: shard {p}'s forward "
+                                     "view differs from the host's")
             for f in (HIDDEN, CLASSES):
                 x = torch.randn(kp, f, device="cuda", generator=gen)
                 errs["K1"] = max(errs["K1"], close(
@@ -4089,7 +4132,8 @@ def phase_sharded_mid(bm, bg, tbs, tgs, group):
                 g = torch.randn(npp, heads, dim, device="cuda", generator=gen)
                 f0 = bg.bitgat_fwd_t.launches
                 b0 = tgs.bit_shard_gat_bwd.launches
-                out, l = bg.bitgat_fwd_t(shard, el, er, z, npp, SLOPE)
+                out, l = bg.bitgat_fwd_t(shard, el, er, z, npp, SLOPE,
+                                         *tgs.shard_fwd_view(fmt, shard))
                 w_out, w_l = bg.bitgat_fwd_t_plain(shard, el, er, z, npp,
                                                    SLOPE)
                 errs["bitgat_fwd_t"] = max(
@@ -4107,8 +4151,9 @@ def phase_sharded_mid(bm, bg, tbs, tgs, group):
                     raise AssertionError(f"{tag}: the kernels did not "
                                          "launch once each")
         log(f"# {parts}-part format built on the card, equal to the host "
-            f"builder's: kp {kp}, npp {npp}, W {npp // 32}, "
-            f"{fmt.bytes_per_device} bytes a device")
+            f"builder's, its forward views to the host's transposes: kp "
+            f"{kp}, npp {npp}, W {npp // 32}, {fmt.bytes_per_device} bytes "
+            "a device")
     log(f"# shard kernels vs plain versions: max|err| {errs}")
 
     # world size 1 against the single-card routes on the same graph
@@ -4393,6 +4438,12 @@ def phase_sharded_gat(dgt, params, bm, bg, tgs, group, fmt, x, y, train,
                              "bitgat_fwd_t and one K13 a layer and step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"sharded GAT losses do not fall: {losses}")
+    # symmetric with npp == kp: the forward walks the shard itself
+    view = tgs.shard_fwd_view(fmt, fmt.shards[0])[0]
+    if view.data_ptr() != fmt.shards[0].data_ptr():
+        raise AssertionError("the one-part forward view is a copy")
+    log("# sharded GAT: the forward's dst-major view is the shard itself "
+        "(symmetric, npp == kp): no copy")
     phase_profile(model, opt, fmt, x, y, train,
                   lambda: sharded_counts(bm, bg, tgs))
     got = step_grads(model, fmt, x, y, train)
@@ -4403,15 +4454,18 @@ def phase_sharded_gat(dgt, params, bm, bg, tgs, group, fmt, x, y, train,
     return counts
 
 
-def shard_yardsticks(bg, tbw, tgs, shard, npp, bits, tag, heads, dim,
-                     rate):
-    """Phase 36: ``bitgat_fwd_t`` and K13 on one full-size shard (rows =
-    every src, bit columns = the npp dst of one device) against their
-    plain versions on every row, with their times (median of 5), the
-    plain versions' (the one call that gives the reference), the bound
-    and no library time: no PyTorch call computes masked-softmax
-    attention on a graph.  Inputs normal, as K5's yardsticks: exp lies on
-    no grid, so the checks keep the standard tolerance."""
+def shard_yardsticks(bg, tbw, tfw, tgs, shard, view, fwd_order, npp, bits,
+                     tag, heads, dim, rate):
+    """Phase 36: ``bitgat_fwd_t`` (the walk by dst on ``view``, the shard's
+    dst-major view, claimed in ``fwd_order``) and K13 on one full-size
+    shard (rows = every src, bit columns = the npp dst of one device)
+    against their plain versions on every row, with their times (median
+    of 5), the plain versions' (the one call that gives the reference),
+    the bound and no library time: no PyTorch call computes
+    masked-softmax attention on a graph; the kernels each replaced
+    (``perf_fwd_walks``, ``perf_bwd_walks``) timed beside them.  Inputs
+    normal, as K5's yardsticks: exp lies on no grid, so the checks keep
+    the standard tolerance."""
     kp = shard.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim + npp)
     el = torch.randn(kp, heads, device="cuda", generator=gen)
@@ -4439,12 +4493,21 @@ def shard_yardsticks(bg, tbw, tgs, shard, npp, bits, tag, heads, dim,
     # forward: in the shard, el, z (every src), er (the device's dst); out
     # out, l.  Per edge and head the score and exp (5), l and p z (2 D)
     out, l = row("bitgat_fwd_t",
-                 lambda: bg.bitgat_fwd_t(shard, el, er, z, npp, SLOPE),
+                 lambda: bg.bitgat_fwd_t(shard, el, er, z, npp, SLOPE, view,
+                                         fwd_order),
                  lambda: bg.bitgat_fwd_t_plain(shard, el, er, z, npp, SLOPE),
                  shard.numel() * 4 + src_node + src_feat + 2 * dst_node
                  + dst_feat, bits * heads * (2 * dim + 5))
     linv, rho = bg.backward_scales(g, out, l, None)
     del out, l
+    # the scatter walk that the walk by dst replaced, beside it in this call
+    # (dgl_tpu_torch/tools/perf_fwd_walks.py)
+    side = tfw.fwd_t_side_by_side(shard, view, fwd_order,
+                                  (el, er, z, npp, SLOPE), close,
+                                  f"bitgat_fwd_t {tag} H={heads} D={dim}")
+    rows["bitgat_fwd_t"].update(kernel="bitgat_fwd_list_kernel",
+                                old_ms=side["scatter"])
+    log(f"# bitgat_fwd_t {tag} H={heads} D={dim}: " + side_by_side(side))
     args = (shard, el, er, z, g, linv, rho, npp, SLOPE)
     order = bg.claim_order(shard, kp)
     # K13: in the shard, el, z, er, linv, rho, g; out del, dz (every
@@ -4466,13 +4529,16 @@ def shard_yardsticks(bg, tbw, tgs, shard, npp, bits, tag, heads, dim,
     return rows
 
 
-def phase_shard_yardsticks(bg, tbw, tgs, tbs, fmt, gt, rate):
+def phase_shard_yardsticks(bg, tbw, tfw, tgs, tbs, fmt, gt, rate):
     """Phase 36: the yardsticks on the one-part shard and on shard 0 of a
-    4-part build, at (4, 32) and (1, 41)."""
+    4-part build, at (4, 32) and (1, 41); the latter's forward view built
+    on the card, its seconds and bytes."""
     shard1 = fmt.shards[0]
+    view1, order1 = tgs.shard_fwd_view(fmt, shard1)
     out = {f"1 part {h}x{d}": shard_yardsticks(
-        bg, tbw, tgs, shard1, fmt.npp, REDDIT_EDGES, "1 part", h, d, rate)
-        for h, d in GAT_SHAPES}
+        bg, tbw, tfw, tgs, shard1, view1, order1, fmt.npp, REDDIT_EDGES,
+        "1 part", h, d, rate) for h, d in GAT_SHAPES}
+    del view1, order1
     row, col = gt.unit().coo()
     fmt4 = tbs.build_bit_sharded_format_device(
         row, col, N_NODES, 4, symmetric=True, assume_simple=True,
@@ -4483,9 +4549,19 @@ def phase_shard_yardsticks(bg, tbw, tgs, tbs, fmt, gt, rate):
     bits = popcount(shard0)
     log(f"# shard 0 of the 4-part format: kp {shard0.shape[0]}, npp {npp4}, "
         f"W {shard0.shape[1]}, {shard0.numel() * 4} bytes, {bits} set bits")
+    # its dst-major view for the forward, as shard_fwd_view builds it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view0 = bg.transpose_bits(shard0, shard0.shape[0], npp4)
+    order0 = bg.claim_order(view0, npp4)
+    torch.cuda.synchronize()
+    log(f"# shard 0 of 4: the forward's view ({view0.shape[0]} x "
+        f"{view0.shape[1]} words, {view0.numel() * 4} bytes, "
+        f"{popcount(view0)} set bits) and its claim order built on the "
+        f"card in {time.perf_counter() - t0:.3f}s")
     out.update({f"shard 0 of 4 {h}x{d}": shard_yardsticks(
-        bg, tbw, tgs, shard0, npp4, bits, "shard 0 of 4", h, d, rate)
-        for h, d in GAT_SHAPES})
+        bg, tbw, tfw, tgs, shard0, view0, order0, npp4, bits, "shard 0 of 4",
+        h, d, rate) for h, d in GAT_SHAPES})
     return out
 
 
@@ -4524,6 +4600,7 @@ def main():
     from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
     from dgl_tpu_torch.tools import perf_bwd_walks as tbw
     from dgl_tpu_torch.tools import perf_ds_fold as tdf
+    from dgl_tpu_torch.tools import perf_fwd_walks as tfw
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
     # phase 1: device
@@ -4538,10 +4615,12 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda}; card {card}")
 
     # phase 2: build, the ds and da probe's two retired kernels beside it
-    # (waited for in phases 20 and 24)
+    # (waited for in phases 20 and 24), and the forward walks' probe (its
+    # two retired kernels and an edit, waited for in phase 10)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(1)
+    probe_build = ThreadPoolExecutor(2)
     probe_built = probe_build.submit(tdf.build_probe)
+    fwd_probe_built = probe_build.submit(tfw.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -4595,8 +4674,12 @@ def main():
           lambda: {"bitgat_fwd": bg.bitgat_fwd.launches,
                    "bitgat_bwd": bg.bitgat_bwd.launches})
     del model, opt
+    t0 = time.perf_counter()
+    fwd_probe_built.result()
+    log("# the forward walks' probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
     k5 = [phase(f"10 (K5 yardstick H={h} D={d})", bitgat_yardstick, bg, tbw,
-                g, h, d, rate) for h, d in GAT_SHAPES]
+                tfw, g, h, d, rate) for h, d in GAT_SHAPES]
 
     # phases 29-30: DotGatConv on K7, on the bitmask graph before the tiled
     # one is built
@@ -4703,7 +4786,7 @@ def main():
                            bm, bg, tgs, group, fmt, xs, y, train, card)
     del xs, deg
     shard = phase("36 (sharded-GAT yardsticks)", phase_shard_yardsticks, bg,
-                  tbw, tgs, tbs, fmt, gt, rate)
+                  tbw, tfw, tgs, tbs, fmt, gt, rate)
     torch.distributed.destroy_process_group()
     shutil.rmtree(rendezvous, ignore_errors=True)
     del fmt, gt, x, y, train
@@ -4801,10 +4884,11 @@ def main():
         # K9 at the first GATv2 layer's shape, H x D = 8 x 8, launches from
         # route 5; K11 v2 at EGAT's (4, 32) with 16 edge features and the
         # bias row, launches from phase 23.  The redesigned rows (K5's
-        # backward and K13: the listed walk; K9's node gradient: the row
-        # walk; K6's ds: the dot-product walk; K9's da: folded into the
-        # node-gradient walk by dst) name their kernel and give the retired
-        # one's time in this run as old_ms
+        # forwards: the listed walk by dst; K5's backward and K13: the
+        # listed walk by src; K9's node gradient: the row walk; K6's ds: the
+        # dot-product walk; K9's da: folded into the node-gradient walk by
+        # dst) name their kernel and give the retired one's time in this
+        # run as old_ms
         {"name": "vattn_scores", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:783",
@@ -4869,8 +4953,9 @@ def main():
          "source": "dgl_tpu_torch/csrc/int8mm.cu",
          "replaces": "dgl_tpu/ops/pallas/int8mm.py:79",
          "launches": k12_launches["int8_matmul_cols"], **k12["cols"]},
-        # the src-major forward and K13 at the first GAT layer's (4, 32) on
-        # the Reddit graph's one-part shard, launches from phase 35
+        # the forward over the A^T packing (the walk by dst on the shard's
+        # view) and K13 at the first GAT layer's (4, 32) on the Reddit
+        # graph's one-part shard, launches from phase 35
         {"name": "bitgat_fwd_t", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitgat.cu",
          "replaces": "dgl_tpu/ops/pallas/bitgat.py:245",
@@ -4910,13 +4995,13 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1491",
          "launches": k10v1_launches["dx_dfe"], **v1["dx_dfe"]},
         # P1: K1 at its default slab width on the sweep's work (every width
-        # in slab_ms); P2: bitgat_fwd_t on the probe's block of 1,024 src
-        # rows (the whole probe's launch in probe_ms); launches from phases
-        # 41 and 42
+        # in slab_ms); P2: K5's forward (the walk by dst) on the probe's
+        # block of 1,024 dst rows (the whole probe's launch in probe_ms);
+        # launches from phases 41 and 42
         {"name": "bit_matmul_t_slab_sweep", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitmm.cu",
          "replaces": "tools/perf_bitmm_variants.py:148", **p1},
-        {"name": "bitgat_fwd_t_probe", "route": "cuda",
+        {"name": "bitgat_fwd_probe", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitgat.cu",
          "replaces": "tools/perf_bitgat_probe.py:78", **p2},
     ]

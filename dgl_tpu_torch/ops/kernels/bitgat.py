@@ -23,22 +23,24 @@ wrapping arithmetic:
     x0 = (s * C1) ^ seed ^ (d * C2)
     keep(s, d, h) = ((x0 * M_h) >> 17) < thresh           (unsigned)
 
-Three kernels (``csrc/bitgat.cu``), each with a plain PyTorch version
-beside it that computes the same function from the same inputs:
+Two kernels (``csrc/bitgat.cu``), listed-bit walks whose persistent
+warps claim the rows of a packing in :func:`claim_order` (hub rows
+first), list each row's set bits and work through them with a group of
+lanes an entry (:func:`list_layout`), behind three wrappers, each with a
+plain PyTorch version beside it that computes the same function from the
+same inputs:
 
 * :func:`bitgat_fwd` (``_fwd_call``): out and l from ``packed`` (rows =
-  dst);
-* :func:`bitgat_fwd_t` (``_fwd_call`` in its own, src-major orientation):
-  out and l from ``packed_t`` (rows = src), without dropout; the
+  dst), by the walk by dst (``bitgat_fwd_list_kernel``);
+* :func:`bitgat_fwd_t` (``_fwd_call`` over the bits of A^T): out and l
+  from ``packed_t`` (rows = src), without dropout, by the same walk on the
+  dst-major bit transpose of ``packed_t`` (:func:`transpose_bits`); the
   mesh-sharded GAT (``parallel/bitgat_spmd.py``) runs it on a device's
-  column shard of the A^T packing;
+  column shard of the A^T packing, its transpose kept on the format;
 * :func:`bitgat_bwd` (``_bwd_call``): the gradients of el, er and z from
   ``packed_rev`` (rows = src), given g = dL/dout,
-  linv = 1 / (max(l, 1e-20) kp) and rho = kp * sum_c g * out: the listed
-  walk (``bitgat_bwd_list_kernel``), whose persistent warps claim the src
-  rows in :func:`claim_order` (hub rows first), list each row's set bits
-  and work through them with a group of lanes an entry
-  (:func:`bwd_layout`).
+  linv = 1 / (max(l, 1e-20) kp) and rho = kp * sum_c g * out, by the walk
+  by src (``bitgat_bwd_list_kernel``).
 
 The plain versions list the set bits of a block of rows as edges and
 compute the formulas above on them with gathers and ``index_add_``.  A
@@ -59,7 +61,7 @@ from .tiled_spmm import hub_first_order
 
 CLIP = 20.0           # per-operand logit clip
 DEN_EPS = 1e-20       # denominator clamp
-MAX_HD = 128          # H * D: 4 columns per lane of one warp
+MAX_HD = 128          # H * D: the JAX contract, at most 4 vectors a lane
 PLAIN_WORDS = 1 << 23  # bit words a plain version lists at a time
 COUNT_WORDS = 1 << 24  # bit words counted at a time for a claim order
 MAX_LIST_CPL = 4       # the listed walk's 16-byte vectors a lane
@@ -222,13 +224,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "dgl_bitgat_fwd": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P,
-                       _P, _I, _P],
-    "dgl_bitgat_fwd_t": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P,
-                         _P, _P, _I, _P],
+    "dgl_bitgat_fwd_list": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _F, _I, _P, _P, _P, _P, _I, _P],
     "dgl_bitgat_bwd_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                             _I, _F, _I, _P, _P, _P, _P, _P, _I, _P],
-    "dgl_bitgat_bwd_list_attrs": [_I, _I, _I, _I, _P],
+    "dgl_bitgat_list_attrs": [_I, _I, _I, _I, _I, _P],
 }
 
 
@@ -266,67 +266,6 @@ def _seed_ptr(seed, device):
     read its low 32 bits), so a seed drawn on the card is never copied to
     the host."""
     return torch.as_tensor(seed, dtype=torch.int64).to(device).reshape(1)
-
-
-def bitgat_fwd(packed, el, er, z, num_dst: int, slope: float, thresh=None,
-               seed=0):
-    """K5 forward: (out (num_dst, H, D), l (num_dst, H)) f32 from
-    ``packed``, the bits of A (rows = dst)."""
-    num_src = z.shape[0]
-    _check(packed, el, er, z, num_dst, num_src, num_dst)
-    if not on_cuda(packed, el, er, z):
-        return bitgat_fwd_plain(packed, el, er, z, num_dst, slope, thresh,
-                                seed)
-    heads, dim = z.shape[1], z.shape[2]
-    out = torch.empty(num_dst, heads, dim, dtype=torch.float32,
-                      device=z.device)
-    l = torch.empty(num_dst, heads, dtype=torch.float32, device=z.device)
-    if num_dst == 0 or heads * dim == 0:
-        return out, l
-    el, er, z = _f32(el), _f32(er), _f32(z)
-    packed = packed.contiguous()
-    seed_t = _seed_ptr(seed, z.device)
-    _launch("dgl_bitgat_fwd", packed.data_ptr(), packed.shape[1], num_src,
-            num_dst, el.data_ptr(), er.data_ptr(), z.data_ptr(), heads, dim,
-            slope, thresh or 0, seed_t.data_ptr(), out.data_ptr(),
-            l.data_ptr(), z.device.index,
-            torch.cuda.current_stream(z.device).cuda_stream)
-    bitgat_fwd.launches += 1
-    return out, l
-
-
-bitgat_fwd.launches = 0
-
-
-def bitgat_fwd_t(packed_t, el, er, z, num_dst: int, slope: float):
-    """K5's forward over the A^T packing: (out (num_dst, H, D), l
-    (num_dst, H)) f32 from ``packed_t``, the bits of A^T (rows = the rows
-    of el and z, bit columns = dst), without dropout."""
-    num_src = z.shape[0]
-    _check(packed_t, el, er, z, num_src, num_dst, num_dst)
-    if not on_cuda(packed_t, el, er, z):
-        return bitgat_fwd_t_plain(packed_t, el, er, z, num_dst, slope)
-    heads, dim = z.shape[1], z.shape[2]
-    out = torch.zeros(num_dst, heads, dim, dtype=torch.float32,
-                      device=z.device)
-    l = torch.zeros(num_dst, heads, dtype=torch.float32, device=z.device)
-    if num_dst == 0 or num_src == 0 or heads * dim == 0:
-        return out, l
-    el, er, z = _f32(el), _f32(er), _f32(z)
-    packed_t = packed_t.contiguous()
-    # the kernel's sums: rows padded to 4 floats, for 16-byte adds
-    ostride = -(-heads * dim // 4) * 4
-    acc = torch.zeros(num_dst, ostride, dtype=torch.float32, device=z.device)
-    _launch("dgl_bitgat_fwd_t", packed_t.data_ptr(), packed_t.shape[1],
-            num_src, num_dst, el.data_ptr(), er.data_ptr(), z.data_ptr(),
-            heads, dim, slope, ostride, acc.data_ptr(), out.data_ptr(),
-            l.data_ptr(), z.device.index,
-            torch.cuda.current_stream(z.device).cuda_stream)
-    bitgat_fwd_t.launches += 1
-    return out, l
-
-
-bitgat_fwd_t.launches = 0
 
 
 def check_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int):
@@ -374,8 +313,41 @@ def bwd_claim_order(bf: BitFormat) -> torch.Tensor:
     return bf._bwd_order
 
 
-def bwd_layout(heads: int, dim: int):
-    """(dp, lpe, cpl): the listed walk's padded head width, lanes an entry
+def fwd_claim_order(bf: BitFormat) -> torch.Tensor:
+    """:func:`claim_order` of ``bf.packed``'s dst rows, built at first use
+    and kept on ``bf`` (the backward's, where the format is symmetric and
+    square: the same rows of the same words)."""
+    if bf._fwd_order is None:
+        bf._fwd_order = (bwd_claim_order(bf) if bf.symmetric
+                         and bf.num_src == bf.num_dst
+                         else claim_order(bf.packed, bf.num_dst))
+    return bf._fwd_order
+
+
+def transpose_bits(packed_t: torch.Tensor, num_rows: int,
+                   num_cols: int) -> torch.Tensor:
+    """(num_cols, ceil(num_rows / 32)) int32: the bit transpose of the first
+    ``num_rows`` rows of ``packed_t`` in the same plane-major packing: bit
+    b of word j of row c is set where row b * n32 + j of ``packed_t`` has
+    column c (n32 = ceil(num_rows / 32)).  Built on ``packed_t``'s device
+    from its set bits, PLAIN_WORDS words at a time, by an integer
+    scatter-add: the bits of one word are distinct, so add == OR."""
+    n32 = -(-num_rows // 32)
+    out = torch.zeros(num_cols * n32, dtype=torch.int32,
+                      device=packed_t.device)
+    for row, col in bit_edges(packed_t, num_rows):
+        keep = col < num_cols
+        row, col = row[keep], col[keep]
+        plane = row // n32
+        # 1 << 31 is made in int64 and wrapped to the int32 sign bit
+        val = torch.bitwise_left_shift(torch.ones_like(plane), plane)
+        val = torch.where(val >= 2**31, val - 2**32, val).to(torch.int32)
+        out.index_add_(0, col * n32 + row % n32, val)
+    return out.view(num_cols, n32)
+
+
+def list_layout(heads: int, dim: int):
+    """(dp, lpe, cpl): the listed walks' padded head width, lanes an entry
     and 16-byte vectors a lane.  A head's columns are padded to dp, a
     multiple of 4 (a power of two times 4 when H > 1, so that a head's
     vectors fill aligned blocks of lanes); lpe is the smallest power of
@@ -384,7 +356,7 @@ def bwd_layout(heads: int, dim: int):
     vectors, and 4 where 32 lanes hold more).  With several heads a lane
     keeps a scalar chain for each of its vectors, and 4 vectors a lane
     spill registers (``dgl_tpu_torch/tools/perf_bwd_walks.py`` times the
-    walk at other lanes an entry)."""
+    backward at other lanes an entry)."""
     if heads == 1:
         dp = -(-dim // 4) * 4
     else:
@@ -411,20 +383,126 @@ def _pad_heads(t: torch.Tensor, dp: int) -> torch.Tensor:
     return out
 
 
-def bwd_kernel_attrs(heads: int, dim: int, drop: bool, device=None):
-    """(registers a thread, resident warps an SM) of the listed walk's
-    instance for ``heads`` x ``dim`` with or without dropout, from
-    ``cudaFuncGetAttributes`` and the occupancy calculator."""
-    _, _, cpl = bwd_layout(heads, dim)
+def list_kernel_attrs(walk: str, heads: int, dim: int, drop: bool,
+                      device=None):
+    """(registers a thread, resident warps an SM) of a listed walk's
+    instance (``walk`` "fwd" or "bwd") for ``heads`` x ``dim`` with or
+    without dropout, from ``cudaFuncGetAttributes`` and the occupancy
+    calculator."""
+    _, _, cpl = list_layout(heads, dim)
     device = torch.device("cuda") if device is None else torch.device(device)
     out = (ctypes.c_int * 2)()
     lib = build.load("bitgat", _SIGNATURES)
-    err = lib.dgl_bitgat_bwd_list_attrs(cpl, int(heads == 1), int(drop),
-                                        device.index or 0,
-                                        ctypes.addressof(out))
+    err = lib.dgl_bitgat_list_attrs(int(walk == "fwd"), cpl, int(heads == 1),
+                                    int(drop), device.index or 0,
+                                    ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"dgl_bitgat_bwd_list_attrs: CUDA error {err}")
+        raise RuntimeError(f"dgl_bitgat_list_attrs: CUDA error {err}")
     return out[0], out[1] * _WARPS
+
+
+def _check_order(order, rows):
+    if order.shape != (rows,) or order.dtype != torch.int32:
+        raise ValueError(f"order must be ({rows},) int32")
+
+
+def fwd_list_args(packed, el, er, z, num_dst: int, slope: float, thresh,
+                  seed, order, layout):
+    """(the arguments of ``dgl_bitgat_fwd_list`` up to the device, (out,
+    l), the tensors the arguments point into, to be kept alive until the
+    launch) for the walk by dst on CUDA operands at ``layout`` (dp, lpe,
+    cpl)."""
+    num_src, heads, dim = z.shape
+    dev = z.device
+    if num_dst >= 2**31 or num_src >= 2**31:
+        raise ValueError("the listed walk takes fewer than 2^31 nodes")
+    _check_order(order, num_dst)
+    dp, lpe, cpl = layout
+    el, er = _f32(el), _f32(er)
+    packed = packed.contiguous()
+    zp = _pad_heads(z, dp)
+    out = torch.empty(num_dst, heads, dim, dtype=torch.float32, device=dev)
+    l = torch.empty(num_dst, heads, dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed_t = _seed_ptr(seed, dev)
+    keep = (packed, order, el, er, zp, seed_t, counter)
+    args = (packed.data_ptr(), packed.shape[1], order.data_ptr(), num_dst,
+            num_src, el.data_ptr(), er.data_ptr(), zp.data_ptr(), heads, dim,
+            dp, lpe, cpl, slope, thresh or 0, seed_t.data_ptr(),
+            out.data_ptr(), l.data_ptr(), counter.data_ptr())
+    return args, (out, l), keep
+
+
+def launch_fwd(packed, el, er, z, num_dst: int, slope: float, thresh=None,
+               seed=0, order=None):
+    """Launch K5's forward kernel, the listed walk by dst, on CUDA
+    operands: (out, l).  ``order``: the dst rows' claim order
+    (:func:`claim_order` of the packing's first num_dst rows, built here
+    when None)."""
+    heads, dim = z.shape[1:]
+    dev = z.device
+    if num_dst == 0 or heads * dim == 0:
+        return (torch.zeros(num_dst, heads, dim, dtype=torch.float32,
+                            device=dev),
+                torch.zeros(num_dst, heads, dtype=torch.float32, device=dev))
+    if order is None:
+        order = claim_order(packed, num_dst)
+    args, out, keep = fwd_list_args(packed, el, er, z, num_dst, slope,
+                                    thresh, seed, order,
+                                    list_layout(heads, dim))
+    _launch("dgl_bitgat_fwd_list", *args, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    del keep
+    return out
+
+
+def bitgat_fwd(packed, el, er, z, num_dst: int, slope: float, thresh=None,
+               seed=0, order=None):
+    """K5 forward: (out (num_dst, H, D), l (num_dst, H)) f32 from
+    ``packed``, the bits of A (rows = dst).  ``order``: the dst rows'
+    claim order (:func:`fwd_claim_order` of the format; built anew for
+    each call when None)."""
+    num_src = z.shape[0]
+    _check(packed, el, er, z, num_dst, num_src, num_dst)
+    if not on_cuda(packed, el, er, z):
+        return bitgat_fwd_plain(packed, el, er, z, num_dst, slope, thresh,
+                                seed)
+    out = launch_fwd(packed, el, er, z, num_dst, slope, thresh, seed, order)
+    if num_dst and z.shape[1] * z.shape[2]:
+        bitgat_fwd.launches += 1
+    return out
+
+
+bitgat_fwd.launches = 0
+
+
+def bitgat_fwd_t(packed_t, el, er, z, num_dst: int, slope: float,
+                 rows=None, order=None):
+    """K5's forward over the A^T packing: (out (num_dst, H, D), l
+    (num_dst, H)) f32 from ``packed_t``, the bits of A^T (rows = the rows
+    of el and z, bit columns = dst), without dropout, by the walk by dst
+    on ``rows``, the dst-major view of ``packed_t``
+    (:func:`transpose_bits`), and ``order``, that view's claim order; each
+    is built anew for the call when None.  On the CPU: the plain version
+    of ``packed_t``, or of ``rows`` where given."""
+    num_src = z.shape[0]
+    _check(packed_t, el, er, z, num_src, num_dst, num_dst)
+    if rows is not None:
+        _check(rows, el, er, z, num_dst, num_src, num_dst)
+    if not on_cuda(packed_t, el, er, z,
+                   *(() if rows is None else (rows,))):
+        if rows is not None:
+            return bitgat_fwd_plain(rows, el, er, z, num_dst, slope)
+        return bitgat_fwd_t_plain(packed_t, el, er, z, num_dst, slope)
+    if rows is None:
+        rows = transpose_bits(packed_t, num_src, num_dst)
+    out = launch_fwd(rows, el, er, z, num_dst, slope, order=order)
+    if num_dst and z.shape[1] * z.shape[2]:
+        bitgat_fwd_t.launches += 1
+    return out
+
+
+bitgat_fwd_t.launches = 0
 
 
 def bwd_list_args(packed_rev, el, er, z, g, linv, rho, num_dst: int,
@@ -437,8 +515,7 @@ def bwd_list_args(packed_rev, el, er, z, g, linv, rho, num_dst: int,
     dev = z.device
     if num_dst >= 2**31 or num_src >= 2**31:
         raise ValueError("the listed walk takes fewer than 2^31 nodes")
-    if order.shape != (num_src,) or order.dtype != torch.int32:
-        raise ValueError(f"order must be ({num_src},) int32")
+    _check_order(order, num_src)
     dp, lpe, cpl = layout
     # one (num_dst, 3, H) row per dst: er, linv and rho share a cache line
     nvec = torch.stack([er.float(), linv.float(), rho.float()], 1)
@@ -475,7 +552,7 @@ def launch_bwd(packed_rev, el, er, z, g, linv, rho, num_dst: int,
         order = claim_order(packed_rev, num_src)
     args, (d_el, d_er, dz), keep = bwd_list_args(
         packed_rev, el, er, z, g, linv, rho, num_dst, slope, thresh, seed,
-        order, bwd_layout(heads, dim))
+        order, list_layout(heads, dim))
     _launch("dgl_bitgat_bwd_list", *args, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     del keep
@@ -511,8 +588,9 @@ class _BitGAT(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, el, er, z, bf, slope, thresh, seed):
+        # the plain version on the CPU needs no claim order
         out, l = bitgat_fwd(bf.packed, el, er, z, bf.num_dst, slope, thresh,
-                            seed)
+                            seed, fwd_claim_order(bf) if z.is_cuda else None)
         ctx.save_for_backward(el, er, z, l, out)
         ctx.bf, ctx.slope, ctx.thresh, ctx.seed = bf, slope, thresh, seed
         return out

@@ -75,8 +75,11 @@ class BitFormat:
     num_dst: int
     symmetric: bool = False
     # (num_src,) int32 order in which K5's backward claims the rows of
-    # packed_rev, built at first use (bitgat.bwd_claim_order)
+    # packed_rev, and (num_dst,) the order in which its forward claims the
+    # rows of packed, built at first use (bitgat.bwd_claim_order,
+    # bitgat.fwd_claim_order)
     _bwd_order: Optional[torch.Tensor] = None
+    _fwd_order: Optional[torch.Tensor] = None
 
     @property
     def nbytes(self) -> int:

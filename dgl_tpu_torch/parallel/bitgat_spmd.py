@@ -6,8 +6,9 @@ sharding keeps every in-edge of a local dst on its owner, so the softmax
 is entirely local; only the src-side operands and gradients cross ranks.
 
   forward:  all-gather el (P npp, H) and z (P npp, H, D), then K5's
-            forward over the A^T packing (``bitgat_fwd_t``) on the
-            rank's shard: out and l of the npp local dst;
+            forward over the A^T packing (``bitgat_fwd_t``: the listed
+            walk by dst) on the rank's shard, read through its dst-major
+            view (:func:`shard_fwd_view`): out and l of the npp local dst;
   backward: all-gather el and z again, then K13 (:func:`bit_shard_gat_bwd`,
             the listed walk, its rows claimed hubs first) on the same
             shard: dz and del as full-length partials, zero-padded from
@@ -15,7 +16,13 @@ is entirely local; only the src-side operands and gradients cross ranks.
             is local.
 
 One shard set serves both passes, symmetric or not: the column shard of
-the A^T packing holds every in-edge of the local dst range.  K13 is K5's
+the A^T packing holds every in-edge of the local dst range.  The forward
+walks it by dst, through the shard's bit transpose (rows = the npp local
+dst, kp / 32 words, bit b of word j = src b kp / 32 + j), which is local
+to the rank: no collective builds it.  Where the format is symmetric and
+npp == kp (one part, as the Reddit graph's), that view is the shard
+itself; otherwise it is built once, on the shard's device, and costs one
+more shard a device.  K13 is K5's
 backward kernel launched on the shard, src-major as the JAX kernel is:
 rows = the kp gathered src rows, bit columns = the npp local dst.  The
 JAX package streams dz lane-major, (H, D, total), for the TPU's layout;
@@ -103,6 +110,26 @@ def shard_claim_order(fmt: BitShardedFormat, shard) -> torch.Tensor:
     return fmt._claim_orders[key]
 
 
+def shard_fwd_view(fmt: BitShardedFormat, shard):
+    """(view, order): ``shard``'s dst-major view for the forward (rows =
+    the npp local dst, bit columns = the kp src; ``bitgat.transpose_bits``)
+    and the view's claim order (hub rows first), built at first use and
+    kept on ``fmt``, keyed as :func:`shard_claim_order`.  Where ``fmt`` is
+    symmetric and npp == kp the view is ``shard`` itself, and its order
+    K13's."""
+    if fmt._fwd_views is None:
+        fmt._fwd_views = {}
+    key = (str(shard.device), shard.data_ptr(), tuple(shard.shape))
+    if key not in fmt._fwd_views:
+        if fmt.symmetric and fmt.npp == fmt.kp:
+            view, order = shard, shard_claim_order(fmt, shard)
+        else:
+            view = bitgat.transpose_bits(shard, fmt.kp, fmt.npp)
+            order = bitgat.claim_order(view, fmt.npp)
+        fmt._fwd_views[key] = (view, order)
+    return fmt._fwd_views[key]
+
+
 def _gathered(fmt, el_l, z_l, group):
     """el (kp, H) and z (kp, H, D) of every src row, gathered."""
     return (comm.all_gather_rows(el_l, group)[:fmt.kp],
@@ -125,7 +152,11 @@ class _BitShardedGAT(torch.autograd.Function):
         erc = er_l.clamp(-CLIP, CLIP)
         shard = local_view(fmt, fmt.shards, group)
         elg, zg = _gathered(fmt, elc, z_l, group)
-        out, l = bitgat.bitgat_fwd_t(shard, elg, erc, zg, fmt.npp, slope)
+        # the plain version on the CPU reads the shard itself
+        rows, order = (shard_fwd_view(fmt, shard) if shard.is_cuda
+                       else (None, None))
+        out, l = bitgat.bitgat_fwd_t(shard, elg, erc, zg, fmt.npp, slope,
+                                     rows, order)
         ctx.save_for_backward(el_l, er_l, elc, erc, z_l, l, out)
         ctx.fmt, ctx.group, ctx.slope = fmt, group, slope
         return out

@@ -74,6 +74,10 @@ class BitShardedFormat:
     # device, address and shape, built at first use
     # (bitgat_spmd.shard_claim_order); a rank's view keeps its own
     _claim_orders: Optional[dict] = None
+    # the forward's dst-major views of the shards and their claim orders,
+    # (view, order) by the shard's device, address and shape, built at
+    # first use (bitgat_spmd.shard_fwd_view); a rank's view keeps its own
+    _fwd_views: Optional[dict] = None
 
     @property
     def bytes_per_device(self) -> int:
@@ -255,7 +259,7 @@ def shard_format(fmt: BitShardedFormat, rank: int,
         rem_src_g=part(fmt.rem_src_g), rem_dst_l=part(fmt.rem_dst_l),
         rem_w=part(fmt.rem_w), brem_src_g=part(fmt.brem_src_g),
         brem_dst_l=part(fmt.brem_dst_l), brem_w=part(fmt.brem_w),
-        _claim_orders=None)
+        _claim_orders=None, _fwd_views=None)
 
 
 def pad_nodes(fmt: BitShardedFormat, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,15 @@
 """The port's measurement tools: K1's slab-width sweep
-(:mod:`.perf_bitmm_variants`) and the probe of K5's src-major forward at
-full bit density (:mod:`.perf_bitgat_probe`), the counterparts of the JAX
+(:mod:`.perf_bitmm_variants`) and the probe of K5's forward at full bit
+density (:mod:`.perf_bitgat_probe`), the counterparts of the JAX
 package's ``tools/perf_bitmm_variants.py`` and
 ``tools/perf_bitgat_probe.py``; the probes of the row walk's design
 choices (:mod:`.perf_row_walk`) and of the SDDMM walk's write layouts
-(:mod:`.perf_sddmm_walk`) on the Reddit-statistics graph; and the probe
-that times K5's backward and K9's node gradient beside the kernels they
-replaced and edits of their own (:mod:`.perf_bwd_walks`), and the one
-that times K6's ds and K9's da beside the kernels they replaced
-(:mod:`.perf_ds_fold`), both called from ``chip_smoke.py``'s
-yardsticks.  Each runs as ``python -m
+(:mod:`.perf_sddmm_walk`) on the Reddit-statistics graph; and the probes
+that time K5's backward and K9's node gradient (:mod:`.perf_bwd_walks`)
+and K5's forward (:mod:`.perf_fwd_walks`) beside the kernels they
+replaced and edits of their own, and the one that times K6's ds and
+K9's da beside the kernels they replaced (:mod:`.perf_ds_fold`), all
+called from ``chip_smoke.py``'s yardsticks.  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
 import ctypes
 import hashlib

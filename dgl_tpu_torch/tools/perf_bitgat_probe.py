@@ -1,4 +1,4 @@
-"""Probe of K5's src-major forward at full bit density on the card.
+"""Probe of K5's forward at full bit density on the card.
 
 Counterpart of the JAX package's ``tools/perf_bitgat_probe.py`` (P2:
 ``make_fwd`` :78, body ``_fwd_kernel`` :41), a dense bit-masked GAT
@@ -8,14 +8,19 @@ k32 + j):
     p = exp(lrelu(el[src] + er[dst])),  l[dst] = sum p,
     out[dst] = sum p z[src] / max(l, 1e-20),
 
-which is the function of the port's ``bitgat_fwd_t`` (``csrc/bitgat.cu``
-``bitgat_fwd_t_kernel``), in the same orientation, so nothing is repacked.
-The probe's work: s_pad = k_pad = 110,592 (22% of the Reddit graph's
-area), H = 4, D = 32, uniformly random bit words (half the bits set, about
-53 times the Reddit graph's edges), el, er and z normal.  It times one
-warm-up and two launches, and holds the kernel to its plain version on a
-block of 1,024 src rows (the plain version over every row would form
-terabytes of per-edge products).
+which is the function of the port's ``bitgat_fwd_t``.  The tiny check
+runs ``bitgat_fwd_t`` on P2's own packing (on the card: the listed walk
+by dst, ``csrc/bitgat.cu`` ``bitgat_fwd_list_kernel``, on its bit
+transpose).  At full size the probe runs the same walk through
+``bitgat_fwd`` on its words read as the dst-major packing (rows = dst, bit
+b of word j = src b * k32 + j): the transpose of a matrix of uniformly
+random bits has the same law and the same work, so nothing of 1.5 GB is
+transposed.  The probe's work: s_pad = k_pad = 110,592 (22% of the Reddit
+graph's area), H = 4, D = 32, uniformly random bit words (half the bits
+set, about 53 times the Reddit graph's edges), el, er and z normal.  It
+times one warm-up and two launches, and holds the kernel to
+``bitgat_fwd_plain`` on a block of 1,024 dst rows (the plain version over
+every row would form terabytes of per-edge products).
 
 Usage: ``python -m dgl_tpu_torch.tools.perf_bitgat_probe [tiny]`` (tiny:
 the small check only, on the CPU).
@@ -34,8 +39,8 @@ from ..utils import resolve_device
 H, D = 4, 32
 SLOPE = 0.2
 S_PAD = K_PAD = 110_592      # the probe's src and dst padding
-BLOCK_ROWS = 1024            # src rows of the check against the plain version
-PLAIN_ROWS = 64              # src rows the plain version takes at a time
+BLOCK_ROWS = 1024            # dst rows of the check against the plain version
+PLAIN_ROWS = 64              # dst rows the plain version takes at a time
 RTOL, ATOL = 1e-4, 1e-3      # f32 sums of exp in another order
 TINY_N, TINY_S_PAD, TINY_K_PAD = 300, 512, 8192
 
@@ -85,64 +90,66 @@ def tiny_check(device="cuda"):
 
 
 def probe_inputs(device="cuda", seed: int = 1):
-    """(packed_t (S_PAD, K_PAD / 32) int32 random words, el (S_PAD, H), er
-    (K_PAD, H), z (S_PAD, H, D)) made on ``device``."""
+    """(packed (K_PAD, S_PAD / 32) int32 random words, the dst-major
+    packing, el (S_PAD, H), er (K_PAD, H), z (S_PAD, H, D)) made on
+    ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    packed_t = torch.randint(-2 ** 31, 2 ** 31, (S_PAD, K_PAD // 32),
-                             dtype=torch.int32, device=dev, generator=gen)
+    packed = torch.randint(-2 ** 31, 2 ** 31, (K_PAD, S_PAD // 32),
+                           dtype=torch.int32, device=dev, generator=gen)
     el = torch.randn(S_PAD, H, device=dev, generator=gen)
     er = torch.randn(K_PAD, H, device=dev, generator=gen)
     z = torch.randn(S_PAD, H, D, device=dev, generator=gen)
-    return packed_t, el, er, z
+    return packed, el, er, z
 
 
-def plain_rows(packed_t, el, er, z, num_dst: int):
-    """``bitgat_fwd_t_plain`` over PLAIN_ROWS src rows at a time: out and
-    l are sums over the src rows, so each chunk's out * l and l add up."""
-    num = torch.zeros(num_dst, H, D, dtype=torch.float32, device=z.device)
-    l = torch.zeros(num_dst, H, dtype=torch.float32, device=z.device)
-    for r0 in range(0, z.shape[0], PLAIN_ROWS):
-        sl = slice(r0, r0 + PLAIN_ROWS)
-        out_c, l_c = bitgat.bitgat_fwd_t_plain(packed_t[sl], el[sl], er,
-                                               z[sl], num_dst, SLOPE)
-        num += out_c * l_c.unsqueeze(-1)
-        l += l_c
-    return num / l.clamp(min=bitgat.DEN_EPS).unsqueeze(-1), l
+def plain_rows(packed, el, er, z, num_dst: int):
+    """``bitgat_fwd_plain`` over PLAIN_ROWS dst rows at a time: each dst
+    row's out and l depend on that row's bits alone."""
+    parts = [bitgat.bitgat_fwd_plain(packed[r0:r0 + PLAIN_ROWS], el,
+                                     er[r0:r0 + PLAIN_ROWS], z,
+                                     min(PLAIN_ROWS, num_dst - r0), SLOPE)
+             for r0 in range(0, num_dst, PLAIN_ROWS)]
+    return (torch.cat([o for o, _ in parts]),
+            torch.cat([l for _, l in parts]))
 
 
 def probe(device="cuda"):
-    """The probe at full size and its check on a block of src rows.
+    """The probe at full size and its check on a block of dst rows.
     Returns {"launch_ms": [the two timed launches], "bits" (set bits of
     the probe), "block": {"ms" (median of 5), "plain_ms", "max_abs_err",
-    "bits", "nbytes" (the block's bits, el, er, z, out, l)}}; raises if the
+    "bits", "nbytes" (the block's bits, el, z, er, out, l)}}; raises if the
     block disagrees with the plain version (rtol 1e-4 / atol 1e-3)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the probe times the CUDA kernel: run it on a card")
-    packed_t, el, er, z = probe_inputs(dev)
+    packed, el, er, z = probe_inputs(dev)
+    order = bitgat.claim_order(packed, K_PAD)
 
     def full():
-        return bitgat.bitgat_fwd_t(packed_t, el, er, z, K_PAD, SLOPE)
+        return bitgat.bitgat_fwd(packed, el, er, z, K_PAD, SLOPE,
+                                 order=order)
 
     full()                                      # the warm-up launch
     launch_ms = [timed_once(full)[1] for _ in range(2)]
-    blk = (packed_t[:BLOCK_ROWS], el[:BLOCK_ROWS], er, z[:BLOCK_ROWS])
-    got = bitgat.bitgat_fwd_t(*blk, K_PAD, SLOPE)
-    want, plain_ms = timed_once(lambda: plain_rows(*blk, K_PAD))
+    blk = (packed[:BLOCK_ROWS], el, er[:BLOCK_ROWS], z)
+    blk_order = bitgat.claim_order(blk[0], BLOCK_ROWS)
+    got = bitgat.bitgat_fwd(*blk, BLOCK_ROWS, SLOPE, order=blk_order)
+    want, plain_ms = timed_once(lambda: plain_rows(*blk, BLOCK_ROWS))
     err = 0.0
     for what, a, w in zip(("out", "l"), got, want):
         torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL,
                                    msg=lambda m, what=what:
-                                   f"bitgat_fwd_t probe block {what}: {m}")
+                                   f"bitgat_fwd probe block {what}: {m}")
         err = max(err, float((a - w).abs().max()))
     del got, want
-    block = {"ms": cuda_ms(lambda: bitgat.bitgat_fwd_t(*blk, K_PAD, SLOPE)),
+    block = {"ms": cuda_ms(lambda: bitgat.bitgat_fwd(
+                 *blk, BLOCK_ROWS, SLOPE, order=blk_order)),
              "plain_ms": plain_ms, "max_abs_err": err,
              "bits": popcount(blk[0]),
-             "nbytes": (blk[0].numel() + BLOCK_ROWS * H * (1 + D)
-                        + K_PAD * H * (2 + D)) * 4}
-    return {"launch_ms": launch_ms, "bits": popcount(packed_t),
+             "nbytes": (blk[0].numel() + S_PAD * H * (1 + D)
+                        + BLOCK_ROWS * H * (2 + D)) * 4}
+    return {"launch_ms": launch_ms, "bits": popcount(packed),
             "block": block}
 
 
@@ -153,10 +160,10 @@ def main():
         return
     print(f"tiny check on the card: max|err| {tiny_check()[1]:.3g}")
     res = probe()
-    print(f"bitgat_fwd_t probe: {res['bits']} set bits, launches "
+    print(f"bitgat_fwd probe: {res['bits']} set bits, launches "
           + ", ".join(f"{t:.2f}" for t in res["launch_ms"]) + " ms")
     b = res["block"]
-    print(f"block of {BLOCK_ROWS} src rows: {b['ms']:.4f} ms, plain "
+    print(f"block of {BLOCK_ROWS} dst rows: {b['ms']:.4f} ms, plain "
           f"{b['plain_ms']:.4f} ms, max|err| {b['max_abs_err']:.3g}")
 
 

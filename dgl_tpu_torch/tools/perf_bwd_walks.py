@@ -132,8 +132,18 @@ _VECTOR_TAIL = """          const bool on = dd[u] >= 0;
           }
           if (!on || !der_lane) continue;
 """
+# the 16-byte reduction the edit adds with, defined before the walks
+_RED_ADD_V4 = ("__device__ __forceinline__ bool keep_bit(",
+               """__device__ __forceinline__ void red_add_v4(float* a, float x, float y,
+                                           float z, float w) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(a),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ bool keep_bit(""")
 EDITS = {
-    "vector_der": [(_ENTRY_TAIL, _VECTOR_TAIL)],
+    "vector_der": [_RED_ADD_V4, (_ENTRY_TAIL, _VECTOR_TAIL)],
     "lb3": [("__launch_bounds__(kWarps * 32, 2)\nbitgat_bwd_list_kernel(",
              "__launch_bounds__(kWarps * 32, 3)\nbitgat_bwd_list_kernel(")],
 }
@@ -195,10 +205,10 @@ def _check(err, what):
 
 def layout(heads: int, dim: int, lanes=None):
     """(dp, lpe, cpl) of the listed walk at ``lanes`` lanes an entry
-    (``bitgat.bwd_layout``'s when None); raises ValueError where the
+    (``bitgat.list_layout``'s when None); raises ValueError where the
     kernel does not take them (not a power of two up to 32, more than
     MAX_LIST_CPL vectors a lane, or fewer lanes than a head's vectors)."""
-    dp, lpe, cpl = tbg.bwd_layout(heads, dim)
+    dp, lpe, cpl = tbg.list_layout(heads, dim)
     if lanes is None:
         return dp, lpe, cpl
     nv = heads * dp // 4

@@ -184,7 +184,7 @@ def _render_bwd(packed_rev, rows, num_dst, el, er, z, g, linv, rho, slope,
     dp, lpe, cpl = tbw.layout(heads, dim, lanes)
     vph, one = dp // 4, heads == 1
     nv = heads * vph
-    u_flight = {1: 8, 2: 4, 3: 3}.get(cpl, 2)   # csrc/bitgat.cu BwdUnroll
+    u_flight = {1: 8, 2: 4, 3: 3}.get(cpl, 2)   # csrc/bitgat.cu ListUnroll
     nh = 1 if one else cpl
     groups = 32 // lpe
     grp, li = LANE // lpe, LANE % lpe
@@ -369,7 +369,7 @@ def test_bwd_layout(heads, dim, want):
     """The padded head width, lanes an entry and vectors a lane; each
     group's lanes hold every vector of the row once, and with several
     heads each head's vectors fill an aligned block of vph lanes."""
-    dp, lpe, cpl = tbg.bwd_layout(heads, dim)
+    dp, lpe, cpl = tbg.list_layout(heads, dim)
     assert (dp, lpe, cpl) == want
     vph, nv = dp // 4, heads * dp // 4
     vq = np.arange(lpe)[:, None] + lpe * np.arange(cpl)
@@ -450,13 +450,13 @@ def test_listed_walk_rendering_vector_der(bit_graph, heads, dim, drop):
     """The probe's ``vector_der`` edit: the group's first lane takes each
     head's sum once, from the first lane of a block that holds that head
     in the named chain, and adds the same der."""
-    dp, lpe, cpl = tbg.bwd_layout(heads, dim)
+    dp, lpe, cpl = tbg.list_layout(heads, dim)
     gather = _der_gather(heads, dp, lpe, cpl)
     vph = dp // 4
     for h, (src_li, t) in enumerate(gather):
         assert 0 <= src_li < lpe and src_li % vph == 0 and 0 <= t < cpl
         assert (src_li + lpe * t) // vph == h
-    assert _der_gather(1, *tbg.bwd_layout(1, 41)) is None
+    assert _der_gather(1, *tbg.list_layout(1, 41)) is None
     bf, packed_rev = bit_graph
     thresh, seed = tbg.drop_thresh(drop), 77
     ins = _bwd_inputs(heads + dim, bf.num_src, bf.num_dst, heads, dim,

@@ -11,8 +11,9 @@ shared-memory adds) add in an order that changes from run to run.  The
 row walk (K4's SpMM, K6's dx, K9's node gradient) sums each row in slot
 order, the SDDMM walk (K4's SDDMM, K6's ds) forms each dot in one lane
 order and K2 sums a row's bits in one list order; their checks take
-dyadic inputs and ask for equality.  K5's listed walk sums dz and del in
-registers in one order (der in L2 in none); K9's da, folded into the
+dyadic inputs and ask for equality.  K5's listed walk by src sums dz and
+del in registers in one order (der in L2 in none), its walk by dst out
+and l; K9's da, folded into the
 node-gradient walk by dst, meets in L2 in no order (atol 1e-3 times its
 largest magnitude, as ``chip_smoke.close_sum``)."""
 import math
@@ -225,7 +226,7 @@ def _listed_case(card, heads, dim, drop):
     (8, 16, 0.6, None), (2, 64, 0.0, None), (3, 5, 0.0, None),
     (1, 8, 0.6, None), (16, 8, 0.0, None), (1, 128, 0.6, 16)])
 def test_bwd_listed_walk_matches_plain(card, heads, dim, drop, lanes):
-    """K5's backward as the listed walk, at the layouts of ``bwd_layout``
+    """K5's backward as the listed walk, at the layouts of ``list_layout``
     (der by vectors at H = 2, 4 and 8, by scalars elsewhere) and, launched
     by ``tools/perf_bwd_walks.py``, at other lanes an entry, against the
     plain version; a hub row and rows of two steps."""
@@ -252,8 +253,137 @@ def test_bwd_listed_walk_is_deterministic(card):
 @pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 16)])
 def test_bwd_listed_walk_kernel_attrs(card, heads, dim):
     for drop in (False, True):
-        regs, warps = tbg.bwd_kernel_attrs(heads, dim, drop)
+        regs, warps = tbg.list_kernel_attrs("bwd", heads, dim, drop)
         assert 0 < regs <= 128 and warps >= 16
+
+
+def _fwd_listed_case(card, heads, dim, drop):
+    """K5 forward's operands on ``_listed_graph`` with src and dst swapped:
+    the dst-major packing's rows hold 512 words (two steps of the walk)
+    and reach bit plane 31, dst 7 is a hub of 5,000 in-edges, dst 100-199
+    have none.  (bf, args of bitgat_fwd after the packing)."""
+    row, col, n_src, n_dst = _listed_graph()
+    bf = tbm.build_bit_format_device(col, row, n_dst, n_src, device=card)
+    assert (bf.packed < 0).any() and bf.packed.shape[1] == 512
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + dim)
+    el = torch.randn(n_dst, heads, device=card, generator=gen)
+    er = torch.randn(n_src, heads, device=card, generator=gen)
+    z = torch.randn(n_dst, heads, dim, device=card, generator=gen)
+    seed = torch.tensor([-99], device=card)
+    return bf, (el, er, z, n_src, 0.2, tbg.drop_thresh(drop), seed)
+
+
+@pytest.mark.parametrize("heads,dim,drop", [
+    (4, 32, 0.0), (4, 32, 0.6), (1, 41, 0.0), (1, 41, 0.6), (8, 16, 0.6),
+    (2, 16, 0.0), (2, 64, 0.0), (3, 5, 0.0), (1, 8, 0.6), (16, 8, 0.0),
+    (1, 128, 0.6)])
+def test_fwd_listed_walk_matches_plain(card, heads, dim, drop):
+    """K5's forward as the listed walk by dst, at the layouts of
+    ``list_layout``, against the plain version; a hub row, rows of two
+    steps, rows with no edge (0, and l 0)."""
+    bf, args = _fwd_listed_case(card, heads, dim, drop)
+    before = tbg.bitgat_fwd.launches
+    got = tbg.bitgat_fwd(bf.packed, *args, order=tbg.fwd_claim_order(bf))
+    assert tbg.bitgat_fwd.launches == before + 1
+    want = tbg.bitgat_fwd_plain(bf.packed, *args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    assert (got[0][100:200] == 0).all() and (got[1][100:200] == 0).all()
+
+
+def test_fwd_listed_walk_is_deterministic(card):
+    """out and l are summed in registers in one order: the same bits from
+    run to run, whichever order the rows are claimed in."""
+    bf, args = _fwd_listed_case(card, 4, 32, 0.6)
+    a = tbg.bitgat_fwd(bf.packed, *args, order=tbg.fwd_claim_order(bf))
+    b = tbg.bitgat_fwd(bf.packed, *args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_fwd_listed_walk_skips_bits_past_num_src(card):
+    """Set bits at or past num_src (a packing wider than z) are skipped:
+    the walk equals the plain version on the packing with them cleared."""
+    bf, (el, er, z, n_dst, slope, thresh, seed) = _fwd_listed_case(
+        card, 2, 16, 0.6)
+    num_src = 16_000
+    k32 = bf.packed.shape[1]
+    src = (torch.arange(k32, device=card)[None, :]
+           + k32 * torch.arange(32, device=card)[:, None])
+    past = ((src >= num_src).to(torch.int64)
+            << torch.arange(32, device=card)[:, None]).sum(0)
+    past = torch.where(past >= 2**31, past - 2**32, past).to(torch.int32)
+    assert (bf.packed & past).any()
+    args = (el[:num_src], er, z[:num_src], n_dst, slope, thresh, seed)
+    got = tbg.bitgat_fwd(bf.packed, *args)
+    want = tbg.bitgat_fwd_plain(bf.packed & ~past, *args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 16)])
+def test_fwd_listed_walk_kernel_attrs(card, heads, dim):
+    for drop in (False, True):
+        regs, warps = tbg.list_kernel_attrs("fwd", heads, dim, drop)
+        assert 0 < regs <= 128 and warps >= 16
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_fwd_t_on_the_shard_view(card, parts):
+    """Each shard's dst-major view, built on the card, equals the bit
+    transpose of the host builder's shard; ``bitgat_fwd_t`` on it (the walk
+    by dst) equals its plain version, and the walk on a view built anew
+    for the call.  Symmetric with npp == kp: the view is the shard."""
+    row, col, n = _shard_graph()
+    fmt = tbs.build_bit_sharded_format_device(row, col, n, parts,
+                                              device=card)
+    host = tbs.build_bit_sharded_format(row, col, n, parts, device="cpu")
+    gen = torch.Generator(device=card).manual_seed(parts)
+    kp, npp = fmt.kp, fmt.npp
+    for p in range(parts):
+        shard = fmt.shards[p]
+        view, order = tgs.shard_fwd_view(fmt, shard)
+        assert torch.equal(view.cpu(), tbg.transpose_bits(host.shards[p], kp,
+                                                          npp))
+        el = torch.randn(kp, 4, device=card, generator=gen)
+        er = torch.randn(npp, 4, device=card, generator=gen)
+        z = torch.randn(kp, 4, 32, device=card, generator=gen)
+        got = tbg.bitgat_fwd_t(shard, el, er, z, npp, 0.2, view, order)
+        anew = tbg.bitgat_fwd_t(shard, el, er, z, npp, 0.2)
+        want = tbg.bitgat_fwd_t_plain(shard, el, er, z, npp, 0.2)
+        for a, b, c in zip(got, anew, want):
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a, c, rtol=RTOL, atol=ATOL)
+    if parts == 1:
+        m = 4000                   # npp == kp == 4,096 at one part
+        keep = (row < m) & (col < m)
+        key = np.unique(np.r_[col[keep] * m + row[keep],
+                              row[keep] * m + col[keep]])
+        sym = tbs.build_bit_sharded_format_device(
+            key % m, key // m, m, 1, symmetric=True, device=card)
+        view, _ = tgs.shard_fwd_view(sym, sym.shards[0])
+        assert sym.npp == sym.kp
+        assert view.data_ptr() == sym.shards[0].data_ptr()
+
+
+def test_fwd_walks_probe_retired_kernels(card):
+    """The probe's retired kernels (the warp walk by dst, the scatter walk
+    over A^T) and its edit of the walk, against the plain versions."""
+    from dgl_tpu_torch.tools import perf_fwd_walks as tfw
+    bf, args = _fwd_listed_case(card, 4, 32, 0.6)
+    want = tbg.bitgat_fwd_plain(bf.packed, *args)
+    for got in (tfw.warp_walk(bf.packed, *args),
+                tfw.listed_walk(bf.packed, *args, variant="u2x")):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    row, col, n = _shard_graph()
+    fmt = tbs.build_bit_sharded_format_device(row, col, n, 2, device=card)
+    el, er, z, _, slope, _, _ = args
+    kp, npp = fmt.kp, fmt.npp
+    for shard in fmt.shards:
+        ins = (el[:kp], er[:npp], z[:kp], npp, slope)
+        for a, b in zip(tfw.scatter_walk(shard, *ins),
+                        tbg.bitgat_fwd_t_plain(shard, *ins)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
 
 
 def test_gatconv_kernels_match_edge_chain(card, monkeypatch):

@@ -7,9 +7,11 @@ Phases, each of which raises on failure (nothing is caught):
 2. build: compiles ``dgl_tpu_torch/csrc/*.cu`` (one ``nvcc`` each, all at
    once) and prints the build seconds and ptxas' resource report; the
    probe of the kernels that K6's ds and K9's da replaced
-   (``dgl_tpu_torch/tools/perf_ds_fold.py``) and the probe of the kernels
+   (``dgl_tpu_torch/tools/perf_ds_fold.py``), the probe of the kernels
    that K5's forward walk replaced (``dgl_tpu_torch/tools/
-   perf_fwd_walks.py``, with an edit of the walk) build beside it;
+   perf_fwd_walks.py``, with an edit of the walk) and the probe of the
+   kernels that K9's scores walk and K12's tensor-core rows replaced
+   (``dgl_tpu_torch/tools/perf_scores_rows.py``) build beside it;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
    reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
@@ -108,8 +110,9 @@ Phases, each of which raises on failure (nothing is caught):
    (scores, slot gradient, node gradient on both sides) against its plain
    version on the phase-3 multigraph in the tiled format at (H, D) = (8,
    8), (1, 41), (4, 32), without and with the edge term (16 features and
-   the bias row); the 2-layer GATv2 of phase 22 through K9 against its
-   edge chain, forward and backward;
+   the bias row), K9's scores (the dot-product walk by dst and its exp
+   pass) also with logits past +-40; the 2-layer GATv2 of phase 22
+   through K9 against its edge chain, forward and backward;
 22. route 5: the GATv2 recipe of examples/gatv2.py:22-31 (602 -> 8 x 8 ->
    elu -> 1 x 41, AdamW lr 5e-3, weight decay 5e-4) for 10 steps on the
    tiled format, both layers on K9, a profiled step whose trace is held
@@ -134,7 +137,10 @@ Phases, each of which raises on failure (nothing is caught):
    the tiled slot-gradient walk the fold replaced (``perf_ds_fold``),
    with both instances' registers.  Then route 5's other
    launches at its (8, 8) layer: K6's yardsticks and K4's SpMM, as phases
-   16 and 20 time them at (1, 41);
+   16 and 20 time them at (1, 41).  K9's scores (the dot-product walk by
+   dst in its scores mode and the exp pass) against their plain version,
+   with the bucket walk they replaced (``perf_scores_rows``) timed beside
+   them and held to them;
 25. the EdgeGAT slice at mid size: each K10 v2 kernel (the edge scores,
    the slot-feature reduce, the edge ds without and with d(ef)) against
    its plain version on the phase-21 multigraph at (H, Fh) = (4, 32), (1,
@@ -187,7 +193,10 @@ Phases, each of which raises on failure (nothing is caught):
 33. K12 yardsticks on the phase-32 block at F = 16: each orientation
    exactly equal to its plain version on a grid, its time (median of 5),
    its plain version's, the bound and ``torch.matmul`` of the block in
-   bf16.
+   bf16; the row kernel's plan (blocks, rows a block, stages, shared bytes,
+   registers, resident blocks an SM), and the f32-FMA walk it replaced
+   and two edits of it that bound its registers (``perf_scores_rows``)
+   timed beside it and held to it exactly.
 
 34. the mesh-sharded slice at mid size, on the phase-8 simple graph on
    24,000 nodes with 64 edges more into its last dst (every build's
@@ -547,14 +556,16 @@ TRACED_KERNELS = {
     "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
     "gat_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
     "src_aggregate": "row_agg_kernel",
-    "vattn_scores": "vattn_scores_kernel",
+    # K9's scores: the dot-product walk by dst and its exp pass (K11 v2's,
+    # the edge term, are vattn_scores_kernel, in no profiled step)
+    "vattn_scores": ("row_sddmm_kernel", "slot_finish_kernel"),
     "vattn_slot_grad": "vattn_slot_grad_kernel",
     "vattn_node_grad": "row_agg_kernel",
     "vattn_node_grad_da": "row_agg_kernel",
     "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
-    "int8_matmul_rows": "int8_rows_kernel",
+    "int8_matmul_rows": ("split_z_kernel", "int8_rows_mma_kernel"),
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
     "k3_spmm": "tiled_spmm_kernel",
     "bitgat_fwd_t": "bitgat_fwd_list_kernel",
@@ -565,6 +576,12 @@ TRACED_KERNELS = {
     "fe_ds": "gat_ds_kernel", "dx_dfe": "src_agg_kernel",
     "edgegat_scores": "gat_scores_kernel",
     "slot_feat_reduce": "src_agg_kernel", "edgegat_ds": "gat_ds_kernel"}
+
+
+# kernels that a redesign took off the main path: no profiled step may show
+# one (their probes launch them outside any profile)
+RETIRED_KERNELS = ("::int8_rows_kernel<",
+                   "::vattn_scores_kernel<false, float, false>")
 
 
 def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
@@ -605,6 +622,10 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
                    and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
+    retired = [e.key for e in rows if any(k in e.key for k in RETIRED_KERNELS)]
+    if retired:
+        raise AssertionError(f"a profiled step launched a retired kernel: "
+                             f"{retired}")
     traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
               if name in after}
     launched = {}
@@ -2025,6 +2046,18 @@ def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
     errs = [("p", close(tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
                         tgf.vattn_scores_plain(tf, U, V, attn, slope, ef,
                                                wf), f"{tag} p"))]
+    if not fe:
+        # K9's scores with logits past +40 and past -40 (U, V >= 0, attn of
+        # one sign and 16 times as large): the pass clips the whole sum
+        for sign in (1, -1):
+            a16 = sign * 16 * attn.abs()
+            got = tgf.vattn_scores(tf, U.abs(), V.abs(), a16, slope)
+            want = tgf.vattn_scores_plain(tf, U.abs(), V.abs(), a16, slope)
+            bound = float(np.exp(sign * 40.0))
+            if not bool((want.sub(bound).abs() <= 1e-6 * bound).any()):
+                raise AssertionError(f"{tag}: no logit past {sign * 40}")
+            errs.append((f"p clip {'+' if sign > 0 else '-'}40",
+                         close(got, want, f"{tag} p clip")))
     want = tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf)
     want_v = tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope, "dst", ef,
                                        wf)
@@ -2046,8 +2079,9 @@ def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
         f"{tag} dU")))
     torch.cuda.synchronize()
     launched = [k.launches - b for k, b in zip(counters, before)]
-    # scores, slot gradient, node gradient, node gradient with da
-    expect = [1, 1, 2, 0] if fe else [1, 0, 1, 1]
+    # scores (K9's: three calls, the clip checks too), slot gradient, node
+    # gradient, node gradient with da
+    expect = [1, 1, 2, 0] if fe else [3, 0, 1, 1]
     if launched != expect:
         raise AssertionError(f"{tag}: K9 launches {launched}, not {expect}")
     return errs
@@ -2290,7 +2324,7 @@ def phase_egat_check(conv, g, x, ef, ef_slot):
         f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
 
 
-def vattn_yardsticks(tgf, tts, tbw, tdf, g, heads, dim, fe, rate):
+def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate):
     """Phase 24: each K9 / K11 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; no single PyTorch call
     computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
@@ -2332,13 +2366,31 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, g, heads, dim, fe, rate):
             f"{by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
             f"library none, max|err| {err:.3g}")
 
-    # scores: in the slot arrays, U, V, attn (and the edge term); out p at
-    # every slot.  Per edge and column: raw, lrelu, the dot (5 ops); per
-    # edge and head the clip and exp
+    # scores: K11 v2's (the bucket walk) in the slot arrays, U, V, attn and
+    # the edge term; K9's (the dot-product walk by dst) in the dst view, U
+    # and V once and attn (sddmm_walk_bytes, as K4's SDDMM row counts it;
+    # the bucket walk's count beside it); out p at every slot.  Per edge and
+    # column: raw, lrelu, the dot (5 ops); per edge and head the clip and
+    # exp
+    bucket_b = walk + 2 * node_b + hd * 4 + edge_b + slot_h
+    scores_b = bucket_b if fe else sddmm_walk_bytes(tf, heads, dim) + hd * 4
     row("scores", lambda: tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
         lambda: tgf.vattn_scores_plain(tf, U, V, attn, slope, ef, wf),
-        walk + 2 * node_b + hd * 4 + edge_b + slot_h,
-        e * (5 * hd + fe_ops + 4 * heads))
+        scores_b, e * (5 * hd + fe_ops + 4 * heads))
+    if not fe:
+        # the bucket walk that K9's scores walk replaced (perf_scores_rows),
+        # held to it and timed beside it
+        new = tgf.vattn_scores(tf, U, V, attn, slope)
+        err = close(tsr.bucket_scores(tf, U, V, attn, slope), new,
+                    f"K9 scores (the bucket walk) {tag}")
+        del new
+        old = cuda_ms(lambda: tsr.bucket_scores(tf, U, V, attn, slope))
+        old_bnd = bound(bucket_b, e * (5 * hd + 4 * heads), rate)[0]
+        out["scores"].update(kernel="row_sddmm_kernel, slot_finish_kernel",
+                             old_ms=old, old_bound_ms=old_bnd)
+        log(f"# K9 scores {tag}: the bucket walk {old:.4f} ms (its bound "
+            f"{old_bnd:.4f} ms: {bucket_b} B), max|err| {err:.3g} against "
+            "the walk by dst")
     if fe:
         # K11 v2's slot gradient as the main path calls it (no d(ef)): in
         # the slot arrays, ds, U, V, attn, the edge term; out da and dWf.
@@ -3941,7 +3993,7 @@ def phase_hybrid_check(model, gh, gt, x, y, train):
         f"{loss_t:.8f}, {len(grad_h)} gradients agree")
 
 
-def hybrid_yardsticks(i8, gh, rate):
+def hybrid_yardsticks(i8, tsr, gh, rate):
     """Phase 33: K12 in both orientations at full size (k = 32,768, N_pad =
     233,088, F = 16), exactly equal to its plain version on inputs on a
     grid of 2^-12 in [-1/4, 1/4] (values of up to 11 significant bits,
@@ -3955,7 +4007,15 @@ def hybrid_yardsticks(i8, gh, rate):
     exact in bf16, and x split into three bf16 parts gives the products at
     f32 accuracy on the tensor cores, 3 * 2 k N_pad F operations at the
     bf16 rate.  At F = 16 that is 0.74 ms, under the 2.28 ms stream of the
-    block, so the bytes bound it."""
+    block, so the bytes bound it: the block, x (or z) and out, once each.
+    The scratch of x's three parts (22.4 MB at F = 16) is this design's
+    cost, not the function's: it is logged beside the rows, not counted.
+
+    Beside the row kernel: its plan (blocks, rows a block, the slices of n
+    (one: a block walks all of n, no partial sums), stages, shared bytes,
+    registers and resident blocks an SM), and the f32-FMA walk it replaced
+    (``perf_scores_rows``), exactly equal to the plain version on the same
+    grid, timed beside it."""
     a = gh.unit()._hybrid.a_dense
     k, n_pad = a.shape
     gen = torch.Generator(device="cuda").manual_seed(33)
@@ -3997,6 +4057,27 @@ def hybrid_yardsticks(i8, gh, rate):
              "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
              "library_ms": cuda_ms(lib)}
         rows[name] = r
+        if name == "rows":
+            regs, local, smem, per_sm = i8.rows_kernel_attrs(HIDDEN)
+            plan = i8.rows_plan(k, HIDDEN)
+            log(f"# K12 rows plan: {len(plan)} blocks of "
+                f"{i8.ROW_BLOCK_ROWS} rows (4 consumer warps of 4 m-tiles "
+                f"and a TMA producer warp), 1 slice of n (no partial sums), "
+                f"{i8.ROW_STAGES} stages of {i8.ROW_SPAN} columns, {smem} B "
+                f"of shared memory a block; {regs} registers a thread, "
+                f"{local} B local memory, {per_sm} block(s) an SM resident; "
+                f"x's parts {i8.rows_scratch_words(n_pad, HIDDEN) * 8} B "
+                "of scratch, written once and read by every block (not in "
+                "the bound)")
+            if local:
+                raise AssertionError(f"K12 rows spills {local} B a thread")
+            if not torch.equal(tsr.fma_rows(a, x), want):
+                raise AssertionError("the f32-FMA rows walk is not exact")
+            old = cuda_ms(lambda: tsr.fma_rows(a, x))
+            r.update(kernel="split_z_kernel<true>, int8_rows_mma_kernel<2>",
+                     old_ms=old, registers=regs, blocks=len(plan))
+            log(f"# K12 rows F={HIDDEN}: the f32-FMA walk it replaced "
+                f"{old:.4f} ms, exact on the grid")
         log(f"# K12 {name} F={HIDDEN}: {r['ms']:.4f} ms (bound {bnd:.4f} ms "
             f"by {by}: {nbytes} B, {ops} bf16 ops), plain "
             f"{plain_ms:.4f} ms, library (torch.matmul, bf16) "
@@ -4601,6 +4682,7 @@ def main():
     from dgl_tpu_torch.tools import perf_bwd_walks as tbw
     from dgl_tpu_torch.tools import perf_ds_fold as tdf
     from dgl_tpu_torch.tools import perf_fwd_walks as tfw
+    from dgl_tpu_torch.tools import perf_scores_rows as tsr
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
     # phase 1: device
@@ -4615,12 +4697,15 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda}; card {card}")
 
     # phase 2: build, the ds and da probe's two retired kernels beside it
-    # (waited for in phases 20 and 24), and the forward walks' probe (its
-    # two retired kernels and an edit, waited for in phase 10)
+    # (waited for in phases 20 and 24), the forward walks' probe (its
+    # two retired kernels and an edit, waited for in phase 10) and the
+    # scores and rows probe (its two retired kernels, waited for in phase
+    # 24)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(2)
+    probe_build = ThreadPoolExecutor(3)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
+    scores_rows_built = probe_build.submit(tsr.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -4727,7 +4812,6 @@ def main():
     phase("19 (DotGat on K8)", phase_dotgat, dgt, tts, tgf, gt, card)
     t0 = time.perf_counter()
     probe_built.result()
-    probe_build.shutdown()
     log("# the ds and da probe's build waited for "
         f"{time.perf_counter() - t0:.1f}s")
     k6 = [phase(f"20 (K6 yardsticks H={h} Fh={d})", k6_yardsticks, tgf, tts,
@@ -4743,8 +4827,13 @@ def main():
           lambda: read_counts(tts, tgf), 1, loss_fn, card)
     phase("22 (route 5 check)", phase_route5_check, model, gt, x, y, train)
     del model, opt
+    t0 = time.perf_counter()
+    scores_rows_built.result()
+    probe_build.shutdown()
+    log("# the scores and rows probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
     k9 = [phase(f"24 (K9 yardsticks H={h} D={d})", vattn_yardsticks, tgf,
-                tts, tbw, tdf, gt, h, d, 0, rate)
+                tts, tbw, tdf, tsr, gt, h, d, 0, rate)
           for h, d in VATTN_SHAPES[:2]]
     # the K6 and K4 launches of route 5's (8, 8) layer; its (1, 41) layer's
     # are phases 16 and 20's.  (B, 8, C) slot tensors take 6 GB each
@@ -4768,7 +4857,7 @@ def main():
     phase("32 (hybrid GCN check)", phase_hybrid_check, model, gh, gt, x, y,
           train)
     del model, opt
-    k12 = phase("33 (K12 yardsticks)", hybrid_yardsticks, i8, gh, rate)
+    k12 = phase("33 (K12 yardsticks)", hybrid_yardsticks, i8, tsr, gh, rate)
     del gh
     torch.cuda.empty_cache()
 
@@ -4802,7 +4891,7 @@ def main():
           ef_slot)
     del conv, efe
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tts, tbw,
-                tdf, ge, EGAT_H, EGAT_D, EGAT_FE, rate)
+                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
@@ -4887,10 +4976,11 @@ def main():
         # forwards: the listed walk by dst; K5's backward and K13: the
         # listed walk by src; K9's node gradient: the row walk; K6's ds: the
         # dot-product walk; K9's da: folded into the node-gradient walk by
-        # dst) name their kernel and give the retired one's time in this
-        # run as old_ms
+        # dst; K9's scores: the dot-product walk in its scores mode; K12's
+        # rows: the tensor-core product) name their kernel and give the
+        # retired one's time in this run as old_ms
         {"name": "vattn_scores", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:783",
          "launches": k9_launches["vattn_scores"], **k9[0]["scores"]},
         {"name": "vattn_node_grad_da", "route": "cuda",
@@ -4944,7 +5034,8 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:368",
          "launches": k7_launches["bitdot_bwd_dq"], **k7[0]["dq"]},
-        # K12 at F = 16 on the Reddit hub block, launches from phase 32
+        # K12 at F = 16 on the Reddit hub block, launches from phase 32 (the
+        # rows' retired f32-FMA walk's time as old_ms)
         {"name": "int8_matmul_rows", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/int8mm.cu",
          "replaces": "dgl_tpu/ops/pallas/int8mm.py:79",

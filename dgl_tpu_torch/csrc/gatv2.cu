@@ -26,14 +26,20 @@
 // den, numerator, ds and dx are K6's and K4's kernels (csrc/gat_fused.cu,
 // csrc/tiled_spmm.cu).
 //
-// Three kernels serve K9's and K11 v2's six pallas_calls (K9's node
-// gradient now the row walk of csrc/row_agg.cu); each is behind a
-// plain C function that launches on the caller's stream, allocates
+// Three kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
+// node gradient and da are the walks of csrc/row_agg.cu); each is behind
+// a plain C function that launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError():
 //
-// vattn_scores_kernel<kEdge>  replaces _gatv2_scores_kernel (:670,
-//     gatv2_forward :783) and, with kEdge, _egatc2_scores_kernel (:1955,
-//     egatc2_forward :2075).  K6's ds walk (csrc/gat_fused.cu
+// vattn_scores_kernel<true>  replaces _egatc2_scores_kernel (:1955,
+//     egatc2_forward :2075), K11 v2's scores.  K9's scores
+//     (_gatv2_scores_kernel :670, gatv2_forward :783), which the
+//     <false, float, false> instance computed, are the dot-product walk
+//     by dst of csrc/row_agg.cu in its scores mode (row_sddmm_kernel<CPL,
+//     true> and slot_finish_kernel<VEC, true>); dgl_vattn_scores refuses
+//     that case, and dgl_tpu_torch/tools/perf_scores_rows.py builds it
+//     again from an edit of this file to time the two side by side.  The
+//     walk is K6's ds walk (csrc/gat_fused.cu
 //     gat_ds_kernel): one warp per 32-slot chunk, L lanes per head (32 over
 //     the heads rounded up to a power of two), each lane striding its
 //     head's columns by L, 4 slots in flight, an xor-shuffle sum over the L
@@ -696,6 +702,8 @@ extern "C" {
 // not null, the edge term from ef (num_buckets * cap, fe) and wf (fe_rows,
 // heads * dim); with fe_s not null (and ef null), the stored term fe_s
 // (num_buckets * cap, heads * dim), f32 (store 1) or bf16 (store 2).
+// One of the two terms is needed: without either (K9's scores) the call
+// returns cudaErrorInvalidValue (csrc/row_agg.cu dgl_row_vattn serves it).
 // lanes: 32 over the heads rounded up to a power of two, at least 1.
 // Grid: `blocks` blocks of 8 warps, grid-stride over 32-slot chunks.
 int dgl_vattn_scores(const void* src_local, const void* dst_local,
@@ -735,7 +743,7 @@ int dgl_vattn_scores(const void* src_local, const void* dst_local,
   if (edge) {
     DGL_SCORES_LAUNCH(true, float, false)
   } else if (fe_s == nullptr) {
-    DGL_SCORES_LAUNCH(false, float, false)
+    return cudaErrorInvalidValue;  // K9's scores: csrc/row_agg.cu's walk
   } else if (store == 1) {
     DGL_SCORES_LAUNCH(false, float, true)
   } else {

@@ -3,16 +3,17 @@
 //
 // A is the hybrid format's (k, n_pad) int8 block, row-major: row i holds
 // the edge multiplicities (0..127) from every src node into hub dst i, and
-// n_pad is a multiple of 16.  Two kernels, each behind a plain C function
+// n_pad is a multiple of 16.  Two products, each behind a plain C function
 // that launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError():
 //
-// K12  int8_rows_kernel  replaces dgl_tpu/ops/pallas/int8mm.py int8_matmul
-//      (body _mm_kernel):  out[i, f] = sum_n A[i, n] * x[n, f], x (n_x, F)
-//      f32 with n_x <= n_pad (rows past n_x count as 0), out (k, F) f32.
+// K12  int8_rows_mma_kernel  replaces dgl_tpu/ops/pallas/int8mm.py
+//      int8_matmul (body _mm_kernel):  out[i, f] = sum_n A[i, n] * x[n, f],
+//      x (n_x, F) f32 with n_x <= n_pad (rows past n_x count as 0), out
+//      (k, F) f32, with split_z_kernel<true> before it.
 // K12  int8_cols_kernel  replaces int8_matmul(contract_rows=True) (body
 //      _mm_t_kernel :50):  out[n, f] = sum_i A[i, n] * z[i, f], z (k, F)
-//      f32, out (n_pad, F) f32, with split_z_kernel before it.
+//      f32, out (n_pad, F) f32, with split_z_kernel<false> before it.
 //
 // The TPU kernel pads A to (1024, 2048) blocks and F to 128 lanes, turns
 // each int8 block into bf16 in VMEM and feeds the matrix unit, carrying
@@ -22,78 +23,87 @@
 // output element is summed in one fixed order: the result is the same in
 // every run, and exact when every partial sum is (dyadic inputs).  A is
 // not padded; the ragged edges are masked.  x and z are taken in f32 (the
-// TPU kernel rounds them to bf16).
+// TPU kernel rounds them to bf16): both products run on the tensor cores
+// with x or z cut into three bf16 parts, so the products keep f32
+// accuracy.
 //
-// int8_rows_kernel.  A block of 16 warps owns 4 rows of A per warp and FG
-// columns of the output (8 or 16: F = 16 is one group; a wider F takes
-// ceil(F / 16) groups over blockIdx.y, each streaming A again).  It walks
-// n in chunks of 512 columns: each lane loads the 16 bytes n0 + 16 lane
-// .. + 15 of each of its warp's rows with one 16-byte load (a warp reads
-// 512 contiguous bytes of a row), and the next chunk's bytes are
-// requested before this chunk's arithmetic.  The chunk's x rows (512 x FG
-// f32) are staged in shared memory in the order in which the lanes read
-// them: row n0 + 16 lane + j at slot 32 j + lane, with a row stride of
-// FG + 4 floats, so the 8 lanes of a quarter warp reading float4s hit
-// distinct banks.  Each byte is turned into an f32 with a byte permute and
-// one subtract (exact for every int8), and each lane keeps 4 x FG f32
-// partial sums in registers: one float4 of x from shared memory feeds 16
-// FMAs, so shared memory and the FMA pipe run at about the same rate
-// (groups of 32 columns at 2 rows a warp halve that ratio, and ran slower
-// per column).  At the end the 32 lanes' sums are added by an xor-shuffle
-// tree, the same order on every lane, and written once.
+// split_z_kernel cuts z (or x) into three bf16 parts, hi + mid + lo = z
+// exactly (each part the top 16 bits of what is left, so the sum is exact
+// for every normal f32 of magnitude at least 2^-110; zero and values exact
+// in bf16 leave mid = lo = 0), and writes them in the order in which
+// mma.sync's B fragments read them: for each group of 8 NT columns, each
+// 16 contraction rows (zero past k) and each 8 columns, a lane's two
+// 32-bit registers for each part.  The column product takes the rows of z
+// in order (lane (g, t): rows 2t, 2t+1 and 2t+8, 2t+9 of the step); the
+// row product permutes them (kBoxPerm, below).
 //
-// int8_cols_kernel, on the tensor cores (it replaces a walk that did the
-// products as f32 FMAs, as the rows kernel does: 9.93 ms at Reddit scale,
-// F = 16, against cuBLAS's bf16 product's 5.07).  Two launches:
+// int8_cols_kernel<NT>: out (n_pad, F) = A^T z as an m16n8k16 bf16
+// product with f32 sums: M = the columns of A, K = its rows, N = F in
+// groups of 8 NT columns.  A block is one producer warp and four consumer
+// warps, about two blocks an SM (ctas, from the wrapper), persistent: the
+// n_pad / 16 x groups units of 16 output rows are cut into one equal run
+// a block, walked in passes of up to 512 rows of out (one group), each
+// pass over the whole of k.  The producer keeps a ring of 2 stages in
+// flight: a stage is 64 rows of A as four TMA boxes of 128 columns
+// (128-byte swizzle; rows and columns past the block read as zeros; loads
+// marked evict-first) and the stage's part fragments by one bulk copy, on
+// an mbarrier; the consumers release it on another.  A consumer warp owns
+// 128 columns of A: lane (g, t) reads the 16 bytes at columns 16 g .. + 15
+// of rows 2t, 2t+1, 2t+8, 2t+9 of a 16-row step (conflict-free under the
+// swizzle) and turns each pair of bytes of two rows into one bf16x2
+// register: a byte permute puts byte b of the two rows into the low bytes
+// of the two halves; x = 0x43 << 8 | (low 7 bits) is 128 + low7 exactly,
+// y = -(128 + 128 sign) from the sign bit, and x + y is the byte's value,
+// exact in bf16 (two logic ops and one bf16x2 fma for two bytes).  Row g
+// of m-tile j is column 16 g + 2 j, row g + 8 column 16 g + 2 j + 1, so
+// one 16-byte load feeds eight m-tiles.  Each step takes 8 x NT x 3
+// mma.sync (hi, then mid, then lo into one accumulator): every output is
+// summed in one fixed order, no split of k, no atomics, so two runs give
+// the same bits.  A block writes its rows of out once.
 //
-//   split_z_kernel cuts z into three bf16 parts, hi + mid + lo = z
-//   exactly (each part the top 16 bits of what is left, so the sum is
-//   exact for every normal f32 of magnitude at least 2^-110; zero and
-//   values exact in bf16 leave mid = lo = 0), and writes them in the order
-//   in which mma.sync's B fragments read them: for each group of 8 NT
-//   columns, each 16 rows of z (zero past k) and each 8 columns, a lane's
-//   two 32-bit registers for each part (3 MB at Reddit scale, F = 16).
-//
-//   int8_cols_kernel<NT>: out (n_pad, F) = A^T z as an m16n8k16 bf16
-//   product with f32 sums: M = the columns of A, K = its rows, N = F in
-//   groups of 8 NT columns.  A block is one producer warp and four consumer
-//   warps, about two blocks an SM (ctas, from the wrapper), persistent: the
-//   n_pad / 16 x groups units of 16 output rows are cut into one equal run
-//   a block, walked in passes of up to 512 rows of out (one group), each
-//   pass over the whole of k.  The producer keeps a ring of 2 stages in
-//   flight: a stage is 64 rows of A as four TMA boxes of 128 columns
-//   (128-byte swizzle; rows and columns past the block read as zeros; loads
-//   marked evict-first) and the stage's part fragments by one bulk copy, on
-//   an mbarrier; the consumers release it on another.  A consumer warp owns
-//   128 columns of A: lane (g, t) reads the 16 bytes at columns 16 g .. + 15
-//   of rows 2t, 2t+1, 2t+8, 2t+9 of a 16-row step (conflict-free under the
-//   swizzle) and turns each pair of bytes of two rows into one bf16x2
-//   register: a byte permute puts byte b of the two rows into the low bytes
-//   of the two halves; x = 0x43 << 8 | (low 7 bits) is 128 + low7 exactly,
-//   y = -(128 + 128 sign) from the sign bit, and x + y is the byte's value,
-//   exact in bf16 (two logic ops and one bf16x2 fma for two bytes).  Row g
-//   of m-tile j is column 16 g + 2 j, row g + 8 column 16 g + 2 j + 1, so
-//   one 16-byte load feeds eight m-tiles.  Each step takes 8 x NT x 3
-//   mma.sync (hi, then mid, then lo into one accumulator): every output is
-//   summed in one fixed order, no split of k, no atomics, so two runs give
-//   the same bits.  A block writes its rows of out once.
+// int8_rows_mma_kernel<NT>: out (k, F) = A x as an m16n8k16 bf16 product
+// with f32 sums: M = A's rows (the hub dst rows), K = its columns (the src
+// nodes), N = F in groups of 8 NT columns (blockIdx.y).  The replaced
+// kernel did the 2 k n_pad F products as f32 FMAs (3.65 ms at Reddit
+// scale, F = 16, at the f32 rate alone) and staged x in shared memory
+// between two barriers.  Here a block is one producer warp and four
+// consumer warps and owns 256 rows of A (16 m-tiles, 4 a consumer warp),
+// which it walks over the whole of n: x's parts, which every block reads
+// whole (22.4 MB at Reddit scale, F = 16), then come to 37% of the block's
+// bytes of A (256 n_pad), and at k = 32,768 the 128 blocks fill the card
+// in one wave.  The producer keeps a ring of 4 stages in flight: a stage
+// is 128 columns of A as four TMA boxes of 64 rows (128-byte swizzle,
+// evict-first, zeros past the block; a box wholly past k is not loaded)
+// and the stage's part fragments (8 k-steps) by one bulk copy.
+// Contraction order: within each 128 columns, lane (g, t) of consumer
+// warp w reads the 32 bytes at columns 32 t .. 32 t + 31 of rows g and g
+// + 8 of each of its m-tiles, as two 16-byte loads (chunks 2t and 2t + 1
+// of the row: under the swizzle a quarter warp's eight loads, two rows of
+// one parity each, hit eight distinct chunks), and word s of those bytes
+// (columns 32 t + 4 s .. + 3) feeds k-step s: its bytes 0, 1 are the A
+// fragment's columns 2t, 2t+1, its bytes 2, 3 the columns 2t+8, 2t+9.
+// So k-step s of a stage contracts over the columns 32 t + 4 s + {0, 1,
+// 2, 3} of the four lanes t, and split_z_kernel<true> writes the rows of
+// x in the same order: lane (g, t)'s two registers of k-step s hold rows
+// 128 c + 32 t + 4 s + {0, 1} and {2, 3}.  The sum is the same
+// contraction in another order.  A pair of neighbouring bytes of one word
+// becomes one bf16x2 register by s8x2_bf16x2(word, word >> 8, b).  Each
+// k-step takes 4 x NT x 3 mma.sync a warp (hi, then mid, then lo into
+// one accumulator), every output summed in one fixed order: no split of
+// n, no atomics, two runs give the same bits.  A warp writes its rows of
+// out once.
 //
 // Bound on an H100 SXM: both stream A once (k * n_pad bytes: 7.64 GB for
 // the Reddit graph's 32,768 hub rows, 2.28 ms at 3.35 TB/s), and that
 // stream is the card's bound: the tensor cores do the products at f32
 // accuracy (A is exact in bf16; x or z split into three bf16 parts, 7.3e11
-// operations at F = 16, 0.74 ms at 989 TFLOP/s).  The rows kernel does the
-// 2 * k * n_pad * F products as f32 FMAs instead, which alone take 3.65 ms
-// at F = 16 (2.44e11 at the 67 TFLOP/s of f32 outside the tensor cores), so
-// it cannot come nearer than 1.6x the bound; its loads of A are marked
-// streaming (evict first) so that x, which every block reads, stays in L2.
-// The columns kernel issues its mma.sync (about 60% of the tensor cores'
-// wgmma rate: 1.2 ms at F = 16), its byte conversions (2 integer ops a
-// byte: 0.7 ms of the integer pipes) and its shared loads under the
-// stream, from 8 consumer warps an SM; it takes 3.53 ms at Reddit scale,
-// F = 16 (H100 80GB HBM3 at 700 W): the stream of A, at 2.2 TB/s, sets
-// it.  Offsets into A, x, z and out are 64-bit: k * n_pad is 7.64e9 at
-// Reddit scale.
+// operations at F = 16, 0.74 ms at 989 TFLOP/s).  Each kernel issues its
+// mma.sync (about 60% of the tensor cores' wgmma rate: 1.2 ms at F = 16),
+// its byte conversions (two integer ops and a shift a byte pair: about
+// 1 ms of the integer pipes) and its shared loads under the stream.  The
+// columns kernel takes 3.53 ms at Reddit scale, F = 16 (H100 80GB HBM3 at
+// 700 W): the stream of A, at 2.2 TB/s, sets it.  Offsets into A, x, z
+// and out are 64-bit: k * n_pad is 7.64e9 at Reddit scale.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,118 +111,6 @@
 #include "tma.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowWarps = 16;    // warps per block of int8_rows_kernel
-constexpr int kRowsPerWarp = 4;  // rows of A a warp of it owns
-constexpr int kChunk = 512;      // columns of A per step: 16 bytes a lane
-
-// Byte b of w as a signed int8, in f32: the bits 0x4B0000uu with
-// uu = byte + 128 are the float 2^23 + uu, and subtracting 2^23 + 128
-// leaves the byte's value, exactly.
-__device__ __forceinline__ float s8_to_f32(uint32_t w, int b) {
-  const uint32_t bits =
-      __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540u | b);
-  return __uint_as_float(bits) - 8388736.f;
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// The 16 bytes at column n of rows row0 .. row0 + R - 1 (0 past the
-// block's edges).
-template <int R>
-__device__ __forceinline__ void load_rows(const int8_t* __restrict__ a,
-                                          int64_t k, int64_t n_pad,
-                                          int64_t row0, int64_t n,
-                                          uint4 (&w)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    w[r] = row0 + r < k && n < n_pad
-               ? __ldcs(reinterpret_cast<const uint4*>(
-                     a + (row0 + r) * n_pad + n))
-               : make_uint4(0u, 0u, 0u, 0u);
-}
-
-template <int FG>
-__global__ void __launch_bounds__(kRowWarps * 32, 1)
-int8_rows_kernel(const int8_t* __restrict__ a, int64_t k, int64_t n_pad,
-                 const float* __restrict__ x, int64_t n_x, int64_t f,
-                 float* __restrict__ out) {
-  constexpr int R = kRowsPerWarp;
-  constexpr int kStride = FG + 4;   // an odd count of float4s
-  extern __shared__ float4 smem_rows[];
-  float* xs = reinterpret_cast<float*>(smem_rows);   // [kChunk][kStride]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t row0 =
-      (static_cast<int64_t>(blockIdx.x) * kRowWarps + warp) * R;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * FG;
-
-  float acc[R][FG];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < FG; ++c) acc[r][c] = 0.f;
-
-  uint4 cur[R];
-  load_rows<R>(a, k, n_pad, row0, 16 * lane, cur);
-  for (int64_t n0 = 0; n0 < n_pad; n0 += kChunk) {
-    __syncthreads();   // every warp is done with the previous chunk
-    for (int i = threadIdx.x; i < kChunk * FG; i += kRowWarps * 32) {
-      const int nl = i / FG, c = i % FG;
-      const int64_t n = n0 + nl, col = col0 + c;
-      xs[((nl & 15) * 32 + (nl >> 4)) * kStride + c] =
-          n < n_x && col < f ? x[n * f + col] : 0.f;
-    }
-    __syncthreads();
-    uint4 nxt[R];
-    load_rows<R>(a, k, n_pad, row0, n0 + kChunk + 16 * lane, nxt);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float av[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) av[r] = s8_to_f32(word_of(cur[r], j >> 2),
-                                                    j & 3);
-      const float4* xr =
-          reinterpret_cast<const float4*>(xs + (j * 32 + lane) * kStride);
-#pragma unroll
-      for (int c4 = 0; c4 < FG / 4; ++c4) {
-        const float4 v = xr[c4];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r][4 * c4 + 0] = fmaf(av[r], v.x, acc[r][4 * c4 + 0]);
-          acc[r][4 * c4 + 1] = fmaf(av[r], v.y, acc[r][4 * c4 + 1]);
-          acc[r][4 * c4 + 2] = fmaf(av[r], v.z, acc[r][4 * c4 + 2]);
-          acc[r][4 * c4 + 3] = fmaf(av[r], v.w, acc[r][4 * c4 + 3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) cur[r] = nxt[r];
-  }
-
-  // add the lanes' sums; the xor tree leaves the same sum on every lane
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < FG; ++c) {
-      float v = acc[r][c];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(kFull, v, off);
-      acc[r][c] = v;
-    }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (row0 + r >= k) continue;
-#pragma unroll
-    for (int c = 0; c < FG; ++c)
-      if (c == lane && col0 + c < f) out[(row0 + r) * f + col0 + c] =
-          acc[r][c];
-  }
-}
 
 constexpr int kColConsumers = 4;  // consumer warps of int8_cols_kernel
 constexpr int kColThreads = (kColConsumers + 1) * 32;  // and the producer
@@ -222,6 +120,20 @@ constexpr int kColStages = 2;     // stages in the ring (two blocks an SM)
 constexpr int kColUnit = 16;      // output rows a unit of a block's share
 constexpr int kColPassUnits = kColConsumers * kColSpan / kColUnit;
 constexpr int kBoxBytes = kColSpan * kColRows;  // one warp's box of A
+constexpr int kRowConsumers = 4;  // consumer warps of int8_rows_mma_kernel
+constexpr int kRowThreads = (kRowConsumers + 1) * 32;  // and the producer
+constexpr int kRowTiles = 4;      // 16-row m-tiles a consumer warp owns
+constexpr int kRowWarpRows = 16 * kRowTiles;  // one box of A: 64 rows
+constexpr int kRowBlockRows = kRowConsumers * kRowWarpRows;  // 256
+constexpr int kRowSpan = 128;     // columns of A a stage holds
+constexpr int kRowSteps = kRowSpan / 16;  // k-steps of a stage
+constexpr int kRowStages = 4;     // stages in the ring (one block an SM)
+static_assert(kRowWarpRows == kColRows && kRowSpan == kColSpan,
+              "a rows box is a columns box");
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
 // Bytes of a stage: four boxes of A, then the three parts of z for its two
 // steps, rounded up so that every stage starts on 1,024 bytes (the
@@ -268,8 +180,12 @@ __device__ __forceinline__ void split3(float v, uint32_t (&p)[3]) {
 }
 
 // zf[((grp * ksteps + s) * nt + q) * 3 + part][lane]: the two B-fragment
-// registers of lane for z's rows 16 s .. + 15 and columns 8 (grp nt + q) ..
-// + 7, one thread each; rows past k and columns past f are 0.
+// registers of lane (g, t) for k-step s and columns 8 (grp nt + q) .. + 7
+// (column 8 (grp nt + q) + g), one thread each; rows past k and columns
+// past f are 0.  The k-step's rows: 16 s + 2t, + 1 and + 8, + 9 (the
+// columns kernel's); with kBoxPerm (the rows kernel's contraction order)
+// 128 (s / 8) + 32 t + 4 (s % 8) + 0, 1 and + 2, 3.
+template <bool kBoxPerm>
 __global__ void split_z_kernel(const float* __restrict__ z, int64_t k,
                                int64_t f, int64_t ksteps, int nt,
                                int64_t total, uint2* __restrict__ zf) {
@@ -282,8 +198,12 @@ __global__ void split_z_kernel(const float* __restrict__ z, int64_t k,
   const int64_t s = (frag / nt) % ksteps;
   const int64_t grp = frag / nt / ksteps;
   const int64_t col = (grp * nt + q) * 8 + (lane >> 2);
-  const int64_t r0 = s * 16 + 2 * (lane & 3);
-  const int64_t rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
+  const int t = lane & 3;
+  const int64_t r0 = kBoxPerm ? s / kRowSteps * kRowSpan + 32 * t +
+                                    4 * (s % kRowSteps)
+                              : s * 16 + 2 * t;
+  const int64_t rows[4] = {r0, r0 + 1, r0 + (kBoxPerm ? 2 : 8),
+                           r0 + (kBoxPerm ? 3 : 9)};
   uint32_t parts[4][3];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
@@ -442,26 +362,197 @@ int8_cols_kernel(const __grid_constant__ CUtensorMap amap, int64_t k,
   }
 }
 
-// Output columns a rows block handles: the narrowest of 8 and 16 that
-// covers f; a wider f takes several groups over blockIdx.y.
-int group_of(int64_t f) { return f <= 8 ? 8 : 16; }
+// Bytes of a rows stage: four boxes of A (64 rows x 128 columns each),
+// then the three parts of x for its 8 k-steps, rounded up so that every
+// stage starts on 1,024 bytes.
+template <int NT>
+__host__ __device__ constexpr int row_stage_bytes() {
+  return (kRowConsumers * kBoxBytes + kRowSteps * NT * 3 * 32 * 8 + 1023) /
+         1024 * 1024;
+}
 
-template <int FG>
+template <int NT>
+constexpr size_t row_smem_bytes() {
+  return kRowStages * row_stage_bytes<NT>() + 1024;
+}
+
+// out (k, f) = A x for the block's 256 rows from row0 = 256 blockIdx.x
+// and the columns of group blockIdx.y; xf from split_z_kernel<true>,
+// `boxes` 128-column stages of k-steps each.
+template <int NT>
+__global__ void __launch_bounds__(kRowThreads, 1)
+int8_rows_mma_kernel(const __grid_constant__ CUtensorMap amap, int64_t k,
+                     const uint2* __restrict__ xf, int64_t boxes, int64_t f,
+                     float* __restrict__ out) {
+  constexpr int kXBytes = kRowSteps * NT * 3 * 32 * 8;
+  constexpr int kStage = row_stage_bytes<NT>();
+  extern __shared__ uint8_t row_smem[];
+  __shared__ uint64_t full[kRowStages], empty[kRowStages];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(row_smem) + 1023) & ~uintptr_t(1023));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRowStages; ++s) {
+      tma::bar_init(&full[s], 1);
+      tma::bar_init(&empty[s], kRowConsumers);
+    }
+    tma::fence_init();
+  }
+  __syncthreads();
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowBlockRows;
+  const int64_t grp = blockIdx.y;
+  // boxes of the block with a row of A: the rest are neither loaded nor
+  // read
+  const int live_boxes = static_cast<int>(
+      min(static_cast<int64_t>(kRowConsumers),
+          (k - row0 + kRowWarpRows - 1) / kRowWarpRows));
+
+  if (warp == kRowConsumers) {  // the producer
+    if (lane != 0) return;
+    const uint64_t policy = tma::evict_first();
+    for (int64_t c = 0; c < boxes; ++c) {
+      const int slot = static_cast<int>(c % kRowStages);
+      tma::wait(&empty[slot], ((c / kRowStages) & 1) ^ 1);
+      uint8_t* stage = ring + slot * kStage;
+      tma::arrive_expect(&full[slot], live_boxes * kBoxBytes + kXBytes);
+      for (int b = 0; b < live_boxes; ++b)
+        tma::load_2d(stage + b * kBoxBytes, &amap,
+                     static_cast<int>(c * kRowSpan),
+                     static_cast<int>(row0 + b * kRowWarpRows), &full[slot],
+                     policy);
+      tma::load_1d(stage + kRowConsumers * kBoxBytes,
+                   xf + (grp * boxes + c) * kRowSteps * NT * 3 * 32, kXBytes,
+                   &full[slot]);
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const bool live = warp < live_boxes;
+  float acc[kRowTiles][NT][4];
+#pragma unroll
+  for (int j = 0; j < kRowTiles; ++j)
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][q][e] = 0.f;
+  for (int64_t c = 0; c < boxes; ++c) {
+    const int slot = static_cast<int>(c % kRowStages);
+    tma::wait(&full[slot], (c / kRowStages) & 1);
+    const uint8_t* stage = ring + slot * kStage;
+    if (live) {
+      const uint8_t* box = stage + warp * kBoxBytes;
+      const uint2* xs =
+          reinterpret_cast<const uint2*>(stage + kRowConsumers * kBoxBytes);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // chunk 2t + half of rows g and g + 8 of each m-tile: the words of
+        // k-steps 4 half .. 4 half + 3
+        uint4 w[kRowTiles][2];
+#pragma unroll
+        for (int j = 0; j < kRowTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            w[j][e] = *reinterpret_cast<const uint4*>(
+                box + tma::swizzled<kRowSpan>((16 * j + g + 8 * e) * kRowSpan
+                                              + 32 * t + 16 * half));
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int ks = 4 * half + s;
+          // bytes 0, 1 of a row's word: columns 2t, 2t+1; bytes 2, 3:
+          // 2t+8, 2t+9
+          uint32_t a[kRowTiles][4];
+#pragma unroll
+          for (int j = 0; j < kRowTiles; ++j) {
+            const uint32_t r0 = word_of(w[j][0], s), r8 = word_of(w[j][1], s);
+            a[j][0] = s8x2_bf16x2(r0, r0 >> 8, 0);
+            a[j][1] = s8x2_bf16x2(r8, r8 >> 8, 0);
+            a[j][2] = s8x2_bf16x2(r0, r0 >> 8, 2);
+            a[j][3] = s8x2_bf16x2(r8, r8 >> 8, 2);
+          }
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+#pragma unroll
+            for (int q = 0; q < NT; ++q) {
+              const uint2 bq = xs[((ks * NT + q) * 3 + part) * 32 + lane];
+#pragma unroll
+              for (int j = 0; j < kRowTiles; ++j)
+                mma_bf16(acc[j][q], a[j], bq);
+            }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) tma::arrive(&empty[slot]);
+  }
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < kRowTiles; ++j)
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      const int64_t r = row0 + warp * kRowWarpRows + 16 * j + g;
+      const int64_t c = (grp * NT + q) * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {   // rows r and r + 8
+        if (r + 8 * e >= k) continue;
+        float* o = out + (r + 8 * e) * f + c;
+        if (c < f) o[0] = acc[j][q][2 * e];
+        if (c + 1 < f) o[1] = acc[j][q][2 * e + 1];
+      }
+    }
+}
+
+template <int NT>
 cudaError_t launch_rows(const void* a, int64_t k, int64_t n_pad,
                         const void* x, int64_t n_x, int64_t f, void* out,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kChunk * (FG + 4);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_rows_kernel<FG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                        void* xf, cudaStream_t stream) {
+  const int64_t boxes = (n_pad + kRowSpan - 1) / kRowSpan;
+  const int64_t ksteps = boxes * kRowSteps;
+  const int64_t groups = (f + 8 * NT - 1) / (8 * NT);
+  const int64_t total = groups * ksteps * NT * 32;
+  split_z_kernel<true><<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                         stream>>>(static_cast<const float*>(x), n_x, f,
+                                   ksteps, NT, total,
+                                   static_cast<uint2*>(xf));
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = kRowWarps * kRowsPerWarp;
-  const dim3 grid(static_cast<unsigned>((k + rows - 1) / rows),
-                  static_cast<unsigned>((f + FG - 1) / FG));
-  int8_rows_kernel<FG><<<grid, kRowWarps * 32, smem, stream>>>(
-      static_cast<const int8_t*>(a), k, n_pad, static_cast<const float*>(x),
-      n_x, f, static_cast<float*>(out));
+  CUtensorMap amap;
+  err = tma::encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, n_pad, k,
+                       n_pad, kRowSpan, kRowWarpRows,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const size_t smem = row_smem_bytes<NT>();
+  err = cudaFuncSetAttribute(int8_rows_mma_kernel<NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(
+      static_cast<unsigned>((k + kRowBlockRows - 1) / kRowBlockRows),
+      static_cast<unsigned>(groups));
+  int8_rows_mma_kernel<NT><<<grid, kRowThreads, smem, stream>>>(
+      amap, k, static_cast<const uint2*>(xf), boxes, f,
+      static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+// registers a thread, local bytes a thread, dynamic shared bytes a block
+// and resident blocks an SM of int8_rows_mma_kernel<NT>
+template <int NT>
+cudaError_t rows_attrs(int* o) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, int8_rows_mma_kernel<NT>);
+  if (err != cudaSuccess) return err;
+  const size_t smem = row_smem_bytes<NT>();
+  err = cudaFuncSetAttribute(int8_rows_mma_kernel<NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  o[0] = attr.numRegs;
+  o[1] = static_cast<int>(attr.localSizeBytes);
+  o[2] = static_cast<int>(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      o + 3, int8_rows_mma_kernel<NT>, kRowThreads, smem);
 }
 
 template <int NT>
@@ -471,9 +562,10 @@ cudaError_t launch_cols(const void* a, int64_t k, int64_t n_pad,
   const int64_t ksteps = (k + kColRows - 1) / kColRows * (kColRows / 16);
   const int64_t groups = (f + 8 * NT - 1) / (8 * NT);
   const int64_t total = groups * ksteps * NT * 32;
-  split_z_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                   stream>>>(static_cast<const float*>(z), k, f, ksteps, NT,
-                             total, static_cast<uint2*>(zf));
+  split_z_kernel<false><<<static_cast<unsigned>((total + 255) / 256), 256,
+                          0, stream>>>(static_cast<const float*>(z), k, f,
+                                       ksteps, NT, total,
+                                       static_cast<uint2*>(zf));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   CUtensorMap amap;
@@ -497,17 +589,31 @@ cudaError_t launch_cols(const void* a, int64_t k, int64_t n_pad,
 extern "C" {
 
 // out (k, f) = A @ x for A (k, n_pad) int8 and x (n_x, f) f32, n_x <=
-// n_pad; every element of out is written.  A's rows must be 16-byte
+// n_pad; every element of out is written.  xf is the parts' scratch,
+// 16-byte aligned: ceil(f / (8 nt)) * ceil(n_pad / 128) * 8 * nt * 3 * 32
+// 8-byte words, nt = 1 for f <= 8, else 2.  A's rows must be 16-byte
 // aligned (n_pad a multiple of 16, the base aligned).
 int dgl_int8_rows(const void* a, int64_t k, int64_t n_pad, const void* x,
-                  int64_t n_x, int64_t f, void* out, int64_t device,
-                  void* stream) {
+                  int64_t n_x, int64_t f, void* out, void* xf,
+                  int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  if (k <= 0 || f <= 0 || n_pad % 16) return cudaErrorInvalidValue;
+  if (k <= 0 || f <= 0 || n_pad <= 0 || n_pad % 16 || n_x < 0 ||
+      n_x > n_pad || k > INT32_MAX || n_pad > INT32_MAX)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return group_of(f) == 8 ? launch_rows<8>(a, k, n_pad, x, n_x, f, out, s)
-                          : launch_rows<16>(a, k, n_pad, x, n_x, f, out, s);
+  return f <= 8 ? launch_rows<1>(a, k, n_pad, x, n_x, f, out, xf, s)
+                : launch_rows<2>(a, k, n_pad, x, n_x, f, out, xf, s);
+}
+
+// int8_rows_mma_kernel's instance for f (nt 1 for f <= 8, else 2): its
+// registers a thread, local-memory bytes a thread, dynamic shared bytes a
+// block and resident blocks an SM, four ints into o.
+int dgl_int8_rows_attrs(int64_t f, int64_t device, void* o) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  int* r = static_cast<int*>(o);
+  return f <= 8 ? rows_attrs<1>(r) : rows_attrs<2>(r);
 }
 
 // out (n_pad, f) = A^T @ z for A (k, n_pad) int8 and z (k, f) f32; every

@@ -63,11 +63,11 @@
 // chunk of the buckets, both node rows of every slot gathered with
 // scalar loads, da met in shared-memory atomics) is built by
 // dgl_tpu_torch/tools/perf_ds_fold.py to be timed beside it.
-// row_sddmm_kernel<CPL> (with slot_finish_kernel) replaces
+// row_sddmm_kernel<CPL, false> (with slot_finish_kernel<VEC, false>) replaces
 // K4's SDDMM, dgl_tpu/ops/pallas/tiled_spmm.py tiled_sddmm_dot_multihead
 // :521 (body _sddmm_mh_kernel :494): edgeflat's dW (_SpmmMultihead) and
 // dot_gat_forward's scores :520 (dgl_tpu/ops/pallas/gat_fused.py).
-// row_sddmm_kernel<CPL> with ds_finish_kernel replaces K6's ds,
+// row_sddmm_kernel<CPL, false> with ds_finish_kernel replaces K6's ds,
 // dgl_tpu/ops/pallas/gat_fused.py _ds_kernel :146 (gat_backward :368,
 // _dot_gat_bwd :597, _gatv2_bwd :859, _egatc_bwd :1170, egatc2_backward):
 //
@@ -164,6 +164,31 @@
 // order.  The probe builds the other layouts from this source with edits.
 // Bound: the view, x and z read once, e written at every slot (4H B a
 // slot); chip_smoke.py prints it.
+//
+// K9's scores on the same walk.  row_sddmm_kernel<CPL, true> with
+// slot_finish_kernel<VEC, true> replaces K9's scores,
+// dgl_tpu/ops/pallas/gat_fused.py _gatv2_scores_kernel :670
+// (gatv2_forward :783):
+//
+//   p[b, h, c] = exp(clip(sum_d attn[h, d] lrelu(U[src, h, d] +
+//                V[dst, h, d]), +-40)) at valid slots, 0 at padded ones
+//
+// The same sampled product with attn . lrelu(x + z) in place of x . z:
+// the row's registers hold V[r] and attn (both padded to a multiple of 4
+// columns with zeros: a padded column gives attn lrelu(0) = 0), U[nbr] is
+// gathered with 16-byte loads as x[nbr] is, and a lane's partial of a
+// vector is sum attn lrelu(U + V) over its four floats, with the slope a
+// kernel argument.  The walk writes the raw sum into the entry-major
+// scratch (a row over 1,024 floats in several launches, into parts: the
+// sum over columns adds across chunks); the finishing pass adds the parts
+// in order, then takes exp(clip(s, +-40)) once, where only it sees the
+// whole sum, and writes 0 at the padded slots.  The kernel it replaced
+// (csrc/gatv2.cu vattn_scores_kernel<false, float, false>: a warp a
+// 32-slot chunk of the buckets, both U[src] and V[dst] gathered with
+// scalar loads at every slot, padded slots visited) is built by
+// dgl_tpu_torch/tools/perf_scores_rows.py to be timed beside it.  Bound:
+// the view, U and V read once, attn, p written at every slot (4H B a
+// slot).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,6 +199,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;  // warps per block
+constexpr float kClip = 40.f;  // K9's logit clip (gat_fused.py CLIP)
 
 template <int VEC>
 struct Vec;
@@ -265,6 +291,19 @@ __device__ __forceinline__ void grad_into(float* acc, float w, float4 o,
   grad_into(acc + 1, w, o.y, v.y, slope);
   grad_into(acc + 2, w, o.z, v.z, slope);
   grad_into(acc + 3, w, o.w, v.w, slope);
+}
+
+__device__ __forceinline__ float lrelu(float t, float slope) {
+  return t >= 0.f ? t : slope * t;
+}
+
+// K9's scores (kVattn): sum over the four floats of attn * lrelu(u + v)
+__device__ __forceinline__ float vattn_dot(float4 a, float4 u, float4 v,
+                                          float slope) {
+  float d = a.x * lrelu(u.x + v.x, slope);
+  d = fmaf(a.y, lrelu(u.y + v.y, slope), d);
+  d = fmaf(a.z, lrelu(u.z + v.z, slope), d);
+  return fmaf(a.w, lrelu(u.w + v.w, slope), d);
 }
 
 // K9's da (kDa): acc += w * lrelu(own[r] + y[nbr]) per column
@@ -506,14 +545,19 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
 // different slots, so one store instruction writes up to U slots.  Each
 // output is stored by one lane (`writer`), at an entry of the group's own
 // row: no two lanes store to one address.
-template <int CPL>
+//
+// kVattn (K9's scores): x is U, z is V, and attn (one row laid out as z's,
+// offset to the launch's first head and column) stays in registers beside
+// V[r]; a lane's partial is attn . lrelu(U + V) over its four floats.
+template <int CPL, bool kVattn>
 __global__ void __launch_bounds__(kWarps * 32)
 row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
                  const int* __restrict__ order, int rows,
                  const float* __restrict__ x, const float* __restrict__ z,
                  int f, int hstride, int heads, int hv, int lph, int cph,
                  int lpr, float* __restrict__ out, int ostride,
-                 int* __restrict__ counter) {
+                 int* __restrict__ counter, const float* __restrict__ attn,
+                 float slope) {
   constexpr int U = Unroll<4, CPL>::value;
   constexpr int kLogU = Log2<U>::value;
   const int lane = threadIdx.x & 31;
@@ -550,6 +594,14 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
     if ((fl >> (lg_lph - 1 - t)) & 1) bu += U >> (t + 1);
   }
   const bool writer = (fl & (rest - 1)) == 0;
+  float4 aq[kVattn ? CPL : 1];   // attn of this lane's vectors
+  if constexpr (kVattn) {
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      aq[q] = ok[q] ? __ldg(reinterpret_cast<const float4*>(attn) + vq[q])
+                    : zero_vec<float4>();
+    }
+  }
 
   for (;;) {
     int base = 0;
@@ -592,10 +644,14 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
         for (int q = 0; q < CPL; ++q) {
 #pragma unroll
           for (int u = 0; u < U; ++u) {
-            d[q][u] = xv[u][q].x * zq[q].x;
-            d[q][u] = fmaf(xv[u][q].y, zq[q].y, d[q][u]);
-            d[q][u] = fmaf(xv[u][q].z, zq[q].z, d[q][u]);
-            d[q][u] = fmaf(xv[u][q].w, zq[q].w, d[q][u]);
+            if constexpr (kVattn) {
+              d[q][u] = vattn_dot(aq[q], xv[u][q], zq[q], slope);
+            } else {
+              d[q][u] = xv[u][q].x * zq[q].x;
+              d[q][u] = fmaf(xv[u][q].y, zq[q].y, d[q][u]);
+              d[q][u] = fmaf(xv[u][q].z, zq[q].z, d[q][u]);
+              d[q][u] = fmaf(xv[u][q].w, zq[q].w, d[q][u]);
+            }
           }
         }
         // a head's cph vectors (q = k * cph ..) summed into its first
@@ -643,27 +699,47 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
 }
 
 // out (B, heads, cap) from the walk's scratch, a thread a slot s = b * cap
-// + c: out[b, h, c] = the sum over the parts p, in order, of sm[p *
-// part_stride + entry[s] * heads + h] (entry: the view's slot -> entry
-// map), 0 where entry is -1 (a padded slot).
+// + c, its heads VEC at a time (VEC = 4 where H is a multiple of 4: the
+// scratch in 16-byte vectors): out[b, h, c] = the sum over the parts p, in
+// order, of sm[p * part_stride + entry[s] * heads + h] (entry: the view's
+// slot -> entry map), 0 where entry is -1 (a padded slot).  kExp (K9's
+// scores): exp(clip(sum, +-40)) at a listed slot instead, still 0 at a
+// padded one.
+template <int VEC, bool kExp>
 __global__ void __launch_bounds__(256)
 slot_finish_kernel(const float* __restrict__ sm,
                    const int* __restrict__ entry, long long slots,
                    int heads, int parts, long long part_stride, int cap,
                    float* __restrict__ out) {
+  using V = typename Vec<VEC>::T;
   for (long long s = blockIdx.x * 256LL + threadIdx.x; s < slots;
        s += static_cast<long long>(gridDim.x) * 256) {
     const long long b = s / cap;
     float* o = out + b * heads * cap + (s - b * cap);
     const int k = entry[s];
     const float* p = sm + static_cast<long long>(k) * heads;
-    for (int h = 0; h < heads; ++h) {
-      float v = 0.f;
+    for (int h0 = 0; h0 < heads; h0 += VEC) {
+      float v[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] = 0.f;
       if (k >= 0) {
-        v = p[h];
-        for (int j = 1; j < parts; ++j) v += p[j * part_stride + h];
+        V t = *reinterpret_cast<const V*>(p + h0);
+        const float* tv = reinterpret_cast<const float*>(&t);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) v[i] = tv[i];
+        for (int j = 1; j < parts; ++j) {
+          t = *reinterpret_cast<const V*>(p + j * part_stride + h0);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) v[i] += tv[i];
+        }
+        if constexpr (kExp) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            v[i] = expf(fminf(fmaxf(v[i], -kClip), kClip));
+        }
       }
-      o[h * cap] = v;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[(h0 + i) * cap] = v[i];
     }
   }
 }
@@ -729,21 +805,80 @@ ds_finish_kernel(const float* __restrict__ sm,
   }
 }
 
-template <int CPL>
+template <int CPL, bool kVattn>
 cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
                              int rows, const float* x, const float* z, int f,
                              int hstride, int heads, int hv, int lph, int cph,
                              int lpr, float* out, int ostride, int* counter,
+                             const float* attn, float slope,
                              cudaStream_t stream) {
   unsigned blocks = 0;
   const cudaError_t err = persistent_blocks(
-      row_sddmm_kernel<CPL>, kWarps * 32,
+      row_sddmm_kernel<CPL, kVattn>, kWarps * 32,
       ((static_cast<long long>(rows) * lpr + 31) / 32 + kWarps - 1) / kWarps,
       &blocks);
   if (err != cudaSuccess) return err;
-  row_sddmm_kernel<CPL><<<blocks, kWarps * 32, 0, stream>>>(
+  row_sddmm_kernel<CPL, kVattn><<<blocks, kWarps * 32, 0, stream>>>(
       ptr, nbr, order, rows, x, z, f, hstride, heads, hv, lph, cph, lpr, out,
-      ostride, counter);
+      ostride, counter, attn, slope);
+  return cudaGetLastError();
+}
+
+// dgl_row_sddmm and dgl_row_vattn (attn not null: kVattn)
+cudaError_t row_sddmm_launch(const void* ptr, const void* nbr,
+                             const void* order, int64_t rows, const void* x,
+                             const void* z, int64_t f, int64_t hstride,
+                             int64_t heads, int64_t hv, int64_t lph,
+                             int64_t cph, int64_t lpr, void* out,
+                             int64_t ostride, void* counter, int64_t cpl,
+                             const void* attn, float slope, int64_t device,
+                             void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lph < 1 ||
+      lpr % lph != 0 || (lph & (lph - 1)) != 0 || cph < 1 ||
+      (cph & (cph - 1)) != 0 || hv < 1 ||
+      hv > hstride || heads < 1 || (heads - 1) * hstride * 4 + hv * 4 > f ||
+      ostride < heads || cpl < cph * ((heads + lpr / lph - 1) / (lpr / lph)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_ROW_SDDMM_CASE(C_)                                              \
+  case C_:                                                                  \
+    return attn == nullptr                                                  \
+               ? launch_row_sddmm<C_, false>(DGL_ROW_SDDMM_ARGS)             \
+               : launch_row_sddmm<C_, true>(DGL_ROW_SDDMM_ARGS);
+#define DGL_ROW_SDDMM_ARGS                                                  \
+  static_cast<const int*>(ptr), static_cast<const int*>(nbr),               \
+      static_cast<const int*>(order), static_cast<int>(rows),               \
+      static_cast<const float*>(x), static_cast<const float*>(z),           \
+      static_cast<int>(f), static_cast<int>(hstride),                       \
+      static_cast<int>(heads), static_cast<int>(hv),                        \
+      static_cast<int>(lph), static_cast<int>(cph), static_cast<int>(lpr),  \
+      static_cast<float*>(out), static_cast<int>(ostride),                  \
+      static_cast<int*>(counter),                                           \
+      static_cast<const float*>(attn), slope, s
+  switch (cpl) {
+    DGL_ROW_SDDMM_CASE(1)
+    DGL_ROW_SDDMM_CASE(2)
+    DGL_ROW_SDDMM_CASE(4)
+    DGL_ROW_SDDMM_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_ROW_SDDMM_ARGS
+#undef DGL_ROW_SDDMM_CASE
+}
+
+template <int VEC, bool kExp>
+cudaError_t launch_slot_finish(const void* sm, const void* entry,
+                               int64_t slots, int64_t heads, int64_t parts,
+                               int64_t part_stride, int64_t cap, void* out,
+                               int64_t blocks, cudaStream_t stream) {
+  slot_finish_kernel<VEC, kExp><<<static_cast<unsigned>(blocks), 256, 0,
+                                  stream>>>(
+      static_cast<const float*>(sm), static_cast<const int*>(entry), slots,
+      static_cast<int>(heads), static_cast<int>(parts), part_stride,
+      static_cast<int>(cap), static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -974,55 +1109,57 @@ int dgl_row_sddmm(const void* ptr, const void* nbr, const void* order,
                   int64_t hstride, int64_t heads, int64_t hv, int64_t lph,
                   int64_t cph, int64_t lpr, void* out, int64_t ostride,
                   void* counter, int64_t cpl, int64_t device, void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lph < 1 ||
-      lpr % lph != 0 || (lph & (lph - 1)) != 0 || cph < 1 ||
-      (cph & (cph - 1)) != 0 || hv < 1 ||
-      hv > hstride || heads < 1 || (heads - 1) * hstride * 4 + hv * 4 > f ||
-      ostride < heads || cpl < cph * ((heads + lpr / lph - 1) / (lpr / lph)))
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DGL_ROW_SDDMM_CASE(C_)                                              \
-  case C_:                                                                  \
-    return launch_row_sddmm<C_>(                                            \
-        static_cast<const int*>(ptr), static_cast<const int*>(nbr),         \
-        static_cast<const int*>(order), static_cast<int>(rows),             \
-        static_cast<const float*>(x), static_cast<const float*>(z),         \
-        static_cast<int>(f), static_cast<int>(hstride),                     \
-        static_cast<int>(heads), static_cast<int>(hv),                      \
-        static_cast<int>(lph), static_cast<int>(cph),                       \
-        static_cast<int>(lpr), static_cast<float*>(out),                    \
-        static_cast<int>(ostride), static_cast<int*>(counter), s);
-  switch (cpl) {
-    DGL_ROW_SDDMM_CASE(1)
-    DGL_ROW_SDDMM_CASE(2)
-    DGL_ROW_SDDMM_CASE(4)
-    DGL_ROW_SDDMM_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DGL_ROW_SDDMM_CASE
+  return row_sddmm_launch(ptr, nbr, order, rows, x, z, f, hstride, heads, hv,
+                          lph, cph, lpr, out, ostride, counter, cpl, nullptr,
+                          0.f, device, stream);
+}
+
+// K9's scores by the same walk, one launch of the wrapper's plan: for
+// every entry k of row r, sum over the launch's columns d of head h of
+// attn[h, d] * lrelu(u[nbr[k], h, d] + v[r, h, d]) at out[k * ostride +
+// h]: u, v and attn as dgl_row_sddmm's x and z (attn one row, at the
+// launch's first head and column, 16-byte aligned), slope the leaky
+// ReLU's; the rest as dgl_row_sddmm's.  dgl_slot_finish with exp_clip
+// then takes exp(clip(., +-40)).
+int dgl_row_vattn(const void* ptr, const void* nbr, const void* order,
+                  int64_t rows, const void* u, const void* v, int64_t f,
+                  int64_t hstride, int64_t heads, int64_t hv, int64_t lph,
+                  int64_t cph, int64_t lpr, void* out, int64_t ostride,
+                  void* counter, int64_t cpl, const void* attn, float slope,
+                  int64_t device, void* stream) {
+  if (attn == nullptr) return cudaErrorInvalidValue;
+  return row_sddmm_launch(ptr, nbr, order, rows, u, v, f, hstride, heads, hv,
+                          lph, cph, lpr, out, ostride, counter, cpl, attn,
+                          slope, device, stream);
 }
 
 // out (slots / cap, heads, cap) from the walk's scratch sm (parts of
 // part_stride floats, each entry-major: entry k, head h at k * heads +
-// h): at slot s the sum over the parts, in order, at entry[s], and 0
-// where entry is -1.  entry (slots,) int32.
+// h), every element written: at slot s the sum over the parts, in order,
+// at entry[s] (exp_clip 1: exp(clip(that sum, +-40)), K9's scores from
+// dgl_row_vattn's scratch), and 0 where entry is -1.  vec 4 (heads and
+// part_stride multiples of 4, sm 16-byte aligned) or 1.  entry (slots,)
+// int32.
 int dgl_slot_finish(const void* sm, const void* entry, int64_t slots,
                     int64_t heads, int64_t parts, int64_t part_stride,
-                    int64_t cap, void* out, int64_t blocks, int64_t device,
-                    void* stream) {
+                    int64_t cap, void* out, int64_t vec, int64_t exp_clip,
+                    int64_t blocks, int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  if (cap < 1 || heads < 1 || parts < 1 || blocks < 1 || !sm || !entry)
+  if (cap < 1 || heads < 1 || parts < 1 || blocks < 1 || !sm || !entry ||
+      (vec != 1 && vec != 4) || heads % vec != 0 || part_stride % vec != 0)
     return cudaErrorInvalidValue;
-  slot_finish_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sm), static_cast<const int*>(entry), slots,
-      static_cast<int>(heads), static_cast<int>(parts), part_stride,
-      static_cast<int>(cap), static_cast<float*>(out));
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_SLOT_FINISH(V_, E_)                                            \
+  return launch_slot_finish<V_, E_>(sm, entry, slots, heads, parts,        \
+                                    part_stride, cap, out, blocks, s);
+  if (vec == 4) {
+    if (exp_clip) DGL_SLOT_FINISH(4, true)
+    DGL_SLOT_FINISH(4, false)
+  }
+  if (exp_clip) DGL_SLOT_FINISH(1, true)
+  DGL_SLOT_FINISH(1, false)
+#undef DGL_SLOT_FINISH
 }
 
 // K6's ds from the walk's scratch sm (parts of part_stride floats, each

@@ -59,7 +59,9 @@ and take ds with g = p.  Three more kernels (``csrc/gatv2.cu``), each
 with an edge-term variant, serve both:
 
 * :func:`vattn_scores` (``_gatv2_scores_kernel``,
-  ``_egatc2_scores_kernel``): p;
+  ``_egatc2_scores_kernel``): p; K9's on the dot-product walk by dst of
+  ``csrc/row_agg.cu`` (K4's SDDMM walk in its scores mode, the exp in its
+  finishing pass), K11 v2's on ``gatv2.cu``'s bucket walk;
 * :func:`vattn_slot_grad` (the da, d(ef) and dWf parts of
   ``_gatv2_dv_da_kernel``, ``_egatc2_dv_da_kernel``): with dW = ds[h] *
   attn * lrelu'(raw), da = sum ds[h] lrelu(raw), d(ef) = Wf dW per slot
@@ -608,8 +610,7 @@ def gat_ds(tf: ts.TiledFormat, x3, zn, rp, g, slot_major: bool = False,
     sm, parts = ts.sddmm_dots(view, ts._vec4_rows(x3, hp),
                               ts._vec4_rows(zn, hp))
     r, gg = _f32(rp), _f32(g)
-    vec = 4 if heads % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (sm, r, out)) else 1
+    vec = ts.finish_vec(heads, sm, r, out)
     ts._launch("dgl_ds_finish", sm.data_ptr(),
                view.entries(slots).data_ptr(),
                tf.dst_local.data_ptr(), tf.dst_tile.data_ptr(), tf.tile,
@@ -847,14 +848,26 @@ def vattn_scores(tf: ts.TiledFormat, U3, V3, attn, slope: float,
                  ef_slot=None, wf=None):
     """K9 / K11 v2 scores: p (B, H, C) f32 from U3 (num_src, H, D), V3
     (num_dst, H, D) and attn (H, D); ``ef_slot`` (B, C, Fe) and ``wf``
-    (Fe or Fe + 1, H * D) add the edge term."""
+    (Fe or Fe + 1, H * D) add the edge term.
+
+    On CUDA tensors K9's (no edge term) are the dot-product walk by dst of
+    ``csrc/row_agg.cu`` in its scores mode (``tiled_spmm.sddmm_dots`` with
+    attn: V[dst] and attn in registers, U[src] gathered, U, V and attn
+    padded to a multiple of 4 columns), then csrc ``slot_finish_kernel``'s
+    exp mode, which adds the scratch's parts in order and writes
+    exp(clip(., +-40)) at valid slots and 0 at padded ones; the scratch (E
+    H floats a part) lives only in this call.  K11 v2's (the edge term)
+    are ``gatv2.cu``'s bucket walk.  One count a call."""
     heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
     edge = () if ef_slot is None else (ef_slot, wf)
     if not on_cuda(U3, V3, attn, tf.valid, *edge):
         return vattn_scores_plain(tf, U3, V3, attn, slope, ef_slot, wf)
+    if not edge:
+        p = _vattn_scores_walk(tf, U3, V3, attn, slope)
+        vattn_scores.launches += 1
+        return p
     hd = heads * dim
-    if edge:
-        _fe_cap(rows)
+    _fe_cap(rows)
     _check_vattn_sizes(tf, heads, dim, fe,
                        hd + rows * hd + _VATTN_WARPS * 32 * rows)
     b, cap = tf.num_buckets, tf.cap
@@ -863,15 +876,14 @@ def vattn_scores(tf: ts.TiledFormat, U3, V3, attn, slope: float,
     if heads == 0:
         return p
     u, v, a = _f32(U3), _f32(V3), _f32(attn)
-    ef_c, wf_c = (None, None) if not edge else (_f32(ef_slot), _f32(wf))
+    ef_c, wf_c = _f32(ef_slot), _f32(wf)
     blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
                         16 * ts._sms(u.device)))
     _launch("dgl_vattn_scores", tf.src_local.data_ptr(),
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
             tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
-            u.data_ptr(), v.data_ptr(), a.data_ptr(),
-            0 if ef_c is None else ef_c.data_ptr(),
-            0 if wf_c is None else wf_c.data_ptr(), fe, rows, heads, dim,
+            u.data_ptr(), v.data_ptr(), a.data_ptr(), ef_c.data_ptr(),
+            wf_c.data_ptr(), fe, rows, heads, dim,
             ts._lanes_per_head(heads), float(slope), 0, 0, p.data_ptr(),
             blocks, u.device.index, ts._stream(u.device), source="gatv2")
     vattn_scores.launches += 1
@@ -879,6 +891,30 @@ def vattn_scores(tf: ts.TiledFormat, U3, V3, attn, slope: float,
 
 
 vattn_scores.launches = 0
+
+
+def _vattn_scores_walk(tf: ts.TiledFormat, U3, V3, attn, slope: float):
+    """K9's p (B, H, C) on CUDA tensors: the walk by dst in its scores mode
+    into the entry-major scratch, then ``dgl_slot_finish`` with its exp."""
+    heads, dim = U3.shape[1], U3.shape[2]
+    b, cap = tf.num_buckets, tf.cap
+    slots = b * cap
+    ts._check_int32(slots * heads)
+    p = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
+                    device=U3.device)
+    view = tf.row_view("dst")
+    if slots == 0 or heads == 0 or view.slot.numel() == 0:
+        return p.zero_()       # no slot is valid
+    hp = -(-dim // 4) * 4
+    sm, parts = ts.sddmm_dots(
+        view, ts._vec4_rows(U3, hp), ts._vec4_rows(V3, hp),
+        ts._vec4_rows(attn.reshape(1, heads, dim), hp), slope)
+    ts._launch("dgl_slot_finish", sm.data_ptr(),
+               view.entries(slots).data_ptr(), slots, heads, parts,
+               sm.shape[1], cap, p.data_ptr(), ts.finish_vec(heads, sm), 1,
+               ts.finish_blocks(slots, U3.device), U3.device.index,
+               ts._stream(U3.device), source="row_agg")
+    return p
 
 
 def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,

@@ -12,12 +12,13 @@ over it:
 Both are kernels of ``csrc/int8mm.cu`` that stream A once and sum in f32
 in a fixed order (no atomics).  A is used as the builder made it: the
 TPU's (1024, 2048) block padding and 128-lane F padding are not carried.
-x and z are taken in f32, where the TPU kernel rounds them to bf16.  The
-column product runs on the tensor cores: A reaches shared memory by TMA
-and is turned into bf16 there (exact), z is cut into three bf16 parts
-whose sum is z (:func:`split_bf16x3`), and each part's product is summed
-in f32 by ``mma.sync``; :func:`cols_plan` is how its blocks share the
-output.
+x and z are taken in f32, where the TPU kernel rounds them to bf16.  Both
+products run on the tensor cores: A reaches shared memory by TMA and is
+turned into bf16 there (exact), x or z is cut into three bf16 parts whose
+sum is it (:func:`split_bf16x3`), and each part's product is summed in f32
+by ``mma.sync``; :func:`cols_plan` and :func:`rows_plan` are how their
+blocks share the output, and :func:`rows_contraction_rows` the order in
+which the row product contracts each 128 columns of A.
 
 A wrapper checks dtypes, shapes and contiguity and raises on a mismatch.
 It launches its kernel on CUDA tensors, and raises if the build or the
@@ -46,6 +47,9 @@ COL_UNIT = 16            # output rows in a unit of a column block's share
 COL_PASS_UNITS = 32      # units a column block takes in one pass (512 rows)
 COL_ROWS = 64            # rows of A in a stage of the column kernel
 COL_CTAS_PER_SM = 2      # column blocks an SM holds
+ROW_BLOCK_ROWS = 256     # rows of A (16-row m-tiles) a row block owns
+ROW_SPAN = 128           # columns of A in a stage of the row kernel
+ROW_STAGES = 4           # stages in the row kernel's ring
 
 
 def _row_chunk(n_pad: int) -> int:
@@ -113,6 +117,42 @@ def cols_scratch_words(k: int, f: int) -> int:
     return groups * (-(-k // COL_ROWS) * COL_ROWS // 16) * nt * 3 * 32
 
 
+def rows_scratch_words(n_pad: int, f: int) -> int:
+    """8-byte words of the row kernel's x parts: for each group of
+    8 ``col_tiles(f)`` columns, each 128 columns of A (``ROW_SPAN``: 8
+    k-steps) and each n-tile, 3 parts x 32 lanes."""
+    nt = col_tiles(f)
+    groups = -(-f // (8 * nt))
+    return groups * (-(-n_pad // ROW_SPAN) * ROW_SPAN // 16) * nt * 3 * 32
+
+
+def rows_plan(k: int, f: int):
+    """The row kernel's blocks, one tuple a block (blockIdx.x, blockIdx.y):
+    (first row, end row, first column, end column) of out that it writes.
+    Block (i, grp) owns the rows 256 i .. 256 i + 255 of A (cut at k) and
+    the columns of group grp, 8 ``col_tiles(f)`` of them (cut at f), each
+    block walking the whole of n.  ``int8_rows_mma_kernel`` launches the
+    same grid."""
+    w = 8 * col_tiles(f)
+    return [(r0, min(k, r0 + ROW_BLOCK_ROWS), c0, min(f, c0 + w))
+            for r0 in range(0, k, ROW_BLOCK_ROWS)
+            for c0 in range(0, f, w)]
+
+
+def rows_contraction_rows(step: int, lane: int):
+    """The four rows of x (columns of A) that k-step ``step`` of the row
+    kernel contracts for lane (g, t) = (lane // 4, lane % 4), in the order
+    of the B fragment's elements (logical rows 2t, 2t+1, 2t+8, 2t+9 of the
+    step): 128 (step // 8) + 32 t + 4 (step % 8) + 0, 1, 2, 3.  Lane t of
+    a warp reads columns 32 t .. 32 t + 31 of a row of A as two 16-byte
+    loads, word s of them feeding k-step s, so the contraction takes each
+    128 columns in this order; ``split_z_kernel<true>`` writes x's parts
+    in it."""
+    t = lane % 4
+    r0 = step // 8 * ROW_SPAN + 32 * t + 4 * (step % 8)
+    return (r0, r0 + 1, r0 + 2, r0 + 3)
+
+
 def cols_plan(n_pad: int, f: int, ctas: int):
     """The column kernel's passes, one list a block: (group, first output
     row, rows).  The n_pad / 16 units of 16 rows of each group of
@@ -140,7 +180,8 @@ def cols_plan(n_pad: int, f: int, ctas: int):
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    "dgl_int8_rows": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
+    "dgl_int8_rows": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
+    "dgl_int8_rows_attrs": [_I, _I, _P],
     "dgl_int8_cols": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _P],
 }
 
@@ -176,7 +217,11 @@ def _check_aligned(a: torch.Tensor):
 
 def int8_matmul_rows(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K12, ``_mm_kernel``: (k, F) f32 = A @ x for the int8 block A
-    (k, N_pad) and x (N, F) f32, N <= N_pad (rows past N count as 0)."""
+    (k, N_pad) and x (N, F) f32, N <= N_pad (rows past N count as 0).  On
+    the card: the parts of x in the row kernel's contraction order
+    (``split_z_kernel<true>``) into a scratch, then
+    ``int8_rows_mma_kernel`` on the blocks of :func:`rows_plan`; one count
+    a call."""
     _check(a, x, "x")
     if x.shape[0] > a.shape[1]:
         raise ValueError(f"x has {x.shape[0]} rows, the block "
@@ -188,15 +233,34 @@ def int8_matmul_rows(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(k, f, dtype=torch.float32, device=x.device)
     if k == 0 or f == 0:
         return out
+    if n_pad == 0:
+        return out.zero_()
     _check_aligned(a)
+    xf = torch.empty(rows_scratch_words(n_pad, f), dtype=torch.int64,
+                     device=x.device)
     _launch("dgl_int8_rows", a.data_ptr(), k, n_pad, x.data_ptr(),
-            x.shape[0], f, out.data_ptr(), x.device.index,
+            x.shape[0], f, out.data_ptr(), xf.data_ptr(), x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream)
     int8_matmul_rows.launches += 1
     return out
 
 
 int8_matmul_rows.launches = 0
+
+
+def rows_kernel_attrs(f: int, device=None):
+    """(registers a thread, local-memory bytes a thread, dynamic shared
+    bytes a block, resident blocks an SM) of ``int8_rows_mma_kernel``'s
+    instance for F = ``f``, from ``cudaFuncGetAttributes`` and the
+    occupancy calculator."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 4)()
+    lib = build.load("int8mm", _SIGNATURES)
+    err = lib.dgl_int8_rows_attrs(f, device.index or 0,
+                                  ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_int8_rows_attrs: CUDA error {err}")
+    return tuple(out)
 
 
 def int8_matmul_cols(a: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

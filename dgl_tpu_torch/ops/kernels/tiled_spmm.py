@@ -39,7 +39,8 @@ the same function:
   e[b, h, c] = <x[src, h, :], z[dst, h, :]> for every slot, 0 at padded
   slots (the TPU kernel leaves whatever its one-hot products give there),
   a walk of the row view by dst that keeps z[dst] in registers and
-  gathers x[src] (:func:`sddmm_walk`).
+  gathers x[src] (:func:`sddmm_walk`); its scores mode (:func:`sddmm_dots`
+  with ``attn``) serves ``gat_fused.vattn_scores`` (K9).
 
 The row view (:class:`RowView`, ``TiledFormat.row_view``) lists the valid
 slots of one side's rows: per row, ascending slot id, the flat slot and
@@ -519,7 +520,10 @@ _SIGNATURES = {
         "dgl_row_node_grad_attrs": [_I, _I, _I, _I, _P],
         "dgl_row_sddmm": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P, _I, _P, _I, _I, _P],
-        "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+        "dgl_row_vattn": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P, _I, _P, _I, _P, ctypes.c_float, _I, _P],
+        "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                            _P],
         "dgl_ds_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                           ctypes.c_double, _P, _I, _I, _I, _I, _P]},
 }
@@ -898,17 +902,25 @@ def _sddmm_args(view: RowView, nbr: torch.Tensor, x: torch.Tensor,
             x.device.index, _stream(x.device))
 
 
-def sddmm_dots(view: RowView, x: torch.Tensor, z: torch.Tensor):
+def sddmm_dots(view: RowView, x: torch.Tensor, z: torch.Tensor,
+               attn: torch.Tensor = None, slope: float = 0.0):
     """(sm, parts): the launches of :func:`_sddmm_plan` over the rows of
     ``view`` on CUDA tensors, each entry's dots written into an (E, H)
     scratch a part, at the entry (sm[part, k * H + h] = the part's share
     of <x[nbr[k], h], z[r, h]>), where a round's stores fill whole
     sectors; ``sm`` (parts, E * H) f32, zeros where hp is 0.  ``x``, ``z``
-    as :func:`_sddmm_args` takes them.  Counts nothing."""
+    as :func:`_sddmm_args` takes them.  With ``attn`` (1, H, hp) f32,
+    contiguous and 16-byte aligned, zero past the head width: K9's
+    scores instead (``dgl_row_vattn``), the part's share of sum_d attn[h,
+    d] lrelu(x[nbr[k], h, d] + z[r, h, d]) with ``slope``, x = U and z =
+    V.  Counts nothing."""
     heads, hp = x.shape[1], x.shape[2]
     if hp % 4 or z.shape[1:] != x.shape[1:]:
         raise ValueError(f"x {tuple(x.shape)} and z {tuple(z.shape)} need "
                          "one (H, hp) with hp a multiple of 4")
+    if attn is not None and tuple(attn.shape) != (1, heads, hp):
+        raise ValueError(f"attn {tuple(attn.shape)} does not match x "
+                         f"{tuple(x.shape)}")
     e = view.slot.numel()
     if hp == 0 or heads == 0:
         return torch.zeros(1, e * heads, dtype=torch.float32,
@@ -921,9 +933,14 @@ def sddmm_dots(view: RowView, x: torch.Tensor, z: torch.Tensor):
         return sm, parts
     counters = torch.zeros(len(plan), dtype=torch.int32, device=x.device)
     for i, launch in enumerate(plan):
-        _launch("dgl_row_sddmm", *_sddmm_args(
-            view, view.nbr, x, z, sm[launch[4]], heads, counters[i], launch),
-            source="row_agg")
+        args = _sddmm_args(view, view.nbr, x, z, sm[launch[4]], heads,
+                           counters[i], launch)
+        if attn is None:
+            _launch("dgl_row_sddmm", *args, source="row_agg")
+        else:       # attn at the launch's first head and column, as z
+            off = 4 * (launch[0] * hp + 4 * launch[2])
+            _launch("dgl_row_vattn", *args[:-2], attn.data_ptr() + off,
+                    float(slope), *args[-2:], source="row_agg")
     return sm, parts
 
 
@@ -931,6 +948,14 @@ def finish_blocks(slots: int, device) -> int:
     """Blocks of 256 threads of a finishing pass over ``slots`` slots, a
     thread a slot, grid-stride: at most 32 an SM."""
     return max(1, min(-(-slots // 256), 32 * _sms(device)))
+
+
+def finish_vec(heads: int, *tensors) -> int:
+    """Heads a thread of a finishing pass takes at a time: 4 (16-byte
+    loads and stores) where H is a multiple of 4 and every tensor the pass
+    reads or writes in vectors is 16-byte aligned, else 1."""
+    return 4 if heads % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
 def sddmm_walk(view: RowView, num_buckets: int, cap: int, x: torch.Tensor,
@@ -952,8 +977,8 @@ def sddmm_walk(view: RowView, num_buckets: int, cap: int, x: torch.Tensor,
     slots = num_buckets * cap
     _launch("dgl_slot_finish", sm.data_ptr(), view.entries(slots).data_ptr(),
             slots, heads, parts, e * heads, cap, out.data_ptr(),
-            finish_blocks(slots, x.device), x.device.index,
-            _stream(x.device), source="row_agg")
+            finish_vec(heads, sm), 0, finish_blocks(slots, x.device),
+            x.device.index, _stream(x.device), source="row_agg")
     return out
 
 

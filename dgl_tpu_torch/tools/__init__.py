@@ -8,8 +8,10 @@ choices (:mod:`.perf_row_walk`) and of the SDDMM walk's write layouts
 that time K5's backward and K9's node gradient (:mod:`.perf_bwd_walks`)
 and K5's forward (:mod:`.perf_fwd_walks`) beside the kernels they
 replaced and edits of their own, and the one that times K6's ds and
-K9's da beside the kernels they replaced (:mod:`.perf_ds_fold`), all
-called from ``chip_smoke.py``'s yardsticks.  Each runs as ``python -m
+K9's da beside the kernels they replaced (:mod:`.perf_ds_fold`), and
+the one that times K9's scores and K12's row product beside the kernels
+they replaced (:mod:`.perf_scores_rows`), all called from
+``chip_smoke.py``'s yardsticks.  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
 import ctypes
 import hashlib

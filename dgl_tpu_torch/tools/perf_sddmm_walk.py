@@ -346,8 +346,9 @@ def probe(fwd, rate, log=print):
                                                           out))
         r["entry_pass"] = cuda_ms(lambda: tts._launch(
             "dgl_slot_finish", scratch.data_ptr(), entries.data_ptr(), slots,
-            heads, 1, e * heads, fwd.cap, out.data_ptr(), blocks,
-            x.device.index, tts._stream(x.device), source="row_agg"))
+            heads, 1, e * heads, fwd.cap, out.data_ptr(),
+            tts.finish_vec(heads, scratch), 0, blocks, x.device.index,
+            tts._stream(x.device), source="row_agg"))
         r["direct_walk"] = cuda_ms(lambda: walk_alone(
             walks["direct"], view, ids, x, z, out, fwd.cap))
         r["slot_major_walk"] = cuda_ms(lambda: walk_alone(

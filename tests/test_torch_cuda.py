@@ -1056,6 +1056,74 @@ def test_node_grad_row_walk_matches_plain_exactly(card, heads, dim):
         assert tgf.vattn_node_grad.launches == before + 2
 
 
+# route 5's two layers, a narrow head, a wide one, rows over 1,024 columns
+# (two column parts; two head groups) and a head width that takes the pad
+SCORES_WALK_SHAPES = [(8, 8), (1, 41), (4, 16), (2, 64), (1, 1100), (4, 300),
+                      (3, 5)]
+
+
+@pytest.mark.parametrize("heads,dim", SCORES_WALK_SHAPES)
+def test_vattn_scores_walk_matches_plain(card, heads, dim):
+    """K9's scores on the dot-product walk by dst (``row_sddmm_kernel<CPL,
+    true>`` and ``slot_finish_kernel``'s exp mode) against the plain
+    version: U, V and attn on a grid of 1/16 and a slope of 1/4 keep every
+    logit exact in f32 in any order, so the two differ only by their exp
+    (rtol 1e-6); then
+    attn of 16 times one sign on U, V >= 0 takes logits past +40 and past
+    -40 (the clip); 0 at every padded slot; two calls give the same bits;
+    one count a call."""
+    fwd, _, _, _ = _tiled(card)
+    gen = torch.Generator(device=card).manual_seed(heads * 1000 + dim)
+
+    def grid(*shape, top):
+        return torch.randint(-top, top + 1, shape, device=card,
+                             generator=gen).float() / 16
+
+    U = grid(fwd.num_src, heads, dim, top=16)
+    V = grid(fwd.num_dst, heads, dim, top=16)
+    a = grid(heads, dim, top=8)
+    pad = fwd.valid.reshape(fwd.num_buckets, 1, fwd.cap) == 0
+    for case, (u, v, attn) in enumerate(
+            ((U, V, a), (U.abs(), V.abs(), 16 * a.abs()),
+             (U.abs(), V.abs(), -16 * a.abs()))):
+        before = tgf.vattn_scores.launches
+        got = tgf.vattn_scores(fwd, u, v, attn, 0.25)
+        torch.cuda.synchronize()
+        assert tgf.vattn_scores.launches == before + 1
+        want = tgf.vattn_scores_plain(fwd, u, v, attn, 0.25)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert (got.masked_select(pad) == 0).all() and pad.any()
+        assert torch.equal(got, tgf.vattn_scores(fwd, u, v, attn, 0.25))
+        if case == 1:
+            assert (want >= math.exp(40.0) * (1 - 1e-6)).any()
+        if case == 2:
+            assert ((want > 0) & (want <= math.exp(-40.0) * (1 + 1e-6))).any()
+
+
+def test_vattn_scores_without_a_term_retired_from_gatv2(card):
+    """``dgl_vattn_scores`` no longer launches K9's bucket walk: without an
+    edge term or a stored one it refuses; ``tools/perf_scores_rows.py``
+    builds that instance again from an edit, and it gives the walk's p."""
+    from dgl_tpu_torch.tools import perf_scores_rows as tsr
+    fwd, _, _, _ = _tiled(card)
+    U, V, attn, _, _, _ = _vattn_inputs(card, fwd, 4, 32, 0, False, 3)
+    b, cap = fwd.num_buckets, fwd.cap
+    p = torch.empty(b, 4, cap, device=card)
+    with pytest.raises(RuntimeError, match="dgl_vattn_scores"):
+        tgf._launch("dgl_vattn_scores", fwd.src_local.data_ptr(),
+                    fwd.dst_local.data_ptr(), fwd.valid.data_ptr(),
+                    fwd.src_tile.data_ptr(), fwd.dst_tile.data_ptr(), b,
+                    fwd.tile, cap, U.data_ptr(), V.data_ptr(),
+                    attn.data_ptr(), 0, 0, 0, 0, 4, 32,
+                    tts._lanes_per_head(4), 0.2, 0, 0, p.data_ptr(), 8,
+                    card.index or 0,
+                    torch.cuda.current_stream(card).cuda_stream,
+                    source="gatv2")
+    torch.testing.assert_close(tsr.bucket_scores(fwd, U, V, attn, 0.2),
+                               tgf.vattn_scores(fwd, U, V, attn, 0.2),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_vattn_wrappers_never_take_plain_on_cuda(card, monkeypatch):
     """On CUDA tensors each wrapper launches its kernel: a plain version
     that is reached raises."""
@@ -1531,6 +1599,54 @@ def test_int8_kernels_64bit_offsets(card):
     assert torch.equal(rows, tgi8.int8_matmul_rows_plain(a, x))
     assert torch.equal(tgi8.int8_matmul_cols(a, z),
                        tgi8.int8_matmul_cols_plain(a, z))
+
+
+@pytest.mark.parametrize("f", [1, 8, 16, 41, 128])
+@pytest.mark.parametrize("k,n_pad,n_x", [(1003, 5008, 5000),
+                                         (77, 23_936, 23_900),
+                                         (300, 400, 400)])
+def test_int8_rows_tensor_cores_exact_and_repeatable(card, f, k, n_pad,
+                                                     n_x):
+    """The row kernel (bf16 mma.sync over three parts of x, the contraction
+    permuted within each 128 columns) at ragged k (not a multiple of its
+    256-row block or 64-row box) and N_pad (not of its 128-column stage),
+    x shorter than N_pad, on int8 values over -128..127: exactly the
+    plain version on a grid of 2^-12 in [-1/4, 1/4] (values bf16 does not
+    hold; every sum exact in f32), two calls the same bits on normal
+    inputs, and its instance spills nothing (shared memory, not its
+    registers, keeps it at one block an SM)."""
+    gen = torch.Generator(device=card).manual_seed(f * 1000 + k)
+    a = torch.randint(-128, 128, (k, n_pad), dtype=torch.int8, device=card,
+                      generator=gen)
+    a *= torch.rand(k, n_pad, device=card, generator=gen) < 0.005
+    a[0, 0], a[-1, n_x - 1] = -128, 127
+    assert int(a.abs().sum(1, dtype=torch.int64).max()) / 4 < 2 ** 12
+    x = torch.randint(-1024, 1025, (n_x, f), device=card,
+                      generator=gen).float() * 2.0 ** -12
+    before = tgi8.int8_matmul_rows.launches
+    got = tgi8.int8_matmul_rows(a, x)
+    torch.cuda.synchronize()
+    assert tgi8.int8_matmul_rows.launches == before + 1
+    assert torch.equal(got, tgi8.int8_matmul_rows_plain(a, x))
+    normal = torch.randn(n_x, f, device=card, generator=gen)
+    assert torch.equal(tgi8.int8_matmul_rows(a, normal),
+                       tgi8.int8_matmul_rows(a, normal))
+    regs, local, smem, per_sm = tgi8.rows_kernel_attrs(f)
+    assert local == 0 and per_sm == 1 and smem <= 232_448
+
+
+def test_int8_rows_probe_retired_kernel(card):
+    """``tools/perf_scores_rows.py`` builds the f32-FMA row walk that the
+    tensor-core product replaced, and on a grid both give the plain
+    version's bits."""
+    from dgl_tpu_torch.tools import perf_scores_rows as tsr
+    a = _int8_block(card, 700, 5008, 5000, density=0.03, seed=5)
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randint(-1024, 1025, (5000, 16), device=card,
+                      generator=gen).float() * 2.0 ** -12
+    want = tgi8.int8_matmul_rows_plain(a, x)
+    assert torch.equal(tsr.fma_rows(a, x), want)
+    assert torch.equal(tgi8.int8_matmul_rows(a, x), want)
 
 
 def _hub_coo(n=6000, seed=41):

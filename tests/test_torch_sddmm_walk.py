@@ -70,14 +70,16 @@ def _coo(seed=0):
 U_BY_CPL = {1: 8, 2: 4, 4: 2, 8: 2}     # csrc/row_agg.cu Unroll<4, CPL>
 
 
-def _launch_rendered(v, x, z, nh, nv, rows):
+def _launch_rendered(v, x, z, nh, nv, rows, partial=None):
     """One launch of ``row_sddmm_kernel`` over view ``v``, lane by lane:
     x, z (n, nh * nv, 4), the launch's heads and vectors; each row's
     slots in rounds of U (lpr slots a step, U at a time), each lane's
     partial dots of its vectors, a head's vectors summed in the lane, the
     butterfly over the head's lanes (halving steps, then plain xor steps),
-    the writer lanes' stores.  Returns [(entries, head, dots)], one for
-    each store instruction of the writers."""
+    the writer lanes' stores.  ``partial(xs, zs, vq)``: a lane's partial
+    of vector vq from the gathered rows xs (m, 4) and the rows' own zs (m,
+    4) in place of the dot (K9's scores mode).  Returns [(entries, head,
+    dots)], one for each store instruction of the writers."""
     lph, cph, lpr, cpl = tts._sddmm_layout(nh, nv)
     u_n, hpp = U_BY_CPL[cpl], lpr // lph
     ptr = v.ptr.numpy().astype(np.int64)
@@ -104,8 +106,10 @@ def _launch_rendered(v, x, z, nh, nv, rows):
             vq = hq[li, q] * nv + vi[li]
             live = entry >= 0
             e = entry[live]
-            d[live.nonzero()[0], li, q, live.nonzero()[1]] = \
-                (x[nbr[e], vq] * z[rows[e], vq]).sum(-1)
+            xs, zs = x[nbr[e], vq], z[rows[e], vq]
+            d[live.nonzero()[0], li, q, live.nonzero()[1]] = (
+                (xs * zs).sum(-1) if partial is None
+                else partial(xs, zs, vq))
     sp = 1
     while sp < cpl and sp < cph:     # a head's vectors into its first
         for q in range(0, cpl - sp, 2 * sp):

@@ -136,12 +136,17 @@ def _swizzled(off, row_bytes):
     return off ^ (((off >> 7) & (row_bytes // 16 - 1)) << 4)
 
 
-def _render_split(z, k, f):
+def _render_split(z, k, f, box_perm=False, k_pad=None):
     """The split kernel's scratch: [group][step][n-tile][part][lane] x 2
-    registers."""
+    registers.  ``box_perm`` (the row kernel's, ``split_z_kernel<true>``):
+    the steps of each 128 rows in its contraction order
+    (``int8mm.rows_contraction_rows``), over ``k_pad`` rows (n_pad) rounded
+    up to 128; else the column kernel's, rows 16 s + 2t, + 1, + 8, + 9,
+    over k rounded up to 64."""
     nt = i8.col_tiles(f)
     groups = -(-f // (8 * nt))
-    kp = -(-k // i8.COL_ROWS) * i8.COL_ROWS
+    span = i8.ROW_SPAN if box_perm else i8.COL_ROWS
+    kp = -(-(k if k_pad is None else k_pad) // span) * span
     zp = np.zeros((kp, groups * nt * 8), np.float32)
     zp[:k, :f] = z
     parts = [_bits(p.float())[:, :] >> 16 & 0xFFFF
@@ -153,13 +158,18 @@ def _render_split(z, k, f):
         for s in range(kp // 16):
             for q in range(nt):
                 col = (grp * nt + q) * 8 + g
-                r0 = s * 16 + 2 * t
+                if box_perm:
+                    r = np.array([i8.rows_contraction_rows(s, ln)
+                                  for ln in lane]).T
+                else:
+                    r0 = s * 16 + 2 * t
+                    r = (r0, r0 + 1, r0 + 8, r0 + 9)
                 for p, bits in enumerate(parts):
                     bits = bits.astype(np.uint32)
-                    zf[grp, s, q, p, :, 0] = bits[r0, col] | bits[r0 + 1,
-                                                                 col] << 16
-                    zf[grp, s, q, p, :, 1] = (bits[r0 + 8, col]
-                                              | bits[r0 + 9, col] << 16)
+                    zf[grp, s, q, p, :, 0] = bits[r[0], col] | bits[r[1],
+                                                                   col] << 16
+                    zf[grp, s, q, p, :, 1] = (bits[r[2], col]
+                                              | bits[r[3], col] << 16)
     return zf
 
 

@@ -9,9 +9,12 @@ Phases, each of which raises on failure (nothing is caught):
    probe of the kernels that K6's ds and K9's da replaced
    (``dgl_tpu_torch/tools/perf_ds_fold.py``), the probe of the kernels
    that K5's forward walk replaced (``dgl_tpu_torch/tools/
-   perf_fwd_walks.py``, with an edit of the walk) and the probe of the
+   perf_fwd_walks.py``, with an edit of the walk), the probe of the
    kernels that K9's scores walk and K12's tensor-core rows replaced
-   (``dgl_tpu_torch/tools/perf_scores_rows.py``) build beside it;
+   (``dgl_tpu_torch/tools/perf_scores_rows.py``) and the probe of the
+   kernels that the row reduce and K3's row walk replaced, with an edit
+   of the walk (``dgl_tpu_torch/tools/perf_reduce_k3.py``) build beside
+   it;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
    reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
@@ -20,7 +23,10 @@ Phases, each of which raises on failure (nothing is caught):
    ``both``) trained for 10 Adam steps on the Reddit-statistics graph
    (232,965 nodes, 114.6M edges plus self-loops) in the bitmask format,
    then one warm-up step and one recorded step under ``torch.profiler``
-   for the device time by kernel (every profiled step below is taken so);
+   for the device time by kernel (every profiled step below is taken so,
+   the card idle for a quarter second on each side of the recorded step,
+   and taken again, up to three times, while its trace misses a launch
+   the counters counted);
 5. one step's loss and weight gradients through the kernels against the
    gather + ``index_add_`` path, and K1 against its plain version at full
    size;
@@ -66,8 +72,9 @@ Phases, each of which raises on failure (nothing is caught):
    and the row walk's views (the forward's by dst and by src, the
    reverse's by dst) and the forward dst view's slot -> entry map (K4's
    SDDMM), their build time and bytes;
-13. route 1: the phase-4 GCN for 10 Adam steps on the tiled format (K3),
-   a profiled step, and one step against the gather path;
+13. route 1: the phase-4 GCN for 10 Adam steps on the tiled format (K3,
+   the row walk by dst, weightless), a profiled step, and one step
+   against the gather path;
 14. route 3: the same GCN with ``norm="none"`` and edge weights from
    ``EdgeWeightNorm("both")`` of ones, cached in slot order: its logits
    against route 1's; then the weights as a tensor that needs a gradient,
@@ -81,7 +88,12 @@ Phases, each of which raises on failure (nothing is caught):
    K4's SpMM; a batched ``torch.sparse.sampled_addmm`` for K4's SDDMM),
    the three times (median of 5) and the bound (for the SDDMM also the
    bucket walk's, in brackets); for both walks of K4 also the rate of
-   their gathers;
+   their gathers.  K3 (the row walk by dst at one head) without and with
+   slot weights on a grid, equal to its plain version bit for bit twice,
+   with the tiled walk it replaced and two edits of the walk (a row of 4
+   lanes taking 8 entries a step; one head's weights read in rounds and
+   shuffled) (``perf_reduce_k3``) timed beside it and held to the same
+   sums;
 17. the slot-space slice at mid size: each K6 kernel (scores with and
    without a per-slot bias, the slot reduce on both sides, ds, the
    src-side aggregation) against its plain version on the phase-3
@@ -102,10 +114,15 @@ Phases, each of which raises on failure (nothing is caught):
    version's, the bound and, where one PyTorch call computes the same
    function, that call's time (``index_add_`` for the slot reduce, a
    block-diagonal ``torch.sparse.mm`` on the transposed pattern for the
-   src-side aggregation).  ds (the dot-product walk with its epilogue in
-   the finishing pass) on dyadic inputs, equal to its plain version bit
-   for bit in both layouts, with the bucket walk it replaced
-   (``dgl_tpu_torch/tools/perf_ds_fold.py``) timed beside it.
+   src-side aggregation).  The slot reduce (the row reduce) on p
+   slot-major, bit for bit its plain version twice, timed also on p in
+   place, on every block that fits an SM (an edit) and beside the tiled
+   reduce it replaced (``perf_reduce_k3``), with its registers; at H = 1
+   also 8 lanes a row.  ds (the dot-product
+   walk with its epilogue in the finishing pass) on dyadic inputs, equal
+   to its plain version bit for bit in both layouts, with the bucket walk
+   it replaced (``dgl_tpu_torch/tools/perf_ds_fold.py``) timed beside
+   it.
 21. the vector-attention slice at mid size: each K9 / K11 v2 kernel
    (scores, slot gradient, node gradient on both sides) against its plain
    version on the phase-3 multigraph in the tiled format at (H, D) = (8,
@@ -188,8 +205,8 @@ Phases, each of which raises on failure (nothing is caught):
    tile 1024, cap 512) on a third graph over the phase-4 COO, its sizes
    held to those measured on the host; the phase-4 GCN for 10 Adam steps
    on it (K12 rows and columns and K3 on the remainder, 4 launches each a
-   step), a profiled step held to the counters, and one step against
-   route 1's tiled step;
+   step; the remainder's dst views and the peak logged), a profiled step
+   held to the counters, and one step against route 1's tiled step;
 33. K12 yardsticks on the phase-32 block at F = 16: each orientation
    exactly equal to its plain version on a grid, its time (median of 5),
    its plain version's, the bound and ``torch.matmul`` of the block in
@@ -543,8 +560,8 @@ def phase_train(dgt, bm, g, x, y, train):
 # call, or the kernels it launches, each once a call (K4's SDDMM: the walk
 # and its finishing pass, at the main path's widths, which one launch of
 # the walk holds, and K6's ds, the same walk and its ds pass; K12's
-# columns: the split of z and the tensor-core product); K4's SpMM and the
-# src-side aggregation share the row walk (and K9's node gradient, the
+# columns: the split of z and the tensor-core product); K3, K4's SpMM and
+# the src-side aggregation share the row walk (and K9's node gradient, the
 # walk in its node-gradient form, with da folded in by dst), K13
 # and K5's backward another kernel, K5's two forwards (over the bits of A,
 # and of A^T through the shard's view) a third: the counts of wrappers that
@@ -553,7 +570,7 @@ TRACED_KERNELS = {
     "bit_matmul_t": "bit_matmul_t_kernel",
     "bitgat_fwd": "bitgat_fwd_list_kernel",
     "bitgat_bwd": "bitgat_bwd_list_kernel",
-    "gat_scores": "gat_scores_kernel", "slot_reduce": "slot_reduce_kernel",
+    "gat_scores": "gat_scores_kernel", "slot_reduce": "row_reduce_kernel",
     "gat_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
     "src_aggregate": "row_agg_kernel",
     # K9's scores: the dot-product walk by dst and its exp pass (K11 v2's,
@@ -567,7 +584,7 @@ TRACED_KERNELS = {
     "bitdot_bwd_dq": "bitdot_dq_kernel",
     "int8_matmul_rows": ("split_z_kernel", "int8_rows_mma_kernel"),
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
-    "k3_spmm": "tiled_spmm_kernel",
+    "k3_spmm": "row_agg_kernel",
     "bitgat_fwd_t": "bitgat_fwd_list_kernel",
     "bit_shard_gat_bwd": "bitgat_bwd_list_kernel",
     "egatc_scores": "vattn_scores_kernel",
@@ -581,21 +598,23 @@ TRACED_KERNELS = {
 # kernels that a redesign took off the main path: no profiled step may show
 # one (their probes launch them outside any profile)
 RETIRED_KERNELS = ("::int8_rows_kernel<",
-                   "::vattn_scores_kernel<false, float, false>")
+                   "::vattn_scores_kernel<false, float, false>",
+                   "::slot_reduce_kernel<", "::tiled_spmm_kernel<")
+PROFILE_TRIES = 3      # sessions a profile takes, at most, to trace all
+PROFILE_PAD_S = 0.25   # idle host seconds before and after the recorded step
 
 
-def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
-                  loss=loss_fn, card=None):
-    """Optimizer steps of ``loss`` under torch.profiler, ``warmup`` of them
-    before the one that its schedule records: device time by kernel and
-    the device's busy share of the recorded step (the wall time includes
-    the profiler's own cost).  ``counts`` is a function that reads the
-    step's wrappers' launch counters: each wrapper of ``TRACED_KERNELS``
-    that it reads has its launches in the recorded step held against its
-    kernel's entries in the trace.  Where they differ, the trace misses
-    launches, the busy share is not measured, and the traced kernels are
-    listed in order.  ``card``: the card's name and power limit, printed
-    beside the step's numbers."""
+def profile_once(model, opt, g, x, y, train, counts, warmup, loss):
+    """One profiler session: ``warmup`` optimizer steps, then the one its
+    schedule records, with the card idle for PROFILE_PAD_S before the
+    recorded step's first launch and after its sync, and two CUDA events
+    around the step's launches.  Returns (the device's rows of
+    ``key_averages()`` without annotations, largest first, the session,
+    the recorded step's wall us, the counts before and after it, the us
+    between the events).  Route 5's profiles on an H100 once lost the
+    step's first one to three launches (the rest of the step traced),
+    which the pause keeps clear of the start of the profiler's device
+    collection."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -604,15 +623,22 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
                                    repeat=1)) as prof:
         for recorded in (False,) * warmup + (True,):
             if recorded:
+                time.sleep(PROFILE_PAD_S)
                 before = counts()
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
                 t0 = time.perf_counter()
+                events[0].record()
             opt.zero_grad()
             loss(model, g, x, y, train).backward()
             opt.step()
+            if recorded:
+                events[1].record()
             torch.cuda.synchronize()
             if recorded:
                 wall_us = (time.perf_counter() - t0) * 1e6
                 after = counts()
+                time.sleep(PROFILE_PAD_S)
             prof.step()
     # the device's kernels and copies, without the ranges that annotate
     # them on the device (the profiler's step, the optimizer's step)
@@ -621,29 +647,81 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
                    and not getattr(e, "is_user_annotation", False)
                    and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_device_time_total)
+    return (rows, prof, wall_us, before, after,
+            events[0].elapsed_time(events[1]) * 1e3)
+
+
+def device_span_us(prof):
+    """us from the first device activity's start to the last one's end in
+    the session's trace (kernels and copies, annotations left out)."""
+    from torch.autograd import DeviceType
+    ranges = [e.time_range for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("ProfilerStep")]
+    if not ranges:
+        return 0.0
+    return max(r.end for r in ranges) - min(r.start for r in ranges)
+
+
+def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
+                  loss=loss_fn, card=None):
+    """Optimizer steps of ``loss`` under torch.profiler, ``warmup`` of them
+    before the one that its schedule records (``profile_once``): device
+    time by kernel and the device's busy share of the recorded step (the
+    wall time includes the profiler's own cost).  ``counts`` is a function
+    that reads the step's wrappers' launch counters: each wrapper of
+    ``TRACED_KERNELS`` that it reads has its launches in the recorded step
+    held against its kernel's entries in the trace, and the trace's
+    device span against the CUDA events around the step (a route-5 profile
+    on an H100 once showed every kernel at 0.77 of its time: the trace's
+    clock, not the card).  A session whose trace misses a
+    counted launch, or whose span is off the events' time by more than a
+    tenth, is taken again, up to PROFILE_TRIES, each try logged; if the
+    last still fails, the busy share is not measured (and missed launches
+    are listed in order).  A trace with a kernel of ``RETIRED_KERNELS``
+    raises.  ``card``: the card's name and power limit, printed beside
+    the step's numbers."""
+    from torch.autograd import DeviceType
+    for attempt in range(1, PROFILE_TRIES + 1):
+        rows, prof, wall_us, before, after, event_us = profile_once(
+            model, opt, g, x, y, train, counts, warmup, loss)
+        retired = [e.key for e in rows
+                   if any(k in e.key for k in RETIRED_KERNELS)]
+        if retired:
+            raise AssertionError(f"a profiled step launched a retired "
+                                 f"kernel: {retired}")
+        traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
+                  if name in after}
+        launched = {}
+        for name, kernels in traced.items():
+            for kernel in (kernels,) if isinstance(kernels, str) else kernels:
+                launched[kernel] = (launched.get(kernel, 0) + after[name]
+                                    - before[name])
+        seen = {kernel: sum(e.count for e in rows
+                            if f"::{kernel}<" in e.key
+                            or f"::{kernel}(" in e.key)
+                for kernel in launched}
+        span_us = device_span_us(prof)
+        clock_ok = abs(span_us - event_us) <= 0.1 * event_us
+        log(f"# profiled step, try {attempt} of at most {PROFILE_TRIES}: "
+            f"launches by counter {launched}, in the trace {seen}; the "
+            f"trace's device span {span_us / 1e3:.3f} ms, {event_us / 1e3:.3f}"
+            " ms between the step's CUDA events")
+        if (seen == launched and clock_ok) or not rows:
+            break   # traced whole, or no device time (no retry helps)
     busy_us = sum(e.self_device_time_total for e in rows)
-    retired = [e.key for e in rows if any(k in e.key for k in RETIRED_KERNELS)]
-    if retired:
-        raise AssertionError(f"a profiled step launched a retired kernel: "
-                             f"{retired}")
-    traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
-              if name in after}
-    launched = {}
-    for name, kernels in traced.items():
-        for kernel in (kernels,) if isinstance(kernels, str) else kernels:
-            launched[kernel] = (launched.get(kernel, 0) + after[name]
-                                - before[name])
-    seen = {kernel: sum(e.count for e in rows
-                        if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key)
-            for kernel in launched}
-    log(f"# profiled step: launches by counter {launched}, in the trace "
-        f"{seen}")
     if busy_us == 0:
         log("# profiled step: the profiler saw no device time (not measured)")
         return
-    busy = (f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})"
-            if seen == launched else "not measured (the trace misses "
-            f"launches; it shows {busy_us / 1e3:.3f} ms)")
+    if seen != launched:
+        busy = ("not measured (the trace misses launches; it shows "
+                f"{busy_us / 1e3:.3f} ms)")
+    elif not clock_ok:
+        busy = ("not measured (the trace's span is off the CUDA events' "
+                f"time; it shows {busy_us / 1e3:.3f} ms)")
+    else:
+        busy = f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})"
     on = "" if card is None else f" on {card}"
     log(f"# profiled step{on}: {wall_us / 1e3:.3f} ms wall, device busy "
         f"{busy}; by kernel:")
@@ -658,6 +736,10 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
         log("# profiled step: the trace misses launches; its counted kernels "
             "in order: " + "; ".join(
             f"{n[n.find('::') + 2:][:50]} {d:.0f}us" for _, n, d in order))
+        if warmup == 0:
+            log("# profiled step: a session without a warm-up step starts "
+                "the profiler's device collection with the recorded step; "
+                "each try's trace missed launches")
 
 
 def phase_check(model, g, x, y, train):
@@ -1251,17 +1333,19 @@ class WeightedGCN(torch.nn.Module):
                           edge_weight=ew)
 
 
-def phase_tiled_gcn(dgt, tts, gt, x, y, train):
-    """Phase 13 (route 1): 10 Adam steps of the GCN through K3; K3's
-    count is set to 0 just before and read just after."""
+def phase_tiled_gcn(dgt, tts, gt, x, y, train, card):
+    """Phase 13 (route 1): 10 Adam steps of the GCN through K3 (the row
+    walk by dst, weightless); K3's count is set to 0 just before and read
+    just after."""
     model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
     opt = torch.optim.Adam(model.parameters(), lr=5e-3)
     torch.cuda.reset_peak_memory_stats()
     tts.tiled_spmm.launches = 0
     losses, step_s = train_loop("tiled GCN", model, opt, gt, x, y, train)
     k3 = tts.tiled_spmm.launches
-    log(f"# tiled GCN train: median step {step_s * 1e3:.3f} ms after one "
-        f"warm-up step, {gt.num_edges() / step_s:.6g} train-edges/s, "
+    log(f"# tiled GCN train on {card}: median step {step_s * 1e3:.3f} ms "
+        f"after one warm-up step, {gt.num_edges() / step_s:.6g} "
+        "train-edges/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
         f"K3 launches {k3}")
     if k3 != 4 * STEPS:
@@ -1446,13 +1530,30 @@ def batched_csr(pattern, heads):
         (heads, N_NODES, N_NODES), check_invariants=False)
 
 
-def tiled_yardsticks(ef, tts, gt, rate):
+def k3_walk_bytes(fwd, f, weighted):
+    """The bytes K3's walk by dst must move: the dst view's ptr, order and
+    nbr (4 B an edge; the weightless instance reads no slot), with weights
+    also slot and the weight at the edges (8 B an edge), x read once and
+    out written once."""
+    view = fwd.row_view("dst")
+    return ((view.ptr.numel() + view.order.numel() + view.nbr.numel()) * 4
+            + (view.slot.numel() * 8 if weighted else 0)
+            + (fwd.num_src + fwd.num_dst) * f * 4)
+
+
+def tiled_yardsticks(ef, tts, trk, gt, rate):
     """Phase 16: K3 at F = 16 and K4 at (4, 32) and (1, 41) at full size,
     each against its plain version and its library call, with the
     timings.  The library calls: ``torch.sparse.mm`` on a CSR copy for K3
     and, block-diagonal over the heads on head-major x, for K4's SpMM;
     ``torch.sparse.sampled_addmm`` on an (H, N, N) batched CSR for K4's
-    SDDMM."""
+    SDDMM.  K3 (the row walk by dst at one head, weightless without
+    weights) with and without slot weights on a grid: bit for bit its
+    plain version's sums, twice, with the tiled walk it replaced and two
+    edits of the walk (a narrow row taken U entries a step; one head's
+    weights read in rounds) (``trk``,
+    ``dgl_tpu_torch/tools/perf_reduce_k3.py``) timed beside it and held
+    to the same sums."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     slots = fwd.num_buckets * fwd.cap
@@ -1462,24 +1563,52 @@ def tiled_yardsticks(ef, tts, gt, rate):
     deg = max_degree(gt)
 
     x = grid(gen, N_NODES, HIDDEN, step=1 / 16, top=2)
-    exact_sums(deg * 2, 1 / 16, "K3 full size")
-    want = tts.tiled_spmm_plain(fwd, x)
-    err = close(tts.tiled_spmm(fwd, x), want, "K3 full size F=16")
-    a = block_csr(pattern, 1)
-    close(torch.sparse.mm(a, x), want, "torch.sparse.mm F=16")
-    nbytes = walk_bytes(slots, e) + 2 * x.numel() * 4
-    b, by = bound(nbytes, 2 * e * HIDDEN, rate)
-    rows["k3"] = {"max_abs_err": err,
-                  "ms": cuda_ms(lambda: tts.tiled_spmm(fwd, x)),
-                  "plain_ms": cuda_ms(lambda: tts.tiled_spmm_plain(fwd, x),
-                                      reps=1),
-                  "bound_ms": b, "bound_by": by,
-                  "library_ms": cuda_ms(lambda: torch.sparse.mm(a, x))}
-    log(f"# K3 F={HIDDEN}: {rows['k3']['ms']:.4f} ms (bound {b:.4f} ms by "
-        f"{by}: {nbytes} B), plain {rows['k3']['plain_ms']:.4f} ms, "
-        f"torch.sparse.mm {rows['k3']['library_ms']:.4f} ms, max|err| "
-        f"{err:.3g}")
-    del want, a
+    w = grid(gen, *fwd.valid.shape, step=1 / 4, top=1) * fwd.valid
+    exact_sums(deg * 2, 1 / 64, "K3 full size")
+    lib_w = torch.index_select(w.reshape(-1), 0, fwd.edge_slot().long())
+    for name, wi, a in (("k3", None, block_csr(pattern, 1)),
+                        ("k3_weighted", w, block_csr(pattern, 1, lib_w))):
+        tag = f"K3 full size F={HIDDEN}{' weighted' * (wi is not None)}"
+        want = tts.tiled_spmm_plain(fwd, x, wi)
+        got = tts.tiled_spmm(fwd, x, slot_weights=wi)
+        err = equal(got, want, tag)
+        equal(tts.tiled_spmm(fwd, x, slot_weights=wi), got,
+              f"{tag}, a second launch")
+        equal(trk.tiled_k3(fwd, x, wi), want, f"{tag} (the tiled walk)")
+        for variant in ("narrow", "rounds"):
+            equal(trk.variant_k3(variant, fwd, x, wi), want,
+                  f"{tag} (the edit {variant})")
+        close(torch.sparse.mm(a, x), want, f"torch.sparse.mm {tag}")
+        del got, want
+        nbytes = k3_walk_bytes(fwd, HIDDEN, wi is not None)
+        b, by = bound(nbytes, 2 * e * HIDDEN, rate)
+        old_b = bound(walk_bytes(slots, e) + (0 if wi is None else e * 4)
+                      + 2 * x.numel() * 4, 2 * e * HIDDEN, rate)[0]
+        rows[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: tts.tiled_spmm(fwd, x, slot_weights=wi)),
+            "plain_ms": cuda_ms(lambda: tts.tiled_spmm_plain(fwd, x, wi),
+                                reps=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.sparse.mm(a, x)),
+            "kernel": "row_agg_kernel<4, 1, false, false, "
+                      f"{'true' if wi is None else 'false'}>",
+            "old_ms": cuda_ms(lambda: trk.tiled_k3(fwd, x, wi)),
+            "narrow_ms": cuda_ms(lambda: trk.variant_k3("narrow", fwd, x,
+                                                        wi)),
+            "rounds_ms": cuda_ms(lambda: trk.variant_k3("rounds", fwd, x,
+                                                        wi)),
+            "old_bound_ms": old_b}
+        r = rows[name]
+        log(f"# {tag}: {r['ms']:.4f} ms (bound {b:.4f} ms by {by}: {nbytes} "
+            f"B; [{old_b:.4f}] the tiled walk's), plain "
+            f"{r['plain_ms']:.4f} ms, torch.sparse.mm "
+            f"{r['library_ms']:.4f} ms, the tiled walk it replaced "
+            f"{r['old_ms']:.4f} ms, the edits: U entries a step (8 slots "
+            f"in flight a lane) {r['narrow_ms']:.4f} ms, the weight read in "
+            f"rounds {r['rounds_ms']:.4f} ms, max|err| {err:.3g}")
+        log_gathers(tag, e, HIDDEN, r["ms"], rate)
+    del a, lib_w, w
 
     pos = fwd.edge_slot().long()[pattern[2]]   # slot of CSR position k
     exact_sums(deg, 1 / 256, "K4 SpMM full size")    # |x|, w <= 1
@@ -1821,7 +1950,7 @@ def slot_ids(fwd, side):
             + local.view(fwd.num_buckets, fwd.cap)).reshape(-1)
 
 
-def k6_yardsticks(tgf, tts, tdf, gt, heads, fh, rate, scores=True,
+def k6_yardsticks(tgf, tts, tdf, trk, gt, heads, fh, rate, scores=True,
                   sides=("dst", "src"), ds=True, bias=False):
     """Phase 20: each K6 kernel at full size against its plain version,
     with the timings, the bound and the library call where there is
@@ -1829,7 +1958,13 @@ def k6_yardsticks(tgf, tts, tdf, gt, heads, fh, rate, scores=True,
     does not launch (route 5 launches neither the scores nor the src side);
     ``bias`` adds the scores with a per-slot bias (K10 v1's).  ds's row
     also times the slot-major layout and the bucket walk it replaced
-    (``tdf``, ``dgl_tpu_torch/tools/perf_ds_fold.py``)."""
+    (``tdf``, ``dgl_tpu_torch/tools/perf_ds_fold.py``).  The reduce's rows
+    (the row reduce) read p slot-major, as the forwards' copy and the
+    backward's ds lie, bit for bit the plain version's sums twice, and
+    time p read in place ((B, H, C)), the edit on every block that fits
+    an SM and the tiled reduce it replaced (``trk``,
+    ``dgl_tpu_torch/tools/perf_reduce_k3.py``), held to the same sums; at
+    H = 1 also with 8 lanes a row (4 rows a warp)."""
     fwd, _ = gt.unit().tiled_format()
     e = gt.num_edges()
     b, cap = fwd.num_buckets, fwd.cap
@@ -1889,7 +2024,11 @@ def k6_yardsticks(tgf, tts, tdf, gt, heads, fh, rate, scores=True,
         del ee
 
     # the slot reduce: one index_add_ of head-major slot values at the
-    # slots' global ids computes each side
+    # slots' global ids computes each side.  The row reduce reads p's
+    # slot-major copy (the forwards' den and K4's SpMM share one; ds is
+    # written so for der and del); each output's sum is exact on p's grid
+    del g
+    ps = tgf._slot_major(p)
     for side in sides:
         ids = slot_ids(fwd, side)
         vals_h = p.permute(1, 0, 2).reshape(heads, -1).contiguous()
@@ -1898,17 +2037,61 @@ def k6_yardsticks(tgf, tts, tdf, gt, heads, fh, rate, scores=True,
             return torch.zeros(heads, N_NODES, device="cuda").index_add_(
                 1, ids, vals_h)
 
-        close(lib_call().t(), tgf.slot_reduce(fwd, p, side),
-              f"index_add_ {side} H={heads}")
+        want = tgf.slot_reduce_plain(fwd, p, side)
+        tag = f"K6 reduce_{side} full size H={heads} Fh={fh}"
+        close(lib_call().t(), want, f"index_add_ {side} H={heads}")
         lib = cuda_ms(lib_call)
         del vals_h, ids
-        # in: valid at every slot, one side's local and the values at the
-        # edges; out: one row per node
-        row(f"reduce_{side}", lambda: tgf.slot_reduce(fwd, p, side),
-            lambda: tgf.slot_reduce_plain(fwd, p, side),
-            slots * 4 + e * 4 + edge_h + node
-            + (b * 4 if side == "src" else 0),
-            e * heads, lib, "index_add_")
+        got = tgf.slot_reduce(fwd, ps, side)
+        equal(got, want, tag)
+        equal(tgf.slot_reduce(fwd, ps, side), got, f"{tag}, a second launch")
+        equal(tgf.slot_reduce(fwd, p, side), want, f"{tag} in place")
+        equal(trk.tiled_reduce(fwd, p, side), want,
+              f"{tag} (the tiled reduce)")
+        equal(trk.nocap_reduce(fwd, ps, side), want,
+              f"{tag} (every block that fits an SM)")
+        view = fwd.row_view(side)
+        rows_out = view.rows
+        # in: the view's slot, ptr and order, the values at the edges;
+        # out: one row per node
+        nbytes = ((view.slot.numel() + view.ptr.numel() + view.order.numel())
+                  * 4 + edge_h + rows_out * heads * 4)
+        row(f"reduce_{side}", lambda: tgf.slot_reduce(fwd, ps, side),
+            lambda: tgf.slot_reduce_plain(fwd, p, side), nbytes, e * heads,
+            lib, "index_add_", check=equal)
+        vec = tts.reduce_vec(ps)
+        cpl, lps, lpr, _ = tts.reduce_layout(heads, vec, e / rows_out)
+        regs, local = tts.reduce_kernel_attrs(vec, cpl)
+        old_b = bound(slots * 4 + e * 4 + edge_h + node
+                      + (b * 4 if side == "src" else 0), e * heads, rate)[0]
+        extra = dict(
+            kernel=f"row_reduce_kernel<{vec}, {cpl}>", registers=regs,
+            in_place_ms=cuda_ms(lambda: tgf.slot_reduce(fwd, p, side)),
+            old_ms=cuda_ms(lambda: trk.tiled_reduce(fwd, p, side)),
+            nocap_ms=cuda_ms(lambda: trk.nocap_reduce(fwd, ps, side)),
+            old_bound_ms=old_b)
+        if heads == 1:
+            out8 = torch.empty(rows_out, heads, device="cuda")
+            tts.row_reduce(view, cap, ps, out8, lpr=8)
+            equal(out8, want, f"{tag}, 8 lanes a row")
+            extra["lpr8_ms"] = cuda_ms(
+                lambda: tts.row_reduce(view, cap, ps, out8, lpr=8))
+            del out8
+        rows[f"reduce_{side}"].update(extra)
+        log(f"# {tag}: slot-major (vec {vec}, cpl {cpl}, {lps} lanes a slot, "
+            f"{lpr} a row) {rows[f'reduce_{side}']['ms']:.4f} ms, in place "
+            f"{extra['in_place_ms']:.4f} ms"
+            + (f", 8 lanes a row {extra['lpr8_ms']:.4f} ms"
+               if heads == 1 else "")
+            + f", every block that fits an SM {extra['nocap_ms']:.4f} ms"
+            f"; the tiled reduce it replaced {extra['old_ms']:.4f} ms "
+            f"[bound {old_b:.4f} ms]; {regs} registers, {local} B local")
+        if local or regs > 128:
+            raise AssertionError(f"{tag}: row_reduce_kernel<{vec}, {cpl}> "
+                                 f"takes {regs} registers and {local} B of "
+                                 "local memory")
+        del got, want
+    del ps
 
     # ds: the dot-product walk by dst, its epilogue in the finishing pass,
     # on dyadic inputs (x, zn, rp and g multiples of 1/16 in [-1, 1]):
@@ -1916,7 +2099,6 @@ def k6_yardsticks(tgf, tts, tdf, gt, heads, fh, rate, scores=True,
     # plain version bit for bit, in both layouts.  In: the dst view, x
     # and zn once, rp once, g at the edges; out ds at every slot.  The
     # bucket walk it replaced (perf_ds_fold) is timed beside it
-    del g
     if ds:
         xq, znq = (grid(gen, N_NODES, heads, fh, step=1 / 16, top=1)
                    for _ in range(2))
@@ -3950,19 +4132,27 @@ def hybrid_graph(dgt, hyb, gt):
     return gh
 
 
-def phase_hybrid_gcn(dgt, i8, tts, gh, x, y, train):
+def phase_hybrid_gcn(dgt, i8, tts, hyb, gh, x, y, train, card):
     """Phase 32: 10 Adam steps of the GCN on the hybrid format; the K12 and
-    K3 counts are set to 0 just before and read just after."""
+    K3 counts are set to 0 just before and read just after.  K3 walks each
+    remainder level's dst view, built at its first use and kept: their
+    bytes are logged beside the peak."""
     model = GCN(dgt, torch.Generator(device="cuda").manual_seed(0))
     opt = torch.optim.Adam(model.parameters(), lr=5e-3)
     torch.cuda.reset_peak_memory_stats()
     reset_k12_counts(i8, tts)
     losses, step_s = train_loop("hybrid GCN", model, opt, gh, x, y, train)
     counts = k12_counts(i8, tts)
-    log(f"# hybrid GCN train: median step {step_s * 1e3:.3f} ms after one "
-        f"warm-up step, {gh.num_edges() / step_s:.6g} train-edges/s, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
-        f"launches {counts}")
+    hf = gh.unit()._hybrid
+    views = sum(tf._rows_dst.nbytes for tf in
+                {id(t): t for t in hyb._levels(hf.tf_fwd)
+                 + hyb._levels(hf.tf_rev)}.values()
+                if tf._rows_dst is not None)
+    log(f"# hybrid GCN train on {card}: median step {step_s * 1e3:.3f} ms "
+        f"after one warm-up step, {gh.num_edges() / step_s:.6g} "
+        f"train-edges/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes (the remainder levels' "
+        f"dst views {views} bytes of it), launches {counts}")
     # per step: two SpMMs forward and two backward, each K3 on the
     # remainder, K12 on the hub rows and K12 on the hub columns
     if counts != {name: 4 * STEPS for name in counts}:
@@ -4682,6 +4872,7 @@ def main():
     from dgl_tpu_torch.tools import perf_bwd_walks as tbw
     from dgl_tpu_torch.tools import perf_ds_fold as tdf
     from dgl_tpu_torch.tools import perf_fwd_walks as tfw
+    from dgl_tpu_torch.tools import perf_reduce_k3 as trk
     from dgl_tpu_torch.tools import perf_scores_rows as tsr
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
 
@@ -4698,14 +4889,16 @@ def main():
 
     # phase 2: build, the ds and da probe's two retired kernels beside it
     # (waited for in phases 20 and 24), the forward walks' probe (its
-    # two retired kernels and an edit, waited for in phase 10) and the
+    # two retired kernels and an edit, waited for in phase 10), the
     # scores and rows probe (its two retired kernels, waited for in phase
-    # 24)
+    # 24) and the reduce and K3 probe (its two retired kernels and an edit
+    # of the row walk, waited for in phase 16)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(3)
+    probe_build = ThreadPoolExecutor(4)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
     scores_rows_built = probe_build.submit(tsr.build_probe)
+    reduce_k3_built = probe_build.submit(trk.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -4779,9 +4972,9 @@ def main():
     gt = phase("12 (tiled format)", tiled_graph, dgt, g)
     model, opt, k3_launches = phase("13 (route 1: tiled GCN train)",
                                     phase_tiled_gcn, dgt, tts, gt, x, y,
-                                    train)
+                                    train, card)
     phase("13 (route 1 profile)", phase_profile, model, opt, gt, x, y, train,
-          lambda: {"k3_spmm": tts.tiled_spmm.launches})
+          lambda: {"k3_spmm": tts.tiled_spmm.launches}, 1, loss_fn, card)
     phase("13 (route 1 check)", phase_check, model, gt, x, y, train)
     del model, opt
     phase("14 (route 3: weighted GCN)", phase_weighted_gcn, dgt, tts, gt, x,
@@ -4795,8 +4988,12 @@ def main():
     phase("15 (eval forward on K6)", phase_gat_eval, tts, tgf, model, gt, x,
           y)
     del model, opt
-    tiled = phase("16 (K3, K4 yardsticks)", tiled_yardsticks, ef, tts, gt,
-                  rate)
+    t0 = time.perf_counter()
+    reduce_k3_built.result()
+    log("# the reduce and K3 probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
+    tiled = phase("16 (K3, K4 yardsticks)", tiled_yardsticks, ef, tts, trk,
+                  gt, rate)
     phase("43 (K4 SDDMM write layouts, probe)", phase_sddmm_probe, tsw, gt,
           rate)
 
@@ -4815,7 +5012,7 @@ def main():
     log("# the ds and da probe's build waited for "
         f"{time.perf_counter() - t0:.1f}s")
     k6 = [phase(f"20 (K6 yardsticks H={h} Fh={d})", k6_yardsticks, tgf, tts,
-                tdf, gt, h, d, rate) for h, d in GAT_SHAPES]
+                tdf, trk, gt, h, d, rate) for h, d in GAT_SHAPES]
 
     # phases 22-24: the vector-attention slice at full size
     model, opt, k9_launches = phase("22 (route 5: GATv2 on K9 train)",
@@ -4838,8 +5035,8 @@ def main():
     # the K6 and K4 launches of route 5's (8, 8) layer; its (1, 41) layer's
     # are phases 16 and 20's.  (B, 8, C) slot tensors take 6 GB each
     torch.cuda.empty_cache()
-    phase("24 (K6 yardsticks H=8 Fh=8)", k6_yardsticks, tgf, tts, tdf, gt, 8,
-          8, rate, False, ("dst",))
+    phase("24 (K6 yardsticks H=8 Fh=8)", k6_yardsticks, tgf, tts, tdf, trk,
+          gt, 8, 8, rate, False, ("dst",))
     phase("24 (K4 SpMM yardstick H=8 Fh=8)", k4_spmm_yardstick, ef, tts, gt,
           8, 8, rate)
 
@@ -4850,10 +5047,10 @@ def main():
     torch.cuda.empty_cache()
     gh = phase("32 (hybrid format)", hybrid_graph, dgt, hyb, gt)
     model, opt, k12_launches = phase("32 (hybrid GCN train)",
-                                     phase_hybrid_gcn, dgt, i8, tts, gh, x,
-                                     y, train)
+                                     phase_hybrid_gcn, dgt, i8, tts, hyb, gh,
+                                     x, y, train, card)
     phase("32 (hybrid GCN profile)", phase_profile, model, opt, gh, x, y,
-          train, lambda: k12_counts(i8, tts))
+          train, lambda: k12_counts(i8, tts), 1, loss_fn, card)
     phase("32 (hybrid GCN check)", phase_hybrid_check, model, gh, gt, x, y,
           train)
     del model, opt
@@ -4898,8 +5095,8 @@ def main():
     # dx, K4's SpMM for the numerator; the v1 functions' K6 scores with the
     # slot bias (K10 v1) and ds (K11 v1)
     phase("27 (K6 yardsticks H=4 Fh=32, EGAT graph)", k6_yardsticks, tgf,
-          tts, tdf, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"), True,
-          True)
+          tts, tdf, trk, ge, EGAT_H, EGAT_D, rate, False, ("dst", "src"),
+          True, True)
     phase("27 (K4 SpMM yardstick H=4 Fh=32, EGAT graph)", k4_spmm_yardstick,
           ef, tts, ge, EGAT_H, EGAT_D, rate)
 
@@ -4939,8 +5136,10 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitgat.cu",
          "replaces": "dgl_tpu/ops/pallas/bitgat.py:408",
          "launches": k5_launches[1], **k5[0]["bwd"]},
+        # K3 at F = 16 weightless (route 1's), the row walk by dst; the
+        # retired tiled walk's time in this run as old_ms
         {"name": "tiled_spmm", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/tiled_spmm.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/tiled_spmm.py:302",
          "launches": k3_launches, **tiled["k3"]},
         # the first GAT layer's shape, H x Fh = 4 x 32
@@ -4958,8 +5157,10 @@ def main():
          "source": "dgl_tpu_torch/csrc/gat_fused.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:300",
          "launches": k6_launches["gat_scores"], **k6[0]["scores"]},
+        # the row reduce on p slot-major by dst; the retired tiled reduce's
+        # time in this run as old_ms
         {"name": "slot_reduce", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:314, :387, :407, :533",
          "launches": k6_launches["slot_reduce"], **k6[0]["reduce_dst"]},
         {"name": "gat_ds", "route": "cuda",

@@ -1,7 +1,7 @@
 // Slot-space GAT, DotGat and EdgeGAT attention on Hopper (K6, K8, K10 v2)
 // over the tiled format.
 //
-// Format (csrc/tiled_spmm.cu, dgl_tpu_torch/ops/kernels/tiled_spmm.py):
+// Format (dgl_tpu_torch/ops/kernels/tiled_spmm.py):
 // edges bucketed by (dst tile, src tile) pairs of `tile` nodes, `cap`
 // slots per bucket; for flat slot s = b * cap + c, src_local[s] /
 // dst_local[s] are ids within tiles src_tile[b] / dst_tile[b], and
@@ -30,10 +30,14 @@
 // Zp[dst, h]; and d(ef)[s, :] = sum_h p Zp[dst, h] + ds M[:, h].  M, S .
 // We, Zp and dWe are node-sized products outside the kernels.
 //
-// Four kernels serve the K6 and K8 call sites (with the row walks of
-// csrc/row_agg.cu for K6's ds and dx and K4's SpMM) and, with their edge
-// variants, K10 v2's; each is behind a plain C function that launches on
-// the caller's stream, allocates nothing and returns cudaGetLastError():
+// Three kernels serve the K6 and K8 call sites (with the row walks of
+// csrc/row_agg.cu for K6's ds, dx and slot reduce and K4's SpMM) and,
+// with their edge variants, K10 v2's; each is behind a plain C function
+// that launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError().  K6's slot reduce (_den_kernel :103, _der_kernel
+// :167, _del_kernel :183) is the row reduce of csrc/row_agg.cu; the
+// shared-memory kernel it replaced here (slot_reduce_kernel) lives in
+// dgl_tpu_torch/tools/reduce_k3_probe.cu, to be timed beside it:
 //
 // gat_scores_kernel<kBias, kEdge>  replaces gat_fused.py gat_forward's
 //     first pallas_call (:300, bodies _scores_kernel :59 and, with kBias,
@@ -43,18 +47,6 @@
 //     p and g for every head, coalesced along c.  With kEdge the block
 //     holds M in shared memory and a thread adds ef[s, :] . M[:, h], its
 //     slot's Fe-wide row read once per head (L1 hits after the first).
-// slot_reduce_kernel<kSrc>  replaces _den_kernel :103 (gat_forward :314,
-//     dot_gat_forward :533, edgegat_v2_forward :1737), _der_kernel :167
-//     (gat_backward :387, edgegat_v2_backward :1805) and, with kSrc,
-//     _del_kernel :183 (gat_backward :407, edgegat_v2_backward :1824).  One
-//     block per dst tile (or src tile, walking src_order) and split of its
-//     buckets; the tile's (tile, hg) sums of a group of hg heads live in
-//     shared memory, the block reads each bucket's hg * cap values
-//     coalesced and adds them at [local][h].  Heads beyond what the 227 KB
-//     of a block holds take further launches, each with its head offset.
-//     With one split the block writes its rows once (zeros on a tile with
-//     no bucket); with several, the caller zeroes `out` and the blocks add
-//     their rows with global atomics.
 // gat_ds_kernel<L, true, kDef>  replaces _eg2_ds_kernel :1605
 //     (edgegat_v2_backward :1785), K10 v2's ds.  One warp per 32-slot
 //     chunk, L lanes per head, xor-shuffle sums, 4 slots in flight; the
@@ -104,8 +96,7 @@
 // _agg_kernel :120 (gat_forward :328, dot_gat_forward :547, and dq in
 // _dot_gat_bwd :614) and the node part of _eg2_agg_kernel compute exactly
 // tiled_spmm_multihead's function, so the port serves them with K4's SpMM
-// (csrc/row_agg.cu), and K8's scores with K4's SDDMM
-// (csrc/tiled_spmm.cu).
+// (csrc/row_agg.cu), and K8's scores with K4's SDDMM (the same file).
 //
 // The TPU kernels contract one-hot matrices of each bucket on the matrix
 // unit, carry an output tile from grid step to grid step and iterate in
@@ -117,7 +108,7 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each kernel streams
 // the slot arrays (12 B a slot for src_local, dst_local and valid, 8 for
-// the reduce) and 4 B a slot and head of each (B, H, C) operand or
+// a one-sided walk) and 4 B a slot and head of each (B, H, C) operand or
 // result, K10 v2's 4 B a slot and edge feature, and K10 v1's and K11
 // v1's stored slot tensors, 4 B (2 in bf16) a slot and column, read or
 // written once; the node rows it gathers (el, er, x, zn, z, Zp) are mostly
@@ -164,7 +155,6 @@ enum AggMode : int {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kClip = 40.f;     // gat_fused.py CLIP
 constexpr int kScoresThreads = 256;
-constexpr int kReduceThreads = 512;
 constexpr int kDsWarps = 8;       // warps per ds block
 constexpr int kDsUnroll = 4;      // ds slots in flight per warp
 constexpr int kDsCols = 4;        // ds columns a lane loads per slot at once
@@ -215,53 +205,6 @@ gat_scores_kernel(const int* __restrict__ src_local,
       const float pv = expf(fminf(fmaxf(lrelu, -kClip), kClip)) * v;
       p[o + h * cap] = pv;
       g[o + h * cap] = pv * (pos ? 1.f : slope);
-    }
-  }
-}
-
-template <bool kSrc>
-__global__ void __launch_bounds__(kReduceThreads)
-slot_reduce_kernel(const int* __restrict__ local,
-                   const float* __restrict__ valid,
-                   const float* __restrict__ vals,
-                   const int* __restrict__ order,
-                   const int* __restrict__ ptr, int tile, int cap, int heads,
-                   int h0, int hg, float* __restrict__ out, int num_rows,
-                   int splits) {
-  extern __shared__ float acc[];  // [tile][hg]: heads h0 .. h0 + hg - 1
-  const int t = blockIdx.x;
-  const int n_acc = tile * hg;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
-  __syncthreads();
-
-  const int k_lo = ptr[t];
-  const int nb = ptr[t + 1] - k_lo;
-  const int k0 = k_lo + static_cast<int>(
-      static_cast<long long>(nb) * blockIdx.y / splits);
-  const int k1 = k_lo + static_cast<int>(
-      static_cast<long long>(nb) * (blockIdx.y + 1) / splits);
-  const int per_bucket = hg * cap;  // the group's heads, contiguous
-  for (int k = k0; k < k1; ++k) {
-    const int b = kSrc ? order[k] : k;
-    const int* lb = local + b * cap;
-    const float* vb = valid + b * cap;
-    const float* xb = vals + (b * heads + h0) * cap;
-    for (int j = threadIdx.x; j < per_bucket; j += blockDim.x) {
-      const int h = j / cap;
-      const int c = j - h * cap;
-      if (vb[c] != 0.f) atomicAdd(acc + lb[c] * hg + h, xb[j]);
-    }
-  }
-  __syncthreads();
-
-  const int r0 = t * tile;
-  const int n_out = min(tile, num_rows - r0) * hg;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    const int o = (r0 + i / hg) * heads + h0 + i % hg;
-    if (splits == 1) {
-      out[o] = acc[i];
-    } else if (acc[i] != 0.f) {
-      atomicAdd(out + o, acc[i]);
     }
   }
 }
@@ -706,42 +649,6 @@ int dgl_gat_scores(const void* src_local, const void* dst_local,
   if (ee != nullptr) return launch_scores<true, false>(DGL_SCORES_ARGS);
   return launch_scores<false, false>(DGL_SCORES_ARGS);
 #undef DGL_SCORES_ARGS
-}
-
-// out (num_rows, heads), columns h0 .. h0 + hg - 1: the sum of vals (B,
-// heads, cap) over the valid slots of each dst row (src_side = 0: local is
-// dst_local, ptr is dst_ptr, order is unused) or src row (src_side = 1:
-// local is src_local, order is src_order, ptr is src_ptr).  With splits >
-// 1, out must be zeroed by the caller.  Grid: (num_tiles, splits), tile *
-// hg floats of shared memory.
-int dgl_slot_reduce(const void* local, const void* valid, const void* vals,
-                    const void* order, const void* ptr, int64_t num_tiles,
-                    int64_t tile, int64_t cap, int64_t heads, int64_t h0,
-                    int64_t hg, void* out, int64_t num_rows, int64_t splits,
-                    int64_t src_side, int64_t device, void* stream) {
-  cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * tile * hg;
-  const dim3 grid(static_cast<unsigned>(num_tiles),
-                  static_cast<unsigned>(splits));
-#define DGL_REDUCE_LAUNCH(SRC_)                                              \
-  err = allow_smem(slot_reduce_kernel<SRC_>, smem);                          \
-  if (err != cudaSuccess) return err;                                        \
-  slot_reduce_kernel<SRC_><<<grid, kReduceThreads, smem, s>>>(               \
-      static_cast<const int*>(local), static_cast<const float*>(valid),      \
-      static_cast<const float*>(vals), static_cast<const int*>(order),       \
-      static_cast<const int*>(ptr), static_cast<int>(tile),                  \
-      static_cast<int>(cap), static_cast<int>(heads), static_cast<int>(h0),  \
-      static_cast<int>(hg), static_cast<float*>(out),                        \
-      static_cast<int>(num_rows), static_cast<int>(splits));
-  if (src_side != 0) {
-    DGL_REDUCE_LAUNCH(true)
-  } else {
-    DGL_REDUCE_LAUNCH(false)
-  }
-#undef DGL_REDUCE_LAUNCH
-  return cudaGetLastError();
 }
 
 // ds (num_buckets, heads, cap), every element written, from x (num_src,

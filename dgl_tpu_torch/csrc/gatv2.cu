@@ -1,7 +1,7 @@
 // Vector attention on Hopper (K9: GATv2, K11 v2: EGATConv) over the tiled
 // format.
 //
-// Format (csrc/tiled_spmm.cu, dgl_tpu_torch/ops/kernels/tiled_spmm.py):
+// Format (dgl_tpu_torch/ops/kernels/tiled_spmm.py):
 // edges bucketed by (dst tile, src tile) pairs of `tile` nodes, `cap`
 // slots per bucket; for flat slot s = b * cap + c, src_local[s] /
 // dst_local[s] are ids within tiles src_tile[b] / dst_tile[b], and
@@ -24,7 +24,7 @@
 // u, v: (num_src, H * D), (num_dst, H * D); attn (H * D); ef (B * C, fe)
 // in slot order, 0 at padded slots; wf (fe_rows, H * D).  The softmax's
 // den, numerator, ds and dx are K6's and K4's kernels (csrc/gat_fused.cu,
-// csrc/tiled_spmm.cu).
+// csrc/row_agg.cu).
 //
 // Three kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
 // node gradient and da are the walks of csrc/row_agg.cu); each is behind

@@ -6,10 +6,11 @@
 #include <cuda_runtime.h>
 
 // Blocks of `threads` threads for `kernel`: as many as fit the current
-// device at once, and no more than `needed` (at least one).
+// device at once (at most `max_per_sm` an SM where it is above 0), and no
+// more than `needed` (at least one).
 template <typename K>
 cudaError_t persistent_blocks(K kernel, int threads, long long needed,
-                              unsigned* blocks) {
+                              unsigned* blocks, int max_per_sm = 0) {
   int device = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -18,6 +19,7 @@ cudaError_t persistent_blocks(K kernel, int threads, long long needed,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
   const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm
                                                                   : 1);
   const long long n = needed < fit ? needed : fit;

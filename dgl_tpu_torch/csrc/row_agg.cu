@@ -85,6 +85,50 @@
 // Bound: the view, x and zn once, rp once, g at the edges (4H B an
 // edge), ds at every slot (4H B a slot).
 //
+// row_agg_kernel at H = 1 replaces K3, dgl_tpu/ops/pallas/tiled_spmm.py
+// tiled_spmm :347 -> _spmm_one_call :302 (body _spmm_kernel :239):
+// out[d] = sum over d's slots of w * x[src], the walk by dst with x as
+// (N, 1, F) and the slot weights as (B, 1, C), or, for a plain sum, its
+// weightless instance (kOnes: w null, weight 1; neither w nor the view's
+// slot is read).  At F = 16 a row is 4 lanes of 16-byte loads, and a step
+// of 4 entries keeps 4 gathers in flight a lane: taking U = 8 entries a
+// step (the probe's edit "narrow") ran slower on an H100 at Reddit's
+// size, and spilled in K9's fold.  One head's weights are read by every
+// lane itself, so that no shuffle waits on the load before the gathers
+// issue (the edit "rounds" shuffles them as several heads' are).  The
+// kernel it replaced
+// (csrc/tiled_spmm.cu tiled_spmm_kernel<G, kCopy>: a block a dst tile, the
+// tile's rows in shared memory, a float atomicAdd a slot and column, a
+// compare-and-swap loop on this card) is built by
+// dgl_tpu_torch/tools/perf_reduce_k3.py to be timed beside it.  Bound: the
+// view's ptr, order and nbr (4 B an edge; slot too, 4 B, with weights),
+// the weights at the edges, x read once, out written once.
+//
+// row_reduce_kernel<VEC, CPL> replaces K6's slot reduce,
+// dgl_tpu/ops/pallas/gat_fused.py _den_kernel :103, _der_kernel :167 and
+// _del_kernel :183 (gat_forward :314, gat_backward :387/:407,
+// dot_gat_forward :533 and the EdgeGAT/EGAT functions):
+//
+//   out[r, h] = sum over the valid slots s of row r of vals[b(s), h, c(s)]
+//
+// on the dst view (den, der) or the src view (del).  It is the row walk
+// without the gather: a group of lanes owns a row, its lanes read a slot's
+// H values (16-byte loads where vals is slot-major, (B, C, H) memory, and
+// H a multiple of 4; one value a lane in the (B, H, C) layout read in
+// place), keep kU slots in flight and sum in registers; the lanes of one
+// head combine by shuffles in a fixed order and one writes.  The kernel it
+// replaced (csrc/gat_fused.cu slot_reduce_kernel<kSrc>: a block a tile and
+// split, the tile's (tile, H) sums in shared memory, a float atomicAdd at
+// [local][h] for every slot and head, 8-way bank conflicts at H = 8, splits
+// met with global atomics) is built by dgl_tpu_torch/tools/
+// perf_reduce_k3.py.  No shared memory, no atomics, no split row; valid,
+// dst_local and the view's nbr are not read.  One row a warp (the rows of
+// a warp would differ in length), 4 blocks an SM (kReduceBlocksPerSm:
+// fewer tiles' values in flight, so more of them in L2).  Bound: the
+// view's slot, ptr and order, 4H B an edge of vals, out once.  At H = 1
+// the values are 4 B at scattered slots, a 32-byte sector each from L2,
+// where the tiled reduce streamed its slots: there it is the slower.
+//
 // The row view (dgl_tpu_torch/ops/kernels/tiled_spmm.py RowView), one per
 // side of a format: ptr (rows + 1,), and for the E valid slots grouped by
 // row, ascending slot id within a row, slot (the flat slot s = b * cap +
@@ -199,6 +243,11 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;  // warps per block
+// blocks of the row reduce an SM (32 warps): with every block that fits,
+// more rows' values are in flight than L2 keeps, and the reduce ran 2-15%
+// slower on an H100 at Reddit's size (the edit "nocap" of
+// dgl_tpu_torch/tools/perf_reduce_k3.py)
+constexpr int kReduceBlocksPerSm = 4;
 constexpr float kClip = 40.f;  // K9's logit clip (gat_fused.py CLIP)
 
 template <int VEC>
@@ -352,7 +401,9 @@ __device__ __forceinline__ void flush_da(float* da, float (&sums)[CPL][VEC],
   }
 }
 
-template <int VEC, int CPL, bool kGrad, bool kDa>
+// kOnes: every weight is 1 and w is not read (K3's plain sum); the view's
+// slot is then not read either
+template <int VEC, int CPL, bool kGrad, bool kDa, bool kOnes>
 __global__ void __launch_bounds__(kWarps * 32)
 row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
                const int* __restrict__ nbr, const int* __restrict__ order,
@@ -374,6 +425,7 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
   const int nv = f / VEC;  // column vectors a row
   const int n_items = rows * n_chunks;
   static_assert(kGrad || !kDa, "da is folded into the node gradient");
+  static_assert(!(kGrad && kOnes), "the node gradient weighs by ds");
   // kDa: this lane's da sums over the rows its group claims, of the
   // columns of chunk da_chunk
   float da_sums[CPL][VEC];
@@ -437,14 +489,26 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
         // once: in the round at k0, lane li holds slot (k0 + li) / heads
         // of this step, head (k0 + li) % heads, and a slot's weights are
         // shuffled in the rounds that hold them (a test uniform in the
-        // group)
+        // group); all 1 in the weightless instance
         float wq[U][CPL];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
 #pragma unroll
-          for (int q = 0; q < CPL; ++q) wq[u][q] = 0.f;
+          for (int q = 0; q < CPL; ++q) wq[u][q] = kOnes ? 1.f : 0.f;
         }
-        for (int k0 = 0; k0 < U * heads; k0 += lpr) {
+        if (!kOnes && heads == 1) {
+          // one head: every lane reads each slot's weight itself (one
+          // address across the group), so that no shuffle waits for the
+          // load and the gathers below issue at once
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int wb = __shfl_sync(gmask, my_wb, u0 + u, lpr);
+            const float wv = u0 + u < n ? __ldg(w + wb) : 0.f;
+#pragma unroll
+            for (int q = 0; q < CPL; ++q) wq[u][q] = wv;
+          }
+        }
+        for (int k0 = 0; !kOnes && heads > 1 && k0 < U * heads; k0 += lpr) {
           const int k = k0 + li;
           const int u = k / heads;
           const int wb = __shfl_sync(gmask, my_wb, u0 + u, lpr);
@@ -513,6 +577,115 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
       }
     }
     if (grp == 0) flush_da<VEC, CPL>(da, da_sums, da_chunk, lpr, li, nv);
+  }
+}
+
+// K6's slot reduce by rows: out[r, h] = the sum over row r's entries k of
+// vals[b, h, c], slot[k] = b * cap + c, vals read through its strides
+// (v_bs, v_hs, v_cs).  A group of lpr lanes owns a row: lps lanes take a
+// slot's heads (VEC at a time: 16-byte loads where the layout is
+// slot-major and H is a multiple of 4; CPL vectors a lane; a row of more
+// heads than lps * CPL * VEC in n_chunks column chunks, each claimed as
+// an item of its own), and the group's lpr / lps slot lanes take the
+// row's entries in turn, kU of each lane's in flight: its slot ids first,
+// then their values.  Each lane sums its entries in entry order in
+// registers; the slot lanes of one head then combine their sums by an xor
+// butterfly, in the same order in every lane, and the first writes the
+// sum: every output written once, 0 on a row with no entry, the same
+// bits from run to run.
+template <int VEC, int CPL>
+__global__ void __launch_bounds__(kWarps * 32)
+row_reduce_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
+                  const int* __restrict__ order, int rows,
+                  const float* __restrict__ vals, int cap, int v_bs,
+                  int v_hs, int v_cs, int heads, int lps, int lpr,
+                  int n_chunks, float* __restrict__ out,
+                  int* __restrict__ counter) {
+  using V = typename Vec<VEC>::T;
+  constexpr int kU = Unroll<VEC, CPL>::value;
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lpr;  // rows a warp takes at once
+  const int grp = lane / lpr;
+  const int li = lane - grp * lpr;
+  const unsigned gmask =
+      lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
+  const int sl = li / lps;      // this lane's slot lane
+  const int vl = li - sl * lps;  // and its vector lane
+  const int spr = lpr / lps;    // slots a round
+  const int nv = heads / VEC;   // head vectors a slot
+  const int n_items = rows * n_chunks;
+  // slot-major and contiguous: slot s's values at s * v_cs, no division
+  const bool flat = v_bs == cap * v_cs;
+
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, groups);
+    base = __shfl_sync(kFull, base, 0);
+    if (base >= n_items) break;
+    const int item = base + grp;
+    const bool has = item < n_items;
+    const int r = has ? order[item / n_chunks] : 0;
+    const int chunk = has ? item - (item / n_chunks) * n_chunks : 0;
+    int cv[CPL];    // this lane's head vectors
+    bool ok[CPL];
+    float acc[CPL][VEC];
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      cv[q] = (chunk * CPL + q) * lps + vl;
+      ok[q] = has && cv[q] < nv;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+    }
+    const int p0 = has ? ptr[r] : 0;
+    const int p1 = has ? ptr[r + 1] : p0;  // no entry past the last row
+    for (int pb = p0; pb < p1; pb += spr * kU) {  // uniform in the group
+      int off[kU];   // the values' offsets of this lane's kU entries
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int k = pb + u * spr + sl;
+        off[u] = -1;
+        if (k < p1) {
+          const int s = __ldg(slot + k);
+          if (flat) {
+            off[u] = s * v_cs;
+          } else {
+            const int b = s / cap;
+            off[u] = b * v_bs + (s - b * cap) * v_cs;
+          }
+        }
+      }
+      V xv[kU][CPL];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          // VEC > 1 only where v_hs is 1 (the wrapper's layout)
+          xv[u][q] = off[u] >= 0 && ok[q]
+                         ? __ldg(reinterpret_cast<const V*>(
+                               vals + off[u] + cv[q] * VEC * v_hs))
+                         : zero_vec<V>();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) fma_into(acc[q], 1.f, xv[u][q]);
+      }
+    }
+    // the slot lanes' sums of one head combined, in a fixed order
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        for (int o = lps; o < lpr; o *= 2)
+          acc[q][i] += __shfl_xor_sync(gmask, acc[q][i], o, lpr);
+      }
+    }
+    if (sl != 0) continue;
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      if (ok[q]) store_vec(out + r * heads + cv[q] * VEC, acc[q], Vec<VEC>());
+    }
   }
 }
 
@@ -898,16 +1071,17 @@ struct RowAggArgs {
   float* da;
 };
 
-template <int VEC, int CPL, bool kGrad, bool kDa>
+template <int VEC, int CPL, bool kGrad, bool kDa, bool kOnes>
 cudaError_t launch_row_agg(const RowAggArgs& a, cudaStream_t stream) {
   unsigned blocks = 0;
   const cudaError_t err = persistent_blocks(
-      row_agg_kernel<VEC, CPL, kGrad, kDa>, kWarps * 32,
+      row_agg_kernel<VEC, CPL, kGrad, kDa, kOnes>, kWarps * 32,
       ((static_cast<long long>(a.rows) * a.n_chunks * a.lpr + 31) / 32 +
        kWarps - 1) / kWarps,
       &blocks);
   if (err != cudaSuccess) return err;
-  row_agg_kernel<VEC, CPL, kGrad, kDa><<<blocks, kWarps * 32, 0, stream>>>(
+  row_agg_kernel<VEC, CPL, kGrad, kDa, kOnes>
+      <<<blocks, kWarps * 32, 0, stream>>>(
       a.ptr, a.slot, a.nbr, a.order, a.rows, a.w, a.cap, a.w_bs, a.w_hs,
       a.w_cs, a.heads, a.head_cols, a.y, a.f, a.lpr, a.n_chunks, a.out,
       a.counter, a.own, a.attn, a.slope, a.da);
@@ -916,18 +1090,20 @@ cudaError_t launch_row_agg(const RowAggArgs& a, cudaStream_t stream) {
 
 // the fold (kDa) keeps at most 4 vectors a lane, so that its da sums
 // beside dv's spill nothing
-template <int VEC, bool kGrad, bool kDa>
+template <int VEC, bool kGrad, bool kDa, bool kOnes>
 cudaError_t row_agg_by_cpl(int64_t cpl, const RowAggArgs& a,
                            cudaStream_t s) {
 #define DGL_ROW_AGG_CASE(C_) \
   case C_:                   \
-    return launch_row_agg<VEC, C_, kGrad, kDa>(a, s);
+    return launch_row_agg<VEC, C_, kGrad, kDa, kOnes>(a, s);
   switch (cpl) {
     DGL_ROW_AGG_CASE(1)
     DGL_ROW_AGG_CASE(2)
     DGL_ROW_AGG_CASE(4)
     case 8:
-      if constexpr (!kDa) return launch_row_agg<VEC, 8, kGrad, false>(a, s);
+      if constexpr (!kDa) {
+        return launch_row_agg<VEC, 8, kGrad, false, kOnes>(a, s);
+      }
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
@@ -935,12 +1111,21 @@ cudaError_t row_agg_by_cpl(int64_t cpl, const RowAggArgs& a,
 #undef DGL_ROW_AGG_CASE
 }
 
+// w null: every weight 1 (kOnes), the plain sum; not with own (kGrad)
 template <int VEC>
 cudaError_t row_agg_by_mode(int64_t cpl, const RowAggArgs& a,
                             cudaStream_t s) {
-  if (a.da != nullptr) return row_agg_by_cpl<VEC, true, true>(cpl, a, s);
-  if (a.own != nullptr) return row_agg_by_cpl<VEC, true, false>(cpl, a, s);
-  return row_agg_by_cpl<VEC, false, false>(cpl, a, s);
+  if (a.w == nullptr) {
+    if (a.own != nullptr) return cudaErrorInvalidValue;
+    return row_agg_by_cpl<VEC, false, false, true>(cpl, a, s);
+  }
+  if (a.da != nullptr) {
+    return row_agg_by_cpl<VEC, true, true, false>(cpl, a, s);
+  }
+  if (a.own != nullptr) {
+    return row_agg_by_cpl<VEC, true, false, false>(cpl, a, s);
+  }
+  return row_agg_by_cpl<VEC, false, false, false>(cpl, a, s);
 }
 
 // dgl_row_agg and dgl_row_node_grad (own and attn not null: kGrad; da not
@@ -999,7 +1184,8 @@ template <int VEC, int CPL, bool kDa>
 cudaError_t node_grad_attrs(int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      cudaFuncGetAttributes(&attr, row_agg_kernel<VEC, CPL, true, kDa>);
+      cudaFuncGetAttributes(&attr,
+                            row_agg_kernel<VEC, CPL, true, kDa, false>);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
@@ -1024,6 +1210,36 @@ cudaError_t launch_ds_finish(const void* sm, const void* entry,
   return cudaGetLastError();
 }
 
+template <int VEC, int CPL>
+cudaError_t launch_row_reduce(const int* ptr, const int* slot,
+                              const int* order, int rows, const float* vals,
+                              int cap, int v_bs, int v_hs, int v_cs,
+                              int heads, int lps, int lpr, int n_chunks,
+                              float* out, int* counter, cudaStream_t stream) {
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_blocks(
+      row_reduce_kernel<VEC, CPL>, kWarps * 32,
+      ((static_cast<long long>(rows) * n_chunks * lpr + 31) / 32 + kWarps -
+       1) / kWarps,
+      &blocks, kReduceBlocksPerSm);
+  if (err != cudaSuccess) return err;
+  row_reduce_kernel<VEC, CPL><<<blocks, kWarps * 32, 0, stream>>>(
+      ptr, slot, order, rows, vals, cap, v_bs, v_hs, v_cs, heads, lps, lpr,
+      n_chunks, out, counter);
+  return cudaGetLastError();
+}
+
+template <int VEC, int CPL>
+cudaError_t row_reduce_attrs(int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, row_reduce_kernel<VEC, CPL>);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1034,7 +1250,8 @@ extern "C" {
 // (num_nbr, f).  vec (1, 2 or 4) floats a load,
 // dividing head_cols; cpl (1, 2, 4 or 8) vectors a lane; lpr (a power of
 // two up to 32) lanes a row; the f / vec column vectors in n_chunks
-// chunks of lpr * cpl.  counter is one int, zeroed by the caller.
+// chunks of lpr * cpl.  counter is one int, zeroed by the caller.  w
+// null: every weight 1, and neither w nor slot is read (K3's plain sum).
 int dgl_row_agg(const void* ptr, const void* slot, const void* nbr,
                 const void* order, int64_t rows, const void* w, int64_t cap,
                 int64_t w_bs, int64_t w_hs, int64_t w_cs, int64_t heads,
@@ -1195,6 +1412,75 @@ int dgl_ds_finish(const void* sm, const void* entry, const void* dst_local,
   if (slot_major) DGL_DS_FINISH(1, true)
   DGL_DS_FINISH(1, false)
 #undef DGL_DS_FINISH
+}
+
+// K6's slot reduce by rows: out (rows, heads), every element written,
+// out[r, h] = the sum over the entries k in [ptr[r], ptr[r + 1]) of
+// vals[b * v_bs + h * v_hs + c * v_cs], slot[k] = b * cap + c, in entry
+// order (a lane's share) and then a fixed butterfly; order (rows,) the
+// claim order.  vec 4 (heads a multiple of 4, v_hs 1, v_bs and v_cs
+// multiples of 4, vals and out 16-byte aligned) or 1 floats a load; cpl
+// (1, 2, 4 or 8) vectors a lane; lps (a power of two) lanes a slot, lpr
+// (a power of two up to 32, a multiple of lps) lanes a row; the heads /
+// vec vectors in n_chunks chunks of lps * cpl.  counter is one int,
+// zeroed by the caller.
+int dgl_row_reduce(const void* ptr, const void* slot, const void* order,
+                   int64_t rows, const void* vals, int64_t cap, int64_t v_bs,
+                   int64_t v_hs, int64_t v_cs, int64_t heads, void* out,
+                   void* counter, int64_t vec, int64_t cpl, int64_t lps,
+                   int64_t lpr, int64_t n_chunks, int64_t device,
+                   void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lps < 1 ||
+      (lps & (lps - 1)) != 0 || lpr % lps != 0 || cap < 1 || heads < 1 ||
+      n_chunks < 1 || (vec != 1 && vec != 4) || heads % vec != 0 ||
+      (vec == 4 && (v_hs != 1 || v_bs % 4 != 0 || v_cs % 4 != 0)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_ROW_REDUCE(V_, C_)                                               \
+  if (vec == V_ && cpl == C_)                                                \
+    return launch_row_reduce<V_, C_>(                                        \
+        static_cast<const int*>(ptr), static_cast<const int*>(slot),         \
+        static_cast<const int*>(order), static_cast<int>(rows),              \
+        static_cast<const float*>(vals), static_cast<int>(cap),              \
+        static_cast<int>(v_bs), static_cast<int>(v_hs),                      \
+        static_cast<int>(v_cs), static_cast<int>(heads),                     \
+        static_cast<int>(lps), static_cast<int>(lpr),                        \
+        static_cast<int>(n_chunks), static_cast<float*>(out),                \
+        static_cast<int*>(counter), s);
+  DGL_ROW_REDUCE(1, 1)
+  DGL_ROW_REDUCE(1, 2)
+  DGL_ROW_REDUCE(1, 4)
+  DGL_ROW_REDUCE(1, 8)
+  DGL_ROW_REDUCE(4, 1)
+  DGL_ROW_REDUCE(4, 2)
+  DGL_ROW_REDUCE(4, 4)
+  DGL_ROW_REDUCE(4, 8)
+#undef DGL_ROW_REDUCE
+  return cudaErrorInvalidValue;
+}
+
+// registers a thread and local-memory bytes (the stack frame and spills)
+// a thread of the row reduce's instance at vec and cpl: regs_local, two
+// ints.
+int dgl_row_reduce_attrs(int64_t vec, int64_t cpl, int64_t device,
+                         void* regs_local) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  int* o = static_cast<int*>(regs_local);
+#define DGL_REDUCE_ATTRS(V_, C_) \
+  if (vec == V_ && cpl == C_) return row_reduce_attrs<V_, C_>(o, o + 1);
+  DGL_REDUCE_ATTRS(1, 1)
+  DGL_REDUCE_ATTRS(1, 2)
+  DGL_REDUCE_ATTRS(1, 4)
+  DGL_REDUCE_ATTRS(1, 8)
+  DGL_REDUCE_ATTRS(4, 1)
+  DGL_REDUCE_ATTRS(4, 2)
+  DGL_REDUCE_ATTRS(4, 4)
+  DGL_REDUCE_ATTRS(4, 8)
+#undef DGL_REDUCE_ATTRS
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

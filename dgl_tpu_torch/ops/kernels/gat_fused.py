@@ -29,8 +29,9 @@ the same function, slot chunk by slot chunk:
 
 * :func:`gat_scores` (``_scores_kernel``, ``_scores_bias_kernel``): p, g;
 * :func:`slot_reduce` (``_den_kernel``, ``_der_kernel``, ``_del_kernel``):
-  the sum of a (B, H, C) slot tensor per dst node or per src node, in
-  groups of heads that fit a block's shared memory, one launch a group;
+  the sum of a (B, H, C) slot tensor per dst node or per src node, the
+  row reduce of ``csrc/row_agg.cu`` over the side's row view, one launch
+  for any head count;
 * :func:`gat_ds` (``_ds_kernel``): ds, K4's SDDMM walk by dst of
   ``csrc/row_agg.cu`` (x and zn) with its epilogue (- rp, * g) in the
   finishing pass, which writes (B, H, C) or, for the row walks that read
@@ -38,7 +39,12 @@ the same function, slot chunk by slot chunk:
 * :func:`src_aggregate` (``_dx_kernel``): out[src, h] = sum w[b, h, c]
   z[dst, h] with (B, H, C) weights, for dx and K8's dk: the row walk of
   ``csrc/row_agg.cu`` by src (``tiled_spmm.row_aggregate``); the scores
-  and the reduce are in ``csrc/gat_fused.cu``.
+  are in ``csrc/gat_fused.cu``.
+
+The forwards lay p out slot-major once (:func:`_slot_major`), and both
+the den reduce and K4's SpMM read that copy, where K4's SpMM alone made
+it before; ``gat_backward`` takes ds slot-major, which only its two
+reduces read.
 
 The dst-side weighted aggregation ``_agg_kernel`` computes exactly
 ``tiled_spmm_multihead``'s function, so the forward's numerator and K8's
@@ -142,8 +148,6 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "dgl_gat_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _I, _I, ctypes.c_double, _P, _P, _I, _I, _P],
-    "dgl_slot_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                        _I, _I, _I, _P],
     "dgl_gat_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                    _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "dgl_slot_feat_reduce": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I,
@@ -167,6 +171,7 @@ _SCORES_THREADS = 256       # csrc/gat_fused.cu kScoresThreads
 _DS_WARPS = 8               # csrc/gat_fused.cu kDsWarps
 _VATTN_WARPS = 8            # csrc/gatv2.cu kWarps
 MAX_FE_ROWS = 32            # edge-feature rows, bias included, of the kernels
+_SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
 
 
 def _launch(fn: str, *args, source: str = "gat_fused"):
@@ -175,6 +180,36 @@ def _launch(fn: str, *args, source: str = "gat_fused"):
     err = getattr(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
+
+
+def _group(f: int, tile: int) -> int:
+    """Columns a block of the tiled walks (``src_agg_kernel``,
+    ``vattn_node_grad_kernel``) keeps per row, lanes a slot: the narrowest
+    of 8, 16, 32 that covers F, within the shared memory of a (tile,
+    group) f32 block."""
+    g = 8 if f <= 8 else 16 if f <= 16 else 32
+    while g > 8 and tile * g * 4 > _SMEM_PER_BLOCK:
+        g //= 2
+    if tile * g * 4 > _SMEM_PER_BLOCK:
+        raise ValueError(f"tile {tile} is too large for the kernels' "
+                         "shared-memory accumulator")
+    return g
+
+
+def _group_per_sm(g: int, tile: int) -> int:
+    """Blocks of a (tile, g) shared-memory accumulator that fit an SM at
+    once, with the registers of 512 threads at g = 32."""
+    return max(1, min(2 if g <= 16 else 1, _SMEM_PER_BLOCK // (tile * g * 4)))
+
+
+def _splits(tf: ts.TiledFormat, n_tiles: int, blocks_per_tile: int,
+            per_sm: int, device) -> int:
+    """Splits of each tile's buckets over blocks: about two waves of the
+    ``per_sm`` blocks that fit an SM at once, each split keeping about 4
+    buckets or more of its tile."""
+    want = -(-2 * ts._sms(device) * per_sm // max(n_tiles * blocks_per_tile,
+                                                  1))
+    return max(1, min(want, tf.num_buckets // max(4 * n_tiles, 1), 65535))
 
 
 def _slot_shape(tf: ts.TiledFormat, heads: int):
@@ -524,43 +559,24 @@ gat_scores.launches = 0
 def slot_reduce(tf: ts.TiledFormat, vals, side: str = "dst"):
     """K6 slot reduce: (num_rows, H) f32, the sum of ``vals`` (B, H, C)
     over the valid slots of each dst node (``side="dst"``: den, der) or
-    src node (``side="src"``: del, walking ``src_order``).  Any head count:
-    a block keeps a (tile, group) accumulator of as many heads as its
-    shared memory holds, and each group of heads is one launch."""
+    src node (``side="src"``: del).  On CUDA tensors one launch of the
+    row reduce over the side's row view for any head count
+    (``tiled_spmm.row_reduce``), ``vals`` read through its strides:
+    slot-major (a slot's H values in one sector, as the forwards' copy of
+    p and ``gat_ds(..., slot_major=True)`` lay them out) in 16-byte loads,
+    the (B, H, C) layout in place a value a lane."""
     if side not in ("dst", "src"):
         raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
     heads = vals.shape[1] if vals.ndim == 3 else -1
     _check_slots(tf, vals, heads, "vals")
-    if side == "src":
-        _require_src_first(tf)
     if not on_cuda(vals, tf.valid):
         return slot_reduce_plain(tf, vals, side)
-    src = side == "src"
-    rows = tf.num_src if src else tf.num_dst
-    n_t = tf.num_src_tiles if src else tf.num_dst_tiles
-    ts._check_int32(tf.num_buckets * heads * tf.cap, n_t * tf.tile * heads)
-    # heads whose (tile, group) f32 sums fit a block's shared memory; more
-    # heads take one launch per group
-    group = min(heads, ts._SMEM_PER_BLOCK // (4 * tf.tile))
-    if group == 0 and heads:
-        raise ValueError(f"tile {tf.tile} is too large for the slot "
-                         "reduce's shared-memory accumulator")
-    splits = ts._splits(tf, n_t, 1, 2, vals.device)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc(rows, heads, dtype=torch.float32, device=vals.device)
-    if n_t == 0 or heads == 0:
+    rows = tf.num_src if side == "src" else tf.num_dst
+    out = torch.empty(rows, heads, dtype=torch.float32, device=vals.device)
+    if rows == 0 or heads == 0:
         return out.zero_()
-    vals = _f32(vals)
-    for h0 in range(0, heads, group):
-        _launch("dgl_slot_reduce",
-                (tf.src_local if src else tf.dst_local).data_ptr(),
-                tf.valid.data_ptr(), vals.data_ptr(),
-                tf.src_order.data_ptr() if src else 0,
-                (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
-                tf.cap, heads, h0, min(group, heads - h0), out.data_ptr(),
-                rows, splits, int(src), vals.device.index,
-                ts._stream(vals.device))
-        slot_reduce.launches += 1
+    ts.row_reduce(tf.row_view(side), tf.cap, vals.float(), out)
+    slot_reduce.launches += 1
     return out
 
 
@@ -655,7 +671,7 @@ def _check_edge(tf: ts.TiledFormat, ef_slot) -> int:
 def edgegat_fits(heads: int, fe: int) -> bool:
     """True when K10 v2's scores kernel holds M, (Fe, H) f32, in a block's
     shared memory; the EdgeGATConv gate checks it."""
-    return fe * heads * 4 <= ts._SMEM_PER_BLOCK
+    return fe * heads * 4 <= _SMEM_PER_BLOCK
 
 
 def edgegat_scores(tf: ts.TiledFormat, el, er, ef_slot, m, slope: float):
@@ -713,9 +729,9 @@ def slot_feat_reduce(tf: ts.TiledFormat, w_slot, ef_slot):
     b, n_dt = tf.num_buckets, tf.num_dst_tiles
     ts._check_int32(b * heads * tf.cap, b * tf.cap * max(fe, 1),
                     n_dt * tf.tile * f)
-    g = ts._group(f, tf.tile)
-    splits = ts._splits(tf, n_dt, -(-f // g), ts._group_per_sm(g, tf.tile),
-                        w_slot.device)
+    g = _group(f, tf.tile)
+    splits = _splits(tf, n_dt, -(-f // g), _group_per_sm(g, tf.tile),
+                     w_slot.device)
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc(tf.num_dst, heads, fe, dtype=torch.float32,
                 device=w_slot.device)
@@ -839,7 +855,7 @@ def _check_vattn_sizes(tf: ts.TiledFormat, heads, dim, fe, smem_floats):
                     tf.num_src_tiles * tf.tile * hd,
                     tf.num_dst_tiles * tf.tile * hd,
                     tf.num_buckets * tf.cap * max(fe, 1))
-    if smem_floats * 4 > ts._SMEM_PER_BLOCK:
+    if smem_floats * 4 > _SMEM_PER_BLOCK:
         raise ValueError(f"{heads} heads x {dim} with {fe} edge features "
                          "do not fit the kernel's shared memory")
 
@@ -1046,9 +1062,8 @@ def node_grad_tiled(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
     n_rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
     dev = U3.device
-    g = ts._group(hd, tf.tile)
-    splits = ts._splits(tf, n_t, -(-hd // g), ts._group_per_sm(g, tf.tile),
-                        dev)
+    g = _group(hd, tf.tile)
+    splits = _splits(tf, n_t, -(-hd // g), _group_per_sm(g, tf.tile), dev)
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc(n_rows, heads, dim, dtype=torch.float32, device=dev)
     if n_t == 0 or hd == 0:
@@ -1102,9 +1117,8 @@ def _slot_agg(tf: ts.TiledFormat, mode: int, t, heads: int, head_cols: int,
                     tf.num_src_tiles * tf.tile * f,
                     tf.num_dst_tiles * tf.tile * f)
     dev = t.device
-    g = ts._group(f, tf.tile)
-    splits = ts._splits(tf, n_t, -(-f // g), ts._group_per_sm(g, tf.tile),
-                        dev)
+    g = _group(f, tf.tile)
+    splits = _splits(tf, n_t, -(-f // g), _group_per_sm(g, tf.tile), dev)
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc(rows, f, dtype=torch.float32, device=dev)
     if n_t == 0 or f == 0:
@@ -1297,14 +1311,29 @@ dx_dfe.launches = 0
 
 # -- forward and backward -----------------------------------------------------
 
+def _slot_major(t: torch.Tensor) -> torch.Tensor:
+    """A (B, H, C) slot tensor laid out slot-major, (B, C, H) memory, as a
+    (B, H, C) view (a copy unless it is so already; at H = 1 none): a
+    slot's H values share a sector, as the row walks and the row reduce
+    read them."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _den_num(tf: ts.TiledFormat, p, x3, H: int, Fh: int):
+    """(den (num_dst, H) clamped at 1e-20, num (num_dst, H, Fh)) from p's
+    one slot-major copy, which both the reduce and K4's SpMM read."""
+    ps = _slot_major(p)
+    den = slot_reduce(tf, ps, "dst").clamp_(min=DEN_EPS)
+    return den, ts.tiled_spmm_multihead(tf, x3, ps, H, Fh)
+
+
 def gat_forward(tf: ts.TiledFormat, el2, er2, x3, H: int, Fh: int,
                 slope: float, ee_slot=None):
     """Returns (out (num_dst, H, Fh), p_slot, g_slot, den (num_dst, H)),
     ``den`` clamped at 1e-20.  ``ee_slot`` (B, H, C), optional: a per-slot
     additive edge bias (EGAT), 0 at padded slots."""
     p, g = gat_scores(tf, el2, er2, slope, ee_slot)
-    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
-    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    den, num = _den_num(tf, p, x3, H, Fh)
     return num / den.unsqueeze(-1), p, g, den
 
 
@@ -1317,9 +1346,10 @@ def _scales(out, dZ, den):
 def gat_backward(tf: ts.TiledFormat, x3, p_slot, g_slot, den, out, dZ,
                  H: int, Fh: int):
     """Returns (del (num_src, H), der (num_dst, H), dx (num_src, H, Fh),
-    ds_slot (B, H, C)).  ``tf`` needs ``src_order`` (``with_src_first``)."""
+    ds_slot (B, H, C), a slot-major view, as the two reduces read it).
+    ``tf`` needs ``src_order`` (``with_src_first``)."""
     zn, rp = _scales(out, dZ, den)
-    ds = gat_ds(tf, x3, zn, rp, g_slot)
+    ds = gat_ds(tf, x3, zn, rp, g_slot, slot_major=True)
     der = slot_reduce(tf, ds, "dst")
     dl = slot_reduce(tf, ds, "src")
     dx = src_aggregate(tf, zn, p_slot)
@@ -1335,8 +1365,7 @@ def dot_gat_forward(tf: ts.TiledFormat, q3, k3, x3, H: int, D: int,
     # in place: at Reddit scale each (B, H, C) tensor is 3 GB at H = 4
     p.mul_(1.0 / math.sqrt(D)).clamp_(-CLIP, CLIP).exp_()
     p.mul_(tf.valid.view(b, 1, cap))
-    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
-    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    den, num = _den_num(tf, p, x3, H, Fh)
     return num / den.unsqueeze(-1), p, den
 
 
@@ -1362,8 +1391,7 @@ def vattn_forward(tf: ts.TiledFormat, U3, V3, x3, attn, H: int, Fh: int,
     ``egatc2_forward`` :2053): (out (num_dst, H, Fh), p_slot, den
     (num_dst, H)), ``den`` clamped at 1e-20."""
     p = vattn_scores(tf, U3, V3, attn, slope, ef_slot, wf)
-    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
-    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    den, num = _den_num(tf, p, x3, H, Fh)
     return num / den.unsqueeze(-1), p, den
 
 
@@ -1410,8 +1438,7 @@ def edgegat_v2_forward(tf: ts.TiledFormat, el2, er2, ef_slot, We, attn_e,
     We_h, with S = sum p ef per dst."""
     w3, m = _edge_mats(We, attn_e, H, Fh)
     p, g = edgegat_scores(tf, el2, er2, ef_slot, m, slope)
-    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
-    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    den, num = _den_num(tf, p, x3, H, Fh)
     s = slot_feat_reduce(tf, p, ef_slot)
     num = num + torch.einsum("vhf,fhd->vhd", s, w3)
     return num / den.unsqueeze(-1), p, g, den, s
@@ -1453,8 +1480,7 @@ def egatc_forward(tf: ts.TiledFormat, fni3, fnj3, fe_slot, attn, x3, H: int,
     Fh), p_slot, den (num_dst, H)), ``den`` clamped at 1e-20; the edge
     term is the stored ``fe_slot`` (B, C, H * De)."""
     p = egatc_scores(tf, fni3, fnj3, attn, fe_slot, slope)
-    den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
-    num = ts.tiled_spmm_multihead(tf, x3, p, H, Fh)
+    den, num = _den_num(tf, p, x3, H, Fh)
     return num / den.unsqueeze(-1), p, den
 
 

@@ -29,8 +29,9 @@ limit, and a CUDA grid takes every bucket in one launch.
 Three kernels, each with a plain PyTorch version beside it that computes
 the same function:
 
-* :func:`tiled_spmm` (K3, ``_spmm_one_call``; ``csrc/tiled_spmm.cu``):
-  out[d] = sum w_e x[src_e];
+* :func:`tiled_spmm` (K3, ``_spmm_one_call``; ``csrc/row_agg.cu``):
+  out[d] = sum w_e x[src_e], the row walk by dst (below) at one head, its
+  weightless instance for a plain sum;
 * :func:`tiled_spmm_multihead` (K4; ``csrc/row_agg.cu``): out[d, h, :] =
   sum w[e, h] x[src_e, h, :] with (B, H, C) slot weights, a walk of the
   format's row view by dst (below), which ``gat_fused.src_aggregate``
@@ -41,6 +42,10 @@ the same function:
   a walk of the row view by dst that keeps z[dst] in registers and
   gathers x[src] (:func:`sddmm_walk`); its scores mode (:func:`sddmm_dots`
   with ``attn``) serves ``gat_fused.vattn_scores`` (K9).
+
+The same row views serve K6's slot reduce (``gat_fused.slot_reduce``):
+:func:`row_reduce` sums a (B, H, C) slot tensor over each row's entries
+(csrc ``row_reduce_kernel``).
 
 The row view (:class:`RowView`, ``TiledFormat.row_view``) lists the valid
 slots of one side's rows: per row, ascending slot id, the flat slot and
@@ -508,9 +513,6 @@ def tiled_sddmm_dot_multihead_plain(tf: TiledFormat, x3: torch.Tensor,
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    "tiled_spmm": {
-        "dgl_tiled_spmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
-                           _I, _I, _I, _I, _P]},
     "row_agg": {
         "dgl_row_agg": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                         _I, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -525,13 +527,14 @@ _SIGNATURES = {
         "dgl_slot_finish": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
                             _P],
         "dgl_ds_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                          ctypes.c_double, _P, _I, _I, _I, _I, _P]},
+                          ctypes.c_double, _P, _I, _I, _I, _I, _P],
+        "dgl_row_reduce": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
+        "dgl_row_reduce_attrs": [_I, _I, _I, _P]},
 }
-_SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
-_SPMM_WARPS = 16            # csrc/tiled_spmm.cu kSpmmWarps
 
 
-def _launch(fn: str, *args, source: str = "tiled_spmm"):
+def _launch(fn: str, *args, source: str = "row_agg"):
     lib = build.load(source, _SIGNATURES[source])
     err = getattr(lib, fn)(*args)
     if err != 0:
@@ -559,62 +562,8 @@ def _check_int32(*sizes):
                          f"kernels' int32 indexing")
 
 
-def _group(f: int, tile: int) -> int:
-    """Columns one block keeps per dst row (lanes per slot): the
-    narrowest of 8, 16, 32 that covers F, within the shared memory of a
-    (tile, group) f32 block."""
-    g = 8 if f <= 8 else 16 if f <= 16 else 32
-    while g > 8 and tile * g * 4 > _SMEM_PER_BLOCK:
-        g //= 2
-    if tile * g * 4 > _SMEM_PER_BLOCK:
-        raise ValueError(f"tile {tile} is too large for the kernels' "
-                         "shared-memory accumulator")
-    return g
-
-
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _splits(tf: TiledFormat, n_tiles: int, blocks_per_tile: int,
-            per_sm: int, device) -> int:
-    """Splits of each tile's buckets over blocks: about two waves of the
-    ``per_sm`` blocks that fit an SM at once, each split keeping about 4
-    buckets or more of its tile."""
-    want = -(-2 * _sms(device) * per_sm // max(n_tiles * blocks_per_tile,
-                                               1))
-    return max(1, min(want, tf.num_buckets // max(4 * n_tiles, 1), 65535))
-
-
-def _group_per_sm(g: int, tile: int) -> int:
-    """Blocks of a (tile, g) shared-memory accumulator that fit an SM at
-    once, with the registers of 512 threads at g = 32."""
-    return max(1, min(2 if g <= 16 else 1, _SMEM_PER_BLOCK // (tile * g * 4)))
-
-
-def _spmm_launch(tf: TiledFormat, x: torch.Tensor, w):
-    """K3's out (num_dst, F) f32 from one launch of csrc
-    ``tiled_spmm_kernel`` over x (num_src, F), weighted by the slot weights
-    ``w`` (None for a plain sum)."""
-    f = x.shape[1]
-    _check_int32(tf.num_buckets * tf.cap, tf.num_src_tiles * tf.tile * f,
-                 tf.num_dst_tiles * tf.tile * f)
-    g = _group(f, tf.tile)
-    n_dt = tf.num_dst_tiles
-    n_chunks = -(-f // g)
-    splits = _splits(tf, n_dt, n_chunks, _group_per_sm(g, tf.tile), x.device)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc(tf.num_dst, f, dtype=torch.float32, device=x.device)
-    if n_dt == 0 or f == 0:
-        return out
-    _launch("dgl_tiled_spmm", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            0 if w is None else w.data_ptr(), tf.src_tile.data_ptr(),
-            tf.dst_ptr.data_ptr(), n_dt, tf.tile, tf.cap, x.data_ptr(), f,
-            out.data_ptr(), tf.num_dst, g, splits, x.device.index,
-            _stream(x.device))
-    tiled_spmm.launches += 1
-    return out
 
 
 FOLD_CPL = 4   # vectors a lane of the node-gradient walk with da folded in
@@ -648,8 +597,10 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
     ``view.order``: out[r, h] = sum over row r's entries k of w[b, h, c] *
     y[nbr[k], h], slot[k] = b * cap + c, in slot order, 0 at a row with no
     entry.  CUDA tensors, f32: ``y`` (neighbours, H, D) contiguous, ``w``
-    (B, H, cap) in any strides, read in place; ``out`` (rows, H, D)
-    contiguous.  ``fn``: the C function to launch, by default
+    (B, H, cap) in any strides, read in place, or None for weights of 1
+    (the weightless instance, which reads neither w nor ``view.slot``);
+    ``out`` (rows, H, D) contiguous.  ``fn``: the C function to launch, by
+    default
     ``dgl_row_agg`` of ``csrc/row_agg.cu``.  ``grad`` = (own (rows, H, D)
     contiguous, attn (H, D) contiguous, slope): K9's node gradient instead
     (``dgl_row_node_grad``), out[r, h, d] = attn[h, d] * the sum of w[b,
@@ -659,8 +610,10 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
     y[nbr[k], h, d]).  Counts nothing."""
     heads, hc = y.shape[1], y.shape[2]
     f = heads * hc
+    w_strides = (0, 0, 0) if w is None else tuple(w.stride())
     _check_int32(y.numel(), out.numel(),
-                 sum((n - 1) * st for n, st in zip(w.shape, w.stride())))
+                 0 if w is None else sum((n - 1) * st for n, st in
+                                         zip(w.shape, w.stride())))
     fold = grad is not None and len(grad) > 3
     vec, cpl, lpr, n_chunks = _row_layout(
         f, hc, y, *(() if grad is None else grad[:1] + grad[3:]),
@@ -669,8 +622,9 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
     _check_int32(view.rows * n_chunks + 2048 * _sms(y.device))
     counter = torch.zeros(1, dtype=torch.int32, device=y.device)
     args = (view.ptr.data_ptr(), view.slot.data_ptr(), view.nbr.data_ptr(),
-            view.order.data_ptr(), view.rows, w.data_ptr(), cap,
-            *w.stride(), heads, hc, y.data_ptr(), f, out.data_ptr(),
+            view.order.data_ptr(), view.rows,
+            None if w is None else w.data_ptr(), cap, *w_strides, heads, hc,
+            y.data_ptr(), f, out.data_ptr(),
             counter.data_ptr(), vec, cpl, lpr, n_chunks, y.device.index,
             _stream(y.device))
     if grad is not None:
@@ -704,10 +658,11 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     """:func:`row_walk` over every row of ``side`` (dst: the dst nodes,
     neighbours the srcs; src: the reverse) on CUDA tensors: (rows, H, D)
     f32, out[r, h] = sum over the valid slots of row r of w_slot[b, h, c]
-    * y3[nbr, h].  ``y3`` (neighbours, H, D), ``w_slot`` (B, H, C); counts
-    the launch on ``wrapper``.  ``grad`` = (own3 (rows, H, D), attn (H,
-    D), slope): K9's node gradient instead (:func:`row_walk`); with
-    ``with_da`` its da folded in, and (out, da (H, D)) returned.
+    * y3[nbr, h].  ``y3`` (neighbours, H, D), ``w_slot`` (B, H, C), or None
+    for weights of 1 (K3's plain sum); counts the launch on ``wrapper``.
+    ``grad`` = (own3 (rows, H, D), attn (H, D), slope): K9's node gradient
+    instead (:func:`row_walk`); with ``with_da`` its da folded in, and
+    (out, da (H, D)) returned.
 
     A head width that is not a multiple of 4 is padded to one (y copied
     into zeroed rows, out sliced), so that the walk takes 16-byte loads,
@@ -727,7 +682,8 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     # weights then share a sector; read in the (B, H, C) layout they lie
     # in H sectors, and at H > 1 the walk took longer than the copy and the
     # walk on it together (dgl_tpu_torch/tools/perf_row_walk.py)
-    w = w_slot.float().transpose(1, 2).contiguous().transpose(1, 2)
+    w = (None if w_slot is None else
+         w_slot.float().transpose(1, 2).contiguous().transpose(1, 2))
     hp = -(-hc // 4) * 4
     if hp == hc or (hp - hc) * 8 > hc:
         hp = hc
@@ -760,13 +716,89 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     return out
 
 
+def reduce_layout(heads: int, vec: int, degree: float):
+    """(cpl, lps, lpr, n_chunks) of the row reduce over ``heads`` heads
+    read ``vec`` at a time, on rows of ``degree`` entries on average:
+    vectors a lane (a power of two up to 8), lanes a slot (the H / vec
+    vectors rounded up to a power of two, at most 32), lanes a row (enough
+    that a lane keeps its slots in flight on a mean row: lps times the
+    mean degree over 8, a power of two in [lps, 32]) and column chunks."""
+    nv = heads // vec
+    lps = _pow2(min(nv, 32))
+    cpl = 1
+    while cpl < 8 and lps * cpl < nv:
+        cpl *= 2
+    lpr = lps
+    while lpr < 32 and lpr * 8 < lps * degree:
+        lpr *= 2
+    return cpl, lps, lpr, -(-nv // (lps * cpl))
+
+
+def reduce_vec(vals: torch.Tensor) -> int:
+    """Floats a load of the row reduce over ``vals`` (B, H, C): 4 where it
+    is slot-major (a slot's H values contiguous, strides (C H, 1, H)), H
+    is a multiple of 4 and it is 16-byte aligned, else 1."""
+    heads = vals.shape[1]
+    bs, hs, cs = vals.stride()
+    return 4 if (heads % 4 == 0 and hs == 1 and bs % 4 == 0 and cs % 4 == 0
+                 and vals.data_ptr() % 16 == 0) else 1
+
+
+def row_reduce(view: RowView, cap: int, vals: torch.Tensor,
+               out: torch.Tensor, lpr: int = None, fn=None):
+    """One launch of csrc ``row_reduce_kernel`` over the rows of
+    ``view.order``: out[r, h] = the sum over row r's entries k of vals[b,
+    h, c], slot[k] = b * cap + c, each lane's entries in entry order, then
+    the lanes of a head in a fixed order; 0 at a row with no entry.  CUDA
+    tensors, f32: ``vals`` (B, H, cap) in any strides, read in place
+    (16-byte loads where it is slot-major, :func:`reduce_vec`); ``out``
+    (rows, H) contiguous.  ``lpr``: lanes a row in place of
+    :func:`reduce_layout`'s.  ``fn``: the C function to launch, by default
+    ``dgl_row_reduce``.  Counts nothing."""
+    heads = vals.shape[1]
+    vec = reduce_vec(vals)
+    cpl, lps, auto, n_chunks = reduce_layout(
+        heads, vec, view.slot.numel() / max(view.rows, 1))
+    lpr = auto if lpr is None else max(lpr, lps)
+    _check_int32(out.numel(), sum((n - 1) * st for n, st in
+                                  zip(vals.shape, vals.stride())),
+                 view.rows * n_chunks + 2048 * _sms(vals.device))
+    counter = torch.zeros(1, dtype=torch.int32, device=vals.device)
+    args = (view.ptr.data_ptr(), view.slot.data_ptr(), view.order.data_ptr(),
+            view.rows, vals.data_ptr(), cap, *vals.stride(), heads,
+            out.data_ptr(), counter.data_ptr(), vec, cpl, lps, lpr, n_chunks,
+            vals.device.index, _stream(vals.device))
+    if fn is None:
+        _launch("dgl_row_reduce", *args)
+    elif fn(*args) != 0:
+        raise RuntimeError("dgl_row_reduce failed to launch")
+
+
+def reduce_kernel_attrs(vec: int, cpl: int, device=None):
+    """(registers a thread, local-memory bytes a thread) of the row
+    reduce's instance ``row_reduce_kernel<vec, cpl>``, from
+    ``cudaFuncGetAttributes``: local bytes above 0 are a stack frame or
+    spills."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 2)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_reduce_attrs(vec, cpl, device.index or 0,
+                                   ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_reduce_attrs: CUDA error {err}")
+    return out[0], out[1]
+
+
 def tiled_spmm(tf: TiledFormat, x: torch.Tensor, edge_weights=None,
                slot_weights=None) -> torch.Tensor:
     """K3: out[d] = sum_{e: dst(e) = d} w_e * x[src(e)], (num_dst, F) f32.
 
     ``edge_weights``: (num_edges,) per-edge scalars in canonical order, or
     None for a plain sum.  ``slot_weights``: the same already in the slot
-    layout (:func:`slot_edge_weights`); it overrides ``edge_weights``."""
+    layout (:func:`slot_edge_weights`); it overrides ``edge_weights``.  On
+    CUDA tensors the row walk by dst at H = 1 (:func:`row_aggregate`, x
+    as (N, 1, F), the weights as (B, 1, C)); a plain sum takes its
+    weightless instance, which reads no weights and no slot ids."""
     _check_operand(tf, x, tf.num_src, 2, "x")
     w = slot_weights
     if w is None and edge_weights is not None:
@@ -776,9 +808,10 @@ def tiled_spmm(tf: TiledFormat, x: torch.Tensor, edge_weights=None,
                          f"format {tuple(tf.valid.shape)}")
     if not on_cuda(x, tf.valid, *(() if w is None else (w,))):
         return tiled_spmm_plain(tf, x, w)
-    x = x.float().contiguous()
-    w = None if w is None else w.float().contiguous()
-    return _spmm_launch(tf, x, w)
+    f = x.shape[1]
+    w3 = None if w is None else w.reshape(tf.num_buckets, 1, tf.cap)
+    return row_aggregate(tf, "dst", x.view(tf.num_src, 1, f), w3,
+                         tiled_spmm).view(tf.num_dst, f)
 
 
 tiled_spmm.launches = 0

@@ -10,7 +10,9 @@ and K5's forward (:mod:`.perf_fwd_walks`) beside the kernels they
 replaced and edits of their own, and the one that times K6's ds and
 K9's da beside the kernels they replaced (:mod:`.perf_ds_fold`), and
 the one that times K9's scores and K12's row product beside the kernels
-they replaced (:mod:`.perf_scores_rows`), all called from
+they replaced (:mod:`.perf_scores_rows`), and the one that times K6's
+slot reduce and K3 beside the kernels they replaced and edits of the row
+walks (:mod:`.perf_reduce_k3`), all called from
 ``chip_smoke.py``'s yardsticks.  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
 import ctypes

@@ -272,8 +272,8 @@ def tiled_node_grad(tf, U3, V3, attn, ds, slope: float, side: str):
     n_rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
     dev = U3.device
-    g = tts._group(hd, tf.tile)
-    splits = tts._splits(tf, n_t, -(-hd // g), tts._group_per_sm(g, tf.tile),
+    g = tgf._group(hd, tf.tile)
+    splits = tgf._splits(tf, n_t, -(-hd // g), tgf._group_per_sm(g, tf.tile),
                          dev)
     out = (torch.zeros if splits > 1 else torch.empty)(
         n_rows, heads, dim, dtype=torch.float32, device=dev)

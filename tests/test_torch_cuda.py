@@ -6,11 +6,11 @@ PyTorch:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
-atomics (K5's, for the gradient of er, and K3's and K6's reduce's
-shared-memory adds) add in an order that changes from run to run.  The
-row walk (K4's SpMM, K6's dx, K9's node gradient) sums each row in slot
-order, the SDDMM walk (K4's SDDMM, K6's ds) forms each dot in one lane
-order and K2 sums a row's bits in one list order; their checks take
+atomics (K5's, for the gradient of er) add in an order that changes from
+run to run.  The row walk (K3, K4's SpMM, K6's dx, K9's node gradient)
+and the row reduce (K6's den, der and del) sum each row in slot order,
+the SDDMM walk (K4's SDDMM, K6's ds) forms each dot in one lane order
+and K2 sums a row's bits in one list order; their checks take
 dyadic inputs and ask for equality.  K5's listed walk by src sums dz and
 del in registers in one order (der in L2 in none), its walk by dst out
 and l; K9's da, folded into the
@@ -441,8 +441,9 @@ def _tiled(card, tile=256, cap=128):
 @pytest.mark.parametrize("f", [16, 41, 128])
 @pytest.mark.parametrize("weights", ["none", "edge", "slot"])
 def test_tiled_spmm_kernel_matches_plain(card, f, weights):
-    """K3 forward and backward (the three autograd functions) against the
-    plain version on the same formats."""
+    """K3 forward and backward (the three autograd functions), the row
+    walk by dst on each format, against the plain version on the same
+    formats."""
     fwd, rev, row, col = _tiled(card)
     gen = torch.Generator(device=card).manual_seed(f)
     x = torch.randn(fwd.num_src, f, device=card, generator=gen,
@@ -465,6 +466,8 @@ def test_tiled_spmm_kernel_matches_plain(card, f, weights):
     out.backward(dz)
     torch.cuda.synchronize()
     assert tts.tiled_spmm.launches == before + 2
+    # through the row walk by dst: both formats' dst views were built
+    assert fwd._rows_dst is not None and rev._rows_dst is not None
     torch.testing.assert_close(out.detach(),
                                tts.tiled_spmm_plain(fwd, x.detach(), w_f),
                                rtol=RTOL, atol=ATOL)
@@ -1305,22 +1308,106 @@ def test_edgegat_wrappers_never_take_plain_on_cuda(card, monkeypatch):
 
 
 def test_slot_reduce_any_head_count(card):
-    """The slot reduce at 64 heads and tile 1024, whose (tile, H) f32 sums
-    exceed a block's shared memory, walks the heads in groups, one launch
-    each, and equals its plain version on both sides."""
+    """The slot reduce at 64 heads and tile 1024 (whose (tile, H) f32 sums
+    exceeded a block's shared memory, so that the tiled reduce took a
+    launch a group of heads) is one launch of the row reduce on each side,
+    in both layouts, and equals its plain version."""
     row, col, n_src, n_dst = _coo()
     fwd = tts.build_tiled_format_device(row, col, n_src, n_dst, 1024, 128,
                                         device=card).with_src_first()
-    assert 1024 * 64 * 4 > tts._SMEM_PER_BLOCK
+    assert 1024 * 64 * 4 > tgf._SMEM_PER_BLOCK
     vals = torch.randn(fwd.num_buckets, 64, fwd.cap, device=card) * \
         fwd.valid.view(fwd.num_buckets, 1, fwd.cap)
+    for v in (vals, tgf._slot_major(vals)):
+        for side in ("dst", "src"):
+            before = tgf.slot_reduce.launches
+            got = tgf.slot_reduce(fwd, v, side)
+            torch.cuda.synchronize()
+            assert tgf.slot_reduce.launches - before == 1
+            torch.testing.assert_close(
+                got, tgf.slot_reduce_plain(fwd, v, side), rtol=RTOL,
+                atol=ATOL)
+
+
+def _hub_tiled(card):
+    """The tiled format of a square COO with 40 hub dst nodes, a src hub
+    (node 77, 3,000 out-edges) and nodes of no in-edge and no out-edge."""
+    row, col, n = _hub_coo()
+    row[1000:4000] = 77
+    row[(row >= 5000) & (row < 5100)] -= 1000
+    col[(col >= 5500) & (col < 5600)] -= 1000
+    return tts.build_tiled_format_device(row, col, n, n,
+                                         device=card).with_src_first()
+
+
+@pytest.mark.parametrize("heads", [1, 4, 8, 64])
+@pytest.mark.parametrize("slot_major", [False, True])
+def test_row_reduce_bit_for_bit(card, heads, slot_major):
+    """The row reduce on both sides equals its plain version bit for bit
+    on a dyadic grid (every sum exact) and gives the same bits twice."""
+    fwd = _hub_tiled(card)
+    gen = torch.Generator(device=card).manual_seed(heads)
+    vals = _grid(card, gen, fwd.num_buckets, heads, fwd.cap, step=1 / 16,
+                 top=1) * fwd.valid.view(fwd.num_buckets, 1, fwd.cap)
+    if slot_major:
+        vals = tgf._slot_major(vals)
     for side in ("dst", "src"):
-        before = tgf.slot_reduce.launches
+        want = tgf.slot_reduce_plain(fwd, vals, side)
         got = tgf.slot_reduce(fwd, vals, side)
-        torch.cuda.synchronize()
-        assert tgf.slot_reduce.launches - before == 2
-        torch.testing.assert_close(got, tgf.slot_reduce_plain(fwd, vals, side),
-                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(got, want)
+        assert torch.equal(tgf.slot_reduce(fwd, vals, side), got)
+        view = fwd.row_view(side)
+        assert (got[view.ptr[1:] == view.ptr[:-1]] == 0).all()
+
+
+@pytest.mark.parametrize("vec,cpl", [(v, c) for v in (1, 4)
+                                     for c in (1, 2, 4, 8)])
+def test_row_reduce_registers(card, vec, cpl):
+    """Every instance of the row reduce: at most 128 registers a thread,
+    no local memory (no spill)."""
+    regs, local = tts.reduce_kernel_attrs(vec, cpl, card)
+    assert regs <= 128 and local == 0, (regs, local)
+
+
+@pytest.mark.parametrize("f", [3, 8, 16, 41])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k3_walk_bit_for_bit(card, f, weighted):
+    """K3 on the row walk by dst (weightless without weights; rows of
+    fewer lanes than U at F = 3, 8 and 16) equals its plain version bit
+    for bit on a dyadic grid and gives the same bits twice."""
+    fwd = _hub_tiled(card)
+    gen = torch.Generator(device=card).manual_seed(f)
+    x = _grid(card, gen, fwd.num_src, f, step=1 / 16, top=1)
+    w = (_grid(card, gen, *fwd.valid.shape, step=1 / 4, top=1) * fwd.valid
+         if weighted else None)
+    want = tts.tiled_spmm_plain(fwd, x, w)
+    before = tts.tiled_spmm.launches
+    got = tts.tiled_spmm(fwd, x, slot_weights=w)
+    assert tts.tiled_spmm.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(tts.tiled_spmm(fwd, x, slot_weights=w), got)
+
+
+def test_reduce_k3_probe_retired_kernels(card):
+    """``tools/perf_reduce_k3.py`` builds the tiled reduce and the tiled K3
+    walk that the row walks replaced, and its three edits of the walks;
+    on a grid all give the plain versions' sums."""
+    from dgl_tpu_torch.tools import perf_reduce_k3 as trk
+    fwd = _hub_tiled(card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    vals = _grid(card, gen, fwd.num_buckets, 8, fwd.cap, step=1 / 16,
+                 top=1) * fwd.valid.view(fwd.num_buckets, 1, fwd.cap)
+    for side in ("dst", "src"):
+        want = tgf.slot_reduce_plain(fwd, vals, side)
+        assert torch.equal(trk.tiled_reduce(fwd, vals, side), want)
+        assert torch.equal(trk.nocap_reduce(fwd, vals, side), want)
+    x = _grid(card, gen, fwd.num_src, 16, step=1 / 16, top=1)
+    w = _grid(card, gen, *fwd.valid.shape, step=1 / 4, top=1) * fwd.valid
+    for wi in (None, w):
+        want = tts.tiled_spmm_plain(fwd, x, wi)
+        assert torch.equal(trk.tiled_k3(fwd, x, wi), want)
+        for variant in ("narrow", "rounds"):
+            assert torch.equal(trk.variant_k3(variant, fwd, x, wi), want)
 
 
 def test_egatconv_above_the_edge_row_cap(card, monkeypatch):

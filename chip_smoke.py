@@ -576,11 +576,14 @@ TRACED_KERNELS = {
     # K9's scores: the dot-product walk by dst and its exp pass (K11 v2's,
     # the edge term, are vattn_scores_kernel, in no profiled step)
     "vattn_scores": ("row_sddmm_kernel", "slot_finish_kernel"),
-    "vattn_slot_grad": "vattn_slot_grad_kernel",
+    # K11 v2's slot gradient: the tensor-core kernel and its finishing
+    # pass (K9's da is folded into vattn_node_grad_da)
+    "vattn_slot_grad": ("vattn_slot_grad_mma_kernel",
+                        "vattn_grad_finish_kernel"),
     "vattn_node_grad": "row_agg_kernel",
     "vattn_node_grad_da": "row_agg_kernel",
     "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
-    "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_kernel",
+    "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_list_kernel",
     "bitdot_bwd_dq": "bitdot_dq_kernel",
     "int8_matmul_rows": ("split_z_kernel", "int8_rows_mma_kernel"),
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
@@ -599,7 +602,16 @@ TRACED_KERNELS = {
 # one (their probes launch them outside any profile)
 RETIRED_KERNELS = ("::int8_rows_kernel<",
                    "::vattn_scores_kernel<false, float, false>",
-                   "::slot_reduce_kernel<", "::tiled_spmm_kernel<")
+                   "::slot_reduce_kernel<", "::tiled_spmm_kernel<",
+                   "::bitdot_dz_kernel<") + tuple(
+    # vattn_slot_grad_kernel's edge instances <cols, fe_cap, def, ...>
+    # (K11 v1's <cols, T, true> stays)
+    f"::vattn_slot_grad_kernel<{c}, {f}, " for c in (1, 2, 4)
+    for f in (8, 16, 32))
+# K11 v2's step (phase 23): its scores and node gradient are gatv2.cu's
+# bucket walks, not K9's row walks
+EGAT_TRACED = {"vattn_scores": "vattn_scores_kernel",
+               "vattn_node_grad": "vattn_node_grad_kernel"}
 PROFILE_TRIES = 3      # sessions a profile takes, at most, to trace all
 PROFILE_PAD_S = 0.25   # idle host seconds before and after the recorded step
 
@@ -665,7 +677,7 @@ def device_span_us(prof):
 
 
 def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
-                  loss=loss_fn, card=None):
+                  loss=loss_fn, card=None, traced=None):
     """Optimizer steps of ``loss`` under torch.profiler, ``warmup`` of them
     before the one that its schedule records (``profile_once``): device
     time by kernel and the device's busy share of the recorded step (the
@@ -681,7 +693,8 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
     last still fails, the busy share is not measured (and missed launches
     are listed in order).  A trace with a kernel of ``RETIRED_KERNELS``
     raises.  ``card``: the card's name and power limit, printed beside
-    the step's numbers."""
+    the step's numbers; ``traced``: wrappers whose kernels differ from
+    TRACED_KERNELS' in this step."""
     from torch.autograd import DeviceType
     for attempt in range(1, PROFILE_TRIES + 1):
         rows, prof, wall_us, before, after, event_us = profile_once(
@@ -691,10 +704,11 @@ def phase_profile(model, opt, g, x, y, train, counts, warmup=1,
         if retired:
             raise AssertionError(f"a profiled step launched a retired "
                                  f"kernel: {retired}")
-        traced = {name: kernel for name, kernel in TRACED_KERNELS.items()
-                  if name in after}
+        traced_map = {**TRACED_KERNELS, **(traced or {})}
+        names = {name: kernel for name, kernel in traced_map.items()
+                 if name in after}
         launched = {}
-        for name, kernels in traced.items():
+        for name, kernels in names.items():
             for kernel in (kernels,) if isinstance(kernels, str) else kernels:
                 launched[kernel] = (launched.get(kernel, 0) + after[name]
                                     - before[name])
@@ -2254,6 +2268,21 @@ def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
         if a is not None:
             check = close if name == "d_ef" else close_sum
             errs.append((name, check(a, w, f"{tag} {name}")))
+    if fe:
+        # K11 v2's tensor-core slot gradient: a second launch gives the same
+        # bits, with and without d(ef) (the two instances fit different
+        # numbers of blocks an SM, so their sums split differently)
+        again = tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf)
+        for name, a, b in zip(("da", "d_ef", "dwf"), got, again):
+            equal(b, a, f"{tag} {name}, launched twice")
+        no_def = [tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
+                                      need_def=False) for _ in range(2)]
+        for i, name in ((0, "da"), (2, "dwf")):
+            equal(no_def[1][i], no_def[0][i],
+                  f"{tag} {name} without d(ef), launched twice")
+            close_sum(no_def[0][i], want[i], f"{tag} {name} without d(ef)")
+        if no_def[0][1] is not None:
+            raise AssertionError(f"{tag}: d(ef) without need_def")
     errs.append(("dV", close(got_v, want_v, f"{tag} dV")))
     errs.append(("dU", close(
         tgf.vattn_node_grad(tf, U, V, attn, ds, slope, "src", ef, wf),
@@ -2261,19 +2290,72 @@ def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
         f"{tag} dU")))
     torch.cuda.synchronize()
     launched = [k.launches - b for k, b in zip(counters, before)]
-    # scores (K9's: three calls, the clip checks too), slot gradient, node
-    # gradient, node gradient with da
-    expect = [1, 1, 2, 0] if fe else [3, 0, 1, 1]
+    # scores (K9's: three calls, the clip checks too), slot gradient (K11
+    # v2's: with d(ef) twice, without it twice), node gradient, node
+    # gradient with da
+    expect = [1, 4, 2, 0] if fe else [3, 0, 1, 1]
     if launched != expect:
         raise AssertionError(f"{tag}: K9 launches {launched}, not {expect}")
     return errs
 
 
+SLOT_GRAD_GRID_EDGES = 60_000
+SLOT_GRAD_FES = (5, EGAT_FE)
+
+
+def slot_grad_grid_checks(tts, tgf, gen):
+    """K11 v2's tensor-core slot gradient bit for bit against its plain
+    version on a dyadic grid: the first SLOT_GRAD_GRID_EDGES edges of the
+    mid-size graph, U, V and attn multiples of 1/4 in [-1, 1], wf (with the
+    bias row) of 1/4 in [-1/2, 1/2], edge features in {-1, 0, 1}, ds in
+    {-1, 0, 1} and a slope of 1/4, so that every product is exact in one
+    bf16 part and every sum in f32 in any order (``exact_sums``); at each
+    of VATTN_SHAPES with SLOT_GRAD_FES edge features, with and without
+    d(ef), each launched twice to the same bits."""
+    row, col, n_src, n_dst = mid_graph()
+    e = SLOT_GRAD_GRID_EDGES
+    tf = tts.build_tiled_format_device(row[:e], col[:e], n_src, n_dst,
+                                       device="cuda")
+    b, cap = tf.num_buckets, tf.cap
+    for heads, dim in VATTN_SHAPES:
+        hd = heads * dim
+        for fe in SLOT_GRAD_FES:
+            tag = f"K11 v2 slot grad grid H={heads} D={dim} Fe={fe}+1"
+            # |raw| <= 2 + (fe + 1) / 2 on a grid of 1/4; |dW| <= 1 on 1/16
+            exact_sums(e * (2 + (fe + 1) / 2), 1 / 16, f"{tag} da")
+            exact_sums(e, 1 / 16, f"{tag} dWf")
+            exact_sums(hd / 2, 1 / 64, f"{tag} d(ef)")
+            U = grid(gen, n_src, heads, dim, step=1 / 4, top=1)
+            V = grid(gen, n_dst, heads, dim, step=1 / 4, top=1)
+            attn = grid(gen, heads, dim, step=1 / 4, top=1)
+            wf = grid(gen, fe + 1, hd, step=1 / 4, top=0.5)
+            ef = torch.randint(-1, 2, (b, cap, fe), device="cuda",
+                               generator=gen).float() * tf.valid.view(b, cap,
+                                                                      1)
+            ds = grid(gen, b, heads, cap, step=1, top=1) * tf.valid.view(
+                b, 1, cap)
+            want = tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, EXACT_SLOPE,
+                                             ef, wf)
+            for need_def in (True, False):
+                runs = [tgf.vattn_slot_grad(tf, U, V, attn, ds, EXACT_SLOPE,
+                                            ef, wf, need_def)
+                        for _ in range(2)]
+                for name, a, b2, w in zip(("da", "d_ef", "dwf"), *runs, want):
+                    if name == "d_ef" and not need_def:
+                        continue
+                    equal(a, w, f"{tag} {name} (need_def={need_def})")
+                    equal(b2, a, f"{tag} {name} launched twice")
+        log(f"# K11 v2 slot grad grid H={heads} D={dim}: da, d(ef), dWf "
+            f"equal the plain version's bits at Fe = {SLOT_GRAD_FES} + 1, "
+            f"with and without d(ef), twice ({e} edges)")
+
+
 def phase_gatv2_mid(dgt, tts, tgf):
     """Phase 21: each K9 / K11 v2 kernel against its plain version at mid
-    size, without and with the edge term (16 features and the bias row);
-    then the 2-layer GATv2 through K9 against its edge chain
-    (``use_kernels(False)``)."""
+    size, without and with the edge term (16 features and the bias row),
+    K11 v2's slot gradient also bit for bit on a dyadic grid
+    (``slot_grad_grid_checks``); then the 2-layer GATv2 through K9 against
+    its edge chain (``use_kernels(False)``)."""
     from dgl_tpu_torch.utils import config
     row, col, n_src, n_dst = mid_graph()
     fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
@@ -2285,6 +2367,7 @@ def phase_gatv2_mid(dgt, tts, tgf):
             errs = vattn_kernel_checks(tgf, fwd, heads, dim, fe, gen, tag)
             log(f"# {tag}: max|err| " + ", ".join(
                 f"{name} {err:.3g}" for name, err in errs))
+    slot_grad_grid_checks(tts, tgf, gen)
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.create_tiled_format()
@@ -2442,10 +2525,18 @@ def egat_graph(dgt):
     return g, x, ef, ef_slot
 
 
-def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
+def egat_loss(model, g, x, ef, ef_slot):
+    """(out^2).mean() of one EGATConv on the slot route
+    (tools/perf_egat128.py:80)."""
+    h, _ = model(g, x, ef, compute_edge_feats=False, efeats_slot=ef_slot)
+    return h.square().mean()
+
+
+def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot, card=None):
     """Phase 23: EGATConv(64, 16, 32, 32, 4) with compute_edge_feats=False,
     loss (out^2).mean(), Adam 1e-3 (tools/perf_egat128.py:45-80), on K11
-    v2; the counts are set to 0 just before and read just after."""
+    v2; the counts are set to 0 just before and read just after; then a
+    profiled step held to the counters."""
     conv = dgt.nn.EGATConv(EGAT_FIN, EGAT_FE, EGAT_D, EGAT_D, EGAT_H,
                            generator=torch.Generator(device="cuda")
                            .manual_seed(24))
@@ -2457,8 +2548,7 @@ def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad()
-        h, _ = conv(g, x, ef, compute_edge_feats=False, efeats_slot=ef_slot)
-        loss = h.square().mean()
+        loss = egat_loss(conv, g, x, ef, ef_slot)
         loss.backward()
         opt.step()
         torch.cuda.synchronize()
@@ -2481,6 +2571,8 @@ def phase_egat(dgt, tts, tgf, g, x, ef, ef_slot):
         raise AssertionError(f"EGAT launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"EGAT losses are not finite: {losses}")
+    phase_profile(conv, opt, g, x, ef, ef_slot, lambda: read_counts(tts, tgf),
+                  1, egat_loss, card, EGAT_TRACED)
     return conv, counts
 
 
@@ -2506,14 +2598,18 @@ def phase_egat_check(conv, g, x, ef, ef_slot):
         f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
 
 
-def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate):
+def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
+                     tdz=None):
     """Phase 24: each K9 / K11 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; no single PyTorch call
     computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
     per slot, then lrelu, the dot with attn or the scaling by ds).  K9
     takes a slope of 1/4 here, so that its node gradient's sums over the
     Reddit graph's hubs are exact (``vattn_inputs``); K11 v2 keeps EGAT's
-    0.01, where the uniform graph's degrees stay near 100."""
+    0.01, where the uniform graph's degrees stay near 100.  K11 v2's slot
+    gradient is timed with and without d(ef) beside the edge instance it
+    replaced and the edit ``one_part`` (``tdz``,
+    tools/perf_dz_slot_grad.py)."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
     U, V, attn, ds, ef, wf = vattn_inputs(tf, heads, dim, fe, gen)
@@ -2574,17 +2670,98 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate):
             f"{old_bnd:.4f} ms: {bucket_b} B), max|err| {err:.3g} against "
             "the walk by dst")
     if fe:
-        # K11 v2's slot gradient as the main path calls it (no d(ef)): in
-        # the slot arrays, ds, U, V, attn, the edge term; out da and dWf.
-        # Per edge and column: raw, lrelu, da (5 ops), dW and dWf (3 + 2
-        # rows)
-        row("slot_grad",
-            lambda: tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
-                                        need_def=False),
-            lambda: tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef,
-                                              wf, need_def=False),
-            walk + edge_h + 2 * node_b + 2 * hd * 4 + edge_b + rows * hd * 4,
-            e * hd * (5 + fe_ops // hd + 3 + 2 * rows), check=close_sum)
+        # K11 v2's slot gradient as the main path calls it (no d(ef)), the
+        # tensor-core kernel.  Bytes: the slot arrays (valid at every slot,
+        # indices at the edges), ds at the edges, ef at every slot, U, V,
+        # attn and wf once, da and dWf out.  Operations: per edge and
+        # column the elementwise step on the f32 pipes (raw's two adds,
+        # lrelu, da's product and sum, dW's two products and select, the
+        # bias row's sum: 10) at 67 TFLOP/s, plus the two contractions (fe
+        # = ef wf and dWf = ef^T dW, 2 fe a column each) at 6 bf16 products
+        # each on the tensor cores at 989 TFLOP/s; the f32 kernel's bound
+        # (all of it at 67 TFLOP/s, ef at the edges) beside it
+        nbytes = (walk + edge_h + 2 * node_b + 2 * hd * 4 + slots * fe * 4
+                  + 2 * rows * hd * 4)
+        elem_ops = e * hd * 10
+        mma_ops = 6 * 2 * (2 * e * hd * fe)
+        bnd_f32 = bound(walk + edge_h + 2 * node_b + 2 * hd * 4 + edge_b
+                        + rows * hd * 4,
+                        e * hd * (5 + fe_ops // hd + 3 + 2 * rows), rate)[0]
+        time_b = nbytes / rate * 1e3
+        time_o = elem_ops / F32_PEAK * 1e3 + mma_ops / BF16_PEAK * 1e3
+        bnd = max(time_b, time_o)
+        got = tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
+                                  need_def=False)
+        want = tgf.vattn_slot_grad_plain(tf, U, V, attn, ds, slope, ef, wf,
+                                         need_def=False)
+        err = max(close_sum(a, w, f"K11 v2 slot_grad full size {tag}")
+                  for a, w in ((got[0], want[0]), (got[2], want[2])))
+        again = tgf.vattn_slot_grad(tf, U, V, attn, ds, slope, ef, wf,
+                                    need_def=False)
+        equal(again[0], got[0], f"K11 v2 da twice {tag}")
+        equal(again[2], got[2], f"K11 v2 dWf twice {tag}")
+        del want, again
+        r = {"max_abs_err": err,
+             "ms": cuda_ms(lambda: tgf.vattn_slot_grad(
+                 tf, U, V, attn, ds, slope, ef, wf, need_def=False)),
+             "plain_ms": cuda_ms(lambda: tgf.vattn_slot_grad_plain(
+                 tf, U, V, attn, ds, slope, ef, wf, need_def=False), reps=1),
+             "bound_ms": bnd, "bound_by": "bytes" if time_b >= time_o
+             else "operations", "library_ms": None,
+             "kernel": "vattn_slot_grad_mma_kernel, vattn_grad_finish_kernel",
+             "f32_bound_ms": bnd_f32}
+        r["def_ms"] = cuda_ms(lambda: tgf.vattn_slot_grad(
+            tf, U, V, attn, ds, slope, ef, wf, need_def=True))
+        warps, nh_max = tgf.slot_grad_layout(heads, dim)
+        regs = {d: tgf.slot_grad_kernel_attrs(fe, d, warps, nh_max)
+                for d in (False, True)}
+        r.update(registers=regs[False][0], local_bytes=regs[False][1],
+                 blocks_per_sm=regs[False][2], smem_bytes=regs[False][3],
+                 registers_def=regs[True][0], local_bytes_def=regs[True][1])
+        log(f"# K11 v2 slot_grad {tag}: {r['ms']:.4f} ms, with d(ef) "
+            f"{r['def_ms']:.4f} ms (bound {bnd:.4f} ms by {r['bound_by']}: "
+            f"{nbytes} B = {time_b:.4f} ms; {elem_ops} f32 ops and {mma_ops} "
+            f"bf16 tensor-core ops = {time_o:.4f} ms; the f32 bound "
+            f"{bnd_f32:.4f} ms), plain {r['plain_ms']:.4f} ms, library none, "
+            f"max|err| {err:.3g}; vattn_slot_grad_mma_kernel {warps} warps a "
+            f"block, {regs[False][0]} registers a thread ({regs[True][0]} "
+            f"with d(ef)), {regs[False][1]} B local memory ({regs[True][1]} "
+            f"with d(ef)), {regs[False][3]} B shared memory, "
+            f"{regs[False][2]} blocks an SM")
+        if regs[False][1]:
+            raise AssertionError(f"K11 v2 slot_grad {tag}: the kernel spills")
+        if tdz is not None:
+            # the edge instance the kernel replaced and the edit one_part,
+            # each timed with and without d(ef)
+            old = tdz.tiled_slot_grad(tf, U, V, attn, ds, slope, ef, wf)
+            old_err = max(close_sum(a, w, f"K11 v2 slot_grad (retired) {tag}")
+                          for a, w in ((old[0], got[0]), (old[2], got[2])))
+            one = tdz.one_part_slot_grad(tf, U, V, attn, ds, slope, ef, wf)
+            one_err = max(float((a - w).abs().max())
+                          for a, w in ((one[0], got[0]), (one[2], got[2])))
+            del old, one
+            old_regs = tdz.tiled_attrs(heads, dim, rows, False)
+            r.update(
+                old_ms=cuda_ms(lambda: tdz.tiled_slot_grad(
+                    tf, U, V, attn, ds, slope, ef, wf)),
+                old_def_ms=cuda_ms(lambda: tdz.tiled_slot_grad(
+                    tf, U, V, attn, ds, slope, ef, wf, True)),
+                one_part_ms=cuda_ms(lambda: tdz.one_part_slot_grad(
+                    tf, U, V, attn, ds, slope, ef, wf)),
+                one_part_def_ms=cuda_ms(lambda: tdz.one_part_slot_grad(
+                    tf, U, V, attn, ds, slope, ef, wf, True)),
+                old_kernel="vattn_slot_grad_kernel (tools/"
+                           "dz_slot_grad_probe.cu)",
+                old_registers=old_regs[0])
+            log(f"# K11 v2 slot_grad {tag}: the retired edge instance "
+                f"{r['old_ms']:.4f} ms, with d(ef) {r['old_def_ms']:.4f} ms "
+                f"({old_regs[0]} registers, {old_regs[1]} B local memory), "
+                f"max|err| {old_err:.3g} against the new kernel; one_part "
+                f"{r['one_part_ms']:.4f} ms, with d(ef) "
+                f"{r['one_part_def_ms']:.4f} ms, max|diff| {one_err:.3g} (one "
+                "bf16 part: not f32-accurate, timed only)")
+        out["slot_grad"] = r
+        del got
         # K11 v2's node gradient on each side, the tiled walk: in the slot
         # arrays (and src_order), ds, U, V, attn, the edge term; out one
         # row per node.  Per edge and column: raw, dW, the add (5 ops)
@@ -3626,13 +3803,55 @@ def bitdot_plain_bwd(bf, q, z, g, out, l):
             bd.bitdot_bwd_dz_plain(bf.packed_rev, q, z, g, linv, rho, isd))
 
 
+DZ_HUB_DEGREE = 12_000     # a src row whose list fills 47 times
+DZ_EMPTY_ROWS = range(100, 150)
+
+
+def dz_hub_checks(bm, bg, bd, gen):
+    """K7's dz walk against its plain version on the phase-8 graph with a
+    src hub of DZ_HUB_DEGREE distinct dst (its row's list drained when full,
+    many times) and the src rows DZ_EMPTY_ROWS without an edge, at the four
+    BITDOT_SHAPES and with scores past +-40 at each: rows claimed in the
+    walk's order, every row within tolerance, two launches to the same
+    bits, and the empty rows exactly 0."""
+    row, col, n_src, n_dst = mid_graph()
+    keep = (row < DZ_EMPTY_ROWS.start) | (row >= DZ_EMPTY_ROWS.stop)
+    hub = np.random.default_rng(28).permutation(n_dst)[:DZ_HUB_DEGREE]
+    row = np.concatenate([row[keep], np.full(DZ_HUB_DEGREE, 7)])
+    col = np.concatenate([col[keep], hub])
+    key = np.unique(col * n_src + row)
+    row, col = key % n_src, key // n_src
+    bf = bm.build_bit_format_device(row, col, n_src, n_dst, device="cuda")
+    order = bg.bwd_claim_order(bf)
+    if int(order[0]) != 7:
+        raise AssertionError("K7 dz hub graph: the hub is not claimed first")
+    for heads, dim in BITDOT_SHAPES:
+        for saturate in (False, True):
+            tag = f"K7 dz hub graph H={heads} D={dim}" + (
+                " saturated" if saturate else "")
+            q, z, g = bitdot_inputs(gen, n_src, n_dst, heads, dim,
+                                    saturate=saturate)
+            isd = 1 / dim ** 0.5
+            out, l = bd.bitdot_fwd_plain(bf.packed, q, z, isd)
+            linv, rho = bg.backward_scales(g, out, l, None)
+            args = (bf.packed_rev, q, z, g, linv, rho, isd)
+            got = bd.bitdot_bwd_dz(*args, order)
+            equal(bd.bitdot_bwd_dz(*args, order), got, f"{tag}, twice")
+            err = close(got, bd.bitdot_bwd_dz_plain(*args), tag)
+            if got[DZ_EMPTY_ROWS.start:DZ_EMPTY_ROWS.stop].any():
+                raise AssertionError(f"{tag}: a row with no edge is not 0")
+            log(f"# {tag}: max|err| {err:.3g}, the same bits twice "
+                f"({len(row)} edges, layout {bd.dz_layout(heads, dim)})")
+
+
 def phase_bitdot_mid(dgt, bm, bg, bd):
     """Phase 28: each K7 kernel against its plain version on the phase-8
     graph (simple, bipartite, plane 31 on both sides) at (H, D) = (2, 64),
     (1, 128), (4, 32), (3, 8) and with scores past +-40 at (2, 64); l
-    exactly at zero scores; the kernels' times at each shape; then
-    DotGatConv(64, 64, 2) on K7 against its gather path, and the same layer
-    at D = 32, which must not launch K7."""
+    exactly at zero scores; the kernels' times at each shape; dz on the
+    same graph with a src hub (``dz_hub_checks``); then DotGatConv(64, 64,
+    2) on K7 against its gather path, and the same layer at D = 32, which
+    must not launch K7."""
     from dgl_tpu_torch.utils import config
     row, col, n_src, n_dst = mid_graph()
     key = np.unique(col * n_src + row)
@@ -3646,6 +3865,7 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
     gen = torch.Generator(device="cuda").manual_seed(28)
     src_t = torch.from_numpy(row).cuda()
     dst_t = torch.from_numpy(col).cuda()
+    dz_order = bg.bwd_claim_order(bf)
     for heads, dim, saturate in [s + (False,) for s in BITDOT_SHAPES] + [
             (2, 64, True)]:
         tag = f"H={heads} D={dim}" + (" saturated" if saturate else "")
@@ -3679,7 +3899,8 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
             linv, rho = bg.backward_scales(g, want[0], want[1], None)
             times = [cuda_ms(lambda: bd.bitdot_fwd(bf.packed, q, z, isd)),
                      cuda_ms(lambda: bd.bitdot_bwd_dz(bf.packed_rev, q, z,
-                                                      g, linv, rho, isd)),
+                                                      g, linv, rho, isd,
+                                                      dz_order)),
                      cuda_ms(lambda: bd.bitdot_bwd_dq(bf.packed, q, z, g,
                                                       linv, rho, isd))]
             msg += ("; fwd {:.4f} ms, dz {:.4f} ms, dq {:.4f} ms ({} edges)"
@@ -3691,6 +3912,7 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
     deg = torch.bincount(dst_t, minlength=n_dst).float()
     if not torch.equal(l, deg.unsqueeze(1).expand_as(l)):
         raise AssertionError("K7 mid: l at zero scores is not the in-degree")
+    dz_hub_checks(bm, bg, bd, gen)
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.unit().create_bitmask_format(on_device=True)
@@ -3852,7 +4074,7 @@ def timed_once(fn):
     return result, start.elapsed_time(end)
 
 
-def bitdot_yardsticks(bd, bg, g, heads, dim, rate):
+def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None):
     """Phase 30: each K7 kernel at full size on the phase-4 graph against
     its plain version on every row, with its time (median of 5), its plain
     version's (the one call that gives the reference), the bound and no
@@ -3860,7 +4082,11 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate):
     graph.  q and z are of a trained layer's size, on a grid of 1/16 in
     [-2, 2] (scores about 1.3 wide, inside the clip), g normal.  No sum
     here is exact (exp(e) lies on no grid), so each check takes the
-    standard tolerance and ``close``'s half-tolerance log."""
+    standard tolerance and ``close``'s half-tolerance log.  dz, the listed
+    walk by src, is also launched twice to the same bits and timed beside
+    the warp walk it replaced, the edit ``u2x`` and its layouts on either
+    side (``tdz``, tools/perf_dz_slot_grad.py), with its registers and
+    resident warps."""
     bf, e = g.unit()._bits, g.num_edges()
     n, isd = N_NODES, 1 / dim ** 0.5
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
@@ -3896,10 +4122,56 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate):
     # dz: in the bits of A^T, q, z, g, linv, rho; out dz.  Per edge and
     # head the two dots (4 D), p, alpha, de, the clip mask and draw (12),
     # draw q + alpha g (4 D)
-    row("dz", lambda: bd.bitdot_bwd_dz(bf.packed_rev, *args),
-        lambda: bd.bitdot_bwd_dz_plain(bf.packed_rev, *args),
-        bf.packed_rev.numel() * 4 + 4 * feat_b + 2 * node,
-        e * heads * (8 * dim + 12))
+    order = bg.bwd_claim_order(bf)
+    new = row("dz", lambda: bd.bitdot_bwd_dz(bf.packed_rev, *args, order),
+              lambda: bd.bitdot_bwd_dz_plain(bf.packed_rev, *args),
+              bf.packed_rev.numel() * 4 + 4 * feat_b + 2 * node,
+              e * heads * (8 * dim + 12))
+    new = bd.bitdot_bwd_dz(bf.packed_rev, *args, order)
+    equal(bd.bitdot_bwd_dz(bf.packed_rev, *args, order), new,
+          f"K7 dz H={heads} D={dim}, launched twice")
+    regs, local, warps = bd.dz_kernel_attrs(heads, dim)
+    layout = bd.dz_layout(heads, dim)
+    r = rows["dz"]
+    r.update(kernel="bitdot_dz_list_kernel", registers=regs,
+             local_bytes=local, resident_warps=warps, lanes=layout[1])
+    log(f"# K7 dz H={heads} D={dim}: bitdot_dz_list_kernel at {layout[1]} "
+        f"lanes an entry, {layout[2]} vectors a lane: {regs} registers a "
+        f"thread, {local} B local memory, {warps} warps an SM; the same "
+        "bits twice")
+    if regs > 128 or local:
+        raise AssertionError(f"K7 dz H={heads} D={dim}: {regs} registers, "
+                             f"{local} B local memory")
+    if tdz is not None:
+        # the warp walk it replaced, the edit u2x and the walk's layouts on
+        # either side, each held to the walk and timed
+        old = tdz.warp_dz(bf.packed_rev, *args)
+        errs = {"warp": close(old, new, f"K7 dz (the warp walk) H={heads} "
+                                        f"D={dim}")}
+        u2x = tdz.dz_edit("u2x", bf.packed_rev, *args, order)
+        errs["u2x"] = close(u2x, new, f"K7 dz (u2x) H={heads} D={dim}")
+        del old, u2x
+        r["old_kernel"] = "bitdot_dz_kernel (tools/dz_slot_grad_probe.cu)"
+        r["old_ms"] = cuda_ms(lambda: tdz.warp_dz(bf.packed_rev, *args))
+        r["u2x_ms"] = cuda_ms(lambda: tdz.dz_edit("u2x", bf.packed_rev,
+                                                  *args, order))
+        r["lanes_ms"] = {}
+        for lanes, lay in tdz.dz_layouts(heads, dim).items():
+            if lanes == layout[1]:
+                continue
+            other = bd.launch_dz(bf.packed_rev, *args, order, lay)
+            errs[f"{lanes} lanes"] = close(other, new, f"K7 dz at {lanes} "
+                                                       f"lanes H={heads} "
+                                                       f"D={dim}")
+            del other
+            r["lanes_ms"][lanes] = cuda_ms(lambda: bd.launch_dz(
+                bf.packed_rev, *args, order, lay))
+        log(f"# K7 dz H={heads} D={dim}: the warp walk {r['old_ms']:.4f} ms, "
+            f"u2x {r['u2x_ms']:.4f} ms, other lanes an entry "
+            + ", ".join(f"{k}: {v:.4f} ms" for k, v in r["lanes_ms"].items())
+            + "; max|err| against the walk " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()))
+    del new
     # dq: the same inputs over the bits of A; the sum draw z (2 D)
     row("dq", lambda: bd.bitdot_bwd_dq(bf.packed, *args),
         lambda: bd.bitdot_bwd_dq_plain(bf.packed, *args),
@@ -4844,6 +5116,26 @@ def phase_sddmm_probe(tsw, gt, rate):
     return tsw.probe(fwd, rate, log)
 
 
+# the kernels this slice's redesign added, and the one it cut to K11 v1's
+# instance: ptxas' report of each instance
+NEW_KERNELS = ("bitdot_dz_list_kernel", "vattn_slot_grad_mma_kernel",
+               "vattn_slot_grad_kernel")
+
+
+def log_new_kernels(logs):
+    """ptxas' registers, spill and shared-memory lines of each instance of
+    NEW_KERNELS, under its mangled name, from the build's logs (the
+    libraries built in this run)."""
+    for name, text in logs.items():
+        entry = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif entry and any(k in entry for k in NEW_KERNELS) and (
+                    "Used" in line or "spill" in line):
+                log(f"# ptxas {name} {entry}: {line.split(':', 1)[-1]}")
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4871,6 +5163,7 @@ def main():
     from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
     from dgl_tpu_torch.tools import perf_bwd_walks as tbw
     from dgl_tpu_torch.tools import perf_ds_fold as tdf
+    from dgl_tpu_torch.tools import perf_dz_slot_grad as tdz
     from dgl_tpu_torch.tools import perf_fwd_walks as tfw
     from dgl_tpu_torch.tools import perf_reduce_k3 as trk
     from dgl_tpu_torch.tools import perf_scores_rows as tsr
@@ -4891,20 +5184,24 @@ def main():
     # (waited for in phases 20 and 24), the forward walks' probe (its
     # two retired kernels and an edit, waited for in phase 10), the
     # scores and rows probe (its two retired kernels, waited for in phase
-    # 24) and the reduce and K3 probe (its two retired kernels and an edit
-    # of the row walk, waited for in phase 16)
+    # 24), the reduce and K3 probe (its two retired kernels and an edit
+    # of the row walk, waited for in phase 16) and the dz and slot-gradient
+    # probe (its two retired kernels and an edit of each new one, waited
+    # for in phase 28)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(4)
+    probe_build = ThreadPoolExecutor(5)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
     scores_rows_built = probe_build.submit(tsr.build_probe)
     reduce_k3_built = probe_build.submit(trk.build_probe)
+    dz_probe_built = probe_build.submit(tdz.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "ptxas info" in line and ("Used" in line or "spill" in line):
                 log(f"# {name}: {line.strip()}")
+    log_new_kernels(logs)
 
     # phase 3: kernels vs plain versions, mid size
     phase("3 (K1, K2 mid size)", phase_kernels_mid, bm)
@@ -4965,8 +5262,12 @@ def main():
                                   bm, bg, bd, tts, tgf, g)
     phase("29 (DotGat on K7 check)", phase_dotgat_k7_check, conv, g, xd)
     del conv, xd
+    t0 = time.perf_counter()
+    dz_probe_built.result()
+    log("# the dz and slot-gradient probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
     k7 = [phase(f"30 (K7 yardsticks H={h} D={d})", bitdot_yardsticks, bd,
-                bg, g, h, d, rate) for h, d in BITDOT_SHAPES[:2]]
+                bg, g, h, d, rate, tdz) for h, d in BITDOT_SHAPES[:2]]
 
     # phases 12-16: the tiled slice at full size
     gt = phase("12 (tiled format)", tiled_graph, dgt, g)
@@ -5079,7 +5380,7 @@ def main():
     torch.cuda.empty_cache()
     ge, xe, efe, ef_slot = phase("23 (EGAT graph)", egat_graph, dgt)
     conv, k11_launches = phase("23 (EGATConv on K11 v2)", phase_egat, dgt,
-                               tts, tgf, ge, xe, efe, ef_slot)
+                               tts, tgf, ge, xe, efe, ef_slot, card)
     phase("23 (EGATConv check)", phase_egat_check, conv, ge, xe, efe,
           ef_slot)
     conv, k10_launches = phase("26 (EdgeGATConv on K10 v2)", phase_edgegat,
@@ -5088,7 +5389,7 @@ def main():
           ef_slot)
     del conv, efe
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tts, tbw,
-                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate)
+                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
@@ -5198,7 +5499,10 @@ def main():
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2075",
          "launches": k11_launches["vattn_scores"], **k11["scores"]},
-        {"name": "vattn_slot_grad_edge", "route": "cuda",
+        # K11 v2's slot gradient on the tensor cores (PR 20's redesign; the
+        # retired edge instance of vattn_slot_grad_kernel, built by
+        # tools/perf_dz_slot_grad.py, as old_ms)
+        {"name": "vattn_slot_grad_mma_kernel", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2167",
          "launches": k11_launches["vattn_slot_grad"], **k11["slot_grad"]},
@@ -5227,7 +5531,9 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:156",
          "launches": k7_launches["bitdot_fwd"], **k7[0]["fwd"]},
-        {"name": "bitdot_bwd_dz", "route": "cuda",
+        # K7's dz, the listed walk by src (the retired warp walk,
+        # bitdot_dz_kernel, built by tools/perf_dz_slot_grad.py, as old_ms)
+        {"name": "bitdot_dz_list_kernel", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:272",
          "launches": k7_launches["bitdot_bwd_dz"], **k7[0]["dz"]},

@@ -19,26 +19,40 @@
 //
 // The TPU kernels score every bit densely, one matrix-unit contraction
 // per tile; at Reddit's 0.2% density a word holds ~0.07 set bits, so here
-// each kernel walks the set bits as K5 does (csrc/bitgat.cu): one warp
-// owns one row of a packing, streams its words coalesced (one per lane, 8
-// in flight), skips zero words and walks the set bits with __ffs.  A lane
-// owns the feature columns f = lane + 32 k (k < 4, so H * D <= 128) and
-// the heads of those columns; the dot products per head are warp-shuffle
-// sums, segmented where a head spans part of a warp.  A row's sums stay in
-// registers and are written once: no atomics, and a fixed order of sums.
-// Operands and sums are f32.  Each kernel is behind a plain C function
-// that launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError():
+// each kernel walks the set bits.  The forward and dq walk them as K5 first
+// did: one warp owns one row of a packing, streams its words coalesced
+// (one per lane, 8 in flight), skips zero words and walks the set bits with
+// __ffs; a lane owns the feature columns f = lane + 32 k (k < 4, so H * D
+// <= 128) and the heads of those columns; the dot products per head are
+// warp-shuffle sums, segmented where a head spans part of a warp.  dz is
+// the listed walk of K5's backward (csrc/bitgat.cu, its listing shared in
+// csrc/bitlist.cuh).  Every row's sums stay in registers and are written
+// once: no atomics, and a fixed order of sums.  Operands and sums are f32.
+// Each kernel is behind a plain C function that launches on the caller's
+// stream, allocates nothing and returns cudaGetLastError():
 //
 // bitdot_fwd_kernel  replaces dgl_tpu/ops/pallas/bitdot.py _fwd_call
 //     (:156, body _fwd_kernel :97).  Over packed (rows = dst): q[d] in
 //     registers; per set bit s the warp gathers z[s], takes e per head,
 //     and adds p z[s] and p into out's and l's sums.
-// bitdot_dz_kernel  replaces _bwdA_call (:272, body _bwdA_kernel :200),
-//     which runs dst blocks over packed into per-src lanes.  Over
-//     packed_rev (rows = src): z[s] and dz[s] in registers; per set bit d
-//     the warp gathers q[d], g[d] and the (2, H) row [linv, rho] of d, and
-//     takes e and u per head.
+// bitdot_dz_list_kernel<CPL, kOneHead>  replaces _bwdA_call (:272, body
+//     _bwdA_kernel :200), which runs dst blocks over packed into per-src
+//     lanes.  A listed-bit walk by src over packed_rev: persistent warps
+//     claim its rows from a global counter in the backward's claim order
+//     (hub rows first, bitgat.py bwd_claim_order), list a row's set bits
+//     (list_bits) and drain the list; a group of lpe lanes owns an entry d
+//     and gathers q[d] and g[d] in 16-byte loads (heads padded to whole
+//     vectors, bitdot.py dz_layout, K5's: 16 lanes and 2 vectors a lane
+//     at (2, 64) and (4, 32), 8 and 4 at (1, 128)) and d's [linv, rho];
+//     z . q and g . z per
+//     head reduce over the lanes of the head's block; draw q[d] + alpha
+//     g[d] adds into dz[s]'s registers; every group issues the loads of U
+//     entries (DzUnroll) before their arithmetic, and the groups' sums meet
+//     by shuffles in a fixed order at the row's end.  It replaced a warp a
+//     src row taking its set bits one at a time, each bit's gathers waiting
+//     on the previous bit's shuffles and exp (bitdot_dz_kernel, built by
+//     dgl_tpu_torch/tools/perf_dz_slot_grad.py from
+//     tools/dz_slot_grad_probe.cu and timed beside it, PERF.md).
 // bitdot_dq_kernel  replaces _bwdB_call (:368, body _bwdB_kernel :315).
 //     Over packed (rows = dst): q[d], g[d], linv[d], rho[d] and dq[d] in
 //     registers; per set bit s the warp gathers z[s] and takes e and u per
@@ -50,17 +64,20 @@
 // arithmetic, about E H (4 D + 5) operations forward, E H (8 D + 12) for
 // dz and E H (6 D + 12) for dq, is 0.9-1.8 ms at (H, D) = (2, 64) on
 // Reddit's 114.8M edges.  chip_smoke.py prints the bound of each call.
-// As in K5, the per-set-bit work (a 512-byte row gathered from L2 or
-// memory at H * D = 128, the shuffles, the exp) done one bit after another
-// by each warp is the cost the design does not yet hide.  The C functions
-// and launch shapes are chosen by dgl_tpu_torch/ops/kernels/bitdot.py.
+// The per-set-bit work (a 512-byte row gathered from L2 or memory at H * D
+// = 128, the shuffles, the exp) is the cost: the forward and dq still do
+// it one bit after another a warp; the dz walk keeps U entries a group in
+// flight.  The C functions and launch shapes are chosen by
+// dgl_tpu_torch/ops/kernels/bitdot.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitlist.cuh"
+#include "persistent.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;   // warps per block
 constexpr int kUnroll = 8;  // words each lane keeps in flight
 constexpr float kClip = 40.f;
@@ -228,52 +245,168 @@ __device__ __forceinline__ void edge_grad(float zq, float u, float linv,
   draw = (e > -kClip && e < kClip) ? de * isd : 0.f;
 }
 
-template <int kCols>
-__global__ void __launch_bounds__(kWarps * 32)
-bitdot_dz_kernel(const uint32_t* __restrict__ packed_rev, int64_t k32,
-                 int64_t num_src, int64_t num_dst,
-                 const float* __restrict__ q, const float* __restrict__ z,
-                 const float* __restrict__ g,
-                 const float* __restrict__ nvec,  // (num_dst, 2, H)
-                 int heads, int dim, float isd, float* __restrict__ dz) {
+// The entries a group of the dz walk keeps in flight: each brings two of
+// the group's rows, q[d] and g[d], CPL vectors a lane each, so fewer than
+// K5's backward keeps (bitgat.cu ListUnroll): at most 128 registers a
+// thread with no local memory at the layouts of DotGatConv's gate (D >=
+// 64: CPL 2 with several heads, 4 with one); with several heads CPL 4
+// spills a few words even at 1.
+template <int CPL>
+struct DzUnroll {
+  static constexpr int value = CPL == 1 ? 4 : CPL == 2 ? 2 : 1;
+};
+
+// dz by the listed walk by src.  Rows of q, z, g and dz are nv 16-byte
+// vectors, each head's columns padded with zeros to dp = 4 vph; a group of
+// lpe lanes owns an entry, lane li holding vectors vq = li + lpe q (q <
+// CPL); with one head the lane's vectors are one scalar chain, with
+// several, vector q of the lane lies in head vq / vph (a head's vectors an
+// aligned block of vph lanes of the group) and is chain q.
+template <int CPL, bool kOneHead>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+bitdot_dz_list_kernel(const uint32_t* __restrict__ packed_rev, int64_t k32,
+                      const int* __restrict__ order, int rows,
+                      int64_t num_dst, const float4* __restrict__ q,
+                      const float4* __restrict__ z,
+                      const float4* __restrict__ g,
+                      const float* __restrict__ nvec,  // (num_dst, 2, H)
+                      int heads, int nv, int vph, int lpe, float isd,
+                      float4* __restrict__ dz, int* __restrict__ counter) {
+  constexpr int U = DzUnroll<CPL>::value;
+  constexpr int NH = kOneHead ? 1 : CPL;  // scalar chains a lane
+  __shared__ int lists[kWarps][kList];
   const int lane = threadIdx.x & 31;
-  const int64_t s =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (s >= num_src) return;  // warp-uniform
-  const int hd = heads * dim;
-  const Columns<kCols> c(lane, heads, dim);
-  float zv[kCols], acc[kCols];
+  int* list = lists[threadIdx.x >> 5];
+  const int groups = 32 / lpe;
+  const int grp = lane / lpe;
+  const int li = lane - grp * lpe;
+  const int red = kOneHead ? lpe : vph;  // lanes that share a head's sum
+  int vq[CPL];
+  bool ok[CPL];
+  int hq[NH];
+  bool chain[NH];  // the chain is a head of the row
 #pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    zv[k] = c.head[k] >= 0 ? __ldg(z + s * hd + c.f[k]) : 0.f;
-    acc[k] = 0.f;
+  for (int c = 0; c < CPL; ++c) {
+    vq[c] = li + lpe * c;
+    ok[c] = vq[c] < nv;
   }
-  walk_row(packed_rev, k32, s, num_dst, lane, [&](int64_t d) {
-    const float* nv = nvec + d * 2 * heads;
-    float qv[kCols], gv[kCols], linv[kCols], rho[kCols], dot[2][kCols];
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      const bool valid = c.head[k] >= 0;
-      const int h = valid ? c.head[k] : 0;
-      qv[k] = valid ? __ldg(q + d * hd + c.f[k]) : 0.f;
-      gv[k] = valid ? __ldg(g + d * hd + c.f[k]) : 0.f;
-      linv[k] = __ldg(nv + h);
-      rho[k] = __ldg(nv + heads + h);
-      dot[0][k] = zv[k] * qv[k];
-      dot[1][k] = gv[k] * zv[k];
+  for (int t = 0; t < NH; ++t) {
+    hq[t] = kOneHead || !ok[t] ? 0 : vq[t] / vph;
+    chain[t] = kOneHead || ok[t];
+  }
+
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(counter, 1);
+    item = __shfl_sync(kFull, item, 0);
+    if (item >= rows) break;  // warp-uniform
+    const int64_t s = order[item];
+    float4 zq[CPL], dzq[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      zq[c] = ok[c] ? __ldg(z + s * nv + vq[c])
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      dzq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    head_sums<2, kCols>(dot, c, heads, dim);
+
+    const uint32_t* prow = packed_rev + s * k32;
+    uint32_t word[kStepWords], next[kStepWords];
+    list_start(word, next, prow, k32, lane);
+    int64_t j0 = -32 * kStepWords;  // the step in hand
+    int total = 0, first = 0, p0 = 0;  // its entries, the lane's, listed
+    int len = 0;                       // entries in the list
+    bool row_done = false;             // all warp-uniform
+    while (!row_done) {
+      list_bits(list, len, row_done, word, next, j0, total, first, p0, prow,
+                k32, num_dst, lane);
+      // the drain: groups take consecutive entries, U each in flight,
+      // every load of a batch issued before its arithmetic
+      __syncwarp();
+      for (int i0 = 0; i0 < len; i0 += groups * U) {
+        int dd[U];
+        float4 qv[U][CPL], gv[U][CPL];
+        float liv[U][NH], rhv[U][NH];
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      if (c.head[k] < 0) continue;
-      float alpha, draw;
-      edge_grad(dot[0][k], dot[1][k], linv[k], rho[k], isd, alpha, draw);
-      acc[k] += draw * qv[k] + alpha * gv[k];
+        for (int u = 0; u < U; ++u) {
+          const int e = i0 + u * groups + grp;
+          dd[u] = e < len ? list[e] : -1;
+          const int64_t d = dd[u] < 0 ? 0 : dd[u];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const bool on = dd[u] >= 0 && ok[c];
+            qv[u][c] = on ? __ldg(q + d * nv + vq[c])
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+            gv[u][c] = on ? __ldg(g + d * nv + vq[c])
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          const float* nr = nvec + d * 2 * heads;
+#pragma unroll
+          for (int t = 0; t < NH; ++t) {
+            const bool on = dd[u] >= 0 && chain[t];
+            liv[u][t] = on ? __ldg(nr + hq[t]) : 0.f;
+            rhv[u][t] = on ? __ldg(nr + heads + hq[t]) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float zd[NH], ud[NH];  // z . q and g . z of the chain's head
+#pragma unroll
+          for (int t = 0; t < NH; ++t) zd[t] = ud[t] = 0.f;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const int t = kOneHead ? 0 : c;
+            zd[t] = fmaf(zq[c].x, qv[u][c].x, zd[t]);
+            zd[t] = fmaf(zq[c].y, qv[u][c].y, zd[t]);
+            zd[t] = fmaf(zq[c].z, qv[u][c].z, zd[t]);
+            zd[t] = fmaf(zq[c].w, qv[u][c].w, zd[t]);
+            ud[t] = fmaf(gv[u][c].x, zq[c].x, ud[t]);
+            ud[t] = fmaf(gv[u][c].y, zq[c].y, ud[t]);
+            ud[t] = fmaf(gv[u][c].z, zq[c].z, ud[t]);
+            ud[t] = fmaf(gv[u][c].w, zq[c].w, ud[t]);
+          }
+          for (int off = red >> 1; off > 0; off >>= 1) {  // warp-uniform
+#pragma unroll
+            for (int t = 0; t < NH; ++t) {
+              zd[t] += __shfl_xor_sync(kFull, zd[t], off);
+              ud[t] += __shfl_xor_sync(kFull, ud[t], off);
+            }
+          }
+          if (dd[u] < 0) continue;
+          float al[NH], dr[NH];  // alpha and draw of the chain's head
+#pragma unroll
+          for (int t = 0; t < NH; ++t)
+            edge_grad(zd[t], ud[t], liv[u][t], rhv[u][t], isd, al[t], dr[t]);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const float a = al[kOneHead ? 0 : c];
+            const float r = dr[kOneHead ? 0 : c];
+            dzq[c].x += fmaf(r, qv[u][c].x, a * gv[u][c].x);
+            dzq[c].y += fmaf(r, qv[u][c].y, a * gv[u][c].y);
+            dzq[c].z += fmaf(r, qv[u][c].z, a * gv[u][c].z);
+            dzq[c].w += fmaf(r, qv[u][c].w, a * gv[u][c].w);
+          }
+        }
+      }
+      __syncwarp();
+      len = 0;
     }
-  });
+
+    // the groups' sums, combined in a fixed order, then written once
+    for (int off = lpe; off < 32; off <<= 1) {  // warp-uniform
 #pragma unroll
-  for (int k = 0; k < kCols; ++k)
-    if (c.head[k] >= 0) dz[s * hd + c.f[k]] = acc[k];
+      for (int c = 0; c < CPL; ++c) {
+        dzq[c].x += __shfl_xor_sync(kFull, dzq[c].x, off);
+        dzq[c].y += __shfl_xor_sync(kFull, dzq[c].y, off);
+        dzq[c].z += __shfl_xor_sync(kFull, dzq[c].z, off);
+        dzq[c].w += __shfl_xor_sync(kFull, dzq[c].w, off);
+      }
+    }
+    if (grp != 0) continue;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (ok[c]) dz[s * nv + vq[c]] = dzq[c];
+  }
 }
 
 template <int kCols>
@@ -330,11 +463,11 @@ dim3 rows_grid(int64_t rows) {
 
 }  // namespace
 
-// Every function takes the packing's row width (`words`), the src and dst
-// counts, q (num_dst, H, D), z (num_src, H, D) and, in the backward, g
-// (num_dst, H, D) and nvec (num_dst, 2, H) = [linv, rho], all f32 and
-// contiguous, with H * D <= 128, and writes every element of its outputs.
-// Grid: ceil(rows / 8) blocks of 8 warps, one warp a row.
+// The forward and dq take the packing's row width (`words`), the src and
+// dst counts, q (num_dst, H, D), z (num_src, H, D) and, in dq, g (num_dst,
+// H, D) and nvec (num_dst, 2, H) = [linv, rho], all f32 and contiguous,
+// with H * D <= 128, and write every element of their outputs.  Grid:
+// ceil(rows / 8) blocks of 8 warps, one warp a row.
 #define DGL_BITDOT_SWITCH(LAUNCH)                \
   switch ((heads * dim + 31) / 32) {             \
     case 1: LAUNCH(1); break;                    \
@@ -366,24 +499,100 @@ int dgl_bitdot_fwd(const void* packed, int64_t n32, int64_t num_src,
 #undef DGL_FWD
 }
 
-// dz over packed_rev (rows = src, k32 words): dz (num_src, H, D).
-int dgl_bitdot_bwd_dz(const void* packed_rev, int64_t k32, int64_t num_src,
-                      int64_t num_dst, const void* q, const void* z,
-                      const void* g, const void* nvec, int64_t heads,
-                      int64_t dim, float isd, void* dz, int64_t device,
-                      void* stream) {
+// dz by the listed walk by src: dz (rows of packed_rev, H, dp) f32, every
+// row of `order` written (a row with no set bit gives 0), from packed_rev
+// (k32 words a row; bit b of word j <-> dst b * k32 + j, bits at or past
+// num_dst skipped), order (rows,) int32, the src rows in the order warps
+// claim them (each once), q, g (num_dst rows) and z (rows of the src) of
+// nv = H dp / 4 16-byte vectors, each head's dp columns padded with zeros,
+// 16-byte aligned, and nvec (num_dst, 2, H) = [linv, rho].  lpe lanes an
+// entry (a power of two up to 32), cpl = ceil(nv / lpe) <= 4 vectors a
+// lane; with H > 1, vph = dp / 4 is a power of two dividing lpe.  num_dst <
+// 2^31.  counter is one int, zeroed by the caller.  Persistent blocks of
+// 8 warps.
+int dgl_bitdot_bwd_dz_list(const void* packed_rev, int64_t k32,
+                           const void* order, int64_t rows, int64_t num_dst,
+                           const void* q, const void* z, const void* g,
+                           const void* nvec, int64_t heads, int64_t dp,
+                           int64_t lpe, int64_t cpl, float isd, void* dz,
+                           void* counter, int64_t device, void* stream) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
+  const int64_t vph = dp / 4, nv = heads * vph;
+  if (!list_layout_ok(heads, dp, lpe, cpl) || num_dst > INT32_MAX ||
+      rows > INT32_MAX || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(z) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dz) % 16 != 0)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DGL_DZ(C)                                                           \
-  bitdot_dz_kernel<C><<<rows_grid(num_src), kWarps * 32, 0, st>>>(         \
-      static_cast<const uint32_t*>(packed_rev), k32, num_src, num_dst,      \
-      static_cast<const float*>(q), static_cast<const float*>(z),           \
-      static_cast<const float*>(g), static_cast<const float*>(nvec),        \
-      static_cast<int>(heads), static_cast<int>(dim), isd,                  \
-      static_cast<float*>(dz))
-  DGL_BITDOT_SWITCH(DGL_DZ);
-#undef DGL_DZ
+  const bool one = heads == 1;
+#define DGL_DZ_LIST(C, O)                                                   \
+  {                                                                         \
+    unsigned blocks = 0;                                                    \
+    const cudaError_t e = persistent_blocks(bitdot_dz_list_kernel<C, O>,    \
+                                            kWarps * 32,                    \
+                                            (rows + kWarps - 1) / kWarps,   \
+                                            &blocks);                       \
+    if (e != cudaSuccess) return e;                                         \
+    bitdot_dz_list_kernel<C, O><<<blocks, kWarps * 32, 0, st>>>(            \
+        static_cast<const uint32_t*>(packed_rev), k32,                      \
+        static_cast<const int*>(order), static_cast<int>(rows), num_dst,    \
+        static_cast<const float4*>(q), static_cast<const float4*>(z),       \
+        static_cast<const float4*>(g), static_cast<const float*>(nvec),     \
+        static_cast<int>(heads), static_cast<int>(nv),                      \
+        static_cast<int>(vph), static_cast<int>(lpe), isd,                  \
+        static_cast<float4*>(dz), static_cast<int*>(counter));              \
+    return cudaGetLastError();                                              \
+  }
+#define DGL_DZ_CASE(C)                                                      \
+  case C:                                                                   \
+    if (one) DGL_DZ_LIST(C, true)                                           \
+    DGL_DZ_LIST(C, false)
+  switch (cpl) {
+    DGL_DZ_CASE(1)
+    DGL_DZ_CASE(2)
+    DGL_DZ_CASE(3)
+    DGL_DZ_CASE(4)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_DZ_CASE
+#undef DGL_DZ_LIST
+}
+
+// attrs (three host ints): the registers a thread, the local memory bytes
+// a thread and the resident blocks an SM of the dz walk's instance for
+// (cpl, one head).
+int dgl_bitdot_dz_attrs(int64_t cpl, int64_t one_head, int64_t device,
+                        void* attrs) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  int* out = static_cast<int*>(attrs);
+  cudaFuncAttributes attr;
+#define DGL_DZ_ATTRS(C, O)                                                  \
+  {                                                                         \
+    err = cudaFuncGetAttributes(&attr, bitdot_dz_list_kernel<C, O>);        \
+    if (err != cudaSuccess) return err;                                     \
+    out[0] = attr.numRegs;                                                  \
+    out[1] = static_cast<int>(attr.localSizeBytes);                         \
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+        out + 2, bitdot_dz_list_kernel<C, O>, kWarps * 32, 0);              \
+  }
+#define DGL_DZ_ATTRS_CASE(C)                                                \
+  case C:                                                                   \
+    if (one_head) DGL_DZ_ATTRS(C, true)                                     \
+    DGL_DZ_ATTRS(C, false)
+  switch (cpl) {
+    DGL_DZ_ATTRS_CASE(1)
+    DGL_DZ_ATTRS_CASE(2)
+    DGL_DZ_ATTRS_CASE(3)
+    DGL_DZ_ATTRS_CASE(4)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_DZ_ATTRS_CASE
+#undef DGL_DZ_ATTRS
 }
 
 // dq over packed (rows = dst, n32 words): dq (num_dst, H, D).

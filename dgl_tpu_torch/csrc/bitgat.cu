@@ -23,7 +23,8 @@
 // packing from a global counter in a claim order built once a format (hub
 // rows, over 4x the mean count of set bits, first, largest first; then the
 // rest by id), so that no hub starts late and holds up the end.  A warp
-// lists its row's set bits (list_bits: the row's words 8 a lane a step,
+// lists its row's set bits (list_bits of bitlist.cuh, which K7's dz walk
+// in bitdot.cu shares: the row's words 8 a lane a step,
 // the next step's requested first, each lane's set bits placed in the
 // warp's list in shared memory by a warp prefix sum of popcounts) and
 // drains the list (when full, at 128 entries after a step, at the row's
@@ -93,15 +94,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitlist.cuh"
 #include "persistent.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;        // warps per block
-constexpr int kStepWords = 8;    // words a lane loads a step
-constexpr int kList = 256;       // entries a warp's list holds
-constexpr int kListDrainAt = 128;  // a list this long is drained
 constexpr uint32_t kC1 = 0x9E3779B1u;
 constexpr uint32_t kC2 = 0x85EBCA6Bu;
 __constant__ uint32_t kHeadMults[8] = {
@@ -115,91 +113,6 @@ __device__ __forceinline__ float lrelu_exp(float raw, float slope) {
 __device__ __forceinline__ bool keep_bit(uint32_t x0, uint32_t mult,
                                          uint32_t thresh) {
   return ((x0 * mult) >> 17) < thresh;
-}
-
-// A warp's listing of one row's set bits, shared by both walks.  The row's
-// words, kStepWords a lane a step (lane L, word u: j = j0 + 32 u + L), the
-// next step's requested before this one is listed: list_start requests
-// the first step.  A warp prefix sum of popcounts gives each lane its
-// place in the warp's list, where it writes its bits word by word, lowest
-// first, as the column b * k32 + j (-1 at or past num_cols).  list_bits
-// lists entries at list[len ..] until the list is full (the rest of the
-// step in hand waits for the next call), holds kListDrainAt entries at the
-// end of a step, or the row ends (then row_done is set); the caller drains
-// the list, sets len to 0 and calls it again until row_done.  The state
-// is the caller's own locals, passed by reference, and everything but
-// `first` is warp-uniform: held in a struct, the same listing compiled to
-// a slower backward at the walks' 128 registers on the H100.
-__device__ __forceinline__ void list_start(uint32_t (&word)[kStepWords],
-                                           uint32_t (&next)[kStepWords],
-                                           const uint32_t* prow, int64_t k32,
-                                           int lane) {
-#pragma unroll
-  for (int u = 0; u < kStepWords; ++u) {
-    const int64_t j = u * 32 + lane;
-    next[u] = j < k32 ? __ldg(prow + j) : 0u;
-    word[u] = 0u;
-  }
-}
-
-__device__ __forceinline__ void list_bits(
-    int* list, int& len, bool& row_done, uint32_t (&word)[kStepWords],
-    uint32_t (&next)[kStepWords], int64_t& j0, int& total, int& first,
-    int& p0, const uint32_t* prow, int64_t k32, int64_t num_cols, int lane) {
-  for (;;) {
-    if (p0 == total) {  // the step in hand is listed
-      if (len >= kListDrainAt) break;
-      j0 += 32 * kStepWords;
-      if (j0 >= k32) {
-        row_done = true;
-        break;
-      }
-      int c = 0;
-#pragma unroll
-      for (int u = 0; u < kStepWords; ++u) {
-        word[u] = next[u];
-        c += __popc(word[u]);
-        const int64_t j = j0 + 32 * kStepWords + u * 32 + lane;
-        next[u] = j < k32 ? __ldg(prow + j) : 0u;
-      }
-      int incl = c;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
-      }
-      total = __shfl_sync(kFull, incl, 31);
-      first = incl - c;
-      p0 = 0;
-      continue;
-    }
-    if (len == kList) break;
-    // entries p0 .. p0 + take - 1 of the step, at list[len ..]
-    const int take = min(kList - len, total - p0);
-    int idx = first;
-#pragma unroll
-    for (int u = 0; u < kStepWords; ++u) {
-      uint32_t bits = word[u];
-      const int pc = __popc(bits);
-      if (idx + pc <= p0 || idx >= p0 + take) {  // none listed now
-        idx += pc;
-        continue;
-      }
-      const int64_t j = j0 + u * 32 + lane;
-      while (bits) {
-        const int b = __ffs(static_cast<int>(bits)) - 1;
-        bits &= bits - 1u;
-        if (idx >= p0 && idx < p0 + take) {
-          const int64_t col = static_cast<int64_t>(b) * k32 + j;
-          list[len + idx - p0] =
-              col < num_cols ? static_cast<int>(col) : -1;
-        }
-        ++idx;
-      }
-    }
-    len += take;
-    p0 += take;
-  }
 }
 
 // The lanes of a listed walk.  Each row of z and g (and of out) is padded
@@ -624,17 +537,6 @@ cudaError_t kernel_attrs(K kernel, int* regs, int* per_sm) {
   *regs = attr.numRegs;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                        kWarps * 32, 0);
-}
-
-// The listed walks' layout checks (lpe lanes an entry, a power of two up
-// to 32; cpl = ceil(nv / lpe) <= 4 vectors a lane; with H > 1, vph = dp /
-// 4 a power of two dividing lpe).
-bool list_layout_ok(int64_t heads, int64_t dp, int64_t lpe, int64_t cpl) {
-  const int64_t vph = dp / 4, nv = heads * vph;
-  return heads >= 1 && dp >= 4 && dp % 4 == 0 && lpe >= 1 && lpe <= 32 &&
-         (lpe & (lpe - 1)) == 0 && cpl >= 1 && cpl <= 4 &&
-         (nv + lpe - 1) / lpe == cpl &&
-         !(heads > 1 && ((vph & (vph - 1)) != 0 || lpe % vph != 0));
 }
 
 }  // namespace

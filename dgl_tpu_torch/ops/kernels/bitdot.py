@@ -25,7 +25,9 @@ beside it that computes the same function from the same inputs:
 * :func:`bitdot_fwd` (``_fwd_call``): out and l from ``packed`` (rows =
   dst);
 * :func:`bitdot_bwd_dz` (``_bwdA_call``): dz from ``packed_rev`` (rows =
-  src);
+  src), by the listed walk by src (``bitdot_dz_list_kernel``: K5's
+  backward's walk, its rows claimed in ``bitgat.bwd_claim_order``, a group
+  of lanes an entry at :func:`dz_layout`, K5's layout);
 * :func:`bitdot_bwd_dq` (``_bwdB_call``): dq from ``packed``.
 
 The plain versions list the set bits of a block of rows as edges
@@ -44,7 +46,8 @@ import math
 import torch
 
 from . import build
-from .bitgat import DEN_EPS, backward_scales, bit_edges
+from .bitgat import (DEN_EPS, _pad_heads, backward_scales, bit_edges,
+                     bwd_claim_order, claim_order, list_layout)
 from .bitmm import BitFormat
 from .dispatch import on_cuda
 
@@ -115,11 +118,13 @@ def bitdot_bwd_dq_plain(packed, q, z, g, linv, rho, isd: float):
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
-_BWD = [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P]
 _SIGNATURES = {
     "dgl_bitdot_fwd": [_P, _I, _I, _I, _P, _P, _I, _I, _F, _P, _P, _I, _P],
-    "dgl_bitdot_bwd_dz": _BWD,
-    "dgl_bitdot_bwd_dq": _BWD,
+    "dgl_bitdot_bwd_dz_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _F, _P, _P, _I, _P],
+    "dgl_bitdot_bwd_dq": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _P,
+                          _I, _P],
+    "dgl_bitdot_dz_attrs": [_I, _I, _I, _P],
 }
 
 
@@ -184,30 +189,87 @@ def bitdot_fwd(packed, q, z, isd: float):
 bitdot_fwd.launches = 0
 
 
-def _bwd(fn, packed, q, z, g, linv, rho, isd, out_like):
-    """Launch one backward kernel into a new tensor shaped ``out_like``."""
-    out = torch.empty(out_like.shape, dtype=torch.float32,
-                      device=out_like.device)
-    if out.numel() == 0:
-        return out
-    # one (N_dst, 2, H) row per dst: linv and rho share a cache line
-    nvec = torch.stack([linv.float(), rho.float()], 1)
-    q, z, g, packed = _f32(q), _f32(z), _f32(g), packed.contiguous()
-    _launch(fn, packed.data_ptr(), packed.shape[1], z.shape[0], q.shape[0],
-            q.data_ptr(), z.data_ptr(), g.data_ptr(), nvec.data_ptr(),
-            q.shape[1], q.shape[2], isd, out.data_ptr(), *_stream(q))
-    return out
+def _nvec(linv, rho):
+    """(N_dst, 2, H) f32: one row per dst, linv and rho on a cache line."""
+    return torch.stack([linv.float(), rho.float()], 1)
 
 
-def bitdot_bwd_dz(packed_rev, q, z, g, linv, rho, isd: float):
+def dz_layout(heads: int, dim: int, lanes=None):
+    """(dp, lpe, cpl) of the dz walk: ``bitgat.list_layout``'s (heads padded
+    to whole 16-byte vectors, a power of two of them a head where H > 1;
+    lanes an entry leaving a lane at most 4 vectors with one head, 2 with
+    several), or at ``lanes`` lanes an entry where given."""
+    if lanes is None:
+        return list_layout(heads, dim)
+    dp = list_layout(heads, dim)[0]
+    return dp, lanes, -(-(heads * dp // 4) // lanes)
+
+
+def dz_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
+    """(registers a thread, local memory bytes a thread, resident warps an
+    SM) of the dz walk's instance for ``heads`` x ``dim`` (at ``lanes``
+    lanes an entry where given), from ``cudaFuncGetAttributes`` and the
+    occupancy calculator."""
+    cpl = dz_layout(heads, dim, lanes)[2]
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("bitdot", _SIGNATURES)
+    err = lib.dgl_bitdot_dz_attrs(cpl, int(heads == 1), device.index or 0,
+                                  ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_bitdot_dz_attrs: CUDA error {err}")
+    return out[0], out[1], out[2] * 8
+
+
+def launch_dz(packed_rev, q, z, g, linv, rho, isd: float, order=None,
+              layout=None, fn=None):
+    """Launch K7's dz kernel, the listed walk by src, on CUDA operands: dz
+    (N_src, H, D) f32.  ``order``: the src rows' claim order
+    (``bitgat.claim_order`` of the packing's first N_src rows, built here
+    when None); ``layout``: (dp, lpe, cpl), :func:`dz_layout` when None;
+    ``fn``: the C function, the package's ``dgl_bitdot_bwd_dz_list`` when
+    None (a probe passes an edit's)."""
+    num_src, heads, dim = z.shape
+    num_dst = q.shape[0]
+    dev = z.device
+    if num_src == 0 or heads * dim == 0:
+        return torch.zeros(z.shape, dtype=torch.float32, device=dev)
+    if num_dst >= 2**31 or num_src >= 2**31:
+        raise ValueError("the listed walk takes fewer than 2^31 nodes")
+    if order is None:
+        order = claim_order(packed_rev, num_src)
+    if order.shape != (num_src,) or order.dtype != torch.int32:
+        raise ValueError(f"order must be ({num_src},) int32")
+    dp, lpe, cpl = dz_layout(heads, dim) if layout is None else layout
+    qp, zp, gp = (_pad_heads(t, dp) for t in (q, z, g))
+    nvec = _nvec(linv, rho)
+    packed_rev = packed_rev.contiguous()
+    dz = torch.empty(num_src, heads, dp, dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    if fn is None:
+        fn = build.load("bitdot", _SIGNATURES).dgl_bitdot_bwd_dz_list
+    err = fn(packed_rev.data_ptr(), packed_rev.shape[1], order.data_ptr(),
+             num_src, num_dst, qp.data_ptr(), zp.data_ptr(), gp.data_ptr(),
+             nvec.data_ptr(), heads, dp, lpe, cpl, isd, dz.data_ptr(),
+             counter.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the dz walk failed to launch: CUDA error {err}")
+    return dz if dp == dim else dz[..., :dim].contiguous()
+
+
+def bitdot_bwd_dz(packed_rev, q, z, g, linv, rho, isd: float, order=None):
     """K7's dz (N_src, H, D) f32 from ``packed_rev``, the bits of A^T
-    (rows = src)."""
+    (rows = src).  ``order``: the src rows' claim order
+    (``bitgat.bwd_claim_order`` of the format; built anew for each call
+    when None)."""
     _check(packed_rev, q, z, z.shape[0], q.shape[0])
     _check_bwd(q, g, linv, rho)
     if not on_cuda(packed_rev, q, z, g, linv, rho):
         return bitdot_bwd_dz_plain(packed_rev, q, z, g, linv, rho, isd)
-    dz = _bwd("dgl_bitdot_bwd_dz", packed_rev, q, z, g, linv, rho, isd, z)
-    bitdot_bwd_dz.launches += 1
+    dz = launch_dz(packed_rev, q, z, g, linv, rho, isd, order)
+    if z.shape[0] and z.shape[1] * z.shape[2]:
+        bitdot_bwd_dz.launches += 1
     return dz
 
 
@@ -221,7 +283,15 @@ def bitdot_bwd_dq(packed, q, z, g, linv, rho, isd: float):
     _check_bwd(q, g, linv, rho)
     if not on_cuda(packed, q, z, g, linv, rho):
         return bitdot_bwd_dq_plain(packed, q, z, g, linv, rho, isd)
-    dq = _bwd("dgl_bitdot_bwd_dq", packed, q, z, g, linv, rho, isd, q)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    nvec = _nvec(linv, rho)
+    qc, zc, gc, packed = _f32(q), _f32(z), _f32(g), packed.contiguous()
+    _launch("dgl_bitdot_bwd_dq", packed.data_ptr(), packed.shape[1],
+            z.shape[0], q.shape[0], qc.data_ptr(), zc.data_ptr(),
+            gc.data_ptr(), nvec.data_ptr(), q.shape[1], q.shape[2], isd,
+            dq.data_ptr(), *_stream(q))
     bitdot_bwd_dq.launches += 1
     return dq
 
@@ -233,7 +303,8 @@ bitdot_bwd_dq.launches = 0
 
 class _BitDot(torch.autograd.Function):
     """Forward by K7's forward kernel; backward by its dz and dq kernels,
-    which recompute p from q and z (nothing edge-shaped is stored)."""
+    which recompute p from q and z (nothing edge-shaped is stored); dz's
+    walk claims its rows in the format's kept order."""
 
     @staticmethod
     def forward(ctx, q, z, bf, isd):
@@ -250,8 +321,10 @@ class _BitDot(torch.autograd.Function):
         bf, isd = ctx.bf, ctx.isd
         dq = dz = None
         if ctx.needs_input_grad[1]:
-            dz = bitdot_bwd_dz(bf.packed_rev, q, z, g, linv, rho,
-                               isd).to(z.dtype)
+            # the plain version on the CPU needs no claim order
+            order = bwd_claim_order(bf) if g.is_cuda else None
+            dz = bitdot_bwd_dz(bf.packed_rev, q, z, g, linv, rho, isd,
+                               order).to(z.dtype)
         if ctx.needs_input_grad[0]:
             dq = bitdot_bwd_dq(bf.packed, q, z, g, linv, rho,
                                isd).to(q.dtype)

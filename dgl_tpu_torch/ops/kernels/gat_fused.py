@@ -160,9 +160,13 @@ _VATTN_SIGNATURES = {
                          _I, _I, _I, _I, _I, ctypes.c_double, _P, _I, _P, _I,
                          _I, _P],
     "dgl_vattn_slot_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_double, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _P],
+                            _I, _I, _I, _I, ctypes.c_double, _P, _P, _P, _I,
+                            _I, _I, _P],
+    "dgl_vattn_slot_grad_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
+                                _P, _P, _P, _P, _I, _I, _I, _I,
+                                ctypes.c_double, _I, _I, _I, _P, _P, _P, _P,
+                                _I, _P],
+    "dgl_vattn_slot_grad_mma_attrs": [_I, _I, _I, _I, _I, _P],
     "dgl_vattn_node_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             ctypes.c_double, _P, _I, _I, _I, _I, _I, _P],
@@ -170,6 +174,8 @@ _VATTN_SIGNATURES = {
 _SCORES_THREADS = 256       # csrc/gat_fused.cu kScoresThreads
 _DS_WARPS = 8               # csrc/gat_fused.cu kDsWarps
 _VATTN_WARPS = 8            # csrc/gatv2.cu kWarps
+_SLICE_WARPS = 4            # csrc/gatv2.cu kSliceWarps: 32-column slices
+_GRAD_CHUNK = 32            # csrc/gatv2.cu kChunk: slots a staged chunk
 MAX_FE_ROWS = 32            # edge-feature rows, bias included, of the kernels
 _SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
 
@@ -933,14 +939,126 @@ def _vattn_scores_walk(tf: ts.TiledFormat, U3, V3, attn, slope: float):
     return p
 
 
+def slot_grad_layout(heads: int, dim: int):
+    """(warps a block, the most heads a pass spans) of K11 v2's slot
+    gradient on the tensor cores: a warp a 32-column slice of the H * D
+    columns, up to _SLICE_WARPS a block; a block takes its slices in passes
+    of that many and stages ds of the heads a pass spans."""
+    hd = heads * dim
+    nsl = -(-hd // 32)
+    warps = max(1, min(nsl, _SLICE_WARPS))
+    nh_max = 1
+    for c_lo in range(0, hd, 32 * warps):
+        c_hi = min(hd, c_lo + 32 * warps)
+        nh_max = max(nh_max, (c_hi - 1) // dim + 1 - c_lo // dim)
+    return warps, nh_max
+
+
+def slot_grad_smem(heads: int, dim: int, fe: int, need_def: bool) -> int:
+    """Dynamic shared memory bytes of the tensor-core slot gradient
+    (``csrc/gatv2.cu`` slot_grad_mma_smem): two stages of 128 (3 + nh_max +
+    fe) bytes, the edge features' three bf16 parts (32 slots of KP + 8) and,
+    with d(ef), the warps' (32, KP) f32 partials; KP = 16 or 32."""
+    warps, nh_max = slot_grad_layout(heads, dim)
+    kp = 16 if fe <= 16 else 32
+    return (2 * 128 * (3 + nh_max + fe) + 2 * 3 * _GRAD_CHUNK * (kp + 8)
+            + (4 * warps * _GRAD_CHUNK * kp if need_def else 0))
+
+
+_MMA_ATTRS = {}
+
+
+def slot_grad_kernel_attrs(fe: int, need_def: bool, warps: int, nh_max: int,
+                           device=None):
+    """(registers a thread, local memory bytes a thread, resident blocks an
+    SM, dynamic shared memory bytes) of ``vattn_slot_grad_mma_kernel``'s
+    instance for ``fe`` edge features, with d(ef) when ``need_def``, at
+    ``warps`` warps a block, from ``cudaFuncGetAttributes`` and the
+    occupancy calculator; kept per device."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    key = (fe, bool(need_def), warps, nh_max, device.index or 0)
+    if key not in _MMA_ATTRS:
+        out = (ctypes.c_int * 4)()
+        lib = build.load("gatv2", _VATTN_SIGNATURES)
+        err = lib.dgl_vattn_slot_grad_mma_attrs(fe, int(need_def), warps,
+                                                nh_max, key[-1],
+                                                ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"dgl_vattn_slot_grad_mma_attrs: CUDA error "
+                               f"{err}")
+        _MMA_ATTRS[key] = tuple(out)
+    return _MMA_ATTRS[key]
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, whose data starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _rows4(t: torch.Tensor) -> torch.Tensor:
+    """(N, H, D) as (N, ceil(H D / 4) 4) f32 rows, zero-padded, 16-byte
+    aligned."""
+    flat = _f32(t).reshape(t.shape[0], -1)
+    hp = -(-flat.shape[1] // 4) * 4
+    if hp != flat.shape[1]:
+        out = flat.new_zeros(flat.shape[0], hp)
+        out[:, :flat.shape[1]] = flat
+        return out
+    return _aligned16(flat)
+
+
+def launch_slot_grad_mma(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
+                         ef_slot, wf, need_def: bool = True, fn=None):
+    """K11 v2's slot gradient on CUDA operands, ``gatv2.cu``'s tensor-core
+    kernel and its finishing pass: (da (H, D), d_ef (B, C, Fe) or None, dwf
+    (rows of wf, H * D)).  ``fn``: the C function, the package's
+    ``dgl_vattn_slot_grad_mma`` when None (a probe passes an edit's)."""
+    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
+    hd = heads * dim
+    dev = U3.device
+    da = torch.empty(heads, dim, dtype=torch.float32, device=dev)
+    dwf = torch.empty(rows, hd, dtype=torch.float32, device=dev)
+    d_ef = (torch.empty(ef_slot.shape, dtype=torch.float32, device=dev)
+            if need_def else None)
+    b, cap = tf.num_buckets, tf.cap
+    n_chunks = b * cap // _GRAD_CHUNK
+    if hd == 0 or n_chunks == 0:
+        return (da.zero_(), None if d_ef is None else d_ef.zero_(),
+                dwf.zero_())
+    warps, nh_max = slot_grad_layout(heads, dim)
+    per_sm = slot_grad_kernel_attrs(fe, need_def, warps, nh_max, dev)[2]
+    blocks = max(1, min(n_chunks, max(per_sm, 1) * ts._sms(dev)))
+    part = torch.empty(blocks, rows + 1, hd, dtype=torch.float32, device=dev)
+    u, v = _rows4(U3), _rows4(V3)
+    a, g = _f32(attn), _aligned16(_f32(ds))
+    ef_c, wf_c = _aligned16(_f32(ef_slot)), _f32(wf)
+    if fn is None:
+        fn = build.load("gatv2", _VATTN_SIGNATURES).dgl_vattn_slot_grad_mma
+    err = fn(tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
+             tf.valid.data_ptr(), tf.src_tile.data_ptr(),
+             tf.dst_tile.data_ptr(), b, tf.tile, cap, u.data_ptr(),
+             v.data_ptr(), u.shape[1], a.data_ptr(), g.data_ptr(),
+             ef_c.data_ptr(), wf_c.data_ptr(), fe, rows - fe, heads, dim,
+             float(slope), warps, nh_max, blocks, part.data_ptr(),
+             da.data_ptr(), dwf.data_ptr(),
+             0 if d_ef is None else d_ef.data_ptr(), dev.index,
+             ts._stream(dev))
+    if err != 0:
+        raise RuntimeError(f"the slot gradient failed to launch: CUDA error "
+                           f"{err}")
+    return da, d_ef, dwf
+
+
 def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
                     ef_slot=None, wf=None, need_def: bool = True):
     """K9 / K11 v2 slot gradient: (da (H, D), d_ef (B, C, Fe) or None,
     dwf (rows of wf, H * D) or None), f32, from ds (B, H, C).  ``d_ef`` is
     computed only with the edge term and ``need_def``.  On CUDA tensors
-    K11 v2's (the edge term) is ``gatv2.cu``'s tiled walk; K9's da is
-    folded into its node-gradient walk by dst (:func:`vattn_node_grad_da`),
-    which this call launches."""
+    K11 v2's (the edge term) is ``gatv2.cu``'s tensor-core kernel
+    (:func:`launch_slot_grad_mma`: fe, dWf and d(ef) as bf16 ``mma.sync``
+    products over 32-slot chunks, each block's partials added in block
+    order by its finishing pass); K9's da is folded into its node-gradient
+    walk by dst (:func:`vattn_node_grad_da`), which this call launches."""
     heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
     _check_slots(tf, ds, heads, "ds")
     edge = () if ef_slot is None else (ef_slot, wf)
@@ -951,38 +1069,14 @@ def vattn_slot_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
         # K9's da is folded into its node-gradient walk by dst (counted on
         # vattn_node_grad_da, whose dV this call drops)
         return vattn_node_grad_da(tf, U3, V3, attn, ds, slope)[1], None, None
-    hd = heads * dim
-    fe_cap = _fe_cap(rows)
+    _fe_cap(rows)
     _check_vattn_sizes(tf, heads, dim, fe,
-                       2 * hd + 2 * rows * hd + _VATTN_WARPS * 32 * rows)
-    dev = U3.device
-    da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
-    dwf = torch.zeros(rows, hd, dtype=torch.float32, device=dev)
-    d_ef = (torch.empty(ef_slot.shape, dtype=torch.float32, device=dev)
-            if need_def else None)
-    if hd == 0:
-        return da, None if d_ef is None else d_ef.zero_(), dwf
-    lanes = ts._lanes_per_head(heads)
-    # columns of its head a lane keeps in registers at once: da and
-    # fe_cap rows of dWf each (and fe_cap d(ef) partial sums a slot)
-    cols, max_cols = 1, 2 if fe_cap == 32 and d_ef is not None else 4
-    while cols < min(-(-dim // lanes), max_cols):
-        cols *= 2
-    u, v, a, g = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
-    ef_c, wf_c = _f32(ef_slot), _f32(wf)
-    b, cap = tf.num_buckets, tf.cap
-    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
-                        4 * ts._sms(dev)))
-    _launch("dgl_vattn_slot_grad", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
-            u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(),
-            ef_c.data_ptr(), wf_c.data_ptr(), fe, rows, heads, dim, lanes,
-            cols, fe_cap, float(slope), da.data_ptr(),
-            0 if d_ef is None else d_ef.data_ptr(), dwf.data_ptr(), 0, 0, 0,
-            blocks, dev.index, ts._stream(dev), source="gatv2")
-    vattn_slot_grad.launches += 1
-    return da, d_ef, dwf
+                       slot_grad_smem(heads, dim, fe, need_def) // 4)
+    out = launch_slot_grad_mma(tf, U3, V3, attn, ds, slope, ef_slot, wf,
+                               need_def)
+    if heads * dim and tf.num_buckets * tf.cap:
+        vattn_slot_grad.launches += 1
+    return out
 
 
 vattn_slot_grad.launches = 0
@@ -1195,10 +1289,10 @@ def egatc_slot_grad(tf: ts.TiledFormat, U3, V3, attn, fe_slot, ds,
     _launch("dgl_vattn_slot_grad", tf.src_local.data_ptr(),
             tf.dst_local.data_ptr(), tf.valid.data_ptr(),
             tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
-            u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(), 0, 0, 0,
-            0, heads, dim, lanes, cols, 0, float(slope), da.data_ptr(), 0, 0,
-            fe_s.data_ptr(), dfe.data_ptr(), _STORE_CODES[fe_s.dtype], blocks,
-            dev.index, ts._stream(dev), source="gatv2")
+            u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(), heads,
+            dim, lanes, cols, float(slope), da.data_ptr(), fe_s.data_ptr(),
+            dfe.data_ptr(), _STORE_CODES[fe_s.dtype], blocks, dev.index,
+            ts._stream(dev), source="gatv2")
     egatc_slot_grad.launches += 1
     return da, dfe
 

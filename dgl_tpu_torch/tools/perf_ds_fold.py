@@ -9,7 +9,7 @@ timed beside the design that replaced it, in one run on the card:
   x[src] and zn[dst] gathered with scalar loads, the epilogue per slot;
 * K9's da (``vattn_slot_grad`` without the edge term): the node-gradient
   walk by dst with da folded in (``row_agg_kernel<VEC, CPL, true, true>``)
-  beside the tiled walk it replaced, ``vattn_slot_grad_kernel<C, 0,
+  beside the tiled walk it replaced, ``vattn_slot_grad_kernel<C, float,
   false>`` of ``csrc/gatv2.cu`` (instantiated again by the edit
   ``TILED_DA``): a warp a 32-slot chunk, both node rows of every slot
   gathered with scalar loads, da met in shared-memory atomics.
@@ -45,13 +45,16 @@ BUCKET_DS = [("  switch (mode) {\n    case 1:\n"
               "      return launch_ds<L, false, false, float, false>"
               "(DGL_DS_ARGS);\n    case 1:\n"
               "      return launch_ds<L, true, false, float, false>")]
-# csrc/gatv2.cu with vattn_slot_grad_kernel's instances without an edge
+# csrc/gatv2.cu with vattn_slot_grad_kernel's instances without a stored
 # term (K9's da) back in its dispatch
-TILED_DA = [("  DGL_GRAD_CASE(1, 8, false)\n",
-             "  DGL_GRAD_CASE(1, 0, false)\n"
-             "  DGL_GRAD_CASE(2, 0, false)\n"
-             "  DGL_GRAD_CASE(4, 0, false)\n"
-             "  DGL_GRAD_CASE(1, 8, false)\n")]
+TILED_DA = [("    return cudaErrorInvalidValue;  // K9's da: csrc/row_agg.cu's fold\n",
+             "    if (cols == 1) return launch_slot_grad<1, float, false>("
+             "DGL_GRAD_ARGS);\n"
+             "    if (cols == 2) return launch_slot_grad<2, float, false>("
+             "DGL_GRAD_ARGS);\n"
+             "    if (cols == 4) return launch_slot_grad<4, float, false>("
+             "DGL_GRAD_ARGS);\n"
+             "    return cudaErrorInvalidValue;\n")]
 
 _BUILT = {}
 _LOCK = threading.Lock()
@@ -128,8 +131,8 @@ def tiled_da(tf, U3, V3, attn, ds, slope: float):
         tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
         tf.valid.data_ptr(), tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
         b, tf.tile, cap, u.data_ptr(), v.data_ptr(), a.data_ptr(),
-        d.data_ptr(), 0, 0, 0, 0, heads, dim, lanes, cols, 0, float(slope),
-        da.data_ptr(), 0, 0, 0, 0, 0, blocks, dev.index, tts._stream(dev)),
+        d.data_ptr(), heads, dim, lanes, cols, float(slope), da.data_ptr(),
+        0, 0, 0, blocks, dev.index, tts._stream(dev)),
         "the tiled da walk")
     return da
 
@@ -138,7 +141,8 @@ def tiny_check():
     """On the CPU: both edits apply once to their sources.  Returns the
     probe's variants' names."""
     ds_src, da_src = edited_sources()
-    if "case 0:" not in ds_src or "DGL_GRAD_CASE(4, 0, false)" not in da_src:
+    if "case 0:" not in ds_src or \
+            "launch_slot_grad<4, float, false>" not in da_src:
         raise AssertionError("an edit did not restore its instance")
     return ["bucket_ds", "tiled_da"]
 

@@ -15,7 +15,10 @@ dyadic inputs and ask for equality.  K5's listed walk by src sums dz and
 del in registers in one order (der in L2 in none), its walk by dst out
 and l; K9's da, folded into the
 node-gradient walk by dst, meets in L2 in no order (atol 1e-3 times its
-largest magnitude, as ``chip_smoke.close_sum``)."""
+largest magnitude, as ``chip_smoke.close_sum``).  K7's dz walk sums a
+row in registers in one order; K11 v2's slot gradient on the tensor
+cores adds its blocks' partials in block order (bit for bit on dyadic
+inputs)."""
 import math
 
 import numpy as np
@@ -35,6 +38,7 @@ from dgl_tpu_torch.parallel import bitgat_spmd as tgs
 from dgl_tpu_torch.parallel import bitspmd as tbs
 from dgl_tpu_torch.parallel import comm
 from dgl_tpu_torch.tools import perf_bwd_walks as tbw
+from dgl_tpu_torch.tools import perf_dz_slot_grad as tdz
 from dgl_tpu_torch.utils import config
 
 pytestmark = pytest.mark.cuda
@@ -2306,3 +2310,181 @@ def test_ds_fold_probe_builds_the_retired_kernels(card):
     torch.testing.assert_close(
         tdf.tiled_da(fwd, U, V, attn, ds, 0.25), da, rtol=RTOL,
         atol=ATOL * max(1.0, float(da.abs().max())))
+
+
+# -- K7's dz on the listed walk by src, K11 v2's slot gradient on the tensor
+# cores -------------------------------------------------------------------
+
+DZ_SHAPES = [(2, 64), (1, 128), (4, 32), (3, 8)]
+
+
+def _dz_case(card, heads, dim, saturate):
+    """K7 dz's operands on ``_listed_graph`` (a src hub of 5,000 edges,
+    src rows 100-199 without one): q and z on a grid of 1/16 (with
+    ``saturate``, z positive and every eighth row of q set so that about
+    half of those rows' scores lie past +-40), g normal, linv and rho from
+    the plain forward.  (bf, packed_rev, q, z, g, linv, rho, isd)."""
+    row, col, n_src, n_dst = _listed_graph()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + dim)
+    q = _grid(card, gen, n_dst, heads, dim, step=1 / 16, top=1)
+    z = _grid(card, gen, n_src, heads, dim, step=1 / 16, top=1)
+    if saturate:
+        z = z.abs() + 1 / 16
+        c = round(40 / (0.5625 * dim ** 0.5) * 16) / 16
+        q[::16], q[8::16] = c, -c
+    g = torch.randn(n_dst, heads, dim, device=card, generator=gen)
+    isd = 1 / dim ** 0.5
+    out, l = tbd.bitdot_fwd_plain(bf.packed, q, z, isd)
+    linv, rho = tbg.backward_scales(g, out, l, None)
+    return bf, (bf.packed_rev, q, z, g, linv, rho, isd)
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+@pytest.mark.parametrize("heads,dim", DZ_SHAPES)
+def test_dz_walk_matches_plain(card, heads, dim, saturate):
+    """K7's dz, the listed walk by src in the backward's claim order,
+    against its plain version; two launches give the same bits, and the
+    rows without an edge are 0."""
+    bf, args = _dz_case(card, heads, dim, saturate)
+    order = tbg.bwd_claim_order(bf)
+    before = tbd.bitdot_bwd_dz.launches
+    got = tbd.bitdot_bwd_dz(*args, order)
+    again = tbd.bitdot_bwd_dz(*args)          # the order built anew
+    torch.cuda.synchronize()
+    assert tbd.bitdot_bwd_dz.launches - before == 2
+    assert torch.equal(got, again)
+    assert (got[100:200] == 0).all()
+    torch.testing.assert_close(got, tbd.bitdot_bwd_dz_plain(*args),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,dim", DZ_SHAPES)
+def test_dz_walk_kernel_attrs(card, heads, dim):
+    """The dz walk's instance at the wrapper's layout stays within 128
+    registers a thread with no local memory."""
+    regs, local, warps = tbd.dz_kernel_attrs(heads, dim)
+    assert 0 < regs <= 128 and local == 0 and warps >= 16
+
+
+def test_dz_walk_through_the_autograd_function(card):
+    """``bitdot_attention_aggregate``'s backward launches the dz walk once
+    in the format's kept claim order, and its dz equals the plain one."""
+    bf, (packed_rev, q, z, g, linv, rho, isd) = _dz_case(card, 2, 64, False)
+    zt = z.clone().requires_grad_()
+    before = tbd.bitdot_bwd_dz.launches
+    tbd.bitdot_attention_aggregate(bf, q, zt).backward(g)
+    torch.cuda.synchronize()
+    assert tbd.bitdot_bwd_dz.launches - before == 1
+    assert bf._bwd_order is not None
+    out, l = tbd.bitdot_fwd_plain(bf.packed, q, z, isd)
+    linv, rho = tbg.backward_scales(g, out, l, None)
+    want = tbd.bitdot_bwd_dz_plain(packed_rev, q, z, g, linv, rho, isd)
+    torch.testing.assert_close(zt.grad, want, rtol=RTOL, atol=ATOL)
+
+
+def _slot_grad_grid(card, fwd, heads, dim, fe, seed):
+    """Dyadic inputs of the slot gradient (as chip_smoke's
+    slot_grad_grid_checks): U, V and attn multiples of 1/4 in [-1, 1], wf
+    with the bias row of 1/4 in [-1/2, 1/2], edge features and ds in {-1,
+    0, 1}; with a slope of 1/4 every product is exact in one bf16 part and
+    every sum exact in f32 in any order at this graph's 60,000 edges."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, cap = fwd.num_buckets, fwd.cap
+    U = _grid(card, gen, fwd.num_src, heads, dim, step=1 / 4, top=1)
+    V = _grid(card, gen, fwd.num_dst, heads, dim, step=1 / 4, top=1)
+    attn = _grid(card, gen, heads, dim, step=1 / 4, top=1)
+    wf = _grid(card, gen, fe + 1, heads * dim, step=1 / 4, top=0.5)
+    ef = _grid(card, gen, b, cap, fe, step=1, top=1) * \
+        fwd.valid.view(b, cap, 1)
+    ds = _grid(card, gen, b, heads, cap, step=1, top=1) * \
+        fwd.valid.view(b, 1, cap)
+    return U, V, attn, ds, ef, wf
+
+
+@pytest.mark.parametrize("fe", [5, 16])
+@pytest.mark.parametrize("heads,dim", [(8, 8), (1, 41), (4, 32)])
+def test_slot_grad_mma_exact_on_a_grid(card, heads, dim, fe):
+    """K11 v2's slot gradient on the tensor cores equals its plain version
+    bit for bit on a dyadic grid, with and without d(ef), and a second
+    launch gives the same bits."""
+    fwd, _, _, _ = _tiled(card)
+    args = _slot_grad_grid(card, fwd, heads, dim, fe, heads + dim + fe)
+    want = tgf.vattn_slot_grad_plain(fwd, *args[:4], 0.25, *args[4:])
+    for need_def in (True, False):
+        got = tgf.vattn_slot_grad(fwd, *args[:4], 0.25, *args[4:],
+                                  need_def=need_def)
+        again = tgf.vattn_slot_grad(fwd, *args[:4], 0.25, *args[4:],
+                                    need_def=need_def)
+        for name, a, b, w in zip(("da", "d_ef", "dwf"), got, again, want):
+            if not need_def and name == "d_ef":
+                assert a is None
+                continue
+            assert torch.equal(a, w), name
+            assert torch.equal(b, a), name
+
+
+@pytest.mark.parametrize("heads,dim,fe,bias", [
+    (4, 32, 16, True), (8, 8, 31, True), (2, 100, 12, False),
+    (3, 5, 32, False), (128, 1, 7, True)])
+def test_slot_grad_mma_matches_plain(card, heads, dim, fe, bias):
+    """Normal inputs at the widths and edge rows the wrapper takes (two
+    k-steps past 16 features, passes of slices past 128 columns, columns
+    not a multiple of 4, 128 heads of one column), with and without d(ef):
+    rtol 1e-4 / atol 1e-3, the sums over every slot's atol times their
+    largest magnitude; a slope of 1 keeps lrelu's kink out (f32 rounding
+    of raw may pick the other slope at a slot)."""
+    fwd, _, _, _ = _tiled(card)
+    gen = torch.Generator(device=card).manual_seed(heads + dim + fe)
+    b, cap = fwd.num_buckets, fwd.cap
+    U = torch.randn(fwd.num_src, heads, dim, device=card, generator=gen)
+    V = torch.randn(fwd.num_dst, heads, dim, device=card, generator=gen)
+    attn = torch.randn(heads, dim, device=card, generator=gen)
+    wf = torch.randn(fe + int(bias), heads * dim, device=card,
+                     generator=gen) / 4
+    ef = torch.randn(b, cap, fe, device=card, generator=gen) * \
+        fwd.valid.view(b, cap, 1)
+    ds = torch.randn(b, heads, cap, device=card, generator=gen) * \
+        fwd.valid.view(b, 1, cap)
+    want = tgf.vattn_slot_grad_plain(fwd, U, V, attn, ds, 1.0, ef, wf)
+    for need_def in (True, False):
+        got = tgf.vattn_slot_grad(fwd, U, V, attn, ds, 1.0, ef, wf,
+                                  need_def=need_def)
+        for name, a, w in zip(("da", "d_ef", "dwf"), got, want):
+            if not need_def and name == "d_ef":
+                continue
+            scale = 1.0 if name == "d_ef" else max(1.0,
+                                                   float(w.abs().max()))
+            torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL * scale)
+
+
+@pytest.mark.parametrize("fe,need_def", [(16, False), (16, True), (5, False),
+                                         (31, False), (31, True)])
+def test_slot_grad_mma_kernel_attrs(card, fe, need_def):
+    """The tensor-core instances fit an SM; those without d(ef) (EGATConv's
+    training step) use no local memory, and with d(ef) at most 8 bytes a
+    thread (ptxas spills two words of the 16-feature instance at 168
+    registers; PERF.md)."""
+    regs, local, per_sm, smem = tgf.slot_grad_kernel_attrs(fe, need_def, 4, 4)
+    assert 0 < regs <= 255 and per_sm >= 1 and smem > 0
+    assert local <= (8 if need_def else 0)
+
+
+def test_dz_slot_grad_probe_retired_kernels(card):
+    """``tools/perf_dz_slot_grad.py`` builds the warp dz walk and the edge
+    instance of the tiled slot gradient the two kernels replaced, and the
+    edits u2x and one_part: each against the package's kernel."""
+    bf, args = _dz_case(card, 2, 64, False)
+    order = tbg.bwd_claim_order(bf)
+    new = tbd.bitdot_bwd_dz(*args, order)
+    torch.testing.assert_close(tdz.warp_dz(*args), new, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(tdz.dz_edit("u2x", *args, order), new,
+                               rtol=RTOL, atol=ATOL)
+    fwd, _, _, _ = _tiled(card)
+    U, V, attn, ds, ef, wf = _slot_grad_grid(card, fwd, 4, 32, 16, 9)
+    new = tgf.vattn_slot_grad(fwd, U, V, attn, ds, 0.25, ef, wf)
+    old = tdz.tiled_slot_grad(fwd, U, V, attn, ds, 0.25, ef, wf, True)
+    one = tdz.one_part_slot_grad(fwd, U, V, attn, ds, 0.25, ef, wf, True)
+    for a, b, c in zip(new, old, one):
+        # on the grid every sum is exact: all three agree bit for bit
+        assert torch.equal(b, a) and torch.equal(c, a)

@@ -584,7 +584,7 @@ TRACED_KERNELS = {
     "vattn_node_grad_da": "row_agg_kernel",
     "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
     "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_list_kernel",
-    "bitdot_bwd_dq": "bitdot_dq_kernel",
+    "bitdot_bwd_dq": "bitdot_dq_list_kernel",
     "int8_matmul_rows": ("split_z_kernel", "int8_rows_mma_kernel"),
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
     "k3_spmm": "row_agg_kernel",
@@ -603,15 +603,16 @@ TRACED_KERNELS = {
 RETIRED_KERNELS = ("::int8_rows_kernel<",
                    "::vattn_scores_kernel<false, float, false>",
                    "::slot_reduce_kernel<", "::tiled_spmm_kernel<",
-                   "::bitdot_dz_kernel<") + tuple(
+                   "::bitdot_dz_kernel<", "::bitdot_dq_kernel<",
+                   "::vattn_node_grad_kernel<") + tuple(
     # vattn_slot_grad_kernel's edge instances <cols, fe_cap, def, ...>
     # (K11 v1's <cols, T, true> stays)
     f"::vattn_slot_grad_kernel<{c}, {f}, " for c in (1, 2, 4)
     for f in (8, 16, 32))
-# K11 v2's step (phase 23): its scores and node gradient are gatv2.cu's
-# bucket walks, not K9's row walks
+# K11 v2's step (phase 23): its scores are gatv2.cu's bucket walk, not
+# K9's row walk, and its node gradient the row walk with the edge term
 EGAT_TRACED = {"vattn_scores": "vattn_scores_kernel",
-               "vattn_node_grad": "vattn_node_grad_kernel"}
+               "vattn_node_grad": "row_fe_grad_kernel"}
 PROFILE_TRIES = 3      # sessions a profile takes, at most, to trace all
 PROFILE_PAD_S = 0.25   # idle host seconds before and after the recorded step
 
@@ -2350,11 +2351,77 @@ def slot_grad_grid_checks(tts, tgf, gen):
             f"with and without d(ef), twice ({e} edges)")
 
 
+NODE_GRAD_FES = (5, EGAT_FE, 31)
+
+
+def node_grad_edge_checks(tts, tgf, tf, gen):
+    """K11 v2's node gradient, the row walk with the edge term, against its
+    plain version on both sides at each of VATTN_SHAPES with
+    NODE_GRAD_FES edge features: bit for bit on a dyadic grid (U, V and
+    attn multiples of 1/4 in [-1, 1], wf with the bias row of 1/4 in
+    [-1/2, 1/2], edge features and ds in {-1, 0, 1}, a slope of 1/4: raw
+    is exact, so both sides of lrelu's kink agree, and every sum is exact
+    in any order, ``exact_sums``), launched twice to the same bits; and
+    within tolerance on normal inputs (with the bias row, and at 31
+    features without it) at a slope of 1, which keeps the kink out (an
+    f32 rounding of raw may pick the other slope at a slot)."""
+    b, cap = tf.num_buckets, tf.cap
+    degree = max(int((v.ptr[1:] - v.ptr[:-1]).max())
+                 for v in (tf.row_view("dst"), tf.row_view("src")))
+    for heads, dim in VATTN_SHAPES:
+        hd = heads * dim
+        for fe in NODE_GRAD_FES:
+            tag = f"K11 v2 node grad H={heads} D={dim} Fe={fe}"
+            exact_sums(degree, 1 / 4, f"{tag} sums")
+            exact_sums(2 + (fe + 1) / 2, 1 / 16, f"{tag} raw")
+            U = grid(gen, tf.num_src, heads, dim, step=1 / 4, top=1)
+            V = grid(gen, tf.num_dst, heads, dim, step=1 / 4, top=1)
+            attn = grid(gen, heads, dim, step=1 / 4, top=1)
+            wf = grid(gen, fe + 1, hd, step=1 / 4, top=0.5)
+            ef = grid(gen, b, cap, fe, step=1, top=1) * tf.valid.view(
+                b, cap, 1)
+            ds = grid(gen, b, heads, cap, step=1, top=1) * tf.valid.view(
+                b, 1, cap)
+            ds_sm = ds.transpose(1, 2).contiguous().transpose(1, 2)
+            for side in ("dst", "src"):
+                want = tgf.vattn_node_grad_plain(tf, U, V, attn, ds,
+                                                 EXACT_SLOPE, side, ef, wf)
+                got = tgf.vattn_node_grad(tf, U, V, attn, ds_sm,
+                                          EXACT_SLOPE, side, ef, wf)
+                equal(got, want, f"{tag} {side} on a grid")
+                equal(tgf.vattn_node_grad(tf, U, V, attn, ds_sm,
+                                          EXACT_SLOPE, side, ef, wf), got,
+                      f"{tag} {side}, launched twice")
+            U, V = (torch.randn(t.shape, device="cuda", generator=gen)
+                    for t in (U, V))
+            attn = torch.randn(heads, dim, device="cuda", generator=gen)
+            wf = torch.randn(wf.shape, device="cuda", generator=gen) / 4
+            if fe == 31:
+                wf = wf[:fe].contiguous()
+            ef = torch.randn(ef.shape, device="cuda", generator=gen) * \
+                tf.valid.view(b, cap, 1)
+            ds = torch.randn(ds.shape, device="cuda", generator=gen) * \
+                tf.valid.view(b, 1, cap)
+            errs = [close(tgf.vattn_node_grad(tf, U, V, attn, ds, 1.0, side,
+                                              ef, wf),
+                          tgf.vattn_node_grad_plain(tf, U, V, attn, ds, 1.0,
+                                                    side, ef, wf),
+                          f"{tag} {side} normal")
+                    for side in ("dst", "src")]
+            log(f"# {tag}{'' if fe == 31 else '+1'}: dV and dU equal the "
+                "plain version's bits on a grid (with the bias row), twice; "
+                f"on normal inputs max|err| dV {errs[0]:.3g}, dU "
+                f"{errs[1]:.3g} ({tf.num_buckets * tf.cap} slots, largest "
+                f"degree {degree})")
+
+
 def phase_gatv2_mid(dgt, tts, tgf):
     """Phase 21: each K9 / K11 v2 kernel against its plain version at mid
     size, without and with the edge term (16 features and the bias row),
     K11 v2's slot gradient also bit for bit on a dyadic grid
-    (``slot_grad_grid_checks``); then the 2-layer GATv2 through K9 against
+    (``slot_grad_grid_checks``) and its node gradient with 5, 16 and 31
+    edge features (``node_grad_edge_checks``); then the 2-layer GATv2
+    through K9 against
     its edge chain (``use_kernels(False)``)."""
     from dgl_tpu_torch.utils import config
     row, col, n_src, n_dst = mid_graph()
@@ -2368,6 +2435,7 @@ def phase_gatv2_mid(dgt, tts, tgf):
             log(f"# {tag}: max|err| " + ", ".join(
                 f"{name} {err:.3g}" for name, err in errs))
     slot_grad_grid_checks(tts, tgf, gen)
+    node_grad_edge_checks(tts, tgf, fwd, gen)
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.create_tiled_format()
@@ -2599,7 +2667,7 @@ def phase_egat_check(conv, g, x, ef, ef_slot):
 
 
 def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
-                     tdz=None):
+                     tdz=None, tdq=None):
     """Phase 24: each K9 / K11 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; no single PyTorch call
     computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
@@ -2609,7 +2677,9 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
     0.01, where the uniform graph's degrees stay near 100.  K11 v2's slot
     gradient is timed with and without d(ef) beside the edge instance it
     replaced and the edit ``one_part`` (``tdz``,
-    tools/perf_dz_slot_grad.py)."""
+    tools/perf_dz_slot_grad.py), and its node gradient, the row walk with
+    the edge term, beside the tiled walk it replaced and two edits
+    (``tdq``, tools/perf_dq_node_grad.py)."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
     U, V, attn, ds, ef, wf = vattn_inputs(tf, heads, dim, fe, gen)
@@ -2762,17 +2832,84 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
                 "bf16 part: not f32-accurate, timed only)")
         out["slot_grad"] = r
         del got
-        # K11 v2's node gradient on each side, the tiled walk: in the slot
-        # arrays (and src_order), ds, U, V, attn, the edge term; out one
-        # row per node.  Per edge and column: raw, dW, the add (5 ops)
+        # K11 v2's node gradient on each side, the row walk with the edge
+        # term, on ds made slot-major once, as vattn_backward hands it: in
+        # the row view, 4H B an edge of ds, the neighbours' rows and the
+        # row's own once, attn, ef at the edges, wf; out one row per node.
+        # Per edge and column: raw, dW, the add (5 ops) and fe (2 (Fe + 1)).
+        # Launched twice to the same bits; beside it the tiled walk it
+        # replaced, the edit double and the narrow layout (``tdq``,
+        # tools/perf_dq_node_grad.py), and the walk without the edge term
+        # (K9's instance) on the same operands: what forming fe costs
+        ds_sm = ds.transpose(1, 2).contiguous().transpose(1, 2)
+        hp = tts.padded_width(dim)
+        vec, cpl, lpr, _ = tts.fe_layout(heads * hp, hp)
+        kf = tts.fe_kf(fe)
+        regs = tts.fe_grad_kernel_attrs(vec, cpl, kf)
+        log(f"# K11 v2 node_grad {tag}: row_fe_grad_kernel<{vec}, {cpl}, "
+            f"{kf}> at {lpr} lanes a row: {regs[0]} registers a thread, "
+            f"{regs[1]} B local memory, {regs[2]} blocks an SM")
+        if regs[1]:
+            raise AssertionError(f"K11 v2 node_grad {tag}: the kernel spills")
         for side in ("dst", "src"):
+            n_rows = tf.num_dst if side == "dst" else tf.num_src
             row(f"node_grad_{side}",
-                lambda: tgf.vattn_node_grad(tf, U, V, attn, ds, slope, side,
-                                            ef, wf),
+                lambda: tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope,
+                                            side, ef, wf),
                 lambda: tgf.vattn_node_grad_plain(tf, U, V, attn, ds, slope,
                                                   side, ef, wf),
-                walk + (b * 4 if side == "src" else 0) + edge_h
-                + 3 * node_b + hd * 4 + edge_b, e * (5 * hd + fe_ops))
+                row_walk_bytes(tf, side, heads, hd) + n_rows * hd * 4
+                + hd * 4 + edge_b, e * (5 * hd + fe_ops))
+            new = tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope, side,
+                                      ef, wf)
+            equal(tgf.vattn_node_grad(tf, U, V, attn, ds_sm, slope, side, ef,
+                                      wf), new,
+                  f"K11 v2 node_grad_{side} {tag}, launched twice")
+            r = out[f"node_grad_{side}"]
+            r.update(kernel=f"row_fe_grad_kernel<{vec}, {cpl}, {kf}>",
+                     registers=regs[0], local_bytes=regs[1],
+                     blocks_per_sm=regs[2], lanes=lpr)
+            r["no_edge_ms"] = cuda_ms(lambda: tgf.vattn_node_grad(
+                tf, U, V, attn, ds_sm, slope, side))
+            msg = (f"# K11 v2 node_grad_{side} {tag}: the same bits twice; "
+                   f"without the edge term (K9's instance) "
+                   f"{r['no_edge_ms']:.4f} ms")
+            if tdq is not None:
+                errs = {"tiled": close(
+                    tdq.tiled_node_grad(tf, U, V, attn, ds, slope, side, ef,
+                                        wf), new,
+                    f"K11 v2 node_grad_{side} (the tiled walk) {tag}")}
+                narrow = tdq.narrow_layout(heads, dim)
+                errs["double"] = close(
+                    tdq.fe_walk(tf, U, V, attn, ds_sm, slope, side, ef, wf,
+                                "double"), new,
+                    f"K11 v2 node_grad_{side} (double) {tag}")
+                errs["narrow"] = close(
+                    tdq.fe_walk(tf, U, V, attn, ds_sm, slope, side, ef, wf,
+                                layout=narrow), new,
+                    f"K11 v2 node_grad_{side} (narrow) {tag}")
+                old_regs = tdq.tiled_attrs(heads, dim, rows, side, tf.tile)
+                r.update(
+                    old_ms=cuda_ms(lambda: tdq.tiled_node_grad(
+                        tf, U, V, attn, ds, slope, side, ef, wf)),
+                    double_ms=cuda_ms(lambda: tdq.fe_walk(
+                        tf, U, V, attn, ds_sm, slope, side, ef, wf,
+                        "double")),
+                    narrow_ms=cuda_ms(lambda: tdq.fe_walk(
+                        tf, U, V, attn, ds_sm, slope, side, ef, wf,
+                        layout=narrow)),
+                    old_kernel="vattn_node_grad_kernel (tools/"
+                               "dq_node_grad_probe.cu)",
+                    old_registers=old_regs[0])
+                msg += (f", the tiled walk {r['old_ms']:.4f} ms "
+                        f"({old_regs[0]} registers, {old_regs[1]} B local "
+                        f"memory), double {r['double_ms']:.4f} ms, narrow "
+                        f"{narrow} {r['narrow_ms']:.4f} ms; max|err| "
+                        "against the walk " + ", ".join(
+                            f"{k} {v:.3g}" for k, v in errs.items()))
+            del new
+            log(msg)
+        del ds_sm
         return out
     # K9's node gradient on each side, the row walk on ds made slot-major
     # once, as vattn_backward hands it: in the row view, 4H B an edge of
@@ -3844,12 +3981,54 @@ def dz_hub_checks(bm, bg, bd, gen):
                 f"({len(row)} edges, layout {bd.dz_layout(heads, dim)})")
 
 
+DQ_EMPTY_ROWS = range(100, 150)
+
+
+def dq_hub_checks(bm, bg, bd, gen):
+    """K7's dq walk against its plain version on the phase-8 graph with a
+    dst hub of DZ_HUB_DEGREE distinct src (its row's list drained when
+    full, many times) and the dst rows DQ_EMPTY_ROWS without an edge, at
+    the four BITDOT_SHAPES and with scores past +-40 at each: rows claimed
+    in the forward's claim order (the hub first), every row within
+    tolerance, two launches to the same bits, and the empty rows exactly
+    0."""
+    row, col, n_src, n_dst = mid_graph()
+    keep = (col < DQ_EMPTY_ROWS.start) | (col >= DQ_EMPTY_ROWS.stop)
+    hub = np.random.default_rng(29).permutation(n_src)[:DZ_HUB_DEGREE]
+    row = np.concatenate([row[keep], hub])
+    col = np.concatenate([col[keep], np.full(DZ_HUB_DEGREE, 7)])
+    key = np.unique(col * n_src + row)
+    row, col = key % n_src, key // n_src
+    bf = bm.build_bit_format_device(row, col, n_src, n_dst, device="cuda")
+    order = bg.fwd_claim_order(bf)
+    if int(order[0]) != 7:
+        raise AssertionError("K7 dq hub graph: the hub is not claimed first")
+    for heads, dim in BITDOT_SHAPES:
+        for saturate in (False, True):
+            tag = f"K7 dq hub graph H={heads} D={dim}" + (
+                " saturated" if saturate else "")
+            q, z, g = bitdot_inputs(gen, n_src, n_dst, heads, dim,
+                                    saturate=saturate)
+            isd = 1 / dim ** 0.5
+            out, l = bd.bitdot_fwd_plain(bf.packed, q, z, isd)
+            linv, rho = bg.backward_scales(g, out, l, None)
+            args = (bf.packed, q, z, g, linv, rho, isd)
+            got = bd.bitdot_bwd_dq(*args, order)
+            equal(bd.bitdot_bwd_dq(*args, order), got, f"{tag}, twice")
+            err = close(got, bd.bitdot_bwd_dq_plain(*args), tag)
+            if got[DQ_EMPTY_ROWS.start:DQ_EMPTY_ROWS.stop].any():
+                raise AssertionError(f"{tag}: a row with no edge is not 0")
+            log(f"# {tag}: max|err| {err:.3g}, the same bits twice "
+                f"({len(row)} edges, layout {bd.dz_layout(heads, dim)})")
+
+
 def phase_bitdot_mid(dgt, bm, bg, bd):
     """Phase 28: each K7 kernel against its plain version on the phase-8
     graph (simple, bipartite, plane 31 on both sides) at (H, D) = (2, 64),
     (1, 128), (4, 32), (3, 8) and with scores past +-40 at (2, 64); l
     exactly at zero scores; the kernels' times at each shape; dz on the
-    same graph with a src hub (``dz_hub_checks``); then DotGatConv(64, 64,
+    same graph with a src hub (``dz_hub_checks``) and dq with a dst hub
+    (``dq_hub_checks``); then DotGatConv(64, 64,
     2) on K7 against its gather path, and the same layer at D = 32, which
     must not launch K7."""
     from dgl_tpu_torch.utils import config
@@ -3865,7 +4044,7 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
     gen = torch.Generator(device="cuda").manual_seed(28)
     src_t = torch.from_numpy(row).cuda()
     dst_t = torch.from_numpy(col).cuda()
-    dz_order = bg.bwd_claim_order(bf)
+    dz_order, dq_order = bg.bwd_claim_order(bf), bg.fwd_claim_order(bf)
     for heads, dim, saturate in [s + (False,) for s in BITDOT_SHAPES] + [
             (2, 64, True)]:
         tag = f"H={heads} D={dim}" + (" saturated" if saturate else "")
@@ -3902,7 +4081,8 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
                                                       g, linv, rho, isd,
                                                       dz_order)),
                      cuda_ms(lambda: bd.bitdot_bwd_dq(bf.packed, q, z, g,
-                                                      linv, rho, isd))]
+                                                      linv, rho, isd,
+                                                      dq_order))]
             msg += ("; fwd {:.4f} ms, dz {:.4f} ms, dq {:.4f} ms ({} edges)"
                     .format(*times, len(row)))
         log(msg)
@@ -3913,6 +4093,7 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
     if not torch.equal(l, deg.unsqueeze(1).expand_as(l)):
         raise AssertionError("K7 mid: l at zero scores is not the in-degree")
     dz_hub_checks(bm, bg, bd, gen)
+    dq_hub_checks(bm, bg, bd, gen)
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.unit().create_bitmask_format(on_device=True)
@@ -4074,7 +4255,7 @@ def timed_once(fn):
     return result, start.elapsed_time(end)
 
 
-def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None):
+def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None, tdq=None):
     """Phase 30: each K7 kernel at full size on the phase-4 graph against
     its plain version on every row, with its time (median of 5), its plain
     version's (the one call that gives the reference), the bound and no
@@ -4086,7 +4267,9 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None):
     walk by src, is also launched twice to the same bits and timed beside
     the warp walk it replaced, the edit ``u2x`` and its layouts on either
     side (``tdz``, tools/perf_dz_slot_grad.py), with its registers and
-    resident warps."""
+    resident warps; dq, the listed walk by dst, likewise beside the warp
+    walk it replaced and the edit ``dz_count`` (``tdq``,
+    tools/perf_dq_node_grad.py)."""
     bf, e = g.unit()._bits, g.num_edges()
     n, isd = N_NODES, 1 / dim ** 0.5
     gen = torch.Generator(device="cuda").manual_seed(heads * 100 + dim)
@@ -4172,11 +4355,44 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None):
             + "; max|err| against the walk " + ", ".join(
                 f"{k} {v:.3g}" for k, v in errs.items()))
     del new
-    # dq: the same inputs over the bits of A; the sum draw z (2 D)
-    row("dq", lambda: bd.bitdot_bwd_dq(bf.packed, *args),
+    # dq: the same inputs over the bits of A; the sum draw z (2 D).  The
+    # listed walk by dst in the forward's claim order, launched twice to
+    # the same bits, beside the warp walk it replaced and the edit
+    # dz_count (``tdq``, tools/perf_dq_node_grad.py)
+    dq_order = bg.fwd_claim_order(bf)
+    row("dq", lambda: bd.bitdot_bwd_dq(bf.packed, *args, dq_order),
         lambda: bd.bitdot_bwd_dq_plain(bf.packed, *args),
         bf.packed.numel() * 4 + 4 * feat_b + 2 * node,
         e * heads * (6 * dim + 12))
+    new = bd.bitdot_bwd_dq(bf.packed, *args, dq_order)
+    equal(bd.bitdot_bwd_dq(bf.packed, *args, dq_order), new,
+          f"K7 dq H={heads} D={dim}, launched twice")
+    regs, local, warps = bd.dq_kernel_attrs(heads, dim)
+    r = rows["dq"]
+    r.update(kernel="bitdot_dq_list_kernel", registers=regs,
+             local_bytes=local, resident_warps=warps, lanes=layout[1])
+    log(f"# K7 dq H={heads} D={dim}: bitdot_dq_list_kernel at {layout[1]} "
+        f"lanes an entry, {layout[2]} vectors a lane: {regs} registers a "
+        f"thread, {local} B local memory, {warps} warps an SM; the same "
+        "bits twice")
+    if regs > 128 or local:
+        raise AssertionError(f"K7 dq H={heads} D={dim}: {regs} registers, "
+                             f"{local} B local memory")
+    if tdq is not None:
+        old = tdq.warp_dq(bf.packed, *args)
+        errs = {"warp": close(old, new, f"K7 dq (the warp walk) H={heads} "
+                                        f"D={dim}")}
+        other = tdq.dq_edit("dz_count", bf.packed, *args, dq_order)
+        errs["dz_count"] = close(other, new, f"K7 dq (dz_count) H={heads} "
+                                             f"D={dim}")
+        del old, other
+        r["old_kernel"] = "bitdot_dq_kernel (tools/dq_node_grad_probe.cu)"
+        r["old_ms"] = cuda_ms(lambda: tdq.warp_dq(bf.packed, *args))
+        r["dz_count_ms"] = cuda_ms(lambda: tdq.dq_edit(
+            "dz_count", bf.packed, *args, dq_order))
+        log(f"# K7 dq H={heads} D={dim}: the warp walk {r['old_ms']:.4f} ms, "
+            f"dz_count {r['dz_count_ms']:.4f} ms; max|err| against the walk "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     return rows
 
 
@@ -5116,10 +5332,8 @@ def phase_sddmm_probe(tsw, gt, rate):
     return tsw.probe(fwd, rate, log)
 
 
-# the kernels this slice's redesign added, and the one it cut to K11 v1's
-# instance: ptxas' report of each instance
-NEW_KERNELS = ("bitdot_dz_list_kernel", "vattn_slot_grad_mma_kernel",
-               "vattn_slot_grad_kernel")
+# the kernels this slice's redesign added: ptxas' report of each instance
+NEW_KERNELS = ("bitdot_dq_list_kernel", "row_fe_grad_kernel")
 
 
 def log_new_kernels(logs):
@@ -5162,6 +5376,7 @@ def main():
     from dgl_tpu_torch.tools import perf_bitgat_probe as tp2
     from dgl_tpu_torch.tools import perf_bitmm_variants as tp1
     from dgl_tpu_torch.tools import perf_bwd_walks as tbw
+    from dgl_tpu_torch.tools import perf_dq_node_grad as tdq
     from dgl_tpu_torch.tools import perf_ds_fold as tdf
     from dgl_tpu_torch.tools import perf_dz_slot_grad as tdz
     from dgl_tpu_torch.tools import perf_fwd_walks as tfw
@@ -5185,16 +5400,17 @@ def main():
     # two retired kernels and an edit, waited for in phase 10), the
     # scores and rows probe (its two retired kernels, waited for in phase
     # 24), the reduce and K3 probe (its two retired kernels and an edit
-    # of the row walk, waited for in phase 16) and the dz and slot-gradient
-    # probe (its two retired kernels and an edit of each new one, waited
-    # for in phase 28)
+    # of the row walk, waited for in phase 16), the dz and slot-gradient
+    # probe and the dq and node-gradient probe (the two retired kernels of
+    # each and an edit of each new one, waited for in phase 30)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(5)
+    probe_build = ThreadPoolExecutor(6)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
     scores_rows_built = probe_build.submit(tsr.build_probe)
     reduce_k3_built = probe_build.submit(trk.build_probe)
     dz_probe_built = probe_build.submit(tdz.build_probe)
+    dq_probe_built = probe_build.submit(tdq.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -5264,10 +5480,11 @@ def main():
     del conv, xd
     t0 = time.perf_counter()
     dz_probe_built.result()
-    log("# the dz and slot-gradient probe's build waited for "
-        f"{time.perf_counter() - t0:.1f}s")
+    dq_probe_built.result()
+    log("# the dz and slot-gradient and the dq and node-gradient probes' "
+        f"builds waited for {time.perf_counter() - t0:.1f}s")
     k7 = [phase(f"30 (K7 yardsticks H={h} D={d})", bitdot_yardsticks, bd,
-                bg, g, h, d, rate, tdz) for h, d in BITDOT_SHAPES[:2]]
+                bg, g, h, d, rate, tdz, tdq) for h, d in BITDOT_SHAPES[:2]]
 
     # phases 12-16: the tiled slice at full size
     gt = phase("12 (tiled format)", tiled_graph, dgt, g)
@@ -5389,7 +5606,7 @@ def main():
           ef_slot)
     del conv, efe
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tts, tbw,
-                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz)
+                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz, tdq)
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
                 EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
@@ -5506,8 +5723,11 @@ def main():
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2167",
          "launches": k11_launches["vattn_slot_grad"], **k11["slot_grad"]},
-        {"name": "vattn_node_grad_edge", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+        # K11 v2's node gradient, the row walk with the edge term (the
+        # retired tiled walk, vattn_node_grad_kernel, built by
+        # tools/perf_dq_node_grad.py, as old_ms)
+        {"name": "row_fe_grad_kernel", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2167, :2196",
          "launches": k11_launches["vattn_node_grad"],
          **k11["node_grad_dst"]},
@@ -5537,7 +5757,9 @@ def main():
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:272",
          "launches": k7_launches["bitdot_bwd_dz"], **k7[0]["dz"]},
-        {"name": "bitdot_bwd_dq", "route": "cuda",
+        # K7's dq, the listed walk by dst (the retired warp walk,
+        # bitdot_dq_kernel, built by tools/perf_dq_node_grad.py, as old_ms)
+        {"name": "bitdot_dq_list_kernel", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:368",
          "launches": k7_launches["bitdot_bwd_dq"], **k7[0]["dq"]},

@@ -19,15 +19,16 @@
 //
 // The TPU kernels score every bit densely, one matrix-unit contraction
 // per tile; at Reddit's 0.2% density a word holds ~0.07 set bits, so here
-// each kernel walks the set bits.  The forward and dq walk them as K5 first
+// each kernel walks the set bits.  The forward walks them as K5 first
 // did: one warp owns one row of a packing, streams its words coalesced
 // (one per lane, 8 in flight), skips zero words and walks the set bits with
 // __ffs; a lane owns the feature columns f = lane + 32 k (k < 4, so H * D
 // <= 128) and the heads of those columns; the dot products per head are
-// warp-shuffle sums, segmented where a head spans part of a warp.  dz is
-// the listed walk of K5's backward (csrc/bitgat.cu, its listing shared in
-// csrc/bitlist.cuh).  Every row's sums stay in registers and are written
-// once: no atomics, and a fixed order of sums.  Operands and sums are f32.
+// warp-shuffle sums, segmented where a head spans part of a warp.  dz and
+// dq are the listed walks of K5 (csrc/bitgat.cu, its listing shared in
+// csrc/bitlist.cuh), dz by src and dq by dst.  Every row's sums stay in
+// registers and are written once: no atomics, and a fixed order of sums.
+// Operands and sums are f32.
 // Each kernel is behind a plain C function that launches on the caller's
 // stream, allocates nothing and returns cudaGetLastError():
 //
@@ -53,10 +54,20 @@
 //     on the previous bit's shuffles and exp (bitdot_dz_kernel, built by
 //     dgl_tpu_torch/tools/perf_dz_slot_grad.py from
 //     tools/dz_slot_grad_probe.cu and timed beside it, PERF.md).
-// bitdot_dq_kernel  replaces _bwdB_call (:368, body _bwdB_kernel :315).
-//     Over packed (rows = dst): q[d], g[d], linv[d], rho[d] and dq[d] in
-//     registers; per set bit s the warp gathers z[s] and takes e and u per
-//     head.
+// bitdot_dq_list_kernel<CPL, kOneHead>  replaces _bwdB_call (:368, body
+//     _bwdB_kernel :315).  The dz walk's lanes and layout by dst over
+//     packed: persistent warps claim its rows in the forward's claim order
+//     (bitgat.py fwd_claim_order), the row's q[d], g[d] and [linv, rho]
+//     stay in registers, a group of lpe lanes gathers an entry's z[s] in
+//     16-byte loads, forms z . q and g . z per head over the head's lanes,
+//     takes draw and adds draw z[s] into the row's registers, U entries
+//     in flight (DqUnroll, K5's forward's count: one row gathered an
+//     entry); the groups' sums meet by shuffles in a fixed order at the
+//     row's end.  It replaced a warp a dst row taking its set bits one at
+//     a time, each bit's gather waiting on the previous bit's shuffles and
+//     exp (bitdot_dq_kernel, built by
+//     dgl_tpu_torch/tools/perf_dq_node_grad.py from
+//     tools/dq_node_grad_probe.cu and timed beside it, PERF.md).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each kernel must
 // stream the whole bitmask, K_pad * n32 * 4 bytes (6.93 GB at Reddit
@@ -65,9 +76,9 @@
 // dz and E H (6 D + 12) for dq, is 0.9-1.8 ms at (H, D) = (2, 64) on
 // Reddit's 114.8M edges.  chip_smoke.py prints the bound of each call.
 // The per-set-bit work (a 512-byte row gathered from L2 or memory at H * D
-// = 128, the shuffles, the exp) is the cost: the forward and dq still do
-// it one bit after another a warp; the dz walk keeps U entries a group in
-// flight.  The C functions and launch shapes are chosen by
+// = 128, the shuffles, the exp) is the cost: the forward still does it
+// one bit after another a warp; the dz and dq walks keep U entries a group
+// in flight.  The C functions and launch shapes are chosen by
 // dgl_tpu_torch/ops/kernels/bitdot.py.
 
 #include <cuda_runtime.h>
@@ -409,64 +420,246 @@ bitdot_dz_list_kernel(const uint32_t* __restrict__ packed_rev, int64_t k32,
   }
 }
 
-template <int kCols>
-__global__ void __launch_bounds__(kWarps * 32)
-bitdot_dq_kernel(const uint32_t* __restrict__ packed, int64_t n32,
-                 int64_t num_src, int64_t num_dst,
-                 const float* __restrict__ q, const float* __restrict__ z,
-                 const float* __restrict__ g,
-                 const float* __restrict__ nvec,  // (num_dst, 2, H)
-                 int heads, int dim, float isd, float* __restrict__ dq) {
+// The entries a group of the dq walk keeps in flight: each brings one row,
+// z[s], CPL vectors a lane, so K5's forward's count (bitgat.cu ListUnroll)
+// at 1 and 2 vectors a lane; at 3 and 4 the row's q, g, [linv, rho] and
+// sums beside them take dz's (DzUnroll: 1), where the forward's spilled
+// (4 bytes a thread at (1, 128) on an H100, more with several heads).
+template <int CPL>
+struct DqUnroll {
+  static constexpr int value = CPL == 1 ? 8 : CPL == 2 ? 4 : 1;
+};
+
+// dq by the listed walk by dst, the dz walk's lanes and layout on the
+// other packing: rows d of packed, entries s.  The row's q[d], g[d] and
+// [linv, rho] stay in registers; per entry the group gathers z[s], forms
+// z . q and g . z per head over the head's lanes and adds draw z[s] into
+// the row's sums.  The loop is the one K7's forward would take (the same
+// rows, entries and gathers).
+template <int CPL, bool kOneHead>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+bitdot_dq_list_kernel(const uint32_t* __restrict__ packed, int64_t n32,
+                      const int* __restrict__ order, int rows,
+                      int64_t num_src, const float4* __restrict__ q,
+                      const float4* __restrict__ z,
+                      const float4* __restrict__ g,
+                      const float* __restrict__ nvec,  // (rows, 2, H)
+                      int heads, int nv, int vph, int lpe, float isd,
+                      float4* __restrict__ dq, int* __restrict__ counter) {
+  constexpr int U = DqUnroll<CPL>::value;
+  constexpr int NH = kOneHead ? 1 : CPL;  // scalar chains a lane
+  __shared__ int lists[kWarps][kList];
   const int lane = threadIdx.x & 31;
-  const int64_t d =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (d >= num_dst) return;  // warp-uniform
-  const int hd = heads * dim;
-  const Columns<kCols> c(lane, heads, dim);
-  const float* nv = nvec + d * 2 * heads;
-  float qv[kCols], gv[kCols], linv[kCols], rho[kCols], acc[kCols];
+  int* list = lists[threadIdx.x >> 5];
+  const int groups = 32 / lpe;
+  const int grp = lane / lpe;
+  const int li = lane - grp * lpe;
+  const int red = kOneHead ? lpe : vph;  // lanes that share a head's sum
+  int vq[CPL];
+  bool ok[CPL];
+  int hq[NH];
+  bool chain[NH];  // the chain is a head of the row
 #pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    const bool valid = c.head[k] >= 0;
-    const int h = valid ? c.head[k] : 0;
-    qv[k] = valid ? __ldg(q + d * hd + c.f[k]) : 0.f;
-    gv[k] = valid ? __ldg(g + d * hd + c.f[k]) : 0.f;
-    linv[k] = __ldg(nv + h);
-    rho[k] = __ldg(nv + heads + h);
-    acc[k] = 0.f;
+  for (int c = 0; c < CPL; ++c) {
+    vq[c] = li + lpe * c;
+    ok[c] = vq[c] < nv;
   }
-  walk_row(packed, n32, d, num_src, lane, [&](int64_t s) {
-    float zv[kCols], dot[2][kCols];
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      zv[k] = c.head[k] >= 0 ? __ldg(z + s * hd + c.f[k]) : 0.f;
-      dot[0][k] = zv[k] * qv[k];
-      dot[1][k] = gv[k] * zv[k];
+  for (int t = 0; t < NH; ++t) {
+    hq[t] = kOneHead || !ok[t] ? 0 : vq[t] / vph;
+    chain[t] = kOneHead || ok[t];
+  }
+
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(counter, 1);
+    item = __shfl_sync(kFull, item, 0);
+    if (item >= rows) break;  // warp-uniform
+    const int64_t d = order[item];
+    float4 qd[CPL], gd[CPL], acc[CPL];
+    float liv[NH], rhv[NH];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      qd[c] = ok[c] ? __ldg(q + d * nv + vq[c])
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      gd[c] = ok[c] ? __ldg(g + d * nv + vq[c])
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    head_sums<2, kCols>(dot, c, heads, dim);
+    const float* nr = nvec + d * 2 * heads;
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      if (c.head[k] < 0) continue;
-      float alpha, draw;
-      edge_grad(dot[0][k], dot[1][k], linv[k], rho[k], isd, alpha, draw);
-      acc[k] += draw * zv[k];
+    for (int t = 0; t < NH; ++t) {
+      liv[t] = chain[t] ? __ldg(nr + hq[t]) : 0.f;
+      rhv[t] = chain[t] ? __ldg(nr + heads + hq[t]) : 0.f;
     }
-  });
+
+    const uint32_t* prow = packed + d * n32;
+    uint32_t word[kStepWords], next[kStepWords];
+    list_start(word, next, prow, n32, lane);
+    int64_t j0 = -32 * kStepWords;  // the step in hand
+    int total = 0, first = 0, p0 = 0;  // its entries, the lane's, listed
+    int len = 0;                       // entries in the list
+    bool row_done = false;             // all warp-uniform
+    while (!row_done) {
+      list_bits(list, len, row_done, word, next, j0, total, first, p0, prow,
+                n32, num_src, lane);
+      // the drain: groups take consecutive entries, U each in flight,
+      // every load of a batch issued before its arithmetic
+      __syncwarp();
+      for (int i0 = 0; i0 < len; i0 += groups * U) {
+        int ss[U];
+        float4 zv[U][CPL];
 #pragma unroll
-  for (int k = 0; k < kCols; ++k)
-    if (c.head[k] >= 0) dq[d * hd + c.f[k]] = acc[k];
+        for (int u = 0; u < U; ++u) {
+          const int e = i0 + u * groups + grp;
+          ss[u] = e < len ? list[e] : -1;
+          const int64_t s = ss[u] < 0 ? 0 : ss[u];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            zv[u][c] = ss[u] >= 0 && ok[c]
+                           ? __ldg(z + s * nv + vq[c])
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float zd[NH], ud[NH];  // z . q and g . z of the chain's head
+#pragma unroll
+          for (int t = 0; t < NH; ++t) zd[t] = ud[t] = 0.f;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const int t = kOneHead ? 0 : c;
+            zd[t] = fmaf(zv[u][c].x, qd[c].x, zd[t]);
+            zd[t] = fmaf(zv[u][c].y, qd[c].y, zd[t]);
+            zd[t] = fmaf(zv[u][c].z, qd[c].z, zd[t]);
+            zd[t] = fmaf(zv[u][c].w, qd[c].w, zd[t]);
+            ud[t] = fmaf(gd[c].x, zv[u][c].x, ud[t]);
+            ud[t] = fmaf(gd[c].y, zv[u][c].y, ud[t]);
+            ud[t] = fmaf(gd[c].z, zv[u][c].z, ud[t]);
+            ud[t] = fmaf(gd[c].w, zv[u][c].w, ud[t]);
+          }
+          for (int off = red >> 1; off > 0; off >>= 1) {  // warp-uniform
+#pragma unroll
+            for (int t = 0; t < NH; ++t) {
+              zd[t] += __shfl_xor_sync(kFull, zd[t], off);
+              ud[t] += __shfl_xor_sync(kFull, ud[t], off);
+            }
+          }
+          if (ss[u] < 0) continue;
+          float al[NH], dr[NH];  // alpha and draw of the chain's head
+#pragma unroll
+          for (int t = 0; t < NH; ++t)
+            edge_grad(zd[t], ud[t], liv[t], rhv[t], isd, al[t], dr[t]);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const float r = dr[kOneHead ? 0 : c];
+            acc[c].x = fmaf(r, zv[u][c].x, acc[c].x);
+            acc[c].y = fmaf(r, zv[u][c].y, acc[c].y);
+            acc[c].z = fmaf(r, zv[u][c].z, acc[c].z);
+            acc[c].w = fmaf(r, zv[u][c].w, acc[c].w);
+          }
+        }
+      }
+      __syncwarp();
+      len = 0;
+    }
+
+    // the groups' sums, combined in a fixed order, then written once
+    for (int off = lpe; off < 32; off <<= 1) {  // warp-uniform
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        acc[c].x += __shfl_xor_sync(kFull, acc[c].x, off);
+        acc[c].y += __shfl_xor_sync(kFull, acc[c].y, off);
+        acc[c].z += __shfl_xor_sync(kFull, acc[c].z, off);
+        acc[c].w += __shfl_xor_sync(kFull, acc[c].w, off);
+      }
+    }
+    if (grp != 0) continue;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (ok[c]) dq[d * nv + vq[c]] = acc[c];
+  }
 }
 
 dim3 rows_grid(int64_t rows) {
   return dim3(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
 }
 
+// The listed walks (dz by src, dq by dst) take one argument list.
+typedef void (*ListWalk)(const uint32_t*, int64_t, const int*, int, int64_t,
+                         const float4*, const float4*, const float4*,
+                         const float*, int, int, int, int, float, float4*,
+                         int*);
+
+// The walk's instance for (cpl, one head), null past 4 vectors a lane.
+#define DGL_LIST_INSTANCE(KERNEL)                                           \
+  switch (cpl) {                                                            \
+    case 1: return one ? &KERNEL<1, true> : &KERNEL<1, false>;              \
+    case 2: return one ? &KERNEL<2, true> : &KERNEL<2, false>;              \
+    case 3: return one ? &KERNEL<3, true> : &KERNEL<3, false>;              \
+    case 4: return one ? &KERNEL<4, true> : &KERNEL<4, false>;              \
+    default: return nullptr;                                                \
+  }
+ListWalk dz_walk(int64_t cpl, bool one) {
+  DGL_LIST_INSTANCE(bitdot_dz_list_kernel)
+}
+ListWalk dq_walk(int64_t cpl, bool one) {
+  DGL_LIST_INSTANCE(bitdot_dq_list_kernel)
+}
+#undef DGL_LIST_INSTANCE
+
+int launch_list_walk(ListWalk walk, const void* packed, int64_t words,
+                     const void* order, int64_t rows, int64_t num_cols,
+                     const void* q, const void* z, const void* g,
+                     const void* nvec, int64_t heads, int64_t dp,
+                     int64_t lpe, int64_t cpl, float isd, void* out,
+                     void* counter, int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const int64_t vph = dp / 4, nv = heads * vph;
+  if (walk == nullptr || !list_layout_ok(heads, dp, lpe, cpl) ||
+      num_cols > INT32_MAX || rows > INT32_MAX ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(z) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  unsigned blocks = 0;
+  err = persistent_blocks(walk, kWarps * 32, (rows + kWarps - 1) / kWarps,
+                          &blocks);
+  if (err != cudaSuccess) return err;
+  walk<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), words,
+      static_cast<const int*>(order), static_cast<int>(rows), num_cols,
+      static_cast<const float4*>(q), static_cast<const float4*>(z),
+      static_cast<const float4*>(g), static_cast<const float*>(nvec),
+      static_cast<int>(heads), static_cast<int>(nv), static_cast<int>(vph),
+      static_cast<int>(lpe), isd, static_cast<float4*>(out),
+      static_cast<int*>(counter));
+  return cudaGetLastError();
+}
+
+// attrs (three host ints): the registers a thread, the local memory bytes
+// a thread and the resident blocks an SM of a walk's instance
+int list_walk_attrs(ListWalk walk, int64_t device, void* attrs) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (walk == nullptr) return cudaErrorInvalidValue;
+  int* out = static_cast<int*>(attrs);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, walk);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, walk,
+                                                       kWarps * 32, 0);
+}
+
 }  // namespace
 
-// The forward and dq take the packing's row width (`words`), the src and
-// dst counts, q (num_dst, H, D), z (num_src, H, D) and, in dq, g (num_dst,
-// H, D) and nvec (num_dst, 2, H) = [linv, rho], all f32 and contiguous,
-// with H * D <= 128, and write every element of their outputs.  Grid:
+// The forward takes the packing's row width (n32), the src and dst
+// counts, q (num_dst, H, D) and z (num_src, H, D), f32 and contiguous,
+// with H * D <= 128, and writes every element of its outputs.  Grid:
 // ceil(rows / 8) blocks of 8 warps, one warp a row.
 #define DGL_BITDOT_SWITCH(LAUNCH)                \
   switch ((heads * dim + 31) / 32) {             \
@@ -516,49 +709,27 @@ int dgl_bitdot_bwd_dz_list(const void* packed_rev, int64_t k32,
                            const void* nvec, int64_t heads, int64_t dp,
                            int64_t lpe, int64_t cpl, float isd, void* dz,
                            void* counter, int64_t device, void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const int64_t vph = dp / 4, nv = heads * vph;
-  if (!list_layout_ok(heads, dp, lpe, cpl) || num_dst > INT32_MAX ||
-      rows > INT32_MAX || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(z) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dz) % 16 != 0)
-    return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool one = heads == 1;
-#define DGL_DZ_LIST(C, O)                                                   \
-  {                                                                         \
-    unsigned blocks = 0;                                                    \
-    const cudaError_t e = persistent_blocks(bitdot_dz_list_kernel<C, O>,    \
-                                            kWarps * 32,                    \
-                                            (rows + kWarps - 1) / kWarps,   \
-                                            &blocks);                       \
-    if (e != cudaSuccess) return e;                                         \
-    bitdot_dz_list_kernel<C, O><<<blocks, kWarps * 32, 0, st>>>(            \
-        static_cast<const uint32_t*>(packed_rev), k32,                      \
-        static_cast<const int*>(order), static_cast<int>(rows), num_dst,    \
-        static_cast<const float4*>(q), static_cast<const float4*>(z),       \
-        static_cast<const float4*>(g), static_cast<const float*>(nvec),     \
-        static_cast<int>(heads), static_cast<int>(nv),                      \
-        static_cast<int>(vph), static_cast<int>(lpe), isd,                  \
-        static_cast<float4*>(dz), static_cast<int*>(counter));              \
-    return cudaGetLastError();                                              \
-  }
-#define DGL_DZ_CASE(C)                                                      \
-  case C:                                                                   \
-    if (one) DGL_DZ_LIST(C, true)                                           \
-    DGL_DZ_LIST(C, false)
-  switch (cpl) {
-    DGL_DZ_CASE(1)
-    DGL_DZ_CASE(2)
-    DGL_DZ_CASE(3)
-    DGL_DZ_CASE(4)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DGL_DZ_CASE
-#undef DGL_DZ_LIST
+  return launch_list_walk(dz_walk(cpl, heads == 1), packed_rev, k32, order,
+                          rows, num_dst, q, z, g, nvec, heads, dp, lpe, cpl,
+                          isd, dz, counter, device, stream);
+}
+
+// dq by the listed walk by dst: dq (rows of packed, H, dp) f32, every row
+// of `order` written (a row with no set bit gives 0), from packed (n32
+// words a row; bit b of word j <-> src b * n32 + j, bits at or past
+// num_src skipped), order (rows,) int32, the dst rows in the order warps
+// claim them (each once), q, g (rows of the dst) and z (num_src rows), and
+// nvec (rows of the dst, 2, H) = [linv, rho]; the layout and the rest as
+// dgl_bitdot_bwd_dz_list's.  num_src < 2^31.
+int dgl_bitdot_bwd_dq_list(const void* packed, int64_t n32,
+                           const void* order, int64_t rows, int64_t num_src,
+                           const void* q, const void* z, const void* g,
+                           const void* nvec, int64_t heads, int64_t dp,
+                           int64_t lpe, int64_t cpl, float isd, void* dq,
+                           void* counter, int64_t device, void* stream) {
+  return launch_list_walk(dq_walk(cpl, heads == 1), packed, n32, order,
+                          rows, num_src, q, z, g, nvec, heads, dp, lpe, cpl,
+                          isd, dq, counter, device, stream);
 }
 
 // attrs (three host ints): the registers a thread, the local memory bytes
@@ -566,53 +737,13 @@ int dgl_bitdot_bwd_dz_list(const void* packed_rev, int64_t k32,
 // (cpl, one head).
 int dgl_bitdot_dz_attrs(int64_t cpl, int64_t one_head, int64_t device,
                         void* attrs) {
-  cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  int* out = static_cast<int*>(attrs);
-  cudaFuncAttributes attr;
-#define DGL_DZ_ATTRS(C, O)                                                  \
-  {                                                                         \
-    err = cudaFuncGetAttributes(&attr, bitdot_dz_list_kernel<C, O>);        \
-    if (err != cudaSuccess) return err;                                     \
-    out[0] = attr.numRegs;                                                  \
-    out[1] = static_cast<int>(attr.localSizeBytes);                         \
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
-        out + 2, bitdot_dz_list_kernel<C, O>, kWarps * 32, 0);              \
-  }
-#define DGL_DZ_ATTRS_CASE(C)                                                \
-  case C:                                                                   \
-    if (one_head) DGL_DZ_ATTRS(C, true)                                     \
-    DGL_DZ_ATTRS(C, false)
-  switch (cpl) {
-    DGL_DZ_ATTRS_CASE(1)
-    DGL_DZ_ATTRS_CASE(2)
-    DGL_DZ_ATTRS_CASE(3)
-    DGL_DZ_ATTRS_CASE(4)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DGL_DZ_ATTRS_CASE
-#undef DGL_DZ_ATTRS
+  return list_walk_attrs(dz_walk(cpl, one_head != 0), device, attrs);
 }
 
-// dq over packed (rows = dst, n32 words): dq (num_dst, H, D).
-int dgl_bitdot_bwd_dq(const void* packed, int64_t n32, int64_t num_src,
-                      int64_t num_dst, const void* q, const void* z,
-                      const void* g, const void* nvec, int64_t heads,
-                      int64_t dim, float isd, void* dq, int64_t device,
-                      void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DGL_DQ(C)                                                           \
-  bitdot_dq_kernel<C><<<rows_grid(num_dst), kWarps * 32, 0, st>>>(         \
-      static_cast<const uint32_t*>(packed), n32, num_src, num_dst,          \
-      static_cast<const float*>(q), static_cast<const float*>(z),           \
-      static_cast<const float*>(g), static_cast<const float*>(nvec),        \
-      static_cast<int>(heads), static_cast<int>(dim), isd,                  \
-      static_cast<float*>(dq))
-  DGL_BITDOT_SWITCH(DGL_DQ);
-#undef DGL_DQ
+// The same of the dq walk's instance for (cpl, one head).
+int dgl_bitdot_dq_attrs(int64_t cpl, int64_t one_head, int64_t device,
+                        void* attrs) {
+  return list_walk_attrs(dq_walk(cpl, one_head != 0), device, attrs);
 }
 
 }  // extern "C"

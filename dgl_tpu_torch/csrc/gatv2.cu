@@ -26,10 +26,17 @@
 // den, numerator, ds and dx are K6's and K4's kernels (csrc/gat_fused.cu,
 // csrc/row_agg.cu).
 //
-// Four kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
-// node gradient and da are the walks of csrc/row_agg.cu); each is behind
-// a plain C function that launches on the caller's stream, allocates
-// nothing and returns cudaGetLastError():
+// Three kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
+// node gradient and da, and K11 v2's node gradient, are the walks of
+// csrc/row_agg.cu: K11 v2's node gradient, the dv part of
+// _egatc2_dv_da_kernel :1975 and _egatc2_du_kernel :2024, is its
+// row_fe_grad_kernel; the tiled walk it replaced, vattn_node_grad_kernel,
+// a block per (tile, column chunk, split) adding each slot's dW into
+// shared memory with a float atomicAdd, is built by
+// dgl_tpu_torch/tools/perf_dq_node_grad.py from tools/dq_node_grad_probe.cu
+// and timed beside it); each is behind a plain C function that launches
+// on the caller's stream, allocates nothing and returns
+// cudaGetLastError():
 //
 // vattn_scores_kernel<true>  replaces _egatc2_scores_kernel (:1955,
 //     egatc2_forward :2075), K11 v2's scores.  K9's scores
@@ -85,22 +92,6 @@
 //     (csrc/row_agg.cu row_agg_kernel<VEC, CPL, true, true>);
 //     dgl_tpu_torch/tools/perf_ds_fold.py builds those instances again to
 //     time the two side by side.
-// vattn_node_grad_kernel<G, kSrc, kFe>  replaces, with kFe > 0, the dv
-//     part of _egatc2_dv_da_kernel and, with kSrc, _egatc2_du_kernel
-//     (:2024, egatc2_backward :2196): K11 v2's node gradient.  K6's
-//     src-side aggregation walk (src_agg_kernel): one block per (dst or
-//     src tile, chunk of G columns, split of the tile's buckets); the
-//     tile's (tile, G) sums in shared memory, 128 KB at tile 1024 and G =
-//     32, since a (1024, H * D) tile does not fit the 227 KB of an SM at
-//     H * D = 64.  G lanes per slot recompute raw and dW for their column
-//     and add dW at the slot's row with a float shared atomicAdd (a
-//     compare-and-swap loop on this card); nothing (B, C, H * D)-sized is
-//     stored.  K9's node gradient (the dv part of _gatv2_dv_da_kernel,
-//     _gatv2_du_kernel :731) left it for the row walk (csrc/row_agg.cu
-//     row_agg_kernel<VEC, CPL, true>); dgl_tpu_torch/tools/
-//     perf_bwd_walks.py builds the kFe = 0 instances it ran on to time
-//     the two side by side.
-//
 // EGATConv v1 (K11 v1, gat_fused.py:946-1261) stores its edge term FE per
 // slot, (B * C, H * D) of type T (float or __nv_bfloat16), instead of
 // forming it from ef and wf (kStore, read and written at 64-bit offsets:
@@ -157,7 +148,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kClip = 40.f;     // gat_fused.py CLIP
 constexpr int kWarps = 8;         // warps per scores / slot-grad block
 constexpr int kUnroll = 4;        // scores: slots in flight per warp
-constexpr int kNodeWarps = 16;    // warps per node-grad block
 
 __device__ __forceinline__ float lrelu(float x, float slope) {
   return x >= 0.f ? x : slope * x;
@@ -891,104 +881,6 @@ __global__ void vattn_grad_finish_kernel(const float* __restrict__ part,
   }
 }
 
-template <int G, bool kSrc, int kFe>
-__global__ void __launch_bounds__(kNodeWarps * 32)
-vattn_node_grad_kernel(const int* __restrict__ src_local,
-                       const int* __restrict__ dst_local,
-                       const float* __restrict__ valid,
-                       const int* __restrict__ src_tile,
-                       const int* __restrict__ dst_tile,
-                       const int* __restrict__ order,
-                       const int* __restrict__ ptr, int tile, int cap,
-                       const float* __restrict__ u,
-                       const float* __restrict__ v,
-                       const float* __restrict__ attn,
-                       const float* __restrict__ ds,
-                       const float* __restrict__ ef,
-                       const float* __restrict__ wf, int fe, int has_bias,
-                       int heads, int dim, float slope,
-                       float* __restrict__ out, int num_rows, int splits) {
-  constexpr bool kEdge = kFe > 0;
-  constexpr int kF = kEdge ? kFe : 1;
-  constexpr int kSlots = 32 / G;  // slots a warp serves per step
-  extern __shared__ float acc[];  // [tile][G]
-  const int hd = heads * dim;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = lane / G;
-  const int gcol = lane % G;
-  const int t = blockIdx.x;
-  const int col = blockIdx.y * G + gcol;
-  const bool col_ok = col < hd;
-  for (int i = threadIdx.x; i < tile * G; i += blockDim.x) acc[i] = 0.f;
-  const int h = col_ok ? col / dim : 0;
-  const float a_c = col_ok ? attn[col] : 0.f;
-  float wf_r[kF];   // this lane's column of wf
-  float bias_c = 0.f;
-#pragma unroll
-  for (int r = 0; r < kF; ++r) {
-    wf_r[r] = (kEdge && col_ok && r < fe) ? wf[r * hd + col] : 0.f;
-  }
-  if (kEdge && col_ok && has_bias) bias_c = wf[fe * hd + col];
-  __syncthreads();
-
-  const int k_lo = ptr[t];
-  const int nb = ptr[t + 1] - k_lo;
-  const int k0 = k_lo + static_cast<int>(
-      static_cast<long long>(nb) * blockIdx.z / splits);
-  const int k1 = k_lo + static_cast<int>(
-      static_cast<long long>(nb) * (blockIdx.z + 1) / splits);
-  const int per_bucket = cap / 32;
-  const int n_chunks = (k1 - k0) * per_bucket;
-  for (int k = warp; k < n_chunks; k += kNodeWarps) {
-    const int kb = k0 + k / per_bucket;
-    const int b = kSrc ? order[kb] : kb;
-    const int c0 = (k % per_bucket) * 32;
-    const int s0 = b * cap + c0;
-    const float vld = valid[s0 + lane];
-    if (__ballot_sync(kFull, vld != 0.f) == 0u) continue;  // padded tail
-    const int sl = src_local[s0 + lane];
-    const int dl = dst_local[s0 + lane];
-    const float* ut = u + static_cast<long long>(src_tile[b]) * tile * hd
-                      + col;
-    const float* vt = v + static_cast<long long>(dst_tile[b]) * tile * hd
-                      + col;
-    const float* dsb = ds + b * heads * cap + h * cap + c0;
-#pragma unroll 4
-    for (int i = 0; i < G; ++i) {
-      const int j = i * kSlots + sub;  // the chunk's slot at step i
-      const int slj = __shfl_sync(kFull, sl, j);
-      const int dlj = __shfl_sync(kFull, dl, j);
-      const bool live = __shfl_sync(kFull, vld, j) != 0.f && col_ok;
-      if (!live) continue;
-      float raw = __ldg(ut + slj * hd) + __ldg(vt + dlj * hd);
-      if (kEdge) {
-        const float* e = ef + static_cast<long long>(s0 + j) * fe;
-        raw += bias_c;
-#pragma unroll
-        for (int r = 0; r < kF; ++r) {
-          if (r < fe) raw += __ldg(e + r) * wf_r[r];
-        }
-      }
-      const float dw = __ldg(dsb + j) * a_c * (raw >= 0.f ? 1.f : slope);
-      atomicAdd(acc + (kSrc ? slj : dlj) * G + gcol, dw);
-    }
-  }
-  __syncthreads();
-
-  const int r0 = t * tile;
-  for (int i = threadIdx.x; i < tile * G; i += blockDim.x) {
-    const int row = r0 + i / G;
-    const int c = blockIdx.y * G + i % G;
-    if (row >= num_rows || c >= hd) continue;
-    if (splits == 1) {
-      out[static_cast<long long>(row) * hd + c] = acc[i];
-    } else if (acc[i] != 0.f) {
-      atomicAdd(out + static_cast<long long>(row) * hd + c, acc[i]);
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
@@ -1031,75 +923,6 @@ cudaError_t launch_slot_grad(Slots sl, int num_buckets, int tile, int cap,
       lanes, op.slope, da, static_cast<const T*>(fe_s),
       static_cast<T*>(dfe_s));
   return cudaGetLastError();
-}
-
-template <int G, bool kSrc, int kFe>
-cudaError_t launch_node_grad(Slots sl, const int* order, const int* ptr,
-                             int num_tiles, int tile, int cap, Operands op,
-                             const float* ds, int has_bias, float* out,
-                             int num_rows, int splits, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tile * G;
-  const cudaError_t err = allow_smem(vattn_node_grad_kernel<G, kSrc, kFe>,
-                                     smem);
-  if (err != cudaSuccess) return err;
-  const int hd = op.heads * op.dim;
-  const dim3 grid(static_cast<unsigned>(num_tiles),
-                  static_cast<unsigned>((hd + G - 1) / G),
-                  static_cast<unsigned>(splits));
-  vattn_node_grad_kernel<G, kSrc, kFe><<<grid, kNodeWarps * 32, smem,
-                                         stream>>>(
-      sl.src_local, sl.dst_local, sl.valid, sl.src_tile, sl.dst_tile, order,
-      ptr, tile, cap, op.u, op.v, op.attn, ds, op.ef, op.wf, op.fe, has_bias,
-      op.heads, op.dim, op.slope, out, num_rows, splits);
-  return cudaGetLastError();
-}
-
-template <int G, bool kSrc>
-cudaError_t node_grad_fe(int fe_cap, Slots sl, const int* order,
-                         const int* ptr, int num_tiles, int tile, int cap,
-                         Operands op, const float* ds, int has_bias,
-                         float* out, int num_rows, int splits,
-                         cudaStream_t stream) {
-  switch (fe_cap) {
-    case 8:
-      return launch_node_grad<G, kSrc, 8>(sl, order, ptr, num_tiles, tile,
-                                          cap, op, ds, has_bias, out,
-                                          num_rows, splits, stream);
-    case 16:
-      return launch_node_grad<G, kSrc, 16>(sl, order, ptr, num_tiles, tile,
-                                           cap, op, ds, has_bias, out,
-                                           num_rows, splits, stream);
-    case 32:
-      return launch_node_grad<G, kSrc, 32>(sl, order, ptr, num_tiles, tile,
-                                           cap, op, ds, has_bias, out,
-                                           num_rows, splits, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <bool kSrc>
-cudaError_t node_grad_group(int group, int fe_cap, Slots sl,
-                            const int* order, const int* ptr, int num_tiles,
-                            int tile, int cap, Operands op, const float* ds,
-                            int has_bias, float* out, int num_rows,
-                            int splits, cudaStream_t stream) {
-  switch (group) {
-    case 8:
-      return node_grad_fe<8, kSrc>(fe_cap, sl, order, ptr, num_tiles, tile,
-                                   cap, op, ds, has_bias, out, num_rows,
-                                   splits, stream);
-    case 16:
-      return node_grad_fe<16, kSrc>(fe_cap, sl, order, ptr, num_tiles, tile,
-                                    cap, op, ds, has_bias, out, num_rows,
-                                    splits, stream);
-    case 32:
-      return node_grad_fe<32, kSrc>(fe_cap, sl, order, ptr, num_tiles, tile,
-                                    cap, op, ds, has_bias, out, num_rows,
-                                    splits, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 Slots slots(const void* src_local, const void* dst_local, const void* valid,
@@ -1364,50 +1187,6 @@ int dgl_vattn_slot_grad_mma_attrs(int64_t fe, int64_t with_def,
   return with_def
              ? kernel_regs(vattn_slot_grad_mma_kernel<2, true>, smem, w, out)
              : kernel_regs(vattn_slot_grad_mma_kernel<2, false>, smem, w, out);
-}
-
-// out (num_rows, heads * dim): the sum of dW over the valid slots of each
-// dst row (src_side = 0: ptr is dst_ptr, order unused) or src row
-// (src_side = 1: order is src_order, ptr is src_ptr), with the edge term
-// from ef (num_buckets * cap, fe) and wf (fe + has_bias, heads * dim),
-// fe_cap 8, 16 or 32 >= fe (K11 v2; K9's node gradient, with no edge
-// term, is csrc/row_agg.cu's).  group (8, 16 or 32) is G; with splits > 1,
-// out must be zeroed by the caller.  Grid: (num_tiles, ceil(heads * dim /
-// G), splits).
-int dgl_vattn_node_grad(const void* src_local, const void* dst_local,
-                        const void* valid, const void* src_tile,
-                        const void* dst_tile, const void* order,
-                        const void* ptr, int64_t num_tiles, int64_t tile,
-                        int64_t cap, const void* u, const void* v,
-                        const void* attn, const void* ds, const void* ef,
-                        const void* wf, int64_t fe, int64_t has_bias,
-                        int64_t fe_cap, int64_t heads, int64_t dim,
-                        double slope, void* out, int64_t num_rows,
-                        int64_t group, int64_t splits, int64_t src_side,
-                        int64_t device, void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Slots sl = slots(src_local, dst_local, valid, src_tile, dst_tile);
-  const Operands op = operands(u, v, attn, ef, wf, fe, fe + has_bias, heads,
-                               dim, slope);
-  const int cap_fe = ef == nullptr ? 0 : static_cast<int>(fe_cap);
-  if (src_side != 0) {
-    return node_grad_group<true>(
-        static_cast<int>(group), cap_fe, sl, static_cast<const int*>(order),
-        static_cast<const int*>(ptr), static_cast<int>(num_tiles),
-        static_cast<int>(tile), static_cast<int>(cap), op,
-        static_cast<const float*>(ds), static_cast<int>(has_bias),
-        static_cast<float*>(out), static_cast<int>(num_rows),
-        static_cast<int>(splits), s);
-  }
-  return node_grad_group<false>(
-      static_cast<int>(group), cap_fe, sl, static_cast<const int*>(order),
-      static_cast<const int*>(ptr), static_cast<int>(num_tiles),
-      static_cast<int>(tile), static_cast<int>(cap), op,
-      static_cast<const float*>(ds), static_cast<int>(has_bias),
-      static_cast<float*>(out), static_cast<int>(num_rows),
-      static_cast<int>(splits), s);
 }
 
 }  // extern "C"

@@ -37,12 +37,29 @@
 // loads, 41 columns padded to 44), each slot's weight is its ds, and attn
 // scales the sums once at the end; no atomics and no split row, so each
 // sum is taken in slot order, the same bits every run.  The tiled walk it
-// replaced (csrc/gatv2.cu vattn_node_grad_kernel, still K11 v2's) added
-// every slot's dW into shared memory with a float atomicAdd, a
-// compare-and-swap loop on this card, and walked every slot once per
-// column chunk.  Bound: the view, 4H B an edge of ds (slot-major, as K6's
-// ds writes it for both sides), the rows' own operand and the neighbours'
-// once, out once.
+// replaced (vattn_node_grad_kernel, once csrc/gatv2.cu's, now built by
+// dgl_tpu_torch/tools/perf_dq_node_grad.py from
+// tools/dq_node_grad_probe.cu) added every slot's dW into shared memory
+// with a float atomicAdd, a compare-and-swap loop on this card, and
+// walked every slot once per column chunk.  Bound: the view, 4H B an edge
+// of ds (slot-major, as K6's ds writes it for both sides), the rows' own
+// operand and the neighbours' once, out once.
+// row_fe_grad_kernel<VEC, CPL, KF> is the same node-gradient walk with
+// K11 v2's edge term, raw = own + y[nbr] + fe, fe = ef[slot] . wf[:fe] (+
+// the bias row), formed per entry and never stored.  It replaces the dv
+// part of gat_fused.py _egatc2_dv_da_kernel :1975 (egatc2_backward :2167)
+// and _egatc2_du_kernel :2024 (:2196), which the tiled walk served too.
+// A lane holds its columns of wf (KF rows: 8, 16 or 32, at most 4 columns
+// a lane, so 128 registers at most) and of the bias in registers; each
+// step of FeUnroll entries copies their edge-feature rows (ef in slot
+// order, (B, C, Fe) padded to whole 16-byte vectors, read at the view's
+// slot) into the group's shared memory with cp.async, beside the weights
+// and gathers, and every lane reads an entry's features there at one
+// address across the group.  fe costs 2 Fe operations an entry and column
+// (with the bias row, 2 x 17 at EGAT's 16 features): on the f32 pipes
+// that arithmetic is the kernel's bound (operations), where the walk
+// without it is bound by its gathers.  Sums in slot order, no atomics, the
+// same bits every run.
 // row_agg_kernel<VEC, CPL, true, true>, the walk by dst with da folded
 // in, replaces _gatv2_dv_da_kernel :689 whole, dv and da together, as
 // the JAX kernel computes them:
@@ -577,6 +594,223 @@ row_agg_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
       }
     }
     if (grp == 0) flush_da<VEC, CPL>(da, da_sums, da_chunk, lpr, li, nv);
+  }
+}
+
+// K11 v2's node gradient (the edge term): the fewest lanes a row, so that a
+// warp's groups hold at most kFeGroups rows' edge features in shared memory
+// at once, and the entries a group keeps in flight: 4, or 2 where a lane's
+// columns of wf (VEC CPL KF registers) and the entries' operands (CPL (VEC
+// + 1) each) take more.  At (4, 32) with 16 features 4 entries ran faster
+// than 2 on an H100 but ptxas kept them in 128 registers with 16 bytes of
+// local memory a thread (dgl_tpu_torch/tools/perf_dq_node_grad.py, PERF.md)
+#define DGL_FE_UNROLL(VEC, CPL, KF) \
+  ((VEC) * (CPL) * (KF) + 4 * (CPL) * ((VEC) + 1) <= 60 ? 4 : 2)
+constexpr int kFeMinLanes = 8;
+constexpr int kFeGroups = 32 / kFeMinLanes;
+template <int VEC, int CPL, int KF>
+struct FeUnroll {
+  static constexpr int value = DGL_FE_UNROLL(VEC, CPL, KF);
+};
+
+__device__ __forceinline__ float add_vec(float a, float b) { return a + b; }
+__device__ __forceinline__ float2 add_vec(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float4 add_vec(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// element i of a vector (i known at compile time after unrolling)
+__device__ __forceinline__ float elem(float v, int) { return v; }
+__device__ __forceinline__ float elem(float2 v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ float elem(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 16 bytes from device memory into shared memory, not through L1 or the
+// registers, and the wait for this thread's copies
+__device__ __forceinline__ void cp_async16(float4* smem, const float4* g) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(g)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// K11 v2's node gradient by the row walk, the edge term formed per entry:
+// out[r, j] = attn[j] * the sum over row r's entries k (slot s, neighbour
+// n) of w[s, head(j)] * (raw >= 0 ? 1 : slope), raw = (own[r, j] +
+// bias[j]) + y[n, j] + sum_i ef[s, i] wf[i, j], in entry order.  The row
+// walk's lanes (a group of lpr lanes a row, VEC floats a load, CPL vectors
+// a lane, at most 4 columns a lane); the lane holds its columns of wf (KF
+// rows, zero past fe) in registers, reloaded only where its column chunk
+// changes, and adds the bias row to the row's own operand once.  A step of U entries: the group copies their
+// edge features (fq 16-byte vectors a row of ef, in slot order) into its
+// part of the warp's shared memory with cp.async, and each lane reads its
+// own head's weight and gathers its vectors of y[n], all before the
+// arithmetic; each lane then reads an entry's features from shared memory
+// (one address across the group) and forms fe for its columns.
+template <int VEC, int CPL, int KF>
+__global__ void __launch_bounds__(kWarps * 32)
+row_fe_grad_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
+                   const int* __restrict__ nbr, const int* __restrict__ order,
+                   int rows, const float* __restrict__ w, int cap, int w_bs,
+                   int w_hs, int w_cs, int head_cols,
+                   const float* __restrict__ y, int f, int lpr,
+                   int n_chunks, float* __restrict__ out,
+                   int* __restrict__ counter, const float* __restrict__ own,
+                   const float* __restrict__ attn, float slope,
+                   const float4* __restrict__ ef, int fq,
+                   const float* __restrict__ wf, int fe,
+                   const float* __restrict__ bias) {
+  using V = typename Vec<VEC>::T;
+  constexpr int U = FeUnroll<VEC, CPL, KF>::value;
+  constexpr int KQ = KF / 4;     // 16-byte vectors of an entry's features
+  constexpr int NC = VEC * CPL;  // the lane's columns
+  static_assert(NC <= 4, "wf's columns in registers: at most 4 a lane");
+  __shared__ float4 efs[kWarps][kFeGroups * U * KQ];
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lpr;  // rows a warp takes at once
+  const int grp = lane / lpr;
+  const int li = lane - grp * lpr;
+  const unsigned gmask =
+      lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
+  float4* es = efs[threadIdx.x >> 5] + grp * U * KQ;  // the group's part
+  const int nv = f / VEC;  // column vectors a row
+  const int n_items = rows * n_chunks;
+  float wfr[NC][KF];  // the lane's columns of wf, by feature
+  int wf_chunk = -1;  // the chunk they belong to
+
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, groups);
+    base = __shfl_sync(kFull, base, 0);
+    if (base >= n_items) break;
+    const int item = base + grp;
+    const bool has = item < n_items;
+    const int r = has ? order[item / n_chunks] : 0;
+    const int chunk = has ? item - (item / n_chunks) * n_chunks : 0;
+    int cv[CPL];    // this lane's column vectors
+    bool ok[CPL];
+    int hq[CPL];    // and their heads
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      cv[q] = (chunk * CPL + q) * lpr + li;
+      ok[q] = has && cv[q] < nv;
+      hq[q] = ok[q] ? cv[q] * VEC / head_cols : 0;
+    }
+    if (chunk != wf_chunk) {
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const bool col_ok = cv[q] < nv;
+          const int col = cv[q] * VEC + i;
+#pragma unroll
+          for (int k = 0; k < KF; ++k)
+            wfr[q * VEC + i][k] =
+                col_ok && k < fe ? __ldg(wf + k * f + col) : 0.f;
+        }
+      }
+      wf_chunk = chunk;
+    }
+    float acc[CPL][VEC];
+    V oq[CPL];  // the row's own operand, the bias row added
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+      oq[q] = ok[q] ? __ldg(reinterpret_cast<const V*>(own + r * f) + cv[q])
+                    : zero_vec<V>();
+      if (ok[q] && bias != nullptr)
+        oq[q] = add_vec(oq[q],
+                        __ldg(reinterpret_cast<const V*>(bias) + cv[q]));
+    }
+
+    const int p_lo = has ? ptr[r] : 0;
+    const int p_hi = has ? ptr[r + 1] : p_lo;
+    for (int pb = p_lo; pb < p_hi; pb += lpr) {  // uniform in the group
+      const int n = min(lpr, p_hi - pb);
+      // this lane's entry: its neighbour, slot and weight offset
+      int my_nbr = 0, my_slot = 0, my_wb = 0;
+      if (li < n) {
+        my_nbr = nbr[pb + li];
+        my_slot = slot[pb + li];
+        const int b = my_slot / cap;
+        my_wb = b * w_bs + (my_slot - b * cap) * w_cs;
+      }
+      for (int u0 = 0; u0 < n; u0 += U) {
+        // the edge features of entries u0 .. u0 + U - 1: vector j of
+        // entry u at es[u * KQ + j]
+        for (int k0 = 0; k0 < U * KQ; k0 += lpr) {  // uniform in the group
+          const int k = k0 + li;
+          const int u = k / KQ;
+          const int j = k - u * KQ;
+          const int s = __shfl_sync(gmask, my_slot, u0 + u, lpr);
+          if (k < U * KQ && u0 + u < n && j < fq)
+            cp_async16(es + k, ef + static_cast<long long>(s) * fq + j);
+        }
+        float wq[U][CPL];
+        V xv[U][CPL];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const bool live = u0 + u < n;
+          const int wb = __shfl_sync(gmask, my_wb, u0 + u, lpr);
+          const V* yr = reinterpret_cast<const V*>(
+              y + __shfl_sync(gmask, my_nbr, u0 + u, lpr) * f);
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            const bool on = live && ok[q];
+            wq[u][q] = on ? __ldg(w + wb + hq[q] * w_hs) : 0.f;
+            xv[u][q] = on ? __ldg(yr + cv[q]) : zero_vec<V>();
+          }
+        }
+        cp_async_wait_all();
+        __syncwarp(gmask);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (u0 + u >= n) break;  // uniform in the group
+          float fv[NC];  // fe of the lane's columns
+#pragma unroll
+          for (int c = 0; c < NC; ++c) fv[c] = 0.f;
+#pragma unroll
+          for (int j = 0; j < KQ; ++j) {
+            if (j >= fq) break;  // uniform
+            const float4 e = es[u * KQ + j];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              fv[c] = fmaf(e.x, wfr[c][4 * j], fv[c]);
+              fv[c] = fmaf(e.y, wfr[c][4 * j + 1], fv[c]);
+              fv[c] = fmaf(e.z, wfr[c][4 * j + 2], fv[c]);
+              fv[c] = fmaf(e.w, wfr[c][4 * j + 3], fv[c]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              const float raw = (elem(oq[q], i) + elem(xv[u][q], i)) +
+                                fv[q * VEC + i];
+              acc[q][i] = fmaf(wq[u][q], raw >= 0.f ? 1.f : slope,
+                               acc[q][i]);
+            }
+          }
+        }
+        __syncwarp(gmask);  // the group's reads before the next copies
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      if (!ok[q]) continue;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[q][i] *= __ldg(attn + cv[q] * VEC + i);
+      store_vec(out + r * f + cv[q] * VEC, acc[q], Vec<VEC>());
+    }
   }
 }
 
@@ -1240,6 +1474,38 @@ cudaError_t row_reduce_attrs(int* regs, int* local_bytes) {
   return cudaSuccess;
 }
 
+// K11 v2's node-gradient walk: one argument list for every instance
+typedef void (*FeGrad)(const int*, const int*, const int*, const int*, int,
+                       const float*, int, int, int, int, int, const float*,
+                       int, int, int, float*, int*, const float*,
+                       const float*, float, const float4*, int, const float*,
+                       int, const float*);
+
+// the instance for (vec, cpl, kf): at most 4 columns a lane; null where
+// there is none
+template <int KF>
+FeGrad fe_grad_kf(int64_t vec, int64_t cpl) {
+  if (vec == 4 && cpl == 1) return &row_fe_grad_kernel<4, 1, KF>;
+  if (vec == 2 && cpl == 1) return &row_fe_grad_kernel<2, 1, KF>;
+  if (vec == 2 && cpl == 2) return &row_fe_grad_kernel<2, 2, KF>;
+  if (vec == 1 && cpl == 1) return &row_fe_grad_kernel<1, 1, KF>;
+  if (vec == 1 && cpl == 2) return &row_fe_grad_kernel<1, 2, KF>;
+  if (vec == 1 && cpl == 4) return &row_fe_grad_kernel<1, 4, KF>;
+  return nullptr;
+}
+FeGrad fe_grad_instance(int64_t vec, int64_t cpl, int64_t kf) {
+  switch (kf) {
+    case 8:
+      return fe_grad_kf<8>(vec, cpl);
+    case 16:
+      return fe_grad_kf<16>(vec, cpl);
+    case 32:
+      return fe_grad_kf<32>(vec, cpl);
+    default:
+      return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1311,6 +1577,70 @@ int dgl_row_node_grad_attrs(int64_t vec, int64_t cpl, int64_t fold,
   DGL_ATTRS_CASE(4, 4)
 #undef DGL_ATTRS_CASE
   return cudaErrorInvalidValue;
+}
+
+// K11 v2's node gradient by the same walk, the edge term formed per
+// entry: out (rows, f), every element written, out[r, j] = attn[j] * the
+// sum over the slots k of row r of w[...] * (raw >= 0 ? 1 : slope), raw =
+// (own[r, j] + bias[j]) + y[nbr[k], j] + sum_{i < fe} ef[slot[k], i] wf[i,
+// j], in slot order; ef (slots, fq * 4) f32 in slot order, 16-byte
+// aligned, zero past fe; wf (fe, f) f32; bias (f,) f32 aligned as own, or
+// null; kf (8, 16 or 32) at least fq * 4; lpr at least 8; vec * cpl at
+// most 4; the rest as dgl_row_node_grad's without da.
+int dgl_row_fe_grad(const void* ptr, const void* slot, const void* nbr,
+                    const void* order, int64_t rows, const void* w,
+                    int64_t cap, int64_t w_bs, int64_t w_hs, int64_t w_cs,
+                    int64_t head_cols, const void* y, int64_t f, void* out,
+                    void* counter, int64_t vec, int64_t cpl, int64_t lpr,
+                    int64_t n_chunks, const void* own, const void* attn,
+                    float slope, const void* ef, int64_t fq, const void* wf,
+                    int64_t fe, const void* bias, int64_t kf,
+                    int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const FeGrad kernel = fe_grad_instance(vec, cpl, kf);
+  if (kernel == nullptr || lpr < kFeMinLanes || lpr > 32 ||
+      (lpr & (lpr - 1)) != 0 || head_cols % vec != 0 || cap < 1 ||
+      fq < 0 || fq * 4 > kf || fe > fq * 4 || n_chunks < 1 ||
+      reinterpret_cast<uintptr_t>(ef) % 16 != 0)
+    return cudaErrorInvalidValue;
+  unsigned blocks = 0;
+  err = persistent_blocks(
+      kernel, kWarps * 32,
+      ((rows * n_chunks * lpr + 31) / 32 + kWarps - 1) / kWarps, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(slot),
+      static_cast<const int*>(nbr), static_cast<const int*>(order),
+      static_cast<int>(rows), static_cast<const float*>(w),
+      static_cast<int>(cap), static_cast<int>(w_bs), static_cast<int>(w_hs),
+      static_cast<int>(w_cs), static_cast<int>(head_cols),
+      static_cast<const float*>(y), static_cast<int>(f),
+      static_cast<int>(lpr), static_cast<int>(n_chunks),
+      static_cast<float*>(out), static_cast<int*>(counter),
+      static_cast<const float*>(own), static_cast<const float*>(attn), slope,
+      static_cast<const float4*>(ef), static_cast<int>(fq),
+      static_cast<const float*>(wf), static_cast<int>(fe),
+      static_cast<const float*>(bias));
+  return cudaGetLastError();
+}
+
+// registers a thread, local-memory bytes a thread and resident blocks an
+// SM of the instance at (vec, cpl, kf): three ints.
+int dgl_row_fe_grad_attrs(int64_t vec, int64_t cpl, int64_t kf,
+                          int64_t device, void* attrs) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const FeGrad kernel = fe_grad_instance(vec, cpl, kf);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int* o = static_cast<int*>(attrs);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  o[0] = attr.numRegs;
+  o[1] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(o + 2, kernel,
+                                                       kWarps * 32, 0);
 }
 
 // K4's SDDMM by dst rows, one launch of the wrapper's plan: for every

@@ -28,7 +28,10 @@ beside it that computes the same function from the same inputs:
   src), by the listed walk by src (``bitdot_dz_list_kernel``: K5's
   backward's walk, its rows claimed in ``bitgat.bwd_claim_order``, a group
   of lanes an entry at :func:`dz_layout`, K5's layout);
-* :func:`bitdot_bwd_dq` (``_bwdB_call``): dq from ``packed``.
+* :func:`bitdot_bwd_dq` (``_bwdB_call``): dq from ``packed`` (rows =
+  dst), by the listed walk by dst (``bitdot_dq_list_kernel``: the dz
+  walk's lanes and layout over the other packing, its rows claimed in
+  ``bitgat.fwd_claim_order``).
 
 The plain versions list the set bits of a block of rows as edges
 (``bitgat.bit_edges``, ``bitgat.PLAIN_WORDS`` words at a time, so no call
@@ -47,7 +50,8 @@ import torch
 
 from . import build
 from .bitgat import (DEN_EPS, _pad_heads, backward_scales, bit_edges,
-                     bwd_claim_order, claim_order, list_layout)
+                     bwd_claim_order, claim_order, fwd_claim_order,
+                     list_layout)
 from .bitmm import BitFormat
 from .dispatch import on_cuda
 
@@ -122,9 +126,10 @@ _SIGNATURES = {
     "dgl_bitdot_fwd": [_P, _I, _I, _I, _P, _P, _I, _I, _F, _P, _P, _I, _P],
     "dgl_bitdot_bwd_dz_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                                _I, _I, _F, _P, _P, _I, _P],
-    "dgl_bitdot_bwd_dq": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _P,
-                          _I, _P],
+    "dgl_bitdot_bwd_dq_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _F, _P, _P, _I, _P],
     "dgl_bitdot_dz_attrs": [_I, _I, _I, _P],
+    "dgl_bitdot_dq_attrs": [_I, _I, _I, _P],
 }
 
 
@@ -195,14 +200,26 @@ def _nvec(linv, rho):
 
 
 def dz_layout(heads: int, dim: int, lanes=None):
-    """(dp, lpe, cpl) of the dz walk: ``bitgat.list_layout``'s (heads padded
-    to whole 16-byte vectors, a power of two of them a head where H > 1;
-    lanes an entry leaving a lane at most 4 vectors with one head, 2 with
-    several), or at ``lanes`` lanes an entry where given."""
+    """(dp, lpe, cpl) of the dz and dq walks: ``bitgat.list_layout``'s
+    (heads padded to whole 16-byte vectors, a power of two of them a head
+    where H > 1; lanes an entry leaving a lane at most 4 vectors with one
+    head, 2 with several), or at ``lanes`` lanes an entry where given."""
     if lanes is None:
         return list_layout(heads, dim)
     dp = list_layout(heads, dim)[0]
     return dp, lanes, -(-(heads * dp // 4) // lanes)
+
+
+def _walk_attrs(fn: str, heads: int, dim: int, lanes, device):
+    cpl = dz_layout(heads, dim, lanes)[2]
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("bitdot", _SIGNATURES)
+    err = getattr(lib, fn)(cpl, int(heads == 1), device.index or 0,
+                           ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err}")
+    return out[0], out[1], out[2] * 8
 
 
 def dz_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
@@ -210,15 +227,47 @@ def dz_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
     SM) of the dz walk's instance for ``heads`` x ``dim`` (at ``lanes``
     lanes an entry where given), from ``cudaFuncGetAttributes`` and the
     occupancy calculator."""
-    cpl = dz_layout(heads, dim, lanes)[2]
-    device = torch.device("cuda") if device is None else torch.device(device)
-    out = (ctypes.c_int * 3)()
-    lib = build.load("bitdot", _SIGNATURES)
-    err = lib.dgl_bitdot_dz_attrs(cpl, int(heads == 1), device.index or 0,
-                                  ctypes.addressof(out))
+    return _walk_attrs("dgl_bitdot_dz_attrs", heads, dim, lanes, device)
+
+
+def dq_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
+    """The same of the dq walk's instance."""
+    return _walk_attrs("dgl_bitdot_dq_attrs", heads, dim, lanes, device)
+
+
+def _launch_walk(fn, what, packed, q, z, g, linv, rho, isd: float, rows,
+                 num_cols, order, layout):
+    """One listed walk over the first ``rows`` rows of ``packed``, the
+    entries its bit columns below ``num_cols``: (rows, H, D) f32.  The
+    two walks take one argument list (q, z, g and nvec as the formulas
+    name them, whichever side the rows are)."""
+    heads, dim = z.shape[1:]
+    dev = z.device
+    if rows == 0 or heads * dim == 0:
+        return torch.zeros(rows, heads, dim, dtype=torch.float32, device=dev)
+    if rows >= 2**31 or num_cols >= 2**31:
+        raise ValueError("the listed walk takes fewer than 2^31 nodes")
+    if order is None:
+        order = claim_order(packed, rows)
+    if order.shape != (rows,) or order.dtype != torch.int32:
+        raise ValueError(f"order must be ({rows},) int32")
+    dp, lpe, cpl = dz_layout(heads, dim) if layout is None else layout
+    qp, zp, gp = (_pad_heads(t, dp) for t in (q, z, g))
+    nvec = _nvec(linv, rho)
+    packed = packed.contiguous()
+    out = torch.empty(rows, heads, dp, dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    if not callable(fn):
+        fn = getattr(build.load("bitdot", _SIGNATURES), fn)
+    err = fn(packed.data_ptr(), packed.shape[1], order.data_ptr(), rows,
+             num_cols, qp.data_ptr(), zp.data_ptr(), gp.data_ptr(),
+             nvec.data_ptr(), heads, dp, lpe, cpl, isd, out.data_ptr(),
+             counter.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dgl_bitdot_dz_attrs: CUDA error {err}")
-    return out[0], out[1], out[2] * 8
+        raise RuntimeError(f"the {what} walk failed to launch: CUDA error "
+                           f"{err}")
+    return out if dp == dim else out[..., :dim].contiguous()
 
 
 def launch_dz(packed_rev, q, z, g, linv, rho, isd: float, order=None,
@@ -229,33 +278,21 @@ def launch_dz(packed_rev, q, z, g, linv, rho, isd: float, order=None,
     when None); ``layout``: (dp, lpe, cpl), :func:`dz_layout` when None;
     ``fn``: the C function, the package's ``dgl_bitdot_bwd_dz_list`` when
     None (a probe passes an edit's)."""
-    num_src, heads, dim = z.shape
-    num_dst = q.shape[0]
-    dev = z.device
-    if num_src == 0 or heads * dim == 0:
-        return torch.zeros(z.shape, dtype=torch.float32, device=dev)
-    if num_dst >= 2**31 or num_src >= 2**31:
-        raise ValueError("the listed walk takes fewer than 2^31 nodes")
-    if order is None:
-        order = claim_order(packed_rev, num_src)
-    if order.shape != (num_src,) or order.dtype != torch.int32:
-        raise ValueError(f"order must be ({num_src},) int32")
-    dp, lpe, cpl = dz_layout(heads, dim) if layout is None else layout
-    qp, zp, gp = (_pad_heads(t, dp) for t in (q, z, g))
-    nvec = _nvec(linv, rho)
-    packed_rev = packed_rev.contiguous()
-    dz = torch.empty(num_src, heads, dp, dtype=torch.float32, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    if fn is None:
-        fn = build.load("bitdot", _SIGNATURES).dgl_bitdot_bwd_dz_list
-    err = fn(packed_rev.data_ptr(), packed_rev.shape[1], order.data_ptr(),
-             num_src, num_dst, qp.data_ptr(), zp.data_ptr(), gp.data_ptr(),
-             nvec.data_ptr(), heads, dp, lpe, cpl, isd, dz.data_ptr(),
-             counter.data_ptr(), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the dz walk failed to launch: CUDA error {err}")
-    return dz if dp == dim else dz[..., :dim].contiguous()
+    return _launch_walk(fn or "dgl_bitdot_bwd_dz_list", "dz", packed_rev, q,
+                        z, g, linv, rho, isd, z.shape[0], q.shape[0], order,
+                        layout)
+
+
+def launch_dq(packed, q, z, g, linv, rho, isd: float, order=None,
+              layout=None, fn=None):
+    """Launch K7's dq kernel, the listed walk by dst, on CUDA operands: dq
+    (N_dst, H, D) f32.  ``order``: the dst rows' claim order
+    (``bitgat.claim_order`` of the packing's first N_dst rows, built here
+    when None); ``layout`` and ``fn`` (``dgl_bitdot_bwd_dq_list`` when
+    None) as :func:`launch_dz`'s."""
+    return _launch_walk(fn or "dgl_bitdot_bwd_dq_list", "dq", packed, q, z,
+                        g, linv, rho, isd, q.shape[0], z.shape[0], order,
+                        layout)
 
 
 def bitdot_bwd_dz(packed_rev, q, z, g, linv, rho, isd: float, order=None):
@@ -276,23 +313,18 @@ def bitdot_bwd_dz(packed_rev, q, z, g, linv, rho, isd: float, order=None):
 bitdot_bwd_dz.launches = 0
 
 
-def bitdot_bwd_dq(packed, q, z, g, linv, rho, isd: float):
+def bitdot_bwd_dq(packed, q, z, g, linv, rho, isd: float, order=None):
     """K7's dq (N_dst, H, D) f32 from ``packed``, the bits of A (rows =
-    dst)."""
+    dst).  ``order``: the dst rows' claim order
+    (``bitgat.fwd_claim_order`` of the format; built anew for each call
+    when None)."""
     _check(packed, q, z, q.shape[0], z.shape[0])
     _check_bwd(q, g, linv, rho)
     if not on_cuda(packed, q, z, g, linv, rho):
         return bitdot_bwd_dq_plain(packed, q, z, g, linv, rho, isd)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    if dq.numel() == 0:
-        return dq
-    nvec = _nvec(linv, rho)
-    qc, zc, gc, packed = _f32(q), _f32(z), _f32(g), packed.contiguous()
-    _launch("dgl_bitdot_bwd_dq", packed.data_ptr(), packed.shape[1],
-            z.shape[0], q.shape[0], qc.data_ptr(), zc.data_ptr(),
-            gc.data_ptr(), nvec.data_ptr(), q.shape[1], q.shape[2], isd,
-            dq.data_ptr(), *_stream(q))
-    bitdot_bwd_dq.launches += 1
+    dq = launch_dq(packed, q, z, g, linv, rho, isd, order)
+    if q.shape[0] and q.shape[1] * q.shape[2]:
+        bitdot_bwd_dq.launches += 1
     return dq
 
 
@@ -303,7 +335,7 @@ bitdot_bwd_dq.launches = 0
 
 class _BitDot(torch.autograd.Function):
     """Forward by K7's forward kernel; backward by its dz and dq kernels,
-    which recompute p from q and z (nothing edge-shaped is stored); dz's
+    which recompute p from q and z (nothing edge-shaped is stored); each
     walk claims its rows in the format's kept order."""
 
     @staticmethod
@@ -320,14 +352,15 @@ class _BitDot(torch.autograd.Function):
         linv, rho = backward_scales(g, out, l, None)
         bf, isd = ctx.bf, ctx.isd
         dq = dz = None
+        # the plain versions on the CPU need no claim order
         if ctx.needs_input_grad[1]:
-            # the plain version on the CPU needs no claim order
             order = bwd_claim_order(bf) if g.is_cuda else None
             dz = bitdot_bwd_dz(bf.packed_rev, q, z, g, linv, rho, isd,
                                order).to(z.dtype)
         if ctx.needs_input_grad[0]:
-            dq = bitdot_bwd_dq(bf.packed, q, z, g, linv, rho,
-                               isd).to(q.dtype)
+            order = fwd_claim_order(bf) if g.is_cuda else None
+            dq = bitdot_bwd_dq(bf.packed, q, z, g, linv, rho, isd,
+                               order).to(q.dtype)
         return dq, dz, None, None
 
 

@@ -77,8 +77,9 @@ with an edge-term variant, serve both:
 
 K9's node gradient is the row walk of ``csrc/row_agg.cu``, and its da is
 folded into the walk by dst (:func:`vattn_node_grad_da`, dV and da
-together, as ``_gatv2_dv_da_kernel`` computes them); ``gatv2.cu``'s
-slot-gradient and node-gradient walks serve K11 v2.
+together, as ``_gatv2_dv_da_kernel`` computes them), and K11 v2's node
+gradient the same walk with its edge term formed per entry
+(``row_fe_grad_kernel``); ``gatv2.cu``'s slot gradient serves K11 v2.
 
 EdgeGAT v2 (K10 v2, ``edgegat_v2_forward`` :1703) adds an edge message fe
 = ef[slot] . We_h to every slot, in its logit (ee = <attn_e[h], fe>) and
@@ -167,9 +168,6 @@ _VATTN_SIGNATURES = {
                                 ctypes.c_double, _I, _I, _I, _P, _P, _P, _P,
                                 _I, _P],
     "dgl_vattn_slot_grad_mma_attrs": [_I, _I, _I, _I, _I, _P],
-    "dgl_vattn_node_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                            _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            ctypes.c_double, _P, _I, _I, _I, _I, _I, _P],
 }
 _SCORES_THREADS = 256       # csrc/gat_fused.cu kScoresThreads
 _DS_WARPS = 8               # csrc/gat_fused.cu kDsWarps
@@ -189,10 +187,9 @@ def _launch(fn: str, *args, source: str = "gat_fused"):
 
 
 def _group(f: int, tile: int) -> int:
-    """Columns a block of the tiled walks (``src_agg_kernel``,
-    ``vattn_node_grad_kernel``) keeps per row, lanes a slot: the narrowest
-    of 8, 16, 32 that covers F, within the shared memory of a (tile,
-    group) f32 block."""
+    """Columns a block of the tiled walk (``src_agg_kernel``) keeps per
+    row, lanes a slot: the narrowest of 8, 16, 32 that covers F, within
+    the shared memory of a (tile, group) f32 block."""
     g = 8 if f <= 8 else 16 if f <= 16 else 32
     while g > 8 and tile * g * 4 > _SMEM_PER_BLOCK:
         g //= 2
@@ -1092,9 +1089,11 @@ def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
     U or V and attn in registers, the neighbour's row gathered, each sum in
     slot order); ``ds`` is best handed slot-major (a (B, H, C) view of a
     (B, C, H) tensor, as ``gat_ds(..., slot_major=True)`` writes it), else
-    it is copied so.  K11 v2 (``ef_slot`` and ``wf``) keeps the tiled walk
-    (:func:`node_grad_tiled`).  ``with_da`` (K9, ``side="dst"``): (dV,
-    da) from one walk, :func:`vattn_node_grad_da`."""
+    it is copied so.  K11 v2 (``ef_slot`` and ``wf``) is the same walk
+    with the edge term formed per entry (``row_fe_grad_kernel``: the
+    lane's columns of wf in registers, the entries' edge features staged
+    in shared memory).  ``with_da`` (K9, ``side="dst"``): (dV, da) from
+    one walk, :func:`vattn_node_grad_da`."""
     if side not in ("dst", "src"):
         raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
     if with_da:
@@ -1108,13 +1107,14 @@ def vattn_node_grad(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
     if not on_cuda(U3, V3, attn, ds, tf.valid, *edge):
         return vattn_node_grad_plain(tf, U3, V3, attn, ds, slope, side,
                                      ef_slot, wf)
-    if not edge:   # counted by row_aggregate
-        own, nbr = (V3, U3) if side == "dst" else (U3, V3)
-        return ts.row_aggregate(tf, side, nbr, ds, vattn_node_grad,
-                                grad=(own, attn, float(slope)))
-    out = node_grad_tiled(tf, U3, V3, attn, ds, slope, side, ef_slot, wf)
-    vattn_node_grad.launches += 1
-    return out
+    if edge:
+        _fe_cap(wf.shape[0])
+        _check_vattn_sizes(tf, U3.shape[1], U3.shape[2], ef_slot.shape[2], 0)
+    own, nbr = (V3, U3) if side == "dst" else (U3, V3)
+    # counted by row_aggregate
+    return ts.row_aggregate(tf, side, nbr, ds, vattn_node_grad,
+                            grad=(own, attn, float(slope)),
+                            edge=edge or None)
 
 
 def vattn_node_grad_da(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float):
@@ -1135,45 +1135,6 @@ def vattn_node_grad_da(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float):
 
 
 vattn_node_grad_da.launches = 0
-
-
-def node_grad_tiled(tf: ts.TiledFormat, U3, V3, attn, ds, slope: float,
-                    side: str = "dst", ef_slot=None, wf=None):
-    """K11 v2's node gradient on CUDA tensors: the tiled walk
-    (``gatv2.cu`` ``vattn_node_grad_kernel``, a block per (tile, column
-    chunk, split), the tile's sums in shared memory), with the edge term
-    ``ef_slot`` and ``wf``.  Counts nothing."""
-    if ef_slot is None:
-        raise ValueError("the tiled node-gradient walk takes the edge term; "
-                         "K9's node gradient is the row walk")
-    heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
-    src = side == "src"
-    if src:
-        _require_src_first(tf)
-    hd = heads * dim
-    fe_cap = _fe_cap(rows)
-    _check_vattn_sizes(tf, heads, dim, fe, 0)
-    n_rows = tf.num_src if src else tf.num_dst
-    n_t = tf.num_src_tiles if src else tf.num_dst_tiles
-    dev = U3.device
-    g = _group(hd, tf.tile)
-    splits = _splits(tf, n_t, -(-hd // g), _group_per_sm(g, tf.tile), dev)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc(n_rows, heads, dim, dtype=torch.float32, device=dev)
-    if n_t == 0 or hd == 0:
-        return out.zero_()
-    u, v, a, d = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
-    ef_c, wf_c = _f32(ef_slot), _f32(wf)
-    _launch("dgl_vattn_node_grad", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
-            tf.src_order.data_ptr() if src else 0,
-            (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
-            tf.cap, u.data_ptr(), v.data_ptr(), a.data_ptr(), d.data_ptr(),
-            ef_c.data_ptr(), wf_c.data_ptr(), fe, rows - fe, fe_cap,
-            heads, dim, float(slope), out.data_ptr(), n_rows, g, splits,
-            int(src), dev.index, ts._stream(dev), source="gatv2")
-    return out
 
 
 vattn_node_grad.launches = 0
@@ -1497,17 +1458,17 @@ def vattn_backward(tf: ts.TiledFormat, U3, V3, x3, attn, p_slot, den, out,
     (<x[src], zn[dst]> - rp[dst]) * p; ``d_ef`` and ``dwf`` are None
     without the edge term.  ``tf`` needs ``src_order``."""
     zn, rp = _scales(out, dZ, den)
+    # ds slot-major, as both row walks read it
+    ds = gat_ds(tf, x3, zn, rp, p_slot, slot_major=True)
     if ef_slot is None:
-        # K9: ds slot-major, as both row walks read it, and da folded into
-        # the walk by dst
-        ds = gat_ds(tf, x3, zn, rp, p_slot, slot_major=True)
+        # K9: da folded into the walk by dst
         dV, da = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst",
                                  with_da=True)
         d_ef = dwf = None
     else:
-        ds = gat_ds(tf, x3, zn, rp, p_slot)
-        da, d_ef, dwf = vattn_slot_grad(tf, U3, V3, attn, ds, slope,
-                                        ef_slot, wf, need_def)
+        # K11 v2: the slot gradient reads ds (B, H, C), its one copy
+        da, d_ef, dwf = vattn_slot_grad(tf, U3, V3, attn, ds.contiguous(),
+                                        slope, ef_slot, wf, need_def)
         dV = vattn_node_grad(tf, U3, V3, attn, ds, slope, "dst", ef_slot,
                              wf)
     dU = vattn_node_grad(tf, U3, V3, attn, ds, slope, "src", ef_slot, wf)

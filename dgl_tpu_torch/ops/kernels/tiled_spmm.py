@@ -520,6 +520,10 @@ _SIGNATURES = {
                               _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
                               ctypes.c_float, _P, _I, _P],
         "dgl_row_node_grad_attrs": [_I, _I, _I, _I, _P],
+        "dgl_row_fe_grad": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                            _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                            ctypes.c_float, _P, _I, _P, _I, _P, _I, _I, _P],
+        "dgl_row_fe_grad_attrs": [_I, _I, _I, _I, _P],
         "dgl_row_sddmm": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P, _I, _P, _I, _I, _P],
         "dgl_row_vattn": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -591,8 +595,40 @@ def _row_layout(f: int, head_cols: int, *rows: torch.Tensor, max_cpl=8):
     return vec, cpl, lpr, -(-nv // (lpr * cpl))
 
 
+FE_MIN_LANES = 8     # csrc/row_agg.cu kFeMinLanes: lanes a row, at least
+FE_LANE_FLOATS = 4   # columns a lane of the walk with the edge term
+
+
+def fe_kf(fe: int) -> int:
+    """The rows of wf a lane of the walk with the edge term holds (KF) for
+    ``fe`` edge features, padded to whole 16-byte vectors: 8, 16 or 32."""
+    fe4 = -(-fe // 4) * 4
+    for kf in (8, 16, 32):
+        if fe4 <= kf:
+            return kf
+    raise ValueError(f"the node-gradient walk takes at most 32 edge "
+                     f"features, got {fe}")
+
+
+def fe_layout(f: int, head_cols: int, *rows: torch.Tensor,
+              lane_floats: int = FE_LANE_FLOATS):
+    """(vec, cpl, lpr, n_chunks) of the node-gradient walk with the edge
+    term: :func:`_row_layout`'s loads, at most ``lane_floats`` columns a
+    lane (a lane keeps its columns of wf in registers) and at least
+    FE_MIN_LANES lanes a row (a warp's groups share its shared memory)."""
+    vec = min(_row_layout(f, head_cols, *rows)[0], lane_floats)
+    nv = f // vec
+    lpr = FE_MIN_LANES
+    while lpr < min(nv, 32):
+        lpr *= 2
+    cpl = 1
+    while cpl * vec < lane_floats and lpr * cpl < nv:
+        cpl *= 2
+    return vec, cpl, lpr, -(-nv // (lpr * cpl))
+
+
 def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
-             out: torch.Tensor, fn=None, grad=None):
+             out: torch.Tensor, fn=None, grad=None, edge=None, layout=None):
     """One launch of csrc ``row_agg_kernel`` over the rows of
     ``view.order``: out[r, h] = sum over row r's entries k of w[b, h, c] *
     y[nbr[k], h], slot[k] = b * cap + c, in slot order, 0 at a row with no
@@ -607,13 +643,38 @@ def row_walk(view: RowView, cap: int, y: torch.Tensor, w: torch.Tensor,
     h, c] * (own[r, h, d] + y[nbr[k], h, d] >= 0 ? 1 : slope); with a
     fourth, da (H * D,) zeroed, its da folded in too: da[h * D + d] += the
     sum over every row's entries of w[b, h, c] * lrelu(own[r, h, d] +
-    y[nbr[k], h, d]).  Counts nothing."""
+    y[nbr[k], h, d]).  ``edge`` = (ef (slots, 4 fq) contiguous and zero
+    past fe, fq, wf (fe, H * D) contiguous, fe, bias (H * D,) or None,
+    kf): with ``grad``, K11 v2's node gradient (``dgl_row_fe_grad``), the
+    edge term ef[slot] . wf + bias added to raw; ``layout`` (vec, cpl,
+    lpr, n_chunks) in place of :func:`fe_layout`'s, and ``fn`` in place of
+    ``dgl_row_fe_grad``.  Counts nothing."""
     heads, hc = y.shape[1], y.shape[2]
     f = heads * hc
     w_strides = (0, 0, 0) if w is None else tuple(w.stride())
     _check_int32(y.numel(), out.numel(),
                  0 if w is None else sum((n - 1) * st for n, st in
                                          zip(w.shape, w.stride())))
+    if edge is not None:
+        own, attn, slope = grad
+        ef, fq, wf, fe, bias, kf = edge
+        _check_int32(ef.numel(), wf.numel())
+        vec, cpl, lpr, n_chunks = (fe_layout(f, hc, y, own) if layout is None
+                                   else layout)
+        _check_int32(view.rows * n_chunks + 2048 * _sms(y.device))
+        counter = torch.zeros(1, dtype=torch.int32, device=y.device)
+        args = (view.ptr.data_ptr(), view.slot.data_ptr(),
+                view.nbr.data_ptr(), view.order.data_ptr(), view.rows,
+                w.data_ptr(), cap, *w_strides, hc, y.data_ptr(), f,
+                out.data_ptr(), counter.data_ptr(), vec, cpl, lpr, n_chunks,
+                own.data_ptr(), attn.data_ptr(), slope, ef.data_ptr(), fq,
+                wf.data_ptr(), fe, None if bias is None else bias.data_ptr(),
+                kf, y.device.index, _stream(y.device))
+        if fn is None:
+            _launch("dgl_row_fe_grad", *args)
+        elif fn(*args) != 0:
+            raise RuntimeError("dgl_row_fe_grad failed to launch")
+        return
     fold = grad is not None and len(grad) > 3
     vec, cpl, lpr, n_chunks = _row_layout(
         f, hc, y, *(() if grad is None else grad[:1] + grad[3:]),
@@ -653,8 +714,62 @@ def node_grad_kernel_attrs(vec: int, cpl: int, fold: bool, device=None):
     return out[0], out[1]
 
 
+def fe_grad_kernel_attrs(vec: int, cpl: int, kf: int, device=None):
+    """(registers a thread, local-memory bytes a thread, resident blocks an
+    SM) of the node-gradient walk with the edge term at ``vec``, ``cpl``
+    and ``kf`` (``row_fe_grad_kernel<vec, cpl, kf>``), from
+    ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_fe_grad_attrs(vec, cpl, kf, device.index or 0,
+                                    ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_fe_grad_attrs: CUDA error {err}")
+    return out[0], out[1], out[2]
+
+
+def padded_width(hc: int) -> int:
+    """The row walk's head width for ``hc`` columns: the next multiple of
+    4 where that adds at most an eighth, else ``hc``."""
+    hp = -(-hc // 4) * 4
+    return hc if (hp - hc) * 8 > hc else hp
+
+
+def pad_heads(t: torch.Tensor, hp: int) -> torch.Tensor:
+    """(n, H, hc) as (n, H, hp) f32, contiguous, each head zero-padded."""
+    if t.shape[2] == hp:
+        return t.float().contiguous()
+    p = torch.zeros(t.shape[0], t.shape[1], hp, dtype=torch.float32,
+                    device=t.device)
+    p[..., :t.shape[2]] = t
+    return p
+
+
+def edge_operands(ef_slot, wf, heads: int, hp: int):
+    """The edge term as the node-gradient walk takes it (``row_walk``'s
+    ``edge``): ef (slots, 4 fq) f32 in slot order, each row padded with
+    zeros to whole 16-byte vectors; fq; wf's first Fe rows and the bias row
+    (or None) with each head's columns padded to ``hp``; Fe; and
+    :func:`fe_kf`."""
+    fe = ef_slot.shape[2]
+    fq = -(-fe // 4)
+    ef = ef_slot.float().reshape(-1, fe)
+    if fe % 4 or ef.data_ptr() % 16:
+        ef = torch.nn.functional.pad(ef, (0, 4 * fq - fe))
+    else:
+        ef = ef.contiguous()
+    wf = wf.float().reshape(wf.shape[0], heads, -1)
+    # a copy of its own: the walk loads it as own's rows, aligned alike
+    bias = (pad_heads(wf[fe:], hp).reshape(-1).clone() if wf.shape[0] > fe
+            else None)
+    return ef, fq, pad_heads(wf[:fe], hp).reshape(fe, -1), fe, bias, \
+        fe_kf(fe)
+
+
 def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
-                  w_slot: torch.Tensor, wrapper, grad=None, with_da=False):
+                  w_slot: torch.Tensor, wrapper, grad=None, with_da=False,
+                  edge=None, layout=None, fn=None):
     """:func:`row_walk` over every row of ``side`` (dst: the dst nodes,
     neighbours the srcs; src: the reverse) on CUDA tensors: (rows, H, D)
     f32, out[r, h] = sum over the valid slots of row r of w_slot[b, h, c]
@@ -662,7 +777,10 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     for weights of 1 (K3's plain sum); counts the launch on ``wrapper``.
     ``grad`` = (own3 (rows, H, D), attn (H, D), slope): K9's node gradient
     instead (:func:`row_walk`); with ``with_da`` its da folded in, and
-    (out, da (H, D)) returned.
+    (out, da (H, D)) returned; with ``edge`` = (ef_slot (B, C, Fe), wf (Fe
+    or Fe + 1 with the bias row, H * D)) as well, K11 v2's, the edge term
+    formed per entry (``layout`` and ``fn`` as :func:`row_walk` takes
+    them: a probe's).
 
     A head width that is not a multiple of 4 is padded to one (y copied
     into zeroed rows, out sliced), so that the walk takes 16-byte loads,
@@ -684,30 +802,23 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     # walk on it together (dgl_tpu_torch/tools/perf_row_walk.py)
     w = (None if w_slot is None else
          w_slot.float().transpose(1, 2).contiguous().transpose(1, 2))
-    hp = -(-hc // 4) * 4
-    if hp == hc or (hp - hc) * 8 > hc:
-        hp = hc
-
-    def padded(t):   # (n, H, hc) as (n, H, hp) f32, contiguous
-        if hp == hc:
-            return t.float().contiguous()
-        p = torch.zeros(t.shape[0], heads, hp, dtype=torch.float32,
-                        device=t.device)
-        p[..., :hc] = t
-        return p
-
+    hp = padded_width(hc)
     da = None
     if grad is not None:
         own, attn, slope = grad
-        grad = (padded(own), padded(attn.reshape(1, heads, hc)), slope)
+        grad = (pad_heads(own, hp), pad_heads(attn.reshape(1, heads, hc), hp),
+                slope)
         if with_da:
             da = torch.zeros(heads * hp, dtype=torch.float32,
                              device=y3.device)
             grad += (da,)
+    if edge is not None:
+        edge = edge_operands(*edge, heads, hp)
     wide = out if hp == hc else torch.empty(rows, heads, hp,
                                             dtype=torch.float32,
                                             device=y3.device)
-    row_walk(tf.row_view(side), tf.cap, padded(y3), w, wide, grad=grad)
+    row_walk(tf.row_view(side), tf.cap, pad_heads(y3, hp), w, wide, fn=fn,
+             grad=grad, edge=edge, layout=layout)
     if wide is not out:
         out.copy_(wide[..., :hc])
     wrapper.launches += 1

@@ -12,7 +12,10 @@ K9's da beside the kernels they replaced (:mod:`.perf_ds_fold`), and
 the one that times K9's scores and K12's row product beside the kernels
 they replaced (:mod:`.perf_scores_rows`), and the one that times K6's
 slot reduce and K3 beside the kernels they replaced and edits of the row
-walks (:mod:`.perf_reduce_k3`), all called from
+walks (:mod:`.perf_reduce_k3`), the one that times K7's dz and K11 v2's
+slot gradient (:mod:`.perf_dz_slot_grad`) and the one that times K7's dq
+and K11 v2's node gradient (:mod:`.perf_dq_node_grad`) beside the
+kernels they replaced and edits of their own, all called from
 ``chip_smoke.py``'s yardsticks.  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
 import ctypes
@@ -65,11 +68,11 @@ def popcount(words: torch.Tensor) -> int:
     return total
 
 
-def edited_source(source: str, edits, name: str) -> str:
-    """``csrc/<source>.cu`` with each (old, new) edit applied; raises if an
-    old text is not found exactly once.  ``name`` names the variant in the
-    error."""
-    with open(build.sources()[source]) as f:
+def edited_source(source: str, edits, name: str, path=None) -> str:
+    """``csrc/<source>.cu`` (or the file at ``path``) with each (old, new)
+    edit applied; raises if an old text is not found exactly once.
+    ``name`` names the variant in the error."""
+    with open(path or build.sources()[source]) as f:
         src = f.read()
     for old, new in edits:
         if src.count(old) != 1:

@@ -15,8 +15,10 @@ the card:
     package's build;
 * K9's node gradient (``vattn_node_grad`` without the edge term): the row
   walk (``csrc/row_agg.cu`` ``row_agg_kernel``) beside the tiled walk it
-  replaced, ``vattn_node_grad_kernel`` of ``csrc/gatv2.cu`` instantiated
-  again with no edge term (``TILED_K9``, an edit of ``gatv2.cu``).
+  replaced, ``vattn_node_grad_kernel`` (once ``csrc/gatv2.cu``'s, now in
+  ``dq_node_grad_probe.cu`` beside this file, which
+  :mod:`.perf_dq_node_grad` builds) instantiated again with no edge term
+  (``TILED_K9``, an edit of that source).
 
 Every probe library is built with the package's ``nvcc`` flags into its
 build directory (``tools.build_edited``), all at once, at the first call.
@@ -39,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, cuda_ms, edited_source
+from . import perf_dq_node_grad as tdq
 from ..ops.kernels import bitgat as tbg
 from ..ops.kernels import gat_fused as tgf
 from ..ops.kernels import tiled_spmm as tts
@@ -52,7 +55,7 @@ WARP_SIGNATURES = {
 LIST_SIGNATURES = {
     "dgl_bitgat_bwd_list": tbg._SIGNATURES["dgl_bitgat_bwd_list"]}
 TILED_SIGNATURES = {
-    "dgl_vattn_node_grad": tgf._VATTN_SIGNATURES["dgl_vattn_node_grad"]}
+    "dgl_vattn_node_grad": tdq.RETIRED_SIGNATURES["dgl_vattn_node_grad"]}
 # edits of csrc/bitgat.cu's listed walk, each old text found exactly once.
 # "vector_der": at H = 4 or 8 the group's first lane gathers an entry's H
 # sums by shuffles from the first lanes of the heads' blocks (head h is
@@ -147,7 +150,7 @@ EDITS = {
     "lb3": [("__launch_bounds__(kWarps * 32, 2)\nbitgat_bwd_list_kernel(",
              "__launch_bounds__(kWarps * 32, 3)\nbitgat_bwd_list_kernel(")],
 }
-# csrc/gatv2.cu with the tiled node-gradient walk's no-edge-term instances
+# the tiled node-gradient walk's source with its no-edge-term instances
 _FE_SWITCH = ("  switch (fe_cap) {\n"
               "    case 8:\n"
               "      return launch_node_grad<G, kSrc, 8>(")
@@ -167,16 +170,17 @@ _BUILT = {}
 
 
 def edited_sources():
-    """({name: ``csrc/bitgat.cu`` with the edits of EDITS[name]},
-    ``csrc/gatv2.cu`` with TILED_K9)."""
+    """({name: ``csrc/bitgat.cu`` with the edits of EDITS[name]}, the
+    tiled walk's source, ``dq_node_grad_probe.cu``, with TILED_K9)."""
     return ({name: edited_source("bitgat", edits, name)
              for name, edits in EDITS.items()},
-            edited_source("gatv2", TILED_K9, "tiled_k9"))
+            edited_source("dq_node_grad_probe", TILED_K9, "tiled_k9",
+                          tdq.PROBE_SOURCE))
 
 
 def build_probe():
     """{"warp": the warp walk's C functions, EDITS' names: each edit's
-    ``dgl_bitgat_bwd_list``, "tiled_k9": the edited ``gatv2.cu``'s
+    ``dgl_bitgat_bwd_list``, "tiled_k9": the edited tiled walk's
     ``dgl_vattn_node_grad``}, built once, the three sources' builds side by
     side."""
     if _BUILT:
@@ -188,8 +192,8 @@ def build_probe():
         jobs = [pool.submit(build_edited, "bwd_probe", {"warp": own},
                             WARP_SIGNATURES),
                 pool.submit(build_edited, "bitgat", lists, LIST_SIGNATURES),
-                pool.submit(build_edited, "gatv2", {"tiled_k9": tiled},
-                            TILED_SIGNATURES)]
+                pool.submit(build_edited, "dq_node_grad_probe",
+                            {"tiled_k9": tiled}, TILED_SIGNATURES)]
         warp, edits, k9 = (j.result() for j in jobs)
     _BUILT["warp"] = warp["warp"]["dgl_probe_bwd_warp"]
     for name, fns in edits.items():

@@ -1,0 +1,125 @@
+"""The row walk's instances in two checkouts of the package, side by side
+on one card: each instance's output bits and its time, so that a change
+to ``csrc/row_agg.cu`` can be shown to leave the instances it does not
+touch as they were.
+
+The instances, at the main path's widths on one seeded graph (a uniform
+random graph of 1,000,000 edges over Reddit's 232,965 nodes, its tiled
+format built on the card): K3 at F = 16, weightless and weighted; K4's
+SpMM at (4, 32), (1, 41) and (8, 8); K6's dx at (4, 32) and (1, 41);
+K9's node gradient on both sides at (8, 8) without da and by dst with
+da (its dV: da meets in L2 in no fixed order).  Inputs lie on dyadic
+grids, so every compared sum is exact and does not depend on its order:
+two checkouts that compile one instance alike give the same bits.
+
+Usage, from the root of a checkout, on the card::
+
+    python -m dgl_tpu_torch.tools.perf_row_walk_bits ROOT_A ROOT_B ...
+
+runs each ROOT (a directory holding ``dgl_tpu_torch``) in a process of
+its own, in the order given (for example parent, change, change,
+parent), then prints whether every run's outputs equal the first's bit
+for bit (by a SHA-256 of each output's bytes) and each instance's median
+time (5 launches after one) in each run, and the same as one JSON line.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+N_NODES = 232_965
+EDGES = 1_000_000
+
+
+def _run(root: str):
+    """In this process: import the package at ``root``, run every
+    instance and return ({instance: ms}, {instance: a SHA-256 of its
+    output's bytes})."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    from dgl_tpu_torch.ops.kernels import gat_fused as tgf
+    from dgl_tpu_torch.ops.kernels import tiled_spmm as tts
+    from dgl_tpu_torch.tools import cuda_ms
+    import dgl_tpu_torch
+    assert os.path.abspath(dgl_tpu_torch.__file__).startswith(
+        os.path.abspath(root))
+    rng = np.random.default_rng(0)
+    row = rng.integers(0, N_NODES, EDGES)
+    col = rng.integers(0, N_NODES, EDGES)
+    tf = tts.build_tiled_format_device(row, col, N_NODES, N_NODES,
+                                       device="cuda").with_src_first()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, cap = tf.num_buckets, tf.cap
+
+    def grid(*shape, step=1 / 16, top=1.0):
+        return torch.randint(-round(top / step), round(top / step) + 1,
+                             shape, device="cuda", generator=gen).float() \
+            * step
+
+    def slots(heads):
+        return grid(b, heads, cap, step=1 / 8) * tf.valid.view(b, 1, cap)
+
+    calls = {}
+    x16 = grid(N_NODES, 16)
+    w1 = grid(*tf.valid.shape, step=1 / 8) * tf.valid
+    calls["k3_ones"] = lambda: tts.tiled_spmm(tf, x16)
+    calls["k3_weighted"] = lambda: tts.tiled_spmm(tf, x16, slot_weights=w1)
+    for heads, fh in ((4, 32), (1, 41), (8, 8)):
+        x = grid(N_NODES, heads, fh)
+        w = slots(heads)
+        calls[f"k4_spmm_{heads}x{fh}"] = (
+            lambda x=x, w=w, h=heads, f=fh:
+            tts.tiled_spmm_multihead(tf, x, w, h, f))
+        if heads != 8:
+            calls[f"k6_dx_{heads}x{fh}"] = (
+                lambda x=x, w=w: tgf.src_aggregate(tf, x, w))
+    U, V = grid(N_NODES, 8, 8), grid(N_NODES, 8, 8)
+    attn = grid(8, 8, step=1 / 16, top=0.5)
+    ds = slots(8).transpose(1, 2).contiguous().transpose(1, 2)
+    for side in ("dst", "src"):
+        calls[f"k9_node_grad_{side}"] = (
+            lambda side=side: tgf.vattn_node_grad(tf, U, V, attn, ds, 0.25,
+                                                  side))
+    calls["k9_node_grad_da"] = lambda: tgf.vattn_node_grad(
+        tf, U, V, attn, ds, 0.25, "dst", with_da=True)
+    digests, times = {}, {}
+    for name, call in calls.items():
+        got = call()
+        got = (got[0] if isinstance(got, tuple) else got).cpu().numpy()
+        digests[name] = hashlib.sha256(got.tobytes()).hexdigest()
+        times[name] = cuda_ms(call)
+    return times, digests
+
+
+def main():
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(_run(args[1])))
+        return
+    if not args:
+        raise SystemExit("usage: python -m dgl_tpu_torch.tools."
+                         "perf_row_walk_bits ROOT [ROOT ...]")
+    runs = []
+    for root in args:
+        # the file run as a script: the process imports the package only
+        # from ``root``
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", root],
+            check=True, capture_output=True, text=True).stdout
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+    for i, (root, (_, digests)) in enumerate(zip(args, runs)):
+        print(f"# run {i} ({root}): the same bits as run 0 at every "
+              f"instance: {digests == runs[0][1]}")
+    for name in runs[0][0]:
+        print(f"# {name}: " + ", ".join(f"{t[name]:.4f}" for t, _ in runs)
+              + " ms (runs in order)")
+    print(json.dumps({"roots": args, "times_ms": [t for t, _ in runs],
+                      "same_bits": [d == runs[0][1] for _, d in runs]}))
+
+
+if __name__ == "__main__":
+    main()

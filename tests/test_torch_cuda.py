@@ -15,10 +15,11 @@ dyadic inputs and ask for equality.  K5's listed walk by src sums dz and
 del in registers in one order (der in L2 in none), its walk by dst out
 and l; K9's da, folded into the
 node-gradient walk by dst, meets in L2 in no order (atol 1e-3 times its
-largest magnitude, as ``chip_smoke.close_sum``).  K7's dz walk sums a
-row in registers in one order; K11 v2's slot gradient on the tensor
-cores adds its blocks' partials in block order (bit for bit on dyadic
-inputs)."""
+largest magnitude, as ``chip_smoke.close_sum``).  K7's dz and dq walks
+sum a row in registers in one order; K11 v2's slot gradient on the tensor
+cores adds its blocks' partials in block order and its node gradient, the
+row walk with the edge term, sums each row in slot order (both bit for
+bit on dyadic inputs)."""
 import math
 
 import numpy as np
@@ -38,6 +39,7 @@ from dgl_tpu_torch.parallel import bitgat_spmd as tgs
 from dgl_tpu_torch.parallel import bitspmd as tbs
 from dgl_tpu_torch.parallel import comm
 from dgl_tpu_torch.tools import perf_bwd_walks as tbw
+from dgl_tpu_torch.tools import perf_dq_node_grad as tdq
 from dgl_tpu_torch.tools import perf_dz_slot_grad as tdz
 from dgl_tpu_torch.utils import config
 
@@ -2488,3 +2490,152 @@ def test_dz_slot_grad_probe_retired_kernels(card):
     for a, b, c in zip(new, old, one):
         # on the grid every sum is exact: all three agree bit for bit
         assert torch.equal(b, a) and torch.equal(c, a)
+
+
+def _dq_case(card, heads, dim, saturate):
+    """K7 dq's operands on ``_listed_graph`` reversed (16,300 src and
+    8,100 dst nodes: dst 7 a hub of 5,000 in-edges, dst rows 100-199
+    without one, rows of 510 words reaching bit plane 31), as
+    ``_dz_case``'s.  (bf, (packed, q, z, g, linv, rho, isd))."""
+    row, col, n_src, n_dst = _listed_graph()
+    bf = tbm.build_bit_format_device(col, row, n_dst, n_src, device=card)
+    gen = torch.Generator(device=card).manual_seed(heads * 10 + dim)
+    q = _grid(card, gen, bf.num_dst, heads, dim, step=1 / 16, top=1)
+    z = _grid(card, gen, bf.num_src, heads, dim, step=1 / 16, top=1)
+    if saturate:
+        z = z.abs() + 1 / 16
+        c = round(40 / (0.5625 * dim ** 0.5) * 16) / 16
+        q[::16], q[8::16] = c, -c
+    g = torch.randn(bf.num_dst, heads, dim, device=card, generator=gen)
+    isd = 1 / dim ** 0.5
+    out, l = tbd.bitdot_fwd_plain(bf.packed, q, z, isd)
+    linv, rho = tbg.backward_scales(g, out, l, None)
+    return bf, (bf.packed, q, z, g, linv, rho, isd)
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+@pytest.mark.parametrize("heads,dim", DZ_SHAPES)
+def test_dq_walk_matches_plain(card, heads, dim, saturate):
+    """K7's dq, the listed walk by dst in the forward's claim order (the
+    hub first), against its plain version; two launches give the same
+    bits, and the rows without an edge are 0."""
+    bf, args = _dq_case(card, heads, dim, saturate)
+    order = tbg.fwd_claim_order(bf)
+    assert int(order[0]) == 7
+    before = tbd.bitdot_bwd_dq.launches
+    got = tbd.bitdot_bwd_dq(*args, order)
+    again = tbd.bitdot_bwd_dq(*args)          # the order built anew
+    torch.cuda.synchronize()
+    assert tbd.bitdot_bwd_dq.launches - before == 2
+    assert torch.equal(got, again)
+    assert (got[100:200] == 0).all()
+    torch.testing.assert_close(got, tbd.bitdot_bwd_dq_plain(*args),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,dim", DZ_SHAPES)
+def test_dq_walk_kernel_attrs(card, heads, dim):
+    """The dq walk's instance at the wrapper's layout stays within 128
+    registers a thread with no local memory, 16 warps an SM or more."""
+    regs, local, warps = tbd.dq_kernel_attrs(heads, dim)
+    assert 0 < regs <= 128 and local == 0 and warps >= 16
+
+
+def test_dq_walk_through_the_autograd_function(card):
+    """``bitdot_attention_aggregate``'s backward launches the dq walk once
+    in the format's kept claim order, and its dq equals the plain one."""
+    bf, (packed, q, z, g, linv, rho, isd) = _dq_case(card, 2, 64, False)
+    qt = q.clone().requires_grad_()
+    before = tbd.bitdot_bwd_dq.launches
+    tbd.bitdot_attention_aggregate(bf, qt, z).backward(g)
+    torch.cuda.synchronize()
+    assert tbd.bitdot_bwd_dq.launches - before == 1
+    assert bf._fwd_order is not None
+    want = tbd.bitdot_bwd_dq_plain(packed, q, z, g, linv, rho, isd)
+    torch.testing.assert_close(qt.grad, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fe", [5, 16, 31])
+@pytest.mark.parametrize("heads,dim", [(8, 8), (1, 41), (4, 32)])
+def test_fe_grad_walk_exact_on_a_grid(card, heads, dim, fe):
+    """K11 v2's node gradient, the row walk with the edge term, on both
+    sides equals its plain version bit for bit on the slot gradient's
+    dyadic grid (raw exact, every sum exact in any order), from a
+    slot-major ds (as vattn_backward hands it) and from a (B, H, C) one;
+    two launches give the same bits."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    U, V, attn, ds, ef, wf = _slot_grad_grid(card, fwd, heads, dim, fe,
+                                             heads + dim + fe)
+    sm = ds.transpose(1, 2).contiguous().transpose(1, 2)
+    for side in ("dst", "src"):
+        want = tgf.vattn_node_grad_plain(fwd, U, V, attn, ds, 0.25, side, ef,
+                                         wf)
+        before = tgf.vattn_node_grad.launches
+        got = tgf.vattn_node_grad(fwd, U, V, attn, sm, 0.25, side, ef, wf)
+        assert want.abs().max() > 0 and torch.equal(got, want)
+        assert torch.equal(tgf.vattn_node_grad(fwd, U, V, attn, sm, 0.25,
+                                               side, ef, wf), got)
+        assert torch.equal(tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.25,
+                                               side, ef, wf), got)
+        assert tgf.vattn_node_grad.launches == before + 3
+
+
+@pytest.mark.parametrize("heads,dim,fe,bias", [
+    (4, 32, 16, True), (8, 8, 31, True), (2, 100, 12, False),
+    (3, 5, 32, False), (128, 1, 7, True), (2, 6, 5, True),
+    (1, 300, 16, True)])
+def test_fe_grad_walk_matches_plain(card, heads, dim, fe, bias):
+    """The widths and edge rows the wrapper takes (columns in two or three
+    chunks past 128 floats, heads not a multiple of 4 wide, 2-float and
+    1-float loads, 32 features without the bias row, 128 heads of one
+    column) at EGAT's slope on both sides: raw exact, ds normal."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    U, V, attn, ds, ef, wf = _vattn_inputs(card, fwd, heads, dim, fe, bias,
+                                           heads + dim + fe)
+    for side in ("dst", "src"):
+        torch.testing.assert_close(
+            tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.01, side, ef, wf),
+            tgf.vattn_node_grad_plain(fwd, U, V, attn, ds, 0.01, side, ef,
+                                      wf), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("vec,cpl", [(4, 1), (2, 1), (2, 2), (1, 1),
+                                     (1, 2), (1, 4)])
+@pytest.mark.parametrize("kf", [8, 16, 32])
+def test_fe_grad_kernel_attrs(card, vec, cpl, kf):
+    """Every instance of the walk with the edge term fits an SM (a lane's
+    columns of wf, at most 4 x 32, in registers); those of 16-byte loads,
+    which every head width of 4 or more columns a multiple of 4 takes (or
+    padded to one, 41 to 44), use no local memory.  At 2-float loads ptxas
+    keeps some instances at 64 or 128 registers with a few words of local
+    memory."""
+    regs, local, per_sm = tts.fe_grad_kernel_attrs(vec, cpl, kf)
+    assert 0 < regs <= 255 and per_sm >= 1
+    assert local == 0 or vec < 4
+
+
+def test_dq_node_grad_probe_retired_kernels(card):
+    """``tools/perf_dq_node_grad.py`` builds the warp dq walk and the tiled
+    node-gradient walk the two kernels replaced, and the edits dz_count and
+    double and the narrow layout: each against the package's kernel."""
+    bf, args = _dq_case(card, 2, 64, False)
+    order = tbg.fwd_claim_order(bf)
+    new = tbd.bitdot_bwd_dq(*args, order)
+    torch.testing.assert_close(tdq.warp_dq(*args), new, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(tdq.dq_edit("dz_count", *args, order), new,
+                               rtol=RTOL, atol=ATOL)
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    U, V, attn, ds, ef, wf = _slot_grad_grid(card, fwd, 4, 32, 16, 9)
+    for side in ("dst", "src"):
+        new = tgf.vattn_node_grad(fwd, U, V, attn, ds, 0.25, side, ef, wf)
+        # on the grid every sum is exact: all four agree bit for bit
+        assert torch.equal(tdq.tiled_node_grad(fwd, U, V, attn, ds, 0.25,
+                                               side, ef, wf), new)
+        assert torch.equal(tdq.fe_walk(fwd, U, V, attn, ds, 0.25, side, ef,
+                                       wf, "double"), new)
+        assert torch.equal(tdq.fe_walk(fwd, U, V, attn, ds, 0.25, side, ef,
+                                       wf, layout=tdq.narrow_layout(4, 32)),
+                           new)

@@ -13,8 +13,10 @@ Phases, each of which raises on failure (nothing is caught):
    kernels that K9's scores walk and K12's tensor-core rows replaced
    (``dgl_tpu_torch/tools/perf_scores_rows.py``) and the probe of the
    kernels that the row reduce and K3's row walk replaced, with an edit
-   of the walk (``dgl_tpu_torch/tools/perf_reduce_k3.py``) build beside
-   it;
+   of the walk (``dgl_tpu_torch/tools/perf_reduce_k3.py``) and the probe
+   of the bucket walks that K10's and K11 v1's slot walks and K10's edge
+   ds replaced, with an edit of the slot walk
+   (``dgl_tpu_torch/tools/perf_slot_walks.py``) build beside it;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
    reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
@@ -166,12 +168,16 @@ Phases, each of which raises on failure (nothing is caught):
    forward and backward;
 26. ``EdgeGATConv(64, 16, 32, 4)`` (tools/perf_egat128.py:81-82,
    (out^2).mean(), Adam 1e-3) for 4 steps on K10 v2 on phase 23's graph,
-   before it is freed, the launch counters held to their count a step,
-   and one step against its flat route;
+   before it is freed, the launch counters held to their count a step, a
+   profiled step held to the counters, and one step against its flat
+   route;
 27. K10 v2 yardsticks on the phase-23 format at (4, 32) with 16 edge
    features: each kernel against its plain version, its time (median of
    5), its plain version's, the bound and, for the slot-feature reduce,
-   one ``torch.sparse.mm`` of the (H N, slots) CSR holding p; then the
+   one ``torch.sparse.mm`` of the (H N, slots) CSR holding p; the
+   slot-feature reduce and the edge ds (without and with d(ef)) also
+   beside the bucket walks they replaced (``perf_slot_walks``), held to
+   them, and the slot walk's edit; then the
    EdgeGAT step's other launches at (4, 32) on that format, as phases 16
    and 20 time them: K6's reduce on both sides and src-side aggregation
    (dx), K4's SpMM; and the v1 functions' K6 launches there, the scores
@@ -267,7 +273,10 @@ Phases, each of which raises on failure (nothing is caught):
 40. K11 v1 and K10 v1 yardsticks on the phase-23 format at (4, 32), f32:
    each kernel against its plain version on grid inputs (exact sums), its
    time (median of 5), its plain version's, the bound and, for the slot
-   vector sum, one ``index_add_``;
+   vector sum, one ``index_add_``; the slot walks (the node sums, the
+   numerator, dx with dfe) and the ds also beside the bucket walks they
+   replaced (``perf_slot_walks``), held to them exactly, and the slot
+   walk's edit;
 41. K1's slab-width sweep (``dgl_tpu_torch/tools/perf_bitmm_variants.py``,
    the JAX package's P1): KP = N = 110,592, F = 16, random bits, 8, 16 and
    32 words, each width exactly equal to the plain version;
@@ -285,12 +294,22 @@ Phases, each of which raises on failure (nothing is caught):
    source; the bucket-order walk with 16-byte loads), the zeroing (a
    memset first against the pass), each pass and walk alone, the hub rows
    alone against the rest, and four edits of the walk's source, every
-   output held bit for bit to the wrapper's.
+   output held bit for bit to the wrapper's;
+44. the slot walks and K10's edge ds at full width on the phase-23 format
+   at (4, 32) with 16 edge features: K10 v1's numerator and dx with dfe
+   and K11 v1's node sums on both sides over (B, C, 128) stored tensors in
+   f32 and in bf16, K10 v2's slot-feature reduce with p and with signed
+   weights, the edge ds without and with d(ef), and K10 v1's ds with both
+   stored dtypes, each bit for bit equal to its plain version on dyadic
+   inputs whose sums ``exact_sums`` holds exact (the bf16 stores too: both
+   sides round the same f32 product to nearest even); dfe and d(ef) 0 at
+   every padded slot; two launches of each wrapper.
 
 Phases 28-30 run after phases 25 and 10, phase 31 after phase 28, phases
 32-33 after phase 24, with the bitmask freed, phases 34-36 after phase
-33, with the hybrid block freed, phase 37 after phase 25, phases 38-40
-after phase 27, phase 43 after phase 16 and phases 41-42 last, with the
+33, with the hybrid block freed, phase 37 after phase 25, phase 44 and
+then phases 38-40 after phase 27, phase 43 after phase 16 and phases
+41-42 last, with the
 EGAT graph freed; each phase prints its seconds.  Prints the card line
 and a ``{"kernels": [...]}`` line before the last; the last line is
 ``{"ok": true, "device": {...}}``.  The script finds ``dgl_tpu_torch``
@@ -592,10 +611,14 @@ TRACED_KERNELS = {
     "bit_shard_gat_bwd": "bitgat_bwd_list_kernel",
     "egatc_scores": "vattn_scores_kernel",
     "egatc_slot_grad": "vattn_slot_grad_kernel",
-    "slot_vec_reduce": "src_agg_kernel", "fe_aggregate": "src_agg_kernel",
-    "fe_ds": "gat_ds_kernel", "dx_dfe": "src_agg_kernel",
+    # K10's and K11 v1's slot walks (dx with dfe: its zero pass too) and
+    # K10's edge ds: the dot-product walk with the edge terms, its pass
+    "slot_vec_reduce": "row_slot_kernel", "fe_aggregate": "row_slot_kernel",
+    "fe_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
+    "dx_dfe": ("row_slot_kernel", "slot_zero_kernel"),
     "edgegat_scores": "gat_scores_kernel",
-    "slot_feat_reduce": "src_agg_kernel", "edgegat_ds": "gat_ds_kernel"}
+    "slot_feat_reduce": "row_slot_kernel",
+    "edgegat_ds": ("row_sddmm_kernel", "ds_finish_kernel")}
 
 
 # kernels that a redesign took off the main path: no profiled step may show
@@ -604,7 +627,8 @@ RETIRED_KERNELS = ("::int8_rows_kernel<",
                    "::vattn_scores_kernel<false, float, false>",
                    "::slot_reduce_kernel<", "::tiled_spmm_kernel<",
                    "::bitdot_dz_kernel<", "::bitdot_dq_kernel<",
-                   "::vattn_node_grad_kernel<") + tuple(
+                   "::vattn_node_grad_kernel<", "::src_agg_kernel<",
+                   "::gat_ds_kernel<") + tuple(
     # vattn_slot_grad_kernel's edge instances <cols, fe_cap, def, ...>
     # (K11 v1's <cols, T, true> stays)
     f"::vattn_slot_grad_kernel<{c}, {f}, " for c in (1, 2, 4)
@@ -3108,11 +3132,17 @@ def phase_edgegat_mid(dgt, tts, tgf):
         f"{err:.3g}, {len(grad_k)} gradients agree")
 
 
-def phase_edgegat(dgt, tts, tgf, g, x, ef, ef_slot):
+def edgegat_loss(model, g, x, ef, ef_slot):
+    """(out^2).mean() of one EdgeGATConv on the slot route
+    (tools/perf_egat128.py:81-82)."""
+    return model(g, x, ef, efeats_slot=ef_slot).square().mean()
+
+
+def phase_edgegat(dgt, tts, tgf, g, x, ef, ef_slot, card=None):
     """Phase 26: EdgeGATConv(64, 16, 32, 4), loss (out^2).mean(), Adam
     1e-3 (tools/perf_egat128.py:81-82), for 4 steps on K10 v2 on phase
-    23's graph; the counts are set to 0 just before and read just
-    after."""
+    23's graph; the counts are set to 0 just before and read just after;
+    then a profiled step held to the counters."""
     conv = dgt.nn.EdgeGATConv(EGAT_FIN, EGAT_FE, EGAT_D, EGAT_H,
                               generator=torch.Generator(device="cuda")
                               .manual_seed(27))
@@ -3124,7 +3154,7 @@ def phase_edgegat(dgt, tts, tgf, g, x, ef, ef_slot):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad()
-        loss = conv(g, x, ef, efeats_slot=ef_slot).square().mean()
+        loss = edgegat_loss(conv, g, x, ef, ef_slot)
         loss.backward()
         opt.step()
         torch.cuda.synchronize()
@@ -3148,6 +3178,8 @@ def phase_edgegat(dgt, tts, tgf, g, x, ef, ef_slot):
         raise AssertionError(f"EdgeGAT launches {counts}, not {want} a step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"EdgeGAT losses are not finite: {losses}")
+    phase_profile(conv, opt, g, x, ef, ef_slot, lambda: read_counts(tts, tgf),
+                  1, edgegat_loss, card)
     return conv, counts
 
 
@@ -3181,13 +3213,43 @@ def phase_edgegat_check(conv, g, x, ef, ef_slot):
         f"{loss_k:.8f} vs {loss_f:.8f}, {len(grad_k)} gradients agree")
 
 
-def edgegat_yardsticks(tgf, g, heads, fh, fe, rate):
+def slot_walk_bytes(tf, side, nbr):
+    """The bytes of ``side``'s row view that a slot walk must read: slot at
+    the edges (4 B; nbr too where it gathers node rows), ptr and order (4
+    B a row each)."""
+    v = tf.row_view(side)
+    return (v.slot.numel() * (8 if nbr else 4)
+            + (v.ptr.numel() + v.order.numel()) * 4)
+
+
+def edit_ms(tsl, tf, mode, t, f, want, what, w=None, node=None,
+            head_cols=None):
+    """The slot walk's edit ``half`` (tools/perf_slot_walks.py) on the
+    wrapper's operands: its out held bit for bit to ``want`` (rows, f),
+    then its time (median of 5)."""
+    out = torch.empty(want.shape[0], f, device="cuda")
+
+    def run():
+        tsl.slot_edit("half", tf, mode, t, out, w, node, head_cols)
+
+    run()
+    equal(out, want.reshape(out.shape), f"{what} (the edit half)")
+    return cuda_ms(run)
+
+
+def edgegat_yardsticks(tgf, tts, tsl, g, heads, fh, fe, rate):
     """Phase 27: each K10 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; the slot-feature reduce
     also against one ``torch.sparse.mm`` of the (H N, slots) CSR that
     holds p at row h N + dst of each edge's slot, times the slot features
     viewed (slots, Fe).  p is rounded to a grid of 1/16 so that its sums
-    over a node's edges are exact in any order (``exact_sums``)."""
+    over a node's edges are exact in any order (``exact_sums``).  The
+    slot-feature reduce (the slot walk, on p's slot-major copy as the
+    forward hands it) and the edge ds without and with d(ef) (the
+    dot-product walk) are timed beside the bucket walks they replaced and
+    the slot walk's edit (``tsl``, tools/perf_slot_walks.py), each held
+    to them; the bound counts the row view the walk reads, the earlier
+    one (the slot arrays) as old_bound_ms."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     b, cap = tf.num_buckets, tf.cap
     slots = b * cap
@@ -3196,6 +3258,7 @@ def edgegat_yardsticks(tgf, g, heads, fh, fe, rate):
     p, g_slot = tgf.edgegat_scores(tf, el, er, ef, m, SLOPE)
     p = (p * 16).round() / 16
     exact_sums(max_degree(g) * float(p.max()), 1 / 16, f"K10 v2 H={heads}")
+    ps = tgf._slot_major(p)
     x = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
     zn = torch.randn(N_NODES, heads, fh, device="cuda", generator=gen)
     zp = torch.randn(N_NODES, heads, fe, device="cuda", generator=gen)
@@ -3250,23 +3313,73 @@ def edgegat_yardsticks(tgf, g, heads, fh, fe, rate):
     del ids, live, order, crow, p_hs
     ef2 = ef.view(slots, fe)
     close(torch.sparse.mm(a, ef2).view(heads, N_NODES, fe).permute(1, 0, 2),
-          tgf.slot_feat_reduce(tf, p, ef), f"torch.sparse.mm H={heads}")
+          tgf.slot_feat_reduce(tf, ps, ef), f"torch.sparse.mm H={heads}")
     lib = cuda_ms(lambda: torch.sparse.mm(a, ef2))
     del a
-    # in: valid at every slot, dst_local, w and ef at the edges; out one
-    # (H, Fe) row per node.  2 ops per edge, head and feature
-    row("slot_feat_reduce", lambda: tgf.slot_feat_reduce(tf, p, ef),
+    # in: the dst view's slot, ptr and order, w and ef at the edges; out
+    # one (H, Fe) row per node.  2 ops per edge, head and feature
+    row("slot_feat_reduce", lambda: tgf.slot_feat_reduce(tf, ps, ef),
         lambda: tgf.slot_feat_reduce_plain(tf, p, ef),
-        slots * 4 + e * 4 + edge_h + edge_f + node * fe,
+        slot_walk_bytes(tf, "dst", False) + edge_h + edge_f + node * fe,
         2 * e * heads * fe, lib)
+    want = tgf.slot_feat_reduce(tf, ps, ef)
+    fwhat = f"K10 v2 slot_feat_reduce {tag}"
+    equal(tgf.slot_feat_reduce(tf, ps, ef), want, f"{fwhat}, a second launch")
+    equal(tsl.tiled_feat_reduce(tf, p, ef), want,
+          f"{fwhat} (the tiled walk)")
+    vec, cpl, _, _ = tts.slot_layout(heads * fe, (fe, fe), ef)
+    regs, local, per_sm = tts.slot_kernel_attrs(tts.SLOT_FEAT, torch.float32,
+                                                vec, cpl)
+    extra = dict(
+        kernel=f"row_slot_kernel<{vec}, {cpl}, 1, float>", registers=regs,
+        old_ms=cuda_ms(lambda: tsl.tiled_feat_reduce(tf, p, ef)),
+        half_ms=edit_ms(tsl, tf, tts.SLOT_FEAT, ef2, heads * fe,
+                        want.view(N_NODES, -1), fwhat, w=ps, head_cols=fe),
+        old_bound_ms=bound(slots * 4 + e * 4 + edge_h + edge_f + node * fe,
+                           2 * e * heads * fe, rate)[0])
+    rows["slot_feat_reduce"].update(extra)
+    log(f"# {fwhat}: the tiled walk it replaced {extra['old_ms']:.4f} ms "
+        f"[bound {extra['old_bound_ms']:.4f} ms], the edit half "
+        f"{extra['half_ms']:.4f} ms; {extra['kernel']}: {regs} registers, "
+        f"{local} B local, {per_sm} blocks an SM")
+    del want
 
-    # ds as the main path calls it (no d(ef)): in the slot arrays, g, x,
-    # zn, rp, Zp, ef at the edges; out ds at every slot.  Per edge and
-    # head: the two dots (2 Fh + 2 Fe) and the epilogue (2)
+    # ds as the main path calls it (no d(ef)): in the dst view (slot, nbr,
+    # ptr, order), x and zn once, rp once, g at the edges, ef at the edges
+    # and Zp once; out ds at every slot.  Per edge and head: the two dots
+    # (2 Fh + 2 Fe) and the epilogue (2)
+    ds_bytes = (sddmm_walk_bytes(tf, heads, fh) + node + edge_h + edge_f
+                + node * fe)
+    old_ds = walk + edge_h + 2 * node * fh + node + node * fe + edge_f + slot_h
     row("ds", lambda: tgf.edgegat_ds(tf, x, zn, rp, g_slot, ef, zp),
         lambda: tgf.edgegat_ds_plain(tf, x, zn, rp, g_slot, ef, zp),
-        walk + edge_h + 2 * node * fh + node + node * fe + edge_f + slot_h,
-        e * heads * (2 * fh + 2 * fe + 2))
+        ds_bytes, e * heads * (2 * fh + 2 * fe + 2))
+    # with d(ef), on p's slot-major copy: also p at the edges, M, d(ef) at
+    # every slot; per edge, head and feature 4 more operations
+    row("ds_def", lambda: tgf.edgegat_ds(tf, x, zn, rp, g_slot, ef, zp, ps, m),
+        lambda: tgf.edgegat_ds_plain(tf, x, zn, rp, g_slot, ef, zp, p, m),
+        ds_bytes + edge_h + m.numel() * 4 + slots * fe * 4,
+        e * heads * (2 * fh + 6 * fe + 2))
+    for name, extra_in in (("ds", ()), ("ds_def", (p, m))):
+        got = tgf.edgegat_ds(tf, x, zn, rp, g_slot, ef, zp,
+                             *((ps, m) if extra_in else ()))
+        old = tsl.bucket_ds(tf, x, zn, rp, g_slot, ef, zp, *extra_in)
+        err = max(close(a_, w_, f"K10 v2 {name} {tag} (the bucket walk)")
+                  for a_, w_ in zip(old, got) if a_ is not None)
+        del got, old
+        ob = bound(old_ds + (edge_h + m.numel() * 4 + slots * fe * 4
+                             if extra_in else 0),
+                   e * heads * (2 * fh + (6 if extra_in else 2) * fe + 2),
+                   rate)[0]
+        rows[name].update(
+            kernel="row_sddmm_kernel<CPL, false> + ds_finish_kernel<1, "
+                   f"false, {str(bool(extra_in)).lower()}, true>",
+            old_ms=cuda_ms(lambda: tsl.bucket_ds(tf, x, zn, rp, g_slot, ef,
+                                                 zp, *extra_in)),
+            old_bound_ms=ob)
+        log(f"# K10 v2 {name} {tag}: the bucket walk it replaced "
+            f"{rows[name]['old_ms']:.4f} ms [bound {ob:.4f} ms], max|err| "
+            f"{err:.3g}")
     return rows
 
 
@@ -3745,13 +3858,20 @@ def phase_edgegat_v1(tgf, tts, g, x, ef_slot):
                           K10V1_STEP, PlainEdgeGatV1)
 
 
-def v1_yardsticks(tgf, g, rate):
+def v1_yardsticks(tgf, tts, tsl, g, rate):
     """Phase 40: each K11 v1 and K10 v1 kernel at full size on the EGAT
     graph at (4, 32), f32 slot tensors, against its plain version on the
     inputs of the mid-size checks (exact sums on their grids, held by
     ``exact_sums``), with its time (median of 5), its plain version's, the
     bound and, for the slot vector sum, one ``index_add_`` of the slot rows
-    at the slots' node ids."""
+    at the slots' node ids.  The slot walks (the node sums, the numerator
+    and dx with dfe, p read from its slot-major copy as the forward hands
+    it) and the ds (the dot-product walk) are timed beside the bucket walks
+    they replaced and the slot walk's edit (``tsl``,
+    tools/perf_slot_walks.py), held to them exactly; their bounds count the
+    row view they read, the earlier ones (the slot arrays) as
+    old_bound_ms.  Then each stored-row kernel again over bf16 stored rows
+    beside its retired instance (the ds's mode 4)."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     heads, dim = EGAT_H, EGAT_D
     b, cap = tf.num_buckets, tf.cap
@@ -3784,6 +3904,30 @@ def v1_yardsticks(tgf, g, rate):
             f"ms, library " + (f"({lib_name}) {lib:.4f} ms" if lib is not None
                                else "none") + f", max|err| {err:.3g}")
 
+    def walk_extra(name, mode, t, want, old, old_nbytes, ops, w=None,
+                   node=None, head_cols=None):
+        """The slot walk's instance, registers and blocks an SM, the
+        retired walk's time (``old``: its output, held to ``want``
+        exactly, and its launch), the edit's and the earlier bound."""
+        vec, cpl, _, _ = tts.slot_layout(
+            want.shape[1], (head_cols or want.shape[1], t.shape[1]), t,
+            *(() if node is None else (node,)))
+        regs, local, per_sm = tts.slot_kernel_attrs(mode, t.dtype, vec, cpl)
+        got, launch = old
+        equal(got, want, f"{name} (the tiled walk)")
+        del got
+        extra = dict(
+            kernel=f"row_slot_kernel<{vec}, {cpl}, {min(mode, 4)}, float>",
+            registers=regs, old_ms=cuda_ms(launch),
+            half_ms=edit_ms(tsl, tf, mode, t, want.shape[1], want, name, w,
+                            node, head_cols),
+            old_bound_ms=bound(old_nbytes, ops, rate)[0])
+        rows[name].update(extra)
+        log(f"# {name}: the tiled walk it replaced {extra['old_ms']:.4f} ms "
+            f"[bound {extra['old_bound_ms']:.4f} ms], the edit half "
+            f"{extra['half_ms']:.4f} ms; {extra['kernel']}: {regs} "
+            f"registers, {local} B local, {per_sm} blocks an SM")
+
     U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, torch.float32)
     # K11 v1 scores: in the slot arrays, U, V, attn, FE at the edges; out p
     # at every slot.  Per edge and column raw (2), lrelu and the dot (3);
@@ -3815,38 +3959,228 @@ def v1_yardsticks(tgf, g, rate):
 
     close(lib_call(), tgf.slot_vec_reduce(tf, dfe, "dst"), "index_add_ dFE")
     lib = cuda_ms(lib_call)
-    del ids, flat
-    # in: valid at every slot, dst_local and dFE at the edges; out one row
-    # per node; an add per edge and column
-    row("slot_vec_reduce", lambda: tgf.slot_vec_reduce(tf, dfe, "dst"),
-        lambda: tgf.slot_vec_reduce_plain(tf, dfe, "dst"),
-        slots * 4 + e * 4 + edge_f + node_f, e * hd, lib, "index_add_")
-    row("slot_vec_reduce_src", lambda: tgf.slot_vec_reduce(tf, dfe, "src"),
-        lambda: tgf.slot_vec_reduce_plain(tf, dfe, "src"),
-        slots * 4 + e * 4 + b * 4 + edge_f + node_f, e * hd)
-    del dfe
+    del ids
+    # in: the side's view (slot, ptr, order), dFE at the edges; out one
+    # row per node; an add per edge and column [the tiled walk read valid
+    # at every slot, the side's local ids and dFE at the edges]
+    for side, name in (("dst", "slot_vec_reduce"),
+                       ("src", "slot_vec_reduce_src")):
+        mode = tts.SLOT_VEC_SRC if side == "src" else tts.SLOT_VEC_DST
+        row(name, lambda side=side: tgf.slot_vec_reduce(tf, dfe, side),
+            lambda side=side: tgf.slot_vec_reduce_plain(tf, dfe, side),
+            slot_walk_bytes(tf, side, False) + edge_f + node_f, e * hd,
+            *((lib, "index_add_") if side == "dst" else ()))
+        want = tgf.slot_vec_reduce(tf, dfe, side)
+        equal(tgf.slot_vec_reduce(tf, dfe, side), want,
+              f"{name}, a second launch")
+        walk_extra(name, mode, flat, want,
+                   (tsl.tiled_slot_agg(tf, mode, dfe, 1, hd),
+                    lambda mode=mode: tsl.tiled_slot_agg(tf, mode, dfe, 1,
+                                                         hd)),
+                   slots * 4 + e * 4 + (b * 4 if side == "src" else 0)
+                   + edge_f + node_f, e * hd)
+        del want
+    del dfe, flat
     x, zn, fe, p, g_slot, rp = edgegat_v1_inputs(tf, heads, dim, gen,
                                                  torch.float32)
-    # K10 v1 numerator: in the slot arrays, p at the edges, x, fe at the
+    ps = tgf._slot_major(p)
+    fe2 = fe.view(slots, hd)
+    # K10 v1 numerator: in the dst view, p at the edges, x once, fe at the
     # edges; out one row per node.  Per edge and column the add and the
     # product's add (3)
-    row("fe_aggregate", lambda: tgf.fe_aggregate(tf, x, fe, p),
+    row("fe_aggregate", lambda: tgf.fe_aggregate(tf, x, fe, ps),
         lambda: tgf.fe_aggregate_plain(tf, x, fe, p),
-        walk + edge_h + node_f + edge_f + node_f, 3 * e * hd)
-    # ds: in the slot arrays, g at the edges, x, zn, rp, fe at the edges;
-    # out ds at every slot.  Per edge and column the add and the dot (3),
-    # per edge and head the epilogue (2)
+        tf.row_view("dst").nbytes + edge_h + node_f + edge_f + node_f,
+        3 * e * hd)
+    want = tgf.fe_aggregate(tf, x, fe, ps).view(N_NODES, hd)
+    equal(tgf.fe_aggregate(tf, x, fe, ps).view(N_NODES, hd), want,
+          "fe_aggregate, a second launch")
+    walk_extra("fe_aggregate", tts.SLOT_FE, fe2, want,
+               (tsl.tiled_slot_agg(tf, tts.SLOT_FE, fe, heads, dim, p, x),
+                lambda: tsl.tiled_slot_agg(tf, tts.SLOT_FE, fe, heads, dim,
+                                           p, x)),
+               walk + edge_h + node_f + edge_f + node_f, 3 * e * hd, w=ps,
+               node=x.view(N_NODES, hd), head_cols=dim)
+    del want
+    # ds: in the dst view, x, zn and rp once, g and fe at the edges; out ds
+    # at every slot.  Per edge and column the add and the dot (3), per
+    # edge and head the epilogue (2)
     row("fe_ds", lambda: tgf.fe_ds(tf, x, fe, zn, rp, g_slot),
         lambda: tgf.fe_ds_plain(tf, x, fe, zn, rp, g_slot),
-        walk + edge_h + 2 * node_f + node_h + edge_f + slot_h,
+        sddmm_walk_bytes(tf, heads, dim) + node_h + edge_h + edge_f,
         e * (3 * hd + 2 * heads))
-    # dx with dfe: in the slot arrays and src_order, p at the edges, zn;
-    # out dx (one row per node) and dfe at every slot.  Per edge and
-    # column the product and the add (2)
-    row("dx_dfe", lambda: tgf.dx_dfe(tf, zn, p),
+    want = tgf.fe_ds(tf, x, fe, zn, rp, g_slot)
+    equal(tsl.bucket_ds(tf, x, zn, rp, g_slot, fe_s=fe)[0], want,
+          "fe_ds (the bucket walk)")
+    del want
+    ob = bound(walk + edge_h + 2 * node_f + node_h + edge_f + slot_h,
+               e * (3 * hd + 2 * heads), rate)[0]
+    rows["fe_ds"].update(
+        kernel="row_sddmm_kernel<CPL, false, true, float> + "
+               "ds_finish_kernel",
+        old_ms=cuda_ms(lambda: tsl.bucket_ds(tf, x, zn, rp, g_slot,
+                                             fe_s=fe)),
+        old_bound_ms=ob)
+    log(f"# fe_ds: the bucket walk it replaced {rows['fe_ds']['old_ms']:.4f} "
+        f"ms [bound {ob:.4f} ms]")
+    del fe, fe2
+    # dx with dfe: in the src view, p at the edges, zn once, valid at every
+    # slot (the zero pass); out dx (one row per node) and dfe at every
+    # slot.  Per edge and column the product and the add (2)
+    row("dx_dfe", lambda: tgf.dx_dfe(tf, zn, ps),
         lambda: tgf.dx_dfe_plain(tf, zn, p),
-        walk + b * 4 + edge_h + node_f + node_f + slot_f, 2 * e * hd)
+        tf.row_view("src").nbytes + edge_h + node_f + node_f + slot_f
+        + slots * 4, 2 * e * hd)
+    dx, dfe = tgf.dx_dfe(tf, zn, ps)
+    dfe_old = torch.empty_like(dfe)
+    got = tsl.tiled_slot_agg(tf, tts.SLOT_DX_DFE, dfe_old, heads, dim, p, zn)
+    equal(dfe_old, dfe, "dx_dfe's dfe (the tiled walk)")
+    del dfe
+    walk_extra("dx_dfe", tts.SLOT_DX_DFE, dfe_old.view(slots, hd),
+               dx.view(N_NODES, hd),
+               (got, lambda: tsl.tiled_slot_agg(tf, tts.SLOT_DX_DFE, dfe_old,
+                                                heads, dim, p, zn)),
+               walk + b * 4 + edge_h + node_f + node_f + slot_f, 2 * e * hd,
+               w=ps, node=zn.view(N_NODES, hd), head_cols=dim)
+    del dx, dfe_old, got
+
+    # the bf16 stored tensors (the ds's mode 4 and the slot walks' bf16
+    # instances), 2 B a stored element, each beside its retired instance,
+    # bit for bit on the grid (the stored values are exact in bf16; dfe's
+    # products round to nearest even on both sides)
+    fe = slot_rows(tf, gen, hd, 1 / 16, 1, torch.bfloat16)
+    half_f, half_e = slot_f // 2, edge_f // 2
+    pc = p.contiguous()
+    mode_rows = (
+        ("fe_aggregate", lambda: tgf.fe_aggregate(tf, x, fe, ps),
+         lambda: tsl.tiled_slot_agg(tf, tts.SLOT_FE, fe, heads, dim, pc, x),
+         tf.row_view("dst").nbytes + edge_h + 2 * node_f + half_e,
+         3 * e * hd),
+        ("fe_ds", lambda: tgf.fe_ds(tf, x, fe, zn, rp, g_slot),
+         lambda: tsl.bucket_ds(tf, x, zn, rp, g_slot, fe_s=fe)[0],
+         sddmm_walk_bytes(tf, heads, dim) + node_h + edge_h + half_e,
+         e * (3 * hd + 2 * heads)),
+        ("slot_vec_reduce", lambda: tgf.slot_vec_reduce(tf, fe, "dst"),
+         lambda: tsl.tiled_slot_agg(tf, tts.SLOT_VEC_DST, fe, 1, hd),
+         slot_walk_bytes(tf, "dst", False) + half_e + node_f, e * hd),
+        ("slot_vec_reduce_src", lambda: tgf.slot_vec_reduce(tf, fe, "src"),
+         lambda: tsl.tiled_slot_agg(tf, tts.SLOT_VEC_SRC, fe, 1, hd),
+         slot_walk_bytes(tf, "src", False) + half_e + node_f, e * hd),
+        ("dx_dfe", lambda: tgf.dx_dfe(tf, zn, ps, torch.bfloat16),
+         lambda: tsl.tiled_slot_agg(tf, tts.SLOT_DX_DFE, dfe_b, heads, dim,
+                                    pc, zn),
+         tf.row_view("src").nbytes + edge_h + 2 * node_f + half_f
+         + slots * 4, 2 * e * hd))
+    dfe_b = torch.empty(b, cap, hd, dtype=torch.bfloat16, device="cuda")
+    for name, new, old, nbytes, ops in mode_rows:
+        got, want = new(), old()
+        if name == "dx_dfe":
+            equal(got[1], dfe_b, f"{name} bf16's dfe (the tiled walk)")
+            got = got[0]
+        equal(got.reshape(want.shape), want, f"{name} bf16 (the retired walk)")
+        del got, want
+        extra = dict(bf16_ms=cuda_ms(new), bf16_old_ms=cuda_ms(old),
+                     bf16_bound_ms=bound(nbytes, ops, rate)[0])
+        rows[name].update(extra)
+        log(f"# {name} bf16 stored rows: {extra['bf16_ms']:.4f} ms (bound "
+            f"{extra['bf16_bound_ms']:.4f} ms: {nbytes} B), the retired walk "
+            f"{extra['bf16_old_ms']:.4f} ms, equal bit for bit")
     return rows
+
+
+def phase_slot_walks_full(tgf, g):
+    """Phase 44: the slot walks and K10's edge ds at full width on the EGAT
+    graph at (4, 32) with 16 edge features, each wrapper twice, every
+    output bit for bit equal to its plain version's: K10 v1's numerator
+    and dx with dfe, K11 v1's node sums on both sides, K10 v1's ds, each
+    over a (B, C, 128) stored tensor in f32 and in bf16 (the stored values
+    on a grid of 1/16 in [-1, 1], exact in bf16; dfe's products rounded to
+    bf16 to nearest even by both sides); K10 v2's slot-feature reduce with
+    p (p's slot-major copy, as the forward hands it) and with signed
+    weights; the edge ds without and with d(ef).  The inputs lie on
+    dyadic grids whose sums ``exact_sums`` holds exact; g and rp of the
+    ds are on the grid too, so that d(ef)'s products of ds are exact.
+    dfe and d(ef) are 0 at every padded slot."""
+    tf = g.unit().tiled_format()[0]
+    heads, dim, fe_n = EGAT_H, EGAT_D, EGAT_FE
+    hd = heads * dim
+    b, cap = tf.num_buckets, tf.cap
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    deg = max_degree(g)
+    # products of p (<= 4, 1/16) and rows (<= 2, 1/16); the ds dots of 32
+    # + 16 products of 1/256 (<= 48), less rp, times g: ds on 1/4096, |ds|
+    # <= 49; d(ef): 4 heads of p Zp (<= 4, 1/256) and ds M (M <= 1/4 on
+    # 1/16: 1/65536, <= 12.25)
+    exact_sums(deg * 4 * 2, 1 / 256, "the slot walks at full width")
+    exact_sums(49, 1 / 4096, "the edge ds at full width")
+    exact_sums(4 * (4 + 12.25), 1 / 65536, "d(ef) at full width")
+    x = grid(gen, N_NODES, heads, dim, step=1 / 16, top=1)
+    zn = grid(gen, N_NODES, heads, dim, step=1 / 16, top=1)
+    rp = grid(gen, N_NODES, heads, step=1 / 16, top=1)
+    p = slot_heads(tf, gen, heads, 1 / 16, 4, low=0)
+    ps = tgf._slot_major(p)
+    g_slot = slot_heads(tf, gen, heads, 1 / 16, 1)
+    pad = tf.valid.view(b, cap) == 0
+    names = ("fe_aggregate", "dx_dfe", "slot_vec_reduce", "fe_ds",
+             "slot_feat_reduce", "edgegat_ds")
+    counters = [getattr(tgf, n) for n in names]
+    before = [k.launches for k in counters]
+    checked = []
+    for dtype in V1_DTYPES:
+        tag = f"full width {str(dtype).split('.')[-1]}"
+        st = slot_rows(tf, gen, hd, 1 / 16, 1, dtype)
+        want = tgf.fe_aggregate_plain(tf, x, st, p)
+        for i in range(2):
+            equal(tgf.fe_aggregate(tf, x, st, ps), want,
+                  f"fe_aggregate {tag}, launch {i}")
+        for side in ("dst", "src"):
+            want = tgf.slot_vec_reduce_plain(tf, st, side)
+            for i in range(2):
+                equal(tgf.slot_vec_reduce(tf, st, side), want,
+                      f"slot_vec_reduce {side} {tag}, launch {i}")
+        want = tgf.fe_ds_plain(tf, x, st, zn, rp, g_slot)
+        equal(tgf.fe_ds(tf, x, st, zn, rp, g_slot), want, f"fe_ds {tag}")
+        del st, want
+        want = tgf.dx_dfe_plain(tf, zn, p, dtype)
+        for i in range(2):
+            dx, dfe = tgf.dx_dfe(tf, zn, ps, dtype)
+            equal(dx, want[0], f"dx_dfe's dx {tag}, launch {i}")
+            equal(dfe, want[1], f"dx_dfe's dfe {tag}, launch {i}")
+            if (dfe[pad] != 0).any():
+                raise AssertionError(f"dfe {tag}: not 0 at a padded slot")
+            del dx, dfe
+        del want
+        checked.append(tag)
+    ef = slot_rows(tf, gen, fe_n, 1 / 16, 1)
+    zp = grid(gen, N_NODES, heads, fe_n, step=1 / 16, top=1)
+    m = grid(gen, fe_n, heads, step=1 / 16, top=0.25)
+    for name, w in (("p", ps), ("signed", slot_heads(tf, gen, heads, 1 / 16,
+                                                      4))):
+        equal(tgf.slot_feat_reduce(tf, w, ef),
+              tgf.slot_feat_reduce_plain(tf, w, ef),
+              f"slot_feat_reduce ({name}) full width")
+    ds, none = tgf.edgegat_ds(tf, x, zn, rp, g_slot, ef, zp)
+    want = tgf.edgegat_ds_plain(tf, x, zn, rp, g_slot, ef, zp)[0]
+    equal(ds, want, "edgegat_ds full width")
+    ds2, d_ef = tgf.edgegat_ds(tf, x, zn, rp, g_slot, ef, zp, ps, m)
+    want_ds, want_def = tgf.edgegat_ds_plain(tf, x, zn, rp, g_slot, ef, zp,
+                                             p, m)
+    equal(ds2, want_ds, "edgegat_ds with d(ef) full width")
+    equal(d_ef, want_def, "d(ef) full width")
+    if none is not None or (d_ef[pad] != 0).any():
+        raise AssertionError("d(ef): asked for without p, or not 0 at a "
+                             "padded slot")
+    torch.cuda.synchronize()
+    launched = [k.launches - n for k, n in zip(counters, before)]
+    if launched != [4, 4, 8, 2, 2, 2]:
+        raise AssertionError(f"phase 44 launches {dict(zip(names, launched))}"
+                             ", not [4, 4, 8, 2, 2, 2]")
+    log(f"# slot walks and edge ds at full width (H={heads} D={dim} Fe="
+        f"{fe_n}, {g.num_edges()} edges): every output equal to its plain "
+        f"version bit for bit ({', '.join(checked)}; S with p and signed "
+        f"weights; ds without and with d(ef)); dfe and d(ef) 0 at the "
+        f"{int(pad.sum())} padded slots; launches "
+        f"{dict(zip(names, launched))}")
 
 
 def phase_bitmm_sweep(bm, tp1, rate):
@@ -5333,7 +5667,8 @@ def phase_sddmm_probe(tsw, gt, rate):
 
 
 # the kernels this slice's redesign added: ptxas' report of each instance
-NEW_KERNELS = ("bitdot_dq_list_kernel", "row_fe_grad_kernel")
+NEW_KERNELS = ("row_slot_kernel", "slot_zero_kernel", "row_sddmm_kernel",
+               "ds_finish_kernel")
 
 
 def log_new_kernels(logs):
@@ -5383,6 +5718,7 @@ def main():
     from dgl_tpu_torch.tools import perf_reduce_k3 as trk
     from dgl_tpu_torch.tools import perf_scores_rows as tsr
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
+    from dgl_tpu_torch.tools import perf_slot_walks as tsl
 
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5402,15 +5738,18 @@ def main():
     # 24), the reduce and K3 probe (its two retired kernels and an edit
     # of the row walk, waited for in phase 16), the dz and slot-gradient
     # probe and the dq and node-gradient probe (the two retired kernels of
-    # each and an edit of each new one, waited for in phase 30)
+    # each and an edit of each new one, waited for in phase 30), the slot
+    # walks' probe (the two retired bucket walks and an edit of the slot
+    # walk, waited for in phase 27)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(6)
+    probe_build = ThreadPoolExecutor(7)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
     scores_rows_built = probe_build.submit(tsr.build_probe)
     reduce_k3_built = probe_build.submit(trk.build_probe)
     dz_probe_built = probe_build.submit(tdz.build_probe)
     dq_probe_built = probe_build.submit(tdq.build_probe)
+    slot_probe_built = probe_build.submit(tsl.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -5544,7 +5883,6 @@ def main():
     del model, opt
     t0 = time.perf_counter()
     scores_rows_built.result()
-    probe_build.shutdown()
     log("# the scores and rows probe's build waited for "
         f"{time.perf_counter() - t0:.1f}s")
     k9 = [phase(f"24 (K9 yardsticks H={h} D={d})", vattn_yardsticks, tgf,
@@ -5601,14 +5939,19 @@ def main():
     phase("23 (EGATConv check)", phase_egat_check, conv, ge, xe, efe,
           ef_slot)
     conv, k10_launches = phase("26 (EdgeGATConv on K10 v2)", phase_edgegat,
-                               dgt, tts, tgf, ge, xe, efe, ef_slot)
+                               dgt, tts, tgf, ge, xe, efe, ef_slot, card)
     phase("26 (EdgeGATConv check)", phase_edgegat_check, conv, ge, xe, efe,
           ef_slot)
     del conv, efe
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tts, tbw,
                 tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz, tdq)
-    k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, ge,
-                EGAT_H, EGAT_D, EGAT_FE, rate)
+    t0 = time.perf_counter()
+    slot_probe_built.result()
+    probe_build.shutdown()
+    log("# the slot walks' probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
+    k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, tts, tsl,
+                ge, EGAT_H, EGAT_D, EGAT_FE, rate)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
     # dx, K4's SpMM for the numerator; the v1 functions' K6 scores with the
     # slot bias (K10 v1) and ds (K11 v1)
@@ -5618,8 +5961,11 @@ def main():
     phase("27 (K4 SpMM yardstick H=4 Fh=32, EGAT graph)", k4_spmm_yardstick,
           ef, tts, ge, EGAT_H, EGAT_D, rate)
 
-    # phases 38-40: the stored-edge-term slice on the EGAT graph, its
-    # (B, C, 128) f32 slot tensors 13.6 GB each at 23M edges
+    # phase 44, then phases 38-40: the stored-edge-term slice on the EGAT
+    # graph, its (B, C, 128) f32 slot tensors 13.6 GB each at 23M edges
+    torch.cuda.empty_cache()
+    phase("44 (slot walks and edge ds, full width)", phase_slot_walks_full,
+          tgf, ge)
     torch.cuda.empty_cache()
     k11v1_launches = phase("38 (EGATConv v1 on K11 v1)", phase_egatc_v1, tgf,
                            tts, ge, xe, ef_slot)
@@ -5628,7 +5974,8 @@ def main():
                            tgf, tts, ge, xe, ef_slot)
     del xe, ef_slot
     torch.cuda.empty_cache()
-    v1 = phase("40 (K11 v1, K10 v1 yardsticks)", v1_yardsticks, tgf, ge, rate)
+    v1 = phase("40 (K11 v1, K10 v1 yardsticks)", v1_yardsticks, tgf, tts,
+               tsl, ge, rate)
     del ge
     torch.cuda.empty_cache()
 
@@ -5732,20 +6079,24 @@ def main():
          "launches": k11_launches["vattn_node_grad"],
          **k11["node_grad_dst"]},
         # K10 v2 at EdgeGATConv(64, 16, 32, 4)'s (4, 32) with 16 edge
-        # features, launches from phase 26
+        # features, launches from phase 26 (the slot-feature reduce on the
+        # slot walk, the edge ds on the dot-product walk: the retired
+        # bucket walks, built by tools/perf_slot_walks.py, as old_ms)
         {"name": "edgegat_scores", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gat_fused.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1723",
          "launches": k10_launches["edgegat_scores"], **k10["scores"]},
         {"name": "slot_feat_reduce", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1750, :1785, :1850",
          "launches": k10_launches["slot_feat_reduce"],
          **k10["slot_feat_reduce"]},
         {"name": "edgegat_ds", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1785, :1850",
-         "launches": k10_launches["edgegat_ds"], **k10["ds"]},
+         "launches": k10_launches["edgegat_ds"], **k10["ds"],
+         "def_ms": k10["ds_def"]["ms"], "def_old_ms": k10["ds_def"]["old_ms"],
+         "def_bound_ms": k10["ds_def"]["bound_ms"]},
         # K7 at DotGatConv(64, 64, 2)'s (2, 64), launches from phase 29
         {"name": "bitdot_fwd", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
@@ -5787,7 +6138,9 @@ def main():
          "launches": shard_launches["bit_shard_gat_bwd"],
          **shard["1 part 4x32"]["bit_shard_gat_bwd"]},
         # K11 v1 and K10 v1 at (4, 32) on the EGAT graph, launches from
-        # phases 38 and 39 (the slot vector sum's row is its dst side)
+        # phases 38 and 39 (the slot vector sum's row is its dst side; the
+        # slot walks and the ds on the dot-product walk, the retired bucket
+        # walks, built by tools/perf_slot_walks.py, as old_ms)
         {"name": "egatc_scores", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gatv2.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1093",
@@ -5798,20 +6151,20 @@ def main():
          "launches": k11v1_launches["egatc_slot_grad"],
          **v1["egatc_slot_grad"]},
         {"name": "slot_vec_reduce", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1193, :1215",
          "launches": k11v1_launches["slot_vec_reduce"],
          **v1["slot_vec_reduce"]},
         {"name": "fe_aggregate", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1393",
          "launches": k10v1_launches["fe_aggregate"], **v1["fe_aggregate"]},
         {"name": "fe_ds", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1432",
          "launches": k10v1_launches["fe_ds"], **v1["fe_ds"]},
         {"name": "dx_dfe", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gat_fused.cu",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1491",
          "launches": k10v1_launches["dx_dfe"], **v1["dx_dfe"]},
         # P1: K1 at its default slab width on the sweep's work (every width

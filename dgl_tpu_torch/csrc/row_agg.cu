@@ -250,7 +250,69 @@
 // dgl_tpu_torch/tools/perf_scores_rows.py to be timed beside it.  Bound:
 // the view, U and V read once, attn, p written at every slot (4H B a
 // slot).
+//
+// K10's edge ds on the same walk, with its finishing pass: it replaces
+// the edge modes of the bucket walk gat_ds_kernel, csrc/gat_fused.cu's
+// until this walk took them.  K10 v2's ds, dgl_tpu/ops/pallas/
+// gat_fused.py _eg2_ds_kernel :1605 (edgegat_v2_backward :1785), where ds
+// gains ef[s, :] . Zp[dst, h] inside the bracket, is K6's walk
+// (row_sddmm_kernel<CPL, false>) and ds_finish_kernel<1, SM, kDef, true>:
+// the pass adds the edge dot to the walk's sum before rp, a head at a
+// time, ef's row read in slot order (coalesced across the pass's
+// threads) and Zp[dst] a row of the bucket's dst tile; with kDef it
+// writes d(ef)[s, :] = sum_h p[s, h] Zp[dst, h] + ds[s, h] M[:, h] at
+// every slot (0 at padded ones) in the same loop, the d(ef) part of
+// _eg2_dx_def_kernel :1639.  Gathering ef at each entry's slot inside the
+// walk instead (Zp[r] in registers as more vectors of each head) took
+// longer on an H100 at EdgeGATConv's widths: the slots of a row lie in
+// many buckets, so every entry's 64 bytes of ef were a random read, and
+// the wider head halved the entries in flight.  K10 v1's ds,
+// _ds_fe_kernel :1299 (edgegat_backward :1432), is
+// row_sddmm_kernel<CPL, false, true, T> (kStore): the stored message
+// fe_s (f32 or bf16 T, read at the entry's slot, 64-bit offsets) added to
+// x[nbr] before the product, its epilogue in the pass.  The bucket walk
+// (a warp a 32-slot chunk, x[src], zn[dst] and Zp[dst] gathered with
+// scalar loads at every slot, padded ones included) is built by
+// dgl_tpu_torch/tools/perf_slot_walks.py from tools/slot_walks_probe.cu
+// to be timed beside them.  Bound: K6's ds's, with ef at the edges (4 Fe
+// B an edge) and Zp once (K10 v2; with d(ef) p at the edges, M and d(ef)
+// at every slot), or fe_s at the edges (K10 v1).
+//
+// The slot walk.  row_slot_kernel<VEC, CPL, kMode, T> is the row walk
+// whose operand may come from the entry's slot, summed in registers in
+// slot order:
+//
+//   out[r, j] = sum over row r's entries k (slot s, neighbour n) of
+//               w[s, h(j)] * (node[n, j] + t[s, j])
+//
+// each mode keeping some of the terms (SlotMode): kSlotFe, K10 v1's
+// numerator (node = x, t = the stored fe_s; gat_fused.py _agg_fe_kernel
+// :1276, edgegat_forward :1393, dst view); kSlotDxDfe, K10 v1's dx (node
+// = zn, no t in the sum; _dx_dfe_kernel :1320, edgegat_backward :1491, src
+// view), which writes t[s] = w zn[n] as dfe on the way, its padded slots'
+// zeros written by slot_zero_kernel, a pass over the slots alone;
+// kSlotVec, K11 v1's dFNJ and dFNI (t = dFE, no weight, no node; the dv
+// term of _egatc_dv_da_dfe_kernel :979 and _dw_src_kernel :1020, dst and
+// src views); kSlotFeat, K10 v2's slot-feature reduce (no node, t = ef,
+// Fe wide, read by every head's columns; the edge-message term of
+// _eg2_agg_kernel :1582 and the dWe and d(attn_e) sums of _eg2_ds_kernel
+// and _eg2_dx_def_kernel, dst view).  The stored tensors are (slots, F)
+// rows, 512 B at F = 128 in f32, read once with evict-first loads (the
+// node rows the walk gathers stay in L2) or, for dfe, written with
+// evict-first stores, at 64-bit offsets; the weights are read at the
+// entry's slot through their strides (one sector for a slot's H weights
+// where slot-major: the forwards' one copy of p).  The tiled walk it
+// replaced (src_agg_kernel, once csrc/gat_fused.cu's: a block a (tile,
+// column chunk, split), the tile's rows in shared memory, a float
+// atomicAdd a slot and column, every slot walked once per chunk of 32
+// columns, splits met in global atomics) is built by
+// dgl_tpu_torch/tools/perf_slot_walks.py.  No shared memory, no atomics,
+// every output written once: the same bits every run.  Bound: the view
+// it reads (slot, and nbr where it gathers; ptr and order), w at the
+// edges (4H B), node read once, t at the edges (dfe: written at every
+// slot, with valid read by the zero pass), out once.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -814,6 +876,208 @@ row_fe_grad_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
   }
 }
 
+// The stored slot tensors' elements (T float or __nv_bfloat16) as f32
+// vectors of VEC, read once by a walk (evict first: the node rows it
+// gathers stay in L2), and written so
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T ld_stored(const float* p) {
+  return __ldcs(reinterpret_cast<const typename Vec<VEC>::T*>(p));
+}
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T ld_stored(
+    const __nv_bfloat16* p);
+template <>
+__device__ __forceinline__ float ld_stored<1>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+template <>
+__device__ __forceinline__ float4 ld_stored<4>(const __nv_bfloat16* p) {
+  const uint2 raw = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st_stored(float* p, const float* a, Vec<1>) {
+  __stcs(p, a[0]);
+}
+__device__ __forceinline__ void st_stored(float* p, const float* a, Vec<4>) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
+}
+__device__ __forceinline__ void st_stored(__nv_bfloat16* p, const float* a,
+                                          Vec<1>) {
+  *p = __float2bfloat16(a[0]);
+}
+__device__ __forceinline__ void st_stored(__nv_bfloat16* p, const float* a,
+                                          Vec<4>) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(p), raw);
+}
+
+// What the slot walk sums at row r for column j (head h(j) = j /
+// head_cols) over the row's entries k (slot s, neighbour n): the C API's
+// mode codes, kSlotVec serving both of its sides (4, 5)
+enum SlotMode : int {
+  kSlotFeat = 1,   // w[s, h(j)] * t[s, j % t_cols]       (K10 v2's S, Q)
+  kSlotFe = 2,     // w[s, h(j)] * (node[n, j] + t[s, j])  (K10 v1's num)
+  kSlotDxDfe = 3,  // w[s, h(j)] * node[n, j], also stored at t[s, j]
+  kSlotVec = 4,    // t[s, j]                              (dFNJ, dFNI)
+};
+
+// entries a lane of the slot walk keeps in flight: 8, or 4 where it keeps
+// more than 4 columns (each entry holds a weight and two vectors)
+template <int VEC, int CPL>
+struct SlotUnroll {
+  static constexpr int value = VEC * CPL <= 4 ? 8 : 4;
+};
+
+// The slot walk: out[r, j] = the sum over row r's entries k, in entry
+// (slot) order, of the mode's term.  The row walk's lanes (a group of lpr
+// lanes a row, VEC floats a load, CPL vectors a lane, the f / VEC vectors
+// in n_chunks chunks); each lane reads its own head's weight of an entry
+// (w through its strides: one sector for a slot's H weights where it is
+// slot-major), gathers its vectors of node[n] and reads its vectors of
+// the stored row t[s] (64-bit offsets), U entries in flight, all before
+// the arithmetic; kSlotDxDfe writes w * node[n] at t[s] on the way.  No
+// shared memory, no atomics on out, every output written once (0 on a row
+// with no entry): the same bits every run.
+template <int VEC, int CPL, int kMode, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+row_slot_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
+                const int* __restrict__ nbr, const int* __restrict__ order,
+                int rows, const float* __restrict__ w, int cap, int w_bs,
+                int w_hs, int w_cs, int head_cols,
+                const float* __restrict__ node, T* t, int t_cols, int f,
+                int lpr, int n_chunks, float* __restrict__ out,
+                int* __restrict__ counter) {
+  using V = typename Vec<VEC>::T;
+  constexpr int U = SlotUnroll<VEC, CPL>::value;
+  constexpr bool kWeighted = kMode != kSlotVec;
+  constexpr bool kNode = kMode == kSlotFe || kMode == kSlotDxDfe;
+  constexpr bool kReadsT = kMode != kSlotDxDfe;
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lpr;  // rows a warp takes at once
+  const int grp = lane / lpr;
+  const int li = lane - grp * lpr;
+  const unsigned gmask =
+      lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
+  const int nv = f / VEC;  // column vectors a row
+  const int n_items = rows * n_chunks;
+
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, groups);
+    base = __shfl_sync(kFull, base, 0);
+    if (base >= n_items) break;
+    const int item = base + grp;
+    const bool has = item < n_items;
+    const int r = has ? order[item / n_chunks] : 0;
+    const int chunk = has ? item - (item / n_chunks) * n_chunks : 0;
+    int cv[CPL];    // this lane's column vectors
+    bool ok[CPL];
+    int hw[CPL];    // their head's offset in a slot's weights
+    int tc[CPL];    // their first column of a stored row
+    float acc[CPL][VEC];
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      cv[q] = (chunk * CPL + q) * lpr + li;
+      ok[q] = has && cv[q] < nv;
+      const int col = ok[q] ? cv[q] * VEC : 0;
+      hw[q] = col / head_cols * w_hs;
+      tc[q] = col - col / t_cols * t_cols;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+    }
+
+    const int p_lo = has ? ptr[r] : 0;
+    const int p_hi = has ? ptr[r + 1] : p_lo;
+    for (int pb = p_lo; pb < p_hi; pb += lpr) {  // uniform in the group
+      const int n = min(lpr, p_hi - pb);
+      // this lane's entry: its slot, neighbour and weight offset
+      int my_slot = 0, my_node = 0, my_wb = 0;
+      if (li < n) {
+        my_slot = slot[pb + li];
+        if (kNode) my_node = nbr[pb + li];
+        const int b = my_slot / cap;
+        my_wb = b * w_bs + (my_slot - b * cap) * w_cs;
+      }
+      for (int u0 = 0; u0 < n; u0 += U) {
+        float wq[U][CPL];
+        V nq[U][CPL];
+        V tq[U][CPL];
+        long long to[U];  // the entries' stored rows
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const bool in_row = u0 + u < n;
+          to[u] = static_cast<long long>(
+                      __shfl_sync(gmask, my_slot, u0 + u, lpr)) * t_cols;
+          const int wb = __shfl_sync(gmask, my_wb, u0 + u, lpr);
+          const V* node_row = reinterpret_cast<const V*>(
+              node + __shfl_sync(gmask, my_node, u0 + u, lpr) * f);
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            const bool on = in_row && ok[q];
+            wq[u][q] = kWeighted && on ? __ldg(w + wb + hw[q]) : 0.f;
+            nq[u][q] = kNode && on ? __ldg(node_row + cv[q]) : zero_vec<V>();
+            tq[u][q] = kReadsT && on ? ld_stored<VEC>(t + to[u] + tc[q])
+                                     : zero_vec<V>();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (u0 + u >= n) break;  // uniform in the group
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            if constexpr (kMode == kSlotFe) {
+              fma_into(acc[q], wq[u][q], add_vec(nq[u][q], tq[u][q]));
+            } else if constexpr (kMode == kSlotFeat) {
+              fma_into(acc[q], wq[u][q], tq[u][q]);
+            } else if constexpr (kMode == kSlotVec) {
+              fma_into(acc[q], 1.f, tq[u][q]);
+            } else {  // kSlotDxDfe: the product is dfe and dx's term
+              float prod[VEC];
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) {
+                prod[i] = wq[u][q] * elem(nq[u][q], i);
+                acc[q][i] += prod[i];
+              }
+              if (ok[q]) st_stored(t + to[u] + tc[q], prod, Vec<VEC>());
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      if (ok[q]) store_vec(out + r * f + cv[q] * VEC, acc[q], Vec<VEC>());
+    }
+  }
+}
+
+// kSlotDxDfe's zeros: the rows of t (slots, f) at the slots whose valid is
+// 0 (the walk writes every listed slot's).  A warp reads 32 slots' valid
+// flags, then writes each padded slot's row, its lanes a column apart.
+template <typename T>
+__global__ void __launch_bounds__(256)
+slot_zero_kernel(const float* __restrict__ valid, long long slots, T* t,
+                 int f) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * 8;
+  for (long long s0 = (blockIdx.x * 8LL + (threadIdx.x >> 5)) * 32;
+       s0 < slots; s0 += warps * 32) {
+    const bool pad = s0 + lane < slots && valid[s0 + lane] == 0.f;
+    for (unsigned m = __ballot_sync(kFull, pad); m != 0u; m &= m - 1u) {
+      T* row = t + (s0 + __ffs(m) - 1) * f;
+      for (int j = lane; j < f; j += 32) row[j] = T(0.f);
+    }
+  }
+}
+
 // K6's slot reduce by rows: out[r, h] = the sum over row r's entries k of
 // vals[b, h, c], slot[k] = b * cap + c, vals read through its strides
 // (v_bs, v_hs, v_cs).  A group of lpr lanes owns a row: lps lanes take a
@@ -923,6 +1187,31 @@ row_reduce_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
   }
 }
 
+// K10 v1's stored message in the ds walk (row_sddmm_kernel's kStore):
+// fe_s (slots, F) of type T at the launch's first head and column, fs_row
+// elements a slot, fs_head between heads, fs_cols columns of a head from
+// the launch's first (past them the padded vector holds 0), read 4 at a
+// time where fs_vec, else one a load; slot, the view's slot of each entry
+struct DsTerm {
+  const int* slot;
+  const void* fs;
+  long long fs_row;
+  int fs_head, fs_cols, fs_vec;
+};
+
+// fe_s's 4 columns from c of a head's row at fs as f32, 0 at columns past
+// fs_cols (read once: evict first)
+template <typename T>
+__device__ __forceinline__ float4 ld_term(const T* fs, int c,
+                                          const DsTerm& term) {
+  if (term.fs_vec) return ld_stored<4>(fs);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = c + i < term.fs_cols ? ld_stored<1>(fs + i) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
 // The dot-product row walk (K4's SDDMM).  A group of lpr lanes owns row r
 // (a dst node) and keeps z[r] of the launch's heads and columns in
 // registers; for U slots of the row at a time it gathers x[nbr] (16-byte
@@ -956,7 +1245,11 @@ row_reduce_kernel(const int* __restrict__ ptr, const int* __restrict__ slot,
 // kVattn (K9's scores): x is U, z is V, and attn (one row laid out as z's,
 // offset to the launch's first head and column) stays in registers beside
 // V[r]; a lane's partial is attn . lrelu(U + V) over its four floats.
-template <int CPL, bool kVattn>
+//
+// kStore (K10 v1's ds, DsTerm): the walk also reads each entry's slot and
+// adds the entry's stored fe_s columns (of type T, at the slot) to x's
+// vector before the product.
+template <int CPL, bool kVattn, bool kStore = false, typename T = float>
 __global__ void __launch_bounds__(kWarps * 32)
 row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
                  const int* __restrict__ order, int rows,
@@ -964,7 +1257,7 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
                  int f, int hstride, int heads, int hv, int lph, int cph,
                  int lpr, float* __restrict__ out, int ostride,
                  int* __restrict__ counter, const float* __restrict__ attn,
-                 float slope) {
+                 float slope, const DsTerm term) {
   constexpr int U = Unroll<4, CPL>::value;
   constexpr int kLogU = Log2<U>::value;
   const int lane = threadIdx.x & 31;
@@ -980,12 +1273,14 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
   int hq[CPL];
   bool ok[CPL];
   bool first[CPL];   // q is its head's first vector in the lane
+  int fc[CPL];       // kStore: q's first column of its head in fe_s
 #pragma unroll
   for (int q = 0; q < CPL; ++q) {
     const int k = q / cph;
     const int v = fl + (q - k * cph) * lph;
     hq[q] = hl + k * hpp;
     ok[q] = hq[q] < heads && v < hv;
+    fc[q] = 4 * v;
     vq[q] = ok[q] ? hq[q] * hstride + v : 0;
     first[q] = q == k * cph;
   }
@@ -1034,6 +1329,8 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
         my_nbr = nbr[pb + li];
         my_out = (pb + li) * ostride;
       }
+      int my_slot = 0;  // kStore: the entry's slot
+      if (kStore && li < n) my_slot = term.slot[pb + li];
       for (int u0 = 0; u0 < n; u0 += U) {
         float4 xv[U][CPL];
 #pragma unroll
@@ -1044,6 +1341,17 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
 #pragma unroll
           for (int q = 0; q < CPL; ++q) {
             xv[u][q] = live && ok[q] ? __ldg(xr + vq[q]) : zero_vec<float4>();
+          }
+          if constexpr (kStore) {
+            const long long s = __shfl_sync(gmask, my_slot, u0 + u, lpr);
+#pragma unroll
+            for (int q = 0; q < CPL; ++q) {
+              if (live && ok[q]) {
+                const T* fs = static_cast<const T*>(term.fs) +
+                              s * term.fs_row + hq[q] * term.fs_head + fc[q];
+                xv[u][q] = add_vec(xv[u][q], ld_term(fs, fc[q], term));
+              }
+            }
           }
         }
         float d[CPL][U];   // this lane's partial dots, vector q, slot u
@@ -1151,6 +1459,46 @@ slot_finish_kernel(const float* __restrict__ sm,
   }
 }
 
+// acc + the dot of two 4-float vectors, one fma at a time
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// d(ef)'s 4 values from column f0 of a slot's row o, fe columns wide: one
+// 16-byte store where fe is a multiple of 4, else those below fe
+__device__ __forceinline__ void store_def(float* o, int f0, float4 a,
+                                          int fe) {
+  if (fe % 4 == 0) {
+    *reinterpret_cast<float4*>(o + f0) = a;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (f0 + i < fe) o[f0 + i] = elem(a, i);
+  }
+}
+
+// K10 v2's terms in the ds pass: the edge dot (kDot: ef (slots, efq) and
+// Zp (num_dst, H, efq) in 16-byte vectors zero past Fe) and d(ef) (kDef:
+// p (B, H, C) through its strides, Zp, M^T (H, efq) as Zp, d(ef) (slots,
+// fe))
+struct DefArgs {
+  const float* p;
+  long long p_bs, p_hs, p_cs;
+  const float4* zp;
+  const float4* mt;
+  int efq, fe;
+  float* d_ef;
+  const float4* ef;
+};
+// d(ef)'s vectors a thread sums at once; with kDot, the most edge-feature
+// vectors a thread keeps in registers (KQ: 4 or 8, Fe <= 16 or 32), so
+// that the dot and d(ef) share one read of Zp[dst]
+constexpr int kDefVecs = 8;
+
 // K6's ds from the walk's scratch, a thread a slot s = b * cap + c, its
 // heads VEC at a time (VEC = 4 where H is a multiple of 4: the scratch,
 // rp and a slot-major out in 16-byte vectors): ds[b, h, c] = ((the sum
@@ -1158,7 +1506,17 @@ slot_finish_kernel(const float* __restrict__ sm,
 // * g[b, h, c] * scale, dst(s) = dst_tile[b] * tile + dst_local[s]; 0
 // where entry is -1 (a padded slot: neither rp nor g is read).  Written
 // at out[(b * H + h) * cap + c], or at out[s * H + h] (kSlotMajor).
-template <int VEC, bool kSlotMajor>
+// K10 v2's terms, a head at a time (VEC 1): with kDot the edge dot
+// ef[s] . Zp[dst, h] joins the parts' sum before rp is subtracted (ef's
+// row read in slot order, coalesced; Zp[dst] a row of the bucket's dst
+// tile); with kDef the thread also writes the slot's d(ef)[s, f] = sum
+// over h of p[s, h] Zp[dst, h, f] + ds[s, h] M[f, h], its Fe values in
+// vectors of 4, 0 at a padded slot: where Fe <= 4 KQ in the same loop as
+// the dot (ef and the sums in registers, Zp[dst, h] read once), else up
+// to kDefVecs vectors at once after the heads (ds read back from this
+// thread's stores).
+template <int VEC, bool kSlotMajor, bool kDef = false, bool kDot = false,
+          int KQ = kDefVecs>
 __global__ void __launch_bounds__(256)
 ds_finish_kernel(const float* __restrict__ sm,
                  const int* __restrict__ entry,
@@ -1167,7 +1525,7 @@ ds_finish_kernel(const float* __restrict__ sm,
                  long long slots, int heads, int parts,
                  long long part_stride, int cap,
                  const float* __restrict__ rp, const float* __restrict__ g,
-                 float scale, float* __restrict__ out) {
+                 float scale, float* __restrict__ out, const DefArgs def) {
   using V = typename Vec<VEC>::T;
   for (long long s = blockIdx.x * 256LL + threadIdx.x; s < slots;
        s += static_cast<long long>(gridDim.x) * 256) {
@@ -1178,7 +1536,68 @@ ds_finish_kernel(const float* __restrict__ sm,
         k >= 0 ? static_cast<long long>(dst_tile[b]) * tile + dst_local[s]
                : 0;
     const float* p = sm + static_cast<long long>(k) * heads;
-    for (int h0 = 0; h0 < heads; h0 += VEC) {
+    const long long c = s - b * cap;
+    // kDot and Fe <= 32: d(ef) summed beside the dot (uniform in the grid)
+    const bool fused = kDot && def.efq <= KQ;
+    if constexpr (kDot) {
+      float4 er[KQ], acc[KQ];
+#pragma unroll
+      for (int j = 0; j < KQ; ++j) {
+        er[j] = k >= 0 && fused && j < def.efq
+                    ? __ldg(def.ef + s * def.efq + j)
+                    : zero_vec<float4>();
+        acc[j] = zero_vec<float4>();
+      }
+      for (int h = 0; h < heads; ++h) {
+        float v = 0.f;
+        if (k >= 0) {
+          v = p[h];
+          for (int j = 1; j < parts; ++j) v += p[j * part_stride + h];
+          const float4* zr = def.zp + (dst * heads + h) * def.efq;
+          float4 zv[KQ];
+          float e = 0.f;
+          if (fused) {
+#pragma unroll
+            for (int j = 0; j < KQ; ++j) {
+              if (j >= def.efq) break;
+              zv[j] = __ldg(zr + j);
+              e = dot4(er[j], zv[j], e);
+            }
+          } else {
+            for (int j = 0; j < def.efq; ++j)
+              e = dot4(__ldg(def.ef + s * def.efq + j), __ldg(zr + j), e);
+          }
+          v = (v + e - __ldg(rp + dst * heads + h)) *
+              __ldg(g + at + h * static_cast<long long>(cap));
+          v *= scale;
+          if (kDef && fused) {
+            const float pv =
+                __ldg(def.p + b * def.p_bs + h * def.p_hs + c * def.p_cs);
+            const float4* mr = def.mt + h * def.efq;
+#pragma unroll
+            for (int j = 0; j < KQ; ++j) {
+              if (j >= def.efq) break;
+              fma_into(reinterpret_cast<float*>(acc + j), pv, zv[j]);
+              fma_into(reinterpret_cast<float*>(acc + j), v, __ldg(mr + j));
+            }
+          }
+        }
+        if constexpr (kSlotMajor) {
+          out[s * heads + h] = v;
+        } else {
+          out[at + h * static_cast<long long>(cap)] = v;
+        }
+      }
+      if (kDef && fused) {
+        float* o = def.d_ef + s * def.fe;
+#pragma unroll
+        for (int j = 0; j < KQ; ++j) {
+          if (j >= def.efq) break;
+          store_def(o, 4 * j, acc[j], def.fe);
+        }
+      }
+    }
+    for (int h0 = 0; !kDot && h0 < heads; h0 += VEC) {
       float v[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) v[i] = 0.f;
@@ -1209,25 +1628,54 @@ ds_finish_kernel(const float* __restrict__ sm,
           out[at + (h0 + i) * static_cast<long long>(cap)] = v[i];
       }
     }
+    if (kDef && !fused) {
+      float* o = def.d_ef + s * def.fe;
+      for (int j0 = 0; j0 < def.efq; j0 += kDefVecs) {
+        float4 acc[kDefVecs];
+#pragma unroll
+        for (int j = 0; j < kDefVecs; ++j) acc[j] = zero_vec<float4>();
+        for (int h = 0; k >= 0 && h < heads; ++h) {
+          const float pv =
+              __ldg(def.p + b * def.p_bs + h * def.p_hs + c * def.p_cs);
+          const float dv =
+              kSlotMajor ? out[s * heads + h]
+                         : out[at + h * static_cast<long long>(cap)];
+          const float4* zr = def.zp + (dst * heads + h) * def.efq + j0;
+          const float4* mr = def.mt + h * def.efq + j0;
+#pragma unroll
+          for (int j = 0; j < kDefVecs; ++j) {
+            if (j0 + j >= def.efq) break;
+            fma_into(reinterpret_cast<float*>(acc + j), pv, __ldg(zr + j));
+            fma_into(reinterpret_cast<float*>(acc + j), dv, __ldg(mr + j));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kDefVecs; ++j) {
+          if (j0 + j >= def.efq) break;
+          store_def(o, 4 * (j0 + j), acc[j], def.fe);
+        }
+      }
+    }
   }
 }
 
-template <int CPL, bool kVattn>
+template <int CPL, bool kVattn, bool kStore = false, typename T = float>
 cudaError_t launch_row_sddmm(const int* ptr, const int* nbr, const int* order,
                              int rows, const float* x, const float* z, int f,
                              int hstride, int heads, int hv, int lph, int cph,
                              int lpr, float* out, int ostride, int* counter,
                              const float* attn, float slope,
-                             cudaStream_t stream) {
+                             cudaStream_t stream,
+                             const DsTerm& term = DsTerm{}) {
   unsigned blocks = 0;
   const cudaError_t err = persistent_blocks(
-      row_sddmm_kernel<CPL, kVattn>, kWarps * 32,
+      row_sddmm_kernel<CPL, kVattn, kStore, T>, kWarps * 32,
       ((static_cast<long long>(rows) * lpr + 31) / 32 + kWarps - 1) / kWarps,
       &blocks);
   if (err != cudaSuccess) return err;
-  row_sddmm_kernel<CPL, kVattn><<<blocks, kWarps * 32, 0, stream>>>(
+  row_sddmm_kernel<CPL, kVattn, kStore, T><<<blocks, kWarps * 32, 0, stream>>>(
       ptr, nbr, order, rows, x, z, f, hstride, heads, hv, lph, cph, lpr, out,
-      ostride, counter, attn, slope);
+      ostride, counter, attn, slope, term);
   return cudaGetLastError();
 }
 
@@ -1426,22 +1874,67 @@ cudaError_t node_grad_attrs(int* regs, int* local_bytes) {
   return cudaSuccess;
 }
 
-template <int VEC, bool kSlotMajor>
+template <int VEC, bool kSlotMajor, bool kDef, bool kDot, int KQ = kDefVecs>
 cudaError_t launch_ds_finish(const void* sm, const void* entry,
                              const void* dst_local, const void* dst_tile,
                              int64_t tile, int64_t slots, int64_t heads,
                              int64_t parts, int64_t part_stride, int64_t cap,
                              const void* rp, const void* g, float scale,
-                             void* out, int64_t blocks, cudaStream_t stream) {
-  ds_finish_kernel<VEC, kSlotMajor><<<static_cast<unsigned>(blocks), 256, 0,
-                                      stream>>>(
+                             void* out, int64_t blocks, cudaStream_t stream,
+                             const DefArgs& def) {
+  ds_finish_kernel<VEC, kSlotMajor, kDef, kDot, KQ>
+      <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
       static_cast<const float*>(sm), static_cast<const int*>(entry),
       static_cast<const int*>(dst_local), static_cast<const int*>(dst_tile),
       static_cast<int>(tile), slots, static_cast<int>(heads),
       static_cast<int>(parts), part_stride, static_cast<int>(cap),
       static_cast<const float*>(rp), static_cast<const float*>(g), scale,
-      static_cast<float*>(out));
+      static_cast<float*>(out), def);
   return cudaGetLastError();
+}
+
+// dgl_ds_finish's launch, with K10 v2's edge term where def.ef is not
+// null (and its d(ef) where def.d_ef is not)
+cudaError_t ds_finish_launch(const void* sm, const void* entry,
+                             const void* dst_local, const void* dst_tile,
+                             int64_t tile, int64_t slots, int64_t heads,
+                             int64_t parts, int64_t part_stride, int64_t cap,
+                             const void* rp, const void* g, double scale,
+                             void* out, int64_t slot_major, int64_t vec,
+                             int64_t blocks, const DefArgs& def,
+                             int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (cap < 1 || heads < 1 || parts < 1 || blocks < 1 || !sm || !entry ||
+      (vec != 1 && vec != 4) || heads % vec != 0 || part_stride % vec != 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_DS_FINISH(V_, SM_, DEF_, DOT_, KQ_)                            \
+  return launch_ds_finish<V_, SM_, DEF_, DOT_, KQ_>(                       \
+      sm, entry, dst_local, dst_tile, tile, slots, heads, parts,           \
+      part_stride, cap, rp, g, static_cast<float>(scale), out, blocks, s,  \
+      def);
+#define DGL_DS_EDGE(SM_, DEF_)                                             \
+  {                                                                        \
+    if (def.efq <= 4) DGL_DS_FINISH(1, SM_, DEF_, true, 4)                 \
+    DGL_DS_FINISH(1, SM_, DEF_, true, kDefVecs)                            \
+  }
+  if (def.ef != nullptr) {  // K10 v2: a head at a time
+    if (def.d_ef != nullptr) {
+      if (slot_major) DGL_DS_EDGE(true, true)
+      DGL_DS_EDGE(false, true)
+    }
+    if (slot_major) DGL_DS_EDGE(true, false)
+    DGL_DS_EDGE(false, false)
+  }
+  if (vec == 4) {
+    if (slot_major) DGL_DS_FINISH(4, true, false, false, kDefVecs)
+    DGL_DS_FINISH(4, false, false, false, kDefVecs)
+  }
+  if (slot_major) DGL_DS_FINISH(1, true, false, false, kDefVecs)
+  DGL_DS_FINISH(1, false, false, false, kDefVecs)
+#undef DGL_DS_EDGE
+#undef DGL_DS_FINISH
 }
 
 template <int VEC, int CPL>
@@ -1503,6 +1996,115 @@ FeGrad fe_grad_instance(int64_t vec, int64_t cpl, int64_t kf) {
       return fe_grad_kf<32>(vec, cpl);
     default:
       return nullptr;
+  }
+}
+
+// K10 v1's ds walk (kStore), one launch of the wrapper's plan
+template <typename T>
+cudaError_t row_sddmm_store_by_cpl(int64_t cpl, const int* ptr, const int* nbr,
+                                  const int* order, int rows, const float* x,
+                                  const float* z, int f, int hstride,
+                                  int heads, int hv, int lph, int cph,
+                                  int lpr, float* out, int ostride,
+                                  int* counter, const DsTerm& term,
+                                  cudaStream_t stream) {
+#define DGL_TERM_CASE(C_)                                                  \
+  case C_:                                                                 \
+    return launch_row_sddmm<C_, false, true, T>(                           \
+        ptr, nbr, order, rows, x, z, f, hstride, heads, hv, lph, cph, lpr, \
+        out, ostride, counter, nullptr, 0.f, stream, term);
+  switch (cpl) {
+    DGL_TERM_CASE(1)
+    DGL_TERM_CASE(2)
+    DGL_TERM_CASE(4)
+    DGL_TERM_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DGL_TERM_CASE
+}
+
+// The slot walk's operands beside the view
+struct SlotArgs {
+  const int *ptr, *slot, *nbr, *order;
+  int rows;
+  const float* w;
+  int cap, w_bs, w_hs, w_cs, head_cols;
+  const float* node;
+  void* t;
+  int t_cols, f, lpr, n_chunks;
+  float* out;
+  int* counter;
+};
+
+// the slot walk's instance at (VEC, CPL, kMode, T): launched with a, or
+// (a null) its registers, local bytes and resident blocks an SM in attrs
+template <int VEC, int CPL, int kMode, typename T>
+cudaError_t row_slot_call(const SlotArgs* a, int* attrs,
+                          cudaStream_t stream) {
+  const auto kernel = row_slot_kernel<VEC, CPL, kMode, T>;
+  if (a == nullptr) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    attrs[0] = attr.numRegs;
+    attrs[1] = static_cast<int>(attr.localSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(attrs + 2, kernel,
+                                                         kWarps * 32, 0);
+  }
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_blocks(
+      kernel, kWarps * 32,
+      ((static_cast<long long>(a->rows) * a->n_chunks * a->lpr + 31) / 32 +
+       kWarps - 1) / kWarps,
+      &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWarps * 32, 0, stream>>>(
+      a->ptr, a->slot, a->nbr, a->order, a->rows, a->w, a->cap, a->w_bs,
+      a->w_hs, a->w_cs, a->head_cols, a->node, static_cast<T*>(a->t),
+      a->t_cols, a->f, a->lpr, a->n_chunks, a->out, a->counter);
+  return cudaGetLastError();
+}
+
+// the layouts the slot walk takes: 4 floats a load with 1 or 2 vectors a
+// lane, or 1 with 1, 2 or 4 (at most 8 columns a lane)
+template <int kMode, typename T>
+cudaError_t row_slot_layout(int64_t vec, int64_t cpl, const SlotArgs* a,
+                            int* attrs, cudaStream_t s) {
+  if (vec == 4 && cpl == 1) return row_slot_call<4, 1, kMode, T>(a, attrs, s);
+  if (vec == 4 && cpl == 2) return row_slot_call<4, 2, kMode, T>(a, attrs, s);
+  if (vec == 1 && cpl == 1) return row_slot_call<1, 1, kMode, T>(a, attrs, s);
+  if (vec == 1 && cpl == 2) return row_slot_call<1, 2, kMode, T>(a, attrs, s);
+  if (vec == 1 && cpl == 4) return row_slot_call<1, 4, kMode, T>(a, attrs, s);
+  return cudaErrorInvalidValue;
+}
+
+// mode 1-5 (the C API's codes) and the stored tensor's dtype (1 f32, 2
+// bf16; K10 v2's edge features are f32)
+cudaError_t row_slot_mode(int64_t mode, int64_t dtype, int64_t vec,
+                          int64_t cpl, const SlotArgs* a, int* attrs,
+                          cudaStream_t s) {
+  const bool bf = dtype == 2;
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
+  switch (mode) {
+    case kSlotFeat:
+      if (bf) return cudaErrorInvalidValue;
+      return row_slot_layout<kSlotFeat, float>(vec, cpl, a, attrs, s);
+    case kSlotFe:
+      return bf ? row_slot_layout<kSlotFe, __nv_bfloat16>(vec, cpl, a, attrs,
+                                                          s)
+                : row_slot_layout<kSlotFe, float>(vec, cpl, a, attrs, s);
+    case kSlotDxDfe:
+      return bf ? row_slot_layout<kSlotDxDfe, __nv_bfloat16>(vec, cpl, a,
+                                                             attrs, s)
+                : row_slot_layout<kSlotDxDfe, float>(vec, cpl, a, attrs, s);
+    case 4:
+    case 5:
+      return bf ? row_slot_layout<kSlotVec, __nv_bfloat16>(vec, cpl, a, attrs,
+                                                           s)
+                : row_slot_layout<kSlotVec, float>(vec, cpl, a, attrs, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -1643,6 +2245,46 @@ int dgl_row_fe_grad_attrs(int64_t vec, int64_t cpl, int64_t kf,
                                                        kWarps * 32, 0);
 }
 
+// K10 v1's ds by the dot-product walk, one launch of the wrapper's plan
+// (dgl_row_sddmm's arguments, x = x, z = zn), the walk also reading slot
+// (the view's slot of each entry): x[nbr]'s 4 columns from c of head h
+// gain fs[slot * fs_row + h * fs_head + c] (fs at the launch's first head
+// and column, dtype 1 f32 or 2 bf16; 0 past fs_cols columns of a head),
+// read 4 at a time where fs_vec (then 16- or 8-byte aligned).
+int dgl_row_sddmm_store(const void* ptr, const void* nbr, const void* order,
+                        int64_t rows, const void* x, const void* z, int64_t f,
+                        int64_t hstride, int64_t heads, int64_t hv,
+                        int64_t lph, int64_t cph, int64_t lpr, void* out,
+                        int64_t ostride, void* counter, int64_t cpl,
+                        const void* slot, const void* fs, int64_t fs_dtype,
+                        int64_t fs_row, int64_t fs_head, int64_t fs_cols,
+                        int64_t fs_vec, int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lph < 1 ||
+      lpr % lph != 0 || (lph & (lph - 1)) != 0 || cph < 1 ||
+      (cph & (cph - 1)) != 0 || hv < 1 || hv > hstride || heads < 1 ||
+      (heads - 1) * hstride * 4 + hv * 4 > f || ostride < heads ||
+      cpl < cph * ((heads + lpr / lph - 1) / (lpr / lph)) || !slot || !fs ||
+      (fs_dtype != 1 && fs_dtype != 2))
+    return cudaErrorInvalidValue;
+  const DsTerm term{static_cast<const int*>(slot), fs, fs_row,
+                    static_cast<int>(fs_head), static_cast<int>(fs_cols),
+                    static_cast<int>(fs_vec)};
+#define DGL_STORE_ARGS                                                      \
+  cpl, static_cast<const int*>(ptr), static_cast<const int*>(nbr),          \
+      static_cast<const int*>(order), static_cast<int>(rows),               \
+      static_cast<const float*>(x), static_cast<const float*>(z),           \
+      static_cast<int>(f), static_cast<int>(hstride),                       \
+      static_cast<int>(heads), static_cast<int>(hv),                        \
+      static_cast<int>(lph), static_cast<int>(cph), static_cast<int>(lpr),  \
+      static_cast<float*>(out), static_cast<int>(ostride),                  \
+      static_cast<int*>(counter), term, static_cast<cudaStream_t>(stream)
+  if (fs_dtype == 1) return row_sddmm_store_by_cpl<float>(DGL_STORE_ARGS);
+  return row_sddmm_store_by_cpl<__nv_bfloat16>(DGL_STORE_ARGS);
+#undef DGL_STORE_ARGS
+}
+
 // K4's SDDMM by dst rows, one launch of the wrapper's plan: for every
 // entry k of row r, <x[nbr[k], h, :hv * 4], z[r, h, :hv * 4]> at out[k *
 // ostride + h], h < heads; x (num_nbr rows) and z (rows) f32, 16-byte
@@ -1724,24 +2366,126 @@ int dgl_ds_finish(const void* sm, const void* entry, const void* dst_local,
                   int64_t cap, const void* rp, const void* g, double scale,
                   void* out, int64_t slot_major, int64_t vec, int64_t blocks,
                   int64_t device, void* stream) {
+  return ds_finish_launch(sm, entry, dst_local, dst_tile, tile, slots, heads,
+                          parts, part_stride, cap, rp, g, scale, out,
+                          slot_major, vec, blocks, DefArgs{}, device, stream);
+}
+
+// K10 v2's ds pass: dgl_ds_finish with the edge term, a head at a time:
+// ds[b, h, c] = ((the sum over the parts at entry[s]) + ef[s] . zp[dst,
+// h] - rp[dst, h]) * g[b, h, c] * scale, and with d_ef not null at every
+// slot s d_ef[s, f] (slots, fe) f32 = the sum over h of p[s, h] zp[dst,
+// h, f] + ds[s, h] mt[h, f]; both 0 where entry is -1.  ef (slots, 4 efq)
+// in slot order, zp (num_dst, heads, 4 efq) and mt (heads, 4 efq) f32,
+// 16-byte aligned, zero past fe; p (slots / cap, heads, cap) f32 read at
+// b * p_bs + h * p_hs + c * p_cs; d_ef 16-byte aligned.  vec is 1.
+int dgl_ds_finish_edge(const void* sm, const void* entry,
+                      const void* dst_local, const void* dst_tile,
+                      int64_t tile, int64_t slots, int64_t heads,
+                      int64_t parts, int64_t part_stride, int64_t cap,
+                      const void* rp, const void* g, double scale, void* out,
+                      int64_t slot_major, int64_t vec, const void* p,
+                      int64_t p_bs, int64_t p_hs, int64_t p_cs,
+                      const void* zp, const void* mt, int64_t efq,
+                      int64_t fe, void* d_ef, const void* ef,
+                      int64_t blocks, int64_t device, void* stream) {
+  if (!zp || !ef || efq < 1 || fe > 4 * efq || fe < 1 || vec != 1 ||
+      (d_ef && (!p || !mt || reinterpret_cast<uintptr_t>(d_ef) % 16 != 0)))
+    return cudaErrorInvalidValue;
+  const DefArgs def{static_cast<const float*>(p), p_bs, p_hs, p_cs,
+                    static_cast<const float4*>(zp),
+                    static_cast<const float4*>(mt), static_cast<int>(efq),
+                    static_cast<int>(fe), static_cast<float*>(d_ef),
+                    static_cast<const float4*>(ef)};
+  return ds_finish_launch(sm, entry, dst_local, dst_tile, tile, slots, heads,
+                          parts, part_stride, cap, rp, g, scale, out,
+                          slot_major, vec, blocks, def, device, stream);
+}
+
+// The slot walk over the rows of a view (K10 v1's numerator and dx with
+// dfe, K11 v1's node sums, K10 v2's slot-feature reduce): out (rows, f)
+// f32, every element written, out[r, j] = the sum over row r's entries k
+// (slot s = slot[k] = b * cap + c, neighbour n = nbr[k]), in entry order,
+// of the mode's term, with w[b * w_bs + (j / head_cols) * w_hs + c * w_cs]
+// the weight of j's head and t (slots, t_cols) the stored slot tensor of
+// dtype 1 (f32) or 2 (bf16), read and written at 64-bit offsets:
+//   mode 1: w * t[s, j % t_cols] (K10 v2's S and Q, t = ef, f32);
+//   mode 2: w * (node[n, j] + t[s, j]) (K10 v1's numerator, node = x);
+//   mode 3: w * node[n, j], also written at t[s, j] (K10 v1's dx and dfe,
+//     node = zn), and then t's rows at the slots whose valid is 0 (of the
+//     slots slots) set to 0 by a second launch, zero_blocks blocks of 256
+//     threads;
+//   mode 4, 5: t[s, j] (K11 v1's dFNJ by dst and dFNI by src; w and node
+//     null).
+// node (num_nbr, f) f32.  vec (4: 16-byte loads; cpl 1 or 2 — or 1: cpl
+// 1, 2 or 4) divides head_cols, t_cols and f; lpr (a power of two up to
+// 32) lanes a row; the f / vec vectors in n_chunks chunks of lpr * cpl.
+// counter is one int, zeroed by the caller.
+int dgl_row_slot(const void* ptr, const void* slot, const void* nbr,
+                 const void* order, int64_t rows, const void* w, int64_t cap,
+                 int64_t w_bs, int64_t w_hs, int64_t w_cs, int64_t head_cols,
+                 const void* node, void* t, int64_t dtype, int64_t t_cols,
+                 int64_t f, void* out, void* counter, int64_t vec,
+                 int64_t cpl, int64_t lpr, int64_t n_chunks, int64_t mode,
+                 const void* valid, int64_t slots, int64_t zero_blocks,
+                 int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const bool weighted = mode >= 1 && mode <= 3;
+  const bool reads_node = mode == 2 || mode == 3;
+  const int64_t es = dtype == 2 ? 2 : 4;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || cap < 1 ||
+      n_chunks < 1 || t_cols < 1 || f < 1 || head_cols < 1 ||
+      head_cols % vec != 0 || t_cols % vec != 0 || f % vec != 0 || !t ||
+      (w != nullptr) != weighted || (node != nullptr) != reads_node ||
+      (mode == 3 && (!valid || zero_blocks < 1)) ||
+      (mode != 1 && t_cols != f) ||
+      reinterpret_cast<uintptr_t>(t) % (es * vec) != 0 ||
+      (node && reinterpret_cast<uintptr_t>(node) % (4 * vec) != 0))
+    return cudaErrorInvalidValue;
+  const SlotArgs a{static_cast<const int*>(ptr),
+                   static_cast<const int*>(slot),
+                   static_cast<const int*>(nbr),
+                   static_cast<const int*>(order),
+                   static_cast<int>(rows),
+                   static_cast<const float*>(w),
+                   static_cast<int>(cap),
+                   static_cast<int>(w_bs),
+                   static_cast<int>(w_hs),
+                   static_cast<int>(w_cs),
+                   static_cast<int>(head_cols),
+                   static_cast<const float*>(node),
+                   t,
+                   static_cast<int>(t_cols),
+                   static_cast<int>(f),
+                   static_cast<int>(lpr),
+                   static_cast<int>(n_chunks),
+                   static_cast<float*>(out),
+                   static_cast<int*>(counter)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = row_slot_mode(mode, dtype, vec, cpl, &a, nullptr, s);
+  if (err != cudaSuccess || mode != 3) return err;
+  const unsigned blocks = static_cast<unsigned>(zero_blocks);
+  if (dtype == 2) {
+    slot_zero_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(valid), slots,
+        static_cast<__nv_bfloat16*>(t), static_cast<int>(f));
+  } else {
+    slot_zero_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(valid), slots, static_cast<float*>(t),
+        static_cast<int>(f));
+  }
+  return cudaGetLastError();
+}
+
+// registers a thread, local-memory bytes a thread and resident blocks an
+// SM of the slot walk's instance at (mode, dtype, vec, cpl): three ints.
+int dgl_row_slot_attrs(int64_t mode, int64_t dtype, int64_t vec, int64_t cpl,
+                       int64_t device, void* attrs) {
   const cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  if (cap < 1 || heads < 1 || parts < 1 || blocks < 1 || !sm || !entry ||
-      (vec != 1 && vec != 4) || heads % vec != 0 || part_stride % vec != 0)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DGL_DS_FINISH(V_, SM_)                                             \
-  return launch_ds_finish<V_, SM_>(sm, entry, dst_local, dst_tile, tile,  \
-                                   slots, heads, parts, part_stride, cap, \
-                                   rp, g, static_cast<float>(scale), out, \
-                                   blocks, s);
-  if (vec == 4) {
-    if (slot_major) DGL_DS_FINISH(4, true)
-    DGL_DS_FINISH(4, false)
-  }
-  if (slot_major) DGL_DS_FINISH(1, true)
-  DGL_DS_FINISH(1, false)
-#undef DGL_DS_FINISH
+  return row_slot_mode(mode, dtype, vec, cpl, nullptr,
+                       static_cast<int*>(attrs), nullptr);
 }
 
 // K6's slot reduce by rows: out (rows, heads), every element written,

@@ -93,10 +93,15 @@ its message (out = sum p (x[src] + fe) / den).  fe is never formed: with M
 
 M, S . We, Zp and dWe are node-sized products outside the kernels.  Three
 edge variants of the K6 kernels serve it: :func:`edgegat_scores` (p, g),
-:func:`slot_feat_reduce` (S with w = p, and with w = ds for Q: the
-tiled walk of ``src_agg_kernel`` by dst tile over the H * Fe columns) and
-:func:`edgegat_ds` (ds and, when autograd asks for it, d(ef)); den, der,
-del, the node numerator and dx are K6's reduce, K4's SpMM and K6's dx.
+:func:`slot_feat_reduce` (S with w = p, and with w = ds for Q: the slot
+walk of ``csrc/row_agg.cu`` by dst over the H * Fe columns, each entry's
+edge-feature row read at its slot) and :func:`edgegat_ds` (ds and, when
+autograd asks for it, d(ef): K6's dot-product walk by dst, then a
+finishing pass that adds ef[slot] . Zp[dst, h] and applies the epilogue,
+and writes d(ef) in the same loop); den, der, del, the node numerator and
+dx are K6's reduce, K4's SpMM and K6's dx.  The forward lays p out
+slot-major once, and the den reduce, K4's SpMM, S and the backward's dx
+read that copy.
 
 The v1 functions of EGATConv (K11 v1, ``egatconv_attention_aggregate``
 :1253) and EdgeGAT (K10 v1, ``edgegat_attention_aggregate`` :1524) take
@@ -109,9 +114,13 @@ kernels serve them: :func:`egatc_scores` (p) and :func:`egatc_slot_grad`
 (da and dFE = dW per slot), stored-term variants of K9's in
 ``csrc/gatv2.cu``; :func:`slot_vec_reduce` (dFE summed per dst node for
 dFNJ and per src node for dFNI), :func:`fe_aggregate` (K10 v1's
-numerator), :func:`fe_ds` (its ds) and :func:`dx_dfe` (dx, writing dfe =
-p zn[dst] per slot on the way), modes and variants of K6's kernels in
-``csrc/gat_fused.cu``.  K10 v1's scores, den, der and del are K6's.
+numerator) and :func:`dx_dfe` (dx, writing dfe = p zn[dst] per slot on
+the way), modes of the slot walk of ``csrc/row_agg.cu`` (a group of lanes
+a row of the side's row view, the stored row read or written at each
+entry's slot, each sum in registers in slot order), and :func:`fe_ds`
+(its ds), the dot-product walk by dst with the stored row added to
+x[src].  K10 v1's scores, den, der and del are K6's; its forward lays p
+out slot-major once for den, the numerator and the backward's dx.
 
 The edge features stay (B, C, Fe) in slot order (:func:`slot_edge_tensor`)
 and Wf is (Fe, H * D), or (Fe + 1, H * D) with the bias as its last row;
@@ -149,12 +158,6 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "dgl_gat_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _I, _I, ctypes.c_double, _P, _P, _I, _I, _P],
-    "dgl_gat_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
-                   _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
-    "dgl_slot_feat_reduce": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I,
-                             _I, _I, _I, _P],
-    "dgl_slot_agg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
-                     _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 _VATTN_SIGNATURES = {
     "dgl_vattn_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -170,7 +173,6 @@ _VATTN_SIGNATURES = {
     "dgl_vattn_slot_grad_mma_attrs": [_I, _I, _I, _I, _I, _P],
 }
 _SCORES_THREADS = 256       # csrc/gat_fused.cu kScoresThreads
-_DS_WARPS = 8               # csrc/gat_fused.cu kDsWarps
 _VATTN_WARPS = 8            # csrc/gatv2.cu kWarps
 _SLICE_WARPS = 4            # csrc/gatv2.cu kSliceWarps: 32-column slices
 _GRAD_CHUNK = 32            # csrc/gatv2.cu kChunk: slots a staged chunk
@@ -184,35 +186,6 @@ def _launch(fn: str, *args, source: str = "gat_fused"):
     err = getattr(lib, fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
-
-
-def _group(f: int, tile: int) -> int:
-    """Columns a block of the tiled walk (``src_agg_kernel``) keeps per
-    row, lanes a slot: the narrowest of 8, 16, 32 that covers F, within
-    the shared memory of a (tile, group) f32 block."""
-    g = 8 if f <= 8 else 16 if f <= 16 else 32
-    while g > 8 and tile * g * 4 > _SMEM_PER_BLOCK:
-        g //= 2
-    if tile * g * 4 > _SMEM_PER_BLOCK:
-        raise ValueError(f"tile {tile} is too large for the kernels' "
-                         "shared-memory accumulator")
-    return g
-
-
-def _group_per_sm(g: int, tile: int) -> int:
-    """Blocks of a (tile, g) shared-memory accumulator that fit an SM at
-    once, with the registers of 512 threads at g = 32."""
-    return max(1, min(2 if g <= 16 else 1, _SMEM_PER_BLOCK // (tile * g * 4)))
-
-
-def _splits(tf: ts.TiledFormat, n_tiles: int, blocks_per_tile: int,
-            per_sm: int, device) -> int:
-    """Splits of each tile's buckets over blocks: about two waves of the
-    ``per_sm`` blocks that fit an SM at once, each split keeping about 4
-    buckets or more of its tile."""
-    want = -(-2 * ts._sms(device) * per_sm // max(n_tiles * blocks_per_tile,
-                                                  1))
-    return max(1, min(want, tf.num_buckets // max(4 * n_tiles, 1), 65535))
 
 
 def _slot_shape(tf: ts.TiledFormat, heads: int):
@@ -720,34 +693,20 @@ edgegat_scores.launches = 0
 def slot_feat_reduce(tf: ts.TiledFormat, w_slot, ef_slot):
     """K10 v2 slot-feature reduce: (num_dst, H, Fe) f32, out[v, h, :] = sum
     over the valid slots with dst v of w_slot[b, h, c] * ef_slot[b, c, :];
-    ``w_slot`` (B, H, C), ``ef_slot`` (B, C, Fe).  The H * Fe columns are
-    walked in chunks that fit a block's shared memory (``src_agg_kernel``'s
-    tiled walk)."""
+    ``w_slot`` (B, H, C), ``ef_slot`` (B, C, Fe).  On CUDA tensors the slot
+    walk by dst (``tiled_spmm.slot_walk``): a group of lanes a dst row of
+    the H * Fe columns, each entry's edge-feature row read at its slot by
+    every head's lanes, ``w_slot`` read through its strides (one sector a
+    slot where it is slot-major, as the forward's copy of p is)."""
     heads = w_slot.shape[1] if w_slot.ndim == 3 else -1
     _check_slots(tf, w_slot, heads, "w_slot")
     fe = _check_edge(tf, ef_slot)
     if not on_cuda(w_slot, ef_slot, tf.valid):
         return slot_feat_reduce_plain(tf, w_slot, ef_slot)
-    f = heads * fe
-    b, n_dt = tf.num_buckets, tf.num_dst_tiles
-    ts._check_int32(b * heads * tf.cap, b * tf.cap * max(fe, 1),
-                    n_dt * tf.tile * f)
-    g = _group(f, tf.tile)
-    splits = _splits(tf, n_dt, -(-f // g), _group_per_sm(g, tf.tile),
-                     w_slot.device)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc(tf.num_dst, heads, fe, dtype=torch.float32,
-                device=w_slot.device)
-    if n_dt == 0 or f == 0:
-        return out.zero_()
-    w, ef = _f32(w_slot), _f32(ef_slot)
-    _launch("dgl_slot_feat_reduce", tf.dst_local.data_ptr(),
-            tf.valid.data_ptr(), w.data_ptr(), heads, fe,
-            tf.dst_ptr.data_ptr(), n_dt, tf.tile, tf.cap, ef.data_ptr(),
-            out.data_ptr(), tf.num_dst, g, splits, w.device.index,
-            ts._stream(w.device))
+    out = _slot_walk(tf, ts.SLOT_FEAT, _f32(ef_slot), heads, fe,
+                     w_slot.float())
     slot_feat_reduce.launches += 1
-    return out
+    return out.view(tf.num_dst, heads, fe)
 
 
 slot_feat_reduce.launches = 0
@@ -783,37 +742,72 @@ def edgegat_ds(tf: ts.TiledFormat, x3, zn, rp, g, ef_slot, zp, p=None,
         extra = (p, m)
     if not on_cuda(x3, zn, rp, g, ef_slot, zp, tf.valid, *extra):
         return edgegat_ds_plain(tf, x3, zn, rp, g, ef_slot, zp, p, m)
-    b = tf.num_buckets
-    hf = heads * fh
-    ts._check_int32(b * heads * tf.cap, tf.num_src_tiles * tf.tile * hf,
-                    tf.num_dst_tiles * tf.tile * hf,
-                    tf.num_dst_tiles * tf.tile * heads * fe,
-                    b * tf.cap * max(fe, 1))
+    ts._check_int32(tf.num_buckets * tf.cap * max(fe, 1),
+                    tf.num_dst * heads * max(fe, 1))
+    return _edge_ds(tf, x3, zn, rp, g, edgegat_ds, ef_slot=ef_slot, zp=zp,
+                    p=p, m=m)
+
+
+edgegat_ds.launches = 0
+
+
+def _edge_ds(tf: ts.TiledFormat, x3, zn, rp, g, wrapper, ef_slot=None,
+             zp=None, p=None, m=None, fe_s=None):
+    """K10's ds on CUDA tensors, counted on ``wrapper``: (ds (B, H, C),
+    d_ef (B, C, Fe) or None).  The dot-product walk by dst writes the
+    entry-major scratch of <x[src], zn[dst]> per head (K10 v1: the stored
+    ``fe_s`` (B, C, H * Fh) row added to x[src] at the entry's slot,
+    ``tiled_spmm.sddmm_store_dots``); csrc ``ds_finish_kernel`` adds its
+    parts, subtracts rp[dst] once, multiplies by g and writes every slot.
+    K10 v2 (``ef_slot``, ``zp``): the pass adds ef[s] . zp[dst, h] to the
+    sum first, ef read in slot order, and with ``p`` and ``m`` writes
+    d(ef) in the same loop over the heads (``dgl_ds_finish_edge``: p read
+    through its strides).  Without edge features the term is 0."""
+    heads, fh = x3.shape[1], x3.shape[2]
+    b, cap = tf.num_buckets, tf.cap
+    slots = b * cap
+    ts._check_int32(slots * heads, tf.num_dst * heads)
     dev = x3.device
     ds = torch.empty(_slot_shape(tf, heads), dtype=torch.float32, device=dev)
     d_ef = (None if p is None else
             torch.empty(ef_slot.shape, dtype=torch.float32, device=dev))
-    if heads == 0:
-        return ds, None if d_ef is None else d_ef.zero_()
-    x, z, r, gg = _f32(x3), _f32(zn), _f32(rp), _f32(g)
-    ef, zq = _f32(ef_slot), _f32(zp)
-    pp, mm = (None, None) if p is None else (_f32(p), _f32(m))
-    chunks = b * tf.cap // 32
-    blocks = max(1, min(-(-chunks // _DS_WARPS), 16 * ts._sms(dev)))
-    _launch("dgl_gat_ds", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
-            tf.valid.data_ptr(), tf.src_tile.data_ptr(),
-            tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
-            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh,
-            ef.data_ptr(), zq.data_ptr(), fe,
-            0 if pp is None else pp.data_ptr(),
-            0 if mm is None else mm.data_ptr(),
-            0 if d_ef is None else d_ef.data_ptr(), 0, 0, ds.data_ptr(),
-            ts._lanes_per_head(heads), blocks, dev.index, ts._stream(dev))
-    edgegat_ds.launches += 1
+    view = tf.row_view("dst")
+    if slots == 0 or heads == 0 or view.slot.numel() == 0:
+        return ds.zero_(), None if d_ef is None else d_ef.zero_()
+    hp = -(-fh // 4) * 4
+    x, z = ts._vec4_rows(x3, hp), ts._vec4_rows(zn, hp)
+    if fe_s is None:
+        sm, parts = ts.sddmm_dots(view, x, z)
+    else:
+        sm, parts = ts.sddmm_store_dots(view, x, z, fe_s.view(slots, -1), fh)
+    r, gg = _f32(rp), _f32(g)
+    fe = 0 if ef_slot is None else ef_slot.shape[2]
+    args = (sm.data_ptr(), view.entries(slots).data_ptr(),
+            tf.dst_local.data_ptr(), tf.dst_tile.data_ptr(), tf.tile, slots,
+            heads, parts, sm.shape[1], cap, r.data_ptr(), gg.data_ptr(), 1.0,
+            ds.data_ptr(), 0)
+    tail = (ts.finish_blocks(slots, dev), dev.index, ts._stream(dev))
+    if not fe:
+        ts._launch("dgl_ds_finish", *args, ts.finish_vec(heads, sm, r, ds),
+                   *tail)
+        if d_ef is not None:
+            d_ef.zero_()
+    else:
+        ef, efq = ts.edge_rows(ef_slot)
+        zq = ts._vec4_rows(zp, 4 * efq)
+        pp = mt = None
+        if d_ef is not None:
+            pp = p.float()
+            mt = torch.zeros(heads, 4 * efq, dtype=torch.float32, device=dev)
+            mt[:, :fe] = m.float().t()
+        ts._launch("dgl_ds_finish_edge", *args, 1,
+                   None if pp is None else pp.data_ptr(),
+                   *((0, 0, 0) if pp is None else pp.stride()),
+                   zq.data_ptr(), None if mt is None else mt.data_ptr(), efq,
+                   fe, None if d_ef is None else d_ef.data_ptr(),
+                   ef.data_ptr(), *tail)
+    wrapper.launches += 1
     return ds, d_ef
-
-
-edgegat_ds.launches = 0
 
 
 def _check_vattn(tf: ts.TiledFormat, U3, V3, attn, ef_slot, wf):
@@ -1140,9 +1134,7 @@ vattn_node_grad_da.launches = 0
 vattn_node_grad.launches = 0
 
 
-# what csrc/gat_fused.cu's dgl_slot_agg sums (its AggMode)
-_AGG_FE, _AGG_DX_DFE, _AGG_VEC_DST, _AGG_VEC_SRC = 2, 3, 4, 5
-_STORE_CODES = {torch.float32: 1, torch.bfloat16: 2}
+_STORE_CODES = ts.STORED_DTYPES
 
 
 def _check_stored(tf: ts.TiledFormat, t, width: int, what: str):
@@ -1157,37 +1149,23 @@ def _check_stored(tf: ts.TiledFormat, t, width: int, what: str):
     return t.contiguous()
 
 
-def _slot_agg(tf: ts.TiledFormat, mode: int, t, heads: int, head_cols: int,
-              w=None, z=None):
-    """Launch ``src_agg_kernel``'s tiled walk in ``mode`` over the stored
-    slot tensor ``t`` (B, C, heads * head_cols): (rows, heads * head_cols)
-    f32, rows the src nodes (by src tile) or the dst nodes (by dst tile)."""
-    src = mode in (_AGG_DX_DFE, _AGG_VEC_SRC)
-    if src:
-        _require_src_first(tf)
+def _slot_walk(tf: ts.TiledFormat, mode: int, t, heads: int, head_cols: int,
+               w=None, z=None):
+    """The slot walk (``tiled_spmm.slot_walk``) in ``mode`` over the
+    stored slot tensor ``t`` (B, C, t_cols): (rows, heads * head_cols) f32,
+    rows the mode's side's nodes; ``w`` (B, H, C) f32 in any strides, ``z``
+    the node operand (neighbours, heads, head_cols) f32 contiguous."""
     f = heads * head_cols
-    rows = tf.num_src if src else tf.num_dst
-    n_t = tf.num_src_tiles if src else tf.num_dst_tiles
-    ts._check_int32(tf.num_buckets * heads * tf.cap,
-                    tf.num_src_tiles * tf.tile * f,
-                    tf.num_dst_tiles * tf.tile * f)
-    dev = t.device
-    g = _group(f, tf.tile)
-    splits = _splits(tf, n_t, -(-f // g), _group_per_sm(g, tf.tile), dev)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc(rows, f, dtype=torch.float32, device=dev)
-    if n_t == 0 or f == 0:
-        if mode == _AGG_DX_DFE:
+    rows = tf.num_src if ts.SLOT_SIDES[mode] == "src" else tf.num_dst
+    ts._check_int32(tf.num_buckets * heads * tf.cap, rows * f)
+    out = torch.empty(rows, f, dtype=torch.float32, device=t.device)
+    if rows == 0 or f == 0 or tf.num_buckets == 0:
+        if mode == ts.SLOT_DX_DFE:
             t.zero_()
         return out.zero_()
-    _launch("dgl_slot_agg", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
-            tf.valid.data_ptr(), 0 if w is None else w.data_ptr(), heads,
-            head_cols, tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(),
-            tf.src_order.data_ptr() if src else 0,
-            (tf.src_ptr if src else tf.dst_ptr).data_ptr(), n_t, tf.tile,
-            tf.cap, 0 if z is None else z.data_ptr(), t.data_ptr(),
-            _STORE_CODES[t.dtype], f, out.data_ptr(), rows, g, splits, mode,
-            dev.index, ts._stream(dev))
+    ts.slot_walk(tf, mode, t.view(tf.num_buckets * tf.cap, -1), out, w=w,
+                 node=None if z is None else z.view(z.shape[0], f),
+                 head_cols=head_cols)
     return out
 
 
@@ -1264,8 +1242,9 @@ egatc_slot_grad.launches = 0
 def slot_vec_reduce(tf: ts.TiledFormat, t_slot, side: str = "dst"):
     """K11 v1 slot vector sum: (num_rows, F) f32, the sum of the rows of
     ``t_slot`` (B, C, F), f32 or bf16, over the valid slots of each dst
-    node (``side="dst"``: dFNJ) or src node (``side="src"``: dFNI, walking
-    ``src_order``)."""
+    node (``side="dst"``: dFNJ) or src node (``side="src"``: dFNI).  On
+    CUDA tensors the slot walk of the side's row view, each entry's row
+    read at its slot."""
     if side not in ("dst", "src"):
         raise ValueError(f"side must be 'dst' or 'src', got {side!r}")
     width = t_slot.shape[-1] if t_slot.ndim == 3 else -1
@@ -1274,8 +1253,8 @@ def slot_vec_reduce(tf: ts.TiledFormat, t_slot, side: str = "dst"):
         _require_src_first(tf)
     if not on_cuda(t_slot, tf.valid):
         return slot_vec_reduce_plain(tf, t_slot, side)
-    out = _slot_agg(tf, _AGG_VEC_SRC if side == "src" else _AGG_VEC_DST, t,
-                    1, width)
+    out = _slot_walk(tf, ts.SLOT_VEC_SRC if side == "src"
+                     else ts.SLOT_VEC_DST, t, 1, width)
     slot_vec_reduce.launches += 1
     return out
 
@@ -1287,14 +1266,15 @@ def fe_aggregate(tf: ts.TiledFormat, x3, fe_slot, p):
     """K10 v1 numerator: (num_dst, H, Fh) f32, out[v, h] = sum over the
     valid slots with dst v of p[b, h, c] * (x3[src, h] + fe_slot[b, c, h]);
     ``x3`` (num_src, H, Fh), ``fe_slot`` (B, C, H * Fh), f32 or bf16, and
-    ``p`` (B, H, C)."""
+    ``p`` (B, H, C).  On CUDA tensors the slot walk by dst (p read through
+    its strides, each entry's row of fe_slot at its slot)."""
     ts._check_operand(tf, x3, tf.num_src, 3, "x3")
     heads, fh = x3.shape[1], x3.shape[2]
     fe_s = _check_stored(tf, fe_slot, heads * fh, "fe_slot")
     _check_slots(tf, p, heads, "p")
     if not on_cuda(x3, fe_slot, p, tf.valid):
         return fe_aggregate_plain(tf, x3, fe_slot, p)
-    out = _slot_agg(tf, _AGG_FE, fe_s, heads, fh, _f32(p), _f32(x3))
+    out = _slot_walk(tf, ts.SLOT_FE, fe_s, heads, fh, p.float(), _f32(x3))
     fe_aggregate.launches += 1
     return out.view(tf.num_dst, heads, fh)
 
@@ -1305,7 +1285,8 @@ fe_aggregate.launches = 0
 def fe_ds(tf: ts.TiledFormat, x3, fe_slot, zn, rp, g):
     """K10 v1 ds: (B, H, C) f32, (<x3[src, h] + fe_slot[b, c, h], zn[dst,
     h]> - rp[dst, h]) * g at valid slots and 0 at padded ones; ``fe_slot``
-    (B, C, H * Fh), f32 or bf16."""
+    (B, C, H * Fh), f32 or bf16.  On CUDA tensors the dot-product walk by
+    dst with the entry's stored row added to x[src] (:func:`_edge_ds`)."""
     heads, fh = x3.shape[1], x3.shape[2]
     ts._check_operand(tf, x3, tf.num_src, 3, "x3")
     ts._check_operand(tf, zn, tf.num_dst, 3, "zn")
@@ -1317,26 +1298,10 @@ def fe_ds(tf: ts.TiledFormat, x3, fe_slot, zn, rp, g):
     fe_s = _check_stored(tf, fe_slot, heads * fh, "fe_slot")
     if not on_cuda(x3, fe_slot, zn, rp, g, tf.valid):
         return fe_ds_plain(tf, x3, fe_slot, zn, rp, g)
-    b = tf.num_buckets
-    hf = heads * fh
-    ts._check_int32(b * heads * tf.cap, tf.num_src_tiles * tf.tile * hf,
-                    tf.num_dst_tiles * tf.tile * hf)
-    ds = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
-                     device=x3.device)
-    if hf == 0:
-        return ds.zero_()
-    x, z, r, gg = _f32(x3), _f32(zn), _f32(rp), _f32(g)
-    blocks = max(1, min(-(-(b * tf.cap // 32) // _DS_WARPS),
-                        16 * ts._sms(x.device)))
-    _launch("dgl_gat_ds", tf.src_local.data_ptr(), tf.dst_local.data_ptr(),
-            tf.valid.data_ptr(), tf.src_tile.data_ptr(),
-            tf.dst_tile.data_ptr(), b, tf.tile, tf.cap, x.data_ptr(),
-            z.data_ptr(), r.data_ptr(), gg.data_ptr(), heads, fh, 0, 0, 0, 0,
-            0, 0, fe_s.data_ptr(), _STORE_CODES[fe_s.dtype], ds.data_ptr(),
-            ts._lanes_per_head(heads), blocks, x.device.index,
-            ts._stream(x.device))
-    fe_ds.launches += 1
-    return ds
+    if heads * fh == 0:
+        return torch.zeros(_slot_shape(tf, heads), dtype=torch.float32,
+                           device=x3.device)
+    return _edge_ds(tf, x3, zn, rp, g, fe_ds, fe_s=fe_s)[0]
 
 
 fe_ds.launches = 0
@@ -1345,7 +1310,9 @@ fe_ds.launches = 0
 def dx_dfe(tf: ts.TiledFormat, zn, p, dtype=torch.float32):
     """K10 v1 dx: (dx (num_src, H, Fh) f32, dfe (B, C, H * Fh) of
     ``dtype``, f32 or bf16): dx[src] = sum p zn[dst] and, on the same
-    walk, dfe[b, c] = p[b, :, c] * zn[dst] (0 at padded slots)."""
+    walk, dfe[b, c] = p[b, :, c] * zn[dst] (0 at padded slots).  On CUDA
+    tensors the slot walk by src, which writes each entry's dfe row at its
+    slot, then a pass over the padded slots alone for their zeros."""
     _require_src_first(tf)
     ts._check_operand(tf, zn, tf.num_dst, 3, "zn")
     heads, fh = zn.shape[1], zn.shape[2]
@@ -1356,7 +1323,7 @@ def dx_dfe(tf: ts.TiledFormat, zn, p, dtype=torch.float32):
         return dx_dfe_plain(tf, zn, p, dtype)
     dfe = torch.empty(tf.num_buckets, tf.cap, heads * fh, dtype=dtype,
                       device=zn.device)
-    dx = _slot_agg(tf, _AGG_DX_DFE, dfe, heads, fh, _f32(p), _f32(zn))
+    dx = _slot_walk(tf, ts.SLOT_DX_DFE, dfe, heads, fh, p.float(), _f32(zn))
     dx_dfe.launches += 1
     return dx.view(tf.num_src, heads, fh), dfe
 
@@ -1490,9 +1457,12 @@ def edgegat_v2_forward(tf: ts.TiledFormat, el2, er2, ef_slot, We, attn_e,
     Fh), p_slot, g_slot, den (num_dst, H), S (num_dst, H, Fe)), ``den``
     clamped at 1e-20.  The edge message fe = ef . We_h of each slot is
     never formed: its logit is ef . M and its share of the numerator S .
-    We_h, with S = sum p ef per dst."""
+    We_h, with S = sum p ef per dst.  p is returned as its slot-major copy
+    (a (B, H, C) view), which den, K4's SpMM and S read, and the backward's
+    dx after them."""
     w3, m = _edge_mats(We, attn_e, H, Fh)
     p, g = edgegat_scores(tf, el2, er2, ef_slot, m, slope)
+    p = _slot_major(p)
     den, num = _den_num(tf, p, x3, H, Fh)
     s = slot_feat_reduce(tf, p, ef_slot)
     num = num + torch.einsum("vhf,fhd->vhd", s, w3)
@@ -1562,8 +1532,11 @@ def edgegat_forward(tf: ts.TiledFormat, el2, er2, ee_slot, fe_slot, x3,
     """EdgeGAT v1 forward (``edgegat_forward`` :1345): (out (num_dst, H,
     Fh), p_slot, g_slot, den (num_dst, H)), ``den`` clamped at 1e-20; raw =
     el2[src] + er2[dst] + ee_slot, and each slot's message is x3[src] plus
-    its stored ``fe_slot`` (B, C, H * Fh) row."""
+    its stored ``fe_slot`` (B, C, H * Fh) row.  p is returned as its
+    slot-major copy (a (B, H, C) view), which den, the numerator and the
+    backward's dx read."""
     p, g = gat_scores(tf, el2, er2, slope, ee_slot)
+    p = _slot_major(p)
     den = slot_reduce(tf, p, "dst").clamp_(min=DEN_EPS)
     num = fe_aggregate(tf, x3, fe_slot, p)
     return num / den.unsqueeze(-1), p, g, den

@@ -45,7 +45,11 @@ the same function:
 
 The same row views serve K6's slot reduce (``gat_fused.slot_reduce``):
 :func:`row_reduce` sums a (B, H, C) slot tensor over each row's entries
-(csrc ``row_reduce_kernel``).
+(csrc ``row_reduce_kernel``); the slot walk (:func:`slot_walk`, csrc
+``row_slot_kernel``) sums rows read at each entry's slot (K10 v1's
+numerator and dx with dfe, K11 v1's node sums, K10 v2's slot-feature
+reduce); and the dot-product walk with K10 v1's stored row read at the
+entry's slot (:func:`sddmm_store_dots`) gives its ds.
 
 The row view (:class:`RowView`, ``TiledFormat.row_view``) lists the valid
 slots of one side's rows: per row, ascending slot id, the flat slot and
@@ -532,6 +536,16 @@ _SIGNATURES = {
                             _P],
         "dgl_ds_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                           ctypes.c_double, _P, _I, _I, _I, _I, _P],
+        "dgl_ds_finish_edge": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                               _P, ctypes.c_double, _P, _I, _I, _P, _I, _I,
+                               _I, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+        "dgl_row_sddmm_store": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _P],
+        "dgl_row_slot": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                         _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
+                         _I, _P],
+        "dgl_row_slot_attrs": [_I, _I, _I, _I, _I, _P],
         "dgl_row_reduce": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
         "dgl_row_reduce_attrs": [_I, _I, _I, _P]},
@@ -746,12 +760,10 @@ def pad_heads(t: torch.Tensor, hp: int) -> torch.Tensor:
     return p
 
 
-def edge_operands(ef_slot, wf, heads: int, hp: int):
-    """The edge term as the node-gradient walk takes it (``row_walk``'s
-    ``edge``): ef (slots, 4 fq) f32 in slot order, each row padded with
-    zeros to whole 16-byte vectors; fq; wf's first Fe rows and the bias row
-    (or None) with each head's columns padded to ``hp``; Fe; and
-    :func:`fe_kf`."""
+def edge_rows(ef_slot):
+    """(ef (slots, 4 fq) f32 in slot order, each row padded with zeros to
+    whole 16-byte vectors (a copy unless it is so already), fq): the edge
+    features as the walks read them, a 16-byte vector at a time."""
     fe = ef_slot.shape[2]
     fq = -(-fe // 4)
     ef = ef_slot.float().reshape(-1, fe)
@@ -759,6 +771,16 @@ def edge_operands(ef_slot, wf, heads: int, hp: int):
         ef = torch.nn.functional.pad(ef, (0, 4 * fq - fe))
     else:
         ef = ef.contiguous()
+    return ef, fq
+
+
+def edge_operands(ef_slot, wf, heads: int, hp: int):
+    """The edge term as the node-gradient walk takes it (``row_walk``'s
+    ``edge``): ef and fq (:func:`edge_rows`); wf's first Fe rows and the
+    bias row (or None) with each head's columns padded to ``hp``; Fe; and
+    :func:`fe_kf`."""
+    fe = ef_slot.shape[2]
+    ef, fq = edge_rows(ef_slot)
     wf = wf.float().reshape(wf.shape[0], heads, -1)
     # a copy of its own: the walk loads it as own's rows, aligned alike
     bias = (pad_heads(wf[fe:], hp).reshape(-1).clone() if wf.shape[0] > fe
@@ -825,6 +847,89 @@ def row_aggregate(tf: TiledFormat, side: str, y3: torch.Tensor,
     if with_da:
         return out, da.view(heads, hp)[:, :hc].contiguous()
     return out
+
+
+# the slot walk's modes (csrc/row_agg.cu dgl_row_slot), each with the side
+# whose rows it sums
+SLOT_FEAT, SLOT_FE, SLOT_DX_DFE, SLOT_VEC_DST, SLOT_VEC_SRC = 1, 2, 3, 4, 5
+SLOT_SIDES = {SLOT_FEAT: "dst", SLOT_FE: "dst", SLOT_DX_DFE: "src",
+              SLOT_VEC_DST: "dst", SLOT_VEC_SRC: "src"}
+STORED_DTYPES = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def slot_layout(f: int, cols, *aligned: torch.Tensor):
+    """(vec, cpl, lpr, n_chunks) of the slot walk over ``f`` columns: 4
+    floats a load where every width of ``cols`` (the head's columns, the
+    stored row's) is a multiple of 4 and each tensor of ``aligned`` allows
+    it (its rows' loads 4 elements wide), else 1; lanes a row (the f / vec
+    vectors rounded up to a power of two, at most 32); vectors a lane (at
+    most 2 of 4 floats or 4 of 1: 8 columns, each entry in flight keeping
+    a weight and two vectors) and the column chunks."""
+    vec = 4 if all(c % 4 == 0 for c in cols) and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in aligned) else 1
+    nv = f // vec
+    lpr = 1
+    while lpr < min(nv, 32):
+        lpr *= 2
+    cpl, max_cpl = 1, 2 if vec == 4 else 4
+    while cpl < max_cpl and lpr * cpl < nv:
+        cpl *= 2
+    return vec, cpl, lpr, -(-nv // (lpr * cpl))
+
+
+def slot_walk(tf: TiledFormat, mode: int, t: torch.Tensor, out: torch.Tensor,
+              w: torch.Tensor = None, node: torch.Tensor = None,
+              head_cols: int = None, fn=None):
+    """One slot walk (csrc ``row_slot_kernel``) over the rows of the
+    mode's side (SLOT_SIDES): out (rows, f) f32 contiguous, out[r, j] =
+    the sum over row r's entries (slot s, neighbour n), in slot order, of
+    w[b, h, c] * t[s, j % t_cols] (SLOT_FEAT), w[b, h, c] * (node[n, j] +
+    t[s, j]) (SLOT_FE), w[b, h, c] * node[n, j], also written at t[s, j]
+    with t's rows at the padded slots set to 0 (SLOT_DX_DFE), or t[s, j]
+    (SLOT_VEC_*), h = j // ``head_cols``.  CUDA tensors: ``t`` (slots,
+    t_cols) f32 or bf16 (SLOT_FEAT: f32) contiguous; ``w`` (B, H, cap) f32
+    in any strides, read in place (one sector a slot where slot-major);
+    ``node`` (neighbours, f) f32 contiguous.  ``fn``: the C function to
+    launch in place of ``dgl_row_slot`` (a probe's).  Counts nothing."""
+    view = tf.row_view(SLOT_SIDES[mode])
+    f, t_cols = out.shape[1], t.shape[1]
+    head_cols = f if head_cols is None else head_cols
+    slots = tf.num_buckets * tf.cap
+    vec, cpl, lpr, n_chunks = slot_layout(
+        f, (head_cols, t_cols), t, *(() if node is None else (node,)))
+    w_strides = (0, 0, 0) if w is None else tuple(w.stride())
+    _check_int32(out.numel(), 0 if node is None else node.numel(),
+                 0 if w is None else sum((n - 1) * st for n, st in
+                                         zip(w.shape, w.stride())),
+                 view.rows * n_chunks + 2048 * _sms(out.device))
+    counter = torch.zeros(1, dtype=torch.int32, device=out.device)
+    args = (view.ptr.data_ptr(), view.slot.data_ptr(), view.nbr.data_ptr(),
+            view.order.data_ptr(), view.rows,
+            None if w is None else w.data_ptr(), tf.cap, *w_strides,
+            head_cols, None if node is None else node.data_ptr(),
+            t.data_ptr(), STORED_DTYPES[t.dtype], t_cols, f, out.data_ptr(),
+            counter.data_ptr(), vec, cpl, lpr, n_chunks, mode,
+            tf.valid.data_ptr(), slots, finish_blocks(slots, out.device),
+            out.device.index, _stream(out.device))
+    if fn is None:
+        _launch("dgl_row_slot", *args)
+    elif fn(*args) != 0:
+        raise RuntimeError("dgl_row_slot failed to launch")
+
+
+def slot_kernel_attrs(mode: int, dtype, vec: int, cpl: int, device=None):
+    """(registers a thread, local-memory bytes a thread, resident blocks an
+    SM) of the slot walk's instance for ``mode`` over a stored tensor of
+    ``dtype`` at ``vec`` and ``cpl``, from ``cudaFuncGetAttributes`` and
+    the occupancy calculator."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_slot_attrs(mode, STORED_DTYPES[dtype], vec, cpl,
+                                 device.index or 0, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_slot_attrs: CUDA error {err}")
+    return out[0], out[1], out[2]
 
 
 def reduce_layout(heads: int, vec: int, degree: float):
@@ -1085,6 +1190,40 @@ def sddmm_dots(view: RowView, x: torch.Tensor, z: torch.Tensor,
             off = 4 * (launch[0] * hp + 4 * launch[2])
             _launch("dgl_row_vattn", *args[:-2], attn.data_ptr() + off,
                     float(slope), *args[-2:], source="row_agg")
+    return sm, parts
+
+
+def sddmm_store_dots(view: RowView, x: torch.Tensor, z: torch.Tensor,
+                     fe_s: torch.Tensor, dim: int):
+    """(sm, parts): :func:`sddmm_dots` with K10 v1's stored message added to
+    x, by ``dgl_row_sddmm_store``, the walk also reading each entry's
+    slot: x[nbr, h, d] gains fe_s[slot, h * dim + d] for d < ``dim``,
+    ``fe_s`` (slots, H * dim) f32 or bf16 contiguous.  ``x``, ``z`` as
+    :func:`_sddmm_args` takes them.  Counts nothing."""
+    heads, hp = x.shape[1], x.shape[2]
+    if hp % 4 or z.shape[1:] != x.shape[1:] or fe_s.shape[1] != heads * dim:
+        raise ValueError(f"x {tuple(x.shape)}, z {tuple(z.shape)} and fe_s "
+                         f"{tuple(fe_s.shape)} need one (H, hp), hp a "
+                         "multiple of 4, and H * dim stored columns")
+    e = view.slot.numel()
+    plan, parts = _sddmm_plan(heads, hp // 4)
+    _check_int32(x.numel(), z.numel(), e * heads,
+                 view.rows + 2048 * _sms(x.device))
+    sm = torch.empty(parts, e * heads, dtype=torch.float32, device=x.device)
+    if e == 0:
+        return sm, parts
+    es = fe_s.element_size()
+    fs_vec = int(dim % 4 == 0 and fe_s.data_ptr() % (4 * es) == 0)
+    counters = torch.zeros(len(plan), dtype=torch.int32, device=x.device)
+    for i, launch in enumerate(plan):
+        h0, _, v0, _, _ = launch
+        args = _sddmm_args(view, view.nbr, x, z, sm[launch[4]], heads,
+                           counters[i], launch)
+        args = (*args[:-2], view.slot.data_ptr(),
+                fe_s.data_ptr() + es * (h0 * dim + 4 * v0),
+                STORED_DTYPES[fe_s.dtype], heads * dim, dim, dim - 4 * v0,
+                fs_vec, *args[-2:])
+        _launch("dgl_row_sddmm_store", *args)
     return sm, parts
 
 

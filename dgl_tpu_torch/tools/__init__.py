@@ -16,8 +16,13 @@ walks (:mod:`.perf_reduce_k3`), the one that times K7's dz and K11 v2's
 slot gradient (:mod:`.perf_dz_slot_grad`) and the one that times K7's dq
 and K11 v2's node gradient (:mod:`.perf_dq_node_grad`) beside the
 kernels they replaced and edits of their own, all called from
-``chip_smoke.py``'s yardsticks.  Each runs as ``python -m
-dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import."""
+``chip_smoke.py``'s yardsticks, and the one that times K10's and K11
+v1's slot walks and K10's edge ds beside the bucket walks they replaced
+(:mod:`.perf_slot_walks`).  Each runs as ``python -m
+dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import.  The
+retired tiled walks' launch arithmetic (:func:`tile_group`,
+:func:`tile_group_per_sm`, :func:`tile_splits`) lives here, shared by the
+probes that launch them as the package once did."""
 import ctypes
 import hashlib
 import os
@@ -27,6 +32,8 @@ import subprocess
 import torch
 
 from ..ops.kernels import build
+
+SMEM_PER_BLOCK = 232_448   # shared memory a block may use on Hopper
 
 
 def cuda_ms(fn, reps=5):
@@ -112,3 +119,32 @@ def build_edited(source: str, sources: dict, signatures: dict) -> dict:
             f.restype = ctypes.c_int
             fns[name][fn] = f
     return fns
+
+
+def tile_group(f: int, tile: int) -> int:
+    """Columns a block of a retired tiled walk keeps per row, lanes a slot:
+    the narrowest of 8, 16, 32 that covers F, within the shared memory of a
+    (tile, group) f32 block."""
+    g = 8 if f <= 8 else 16 if f <= 16 else 32
+    while g > 8 and tile * g * 4 > SMEM_PER_BLOCK:
+        g //= 2
+    if tile * g * 4 > SMEM_PER_BLOCK:
+        raise ValueError(f"tile {tile} is too large for the tiled walks' "
+                         "shared-memory accumulator")
+    return g
+
+
+def tile_group_per_sm(g: int, tile: int) -> int:
+    """Blocks of a (tile, g) shared-memory accumulator that fit an SM at
+    once, with the registers of 512 threads at g = 32."""
+    return max(1, min(2 if g <= 16 else 1, SMEM_PER_BLOCK // (tile * g * 4)))
+
+
+def tile_splits(tf, n_tiles: int, blocks_per_tile: int, per_sm: int,
+                device) -> int:
+    """Splits of each tile's buckets over blocks: about two waves of the
+    ``per_sm`` blocks that fit an SM at once, each split keeping about 4
+    buckets or more of its tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-2 * sms * per_sm // max(n_tiles * blocks_per_tile, 1))
+    return max(1, min(want, tf.num_buckets // max(4 * n_tiles, 1), 65535))

@@ -41,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, cuda_ms, edited_source
+from . import tile_group, tile_group_per_sm, tile_splits
 from . import perf_dq_node_grad as tdq
 from ..ops.kernels import bitgat as tbg
 from ..ops.kernels import gat_fused as tgf
@@ -276,8 +277,8 @@ def tiled_node_grad(tf, U3, V3, attn, ds, slope: float, side: str):
     n_rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
     dev = U3.device
-    g = tgf._group(hd, tf.tile)
-    splits = tgf._splits(tf, n_t, -(-hd // g), tgf._group_per_sm(g, tf.tile),
+    g = tile_group(hd, tf.tile)
+    splits = tile_splits(tf, n_t, -(-hd // g), tile_group_per_sm(g, tf.tile),
                          dev)
     out = (torch.zeros if splits > 1 else torch.empty)(
         n_rows, heads, dim, dtype=torch.float32, device=dev)

@@ -46,6 +46,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, edited_source
+from . import tile_group, tile_group_per_sm, tile_splits
 from ..ops.kernels import bitdot as tbd
 from ..ops.kernels import gat_fused as tgf
 from ..ops.kernels import tiled_spmm as tts
@@ -156,8 +157,8 @@ def tiled_node_grad(tf, U3, V3, attn, ds, slope: float, side: str, ef_slot,
     n_rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
     dev = U3.device
-    g = tgf._group(hd, tf.tile)
-    splits = tgf._splits(tf, n_t, -(-hd // g), tgf._group_per_sm(g, tf.tile),
+    g = tile_group(hd, tf.tile)
+    splits = tile_splits(tf, n_t, -(-hd // g), tile_group_per_sm(g, tf.tile),
                          dev)
     out = (torch.zeros if splits > 1 else torch.empty)(
         n_rows, heads, dim, dtype=torch.float32, device=dev)
@@ -183,7 +184,7 @@ def tiled_attrs(heads: int, dim: int, rows: int, side: str, tile: int,
     device = torch.device("cuda") if device is None else torch.device(device)
     out = (ctypes.c_int * 2)()
     _check(build_probe()["retired"]["dgl_probe_node_grad_attrs"](
-        tgf._group(heads * dim, tile), int(side == "src"),
+        tile_group(heads * dim, tile), int(side == "src"),
         tgf._fe_cap(rows), device.index or 0, ctypes.addressof(out)),
         "dgl_probe_node_grad_attrs")
     return out[0], out[1]

@@ -3,10 +3,12 @@ timed beside the design that replaced it, in one run on the card:
 
 * K6's ds (``gat_ds``): the dot-product walk by dst with its epilogue in
   the finishing pass (``csrc/row_agg.cu`` ``row_sddmm_kernel``,
-  ``ds_finish_kernel``) beside the bucket walk it replaced, ``gat_ds_kernel``
-  of ``csrc/gat_fused.cu`` without an edge term (its mode 0, instantiated
-  again by the edit ``BUCKET_DS``): a warp a 32-slot chunk of a bucket,
-  x[src] and zn[dst] gathered with scalar loads, the epilogue per slot;
+  ``ds_finish_kernel``) beside the bucket walk it replaced,
+  ``gat_ds_kernel`` without an edge term (its mode 0, instantiated again
+  by the edit ``BUCKET_DS`` of ``tools/slot_walks_probe.cu``, where the
+  kernel's edge modes went when K10's ds left it): a warp a 32-slot chunk
+  of a bucket, x[src] and zn[dst] gathered with scalar loads, the epilogue
+  per slot;
 * K9's da (``vattn_slot_grad`` without the edge term): the node-gradient
   walk by dst with da folded in (``row_agg_kernel<VEC, CPL, true, true>``)
   beside the tiled walk it replaced, ``vattn_slot_grad_kernel<C, float,
@@ -34,11 +36,12 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, edited_source
+from . import perf_slot_walks as tsl
 from ..ops.kernels import gat_fused as tgf
 from ..ops.kernels import tiled_spmm as tts
 
-# csrc/gat_fused.cu with gat_ds_kernel's instance without an edge term
-# (mode 0) back in its switch
+# tools/slot_walks_probe.cu with gat_ds_kernel's instance without an edge
+# term (mode 0) back in its switch
 BUCKET_DS = [("  switch (mode) {\n    case 1:\n"
               "      return launch_ds<L, true, false, float, false>",
               "  switch (mode) {\n    case 0:\n"
@@ -61,14 +64,15 @@ _LOCK = threading.Lock()
 
 
 def edited_sources():
-    """(``csrc/gat_fused.cu`` with BUCKET_DS, ``csrc/gatv2.cu`` with
-    TILED_DA)."""
-    return (edited_source("gat_fused", BUCKET_DS, "bucket_ds"),
+    """(``tools/slot_walks_probe.cu`` with BUCKET_DS, ``csrc/gatv2.cu``
+    with TILED_DA)."""
+    return (edited_source("slot_walks_probe", BUCKET_DS, "bucket_ds",
+                          path=tsl.PROBE_SOURCE),
             edited_source("gatv2", TILED_DA, "tiled_da"))
 
 
 def build_probe():
-    """{"bucket_ds": the edited ``gat_fused.cu``'s ``dgl_gat_ds``,
+    """{"bucket_ds": the edited probe source's ``dgl_gat_ds``,
     "tiled_da": the edited ``gatv2.cu``'s ``dgl_vattn_slot_grad``}, the two
     built side by side at the first call (a caller in another thread waits
     for it)."""
@@ -77,8 +81,10 @@ def build_probe():
             return _BUILT
         ds_src, da_src = edited_sources()
         with ThreadPoolExecutor(2) as pool:
-            ds = pool.submit(build_edited, "gat_fused", {"bucket_ds": ds_src},
-                             {"dgl_gat_ds": tgf._SIGNATURES["dgl_gat_ds"]})
+            ds = pool.submit(build_edited, "slot_walks_probe",
+                             {"bucket_ds": ds_src},
+                             {"dgl_gat_ds":
+                              tsl.RETIRED_SIGNATURES["dgl_gat_ds"]})
             da = pool.submit(build_edited, "gatv2", {"tiled_da": da_src},
                              {"dgl_vattn_slot_grad":
                               tgf._VATTN_SIGNATURES["dgl_vattn_slot_grad"]})
@@ -101,7 +107,7 @@ def bucket_ds(tf, x3, zn, rp, g):
     dev = x3.device
     ds = torch.empty(b, heads, tf.cap, dtype=torch.float32, device=dev)
     x, z, r, gg = (t.float().contiguous() for t in (x3, zn, rp, g))
-    blocks = max(1, min(-(-(b * tf.cap // 32) // tgf._DS_WARPS),
+    blocks = max(1, min(-(-(b * tf.cap // 32) // tsl.DS_WARPS),
                         16 * tts._sms(dev)))
     _check(build_probe()["bucket_ds"](
         tf.src_local.data_ptr(), tf.dst_local.data_ptr(),

@@ -41,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, edited_source
+from . import tile_group, tile_group_per_sm, tile_splits
 from ..ops.kernels import gat_fused as tgf
 from ..ops.kernels import tiled_spmm as tts
 
@@ -140,14 +141,14 @@ def tiled_reduce(tf, vals, side: str = "dst"):
     """(num_rows, H) f32, the sum of ``vals`` (B, H, C) over each dst (or
     src) node's valid slots by the tiled reduce that the row reduce
     replaced, on CUDA operands, launched as ``slot_reduce`` launched it: a
-    launch a group of heads, the splits of ``gat_fused._splits``."""
+    launch a group of heads, the splits of ``tools.tile_splits``."""
     src = side == "src"
     heads = vals.shape[1]
     dev = vals.device
     rows = tf.num_src if src else tf.num_dst
     n_t = tf.num_src_tiles if src else tf.num_dst_tiles
     group = min(heads, tgf._SMEM_PER_BLOCK // (4 * tf.tile))
-    splits = tgf._splits(tf, n_t, 1, 2, dev)
+    splits = tile_splits(tf, n_t, 1, 2, dev)
     out = (torch.zeros if splits > 1 else torch.empty)(
         rows, heads, dtype=torch.float32, device=dev)
     v = vals.float().contiguous()
@@ -169,9 +170,9 @@ def tiled_k3(tf, x, w=None):
     None for a plain sum), launched as ``tiled_spmm`` launched it."""
     f = x.shape[1]
     dev = x.device
-    g = tgf._group(f, tf.tile)
+    g = tile_group(f, tf.tile)
     n_dt = tf.num_dst_tiles
-    splits = tgf._splits(tf, n_dt, -(-f // g), tgf._group_per_sm(g, tf.tile),
+    splits = tile_splits(tf, n_dt, -(-f // g), tile_group_per_sm(g, tf.tile),
                          dev)
     out = (torch.zeros if splits > 1 else torch.empty)(
         tf.num_dst, f, dtype=torch.float32, device=dev)

@@ -1,4 +1,4 @@
-"""The row walk's instances in two checkouts of the package, side by side
+"""The row walks' instances in two checkouts of the package, side by side
 on one card: each instance's output bits and its time, so that a change
 to ``csrc/row_agg.cu`` can be shown to leave the instances it does not
 touch as they were.
@@ -8,9 +8,12 @@ random graph of 1,000,000 edges over Reddit's 232,965 nodes, its tiled
 format built on the card): K3 at F = 16, weightless and weighted; K4's
 SpMM at (4, 32), (1, 41) and (8, 8); K6's dx at (4, 32) and (1, 41);
 K9's node gradient on both sides at (8, 8) without da and by dst with
-da (its dV: da meets in L2 in no fixed order).  Inputs lie on dyadic
-grids, so every compared sum is exact and does not depend on its order:
-two checkouts that compile one instance alike give the same bits.
+da (its dV: da meets in L2 in no fixed order); and the dot-product
+walk's: K4's SDDMM at (4, 32) and (1, 41), K6's ds there in both
+layouts, K9's scores at (8, 8).  Inputs lie on dyadic grids, so every
+compared row-walk sum is exact and does not depend on its order; each
+dot-product walk sums a dot in one fixed order: two checkouts that
+compile one instance alike give the same bits.
 
 Usage, from the root of a checkout, on the card::
 
@@ -86,6 +89,17 @@ def _run(root: str):
                                                   side))
     calls["k9_node_grad_da"] = lambda: tgf.vattn_node_grad(
         tf, U, V, attn, ds, 0.25, "dst", with_da=True)
+    for heads, fh in ((4, 32), (1, 41)):
+        x, z = grid(N_NODES, heads, fh), grid(N_NODES, heads, fh)
+        rp, g = grid(N_NODES, heads), slots(heads)
+        calls[f"k4_sddmm_{heads}x{fh}"] = (
+            lambda x=x, z=z, h=heads, f=fh:
+            tts.tiled_sddmm_dot_multihead(tf, x, z, h, f))
+        for major in (False, True):
+            calls[f"k6_ds_{heads}x{fh}" + ("_slot_major" if major else "")] = (
+                lambda x=x, z=z, rp=rp, g=g, major=major:
+                tgf.gat_ds(tf, x, z, rp, g, slot_major=major).contiguous())
+    calls["k9_scores"] = lambda: tgf.vattn_scores(tf, U, V, attn, 0.25)
     digests, times = {}, {}
     for name, call in calls.items():
         got = call()

@@ -8,8 +8,9 @@ PyTorch:
 Tolerance rtol 1e-4 / atol 1e-3: f32 sums in another order, and K1's
 atomics (K5's, for the gradient of er) add in an order that changes from
 run to run.  The row walk (K3, K4's SpMM, K6's dx, K9's node gradient)
-and the row reduce (K6's den, der and del) sum each row in slot order,
-the SDDMM walk (K4's SDDMM, K6's ds) forms each dot in one lane order
+and the row reduce (K6's den, der and del) and the slot walk (K10's and
+K11 v1's sums of stored slot rows) sum each row in slot order, the SDDMM
+walk (K4's SDDMM, K6's and K10's ds) forms each dot in one lane order
 and K2 sums a row's bits in one list order; their checks take
 dyadic inputs and ask for equality.  K5's listed walk by src sums dz and
 del in registers in one order (der in L2 in none), its walk by dst out
@@ -2639,3 +2640,135 @@ def test_dq_node_grad_probe_retired_kernels(card):
         assert torch.equal(tdq.fe_walk(fwd, U, V, attn, ds, 0.25, side, ef,
                                        wf, layout=tdq.narrow_layout(4, 32)),
                            new)
+
+
+# -- K10's and K11 v1's slot walks, K10's edge ds on the dot-product walk -----
+
+def _slot_walk_grid(card, fwd, heads, dim, fe, dtype, seed):
+    """Dyadic inputs of the slot walks and the edge ds on ``fwd``: x, zn,
+    zp and the stored rows (``dtype``) multiples of 1/16 in [-1, 1], p of
+    1/16 in [0, 4] slot-major, rp, g and m of 1/16 in [-1, 1] ([-1/4, 1/4]
+    for m): every sum of a node's slots and every ds and d(ef) is exact in
+    f32, in any order."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, cap = fwd.num_buckets, fwd.cap
+    v_r, v_h = fwd.valid.view(b, cap, 1), fwd.valid.view(b, 1, cap)
+    x = _grid(card, gen, fwd.num_src, heads, dim, step=1 / 16, top=1)
+    zn = _grid(card, gen, fwd.num_dst, heads, dim, step=1 / 16, top=1)
+    st = (_grid(card, gen, b, cap, heads * dim, step=1 / 16, top=1)
+          * v_r).to(dtype)
+    p = tgf._slot_major(_grid(card, gen, b, heads, cap, step=1 / 16, top=4,
+                              low=0) * v_h)
+    ef = _grid(card, gen, b, cap, fe, step=1 / 16, top=1) * v_r
+    zp = _grid(card, gen, fwd.num_dst, heads, fe, step=1 / 16, top=1)
+    rp = _grid(card, gen, fwd.num_dst, heads, step=1 / 16, top=1)
+    g = _grid(card, gen, b, heads, cap, step=1 / 16, top=1) * v_h
+    m = _grid(card, gen, fe, heads, step=1 / 16, top=0.25)
+    return x, zn, st, p, ef, zp, rp, g, m
+
+
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 8), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slot_walks_exact_on_a_grid(card, heads, dim, dtype):
+    """The six wrappers on the slot walk and the dot-product walk, each
+    bit for bit equal to its plain version on dyadic inputs, and a second
+    launch to the same bits; dfe and d(ef) 0 at every padded slot."""
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    x, zn, st, p, ef, zp, rp, g, m = _slot_walk_grid(card, fwd, heads, dim,
+                                                     5, dtype, heads + dim)
+    pad = fwd.valid.view(fwd.num_buckets, fwd.cap) == 0
+    pairs = [(lambda: tgf.fe_aggregate(fwd, x, st, p),
+              tgf.fe_aggregate_plain(fwd, x, st, p)),
+             (lambda: tgf.dx_dfe(fwd, zn, p, dtype),
+              tgf.dx_dfe_plain(fwd, zn, p, dtype)),
+             (lambda: tgf.slot_vec_reduce(fwd, st, "dst"),
+              tgf.slot_vec_reduce_plain(fwd, st, "dst")),
+             (lambda: tgf.slot_vec_reduce(fwd, st, "src"),
+              tgf.slot_vec_reduce_plain(fwd, st, "src")),
+             (lambda: tgf.fe_ds(fwd, x, st, zn, rp, g),
+              tgf.fe_ds_plain(fwd, x, st, zn, rp, g)),
+             (lambda: tgf.slot_feat_reduce(fwd, p, ef),
+              tgf.slot_feat_reduce_plain(fwd, p, ef)),
+             (lambda: tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp),
+              tgf.edgegat_ds_plain(fwd, x, zn, rp, g, ef, zp)),
+             (lambda: tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp, p, m),
+              tgf.edgegat_ds_plain(fwd, x, zn, rp, g, ef, zp, p, m))]
+    for i, (kernel, want) in enumerate(pairs):
+        for _ in range(2):
+            got = kernel()
+            for a, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                if w is None:
+                    assert a is None
+                    continue
+                assert torch.equal(a, w), (i, float((a.float() - w.float())
+                                                    .abs().max()))
+    dfe = tgf.dx_dfe(fwd, zn, p, dtype)[1]
+    d_ef = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp, p, m)[1]
+    assert (dfe[pad] == 0).all() and (d_ef[pad] == 0).all()
+
+
+@pytest.mark.parametrize("fe", [36, 1])
+def test_edge_ds_any_feature_count(card, fe):
+    """K10 v2's ds with d(ef) past 32 edge features (the pass's d(ef) after
+    the heads, Zp read again) and at one feature: bit for bit on a grid."""
+    fwd, _, _, _ = _tiled(card)
+    x, zn, _, p, ef, zp, rp, g, m = _slot_walk_grid(card, fwd, 4, 8, fe,
+                                                    torch.float32, fe)
+    got = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp, p, m)
+    want = tgf.edgegat_ds_plain(fwd, x, zn, rp, g, ef, zp, p, m)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slot_walk_main_instances_spill_nothing(card, mode, dtype):
+    """The slot walk's instances at the main path's layouts (16-byte loads,
+    one vector a lane: 128 and 64 columns) keep every value in registers,
+    and one block an SM fits."""
+    if mode == tts.SLOT_FEAT and dtype != torch.float32:
+        pytest.skip("K10 v2's edge features are f32")
+    regs, local, per_sm = tts.slot_kernel_attrs(mode, dtype, 4, 1)
+    assert 0 < regs <= 128 and local == 0 and per_sm >= 2
+
+
+def test_slot_walks_probe_retired_kernels(card):
+    """``tools/perf_slot_walks.py`` builds the bucket walks the slot walk
+    and the edge ds replaced, and the edit half: on a grid each equals the
+    package's kernel bit for bit."""
+    from dgl_tpu_torch.tools import perf_slot_walks as tsl
+    fwd, _, _, _ = _tiled(card)
+    fwd = fwd.with_src_first()
+    heads, dim = 4, 32
+    f = heads * dim
+    x, zn, st, p, ef, zp, rp, g, m = _slot_walk_grid(card, fwd, heads, dim,
+                                                     16, torch.float32, 17)
+    pc = p.contiguous()
+    slots = fwd.num_buckets * fwd.cap
+    new = tgf.fe_aggregate(fwd, x, st, p).view(-1, f)
+    assert torch.equal(tsl.tiled_slot_agg(fwd, tts.SLOT_FE, st, heads, dim,
+                                          pc, x), new)
+    out = torch.empty_like(new)
+    tsl.slot_edit("half", fwd, tts.SLOT_FE, st.view(slots, f), out, p,
+                  x.view(-1, f), dim)
+    assert torch.equal(out, new)
+    for mode, side in ((tts.SLOT_VEC_DST, "dst"), (tts.SLOT_VEC_SRC, "src")):
+        assert torch.equal(tsl.tiled_slot_agg(fwd, mode, st, 1, f),
+                           tgf.slot_vec_reduce(fwd, st, side))
+    dx, dfe = tgf.dx_dfe(fwd, zn, p)
+    dfe_old = torch.empty_like(dfe)
+    assert torch.equal(tsl.tiled_slot_agg(fwd, tts.SLOT_DX_DFE, dfe_old,
+                                          heads, dim, pc, zn),
+                       dx.view(-1, f))
+    assert torch.equal(dfe_old, dfe)
+    assert torch.equal(tsl.tiled_feat_reduce(fwd, pc, ef),
+                       tgf.slot_feat_reduce(fwd, p, ef))
+    for extra in ((), (pc, m)):
+        old = tsl.bucket_ds(fwd, x, zn, rp, g, ef, zp, *extra)
+        new = tgf.edgegat_ds(fwd, x, zn, rp, g, ef, zp,
+                             *((p, m) if extra else ()))
+        for a, b in zip(old, new):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(tsl.bucket_ds(fwd, x, zn, rp, g, fe_s=st)[0],
+                       tgf.fe_ds(fwd, x, st, zn, rp, g))

@@ -41,6 +41,7 @@ import dgl_tpu.ops.pallas.bitmm as jbm
 import dgl_tpu.ops.pallas.tiled_spmm as jts
 import dgl_tpu_torch.ops.kernels.bitmm as tbm
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
+from sddmm_render import _launch_rendered
 
 EXACT = dict(rtol=1e-5, atol=1e-6)
 N, E, TILE, CAP = 600, 3000, 256, 128
@@ -65,83 +66,6 @@ def _coo(seed=0):
     row[:100], col[:100] = row[100:200], col[100:200]      # multi-edges
     col[200:600] = DST_HUB
     return row, col
-
-
-U_BY_CPL = {1: 8, 2: 4, 4: 2, 8: 2}     # csrc/row_agg.cu Unroll<4, CPL>
-
-
-def _launch_rendered(v, x, z, nh, nv, rows, partial=None):
-    """One launch of ``row_sddmm_kernel`` over view ``v``, lane by lane:
-    x, z (n, nh * nv, 4), the launch's heads and vectors; each row's
-    slots in rounds of U (lpr slots a step, U at a time), each lane's
-    partial dots of its vectors, a head's vectors summed in the lane, the
-    butterfly over the head's lanes (halving steps, then plain xor steps),
-    the writer lanes' stores.  ``partial(xs, zs, vq)``: a lane's partial
-    of vector vq from the gathered rows xs (m, 4) and the rows' own zs (m,
-    4) in place of the dot (K9's scores mode).  Returns [(entries, head,
-    dots)], one for each store instruction of the writers."""
-    lph, cph, lpr, cpl = tts._sddmm_layout(nh, nv)
-    u_n, hpp = U_BY_CPL[cpl], lpr // lph
-    ptr = v.ptr.numpy().astype(np.int64)
-    nbr = v.nbr.numpy()
-    n_e = len(nbr)
-    pos = np.arange(n_e) - ptr[rows]             # the entry's place in its row
-    size = min(lpr, u_n)                          # slots of a round
-    key = rows * (n_e + 1) + pos // size
-    _, rnd = np.unique(key, return_inverse=True)  # each entry's round
-    u_of = pos % size
-    n_r = rnd.max() + 1 if n_e else 0
-    entry = np.full((n_r, u_n), -1)               # the entry at (round, u)
-    entry[rnd, u_of] = np.arange(n_e)
-    lanes = np.arange(lpr)
-    hl, fl = lanes // lph, lanes % lph
-    # d[round, lane, q, u]: lane's partial dot of vector q at slot u
-    d = np.zeros((n_r, lpr, cpl, u_n), np.float32)
-    hq = np.zeros((lpr, cpl), np.int64)
-    for q in range(cpl):
-        k, j = divmod(q, cph)
-        vi = fl + j * lph
-        hq[:, q] = hl + k * hpp
-        for li in np.nonzero((hq[:, q] < nh) & (vi < nv))[0]:
-            vq = hq[li, q] * nv + vi[li]
-            live = entry >= 0
-            e = entry[live]
-            xs, zs = x[nbr[e], vq], z[rows[e], vq]
-            d[live.nonzero()[0], li, q, live.nonzero()[1]] = (
-                (xs * zs).sum(-1) if partial is None
-                else partial(xs, zs, vq))
-    sp = 1
-    while sp < cpl and sp < cph:     # a head's vectors into its first
-        for q in range(0, cpl - sp, 2 * sp):
-            d[:, :, q] += d[:, :, q + sp]
-        sp *= 2
-    lg = int(np.log2(lph))
-    steps = min(int(np.log2(u_n)), lg)
-    m, rest = u_n >> steps, lph >> steps
-    bu = np.zeros(lpr, np.int64)      # each lane's first slot of a round
-    for t in range(steps):
-        bu += ((fl >> (lg - 1 - t)) & 1) * (u_n >> (t + 1))
-    o, half = lph >> 1, u_n >> 1
-    while o and half:                 # the halving steps
-        up = ((fl & o) != 0)[None, :, None, None]
-        lo, hi = d[..., :half], d[..., half:2 * half]
-        send, keep = np.where(up, lo, hi), np.where(up, hi, lo)
-        d = d.copy()
-        d[..., :half] = keep + send[:, lanes ^ o]
-        o, half = o >> 1, half >> 1
-    while o:                          # the plain xor steps
-        d[..., 0] = d[..., 0] + d[:, lanes ^ o][..., 0]
-        o >>= 1
-    stores = []
-    for li in np.nonzero((fl & (rest - 1)) == 0)[0]:      # the writers
-        for q in range(0, cpl, cph):
-            if hq[li, q] >= nh:
-                continue
-            for i in range(m):
-                e = entry[:, bu[li] + i]
-                r_live = np.nonzero(e >= 0)[0]
-                stores.append((e[r_live], hq[li, q], d[r_live, li, q, i]))
-    return stores
 
 
 def _walk_rendered(tf, x3, z3, layout):

@@ -16,7 +16,10 @@ Phases, each of which raises on failure (nothing is caught):
    of the walk (``dgl_tpu_torch/tools/perf_reduce_k3.py``) and the probe
    of the bucket walks that K10's and K11 v1's slot walks and K10's edge
    ds replaced, with an edit of the slot walk
-   (``dgl_tpu_torch/tools/perf_slot_walks.py``) build beside it;
+   (``dgl_tpu_torch/tools/perf_slot_walks.py``) and the probe of the
+   kernels that K7's forward and K11's scores replaced, with an edit of
+   each new walk (``dgl_tpu_torch/tools/perf_fwd_scores.py``) build beside
+   it;
 3. every kernel against its plain PyTorch version on an asymmetric
    graph with multi-edges (24,000 src x 16,300 dst, so both packings
    reach bit plane 31), forward and backward of ``bit_spmm`` at F = 16,
@@ -130,8 +133,11 @@ Phases, each of which raises on failure (nothing is caught):
    version on the phase-3 multigraph in the tiled format at (H, D) = (8,
    8), (1, 41), (4, 32), without and with the edge term (16 features and
    the bias row), K9's scores (the dot-product walk by dst and its exp
-   pass) also with logits past +-40; the 2-layer GATv2 of phase 22
-   through K9 against its edge chain, forward and backward;
+   pass) also with logits past +-40; K11 v2's scores (the walk with the
+   edge term formed per entry) with 5, 16 and 31 features, with and
+   without the bias row, their raw sums bit for bit on a dyadic grid; the
+   2-layer GATv2 of phase 22 through K9 against its edge chain, forward
+   and backward;
 22. route 5: the GATv2 recipe of examples/gatv2.py:22-31 (602 -> 8 x 8 ->
    elu -> 1 x 41, AdamW lr 5e-3, weight decay 5e-4) for 10 steps on the
    tiled format, both layers on K9, a profiled step whose trace is held
@@ -159,7 +165,10 @@ Phases, each of which raises on failure (nothing is caught):
    16 and 20 time them at (1, 41).  K9's scores (the dot-product walk by
    dst in its scores mode and the exp pass) against their plain version,
    with the bucket walk they replaced (``perf_scores_rows``) timed beside
-   them and held to them;
+   them and held to them; K11 v2's scores (the walk with the edge term)
+   with their raw sums bit for bit at full width, the same bits twice,
+   their registers, and the bucket walk they replaced and the edit u2x
+   (``perf_fwd_scores``) timed beside them;
 25. the EdgeGAT slice at mid size: each K10 v2 kernel (the edge scores,
    the slot-feature reduce, the edge ds without and with d(ef)) against
    its plain version on the phase-21 multigraph at (H, Fh) = (4, 32), (1,
@@ -185,9 +194,14 @@ Phases, each of which raises on failure (nothing is caught):
 28. the DotGat-on-K7 slice at mid size, on the phase-8 graph: each K7
    kernel (forward, dz, dq) through ``bitdot_attention_aggregate``
    against its plain version at (H, D) = (2, 64), (1, 128), (4, 32), (3,
-   8), and at (2, 64) with scores past +-40, one launch each way; l at
-   zero scores equal to the in-degree exactly; each kernel's time at each
-   shape; then ``DotGatConv(64, 64, 2)`` on K7 against its gather path,
+   8), (1, 41), and at (2, 64) with scores past +-40, one launch each
+   way, the forward twice to the same bits; l at zero scores equal to the
+   in-degree exactly; each kernel's time at each shape, the forward's
+   beside the warp walk it replaced (``perf_fwd_scores``); dz on a graph
+   with a src hub, the forward and dq on one with a dst hub (lists that
+   fill, empty rows exactly 0), with and without saturated scores, twice
+   to the same bits; then ``DotGatConv(64, 64, 2)`` on K7 against its
+   gather path,
    forward and backward, and the same layer at D = 32, which must not
    launch K7;
 29. ``DotGatConv(64, 64, 2)`` on the phase-4 bitmask graph
@@ -199,7 +213,9 @@ Phases, each of which raises on failure (nothing is caught):
    versions;
 30. K7 yardsticks on the phase-4 graph at (2, 64) and (1, 128): each
    kernel against its plain version on every row, its time (median of 5),
-   its plain version's and the bound; no PyTorch call computes it;
+   its plain version's and the bound; no PyTorch call computes it; each
+   listed walk twice to the same bits, its registers and local memory,
+   and the kernel it replaced and an edit of it timed beside it;
 31. the hybrid slice at mid size: K12 in both orientations against its
    plain version (F = 1, 16, 41, 128; exact on a grid; an all-zero
    block); ``update_all(copy_u, sum)`` on the hybrid format against the
@@ -276,7 +292,9 @@ Phases, each of which raises on failure (nothing is caught):
    vector sum, one ``index_add_``; the slot walks (the node sums, the
    numerator, dx with dfe) and the ds also beside the bucket walks they
    replaced (``perf_slot_walks``), held to them exactly, and the slot
-   walk's edit;
+   walk's edit; the scores (the dot-product walk with the stored row)
+   with their raw sums bit for bit, their registers, and beside the
+   bucket walk they replaced on f32 and bf16 rows (``perf_fwd_scores``);
 41. K1's slab-width sweep (``dgl_tpu_torch/tools/perf_bitmm_variants.py``,
    the JAX package's P1): KP = N = 110,592, F = 16, random bits, 8, 16 and
    32 words, each width exactly equal to the plain version;
@@ -593,7 +611,7 @@ TRACED_KERNELS = {
     "gat_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
     "src_aggregate": "row_agg_kernel",
     # K9's scores: the dot-product walk by dst and its exp pass (K11 v2's,
-    # the edge term, are vattn_scores_kernel, in no profiled step)
+    # the edge term, its sibling row_vattn_fe_kernel: EGAT_TRACED)
     "vattn_scores": ("row_sddmm_kernel", "slot_finish_kernel"),
     # K11 v2's slot gradient: the tensor-core kernel and its finishing
     # pass (K9's da is folded into vattn_node_grad_da)
@@ -602,14 +620,16 @@ TRACED_KERNELS = {
     "vattn_node_grad": "row_agg_kernel",
     "vattn_node_grad_da": "row_agg_kernel",
     "k4_spmm": "row_agg_kernel", "k4_sddmm": ("row_sddmm_kernel", "slot_finish_kernel"),
-    "bitdot_fwd": "bitdot_fwd_kernel", "bitdot_bwd_dz": "bitdot_dz_list_kernel",
+    "bitdot_fwd": "bitdot_fwd_list_kernel",
+    "bitdot_bwd_dz": "bitdot_dz_list_kernel",
     "bitdot_bwd_dq": "bitdot_dq_list_kernel",
     "int8_matmul_rows": ("split_z_kernel", "int8_rows_mma_kernel"),
     "int8_matmul_cols": ("split_z_kernel", "int8_cols_kernel"),
     "k3_spmm": "row_agg_kernel",
     "bitgat_fwd_t": "bitgat_fwd_list_kernel",
     "bit_shard_gat_bwd": "bitgat_bwd_list_kernel",
-    "egatc_scores": "vattn_scores_kernel",
+    # K11 v1's scores: the dot-product walk with the stored row, its pass
+    "egatc_scores": ("row_sddmm_kernel", "slot_finish_kernel"),
     "egatc_slot_grad": "vattn_slot_grad_kernel",
     # K10's and K11 v1's slot walks (dx with dfe: its zero pass too) and
     # K10's edge ds: the dot-product walk with the edge terms, its pass
@@ -623,8 +643,8 @@ TRACED_KERNELS = {
 
 # kernels that a redesign took off the main path: no profiled step may show
 # one (their probes launch them outside any profile)
-RETIRED_KERNELS = ("::int8_rows_kernel<",
-                   "::vattn_scores_kernel<false, float, false>",
+RETIRED_KERNELS = ("::int8_rows_kernel<", "::vattn_scores_kernel<",
+                   "::bitdot_fwd_kernel<",
                    "::slot_reduce_kernel<", "::tiled_spmm_kernel<",
                    "::bitdot_dz_kernel<", "::bitdot_dq_kernel<",
                    "::vattn_node_grad_kernel<", "::src_agg_kernel<",
@@ -633,9 +653,10 @@ RETIRED_KERNELS = ("::int8_rows_kernel<",
     # (K11 v1's <cols, T, true> stays)
     f"::vattn_slot_grad_kernel<{c}, {f}, " for c in (1, 2, 4)
     for f in (8, 16, 32))
-# K11 v2's step (phase 23): its scores are gatv2.cu's bucket walk, not
-# K9's row walk, and its node gradient the row walk with the edge term
-EGAT_TRACED = {"vattn_scores": "vattn_scores_kernel",
+# K11 v2's step (phase 23): its scores are the dot-product walk's sibling
+# with the edge term and the exp pass, not K9's instance, and its node
+# gradient the row walk with the edge term
+EGAT_TRACED = {"vattn_scores": ("row_vattn_fe_kernel", "slot_finish_kernel"),
                "vattn_node_grad": "row_fe_grad_kernel"}
 PROFILE_TRIES = 3      # sessions a profile takes, at most, to trace all
 PROFILE_PAD_S = 0.25   # idle host seconds before and after the recorded step
@@ -2324,6 +2345,66 @@ def vattn_kernel_checks(tgf, tf, heads, dim, fe, gen, tag):
     return errs
 
 
+def scores_raw_checks(tgf, tf, U, V, attn, slope, tag, edge=None,
+                      fe_slot=None):
+    """K11's scores walk on ``tf`` (K11 v2's with ``edge`` = (ef_slot, wf),
+    K11 v1's with ``fe_slot``): its raw sums (the walk and the pass without
+    the exp, 0 at padded slots) bit for bit against the plain version's
+    sum_d attn lrelu(raw), raw formed by the plain version's own helper, on
+    dyadic inputs where every order of the sums gives the same bits; and
+    p launched twice to the same bits.  Returns 0.0."""
+    from dgl_tpu_torch.ops.kernels import tiled_spmm as tts
+    got = tgf._vattn_scores_walk(tf, U, V, attn, slope, edge=edge,
+                                 fe_slot=fe_slot, exp_clip=False)
+    want = torch.zeros_like(got)
+    for b, c, src, dst in tts._slot_chunks(tf):
+        raw = tgf._vattn_raw(U, V, src, dst,
+                             None if edge is None else edge[0][b, c],
+                             None if edge is None else edge[1],
+                             None if fe_slot is None else fe_slot[b, c])
+        want[b, :, c] = (torch.nn.functional.leaky_relu(raw, slope)
+                         * attn.float()).sum(-1)
+    if not want.abs().max() > 0:
+        raise AssertionError(f"{tag}: every raw sum is 0")
+    equal(got, want, f"{tag} raw sums")
+    del got, want
+
+    def scores():
+        if edge is None:
+            return tgf.egatc_scores(tf, U, V, attn, fe_slot, slope)
+        return tgf.vattn_scores(tf, U, V, attn, slope, *edge)
+
+    equal(scores(), scores(), f"{tag} p, launched twice")
+    return 0.0
+
+
+SCORES_FES = (5, EGAT_FE, 31)
+
+
+def scores_edge_checks(tgf, tf, gen):
+    """K11 v2's scores with 5, 16 and 31 edge features, with and without
+    the bias row, at each of VATTN_SHAPES on ``tf``: the raw sums bit for
+    bit on the dyadic grid of ``vattn_inputs`` at a slope of 1/4
+    (``scores_raw_checks``), p twice to the same bits, and p at EGAT's
+    slope against the plain version."""
+    for heads, dim in VATTN_SHAPES:
+        for fe in SCORES_FES:
+            for bias in (True, False):
+                tag = (f"K11 v2 scores mid H={heads} D={dim} Fe={fe}"
+                       + ("+1" if bias else ""))
+                U, V, attn, _, ef, wf = vattn_inputs(tf, heads, dim, fe, gen)
+                wf = wf if bias else wf[:fe]
+                scores_raw_checks(tgf, tf, U, V, attn, 0.25, tag,
+                                  edge=(ef, wf))
+                err = close(tgf.vattn_scores(tf, U, V, attn, EGAT_SLOPE, ef,
+                                             wf),
+                            tgf.vattn_scores_plain(tf, U, V, attn,
+                                                   EGAT_SLOPE, ef, wf),
+                            f"{tag} p")
+                log(f"# {tag}: raw sums equal bit for bit, p twice the same"
+                    f" bits, p max|err| {err:.3g}")
+
+
 SLOT_GRAD_GRID_EDGES = 60_000
 SLOT_GRAD_FES = (5, EGAT_FE)
 
@@ -2443,8 +2524,10 @@ def phase_gatv2_mid(dgt, tts, tgf):
     """Phase 21: each K9 / K11 v2 kernel against its plain version at mid
     size, without and with the edge term (16 features and the bias row),
     K11 v2's slot gradient also bit for bit on a dyadic grid
-    (``slot_grad_grid_checks``) and its node gradient with 5, 16 and 31
-    edge features (``node_grad_edge_checks``); then the 2-layer GATv2
+    (``slot_grad_grid_checks``) and its node gradient and scores with 5,
+    16 and 31 edge features (``node_grad_edge_checks``,
+    ``scores_edge_checks``, the scores' raw sums bit for bit); then the
+    2-layer GATv2
     through K9 against
     its edge chain (``use_kernels(False)``)."""
     from dgl_tpu_torch.utils import config
@@ -2460,6 +2543,7 @@ def phase_gatv2_mid(dgt, tts, tgf):
                 f"{name} {err:.3g}" for name, err in errs))
     slot_grad_grid_checks(tts, tgf, gen)
     node_grad_edge_checks(tts, tgf, fwd, gen)
+    scores_edge_checks(tgf, fwd, gen)
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.create_tiled_format()
@@ -2691,11 +2775,16 @@ def phase_egat_check(conv, g, x, ef, ef_slot):
 
 
 def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
-                     tdz=None, tdq=None):
+                     tdz=None, tdq=None, tfs=None):
     """Phase 24: each K9 / K11 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; no single PyTorch call
     computes any of them (each needs raw = U[src] + V[dst] (+ FE) formed
-    per slot, then lrelu, the dot with attn or the scaling by ds).  K9
+    per slot, then lrelu, the dot with attn or the scaling by ds).  K11
+    v2's scores, the dot-product walk with the edge term formed per entry,
+    also give the plain version's raw sums bit for bit on the dyadic grid
+    at a slope of 1/4 (``scores_raw_checks``) and the same bits twice, and
+    are timed beside the bucket walk they replaced and the edit ``u2x``
+    (``tfs``, tools/perf_fwd_scores.py), with their registers.  K9
     takes a slope of 1/4 here, so that its node gradient's sums over the
     Reddit graph's hubs are exact (``vattn_inputs``); K11 v2 keeps EGAT's
     0.01, where the uniform graph's degrees stay near 100.  K11 v2's slot
@@ -2738,14 +2827,14 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
             f"{by}: {nbytes} B, {ops} ops), plain {r['plain_ms']:.4f} ms, "
             f"library none, max|err| {err:.3g}")
 
-    # scores: K11 v2's (the bucket walk) in the slot arrays, U, V, attn and
-    # the edge term; K9's (the dot-product walk by dst) in the dst view, U
-    # and V once and attn (sddmm_walk_bytes, as K4's SDDMM row counts it;
-    # the bucket walk's count beside it); out p at every slot.  Per edge and
-    # column: raw, lrelu, the dot (5 ops); per edge and head the clip and
-    # exp
+    # scores: the dot-product walk by dst in the dst view, U and V once and
+    # attn (sddmm_walk_bytes, as K4's SDDMM row counts it), and K11 v2's
+    # edge term (ef at the edges, wf); the bucket walk's count (the slot
+    # arrays) beside it; out p at every slot.  Per edge and column: raw,
+    # lrelu, the dot (5 ops), and K11 v2's fe; per edge and head the clip
+    # and exp
     bucket_b = walk + 2 * node_b + hd * 4 + edge_b + slot_h
-    scores_b = bucket_b if fe else sddmm_walk_bytes(tf, heads, dim) + hd * 4
+    scores_b = sddmm_walk_bytes(tf, heads, dim) + hd * 4 + edge_b
     row("scores", lambda: tgf.vattn_scores(tf, U, V, attn, slope, ef, wf),
         lambda: tgf.vattn_scores_plain(tf, U, V, attn, slope, ef, wf),
         scores_b, e * (5 * hd + fe_ops + 4 * heads))
@@ -2763,6 +2852,47 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
         log(f"# K9 scores {tag}: the bucket walk {old:.4f} ms (its bound "
             f"{old_bnd:.4f} ms: {bucket_b} B), max|err| {err:.3g} against "
             "the walk by dst")
+    else:
+        # K11 v2's: the raw sums bit for bit at full width on the grid, p
+        # twice the same bits; the instance's registers; the bucket walk it
+        # replaced and the edit u2x, held to it and timed beside it
+        scores_raw_checks(tgf, tf, U, V, attn, 0.25, f"K11 v2 scores {tag}",
+                          edge=(ef, wf))
+        kf = tts.fe_kf(fe)
+        regs = tts.vattn_fe_kernel_attrs(kf)
+        r = out["scores"]
+        r.update(kernel=f"row_vattn_fe_kernel<{kf}>, slot_finish_kernel",
+                 registers=regs[0], local_bytes=regs[1],
+                 blocks_per_sm=regs[2])
+        msg = (f"# K11 v2 scores {tag}: raw sums equal to the plain "
+               f"version's bit for bit, p the same bits twice; "
+               f"row_vattn_fe_kernel<{kf}> {regs[0]} registers a thread, "
+               f"{regs[1]} B local memory, {regs[2]} blocks an SM")
+        if tfs is not None:
+            new = tgf.vattn_scores(tf, U, V, attn, slope, ef, wf)
+            errs = {"bucket": close(tfs.bucket_scores(tf, U, V, attn, slope,
+                                                      ef, wf), new,
+                                    f"K11 v2 scores (the bucket walk) {tag}"),
+                    "u2x": close(tfs.scores_edit("u2x", tf, U, V, attn,
+                                                 slope, ef, wf), new,
+                                 f"K11 v2 scores (u2x) {tag}")}
+            del new
+            edit_regs = tfs.scores_attrs(kf, "u2x")
+            r.update(
+                old_ms=cuda_ms(lambda: tfs.bucket_scores(tf, U, V, attn,
+                                                         slope, ef, wf)),
+                old_bound_ms=bound(bucket_b, e * (5 * hd + fe_ops
+                                                  + 4 * heads), rate)[0],
+                u2x_ms=cuda_ms(lambda: tfs.scores_edit(
+                    "u2x", tf, U, V, attn, slope, ef, wf)),
+                old_kernel="vattn_scores_kernel<true> (tools/"
+                           "fwd_scores_probe.cu)")
+            msg += (f"; the bucket walk {r['old_ms']:.4f} ms [bound "
+                    f"{r['old_bound_ms']:.4f} ms], u2x {r['u2x_ms']:.4f} ms "
+                    f"({edit_regs[0]} registers, {edit_regs[1]} B local "
+                    "memory); max|err| against the walk " + ", ".join(
+                        f"{k} {v:.3g}" for k, v in errs.items()))
+        log(msg)
     if fe:
         # K11 v2's slot gradient as the main path calls it (no d(ef)), the
         # tensor-core kernel.  Bytes: the slot arrays (valid at every slot,
@@ -3472,7 +3602,9 @@ def egatc_kernel_checks(tgf, tf, heads, dim, dtype, gen, tag):
     before = [k.launches for k in counters]
     errs = [("p", close(tgf.egatc_scores(tf, U, V, attn, fe, EXACT_SLOPE),
                         tgf.egatc_scores_plain(tf, U, V, attn, fe,
-                                               EXACT_SLOPE), f"{tag} p"))]
+                                               EXACT_SLOPE), f"{tag} p")),
+            ("raw", scores_raw_checks(tgf, tf, U, V, attn, EXACT_SLOPE,
+                                      f"{tag} scores", fe_slot=fe))]
     da, dfe = tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)
     want = tgf.egatc_slot_grad_plain(tf, U, V, attn, fe, ds, EXACT_SLOPE)
     if dfe.dtype != dtype:
@@ -3485,9 +3617,10 @@ def egatc_kernel_checks(tgf, tf, heads, dim, dtype, gen, tag):
                                  f"{tag} {name}")))
     torch.cuda.synchronize()
     launched = [k.launches - b0 for k, b0 in zip(counters, before)]
-    if launched != [1, 1, 2]:
+    # the scores: once against the plain version, twice in the raw check
+    if launched != [3, 1, 2]:
         raise AssertionError(f"{tag}: K11 v1 launches {launched}, not "
-                             "[1, 1, 2]")
+                             "[3, 1, 2]")
     return errs
 
 
@@ -3858,7 +3991,7 @@ def phase_edgegat_v1(tgf, tts, g, x, ef_slot):
                           K10V1_STEP, PlainEdgeGatV1)
 
 
-def v1_yardsticks(tgf, tts, tsl, g, rate):
+def v1_yardsticks(tgf, tts, tsl, g, rate, tfs=None):
     """Phase 40: each K11 v1 and K10 v1 kernel at full size on the EGAT
     graph at (4, 32), f32 slot tensors, against its plain version on the
     inputs of the mid-size checks (exact sums on their grids, held by
@@ -3871,7 +4004,10 @@ def v1_yardsticks(tgf, tts, tsl, g, rate):
     tools/perf_slot_walks.py), held to them exactly; their bounds count the
     row view they read, the earlier ones (the slot arrays) as
     old_bound_ms.  Then each stored-row kernel again over bf16 stored rows
-    beside its retired instance (the ds's mode 4)."""
+    beside its retired instance (the ds's mode 4).  The scores, the
+    dot-product walk with the stored row, are held to the plain version's
+    raw sums bit for bit and timed beside the bucket walk they replaced on
+    f32 and bf16 rows (``tfs``, tools/perf_fwd_scores.py)."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     heads, dim = EGAT_H, EGAT_D
     b, cap = tf.num_buckets, tf.cap
@@ -3929,14 +4065,65 @@ def v1_yardsticks(tgf, tts, tsl, g, rate):
             f"registers, {local} B local, {per_sm} blocks an SM")
 
     U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, torch.float32)
-    # K11 v1 scores: in the slot arrays, U, V, attn, FE at the edges; out p
-    # at every slot.  Per edge and column raw (2), lrelu and the dot (3);
-    # per edge and head the clip and exp
+    # K11 v1 scores, the dot-product walk with the stored row and its pass:
+    # in the dst view, U and V once, attn, FE at the edges; out p at every
+    # slot [the bucket walk it replaced read the slot arrays].  Per edge
+    # and column raw (2), lrelu and the dot (3); per edge and head the clip
+    # and exp.  The raw sums bit for bit at full width, p twice the same
+    # bits, the instance's registers; the bucket walk beside it, f32 and
+    # bf16 (``tfs``)
+    scores_ops = e * (5 * hd + 4 * heads)
     row("egatc_scores",
         lambda: tgf.egatc_scores(tf, U, V, attn, fe, EXACT_SLOPE),
         lambda: tgf.egatc_scores_plain(tf, U, V, attn, fe, EXACT_SLOPE),
-        walk + 2 * node_f + hd * 4 + edge_f + slot_h,
-        e * (5 * hd + 4 * heads))
+        sddmm_walk_bytes(tf, heads, dim) + hd * 4 + edge_f, scores_ops)
+    scores_raw_checks(tgf, tf, U, V, attn, EXACT_SLOPE,
+                      "K11 v1 scores full size", fe_slot=fe)
+    cpl = tts._sddmm_layout(heads, -(-dim // 4))[3]
+    regs = {dt: tts.store_kernel_attrs(cpl, dt, True)
+            for dt in (torch.float32, torch.bfloat16)}
+    r = rows["egatc_scores"]
+    r.update(kernel=f"row_sddmm_kernel<{cpl}, true, true, T>, "
+                    "slot_finish_kernel",
+             registers=regs[torch.float32][0],
+             local_bytes=regs[torch.float32][1],
+             registers_bf16=regs[torch.bfloat16][0],
+             local_bytes_bf16=regs[torch.bfloat16][1])
+    msg = (f"# egatc_scores: raw sums equal to the plain version's bit for "
+           f"bit, p the same bits twice; row_sddmm_kernel<{cpl}, true, true,"
+           f" T> {regs[torch.float32][0]} registers ({regs[torch.bfloat16][0]}"
+           f" with bf16 rows), {regs[torch.float32][1]} B local memory "
+           f"({regs[torch.bfloat16][1]})")
+    if tfs is not None:
+        fe_b = fe.to(torch.bfloat16)        # exact: the grid fits bf16
+        new = tgf.egatc_scores(tf, U, V, attn, fe, EXACT_SLOPE)
+        new_b = tgf.egatc_scores(tf, U, V, attn, fe_b, EXACT_SLOPE)
+        equal(new_b, new, "egatc_scores bf16 rows (the f32 rows' p)")
+        errs = [close(tfs.bucket_scores(tf, U, V, attn, EXACT_SLOPE,
+                                        fe_slot=t), new,
+                      f"egatc_scores (the bucket walk, {t.dtype})")
+                for t in (fe, fe_b)]
+        del new, new_b
+        r.update(
+            old_ms=cuda_ms(lambda: tfs.bucket_scores(
+                tf, U, V, attn, EXACT_SLOPE, fe_slot=fe)),
+            old_bound_ms=bound(walk + 2 * node_f + hd * 4 + edge_f + slot_h,
+                               scores_ops, rate)[0],
+            bf16_ms=cuda_ms(lambda: tgf.egatc_scores(tf, U, V, attn, fe_b,
+                                                     EXACT_SLOPE)),
+            bf16_old_ms=cuda_ms(lambda: tfs.bucket_scores(
+                tf, U, V, attn, EXACT_SLOPE, fe_slot=fe_b)),
+            bf16_bound_ms=bound(sddmm_walk_bytes(tf, heads, dim) + hd * 4
+                                + edge_f // 2, scores_ops, rate)[0],
+            old_kernel="vattn_scores_kernel<false, T, true> (tools/"
+                       "fwd_scores_probe.cu)")
+        del fe_b
+        msg += (f"; the bucket walk {r['old_ms']:.4f} ms [bound "
+                f"{r['old_bound_ms']:.4f} ms], bf16 rows {r['bf16_ms']:.4f} "
+                f"ms (bound {r['bf16_bound_ms']:.4f} ms), the bucket walk "
+                f"on them {r['bf16_old_ms']:.4f} ms; max|err| of the bucket "
+                f"walk {max(errs):.3g}")
+    log(msg)
     # the slot gradient: in the slot arrays, ds, U, V, attn, FE at the
     # edges; out da and dFE at every slot.  Per edge and column raw (2),
     # lrelu and da (3), dW (2)
@@ -4242,7 +4429,7 @@ def phase_bitgat_probe(bg, tp2, rate):
 
 # -- the DotGat-on-K7 slice (DotGatConv's bitmask route) ---------------------
 
-BITDOT_SHAPES = ((2, 64), (1, 128), (4, 32), (3, 8))
+BITDOT_SHAPES = ((2, 64), (1, 128), (4, 32), (3, 8), (1, 41))
 DOTGAT_FIN, DOTGAT_D, DOTGAT_H = 64, 64, 2    # tools/perf_bitdot_full.py:52-58
 DOTGAT_K7_STEPS = 6                            # one warm-up step, 5 timed
 K7_COUNTERS = ("bitdot_fwd", "bitdot_bwd_dz", "bitdot_bwd_dq")
@@ -4318,14 +4505,14 @@ def dz_hub_checks(bm, bg, bd, gen):
 DQ_EMPTY_ROWS = range(100, 150)
 
 
-def dq_hub_checks(bm, bg, bd, gen):
-    """K7's dq walk against its plain version on the phase-8 graph with a
-    dst hub of DZ_HUB_DEGREE distinct src (its row's list drained when
-    full, many times) and the dst rows DQ_EMPTY_ROWS without an edge, at
-    the four BITDOT_SHAPES and with scores past +-40 at each: rows claimed
-    in the forward's claim order (the hub first), every row within
-    tolerance, two launches to the same bits, and the empty rows exactly
-    0."""
+def dst_hub_checks(bm, bg, bd, gen):
+    """K7's forward and dq walks against their plain versions on the
+    phase-8 graph with a dst hub of DZ_HUB_DEGREE distinct src (its row's
+    list drained when full, many times) and the dst rows DQ_EMPTY_ROWS
+    without an edge, at the BITDOT_SHAPES and with scores past +-40 at
+    each: rows claimed in the forward's claim order (the hub first), every
+    row within tolerance, two launches to the same bits, and the empty
+    rows exactly 0 (out and l too)."""
     row, col, n_src, n_dst = mid_graph()
     keep = (col < DQ_EMPTY_ROWS.start) | (col >= DQ_EMPTY_ROWS.stop)
     hub = np.random.default_rng(29).permutation(n_src)[:DZ_HUB_DEGREE]
@@ -4345,6 +4532,16 @@ def dq_hub_checks(bm, bg, bd, gen):
                                     saturate=saturate)
             isd = 1 / dim ** 0.5
             out, l = bd.bitdot_fwd_plain(bf.packed, q, z, isd)
+            fwd = bd.bitdot_fwd(bf.packed, q, z, isd, order)
+            again = bd.bitdot_fwd(bf.packed, q, z, isd, order)
+            for name, a, b, w in zip(("out", "l"), fwd, again, (out, l)):
+                what = f"K7 fwd hub graph {tag[16:]} {name}"
+                equal(b, a, f"{what}, twice")
+                close(a, w, what)
+                if a[DQ_EMPTY_ROWS.start:DQ_EMPTY_ROWS.stop].any():
+                    raise AssertionError(f"{what}: a row with no edge is "
+                                         "not 0")
+            del fwd, again
             linv, rho = bg.backward_scales(g, out, l, None)
             args = (bf.packed, q, z, g, linv, rho, isd)
             got = bd.bitdot_bwd_dq(*args, order)
@@ -4352,19 +4549,23 @@ def dq_hub_checks(bm, bg, bd, gen):
             err = close(got, bd.bitdot_bwd_dq_plain(*args), tag)
             if got[DQ_EMPTY_ROWS.start:DQ_EMPTY_ROWS.stop].any():
                 raise AssertionError(f"{tag}: a row with no edge is not 0")
-            log(f"# {tag}: max|err| {err:.3g}, the same bits twice "
-                f"({len(row)} edges, layout {bd.dz_layout(heads, dim)})")
+            log(f"# {tag}: max|err| {err:.3g}, the same bits twice, the "
+                f"forward too ({len(row)} edges, layout "
+                f"{bd.dz_layout(heads, dim)})")
 
 
-def phase_bitdot_mid(dgt, bm, bg, bd):
+def phase_bitdot_mid(dgt, bm, bg, bd, tfs=None):
     """Phase 28: each K7 kernel against its plain version on the phase-8
-    graph (simple, bipartite, plane 31 on both sides) at (H, D) = (2, 64),
-    (1, 128), (4, 32), (3, 8) and with scores past +-40 at (2, 64); l
-    exactly at zero scores; the kernels' times at each shape; dz on the
-    same graph with a src hub (``dz_hub_checks``) and dq with a dst hub
-    (``dq_hub_checks``); then DotGatConv(64, 64,
-    2) on K7 against its gather path, and the same layer at D = 32, which
-    must not launch K7."""
+    graph (simple, bipartite, plane 31 on both sides) at the BITDOT_SHAPES
+    ((2, 64), (1, 128), (4, 32), (3, 8), (1, 41)) and with scores past
+    +-40 at (2, 64); the forward launched twice to the same bits at each,
+    and timed beside the warp walk it replaced (``tfs``,
+    tools/perf_fwd_scores.py); l exactly at zero scores; the kernels'
+    times at each shape; dz on the same graph with a src hub
+    (``dz_hub_checks``) and the forward and dq with a dst hub
+    (``dst_hub_checks``); then DotGatConv(64, 64, 2) on K7 against its
+    gather path, and the same layer at D = 32, which must not launch
+    K7."""
     from dgl_tpu_torch.utils import config
     row, col, n_src, n_dst = mid_graph()
     key = np.unique(col * n_src + row)
@@ -4397,7 +4598,11 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
         torch.cuda.synchronize()
         if [c.launches - b for c, b in zip(counters, before)] != [1, 1, 1]:
             raise AssertionError(f"K7 mid {tag}: not one launch each way")
-        l = bd.bitdot_fwd(bf.packed, q, z, isd)[1]
+        l = bd.bitdot_fwd(bf.packed, q, z, isd, dq_order)[1]
+        again = bd.bitdot_fwd(bf.packed, q, z, isd, dq_order)
+        equal(again[0], out.detach(), f"K7 mid fwd {tag} out, twice")
+        equal(again[1], l, f"K7 mid fwd {tag} l, twice")
+        del again
         want = bd.bitdot_fwd_plain(bf.packed, q, z, isd)
         want += bitdot_plain_bwd(bf, q, z, g, *want)
         errs = [close(got, w, f"K7 mid {name} {tag}")
@@ -4410,7 +4615,8 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
             msg += f"; {frac:.1%} of the scores past +-40"
         else:
             linv, rho = bg.backward_scales(g, want[0], want[1], None)
-            times = [cuda_ms(lambda: bd.bitdot_fwd(bf.packed, q, z, isd)),
+            times = [cuda_ms(lambda: bd.bitdot_fwd(bf.packed, q, z, isd,
+                                                   dq_order)),
                      cuda_ms(lambda: bd.bitdot_bwd_dz(bf.packed_rev, q, z,
                                                       g, linv, rho, isd,
                                                       dz_order)),
@@ -4419,6 +4625,14 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
                                                       dq_order))]
             msg += ("; fwd {:.4f} ms, dz {:.4f} ms, dq {:.4f} ms ({} edges)"
                     .format(*times, len(row)))
+            if tfs is not None:
+                old = tfs.warp_fwd(bf.packed, q, z, isd)
+                err = max(close(a, w, f"K7 mid fwd (the warp walk) {tag}")
+                          for a, w in zip(old, want[:2]))
+                del old
+                old_ms = cuda_ms(lambda: tfs.warp_fwd(bf.packed, q, z, isd))
+                msg += (f"; the forward's retired warp walk {old_ms:.4f} ms "
+                        f"(max|err| {err:.3g})")
         log(msg)
     # all scores 0: every p is 1 and l is each dst's in-degree, a sum that
     # is exact in any order
@@ -4427,7 +4641,7 @@ def phase_bitdot_mid(dgt, bm, bg, bd):
     if not torch.equal(l, deg.unsqueeze(1).expand_as(l)):
         raise AssertionError("K7 mid: l at zero scores is not the in-degree")
     dz_hub_checks(bm, bg, bd, gen)
-    dq_hub_checks(bm, bg, bd, gen)
+    dst_hub_checks(bm, bg, bd, gen)
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.unit().create_bitmask_format(on_device=True)
@@ -4589,7 +4803,8 @@ def timed_once(fn):
     return result, start.elapsed_time(end)
 
 
-def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None, tdq=None):
+def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None, tdq=None,
+                      tfs=None):
     """Phase 30: each K7 kernel at full size on the phase-4 graph against
     its plain version on every row, with its time (median of 5), its plain
     version's (the one call that gives the reference), the bound and no
@@ -4597,8 +4812,12 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None, tdq=None):
     graph.  q and z are of a trained layer's size, on a grid of 1/16 in
     [-2, 2] (scores about 1.3 wide, inside the clip), g normal.  No sum
     here is exact (exp(e) lies on no grid), so each check takes the
-    standard tolerance and ``close``'s half-tolerance log.  dz, the listed
-    walk by src, is also launched twice to the same bits and timed beside
+    standard tolerance and ``close``'s half-tolerance log.  The forward,
+    the listed walk by dst, is launched twice to the same bits and timed
+    beside the warp walk it replaced and the edit ``u2x`` (``tfs``,
+    tools/perf_fwd_scores.py), with its registers and local memory; dz,
+    the listed walk by src, is also launched twice to the same bits and
+    timed beside
     the warp walk it replaced, the edit ``u2x`` and its layouts on either
     side (``tdz``, tools/perf_dz_slot_grad.py), with its registers and
     resident warps; dq, the listed walk by dst, likewise beside the warp
@@ -4628,11 +4847,52 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None, tdq=None):
         return want
 
     # forward: in the bits of A, q, z; out out, l.  Per edge and head the
-    # score (2 D), clip and exp (3), l (1) and the sum p z (2 D)
-    out, l = row("fwd", lambda: bd.bitdot_fwd(bf.packed, q, z, isd),
+    # score (2 D), clip and exp (3), l (1) and the sum p z (2 D).  The
+    # listed walk by dst in the forward's claim order, launched twice to
+    # the same bits, beside the warp walk it replaced and the edit u2x
+    # (``tfs``)
+    dq_order = bg.fwd_claim_order(bf)
+    out, l = row("fwd", lambda: bd.bitdot_fwd(bf.packed, q, z, isd,
+                                              dq_order),
                  lambda: bd.bitdot_fwd_plain(bf.packed, q, z, isd),
                  bf.packed.numel() * 4 + 3 * feat_b + node,
                  e * heads * (4 * dim + 5))
+    new = bd.bitdot_fwd(bf.packed, q, z, isd, dq_order)
+    again = bd.bitdot_fwd(bf.packed, q, z, isd, dq_order)
+    equal(again[0], new[0], f"K7 fwd H={heads} D={dim} out, launched twice")
+    equal(again[1], new[1], f"K7 fwd H={heads} D={dim} l, launched twice")
+    del again
+    regs, local, warps = bd.fwd_kernel_attrs(heads, dim)
+    layout = bd.dz_layout(heads, dim)
+    r = rows["fwd"]
+    r.update(kernel="bitdot_fwd_list_kernel", registers=regs,
+             local_bytes=local, resident_warps=warps, lanes=layout[1])
+    log(f"# K7 fwd H={heads} D={dim}: bitdot_fwd_list_kernel at {layout[1]} "
+        f"lanes an entry, {layout[2]} vectors a lane: {regs} registers a "
+        f"thread, {local} B local memory, {warps} warps an SM; the same "
+        "bits twice")
+    if regs > 128 or local:
+        raise AssertionError(f"K7 fwd H={heads} D={dim}: {regs} registers, "
+                             f"{local} B local memory")
+    if tfs is not None:
+        old = tfs.warp_fwd(bf.packed, q, z, isd)
+        errs = {"warp": max(close(a, b, f"K7 fwd (the warp walk) H={heads} "
+                                        f"D={dim}")
+                            for a, b in zip(old, new))}
+        other = tfs.fwd_edit("u2x", bf.packed, q, z, isd, dq_order)
+        errs["u2x"] = max(close(a, b, f"K7 fwd (u2x) H={heads} D={dim}")
+                          for a, b in zip(other, new))
+        del old, other
+        edit_regs = tfs.fwd_attrs(heads, dim, "u2x")
+        r["old_kernel"] = "bitdot_fwd_kernel (tools/fwd_scores_probe.cu)"
+        r["old_ms"] = cuda_ms(lambda: tfs.warp_fwd(bf.packed, q, z, isd))
+        r["u2x_ms"] = cuda_ms(lambda: tfs.fwd_edit(
+            "u2x", bf.packed, q, z, isd, dq_order))
+        log(f"# K7 fwd H={heads} D={dim}: the warp walk {r['old_ms']:.4f} "
+            f"ms, u2x {r['u2x_ms']:.4f} ms ({edit_regs[0]} "
+            f"registers, {edit_regs[1]} B local memory); max|err| against "
+            "the walk " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    del new
     linv, rho = bg.backward_scales(gr, out, l, None)
     del out, l
     args = (q, z, gr, linv, rho, isd)
@@ -4693,7 +4953,6 @@ def bitdot_yardsticks(bd, bg, g, heads, dim, rate, tdz=None, tdq=None):
     # listed walk by dst in the forward's claim order, launched twice to
     # the same bits, beside the warp walk it replaced and the edit
     # dz_count (``tdq``, tools/perf_dq_node_grad.py)
-    dq_order = bg.fwd_claim_order(bf)
     row("dq", lambda: bd.bitdot_bwd_dq(bf.packed, *args, dq_order),
         lambda: bd.bitdot_bwd_dq_plain(bf.packed, *args),
         bf.packed.numel() * 4 + 4 * feat_b + 2 * node,
@@ -5667,8 +5926,8 @@ def phase_sddmm_probe(tsw, gt, rate):
 
 
 # the kernels this slice's redesign added: ptxas' report of each instance
-NEW_KERNELS = ("row_slot_kernel", "slot_zero_kernel", "row_sddmm_kernel",
-               "ds_finish_kernel")
+NEW_KERNELS = ("bitdot_fwd_list_kernel", "row_vattn_fe_kernel",
+               "row_sddmm_kernel")
 
 
 def log_new_kernels(logs):
@@ -5714,6 +5973,7 @@ def main():
     from dgl_tpu_torch.tools import perf_dq_node_grad as tdq
     from dgl_tpu_torch.tools import perf_ds_fold as tdf
     from dgl_tpu_torch.tools import perf_dz_slot_grad as tdz
+    from dgl_tpu_torch.tools import perf_fwd_scores as tfs
     from dgl_tpu_torch.tools import perf_fwd_walks as tfw
     from dgl_tpu_torch.tools import perf_reduce_k3 as trk
     from dgl_tpu_torch.tools import perf_scores_rows as tsr
@@ -5740,9 +6000,10 @@ def main():
     # probe and the dq and node-gradient probe (the two retired kernels of
     # each and an edit of each new one, waited for in phase 30), the slot
     # walks' probe (the two retired bucket walks and an edit of the slot
-    # walk, waited for in phase 27)
+    # walk, waited for in phase 27), the forward and scores probe (the two
+    # retired kernels and an edit of each new walk, waited for in phase 28)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(7)
+    probe_build = ThreadPoolExecutor(8)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
     scores_rows_built = probe_build.submit(tsr.build_probe)
@@ -5750,6 +6011,7 @@ def main():
     dz_probe_built = probe_build.submit(tdz.build_probe)
     dq_probe_built = probe_build.submit(tdq.build_probe)
     slot_probe_built = probe_build.submit(tsl.build_probe)
+    fwd_scores_built = probe_build.submit(tfs.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -5768,7 +6030,11 @@ def main():
     phase("21 (K9, K11 v2 mid size)", phase_gatv2_mid, dgt, tts, tgf)
     phase("25 (K10 v2 mid size)", phase_edgegat_mid, dgt, tts, tgf)
     phase("37 (K10 v1, K11 v1 mid size)", phase_v1_mid, dgt, tts, tgf)
-    phase("28 (K7 mid size)", phase_bitdot_mid, dgt, bm, bg, bd)
+    t0 = time.perf_counter()
+    fwd_scores_built.result()
+    log("# the forward and scores probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
+    phase("28 (K7 mid size)", phase_bitdot_mid, dgt, bm, bg, bd, tfs)
     phase("31 (K12 and the hybrid format, mid size)", phase_hybrid_mid, dgt,
           i8, tts)
 
@@ -5823,7 +6089,8 @@ def main():
     log("# the dz and slot-gradient and the dq and node-gradient probes' "
         f"builds waited for {time.perf_counter() - t0:.1f}s")
     k7 = [phase(f"30 (K7 yardsticks H={h} D={d})", bitdot_yardsticks, bd,
-                bg, g, h, d, rate, tdz, tdq) for h, d in BITDOT_SHAPES[:2]]
+                bg, g, h, d, rate, tdz, tdq, tfs)
+          for h, d in BITDOT_SHAPES[:2]]
 
     # phases 12-16: the tiled slice at full size
     gt = phase("12 (tiled format)", tiled_graph, dgt, g)
@@ -5944,7 +6211,7 @@ def main():
           ef_slot)
     del conv, efe
     k11 = phase("24 (K11 v2 yardsticks)", vattn_yardsticks, tgf, tts, tbw,
-                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz, tdq)
+                tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz, tdq, tfs)
     t0 = time.perf_counter()
     slot_probe_built.result()
     probe_build.shutdown()
@@ -5975,7 +6242,7 @@ def main():
     del xe, ef_slot
     torch.cuda.empty_cache()
     v1 = phase("40 (K11 v1, K10 v1 yardsticks)", v1_yardsticks, tgf, tts,
-               tsl, ge, rate)
+               tsl, ge, rate, tfs)
     del ge
     torch.cuda.empty_cache()
 
@@ -6059,8 +6326,11 @@ def main():
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:878, :903",
          "launches": k9_launches["vattn_node_grad"],
          **k9[0]["node_grad_dst"]},
-        {"name": "vattn_scores_edge", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+        # K11 v2's scores, the dot-product walk's sibling with the edge term
+        # formed per entry (the retired bucket walk, vattn_scores_kernel,
+        # built by tools/perf_fwd_scores.py, as old_ms)
+        {"name": "row_vattn_fe_kernel", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:2075",
          "launches": k11_launches["vattn_scores"], **k11["scores"]},
         # K11 v2's slot gradient on the tensor cores (PR 20's redesign; the
@@ -6097,8 +6367,10 @@ def main():
          "launches": k10_launches["edgegat_ds"], **k10["ds"],
          "def_ms": k10["ds_def"]["ms"], "def_old_ms": k10["ds_def"]["old_ms"],
          "def_bound_ms": k10["ds_def"]["bound_ms"]},
-        # K7 at DotGatConv(64, 64, 2)'s (2, 64), launches from phase 29
-        {"name": "bitdot_fwd", "route": "cuda",
+        # K7 at DotGatConv(64, 64, 2)'s (2, 64), launches from phase 29; its
+        # forward, the listed walk by dst (the retired warp walk,
+        # bitdot_fwd_kernel, built by tools/perf_fwd_scores.py, as old_ms)
+        {"name": "bitdot_fwd_list_kernel", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/bitdot.cu",
          "replaces": "dgl_tpu/ops/pallas/bitdot.py:156",
          "launches": k7_launches["bitdot_fwd"], **k7[0]["fwd"]},
@@ -6141,8 +6413,10 @@ def main():
         # phases 38 and 39 (the slot vector sum's row is its dst side; the
         # slot walks and the ds on the dot-product walk, the retired bucket
         # walks, built by tools/perf_slot_walks.py, as old_ms)
-        {"name": "egatc_scores", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+        # K11 v1's scores, the dot-product walk with the stored row (the
+        # retired bucket walk, built by tools/perf_fwd_scores.py, as old_ms)
+        {"name": "row_sddmm_kernel<CPL, true, true, T>", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1093",
          "launches": k11v1_launches["egatc_scores"], **v1["egatc_scores"]},
         {"name": "egatc_slot_grad", "route": "cuda",

@@ -19,23 +19,29 @@
 //
 // The TPU kernels score every bit densely, one matrix-unit contraction
 // per tile; at Reddit's 0.2% density a word holds ~0.07 set bits, so here
-// each kernel walks the set bits.  The forward walks them as K5 first
-// did: one warp owns one row of a packing, streams its words coalesced
-// (one per lane, 8 in flight), skips zero words and walks the set bits with
-// __ffs; a lane owns the feature columns f = lane + 32 k (k < 4, so H * D
-// <= 128) and the heads of those columns; the dot products per head are
-// warp-shuffle sums, segmented where a head spans part of a warp.  dz and
-// dq are the listed walks of K5 (csrc/bitgat.cu, its listing shared in
-// csrc/bitlist.cuh), dz by src and dq by dst.  Every row's sums stay in
-// registers and are written once: no atomics, and a fixed order of sums.
-// Operands and sums are f32.
+// each kernel walks the set bits: all three are the listed walks of K5
+// (csrc/bitgat.cu, its listing shared in csrc/bitlist.cuh), the forward
+// and dq by dst and dz by src.  Every row's sums stay in registers and are
+// written once: no atomics, and a fixed order of sums.  Operands and sums
+// are f32.
 // Each kernel is behind a plain C function that launches on the caller's
 // stream, allocates nothing and returns cudaGetLastError():
 //
-// bitdot_fwd_kernel  replaces dgl_tpu/ops/pallas/bitdot.py _fwd_call
-//     (:156, body _fwd_kernel :97).  Over packed (rows = dst): q[d] in
-//     registers; per set bit s the warp gathers z[s], takes e per head,
-//     and adds p z[s] and p into out's and l's sums.
+// bitdot_fwd_list_kernel<CPL, kOneHead>  replaces
+//     dgl_tpu/ops/pallas/bitdot.py _fwd_call (:156, body _fwd_kernel :97).
+//     The dq walk's lanes, layout and rows over packed (below): the row's
+//     q[d] stays in registers, a group of lpe lanes gathers an entry's
+//     z[s] in 16-byte loads, forms z . q per head over the head's lanes,
+//     takes p = exp(clip(e, +-40)) and adds p into l's sum and p z[s] into
+//     out's, U entries in flight (FwdUnroll: the forward holds neither g
+//     nor [linv, rho], so more than DqUnroll where the registers allow);
+//     at the row's end the groups' sums meet by shuffles in a fixed order
+//     and out = acc / max(l, 1e-20) and l are written once.  It replaced a
+//     warp a dst row taking its set bits one at a time, each bit's gather
+//     waiting on the previous bit's shuffles and exp, its lanes owning
+//     columns lane + 32 k with scalar loads (built by
+//     dgl_tpu_torch/tools/perf_fwd_scores.py from tools/fwd_scores_probe.cu
+//     and timed beside it, PERF.md).
 // bitdot_dz_list_kernel<CPL, kOneHead>  replaces _bwdA_call (:272, body
 //     _bwdA_kernel :200), which runs dst blocks over packed into per-src
 //     lanes.  A listed-bit walk by src over packed_rev: persistent warps
@@ -76,9 +82,8 @@
 // dz and E H (6 D + 12) for dq, is 0.9-1.8 ms at (H, D) = (2, 64) on
 // Reddit's 114.8M edges.  chip_smoke.py prints the bound of each call.
 // The per-set-bit work (a 512-byte row gathered from L2 or memory at H * D
-// = 128, the shuffles, the exp) is the cost: the forward still does it
-// one bit after another a warp; the dz and dq walks keep U entries a group
-// in flight.  The C functions and launch shapes are chosen by
+// = 128, the shuffles, the exp) is the cost: the three walks keep U
+// entries a group in flight.  The C functions and launch shapes are chosen by
 // dgl_tpu_torch/ops/kernels/bitdot.py.
 
 #include <cuda_runtime.h>
@@ -90,159 +95,11 @@
 namespace {
 
 constexpr int kWarps = 8;   // warps per block
-constexpr int kUnroll = 8;  // words each lane keeps in flight
 constexpr float kClip = 40.f;
 constexpr float kDenEps = 1e-20f;
 
-// The feature columns a lane owns: column f = lane + 32 k of the
-// flattened (H, D) row, its head f / dim, and whether it starts its head
-// (the one lane that writes the head's scalars).
-template <int kCols>
-struct Columns {
-  int f[kCols];
-  int head[kCols];  // -1 past H * D
-  bool first[kCols];
-
-  __device__ Columns(int lane, int heads, int dim) {
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      f[k] = lane + 32 * k;
-      const bool valid = f[k] < heads * dim;
-      head[k] = valid ? f[k] / dim : -1;
-      first[k] = valid && f[k] % dim == 0;
-    }
-  }
-};
-
-// v[n][k] := the sum of v[n] over the columns of head[k], across the warp,
-// for each of the kN arrays at once.
-template <int kN, int kCols>
-__device__ __forceinline__ void head_sums(float (&v)[kN][kCols],
-                                          const Columns<kCols>& c, int heads,
-                                          int dim) {
-  if (32 % dim == 0) {
-    // a head is an aligned group of dim lanes within one register
-#pragma unroll
-    for (int k = 0; k < kCols; ++k)
-      for (int off = dim >> 1; off > 0; off >>= 1)
-#pragma unroll
-        for (int n = 0; n < kN; ++n)
-          v[n][k] += __shfl_xor_sync(kFull, v[n][k], off);
-    return;
-  }
-  float sum[kN][kCols];
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) sum[n][k] = 0.f;
-  for (int h = 0; h < heads; ++h) {
-    float part[kN];
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      part[n] = 0.f;
-#pragma unroll
-      for (int k = 0; k < kCols; ++k)
-        part[n] += c.head[k] == h ? v[n][k] : 0.f;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int n = 0; n < kN; ++n)
-        part[n] += __shfl_xor_sync(kFull, part[n], off);
-#pragma unroll
-    for (int k = 0; k < kCols; ++k)
-      if (c.head[k] == h)
-#pragma unroll
-        for (int n = 0; n < kN; ++n) sum[n][k] = part[n];
-  }
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) v[n][k] = sum[n][k];
-}
-
 __device__ __forceinline__ float clip_exp(float e) {
   return expf(fminf(fmaxf(e, -kClip), kClip));
-}
-
-// The set bits of row `row` of a packing of `words` words a row, in
-// order: calls visit(col) for each, col = b * words + j, on every lane of
-// the warp (the loop is warp-uniform).  Columns at or past num_cols are
-// padding, whose bits are 0.
-template <typename Visit>
-__device__ __forceinline__ void walk_row(const uint32_t* __restrict__ packed,
-                                         int64_t words, int64_t row,
-                                         int64_t num_cols, int lane,
-                                         Visit visit) {
-  const uint32_t* prow = packed + row * words;
-  for (int64_t j0 = 0; j0 < words; j0 += 32 * kUnroll) {
-    uint32_t word[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t j = j0 + u * 32 + lane;
-      word[u] = j < words ? __ldg(prow + j) : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      unsigned live = __ballot_sync(kFull, word[u] != 0u);
-      while (live) {  // warp-uniform
-        const int src_lane = __ffs(live) - 1;
-        live &= live - 1;
-        uint32_t bits = __shfl_sync(kFull, word[u], src_lane);
-        const int64_t j = j0 + u * 32 + src_lane;
-        while (bits) {
-          const int b = __ffs(bits) - 1;
-          bits &= bits - 1;
-          const int64_t col = static_cast<int64_t>(b) * words + j;
-          if (col < num_cols) visit(col);
-        }
-      }
-    }
-  }
-}
-
-template <int kCols>
-__global__ void __launch_bounds__(kWarps * 32)
-bitdot_fwd_kernel(const uint32_t* __restrict__ packed, int64_t n32,
-                  int64_t num_src, int64_t num_dst,
-                  const float* __restrict__ q, const float* __restrict__ z,
-                  int heads, int dim, float isd, float* __restrict__ out,
-                  float* __restrict__ l) {
-  const int lane = threadIdx.x & 31;
-  const int64_t d =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (d >= num_dst) return;  // warp-uniform
-  const int hd = heads * dim;
-  const Columns<kCols> c(lane, heads, dim);
-  float qv[kCols], acc[kCols], lsum[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    qv[k] = c.head[k] >= 0 ? __ldg(q + d * hd + c.f[k]) : 0.f;
-    acc[k] = 0.f;
-    lsum[k] = 0.f;
-  }
-  walk_row(packed, n32, d, num_src, lane, [&](int64_t s) {
-    float zv[kCols], dot[1][kCols];
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      zv[k] = c.head[k] >= 0 ? __ldg(z + s * hd + c.f[k]) : 0.f;
-      dot[0][k] = zv[k] * qv[k];
-    }
-    head_sums<1, kCols>(dot, c, heads, dim);
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      if (c.head[k] < 0) continue;  // as in K5's forward (csrc/bitgat.cu)
-      const float p = clip_exp(dot[0][k] * isd);
-      lsum[k] += p;
-      acc[k] += p * zv[k];
-    }
-  });
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    if (c.head[k] < 0) continue;
-    out[d * hd + c.f[k]] = acc[k] / fmaxf(lsum[k], kDenEps);
-    if (c.first[k]) l[d * heads + c.head[k]] = lsum[k];
-  }
 }
 
 // One edge's backward terms for one head: alpha and draw from its summed
@@ -581,8 +438,166 @@ bitdot_dq_list_kernel(const uint32_t* __restrict__ packed, int64_t n32,
   }
 }
 
-dim3 rows_grid(int64_t rows) {
-  return dim3(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
+// The entries a group of the forward keeps in flight: each brings one row,
+// z[s], CPL vectors a lane, as the dq walk's do, but the forward holds
+// neither g nor [linv, rho], so it keeps more of them where ptxas still
+// fits the walk in 128 registers with no local memory at the layouts of
+// DotGatConv's gate (D >= 64: CPL 2 with several heads, 3 and 4 with
+// one): 2 at 3 and 4 vectors a lane where the dq walk keeps 1.  At CPL 2
+// 8 entries took 128 registers and 24 bytes of local memory a thread on
+// an H100 (the probe's edit u2x), and 4 entries 107 registers and none
+template <int CPL>
+struct FwdUnroll {
+  static constexpr int value = CPL == 1 ? 8 : CPL == 2 ? 4 : 2;
+};
+
+// The forward by the listed walk by dst, the dq walk's lanes, layout and
+// rows: rows d of packed, entries s.  The row's q[d] stays in registers;
+// per entry the group gathers z[s], forms z . q per head over the head's
+// lanes, takes p = exp(clip(e, +-40)) and adds p into l's sum and p z[s]
+// into out's.  At the row's end out = acc / max(l, 1e-20) is written once
+// and l once a head, by the lane that holds the head's first vector.
+template <int CPL, bool kOneHead>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+bitdot_fwd_list_kernel(const uint32_t* __restrict__ packed, int64_t n32,
+                       const int* __restrict__ order, int rows,
+                       int64_t num_src, const float4* __restrict__ q,
+                       const float4* __restrict__ z, int heads, int nv,
+                       int vph, int lpe, float isd, float4* __restrict__ out,
+                       float* __restrict__ l, int* __restrict__ counter) {
+  constexpr int U = FwdUnroll<CPL>::value;
+  constexpr int NH = kOneHead ? 1 : CPL;  // scalar chains a lane
+  __shared__ int lists[kWarps][kList];
+  const int lane = threadIdx.x & 31;
+  int* list = lists[threadIdx.x >> 5];
+  const int groups = 32 / lpe;
+  const int grp = lane / lpe;
+  const int li = lane - grp * lpe;
+  const int red = kOneHead ? lpe : vph;  // lanes that share a head's sum
+  int vq[CPL];
+  bool ok[CPL];
+  int hq[NH];
+  bool lead[NH];  // the lane writes l of the chain's head
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    vq[c] = li + lpe * c;
+    ok[c] = vq[c] < nv;
+  }
+#pragma unroll
+  for (int t = 0; t < NH; ++t) {
+    hq[t] = kOneHead || !ok[t] ? 0 : vq[t] / vph;
+    lead[t] = grp == 0 && (kOneHead ? li == 0 : ok[t] && li % vph == 0);
+  }
+
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(counter, 1);
+    item = __shfl_sync(kFull, item, 0);
+    if (item >= rows) break;  // warp-uniform
+    const int64_t d = order[item];
+    float4 qd[CPL], acc[CPL];
+    float lsum[NH];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      qd[c] = ok[c] ? __ldg(q + d * nv + vq[c])
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int t = 0; t < NH; ++t) lsum[t] = 0.f;
+
+    const uint32_t* prow = packed + d * n32;
+    uint32_t word[kStepWords], next[kStepWords];
+    list_start(word, next, prow, n32, lane);
+    int64_t j0 = -32 * kStepWords;  // the step in hand
+    int total = 0, first = 0, p0 = 0;  // its entries, the lane's, listed
+    int len = 0;                       // entries in the list
+    bool row_done = false;             // all warp-uniform
+    while (!row_done) {
+      list_bits(list, len, row_done, word, next, j0, total, first, p0, prow,
+                n32, num_src, lane);
+      // the drain: groups take consecutive entries, U each in flight,
+      // every load of a batch issued before its arithmetic
+      __syncwarp();
+      for (int i0 = 0; i0 < len; i0 += groups * U) {
+        int ss[U];
+        float4 zv[U][CPL];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = i0 + u * groups + grp;
+          ss[u] = e < len ? list[e] : -1;
+          const int64_t s = ss[u] < 0 ? 0 : ss[u];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            zv[u][c] = ss[u] >= 0 && ok[c]
+                           ? __ldg(z + s * nv + vq[c])
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float zd[NH];  // z . q of the chain's head
+#pragma unroll
+          for (int t = 0; t < NH; ++t) zd[t] = 0.f;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const int t = kOneHead ? 0 : c;
+            zd[t] = fmaf(zv[u][c].x, qd[c].x, zd[t]);
+            zd[t] = fmaf(zv[u][c].y, qd[c].y, zd[t]);
+            zd[t] = fmaf(zv[u][c].z, qd[c].z, zd[t]);
+            zd[t] = fmaf(zv[u][c].w, qd[c].w, zd[t]);
+          }
+          for (int off = red >> 1; off > 0; off >>= 1) {  // warp-uniform
+#pragma unroll
+            for (int t = 0; t < NH; ++t)
+              zd[t] += __shfl_xor_sync(kFull, zd[t], off);
+          }
+          if (ss[u] < 0) continue;
+          float pt[NH];  // p of the chain's head
+#pragma unroll
+          for (int t = 0; t < NH; ++t) {
+            pt[t] = clip_exp(zd[t] * isd);
+            lsum[t] += pt[t];
+          }
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const float p = pt[kOneHead ? 0 : c];
+            acc[c].x = fmaf(p, zv[u][c].x, acc[c].x);
+            acc[c].y = fmaf(p, zv[u][c].y, acc[c].y);
+            acc[c].z = fmaf(p, zv[u][c].z, acc[c].z);
+            acc[c].w = fmaf(p, zv[u][c].w, acc[c].w);
+          }
+        }
+      }
+      __syncwarp();
+      len = 0;
+    }
+
+    // the groups' sums, combined in a fixed order, then written once
+    for (int off = lpe; off < 32; off <<= 1) {  // warp-uniform
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        acc[c].x += __shfl_xor_sync(kFull, acc[c].x, off);
+        acc[c].y += __shfl_xor_sync(kFull, acc[c].y, off);
+        acc[c].z += __shfl_xor_sync(kFull, acc[c].z, off);
+        acc[c].w += __shfl_xor_sync(kFull, acc[c].w, off);
+      }
+#pragma unroll
+      for (int t = 0; t < NH; ++t)
+        lsum[t] += __shfl_xor_sync(kFull, lsum[t], off);
+    }
+    if (grp != 0) continue;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (!ok[c]) continue;
+      const float den = fmaxf(lsum[kOneHead ? 0 : c], kDenEps);
+      out[d * nv + vq[c]] = make_float4(acc[c].x / den, acc[c].y / den,
+                                        acc[c].z / den, acc[c].w / den);
+    }
+#pragma unroll
+    for (int t = 0; t < NH; ++t)
+      if (lead[t]) l[d * heads + hq[t]] = lsum[t];
+  }
 }
 
 // The listed walks (dz by src, dq by dst) take one argument list.
@@ -605,6 +620,14 @@ ListWalk dz_walk(int64_t cpl, bool one) {
 }
 ListWalk dq_walk(int64_t cpl, bool one) {
   DGL_LIST_INSTANCE(bitdot_dq_list_kernel)
+}
+
+// The forward's argument list: two outputs, out and l, and no g or nvec
+typedef void (*FwdWalk)(const uint32_t*, int64_t, const int*, int, int64_t,
+                        const float4*, const float4*, int, int, int, int,
+                        float, float4*, float*, int*);
+FwdWalk fwd_walk(int64_t cpl, bool one) {
+  DGL_LIST_INSTANCE(bitdot_fwd_list_kernel)
 }
 #undef DGL_LIST_INSTANCE
 
@@ -639,9 +662,39 @@ int launch_list_walk(ListWalk walk, const void* packed, int64_t words,
   return cudaGetLastError();
 }
 
+int launch_fwd_walk(const void* packed, int64_t n32, const void* order,
+                    int64_t rows, int64_t num_src, const void* q,
+                    const void* z, int64_t heads, int64_t dp, int64_t lpe,
+                    int64_t cpl, float isd, void* out, void* l,
+                    void* counter, int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const FwdWalk walk = fwd_walk(cpl, heads == 1);
+  const int64_t vph = dp / 4, nv = heads * vph;
+  if (walk == nullptr || !list_layout_ok(heads, dp, lpe, cpl) ||
+      num_src > INT32_MAX || rows > INT32_MAX ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(z) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  unsigned blocks = 0;
+  err = persistent_blocks(walk, kWarps * 32, (rows + kWarps - 1) / kWarps,
+                          &blocks);
+  if (err != cudaSuccess) return err;
+  walk<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), n32,
+      static_cast<const int*>(order), static_cast<int>(rows), num_src,
+      static_cast<const float4*>(q), static_cast<const float4*>(z),
+      static_cast<int>(heads), static_cast<int>(nv), static_cast<int>(vph),
+      static_cast<int>(lpe), isd, static_cast<float4*>(out),
+      static_cast<float*>(l), static_cast<int*>(counter));
+  return cudaGetLastError();
+}
+
 // attrs (three host ints): the registers a thread, the local memory bytes
 // a thread and the resident blocks an SM of a walk's instance
-int list_walk_attrs(ListWalk walk, int64_t device, void* attrs) {
+template <typename Walk>
+int list_walk_attrs(Walk walk, int64_t device, void* attrs) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
   if (walk == nullptr) return cudaErrorInvalidValue;
@@ -657,39 +710,25 @@ int list_walk_attrs(ListWalk walk, int64_t device, void* attrs) {
 
 }  // namespace
 
-// The forward takes the packing's row width (n32), the src and dst
-// counts, q (num_dst, H, D) and z (num_src, H, D), f32 and contiguous,
-// with H * D <= 128, and writes every element of its outputs.  Grid:
-// ceil(rows / 8) blocks of 8 warps, one warp a row.
-#define DGL_BITDOT_SWITCH(LAUNCH)                \
-  switch ((heads * dim + 31) / 32) {             \
-    case 1: LAUNCH(1); break;                    \
-    case 2: LAUNCH(2); break;                    \
-    case 3: LAUNCH(3); break;                    \
-    case 4: LAUNCH(4); break;                    \
-    default: return cudaErrorInvalidValue;       \
-  }                                              \
-  return cudaGetLastError()
-
 extern "C" {
 
-// Forward over packed (rows = dst, n32 words): out (num_dst, H, D) and l
-// (num_dst, H).
-int dgl_bitdot_fwd(const void* packed, int64_t n32, int64_t num_src,
-                   int64_t num_dst, const void* q, const void* z,
-                   int64_t heads, int64_t dim, float isd, void* out, void* l,
-                   int64_t device, void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DGL_FWD(C)                                                          \
-  bitdot_fwd_kernel<C><<<rows_grid(num_dst), kWarps * 32, 0, st>>>(        \
-      static_cast<const uint32_t*>(packed), n32, num_src, num_dst,          \
-      static_cast<const float*>(q), static_cast<const float*>(z),           \
-      static_cast<int>(heads), static_cast<int>(dim), isd,                  \
-      static_cast<float*>(out), static_cast<float*>(l))
-  DGL_BITDOT_SWITCH(DGL_FWD);
-#undef DGL_FWD
+// The forward by the listed walk by dst: out (rows of packed, H, dp) and l
+// (rows of packed, H) f32, every row of `order` written (a row with no set
+// bit gives 0 and 0), from packed (n32 words a row; bit b of word j <-> src
+// b * n32 + j, bits at or past num_src skipped), order (rows,) int32, the
+// dst rows in the order warps claim them (each once), q (rows of the dst)
+// and z (num_src rows) of nv = H dp / 4 16-byte vectors, each head's dp
+// columns padded with zeros, 16-byte aligned.  The layout (lpe, cpl, vph)
+// as dgl_bitdot_bwd_dz_list's; num_src < 2^31.  counter is one int, zeroed
+// by the caller.  Persistent blocks of 8 warps.
+int dgl_bitdot_fwd_list(const void* packed, int64_t n32, const void* order,
+                        int64_t rows, int64_t num_src, const void* q,
+                        const void* z, int64_t heads, int64_t dp,
+                        int64_t lpe, int64_t cpl, float isd, void* out,
+                        void* l, void* counter, int64_t device,
+                        void* stream) {
+  return launch_fwd_walk(packed, n32, order, rows, num_src, q, z, heads, dp,
+                         lpe, cpl, isd, out, l, counter, device, stream);
 }
 
 // dz by the listed walk by src: dz (rows of packed_rev, H, dp) f32, every
@@ -744,6 +783,12 @@ int dgl_bitdot_dz_attrs(int64_t cpl, int64_t one_head, int64_t device,
 int dgl_bitdot_dq_attrs(int64_t cpl, int64_t one_head, int64_t device,
                         void* attrs) {
   return list_walk_attrs(dq_walk(cpl, one_head != 0), device, attrs);
+}
+
+// The same of the forward's instance for (cpl, one head).
+int dgl_bitdot_fwd_attrs(int64_t cpl, int64_t one_head, int64_t device,
+                         void* attrs) {
+  return list_walk_attrs(fwd_walk(cpl, one_head != 0), device, attrs);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // A warp's listing of the set bits of one row of a bit packing, and the
 // check of a listed walk's lanes, shared by the listed-bit walks: K5's two
-// walks (bitgat.cu) and K7's dz and dq walks (bitdot.cu).
+// walks (bitgat.cu) and K7's three walks (bitdot.cu).
 //
 // Packing (plane-major, dgl_tpu/ops/pallas/bitmm.py:19-27): with k32 words
 // a row, bit b of word j <-> column b * k32 + j.  Bit 31 is the int32 sign

@@ -26,35 +26,24 @@
 // den, numerator, ds and dx are K6's and K4's kernels (csrc/gat_fused.cu,
 // csrc/row_agg.cu).
 //
-// Three kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
-// node gradient and da, and K11 v2's node gradient, are the walks of
-// csrc/row_agg.cu: K11 v2's node gradient, the dv part of
+// Two kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
+// node gradient and da, K11 v2's node gradient and both K11's scores are
+// the walks of csrc/row_agg.cu: K11 v2's node gradient, the dv part of
 // _egatc2_dv_da_kernel :1975 and _egatc2_du_kernel :2024, is its
 // row_fe_grad_kernel; the tiled walk it replaced, vattn_node_grad_kernel,
 // a block per (tile, column chunk, split) adding each slot's dW into
 // shared memory with a float atomicAdd, is built by
 // dgl_tpu_torch/tools/perf_dq_node_grad.py from tools/dq_node_grad_probe.cu
-// and timed beside it); each is behind a plain C function that launches
-// on the caller's stream, allocates nothing and returns
-// cudaGetLastError():
+// and timed beside it; the scores, _egatc2_scores_kernel :1955 and
+// _egatc_scores_kernel :959, are its dot-product walk by dst in the scores
+// mode, row_vattn_fe_kernel with the edge term formed per entry and
+// row_sddmm_kernel<CPL, true, true, T> with the stored one, and the bucket
+// walk they replaced, a warp a 32-slot chunk gathering U[src] and V[dst]
+// with scalar loads at every slot, is built by
+// dgl_tpu_torch/tools/perf_fwd_scores.py from tools/fwd_scores_probe.cu);
+// each is behind a plain C function that launches on the caller's stream,
+// allocates nothing and returns cudaGetLastError():
 //
-// vattn_scores_kernel<true>  replaces _egatc2_scores_kernel (:1955,
-//     egatc2_forward :2075), K11 v2's scores.  K9's scores
-//     (_gatv2_scores_kernel :670, gatv2_forward :783), which the
-//     <false, float, false> instance computed, are the dot-product walk
-//     by dst of csrc/row_agg.cu in its scores mode (row_sddmm_kernel<CPL,
-//     true> and slot_finish_kernel<VEC, true>); dgl_vattn_scores refuses
-//     that case, and dgl_tpu_torch/tools/perf_scores_rows.py builds it
-//     again from an edit of this file to time the two side by side.  The
-//     walk is K6's ds walk (csrc/gat_fused.cu
-//     gat_ds_kernel): one warp per 32-slot chunk, L lanes per head (32 over
-//     the heads rounded up to a power of two), each lane striding its
-//     head's columns by L, 4 slots in flight, an xor-shuffle sum over the L
-//     lanes.  A head's columns need not line up with a warp (D = 41) and a
-//     lane's head changes inside a warp (D = 8): a lane only ever touches
-//     its own head's columns.  With kEdge the block holds wf in shared
-//     memory and each warp its chunk's 32 edge-feature rows, so fe is
-//     computed per slot and column and never stored.
 // vattn_slot_grad_mma_kernel<KS, kDef>  replaces the da, d(ef) and dWf
 //     parts of _egatc2_dv_da_kernel (:1975, egatc2_backward :2167), which
 //     contract fe = ef wf (:2014's operand), d(ef) = wf dW^T (:2014) and
@@ -81,23 +70,22 @@
 //     for dWf a slot and column on the f32 pipes, shared and global atomics
 //     at the end), built by dgl_tpu_torch/tools/perf_dz_slot_grad.py from
 //     tools/dz_slot_grad_probe.cu and timed beside it (PERF.md).
-// vattn_slot_grad_kernel<kCols, T, kStore>, kStore (K11 v1, below), the
-//     walk of the scores kernel, but each lane owns a fixed set of kCols
-//     columns of its head (a group; a wide head takes several groups, each
-//     a walk of the block's chunks), so da sums in registers; at the end
-//     the block adds its lanes' sums in shared memory and then into da
-//     with global atomics.  K9's da (the da part of _gatv2_dv_da_kernel
-//     :689, _gatv2_bwd :878), which its instances without a stored term
-//     summed, is folded into K9's node-gradient walk by dst
-//     (csrc/row_agg.cu row_agg_kernel<VEC, CPL, true, true>);
+// vattn_slot_grad_kernel<kCols, T, kStore>, kStore (K11 v1, below): one
+//     warp per 32-slot chunk of the buckets, L lanes per head (32 over the
+//     heads rounded up to a power of two); each lane owns a fixed set of
+//     kCols columns of its head (a group; a wide head takes several
+//     groups, each a walk of the block's chunks), so da sums in registers;
+//     at the end the block adds its lanes' sums in shared memory and then
+//     into da with global atomics.  K9's da (the da part of
+//     _gatv2_dv_da_kernel :689, _gatv2_bwd :878), which its instances
+//     without a stored term summed, is folded into K9's node-gradient walk
+//     by dst (csrc/row_agg.cu row_agg_kernel<VEC, CPL, true, true>);
 //     dgl_tpu_torch/tools/perf_ds_fold.py builds those instances again to
 //     time the two side by side.
 // EGATConv v1 (K11 v1, gat_fused.py:946-1261) stores its edge term FE per
 // slot, (B * C, H * D) of type T (float or __nv_bfloat16), instead of
 // forming it from ef and wf (kStore, read and written at 64-bit offsets:
 // at 23M edges and H * D = 128 the tensor has 3.4e9 elements):
-// vattn_scores_kernel<false, T, true>  replaces _egatc_scores_kernel
-//     (:959, egatc_forward :1093): raw adds FE[s, c].
 // vattn_slot_grad_kernel<kCols, T, true>  replaces the da and
 //     dFE parts of _egatc_dv_da_dfe_kernel (:979, _egatc_bwd :1193): it
 //     also writes dW per slot and column as dFE, in T, every slot of every
@@ -146,126 +134,10 @@ __device__ __forceinline__ void st_slot(__nv_bfloat16* t, long long i,
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kClip = 40.f;     // gat_fused.py CLIP
-constexpr int kWarps = 8;         // warps per scores / slot-grad block
-constexpr int kUnroll = 4;        // scores: slots in flight per warp
+constexpr int kWarps = 8;         // warps per slot-grad block
 
 __device__ __forceinline__ float lrelu(float x, float slope) {
   return x >= 0.f ? x : slope * x;
-}
-
-// The 32 edge-feature rows of the chunk starting at slot s0 into
-// ef_s[32][fe_rows]; column fe holds the bias row's implicit 1 when
-// fe_rows > fe.
-__device__ __forceinline__ void load_ef_chunk(const float* __restrict__ ef,
-                                              int s0, int fe, int fe_rows,
-                                              float* ef_s, int lane) {
-  const float* src = ef + static_cast<long long>(s0) * fe;
-  for (int i = lane; i < 32 * fe_rows; i += 32) {
-    const int j = i / fe_rows;
-    const int k = i - j * fe_rows;
-    ef_s[i] = k < fe ? __ldg(src + j * fe + k) : 1.f;
-  }
-  __syncwarp();
-}
-
-template <bool kEdge, typename T = float, bool kStore = false>
-__global__ void __launch_bounds__(kWarps * 32)
-vattn_scores_kernel(const int* __restrict__ src_local,
-                    const int* __restrict__ dst_local,
-                    const float* __restrict__ valid,
-                    const int* __restrict__ src_tile,
-                    const int* __restrict__ dst_tile, int num_buckets,
-                    int tile, int cap, const float* __restrict__ u,
-                    const float* __restrict__ v,
-                    const float* __restrict__ attn,
-                    const float* __restrict__ ef,
-                    const float* __restrict__ wf, int fe, int fe_rows,
-                    int heads, int dim, int lanes, float slope,
-                    const T* __restrict__ fe_s, float* __restrict__ p) {
-  extern __shared__ float smem[];
-  const int hd = heads * dim;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* attn_s = smem;                           // [hd]
-  float* wf_s = attn_s + hd;                      // [fe_rows][hd]
-  float* ef_s = wf_s + (kEdge ? fe_rows * hd : 0)
-                + warp * 32 * fe_rows;            // this warp's [32][fe_rows]
-  for (int i = threadIdx.x; i < hd; i += blockDim.x) attn_s[i] = attn[i];
-  if (kEdge) {
-    for (int i = threadIdx.x; i < fe_rows * hd; i += blockDim.x) {
-      wf_s[i] = wf[i];
-    }
-  }
-  __syncthreads();
-
-  const int heads_per_pass = 32 / lanes;
-  const int hl = lane / lanes;  // head of this lane within a pass
-  const int fl = lane % lanes;  // first column of this lane in its head
-  const int per_bucket = cap / 32;
-  const int n_chunks = num_buckets * per_bucket;
-  for (int k = blockIdx.x * kWarps + warp; k < n_chunks;
-       k += gridDim.x * kWarps) {
-    const int b = k / per_bucket;
-    const int c0 = (k % per_bucket) * 32;  // the chunk's first slot in b
-    const int s0 = b * cap + c0;
-    const float vld = valid[s0 + lane];
-    const int sl = src_local[s0 + lane];
-    const int dl = dst_local[s0 + lane];
-    const int ob = b * heads * cap + c0;  // p[b, h, c0 + j] = p[ob+h*cap+j]
-    if (__ballot_sync(kFull, vld != 0.f) == 0u) {  // a padded tail: all 0
-      for (int h = 0; h < heads; ++h) p[ob + h * cap + lane] = 0.f;
-      continue;
-    }
-    if (kEdge) load_ef_chunk(ef, s0, fe, fe_rows, ef_s, lane);
-    const float* ut = u + static_cast<long long>(src_tile[b]) * tile * hd;
-    const float* vt = v + static_cast<long long>(dst_tile[b]) * tile * hd;
-    for (int j0 = 0; j0 < 32; j0 += kUnroll) {
-      const float* ur[kUnroll];
-      const float* vr[kUnroll];
-      bool live[kUnroll];
-#pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        live[q] = __shfl_sync(kFull, vld, j0 + q) != 0.f;  // warp-uniform
-        ur[q] = ut + __shfl_sync(kFull, sl, j0 + q) * hd;
-        vr[q] = vt + __shfl_sync(kFull, dl, j0 + q) * hd;
-      }
-      for (int h0 = 0; h0 < heads; h0 += heads_per_pass) {
-        const int h = h0 + hl;
-        const int c_end = h < heads ? (h + 1) * dim : 0;  // this head's end
-        float s[kUnroll];
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) s[q] = 0.f;
-        for (int c = h * dim + fl; c < c_end; c += lanes) {
-          const float a = attn_s[c];
-#pragma unroll
-          for (int q = 0; q < kUnroll; ++q) {
-            if (!live[q]) continue;
-            float raw = __ldg(ur[q] + c) + __ldg(vr[q] + c);
-            if (kEdge) {
-              const float* e = ef_s + (j0 + q) * fe_rows;
-              for (int r = 0; r < fe_rows; ++r) raw += e[r] * wf_s[r * hd + c];
-            }
-            if (kStore) {
-              raw += ld_slot(fe_s,
-                             static_cast<long long>(s0 + j0 + q) * hd + c);
-            }
-            s[q] += a * lrelu(raw, slope);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          for (int o = lanes / 2; o > 0; o >>= 1) {
-            s[q] += __shfl_xor_sync(kFull, s[q], o);
-          }
-          if (fl == 0 && h < heads) {
-            p[ob + h * cap + j0 + q] =
-                live[q] ? expf(fminf(fmaxf(s[q], -kClip), kClip)) : 0.f;
-          }
-        }
-      }
-    }
-    if (kEdge) __syncwarp();  // ef_s is rewritten by the next chunk
-  }
 }
 
 // At most 64 registers a thread, 4 blocks an SM: cut to these branches,
@@ -974,62 +846,6 @@ cudaError_t kernel_regs(Kernel kernel, size_t smem, int warps, int* out) {
 }  // namespace
 
 extern "C" {
-
-// p (num_buckets, heads, cap), every element written, from u (num_src,
-// heads * dim), v (num_dst, heads * dim) and attn (heads * dim); with ef
-// not null, the edge term from ef (num_buckets * cap, fe) and wf (fe_rows,
-// heads * dim); with fe_s not null (and ef null), the stored term fe_s
-// (num_buckets * cap, heads * dim), f32 (store 1) or bf16 (store 2).
-// One of the two terms is needed: without either (K9's scores) the call
-// returns cudaErrorInvalidValue (csrc/row_agg.cu dgl_row_vattn serves it).
-// lanes: 32 over the heads rounded up to a power of two, at least 1.
-// Grid: `blocks` blocks of 8 warps, grid-stride over 32-slot chunks.
-int dgl_vattn_scores(const void* src_local, const void* dst_local,
-                     const void* valid, const void* src_tile,
-                     const void* dst_tile, int64_t num_buckets, int64_t tile,
-                     int64_t cap, const void* u, const void* v,
-                     const void* attn, const void* ef, const void* wf,
-                     int64_t fe, int64_t fe_rows, int64_t heads, int64_t dim,
-                     int64_t lanes, double slope, const void* fe_s,
-                     int64_t store, void* p, int64_t blocks, int64_t device,
-                     void* stream) {
-  cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Slots sl = slots(src_local, dst_local, valid, src_tile, dst_tile);
-  const int hd = static_cast<int>(heads * dim);
-  const bool edge = ef != nullptr;
-  if (fe_s != nullptr && (edge || (store != 1 && store != 2))) {
-    return cudaErrorInvalidValue;
-  }
-  const int rows = edge ? static_cast<int>(fe_rows) : 0;
-  const size_t smem = sizeof(float) * (hd + rows * hd + kWarps * 32 * rows);
-#define DGL_SCORES_LAUNCH(EDGE_, T_, STORE_)                                 \
-  err = allow_smem(vattn_scores_kernel<EDGE_, T_, STORE_>, smem);            \
-  if (err != cudaSuccess) return err;                                        \
-  vattn_scores_kernel<EDGE_, T_, STORE_><<<static_cast<unsigned>(blocks),    \
-                                           kWarps * 32, smem, s>>>(          \
-      sl.src_local, sl.dst_local, sl.valid, sl.src_tile, sl.dst_tile,        \
-      static_cast<int>(num_buckets), static_cast<int>(tile),                 \
-      static_cast<int>(cap), static_cast<const float*>(u),                   \
-      static_cast<const float*>(v), static_cast<const float*>(attn),         \
-      static_cast<const float*>(ef), static_cast<const float*>(wf),          \
-      static_cast<int>(fe), rows, static_cast<int>(heads),                   \
-      static_cast<int>(dim), static_cast<int>(lanes),                        \
-      static_cast<float>(slope), static_cast<const T_*>(fe_s),               \
-      static_cast<float*>(p));
-  if (edge) {
-    DGL_SCORES_LAUNCH(true, float, false)
-  } else if (fe_s == nullptr) {
-    return cudaErrorInvalidValue;  // K9's scores: csrc/row_agg.cu's walk
-  } else if (store == 1) {
-    DGL_SCORES_LAUNCH(false, float, true)
-  } else {
-    DGL_SCORES_LAUNCH(false, __nv_bfloat16, true)
-  }
-#undef DGL_SCORES_LAUNCH
-  return cudaGetLastError();
-}
 
 // K11 v1's slot gradient: da (heads * dim) += the block sums of ds[h] *
 // lrelu(raw), raw with the stored term fe_s (num_buckets * cap, heads *

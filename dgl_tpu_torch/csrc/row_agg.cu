@@ -243,13 +243,33 @@
 // scratch (a row over 1,024 floats in several launches, into parts: the
 // sum over columns adds across chunks); the finishing pass adds the parts
 // in order, then takes exp(clip(s, +-40)) once, where only it sees the
-// whole sum, and writes 0 at the padded slots.  The kernel it replaced
-// (csrc/gatv2.cu vattn_scores_kernel<false, float, false>: a warp a
-// 32-slot chunk of the buckets, both U[src] and V[dst] gathered with
-// scalar loads at every slot, padded slots visited) is built by
-// dgl_tpu_torch/tools/perf_scores_rows.py to be timed beside it.  Bound:
-// the view, U and V read once, attn, p written at every slot (4H B a
-// slot).
+// whole sum, and writes 0 at the padded slots.  The kernel it replaced (a
+// warp a 32-slot chunk of the buckets, both U[src] and V[dst] gathered
+// with scalar loads at every slot, padded slots visited) is built by
+// dgl_tpu_torch/tools/perf_scores_rows.py from an edit of
+// tools/fwd_scores_probe.cu to be timed beside it.  Bound: the view, U and
+// V read once, attn, p written at every slot (4H B a slot).
+//
+// K11's scores on the same walk and pass, which replace that bucket walk's
+// two other instances.  K11 v1's (dgl_tpu/ops/pallas/gat_fused.py
+// _egatc_scores_kernel :959, egatc_forward :1093), where raw gains the
+// stored FE[s] (B C, H D) f32 or bf16, are row_sddmm_kernel<CPL, true,
+// true, T>: the scores mode and kStore at once, FE's row read at the
+// entry's slot (64-bit offsets, unpadded heads at DsTerm's offsets) and
+// added to U[nbr] before lrelu.  K11 v2's (_egatc2_scores_kernel :1955,
+// egatc2_forward :2075), where raw gains fe = ef[s] . wf[:Fe] (+ the bias
+// row) formed per entry, are row_vattn_fe_kernel<KF>, a sibling of the
+// walk at one 16-byte vector a lane, as row_fe_grad_kernel forms fe: the
+// lane's KF rows of wf in registers (KF 8, 16 or 32, tiled_spmm.fe_kf), the
+// entries' edge-feature rows staged in the group's shared memory by
+// cp.async beside the gathers, the bias added to V[r] once a row; a head
+// wider than 32 vectors, or more heads than a launch's lanes hold, takes
+// several launches (the wrapper's plan).  The bucket walk they replaced
+// (a block's wf in shared memory, read once an FMA; scalar gathers at
+// every slot) is built by dgl_tpu_torch/tools/perf_fwd_scores.py from
+// tools/fwd_scores_probe.cu.  Bound: K9's, with FE at the edges (v1), or
+// ef at the edges and wf once and 2 (Fe + 1) operations an edge and
+// column (v2).
 //
 // K10's edge ds on the same walk, with its finishing pass: it replaces
 // the edge modes of the bucket walk gat_ds_kernel, csrc/gat_fused.cu's
@@ -1413,6 +1433,177 @@ row_sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
   }
 }
 
+// K11 v2's scores (row_vattn_fe_kernel): the entries a group keeps in
+// flight, fewer where the lane's KF rows of wf (4 KF registers) take more.
+// At KF 16 (EGAT's 16 features) ptxas keeps 4 entries in 128 registers
+// with 16 bytes of local memory a thread, 2 blocks an SM; that ran faster
+// on an H100 than 8 entries in more registers at 1 block an SM (the edit
+// u2x of dgl_tpu_torch/tools/perf_fwd_scores.py, PERF.md)
+template <int KF>
+struct FeScoreUnroll {
+  static constexpr int value = KF <= 16 ? 4 : 2;
+};
+
+// K11 v2's scores on the dot-product walk, the edge term formed per entry:
+// row_sddmm_kernel's scores mode at one vector a lane (lph >= hv, a head a
+// lane, at least kFeMinLanes lanes a row, so that a warp's groups stage at
+// most kFeGroups rows' edge features at once).  The lane holds its four
+// columns of wf (KF rows, zero past fe) and of attn, and adds the bias
+// row's to V[r] once a row; a step of U entries copies their
+// edge-feature rows (ef in slot order, fq 16-byte vectors a row, read at
+// the view's slot) into the group's shared memory with cp.async beside
+// the gathers of U[nbr], then forms fe = ef[slot] . wf[:fe] for the lane's
+// columns and the partial attn . lrelu((V[r] + bias) + U[nbr] + fe); the
+// U partials of a head meet in row_sddmm_kernel's butterfly and go to the
+// entry-major scratch, a head's dot at entry k at out[k * ostride + h].
+template <int KF>
+__global__ void __launch_bounds__(kWarps * 32)
+row_vattn_fe_kernel(const int* __restrict__ ptr, const int* __restrict__ nbr,
+                    const int* __restrict__ order, int rows,
+                    const float* __restrict__ u, const float* __restrict__ v,
+                    int f, int hstride, int heads, int hv, int lph, int lpr,
+                    float* __restrict__ out, int ostride,
+                    int* __restrict__ counter, const float* __restrict__ attn,
+                    float slope, const int* __restrict__ slot,
+                    const float4* __restrict__ ef, int fq,
+                    const float* __restrict__ wf, int fe,
+                    const float* __restrict__ bias) {
+  constexpr int U = FeScoreUnroll<KF>::value;
+  constexpr int kLogU = Log2<U>::value;
+  constexpr int KQ = KF / 4;  // 16-byte vectors of an entry's features
+  __shared__ float4 efs[kWarps][kFeGroups * U * KQ];
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lpr;
+  const int grp = lane / lpr;
+  const int li = lane - grp * lpr;
+  const unsigned gmask =
+      lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
+  float4* es = efs[threadIdx.x >> 5] + grp * U * KQ;  // the group's part
+  const int hl = li / lph;         // the lane's head
+  const int fl = li - hl * lph;    // and its vector of the head
+  const bool ok = hl < heads && fl < hv;
+  const int vc = ok ? hl * hstride + fl : 0;  // the vector within a row
+  // the butterfly of row_sddmm_kernel over the head's lph lanes
+  const int lg_lph = __ffs(lph) - 1;
+  const int steps = min(kLogU, lg_lph);
+  const int m = U >> steps;
+  const int rest = lph >> steps;
+  int bu = 0;
+  for (int t = 0; t < steps; ++t) {
+    if ((fl >> (lg_lph - 1 - t)) & 1) bu += U >> (t + 1);
+  }
+  const bool writer = (fl & (rest - 1)) == 0;
+  const float4 av =
+      ok ? __ldg(reinterpret_cast<const float4*>(attn) + vc)
+         : zero_vec<float4>();
+  float wfr[4][KF];  // the lane's columns of wf, by feature
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int k = 0; k < KF; ++k)
+      wfr[i][k] = ok && k < fe ? __ldg(wf + k * f + 4 * vc + i) : 0.f;
+  }
+
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, groups);
+    base = __shfl_sync(kFull, base, 0);
+    if (base >= rows) break;
+    const int item = base + grp;
+    const bool has = item < rows;
+    const int r = has ? order[item] : 0;
+    // V[r] and the bias row, added once a row (the bias read again a row:
+    // held beside wf's columns it cost ptxas registers)
+    const float4 vb = add_vec(
+        has && ok ? __ldg(reinterpret_cast<const float4*>(v + r * f) + vc)
+                  : zero_vec<float4>(),
+        ok && bias != nullptr
+            ? __ldg(reinterpret_cast<const float4*>(bias) + vc)
+            : zero_vec<float4>());
+    const int e0 = has ? ptr[r] : 0;
+    const int e1 = has ? ptr[r + 1] : e0;
+    for (int eb = e0; eb < e1; eb += lpr) {  // uniform in the group
+      const int n = min(lpr, e1 - eb);
+      // this lane's entry: its neighbour, scratch offset and slot
+      int my_nb = 0, my_at = 0, my_sl = 0;
+      if (li < n) {
+        my_nb = nbr[eb + li];
+        my_at = (eb + li) * ostride;
+        my_sl = slot[eb + li];
+      }
+      for (int u0 = 0; u0 < n; u0 += U) {
+        // the edge features of entries u0 .. u0 + U - 1: vector j of
+        // entry k at es[k * KQ + j]
+        for (int c0 = 0; c0 < U * KQ; c0 += lpr) {  // uniform in the group
+          const int c = c0 + li;
+          const int k = c / KQ;
+          const int j = c - k * KQ;
+          const int s = __shfl_sync(gmask, my_sl, u0 + k, lpr);
+          if (c < U * KQ && u0 + k < n && j < fq)
+            cp_async16(es + c, ef + static_cast<long long>(s) * fq + j);
+        }
+        float4 xv[U];
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+          const int nb = __shfl_sync(gmask, my_nb, u0 + k, lpr);
+          xv[k] = u0 + k < n && ok
+                      ? __ldg(reinterpret_cast<const float4*>(u + nb * f) +
+                              vc)
+                      : zero_vec<float4>();
+        }
+        cp_async_wait_all();
+        __syncwarp(gmask);
+        float d[U];  // this lane's partials, slot k
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+          float fv[4] = {0.f, 0.f, 0.f, 0.f};  // fe of the lane's columns
+#pragma unroll
+          for (int j = 0; j < KQ; ++j) {
+            if (j >= fq) break;  // uniform
+            const float4 e = es[k * KQ + j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              fv[i] = fmaf(e.x, wfr[i][4 * j], fv[i]);
+              fv[i] = fmaf(e.y, wfr[i][4 * j + 1], fv[i]);
+              fv[i] = fmaf(e.z, wfr[i][4 * j + 2], fv[i]);
+              fv[i] = fmaf(e.w, wfr[i][4 * j + 3], fv[i]);
+            }
+          }
+          d[k] = u0 + k < n ? vattn_dot(av, add_vec(vb, xv[k]),
+                                        make_float4(fv[0], fv[1], fv[2],
+                                                    fv[3]),
+                                        slope)
+                            : 0.f;
+        }
+        __syncwarp(gmask);  // the group's reads before the next copies
+        int o = lph >> 1;
+#pragma unroll
+        for (int half = U / 2; half >= 1; half /= 2) {
+          if (o == 0) break;
+          const bool up = (fl & o) != 0;
+#pragma unroll
+          for (int i = 0; i < half; ++i) {
+            const float send = up ? d[i] : d[i + half];
+            const float keep = up ? d[i + half] : d[i];
+            d[i] = keep + __shfl_xor_sync(gmask, send, o, lpr);
+          }
+          o >>= 1;
+        }
+        for (; o > 0; o >>= 1) {
+          d[0] += __shfl_xor_sync(gmask, d[0], o, lpr);
+        }
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          if (i >= m) break;  // uniform in the group
+          const int k = u0 + bu + i;
+          const int at = __shfl_sync(gmask, my_at, k, lpr);
+          if (writer && k < n && hl < heads) __stcs(out + at + hl, d[i]);
+        }
+      }
+    }
+  }
+}
+
 // out (B, heads, cap) from the walk's scratch, a thread a slot s = b * cap
 // + c, its heads VEC at a time (VEC = 4 where H is a multiple of 4: the
 // scratch in 16-byte vectors): out[b, h, c] = the sum over the parts p, in
@@ -1999,20 +2190,22 @@ FeGrad fe_grad_instance(int64_t vec, int64_t cpl, int64_t kf) {
   }
 }
 
-// K10 v1's ds walk (kStore), one launch of the wrapper's plan
-template <typename T>
+// K10 v1's ds walk (kStore) and K11 v1's scores (kVattn with kStore), one
+// launch of the wrapper's plan
+template <typename T, bool kVattn>
 cudaError_t row_sddmm_store_by_cpl(int64_t cpl, const int* ptr, const int* nbr,
                                   const int* order, int rows, const float* x,
                                   const float* z, int f, int hstride,
                                   int heads, int hv, int lph, int cph,
                                   int lpr, float* out, int ostride,
                                   int* counter, const DsTerm& term,
+                                  const float* attn, float slope,
                                   cudaStream_t stream) {
 #define DGL_TERM_CASE(C_)                                                  \
   case C_:                                                                 \
-    return launch_row_sddmm<C_, false, true, T>(                           \
+    return launch_row_sddmm<C_, kVattn, true, T>(                          \
         ptr, nbr, order, rows, x, z, f, hstride, heads, hv, lph, cph, lpr, \
-        out, ostride, counter, nullptr, 0.f, stream, term);
+        out, ostride, counter, attn, slope, stream, term);
   switch (cpl) {
     DGL_TERM_CASE(1)
     DGL_TERM_CASE(2)
@@ -2022,6 +2215,90 @@ cudaError_t row_sddmm_store_by_cpl(int64_t cpl, const int* ptr, const int* nbr,
       return cudaErrorInvalidValue;
   }
 #undef DGL_TERM_CASE
+}
+
+// the instance of the walk with a stored row at (cpl, dtype, kVattn),
+// null where there is none
+template <typename T, bool kVattn>
+const void* store_instance(int64_t cpl) {
+  switch (cpl) {
+    case 1: return reinterpret_cast<const void*>(
+        &row_sddmm_kernel<1, kVattn, true, T>);
+    case 2: return reinterpret_cast<const void*>(
+        &row_sddmm_kernel<2, kVattn, true, T>);
+    case 4: return reinterpret_cast<const void*>(
+        &row_sddmm_kernel<4, kVattn, true, T>);
+    case 8: return reinterpret_cast<const void*>(
+        &row_sddmm_kernel<8, kVattn, true, T>);
+    default: return nullptr;
+  }
+}
+
+// dgl_row_sddmm_store and dgl_row_vattn_store (attn not null: kVattn)
+cudaError_t row_sddmm_store_launch(
+    const void* ptr, const void* nbr, const void* order, int64_t rows,
+    const void* x, const void* z, int64_t f, int64_t hstride, int64_t heads,
+    int64_t hv, int64_t lph, int64_t cph, int64_t lpr, void* out,
+    int64_t ostride, void* counter, int64_t cpl, const void* slot,
+    const void* fs, int64_t fs_dtype, int64_t fs_row, int64_t fs_head,
+    int64_t fs_cols, int64_t fs_vec, const void* attn, float slope,
+    int64_t device, void* stream) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lph < 1 ||
+      lpr % lph != 0 || (lph & (lph - 1)) != 0 || cph < 1 ||
+      (cph & (cph - 1)) != 0 || hv < 1 || hv > hstride || heads < 1 ||
+      (heads - 1) * hstride * 4 + hv * 4 > f || ostride < heads ||
+      cpl < cph * ((heads + lpr / lph - 1) / (lpr / lph)) || !slot || !fs ||
+      (fs_dtype != 1 && fs_dtype != 2))
+    return cudaErrorInvalidValue;
+  const DsTerm term{static_cast<const int*>(slot), fs, fs_row,
+                    static_cast<int>(fs_head), static_cast<int>(fs_cols),
+                    static_cast<int>(fs_vec)};
+#define DGL_STORE_ARGS                                                      \
+  cpl, static_cast<const int*>(ptr), static_cast<const int*>(nbr),          \
+      static_cast<const int*>(order), static_cast<int>(rows),               \
+      static_cast<const float*>(x), static_cast<const float*>(z),           \
+      static_cast<int>(f), static_cast<int>(hstride),                       \
+      static_cast<int>(heads), static_cast<int>(hv),                        \
+      static_cast<int>(lph), static_cast<int>(cph), static_cast<int>(lpr),  \
+      static_cast<float*>(out), static_cast<int>(ostride),                  \
+      static_cast<int*>(counter), term, static_cast<const float*>(attn),    \
+      slope, static_cast<cudaStream_t>(stream)
+  if (attn == nullptr) {
+    if (fs_dtype == 1)
+      return row_sddmm_store_by_cpl<float, false>(DGL_STORE_ARGS);
+    return row_sddmm_store_by_cpl<__nv_bfloat16, false>(DGL_STORE_ARGS);
+  }
+  if (fs_dtype == 1)
+    return row_sddmm_store_by_cpl<float, true>(DGL_STORE_ARGS);
+  return row_sddmm_store_by_cpl<__nv_bfloat16, true>(DGL_STORE_ARGS);
+#undef DGL_STORE_ARGS
+}
+
+// K11 v2's scores walk's instance for kf rows of wf, null where none
+const void* vattn_fe_instance(int64_t kf) {
+  switch (kf) {
+    case 8: return reinterpret_cast<const void*>(&row_vattn_fe_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(&row_vattn_fe_kernel<16>);
+    case 32: return reinterpret_cast<const void*>(&row_vattn_fe_kernel<32>);
+    default: return nullptr;
+  }
+}
+
+// registers, local-memory bytes and resident blocks an SM of a kernel
+// instance of 8 warps a block with no dynamic shared memory: three ints
+cudaError_t instance_attrs(const void* kernel, int64_t device, int* o) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  o[0] = attr.numRegs;
+  o[1] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(o + 2, kernel,
+                                                       kWarps * 32, 0);
 }
 
 // The slot walk's operands beside the view
@@ -2259,30 +2536,115 @@ int dgl_row_sddmm_store(const void* ptr, const void* nbr, const void* order,
                         const void* slot, const void* fs, int64_t fs_dtype,
                         int64_t fs_row, int64_t fs_head, int64_t fs_cols,
                         int64_t fs_vec, int64_t device, void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  return row_sddmm_store_launch(ptr, nbr, order, rows, x, z, f, hstride,
+                                heads, hv, lph, cph, lpr, out, ostride,
+                                counter, cpl, slot, fs, fs_dtype, fs_row,
+                                fs_head, fs_cols, fs_vec, nullptr, 0.f,
+                                device, stream);
+}
+
+// K11 v1's scores by the same walk, one launch of the wrapper's plan:
+// dgl_row_vattn's sums (u, v and attn as it takes them) with the stored
+// edge term added to u[nbr] before lrelu, as dgl_row_sddmm_store adds fs
+// to x; the arguments are dgl_row_sddmm_store's and attn and slope.
+// dgl_slot_finish with exp_clip then takes exp(clip(., +-40)).
+int dgl_row_vattn_store(const void* ptr, const void* nbr, const void* order,
+                        int64_t rows, const void* u, const void* v, int64_t f,
+                        int64_t hstride, int64_t heads, int64_t hv,
+                        int64_t lph, int64_t cph, int64_t lpr, void* out,
+                        int64_t ostride, void* counter, int64_t cpl,
+                        const void* slot, const void* fs, int64_t fs_dtype,
+                        int64_t fs_row, int64_t fs_head, int64_t fs_cols,
+                        int64_t fs_vec, const void* attn, float slope,
+                        int64_t device, void* stream) {
+  if (attn == nullptr) return cudaErrorInvalidValue;
+  return row_sddmm_store_launch(ptr, nbr, order, rows, u, v, f, hstride,
+                                heads, hv, lph, cph, lpr, out, ostride,
+                                counter, cpl, slot, fs, fs_dtype, fs_row,
+                                fs_head, fs_cols, fs_vec, attn, slope,
+                                device, stream);
+}
+
+// registers a thread, local-memory bytes a thread and resident blocks an
+// SM (three ints) of the walk's instance with a stored row at cpl (1, 2, 4
+// or 8) and dtype (1 f32, 2 bf16), in its scores mode (K11 v1) where
+// vattn is 1, else K10 v1's ds.
+int dgl_row_sddmm_store_attrs(int64_t cpl, int64_t dtype, int64_t vattn,
+                              int64_t device, void* attrs) {
+  const void* kernel =
+      dtype == 1 ? (vattn ? store_instance<float, true>(cpl)
+                          : store_instance<float, false>(cpl))
+      : dtype == 2 ? (vattn ? store_instance<__nv_bfloat16, true>(cpl)
+                            : store_instance<__nv_bfloat16, false>(cpl))
+                   : nullptr;
+  return instance_attrs(kernel, device, static_cast<int*>(attrs));
+}
+
+// K11 v2's scores by the walk, the edge term formed per entry, one launch
+// of the wrapper's plan: for every entry k of row r (slot[k] its slot),
+// the sum over the launch's columns c of head h of attn[c] * lrelu((v[r,
+// c] + bias[c]) + u[nbr[k], c] + sum_{i < fe} ef[slot[k], i] wf[i, c]) at
+// out[k * ostride + h]; u, v, attn as dgl_row_vattn's, wf (fe rows of f
+// floats) and bias (f floats, or null) at the launch's first head and
+// column as u is; ef (slots, fq * 4) f32 in slot order, 16-byte aligned,
+// zero past fe; kf (8, 16 or 32) at least fq * 4.  One vector a lane:
+// lph (a power of two) at least hv, lpr (a power of two, 8 to 32) at
+// least heads * lph.  counter is one int, zeroed by the caller.
+// dgl_slot_finish with exp_clip then takes exp(clip(., +-40)).
+int dgl_row_vattn_fe(const void* ptr, const void* nbr, const void* order,
+                     int64_t rows, const void* u, const void* v, int64_t f,
+                     int64_t hstride, int64_t heads, int64_t hv, int64_t lph,
+                     int64_t lpr, void* out, int64_t ostride, void* counter,
+                     const void* attn, float slope, const void* slot,
+                     const void* ef, int64_t fq, const void* wf, int64_t fe,
+                     const void* bias, int64_t kf, int64_t device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return err;
-  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || lph < 1 ||
-      lpr % lph != 0 || (lph & (lph - 1)) != 0 || cph < 1 ||
-      (cph & (cph - 1)) != 0 || hv < 1 || hv > hstride || heads < 1 ||
-      (heads - 1) * hstride * 4 + hv * 4 > f || ostride < heads ||
-      cpl < cph * ((heads + lpr / lph - 1) / (lpr / lph)) || !slot || !fs ||
-      (fs_dtype != 1 && fs_dtype != 2))
+  const void* kernel = vattn_fe_instance(kf);
+  if (kernel == nullptr || lpr < kFeMinLanes || lpr > 32 ||
+      (lpr & (lpr - 1)) != 0 || lph < 1 || (lph & (lph - 1)) != 0 ||
+      hv < 1 || hv > lph || hv > hstride || heads < 1 || heads * lph > lpr ||
+      (heads - 1) * hstride * 4 + hv * 4 > f || ostride < heads || !attn ||
+      !slot || fq < 0 || fq * 4 > kf || fe < 0 || fe > fq * 4 ||
+      reinterpret_cast<uintptr_t>(ef) % 16 != 0)
     return cudaErrorInvalidValue;
-  const DsTerm term{static_cast<const int*>(slot), fs, fs_row,
-                    static_cast<int>(fs_head), static_cast<int>(fs_cols),
-                    static_cast<int>(fs_vec)};
-#define DGL_STORE_ARGS                                                      \
-  cpl, static_cast<const int*>(ptr), static_cast<const int*>(nbr),          \
+  unsigned blocks = 0;
+  err = persistent_blocks(
+      kernel, kWarps * 32,
+      ((static_cast<long long>(rows) * lpr + 31) / 32 + kWarps - 1) / kWarps,
+      &blocks);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DGL_VATTN_FE(KF_)                                                   \
+  row_vattn_fe_kernel<KF_><<<blocks, kWarps * 32, 0, s>>>(                  \
+      static_cast<const int*>(ptr), static_cast<const int*>(nbr),           \
       static_cast<const int*>(order), static_cast<int>(rows),               \
-      static_cast<const float*>(x), static_cast<const float*>(z),           \
+      static_cast<const float*>(u), static_cast<const float*>(v),           \
       static_cast<int>(f), static_cast<int>(hstride),                       \
-      static_cast<int>(heads), static_cast<int>(hv),                        \
-      static_cast<int>(lph), static_cast<int>(cph), static_cast<int>(lpr),  \
-      static_cast<float*>(out), static_cast<int>(ostride),                  \
-      static_cast<int*>(counter), term, static_cast<cudaStream_t>(stream)
-  if (fs_dtype == 1) return row_sddmm_store_by_cpl<float>(DGL_STORE_ARGS);
-  return row_sddmm_store_by_cpl<__nv_bfloat16>(DGL_STORE_ARGS);
-#undef DGL_STORE_ARGS
+      static_cast<int>(heads), static_cast<int>(hv), static_cast<int>(lph), \
+      static_cast<int>(lpr), static_cast<float*>(out),                      \
+      static_cast<int>(ostride), static_cast<int*>(counter),                \
+      static_cast<const float*>(attn), slope,                               \
+      static_cast<const int*>(slot), static_cast<const float4*>(ef),        \
+      static_cast<int>(fq), static_cast<const float*>(wf),                  \
+      static_cast<int>(fe), static_cast<const float*>(bias))
+  if (kf == 8) {
+    DGL_VATTN_FE(8);
+  } else if (kf == 16) {
+    DGL_VATTN_FE(16);
+  } else {
+    DGL_VATTN_FE(32);
+  }
+#undef DGL_VATTN_FE
+  return cudaGetLastError();
+}
+
+// registers a thread, local-memory bytes a thread and resident blocks an
+// SM (three ints) of the instance for kf rows of wf.
+int dgl_row_vattn_fe_attrs(int64_t kf, int64_t device, void* attrs) {
+  return instance_attrs(vattn_fe_instance(kf), device,
+                        static_cast<int*>(attrs));
 }
 
 // K4's SDDMM by dst rows, one launch of the wrapper's plan: for every

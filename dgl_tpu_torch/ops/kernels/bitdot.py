@@ -23,7 +23,8 @@ Three kernels (``csrc/bitdot.cu``), each with a plain PyTorch version
 beside it that computes the same function from the same inputs:
 
 * :func:`bitdot_fwd` (``_fwd_call``): out and l from ``packed`` (rows =
-  dst);
+  dst), by the listed walk by dst (``bitdot_fwd_list_kernel``: the dq
+  walk's lanes, layout and rows, claimed in ``bitgat.fwd_claim_order``);
 * :func:`bitdot_bwd_dz` (``_bwdA_call``): dz from ``packed_rev`` (rows =
   src), by the listed walk by src (``bitdot_dz_list_kernel``: K5's
   backward's walk, its rows claimed in ``bitgat.bwd_claim_order``, a group
@@ -123,13 +124,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "dgl_bitdot_fwd": [_P, _I, _I, _I, _P, _P, _I, _I, _F, _P, _P, _I, _P],
+    "dgl_bitdot_fwd_list": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F,
+                            _P, _P, _P, _I, _P],
     "dgl_bitdot_bwd_dz_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                                _I, _I, _F, _P, _P, _I, _P],
     "dgl_bitdot_bwd_dq_list": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                                _I, _I, _F, _P, _P, _I, _P],
     "dgl_bitdot_dz_attrs": [_I, _I, _I, _P],
     "dgl_bitdot_dq_attrs": [_I, _I, _I, _P],
+    "dgl_bitdot_fwd_attrs": [_I, _I, _I, _P],
 }
 
 
@@ -157,37 +160,65 @@ def _check_bwd(q, g, linv, rho):
                          f"{tuple(q.shape)}")
 
 
-def _launch(fn: str, *args):
-    lib = build.load("bitdot", _SIGNATURES)
-    err = getattr(lib, fn)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
-
-
-def _f32(t):
-    return t.float().contiguous()
-
-
 def _stream(t):
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def bitdot_fwd(packed, q, z, isd: float):
+def _aligned(t):
+    """``t``, or a copy of it, whose data starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch_fwd(packed, q, z, isd: float, order=None, layout=None, fn=None):
+    """Launch K7's forward kernel, the listed walk by dst, on CUDA
+    operands: (out (N_dst, H, D), l (N_dst, H)) f32.  ``order``: the dst
+    rows' claim order (``bitgat.claim_order`` of the packing's first N_dst
+    rows, built here when None); ``layout``: (dp, lpe, cpl),
+    :func:`dz_layout` when None; ``fn``: the C function, the package's
+    ``dgl_bitdot_fwd_list`` when None (a probe passes an edit's)."""
+    rows, (heads, dim) = q.shape[0], z.shape[1:]
+    num_src, dev = z.shape[0], q.device
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    l = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
+    if rows == 0 or heads * dim == 0:
+        return out.zero_(), l.zero_()
+    if rows >= 2**31 or num_src >= 2**31:
+        raise ValueError("the listed walk takes fewer than 2^31 nodes")
+    if order is None:
+        order = claim_order(packed, rows)
+    if order.shape != (rows,) or order.dtype != torch.int32:
+        raise ValueError(f"order must be ({rows},) int32")
+    dp, lpe, cpl = dz_layout(heads, dim) if layout is None else layout
+    qp, zp = (_aligned(_pad_heads(t, dp)) for t in (q, z))
+    packed = packed.contiguous()
+    wide = out if dp == dim else torch.empty(rows, heads, dp,
+                                             dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    if fn is None:
+        fn = build.load("bitdot", _SIGNATURES).dgl_bitdot_fwd_list
+    err = fn(packed.data_ptr(), packed.shape[1], order.data_ptr(), rows,
+             num_src, qp.data_ptr(), zp.data_ptr(), heads, dp, lpe, cpl, isd,
+             wide.data_ptr(), l.data_ptr(), counter.data_ptr(), *_stream(q))
+    if err != 0:
+        raise RuntimeError(f"the forward walk failed to launch: CUDA error "
+                           f"{err}")
+    if wide is not out:
+        out.copy_(wide[..., :dim])
+    return out, l
+
+
+def bitdot_fwd(packed, q, z, isd: float, order=None):
     """K7 forward: (out (N_dst, H, D), l (N_dst, H)) f32 from ``packed``,
-    the bits of A (rows = dst)."""
+    the bits of A (rows = dst).  ``order``: the dst rows' claim order
+    (``bitgat.fwd_claim_order`` of the format; built anew for each call
+    when None)."""
     num_dst, num_src = q.shape[0], z.shape[0]
     _check(packed, q, z, num_dst, num_src)
     if not on_cuda(packed, q, z):
         return bitdot_fwd_plain(packed, q, z, isd)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    l = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    if num_dst == 0 or q.shape[1] * q.shape[2] == 0:
-        return out.zero_(), l.zero_()
-    q, z, packed = _f32(q), _f32(z), packed.contiguous()
-    _launch("dgl_bitdot_fwd", packed.data_ptr(), packed.shape[1], num_src,
-            num_dst, q.data_ptr(), z.data_ptr(), q.shape[1], q.shape[2],
-            isd, out.data_ptr(), l.data_ptr(), *_stream(q))
-    bitdot_fwd.launches += 1
+    out, l = launch_fwd(packed, q, z, isd, order)
+    if num_dst and q.shape[1] * q.shape[2]:
+        bitdot_fwd.launches += 1
     return out, l
 
 
@@ -233,6 +264,11 @@ def dz_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
 def dq_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
     """The same of the dq walk's instance."""
     return _walk_attrs("dgl_bitdot_dq_attrs", heads, dim, lanes, device)
+
+
+def fwd_kernel_attrs(heads: int, dim: int, lanes=None, device=None):
+    """The same of the forward's instance."""
+    return _walk_attrs("dgl_bitdot_fwd_attrs", heads, dim, lanes, device)
 
 
 def _launch_walk(fn, what, packed, q, z, g, linv, rho, isd: float, rows,
@@ -340,7 +376,9 @@ class _BitDot(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, z, bf, isd):
-        out, l = bitdot_fwd(bf.packed, q, z, isd)
+        # the plain version on the CPU needs no claim order
+        order = fwd_claim_order(bf) if q.is_cuda else None
+        out, l = bitdot_fwd(bf.packed, q, z, isd, order)
         ctx.save_for_backward(q, z, out, l)
         ctx.bf, ctx.isd = bf, isd
         return out

@@ -61,13 +61,14 @@ h and column c = h * D + d,
     raw = U[src] + V[dst] (+ FE),  FE = ef_slot[b, c] . Wf (+ bias)
     p   = exp(clip(sum_d attn[h, d] * lrelu(raw)[h, d], +-40))
 
-and take ds with g = p.  Three more kernels (``csrc/gatv2.cu``), each
-with an edge-term variant, serve both:
+and take ds with g = p.  Three more kernels, each with an edge-term
+variant, serve both:
 
 * :func:`vattn_scores` (``_gatv2_scores_kernel``,
-  ``_egatc2_scores_kernel``): p; K9's on the dot-product walk by dst of
+  ``_egatc2_scores_kernel``): p, the dot-product walk by dst of
   ``csrc/row_agg.cu`` (K4's SDDMM walk in its scores mode, the exp in its
-  finishing pass), K11 v2's on ``gatv2.cu``'s bucket walk;
+  finishing pass), K11 v2's with the edge term formed per entry
+  (``row_vattn_fe_kernel``);
 * :func:`vattn_slot_grad` (the da, d(ef) and dWf parts of
   ``_gatv2_dv_da_kernel``, ``_egatc2_dv_da_kernel``): with dW = ds[h] *
   attn * lrelu'(raw), da = sum ds[h] lrelu(raw), d(ef) = Wf dW per slot
@@ -110,10 +111,12 @@ and K10 v1's logit ee_slot (B, H, C) and message fe (B, C, H * Fh), so
 out = sum p (x[src] + fe) / den.  The stored tensors are f32 or bf16,
 read and written by the kernels in their dtype at 64-bit offsets and
 summed in f32; their gradients come back in their dtype.  Six more
-kernels serve them: :func:`egatc_scores` (p) and :func:`egatc_slot_grad`
-(da and dFE = dW per slot), stored-term variants of K9's in
-``csrc/gatv2.cu``; :func:`slot_vec_reduce` (dFE summed per dst node for
-dFNJ and per src node for dFNI), :func:`fe_aggregate` (K10 v1's
+kernels serve them: :func:`egatc_scores` (p), K9's dot-product walk in
+its scores mode with the stored row added to U[src], and
+:func:`egatc_slot_grad` (da and dFE = dW per slot), a stored-term variant
+of K9's retired slot gradient in ``csrc/gatv2.cu``;
+:func:`slot_vec_reduce` (dFE summed per dst node for dFNJ and per src
+node for dFNI), :func:`fe_aggregate` (K10 v1's
 numerator) and :func:`dx_dfe` (dx, writing dfe = p zn[dst] per slot on
 the way), modes of the slot walk of ``csrc/row_agg.cu`` (a group of lanes
 a row of the side's row view, the stored row read or written at each
@@ -160,9 +163,6 @@ _SIGNATURES = {
                        _I, _I, ctypes.c_double, _P, _P, _I, _I, _P],
 }
 _VATTN_SIGNATURES = {
-    "dgl_vattn_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, ctypes.c_double, _P, _I, _P, _I,
-                         _I, _P],
     "dgl_vattn_slot_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, ctypes.c_double, _P, _P, _P, _I,
                             _I, _I, _P],
@@ -863,52 +863,45 @@ def vattn_scores(tf: ts.TiledFormat, U3, V3, attn, slope: float,
     (num_dst, H, D) and attn (H, D); ``ef_slot`` (B, C, Fe) and ``wf``
     (Fe or Fe + 1, H * D) add the edge term.
 
-    On CUDA tensors K9's (no edge term) are the dot-product walk by dst of
-    ``csrc/row_agg.cu`` in its scores mode (``tiled_spmm.sddmm_dots`` with
-    attn: V[dst] and attn in registers, U[src] gathered, U, V and attn
-    padded to a multiple of 4 columns), then csrc ``slot_finish_kernel``'s
-    exp mode, which adds the scratch's parts in order and writes
-    exp(clip(., +-40)) at valid slots and 0 at padded ones; the scratch (E
-    H floats a part) lives only in this call.  K11 v2's (the edge term)
-    are ``gatv2.cu``'s bucket walk.  One count a call."""
+    On CUDA tensors both are the dot-product walk by dst of
+    ``csrc/row_agg.cu`` in its scores mode (V[dst] and attn in registers,
+    U[src] gathered, U, V and attn padded to a multiple of 4 columns), then
+    csrc ``slot_finish_kernel``'s exp mode, which adds the scratch's parts
+    in order and writes exp(clip(., +-40)) at valid slots and 0 at padded
+    ones; the scratch (E H floats a part) lives only in this call.  K9's
+    is ``tiled_spmm.sddmm_dots`` with attn; K11 v2's
+    (``tiled_spmm.vattn_fe_dots``, ``row_vattn_fe_kernel``) forms the
+    edge term per entry: the lane's columns of wf in registers, the
+    entries' edge features (``tiled_spmm.edge_rows``) staged in shared
+    memory, the bias row added to V[dst] once a row.  One count a
+    call."""
     heads, dim, fe, rows = _check_vattn(tf, U3, V3, attn, ef_slot, wf)
     edge = () if ef_slot is None else (ef_slot, wf)
     if not on_cuda(U3, V3, attn, tf.valid, *edge):
         return vattn_scores_plain(tf, U3, V3, attn, slope, ef_slot, wf)
-    if not edge:
-        p = _vattn_scores_walk(tf, U3, V3, attn, slope)
+    if edge:
+        hd = heads * dim
+        _fe_cap(rows)
+        _check_vattn_sizes(tf, heads, dim, fe,
+                           hd + rows * hd + _VATTN_WARPS * 32 * rows)
+    p = _vattn_scores_walk(tf, U3, V3, attn, slope, edge=edge or None)
+    if heads or not edge:
         vattn_scores.launches += 1
-        return p
-    hd = heads * dim
-    _fe_cap(rows)
-    _check_vattn_sizes(tf, heads, dim, fe,
-                       hd + rows * hd + _VATTN_WARPS * 32 * rows)
-    b, cap = tf.num_buckets, tf.cap
-    p = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
-                    device=U3.device)
-    if heads == 0:
-        return p
-    u, v, a = _f32(U3), _f32(V3), _f32(attn)
-    ef_c, wf_c = _f32(ef_slot), _f32(wf)
-    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
-                        16 * ts._sms(u.device)))
-    _launch("dgl_vattn_scores", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
-            u.data_ptr(), v.data_ptr(), a.data_ptr(), ef_c.data_ptr(),
-            wf_c.data_ptr(), fe, rows, heads, dim,
-            ts._lanes_per_head(heads), float(slope), 0, 0, p.data_ptr(),
-            blocks, u.device.index, ts._stream(u.device), source="gatv2")
-    vattn_scores.launches += 1
     return p
 
 
 vattn_scores.launches = 0
 
 
-def _vattn_scores_walk(tf: ts.TiledFormat, U3, V3, attn, slope: float):
-    """K9's p (B, H, C) on CUDA tensors: the walk by dst in its scores mode
-    into the entry-major scratch, then ``dgl_slot_finish`` with its exp."""
+def _vattn_scores_walk(tf: ts.TiledFormat, U3, V3, attn, slope: float,
+                       edge=None, fe_slot=None, exp_clip: bool = True):
+    """p (B, H, C) of K9 / K11 on CUDA tensors: the walk by dst in its
+    scores mode into the entry-major scratch, then ``dgl_slot_finish``
+    with its exp.  ``edge`` = (ef_slot, wf): K11 v2's edge term formed per
+    entry (``tiled_spmm.vattn_fe_dots``); ``fe_slot`` (B, C, H * D) f32 or
+    bf16: K11 v1's stored term (``tiled_spmm.sddmm_store_dots`` with
+    attn).  ``exp_clip`` False: the raw sums instead of p (0 at padded
+    slots), which a check holds bit for bit to the plain sums."""
     heads, dim = U3.shape[1], U3.shape[2]
     b, cap = tf.num_buckets, tf.cap
     slots = b * cap
@@ -919,14 +912,21 @@ def _vattn_scores_walk(tf: ts.TiledFormat, U3, V3, attn, slope: float):
     if slots == 0 or heads == 0 or view.slot.numel() == 0:
         return p.zero_()       # no slot is valid
     hp = -(-dim // 4) * 4
-    sm, parts = ts.sddmm_dots(
-        view, ts._vec4_rows(U3, hp), ts._vec4_rows(V3, hp),
-        ts._vec4_rows(attn.reshape(1, heads, dim), hp), slope)
+    u, v = ts._vec4_rows(U3, hp), ts._vec4_rows(V3, hp)
+    a = ts._vec4_rows(attn.reshape(1, heads, dim), hp)
+    if edge is not None:
+        sm, parts = ts.vattn_fe_dots(view, u, v, a, slope,
+                                     ts.edge_operands(*edge, heads, hp))
+    elif fe_slot is not None:
+        sm, parts = ts.sddmm_store_dots(
+            view, u, v, fe_slot.reshape(slots, heads * dim), dim, a, slope)
+    else:
+        sm, parts = ts.sddmm_dots(view, u, v, a, slope)
     ts._launch("dgl_slot_finish", sm.data_ptr(),
                view.entries(slots).data_ptr(), slots, heads, parts,
-               sm.shape[1], cap, p.data_ptr(), ts.finish_vec(heads, sm), 1,
-               ts.finish_blocks(slots, U3.device), U3.device.index,
-               ts._stream(U3.device), source="row_agg")
+               sm.shape[1], cap, p.data_ptr(), ts.finish_vec(heads, sm),
+               int(exp_clip), ts.finish_blocks(slots, U3.device),
+               U3.device.index, ts._stream(U3.device), source="row_agg")
     return p
 
 
@@ -1172,28 +1172,18 @@ def _slot_walk(tf: ts.TiledFormat, mode: int, t, heads: int, head_cols: int,
 def egatc_scores(tf: ts.TiledFormat, U3, V3, attn, fe_slot, slope: float):
     """K11 v1 scores: p (B, H, C) f32 from U3 (num_src, H, D), V3 (num_dst,
     H, D), attn (H, D) and the stored edge term ``fe_slot`` (B, C, H * D),
-    f32 or bf16."""
+    f32 or bf16.  On CUDA tensors the dot-product walk by dst in its
+    scores mode with the stored row (``row_sddmm_kernel<CPL, true, true,
+    T>``: FE read at each entry's slot in its dtype and added to U[src]
+    before lrelu), then the exp pass, as :func:`vattn_scores` takes K9's."""
     heads, dim, _, _ = _check_vattn(tf, U3, V3, attn, None, None)
     fe_s = _check_stored(tf, fe_slot, heads * dim, "fe_slot")
     if not on_cuda(U3, V3, attn, fe_slot, tf.valid):
         return egatc_scores_plain(tf, U3, V3, attn, fe_slot, slope)
     _check_vattn_sizes(tf, heads, dim, 0, heads * dim)
-    b, cap = tf.num_buckets, tf.cap
-    p = torch.empty(_slot_shape(tf, heads), dtype=torch.float32,
-                    device=U3.device)
-    if heads == 0:
-        return p
-    u, v, a = _f32(U3), _f32(V3), _f32(attn)
-    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
-                        16 * ts._sms(u.device)))
-    _launch("dgl_vattn_scores", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
-            u.data_ptr(), v.data_ptr(), a.data_ptr(), 0, 0, 0, 0, heads, dim,
-            ts._lanes_per_head(heads), float(slope), fe_s.data_ptr(),
-            _STORE_CODES[fe_s.dtype], p.data_ptr(), blocks, u.device.index,
-            ts._stream(u.device), source="gatv2")
-    egatc_scores.launches += 1
+    p = _vattn_scores_walk(tf, U3, V3, attn, slope, fe_slot=fe_s)
+    if heads:
+        egatc_scores.launches += 1
     return p
 
 

@@ -542,6 +542,14 @@ _SIGNATURES = {
         "dgl_row_sddmm_store": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _P],
+        "dgl_row_vattn_store": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                _I, _I, _P, ctypes.c_float, _I, _P],
+        "dgl_row_sddmm_store_attrs": [_I, _I, _I, _I, _P],
+        "dgl_row_vattn_fe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P, _I, _P, _P, ctypes.c_float, _P, _P, _I, _P,
+                             _I, _P, _I, _I, _P],
+        "dgl_row_vattn_fe_attrs": [_I, _I, _P],
         "dgl_row_slot": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
                          _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                          _I, _P],
@@ -1082,32 +1090,36 @@ def _sddmm_cpl(heads: int, hv: int):
     return lph, cph, lpr, _pow2(cph * -(-heads // (lpr // lph)))
 
 
-def _sddmm_layout(heads: int, hv: int):
-    """:func:`_sddmm_cpl` for one launch of the walk, which keeps at most 8
-    vectors a lane: up to 1,024 columns a row (:func:`_sddmm_plan` splits
-    wider rows)."""
+def _sddmm_layout(heads: int, hv: int, max_cpl: int = 8):
+    """:func:`_sddmm_cpl` for one launch of the walk, which keeps at most
+    ``max_cpl`` vectors a lane (8: up to 1,024 columns a row; K11 v2's
+    scores walk keeps 1, FE_SCORE_CPL), :func:`_sddmm_plan` splitting
+    wider rows."""
     layout = _sddmm_cpl(heads, hv)
-    if layout[3] > 8:
+    if layout[3] > max_cpl:
         raise ValueError(f"{heads} heads of {4 * hv} columns are more than "
-                         "the SDDMM walk keeps in a row's registers (1,024)")
+                         "the SDDMM walk keeps in a row's registers "
+                         f"({128 * max_cpl:,})")
     return layout
 
 
 _SDDMM_CHUNK = 256     # a head's vectors one launch takes (cph <= 8)
+FE_SCORE_CPL = 1       # vectors a lane of K11 v2's scores walk
 
 
-def _sddmm_plan(heads: int, hv: int):
+def _sddmm_plan(heads: int, hv: int, max_cpl: int = 8):
     """(launches, parts): the walk's launches over rows of ``heads`` heads
     of ``hv`` 4-float vectors, each (h0, nh, v0, nv, part): heads h0 ..
     h0 + nh - 1, vectors v0 .. v0 + nv - 1 of each, written into scratch
-    part ``part``.  A head's vectors come in ``parts`` chunks of up to 256
-    (1,024 columns), each chunk a part of its own; the heads in the fewest
-    equal groups that one launch holds (8 vectors a lane).  One launch
-    where the row fits."""
-    parts = max(1, -(-hv // _SDDMM_CHUNK))
+    part ``part``.  A head's vectors come in ``parts`` chunks of up to 32
+    ``max_cpl`` (256 at the walk's 8 vectors a lane: 1,024 columns), each
+    chunk a part of its own; the heads in the fewest equal groups that one
+    launch holds (``max_cpl`` vectors a lane).  One launch where the row
+    fits."""
+    parts = max(1, -(-hv // (_SDDMM_CHUNK * max_cpl // 8)))
     cw = -(-hv // parts)
     g = heads
-    while g > 1 and _sddmm_cpl(g, cw)[3] > 8:
+    while g > 1 and _sddmm_cpl(g, cw)[3] > max_cpl:
         g -= 1
     g = -(-heads // -(-heads // g))          # the groups made equal
     return [(h0, min(g, heads - h0), v0, min(cw, hv - v0), part)
@@ -1194,17 +1206,24 @@ def sddmm_dots(view: RowView, x: torch.Tensor, z: torch.Tensor,
 
 
 def sddmm_store_dots(view: RowView, x: torch.Tensor, z: torch.Tensor,
-                     fe_s: torch.Tensor, dim: int):
+                     fe_s: torch.Tensor, dim: int, attn: torch.Tensor = None,
+                     slope: float = 0.0):
     """(sm, parts): :func:`sddmm_dots` with K10 v1's stored message added to
     x, by ``dgl_row_sddmm_store``, the walk also reading each entry's
     slot: x[nbr, h, d] gains fe_s[slot, h * dim + d] for d < ``dim``,
     ``fe_s`` (slots, H * dim) f32 or bf16 contiguous.  ``x``, ``z`` as
-    :func:`_sddmm_args` takes them.  Counts nothing."""
+    :func:`_sddmm_args` takes them.  With ``attn`` (as :func:`sddmm_dots`
+    takes it): K11 v1's scores instead (``dgl_row_vattn_store``), the
+    part's share of sum_d attn[h, d] lrelu(x[nbr, h, d] + fe_s[slot, h *
+    dim + d] + z[r, h, d]), x = U, z = V.  Counts nothing."""
     heads, hp = x.shape[1], x.shape[2]
     if hp % 4 or z.shape[1:] != x.shape[1:] or fe_s.shape[1] != heads * dim:
         raise ValueError(f"x {tuple(x.shape)}, z {tuple(z.shape)} and fe_s "
                          f"{tuple(fe_s.shape)} need one (H, hp), hp a "
                          "multiple of 4, and H * dim stored columns")
+    if attn is not None and tuple(attn.shape) != (1, heads, hp):
+        raise ValueError(f"attn {tuple(attn.shape)} does not match x "
+                         f"{tuple(x.shape)}")
     e = view.slot.numel()
     plan, parts = _sddmm_plan(heads, hp // 4)
     _check_int32(x.numel(), z.numel(), e * heads,
@@ -1222,9 +1241,95 @@ def sddmm_store_dots(view: RowView, x: torch.Tensor, z: torch.Tensor,
         args = (*args[:-2], view.slot.data_ptr(),
                 fe_s.data_ptr() + es * (h0 * dim + 4 * v0),
                 STORED_DTYPES[fe_s.dtype], heads * dim, dim, dim - 4 * v0,
-                fs_vec, *args[-2:])
-        _launch("dgl_row_sddmm_store", *args)
+                fs_vec)
+        if attn is None:
+            _launch("dgl_row_sddmm_store", *args, x.device.index,
+                    _stream(x.device))
+        else:       # attn at the launch's first head and column, as z
+            off = 4 * (h0 * hp + 4 * v0)
+            _launch("dgl_row_vattn_store", *args, attn.data_ptr() + off,
+                    float(slope), x.device.index, _stream(x.device))
     return sm, parts
+
+
+def vattn_fe_dots(view: RowView, u: torch.Tensor, v: torch.Tensor,
+                  attn: torch.Tensor, slope: float, edge, fn=None):
+    """(sm, parts): K11 v2's scores by ``dgl_row_vattn_fe``, the launches
+    of :func:`_sddmm_plan` at one vector a lane (FE_SCORE_CPL) over the
+    rows of ``view``, each entry's part of sum_d attn[h, d] lrelu((v[r, h,
+    d] + bias[h, d]) + u[nbr, h, d] + ef[slot] . wf[:, h, d]) written into
+    the entry-major scratch as :func:`sddmm_dots` writes it.  ``u``, ``v``
+    and ``attn`` as :func:`sddmm_dots` takes them (u = U, v = V, each head
+    padded to hp, a multiple of 4); ``edge`` = :func:`edge_operands` at
+    that hp (ef (slots, 4 fq), fq, wf (Fe, H hp), Fe, bias (H hp,) or None,
+    kf).  ``fn``: the C function, ``dgl_row_vattn_fe`` when None (a probe
+    passes an edit's).  Counts nothing."""
+    heads, hp = u.shape[1], u.shape[2]
+    ef, fq, wf, fe, bias, kf = edge
+    if hp % 4 or v.shape[1:] != u.shape[1:] or \
+            tuple(attn.shape) != (1, heads, hp) or \
+            tuple(wf.shape) != (fe, heads * hp) or \
+            (bias is not None and tuple(bias.shape) != (heads * hp,)):
+        raise ValueError(f"u {tuple(u.shape)}, v {tuple(v.shape)}, attn "
+                         f"{tuple(attn.shape)} and wf {tuple(wf.shape)} need "
+                         "one (H, hp), hp a multiple of 4")
+    e = view.slot.numel()
+    plan, parts = _sddmm_plan(heads, hp // 4, FE_SCORE_CPL)
+    _check_int32(u.numel(), v.numel(), e * heads, ef.numel(), wf.numel(),
+                 view.rows + 2048 * _sms(u.device))
+    sm = torch.empty(parts, e * heads, dtype=torch.float32, device=u.device)
+    if e == 0:
+        return sm, parts
+    counters = torch.zeros(len(plan), dtype=torch.int32, device=u.device)
+    if fn is None:
+        fn = build.load("row_agg", _SIGNATURES["row_agg"]).dgl_row_vattn_fe
+    for i, launch in enumerate(plan):
+        h0, nh, v0, nv, part = launch
+        lph, _, lpr, _ = _sddmm_layout(nh, nv, FE_SCORE_CPL)
+        off = 4 * (h0 * hp + 4 * v0)      # bytes to the launch's first float
+        err = fn(view.ptr.data_ptr(), view.nbr.data_ptr(),
+                 view.order.data_ptr(), view.rows, u.data_ptr() + off,
+                 v.data_ptr() + off, heads * hp, hp // 4, nh, nv, lph,
+                 max(lpr, FE_MIN_LANES), sm[part].data_ptr() + 4 * h0, heads,
+                 counters[i].data_ptr(), attn.data_ptr() + off, float(slope),
+                 view.slot.data_ptr(), ef.data_ptr(), fq,
+                 wf.data_ptr() + off, fe,
+                 None if bias is None else bias.data_ptr() + off, kf,
+                 u.device.index, _stream(u.device))
+        if err != 0:
+            raise RuntimeError(f"dgl_row_vattn_fe failed to launch: CUDA "
+                               f"error {err}")
+    return sm, parts
+
+
+def vattn_fe_kernel_attrs(kf: int, device=None):
+    """(registers a thread, local-memory bytes a thread, resident blocks an
+    SM) of K11 v2's scores walk for ``kf`` rows of wf
+    (``row_vattn_fe_kernel<kf>``), from ``cudaFuncGetAttributes`` and the
+    occupancy calculator."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_vattn_fe_attrs(kf, device.index or 0,
+                                     ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_vattn_fe_attrs: CUDA error {err}")
+    return tuple(out)
+
+
+def store_kernel_attrs(cpl: int, dtype, vattn: bool, device=None):
+    """The same of the dot-product walk's instance with a stored row,
+    ``row_sddmm_kernel<cpl, vattn, true, T>`` (T of ``dtype``, f32 or bf16:
+    K11 v1's scores where ``vattn``, else K10 v1's ds)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_sddmm_store_attrs(cpl, STORED_DTYPES[dtype],
+                                        int(vattn), device.index or 0,
+                                        ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_sddmm_store_attrs: CUDA error {err}")
+    return tuple(out)
 
 
 def finish_blocks(slots: int, device) -> int:

@@ -10,10 +10,15 @@ SpMM at (4, 32), (1, 41) and (8, 8); K6's dx at (4, 32) and (1, 41);
 K9's node gradient on both sides at (8, 8) without da and by dst with
 da (its dV: da meets in L2 in no fixed order); and the dot-product
 walk's: K4's SDDMM at (4, 32) and (1, 41), K6's ds there in both
-layouts, K9's scores at (8, 8).  Inputs lie on dyadic grids, so every
-compared row-walk sum is exact and does not depend on its order; each
-dot-product walk sums a dot in one fixed order: two checkouts that
-compile one instance alike give the same bits.
+layouts, K9's scores at (8, 8), K10 v1's ds with a stored row (f32 and
+bf16) at (4, 32); and K11's scores at (4, 32), v1's with a stored row
+(f32 and bf16) and v2's with 16 edge features and the bias row.  Inputs
+lie on dyadic grids, so every compared row-walk sum is exact and does not
+depend on its order; each dot-product walk sums a dot in one fixed order:
+two checkouts that compile one instance alike give the same bits.  K11's
+logits are exact too, and p is one expf of each, so a checkout whose
+scores are another kernel (the bucket walk before the dot-product walk
+took them) gives the same bits as well.
 
 Usage, from the root of a checkout, on the card::
 
@@ -100,6 +105,22 @@ def _run(root: str):
                 lambda x=x, z=z, rp=rp, g=g, major=major:
                 tgf.gat_ds(tf, x, z, rp, g, slot_major=major).contiguous())
     calls["k9_scores"] = lambda: tgf.vattn_scores(tf, U, V, attn, 0.25)
+    x, z = grid(N_NODES, 4, 32), grid(N_NODES, 4, 32)
+    rp, g = grid(N_NODES, 4), slots(4)
+    attn4 = grid(4, 32, step=1 / 16, top=0.5)
+    ef = torch.randint(-1, 2, (b, cap, 16), device="cuda",
+                       generator=gen).float() * tf.valid.view(b, cap, 1)
+    wf = grid(17, 128, step=1 / 16, top=0.5)
+    for dtype in (torch.float32, torch.bfloat16):
+        fe = (grid(b, cap, 128, step=1 / 16, top=0.5)
+              * tf.valid.view(b, cap, 1)).to(dtype)
+        name = str(dtype).split(".")[-1]
+        calls[f"k10v1_fe_ds_{name}"] = (
+            lambda fe=fe: tgf.fe_ds(tf, x, fe, z, rp, g))
+        calls[f"k11v1_scores_{name}"] = (
+            lambda fe=fe: tgf.egatc_scores(tf, x, z, attn4, fe, 0.25))
+    calls["k11v2_scores"] = lambda: tgf.vattn_scores(tf, x, z, attn4, 0.25,
+                                                     ef, wf)
     digests, times = {}, {}
     for name, call in calls.items():
         got = call()

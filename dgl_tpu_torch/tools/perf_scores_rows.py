@@ -5,10 +5,11 @@ timed beside the design that replaced it, in one run on the card:
   by dst in its scores mode, the exp in the finishing pass
   (``csrc/row_agg.cu`` ``row_sddmm_kernel<CPL, true>``,
   ``slot_finish_kernel<VEC, true>``), beside the bucket walk it replaced,
-  ``vattn_scores_kernel<false, float, false>`` of ``csrc/gatv2.cu``
-  (instantiated again by the edit ``BUCKET_SCORES``): a warp a 32-slot
-  chunk of a bucket, U[src] and V[dst] gathered with scalar loads at every
-  slot, the padded slots visited;
+  ``vattn_scores_kernel<false, float, false>``, once ``csrc/gatv2.cu``'s
+  and now in ``fwd_scores_probe.cu`` beside this file (that instance
+  built again by the edit ``BUCKET_SCORES`` of the probe's source): a warp
+  a 32-slot chunk of a bucket, U[src] and V[dst] gathered with scalar
+  loads at every slot, the padded slots visited;
 * K12's row product (``int8_matmul_rows``): the tensor-core product
   (``csrc/int8mm.cu`` ``split_z_kernel<true>``, ``int8_rows_mma_kernel``)
   beside the f32-FMA walk it replaced (``rows_probe.cu`` beside this file:
@@ -37,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, edited_source
+from . import perf_fwd_scores as tfs
 from ..ops.kernels import gat_fused as tgf
 from ..ops.kernels import tiled_spmm as tts
 
@@ -45,8 +47,9 @@ PROBE_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 RETIRED_SIGNATURES = {
     "dgl_probe_int8_rows_fma": [_P, _I, _I, _P, _I, _I, _P, _I, _P]}
-# csrc/gatv2.cu with vattn_scores_kernel's instance without an edge or a
-# stored term (K9's scores) back in dgl_vattn_scores
+# the bucket walk's source (tools/fwd_scores_probe.cu) with
+# vattn_scores_kernel's instance without an edge or a stored term (K9's
+# scores) back in dgl_vattn_scores
 BUCKET_SCORES = [("    return cudaErrorInvalidValue;  // K9's scores: "
                   "csrc/row_agg.cu's walk\n",
                   "    DGL_SCORES_LAUNCH(false, float, false)\n")]
@@ -56,12 +59,13 @@ _LOCK = threading.Lock()
 
 
 def edited_scores_source() -> str:
-    """``csrc/gatv2.cu`` with BUCKET_SCORES."""
-    return edited_source("gatv2", BUCKET_SCORES, "bucket_scores")
+    """``tools/fwd_scores_probe.cu`` with BUCKET_SCORES."""
+    return edited_source("fwd_scores_probe", BUCKET_SCORES, "bucket_scores",
+                         tfs.PROBE_SOURCE)
 
 
 def build_probe():
-    """{"bucket_scores": the edited ``gatv2.cu``'s ``dgl_vattn_scores``,
+    """{"bucket_scores": the edited probe source's ``dgl_vattn_scores``,
     "fma_rows": ``rows_probe.cu``'s ``dgl_probe_int8_rows_fma``}, built
     side by side at the first call (a caller in another thread waits for
     it)."""
@@ -72,10 +76,10 @@ def build_probe():
             own = f.read()
         with ThreadPoolExecutor(2) as pool:
             scores = pool.submit(
-                build_edited, "gatv2",
+                build_edited, "fwd_scores_probe",
                 {"bucket_scores": edited_scores_source()},
                 {"dgl_vattn_scores":
-                 tgf._VATTN_SIGNATURES["dgl_vattn_scores"]})
+                 tfs.RETIRED_SIGNATURES["dgl_vattn_scores"]})
             rows = pool.submit(build_edited, "rows_probe", {"retired": own},
                                RETIRED_SIGNATURES)
             _BUILT["bucket_scores"] = (
@@ -126,9 +130,9 @@ def fma_rows(a, x):
 
 
 def tiny_check():
-    """On the CPU: the edit applies once (it restores K9's instance), and
-    the probe's source has its C function.  Returns the probe's variants'
-    names."""
+    """On the CPU: the edit applies once to the bucket walk's source (it
+    restores K9's instance), and the probe's source has its C function.
+    Returns the probe's variants' names."""
     src = edited_scores_source()
     if src.count("DGL_SCORES_LAUNCH(false, float, false)") != 1:
         raise AssertionError("the edit did not restore K9's instance")

@@ -1,7 +1,9 @@
 """The dot-product row walk (``csrc/row_agg.cu`` ``row_sddmm_kernel``)
 rendered lane by lane in numpy, shared by the walk's tests
 (``test_torch_sddmm_walk.py``, ``test_torch_ds_fold.py``,
-``test_torch_scores_rows.py``, ``test_torch_slot_walks.py``); no JAX."""
+``test_torch_scores_rows.py``, ``test_torch_slot_walks.py``,
+``test_torch_fwd_scores.py``, which also renders its sibling
+``row_vattn_fe_kernel`` at its layout); no JAX."""
 import numpy as np
 
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
@@ -10,7 +12,8 @@ import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 U_BY_CPL = {1: 8, 2: 4, 4: 2, 8: 2}     # csrc/row_agg.cu Unroll<4, CPL>
 
 
-def _launch_rendered(v, x, z, nh, nv, rows, partial=None):
+def _launch_rendered(v, x, z, nh, nv, rows, partial=None, layout=None,
+                     u_n=None, with_entries=False):
     """One launch of ``row_sddmm_kernel`` over view ``v``, lane by lane:
     x, z (n, nh * nv, 4), the launch's heads and vectors; each row's
     slots in rounds of U (lpr slots a step, U at a time), each lane's
@@ -18,10 +21,16 @@ def _launch_rendered(v, x, z, nh, nv, rows, partial=None):
     butterfly over the head's lanes (halving steps, then plain xor steps),
     the writer lanes' stores.  ``partial(xs, zs, vq)``: a lane's partial
     of vector vq from the gathered rows xs (m, 4) and the rows' own zs (m,
-    4) in place of the dot (K9's scores mode).  Returns [(entries, head,
-    dots)], one for each store instruction of the writers."""
-    lph, cph, lpr, cpl = tts._sddmm_layout(nh, nv)
-    u_n, hpp = U_BY_CPL[cpl], lpr // lph
+    4) in place of the dot (K9's scores mode); with ``with_entries``,
+    ``partial(xs, zs, vq, e)``, e the entries.  ``layout`` (lph, cph, lpr,
+    cpl) and ``u_n`` (slots a round) in place of the walk's (K11 v2's
+    scores walk: one vector a lane, at least 8 lanes a row).  Returns
+    [(entries, head, dots)], one for each store instruction of the
+    writers."""
+    lph, cph, lpr, cpl = (tts._sddmm_layout(nh, nv) if layout is None
+                          else layout)
+    u_n = U_BY_CPL[cpl] if u_n is None else u_n
+    hpp = lpr // lph
     ptr = v.ptr.numpy().astype(np.int64)
     nbr = v.nbr.numpy()
     n_e = len(nbr)
@@ -49,6 +58,7 @@ def _launch_rendered(v, x, z, nh, nv, rows, partial=None):
             xs, zs = x[nbr[e], vq], z[rows[e], vq]
             d[live.nonzero()[0], li, q, live.nonzero()[1]] = (
                 (xs * zs).sum(-1) if partial is None
+                else partial(xs, zs, vq, e) if with_entries
                 else partial(xs, zs, vq))
     sp = 1
     while sp < cpl and sp < cph:     # a head's vectors into its first

@@ -20,7 +20,9 @@ largest magnitude, as ``chip_smoke.close_sum``).  K7's dz and dq walks
 sum a row in registers in one order; K11 v2's slot gradient on the tensor
 cores adds its blocks' partials in block order and its node gradient, the
 row walk with the edge term, sums each row in slot order (both bit for
-bit on dyadic inputs)."""
+bit on dyadic inputs).  K7's forward sums a row in registers in one order
+too; K11's scores, the dot-product walk in its scores mode, form each
+logit in one lane order (the raw sums bit for bit on dyadic inputs)."""
 import math
 
 import numpy as np
@@ -1111,24 +1113,16 @@ def test_vattn_scores_walk_matches_plain(card, heads, dim):
 
 
 def test_vattn_scores_without_a_term_retired_from_gatv2(card):
-    """``dgl_vattn_scores`` no longer launches K9's bucket walk: without an
-    edge term or a stored one it refuses; ``tools/perf_scores_rows.py``
-    builds that instance again from an edit, and it gives the walk's p."""
+    """``gatv2.cu`` holds no scores kernel: ``dgl_vattn_scores`` left it
+    with the bucket walk for ``tools/fwd_scores_probe.cu``, and
+    ``tools/perf_scores_rows.py`` builds K9's instance of that walk again
+    from an edit of the probe's source, which gives the walk's p."""
     from dgl_tpu_torch.tools import perf_scores_rows as tsr
     fwd, _, _, _ = _tiled(card)
     U, V, attn, _, _, _ = _vattn_inputs(card, fwd, 4, 32, 0, False, 3)
-    b, cap = fwd.num_buckets, fwd.cap
-    p = torch.empty(b, 4, cap, device=card)
-    with pytest.raises(RuntimeError, match="dgl_vattn_scores"):
-        tgf._launch("dgl_vattn_scores", fwd.src_local.data_ptr(),
-                    fwd.dst_local.data_ptr(), fwd.valid.data_ptr(),
-                    fwd.src_tile.data_ptr(), fwd.dst_tile.data_ptr(), b,
-                    fwd.tile, cap, U.data_ptr(), V.data_ptr(),
-                    attn.data_ptr(), 0, 0, 0, 0, 4, 32,
-                    tts._lanes_per_head(4), 0.2, 0, 0, p.data_ptr(), 8,
-                    card.index or 0,
-                    torch.cuda.current_stream(card).cuda_stream,
-                    source="gatv2")
+    lib = tts.build.load("gatv2", tgf._VATTN_SIGNATURES)
+    with pytest.raises(AttributeError):
+        getattr(lib, "dgl_vattn_scores")
     torch.testing.assert_close(tsr.bucket_scores(fwd, U, V, attn, 0.2),
                                tgf.vattn_scores(fwd, U, V, attn, 0.2),
                                rtol=RTOL, atol=ATOL)
@@ -2772,3 +2766,187 @@ def test_slot_walks_probe_retired_kernels(card):
             assert (a is None and b is None) or torch.equal(a, b)
     assert torch.equal(tsl.bucket_ds(fwd, x, zn, rp, g, fe_s=st)[0],
                        tgf.fe_ds(fwd, x, st, zn, rp, g))
+
+
+# -- K7's forward on the listed walk by dst, K11's scores on the dot-product
+# -- walk by dst ---------------------------------------------------------
+
+FWD_SHAPES = [(2, 64), (1, 128), (4, 32), (3, 8), (1, 41)]
+# DotGatConv's gate (D >= 64, H D <= 128): the forward's instances there
+FWD_GATE = [(2, 64), (1, 128), (1, 64), (1, 65)]
+FWD_EMPTY = range(100, 150)
+
+
+def _dst_hub_coo():
+    """The simple COO above with dst 7 a hub of 3,000 distinct src (its
+    list drained when full, many times) and the dst rows FWD_EMPTY with no
+    edge."""
+    row, col, n_src, n_dst = _simple_coo()
+    keep = (col < FWD_EMPTY.start) | (col >= FWD_EMPTY.stop)
+    hub = np.random.default_rng(7).permutation(n_src)[:3000]
+    row = np.concatenate([row[keep], hub])
+    col = np.concatenate([col[keep], np.full(3000, 7)])
+    key = np.unique(col * n_src + row)
+    return key % n_src, key // n_src, n_src, n_dst
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+@pytest.mark.parametrize("heads,dim", FWD_SHAPES)
+def test_bitdot_fwd_walk_matches_plain(card, heads, dim, saturate):
+    """K7's forward, the listed walk by dst, against its plain version on a
+    graph with a dst hub and dst rows with no edge, in the forward's claim
+    order (the hub first) and with none given: out and l within tolerance,
+    the same bits twice and in either order, the empty rows exactly 0, one
+    count a call."""
+    row, col, n_src, n_dst = _dst_hub_coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    order = tbg.fwd_claim_order(bf)
+    assert int(order[0]) == 7
+    q, z, _ = _bitdot_inputs(card, n_src, n_dst, heads, dim, heads + dim,
+                             saturate)
+    isd = 1 / math.sqrt(dim)
+    before = tbd.bitdot_fwd.launches
+    out, l = tbd.bitdot_fwd(bf.packed, q, z, isd, order)
+    again = tbd.bitdot_fwd(bf.packed, q, z, isd, order)
+    unordered = tbd.bitdot_fwd(bf.packed, q, z, isd)
+    torch.cuda.synchronize()
+    assert tbd.bitdot_fwd.launches == before + 3
+    for a, b in zip((out, l), again):
+        assert torch.equal(a, b)
+    for a, b in zip((out, l), unordered):
+        assert torch.equal(a, b)
+    want_out, want_l = tbd.bitdot_fwd_plain(bf.packed, q, z, isd)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, want_l, rtol=1e-4, atol=1e-4)
+    assert not out[FWD_EMPTY.start:FWD_EMPTY.stop].any()
+    assert not l[FWD_EMPTY.start:FWD_EMPTY.stop].any()
+    # every score 0: l is each dst's in-degree, exactly
+    l0 = tbd.bitdot_fwd(bf.packed, torch.zeros_like(q), z, isd, order)[1]
+    deg = torch.bincount(torch.as_tensor(col, device=card),
+                         minlength=n_dst).float()
+    assert torch.equal(l0, deg.unsqueeze(1).expand_as(l0))
+
+
+@pytest.mark.parametrize("heads,dim", FWD_GATE + [(4, 32), (3, 8), (1, 41)])
+def test_bitdot_fwd_walk_attrs(card, heads, dim):
+    """The forward's instances behind DotGatConv's gate take at most 128
+    registers a thread and no local memory; every instance fits 16 warps
+    an SM."""
+    regs, local, warps = tbd.fwd_kernel_attrs(heads, dim)
+    assert warps == 16
+    if (heads, dim) in FWD_GATE:
+        assert regs <= 128 and local == 0, (regs, local)
+
+
+def _plain_logits(tf, U, V, attn, slope, ef=None, wf=None, fe=None):
+    """The plain versions' sum_d attn lrelu(raw) (B, H, C), 0 at padded
+    slots, raw formed by their own helper."""
+    out = torch.zeros(tf.num_buckets, U.shape[1], tf.cap, device=U.device)
+    for b, c, src, dst in tts._slot_chunks(tf):
+        raw = tgf._vattn_raw(U, V, src, dst,
+                             None if ef is None else ef[b, c], wf,
+                             None if fe is None else fe[b, c])
+        out[b, :, c] = (torch.nn.functional.leaky_relu(raw, slope)
+                        * attn.float()).sum(-1)
+    return out
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("fe", [5, 16, 31])
+@pytest.mark.parametrize("heads,dim", [(8, 8), (1, 41), (4, 32)])
+def test_vattn_scores_edge_walk_exact(card, heads, dim, fe, bias):
+    """K11 v2's scores on the dot-product walk with the edge term formed
+    per entry: the raw sums bit for bit against the plain version's on a
+    dyadic grid at a slope of 1/4, p within tolerance at EGAT's slope, the
+    same bits twice, one count a call."""
+    fwd, _, _, _ = _tiled(card)
+    U, V, attn, _, ef, wf = _vattn_inputs(card, fwd, heads, dim, fe, bias,
+                                          heads * dim + fe)
+    raw = tgf._vattn_scores_walk(fwd, U, V, attn, 0.25, edge=(ef, wf),
+                                 exp_clip=False)
+    want = _plain_logits(fwd, U, V, attn, 0.25, ef, wf)
+    assert want.abs().max() > 0 and torch.equal(raw, want)
+    before = tgf.vattn_scores.launches
+    p = tgf.vattn_scores(fwd, U, V, attn, 0.01, ef, wf)
+    assert torch.equal(tgf.vattn_scores(fwd, U, V, attn, 0.01, ef, wf), p)
+    assert tgf.vattn_scores.launches == before + 2
+    torch.testing.assert_close(
+        p, tgf.vattn_scores_plain(fwd, U, V, attn, 0.01, ef, wf),
+        rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 8), (3, 5)])
+def test_egatc_scores_walk_exact(card, heads, dim, dtype):
+    """K11 v1's scores on the dot-product walk with the stored row: the raw
+    sums bit for bit against the plain version's on a dyadic grid (the
+    stored rows exact in bf16), p within tolerance, the same bits twice."""
+    fwd, _, _, _ = _tiled(card)
+    U, V, attn, _, _, _ = _vattn_inputs(card, fwd, heads, dim, 0, False,
+                                        heads + dim)
+    gen = torch.Generator(device=card).manual_seed(dim)
+    b, cap = fwd.num_buckets, fwd.cap
+    fe = (torch.randint(-8, 9, (b, cap, heads * dim), device=card,
+                        generator=gen).float() / 16
+          * fwd.valid.view(b, cap, 1)).to(dtype)
+    raw = tgf._vattn_scores_walk(fwd, U, V, attn, 0.25, fe_slot=fe,
+                                 exp_clip=False)
+    want = _plain_logits(fwd, U, V, attn, 0.25, fe=fe)
+    assert want.abs().max() > 0 and torch.equal(raw, want)
+    before = tgf.egatc_scores.launches
+    p = tgf.egatc_scores(fwd, U, V, attn, fe, 0.01)
+    assert torch.equal(tgf.egatc_scores(fwd, U, V, attn, fe, 0.01), p)
+    assert tgf.egatc_scores.launches == before + 2
+    torch.testing.assert_close(
+        p, tgf.egatc_scores_plain(fwd, U, V, attn, fe, 0.01), rtol=1e-4,
+        atol=1e-6)
+
+
+def test_scores_walks_attrs(card):
+    """K11 v2's scores walk at 16 edge features (EGAT's) fits 2 blocks an
+    SM in at most 128 registers, with at most 16 bytes of local memory a
+    thread; at 8 in no local memory; K11 v1's instances at the layouts of
+    (4, 32), (8, 8) and (1, 41) (one and two vectors a lane) take at most
+    128 registers and no local memory in both stored dtypes."""
+    regs, local, blocks = tts.vattn_fe_kernel_attrs(16)
+    assert regs <= 128 and local <= 16 and blocks == 2, (regs, local)
+    assert tts.vattn_fe_kernel_attrs(8)[1] == 0
+    assert tts.vattn_fe_kernel_attrs(32)[0] > 0
+    for cpl in (1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            regs, local, _ = tts.store_kernel_attrs(cpl, dtype, True)
+            assert regs <= 128 and local == 0, (cpl, dtype, regs, local)
+
+
+def test_fwd_scores_probe_retired_kernels(card):
+    """``tools/perf_fwd_scores.py``: the retired warp walk gives the
+    forward's out and l, the retired bucket walk K11's p (v2's, v1's on
+    f32 and bf16 rows) within tolerance, and each edit of a new walk its
+    bits."""
+    from dgl_tpu_torch.tools import perf_fwd_scores as tfs
+    row, col, n_src, n_dst = _dst_hub_coo()
+    bf = tbm.build_bit_format_device(row, col, n_src, n_dst, device=card)
+    order = tbg.fwd_claim_order(bf)
+    for heads, dim in ((2, 64), (1, 128)):
+        q, z, _ = _bitdot_inputs(card, n_src, n_dst, heads, dim, 5)
+        new = tbd.bitdot_fwd(bf.packed, q, z, 1 / math.sqrt(dim), order)
+        for a, b in zip(tfs.warp_fwd(bf.packed, q, z, 1 / math.sqrt(dim)),
+                        new):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        for a, b in zip(tfs.fwd_edit("u2x", bf.packed, q, z,
+                                     1 / math.sqrt(dim), order), new):
+            assert torch.equal(a, b)
+    fwd, _, _, _ = _tiled(card)
+    U, V, attn, _, ef, wf = _vattn_inputs(card, fwd, 4, 32, 16, True, 9)
+    p = tgf.vattn_scores(fwd, U, V, attn, 0.01, ef, wf)
+    torch.testing.assert_close(tfs.bucket_scores(fwd, U, V, attn, 0.01, ef,
+                                                 wf), p, rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(tfs.scores_edit("u2x", fwd, U, V, attn, 0.01, ef,
+                                       wf), p)
+    fe = (torch.randn(fwd.num_buckets, fwd.cap, 128, device=card)
+          * fwd.valid.view(fwd.num_buckets, fwd.cap, 1))
+    for t in (fe, fe.to(torch.bfloat16)):
+        torch.testing.assert_close(
+            tfs.bucket_scores(fwd, U, V, attn, 0.01, fe_slot=t),
+            tgf.egatc_scores(fwd, U, V, attn, t, 0.01), rtol=RTOL, atol=ATOL)

@@ -228,15 +228,21 @@ def test_finish_vec_takes_16_bytes_only_where_aligned(heads, offsets, vec):
 
 
 def test_scores_probe_edit_restores_the_bucket_walk():
-    """The probe's edit of ``csrc/gatv2.cu`` applies once and puts K9's
-    instance back in ``dgl_vattn_scores``, which refuses that case in the
-    package's source; the probe's own source holds the retired rows
-    walk."""
+    """The probe's edit of the bucket walk's source (once ``csrc/gatv2.cu``,
+    now ``tools/fwd_scores_probe.cu``) applies once and puts K9's instance
+    back in ``dgl_vattn_scores``, which refuses that case in that source;
+    the package's sources hold no bucket walk; the probe's own source holds
+    the retired rows walk."""
+    from dgl_tpu_torch.tools import perf_fwd_scores as tfs
     assert tsr.tiny_check() == ["bucket_scores", "fma_rows"]
-    with open(tts.build.sources()["gatv2"]) as f:
+    with open(tfs.PROBE_SOURCE) as f:
         src = f.read()
     assert "DGL_SCORES_LAUNCH(false, float, false)" not in src
     assert "DGL_SCORES_LAUNCH(false, float, true)" in src
+    assert "DGL_SCORES_LAUNCH(false, float, false)" in \
+        tsr.edited_scores_source()
+    with open(tts.build.sources()["gatv2"]) as f:
+        assert "DGL_SCORES_LAUNCH" not in f.read()
 
 
 # -- K12's row product on the tensor cores ------------------------------------

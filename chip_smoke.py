@@ -186,7 +186,9 @@ Phases, each of which raises on failure (nothing is caught):
    one ``torch.sparse.mm`` of the (H N, slots) CSR holding p; the
    slot-feature reduce and the edge ds (without and with d(ef)) also
    beside the bucket walks they replaced (``perf_slot_walks``), held to
-   them, and the slot walk's edit; then the
+   them, and the slot walk's edit; the edge scores beside the kernel they
+   replaced and the staged design (``perf_slot_grad_scores``), held to
+   both bit for bit; then the
    EdgeGAT step's other launches at (4, 32) on that format, as phases 16
    and 20 time them: K6's reduce on both sides and src-side aggregation
    (dx), K4's SpMM; and the v1 functions' K6 launches there, the scores
@@ -295,6 +297,10 @@ Phases, each of which raises on failure (nothing is caught):
    walk's edit; the scores (the dot-product walk with the stored row)
    with their raw sums bit for bit, their registers, and beside the
    bucket walk they replaced on f32 and bf16 rows (``perf_fwd_scores``);
+   the slot gradient beside the bucket walk it replaced followed by the
+   slot vector sum by dst and the edit unfolded, bit for bit, in f32 and
+   bf16, and at (1, 41), its vector-of-1 instance, beside the bucket walk
+   and the edits of its entries in flight (``perf_slot_grad_scores``);
 41. K1's slab-width sweep (``dgl_tpu_torch/tools/perf_bitmm_variants.py``,
    the JAX package's P1): KP = N = 110,592, F = 16, random bits, 8, 16 and
    32 words, each width exactly equal to the plain version;
@@ -630,13 +636,16 @@ TRACED_KERNELS = {
     "bit_shard_gat_bwd": "bitgat_bwd_list_kernel",
     # K11 v1's scores: the dot-product walk with the stored row, its pass
     "egatc_scores": ("row_sddmm_kernel", "slot_finish_kernel"),
-    "egatc_slot_grad": "vattn_slot_grad_kernel",
+    # K11 v1's slot gradient: the slot walk by dst, its zero pass and da's
+    # two range sums
+    "egatc_slot_grad": ("row_slot_grad_kernel", "slot_zero_kernel",
+                        "range_sum_kernel", "range_sum_kernel"),
     # K10's and K11 v1's slot walks (dx with dfe: its zero pass too) and
     # K10's edge ds: the dot-product walk with the edge terms, its pass
     "slot_vec_reduce": "row_slot_kernel", "fe_aggregate": "row_slot_kernel",
     "fe_ds": ("row_sddmm_kernel", "ds_finish_kernel"),
     "dx_dfe": ("row_slot_kernel", "slot_zero_kernel"),
-    "edgegat_scores": "gat_scores_kernel",
+    "edgegat_scores": "edge_scores_kernel",
     "slot_feat_reduce": "row_slot_kernel",
     "edgegat_ds": ("row_sddmm_kernel", "ds_finish_kernel")}
 
@@ -648,11 +657,8 @@ RETIRED_KERNELS = ("::int8_rows_kernel<", "::vattn_scores_kernel<",
                    "::slot_reduce_kernel<", "::tiled_spmm_kernel<",
                    "::bitdot_dz_kernel<", "::bitdot_dq_kernel<",
                    "::vattn_node_grad_kernel<", "::src_agg_kernel<",
-                   "::gat_ds_kernel<") + tuple(
-    # vattn_slot_grad_kernel's edge instances <cols, fe_cap, def, ...>
-    # (K11 v1's <cols, T, true> stays)
-    f"::vattn_slot_grad_kernel<{c}, {f}, " for c in (1, 2, 4)
-    for f in (8, 16, 32))
+                   "::gat_ds_kernel<", "::vattn_slot_grad_kernel<",
+                   "::gat_scores_kernel<false, true>")
 # K11 v2's step (phase 23): its scores are the dot-product walk's sibling
 # with the edge term and the exp pass, not K9's instance, and its node
 # gradient the row walk with the edge term
@@ -1240,6 +1246,18 @@ ROW_WALK_SHAPES = ((4, 32), (1, 41), (8, 8), (2, 64))
 ROW_WALK_HUB = 12_000
 
 
+def hub_mid_graph():
+    """The phase-3 graph with a dst hub (node 7) and a src hub (node 11) of
+    degree 12,000 added, no edge into dst tile 3 nor out of src rows
+    20,000-20,049."""
+    row, col, n_src, n_dst = mid_graph()
+    keep = ((col < 3072) | (col >= 4096)) & ((row < 20_000) | (row >= 20_050))
+    hub = np.arange(ROW_WALK_HUB)
+    row = np.r_[row[keep], np.full(ROW_WALK_HUB, 11), hub % n_src]
+    col = np.r_[col[keep], hub % 3072, np.full(ROW_WALK_HUB, 7)]
+    return row, col, n_src, n_dst
+
+
 def row_walk_mid(tts, tgf, ef, side):
     """The row walk by ``side`` (dst: K4's SpMM, src: the src-side
     aggregation) against its plain version at ROW_WALK_SHAPES on the
@@ -1247,12 +1265,7 @@ def row_walk_mid(tts, tgf, ef, side):
     edge into dst tile 3 nor out of 50 src rows: x (or z) and w on dyadic
     grids, on which the plain version's atomics sum exactly, so the two
     must be equal."""
-    row, col, n_src, n_dst = mid_graph()
-    # dst tile 3 and src rows 20,000-20,049 have no edge
-    keep = ((col < 3072) | (col >= 4096)) & ((row < 20_000) | (row >= 20_050))
-    hub = np.arange(ROW_WALK_HUB)
-    row = np.r_[row[keep], np.full(ROW_WALK_HUB, 11), hub % n_src]
-    col = np.r_[col[keep], hub % 3072, np.full(ROW_WALK_HUB, 7)]
+    row, col, n_src, n_dst = hub_mid_graph()
     fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
                                         device="cuda").with_src_first()
     view = fwd.row_view(side)
@@ -3142,7 +3155,9 @@ def vattn_yardsticks(tgf, tts, tbw, tdf, tsr, g, heads, dim, fe, rate,
 # -- the EdgeGAT slice (EdgeGATConv on K10 v2) --------------------------------
 
 EDGEGAT_SHAPES = ((4, 32), (1, 41), (8, 8))
-EDGEGAT_FES = (EGAT_FE, 5)
+# the edge scores' widths: a template one (16, 16-byte loads) and two of
+# the runtime loop, 4-byte loads (5, 31)
+EDGEGAT_FES = (EGAT_FE, 5, 31)
 # tools/perf_egat128.py:81-82: EdgeGATConv(64, 16, 32, 4), (out^2).mean(),
 # Adam 1e-3, on phase 23's graph
 EDGEGAT_STEPS = 4
@@ -3168,17 +3183,23 @@ def edgegat_inputs(tf, heads, fh, fe, gen):
 
 def edgegat_kernel_checks(tgf, tf, heads, fh, fe, gen, tag):
     """Each K10 v2 kernel against its plain version on ``tf``: the edge
-    scores, the slot-feature reduce with nonnegative and with signed
-    weights on a grid of 1/16 (its sums exact in any order), and the edge
-    ds without and with d(ef): (name, max|err|) pairs."""
+    scores bit for bit, twice (their logits exact on ``edgegat_inputs``'
+    grids, and the same expf), the slot-feature reduce with nonnegative
+    and with signed weights on a grid of 1/16 (its sums exact in any
+    order), and the edge ds without and with d(ef): (name, max|err|)
+    pairs."""
     el, er, ef, We, attn, m = edgegat_inputs(tf, heads, fh, fe, gen)
     b, cap = tf.num_buckets, tf.cap
     counters = [getattr(tgf, name) for name in K10_COUNTERS]
     before = [k.launches for k in counters]
     p, g = tgf.edgegat_scores(tf, el, er, ef, m, SLOPE)
     want = tgf.edgegat_scores_plain(tf, el, er, ef, m, SLOPE)
-    errs = [("p", close(p, want[0], f"{tag} p")),
-            ("g", close(g, want[1], f"{tag} g"))]
+    again = tgf.edgegat_scores(tf, el, er, ef, m, SLOPE)
+    for i, (pi, gi) in enumerate(((p, g), again)):
+        equal(pi, want[0], f"{tag} p, launch {i}")
+        equal(gi, want[1], f"{tag} g, launch {i}")
+    del again
+    errs = [("p", 0.0), ("g", 0.0)]
     valid = tf.valid.view(b, 1, cap)
     for name, low in (("S", 0.0), ("S_ds", None)):
         w = grid(gen, b, heads, cap, step=1 / 16, top=1, low=low) * valid
@@ -3198,16 +3219,17 @@ def edgegat_kernel_checks(tgf, tf, heads, fh, fe, gen, tag):
             errs.append(("d_ef", close(got[1], want[1], f"{tag} d_ef")))
     torch.cuda.synchronize()
     launched = [k.launches - b0 for k, b0 in zip(counters, before)]
-    if launched != [1, 2, 2]:
+    if launched != [2, 2, 2]:
         raise AssertionError(f"{tag}: K10 v2 launches {launched}, not "
-                             "[1, 2, 2]")
+                             "[2, 2, 2]")
     return errs
 
 
 def phase_edgegat_mid(dgt, tts, tgf):
     """Phase 25: each K10 v2 kernel against its plain version at mid size
     on the phase-21 multigraph, at (H, Fh) = (4, 32), (1, 41), (8, 8) and
-    Fe = 16 and 5; then EdgeGATConv(64, 16, 32, 4) through K10 v2 against
+    Fe = 16, 5 and 31, and the edge scores on ``hub_mid_graph`` (a dst
+    hub, empty dst rows); then EdgeGATConv(64, 16, 32, 4) through K10 v2 against
     its edge chain (``kernel_spmm_min_edges`` above the edge count),
     forward and backward."""
     from dgl_tpu_torch.utils import config
@@ -3221,6 +3243,18 @@ def phase_edgegat_mid(dgt, tts, tgf):
             errs = edgegat_kernel_checks(tgf, fwd, heads, fh, fe, gen, tag)
             log(f"# {tag}: max|err| " + ", ".join(
                 f"{name} {err:.3g}" for name, err in errs))
+    hub = tts.build_tiled_format_device(*hub_mid_graph(), device="cuda")
+    for fe in EDGEGAT_FES:
+        el, er, ef, _, _, m = edgegat_inputs(hub, EGAT_H, EGAT_D, fe, gen)
+        want = tgf.edgegat_scores_plain(hub, el, er, ef, m, SLOPE)
+        for i in range(2):
+            for a, w, name in zip(tgf.edgegat_scores(hub, el, er, ef, m,
+                                                     SLOPE), want, "pg"):
+                equal(a, w, f"K10 v2 scores hub graph Fe={fe} {name}, "
+                      f"launch {i}")
+    log(f"# K10 v2 scores on the hub graph at Fe = {EDGEGAT_FES}: p and g "
+        "equal to the plain version's bit for bit, twice")
+    del hub
 
     gr = dgt.graph((row, col), num_nodes=n_src, device="cuda")
     gr.create_tiled_format()
@@ -3367,7 +3401,7 @@ def edit_ms(tsl, tf, mode, t, f, want, what, w=None, node=None,
     return cuda_ms(run)
 
 
-def edgegat_yardsticks(tgf, tts, tsl, g, heads, fh, fe, rate):
+def edgegat_yardsticks(tgf, tts, tsl, g, heads, fh, fe, rate, tsg=None):
     """Phase 27: each K10 v2 kernel at full size on ``g`` against its
     plain version, with the timings and the bound; the slot-feature reduce
     also against one ``torch.sparse.mm`` of the (H N, slots) CSR that
@@ -3379,7 +3413,11 @@ def edgegat_yardsticks(tgf, tts, tsl, g, heads, fh, fe, rate):
     dot-product walk) are timed beside the bucket walks they replaced and
     the slot walk's edit (``tsl``, tools/perf_slot_walks.py), each held
     to them; the bound counts the row view the walk reads, the earlier
-    one (the slot arrays) as old_bound_ms."""
+    one (the slot arrays) as old_bound_ms.  The scores (each lane's own
+    edge-feature row) are timed beside the kernel they replaced and the
+    staged design (``tsg``, tools/perf_slot_grad_scores.py), p and g equal
+    to both bit for bit, and K6's and K10 v1's instances of the scores
+    equal to the retired kernel's same instances bit for bit."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     b, cap = tf.num_buckets, tf.cap
     slots = b * cap
@@ -3425,6 +3463,47 @@ def edgegat_yardsticks(tgf, tts, tsl, g, heads, fh, fe, rate):
         lambda: tgf.edgegat_scores_plain(tf, el, er, ef, m, SLOPE),
         walk + 2 * node + edge_f + m.numel() * 4 + 2 * slot_h,
         e * heads * (2 * fe + 8))
+    if tsg is not None:
+        new = tgf.edgegat_scores(tf, el, er, ef, m, SLOPE)
+        for name, old in (("the retired kernel", tsg.thread_scores(
+                tf, el, er, SLOPE, ef_slot=ef, m=m)),
+                ("the staged design", tsg.staged_scores(tf, el, er, ef, m,
+                                                        SLOPE))):
+            for a, w, what in zip(new, old, "pg"):
+                equal(a, w, f"K10 v2 scores {what} {tag} ({name})")
+        del new, old
+        # K6's and K10 v1's instances (gat_scores_kernel<kBias>) against
+        # the retired template's <kBias, false>
+        ee = slot_heads(tf, gen, heads, 1 / 16, 1)
+        for extra in ({}, {"ee_slot": ee}):
+            for a, w, what in zip(tgf.gat_scores(tf, el, er, SLOPE, **extra),
+                                  tsg.thread_scores(tf, el, er, SLOPE,
+                                                    **extra), "pg"):
+                equal(a, w, f"gat_scores {what} {sorted(extra)} (the "
+                      "retired template)")
+        del ee
+        regs, local, per_sm, threads = tsg.scores_attrs(fe, heads)
+        s_regs, s_local, s_per_sm, s_threads = tsg.scores_attrs(fe, heads,
+                                                                True)
+        rows["scores"].update(
+            kernel=f"edge_scores_kernel<{fe if fe in (4, 8, 16, 32) else 0}>",
+            registers=regs, local_bytes=local, blocks_per_sm=per_sm,
+            old_kernel="gat_scores_kernel<false, true> (tools/"
+                       "slot_grad_scores_probe.cu)",
+            old_ms=cuda_ms(lambda: tsg.thread_scores(tf, el, er, SLOPE,
+                                                     ef_slot=ef, m=m)),
+            staged_ms=cuda_ms(lambda: tsg.staged_scores(tf, el, er, ef, m,
+                                                        SLOPE)),
+            staged_registers=s_regs, staged_local_bytes=s_local,
+            staged_blocks_per_sm=s_per_sm)
+        r = rows["scores"]
+        log(f"# K10 v2 scores {tag}: {r['kernel']} {regs} registers, "
+            f"{local} B local, {per_sm} blocks of {threads} threads an SM; "
+            f"the kernel it replaced {r['old_ms']:.4f} ms, the staged "
+            f"design {r['staged_ms']:.4f} ms ({s_regs} registers, {s_local} "
+            f"B local, {s_per_sm} blocks of {s_threads} threads an SM); p "
+            "and g equal to both bit for bit; K6's and K10 v1's instances "
+            "equal to the retired template's")
 
     # the slot-feature reduce: one torch.sparse.mm of the (H N, slots) CSR
     # of p at the edges' slots, ordered by dst within each head's block
@@ -3561,8 +3640,9 @@ V1_STEPS = 5
 # a slope on a dyadic grid for the kernel checks: dW = ds attn lrelu'(raw)
 # then lies on a grid, and its sums over a node's slots are exact
 EXACT_SLOPE = 0.25
+# dFNJ comes from the slot gradient's walk, dFNI from the slot vector sum
 K11V1_STEP = {"egatc_scores": 1, "slot_reduce": 1, "k4_spmm": 1, "gat_ds": 1,
-              "egatc_slot_grad": 1, "slot_vec_reduce": 2, "src_aggregate": 1}
+              "egatc_slot_grad": 1, "slot_vec_reduce": 1, "src_aggregate": 1}
 K10V1_STEP = {"gat_scores": 1, "slot_reduce": 3, "fe_aggregate": 1,
               "fe_ds": 1, "dx_dfe": 1}
 
@@ -3594,9 +3674,37 @@ def egatc_inputs(tf, heads, dim, gen, dtype):
     return U, V, attn, fe, ds
 
 
+def slot_grad_bits(tgf, tf, U, V, attn, fe, ds, tag):
+    """K11 v1's slot gradient on ``tf`` held to its plain version bit for
+    bit (the inputs on ``egatc_inputs``' grids: every sum exact), with ds
+    slot-major as ``egatc_backward`` hands it and in (B, H, C): da, dFE
+    (0 at every padded slot) and dFNJ, the same bits on a second launch,
+    and dFNJ equal to the slot vector sum of dFE by dst, bit for bit (the
+    sum it took over).  Launches the slot gradient three times and the
+    slot vector sum once."""
+    want = tgf.egatc_slot_grad_plain(tf, U, V, attn, fe, ds, EXACT_SLOPE)
+    dsm = tgf._slot_major(ds)
+    for i, layout in enumerate((ds, dsm, dsm)):
+        got = tgf.egatc_slot_grad(tf, U, V, attn, fe, layout, EXACT_SLOPE)
+        for a, w, name in zip(got, want, ("da", "dFE", "dFNJ")):
+            equal(a, w, f"{tag} {name}, launch {i}")
+        if i < 2:
+            del got
+    del want
+    if got[1].dtype != fe.dtype:
+        raise AssertionError(f"{tag}: dFE is {got[1].dtype}, not {fe.dtype}")
+    pad = tf.valid.view(tf.num_buckets, tf.cap) == 0
+    if (got[1][pad] != 0).any():
+        raise AssertionError(f"{tag}: dFE not 0 at a padded slot")
+    equal(got[2], tgf.slot_vec_reduce(tf, got[1], "dst"),
+          f"{tag} dFNJ (the slot vector sum of dFE)")
+    return got[1]
+
+
 def egatc_kernel_checks(tgf, tf, heads, dim, dtype, gen, tag):
     """Each K11 v1 kernel against its plain version on ``tf`` with the
-    stored FE in ``dtype``: (name, max|err|) pairs."""
+    stored FE in ``dtype``: (name, max|err|) pairs; the slot gradient bit
+    for bit (``slot_grad_bits``)."""
     U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, dtype)
     counters = [getattr(tgf, name) for name in V1_COUNTERS[:3]]
     before = [k.launches for k in counters]
@@ -3605,23 +3713,48 @@ def egatc_kernel_checks(tgf, tf, heads, dim, dtype, gen, tag):
                                                EXACT_SLOPE), f"{tag} p")),
             ("raw", scores_raw_checks(tgf, tf, U, V, attn, EXACT_SLOPE,
                                       f"{tag} scores", fe_slot=fe))]
-    da, dfe = tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)
-    want = tgf.egatc_slot_grad_plain(tf, U, V, attn, fe, ds, EXACT_SLOPE)
-    if dfe.dtype != dtype:
-        raise AssertionError(f"{tag}: dFE is {dfe.dtype}, not {dtype}")
-    errs += [("da", close_sum(da, want[0], f"{tag} da")),
-             ("dFE", close(dfe.float(), want[1].float(), f"{tag} dFE"))]
-    for side, name in (("dst", "dFNJ"), ("src", "dFNI")):
-        errs.append((name, close(tgf.slot_vec_reduce(tf, dfe, side),
-                                 tgf.slot_vec_reduce_plain(tf, dfe, side),
-                                 f"{tag} {name}")))
+    dfe = slot_grad_bits(tgf, tf, U, V, attn, fe, ds, tag)
+    errs += [("da, dFE, dFNJ", 0.0),
+             ("dFNI", close(tgf.slot_vec_reduce(tf, dfe, "src"),
+                            tgf.slot_vec_reduce_plain(tf, dfe, "src"),
+                            f"{tag} dFNI"))]
     torch.cuda.synchronize()
     launched = [k.launches - b0 for k, b0 in zip(counters, before)]
-    # the scores: once against the plain version, twice in the raw check
-    if launched != [3, 1, 2]:
+    # the scores: once against the plain version, twice in the raw check;
+    # the slot gradient three times, the slot vector sum by dst and by src
+    if launched != [3, 3, 2]:
         raise AssertionError(f"{tag}: K11 v1 launches {launched}, not "
-                             "[3, 1, 2]")
+                             "[3, 3, 2]")
     return errs
+
+
+def slot_grad_hub_checks(tts, tgf, gen):
+    """K11 v1's slot gradient bit for bit (``slot_grad_bits``) on
+    ``row_walk_mid``'s graph: a dst hub of degree 12,000 (claimed first, a
+    range of its own rows), no edge into dst tile 3 (empty rows, whose
+    dFNJ is 0), at (4, 32) and (1, 41) in f32 and bf16."""
+    row, col, n_src, n_dst = hub_mid_graph()
+    fwd = tts.build_tiled_format_device(row, col, n_src, n_dst,
+                                        device="cuda").with_src_first()
+    view = fwd.row_view("dst")
+    deg = view.ptr[1:] - view.ptr[:-1]
+    if int(deg[view.order[0]]) < 10_000 or int(deg.min()) != 0:
+        raise AssertionError("the hub graph has no hub claimed first or no "
+                             "empty row")
+    for heads, dim in ((4, 32), (1, 41)):
+        for dtype in V1_DTYPES:
+            tag = (f"K11 v1 slot grad hub graph H={heads} D={dim} "
+                   f"{str(dtype).split('.')[-1]}")
+            U, V, attn, fe, ds = egatc_inputs(fwd, heads, dim, gen, dtype)
+            slot_grad_bits(tgf, fwd, U, V, attn, fe, ds, tag)
+            dfnj = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds,
+                                       EXACT_SLOPE)[2]
+            if (dfnj[deg == 0] != 0).any():
+                raise AssertionError(f"{tag}: dFNJ not 0 on an empty row")
+    log(f"# K11 v1 slot gradient on the hub graph (a dst hub of degree "
+        f"{int(deg.max())}, {int((deg == 0).sum())} empty rows): da, dFE "
+        "and dFNJ equal to the plain version's bit for bit, twice, in f32 "
+        "and bf16")
 
 
 def edgegat_v1_inputs(tf, heads, fh, gen, dtype):
@@ -3743,6 +3876,7 @@ def phase_v1_mid(dgt, tts, tgf):
     err = v1_against_v2(tgf, fwd, n_src, n_dst, gen, "mid")
     log(f"# v1 vs v2 mid size (4, 32), Fe = 16: values and every gradient "
         f"agree, max|err| {err:.3g}")
+    slot_grad_hub_checks(tts, tgf, gen)
 
 
 class EgatV1(torch.nn.Module):
@@ -3811,11 +3945,11 @@ class PlainEgatc(torch.autograd.Function):
         tf = ctx.tf
         zn, rp = tgf._scales(out, dz, den)
         ds = tgf.gat_ds_plain(tf, x, zn, rp, p)
-        da, dfe = tgf.egatc_slot_grad_plain(tf, fni, fnj, attn, fe, ds,
-                                            ctx.slope)
+        da, dfe, dv = tgf.egatc_slot_grad_plain(tf, fni, fnj, attn, fe, ds,
+                                                ctx.slope)
         del ds
         du = tgf.slot_vec_reduce_plain(tf, dfe, "src").view(fni.shape)
-        dv = tgf.slot_vec_reduce_plain(tf, dfe, "dst").view(fnj.shape)
+        dv = dv.view(fnj.shape)
         return (du, dv, dfe, da, tgf.src_aggregate_plain(tf, zn, p), None,
                 None)
 
@@ -3991,7 +4125,160 @@ def phase_edgegat_v1(tgf, tts, g, x, ef_slot):
                           K10V1_STEP, PlainEdgeGatV1)
 
 
-def v1_yardsticks(tgf, tts, tsl, g, rate, tfs=None):
+def slot_grad_yardstick(tgf, tts, tsg, tf, U, V, attn, fe, ds, rate,
+                        old_bytes):
+    """K11 v1's slot gradient at full width beside the bucket walk it
+    replaced and the edit ``unfolded`` (``tsg``, tools/
+    perf_slot_grad_scores.py), each followed by the slot vector sum by dst
+    that the walk took over: da, dFE and dFNJ equal across the three bit
+    for bit (FE f32, then bf16); ds in (B, H, C) beside slot-major; the
+    instance's registers.  Returns the row's extra keys."""
+    heads, dim = U.shape[1], U.shape[2]
+    hd = heads * dim
+    e = tf.row_view("dst").slot.numel()
+    slots = tf.num_buckets * tf.cap
+    dsm = tgf._slot_major(ds)
+    new = tgf.egatc_slot_grad(tf, U, V, attn, fe, dsm, EXACT_SLOPE)
+    equal(tgf.egatc_slot_grad(tf, U, V, attn, fe, dsm, EXACT_SLOPE)[2],
+          new[2], "egatc_slot_grad dFNJ, a second launch")
+    old = tsg.bucket_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)
+    equal(old[0], new[0], "egatc_slot_grad da (the bucket walk)")
+    equal(old[1], new[1], "egatc_slot_grad dFE (the bucket walk)")
+    equal(tgf.slot_vec_reduce(tf, old[1], "dst"), new[2],
+          "egatc_slot_grad dFNJ (the bucket walk's dFE summed by dst)")
+    del old
+    un = tsg.grad_edit("unfolded", tf, U, V, attn, fe, dsm, EXACT_SLOPE)
+    equal(un[1], new[1], "egatc_slot_grad dFE (the edit unfolded)")
+    equal(un[0], new[0], "egatc_slot_grad da (the edit unfolded)")
+    del un, new
+    vec, cpl, _, _ = tts.slot_layout(hd, (dim,), fe, U)
+    regs, local, per_sm = tts.slot_grad_kernel_attrs(torch.float32, vec, cpl)
+    regs_b, local_b, per_sm_b = tts.slot_grad_kernel_attrs(torch.bfloat16,
+                                                           vec, cpl)
+
+    def old_pair(t):
+        dfe = tsg.bucket_slot_grad(tf, U, V, attn, t, ds, EXACT_SLOPE)[1]
+        return tgf.slot_vec_reduce(tf, dfe, "dst")
+
+    def unfolded_pair(t):
+        dfe = tsg.grad_edit("unfolded", tf, U, V, attn, t, dsm,
+                            EXACT_SLOPE)[1]
+        return tgf.slot_vec_reduce(tf, dfe, "dst")
+
+    x = dict(
+        kernel=f"row_slot_grad_kernel<{vec}, {cpl}, T> + slot_zero_kernel "
+               "+ 2 range_sum_kernel",
+        registers=regs, local_bytes=local, blocks_per_sm=per_sm,
+        registers_bf16=regs_b, local_bytes_bf16=local_b,
+        old_kernel="vattn_slot_grad_kernel<4, T, true> (tools/"
+                   "slot_grad_scores_probe.cu), then slot_vec_reduce by dst",
+        old_ms=cuda_ms(lambda: tsg.bucket_slot_grad(tf, U, V, attn, fe, ds,
+                                                    EXACT_SLOPE)),
+        old_pair_ms=cuda_ms(lambda: old_pair(fe)),
+        old_bound_ms=bound(old_bytes, 7 * e * hd, rate)[0],
+        unfolded_pair_ms=cuda_ms(lambda: unfolded_pair(fe)),
+        ds_bhc_ms=cuda_ms(lambda: tgf.egatc_slot_grad(tf, U, V, attn, fe, ds,
+                                                      EXACT_SLOPE)))
+    fe_b = fe.to(torch.bfloat16)         # exact: the grid fits bf16
+    new = tgf.egatc_slot_grad(tf, U, V, attn, fe_b, dsm, EXACT_SLOPE)
+    old = tsg.bucket_slot_grad(tf, U, V, attn, fe_b, ds, EXACT_SLOPE)
+    equal(old[1], new[1], "egatc_slot_grad bf16 dFE (the bucket walk)")
+    equal(tgf.slot_vec_reduce(tf, old[1], "dst"), new[2],
+          "egatc_slot_grad bf16 dFNJ (the bucket walk's dFE summed by dst)")
+    del old, new
+    x.update(
+        bf16_ms=cuda_ms(lambda: tgf.egatc_slot_grad(tf, U, V, attn, fe_b, dsm,
+                                                    EXACT_SLOPE)),
+        bf16_old_pair_ms=cuda_ms(lambda: old_pair(fe_b)),
+        bf16_bound_ms=bound(
+            slot_walk_bytes(tf, "dst", True) + 2 * U.numel() * 4 + hd * 4
+            + e * heads * 4 + e * hd * 2 + slots * 4 + slots * hd * 2
+            + V.numel() * 4 + hd * 4, 8 * e * hd, rate)[0])
+    del fe_b
+    log(f"# egatc_slot_grad: {x['kernel']}: {regs} registers ({regs_b} "
+        f"with bf16 rows), {local} B local ({local_b}), {per_sm} blocks an "
+        f"SM; the bucket walk it replaced {x['old_ms']:.4f} ms, with the "
+        f"slot vector sum by dst {x['old_pair_ms']:.4f} ms [bound "
+        f"{x['old_bound_ms']:.4f} ms without it]; the edit unfolded with "
+        f"the slot vector sum {x['unfolded_pair_ms']:.4f} ms; ds in (B, H, "
+        f"C) {x['ds_bhc_ms']:.4f} ms; bf16 rows {x['bf16_ms']:.4f} ms "
+        f"(bound {x['bf16_bound_ms']:.4f} ms), the bucket walk and the sum "
+        f"on them {x['bf16_old_pair_ms']:.4f} ms; da, dFE and dFNJ equal "
+        "across the three bit for bit")
+    return x
+
+
+# K11 v1's slot gradient at a head's width that is not a multiple of 4:
+# the walk's vector-of-1 instance (EGAT_SHAPES' (1, 41))
+VEC1_SHAPE = (1, 41)
+
+
+def slot_grad_vec1_yardstick(tgf, tts, tsg, tf, rate):
+    """K11 v1's slot gradient at VEC1_SHAPE on ``tf``, FE f32, ds
+    slot-major: the walk's vector-of-1 instance beside the bucket walk it
+    replaced followed by the slot vector sum by dst, and beside the edits
+    of its entries in flight (``tsg``'s ``vec1_unroll*``), da, dFE and
+    dFNJ equal across them bit for bit; each one's time, registers and
+    local memory.  Returns the row's extra keys, each under "vec1_"."""
+    heads, dim = VEC1_SHAPE
+    hd = heads * dim
+    e = tf.row_view("dst").slot.numel()
+    slots = tf.num_buckets * tf.cap
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, torch.float32)
+    dsm = tgf._slot_major(ds)
+    new = tgf.egatc_slot_grad(tf, U, V, attn, fe, dsm, EXACT_SLOPE)
+    old = tsg.bucket_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)
+    equal(old[0], new[0], "egatc_slot_grad (1, 41) da (the bucket walk)")
+    equal(old[1], new[1], "egatc_slot_grad (1, 41) dFE (the bucket walk)")
+    equal(tgf.slot_vec_reduce(tf, old[1], "dst"), new[2],
+          "egatc_slot_grad (1, 41) dFNJ (the bucket walk's dFE by dst)")
+    del old
+    edits = [n for n in tsg.GRAD_EDITS if n.startswith("vec1_")]
+    for name in edits:
+        for a, w, what in zip(tsg.grad_edit(name, tf, U, V, attn, fe, dsm,
+                                            EXACT_SLOPE), new,
+                              ("da", "dFE", "dFNJ")):
+            equal(a, w, f"egatc_slot_grad (1, 41) {what} (the edit {name})")
+    del new
+    vec, cpl, _, _ = tts.slot_layout(hd, (dim,), fe, U)
+    regs, local, per_sm = tts.slot_grad_kernel_attrs(torch.float32, vec, cpl)
+
+    def old_pair():
+        dfe = tsg.bucket_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)[1]
+        return tgf.slot_vec_reduce(tf, dfe, "dst")
+
+    node_f = N_NODES * hd * 4
+    x = dict(
+        vec1_kernel=f"row_slot_grad_kernel<{vec}, {cpl}, float>",
+        vec1_registers=regs, vec1_local_bytes=local,
+        vec1_blocks_per_sm=per_sm,
+        vec1_ms=cuda_ms(lambda: tgf.egatc_slot_grad(tf, U, V, attn, fe, dsm,
+                                                    EXACT_SLOPE)),
+        vec1_old_pair_ms=cuda_ms(old_pair),
+        vec1_bound_ms=bound(
+            slot_walk_bytes(tf, "dst", True) + 2 * node_f + hd * 4
+            + e * heads * 4 + e * hd * 4 + slots * 4 + slots * hd * 4
+            + node_f + hd * 4, 8 * e * hd, rate)[0])
+    msg = (f"# egatc_slot_grad {VEC1_SHAPE}: {x['vec1_kernel']} {regs} "
+           f"registers, {local} B local, {per_sm} blocks an SM, "
+           f"{x['vec1_ms']:.4f} ms (bound {x['vec1_bound_ms']:.4f} ms); the "
+           f"bucket walk and the slot vector sum by dst "
+           f"{x['vec1_old_pair_ms']:.4f} ms")
+    for name in edits:
+        e_regs, e_local, _ = tsg.grad_attrs(torch.float32, vec, cpl, name)
+        x[f"{name}_ms"] = cuda_ms(lambda: tsg.grad_edit(
+            name, tf, U, V, attn, fe, dsm, EXACT_SLOPE))
+        x[f"{name}_registers"] = e_regs
+        x[f"{name}_local_bytes"] = e_local
+        msg += (f"; the edit {name} {x[f'{name}_ms']:.4f} ms ({e_regs} "
+                f"registers, {e_local} B local)")
+    log(msg + "; da, dFE and dFNJ equal across them bit for bit")
+    return x
+
+
+def v1_yardsticks(tgf, tts, tsl, g, rate, tfs=None,
+                  tsg=None):
     """Phase 40: each K11 v1 and K10 v1 kernel at full size on the EGAT
     graph at (4, 32), f32 slot tensors, against its plain version on the
     inputs of the mid-size checks (exact sums on their grids, held by
@@ -4007,7 +4294,14 @@ def v1_yardsticks(tgf, tts, tsl, g, rate, tfs=None):
     beside its retired instance (the ds's mode 4).  The scores, the
     dot-product walk with the stored row, are held to the plain version's
     raw sums bit for bit and timed beside the bucket walk they replaced on
-    f32 and bf16 rows (``tfs``, tools/perf_fwd_scores.py)."""
+    f32 and bf16 rows (``tfs``, tools/perf_fwd_scores.py).  The slot
+    gradient (the slot walk by dst, dFNJ summed on it) is held to its
+    plain version, to the bucket walk it replaced followed by the slot
+    vector sum by dst and to the edit ``unfolded`` bit for bit, and timed
+    beside them, with ds in both layouts and FE in f32 and bf16
+    (``slot_grad_yardstick``, ``tsg``: tools/perf_slot_grad_scores.py),
+    and again at VEC1_SHAPE, the walk's vector-of-1 instance
+    (``slot_grad_vec1_yardstick``)."""
     tf, e = g.unit().tiled_format()[0], g.num_edges()
     heads, dim = EGAT_H, EGAT_D
     b, cap = tf.num_buckets, tf.cap
@@ -4124,17 +4418,30 @@ def v1_yardsticks(tgf, tts, tsl, g, rate, tfs=None):
                 f"on them {r['bf16_old_ms']:.4f} ms; max|err| of the bucket "
                 f"walk {max(errs):.3g}")
     log(msg)
-    # the slot gradient: in the slot arrays, ds, U, V, attn, FE at the
-    # edges; out da and dFE at every slot.  Per edge and column raw (2),
-    # lrelu and da (3), dW (2)
+    # the slot gradient (the slot walk by dst with dFNJ summed on it, the
+    # zero pass, da's two range sums), ds slot-major as egatc_backward
+    # hands it: in the dst view (slot, nbr, ptr, order), U and V once,
+    # attn, ds (4H B) and FE at the edges, valid at every slot (the zero
+    # pass); out dFE at every slot, dFNJ and da once.  Per edge and column
+    # raw (2), lrelu and da (3), dW (2) and dFNJ's add (1) [the bucket walk
+    # it replaced read the slot arrays and wrote no dFNJ]
+    dsm = tgf._slot_major(ds)
+    grad_ops = 8 * e * hd
     row("egatc_slot_grad",
-        lambda: tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE),
+        lambda: tgf.egatc_slot_grad(tf, U, V, attn, fe, dsm, EXACT_SLOPE),
         lambda: tgf.egatc_slot_grad_plain(tf, U, V, attn, fe, ds,
                                           EXACT_SLOPE),
-        walk + edge_h + 2 * node_f + 2 * hd * 4 + edge_f + slot_f,
-        7 * e * hd)
-    dfe = tgf.egatc_slot_grad(tf, U, V, attn, fe, ds, EXACT_SLOPE)[1]
-    del U, V, attn, fe, ds
+        slot_walk_bytes(tf, "dst", True) + 2 * node_f + hd * 4 + edge_h
+        + edge_f + slots * 4 + slot_f + node_f + hd * 4, grad_ops)
+    r = rows["egatc_slot_grad"]
+    if tsg is not None:
+        r.update(slot_grad_yardstick(tgf, tts, tsg, tf, U, V, attn, fe, ds,
+                                     rate, walk + edge_h + 2 * node_f
+                                     + 2 * hd * 4 + edge_f + slot_f))
+    dfe = tgf.egatc_slot_grad(tf, U, V, attn, fe, dsm, EXACT_SLOPE)[1]
+    del U, V, attn, fe, ds, dsm
+    if tsg is not None:
+        r.update(slot_grad_vec1_yardstick(tgf, tts, tsg, tf, rate))
     # the slot vector sum by dst: one index_add_ of the (B C, 128) rows at
     # the slots' dst ids (padded slots hold 0)
     ids = slot_ids(tf, "dst")
@@ -4287,7 +4594,9 @@ def phase_slot_walks_full(tgf, g):
     weights; the edge ds without and with d(ef).  The inputs lie on
     dyadic grids whose sums ``exact_sums`` holds exact; g and rp of the
     ds are on the grid too, so that d(ef)'s products of ds are exact.
-    dfe and d(ef) are 0 at every padded slot."""
+    dfe and d(ef) are 0 at every padded slot.  K11 v1's slot gradient
+    (``slot_grad_bits``, FE in f32 and in bf16) and K10 v2's scores
+    (twice) are held to their plain versions bit for bit too."""
     tf = g.unit().tiled_format()[0]
     heads, dim, fe_n = EGAT_H, EGAT_D, EGAT_FE
     hd = heads * dim
@@ -4309,7 +4618,8 @@ def phase_slot_walks_full(tgf, g):
     g_slot = slot_heads(tf, gen, heads, 1 / 16, 1)
     pad = tf.valid.view(b, cap) == 0
     names = ("fe_aggregate", "dx_dfe", "slot_vec_reduce", "fe_ds",
-             "slot_feat_reduce", "edgegat_ds")
+             "slot_feat_reduce", "edgegat_ds", "egatc_slot_grad",
+             "edgegat_scores")
     counters = [getattr(tgf, n) for n in names]
     before = [k.launches for k in counters]
     checked = []
@@ -4338,6 +4648,23 @@ def phase_slot_walks_full(tgf, g):
             del dx, dfe
         del want
         checked.append(tag)
+    # K11 v1's slot gradient, f32 and bf16 FE (exact sums: dW on 1/512,
+    # at most 1/2, over a node's slots)
+    exact_sums(deg * 0.5, 1 / 512, "K11 v1 dFNJ at full width")
+    for dtype in V1_DTYPES:
+        U, V, attn, fe, ds = egatc_inputs(tf, heads, dim, gen, dtype)
+        slot_grad_bits(tgf, tf, U, V, attn, fe, ds,
+                       f"egatc_slot_grad full width "
+                       f"{str(dtype).split('.')[-1]}")
+        del U, V, attn, fe, ds
+    # K10 v2's scores, twice
+    el, er, ef, _, _, m = edgegat_inputs(tf, heads, dim, fe_n, gen)
+    want = tgf.edgegat_scores_plain(tf, el, er, ef, m, SLOPE)
+    for i in range(2):
+        for a, w, name in zip(tgf.edgegat_scores(tf, el, er, ef, m, SLOPE),
+                              want, "pg"):
+            equal(a, w, f"edgegat_scores {name} full width, launch {i}")
+    del el, er, ef, m, want
     ef = slot_rows(tf, gen, fe_n, 1 / 16, 1)
     zp = grid(gen, N_NODES, heads, fe_n, step=1 / 16, top=1)
     m = grid(gen, fe_n, heads, step=1 / 16, top=0.25)
@@ -4359,14 +4686,16 @@ def phase_slot_walks_full(tgf, g):
                              "padded slot")
     torch.cuda.synchronize()
     launched = [k.launches - n for k, n in zip(counters, before)]
-    if launched != [4, 4, 8, 2, 2, 2]:
+    if launched != [4, 4, 10, 2, 2, 2, 6, 2]:
         raise AssertionError(f"phase 44 launches {dict(zip(names, launched))}"
-                             ", not [4, 4, 8, 2, 2, 2]")
-    log(f"# slot walks and edge ds at full width (H={heads} D={dim} Fe="
-        f"{fe_n}, {g.num_edges()} edges): every output equal to its plain "
-        f"version bit for bit ({', '.join(checked)}; S with p and signed "
-        f"weights; ds without and with d(ef)); dfe and d(ef) 0 at the "
-        f"{int(pad.sum())} padded slots; launches "
+                             ", not [4, 4, 10, 2, 2, 2, 6, 2]")
+    log(f"# slot walks, edge ds, K11 v1's slot gradient and K10 v2's "
+        f"scores at full width (H={heads} D={dim} Fe={fe_n}, "
+        f"{g.num_edges()} edges): every output equal to its plain version "
+        f"bit for bit ({', '.join(checked)}; S with p and signed weights; "
+        f"ds without and with d(ef); da, dFE and dFNJ with FE in f32 and "
+        f"bf16, three launches each; p and g twice); dfe, dFE and d(ef) 0 "
+        f"at the {int(pad.sum())} padded slots; launches "
         f"{dict(zip(names, launched))}")
 
 
@@ -5926,8 +6255,8 @@ def phase_sddmm_probe(tsw, gt, rate):
 
 
 # the kernels this slice's redesign added: ptxas' report of each instance
-NEW_KERNELS = ("bitdot_fwd_list_kernel", "row_vattn_fe_kernel",
-               "row_sddmm_kernel")
+NEW_KERNELS = ("row_slot_grad_kernel", "range_sum_kernel",
+               "edge_scores_kernel")
 
 
 def log_new_kernels(logs):
@@ -5978,6 +6307,7 @@ def main():
     from dgl_tpu_torch.tools import perf_reduce_k3 as trk
     from dgl_tpu_torch.tools import perf_scores_rows as tsr
     from dgl_tpu_torch.tools import perf_sddmm_walk as tsw
+    from dgl_tpu_torch.tools import perf_slot_grad_scores as tsg
     from dgl_tpu_torch.tools import perf_slot_walks as tsl
 
     # phase 1: device
@@ -6001,9 +6331,11 @@ def main():
     # each and an edit of each new one, waited for in phase 30), the slot
     # walks' probe (the two retired bucket walks and an edit of the slot
     # walk, waited for in phase 27), the forward and scores probe (the two
-    # retired kernels and an edit of each new walk, waited for in phase 28)
+    # retired kernels and an edit of each new walk, waited for in phase
+    # 28), the slot-gradient and scores probe (the two retired kernels and
+    # an edit of each new one, waited for in phase 27)
     t0 = time.perf_counter()
-    probe_build = ThreadPoolExecutor(8)
+    probe_build = ThreadPoolExecutor(9)
     probe_built = probe_build.submit(tdf.build_probe)
     fwd_probe_built = probe_build.submit(tfw.build_probe)
     scores_rows_built = probe_build.submit(tsr.build_probe)
@@ -6012,6 +6344,7 @@ def main():
     dq_probe_built = probe_build.submit(tdq.build_probe)
     slot_probe_built = probe_build.submit(tsl.build_probe)
     fwd_scores_built = probe_build.submit(tfs.build_probe)
+    slot_grad_scores_built = probe_build.submit(tsg.build_probe)
     logs = build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -6214,11 +6547,14 @@ def main():
                 tdf, tsr, ge, EGAT_H, EGAT_D, EGAT_FE, rate, tdz, tdq, tfs)
     t0 = time.perf_counter()
     slot_probe_built.result()
-    probe_build.shutdown()
     log("# the slot walks' probe's build waited for "
         f"{time.perf_counter() - t0:.1f}s")
+    slot_grad_scores_built.result()
+    probe_build.shutdown()
+    log("# the slot-gradient and scores probe's build waited for "
+        f"{time.perf_counter() - t0:.1f}s")
     k10 = phase("27 (K10 v2 yardsticks)", edgegat_yardsticks, tgf, tts, tsl,
-                ge, EGAT_H, EGAT_D, EGAT_FE, rate)
+                ge, EGAT_H, EGAT_D, EGAT_FE, rate, tsg)
     # EdgeGAT's other launches at (4, 32): K6's reduce (den, der; del) and
     # dx, K4's SpMM for the numerator; the v1 functions' K6 scores with the
     # slot bias (K10 v1) and ds (K11 v1)
@@ -6242,7 +6578,7 @@ def main():
     del xe, ef_slot
     torch.cuda.empty_cache()
     v1 = phase("40 (K11 v1, K10 v1 yardsticks)", v1_yardsticks, tgf, tts,
-               tsl, ge, rate, tfs)
+               tsl, ge, rate, tfs, tsg)
     del ge
     torch.cuda.empty_cache()
 
@@ -6352,7 +6688,11 @@ def main():
         # features, launches from phase 26 (the slot-feature reduce on the
         # slot walk, the edge ds on the dot-product walk: the retired
         # bucket walks, built by tools/perf_slot_walks.py, as old_ms)
-        {"name": "edgegat_scores", "route": "cuda",
+        # its scores, each lane's own edge-feature row (the retired
+        # gat_scores_kernel<false, true>, built by
+        # tools/perf_slot_grad_scores.py, as old_ms, the staged design
+        # as staged_ms)
+        {"name": "edge_scores_kernel", "route": "cuda",
          "source": "dgl_tpu_torch/csrc/gat_fused.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1723",
          "launches": k10_launches["edgegat_scores"], **k10["scores"]},
@@ -6419,8 +6759,12 @@ def main():
          "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1093",
          "launches": k11v1_launches["egatc_scores"], **v1["egatc_scores"]},
-        {"name": "egatc_slot_grad", "route": "cuda",
-         "source": "dgl_tpu_torch/csrc/gatv2.cu",
+        # K11 v1's slot gradient, the slot walk by dst with dFNJ summed on
+        # it (the retired bucket walk, vattn_slot_grad_kernel, built by
+        # tools/perf_slot_grad_scores.py, as old_ms; with the slot vector
+        # sum by dst it was followed by, old_pair_ms)
+        {"name": "row_slot_grad_kernel", "route": "cuda",
+         "source": "dgl_tpu_torch/csrc/row_agg.cu",
          "replaces": "dgl_tpu/ops/pallas/gat_fused.py:1193",
          "launches": k11v1_launches["egatc_slot_grad"],
          **v1["egatc_slot_grad"]},

@@ -26,23 +26,29 @@
 // den, numerator, ds and dx are K6's and K4's kernels (csrc/gat_fused.cu,
 // csrc/row_agg.cu).
 //
-// Two kernels serve K11 v2's pallas_calls and K11 v1's (K9's scores,
-// node gradient and da, K11 v2's node gradient and both K11's scores are
-// the walks of csrc/row_agg.cu: K11 v2's node gradient, the dv part of
-// _egatc2_dv_da_kernel :1975 and _egatc2_du_kernel :2024, is its
-// row_fe_grad_kernel; the tiled walk it replaced, vattn_node_grad_kernel,
-// a block per (tile, column chunk, split) adding each slot's dW into
-// shared memory with a float atomicAdd, is built by
-// dgl_tpu_torch/tools/perf_dq_node_grad.py from tools/dq_node_grad_probe.cu
-// and timed beside it; the scores, _egatc2_scores_kernel :1955 and
-// _egatc_scores_kernel :959, are its dot-product walk by dst in the scores
-// mode, row_vattn_fe_kernel with the edge term formed per entry and
-// row_sddmm_kernel<CPL, true, true, T> with the stored one, and the bucket
-// walk they replaced, a warp a 32-slot chunk gathering U[src] and V[dst]
-// with scalar loads at every slot, is built by
-// dgl_tpu_torch/tools/perf_fwd_scores.py from tools/fwd_scores_probe.cu);
-// each is behind a plain C function that launches on the caller's stream,
-// allocates nothing and returns cudaGetLastError():
+// One kernel, with its finishing pass, serves K11 v2's slot gradient (K9's
+// scores, node gradient and da, K11 v2's node gradient, both K11's scores
+// and K11 v1's slot gradient are the walks of csrc/row_agg.cu: K11 v2's
+// node gradient, the dv part of _egatc2_dv_da_kernel :1975 and
+// _egatc2_du_kernel :2024, is its row_fe_grad_kernel; the tiled walk it
+// replaced, vattn_node_grad_kernel, a block per (tile, column chunk,
+// split) adding each slot's dW into shared memory with a float atomicAdd,
+// is built by dgl_tpu_torch/tools/perf_dq_node_grad.py from
+// tools/dq_node_grad_probe.cu and timed beside it; the scores,
+// _egatc2_scores_kernel :1955 and _egatc_scores_kernel :959, are its
+// dot-product walk by dst in the scores mode, row_vattn_fe_kernel with the
+// edge term formed per entry and row_sddmm_kernel<CPL, true, true, T> with
+// the stored one, and the bucket walk they replaced, a warp a 32-slot
+// chunk gathering U[src] and V[dst] with scalar loads at every slot, is
+// built by dgl_tpu_torch/tools/perf_fwd_scores.py from
+// tools/fwd_scores_probe.cu; K11 v1's slot gradient, the da, dFE and dv
+// parts of _egatc_dv_da_dfe_kernel :979, is its slot walk's sibling by dst,
+// row_slot_grad_kernel, and the bucket walk it replaced,
+// vattn_slot_grad_kernel<C, T, true>, is built by
+// dgl_tpu_torch/tools/perf_slot_grad_scores.py from
+// tools/slot_grad_scores_probe.cu); it is behind a plain C function that
+// launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError():
 //
 // vattn_slot_grad_mma_kernel<KS, kDef>  replaces the da, d(ef) and dWf
 //     parts of _egatc2_dv_da_kernel (:1975, egatc2_backward :2167), which
@@ -70,28 +76,6 @@
 //     for dWf a slot and column on the f32 pipes, shared and global atomics
 //     at the end), built by dgl_tpu_torch/tools/perf_dz_slot_grad.py from
 //     tools/dz_slot_grad_probe.cu and timed beside it (PERF.md).
-// vattn_slot_grad_kernel<kCols, T, kStore>, kStore (K11 v1, below): one
-//     warp per 32-slot chunk of the buckets, L lanes per head (32 over the
-//     heads rounded up to a power of two); each lane owns a fixed set of
-//     kCols columns of its head (a group; a wide head takes several
-//     groups, each a walk of the block's chunks), so da sums in registers;
-//     at the end the block adds its lanes' sums in shared memory and then
-//     into da with global atomics.  K9's da (the da part of
-//     _gatv2_dv_da_kernel :689, _gatv2_bwd :878), which its instances
-//     without a stored term summed, is folded into K9's node-gradient walk
-//     by dst (csrc/row_agg.cu row_agg_kernel<VEC, CPL, true, true>);
-//     dgl_tpu_torch/tools/perf_ds_fold.py builds those instances again to
-//     time the two side by side.
-// EGATConv v1 (K11 v1, gat_fused.py:946-1261) stores its edge term FE per
-// slot, (B * C, H * D) of type T (float or __nv_bfloat16), instead of
-// forming it from ef and wf (kStore, read and written at 64-bit offsets:
-// at 23M edges and H * D = 128 the tensor has 3.4e9 elements):
-// vattn_slot_grad_kernel<kCols, T, true>  replaces the da and
-//     dFE parts of _egatc_dv_da_dfe_kernel (:979, _egatc_bwd :1193): it
-//     also writes dW per slot and column as dFE, in T, every slot of every
-//     bucket (0 at padded ones).  dFNJ and dFNI, the sums of dFE per dst
-//     and src (the dv term of :979 and _dw_src_kernel :1020), are
-//     csrc/gat_fused.cu's slot vector sums.
 //
 // The TPU kernels contract one-hot matrices on the matrix unit, embed attn
 // in a head-block-diagonal matrix Ra and lane-pad each head; here a lane
@@ -109,150 +93,12 @@
 // shapes.  Indices are int32: the wrappers check that every flat size
 // fits.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// A stored slot tensor's element as f32, and back (csrc/gat_fused.cu has
-// the same pair)
-__device__ __forceinline__ float ld_slot(const float* t, long long i) {
-  return __ldg(t + i);
-}
-__device__ __forceinline__ float ld_slot(const __nv_bfloat16* t,
-                                         long long i) {
-  return __bfloat162float(__ldg(t + i));
-}
-__device__ __forceinline__ void st_slot(float* t, long long i, float v) {
-  t[i] = v;
-}
-__device__ __forceinline__ void st_slot(__nv_bfloat16* t, long long i,
-                                        float v) {
-  t[i] = __float2bfloat16(v);
-}
-
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kClip = 40.f;     // gat_fused.py CLIP
-constexpr int kWarps = 8;         // warps per slot-grad block
-
-__device__ __forceinline__ float lrelu(float x, float slope) {
-  return x >= 0.f ? x : slope * x;
-}
-
-// At most 64 registers a thread, 4 blocks an SM: cut to these branches,
-// the f32 instance at 4 columns took 69 registers and 3 blocks an SM.
-template <int kCols, typename T, bool kStore>
-__global__ void __launch_bounds__(kWarps * 32, 4)
-vattn_slot_grad_kernel(const int* __restrict__ src_local,
-                       const int* __restrict__ dst_local,
-                       const float* __restrict__ valid,
-                       const int* __restrict__ src_tile,
-                       const int* __restrict__ dst_tile, int num_buckets,
-                       int tile, int cap, const float* __restrict__ u,
-                       const float* __restrict__ v,
-                       const float* __restrict__ attn,
-                       const float* __restrict__ ds, int heads, int dim,
-                       int lanes, float slope, float* __restrict__ da,
-                       const T* __restrict__ fe_s, T* __restrict__ dfe_s) {
-  extern __shared__ float smem[];
-  const int hd = heads * dim;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* attn_s = smem;                 // [hd]
-  float* da_s = attn_s + hd;            // [hd]: the block's sums
-  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-    attn_s[i] = attn[i];
-    da_s[i] = 0.f;
-  }
-  __syncthreads();
-
-  const int heads_per_pass = 32 / lanes;
-  const int hl = lane / lanes;
-  const int fl = lane % lanes;
-  const int span = lanes * kCols;  // columns of a head one group covers
-  const int per_bucket = cap / 32;
-  const int n_chunks = num_buckets * per_bucket;
-  for (int h0 = 0; h0 < heads; h0 += heads_per_pass) {
-    const int h = h0 + hl;
-    for (int g0 = 0; g0 < dim; g0 += span) {
-      int col[kCols];
-      bool ok[kCols];
-      float acc_a[kCols];
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int d = g0 + fl + i * lanes;
-        ok[i] = h < heads && d < dim;
-        col[i] = ok[i] ? h * dim + d : 0;
-        acc_a[i] = 0.f;
-      }
-      for (int k = blockIdx.x * kWarps + warp; k < n_chunks;
-           k += gridDim.x * kWarps) {
-        const int b = k / per_bucket;
-        const int c0 = (k % per_bucket) * 32;
-        const int s0 = b * cap + c0;
-        const float vld = valid[s0 + lane];
-        if (__ballot_sync(kFull, vld != 0.f) == 0u) {  // a padded tail
-          if (kStore) {
-            for (int j = 0; j < 32; ++j) {
-#pragma unroll
-              for (int i = 0; i < kCols; ++i) {
-                if (ok[i]) {
-                  st_slot(dfe_s, static_cast<long long>(s0 + j) * hd + col[i],
-                          0.f);
-                }
-              }
-            }
-          }
-          continue;
-        }
-        const int sl = src_local[s0 + lane];
-        const int dl = dst_local[s0 + lane];
-        const float* dsb = ds + b * heads * cap + c0;
-        const float* ut = u + static_cast<long long>(src_tile[b]) * tile * hd;
-        const float* vt = v + static_cast<long long>(dst_tile[b]) * tile * hd;
-        for (int j = 0; j < 32; ++j) {
-          const bool live = __shfl_sync(kFull, vld, j) != 0.f;  // uniform
-          const float* ur = ut + __shfl_sync(kFull, sl, j) * hd;
-          const float* vr = vt + __shfl_sync(kFull, dl, j) * hd;
-          if (live) {
-            const float dsh = h < heads ? __ldg(dsb + h * cap + j) : 0.f;
-#pragma unroll
-            for (int i = 0; i < kCols; ++i) {
-              if (!ok[i]) continue;
-              const int c = col[i];
-              const long long fo = static_cast<long long>(s0 + j) * hd + c;
-              float raw = __ldg(ur + c) + __ldg(vr + c);
-              if (kStore) raw += ld_slot(fe_s, fo);
-              const bool pos = raw >= 0.f;
-              acc_a[i] += dsh * (pos ? raw : slope * raw);
-              if (kStore) {
-                st_slot(dfe_s, fo, dsh * attn_s[c] * (pos ? 1.f : slope));
-              }
-            }
-          }
-          if (kStore && !live) {
-#pragma unroll
-            for (int i = 0; i < kCols; ++i) {
-              if (ok[i]) {
-                st_slot(dfe_s, static_cast<long long>(s0 + j) * hd + col[i],
-                        0.f);
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        if (ok[i]) atomicAdd(da_s + col[i], acc_a[i]);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-    if (da_s[i] != 0.f) atomicAdd(da + i, da_s[i]);
-  }
-}
 
 // -- K11 v2's slot gradient on the tensor cores --------------------------------
 
@@ -760,67 +606,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-struct Slots {
-  const int* src_local;
-  const int* dst_local;
-  const float* valid;
-  const int* src_tile;
-  const int* dst_tile;
-};
-
-struct Operands {
-  const float* u;
-  const float* v;
-  const float* attn;
-  const float* ef;
-  const float* wf;
-  int fe, fe_rows, heads, dim;
-  float slope;
-};
-
-template <int kCols, typename T, bool kStore>
-cudaError_t launch_slot_grad(Slots sl, int num_buckets, int tile, int cap,
-                             Operands op, const float* ds, int lanes,
-                             float* da, const void* fe_s, void* dfe_s,
-                             int blocks, cudaStream_t stream) {
-  const int hd = op.heads * op.dim;
-  const size_t smem = sizeof(float) * 2 * hd;
-  const cudaError_t err =
-      allow_smem(vattn_slot_grad_kernel<kCols, T, kStore>, smem);
-  if (err != cudaSuccess) return err;
-  vattn_slot_grad_kernel<kCols, T, kStore><<<blocks, kWarps * 32, smem,
-                                             stream>>>(
-      sl.src_local, sl.dst_local, sl.valid, sl.src_tile, sl.dst_tile,
-      num_buckets, tile, cap, op.u, op.v, op.attn, ds, op.heads, op.dim,
-      lanes, op.slope, da, static_cast<const T*>(fe_s),
-      static_cast<T*>(dfe_s));
-  return cudaGetLastError();
-}
-
-Slots slots(const void* src_local, const void* dst_local, const void* valid,
-            const void* src_tile, const void* dst_tile) {
-  return Slots{static_cast<const int*>(src_local),
-               static_cast<const int*>(dst_local),
-               static_cast<const float*>(valid),
-               static_cast<const int*>(src_tile),
-               static_cast<const int*>(dst_tile)};
-}
-
-Operands operands(const void* u, const void* v, const void* attn,
-                  const void* ef, const void* wf, int64_t fe,
-                  int64_t fe_rows, int64_t heads, int64_t dim, double slope) {
-  return Operands{static_cast<const float*>(u),
-                  static_cast<const float*>(v),
-                  static_cast<const float*>(attn),
-                  static_cast<const float*>(ef),
-                  static_cast<const float*>(wf),
-                  static_cast<int>(fe),
-                  static_cast<int>(fe_rows),
-                  static_cast<int>(heads),
-                  static_cast<int>(dim),
-                  static_cast<float>(slope)};
-}
-
 // The dynamic shared memory of vattn_slot_grad_mma_kernel.
 size_t slot_grad_mma_smem(int ks, bool with_def, int warps, int nh_max,
                           int fe) {
@@ -846,52 +631,6 @@ cudaError_t kernel_regs(Kernel kernel, size_t smem, int warps, int* out) {
 }  // namespace
 
 extern "C" {
-
-// K11 v1's slot gradient: da (heads * dim) += the block sums of ds[h] *
-// lrelu(raw), raw with the stored term fe_s (num_buckets * cap, heads *
-// dim), and dW written to dfe_s at every slot (0 at padded ones), both f32
-// (store 1) or bf16 (store 2).  da must be zeroed by the caller.  cols (1,
-// 2 or 4): the columns of its head a lane keeps at once.  Without a stored
-// term (K9's da, csrc/row_agg.cu's fold) the call returns
-// cudaErrorInvalidValue; K11 v2's, with the edge term, is
-// dgl_vattn_slot_grad_mma.  Grid: `blocks` blocks of 8 warps.
-int dgl_vattn_slot_grad(const void* src_local, const void* dst_local,
-                        const void* valid, const void* src_tile,
-                        const void* dst_tile, int64_t num_buckets,
-                        int64_t tile, int64_t cap, const void* u,
-                        const void* v, const void* attn, const void* ds,
-                        int64_t heads, int64_t dim, int64_t lanes,
-                        int64_t cols, double slope, void* da,
-                        const void* fe_s, void* dfe_s, int64_t store,
-                        int64_t blocks, int64_t device, void* stream) {
-  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Slots sl = slots(src_local, dst_local, valid, src_tile, dst_tile);
-  const Operands op = operands(u, v, attn, nullptr, nullptr, 0, 0, heads,
-                               dim, slope);
-#define DGL_GRAD_ARGS                                                        \
-  sl, static_cast<int>(num_buckets), static_cast<int>(tile),                 \
-      static_cast<int>(cap), op, static_cast<const float*>(ds),              \
-      static_cast<int>(lanes), static_cast<float*>(da), fe_s, dfe_s,         \
-      static_cast<int>(blocks), s
-  if (fe_s == nullptr || dfe_s == nullptr) {
-    return cudaErrorInvalidValue;  // K9's da: csrc/row_agg.cu's fold
-  }
-#define DGL_STORE_CASE(COLS_, T_, STORE_)                                    \
-  if (cols == COLS_ && store == STORE_) {                                    \
-    return launch_slot_grad<COLS_, T_, true>(DGL_GRAD_ARGS);                 \
-  }
-  DGL_STORE_CASE(1, float, 1)
-  DGL_STORE_CASE(2, float, 1)
-  DGL_STORE_CASE(4, float, 1)
-  DGL_STORE_CASE(1, __nv_bfloat16, 2)
-  DGL_STORE_CASE(2, __nv_bfloat16, 2)
-  DGL_STORE_CASE(4, __nv_bfloat16, 2)
-#undef DGL_STORE_CASE
-#undef DGL_GRAD_ARGS
-  return cudaErrorInvalidValue;
-}
 
 // K11 v2's slot gradient on the tensor cores: da (heads * dim) and dwf
 // (fe + has_bias, heads * dim), every element written, and with def not

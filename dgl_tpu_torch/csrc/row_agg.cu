@@ -311,9 +311,9 @@
 // = zn, no t in the sum; _dx_dfe_kernel :1320, edgegat_backward :1491, src
 // view), which writes t[s] = w zn[n] as dfe on the way, its padded slots'
 // zeros written by slot_zero_kernel, a pass over the slots alone;
-// kSlotVec, K11 v1's dFNJ and dFNI (t = dFE, no weight, no node; the dv
-// term of _egatc_dv_da_dfe_kernel :979 and _dw_src_kernel :1020, dst and
-// src views); kSlotFeat, K10 v2's slot-feature reduce (no node, t = ef,
+// kSlotVec, K11 v1's dFNI (t = dFE, no weight, no node; _dw_src_kernel
+// :1020, src view) and the same sum by dst (dFNJ's function, which
+// K11 v1's slot gradient takes on its own walk); kSlotFeat, K10 v2's slot-feature reduce (no node, t = ef,
 // Fe wide, read by every head's columns; the edge-message term of
 // _eg2_agg_kernel :1582 and the dWe and d(attn_e) sums of _eg2_ds_kernel
 // and _eg2_dx_def_kernel, dst view).  The stored tensors are (slots, F)
@@ -331,6 +331,25 @@
 // it reads (slot, and nbr where it gathers; ptr and order), w at the
 // edges (4H B), node read once, t at the edges (dfe: written at every
 // slot, with valid read by the zero pass), out once.
+//
+// K11 v1's slot gradient, the da, dFE and dv parts of
+// _egatc_dv_da_dfe_kernel :979 (_egatc_bwd :1193), is the slot walk's
+// sibling row_slot_grad_kernel<VEC, CPL, T> by dst: per entry it reads
+// FE at the entry's slot, gathers U[src], takes V[r] and attn from
+// registers and ds through its strides, writes dW at dFE[slot] and adds
+// it, as stored, into the row's dFNJ in slot order (kSlotVec's sum, the
+// same bits); da sums per lane over static ranges of the claim order,
+// each range's partial written once and added in range order by
+// range_sum_kernel, so no output meets in an atomic.  slot_zero_kernel
+// writes the padded slots' dFE.  A template flag of row_slot_kernel would
+// have given every mode ds, V and attn, and the probes edit its text; the
+// sibling leaves it as it was.  The bucket walk it replaced
+// (vattn_slot_grad_kernel<C, T, true>, once csrc/gatv2.cu's: a warp a
+// 32-slot chunk, U[src], V[dst] and FE read with scalar loads a slot at a
+// time, da met in shared and global atomics, dFNJ then summed by
+// kSlotVec) is built by dgl_tpu_torch/tools/perf_slot_grad_scores.py.
+// Bound: the dst view (slot, nbr, ptr, order), U and V once, attn, ds and
+// FE at the edges, dFE at every slot, dFNJ and da once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1095,6 +1114,222 @@ slot_zero_kernel(const float* __restrict__ valid, long long slots, T* t,
       T* row = t + (s0 + __ffs(m) - 1) * f;
       for (int j = lane; j < f; j += 32) row[j] = T(0.f);
     }
+  }
+}
+
+// entries a lane of K11 v1's slot-gradient walk keeps in flight: each
+// holds an FE vector, a U vector and a ds value a column vector.  One at
+// one float a load: with 4 the <1, 2, float> instance spilled 28 bytes at
+// 80 registers and ran 6% slower at (1, 41) on an H100 (the probe edits
+// vec1_unroll4 and vec1_unroll2 of tools/perf_slot_grad_scores.py)
+template <int VEC, int CPL>
+struct SlotGradUnroll {
+  static constexpr int value = VEC == 1 ? 1 : VEC * CPL <= 4 ? 4 : 2;
+};
+// dFNJ summed on the walk; without it the walk writes only dFE and da
+// (the probe's edit "unfolded", which slot_vec_reduce by dst then follows)
+constexpr bool kSlotGradFold = true;
+constexpr int kRangeSubs = 8;  // warps of a range-sum block
+
+// an f32 value as a stored slot tensor of T holds it, read back as f32
+__device__ __forceinline__ float as_stored(float v, const float*) {
+  return v;
+}
+__device__ __forceinline__ float as_stored(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// K11 v1's slot gradient by the slot walk by dst: for each entry (slot s,
+// neighbour n = src) of row r and column j of head h,
+//
+//   raw = (u[n, j] + v[r, j]) + fe[s, j]
+//   dfe[s, j] = ds[s, h] * attn[j] * (raw >= 0 ? 1 : slope)   (in T)
+//   dfnj[r, j] = sum over the row's entries of dfe[s, j] as stored
+//   da[j] += ds[s, h] * lrelu(raw)
+//
+// The slot walk's lanes (a group of lpr lanes a row, VEC floats a load,
+// CPL vectors a lane, the f / VEC vectors in n_chunks chunks); each lane
+// keeps v[r] and attn for its columns in registers and, for U entries at
+// once, reads its head's ds (through its strides: one sector a slot where
+// slot-major), gathers its vectors of u[n] and reads those of fe[s]
+// (64-bit offsets, evict first), all before the arithmetic; it writes dW
+// at dfe[s] (evict first) and adds it, rounded to T, into the row's sum in
+// entry order, kSlotVec's order.  The rows of the claim order are taken in
+// static ranges of range_rows, a warp a range claimed from the counter
+// (the warp's groups take its rows in turn); each lane sums da over its
+// range in registers, the groups combine theirs by shuffles in a fixed
+// order, and the range's partial row is written to part[k] once: the
+// range-sum passes add the partials in range order, so da, like dfe and
+// dfnj, has the same bits every run.  No atomics on any output.
+template <int VEC, int CPL, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+row_slot_grad_kernel(const int* __restrict__ ptr,
+                     const int* __restrict__ slot,
+                     const int* __restrict__ nbr,
+                     const int* __restrict__ order, int rows, int range_rows,
+                     int n_ranges, const float* __restrict__ ds, int cap,
+                     int d_bs, int d_hs, int d_cs, int head_cols,
+                     const float* __restrict__ u,
+                     const float* __restrict__ v,
+                     const float* __restrict__ attn, float slope,
+                     const T* __restrict__ fe, T* __restrict__ dfe, int f,
+                     int lpr, int n_chunks, float* __restrict__ dfnj,
+                     float* __restrict__ part, int* __restrict__ counter) {
+  using V = typename Vec<VEC>::T;
+  constexpr int U = SlotGradUnroll<VEC, CPL>::value;
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lpr;  // rows a warp takes at once
+  const int grp = lane / lpr;
+  const int li = lane - grp * lpr;
+  const unsigned gmask =
+      lpr == 32 ? kFull : ((1u << lpr) - 1u) << (grp * lpr);
+  const int nv = f / VEC;  // column vectors a row
+
+  for (;;) {
+    int k = 0;
+    if (lane == 0) k = atomicAdd(counter, 1);
+    k = __shfl_sync(kFull, k, 0);
+    if (k >= n_ranges) break;
+    const int first = k * range_rows;
+    const int last = min(first + range_rows, rows);
+    for (int chunk = 0; chunk < n_chunks; ++chunk) {
+      int cv[CPL];   // this lane's column vectors
+      bool ok[CPL];
+      int hd[CPL];   // their head's offset in a slot's ds
+      V a[CPL];
+      float da[CPL][VEC];
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        cv[q] = (chunk * CPL + q) * lpr + li;
+        ok[q] = cv[q] < nv;
+        const int col = ok[q] ? cv[q] * VEC : 0;
+        hd[q] = col / head_cols * d_hs;
+        a[q] = ok[q] ? __ldg(reinterpret_cast<const V*>(attn) + cv[q])
+                     : zero_vec<V>();
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) da[q][i] = 0.f;
+      }
+      for (int item = first + grp; item < last; item += groups) {
+        const int r = order[item];
+        const V* v_row = reinterpret_cast<const V*>(v + r * f);
+        V vr[CPL];
+        float acc[CPL][VEC];
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          vr[q] = ok[q] ? __ldg(v_row + cv[q]) : zero_vec<V>();
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+        }
+        const int p_lo = ptr[r];
+        const int p_hi = ptr[r + 1];
+        for (int pb = p_lo; pb < p_hi; pb += lpr) {  // uniform in the group
+          const int n = min(lpr, p_hi - pb);
+          // this lane's entry: its slot, neighbour and ds offset
+          int my_slot = 0, my_node = 0, my_db = 0;
+          if (li < n) {
+            my_slot = slot[pb + li];
+            my_node = nbr[pb + li];
+            const int b = my_slot / cap;
+            my_db = b * d_bs + (my_slot - b * cap) * d_cs;
+          }
+          for (int u0 = 0; u0 < n; u0 += U) {
+            float dq[U][CPL];
+            V uq[U][CPL];
+            V fq[U][CPL];
+            long long so[U];  // the entries' stored rows
+#pragma unroll
+            for (int e = 0; e < U; ++e) {
+              const bool in_row = u0 + e < n;
+              so[e] = static_cast<long long>(
+                          __shfl_sync(gmask, my_slot, u0 + e, lpr)) * f;
+              const int db = __shfl_sync(gmask, my_db, u0 + e, lpr);
+              const V* u_row = reinterpret_cast<const V*>(
+                  u + __shfl_sync(gmask, my_node, u0 + e, lpr) * f);
+#pragma unroll
+              for (int q = 0; q < CPL; ++q) {
+                const bool on = in_row && ok[q];
+                dq[e][q] = on ? __ldg(ds + db + hd[q]) : 0.f;
+                uq[e][q] = on ? __ldg(u_row + cv[q]) : zero_vec<V>();
+                fq[e][q] = on ? ld_stored<VEC>(fe + so[e] + cv[q] * VEC)
+                              : zero_vec<V>();
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < U; ++e) {
+              if (u0 + e >= n) break;  // uniform in the group
+#pragma unroll
+              for (int q = 0; q < CPL; ++q) {
+                float dw[VEC];
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) {
+                  const float raw = (elem(uq[e][q], i) + elem(vr[q], i)) +
+                                    elem(fq[e][q], i);
+                  const bool pos = raw >= 0.f;
+                  da[q][i] = fmaf(dq[e][q], pos ? raw : slope * raw,
+                                  da[q][i]);
+                  dw[i] = dq[e][q] * elem(a[q], i) * (pos ? 1.f : slope);
+                  if (kSlotGradFold) acc[q][i] += as_stored(dw[i], dfe);
+                }
+                if (ok[q]) st_stored(dfe + so[e] + cv[q] * VEC, dw, Vec<VEC>());
+              }
+            }
+          }
+        }
+        if (kSlotGradFold) {
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            if (ok[q]) store_vec(dfnj + r * f + cv[q] * VEC, acc[q],
+                                 Vec<VEC>());
+          }
+        }
+      }
+      // the groups' da of this range, combined in a fixed order in every
+      // lane, written once by the first group
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          for (int off = lpr; off < 32; off <<= 1) {
+            da[q][i] += __shfl_xor_sync(kFull, da[q][i], off);
+          }
+        }
+        if (grp == 0 && ok[q]) {
+          store_vec(part + static_cast<long long>(k) * f + cv[q] * VEC,
+                    da[q], Vec<VEC>());
+        }
+      }
+    }
+  }
+}
+
+// out[s, j] = the sum of in[i, j] over the rows i in [s * seg, min(n, (s +
+// 1) * seg)), in a fixed order: warp w of the block sums the rows w, w +
+// kRangeSubs, ... of the segment, and the first warp adds the warps' sums
+// in warp order.  Block (x, s) takes columns 32 x .. 32 x + 31 of segment
+// s.  Twice over the slot-gradient walk's range partials: the segments'
+// sums, then their sum, da.
+__global__ void __launch_bounds__(32 * kRangeSubs)
+range_sum_kernel(const float* __restrict__ in, int n, int f, int seg,
+                 float* __restrict__ out) {
+  __shared__ float sums[kRangeSubs][32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  const int lo = blockIdx.y * seg;
+  const int hi = min(n, lo + seg);
+  float s = 0.f;
+  if (j < f) {
+    for (int i = lo + w; i < hi; i += kRangeSubs) {
+      s += in[static_cast<long long>(i) * f + j];
+    }
+  }
+  sums[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && j < f) {
+    float t = sums[0][lane];
+#pragma unroll
+    for (int i = 1; i < kRangeSubs; ++i) t += sums[i][lane];
+    out[static_cast<long long>(blockIdx.y) * f + j] = t;
   }
 }
 
@@ -2385,6 +2620,74 @@ cudaError_t row_slot_mode(int64_t mode, int64_t dtype, int64_t vec,
   }
 }
 
+// K11 v1's slot-gradient walk's operands beside the view
+struct SlotGradArgs {
+  const int *ptr, *slot, *nbr, *order;
+  int rows, range_rows, n_ranges;
+  const float* ds;
+  int cap, d_bs, d_hs, d_cs, head_cols;
+  const float *u, *v, *attn;
+  float slope;
+  const void* fe;
+  void* dfe;
+  int f, lpr, n_chunks;
+  float *dfnj, *part;
+  int* counter;
+};
+
+// the slot-gradient walk's instance at (VEC, CPL, T): launched with a, a
+// warp a range at once at most, or (a null) its registers, local bytes
+// and resident blocks an SM in attrs
+template <int VEC, int CPL, typename T>
+cudaError_t row_slot_grad_call(const SlotGradArgs* a, int* attrs,
+                               cudaStream_t stream) {
+  const auto kernel = row_slot_grad_kernel<VEC, CPL, T>;
+  if (a == nullptr) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    attrs[0] = attr.numRegs;
+    attrs[1] = static_cast<int>(attr.localSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(attrs + 2, kernel,
+                                                         kWarps * 32, 0);
+  }
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_blocks(
+      kernel, kWarps * 32, (a->n_ranges + kWarps - 1) / kWarps, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWarps * 32, 0, stream>>>(
+      a->ptr, a->slot, a->nbr, a->order, a->rows, a->range_rows,
+      a->n_ranges, a->ds, a->cap, a->d_bs, a->d_hs, a->d_cs, a->head_cols,
+      a->u, a->v, a->attn, a->slope, static_cast<const T*>(a->fe),
+      static_cast<T*>(a->dfe), a->f, a->lpr, a->n_chunks, a->dfnj, a->part,
+      a->counter);
+  return cudaGetLastError();
+}
+
+// the slot walk's layouts (row_slot_layout's) for the stored dtype (1 f32,
+// 2 bf16)
+template <typename T>
+cudaError_t row_slot_grad_layout(int64_t vec, int64_t cpl,
+                                 const SlotGradArgs* a, int* attrs,
+                                 cudaStream_t s) {
+  if (vec == 4 && cpl == 1) return row_slot_grad_call<4, 1, T>(a, attrs, s);
+  if (vec == 4 && cpl == 2) return row_slot_grad_call<4, 2, T>(a, attrs, s);
+  if (vec == 1 && cpl == 1) return row_slot_grad_call<1, 1, T>(a, attrs, s);
+  if (vec == 1 && cpl == 2) return row_slot_grad_call<1, 2, T>(a, attrs, s);
+  if (vec == 1 && cpl == 4) return row_slot_grad_call<1, 4, T>(a, attrs, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t row_slot_grad_dtype(int64_t dtype, int64_t vec, int64_t cpl,
+                                const SlotGradArgs* a, int* attrs,
+                                cudaStream_t s) {
+  if (dtype == 1) return row_slot_grad_layout<float>(vec, cpl, a, attrs, s);
+  if (dtype == 2) {
+    return row_slot_grad_layout<__nv_bfloat16>(vec, cpl, a, attrs, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2848,6 +3151,112 @@ int dgl_row_slot_attrs(int64_t mode, int64_t dtype, int64_t vec, int64_t cpl,
   if (err != cudaSuccess) return err;
   return row_slot_mode(mode, dtype, vec, cpl, nullptr,
                        static_cast<int*>(attrs), nullptr);
+}
+
+// K11 v1's slot gradient by the slot walk by dst, four launches on the
+// stream: the walk, the zero pass and the two range sums.  Writes dfe
+// (slots, f) of the stored dtype (1 f32, 2 bf16), every row (0 at the
+// padded slots, whose valid is 0), dfnj (rows, f) f32, every element (0 on
+// a row with no entry), and da (f,) f32: with raw = (u[n, j] + v[r, j]) +
+// fe[s, j] for each entry (slot s = b * cap + c, neighbour n) of dst row
+// r, dfe[s, j] = ds[b * d_bs + (j / head_cols) * d_hs + c * d_cs] *
+// attn[j] * (raw >= 0 ? 1 : slope), dfnj[r] = the sum of its entries' dfe
+// rows as stored, in entry order, and da[j] = the sum of ds * lrelu(raw)
+// over every entry, taken per range of range_rows rows of the claim
+// order (n_ranges of them, partials in part (n_ranges, f)), then in segs
+// segments of the ranges (part2 (segs, f)), then over the segments.  u
+// (num_src, f), v (rows, f), attn (f,) f32, fe (slots, f); vec 4 or 1
+// floats a load (dividing head_cols; u, v, attn, fe, dfe, dfnj and part
+// aligned to it), cpl vectors a lane, lpr lanes a row, the f / vec
+// vectors in n_chunks chunks of lpr * cpl (n_chunks 1 unless lpr is 32).
+// counter is one int, zeroed by the caller.
+int dgl_row_slot_grad(const void* ptr, const void* slot, const void* nbr,
+                      const void* order, int64_t rows, int64_t range_rows,
+                      int64_t n_ranges, const void* ds, int64_t cap,
+                      int64_t d_bs, int64_t d_hs, int64_t d_cs,
+                      int64_t head_cols, const void* u, const void* v,
+                      const void* attn, float slope, const void* fe,
+                      void* dfe, int64_t dtype, int64_t f, void* dfnj,
+                      void* part, int64_t segs, void* part2, void* da,
+                      void* counter, int64_t vec, int64_t cpl, int64_t lpr,
+                      int64_t n_chunks, const void* valid, int64_t slots,
+                      int64_t zero_blocks, int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  const int64_t es = dtype == 2 ? 2 : 4;
+  const int64_t al = 4 * vec;
+  auto aligned = [al](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % al == 0;
+  };
+  if (lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0 || cap < 1 ||
+      n_chunks < 1 || (n_chunks > 1 && lpr != 32) || f < 1 ||
+      head_cols < 1 || head_cols % vec != 0 || f % vec != 0 ||
+      range_rows < 1 || n_ranges < 1 || segs < 1 || zero_blocks < 1 ||
+      n_ranges != (rows + range_rows - 1) / range_rows || !fe || !dfe ||
+      !dfnj || !part || !part2 || !da || !valid ||
+      reinterpret_cast<uintptr_t>(fe) % (es * vec) != 0 ||
+      reinterpret_cast<uintptr_t>(dfe) % (es * vec) != 0 || !aligned(u) ||
+      !aligned(v) || !aligned(attn) || !aligned(dfnj) || !aligned(part))
+    return cudaErrorInvalidValue;
+  const SlotGradArgs a{static_cast<const int*>(ptr),
+                       static_cast<const int*>(slot),
+                       static_cast<const int*>(nbr),
+                       static_cast<const int*>(order),
+                       static_cast<int>(rows),
+                       static_cast<int>(range_rows),
+                       static_cast<int>(n_ranges),
+                       static_cast<const float*>(ds),
+                       static_cast<int>(cap),
+                       static_cast<int>(d_bs),
+                       static_cast<int>(d_hs),
+                       static_cast<int>(d_cs),
+                       static_cast<int>(head_cols),
+                       static_cast<const float*>(u),
+                       static_cast<const float*>(v),
+                       static_cast<const float*>(attn),
+                       slope,
+                       fe,
+                       dfe,
+                       static_cast<int>(f),
+                       static_cast<int>(lpr),
+                       static_cast<int>(n_chunks),
+                       static_cast<float*>(dfnj),
+                       static_cast<float*>(part),
+                       static_cast<int*>(counter)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = row_slot_grad_dtype(dtype, vec, cpl, &a, nullptr, s);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>(zero_blocks);
+  if (dtype == 2) {
+    slot_zero_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(valid), slots,
+        static_cast<__nv_bfloat16*>(dfe), static_cast<int>(f));
+  } else {
+    slot_zero_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(valid), slots, static_cast<float*>(dfe),
+        static_cast<int>(f));
+  }
+  const unsigned cols = static_cast<unsigned>((f + 31) / 32);
+  const int seg = static_cast<int>((n_ranges + segs - 1) / segs);
+  range_sum_kernel<<<dim3(cols, static_cast<unsigned>(segs)),
+                     32 * kRangeSubs, 0, s>>>(
+      static_cast<const float*>(part), static_cast<int>(n_ranges),
+      static_cast<int>(f), seg, static_cast<float*>(part2));
+  range_sum_kernel<<<dim3(cols, 1), 32 * kRangeSubs, 0, s>>>(
+      static_cast<const float*>(part2), static_cast<int>(segs),
+      static_cast<int>(f), static_cast<int>(segs), static_cast<float*>(da));
+  return cudaGetLastError();
+}
+
+// registers a thread, local-memory bytes a thread and resident blocks an
+// SM of the slot-gradient walk's instance at (dtype, vec, cpl): three
+// ints.
+int dgl_row_slot_grad_attrs(int64_t dtype, int64_t vec, int64_t cpl,
+                            int64_t device, void* attrs) {
+  const cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  if (err != cudaSuccess) return err;
+  return row_slot_grad_dtype(dtype, vec, cpl, nullptr,
+                             static_cast<int*>(attrs), nullptr);
 }
 
 // K6's slot reduce by rows: out (rows, heads), every element written,

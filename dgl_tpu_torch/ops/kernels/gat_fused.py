@@ -93,7 +93,9 @@ its message (out = sum p (x[src] + fe) / den).  fe is never formed: with M
     d(ef) = sum_h p Zp[dst, h] + ds M[:, h]
 
 M, S . We, Zp and dWe are node-sized products outside the kernels.  Three
-edge variants of the K6 kernels serve it: :func:`edgegat_scores` (p, g),
+edge variants of the K6 kernels serve it: :func:`edgegat_scores` (p, g:
+a thread a slot loads its own edge-feature row once and forms its
+logits, ``edge_scores_kernel``),
 :func:`slot_feat_reduce` (S with w = p, and with w = ds for Q: the slot
 walk of ``csrc/row_agg.cu`` by dst over the H * Fe columns, each entry's
 edge-feature row read at its slot) and :func:`edgegat_ds` (ds and, when
@@ -113,10 +115,12 @@ read and written by the kernels in their dtype at 64-bit offsets and
 summed in f32; their gradients come back in their dtype.  Six more
 kernels serve them: :func:`egatc_scores` (p), K9's dot-product walk in
 its scores mode with the stored row added to U[src], and
-:func:`egatc_slot_grad` (da and dFE = dW per slot), a stored-term variant
-of K9's retired slot gradient in ``csrc/gatv2.cu``;
-:func:`slot_vec_reduce` (dFE summed per dst node for dFNJ and per src
-node for dFNI), :func:`fe_aggregate` (K10 v1's
+:func:`egatc_slot_grad` (da, dFE = dW per slot and dFNJ, its sum per
+dst node), the slot walk's sibling by dst (``row_slot_grad_kernel``: FE
+read and dFE written at each entry's slot, dFNJ summed in registers as
+dFE is stored, da over static ranges of rows in a fixed order);
+:func:`slot_vec_reduce` (dFE summed per src node for dFNI, or per dst
+node), :func:`fe_aggregate` (K10 v1's
 numerator) and :func:`dx_dfe` (dx, writing dfe = p zn[dst] per slot on
 the way), modes of the slot walk of ``csrc/row_agg.cu`` (a group of lanes
 a row of the side's row view, the stored row read or written at each
@@ -161,11 +165,9 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "dgl_gat_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _I, _I, ctypes.c_double, _P, _P, _I, _I, _P],
+    "dgl_edge_scores_attrs": [_I, _I, _I, _P],
 }
 _VATTN_SIGNATURES = {
-    "dgl_vattn_slot_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                            _I, _I, _I, _I, ctypes.c_double, _P, _P, _P, _I,
-                            _I, _I, _P],
     "dgl_vattn_slot_grad_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
                                 _P, _P, _P, _P, _I, _I, _I, _I,
                                 ctypes.c_double, _I, _I, _I, _P, _P, _P, _P,
@@ -173,7 +175,7 @@ _VATTN_SIGNATURES = {
     "dgl_vattn_slot_grad_mma_attrs": [_I, _I, _I, _I, _I, _P],
 }
 _SCORES_THREADS = 256       # csrc/gat_fused.cu kScoresThreads
-_VATTN_WARPS = 8            # csrc/gatv2.cu kWarps
+_VATTN_WARPS = 8            # the retired bucket walks' kWarps (tools/)
 _SLICE_WARPS = 4            # csrc/gatv2.cu kSliceWarps: 32-column slices
 _GRAD_CHUNK = 32            # csrc/gatv2.cu kChunk: slots a staged chunk
 MAX_FE_ROWS = 32            # edge-feature rows, bias included, of the kernels
@@ -433,8 +435,10 @@ def egatc_scores_plain(tf: ts.TiledFormat, U3, V3, attn, fe_slot,
 def egatc_slot_grad_plain(tf: ts.TiledFormat, U3, V3, attn, fe_slot, ds,
                           slope: float):
     """K11 v1 slot gradient's function: (da (H, D) f32, dfe like
-    ``fe_slot``): da = sum ds[h] lrelu(raw) and dfe[b, c] = dW = ds[h] *
-    attn * lrelu'(raw) at valid slots, 0 at padded ones."""
+    ``fe_slot``, dfnj (num_dst, H * D) f32): da = sum ds[h] lrelu(raw),
+    dfe[b, c] = dW = ds[h] * attn * lrelu'(raw) at valid slots, 0 at padded
+    ones, and dfnj the sum of dfe's rows as stored over each dst node's
+    valid slots (:func:`slot_vec_reduce_plain` by dst)."""
     a = attn.float()
     da = torch.zeros(a.shape, dtype=torch.float32, device=U3.device)
     dfe = torch.zeros_like(fe_slot)
@@ -445,7 +449,7 @@ def egatc_slot_grad_plain(tf: ts.TiledFormat, U3, V3, attn, fe_slot, ds,
                * torch.nn.functional.leaky_relu(raw, slope)).sum(0)
         dfe[b, c] = _vattn_dw(raw, ds_rows, a, slope).flatten(1).to(
             dfe.dtype)
-    return da, dfe
+    return da, dfe, slot_vec_reduce_plain(tf, dfe, "dst")
 
 
 def slot_vec_reduce_plain(tf: ts.TiledFormat, t_slot, side: str = "dst"):
@@ -653,7 +657,11 @@ def edgegat_fits(heads: int, fe: int) -> bool:
 def edgegat_scores(tf: ts.TiledFormat, el, er, ef_slot, m, slope: float):
     """K10 v2 scores: (p, g), each (B, H, C) f32, from el (num_src, H), er
     (num_dst, H) and the edge logit ef_slot[b, c] . m[:, h], ``ef_slot``
-    (B, C, Fe) in slot order and ``m`` (Fe, H)."""
+    (B, C, Fe) in slot order and ``m`` (Fe, H).  On CUDA tensors csrc
+    ``edge_scores_kernel``: a thread a slot loads its own edge-feature row
+    once (16 bytes at a time into registers where Fe is 4, 8, 16 or 32 and
+    ``ef_slot`` is 16-byte aligned) and forms its logits with M in shared
+    memory."""
     heads = el.shape[1]
     _check_nodes(el, tf.num_src, heads, "el")
     _check_nodes(er, tf.num_dst, heads, "er")
@@ -685,6 +693,21 @@ def edgegat_scores(tf: ts.TiledFormat, el, er, ef_slot, m, slope: float):
             g.data_ptr(), blocks, el.device.index, ts._stream(el.device))
     edgegat_scores.launches += 1
     return p, g
+
+
+def edge_scores_kernel_attrs(fe: int, heads: int, device=None):
+    """(registers a thread, local-memory bytes a thread, resident blocks an
+    SM) of the edge scores' instance for ``fe`` features (in 16-byte
+    aligned rows) at ``heads`` heads, from ``cudaFuncGetAttributes`` and
+    the occupancy calculator with its shared memory."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("gat_fused", _SIGNATURES)
+    err = lib.dgl_edge_scores_attrs(fe, heads, device.index or 0,
+                                    ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_edge_scores_attrs: CUDA error {err}")
+    return out[0], out[1], out[2]
 
 
 edgegat_scores.launches = 0
@@ -1193,37 +1216,33 @@ egatc_scores.launches = 0
 def egatc_slot_grad(tf: ts.TiledFormat, U3, V3, attn, fe_slot, ds,
                     slope: float):
     """K11 v1 slot gradient: (da (H, D) f32, dfe (B, C, H * D) in
-    ``fe_slot``'s dtype), dfe = dW = ds[h] * attn * lrelu'(raw) per slot
-    (0 at padded ones), from ds (B, H, C)."""
+    ``fe_slot``'s dtype, dfnj (num_dst, H * D) f32), dfe = dW = ds[h] *
+    attn * lrelu'(raw) per slot (0 at padded ones), dfnj its sum per dst
+    node (EGATConv's dFNJ), from ds (B, H, C) in any strides.  On CUDA
+    tensors the slot walk by dst (``tiled_spmm.slot_grad_walk``): FE read
+    at each entry's slot, U[src] gathered, V[dst] and attn in registers,
+    dW written at the slot and summed into the row as stored, in the dst
+    view's slot order (:func:`slot_vec_reduce`'s order, the same bits); da
+    summed over static ranges of rows and added in a fixed order.  A
+    slot-major ds (``gat_ds(..., slot_major=True)``) puts a slot's H
+    values in one sector."""
     heads, dim, _, _ = _check_vattn(tf, U3, V3, attn, None, None)
     fe_s = _check_stored(tf, fe_slot, heads * dim, "fe_slot")
     _check_slots(tf, ds, heads, "ds")
     if not on_cuda(U3, V3, attn, fe_slot, ds, tf.valid):
         return egatc_slot_grad_plain(tf, U3, V3, attn, fe_slot, ds, slope)
     hd = heads * dim
-    _check_vattn_sizes(tf, heads, dim, 0, 2 * hd)
     dev = U3.device
-    da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
+    da = torch.zeros(hd, dtype=torch.float32, device=dev)
     dfe = torch.empty_like(fe_s)
-    if hd == 0:
-        return da, dfe
-    lanes = ts._lanes_per_head(heads)
-    cols = 1      # columns of its head a lane keeps in registers at once
-    while cols < min(-(-dim // lanes), 4):
-        cols *= 2
-    u, v, a, g = _f32(U3), _f32(V3), _f32(attn), _f32(ds)
-    b, cap = tf.num_buckets, tf.cap
-    blocks = max(1, min(-(-(b * cap // 32) // _VATTN_WARPS),
-                        4 * ts._sms(dev)))
-    _launch("dgl_vattn_slot_grad", tf.src_local.data_ptr(),
-            tf.dst_local.data_ptr(), tf.valid.data_ptr(),
-            tf.src_tile.data_ptr(), tf.dst_tile.data_ptr(), b, tf.tile, cap,
-            u.data_ptr(), v.data_ptr(), a.data_ptr(), g.data_ptr(), heads,
-            dim, lanes, cols, float(slope), da.data_ptr(), fe_s.data_ptr(),
-            dfe.data_ptr(), _STORE_CODES[fe_s.dtype], blocks, dev.index,
-            ts._stream(dev), source="gatv2")
+    dfnj = torch.zeros(tf.num_dst, hd, dtype=torch.float32, device=dev)
+    if hd == 0 or tf.num_dst == 0 or tf.num_buckets == 0:
+        return da.view(heads, dim), dfe.zero_(), dfnj
+    ts.slot_grad_walk(tf, fe_s.view(-1, hd), dfe.view(-1, hd), dfnj, da,
+                      _f32(U3).view(-1, hd), _f32(V3).view(-1, hd),
+                      _f32(attn).view(hd), ds.float(), float(slope), dim)
     egatc_slot_grad.launches += 1
-    return da, dfe
+    return da.view(heads, dim), dfe, dfnj
 
 
 egatc_slot_grad.launches = 0
@@ -1504,14 +1523,15 @@ def egatc_backward(tf: ts.TiledFormat, fni3, fnj3, fe_slot, attn, x3, p_slot,
     """EGATConv v1 backward (``_egatc_bwd`` :1147): (dFNI (num_src, H, De),
     dFNJ (num_dst, H, De), dFE (B, C, H * De) in ``fe_slot``'s dtype, dattn
     (H, De), dx (num_src, H, Fh)), with ds = (<x[src], zn[dst]> - rp[dst])
-    * p and dFE = dW per slot; dFNJ and dFNI are dFE's sums per dst and per
-    src node.  ``tf`` needs ``src_order``."""
+    * p (slot-major) and dFE = dW per slot; dFNJ and dFNI are dFE's sums
+    per dst and per src node, dFNJ taken on the slot gradient's walk by
+    dst.  ``tf`` needs ``src_order``."""
     zn, rp = _scales(out, dZ, den)
-    ds = gat_ds(tf, x3, zn, rp, p_slot)
-    da, dfe = egatc_slot_grad(tf, fni3, fnj3, attn, fe_slot, ds, slope)
+    ds = gat_ds(tf, x3, zn, rp, p_slot, slot_major=True)
+    da, dfe, dv = egatc_slot_grad(tf, fni3, fnj3, attn, fe_slot, ds, slope)
     del ds
     heads, dim = fni3.shape[1], fni3.shape[2]
-    dv = slot_vec_reduce(tf, dfe, "dst").view(tf.num_dst, heads, dim)
+    dv = dv.view(tf.num_dst, heads, dim)
     du = slot_vec_reduce(tf, dfe, "src").view(tf.num_src, heads, dim)
     dx = src_aggregate(tf, zn, p_slot)
     return du, dv, dfe, da, dx

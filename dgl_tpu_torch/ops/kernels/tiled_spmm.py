@@ -554,6 +554,11 @@ _SIGNATURES = {
                          _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                          _I, _P],
         "dgl_row_slot_attrs": [_I, _I, _I, _I, _I, _P],
+        "dgl_row_slot_grad": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
+                              _I, _I, _P, _P, _P, ctypes.c_float, _P, _P,
+                              _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                              _I, _P, _I, _I, _I, _P],
+        "dgl_row_slot_grad_attrs": [_I, _I, _I, _I, _P],
         "dgl_row_reduce": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
         "dgl_row_reduce_attrs": [_I, _I, _I, _P]},
@@ -937,6 +942,72 @@ def slot_kernel_attrs(mode: int, dtype, vec: int, cpl: int, device=None):
                                  device.index or 0, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"dgl_row_slot_attrs: CUDA error {err}")
+    return out[0], out[1], out[2]
+
+
+SLOT_GRAD_RANGE_ROWS = 8   # rows of the claim order a range of da holds
+SLOT_GRAD_SEGMENTS = 64    # segments of the ranges da's first sum takes
+
+
+def slot_grad_walk(tf: TiledFormat, fe: torch.Tensor, dfe: torch.Tensor,
+                   dfnj: torch.Tensor, da: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor, attn: torch.Tensor, ds: torch.Tensor,
+                   slope: float, head_cols: int, fn=None):
+    """K11 v1's slot gradient by the slot walk by dst (csrc
+    ``row_slot_grad_kernel``, then the zero pass and the two range sums):
+    for each valid slot s (b, c) of an edge src -> dst and column j of
+    head h = j // ``head_cols``, raw = (u[src, j] + v[dst, j]) + fe[s, j]
+    and dfe[s, j] = ds[b, h, c] * attn[j] * (raw >= 0 ? 1 : slope) in
+    ``fe``'s dtype (0 at padded slots); dfnj[dst] = the sum of its slots'
+    dfe rows as stored, in the dst view's slot order; da[j] = the sum of
+    ds * lrelu(raw) over every slot, by ranges of SLOT_GRAD_RANGE_ROWS rows
+    of the claim order added in a fixed order.  CUDA tensors: ``fe`` and
+    ``dfe`` (slots, f) f32 or bf16 contiguous; ``dfnj`` (num_dst, f), ``da``
+    (f,), ``u`` (num_src, f), ``v`` (num_dst, f) and ``attn`` (f,) f32
+    contiguous; ``ds`` (B, H, cap) f32 in any strides, read in place (one
+    sector a slot where slot-major).  ``fn``: the C function to launch in
+    place of ``dgl_row_slot_grad`` (a probe's).  Counts nothing."""
+    view = tf.row_view("dst")
+    f = dfnj.shape[1]
+    slots = tf.num_buckets * tf.cap
+    vec, cpl, lpr, n_chunks = slot_layout(f, (head_cols,), fe, dfe, dfnj,
+                                          u, v, attn)
+    rows = view.rows
+    n_ranges = -(-rows // SLOT_GRAD_RANGE_ROWS)
+    segs = SLOT_GRAD_SEGMENTS
+    _check_int32(dfnj.numel(), u.numel(), n_ranges * f,
+                 sum((n - 1) * st for n, st in zip(ds.shape, ds.stride())))
+    part = torch.empty(n_ranges, f, dtype=torch.float32, device=fe.device)
+    part2 = torch.empty(segs, f, dtype=torch.float32, device=fe.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=fe.device)
+    args = (view.ptr.data_ptr(), view.slot.data_ptr(), view.nbr.data_ptr(),
+            view.order.data_ptr(), rows, SLOT_GRAD_RANGE_ROWS, n_ranges,
+            ds.data_ptr(), tf.cap, *ds.stride(), head_cols, u.data_ptr(),
+            v.data_ptr(), attn.data_ptr(), slope, fe.data_ptr(),
+            dfe.data_ptr(), STORED_DTYPES[fe.dtype], f, dfnj.data_ptr(),
+            part.data_ptr(), segs, part2.data_ptr(), da.data_ptr(),
+            counter.data_ptr(), vec, cpl, lpr, n_chunks,
+            tf.valid.data_ptr(), slots, finish_blocks(slots, fe.device),
+            fe.device.index, _stream(fe.device))
+    if fn is None:
+        _launch("dgl_row_slot_grad", *args)
+    elif fn(*args) != 0:
+        raise RuntimeError("dgl_row_slot_grad failed to launch")
+
+
+def slot_grad_kernel_attrs(dtype, vec: int, cpl: int, device=None):
+    """(registers a thread, local-memory bytes a thread, resident blocks an
+    SM) of the slot-gradient walk's instance over stored rows of ``dtype``
+    at ``vec`` and ``cpl``, from ``cudaFuncGetAttributes`` and the
+    occupancy calculator."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_int * 3)()
+    lib = build.load("row_agg", _SIGNATURES["row_agg"])
+    err = lib.dgl_row_slot_grad_attrs(STORED_DTYPES[dtype], vec, cpl,
+                                      device.index or 0,
+                                      ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"dgl_row_slot_grad_attrs: CUDA error {err}")
     return out[0], out[1], out[2]
 
 

@@ -20,9 +20,11 @@ kernels they replaced and edits of their own, all called from
 v1's slot walks and K10's edge ds beside the bucket walks they replaced
 (:mod:`.perf_slot_walks`), and the one that times K7's forward and K11's
 scores beside the kernels they replaced and an edit of each
-(:mod:`.perf_fwd_scores`); :mod:`.perf_row_walk_bits` holds the row
-walks' and the dot-product walk's instances of two checkouts to the same
-bits.  Each runs as ``python -m
+(:mod:`.perf_fwd_scores`), and the one that times K11 v1's slot gradient
+and K10 v2's scores beside the kernels they replaced and an edit of each
+(:mod:`.perf_slot_grad_scores`); :mod:`.perf_row_walk_bits` holds the
+row walks', the dot-product walk's, the slot walk's and the scores'
+instances of two checkouts to the same bits.  Each runs as ``python -m
 dgl_tpu_torch.tools.<name> [tiny]``; nothing runs at import.  The
 retired tiled walks' launch arithmetic (:func:`tile_group`,
 :func:`tile_group_per_sm`, :func:`tile_splits`) lives here, shared by the

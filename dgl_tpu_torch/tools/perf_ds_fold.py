@@ -12,9 +12,10 @@ timed beside the design that replaced it, in one run on the card:
 * K9's da (``vattn_slot_grad`` without the edge term): the node-gradient
   walk by dst with da folded in (``row_agg_kernel<VEC, CPL, true, true>``)
   beside the tiled walk it replaced, ``vattn_slot_grad_kernel<C, float,
-  false>`` of ``csrc/gatv2.cu`` (instantiated again by the edit
-  ``TILED_DA``): a warp a 32-slot chunk, both node rows of every slot
-  gathered with scalar loads, da met in shared-memory atomics.
+  false>`` (instantiated again by the edit ``TILED_DA`` of
+  ``tools/slot_grad_scores_probe.cu``, where the kernel went when K11 v1's
+  slot gradient left it): a warp a 32-slot chunk, both node rows of every
+  slot gathered with scalar loads, da met in shared-memory atomics.
 
 Both edited sources are built with the package's ``nvcc`` flags into its
 build directory (``tools.build_edited``), side by side, at the first call
@@ -36,8 +37,8 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import build_edited, edited_source
+from . import perf_slot_grad_scores as tsg
 from . import perf_slot_walks as tsl
-from ..ops.kernels import gat_fused as tgf
 from ..ops.kernels import tiled_spmm as tts
 
 # tools/slot_walks_probe.cu with gat_ds_kernel's instance without an edge
@@ -48,8 +49,8 @@ BUCKET_DS = [("  switch (mode) {\n    case 1:\n"
               "      return launch_ds<L, false, false, float, false>"
               "(DGL_DS_ARGS);\n    case 1:\n"
               "      return launch_ds<L, true, false, float, false>")]
-# csrc/gatv2.cu with vattn_slot_grad_kernel's instances without a stored
-# term (K9's da) back in its dispatch
+# tools/slot_grad_scores_probe.cu with vattn_slot_grad_kernel's instances
+# without a stored term (K9's da) back in its dispatch
 TILED_DA = [("    return cudaErrorInvalidValue;  // K9's da: csrc/row_agg.cu's fold\n",
              "    if (cols == 1) return launch_slot_grad<1, float, false>("
              "DGL_GRAD_ARGS);\n"
@@ -64,16 +65,18 @@ _LOCK = threading.Lock()
 
 
 def edited_sources():
-    """(``tools/slot_walks_probe.cu`` with BUCKET_DS, ``csrc/gatv2.cu``
-    with TILED_DA)."""
+    """(``tools/slot_walks_probe.cu`` with BUCKET_DS,
+    ``tools/slot_grad_scores_probe.cu`` with TILED_DA)."""
     return (edited_source("slot_walks_probe", BUCKET_DS, "bucket_ds",
                           path=tsl.PROBE_SOURCE),
-            edited_source("gatv2", TILED_DA, "tiled_da"))
+            edited_source("slot_grad_scores_probe", TILED_DA, "tiled_da",
+                          path=tsg.PROBE_SOURCE))
 
 
 def build_probe():
     """{"bucket_ds": the edited probe source's ``dgl_gat_ds``,
-    "tiled_da": the edited ``gatv2.cu``'s ``dgl_vattn_slot_grad``}, the two
+    "tiled_da": the edited slot-gradient probe's ``dgl_vattn_slot_grad``},
+    the two
     built side by side at the first call (a caller in another thread waits
     for it)."""
     with _LOCK:
@@ -85,9 +88,10 @@ def build_probe():
                              {"bucket_ds": ds_src},
                              {"dgl_gat_ds":
                               tsl.RETIRED_SIGNATURES["dgl_gat_ds"]})
-            da = pool.submit(build_edited, "gatv2", {"tiled_da": da_src},
+            da = pool.submit(build_edited, "slot_grad_scores_probe",
+                             {"tiled_da": da_src},
                              {"dgl_vattn_slot_grad":
-                              tgf._VATTN_SIGNATURES["dgl_vattn_slot_grad"]})
+                              tsg.RETIRED_SIGNATURES["dgl_vattn_slot_grad"]})
             _BUILT["bucket_ds"] = ds.result()["bucket_ds"]["dgl_gat_ds"]
             _BUILT["tiled_da"] = (
                 da.result()["tiled_da"]["dgl_vattn_slot_grad"])
@@ -131,7 +135,7 @@ def tiled_da(tf, U3, V3, attn, ds, slope: float):
     da = torch.zeros(heads, dim, dtype=torch.float32, device=dev)
     u, v, a, d = (t.float().contiguous() for t in (U3, V3, attn, ds))
     b, cap = tf.num_buckets, tf.cap
-    blocks = max(1, min(-(-(b * cap // 32) // tgf._VATTN_WARPS),
+    blocks = max(1, min(-(-(b * cap // 32) // tsg._BUCKET_WARPS),
                         4 * tts._sms(dev)))
     _check(build_probe()["tiled_da"](
         tf.src_local.data_ptr(), tf.dst_local.data_ptr(),

@@ -18,7 +18,14 @@ depend on its order; each dot-product walk sums a dot in one fixed order:
 two checkouts that compile one instance alike give the same bits.  K11's
 logits are exact too, and p is one expf of each, so a checkout whose
 scores are another kernel (the bucket walk before the dot-product walk
-took them) gives the same bits as well.
+took them) gives the same bits as well.  The slot walk's instances (K11
+v1's node sums on both sides and K10 v1's numerator and dx with dfe, f32
+and bf16 stored rows; K10 v2's slot-feature reduce) and K11 v1's slot
+gradient (da, dFE and dFNJ, f32 and bf16 rows), on the same COO in
+buckets of 128 slots, and the scores (K6's, K10 v1's with the slot bias,
+K10 v2's with the edge logit, p and g) are hashed, every output of each:
+a (B, C, F) stored slot tensor by its valid rows and whether any padded
+row holds a nonzero.
 
 Usage, from the root of a checkout, on the card::
 
@@ -121,11 +128,69 @@ def _run(root: str):
             lambda fe=fe: tgf.egatc_scores(tf, x, z, attn4, fe, 0.25))
     calls["k11v2_scores"] = lambda: tgf.vattn_scores(tf, x, z, attn4, 0.25,
                                                      ef, wf)
+    # the slot walk's instances (K10 v1's numerator and dx with dfe, K11
+    # v1's node sums, K10 v2's slot-feature reduce) and K11 v1's slot
+    # gradient (da, dFE and dFNJ: a checkout whose slot gradient writes no
+    # dFNJ takes the slot vector sum of its dFE by dst), every output of
+    # each, on the same COO in buckets of 128 slots (sf: its (B, C, 128)
+    # stored tensors 3.4 GB in f32, where tf's would take 13.6)
+    sf = tts.build_tiled_format_device(row, col, N_NODES, N_NODES, cap=128,
+                                       device="cuda").with_src_first()
+    b2, cap2 = sf.num_buckets, sf.cap
+    valid2 = sf.valid.view(b2, 1, cap2)
+    ps = tgf._slot_major(grid(b2, 4, cap2, step=1 / 16, top=4).abs()
+                         * valid2)
+    g2 = grid(b2, 4, cap2, step=1 / 8) * valid2
+    ef2 = torch.randint(-1, 2, (b2, cap2, 16), device="cuda",
+                        generator=gen).float() * sf.valid.view(b2, cap2, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        # stored rows of 1/16 in [-1, 1], 0 at padded slots
+        st = torch.randint(-16, 17, (b2, cap2, 128), dtype=torch.int8,
+                           device="cuda", generator=gen).to(dtype)
+        st.mul_(1 / 16).mul_(sf.valid.view(b2, cap2, 1).to(dtype))
+        name = str(dtype).split(".")[-1]
+        for side in ("dst", "src"):
+            calls[f"slot_vec_{side}_{name}"] = (
+                lambda st=st, side=side: tgf.slot_vec_reduce(sf, st, side))
+        calls[f"k10v1_num_{name}"] = (
+            lambda st=st: tgf.fe_aggregate(sf, x, st, ps))
+        calls[f"k10v1_dx_dfe_{name}"] = (
+            lambda dtype=dtype: tgf.dx_dfe(sf, z, ps, dtype))
+
+        def slot_grad(st=st):
+            got = tgf.egatc_slot_grad(sf, x, z, attn4, st, g2, 0.25)
+            if len(got) == 2:
+                got = got + (tgf.slot_vec_reduce(sf, got[1], "dst"),)
+            return got
+
+        calls[f"k11v1_slot_grad_{name}"] = slot_grad
+    calls["k10v2_feat"] = lambda: tgf.slot_feat_reduce(sf, ps, ef2)
+    # the scores (K6's, K10 v1's with the slot bias, K10 v2's with the
+    # edge logit): p and g
+    el, er = grid(N_NODES, 4), grid(N_NODES, 4)
+    m = grid(16, 4, step=1 / 256, top=0.5)
+    calls["k6_scores"] = lambda: tgf.gat_scores(tf, el, er, 0.2)
+    calls["k10v1_scores"] = lambda: tgf.gat_scores(tf, el, er, 0.2, g)
+    calls["k10v2_scores"] = lambda: tgf.edgegat_scores(tf, el, er, ef, m,
+                                                       0.2)
+    live = torch.nonzero(sf.valid.reshape(-1) > 0).reshape(-1)
+    pad = sf.valid.reshape(-1) == 0
     digests, times = {}, {}
     for name, call in calls.items():
         got = call()
-        got = (got[0] if isinstance(got, tuple) else got).cpu().numpy()
-        digests[name] = hashlib.sha256(got.tobytes()).hexdigest()
+        h = hashlib.sha256()
+        for t in got if isinstance(got, tuple) else (got,):
+            if t.dim() == 3 and tuple(t.shape[:2]) == (b2, cap2):
+                # a (B, C, F) slot tensor of sf: whether any padded row
+                # holds a nonzero, then the valid rows
+                rows = t.reshape(b2 * cap2, -1)
+                h.update(bytes([int(rows.ne(0).any(dim=1)[pad].any())]))
+                t = rows[live]
+            # the bytes as stored (numpy has no bfloat16)
+            h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        digests[name] = h.hexdigest()
+        del got
         times[name] = cuda_ms(call)
     return times, digests
 
@@ -142,10 +207,13 @@ def main():
     for root in args:
         # the file run as a script: the process imports the package only
         # from ``root``
-        out = subprocess.run(
+        done = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", root],
-            check=True, capture_output=True, text=True).stdout
-        runs.append(json.loads(out.strip().splitlines()[-1]))
+            capture_output=True, text=True)
+        if done.returncode != 0:
+            raise SystemExit(f"the run of {root} failed "
+                             f"(rc {done.returncode}):\n{done.stderr}")
+        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
     for i, (root, (_, digests)) in enumerate(zip(args, runs)):
         print(f"# run {i} ({root}): the same bits as run 0 at every "
               f"instance: {digests == runs[0][1]}")

@@ -22,7 +22,12 @@ cores adds its blocks' partials in block order and its node gradient, the
 row walk with the edge term, sums each row in slot order (both bit for
 bit on dyadic inputs).  K7's forward sums a row in registers in one order
 too; K11's scores, the dot-product walk in its scores mode, form each
-logit in one lane order (the raw sums bit for bit on dyadic inputs)."""
+logit in one lane order (the raw sums bit for bit on dyadic inputs).  K11
+v1's slot gradient, the slot walk by dst, sums dFNJ in slot order and da
+over static ranges added in range order, and K10 v2's scores form each
+logit by FMAs in feature order: bit for bit on dyadic inputs, the scores
+also bit for bit against the kernel they replaced and the staged
+design."""
 import math
 
 import numpy as np
@@ -1946,9 +1951,10 @@ def test_v1_kernels_match_plain(card, heads, dim, dtype):
     """Each K11 v1 kernel (the scores and the slot gradient over a stored
     FE, the slot vector sum on both sides) and each K10 v1 kernel (the
     numerator with a stored message, its ds, dx with dfe) against its plain
-    version, the stored slot tensors in ``dtype``.  Inputs lie on dyadic
-    grids, so every per-slot value and every sum over a node's slots is
-    exact in any order; da sums over every slot (atol of its magnitude)."""
+    version, the stored slot tensors in ``dtype``; the slot gradient's dFNJ
+    too.  Inputs lie on dyadic grids, so every per-slot value and every sum
+    over a node's slots is exact in any order; da sums over every slot
+    (atol of its magnitude)."""
     fwd, _, _, _ = _tiled(card)
     fwd = fwd.with_src_first()
     b, cap = fwd.num_buckets, fwd.cap
@@ -1968,16 +1974,16 @@ def test_v1_kernels_match_plain(card, heads, dim, dtype):
         "egatc_scores", "egatc_slot_grad", "slot_vec_reduce", "fe_aggregate",
         "fe_ds", "dx_dfe")]
     before = [k.launches for k in counters]
-    da, dfe = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.25)
-    want_da, want_dfe = tgf.egatc_slot_grad_plain(fwd, U, V, attn, fe, ds,
-                                                  0.25)
+    da, dfe, dfnj = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.25)
+    want_da, want_dfe, want_dfnj = tgf.egatc_slot_grad_plain(
+        fwd, U, V, attn, fe, ds, 0.25)
     assert dfe.dtype == dtype
     dx, dfe2 = tgf.dx_dfe(fwd, zn, p, dtype)
     want_dx, want_dfe2 = tgf.dx_dfe_plain(fwd, zn, p, dtype)
     pairs = [
         (tgf.egatc_scores(fwd, U, V, attn, fe, 0.25),
          tgf.egatc_scores_plain(fwd, U, V, attn, fe, 0.25)),
-        (dfe.float(), want_dfe.float()),
+        (dfe.float(), want_dfe.float()), (dfnj, want_dfnj),
         (tgf.slot_vec_reduce(fwd, dfe, "dst"),
          tgf.slot_vec_reduce_plain(fwd, dfe, "dst")),
         (tgf.slot_vec_reduce(fwd, dfe, "src"),
@@ -2950,3 +2956,237 @@ def test_fwd_scores_probe_retired_kernels(card):
         torch.testing.assert_close(
             tfs.bucket_scores(fwd, U, V, attn, 0.01, fe_slot=t),
             tgf.egatc_scores(fwd, U, V, attn, t, 0.01), rtol=RTOL, atol=ATOL)
+
+
+# -- K11 v1's slot gradient on the slot walk, K10 v2's scores -----------------
+
+def _slot_grad_inputs(card, tf, heads, dim, dtype, seed):
+    """U, V (multiples of 1/16 in [-1, 1]), attn and FE (of 1/16 in [-1/2,
+    1/2], FE in ``dtype``, 0 at padded slots) and ds (of 1/8 in [-1, 1]):
+    with slope 0.25 every dW lies on 1/512 and every sum is exact."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, cap = tf.num_buckets, tf.cap
+    U = _grid(card, gen, tf.num_src, heads, dim, step=1 / 16, top=1)
+    V = _grid(card, gen, tf.num_dst, heads, dim, step=1 / 16, top=1)
+    attn = _grid(card, gen, heads, dim, step=1 / 16, top=0.5)
+    fe = (_grid(card, gen, b, cap, heads * dim, step=1 / 16, top=0.5)
+          * tf.valid.view(b, cap, 1)).to(dtype)
+    ds = _grid(card, gen, b, heads, cap, step=1 / 8, top=1) * \
+        tf.valid.view(b, 1, cap)
+    return U, V, attn, fe, ds
+
+
+@pytest.mark.parametrize("heads,dim", [(4, 32), (1, 41), (8, 8), (2, 64),
+                                       (4, 80), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slot_grad_walk_bit_for_bit(card, heads, dim, dtype):
+    """K11 v1's slot gradient on the hub graph (dst hubs, rows with no
+    entry): da, dFE and dFNJ equal the plain version's bit for bit with ds
+    slot-major and in (B, H, C), twice; dFE 0 at the padded slots, dFNJ 0
+    on the empty rows and equal to the slot vector sum of dFE by dst (the
+    sum it took over) bit for bit; one launch a call."""
+    fwd = _hub_tiled(card)
+    U, V, attn, fe, ds = _slot_grad_inputs(card, fwd, heads, dim, dtype,
+                                           heads * 100 + dim)
+    want = tgf.egatc_slot_grad_plain(fwd, U, V, attn, fe, ds, 0.25)
+    before = tgf.egatc_slot_grad.launches
+    for layout in (ds, tgf._slot_major(ds), tgf._slot_major(ds)):
+        got = tgf.egatc_slot_grad(fwd, U, V, attn, fe, layout, 0.25)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    torch.cuda.synchronize()
+    assert tgf.egatc_slot_grad.launches == before + 3
+    assert got[1].dtype == dtype
+    b, cap = fwd.num_buckets, fwd.cap
+    assert (got[1].masked_select(fwd.valid.view(b, cap, 1) == 0) == 0).all()
+    view = fwd.row_view("dst")
+    empty = (view.ptr[1:] - view.ptr[:-1]) == 0
+    assert empty.any() and (got[2][empty] == 0).all()
+    assert torch.equal(got[2], tgf.slot_vec_reduce(fwd, got[1], "dst"))
+
+
+def test_slot_grad_walk_normal_inputs(card):
+    """On normal inputs the slot gradient is close to its plain version
+    (da's atol scaled by its magnitude), dFNJ equals the slot vector sum of
+    its dFE bit for bit, and two launches give the same bits."""
+    fwd = _hub_tiled(card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    b, cap = fwd.num_buckets, fwd.cap
+    U = torch.randn(fwd.num_src, 4, 32, device=card, generator=gen)
+    V = torch.randn(fwd.num_dst, 4, 32, device=card, generator=gen)
+    attn = torch.randn(4, 32, device=card, generator=gen)
+    fe = torch.randn(b, cap, 128, device=card, generator=gen) * \
+        fwd.valid.view(b, cap, 1)
+    ds = torch.randn(b, 4, cap, device=card, generator=gen) * \
+        fwd.valid.view(b, 1, cap)
+    got = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.2)
+    again = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.2)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+    want = tgf.egatc_slot_grad_plain(fwd, U, V, attn, fe, ds, 0.2)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL * max(
+        1.0, float(want[0].abs().max())))
+    for a, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got[2], tgf.slot_vec_reduce(fwd, got[1], "dst"))
+
+
+def test_slot_grad_walk_attrs(card):
+    """The slot-gradient walk's main instances (one vector of 4 floats a
+    lane, f32 and bf16 rows: EGATConv's (4, 32)) take no local memory and
+    at most 128 registers; every instance builds and reports its
+    attributes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        regs, local, blocks = tts.slot_grad_kernel_attrs(dtype, 4, 1)
+        assert regs <= 128 and local == 0 and blocks >= 2, (regs, local)
+        for vec, cpl in ((4, 2), (1, 1), (1, 2), (1, 4)):
+            assert tts.slot_grad_kernel_attrs(dtype, vec, cpl)[0] > 0
+
+
+def test_egatc_v1_step_launches(card):
+    """EGATConv v1's backward through the autograd function: one slot
+    gradient and one slot vector sum (dFNI) a step, every gradient equal to
+    the plain versions' chain on dyadic inputs."""
+    fwd = _hub_tiled(card)
+    heads, dim = 4, 32
+    U, V, attn, fe, _ = _slot_grad_inputs(card, fwd, heads, dim,
+                                          torch.float32, 7)
+    gen = torch.Generator(device=card).manual_seed(8)
+    x = _grid(card, gen, fwd.num_src, heads, dim, step=1 / 16, top=1)
+    leaves = [t.clone().requires_grad_() for t in (U, V, fe, attn, x)]
+    before = (tgf.egatc_slot_grad.launches, tgf.slot_vec_reduce.launches)
+    out = tgf.egatconv_attention_aggregate(fwd, *leaves[:3], leaves[3],
+                                           leaves[4], heads, dim, dim, 0.25)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tgf.egatc_slot_grad.launches - before[0],
+            tgf.slot_vec_reduce.launches - before[1]) == (1, 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+
+
+@pytest.mark.parametrize("fe", [1, 4, 5, 8, 12, 16, 31, 32])
+@pytest.mark.parametrize("heads", [1, 4, 8])
+def test_edge_scores_bit_for_bit(card, heads, fe):
+    """K10 v2's scores (each lane's own row) equal the plain version bit
+    for bit on dyadic inputs (the logit exact, the same expf), twice, and
+    the kernel they replaced and the staged design
+    (``tools/perf_slot_grad_scores.py``) bit for bit on normal inputs,
+    with ef 16-byte aligned and not; p and g 0 at padded slots."""
+    from dgl_tpu_torch.tools import perf_slot_grad_scores as tsg
+    fwd = _hub_tiled(card)
+    b, cap = fwd.num_buckets, fwd.cap
+    gen = torch.Generator(device=card).manual_seed(heads * 100 + fe)
+    el = _grid(card, gen, fwd.num_src, heads, step=1 / 16, top=1)
+    er = _grid(card, gen, fwd.num_dst, heads, step=1 / 16, top=1)
+    ef = torch.randint(-1, 2, (b, cap, fe), device=card,
+                       generator=gen).float() * fwd.valid.view(b, cap, 1)
+    m = _grid(card, gen, fe, heads, step=1 / 256, top=0.5)
+    want = tgf.edgegat_scores_plain(fwd, el, er, ef, m, 0.2)
+    for _ in range(2):
+        for a, w in zip(tgf.edgegat_scores(fwd, el, er, ef, m, 0.2), want):
+            assert torch.equal(a, w)
+    pad = fwd.valid.view(b, 1, cap) == 0
+    assert (want[0].masked_select(pad) == 0).all()
+    el, er = (torch.randn(n, heads, device=card, generator=gen)
+              for n in (fwd.num_src, fwd.num_dst))
+    ef = torch.randn(b, cap, fe, device=card, generator=gen) * \
+        fwd.valid.view(b, cap, 1)
+    m = torch.randn(fe, heads, device=card, generator=gen)
+    new = tgf.edgegat_scores(fwd, el, er, ef, m, 0.2)
+    for a, w in zip(new, tsg.thread_scores(fwd, el, er, 0.2, ef_slot=ef,
+                                           m=m)):
+        assert torch.equal(a, w)
+    for a, w in zip(new, tsg.staged_scores(fwd, el, er, ef, m, 0.2)):
+        assert torch.equal(a, w)
+    odd = torch.empty(ef.numel() + 1, device=card)[1:].view(ef.shape)
+    odd.copy_(ef)
+    for a, w in zip(tgf.edgegat_scores(fwd, el, er, odd, m, 0.2), new):
+        assert torch.equal(a, w)
+
+
+def test_edge_scores_attrs_and_gate(card):
+    """The scores at EdgeGATConv's 16 features and at 5 and 31 take no
+    local memory; the gate asks only that M fit a block, so a width whose
+    staged rows would not fit 8 warps of the staged design runs on the
+    kernel and equals the plain version."""
+    from dgl_tpu_torch.tools import perf_slot_grad_scores as tsg
+    regs, local, blocks = tgf.edge_scores_kernel_attrs(16, 4)
+    assert local == 0 and blocks >= 2, (regs, local, blocks)
+    for fe in (5, 31):
+        assert tgf.edge_scores_kernel_attrs(fe, 4)[1] == 0
+    fwd = _hub_tiled(card)
+    b, cap, fe = fwd.num_buckets, fwd.cap, 300
+    assert tsg.staged_scores_warps(fe, 1, True) < 8 and \
+        tgf.edgegat_fits(1, fe) and tgf.edgegat_fits(1, 2000)
+    gen = torch.Generator(device=card).manual_seed(4)
+    el = _grid(card, gen, fwd.num_src, 1, step=1 / 16, top=1)
+    er = _grid(card, gen, fwd.num_dst, 1, step=1 / 16, top=1)
+    ef = torch.randint(-1, 2, (b, cap, fe), device=card,
+                       generator=gen).float() * fwd.valid.view(b, cap, 1)
+    m = _grid(card, gen, fe, 1, step=1 / 256, top=0.0625)
+    for a, w in zip(tgf.edgegat_scores(fwd, el, er, ef, m, 0.2),
+                    tgf.edgegat_scores_plain(fwd, el, er, ef, m, 0.2)):
+        assert torch.equal(a, w)
+
+
+def test_k6_scores_keep_their_bits(card):
+    """K6's and K10 v1's instances of the scores (gat_scores_kernel<kBias>)
+    give the bits of the retired template's same instances."""
+    from dgl_tpu_torch.tools import perf_slot_grad_scores as tsg
+    fwd, _, _, _ = _tiled(card)
+    b, cap = fwd.num_buckets, fwd.cap
+    gen = torch.Generator(device=card).manual_seed(5)
+    el = torch.randn(fwd.num_src, 4, device=card, generator=gen)
+    er = torch.randn(fwd.num_dst, 4, device=card, generator=gen)
+    ee = torch.randn(b, 4, cap, device=card, generator=gen)
+    for extra in ({}, {"ee_slot": ee}):
+        for a, w in zip(tgf.gat_scores(fwd, el, er, 0.2, **extra),
+                        tsg.thread_scores(fwd, el, er, 0.2, **extra)):
+            assert torch.equal(a, w)
+
+
+def test_slot_grad_scores_probe(card):
+    """``tools/perf_slot_grad_scores.py``: the retired bucket walk gives
+    the slot gradient's dFE and da on a grid (da exact in any order), the
+    edit ``unfolded`` its dFE and da bit for bit, the edits of the
+    entries in flight at one float a load its da, dFE and dFNJ bit for bit
+    at (1, 41), the staged design the scores' p and g bit for bit;
+    ``perf_ds_fold``'s K9 instances of the retired walk, built from the
+    probe source, give K9's da."""
+    from dgl_tpu_torch.tools import perf_ds_fold as tdf
+    from dgl_tpu_torch.tools import perf_slot_grad_scores as tsg
+    fwd = _hub_tiled(card)
+    for dtype in (torch.float32, torch.bfloat16):
+        U, V, attn, fe, ds = _slot_grad_inputs(card, fwd, 4, 32, dtype, 9)
+        new = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.25)
+        old = tsg.bucket_slot_grad(fwd, U, V, attn, fe, ds, 0.25)
+        assert torch.equal(old[0], new[0]) and torch.equal(old[1], new[1])
+        un = tsg.grad_edit("unfolded", fwd, U, V, attn, fe, ds, 0.25)
+        assert torch.equal(un[0], new[0]) and torch.equal(un[1], new[1])
+        U, V, attn, fe, ds = _slot_grad_inputs(card, fwd, 1, 41, dtype, 12)
+        new = tgf.egatc_slot_grad(fwd, U, V, attn, fe, ds, 0.25)
+        for name in ("vec1_unroll4", "vec1_unroll2"):
+            for a, w in zip(tsg.grad_edit(name, fwd, U, V, attn, fe, ds,
+                                          0.25), new):
+                assert torch.equal(a, w), name
+    gen = torch.Generator(device=card).manual_seed(10)
+    b, cap = fwd.num_buckets, fwd.cap
+    el = torch.randn(fwd.num_src, 4, device=card, generator=gen)
+    er = torch.randn(fwd.num_dst, 4, device=card, generator=gen)
+    ef = torch.randn(b, cap, 16, device=card, generator=gen) * \
+        fwd.valid.view(b, cap, 1)
+    m = torch.randn(16, 4, device=card, generator=gen)
+    for a, w in zip(tsg.staged_scores(fwd, el, er, ef, m, 0.2),
+                    tgf.edgegat_scores(fwd, el, er, ef, m, 0.2)):
+        assert torch.equal(a, w)
+    for variant in (None, *tsg.GRAD_EDITS):
+        regs, local, _ = tsg.grad_attrs(torch.float32, 4, 1, variant)
+        assert regs > 0 and local == 0
+    for staged in (False, True):
+        assert tsg.scores_attrs(16, 4, staged)[1] == 0
+    U, V, attn, _, ds = _slot_grad_inputs(card, fwd, 8, 8, torch.float32, 11)
+    da = tgf.vattn_node_grad_da(fwd, U, V, attn, ds, 0.25)[1]
+    torch.testing.assert_close(tdf.tiled_da(fwd, U, V, attn, ds, 0.25), da,
+                               rtol=RTOL, atol=ATOL * max(
+                                   1.0, float(da.abs().max())))

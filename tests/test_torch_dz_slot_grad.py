@@ -61,6 +61,7 @@ import dgl_tpu_torch.ops.kernels.bitmm as tbm
 import dgl_tpu_torch.ops.kernels.gat_fused as tgf
 import dgl_tpu_torch.ops.kernels.tiled_spmm as tts
 from dgl_tpu_torch.tools import perf_dz_slot_grad as tdz
+from dgl_tpu_torch.tools import perf_slot_grad_scores as tsg
 from test_torch_bwd_walks import LANE, _bit_graph, _drains
 from test_torch_gat_fused import N, _coo, _formats, _kink_close
 from test_torch_gatv2 import (EGAT_SLOPE, FE, J_DIM, J_FIN, J_HEADS, _ef_t,
@@ -661,7 +662,10 @@ def test_retired_kernels_left_the_package():
         assert "reduce_scatter" not in src and "DGL_GRAD_CASE" not in src
     with open(f"{CSRC}/gatv2.cu") as f:
         gatv2 = f.read()
-    assert "template <int kCols, typename T, bool kStore>" in gatv2
+    # K11 v1's stored instances left too, for the slot-gradient probe
+    assert "template <int kCols, typename T, bool kStore>" not in gatv2
+    with open(tsg.PROBE_SOURCE) as f:
+        assert "template <int kCols, typename T, bool kStore>" in f.read()
     assert "template <int kCols, int kFe, bool kDef" not in gatv2
     assert "dgl_bitdot_bwd_dz\"" not in str(tbd._SIGNATURES)
     assert "dgl_bitdot_bwd_dz_list" in tbd._SIGNATURES
